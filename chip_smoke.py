@@ -10,8 +10,10 @@ Phases, each fatal on failure:
   2. ``greedy_place`` against its plain torch version on the card, float32:
      the five cost-aware modes over six (T, H) shapes, the edge cases
      (T = 0, nothing fits, invalid tasks, a ``live`` mask, a ``risk``
-     row) and the replica-batched launch at R = 5 and R = 256.
-     Placements must be equal; availability within rtol 1e-6 / atol 1e-5;
+     row) and the replica-batched launch at R = 5 and R = 256, each on
+     sparse inputs (few tasks fit) and dense ones (most place, with a
+     floor on the placements made).  Placements must be equal;
+     availability within rtol 1e-6 / atol 1e-5;
   3. end to end: the ``overall`` experiment (Opportunistic, VBP,
      Cost-Aware) at 600 hosts x 1000 apps through the port's CLI entry
      point, on ``--device cuda --no-adaptive`` and on ``--device numpy``.
@@ -20,9 +22,10 @@ Phases, each fatal on failure:
      Cost-Aware run shadows every tick with the plain version (identical
      placements required) and checks ``placement_sensitivity`` (R = 256)
      against the plain batched version at each new largest tick;
-  4. times on the card by CUDA events: the kernel per tick (median over
-     the run's ticks, and at T = 619 / 2048, H = 600), the R = 256
-     launch, the plain version, and the roofline bound.
+  4. times on the card by CUDA events: the wrapper the main path calls
+     per tick (median over the run's ticks, and at T = 619 / 2048,
+     H = 600), the R = 256 launch, the plain version, and the roofline
+     bound.
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
@@ -73,13 +76,18 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def make_inputs(seed, T, H, device, frac_new_group=0.2):
-    """Seeded f32 tick inputs (the pattern of ``tests/test_pallas.py``)."""
+def make_inputs(seed, T, H, device, frac_new_group=0.2, dense=False):
+    """Seeded f32 tick inputs (the pattern of ``tests/test_pallas.py``).
+    That pattern draws demand dimension 1 from [0, 4000) against
+    availability in [0, 16), so few tasks fit anywhere; ``dense`` draws
+    it from [0, 4) instead, so that most tasks place until the hosts
+    fill and every score, tie-break and decrement is exercised."""
     rng = np.random.default_rng(seed)
     avail = rng.uniform(0, 16, size=(H, 4)).astype(np.float32)
     demands = np.stack([
         rng.choice([0.0, 0.5, 1.0, 2.0, 4.0], size=T),
-        rng.uniform(0, 4000, size=T), np.zeros(T), np.zeros(T),
+        rng.uniform(0, 4 if dense else 4000, size=T), np.zeros(T),
+        np.zeros(T),
     ], axis=1).astype(np.float32)
     valid = rng.random(T) < 0.9
     new_group = rng.random(T) < frac_new_group
@@ -98,13 +106,17 @@ def make_inputs(seed, T, H, device, frac_new_group=0.2):
 
 class Check:
     """Kernel-vs-plain comparisons: exact placements, availability within
-    the tolerance; tracks the largest availability difference."""
+    the tolerance; tracks the largest availability difference and the
+    placements made."""
 
     def __init__(self):
         self.cases = 0
+        self.placed = 0
         self.max_abs_err = 0.0
 
-    def same(self, got, want, what) -> None:
+    def same(self, got, want, what, min_placed=0) -> None:
+        """``min_placed``: the fewest placements the case must make, so
+        that a dense case cannot pass on a handful of decisions."""
         (p, a), (pp, pa) = got, want
         torch.cuda.synchronize()
         if not torch.equal(p, pp):
@@ -115,16 +127,30 @@ class Check:
         if a.numel():
             self.max_abs_err = max(self.max_abs_err,
                                    float((a - pa).abs().max()))
+        placed = int((p >= 0).sum())
+        if placed < min_placed:
+            raise AssertionError(f"{what}: {placed} placements, fewer than "
+                                 f"the {min_placed} this case must make")
+        self.placed += placed
         self.cases += 1
+
+
+def dense_floor(args, R=1) -> int:
+    """Placements a dense case must make: a quarter of its valid tasks
+    in every replica."""
+    return R * int(args[2].sum()) // 4
 
 
 def phase_kernel_vs_plain(ck, device) -> Check:
     chk = Check()
-    for mode in MODES:
-        for seed, (T, H) in enumerate(SHAPES):
-            args = make_inputs(seed, T, H, device)
-            chk.same(ck.cost_aware_cuda(*args, **mode),
-                     ck.cost_aware_plain(*args, **mode), (mode, T, H))
+    for dense in (False, True):
+        for mode in MODES:
+            for seed, (T, H) in enumerate(SHAPES):
+                args = make_inputs(seed, T, H, device, dense=dense)
+                chk.same(ck.cost_aware_cuda(*args, **mode),
+                         ck.cost_aware_plain(*args, **mode),
+                         (mode, T, H, "dense" if dense else "sparse"),
+                         dense_floor(args) if dense else 0)
     # Edge cases.
     args = make_inputs(0, 0, 8, device)
     chk.same(ck.cost_aware_cuda(*args), ck.cost_aware_plain(*args), "T=0")
@@ -136,38 +162,46 @@ def phase_kernel_vs_plain(ck, device) -> Check:
                  ("no fit", mode))
         if int((got[0] >= 0).sum()):
             raise AssertionError("a task was placed where nothing fits")
-    args = make_inputs(2, 300, 50, device)
+    args = make_inputs(2, 300, 50, device, dense=True)
     args[2][::3] = False  # invalid tasks interspersed
     for mode in MODES:
-        chk.same(ck.cost_aware_cuda(*args, **mode),
-                 ck.cost_aware_plain(*args, **mode), ("invalid", mode))
+        got = ck.cost_aware_cuda(*args, **mode)
+        chk.same(got, ck.cost_aware_plain(*args, **mode), ("invalid", mode),
+                 dense_floor(args))
+        if bool((got[0][~args[2]] >= 0).any()):
+            raise AssertionError("an invalid task was placed")
     rng = np.random.default_rng(1)
     live = np.ones(600, bool)
     live[rng.choice(600, size=60, replace=False)] = False
     live = torch.from_numpy(live).to(device)
     risk = torch.from_numpy(rng.choice([0.0, 0.4, 1.5], size=600)
                             .astype(np.float32)).to(device)
-    args = make_inputs(3, 619, 600, device)
-    for mode in MODES:
-        for kw in (dict(live=live), dict(risk=risk),
-                   dict(live=live, risk=risk)):
-            got = ck.cost_aware_cuda(*args, **mode, **kw)
-            chk.same(got, ck.cost_aware_plain(*args, **mode, **kw),
-                     ("live/risk", mode, sorted(kw)))
-            if "live" in kw:
-                placed = got[0][got[0] >= 0].long()
-                if not bool(live[placed].all()):
-                    raise AssertionError("placed on a masked host")
-    # Replica-batched launches.
-    for R, (T, H) in ((5, (70, 40)), (256, (619, 600))):
-        args = make_inputs(4, T, H, device)
-        noise = torch.from_numpy(np.random.default_rng(9).uniform(
-            0.5, 1.5, (R, H, 1)).astype(np.float32)).to(device)
-        avail_r = (args[0][None] * noise).contiguous()
+    for dense in (False, True):
+        args = make_inputs(3, 619, 600, device, dense=dense)
         for mode in MODES:
-            chk.same(ck.cost_aware_cuda_batched(avail_r, *args[1:], **mode),
-                     ck.cost_aware_plain_batched(avail_r, *args[1:], **mode),
-                     ("batched", R, mode))
+            for kw in (dict(live=live), dict(risk=risk),
+                       dict(live=live, risk=risk)):
+                got = ck.cost_aware_cuda(*args, **mode, **kw)
+                chk.same(got, ck.cost_aware_plain(*args, **mode, **kw),
+                         ("live/risk", mode, sorted(kw), dense),
+                         dense_floor(args) if dense else 0)
+                if "live" in kw:
+                    placed = got[0][got[0] >= 0].long()
+                    if not bool(live[placed].all()):
+                        raise AssertionError("placed on a masked host")
+    # Replica-batched launches.
+    for dense in (False, True):
+        for R, (T, H) in ((5, (70, 40)), (256, (619, 600))):
+            args = make_inputs(4, T, H, device, dense=dense)
+            noise = torch.from_numpy(np.random.default_rng(9).uniform(
+                0.5, 1.5, (R, H, 1)).astype(np.float32)).to(device)
+            avail_r = (args[0][None] * noise).contiguous()
+            for mode in MODES:
+                chk.same(
+                    ck.cost_aware_cuda_batched(avail_r, *args[1:], **mode),
+                    ck.cost_aware_plain_batched(avail_r, *args[1:], **mode),
+                    ("batched", R, mode, dense),
+                    dense_floor(args, R) if dense else 0)
     return chk
 
 
@@ -347,65 +381,48 @@ def _host_ms(fn, reps) -> float:
 
 
 def bound(args, kw, R, n_eff):
-    """Least time for one pass at these inputs: the larger of the bytes
-    (each kernel input read once, each output written once) over HBM
-    bandwidth and the operations over the f32 peak.  Operations count
-    what this input's steps do per host: the fit test, select and min
-    (6) every step, plus the first-fit group score at each group entry
-    (10, +1 decay, +1 risk) or the best-fit score every step (15, +2
-    decay, +1 risk)."""
-    avail, dem, valid, ng = args[0], args[1], args[2], args[3]
-    H, T = avail.shape[-2], dem.shape[0]
+    """Least time for one call of the wrapper at these inputs: the larger
+    of the bytes over HBM bandwidth and the operations over the f32 peak.
+    Bytes: each of the function's own inputs read once — availability
+    ``[R, H, 4]``, the task stream up to ``n_eff`` (demands, valid,
+    new_group, anchor_zone), the ``[Z, Z]`` cost and bandwidth tables,
+    host_zone and the base counts ``[H]``, live / risk when given — and
+    each output written once (placements ``[R, T]``, availability).
+    Operations: building the two ``[Z, H]`` round-trip tables (one add
+    per entry each), then per host and replica the fit test, select and
+    min (6) every step, plus the first-fit group score at each group
+    entry (10, +1 decay, +1 risk) or the best-fit score every step (15,
+    +2 decay, +1 risk)."""
+    avail, dem, ng, cost_zz = args[0], args[1], args[3], args[5]
+    H, T, nz = avail.shape[-2], dem.shape[0], cost_zz.shape[0]
     first_fit = kw.get("bin_pack", "first-fit") == "first-fit"
     decay = kw.get("host_decay", False)
     risk = kw.get("risk") is not None
-    nbytes = (2 * R * H * 16 + T * (16 + 1 + 1 + 4) + 2 * Z * H * 4 + H * 4
-              + R * T * 4 + (H * 4 if risk else 0)
+    nbytes = (2 * R * H * 16 + n_eff * (16 + 1 + 1 + 4) + 2 * nz * nz * 4
+              + H * 4 + H * 4 + R * T * 4 + (H * 4 if risk else 0)
               + (H if kw.get("live") is not None else 0))
-    steps = n_eff
     if first_fit:
         entries = int(ng[:n_eff].sum()) if kw.get("sort_hosts", True) else 0
-        per_host = 6 * steps + (10 + decay + risk) * entries
+        per_host = 6 * n_eff + (10 + decay + risk) * entries
     else:
-        per_host = (6 + 15 + 2 * decay + risk) * steps
-    ops = R * H * per_host
+        per_host = (6 + 15 + 2 * decay + risk) * n_eff
+    ops = 2 * nz * H + R * H * per_host
     t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32_OPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase_times(ck, shadow, device):
-    from pivot_tpu_torch.ops.cuda_kernels import _launcher, _phase1
-
-    def kernel_only(args, kw, R=1):
-        """The bare ``greedy_place`` launch (phase 1 precomputed)."""
-        avail = args[0] if args[0].dim() == 3 else args[0][None]
-        T, H = args[1].shape[0], avail.shape[1]
-        cost_rt, bw_rt = _phase1(args[5], args[6], args[7])
-        base = args[8].to(torch.float32)
-        p = torch.empty((avail.shape[0], T), dtype=torch.int32, device=device)
-        out = torch.empty_like(avail)
-        n_eff = kw.get("n_eff") or T
-        risk, live = kw.get("risk"), kw.get("live")
-        fn = _launcher()
-
-        def run():
-            err = fn(avail.data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
-                     args[3].data_ptr(), args[4].data_ptr(),
-                     cost_rt.data_ptr(), bw_rt.data_ptr(), base.data_ptr(),
-                     None if risk is None else risk.data_ptr(),
-                     None if live is None else live.data_ptr(),
-                     p.data_ptr(), out.data_ptr(), avail.shape[0], T, n_eff,
-                     H, int(kw.get("bin_pack", "first-fit") == "first-fit"),
-                     int(kw.get("sort_hosts", True)),
-                     int(kw.get("host_decay", False)),
-                     torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"greedy_place launch failed: {err}")
-        return run
+    """Device time of the wrapper the main path calls (phase 1 and the
+    ``greedy_place`` launch), by CUDA events; the plain version by host
+    clock around a synchronised call."""
+    def wrapper(args, kw):
+        fn = (ck.cost_aware_cuda if args[0].dim() == 2
+              else ck.cost_aware_cuda_batched)
+        return lambda: fn(*args, **kw)
 
     times = {}
-    per_tick = [_events_ms(kernel_only(a, k), 5) for a, k in shadow.ticks]
+    per_tick = [_events_ms(wrapper(a, k), 5) for a, k in shadow.ticks]
     n_tasks = [k["n_eff"] for _a, k in shadow.ticks]
     times["tick_median_ms"] = statistics.median(per_tick)
     times["tick_sum_ms"] = sum(per_tick)
@@ -414,8 +431,7 @@ def phase_times(ck, shadow, device):
     a, k = shadow.ticks[big]
     times["largest_tick"] = dict(
         n_eff=n_tasks[big], bucket=a[1].shape[0], H=a[0].shape[0],
-        ms=_events_ms(kernel_only(a, k), 20),
-        wrapper_ms=_events_ms(lambda: ck.cost_aware_cuda(*a, **k), 20),
+        ms=_events_ms(wrapper(a, k), 20),
         plain_ms=_host_ms(lambda: ck.cost_aware_plain(*a, **k), 3),
         max_abs_err=shadow.check.max_abs_err,
     )
@@ -426,18 +442,18 @@ def phase_times(ck, shadow, device):
         args = make_inputs(5, T, 600, device)
         b_ms, b_by = bound(args, mode, 1, T)
         times[f"T{T}_H600"] = dict(
-            ms=_events_ms(kernel_only(args, mode), 20),
+            ms=_events_ms(wrapper(args, mode), 20),
             plain_ms=_host_ms(lambda: ck.cost_aware_plain(*args, **mode), 3),
             bound_ms=b_ms, bound_by=b_by)
     args = make_inputs(6, 619, 600, device)
     noise = torch.from_numpy(np.random.default_rng(9).uniform(
         0.95, 1.05, (256, 600, 1)).astype(np.float32)).to(device)
-    avail_r = (args[0][None] * noise).contiguous()
-    b_ms, b_by = bound([avail_r] + args[1:], mode, 256, 619)
+    args[0] = (args[0][None] * noise).contiguous()
+    b_ms, b_by = bound(args, mode, 256, 619)
     times["R256_T619_H600"] = dict(
-        ms=_events_ms(kernel_only([avail_r] + args[1:], mode), 5),
+        ms=_events_ms(wrapper(args, mode), 5),
         plain_ms=_host_ms(lambda: ck.cost_aware_plain_batched(
-            avail_r, *args[1:], **mode), 1),
+            *args, **mode), 1),
         bound_ms=b_ms, bound_by=b_by)
     return times
 
@@ -473,8 +489,8 @@ def main() -> int:
 
     log("== 2. greedy_place vs plain on the card (f32)")
     chk = phase_kernel_vs_plain(ck, device)
-    log(f"  {chk.cases} cases: placements equal, max |avail diff| "
-        f"{chk.max_abs_err!r} (rtol {RTOL}, atol {ATOL})")
+    log(f"  {chk.cases} cases, {chk.placed} placements: all equal, max "
+        f"|avail diff| {chk.max_abs_err!r} (rtol {RTOL}, atol {ATOL})")
 
     log("== 3. overall, 600 hosts x 1000 apps, cuda and numpy")
     e2e = phase_end_to_end(device)
@@ -484,19 +500,18 @@ def main() -> int:
     times = phase_times(ck, shadow, device)
     lt = times["largest_tick"]
     log(f"  [{card}]")
-    log(f"  kernel per tick: median {times['tick_median_ms']!r} ms over "
+    log(f"  wrapper per tick: median {times['tick_median_ms']!r} ms over "
         f"{len(shadow.ticks)} ticks (median n_eff "
         f"{times['tick_n_eff_median']})")
     log(f"  largest tick (n_eff={lt['n_eff']}, bucket {lt['bucket']}, "
-        f"H={lt['H']}): kernel {lt['ms']!r} ms, wrapper {lt['wrapper_ms']!r} "
-        f"ms, plain {lt['plain_ms']!r} ms, bound {lt['bound_ms']!r} ms "
-        f"({lt['bound_by']})")
+        f"H={lt['H']}): wrapper {lt['ms']!r} ms, plain {lt['plain_ms']!r} "
+        f"ms, bound {lt['bound_ms']!r} ms ({lt['bound_by']})")
     for key in ("T619_H600", "T2048_H600", "R256_T619_H600"):
         t = times[key]
-        log(f"  {key}: kernel {t['ms']!r} ms, plain {t['plain_ms']!r} ms, "
+        log(f"  {key}: wrapper {t['ms']!r} ms, plain {t['plain_ms']!r} ms, "
             f"bound {t['bound_ms']!r} ms ({t['bound_by']})")
     ca_wall = e2e["runs"]["cuda"]["arms"]["Cost-Aware"]["wall_clock"]
-    log(f"  greedy_place busy: {times['tick_sum_ms']!r} ms of kernel time "
+    log(f"  greedy_place busy: {times['tick_sum_ms']!r} ms of wrapper time "
         f"over the run's ticks = {times['tick_sum_ms'] / (ca_wall * 1e3)!r} "
         f"of the Cost-Aware arm's {ca_wall!r} s wall on cuda")
     for backend in ("cuda", "numpy"):

@@ -7,15 +7,17 @@ file in the job directory, each writing ``general.json``,
 ``transfers.json``, ``scheduler.json`` and ``host_usage.json`` under
 ``<output-dir>/overall/<stamp>/data/<trace index>/<arm>/``.  The global
 flags are those ``overall`` reads; ``--device`` picks the policy
-backend: ``naive`` / ``numpy`` (the CPU policies) or ``cuda`` (the torch
-device policies, the Cost-Aware arm through the hand-written kernel).
+backend: ``cuda`` (the default: the torch device policies, the
+Cost-Aware arm through the hand-written kernel, every tick on the card
+unless ``--adaptive`` lets small ticks go to the numpy twin) or
+``naive`` / ``numpy`` (the CPU policies).
 The other subcommands, ``--network native``, ``--batch-runs`` and
 ``--profile-dir``, and the plots are not ported yet (ROADMAP.md, port
 queue).
 
 Usage:
-  python -m pivot_tpu_torch.experiments.cli --device cuda --no-adaptive \\
-      --num-hosts 600 overall --num-apps 1000
+  python -m pivot_tpu_torch.experiments.cli --num-hosts 600 overall \\
+      --num-apps 1000
 """
 
 from __future__ import annotations
@@ -149,15 +151,21 @@ def parse_args(argv=None):
         default=1000,
     )
     parser.add_argument(
-        "--device", choices=["naive", "numpy", "cuda"], default="numpy",
-        help="policy backend",
+        "--device", choices=["naive", "numpy", "cuda"], default="cuda",
+        help="policy backend (default cuda; naive / numpy are the CPU "
+             "policies)",
+    )
+    parser.add_argument(
+        "--adaptive", action="store_true", dest="adaptive",
+        help="cuda backend: route each tick to the device or the "
+             "in-process numpy twin, whichever is predicted faster "
+             "(default: every tick goes to the device)",
     )
     parser.add_argument(
         "--no-adaptive", action="store_false", dest="adaptive",
-        help="cuda backend: always call the device, even for ticks too "
-             "small to amortize the per-call latency (default: adaptive "
-             "routing between device and in-process numpy twin)",
+        help="cuda backend: every tick goes to the device (the default)",
     )
+    parser.set_defaults(adaptive=False)
     parser.add_argument(
         "--executor", choices=["fast", "process"], default="fast",
         help="task executor: 'fast' callback executor (default) or the "

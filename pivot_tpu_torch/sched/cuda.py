@@ -27,8 +27,8 @@ router: twin cost = cells × per-cell EMA; device cost = probed round-trip
 floor + cells × per-cell EMA; each tick goes to the side predicted
 decisively faster, with symmetric exploration.  The device side's cell
 count is the true ``T × H``: both the slim torch pass and the kernel stop
-at the last valid task.  ``--no-adaptive`` routes every tick to the
-device.
+at the last valid task.  It is opt-in (the CLI's ``--adaptive``); by
+default every tick goes to the device.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 ``cuda`` without a card raises.  Not in this slice (ROADMAP.md, port

@@ -43,13 +43,13 @@ class ClusterConfig:
 class PolicyConfig:
     """Which placement policy, on which backend.
 
-    ``device``: 'naive' (reference-faithful Python), 'numpy' (vectorized
-    CPU), or 'cuda' (the torch device policies and the hand-written
-    kernel, ``pivot_tpu_torch.sched.cuda``).
+    ``device``: 'cuda' (the default: the torch device policies and the
+    hand-written kernel, ``pivot_tpu_torch.sched.cuda``), or the CPU
+    policies 'naive' (reference-faithful Python) and 'numpy' (vectorized).
     """
 
     name: str = "cost-aware"  # opportunistic | first-fit | best-fit | cost-aware
-    device: str = "numpy"
+    device: str = "cuda"
     decreasing: bool = False  # first/best-fit
     bin_pack: str = "first-fit"  # cost-aware
     sort_tasks: bool = False
@@ -59,7 +59,8 @@ class PolicyConfig:
     #: cuda backend only: route each tick to the device or the in-process
     #: numpy twin, whichever an online latency model predicts faster
     #: (small ticks cannot amortize the fixed per-call device latency).
-    adaptive: bool = True
+    #: Off by default: every tick goes to the device.
+    adaptive: bool = False
     label: Optional[str] = None
 
     @property
@@ -104,7 +105,7 @@ def build_cluster(cfg: ClusterConfig, meta=None):
 #: The reference's three experiment arms with their exact hyperparameters
 #: (``alibaba/sim.py:179-186``), on a chosen device backend.
 def reference_policy_set(
-    device: str = "numpy", adaptive: bool = True
+    device: str = "cuda", adaptive: bool = False
 ) -> Tuple[PolicyConfig, ...]:
     return (
         PolicyConfig(

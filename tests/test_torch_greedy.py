@@ -87,6 +87,53 @@ def test_plain_batched_matches_pallas(mode):
     assert_close(ref, new, mode)
 
 
+def dense(args, seed):
+    """``make_inputs``' tick with demand dimension 1 drawn from [0, 4)
+    instead of [0, 4000): against availability in [0, 16) most tasks
+    then place, so every score, tie-break and decrement is exercised."""
+    d = np.array(args[1])
+    d[:, 1] = np.random.default_rng(seed).uniform(0, 4, len(d))
+    return (args[0], jnp.asarray(d), *args[2:])
+
+
+def placed_enough(p, valid, R=1):
+    """A dense case places at least a quarter of its valid tasks per
+    replica."""
+    assert int((p >= 0).sum()) >= R * int(np.asarray(valid).sum()) // 4
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("seed,T,H", [(1, 300, 50), (7, 700, 40)])
+def test_plain_matches_pallas_dense(mode, seed, T, H):
+    args = dense(make_inputs(seed, T, H), seed)
+    ref = cost_aware_pallas(*args, **mode, interpret=True)
+    new = ck.cost_aware_plain(*as_torch(args), **mode)
+    assert_close(ref, new, (mode, seed, T, H))
+    placed_enough(new[0], args[2])
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_plain_dense_live_risk_batched_matches_pallas(mode):
+    """Dense ticks with a live mask and a risk row, at R=5 replicas."""
+    R, T, H = 5, 120, 40
+    args = dense(make_inputs(8, T, H), 8)
+    rng = np.random.default_rng(2)
+    live = np.ones(H, bool)
+    live[rng.choice(H, size=8, replace=False)] = False
+    risk = rng.choice([0.0, 0.4, 1.5], size=H).astype(np.float32)
+    avail_r = (np.asarray(args[0])[None]
+               * rng.uniform(0.5, 1.5, (R, H, 1))).astype(np.float32)
+    ref = cost_aware_pallas_batched(
+        jnp.asarray(avail_r), *args[1:], **mode, live=jnp.asarray(live),
+        risk=jnp.asarray(risk), interpret=True)
+    new = ck.cost_aware_plain_batched(
+        torch.from_numpy(avail_r), *as_torch(args[1:]), **mode,
+        live=torch.from_numpy(live), risk=torch.from_numpy(risk))
+    assert_close(ref, new, mode)
+    placed_enough(new[0], args[2], R)
+    assert live[new[0][new[0] >= 0].numpy()].all()
+
+
 def test_plain_empty_tick():
     args = make_inputs(0, 0, 8)
     p, a = ck.cost_aware_plain(*as_torch(args), **MODES[0])

@@ -16,6 +16,7 @@ import json
 import os
 
 import pytest
+import torch
 
 from pivot_tpu.experiments import cli as jcli
 from pivot_tpu_torch.experiments import cli as pcli
@@ -70,6 +71,20 @@ def test_overall_port_matches_reference(tmp_path, device):
         d = s["dispatch"]
         assert d["device_ticks"] > 0 and d["twin_ticks"] == 0
         assert d["kernel_ticks"] == 0  # the kernel serves cuda f32 only
+
+
+@pytest.mark.parametrize("extra,adaptive", [
+    ("", False), ("--no-adaptive", False), ("--adaptive", True)])
+def test_cli_defaults_to_the_card(tmp_path, extra, adaptive):
+    """With no ``--device`` the CLI runs the cuda policies with every tick
+    on the device; ``--adaptive`` is the opt-in to the host twin.  On a
+    machine without a card that default raises instead of running on
+    the CPU."""
+    args = pcli.parse_args(argv(tmp_path, "d", extra))
+    assert (args.device, args.adaptive) == ("cuda", adaptive)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            pcli.run_overall(args)
 
 
 def test_overall_resume_skips_completed_runs(tmp_path):
