@@ -4,25 +4,23 @@ Replaces ``pivot_tpu/ops/pallas_kernels.py``: ``cost_aware_cuda_batched``
 stands for ``cost_aware_pallas_batched`` (``:265``, body
 ``_greedy_body_batched`` ``:131``) and ``cost_aware_cuda`` for its R = 1
 case ``cost_aware_pallas`` (``:78``), with the same argument contract.
-Both launch ``greedy_place`` (``csrc/greedy_place.cu``): one CTA per
-replica, the replica's availability, frozen group scores and best-fit
-counters in shared memory for the whole pass.
+Both launch ``greedy_place`` (``csrc/greedy_place.cu``) once, on the
+operands as given: the kernel forms phase 1's round trips from the
+``[Z, Z]`` tables itself, so a call issues no other device operation.
 
-What bounds the kernel on the card: a T-step serial chain of block-wide
-(value, index) reductions — each task's choice feeds the next task's fit
-test — so it is latency-bound, not FLOP- or byte-bound.  The design keeps
-all carried state on chip and gives each replica its own CTA, so the
-R = 256 Monte-Carlo launch fills the card's SMs with independent chains.
-
-Phase 1 — the ``[Z, H]`` round-trip cost and bandwidth tables — is built
-with torch outside the kernel, as the JAX package builds it outside its
-``pallas_call``; the kernel reads row ``anchor_zone[i]`` per step and no
-``[T, H]`` table is ever materialized.
+What bounds the kernel on the card: a T-step serial chain of argmins —
+each task's choice feeds the next task's fit test — so it is
+latency-bound, not FLOP- or byte-bound.  The kernel keeps each host's
+state in registers of the thread that owns it, stages the task stream in
+shared memory a chunk ahead, and reduces with ``redux.sync``; a replica
+is a group of W warps, several groups to a block.  :func:`_launch_config`
+picks W, the hosts per thread K and the groups per block.
 
 Beside the kernel, ``cost_aware_plain_batched`` / ``cost_aware_plain`` are
 the same pass as a straightforward torch loop over tasks with the
-kernel's arithmetic.  The wrappers take the plain version for tensors on
-the CPU — and only then: on a CUDA tensor they launch the kernel or raise.
+kernel's arithmetic, phase 1 as torch ops.  The wrappers take the plain
+version for tensors on the CPU — and only then: on a CUDA tensor they
+launch the kernel or raise.
 
 ``LAUNCHES["greedy_place"]`` counts kernel launches (never plain calls).
 """
@@ -31,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -50,11 +48,27 @@ LAUNCHES = {"greedy_place": 0}
 
 _BIG = 1e30
 _NEG = -1e30
-#: Shared memory one CTA may opt into on Hopper (227 KB).
+_F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
+#: Shared memory one block may opt into on Hopper (227 KB).
 _SMEM_LIMIT = 232448
-#: 24 bytes per host (four availability lanes, one frozen score, one
-#: counter) plus 512 bytes of reduction slots — ``greedy_place_smem_bytes``.
-MAX_HOSTS = (_SMEM_LIMIT - 512) // 24
+#: SMs of an H100 SXM; replica groups spread over about this many blocks.
+_SMS = 132
+#: Hosts per thread the kernel is built for with per-host state in
+#: registers, and each build's thread limit per block (``max_threads`` in
+#: ``csrc/greedy_place.cu``, its ``__launch_bounds__``): K hosts of state
+#: must fit the 64K-register file.
+_REG_THREADS = {1: 1024, 2: 1024, 3: 768, 4: 640, 5: 512, 6: 512, 8: 384,
+                10: 320, 12: 256, 16: 256, 20: 256}
+#: Hosts per thread once the state outgrows the register file and moves to
+#: shared memory (20 bytes a host), at up to 1,024 threads.
+_SMEM_K = 10
+#: The most hosts a replica can have: 1,024 threads of ``_SMEM_K`` hosts,
+#: the largest K whose shared-memory state fits 227 KB beside the tables.
+MAX_HOSTS = 32 * 32 * _SMEM_K
+#: The default shape's step model: a warp issues K host evaluations per
+#: thread, warps beyond four share a scheduler, and W > 1 adds one
+#: cross-warp exchange that costs about this many host evaluations.
+_EXCHANGE_HOSTS = 4
 
 
 def reset_launches() -> None:
@@ -62,60 +76,128 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+class _Config(NamedTuple):
+    """One launch shape of ``greedy_place``."""
+
+    warps: int             # W: warps per replica group
+    hosts_per_thread: int  # K
+    smem_state: bool       # per-host state in shared memory, not registers
+    groups: int            # G: replica groups per block
+    threads: int           # 32·W·G
+    blocks: int            # ⌈R / G⌉
+    smem_bytes: int
+
+
+def _smem_bytes(Z, W, G, K, smem_state) -> int:
+    """``greedy_place_smem_bytes``: the [Z, Z] tables, per group the
+    double-buffered task chunk (40 B a task) and the cross-warp slots,
+    and shared-memory state (20 B a host slot)."""
+    def align16(n):
+        return -(-n // 16) * 16
+    chunk = min(32 * W, 256)
+    return (align16(8 * Z * Z) + G * align16(40 * chunk + 16 * W)
+            + (20 * K * 32 * W if smem_state else 0))
+
+
+def _limit_message(H, Z) -> str:
+    return (
+        f"H={H} hosts at Z={Z} outgrow greedy_place: past the register "
+        f"file each host keeps 20 bytes of state in shared memory beside "
+        f"the {8 * Z * Z}-byte [Z, Z] tables, and one Hopper CTA may opt "
+        f"into at most {_SMEM_LIMIT} bytes (227 KB) of it; at most "
+        f"{MAX_HOSTS} hosts fit (1024 threads x {_SMEM_K} hosts)"
+    )
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_config(R: int, H: int, Z: int,
+                   warps: Optional[int] = None) -> _Config:
+    """The launch shape for ``R`` replicas of ``H`` hosts and ``Z`` zones.
+
+    By default the register-resident shape (W warps a replica, K hosts a
+    thread, 32·W·K ≥ H) with the shortest modelled step, K·⌈W/4⌉ plus
+    ``_EXCHANGE_HOSTS`` when W > 1 (from the sweep at H = 600 in
+    ``PERF.md``); ``warps`` forces W.  Past the register file, ⌈H/320⌉
+    warps of ``_SMEM_K`` hosts in shared memory.  Replica groups share a
+    block up to ⌈R / 132⌉, so R = 256 fills the SMs with small blocks.
+    Raises ValueError when H or Z outgrow the kernel."""
+    if H > MAX_HOSTS:
+        raise ValueError(_limit_message(H, Z))
+    shapes = []
+    for W in ([warps] if warps else range(1, 33)):
+        need = -(-H // (32 * W))
+        K = min((k for k in _REG_THREADS if k >= need), default=None)
+        if K is not None and 32 * W <= _REG_THREADS[K]:
+            cost = K * -(-W // 4) + (_EXCHANGE_HOSTS if W > 1 else 0)
+            shapes.append((cost, W, K))
+    if shapes:
+        _cost, W, K = min(shapes)
+        smem_state = False
+        per_block = min(_REG_THREADS[K] // (32 * W), 15 if W > 1 else 32)
+    else:
+        W, K, smem_state = warps or -(-H // (32 * _SMEM_K)), _SMEM_K, True
+        if 32 * W * K < H or W > 32:
+            raise ValueError(f"no {W}-warp shape of greedy_place holds "
+                             f"{H} hosts")
+        per_block = 1
+    G = max(1, min(per_block, -(-R // _SMS)))
+    while G > 1 and _smem_bytes(Z, W, G, K, smem_state) > _SMEM_LIMIT:
+        G -= 1
+    smem = _smem_bytes(Z, W, G, K, smem_state)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(_limit_message(H, Z))
+    return _Config(W, K, smem_state, G, 32 * W * G, -(-R // G), smem)
+
+
+def _want(name, t, device, dtype, shape) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, avail on {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.shape != shape:
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
 def _check(avail_r, demands, valid, new_group, anchor_zone, cost_zz, bw_zz,
            host_zone, base_task_counts, bin_pack, live, risk, n_eff):
-    """Validate the argument contract; returns ``(R, T, H, n_eff)``."""
+    """Validate the argument contract in one pass; returns ``(R, T, H,
+    n_eff, launch config)``."""
     if bin_pack not in ("first-fit", "best-fit"):
         raise ValueError(f"bin_pack must be 'first-fit' or 'best-fit', "
                          f"got {bin_pack!r}")
     if avail_r.dim() != 3 or avail_r.shape[2] != 4:
         raise ValueError(f"avail must be [R, H, 4], got {tuple(avail_r.shape)}")
     R, H = avail_r.shape[0], avail_r.shape[1]
-    T = demands.shape[0]
-    Z = cost_zz.shape[0]
-    spec = [
-        ("avail", avail_r, torch.float32, (R, H, 4)),
-        ("demands", demands, torch.float32, (T, 4)),
-        ("valid", valid, torch.bool, (T,)),
-        ("new_group", new_group, torch.bool, (T,)),
-        ("anchor_zone", anchor_zone, torch.int32, (T,)),
-        ("cost_zz", cost_zz, torch.float32, (Z, Z)),
-        ("bw_zz", bw_zz, torch.float32, (Z, Z)),
-        ("host_zone", host_zone, torch.int32, (H,)),
-        ("base_task_counts", base_task_counts, torch.int32, (H,)),
-    ]
+    T, Z = demands.shape[0], cost_zz.shape[0]
+    dev = avail_r.device
+    _want("avail", avail_r, dev, _F32, (R, H, 4))
+    _want("demands", demands, dev, _F32, (T, 4))
+    _want("valid", valid, dev, _BOOL, (T,))
+    _want("new_group", new_group, dev, _BOOL, (T,))
+    _want("anchor_zone", anchor_zone, dev, _I32, (T,))
+    _want("cost_zz", cost_zz, dev, _F32, (Z, Z))
+    _want("bw_zz", bw_zz, dev, _F32, (Z, Z))
+    _want("host_zone", host_zone, dev, _I32, (H,))
+    _want("base_task_counts", base_task_counts, dev, _I32, (H,))
     if live is not None:
-        spec.append(("live", live, torch.bool, (H,)))
+        _want("live", live, dev, _BOOL, (H,))
     if risk is not None:
-        spec.append(("risk", risk, torch.float32, (H,)))
-    for name, t, dtype, shape in spec:
-        if t.device != avail_r.device:
-            raise ValueError(f"{name} is on {t.device}, avail on "
-                             f"{avail_r.device}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got "
-                             f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        _want("risk", risk, dev, _F32, (H,))
     if H < 1:
         raise ValueError("the greedy pass needs at least one host")
-    if H > MAX_HOSTS:
-        raise ValueError(
-            f"H={H} hosts need {24 * H + 512} bytes of shared memory per "
-            f"CTA, above the {_SMEM_LIMIT}-byte (227 KB) opt-in limit of "
-            f"one Hopper CTA; at most {MAX_HOSTS} hosts fit"
-        )
     if n_eff is None:
         n_eff = T
     elif not 0 <= n_eff <= T:
         raise ValueError(f"n_eff must be in [0, {T}], got {n_eff}")
-    return R, T, H, n_eff
+    return R, T, H, n_eff, _launch_config(R, H, Z)
 
 
 def _phase1(cost_zz, bw_zz, host_zone):
-    """The ``[Z, H]`` round-trip tables (``pallas_kernels.py:398-403``)."""
+    """The ``[Z, H]`` round-trip tables (``pallas_kernels.py:398-403``) of
+    the plain version; the kernel forms the same sums per host."""
     hz = host_zone.long()
     cost_rt = (cost_zz[:, hz] + cost_zz[hz, :].T).contiguous()
     bw_rt = (bw_zz[:, hz] + bw_zz[hz, :].T).contiguous()
@@ -138,9 +220,10 @@ def cost_aware_plain_batched(avail_r, demands, valid, new_group, anchor_zone,
     in the kernel's operand order.  Walks tasks ``[0, n_eff)`` (default
     all ``T``); ``n_eff`` must be at least one past the last valid task.
     Returns ``([R, T] int32 placements, [R, H, 4] availability)``."""
-    R, T, H, n_eff = _check(avail_r, demands, valid, new_group, anchor_zone,
-                            cost_zz, bw_zz, host_zone, base_task_counts,
-                            bin_pack, live, risk, n_eff)
+    R, T, H, n_eff, _cfg = _check(avail_r, demands, valid, new_group,
+                                  anchor_zone, cost_zz, bw_zz, host_zone,
+                                  base_task_counts, bin_pack, live, risk,
+                                  n_eff)
     dev = avail_r.device
     placements = torch.full((R, T), -1, dtype=torch.int32, device=dev)
     if T == 0 or R == 0:
@@ -230,16 +313,46 @@ def cost_aware_plain(avail, demands, valid, new_group, anchor_zone, cost_zz,
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
-    """``greedy_place_launch`` of the built library, typed: twelve
-    pointers, seven ints, the stream."""
+    """``greedy_place_launch`` of the built library, typed once: thirteen
+    pointers, twelve ints, the stream."""
     from pivot_tpu_torch.ops.build import load
 
     fn = load("greedy_place").greedy_place_launch
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 12 + [
         ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(cfg, avail_r, demands, valid, new_group, anchor_zone, cost_zz,
+            bw_zz, host_zone, base_task_counts, live, risk, placements,
+            avail_out, n_eff, first_fit, sort_hosts, host_decay) -> None:
+    """Launch ``greedy_place`` once, in shape ``cfg``, on the current
+    stream of ``avail_r``'s device, on operands :func:`_check` has passed,
+    into ``placements`` / ``avail_out``; count the launch, and raise if
+    CUDA refused it.  The kernel's one launch site."""
+    dev = avail_r.device
+    args = (
+        avail_r.data_ptr(), demands.data_ptr(), valid.data_ptr(),
+        new_group.data_ptr(), anchor_zone.data_ptr(), cost_zz.data_ptr(),
+        bw_zz.data_ptr(), host_zone.data_ptr(), base_task_counts.data_ptr(),
+        None if risk is None else risk.data_ptr(),
+        None if live is None else live.data_ptr(),
+        placements.data_ptr(), avail_out.data_ptr(),
+        avail_r.shape[0], demands.shape[0], n_eff, avail_r.shape[1],
+        cost_zz.shape[0], first_fit, sort_hosts, host_decay,
+        cfg.hosts_per_thread, cfg.smem_state, cfg.warps, cfg.groups,
+        torch._C._cuda_getCurrentRawStream(dev.index),  # current_stream()'s
+    )
+    if dev.index == torch.cuda.current_device():
+        err = _launcher()(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = _launcher()(*args)
+    if err != 0:
+        raise RuntimeError(f"greedy_place launch failed: CUDA error {err}")
+    LAUNCHES["greedy_place"] += 1
 
 
 def cost_aware_cuda_batched(avail_r, demands, valid, new_group, anchor_zone,
@@ -254,15 +367,16 @@ def cost_aware_cuda_batched(avail_r, demands, valid, new_group, anchor_zone,
       avail_r [R, H, 4] f32, demands [T, 4] f32, valid / new_group [T]
       bool, anchor_zone [T] i32, cost_zz / bw_zz [Z, Z] f32, host_zone
       [H] i32, base_task_counts [H] i32, optional live [H] bool and risk
-      [H] f32, all contiguous and on one device.
+      [H] f32, all contiguous and on one device; zones in [0, Z).
 
     Returns ``([R, T] int32 placements, [R, H, 4] f32 availability)``.
     ``n_eff`` (default ``T``) stops the pass after task ``n_eff − 1``; a
     caller that knows its last valid task passes one past it.
 
-    CUDA tensors launch ``greedy_place`` on the current stream (outputs
-    from ``torch.empty``, no synchronisation); CPU tensors take
-    :func:`cost_aware_plain_batched`; anything else raises."""
+    CUDA tensors launch ``greedy_place`` once on the current stream into
+    two outputs from ``torch.empty`` — no other device operation, no
+    synchronisation; CPU tensors take :func:`cost_aware_plain_batched`;
+    anything else raises."""
     args = (avail_r, demands, valid, new_group, anchor_zone, cost_zz, bw_zz,
             host_zone, base_task_counts)
     if avail_r.device.type == "cpu":
@@ -273,28 +387,12 @@ def cost_aware_cuda_batched(avail_r, demands, valid, new_group, anchor_zone,
     if avail_r.device.type != "cuda":
         raise ValueError(f"greedy_place runs on cuda or (plain) cpu tensors, "
                          f"got {avail_r.device}")
-    R, T, H, n_eff = _check(*args, bin_pack, live, risk, n_eff)
+    R, T, _H, n_eff, cfg = _check(*args, bin_pack, live, risk, n_eff)
     placements = torch.empty((R, T), dtype=torch.int32, device=avail_r.device)
     avail_out = torch.empty_like(avail_r)
-    if T == 0 or R == 0:
-        avail_out.copy_(avail_r)
-        return placements, avail_out
-    cost_rt, bw_rt = _phase1(cost_zz, bw_zz, host_zone)
-    base = base_task_counts.to(torch.float32)
-    with torch.cuda.device(avail_r.device):
-        err = _launcher()(
-            avail_r.data_ptr(), demands.data_ptr(), valid.data_ptr(),
-            new_group.data_ptr(), anchor_zone.data_ptr(), cost_rt.data_ptr(),
-            bw_rt.data_ptr(), base.data_ptr(),
-            None if risk is None else risk.data_ptr(),
-            None if live is None else live.data_ptr(),
-            placements.data_ptr(), avail_out.data_ptr(),
-            R, T, n_eff, H, int(bin_pack == "first-fit"), int(sort_hosts),
-            int(host_decay), torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"greedy_place launch failed: CUDA error {err}")
-    LAUNCHES["greedy_place"] += 1
+    if R:
+        _launch(cfg, *args, live, risk, placements, avail_out, n_eff,
+                bin_pack == "first-fit", sort_hosts, host_decay)
     return placements, avail_out
 
 

@@ -134,6 +134,103 @@ def test_plain_dense_live_risk_batched_matches_pallas(mode):
     assert live[new[0][new[0] >= 0].numpy()].all()
 
 
+EDGE_CASES = ["ties", "h1", "h33", "h100", "risk_zeros", "zero_bw",
+              "nan_only"]
+
+
+def edge_inputs(name):
+    """A dense 40-task tick on one selection edge case the kernel's
+    ordered-key argmin must keep (``chip_smoke.py`` builds the same):
+
+    ties        H = 65; hosts 31/32 and 63/64 (= H − 1) identical and the
+                roomiest, all in one zone, so their scores tie exactly
+                across warp boundaries;
+    h1, h33, h100  one host, one past a warp, not a multiple of 32;
+    risk_zeros  a risk row of −0.0, +0.0 and 0.25: equal risks, and the
+                two zeros must tie;
+    zero_bw     zone 5 has no bandwidth: anchor-5 tasks score hosts of
+                zone 5 0/0 = NaN and the others c/0 = +inf;
+    nan_only    every host and anchor in zone 5 with no bandwidth: every
+                sorted score is NaN, so every such step gives −1.
+
+    Returns the nine numpy operands and the extra keyword arrays."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    H = {"h1": 1, "h33": 33, "h100": 100}.get(name, 65)
+    T, Z = 40, 31
+    avail = rng.uniform(0, 16, size=(H, 4)).astype(np.float32)
+    demands = np.stack([rng.choice([0.0, 0.5, 1.0, 2.0], size=T),
+                        rng.uniform(0, 4, size=T), np.zeros(T), np.zeros(T)],
+                       axis=1).astype(np.float32)
+    valid = rng.random(T) < 0.9
+    new_group = rng.random(T) < 0.2
+    new_group[0] = True
+    anchor = rng.integers(0, Z, size=T).astype(np.int32)
+    cost = rng.uniform(0, 0.11, size=(Z, Z)).astype(np.float32)
+    np.fill_diagonal(cost, 0.0)
+    bw = rng.uniform(50, 15000, size=(Z, Z)).astype(np.float32)
+    host_zone = rng.integers(0, Z, size=H).astype(np.int32)
+    counts = rng.integers(0, 5, size=H).astype(np.int32)
+    kw = {}
+    if name == "ties":
+        avail[:] = 1.5
+        avail[[31, 32, 63, 64]] = 9.0
+        host_zone[:] = 3
+        counts[:] = 2
+    elif name == "risk_zeros":
+        kw["risk"] = rng.choice([-0.0, 0.0, 0.25], size=H).astype(np.float32)
+    elif name == "zero_bw":
+        bw[5, :] = 0.0
+        bw[:, 5] = 0.0
+        host_zone[: H // 3] = 5
+        anchor[::2] = 5
+    elif name == "nan_only":
+        bw[5, 5] = 0.0
+        host_zone[:] = 5
+        anchor[:] = 5
+    return (avail, demands, valid, new_group, anchor, cost, bw, host_zone,
+            counts), kw
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_plain_matches_pallas_selection_edges(case, mode):
+    args, kw = edge_inputs(case)
+    ref = cost_aware_pallas(*map(jnp.asarray, args), **mode, interpret=True,
+                            **{k: jnp.asarray(v) for k, v in kw.items()})
+    new = ck.cost_aware_plain(*map(torch.from_numpy, args), **mode,
+                              **{k: torch.from_numpy(v) for k, v in kw.items()})
+    assert_close(ref, new, (case, mode))
+    placed = set(new[0].tolist())
+    if case == "ties":
+        assert {31, 32, 63, 64} <= placed
+    if case == "nan_only" and mode["sort_hosts"]:
+        assert placed == {-1}  # a NaN minimum never places
+    if case == "zero_bw":
+        assert -1 in placed
+
+
+@pytest.mark.parametrize("R", [1, 5, 256])
+@pytest.mark.parametrize("H", [1, 31, 32, 33, 600, 9664])
+def test_launch_config_owns_every_host_once(H, R):
+    """The kernel's layout — thread t of a W-warp group owns the hosts
+    K·t + k, k < K — covers every host exactly once, within one block's
+    1,024 threads and 227 KB of shared memory."""
+    cfg = ck._launch_config(R, H, 31)
+    W, K = cfg.warps, cfg.hosts_per_thread
+    owned = [K * t + k for t in range(32 * W) for k in range(K)]
+    owned = sorted(h for h in owned if h < H)
+    assert owned == list(range(H))
+    assert cfg.threads == 32 * W * cfg.groups <= 1024
+    assert cfg.smem_bytes <= 232448
+    assert cfg.groups * cfg.blocks >= R > (cfg.blocks - 1) * cfg.groups
+    if cfg.smem_state:
+        assert K == ck._SMEM_K and cfg.groups == 1
+    else:
+        assert cfg.threads <= ck._REG_THREADS[K]
+    if W > 1:
+        assert cfg.groups <= 15  # named barriers 1..15, one per group
+
+
 def test_plain_empty_tick():
     args = make_inputs(0, 0, 8)
     p, a = ck.cost_aware_plain(*as_torch(args), **MODES[0])
