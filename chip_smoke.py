@@ -25,12 +25,22 @@ Phases, each fatal on failure:
      availability within rtol 1e-6 / atol 1e-5;
   3. end to end: the ``overall`` experiment (Opportunistic, VBP,
      Cost-Aware) at 600 hosts x 1000 apps through the port's CLI entry
-     point, on ``--device cuda --no-adaptive`` and on ``--device numpy``.
-     Every Cost-Aware tick must be a kernel launch, the arms' egress-cost
-     and runtime rankings must agree between the backends, and a second
-     Cost-Aware run shadows every tick with the plain version (identical
-     placements required) and checks ``placement_sensitivity`` (R = 256)
-     against the plain batched version at each new largest tick;
+     point, on ``--device cuda --no-adaptive`` with fused spans (the
+     default), again with fusion off, and on ``--device numpy``.  Every
+     span of the fused run executes under
+     ``torch.cuda.set_sync_debug_mode("error")`` (a host read inside a
+     span raises) between CUDA events that time it.  Every Cost-Aware
+     tick must be a kernel launch — launches = per-tick kernel ticks +
+     span kernel ticks, with span ticks present — the arms' egress-cost
+     and runtime rankings must agree with numpy's, and the script says
+     whether fusion on and off write byte-identical files (if not, the
+     first differing task and whether float32 ties of the demand norms
+     can explain it).  A second Cost-Aware run shadows every kernel call,
+     per-tick and in spans, with the plain version (identical placements
+     required), holds every span against ``reference_tick_run`` on the
+     same float32 operands with the plain version serving its ticks, and
+     checks ``placement_sensitivity`` (R = 256) against the plain batched
+     version at each new largest tick;
   4. times on the card by CUDA events: the wrapper the main path calls
      per tick (median over the run's ticks, and at T = 619 / 2048,
      H = 600), the R = 256 launch, the plain version, and the roofline
@@ -452,6 +462,164 @@ def rankings_agree(cuda, numpy_, metric) -> None:
                     f"numpy {a}={na!r} {b}={nb!r}")
 
 
+ARM_OF = {"opportunistic": "Opportunistic", "first-fit": "VBP",
+          "cost-aware": "Cost-Aware"}
+
+
+class SpanMeter:
+    """Wraps ``sched.cuda.fused_tick_run`` while active: the device's
+    sync debug mode is "error" around every span, so any host read inside
+    one raises, and CUDA events around each call time the span on the
+    device timeline (read after the run).  Its ``ticks_run`` is read after
+    the span, beside the policy's own fetch."""
+
+    def __init__(self, cuda_mod):
+        self.mod, self.orig = cuda_mod, cuda_mod.fused_tick_run
+        self.spans = []  # one dict per span
+
+    def __call__(self, *a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = self.orig(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ev[1].record()
+        self.spans.append(dict(arm=ARM_OF[kw["policy"]], k_dyn=a[3],
+                               steps=sum(kw["n_bound"]),
+                               ticks_run=int(res.ticks_run),
+                               ready=int(res.n_ready.sum()), ev=ev))
+        return res
+
+    def __enter__(self):
+        self.mod.fused_tick_run = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.fused_tick_run = self.orig
+
+    def by_arm(self):
+        """Per arm: spans, horizon ticks, executed ticks, pass steps
+        walked, live steps (the executed ticks' ready sizes: what the
+        per-tick path walks for them), and device ms per span (median,
+        largest)."""
+        torch.cuda.synchronize()
+        out = {}
+        for arm in ARMS:
+            sp = [x for x in self.spans if x["arm"] == arm]
+            ms = [x["ev"][0].elapsed_time(x["ev"][1]) for x in sp]
+            out[arm] = dict(
+                spans=len(sp), horizon_ticks=sum(x["k_dyn"] for x in sp),
+                ticks_run=sum(x["ticks_run"] for x in sp),
+                steps=sum(x["steps"] for x in sp),
+                live_steps=sum(x["ready"] for x in sp),
+                ms_median=statistics.median(ms) if ms else None,
+                ms_max=max(ms) if ms else None, ms_sum=sum(ms))
+        return out
+
+
+class SpanReferee:
+    """Wraps ``sched.cuda.fused_tick_run`` while active: every span's
+    result is held against ``reference_tick_run`` on the same operands,
+    the plain version serving its Cost-Aware ticks — equal placements,
+    ready and placed counts, availability within the tolerance."""
+
+    def __init__(self, cuda_mod, ck, tickloop):
+        self.mod, self.orig = cuda_mod, cuda_mod.fused_tick_run
+        self.ck, self.tickloop = ck, tickloop
+        self.spans = 0
+        self.max_abs_err = 0.0
+
+    def __call__(self, avail, dem, arrive, k_dyn, **kw):
+        res = self.orig(avail, dem, arrive, k_dyn, **kw)
+        rkw = {k: v for k, v in kw.items() if k not in ("n_bound", "n_ticks")}
+        if rkw.get("greedy") is not None:
+            rkw["greedy"] = self.ck.cost_aware_plain
+        p, n_ready, n_placed, a = self.tickloop.reference_tick_run(
+            avail, dem, arrive, k_dyn, **rkw)
+        ticks_run = int(res.ticks_run)
+        if not (np.array_equal(res.placements[:k_dyn].cpu().numpy(), p)
+                and np.array_equal(res.n_placed[:k_dyn].cpu().numpy(),
+                                   n_placed)
+                and np.array_equal(res.n_ready[:ticks_run].cpu().numpy(),
+                                   n_ready[:ticks_run])):
+            raise AssertionError(f"span {self.spans} differs from "
+                                 "reference_tick_run")
+        got = res.avail.cpu().numpy()
+        if not np.allclose(got, a, rtol=RTOL, atol=ATOL):
+            raise AssertionError(f"span {self.spans}: availability outside "
+                                 "tolerance of reference_tick_run")
+        if got.size:
+            self.max_abs_err = max(self.max_abs_err,
+                                   float(np.abs(got - a).max()))
+        self.spans += 1
+        return res
+
+    __enter__ = SpanMeter.__enter__
+    __exit__ = SpanMeter.__exit__
+
+
+def run_cli(cli, argv, device, fuse):
+    """``run_overall`` on ``argv`` with fused spans on or off; returns
+    ``(exp_dir, summaries, runs)`` — the ``ExperimentRun`` objects keep
+    every task's placement."""
+    runs, build = [], cli._build_run
+
+    def build_run(spec):
+        run = build(spec)
+        run.fuse_spans = fuse
+        runs.append(run)
+        return run
+
+    cli._build_run = build_run
+    try:
+        exp_dir, summaries = cli.run_overall(cli.parse_args(argv),
+                                             torch_device=device)
+    finally:
+        cli._build_run = build
+    return exp_dir, summaries, runs
+
+
+def task_placements(run):
+    return {(a.id, t.id): (t.placement, t.demand)
+            for a in run.schedule.apps for g in a.groups for t in g.tasks}
+
+
+def compare_outputs(dir_a, dir_b, runs_a, runs_b):
+    """Per arm: None when the four files are byte-identical, else the
+    first differing task (by app and task id) and whether a float32 tie
+    of demand norms that float64 tells apart can explain it."""
+    out = {}
+    for arm, ra, rb in zip(ARMS, runs_a, runs_b):
+        same = True
+        for name in ("general.json", "transfers.json", "scheduler.json",
+                     "host_usage.json"):
+            paths = [os.path.join(d, "data", "0", arm, name)
+                     for d in (dir_a, dir_b)]
+            with open(paths[0], "rb") as fa, open(paths[1], "rb") as fb:
+                same = same and fa.read() == fb.read()
+        if same:
+            out[arm] = None
+            continue
+        pa, pb = task_placements(ra), task_placements(rb)
+        diff = sorted(k for k in pa if pa[k][0] != pb[k][0])
+        first = diff[0] if diff else None
+        norms = {k: float(np.sqrt(np.sum(np.square(v[1]))))
+                 for k, v in pa.items()}
+        tie = None
+        if first is not None:
+            n64 = norms[first]
+            n32 = np.float32(n64)
+            tie = any(np.float32(n) == n32 and n != n64
+                      for n in norms.values())
+        out[arm] = dict(differing_tasks=len(diff), first=first,
+                        first_on=pa[first][0] if first else None,
+                        first_off=pb[first][0] if first else None,
+                        f32_norm_tie=tie)
+    return out
+
+
 def make_shadow_policy(cuda_mod, ck):
     base = cuda_mod.CudaCostAwarePolicy
 
@@ -462,16 +630,27 @@ def make_shadow_policy(cuda_mod, ck):
         def __init__(self, **kw):
             super().__init__(**kw)
             self.check = Check()
-            self.ticks = []  # (args, kw) of every tick, for timing
+            self.ticks = []  # (args, kw) of every per-tick call, for timing
+            self.span_ticks = []  # (args, kw) of every span tick
+            self.in_span = False
             self.largest = 0
             self.sensitivity = None
 
         def _greedy(self, *args, **kw):
             got = super()._greedy(*args, **kw)
+            ticks = self.span_ticks if self.in_span else self.ticks
             self.check.same(got, ck.cost_aware_plain(*args, **kw),
-                            ("tick", len(self.ticks)))
-            self.ticks.append((args, kw))
+                            ("span tick" if self.in_span else "tick",
+                             len(ticks)))
+            ticks.append((args, kw))
             return got
+
+        def _span_greedy(self, *args, **kw):
+            self.in_span = True
+            try:
+                return super()._span_greedy(*args, **kw)
+            finally:
+                self.in_span = False
 
         def _greedy_batched(self, *args, **kw):
             got = super()._greedy_batched(*args, **kw)
@@ -498,6 +677,7 @@ def make_shadow_policy(cuda_mod, ck):
 def phase_end_to_end(device, n_hosts=600, n_apps=1000):
     from pivot_tpu_torch.experiments import cli, runner
     from pivot_tpu_torch.ops import cuda_kernels as ck
+    from pivot_tpu_torch.ops import tickloop
     from pivot_tpu_torch.sched import cuda as cuda_mod
     from pivot_tpu_torch.utils.config import build_cluster
 
@@ -508,32 +688,48 @@ def phase_end_to_end(device, n_hosts=600, n_apps=1000):
         os.symlink(os.path.abspath(TRACE),
                    os.path.join(job_dir, os.path.basename(TRACE)))
         runs = {}
-        for backend in ("cuda", "numpy"):
-            argv = overall_argv(os.path.join(tmp, backend), job_dir, backend)
+        for name, backend, fuse in (("cuda", "cuda", True),
+                                    ("cuda_off", "cuda", False),
+                                    ("numpy", "numpy", True)):
+            argv = overall_argv(os.path.join(tmp, name), job_dir, backend)
             argv[argv.index("600")] = str(n_hosts)
             argv[-1] = str(n_apps)
-            args = cli.parse_args(argv)
-            cluster_cfg = cli._cluster_config(args)
-            ck.reset_launches()  # the main path's count starts here
-            t0 = time.perf_counter()
-            exp_dir, summaries = cli.run_overall(args, torch_device=device)
-            wall = time.perf_counter() - t0
-            launches = ck.LAUNCHES["greedy_place"]
+            cluster_cfg = cli._cluster_config(cli.parse_args(argv))
+            with SpanMeter(cuda_mod) as meter:
+                ck.reset_launches()  # the main path's count starts here
+                t0 = time.perf_counter()
+                exp_dir, summaries, objs = run_cli(cli, argv, device, fuse)
+                wall = time.perf_counter() - t0
+                launches = ck.LAUNCHES["greedy_place"]
             check_outputs(exp_dir)
-            runs[backend] = dict(wall=wall, launches=launches,
-                                 arms={s["label"]: s for s in summaries})
+            runs[name] = dict(wall=wall, launches=launches, dir=exp_dir,
+                              objs=objs, spans=meter.by_arm(),
+                              arms={s["label"]: s for s in summaries})
         cuda, numpy_ = runs["cuda"]["arms"], runs["numpy"]["arms"]
-        ca = cuda["Cost-Aware"]["dispatch"]
-        log(f"  cost-aware on cuda: {ca['device_ticks']} device ticks, "
-            f"{ca['kernel_ticks']} served by greedy_place, "
-            f"{runs['cuda']['launches']} launches counted")
-        if not (ca["device_ticks"] > 0
-                and runs["cuda"]["launches"] == ca["kernel_ticks"]
-                == ca["device_ticks"]):
-            raise AssertionError("not every Cost-Aware tick was a launch")
-        for arm in ARMS[:2]:
-            if cuda[arm]["dispatch"]["kernel_ticks"]:
-                raise AssertionError(f"{arm} went through the kernel")
+        for name in ("cuda", "cuda_off"):
+            ca = runs[name]["arms"]["Cost-Aware"]["dispatch"]
+            fusion = "on" if name == "cuda" else "off"
+            log(f"  cost-aware on cuda, fusion {fusion}: "
+                f"{ca['device_ticks']} per-tick device ticks, "
+                f"{ca['kernel_ticks']} served by greedy_place, "
+                f"{ca['span_kernel_ticks']} span ticks launched on it, "
+                f"{runs[name]['launches']} launches counted")
+            if not (ca["device_ticks"] > 0
+                    and ca["kernel_ticks"] == ca["device_ticks"]
+                    and runs[name]["launches"]
+                    == ca["kernel_ticks"] + ca["span_kernel_ticks"]):
+                raise AssertionError("not every Cost-Aware tick was a launch")
+            for arm in ARMS[:2]:
+                d = runs[name]["arms"][arm]["dispatch"]
+                if d["kernel_ticks"] or d["span_kernel_ticks"]:
+                    raise AssertionError(f"{arm} went through the kernel")
+        if not cuda["Cost-Aware"]["dispatch"]["span_kernel_ticks"]:
+            raise AssertionError("no Cost-Aware span tick was served by "
+                                 "greedy_place")
+        if runs["cuda_off"]["arms"]["Cost-Aware"]["dispatch"][
+                "span_kernel_ticks"] or any(
+                x["spans"] for x in runs["cuda_off"]["spans"].values()):
+            raise AssertionError("a span ran with fusion off")
         for metric in ("egress_cost", "avg_runtime"):
             rankings_agree(cuda, numpy_, metric)
         for arm in ARMS:
@@ -543,6 +739,11 @@ def phase_end_to_end(device, n_hosts=600, n_apps=1000):
                 f"egress_cost={numpy_[arm]['egress_cost']!r} "
                 f"avg_runtime={numpy_[arm]['avg_runtime']!r} "
                 f"wall_s={numpy_[arm]['wall_clock']!r}")
+        res["same_files"] = compare_outputs(
+            runs["cuda"]["dir"], runs["cuda_off"]["dir"], runs["cuda"]["objs"],
+            runs["cuda_off"]["objs"])
+        for r in runs.values():
+            r.pop("objs")
         res["runs"] = runs
 
         # The shadowed Cost-Aware run: same cluster, trace, seed.
@@ -550,18 +751,25 @@ def phase_end_to_end(device, n_hosts=600, n_apps=1000):
         pc = cli.reference_policy_set("cuda", adaptive=False)[2]
         policy = Shadow(bin_pack=pc.bin_pack, sort_tasks=pc.sort_tasks,
                         sort_hosts=pc.sort_hosts, device=device)
-        summary = runner.ExperimentRun(
-            "Cost-Aware", build_cluster(cluster_cfg), policy, TRACE,
-            n_apps=n_apps, seed=0).run()
+        with SpanReferee(cuda_mod, ck, tickloop) as referee:
+            summary = runner.ExperimentRun(
+                "Cost-Aware", build_cluster(cluster_cfg), policy, TRACE,
+                n_apps=n_apps, seed=0).run()
         for key in ("egress_cost", "avg_runtime"):
             if summary[key] != cuda["Cost-Aware"][key]:
                 raise AssertionError(f"shadowed run differs on {key}")
-        log(f"  shadow: {len(policy.ticks)} ticks, {policy.check.cases} "
-            f"kernel-vs-plain comparisons, all placements equal, max "
-            f"|avail diff| {policy.check.max_abs_err!r}; sensitivity R=256 "
-            f"at largest tick T={policy.sensitivity[0]}: mean stability "
-            f"{policy.sensitivity[1]!r}")
+        if not (referee.spans and policy.span_ticks):
+            raise AssertionError("the shadowed run served no span")
+        log(f"  shadow: {len(policy.ticks)} per-tick and "
+            f"{len(policy.span_ticks)} span-tick kernel calls, "
+            f"{policy.check.cases} kernel-vs-plain comparisons, all "
+            f"placements equal, max |avail diff| {policy.check.max_abs_err!r};"
+            f" {referee.spans} spans equal to reference_tick_run (plain "
+            f"ticks), max |avail diff| {referee.max_abs_err!r}; sensitivity "
+            f"R=256 at largest tick T={policy.sensitivity[0]}: mean "
+            f"stability {policy.sensitivity[1]!r}")
         res["shadow"] = policy
+        res["referee"] = referee
     return res
 
 
@@ -641,6 +849,12 @@ def phase_times(ck, shadow, device):
     n_tasks = [k["n_eff"] for _a, k in shadow.ticks]
     times["tick_median_ms"] = statistics.median(per_tick)
     times["tick_sum_ms"] = sum(per_tick)
+    per_span_tick = [_events_ms(wrapper(a, k), 5) for a, k in
+                     shadow.span_ticks]
+    times["span_tick_median_ms"] = statistics.median(per_span_tick)
+    times["span_tick_sum_ms"] = sum(per_span_tick)
+    times["span_tick_n_eff_median"] = statistics.median(
+        k["n_eff"] for _a, k in shadow.span_ticks)
     times["tick_n_eff_median"] = statistics.median(n_tasks)
     med = sorted(range(len(n_tasks)), key=per_tick.__getitem__)[
         len(n_tasks) // 2]
@@ -741,6 +955,7 @@ def main() -> int:
     from pivot_tpu_torch.ops import build
     from pivot_tpu_torch.ops import cuda_kernels as ck
 
+    t_start = time.perf_counter()
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -768,7 +983,8 @@ def main() -> int:
     log(f"  {chk.cases} cases, {chk.placed} placements: all equal, max "
         f"|avail diff| {chk.max_abs_err!r} (rtol {RTOL}, atol {ATOL})")
 
-    log("== 3. overall, 600 hosts x 1000 apps, cuda and numpy")
+    log("== 3. overall, 600 hosts x 1000 apps: cuda with fused spans, "
+        "cuda with fusion off, numpy")
     e2e = phase_end_to_end(device)
     shadow = e2e["shadow"]
 
@@ -812,12 +1028,39 @@ def main() -> int:
     log(f"  greedy_place busy: {times['tick_sum_ms']!r} ms of wrapper time "
         f"over the run's ticks = {times['tick_sum_ms'] / (ca_wall * 1e3)!r} "
         f"of the Cost-Aware arm's {ca_wall!r} s wall on cuda")
-    for backend in ("cuda", "numpy"):
-        r = e2e["runs"][backend]
-        log(f"  overall on {backend}: {r['wall']!r} s for 3 arms; per arm "
+    log(f"  greedy_place in spans: median {times['span_tick_median_ms']!r}"
+        f" ms of wrapper time over {len(shadow.span_ticks)} span ticks "
+        f"(median n_eff {times['span_tick_n_eff_median']}), "
+        f"{times['span_tick_sum_ms']!r} ms in all")
+    for name in ("cuda", "cuda_off", "numpy"):
+        r = e2e["runs"][name]
+        log(f"  overall on {name}: {r['wall']!r} s for 3 arms; per arm "
             + ", ".join(f"{a} {r['arms'][a]['wall_clock']!r} s"
                         for a in ARMS))
-    log(json.dumps({"times": times}))
+    spans = {}
+    for arm in ARMS:
+        st = e2e["runs"]["cuda"]["arms"][arm]["spans"]
+        dev = e2e["runs"]["cuda"]["spans"][arm]
+        spans[arm] = dict(st, **dev, launches=(
+            e2e["runs"]["cuda"]["arms"][arm]["dispatch"]))
+        log(f"  spans {arm}: {st['fused_spans']} served, {st['fused_ticks']}"
+            f" ticks replayed ({st['fused_ticks'] / max(st['fused_spans'], 1)!r}"
+            f" a span), {st['span_aborts']} aborted, {st['spans_declined']} "
+            f"declined, {st['ff_ticks']} ticks fast-forwarded; on the card "
+            f"{dev['spans']} spans of {dev['horizon_ticks']} horizon ticks, "
+            f"{dev['ticks_run']} executed, {dev['steps']} pass steps walked "
+            f"for {dev['live_steps']} live ones; device "
+            f"ms per span median {dev['ms_median']!r}, largest "
+            f"{dev['ms_max']!r}, sum {dev['ms_sum']!r}; no host sync inside")
+    for arm, d in e2e["same_files"].items():
+        log(f"  fusion on vs off, {arm}: " + (
+            "output files byte-identical" if d is None else
+            f"files differ: {d['differing_tasks']} tasks placed "
+            f"differently, first {d['first']} on {d['first_on']} (on) vs "
+            f"{d['first_off']} (off); float32 tie of demand norms possible: "
+            f"{d['f32_norm_tie']}"))
+    log(json.dumps({"times": times, "spans": spans,
+                    "same_files": e2e["same_files"]}, default=str))
 
     record = {"kernels": [{
         "name": "greedy_place",
@@ -825,13 +1068,15 @@ def main() -> int:
         "source": "pivot_tpu_torch/csrc/greedy_place.cu",
         "replaces": "pivot_tpu/ops/pallas_kernels.py:265",
         "launches": e2e["runs"]["cuda"]["launches"],
-        "max_abs_err": max(chk.max_abs_err, shadow.check.max_abs_err),
+        "max_abs_err": max(chk.max_abs_err, shadow.check.max_abs_err,
+                           e2e["referee"].max_abs_err),
         "ms": lt["ms"],
         "plain_ms": lt["plain_ms"],
         "bound_ms": lt["bound_ms"],
         "bound_by": lt["bound_by"],
         "library_ms": None,
     }]}
+    log(f"  smoke wall: {time.perf_counter() - t_start!r} s")
     print(card, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -194,6 +194,11 @@ class ExperimentRun(LogMixin):
             # Device policies: ticks served by the device / the numpy
             # twin / the hand-written kernel (``sched/cuda.py``).
             summary["dispatch"] = dispatch_stats()
+        # Pure-tick-run fusion: spans served, ticks inside them, ticks
+        # fast-forwarded, spans aborted mid-replay or declined.
+        summary["spans"] = {k: scheduler.span_stats[k] for k in (
+            "fused_spans", "fused_ticks", "ff_ticks", "span_aborts",
+            "spans_declined")}
 
         if self.data_dir:
             out = os.path.join(self.data_dir, self.label)

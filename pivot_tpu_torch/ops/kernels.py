@@ -18,10 +18,17 @@ Two forms per policy, as in the JAX package:
       - ``"scan"`` — the oracle's loop;
       - ``"slim"`` — stops at the last valid task and computes the
         cost-aware group score only at group-entry steps;
-      - ``"auto"`` — ``"slim"``.
-
-    Speculative chunk commit (``phase2=int`` in the JAX package) is not
-    ported yet and raises ``NotImplementedError``.
+      - ``int C`` — speculative chunk commit: a chunk of C tasks is
+        placed against chunk-entry availability with a capacity-aware
+        fill model, the exact ``[H, 4]`` carry fold is replayed over the
+        speculated placements, every chunk task is re-decided against
+        its exact prefix availability in one vectorized pass, and the
+        chunk commits through the first disagreement
+        (:func:`_speculate_commit`).  Placements and availability are
+        bit-identical to the scan whatever the speculation proposes.
+        Opt-in: on the card its outer loop reads the commit position to
+        the host once per chunk;
+      - ``"auto"`` — ``"slim"`` (never a chunk size).
 
 Bit-parity discipline: every operation keeps the reference's operand
 association.  ``_norms`` is the explicit sum ``((x0² + x1²) + x2²) + x3²``
@@ -33,7 +40,9 @@ kernels.py``).
 
 The loops run eagerly on whatever device their tensors live on.  The
 slim pass reads the ``[B]`` valid and group-entry flags to the host once
-per call (one device→host copy) and never synchronises inside the loop.
+per call (one device→host copy) and never synchronises inside the loop;
+given a host step bound ``n_bound`` (the fused span driver,
+``ops/tickloop.py``), the carry-free slim passes read nothing at all.
 On the card they serve the Opportunistic and VBP arms; the Cost-Aware
 arm's per-tick pass is the hand-written kernel of ``ops/cuda_kernels.py``.
 """
@@ -416,85 +425,313 @@ def _ca_best_fit_score(cost_row, avail, demand, decay, bw_row, w_norm=None):
     return cost_row * residual * decay / bw_row
 
 
-def _resolve_phase2(phase2) -> str:
+def _resolve_phase2(phase2):
+    """``"auto"``/``"slim"`` → ``"slim"``; ``"scan"``; an int chunk size
+    ≥ 1 as itself."""
     if phase2 in ("auto", "slim"):
         return "slim"
     if phase2 == "scan":
         return "scan"
     if isinstance(phase2, int) and not isinstance(phase2, bool) and phase2 >= 1:
-        raise NotImplementedError(
-            "speculative chunk commit (phase2=int) is not ported to "
-            "pivot_tpu_torch yet — ROADMAP.md, port queue item "
-            "'chunk speculation'; use phase2='slim' or 'scan'"
-        )
+        return phase2
     raise ValueError(
         f"phase2 must be 'auto', 'scan', 'slim', or a chunk size >= 1; "
         f"got {phase2!r}"
     )
 
 
-def _slim_drive(avail, demands, valid, decide_row):
-    """Slim phase 2 for the carry-free kernels: stop at the last valid
-    task; ``decide_row(avail, j, demand) -> (h, ok)`` is the oracle's
-    step."""
+def _at(x, i):
+    """``x[i]`` for a 0-dim device index without a host read (a 0-dim
+    tensor subscript may be turned into a Python int)."""
+    return x.index_select(0, i.reshape(1).long())[0]
+
+
+def _static_viable(totals, demand, strict):
+    """Phase-1 demand-vs-total pre-filter row [H]: hosts whose full
+    capacity cannot hold ``demand``.  Steers the speculation only."""
+    if totals is None:
+        return None
+    return _fits(totals, demand, strict)
+
+
+def _fill_capacity(avail, demand, strict, viable):
+    """[H] fill model: how many back-to-back copies of ``demand`` each
+    host's availability holds.  Division-based, so it can be off by one
+    at ulp boundaries — speculation only, the re-decision referees."""
+    inf = avail.new_full((), float("inf"))
+    q = torch.where(demand > 0, avail / demand, inf).min(dim=1).values
+    q = torch.where(torch.isfinite(q), q, q.new_full((), 2.0 ** 31))
+    n = torch.ceil(q) - 1 if strict else torch.floor(q)
+    n = n.clamp(0, 1 << 30).to(torch.int32)
+    if viable is not None:
+        n = torch.where(viable, n, torch.zeros_like(n))
+    return n
+
+
+def _fill_pick(score_row, caps, ranks):
+    """Predict placements for ``ranks`` [C] of identical-demand tasks that
+    fill hosts in ``score_row`` order (stable: ties to the lowest host,
+    like the masked argmin).  Returns ``(h [C], ok [C])``; negative ranks
+    are inert.  The running capacity sums are int64 (the JAX package's
+    wrap at int32); either way only the commit width can move."""
+    hid_s = torch.sort(score_row, stable=True).indices
+    return _fill_pick_sorted(caps[hid_s], hid_s, ranks)
+
+
+def _fill_pick_by_index(caps, ranks):
+    """:func:`_fill_pick` for score == host index (plain first-fit)."""
+    iota = torch.arange(caps.shape[0], device=caps.device)
+    return _fill_pick_sorted(caps, iota, ranks)
+
+
+def _fill_pick_sorted(caps_s, hid_s, ranks):
+    H = caps_s.shape[0]
+    cum = torch.cumsum(caps_s, dim=0)
+    j = (cum[None, :] <= ranks[:, None]).sum(dim=1)
+    ok = (j < H) & (ranks >= 0)
+    h = torch.where(ok, hid_s[j.clamp(max=H - 1)], torch.zeros_like(j))
+    return h, ok
+
+
+def _speculate_commit(avail, extra, track_extra, dem_c, h_s, ok_s, recheck):
+    """The exact core of speculative chunk commit
+    (``pivot_tpu/ops/kernels.py::_speculate_commit``).
+
+    Replays the exact carry fold over the speculated placements — one
+    :func:`_place` per position, the scan's own op, so every prefix
+    availability ``a_pre[k]`` is bit-identical to the sequential pass —
+    then ``recheck(a_pre, ex_pre)`` re-decides every position against its
+    exact prefix state in one vectorized pass.  With ``fc`` the first
+    position whose re-decision differs from the speculation, the
+    decisions at positions ≤ fc are the true sequential ones, so any
+    prefix of length ≤ fc + 1 may be committed.
+
+    Returns ``(p_c, h_c, ok_c, fc, commit_state)``; ``commit_state(n)``
+    (a host int n ≥ 1) gives the exact availability and extra counter
+    after committing the first n positions."""
+    C = dem_c.shape[0]
+    a = avail.clone()
+    a_pre = avail.new_empty((C,) + tuple(avail.shape))
+    ex = ex_pre = None
+    if track_extra:
+        ex = extra.clone()
+        ex_pre = extra.new_empty((C,) + tuple(extra.shape))
+    for k in range(C):
+        a_pre[k] = a
+        _place(a, dem_c[k], h_s[k], ok_s[k])
+        if track_extra:
+            ex_pre[k] = ex
+            _bump_count(ex, h_s[k], ok_s[k])
+    h_c, ok_c = recheck(a_pre, ex_pre)
+    p_c = torch.where(ok_c, h_c, -1).to(torch.int32)
+    p_s = torch.where(ok_s, h_s, -1).to(torch.int32)
+    idx = torch.arange(C, device=avail.device)
+    fc = torch.where(p_c != p_s, idx, torch.full_like(idx, C)).min()
+
+    def commit_state(n_commit: int):
+        # Positions < n_commit − 1 agree with the speculation, so
+        # a_pre[cm] is the exact fold; one more exact _place with cm's
+        # true decision finishes it.
+        cm = min(n_commit - 1, C - 1)
+        new_avail = a_pre[cm].clone()
+        _place(new_avail, dem_c[cm], h_c[cm], ok_c[cm])
+        if not track_extra:
+            return new_avail, extra
+        new_extra = ex_pre[cm].clone()
+        _bump_count(new_extra, h_c[cm], ok_c[cm])
+        return new_avail, new_extra
+
+    return p_c, h_c, ok_c, fc, commit_state
+
+
+def _pad_chunk(x, C):
+    """Pad the task axis by C so a C-window at any position < B stays in
+    bounds; the pad rows are ``valid=False`` no-ops."""
+    pad = x.new_zeros((C,) + tuple(x.shape[1:]))
+    return torch.cat([x, pad])
+
+
+def _slim_drive(avail, demands, valid, decide_row, n_bound=None):
+    """Slim phase 2 for the carry-free kernels; ``decide_row(avail, j,
+    demand) -> (h, ok)`` is the oracle's step, which masks by the device
+    ``valid[j]`` itself.  Walks ``j < n_bound`` when the caller gives a
+    host bound (at least one past the last valid task) and reads nothing
+    from the device; else it stops at the last valid task, read from the
+    device once."""
     avail = avail.clone()
     B = demands.shape[0]
     placements = torch.full((B,), -1, dtype=torch.int32, device=avail.device)
-    n_eff, _ = _host_rows(valid)
-    for j in range(n_eff):
+    n = _host_rows(valid)[0] if n_bound is None else min(n_bound, B)
+    for j in range(n):
         h, ok = decide_row(avail, j, demands[j])
         _place(avail, demands[j], h, ok)
         _set_placement(placements, j, h, ok)
     return placements, avail
 
 
+def _chunk_drive(avail, demands, valid, C, speculate, recheck):
+    """Chunked phase 2 for the carry-free kernels.
+
+    ``speculate(avail, dem_c, valid_c, pos) -> (h_s, ok_s)`` proposes a
+    chunk's placements from chunk-entry state; ``recheck(a_pre, dem_c,
+    valid_c, pos) -> (h_c, ok_c)`` re-decides every position against its
+    exact prefix availability with the oracle's ops.  The commit position
+    is a host int: one device→host read per chunk."""
+    B = demands.shape[0]
+    n_eff, _ = _host_rows(valid)
+    demP, validP = _pad_chunk(demands, C), _pad_chunk(valid, C)
+    placements = torch.full((B + C,), -1, dtype=torch.int32,
+                            device=avail.device)
+    pos = 0
+    while pos < n_eff:
+        dem_c, valid_c = demP[pos:pos + C], validP[pos:pos + C]
+        h_s, ok_s = speculate(avail, dem_c, valid_c, pos)
+        ok_s = ok_s & valid_c
+        h_s = torch.where(ok_s, h_s, torch.zeros_like(h_s))
+        p_c, _h, _ok, fc, commit_state = _speculate_commit(
+            avail, None, False, dem_c, h_s, ok_s,
+            lambda a_pre, _ex: recheck(a_pre, dem_c, valid_c, pos),
+        )
+        n_commit = min(int(fc) + 1, C)
+        placements[pos:pos + C] = p_c
+        avail, _ = commit_state(n_commit)
+        pos += n_commit
+    return placements[:B], avail
+
+
+def _empty_result(avail, restore):
+    return (torch.zeros((0,), dtype=torch.int32, device=avail.device),
+            restore(avail))
+
+
 def opportunistic_impl(avail, demands, valid, uniforms, phase2="auto",
-                       live=None, risk=None):
+                       live=None, risk=None, n_bound=None):
     """Two-phase form of :func:`opportunistic_kernel_ref`, bit-identical
-    to it in every mode."""
+    to it in every mode.  ``n_bound``: the slim pass's host step bound
+    (:func:`_slim_drive`)."""
     mode = _resolve_phase2(phase2)
     avail, restore = _apply_live(avail, live)
     if mode == "scan":
         p, a = _opportunistic_scan(avail, demands, valid, uniforms, risk)
         return p, restore(a)
-    p, a = _slim_drive(
-        avail, demands, valid,
-        lambda avail, j, demand: _opportunistic_row(
-            avail, demand, valid[j], uniforms[j], risk),
+    if mode == "slim":
+        p, a = _slim_drive(
+            avail, demands, valid,
+            lambda avail, j, demand: _opportunistic_row(
+                avail, demand, valid[j], uniforms[j], risk),
+            n_bound,
+        )
+        return p, restore(a)
+    B = demands.shape[0]
+    if B == 0:
+        return _empty_result(avail, restore)
+    C = min(mode, B)
+    uP = _pad_chunk(uniforms, C)
+
+    def decide(avail_c, dem_c, valid_c, pos):
+        fit = (avail_c >= dem_c[:, None, :]).all(dim=2) & valid_c[:, None]
+        fit = _risk_restrict(fit, risk)
+        n_fit = fit.sum(dim=1)
+        k = torch.minimum((uP[pos:pos + C] * n_fit).to(torch.int32),
+                          (n_fit - 1).to(torch.int32))
+        rank = torch.cumsum(fit, dim=1)
+        h = _first_true(fit & (rank == (k + 1)[:, None]))
+        return h, n_fit > 0
+
+    # Random choices do not pile on, so the decision itself against the
+    # chunk-entry availability commits wide.
+    p, a = _chunk_drive(
+        avail, demands, valid, C,
+        lambda avail, dem_c, valid_c, pos: decide(avail[None], dem_c,
+                                                  valid_c, pos),
+        decide,
     )
     return p, restore(a)
 
 
 def first_fit_impl(avail, demands, valid, strict=False, totals=None,
-                   phase2="auto", live=None, risk=None):
-    """Two-phase form of :func:`first_fit_kernel_ref`.  ``totals`` steers
-    only the chunked form's speculation in the JAX package, so it cannot
-    change a placement; it is accepted for the same argument contract."""
+                   phase2="auto", live=None, risk=None, n_bound=None):
+    """Two-phase form of :func:`first_fit_kernel_ref`.  ``totals`` (full
+    host capacity) steers only the chunked form's speculation, so it
+    cannot change a placement."""
     mode = _resolve_phase2(phase2)
     avail, restore = _apply_live(avail, live)
     if mode == "scan":
         p, a = _first_fit_scan(avail, demands, valid, strict, risk)
         return p, restore(a)
-    p, a = _slim_drive(
-        avail, demands, valid,
-        lambda avail, j, demand: _first_fit_row(
-            avail, demand, valid[j], strict, risk),
-    )
+    if mode == "slim":
+        p, a = _slim_drive(
+            avail, demands, valid,
+            lambda avail, j, demand: _first_fit_row(
+                avail, demand, valid[j], strict, risk),
+            n_bound,
+        )
+        return p, restore(a)
+    B = demands.shape[0]
+    if B == 0:
+        return _empty_result(avail, restore)
+
+    def speculate(avail, dem_c, valid_c, pos):
+        # Fill in host-index order (or the risk order), capacity from the
+        # leading demand: identical-demand runs commit whole chunks.
+        viable = _static_viable(totals, dem_c[0], strict)
+        caps = _fill_capacity(avail, dem_c[0], strict, viable)
+        ranks = torch.arange(dem_c.shape[0], device=avail.device)
+        if risk is None:
+            return _fill_pick_by_index(caps, ranks)
+        return _fill_pick(risk, caps, ranks)
+
+    def recheck(a_pre, dem_c, valid_c, pos):
+        fit = _fits(a_pre, dem_c[:, None, :], strict) & valid_c[:, None]
+        if risk is None:
+            h = _first_true(fit)
+        else:
+            h = torch.argmin(_risk_key(fit, risk), dim=1)
+        return h, fit.any(dim=1)
+
+    p, a = _chunk_drive(avail, demands, valid, min(mode, B), speculate,
+                        recheck)
     return p, restore(a)
 
 
 def best_fit_impl(avail, demands, valid, totals=None, phase2="auto",
-                  live=None, risk=None):
+                  live=None, risk=None, n_bound=None):
     """Two-phase form of :func:`best_fit_kernel_ref`."""
     mode = _resolve_phase2(phase2)
     avail, restore = _apply_live(avail, live)
     if mode == "scan":
         p, a = _best_fit_scan(avail, demands, valid, risk)
         return p, restore(a)
-    p, a = _slim_drive(
-        avail, demands, valid,
-        lambda avail, j, demand: _best_fit_row(avail, demand, valid[j], risk),
-    )
+    if mode == "slim":
+        p, a = _slim_drive(
+            avail, demands, valid,
+            lambda avail, j, demand: _best_fit_row(avail, demand, valid[j],
+                                                   risk),
+            n_bound,
+        )
+        return p, restore(a)
+    B = demands.shape[0]
+    if B == 0:
+        return _empty_result(avail, restore)
+    big = avail.new_full((), float("inf"))
+
+    def speculate(avail, dem_c, valid_c, pos):
+        # Best-fit piles onto its argmin host until the fit fails, then
+        # moves to the next host in chunk-entry residual order.
+        viable = _static_viable(totals, dem_c[0], strict=True)
+        caps = _fill_capacity(avail, dem_c[0], True, viable)
+        resid0 = _risk_score(_norms(avail - dem_c[0][None, :]), risk)
+        return _fill_pick(resid0, caps,
+                          torch.arange(dem_c.shape[0], device=avail.device))
+
+    def recheck(a_pre, dem_c, valid_c, pos):
+        fit = _fits(a_pre, dem_c[:, None, :], True) & valid_c[:, None]
+        residual = _risk_score(_norms(a_pre - dem_c[:, None, :]), risk)
+        h = torch.argmin(torch.where(fit, residual, big), dim=1)
+        return h, fit.any(dim=1)
+
+    p, a = _chunk_drive(avail, demands, valid, min(mode, B), speculate,
+                        recheck)
     return p, restore(a)
 
 
@@ -508,7 +745,10 @@ def cost_aware_impl(avail, demands, valid, new_group, anchor_zone, cost_zz,
     as ``pivot_tpu.ops.kernels.cost_aware_impl``.  Phase 1 hoists the
     ``[Z, H]`` round-trip tables and the host-decay prescale of the cost
     table (the same two operands multiply, so the product is bit-equal);
-    the slim phase 2 recomputes the group score only at group entries."""
+    the slim phase 2 recomputes the group score only at group entries and
+    reads its control stream (valid, group entries, anchor zones) to the
+    host once per call; the chunked phase 2 reads its commit position
+    once per chunk."""
     mode = _resolve_phase2(phase2)
     _check_exp_rows(score_exp, rt_bw_rows)
     avail, restore = _apply_live(avail, live)
@@ -519,8 +759,9 @@ def cost_aware_impl(avail, demands, valid, new_group, anchor_zone, cost_zz,
             rt_bw_rows, rt_bw_idx, risk, score_exp,
         )
         return p, restore(a)
-    avail = avail.clone()
     B, H = demands.shape[0], avail.shape[0]
+    if B == 0:
+        return _empty_result(avail, restore)
     first_fit = bin_pack == "first-fit"
     dtype = avail.dtype
     big = avail.new_full((), float("inf"))
@@ -536,11 +777,20 @@ def cost_aware_impl(avail, demands, valid, new_group, anchor_zone, cost_zz,
     iota_h = torch.arange(H, dtype=dtype, device=avail.device)
     row_src = bw_rt if rt_bw_rows is None else rt_bw_rows
     row_idx = anchor_zone if rt_bw_rows is None else rt_bw_idx
-
-    # ---- phase 2 (slim) ----
-    placements = torch.full((B,), -1, dtype=torch.int32, device=avail.device)
     frozen = torch.zeros(H, dtype=dtype, device=avail.device)
     extra = torch.zeros(H, dtype=torch.int32, device=avail.device)
+
+    if mode != "slim":
+        return _cost_aware_chunks(
+            avail, restore, demands, valid, new_group, anchor_zone, row_idx,
+            min(mode, B), first_fit, sort_hosts, host_decay, track_extra,
+            cost_rt, num_rt, row_src, base_counts, iota_h, frozen, extra,
+            totals, risk, w_norm,
+        )
+
+    # ---- phase 2 (slim) ----
+    avail = avail.clone()
+    placements = torch.full((B,), -1, dtype=torch.int32, device=avail.device)
     n_eff, (ng, az, ri) = _host_rows(valid, new_group, anchor_zone, row_idx)
     for j in range(n_eff):
         demand = demands[j]
@@ -570,3 +820,118 @@ def cost_aware_impl(avail, demands, valid, new_group, anchor_zone, cost_zz,
             _bump_count(extra, h, ok)
         _set_placement(placements, j, h, ok)
     return placements, restore(avail)
+
+
+def _cost_aware_chunks(avail, restore, demands, valid, new_group,
+                       anchor_zone, row_idx, C, first_fit, sort_hosts,
+                       host_decay, track_extra, cost_rt, num_rt, row_src,
+                       base_counts, iota_h, frozen, extra, totals, risk,
+                       w_norm):
+    """The chunked phase 2 of :func:`cost_aware_impl`
+    (``pivot_tpu/ops/kernels.py:1125-1251``).
+
+    First-fit chunks are segment-scored: positions before the chunk's
+    first group entry e1 keep the carried frozen score, positions in
+    [e1, e2) get the score frozen at e1 from the exact prefix
+    availability, and the commit is capped at the second entry e2.
+    Best-fit speculates by filling in the chunk-entry score order of the
+    leading task and re-decides with the live decay counter."""
+    B = demands.shape[0]
+    dev = avail.device
+    dtype = avail.dtype
+    big = avail.new_full((), float("inf"))
+    n_eff, _ = _host_rows(valid)
+    demP, validP, ngP = (_pad_chunk(x, C)
+                         for x in (demands, valid, new_group))
+    azP, riP = _pad_chunk(anchor_zone, C), _pad_chunk(row_idx, C)
+    idx = torch.arange(C, device=dev)
+    placements = torch.full((B + C,), -1, dtype=torch.int32, device=dev)
+    pos = 0
+    while pos < n_eff:
+        dem_c, valid_c = demP[pos:pos + C], validP[pos:pos + C]
+        ng_c = ngP[pos:pos + C]
+        az_c, ri_c = azP[pos:pos + C].long(), riP[pos:pos + C].long()
+        if first_fit:
+            e1 = torch.where(ng_c, idx, torch.full_like(idx, C)).min()
+            e2 = torch.where(ng_c & (idx > e1), idx,
+                             torch.full_like(idx, C)).min()
+            e1c = e1.clamp(max=C - 1)
+            num_e1, bw_e1 = _at(num_rt, _at(az_c, e1c)), _at(row_src,
+                                                             _at(ri_c, e1c))
+            dem_e1 = _at(dem_c, e1c)
+
+            def group_row(a):
+                if sort_hosts:
+                    return _risk_score(
+                        _ca_group_score(num_e1, a, bw_e1, w_norm), risk)
+                return risk if risk is not None else iota_h
+
+            row_spec = group_row(avail)
+            capsA = _fill_capacity(
+                avail, dem_c[0], True,
+                _static_viable(totals, dem_c[0], strict=True))
+            capsB = _fill_capacity(
+                avail, dem_e1, True,
+                _static_viable(totals, dem_e1, strict=True))
+            hA, okA = _fill_pick(frozen, capsA,
+                                 torch.where(idx < e1, idx, -1))
+            hB, okB = _fill_pick(
+                row_spec, capsB,
+                torch.where((idx >= e1) & (idx < e2), idx - e1, -1))
+            h_s = torch.where(idx < e1, hA, hB)
+            ok_s = torch.where(idx < e1, okA, okB) & valid_c
+            commit_cap = e2
+            row_check = []
+
+            def recheck(a_pre, _ex):
+                row = group_row(_at(a_pre, e1c))
+                row_check.append(row)
+                score_rows = torch.where((idx >= e1)[:, None], row[None],
+                                         frozen[None])
+                fit = _fits(a_pre, dem_c[:, None, :], True) & valid_c[:, None]
+                h = torch.argmin(torch.where(fit, score_rows, big), dim=1)
+                return h, fit.any(dim=1)
+        else:
+            cost_rows, bw_rows = cost_rt[az_c], row_src[ri_c]  # [C, H]
+            resid0 = _norms(avail - dem_c[0][None, :])
+            if w_norm is not None:
+                resid0 = resid0 ** w_norm
+            dec0 = (torch.clamp_min(base_counts + extra.to(dtype), 1.0)
+                    if host_decay else 1.0)
+            row_spec = _risk_score(cost_rows[0] * resid0 * dec0 / bw_rows[0],
+                                   risk)
+            caps = _fill_capacity(
+                avail, dem_c[0], False,
+                _static_viable(totals, dem_c[0], strict=False))
+            h_s, ok_s = _fill_pick(row_spec, caps, idx)
+            ok_s = ok_s & valid_c
+            commit_cap = None
+
+            def recheck(a_pre, ex_pre):
+                fit = (_fits(a_pre, dem_c[:, None, :], False)
+                       & valid_c[:, None])
+                residual = _norms(a_pre - dem_c[:, None, :])
+                if w_norm is not None:
+                    residual = residual ** w_norm
+                decay = (
+                    torch.clamp_min(base_counts[None] + ex_pre.to(dtype), 1.0)
+                    if host_decay else 1.0
+                )
+                cand = _risk_score(cost_rows * residual * decay / bw_rows,
+                                   risk)
+                h = torch.argmin(torch.where(fit, cand, big), dim=1)
+                return h, fit.any(dim=1)
+
+        h_s = torch.where(ok_s, h_s, torch.zeros_like(h_s))
+        p_c, _h, _ok, fc, commit_state = _speculate_commit(
+            avail, extra, track_extra, dem_c, h_s, ok_s, recheck)
+        n_commit = fc + 1
+        if commit_cap is not None:
+            n_commit = torch.minimum(n_commit, commit_cap)
+        n_commit = max(min(int(n_commit), C), 1)  # the chunk's host read
+        placements[pos:pos + C] = p_c
+        avail, extra = commit_state(n_commit)
+        if first_fit:
+            frozen = torch.where(e1 < n_commit, row_check[0], frozen)
+        pos += n_commit
+    return placements[:B], restore(avail)

@@ -31,10 +31,21 @@ at the last valid task.  It is opt-in (the CLI's ``--adaptive``); by
 default every tick goes to the device.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-``cuda`` without a card raises.  Not in this slice (ROADMAP.md, port
-queue): cross-run batching, host sharding, fused spans, the resident
-carry, the degrade guard, the fault gate and the spot market — the
-methods that would attach them raise ``NotImplementedError``.
+``cuda`` without a card raises.
+
+Fused spans (``place_span``, ``pivot_tpu/sched/tpu.py:980-1087``): when
+the scheduler extracts a pure tick run, a span-capable policy serves the
+whole window with ``ops.tickloop.fused_tick_run`` — one staging copy of
+the span operands, the ticks on the device, one fetch of the ``[K, B]``
+placements.  The Cost-Aware arm's span ticks launch the hand kernel
+under the same auto rule as its per-tick ticks, counted apart
+(``span_kernel_ticks``).  Declined spans fall back to the per-tick path,
+bit-identically.
+
+Not in this slice (ROADMAP.md, port queue): cross-run batching, host
+sharding, the resident carry, the degrade guard, the fault gate and the
+spot market — the methods that would attach them raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -56,6 +67,11 @@ from pivot_tpu_torch.ops.kernels import (
     first_fit_impl,
     opportunistic_impl,
     resolve_device,
+)
+from pivot_tpu_torch.ops.tickloop import (
+    fused_tick_run,
+    span_bucket,
+    span_step_bounds,
 )
 from pivot_tpu_torch.sched import Policy, TickContext
 from pivot_tpu_torch.sched.policies import (
@@ -134,6 +150,15 @@ def _probe_device_floor(device: torch.device) -> float:
     return best
 
 
+class _SpanOutcome:
+    """A priced span: slot-indexed per-tick placements, host-fetched."""
+
+    __slots__ = ("placements",)
+
+    def __init__(self, placements: np.ndarray):
+        self.placements = placements
+
+
 class _DevicePolicyBase(Policy):
     """Shared bind/pad/stage/adaptive-dispatch machinery
     (``pivot_tpu/sched/tpu.py:334``)."""
@@ -176,10 +201,12 @@ class _DevicePolicyBase(Policy):
         # a first call must not poison the per-cell EMA.
         self._warm_buckets: set = set()
         #: Ticks served by the device path / by the numpy twin / by the
-        #: hand-written kernel — what :meth:`dispatch_stats` reports.
+        #: hand-written kernel, and span ticks launched on the hand kernel
+        #: — what :meth:`dispatch_stats` reports.
         self.device_ticks = 0
         self.twin_ticks = 0
         self.kernel_ticks = 0
+        self.span_kernel_ticks = 0
 
     @property
     def np_dtype(self):
@@ -210,14 +237,82 @@ class _DevicePolicyBase(Policy):
         """Where this policy's ticks were served."""
         return {"device_ticks": self.device_ticks,
                 "twin_ticks": self.twin_ticks,
-                "kernel_ticks": self.kernel_ticks}
+                "kernel_ticks": self.kernel_ticks,
+                "span_kernel_ticks": self.span_kernel_ticks}
+
+    # -- fused span tier (``pivot_tpu/sched/tpu.py:980-1087``) -------------
+    #
+    # ``place_span`` (a whole pure tick run as one device program) above
+    # ``place`` (one tick per dispatch) above the adaptive numpy twin.  Any
+    # declined span falls back to the per-tick path, bit-identically.
+
+    #: Maximum ticks fused per span (the K axis of the tick driver).
+    span_cap = 32
+
+    def span_capable(self) -> bool:
+        """Spans need deterministic device routing (no adaptive twin),
+        span-constant inputs (no realtime bandwidth), and the tick-loop
+        kernel family — forcing ``use_kernel=True`` opts out, as
+        ``use_pallas=True`` does in the reference."""
+        return not (
+            self.adaptive
+            or getattr(self, "realtime_bw", False)
+            or getattr(self, "use_kernel", None) is True
+        )
+
+    def _span_kw(self, ctx: TickContext, plan, dem_host: np.ndarray,
+                 B: int, K: int) -> Optional[dict]:
+        """Policy-specific driver arguments (None declines the span):
+        host arrays, staged with the span's other operands in one copy,
+        and static values."""
+        raise NotImplementedError
+
+    def _span_market_kw(self, ctx: TickContext, plan, K: int) -> dict:
+        """The span's market operands: none, since a scheduler with a
+        market is refused at bind."""
+        return {}
+
+    def _span_norms(self, dem_host: np.ndarray, B: int) -> np.ndarray:
+        """Demand norms padded to the slot bucket: the per-tick sort keys,
+        computed in f64 and rounded once into the policy dtype."""
+        norms = np.zeros(B, dtype=self.np_dtype)
+        norms[: dem_host.shape[0]] = np.sqrt(
+            np.sum(dem_host * dem_host, axis=1))
+        return norms
+
+    def place_span(self, ctx: TickContext, plan) -> Optional[_SpanOutcome]:
+        """Serve a whole pure tick run as one device program: one staging
+        copy of the span operands, :func:`fused_tick_run`, one fetch of
+        the ``[K, B]`` slot-indexed placements (−1 unplaced).  Returns
+        None to decline; the scheduler then serves the tick per-tick."""
+        slots = plan.slots
+        S = len(slots)
+        B = pad_bucket(S)
+        k_dyn = plan.n_ticks
+        K = span_bucket(k_dyn)
+        dem_host = np.stack([t.demand for t in slots])
+        kw = self._span_kw(ctx, plan, dem_host, B, K)
+        if kw is None:
+            return None
+        kw.update(self._span_market_kw(ctx, plan, K))
+        dem = np.zeros((B, 4), dtype=self.np_dtype)
+        dem[:S] = dem_host
+        arrive = np.full(B, K, dtype=np.int32)
+        arrive[:S] = plan.arrive
+        host = {k: v for k, v in kw.items() if isinstance(v, np.ndarray)}
+        st = stage(self.device, avail=np.asarray(ctx.avail, self.np_dtype),
+                   dem=dem, arrive=arrive, live=self._live_np(ctx), **host)
+        kw.update((k, st[k]) for k in host)
+        res = fused_tick_run(
+            st["avail"], st["dem"], st["arrive"], k_dyn, n_ticks=K,
+            n_bound=span_step_bounds(plan.arrive, k_dyn), live=st["live"],
+            **kw,
+        )
+        # One fetch: the placements are the span's whole host-visible
+        # output (the scheduler's replay derives the meters from them).
+        return _SpanOutcome(res.placements.cpu().numpy())
 
     # -- features of later slices ------------------------------------------
-    def span_capable(self) -> bool:
-        """Fused spans (``ops/tickloop.py``) are not ported: every tick
-        takes the per-tick path."""
-        return False
-
     def _not_ported(self, what: str):
         raise NotImplementedError(
             f"{what} is not ported to pivot_tpu_torch yet (ROADMAP.md, "
@@ -375,6 +470,16 @@ class CudaOpportunisticPolicy(_DevicePolicyBase):
         self._cpu_twin = OpportunisticPolicy(mode="numpy",
                                              weights=self.weights)
 
+    def _span_kw(self, ctx, plan, dem_host, B, K):
+        # [K, B] positional Philox rows: span tick k draws
+        # ``tick_uniforms(seed, tick_seq + k, ·)`` like the per-tick path
+        # (prefix property), rounded once into the policy dtype.
+        seed = ctx.scheduler.seed or 0
+        u = np.zeros((K, B), dtype=self.np_dtype)
+        for k in range(plan.n_ticks):
+            u[k] = tick_uniforms(seed, ctx.tick_seq + k, B)
+        return dict(policy="opportunistic", uniforms=u, phase2=self.phase2)
+
     def _device_place(self, ctx: TickContext) -> np.ndarray:
         T = ctx.n_tasks
         avail, dem, valid = self._padded(ctx)
@@ -404,6 +509,14 @@ class CudaFirstFitPolicy(_DevicePolicyBase):
         self.decreasing = decreasing
         self._cpu_twin = FirstFitPolicy(decreasing=decreasing, mode="numpy",
                                         weights=self.weights)
+
+    def _span_kw(self, ctx, plan, dem_host, B, K):
+        return dict(
+            policy="first-fit", strict=False, decreasing=self.decreasing,
+            sort_norm=(self._span_norms(dem_host, B) if self.decreasing
+                       else None),
+            totals=self.topology.totals, phase2=self.phase2,
+        )
 
     def _order(self, ctx: TickContext):
         if not self.decreasing:
@@ -439,6 +552,14 @@ class CudaBestFitPolicy(_DevicePolicyBase):
         self.decreasing = decreasing
         self._cpu_twin = BestFitPolicy(decreasing=decreasing, mode="numpy",
                                        weights=self.weights)
+
+    def _span_kw(self, ctx, plan, dem_host, B, K):
+        return dict(
+            policy="best-fit", decreasing=self.decreasing,
+            sort_norm=(self._span_norms(dem_host, B) if self.decreasing
+                       else None),
+            totals=self.topology.totals, phase2=self.phase2,
+        )
 
     _order = CudaFirstFitPolicy._order
 
@@ -549,6 +670,46 @@ class CudaCostAwarePolicy(_DevicePolicyBase):
 
     def _greedy_batched(self, *args, **kw):
         return cost_aware_cuda_batched(*args, **kw)
+
+    def _span_greedy(self, *args, **kw):
+        """A span tick served by the hand kernel."""
+        self.span_kernel_ticks += 1
+        return self._greedy(*args, **kw)
+
+    def _span_kw(self, ctx, plan, dem_host, B, K):
+        if self.realtime_bw:
+            return None  # live route-queue samples are per-tick host state
+        # Per-slot anchor identity and zone: anchors are span-constant, so
+        # one grouping walk covers every tick; fused_tick_run re-derives each
+        # tick's first-seen bucket order from its own batch order.
+        span_ctx = TickContext(ctx.scheduler, list(plan.slots), ctx.tick_seq)
+        storage = ctx.cluster.storage
+        az = np.zeros(B, dtype=np.int32)
+        bucket = np.zeros(B, dtype=np.int32)
+        groups = self._grouper.group_tasks(span_ctx)
+        for bi, (anchor, idxs) in enumerate(groups.items()):
+            if not hasattr(anchor, "locality"):  # root group → keyed storage
+                anchor = storage[resolve_root_anchor(span_ctx, anchor,
+                                                     len(storage))]
+            az[idxs] = ctx.meta.zone_index[anchor.locality]
+            bucket[idxs] = bi
+        topo = self.topology
+        kw = dict(
+            policy="cost-aware", bin_pack=self.bin_pack,
+            sort_tasks=self.sort_tasks, sort_hosts=self.sort_hosts,
+            host_decay=self.host_decay,
+            sort_norm=(self._span_norms(dem_host, B) if self.sort_tasks
+                       else None),
+            anchor_zone=az, bucket_id=bucket, cost_zz=topo.cost,
+            bw_zz=topo.bw, host_zone=topo.host_zone,
+            base_task_counts=np.asarray(ctx.host_task_counts, np.int32),
+            totals=topo.totals, phase2=self.phase2,
+        )
+        if self._kernel_serves():
+            kw["greedy"] = self._span_greedy
+        elif self._score_exp is not None:
+            kw["score_exp"] = np.asarray(self._score_exp, self.np_dtype)
+        return kw
 
     def _anchor_stream(self, ctx: TickContext):
         """The per-task anchor stream ``(order, az [B] i32, ng [B] bool,

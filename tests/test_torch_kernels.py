@@ -181,10 +181,15 @@ def test_torch_kernels_score_exp(mode):
 
 
 def test_torch_phase2_validation():
+    """A chunk size is a phase-2 mode (speculative chunk commit, held
+    bitwise in ``tests/test_torch_two_phase.py``); zero, a bool and an
+    unknown name are refused."""
     t = as_torch(make_inputs(0, 5, 4, 8))
-    with pytest.raises(NotImplementedError, match="chunk speculation"):
-        tk.first_fit_impl(t["avail"], t["dem"], t["valid"], phase2=8)
-    for bad in (0, "bogus"):
+    chunked = tk.first_fit_impl(t["avail"], t["dem"], t["valid"], phase2=8)
+    slim = tk.first_fit_impl(t["avail"], t["dem"], t["valid"], phase2="slim")
+    assert torch.equal(chunked[0], slim[0])
+    assert torch.equal(chunked[1], slim[1])
+    for bad in (0, True, "bogus"):
         with pytest.raises(ValueError, match="phase2"):
             tk.first_fit_impl(t["avail"], t["dem"], t["valid"], phase2=bad)
 

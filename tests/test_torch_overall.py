@@ -65,12 +65,19 @@ def test_overall_port_matches_reference(tmp_path, device):
 
     assert [s["label"] for s in summaries] == list(ARMS)
     for s in summaries:
+        assert s["spans"]["ff_ticks"] > 0
         if device == "numpy":
             assert "dispatch" not in s
+            assert s["spans"]["fused_spans"] == 0  # no device spans
             continue
         d = s["dispatch"]
         assert d["device_ticks"] > 0 and d["twin_ticks"] == 0
         assert d["kernel_ticks"] == 0  # the kernel serves cuda f32 only
+        assert d["span_kernel_ticks"] == 0
+        # Pump-delivery windows were served as spans, and the files
+        # above are byte-identical all the same.
+        assert s["spans"]["fused_spans"] > 0
+        assert s["spans"]["fused_ticks"] > s["spans"]["fused_spans"]
 
 
 @pytest.mark.parametrize("extra,adaptive", [

@@ -283,7 +283,7 @@ def test_kernel_path_on_cpu_matches_torch_form(metas):
             got.append(pol.place(ctx).tolist())
             assert pol.dispatch_stats() == {
                 "device_ticks": 1, "twin_ticks": 0,
-                "kernel_ticks": int(use_kernel),
+                "kernel_ticks": int(use_kernel), "span_kernel_ticks": 0,
             }
         assert got[0] == got[1], kwargs
     assert ck.LAUNCHES["greedy_place"] == 0
@@ -338,19 +338,36 @@ def test_cuda_without_a_card_raises():
 
 
 def test_features_of_later_slices_raise(metas):
+    """Spans and chunk commit are ported: the device policies are
+    span-capable by the reference's rule and ``phase2=8`` is served.
+    Batching, sharding, the resident carry, the fault gate and the
+    profiler still raise."""
     pol = pcuda.CudaCostAwarePolicy(device="cpu")
-    assert not pol.span_capable()
+    assert pol.span_capable()
+    for cls in (pcuda.CudaOpportunisticPolicy, pcuda.CudaFirstFitPolicy,
+                pcuda.CudaBestFitPolicy, pcuda.CudaCostAwarePolicy):
+        assert cls(device="cpu").span_capable()
+        assert not cls(device="cpu", adaptive=True).span_capable()
+    assert not pcuda.CudaCostAwarePolicy(
+        device="cpu", realtime_bw=True).span_capable()
+    assert not pcuda.CudaCostAwarePolicy(
+        device="cpu", use_kernel=True).span_capable()
+    assert pcuda.CudaCostAwarePolicy(
+        device="cpu", use_kernel=False).span_capable()
     for attach in (pol.enable_batching, pol.enable_sharding,
                    pol.enable_fault_gate, pol.enable_profiler):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             attach(None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pol.enable_resident()
-    chunked = pcuda.CudaFirstFitPolicy(device="cpu", phase2=8)
-    ctx = ctx_pair(metas, random_groups(0), 0)[1]
-    chunked.bind(ctx.scheduler)
-    with pytest.raises(NotImplementedError, match="chunk speculation"):
-        chunked.place(ctx)
+    got = []
+    for phase2 in (8, "slim"):
+        ff = port_dev(pcuda.CudaFirstFitPolicy, phase2=phase2)
+        ctx = ctx_pair(metas, random_groups(0), 0)[1]
+        ff.bind(ctx.scheduler)
+        got.append(ff.place(ctx).tolist())
+    assert got[0] == got[1]
+    assert any(h >= 0 for h in got[0])
 
 
 def test_adaptive_small_tick_routes_to_numpy_twin(metas):
