@@ -41,7 +41,18 @@ Phases, each fatal on failure:
      same float32 operands with the plain version serving its ticks, and
      checks ``placement_sensitivity`` (R = 256) against the plain batched
      version at each new largest tick;
-  4. times on the card by CUDA events: the wrapper the main path calls
+  4. sensitivity on the card: the ``sensitivity`` experiment through the
+     port's CLI at 600 hosts, R = 256, under a spot market drawn by
+     ``MarketSchedule.generate`` from the port's own cluster metadata —
+     the Cost-Aware arm (300 apps: every gated tick must be one R = 256
+     launch of ``greedy_place``, each held after the run against
+     ``cost_aware_plain_batched`` on its own f32 operands) and the VBP
+     arm (100 apps: the replica-batched torch First-Fit pass, its largest
+     tick's first rows held against the unbatched pass); each baseline's
+     four metrics within 0.5% of a numpy run of the same seed and
+     market; the gate's telemetry, paired walls and a host-clock split
+     of a gated tick (noise draw, staging, pass, fetch + unpad);
+  5. times on the card by CUDA events: the wrapper the main path calls
      per tick (median over the run's ticks, and at T = 619 / 2048,
      H = 600), the R = 256 launch, the plain version, and the roofline
      bound; beside each wrapper time the bare launch (``kernel_ms``,
@@ -50,9 +61,12 @@ Phases, each fatal on failure:
      the share of the main path's tasks that are group entries; the
      sweep of warps per replica at H = 600 that sets ``_launch_config``;
      and, where ``torch.profiler`` sees the card, one device kernel per
-     wrapper call.
+     wrapper call; and wrapper / bare-launch times of every gated
+     R = 256 launch of phase 4.
 
-The line before the last is a JSON ``kernels`` record; the last line is
+The line before the last is a JSON ``kernels`` record (its ``launches``
+split into the R = 1 and R = 256 launches of phases 3 and 4); the last
+line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout of the repository, the script exits non-zero and prints no
 result.
@@ -773,6 +787,274 @@ def phase_end_to_end(device, n_hosts=600, n_apps=1000):
     return res
 
 
+#: Apps of each gated arm the sensitivity phase runs, and its replicas.
+SENS_APPS = {"cost-aware": 300, "vbp": 100}
+SENS_REPLICAS = 256
+METRICS = ("avg_runtime", "egress_cost", "instance_hours", "makespan")
+
+
+def sensitivity_argv(out, job_dir, policy, n_apps, market, n_hosts=600):
+    return ["--num-hosts", str(n_hosts), "--job-dir", job_dir,
+            "--output-dir", out, "--seed", "0", "sensitivity",
+            "--policy", policy, "--replicas", str(SENS_REPLICAS),
+            "--num-apps", str(n_apps), "--des-seeds", "1",
+            "--market", market]
+
+
+class GateMeter:
+    """Instruments the sensitivity path of ``sched.cuda`` while active.
+    Host clocks split each gated tick's ``_mc_sensitivity`` into the noise
+    draw (``_replicas``), the one ``stage`` copy, the pass (the kernel
+    wrapper's enqueue, or the batched torch pass) and the rest (the fetch,
+    which waits for the device, and the unpad).  Every replica-batched
+    ``greedy_place`` call is recorded with its staged operands and its
+    outputs — fresh tensors the run never reuses — for the shadow check
+    and the times taken after the run; CUDA events bracket every batched
+    First-Fit pass, and the operands of the largest one are kept."""
+
+    def __init__(self, cuda_mod):
+        self.mod = cuda_mod
+        self.base = cuda_mod._DevicePolicyBase
+        self.ca = cuda_mod.CudaCostAwarePolicy
+        self.calls = []  # (args, kw, outputs) of every batched kernel call
+        self.parts = []  # host seconds per gated tick, by part
+        self.ff_passes = []  # (events, n_bound) per batched First-Fit pass
+        self.ff_largest = None  # (args, kw) of the largest of them
+
+    def __enter__(self):
+        mod, meter = self.mod, self
+        saved = self.saved = dict(
+            mc=self.base._mc_sensitivity, replicas=self.base._replicas,
+            greedy=self.ca._greedy_batched, stage=mod.stage,
+            ffb=mod.first_fit_batched)
+        cur = {}
+
+        def timed(key, fn):
+            def f(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    cur[key] = cur.get(key, 0.0) + time.perf_counter() - t0
+            return f
+
+        def mc(pol, *a, **k):
+            cur.clear()
+            t0 = time.perf_counter()
+            out = saved["mc"](pol, *a, **k)
+            cur["total"] = time.perf_counter() - t0
+            meter.parts.append(dict(cur))
+            return out
+
+        def greedy(pol, *a, **k):
+            out = saved["greedy"](pol, *a, **k)
+            meter.calls.append((a, k, out))
+            return out
+
+        def ffb(*a, **k):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = saved["ffb"](*a, **k)
+            ev[1].record()
+            n = k["n_bound"]
+            if not meter.ff_passes or n > max(x[1] for x in meter.ff_passes):
+                meter.ff_largest = (a, k)
+            meter.ff_passes.append((ev, n))
+            return out
+
+        self.base._mc_sensitivity = mc
+        self.base._replicas = timed("noise", saved["replicas"])
+        self.ca._greedy_batched = timed("pass", greedy)
+        mod.stage = timed("stage", saved["stage"])
+        mod.first_fit_batched = timed("pass", ffb)
+        return self
+
+    def __exit__(self, *exc):
+        self.base._mc_sensitivity = self.saved["mc"]
+        self.base._replicas = self.saved["replicas"]
+        self.ca._greedy_batched = self.saved["greedy"]
+        self.mod.stage = self.saved["stage"]
+        self.mod.first_fit_batched = self.saved["ffb"]
+
+    def part_sums(self):
+        """Seconds summed over the gated ticks, by part."""
+        out = {k: sum(p.get(k, 0.0) for p in self.parts)
+               for k in ("noise", "stage", "pass", "total")}
+        out["fetch_unpad"] = (out["total"] - out["noise"] - out["stage"]
+                              - out["pass"])
+        return out
+
+
+def numpy_metrics(cli, policy, n_apps, market, cluster_cfg):
+    """``des_metrics`` of the un-gated arm on ``--device numpy``, same
+    trace, cluster, seed and market."""
+    import dataclasses
+
+    from pivot_tpu_torch.experiments.calibrate import des_metrics
+    from pivot_tpu_torch.experiments.runner import ExperimentRun
+    from pivot_tpu_torch.utils.config import build_cluster, make_policy
+
+    arm = dataclasses.replace(cli._SENSITIVITY_ARMS[policy][0],
+                              device="numpy")
+    run = ExperimentRun("numpy", build_cluster(cluster_cfg),
+                        make_policy(arm), TRACE, n_apps=n_apps, seed=0,
+                        interval=5.0, market=market)
+    return des_metrics(run.run(), run.schedule)
+
+
+def phase_sensitivity(device, n_hosts=600, apps=None):
+    """The ``sensitivity`` experiment through the port's CLI under a
+    seeded spot market: the Cost-Aware arm (every gated tick one
+    R = 256 launch of ``greedy_place``, each held against the plain
+    version after the run) and the VBP arm (the batched torch First-Fit
+    pass), each baseline against a numpy run of the same seed and
+    market."""
+    from pivot_tpu_torch.experiments import cli
+    from pivot_tpu_torch.infra.market import MarketSchedule
+    from pivot_tpu_torch.ops import cuda_kernels as ck
+    from pivot_tpu_torch.ops import kernels as pk
+    from pivot_tpu_torch.sched import cuda as cuda_mod
+    from pivot_tpu_torch.utils.config import build_cluster
+    from pivot_tpu_torch.workload.trace import load_trace_jobs
+
+    apps = apps or SENS_APPS
+    res = {}
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        job_dir = os.path.join(tmp, "jobs")
+        os.makedirs(job_dir)
+        os.symlink(os.path.abspath(TRACE),
+                   os.path.join(job_dir, os.path.basename(TRACE)))
+        market_path = os.path.join(tmp, "market.json")
+        argv = sensitivity_argv(tmp, job_dir, "cost-aware",
+                                apps["cost-aware"], market_path, n_hosts)
+        args = cli.parse_args(argv)
+        cluster_cfg = cli._cluster_config(args)
+        bins = load_trace_jobs(TRACE, args.scale_factor).take(
+            apps["cost-aware"]).bins
+        horizon = bins[-1][0] - bins[0][0]  # the last submission instant
+        market = MarketSchedule.generate(build_cluster(cluster_cfg).meta,
+                                         seed=0, horizon=horizon,
+                                         n_segments=8)
+        market.save(market_path)
+        log(f"  market: {market.n_segments} segments over {horizon!r} s "
+            f"(MarketSchedule.generate, seed 0), {len(market.zones)} zones")
+        for policy, n_apps in apps.items():
+            argv = sensitivity_argv(os.path.join(tmp, policy), job_dir,
+                                    policy, n_apps, market_path, n_hosts)
+            with GateMeter(cuda_mod) as gm:
+                ck.reset_launches()  # this path's count starts here
+                t0 = time.perf_counter()
+                report = cli.run_sensitivity(cli.parse_args(argv),
+                                             torch_device=device)
+                wall = time.perf_counter() - t0
+                launches = dict(ck.LAUNCHES_BY_REPLICAS)
+            seed = report["per_seed"][0]
+            gate = seed["gate"]
+            want = numpy_metrics(cli, policy, n_apps, market, cluster_cfg)
+            for k in METRICS:
+                got = seed["baseline"][k]
+                if not (np.isfinite(got) and np.isfinite(seed["gated"][k])):
+                    raise AssertionError(f"{policy}: {k} not finite")
+                if abs(got - want[k]) > 0.005 * max(abs(got), abs(want[k])):
+                    raise AssertionError(
+                        f"{policy} baseline {k}={got!r} is more than 0.5% "
+                        f"from numpy's {want[k]!r}")
+            log(f"  {policy}, {n_hosts} hosts x {n_apps} apps, R="
+                f"{SENS_REPLICAS}: {gate['ticks']} gated ticks, "
+                f"{gate['held']} held, {gate['forced_through']} forced "
+                f"through, mean stability {gate['mean_stability']!r}, min "
+                f"{gate['min_stability']!r}")
+            log(f"    baseline cuda vs numpy: " + ", ".join(
+                f"{k} {seed['baseline'][k]!r} / {want[k]!r}"
+                for k in METRICS))
+            log(f"    gated: " + ", ".join(
+                f"{k} {seed['gated'][k]!r}" for k in METRICS))
+            wall_per_tick = gate["sensitivity_wall_s"] / gate["ticks"]
+            parts = gm.part_sums()
+            log(f"    walls: baseline {seed['baseline_wall_s']!r} s, gated "
+                f"{seed['gated_wall_s']!r} s, both with the report "
+                f"{wall!r} s; sensitivity_wall_per_tick_s "
+                f"{gate['sensitivity_wall_per_tick_s']!r} (unrounded "
+                f"{wall_per_tick!r}); per gated tick, host ms: " + ", ".join(
+                    f"{k} {v * 1e3 / gate['ticks']!r}"
+                    for k, v in parts.items()))
+            r = dict(report=report, wall=wall, launches=launches,
+                     numpy=want, parts=parts, ticks=gate["ticks"])
+            if policy == "cost-aware":
+                if not (launches.get(SENS_REPLICAS) == gate["ticks"]
+                        == len(gm.calls) > 0 and launches.get(1, 0) > 0
+                        and set(launches) == {1, SENS_REPLICAS}):
+                    raise AssertionError(
+                        f"gated ticks {gate['ticks']} vs launches "
+                        f"{launches}: not one R={SENS_REPLICAS} launch a "
+                        "gated tick")
+                for a, _k, _out in gm.calls:
+                    if tuple(a[0].shape) != (SENS_REPLICAS, n_hosts, 4):
+                        raise AssertionError(f"gated launch of shape "
+                                             f"{tuple(a[0].shape)}")
+                chk = Check()
+                for i, (a, k, out) in enumerate(gm.calls):
+                    chk.same(out, ck.cost_aware_plain_batched(*a, **k),
+                             ("gated tick", i))
+                log(f"    shadow: all {chk.cases} R={SENS_REPLICAS} launches "
+                    f"equal to cost_aware_plain_batched ({chk.placed} "
+                    f"placements), max |avail diff| {chk.max_abs_err!r}; "
+                    f"launches R=1 {launches[1]}, R={SENS_REPLICAS} "
+                    f"{launches[SENS_REPLICAS]}")
+                r.update(check=chk, calls=gm.calls)
+            else:
+                if launches or len(gm.ff_passes) != gate["ticks"]:
+                    raise AssertionError(
+                        f"VBP: {len(gm.ff_passes)} batched passes for "
+                        f"{gate['ticks']} gated ticks, launches {launches}")
+                torch.cuda.synchronize()
+                ms = [ev[0].elapsed_time(ev[1]) for ev, _n in gm.ff_passes]
+                steps = [n for _ev, n in gm.ff_passes]
+                (avail_r, dem, valid), k = gm.ff_largest
+                got = pk.first_fit_batched(avail_r, dem, valid, **k)
+                chk = Check()
+                for row in range(4):
+                    want_row = pk.first_fit_impl(
+                        avail_r[row], dem, valid, strict=k["strict"],
+                        risk=k["risk"])
+                    chk.same((got[0][row], got[1][row]), want_row,
+                             ("vbp row", row))
+                r.update(ms_median=statistics.median(ms), ms_max=max(ms),
+                         ms_sum=sum(ms), steps_median=statistics.median(
+                             steps), steps_max=max(steps), check=chk)
+                log(f"    batched First-Fit pass (R={SENS_REPLICAS}, H="
+                    f"{n_hosts}, CUDA events): median {r['ms_median']!r} ms "
+                    f"a tick at median {r['steps_median']} steps, largest "
+                    f"{r['ms_max']!r} ms, sum {r['ms_sum']!r} ms over "
+                    f"{len(ms)} ticks; largest tick ({max(steps)} steps) rows "
+                    f"0-3 equal to the unbatched pass")
+            res[policy] = r
+    return res
+
+
+def gated_times(ck, calls):
+    """Wrapper ms and bare-launch ``kernel_ms`` of every recorded gated
+    launch, by CUDA events, and the largest launch's bound and plain
+    time."""
+    wrapper = [_events_ms(lambda: ck.cost_aware_cuda_batched(*a, **k), 3)
+               for a, k, _o in calls]
+    kernel_ = [_events_ms(bare_launch(ck, list(a), k)[0], 3)
+               for a, k, _o in calls]
+    n_eff = [k["n_eff"] for _a, k, _o in calls]
+    big = max(range(len(calls)), key=n_eff.__getitem__)
+    a, k, _o = calls[big]
+    b_ms, b_by = bound(list(a), k, a[0].shape[0], n_eff[big])
+    return dict(
+        ms_median=statistics.median(wrapper), ms_max=max(wrapper),
+        ms_sum=sum(wrapper), kernel_ms_median=statistics.median(kernel_),
+        kernel_ms_max=max(kernel_), kernel_ms_sum=sum(kernel_),
+        n_eff_median=statistics.median(n_eff), largest=dict(
+            n_eff=n_eff[big], ms=wrapper[big], kernel_ms=kernel_[big],
+            plain_ms=_host_ms(lambda: ck.cost_aware_plain_batched(*a, **k),
+                              1),
+            bound_ms=b_ms, bound_by=b_by))
+
+
 def _events_ms(fn, reps) -> float:
     """Mean device ms of ``fn`` over ``reps`` back-to-back calls."""
     fn()
@@ -988,8 +1270,15 @@ def main() -> int:
     e2e = phase_end_to_end(device)
     shadow = e2e["shadow"]
 
-    log("== 4. times on the card")
+    log(f"== 4. sensitivity on the card: 600 hosts, R={SENS_REPLICAS}, "
+        f"Cost-Aware x {SENS_APPS['cost-aware']} apps and VBP x "
+        f"{SENS_APPS['vbp']} apps under a seeded spot market")
+    sens = phase_sensitivity(device)
+    ca = sens["cost-aware"]
+
+    log("== 5. times on the card")
     times = phase_times(ck, shadow, device)
+    gt = gated_times(ck, ca.pop("calls"))
     lt = times["largest_tick"]
     log(f"  [{card}]")
     mk = times["tick_median_kernel"]
@@ -1059,22 +1348,49 @@ def main() -> int:
             f"differently, first {d['first']} on {d['first_on']} (on) vs "
             f"{d['first_off']} (off); float32 tie of demand norms possible: "
             f"{d['f32_norm_tie']}"))
+    gl = gt["largest"]
+    log(f"  gated Cost-Aware tick (R={SENS_REPLICAS}, H=600, market cost "
+        f"slice): wrapper median {gt['ms_median']!r} ms, largest "
+        f"{gt['ms_max']!r}, sum {gt['ms_sum']!r} over {ca['ticks']} ticks; "
+        f"kernel_ms median {gt['kernel_ms_median']!r}, largest "
+        f"{gt['kernel_ms_max']!r}, sum {gt['kernel_ms_sum']!r}; median n_eff "
+        f"{gt['n_eff_median']}; largest n_eff {gl['n_eff']}: wrapper "
+        f"{gl['ms']!r} ms, kernel_ms {gl['kernel_ms']!r}, plain "
+        f"{gl['plain_ms']!r} ms, bound {gl['bound_ms']!r} ms "
+        f"({gl['bound_by']})")
+    for policy, r in sens.items():
+        per = {k: v * 1e3 / r["ticks"] for k, v in r["parts"].items()}
+        log(f"  gated {policy} tick, host ms (noise / stage / pass enqueue /"
+            f" fetch+unpad incl. the device wait / _mc_sensitivity total): "
+            f"{per['noise']!r} / {per['stage']!r} / {per['pass']!r} / "
+            f"{per['fetch_unpad']!r} / {per['total']!r}")
     log(json.dumps({"times": times, "spans": spans,
-                    "same_files": e2e["same_files"]}, default=str))
+                    "same_files": e2e["same_files"], "gated_times": gt,
+                    "sensitivity": {p: {k: v for k, v in r.items()
+                                        if k != "check"}
+                                    for p, r in sens.items()}},
+                   default=str))
 
     record = {"kernels": [{
         "name": "greedy_place",
         "route": "cuda",
         "source": "pivot_tpu_torch/csrc/greedy_place.cu",
         "replaces": "pivot_tpu/ops/pallas_kernels.py:265",
-        "launches": e2e["runs"]["cuda"]["launches"],
+        "launches": (e2e["runs"]["cuda"]["launches"]
+                     + sum(ca["launches"].values())),
+        "launches_r1": (e2e["runs"]["cuda"]["launches"]
+                        + ca["launches"][1]),
+        f"launches_r{SENS_REPLICAS}": ca["launches"][SENS_REPLICAS],
         "max_abs_err": max(chk.max_abs_err, shadow.check.max_abs_err,
-                           e2e["referee"].max_abs_err),
+                           e2e["referee"].max_abs_err,
+                           ca["check"].max_abs_err),
         "ms": lt["ms"],
         "plain_ms": lt["plain_ms"],
         "bound_ms": lt["bound_ms"],
         "bound_by": lt["bound_by"],
         "library_ms": None,
+        f"r{SENS_REPLICAS}_ms": gt["ms_median"],
+        f"r{SENS_REPLICAS}_kernel_ms": gt["kernel_ms_median"],
     }]}
     log(f"  smoke wall: {time.perf_counter() - t_start!r} s")
     print(card, flush=True)

@@ -11,13 +11,14 @@ Runs are plain callables — the grid in ``experiments.cli`` executes
 them sequentially or via ``multiprocessing`` (the reference always forks; on
 a single-core host sequential is faster).
 
-Port of ``pivot_tpu/experiments/runner.py``.  The lock-step grid
-(``run_grid_lockstep``) and the spot-market hook are not ported yet
-(ROADMAP.md, port queue).
+Port of ``pivot_tpu/experiments/runner.py``, with its spot-market hook
+(``market=``).  The lock-step grid (``run_grid_lockstep``) is not ported
+yet (ROADMAP.md, port queue).
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 from typing import Optional
@@ -89,6 +90,7 @@ class ExperimentRun(LogMixin):
         identity: Optional[dict] = None,
         audit: bool = False,
         schedule: Optional[TraceSchedule] = None,
+        market=None,
     ):
         self.label = label
         self.cluster = cluster
@@ -116,6 +118,11 @@ class ExperimentRun(LogMixin):
         self.tracer: Optional[Tracer] = None
         self.identity = identity
         self.audit = audit
+        #: Optional spot-market environment (``infra/market.py``):
+        #: attached to the scheduler so placement scores with the
+        #: time-varying cost matrix and — for risk-aware policies — the
+        #: per-tick hazard vector.  None keeps the static world.
+        self.market = market
 
     def run_identity(self) -> dict:
         """What makes this run *this* run — compared on grid resume.
@@ -133,6 +140,13 @@ class ExperimentRun(LogMixin):
             "n_apps": self.n_apps,
             "seed": self.seed,
             "scale_factor": self.output_size_scale_factor,
+            # Content digest, not object identity: a market changes
+            # placements and costs, so a market-free and a market run of
+            # the same label must not compare as the same run.
+            "market": (
+                hashlib.sha256(self.market.dumps().encode()).hexdigest()
+                if self.market is not None else None
+            ),
         }
 
     def run(self) -> dict:
@@ -142,6 +156,10 @@ class ExperimentRun(LogMixin):
         # the tracer's wall timestamps share an epoch (round 14).
         meter = Meter(env, self.cluster.meta, clock=self.tracer.clock)
         cluster = self.cluster.clone(env, meter)
+        if self.market is not None:
+            # Price-regime changes land on the same timeline as ticks
+            # and task events (no-op when tracing is disabled).
+            self.market.emit_timeline(self.tracer)
         scheduler = GlobalScheduler(
             env,
             cluster,
@@ -151,6 +169,7 @@ class ExperimentRun(LogMixin):
             meter=meter,
             tracer=self.tracer,
             fuse_spans=self.fuse_spans,
+            market=self.market,
         )
         if self._schedule is not None:
             schedule = self._schedule

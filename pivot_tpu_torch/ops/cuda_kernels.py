@@ -22,7 +22,8 @@ kernel's arithmetic, phase 1 as torch ops.  The wrappers take the plain
 version for tensors on the CPU — and only then: on a CUDA tensor they
 launch the kernel or raise.
 
-``LAUNCHES["greedy_place"]`` counts kernel launches (never plain calls).
+``LAUNCHES["greedy_place"]`` counts kernel launches (never plain calls),
+and ``LAUNCHES_BY_REPLICAS`` the same launches by their replica count R.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import torch
 
 __all__ = [
     "LAUNCHES",
+    "LAUNCHES_BY_REPLICAS",
     "MAX_HOSTS",
     "reset_launches",
     "cost_aware_cuda",
@@ -45,6 +47,8 @@ __all__ = [
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel name.
 LAUNCHES = {"greedy_place": 0}
+#: The same launches of ``greedy_place``, by replica count R.
+LAUNCHES_BY_REPLICAS: dict = {}
 
 _BIG = 1e30
 _NEG = -1e30
@@ -74,6 +78,7 @@ _EXCHANGE_HOSTS = 4
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCHES_BY_REPLICAS.clear()
 
 
 class _Config(NamedTuple):
@@ -353,6 +358,8 @@ def _launch(cfg, avail_r, demands, valid, new_group, anchor_zone, cost_zz,
     if err != 0:
         raise RuntimeError(f"greedy_place launch failed: CUDA error {err}")
     LAUNCHES["greedy_place"] += 1
+    R = avail_r.shape[0]
+    LAUNCHES_BY_REPLICAS[R] = LAUNCHES_BY_REPLICAS.get(R, 0) + 1
 
 
 def cost_aware_cuda_batched(avail_r, demands, valid, new_group, anchor_zone,

@@ -66,6 +66,8 @@ __all__ = [
     "first_fit_impl",
     "best_fit_impl",
     "cost_aware_impl",
+    "first_fit_batched",
+    "best_fit_batched",
 ]
 
 
@@ -185,9 +187,23 @@ def _first_true(mask):
     return torch.argmax(mask.to(torch.uint8), dim=-1)
 
 
+def _place_replicas(avail):
+    """:func:`_place` for ``R`` replica carries ``avail [R, H, 4]``: row
+    ``h[r]`` of replica ``r`` −= ``demand`` where ``ok[r]``, one
+    ``index_add_`` over the flattened rows (the same ``x + (−d)``)."""
+    R, H = avail.shape[0], avail.shape[1]
+    rows = avail.view(R * H, 4)
+    base = torch.arange(R, device=avail.device) * H
+
+    def place(avail, demand, h, ok):
+        delta = torch.where(ok[:, None], demand, torch.zeros_like(demand))
+        rows.index_add_(0, base + h, -delta)
+    return place
+
+
 def _set_placement(placements, j: int, h, ok):
-    placements[j] = torch.where(ok, h.to(torch.int32),
-                                placements.new_full((), -1))
+    placements[..., j] = torch.where(ok, h.to(torch.int32),
+                                     placements.new_full((), -1))
 
 
 def _host_rows(valid, *streams):
@@ -241,12 +257,15 @@ def opportunistic_kernel_ref(avail, demands, valid, uniforms, live=None,
 
 
 def _first_fit_row(avail, demand, valid_j, strict, risk):
+    """One step on ``[H, 4]`` — or on ``[R, H, 4]``, every replica at once
+    (the host axis is the last but one; ``h`` and ``ok`` gain an ``[R]``
+    axis)."""
     fit = _fits(avail, demand, strict) & valid_j
     if risk is None:
         h = _first_true(fit)
     else:
-        h = torch.argmin(_risk_key(fit, risk))
-    return h, fit.any()
+        h = torch.argmin(_risk_key(fit, risk), dim=-1)
+    return h, fit.any(dim=-1)
 
 
 def _first_fit_scan(avail, demands, valid, strict, risk=None):
@@ -269,11 +288,13 @@ def first_fit_kernel_ref(avail, demands, valid, strict=False, live=None,
 
 
 def _best_fit_row(avail, demand, valid_j, risk):
+    """One step on ``[H, 4]`` or ``[R, H, 4]`` (:func:`_first_fit_row`)."""
     fit = _fits(avail, demand, strict=True) & valid_j
     residual = _risk_score(_norms(avail - demand), risk)
     h = torch.argmin(torch.where(fit, residual,
-                                 residual.new_full((), float("inf"))))
-    return h, fit.any()
+                                 residual.new_full((), float("inf"))),
+                     dim=-1)
+    return h, fit.any(dim=-1)
 
 
 def _best_fit_scan(avail, demands, valid, risk=None):
@@ -557,14 +578,18 @@ def _slim_drive(avail, demands, valid, decide_row, n_bound=None):
     ``valid[j]`` itself.  Walks ``j < n_bound`` when the caller gives a
     host bound (at least one past the last valid task) and reads nothing
     from the device; else it stops at the last valid task, read from the
-    device once."""
+    device once.  ``avail`` is one ``[H, 4]`` carry, or ``R`` replica
+    carries ``[R, H, 4]`` sharing the task stream (``[R, B]``
+    placements)."""
     avail = avail.clone()
     B = demands.shape[0]
-    placements = torch.full((B,), -1, dtype=torch.int32, device=avail.device)
+    placements = torch.full(avail.shape[:-2] + (B,), -1, dtype=torch.int32,
+                            device=avail.device)
+    place = _place if avail.dim() == 2 else _place_replicas(avail)
     n = _host_rows(valid)[0] if n_bound is None else min(n_bound, B)
     for j in range(n):
         h, ok = decide_row(avail, j, demands[j])
-        _place(avail, demands[j], h, ok)
+        place(avail, demands[j], h, ok)
         _set_placement(placements, j, h, ok)
     return placements, avail
 
@@ -733,6 +758,38 @@ def best_fit_impl(avail, demands, valid, totals=None, phase2="auto",
     p, a = _chunk_drive(avail, demands, valid, min(mode, B), speculate,
                         recheck)
     return p, restore(a)
+
+
+# -- replica-batched passes (``jax.vmap`` of the per-tick kernels) ----------
+
+
+def first_fit_batched(avail_r, demands, valid, strict=False, risk=None,
+                      n_bound=None):
+    """First fit over ``R`` availability replicas that share one task
+    stream — the port of ``jax.vmap(first_fit_kernel)`` over the
+    availability axis (``pivot_tpu/sched/tpu.py:1659-1666``):
+    ``avail_r [R, H, 4]``, ``demands [B, 4]``, ``valid [B]``, optional
+    ``risk [H]``.  One pass of task steps, each on ``[R, H]``; ``n_bound``
+    as in :func:`_slim_drive`.  Returns ``([R, B] int32 placements,
+    [R, H, 4] availability)``, each row bitwise the unbatched pass on that
+    row."""
+    return _slim_drive(
+        avail_r, demands, valid,
+        lambda avail, j, demand: _first_fit_row(avail, demand, valid[j],
+                                                strict, risk),
+        n_bound,
+    )
+
+
+def best_fit_batched(avail_r, demands, valid, risk=None, n_bound=None):
+    """Best fit over ``R`` replicas sharing one task stream — the port of
+    ``jax.vmap(best_fit_kernel)`` (``pivot_tpu/sched/tpu.py:1724-1729``);
+    contract of :func:`first_fit_batched`."""
+    return _slim_drive(
+        avail_r, demands, valid,
+        lambda avail, j, demand: _best_fit_row(avail, demand, valid[j], risk),
+        n_bound,
+    )
 
 
 def cost_aware_impl(avail, demands, valid, new_group, anchor_zone, cost_zz,

@@ -189,6 +189,14 @@ class SpanResult(NamedTuple):
     avail: torch.Tensor  # [H, 4] availability carry at exit
 
 
+def _tick_cost(cost_zz, cost_stack, cost_seg, k: int):
+    """Tick ``k``'s ``[Z, Z]`` cost operand: the static table, or the
+    market's slice ``cost_stack[cost_seg[k]]`` taken with a host int."""
+    if cost_stack is None:
+        return cost_zz
+    return cost_stack[int(cost_seg[k])]
+
+
 def fused_tick_run(
     avail,
     demands,
@@ -209,6 +217,8 @@ def fused_tick_run(
     totals=None,
     live=None,
     risk_rows=None,
+    cost_stack=None,
+    cost_seg=None,
     score_exp=None,
     greedy=None,
     strict: bool = False,
@@ -240,6 +250,12 @@ def fused_tick_run(
                        topology operands (``DeviceTopology``)
       live             [H] bool span-constant quarantine mask (or None)
       risk_rows        [K, H]  per-tick eviction-risk rows (or None)
+      cost_stack       [P, Z, Z] price-scaled egress-cost tensor (a spot
+                       market, or None): cost-aware tick k scores with
+                       ``cost_stack[cost_seg[k]]`` in place of ``cost_zz``
+      cost_seg         [K] host ints, each tick's segment of
+                       ``cost_stack`` (known on the host: indexing with
+                       them reads nothing from the device)
       score_exp        [3]     learned score exponents (or None)
       greedy           cost-aware only: a callable with the contract of
                        ``cost_aware_cuda`` that serves each tick (the
@@ -304,7 +320,8 @@ def fused_tick_run(
         elif policy == "cost-aware":
             ng_p = _span_group_entries(bucket_id, order, iota_b)
             ca_args = (avail, dem_p, valid_p, ng_p,
-                       anchor_zone[order].to(torch.int32), cost_zz, bw_zz,
+                       anchor_zone[order].to(torch.int32),
+                       _tick_cost(cost_zz, cost_stack, cost_seg, k), bw_zz,
                        host_zone, base_task_counts + cum)
             mode = dict(bin_pack=bin_pack, sort_hosts=sort_hosts,
                         host_decay=host_decay, risk=risk_k)
@@ -369,6 +386,8 @@ def reference_tick_run(
     totals=None,
     live=None,
     risk_rows=None,
+    cost_stack=None,
+    cost_seg=None,
     score_exp=None,
     greedy=None,
     strict: bool = False,
@@ -447,8 +466,9 @@ def reference_tick_run(
             for j, b in enumerate(order):
                 ng_p[j] = prev is None or int(bucket[b]) != prev
                 prev = int(bucket[b])
-            ca_args = (avail, dem_t, valid_t, put(ng_p), put(az_p), cost_zz,
-                       bw_zz, host_zone, base_task_counts + put(cum))
+            ca_args = (avail, dem_t, valid_t, put(ng_p), put(az_p),
+                       _tick_cost(cost_zz, cost_stack, cost_seg, k), bw_zz,
+                       host_zone, base_task_counts + put(cum))
             mode = dict(bin_pack=bin_pack, sort_hosts=sort_hosts,
                         host_decay=host_decay, **kw)
             if greedy is not None:

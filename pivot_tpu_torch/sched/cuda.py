@@ -42,10 +42,23 @@ under the same auto rule as its per-tick ticks, counted apart
 (``span_kernel_ticks``).  Declined spans fall back to the per-tick path,
 bit-identically.
 
+Spot market (``infra/market.py``, ``pivot_tpu/sched/tpu.py:869-931``):
+when the scheduler carries a :class:`MarketSchedule`, every policy gets
+the tick's ``[H]`` risk vector (``risk_weight`` set) and the Cost-Aware
+arm scores with the market's price-scaled ``[Z, Z]`` cost slice, staged
+once per segment; a span gets ``[K, H]`` risk rows and, for Cost-Aware,
+the ``[P, Z, Z]`` cost stack (staged once per market) with the span's
+``[K]`` segment row on the host.
+
+Replica-batched sensitivity (``placement_sensitivity``, every arm but
+Opportunistic): one shared task stream × R perturbed availability
+snapshots, the Cost-Aware arm on one launch of the batched kernel, the
+First-Fit / Best-Fit arms on the batched torch passes of
+``ops/kernels.py``.
+
 Not in this slice (ROADMAP.md, port queue): cross-run batching, host
-sharding, the resident carry, the degrade guard, the fault gate and the
-spot market — the methods that would attach them raise
-``NotImplementedError``.
+sharding, the resident carry, the degrade guard and the fault gate — the
+methods that would attach them raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -62,8 +75,10 @@ from pivot_tpu_torch.ops.cuda_kernels import (
 )
 from pivot_tpu_torch.ops.kernels import (
     DeviceTopology,
+    best_fit_batched,
     best_fit_impl,
     cost_aware_impl,
+    first_fit_batched,
     first_fit_impl,
     opportunistic_impl,
     resolve_device,
@@ -207,6 +222,10 @@ class _DevicePolicyBase(Policy):
         self.twin_ticks = 0
         self.kernel_ticks = 0
         self.span_kernel_ticks = 0
+        # Market operands on the device: the [Z, Z] cost slice per
+        # segment and the [P, Z, Z] stack, reset at bind.
+        self._market_cost_dev: Dict[int, torch.Tensor] = {}
+        self._market_stack_dev: Optional[torch.Tensor] = None
 
     @property
     def np_dtype(self):
@@ -219,12 +238,9 @@ class _DevicePolicyBase(Policy):
             self._cpu_twin.apply_weights(self.weights)
 
     def bind(self, scheduler) -> None:
-        if getattr(scheduler, "market", None) is not None:
-            raise NotImplementedError(
-                "the spot market is not ported to pivot_tpu_torch yet "
-                "(ROADMAP.md, port queue: market and risk wiring)"
-            )
         self._scheduler = scheduler
+        self._market_cost_dev = {}  # a rebind may bring another market
+        self._market_stack_dev = None
         self.topology = DeviceTopology.from_cluster(
             scheduler.cluster, self.dtype, self.device
         )
@@ -268,9 +284,21 @@ class _DevicePolicyBase(Policy):
         raise NotImplementedError
 
     def _span_market_kw(self, ctx: TickContext, plan, K: int) -> dict:
-        """The span's market operands: none, since a scheduler with a
-        market is refused at bind."""
-        return {}
+        """The span's market operands (``pivot_tpu/sched/tpu.py:898``):
+        ``risk_rows`` [K, H], the per-tick risk over the span's exact
+        grid instants (the values ``resolve_risk`` feeds the per-tick
+        path), built in the policy dtype so the f64 products round once.
+        Empty without a market."""
+        market = getattr(ctx.scheduler, "market", None)
+        if market is None or not self.risk_weight:
+            return {}
+        hz = ctx.host_zones
+        k_dyn = plan.n_ticks
+        rows = np.zeros((K, len(hz)), dtype=self.np_dtype)
+        seg = market.segment_indices(np.asarray(plan.grid[:k_dyn]))
+        rows[:k_dyn] = (self.risk_weight * self.rework_cost
+                        * market.hazard[seg][:, hz])
+        return {"risk_rows": rows} if rows.any() else {}
 
     def _span_norms(self, dem_host: np.ndarray, B: int) -> np.ndarray:
         """Demand norms padded to the slot bucket: the per-tick sort keys,
@@ -338,6 +366,24 @@ class _DevicePolicyBase(Policy):
     def _live_np(self, ctx: TickContext):
         live = ctx.live_mask
         return None if live is None else np.asarray(live, dtype=bool)
+
+    def _market_cost_arg(self, ctx: TickContext) -> torch.Tensor:
+        """The tick's ``[Z, Z]`` egress-cost operand
+        (``pivot_tpu/sched/tpu.py:880``): the bind-time table without a
+        market, else the market's price-scaled slice for this tick's
+        segment — computed in f64 on the host, rounded once into the
+        policy dtype and staged once per segment."""
+        market = getattr(ctx.scheduler, "market", None)
+        if market is None:
+            return self.topology.cost
+        seg = market.segment(ctx.env_now)
+        buf = self._market_cost_dev.get(seg)
+        if buf is None:
+            buf = torch.tensor(
+                np.asarray(market.cost_matrix_at(ctx.env_now, ctx.meta),
+                           self.np_dtype), device=self.device)
+            self._market_cost_dev[seg] = buf
+        return buf
 
     def _risk_np(self, ctx: TickContext):
         """The tick's [H] risk vector (``resolve_risk``, shared with the
@@ -428,29 +474,42 @@ class _DevicePolicyBase(Policy):
     def _device_place(self, ctx: TickContext) -> np.ndarray:
         raise NotImplementedError
 
+    def _replicas(self, avail: np.ndarray, n_replicas: int, perturb: float,
+                  seed: int) -> np.ndarray:
+        """``[R, H, 4]`` availability replicas: replica 0 the exact
+        snapshot, replicas 1..R−1 under ±``perturb`` multiplicative noise
+        per host from ``default_rng(seed)`` (the reference's draws), the
+        f64 products rounded once into the policy dtype."""
+        rng = np.random.default_rng(seed)
+        noise = rng.uniform(1 - perturb, 1 + perturb,
+                            size=(n_replicas, avail.shape[0], 1))
+        noise[0] = 1.0  # replica 0 = the production decision
+        return (avail[None] * noise).astype(self.np_dtype)
+
     def _mc_sensitivity(self, ctx, order, batched_place, n_replicas,
-                        perturb, seed):
+                        perturb, seed, **operands):
         """Monte-Carlo scaffolding of ``placement_sensitivity``
         (``pivot_tpu/sched/tpu.py:1529``): replica 0 carries the exact
         snapshot (its placements ARE the production decision), replicas
         1..R−1 draw ±``perturb`` multiplicative noise, and
         ``stability[t]`` is the fraction of replicas agreeing with the
-        nominal host.  ``batched_place(avail_r, dem, valid, T)`` returns
-        the ``[R, B]`` placements.  Returns ``(nominal [T], stability
-        [T], placements [R, T])`` in ctx task order."""
+        nominal host.  The replicas, the task stream and the policy's own
+        host ``operands`` go to the device in ONE staging copy;
+        ``batched_place(st, T)`` gets the staged dict (``avail_r``,
+        ``dem``, ``valid`` and the operands) and returns the ``[R, B]``
+        placements, fetched in one copy.  Returns ``(nominal [T],
+        stability [T], placements [R, T])`` in ctx task order."""
         T = ctx.n_tasks
         avail, dem, valid = self._padded(ctx, order)
-        rng = np.random.default_rng(seed)
-        noise = rng.uniform(1 - perturb, 1 + perturb,
-                            size=(n_replicas, avail.shape[0], 1))
-        noise[0] = 1.0  # replica 0 = the production decision
-        avail_r = (avail[None] * noise).astype(self.np_dtype)
-        st = stage(self.device, avail_r=avail_r, dem=dem, valid=valid)
-        p = batched_place(st["avail_r"], st["dem"], st["valid"], T)
-        p = p.cpu().numpy()  # [R, B]
-        placements = np.stack(
-            [self._unpad(torch.from_numpy(row), T, order) for row in p]
-        )
+        st = stage(self.device,
+                   avail_r=self._replicas(avail, n_replicas, perturb, seed),
+                   dem=dem, valid=valid, **operands)
+        p = batched_place(st, T)[:, :T].cpu().numpy().astype(np.int64)
+        if order is None:
+            placements = p
+        else:
+            placements = np.full((n_replicas, T), -1, dtype=np.int64)
+            placements[:, np.asarray(order, dtype=np.int64)] = p
         nominal = placements[0]
         stability = (placements == nominal[None, :]).mean(axis=0)
         return nominal, stability, placements
@@ -537,6 +596,21 @@ class CudaFirstFitPolicy(_DevicePolicyBase):
         )
         return self._unpad(placements, ctx.n_tasks, order)
 
+    def placement_sensitivity(self, ctx: TickContext, n_replicas: int = 256,
+                              perturb: float = 0.05, seed: int = 0):
+        """Monte-Carlo robustness of this tick's first-fit decision
+        (``pivot_tpu/sched/tpu.py:1644``), the contract of
+        :meth:`CudaCostAwarePolicy.placement_sensitivity`, scored with
+        :func:`first_fit_batched` — one pass over the ``[R, H]``
+        replicas, the live mask not applied, as in the reference."""
+        return self._mc_sensitivity(
+            ctx, self._order(ctx),
+            lambda st, T: first_fit_batched(
+                st["avail_r"], st["dem"], st["valid"], strict=False,
+                risk=st["risk"], n_bound=T)[0],
+            n_replicas, perturb, seed, risk=self._risk_np(ctx),
+        )
+
 
 class CudaBestFitPolicy(_DevicePolicyBase):
     """Min residual-L2 host among strict fits (``TpuBestFitPolicy``,
@@ -573,6 +647,19 @@ class CudaBestFitPolicy(_DevicePolicyBase):
             phase2=self.phase2, live=st["live"], risk=st["risk"],
         )
         return self._unpad(placements, ctx.n_tasks, order)
+
+    def placement_sensitivity(self, ctx: TickContext, n_replicas: int = 256,
+                              perturb: float = 0.05, seed: int = 0):
+        """Monte-Carlo robustness of this tick's best-fit decision
+        (``pivot_tpu/sched/tpu.py:1710``), scored with
+        :func:`best_fit_batched`."""
+        return self._mc_sensitivity(
+            ctx, self._order(ctx),
+            lambda st, T: best_fit_batched(
+                st["avail_r"], st["dem"], st["valid"], risk=st["risk"],
+                n_bound=T)[0],
+            n_replicas, perturb, seed, risk=self._risk_np(ctx),
+        )
 
 
 class CudaCostAwarePolicy(_DevicePolicyBase):
@@ -711,6 +798,26 @@ class CudaCostAwarePolicy(_DevicePolicyBase):
             kw["score_exp"] = np.asarray(self._score_exp, self.np_dtype)
         return kw
 
+    def _span_market_kw(self, ctx, plan, K):
+        """The base class's risk rows plus the price-scaled cost operands
+        (``pivot_tpu/sched/tpu.py:1949-1964``): the ``[P, Z, Z]``
+        ``cost_stack`` (f64 on the host, rounded once, staged once per
+        market) and the span's ``[K]`` segment row as host ints — tick k
+        scores with ``cost_stack[cost_seg[k]]``, the per-tick path's
+        ``cost_matrix_at`` slice."""
+        kw = super()._span_market_kw(ctx, plan, K)
+        market = getattr(ctx.scheduler, "market", None)
+        if market is None:
+            return kw
+        if self._market_stack_dev is None:
+            self._market_stack_dev = torch.tensor(
+                np.asarray(market.cost_tensor(ctx.meta), self.np_dtype),
+                device=self.device)
+        seg = np.zeros(K, dtype=np.int64)
+        seg[: plan.n_ticks] = market.segment_indices(plan.grid[: plan.n_ticks])
+        kw.update(cost_stack=self._market_stack_dev, cost_seg=seg.tolist())
+        return kw
+
     def _anchor_stream(self, ctx: TickContext):
         """The per-task anchor stream ``(order, az [B] i32, ng [B] bool,
         group_rows, row_idx)``: grouping walked on the host exactly like
@@ -769,7 +876,8 @@ class CudaCostAwarePolicy(_DevicePolicyBase):
                    score_exp=score_exp)
         topo = self.topology
         args = (st["avail"], st["dem"], st["valid"], st["ng"], st["az"],
-                topo.cost, topo.bw, topo.host_zone, st["counts"])
+                self._market_cost_arg(ctx), topo.bw, topo.host_zone,
+                st["counts"])
         mode = dict(bin_pack=self.bin_pack, sort_hosts=self.sort_hosts,
                     host_decay=self.host_decay, live=st["live"],
                     risk=st["risk"])
@@ -790,7 +898,9 @@ class CudaCostAwarePolicy(_DevicePolicyBase):
         (``pivot_tpu/sched/tpu.py:2010``): ``n_replicas`` perturbed
         availability snapshots share the tick's task stream — one launch
         of the replica-batched kernel when the kernel serves this policy,
-        else one torch pass per replica.  Returns ``(nominal [T],
+        else one torch pass per replica — scored with the tick's cost
+        operand (the market's slice when one is attached), so replica 0
+        stays the production decision.  Returns ``(nominal [T],
         stability [T], placements [R, T])``."""
         if self.realtime_bw:
             raise ValueError(
@@ -800,26 +910,28 @@ class CudaCostAwarePolicy(_DevicePolicyBase):
         if self.topology is None:
             raise RuntimeError("bind() the policy to a scheduler first")
         order, az_arr, ng_arr, _gr, _ri = self._anchor_stream(ctx)
-        counts = np.asarray(ctx.host_task_counts, dtype=np.int32)
-        score_exp = (None if self._score_exp is None
-                     else np.asarray(self._score_exp, self.np_dtype))
-        st = stage(self.device, ng=ng_arr, az=az_arr, counts=counts,
-                   risk=self._risk_np(ctx), score_exp=score_exp)
         topo = self.topology
+        cost = self._market_cost_arg(ctx)
         mode = dict(bin_pack=self.bin_pack, sort_hosts=self.sort_hosts,
-                    host_decay=self.host_decay, risk=st["risk"])
+                    host_decay=self.host_decay)
+        kernel = self._kernel_serves()
 
-        def batched(avail_r, dem, valid, T):
-            args = (dem, valid, st["ng"], st["az"], topo.cost, topo.bw,
-                    topo.host_zone, st["counts"])
-            if self._kernel_serves():
-                return self._greedy_batched(avail_r, *args, **mode,
-                                            n_eff=T)[0]
+        def batched(st, T):
+            args = (st["dem"], st["valid"], st["ng"], st["az"], cost,
+                    topo.bw, topo.host_zone, st["counts"])
+            if kernel:
+                return self._greedy_batched(st["avail_r"], *args, **mode,
+                                            risk=st["risk"], n_eff=T)[0]
             return torch.stack([
-                cost_aware_impl(a, *args, **mode,
+                cost_aware_impl(a, *args, **mode, risk=st["risk"],
                                 score_exp=st["score_exp"])[0]
-                for a in avail_r
+                for a in st["avail_r"]
             ])
 
-        return self._mc_sensitivity(ctx, order, batched, n_replicas,
-                                    perturb, seed)
+        score_exp = (None if self._score_exp is None
+                     else np.asarray(self._score_exp, self.np_dtype))
+        return self._mc_sensitivity(
+            ctx, order, batched, n_replicas, perturb, seed, ng=ng_arr,
+            az=az_arr, counts=np.asarray(ctx.host_task_counts, np.int32),
+            risk=self._risk_np(ctx), score_exp=score_exp,
+        )

@@ -18,8 +18,10 @@ FORBIDDEN = ("jax", "jaxlib", "pivot_tpu")
 
 PROBE = r"""
 import json, sys, tempfile
-from pivot_tpu_torch.experiments import cli
+from pivot_tpu_torch.experiments import calibrate, cli
+from pivot_tpu_torch.infra import faults, market
 from pivot_tpu_torch.ops import tickloop
+from pivot_tpu_torch.sched import sensitivity
 with tempfile.TemporaryDirectory() as out:
     args = cli.parse_args(
         ["--device", "cuda", "--no-adaptive", "--num-hosts", "8",
@@ -76,5 +78,7 @@ def test_no_file_of_the_port_imports_jax_or_reference():
             offenders += [f"{os.path.relpath(path, ROOT)}:{node.lineno} "
                           f"{name}" for name in names if _forbidden(name)]
     assert len(seen) > 20
-    assert {"pivot_tpu_torch/ops/tickloop.py", "chip_smoke.py"} <= seen
+    assert {"pivot_tpu_torch/ops/tickloop.py", "chip_smoke.py",
+            "pivot_tpu_torch/infra/market.py",
+            "pivot_tpu_torch/sched/sensitivity.py"} <= seen
     assert offenders == []
