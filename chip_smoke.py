@@ -62,7 +62,20 @@ Phases, each fatal on failure:
      sweep of warps per replica at H = 600 that sets ``_launch_config``;
      and, where ``torch.profiler`` sees the card, one device kernel per
      wrapper call; and wrapper / bare-launch times of every gated
-     R = 256 launch of phase 4.
+     R = 256 launch of phase 4;
+  6. the Monte-Carlo ensemble on the card (no hand kernel: ``greedy_place``
+     must make no launch): the refund's sum order on the trace's demands
+     against the CPU; at R = 16 the cost-aware and first-fit arms against
+     ``pivot_tpu``'s own CPU rollout (``tests/data/ensemble_r16_seed0.npz``)
+     under torch's sync debug mode; the ``ensemble`` CLI at 600 hosts x 50
+     apps, R = 1024, both arms — wall, replica rollouts/s, ticks,
+     placement steps, host reads, CUDA-event ms of the tick loop, peak
+     memory, its first 16 replicas equal to the R = 16 run; a
+     ``torch.profiler`` window of ticks 600-650 per arm; the R = 16
+     cost-aware run against the port on the CPU; best-fit, opportunistic
+     and lifo at 10 apps, card against CPU.  Placements, finish times,
+     makespans and unfinished counts must be equal, egress and
+     instance-hours within rtol 1e-5.
 
 The line before the last is a JSON ``kernels`` record (its ``launches``
 split into the R = 1 and R = 256 launches of phases 3 and 4); the last
@@ -83,6 +96,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1224,6 +1238,297 @@ def profile_kernels(ck, shadow, calls=10):
     return sum("greedy_place" in n for n in names), len(names)
 
 
+ENS_REPLICAS = 1024
+ENS_CHECK_REPLICAS = 16
+ENS_SMALL_REPLICAS = 4  # the card-vs-CPU check of the other arms
+ENS_ARMS = ("cost-aware", "first-fit")
+ENS_FIXTURE = "tests/data/ensemble_r16_seed0.npz"
+ENS_FIELDS = ("makespan", "egress_cost", "finish_time", "placement",
+              "n_unfinished", "instance_hours")
+ENS_RTOL = 1e-5
+
+
+def ensemble_argv(out, *extra):
+    return ["--job-dir", "data/jobs", "--output-dir", out, "ensemble", *extra]
+
+
+def ensemble_inputs(cli, device, n_apps=None):
+    """The ``ensemble`` defaults' rollout inputs on ``device`` (float32)
+    and the parsed defaults."""
+    from pivot_tpu_torch.experiments.calibrate import (
+        ensemble_inputs_from_schedule,
+    )
+    from pivot_tpu_torch.workload.trace import load_trace_jobs
+
+    args = cli.parse_args(ensemble_argv("unused"))
+    trace = cli._list_traces(args.job_dir, 1)[0]
+    sched = load_trace_jobs(trace, args.scale_factor).take(
+        n_apps or args.num_apps)
+    workload, _sl, _arr, topo, avail0, sz = ensemble_inputs_from_schedule(
+        sched, cli.build_cluster(cli._cluster_config(args)),
+        dtype=torch.float32, device=device)
+    return args, (avail0, workload, topo, sz)
+
+
+def ensemble_compare(got, want, what, rows=None) -> float:
+    """Placements, finish times, makespans, instance-hours and unfinished
+    counts equal; egress within ``ENS_RTOL`` (a GEMM whose rounding
+    differs between cuBLAS and XLA:CPU).  Returns egress's largest
+    relative difference."""
+    worst = 0.0
+    for f in ENS_FIELDS:
+        if f not in got or f not in want:
+            continue
+        g = np.asarray(got[f])[:rows]
+        w = np.asarray(want[f])[:rows]
+        if g.shape != w.shape:
+            raise AssertionError(f"{what}: {f} shape {g.shape} vs {w.shape}")
+        if f == "egress_cost":
+            rel = np.abs(g.astype(np.float64) - w) / np.maximum(
+                np.abs(w.astype(np.float64)), 1e-30)
+            worst = max(worst, float(rel.max(initial=0.0)))
+            if not np.allclose(g, w, rtol=ENS_RTOL, atol=0):
+                raise AssertionError(f"{what}: {f} beyond rtol {ENS_RTOL} "
+                                     f"(largest {rel.max()!r})")
+        elif not np.array_equal(g, w):
+            bad = np.argwhere(g != w)
+            raise AssertionError(f"{what}: {f} differs at {len(bad)} "
+                                 f"entries, first {bad[0].tolist()}")
+    return worst
+
+
+def _result(res) -> dict:
+    return {f: getattr(res, f).cpu().numpy() for f in res._fields}
+
+
+def ensemble_profile(on_card, args, key, policy, skip=600, window=50):
+    """Device time by operator over ``window`` ticks of the R = 1024 tick
+    loop, after ``skip`` unprofiled ticks (the middle of the run, where
+    the cluster is loaded), by ``torch.profiler``: the window's host wall
+    (the profiler's own host overhead in it), the device's busy time
+    summed over its kernels, their ratio (the busy share) and the ten
+    largest operators by self device time.  ``None`` when the profiler
+    records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pivot_tpu_torch.parallel.ensemble import (
+        _init_state,
+        _perturbations,
+        _rollout_segment,
+    )
+
+    avail0, workload, topo, sz = on_card
+    rt, arr, anchor = _perturbations(key, workload, sz, ENS_REPLICAS,
+                                     args.perturb, avail0.dtype)
+    state = _init_state(avail0, workload.n_tasks, topo.cost.shape[0],
+                        ENS_REPLICAS)
+    kw = dict(totals=avail0, policy=policy, tick_order=args.tick_order)
+    state = _rollout_segment(state, rt, arr, anchor, workload, topo,
+                             args.tick, skip, **kw)
+    st = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _rollout_segment(state, rt, arr, anchor, workload, topo, args.tick,
+                         window, stats=st, **kw)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    events = [e for e in prof.key_averages() if dev_us(e) > 0]
+    # Kernels are device events; operators are host events charged with
+    # the device time of the kernels they launch.
+    total = sum(dev_us(e) for e in events
+                if str(e.device_type).endswith("CUDA")) / 1e3
+    ops = [(e.key, dev_us(e) / 1e3, e.count) for e in events
+           if not str(e.device_type).endswith("CUDA")]
+    if not total:
+        return None
+    ops.sort(key=lambda r: -r[1])
+    return dict(policy=policy, ticks=st["ticks"],
+                place_steps=st["place_steps"], wall_ms=wall_ms,
+                device_busy_ms=total, busy_share=total / wall_ms,
+                top=[dict(op=k, ms=ms, calls=c) for k, ms, c in ops[:10]])
+
+
+def phase_ensemble(device):
+    """Phase 6: the Monte-Carlo ensemble on the card.  The refund's sum
+    order and (c) the R = 16 runs against ``pivot_tpu``'s fixture first
+    (they also warm the card up); then (a) the main path, the CLI at
+    R = 1024 for the cost-aware and first-fit arms; (e) a profiled
+    window of each; (b) the R = 16 cost-aware run against the port on
+    the CPU; (d) the other arms and lifo, card against CPU, at 10
+    apps."""
+    from pivot_tpu_torch.experiments import cli
+    from pivot_tpu_torch.ops import cuda_kernels as ck
+    from pivot_tpu_torch.parallel.ensemble import prng, rollout
+
+    out = {"checks": {}, "arms": {}}
+    args, on_card = ensemble_inputs(cli, device)
+    kw = dict(n_replicas=ENS_CHECK_REPLICAS, tick=args.tick,
+              max_ticks=args.max_ticks, perturb=args.perturb,
+              tick_order=args.tick_order)
+    key = prng.PRNGKey(args.seed)
+    # The refund sums each host's retiring tasks in task-index order: the
+    # trace's demands are not integers, so that order must hold on the
+    # card too (index_put_ with accumulate: sort by row, then one
+    # sequential pass per row).
+    dem = on_card[1].demands
+    rng = np.random.default_rng(0)
+    for n_rows in (1, 7, 600, 600 * 64):
+        rows = torch.from_numpy(rng.integers(0, n_rows, dem.shape[0]))
+        card = torch.zeros((n_rows, 4), device=device).index_put_(
+            (rows.to(device),), dem, accumulate=True).cpu()
+        cpu = torch.zeros((n_rows, 4)).index_put_(
+            (rows,), dem.cpu(), accumulate=True)
+        if not torch.equal(card, cpu):
+            raise AssertionError(f"refund sums over {n_rows} rows: the card "
+                                 "adds in another order than the CPU")
+    log("  refund sums of the trace's demands (1 to 38400 rows): the card "
+        "equals the CPU bit for bit")
+    with np.load(ENS_FIXTURE) as z:
+        fixture = {arm: {f: z[f"{arm.replace('-', '_')}__{f}"]
+                         for f in ENS_FIELDS} for arm in ENS_ARMS}
+    card16 = {}
+    for arm in ENS_ARMS:
+        st = {}
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                res = rollout(key, *on_card, policy=arm, stats=st, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        card16[arm] = _result(res)
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        worst = ensemble_compare(card16[arm], fixture[arm],
+                                 f"(c) {arm} card R=16 vs pivot_tpu fixture",
+                                 rows=ENS_CHECK_REPLICAS)
+        out["checks"][f"{arm}_fixture"] = dict(
+            max_rel=worst, ticks=st["ticks"], place_steps=st["place_steps"],
+            host_syncs=st["host_syncs"], sync_debug_warnings=syncs,
+            wall_s=st["wall_s"], event_span_ms=st["event_span_ms"])
+        log(f"  (c) {arm} R={ENS_CHECK_REPLICAS} on the card vs pivot_tpu's "
+            f"fixture: placements, finish times, makespans, instance-hours, "
+            f"unfinished equal; egress largest rel diff {worst!r}; "
+            f"{st['ticks']} ticks, {st['place_steps']} placement steps, "
+            f"{st['host_syncs']} host reads counted, {syncs} synchronizing "
+            f"calls flagged by torch's sync debug mode")
+
+    # (a) the main path: the CLI on the card at R = 1024.
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        for arm in ENS_ARMS:
+            st = {}
+            ck.reset_launches()  # the ensemble runs no hand kernel
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            # The entry must turn TF32 off itself: hand it on.
+            torch.backends.cuda.matmul.allow_tf32 = True
+            summary = cli.run_ensemble(cli.parse_args(ensemble_argv(
+                tmp, "--replicas", str(ENS_REPLICAS), "--policy", arm)),
+                stats=st)
+            peak = torch.cuda.max_memory_allocated()
+            if torch.backends.cuda.matmul.allow_tf32:
+                raise AssertionError("run_ensemble left TF32 matmuls on")
+            if ck.LAUNCHES["greedy_place"]:
+                raise AssertionError("the ensemble launched greedy_place")
+            with np.load(os.path.join(st["out_dir"], "rollout.npz")) as z:
+                got = {k: z[k] for k in z.files}
+            T = on_card[1].n_tasks
+            if (got["placement"].shape != (ENS_REPLICAS, T)
+                    or not np.isfinite(got["makespan"]).all()
+                    or not np.isfinite(got["egress_cost"]).all()
+                    or summary["unfinished_max"] != 0
+                    or not np.isfinite(got["finish_time"]).all()):
+                raise AssertionError(f"(a) {arm}: malformed rollout.npz")
+            # The draws are prefix-stable: the first 16 replicas are the
+            # R = 16 run checked above.
+            worst = ensemble_compare(got, card16[arm],
+                                     f"(a) {arm} R={ENS_REPLICAS} prefix vs "
+                                     f"R={ENS_CHECK_REPLICAS}",
+                                     rows=ENS_CHECK_REPLICAS)
+            row = dict(
+                wall_s=summary["wall_s"],
+                replica_rollouts_per_sec=summary["replica_rollouts_per_sec"],
+                loop_wall_s=st["wall_s"], event_span_ms=st["event_span_ms"],
+                ticks=st["ticks"], place_steps=st["place_steps"],
+                host_syncs=st["host_syncs"], peak_mem_bytes=peak,
+                makespan_mean=summary["makespan_mean"],
+                egress_mean=summary["egress_mean"],
+                instance_hours_mean=summary["instance_hours_mean"],
+                prefix_max_rel=worst)
+            out["arms"][arm] = row
+            log(f"  (a) {arm} R={ENS_REPLICAS} through the CLI on the card: "
+                f"wall {row['wall_s']!r} s, "
+                f"{row['replica_rollouts_per_sec']!r} replica rollouts/s; "
+                f"{row['ticks']} ticks, "
+                f"{row['place_steps']} placement steps, {row['host_syncs']} "
+                f"host reads; tick loop {row['loop_wall_s']!r} s on the host "
+                f"clock, {row['event_span_ms']!r} ms of stream time between "
+                f"CUDA events (idle gaps included: not busy time); peak "
+                f"memory {peak / 2**30!r} GiB; rows 0-"
+                f"{ENS_CHECK_REPLICAS - 1} equal the R={ENS_CHECK_REPLICAS} "
+                f"run (rel diff {worst!r}); makespan mean "
+                f"{row['makespan_mean']!r} s, egress mean "
+                f"{row['egress_mean']!r} $, instance-hours mean "
+                f"{row['instance_hours_mean']!r}")
+
+    # (e) where the device time of a loaded tick goes.
+    for arm in ENS_ARMS:
+        prof = ensemble_profile(on_card, args, key, arm)
+        out["profile_" + arm] = prof
+        if prof is None:
+            log(f"  (e) {arm}: torch.profiler recorded no device time: "
+                "not measured")
+            continue
+        log(f"  (e) {arm} R={ENS_REPLICAS}, ticks 600-{600 + prof['ticks']}"
+            f" under torch.profiler: {prof['wall_ms']!r} ms of host wall "
+            f"(profiler overhead included), device busy "
+            f"{prof['device_busy_ms']!r} ms = {prof['busy_share']!r} of it, "
+            f"{prof['place_steps']} placement steps; largest: " + ", ".join(
+                f"{r['op']} {r['ms']!r} ms / {r['calls']}"
+                for r in prof["top"]))
+
+    # (b) the R = 16 run against the port on the CPU.
+    _, on_cpu = ensemble_inputs(cli, "cpu")
+    t0 = time.perf_counter()
+    cpu16 = _result(rollout(key, *on_cpu, policy="cost-aware", **kw))
+    cpu_s = time.perf_counter() - t0
+    worst = ensemble_compare(card16["cost-aware"], cpu16,
+                             "(b) cost-aware card R=16 vs the port on the CPU")
+    out["checks"]["cost-aware_cpu"] = dict(max_rel=worst, cpu_wall_s=cpu_s)
+    log(f"  (b) cost-aware R={ENS_CHECK_REPLICAS} on the card vs the port on "
+        f"the CPU ({cpu_s!r} s there): placements, finish times, makespans, "
+        f"instance-hours, unfinished equal; egress largest rel diff "
+        f"{worst!r}")
+
+    # (d) the other arms and lifo, card vs CPU, at 10 apps.
+    _, small_card = ensemble_inputs(cli, device, n_apps=10)
+    _, small_cpu = ensemble_inputs(cli, "cpu", n_apps=10)
+    for arm, order in (("best-fit", "fifo"), ("opportunistic", "fifo"),
+                       ("cost-aware", "lifo"), ("first-fit", "lifo")):
+        kw10 = dict(kw, tick_order=order, n_replicas=ENS_SMALL_REPLICAS)
+        st = {}
+        got = _result(rollout(key, *small_card, policy=arm, stats=st,
+                              **kw10))
+        worst = ensemble_compare(got, _result(rollout(
+            key, *small_cpu, policy=arm, **kw10)),
+            f"(d) {arm} {order} card vs CPU at 10 apps")
+        if got["n_unfinished"].max() != 0:
+            raise AssertionError(f"(d) {arm} {order}: tasks unfinished")
+        out["checks"][f"{arm}_{order}_10apps"] = dict(max_rel=worst,
+                                                      ticks=st["ticks"])
+        log(f"  (d) {arm} {order}, 10 apps "
+            f"({small_card[1].n_tasks} tasks), R={ENS_SMALL_REPLICAS}: card "
+            f"equals CPU, rel diff {worst!r}, {st['ticks']} ticks")
+
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -1364,7 +1669,12 @@ def main() -> int:
             f" fetch+unpad incl. the device wait / _mc_sensitivity total): "
             f"{per['noise']!r} / {per['stage']!r} / {per['pass']!r} / "
             f"{per['fetch_unpad']!r} / {per['total']!r}")
-    log(json.dumps({"times": times, "spans": spans,
+    log(f"== 6. the Monte-Carlo ensemble on the card: 600 hosts x 50 apps, "
+        f"R={ENS_REPLICAS} ({', '.join(ENS_ARMS)}), checked at "
+        f"R={ENS_CHECK_REPLICAS}")
+    log(f"  [{card}]")
+    ens = phase_ensemble(device)
+    log(json.dumps({"times": times, "spans": spans, "ensemble": ens,
                     "same_files": e2e["same_files"], "gated_times": gt,
                     "sensitivity": {p: {k: v for k, v in r.items()
                                         if k != "check"}

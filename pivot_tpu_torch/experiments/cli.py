@@ -1,7 +1,7 @@
-"""Experiment CLI of the port: ``overall``, ``num-apps`` and
-``sensitivity``.
+"""Experiment CLI of the port: ``overall``, ``num-apps``,
+``sensitivity`` and ``ensemble``.
 
-Port of ``pivot_tpu/experiments/cli.py``, cut to three subcommands:
+Port of ``pivot_tpu/experiments/cli.py``, cut to four subcommands:
 
   * ``overall`` (``:914``): the three reference scheduler arms
     (Opportunistic / VBP / Cost-Aware,
@@ -16,14 +16,22 @@ Port of ``pivot_tpu/experiments/cli.py``, cut to three subcommands:
     ``--des-seeds`` seeds, optionally under a saved spot market
     (``--market``); the report goes to stdout and
     ``<output-dir>/sensitivity/<stamp>/report.json``.  A gated
-    Cost-Aware tick is one replica-batched launch of ``greedy_place``.
+    Cost-Aware tick is one replica-batched launch of ``greedy_place``;
+  * ``ensemble`` (``:995``): the Monte-Carlo ensemble rollout (BASELINE
+    config 5, ``parallel/ensemble``) of the first trace's first
+    ``--num-apps`` apps over ``--replicas`` perturbed replicas, writing
+    ``rollout.npz`` and ``summary.json`` under
+    ``<output-dir>/ensemble/<stamp>/``.  Fault schedules, congestion,
+    realtime scoring and checkpoints raise ``NotImplementedError``; the
+    distribution plot is not drawn.
 
 ``--device`` picks the policy backend of ``overall`` / ``num-apps``:
 ``cuda`` (the default: the torch device policies, the Cost-Aware arm
 through the hand-written kernel, every tick on the card unless
 ``--adaptive`` lets small ticks go to the numpy twin) or ``naive`` /
 ``numpy`` (the CPU policies); ``sensitivity`` always runs the device
-policies.  The other subcommands, ``--network native``,
+policies; ``ensemble`` runs on the card (``run_ensemble``'s
+``torch_device``).  The other subcommands, ``--network native``,
 ``--batch-runs`` and ``--profile-dir``, and the plots are not ported yet
 (ROADMAP.md, port queue).
 
@@ -34,6 +42,8 @@ Usage:
       --num-apps-list 100 500 1000
   python -m pivot_tpu_torch.experiments.cli --num-hosts 600 sensitivity \\
       --replicas 256 [--market FILE] [--policy cost-aware|vbp|best-fit]
+  python -m pivot_tpu_torch.experiments.cli ensemble --replicas 1024 \\
+      [--policy cost-aware|first-fit|best-fit|opportunistic]
 """
 
 from __future__ import annotations
@@ -246,6 +256,54 @@ def parse_args(argv=None):
                       help="attach a saved MarketSchedule: both arms score "
                            "egress against the time-varying price-scaled "
                            "cost tensor")
+    ens = sub.add_parser(
+        "ensemble",
+        help="Monte-Carlo ensemble: the scheduling rollout of every "
+             "perturbed replica at once on the card (BASELINE config 5; "
+             "the reference can only fork one OS process per scenario)",
+    )
+    ens.add_argument("--num-apps", type=int, dest="num_apps", default=50)
+    ens.add_argument("--replicas", type=int, default=1024)
+    ens.add_argument("--policy", default="cost-aware",
+                     choices=["cost-aware", "first-fit", "best-fit",
+                              "opportunistic"],
+                     help="placement arm simulated by the rollout (the "
+                          "reference's three comparison arms + cost-aware)")
+    ens.add_argument("--perturb", type=float, default=0.1,
+                     help="± multiplicative jitter on task runtimes and "
+                          "arrival times per replica")
+    ens.add_argument(
+        "--tick-order", default="fifo", choices=["fifo", "lifo"],
+        help="within-tick batch order: 'fifo' (task-index, bit-stable "
+             "throughput default) or 'lifo' (exact DES popitem-queue "
+             "emulation; default: fifo)",
+    )
+    ens.add_argument("--tick", type=float, default=5.0)
+    ens.add_argument("--max-ticks", type=int, default=2048)
+    ens.add_argument("--checkpoint", default=None, metavar="NPZ",
+                     help="segmented rollout with checkpoint/resume (not "
+                          "ported yet: raises)")
+    ens.add_argument("--replica-chunk", type=int, default=0, metavar="R",
+                     help="run the ensemble in replica chunks of R (0 = "
+                          "off); chunk c > 0 draws from fold_in(key, c), "
+                          "a different (equally i.i.d.) sample set than "
+                          "one call")
+    ens.add_argument("--faults", type=int, default=0, metavar="N",
+                     help="per-replica random host crashes (not ported "
+                          "yet: N > 0 raises)")
+    ens.add_argument("--fault-horizon", type=float, default=None,
+                     help="crash times drawn uniform in [0, horizon) "
+                          "(default: tick x max-ticks)")
+    ens.add_argument("--fault-mttr", type=float, default=None,
+                     help="mean outage duration (Exp-distributed); "
+                          "omit for permanent crashes")
+    ens.add_argument("--congestion", action="store_true",
+                     help="tick-resolution link-contention model (not "
+                          "ported yet: raises)")
+    ens.add_argument("--realtime-score", action="store_true",
+                     dest="realtime_scoring",
+                     help="backlog-discounted cost-aware scoring (implies "
+                          "--congestion; not ported yet: raises)")
     return parser.parse_args(argv)
 
 
@@ -459,10 +517,110 @@ def run_sensitivity(args, torch_device: str = "cuda",
     return report
 
 
+def run_ensemble(args, torch_device: str = "cuda", dtype: str = "float32",
+                 stats: Optional[dict] = None) -> dict:
+    """BASELINE config 5: ``--replicas`` perturbed what-if replicas of a
+    trace workload, scheduled on one device.  Writes ``rollout.npz`` and
+    ``summary.json`` (the keys of ``pivot_tpu``'s) and returns the
+    summary; ``stats``, when given, gains the rollout's tick-loop counts
+    (``parallel.ensemble.rollout``)."""
+    import numpy as np
+    import torch
+
+    from pivot_tpu_torch.experiments.calibrate import (
+        ensemble_inputs_from_schedule,
+    )
+    from pivot_tpu_torch.ops.kernels import resolve_device
+    from pivot_tpu_torch.parallel.ensemble import prng, rollout_chunked
+    from pivot_tpu_torch.workload.trace import load_trace_jobs
+
+    device = resolve_device(torch_device)
+    # The egress bill's product is not exact in TF32; the counts are.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trace = _list_traces(args.job_dir, 1)[0]
+    schedule = load_trace_jobs(trace, args.scale_factor).take(args.num_apps)
+    cluster = build_cluster(_cluster_config(args))
+    workload, _slices, _arrivals, topo, avail0, storage_zones = (
+        ensemble_inputs_from_schedule(schedule, cluster,
+                                      dtype=getattr(torch, dtype),
+                                      device=device))
+    apps = schedule.apps
+    key = prng.PRNGKey(args.seed)
+    kw = dict(
+        n_replicas=args.replicas,
+        tick=args.tick,
+        max_ticks=args.max_ticks,
+        perturb=args.perturb,
+        n_faults=args.faults,
+        fault_horizon=args.fault_horizon,
+        mttr=args.fault_mttr,
+        policy=args.policy,
+        congestion=args.congestion or args.realtime_scoring,
+        realtime_scoring=args.realtime_scoring,
+        tick_order=args.tick_order,
+        stats=stats,
+    )
+    wall0 = time.perf_counter()
+    res = rollout_chunked(key, avail0, workload, topo, storage_zones,
+                          args.checkpoint, args.replica_chunk, **kw)
+    mk = res.makespan.cpu().numpy()
+    eg = res.egress_cost.cpu().numpy()
+    ih = res.instance_hours.cpu().numpy()
+    finish = res.finish_time.cpu().numpy()
+    placement = res.placement.cpu().numpy()
+    unfinished = int(res.n_unfinished.max().item())
+    wall = time.perf_counter() - wall0
+    summary = {
+        "trace": os.path.basename(trace),
+        "n_apps": len(apps),
+        "n_tasks": workload.n_tasks,
+        "n_hosts": args.n_hosts,
+        "replicas": args.replicas,
+        "replica_chunk": args.replica_chunk,
+        "perturb": args.perturb,
+        "policy": args.policy,
+        "faults": args.faults,
+        "fault_horizon": args.fault_horizon,
+        "fault_mttr": args.fault_mttr,
+        "congestion": args.congestion or args.realtime_scoring,
+        "realtime_scoring": args.realtime_scoring,
+        "devices": 1,
+        "makespan_mean": float(mk.mean()),
+        "makespan_p5": float(np.percentile(mk, 5)),
+        "makespan_p95": float(np.percentile(mk, 95)),
+        "egress_mean": float(eg.mean()),
+        "egress_p95": float(np.percentile(eg, 95)),
+        "instance_hours_mean": float(ih.mean()),
+        "instance_hours_p95": float(np.percentile(ih, 95)),
+        "unfinished_max": unfinished,
+        "wall_s": round(wall, 3),
+        "replica_rollouts_per_sec": round(args.replicas / wall, 2),
+    }
+    out_dir = os.path.join(args.output_dir, "ensemble", str(int(time.time())))
+    os.makedirs(out_dir, exist_ok=True)
+    np.savez(
+        os.path.join(out_dir, "rollout.npz"),
+        makespan=mk,
+        egress_cost=eg,
+        instance_hours=ih,
+        finish_time=finish,
+        placement=placement,
+    )
+    with open(os.path.join(out_dir, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=2)
+    if stats is not None:
+        stats["out_dir"] = out_dir
+    print(json.dumps(summary))
+    return summary
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     if args.command == "sensitivity":
         run_sensitivity(args)
+        return
+    if args.command == "ensemble":
+        run_ensemble(args)
         return
     run = run_num_apps if args.command == "num-apps" else run_overall
     exp_dir, _ = run(args)

@@ -97,21 +97,24 @@ def span_step_bounds(arrive, n_ticks: int) -> list:
 
 
 def _lexsort(keys, iota):
-    """Indices that sort by ``keys`` (most significant first): successive
-    stable sorts, least significant key first.  Every sort this module
-    makes ends with a key unique among active slots (the batch position),
-    so the order of active slots is total and equals ``lax.sort``'s;
-    inactive slots tie at the back, where their order changes no
-    result."""
+    """Indices that sort by ``keys`` (most significant first) along the
+    last axis: successive stable sorts, least significant key first.
+    Every sort this module makes ends with a key unique among active
+    slots (the batch position), so the order of active slots is total and
+    equals ``lax.sort``'s; inactive slots tie at the back, where their
+    order changes no result.  Keys and ``iota`` share one shape: ``[B]``,
+    or ``[R, B]`` to sort R rows at once (the ensemble rollout)."""
     perm = iota
     for key in reversed(keys):
-        perm = perm[torch.sort(key[perm], stable=True).indices]
+        idx = torch.sort(key.gather(-1, perm), stable=True).indices
+        perm = perm.gather(-1, idx)
     return perm
 
 
 def _inverse(perm, iota):
-    """``zeros.at[perm].set(iota)``: the inverse permutation."""
-    return torch.empty_like(perm).scatter_(0, perm, iota)
+    """``zeros.at[perm].set(iota)``: the inverse permutation (along the
+    last axis)."""
+    return torch.empty_like(perm).scatter_(-1, perm, iota)
 
 
 def _span_ready_batch(arrive, k: int, stackpos, n_stack, big: int):

@@ -2,9 +2,9 @@
 
 The test process itself has imported ``jax`` (``tests/conftest.py``), so
 the run-time check happens in a fresh subprocess: it imports the port,
-runs one tiny ``overall`` on the CPU, and lists what is in
-``sys.modules``.  A static AST scan covers every file of the package and
-``chip_smoke.py``.
+runs one tiny ``overall`` and one tiny ``ensemble`` on the CPU, and
+lists what is in ``sys.modules``.  A static AST scan covers every file
+of the package and ``chip_smoke.py``.
 """
 
 import ast
@@ -28,8 +28,13 @@ with tempfile.TemporaryDirectory() as out:
          "--trace-limit", "1", "--output-dir", out, "overall",
          "--num-apps", "3"])
     _, summaries = cli.run_overall(args, torch_device="cpu")
+    ens = cli.run_ensemble(cli.parse_args(
+        ["--num-hosts", "8", "--output-dir", out, "ensemble",
+         "--num-apps", "3", "--replicas", "2", "--max-ticks", "256"]),
+        torch_device="cpu")
 print(json.dumps({
     "arms": [s["label"] for s in summaries],
+    "ensemble_unfinished": ens["unfinished_max"],
     "modules": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "pivot_tpu")),
 }))
@@ -49,6 +54,7 @@ def test_port_runs_without_jax_or_reference_modules():
     assert proc.returncode == 0, proc.stderr[-4000:]
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["arms"] == ["Opportunistic", "VBP", "Cost-Aware"]
+    assert report["ensemble_unfinished"] == 0
     assert report["modules"] == []
 
 
