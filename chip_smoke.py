@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """On-card smoke of the PyTorch/CUDA port (``pivot_tpu_torch``).
 
-    python3 chip_smoke.py          # from the root of a checkout, one card
+    python3 chip_smoke.py              # from the root of a checkout
+    python3 chip_smoke.py --phases 6,7 # some phases (default: all)
+
+One card.  ``--phases`` takes a comma list; phases 2-5 bring phase 1's
+build along, phase 5 the runs of phases 3 and 4.
 
 Phases, each fatal on failure:
 
@@ -71,15 +75,34 @@ Phases, each fatal on failure:
      apps, R = 1024, both arms — wall, replica rollouts/s, ticks,
      placement steps, host reads, CUDA-event ms of the tick loop, peak
      memory, its first 16 replicas equal to the R = 16 run; a
-     ``torch.profiler`` window of ticks 600-650 per arm; the R = 16
-     cost-aware run against the port on the CPU; best-fit, opportunistic
-     and lifo at 10 apps, card against CPU.  Placements, finish times,
-     makespans and unfinished counts must be equal, egress and
-     instance-hours within rtol 1e-5.
+     ``torch.profiler`` window of ticks 600-650 per arm; the cost-aware
+     run's first 4 replicas against the port on the CPU; best-fit,
+     opportunistic and lifo at 10 apps, card against CPU.  Placements,
+     finish times, makespans, instance-hours and unfinished counts must
+     be equal, egress within rtol 1e-5;
+  7. fault ensembles and the what-if sweeps on the card (no hand kernel:
+     ``greedy_place`` must make no launch): (a) every entry of
+     ``pivot_tpu``'s fixture ``tests/data/ensemble_sweeps_seed0.npz`` —
+     fault rollouts at 50 apps, R = 16; ``score_param_sweep``,
+     ``capacity_sweep`` with faults and ``workload_sweep`` (three arms)
+     at 10 apps, R = 4 — under torch's sync debug mode; (b) the
+     README's commands at 600 hosts through the CLI: ``autotune`` at
+     its defaults (27 candidates × 32 replicas), ``ensemble --replicas
+     256 --faults 4 --fault-mttr 300`` (cost-aware, first-fit),
+     ``capacity --host-counts 100 200 400 600 --faults 4 --fault-mttr
+     300`` and ``apps --app-counts 10 25 50`` (cut from 100 500 1000) —
+     wall, rollouts/s, ticks, placement steps, host reads, CUDA-event
+     ms, peak memory and the summary's best; with phase 6, autotune's
+     (1, 1, 1) candidate against phase 6's first 32 replicas; (c) the
+     card against the port on the CPU at 10 apps: best-fit, lifo, and
+     the search stack's channels (score exponents, a
+     ``MarketSchedule.generate`` market's risk term, faults, an active
+     mask) per arm, and the float32 pow twin on 2**24 pairs.  The same
+     rule as phase 6.
 
 The line before the last is a JSON ``kernels`` record (its ``launches``
-split into the R = 1 and R = 256 launches of phases 3 and 4); the last
-line is
+split into the R = 1 and R = 256 launches of phases 3 and 4; a number
+of a phase not run is null); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout of the repository, the script exits non-zero and prints no
 result.
@@ -1241,6 +1264,7 @@ def profile_kernels(ck, shadow, calls=10):
 ENS_REPLICAS = 1024
 ENS_CHECK_REPLICAS = 16
 ENS_SMALL_REPLICAS = 4  # the card-vs-CPU check of the other arms
+ENS_CPU_REPLICAS = 4  # the cost-aware check against the port on the CPU
 ENS_ARMS = ("cost-aware", "first-fit")
 ENS_FIXTURE = "tests/data/ensemble_r16_seed0.npz"
 ENS_FIELDS = ("makespan", "egress_cost", "finish_time", "placement",
@@ -1360,9 +1384,9 @@ def phase_ensemble(device):
     order and (c) the R = 16 runs against ``pivot_tpu``'s fixture first
     (they also warm the card up); then (a) the main path, the CLI at
     R = 1024 for the cost-aware and first-fit arms; (e) a profiled
-    window of each; (b) the R = 16 cost-aware run against the port on
-    the CPU; (d) the other arms and lifo, card against CPU, at 10
-    apps."""
+    window of each; (b) the cost-aware run's first ``ENS_CPU_REPLICAS``
+    replicas against the port on the CPU; (d) the other arms and lifo,
+    card against CPU, at 10 apps."""
     from pivot_tpu_torch.experiments import cli
     from pivot_tpu_torch.ops import cuda_kernels as ck
     from pivot_tpu_torch.parallel.ensemble import prng, rollout
@@ -1462,6 +1486,7 @@ def phase_ensemble(device):
                 instance_hours_mean=summary["instance_hours_mean"],
                 prefix_max_rel=worst)
             out["arms"][arm] = row
+            out["makespan_" + arm] = got["makespan"]  # for phase 7
             log(f"  (a) {arm} R={ENS_REPLICAS} through the CLI on the card: "
                 f"wall {row['wall_s']!r} s, "
                 f"{row['replica_rollouts_per_sec']!r} replica rollouts/s; "
@@ -1493,18 +1518,20 @@ def phase_ensemble(device):
                 f"{r['op']} {r['ms']!r} ms / {r['calls']}"
                 for r in prof["top"]))
 
-    # (b) the R = 16 run against the port on the CPU.
+    # (b) the first replicas against the port on the CPU (prefix-stable).
     _, on_cpu = ensemble_inputs(cli, "cpu")
     t0 = time.perf_counter()
-    cpu16 = _result(rollout(key, *on_cpu, policy="cost-aware", **kw))
+    cpu_res = _result(rollout(key, *on_cpu, policy="cost-aware",
+                              **dict(kw, n_replicas=ENS_CPU_REPLICAS)))
     cpu_s = time.perf_counter() - t0
-    worst = ensemble_compare(card16["cost-aware"], cpu16,
-                             "(b) cost-aware card R=16 vs the port on the CPU")
+    worst = ensemble_compare(card16["cost-aware"], cpu_res,
+                             f"(b) cost-aware card R={ENS_CPU_REPLICAS} vs "
+                             "the port on the CPU", rows=ENS_CPU_REPLICAS)
     out["checks"]["cost-aware_cpu"] = dict(max_rel=worst, cpu_wall_s=cpu_s)
-    log(f"  (b) cost-aware R={ENS_CHECK_REPLICAS} on the card vs the port on "
-        f"the CPU ({cpu_s!r} s there): placements, finish times, makespans, "
-        f"instance-hours, unfinished equal; egress largest rel diff "
-        f"{worst!r}")
+    log(f"  (b) cost-aware, the card's first {ENS_CPU_REPLICAS} replicas vs "
+        f"the port on the CPU ({cpu_s!r} s there): placements, finish "
+        f"times, makespans, instance-hours, unfinished equal; egress "
+        f"largest rel diff {worst!r}")
 
     # (d) the other arms and lifo, card vs CPU, at 10 apps.
     _, small_card = ensemble_inputs(cli, device, n_apps=10)
@@ -1529,59 +1556,325 @@ def phase_ensemble(device):
     return out
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False — this "
-              "smoke runs only on a machine with a CUDA card",
-              file=sys.stderr)
-        return 2
-    if not os.path.isdir("pivot_tpu_torch"):
-        print("chip_smoke: run from the root of a pivot_tpu checkout",
-              file=sys.stderr)
-        return 2
-    from pivot_tpu_torch.ops import build
+#: Phase 7: the fixture ``pivot_tpu`` wrote (``tests/test_torch_sweeps_
+#: fixture.py::make_fixture``) and the configuration of each entry.
+SW_FIXTURE = "tests/data/ensemble_sweeps_seed0.npz"
+SW_FAULT_ARMS = ("cost-aware", "first-fit")
+SW_FAULT_REPLICAS = 16
+SW_FAULTS = dict(n_faults=4, mttr=300.0)
+SW_APPS = 10
+SW_REPLICAS = 4
+SW_EXPONENTS = (0.5, 2.0)
+SW_HOST_COUNTS = (100, 300, 600)
+SW_APP_COUNTS = (3, 6, 10)
+SW_APP_ARMS = ("opportunistic", "first-fit", "cost-aware")
+#: Phase 7 (b): the README's sweep commands at full width through the CLI
+#: (``apps`` cut from 100 500 1000 apps to 10 25 50: PERF.md, section 4).
+SW_MAIN = (
+    ("autotune", "run_autotune", ["autotune"]),
+    ("ensemble-faults cost-aware", "run_ensemble",
+     ["ensemble", "--replicas", "256", "--faults", "4", "--fault-mttr",
+      "300", "--policy", "cost-aware"]),
+    ("ensemble-faults first-fit", "run_ensemble",
+     ["ensemble", "--replicas", "256", "--faults", "4", "--fault-mttr",
+      "300", "--policy", "first-fit"]),
+    ("capacity", "run_capacity",
+     ["capacity", "--host-counts", "100", "200", "400", "600", "--faults",
+      "4", "--fault-mttr", "300"]),
+    ("apps", "run_apps", ["apps", "--app-counts", "10", "25", "50"]),
+)
+
+
+def sw_score_grid() -> np.ndarray:
+    """``run_autotune``'s grid over ``SW_EXPONENTS``: the cube and the
+    reference shape."""
+    import itertools
+
+    grid = list(itertools.product(SW_EXPONENTS, repeat=3)) + [(1.0,) * 3]
+    return np.array(grid, dtype=np.float32)
+
+
+def sw_cases() -> dict:
+    """``{entry: (kind, options)}`` of the fixture; ``kind`` is ``fault``
+    (the rollout at 50 apps) or a sweep at ``SW_APPS`` apps: ``score``,
+    ``capacity``, ``apps``."""
+    out = {f"fault__{a}": ("fault", dict(policy=a)) for a in SW_FAULT_ARMS}
+    out["score"] = ("score", {})
+    out["capacity"] = ("capacity", {})
+    out.update({f"apps__{a}": ("apps", dict(policy=a))
+                for a in SW_APP_ARMS})
+    return out
+
+
+def sw_key(name, field) -> str:
+    return f"{name.replace('-', '_')}__{field}"
+
+
+def sw_load_fixture(path=SW_FIXTURE) -> dict:
+    with np.load(path) as z:
+        return {n: {f: z[sw_key(n, f)] for f in ENS_FIELDS}
+                for n in sw_cases()}
+
+
+def sw_run(name, inputs, replicas=None, stats=None):
+    """The port's run of fixture entry ``name`` (float32) on the device of
+    ``inputs`` (``{n_apps: (args, (avail0, workload, topo, sz))}``, from
+    ``ensemble_inputs``), at ``replicas`` replicas (the fixture's by
+    default)."""
+    from pivot_tpu_torch.parallel import ensemble as E
+    from pivot_tpu_torch.parallel.ensemble import prng
+
+    kind, opt = sw_cases()[name]
+    args, (a0, w, topo, sz) = inputs[50 if kind == "fault" else SW_APPS]
+    key = prng.PRNGKey(args.seed)
+    kw = dict(tick=args.tick, perturb=args.perturb,
+              tick_order=args.tick_order, stats=stats)
+    if kind == "fault":
+        return E.rollout(key, a0, w, topo, sz,
+                         n_replicas=replicas or SW_FAULT_REPLICAS,
+                         max_ticks=2048, **SW_FAULTS, **opt, **kw)
+    R = replicas or SW_REPLICAS
+    if kind == "score":
+        return E.score_param_sweep(key, a0, w, topo, sz, sw_score_grid(),
+                                   n_replicas=R, max_ticks=2048, **kw)
+    if kind == "capacity":
+        return E.capacity_sweep(key, E.capacity_grid(a0, SW_HOST_COUNTS), w,
+                                topo, sz, n_replicas=R, max_ticks=2048,
+                                **SW_FAULTS, **kw)
+    return E.workload_sweep(key, a0, w, topo, sz, list(SW_APP_COUNTS),
+                            n_replicas=R, max_ticks=4096, **opt, **kw)
+
+
+def sw_compare(got: dict, want: dict, name: str, replicas: int) -> float:
+    """``got`` (entry ``name`` at ``replicas`` replicas) against the
+    fixture's first ``replicas`` replicas (of each candidate, for a
+    sweep): ``ensemble_compare``'s rule.  Returns egress's largest
+    relative difference."""
+    axis = 0 if name.startswith("fault__") else 1
+    want = {f: np.take(v, np.arange(replicas), axis=axis)
+            for f, v in want.items()}
+    return ensemble_compare(got, want, name)
+
+
+def sw_hazard(cli, args, topo, device):
+    """A ``MarketSchedule.generate`` market's hazard rows on the CLI
+    cluster: ``(times [P], rows [P, H])``, scaled so the risk term
+    competes with the cost-aware score."""
+    from pivot_tpu_torch.infra.market import MarketSchedule
+
+    cluster = cli.build_cluster(cli._cluster_config(args))
+    market = MarketSchedule.generate(cluster.meta, seed=0, horizon=4000.0,
+                                     n_segments=8)
+    rows = market.hazard[:, topo.host_zone.cpu().numpy()]
+    rows = rows / max(float(rows.max()), 1e-30)
+    return (torch.tensor(market.times, dtype=torch.float32, device=device),
+            torch.tensor(rows, dtype=torch.float32, device=device))
+
+
+def sw_small(name, inputs, hazard=None):
+    """Phase 7 (c)'s card-vs-CPU runs at ``SW_APPS`` apps, R = 2."""
+    from pivot_tpu_torch.parallel import ensemble as E
+    from pivot_tpu_torch.parallel.ensemble import prng
+
+    args, (a0, w, topo, sz) = inputs
+    key = prng.PRNGKey(args.seed)
+    kw = dict(n_replicas=2, tick=args.tick, perturb=args.perturb,
+              max_ticks=2048)
+    if name == "best-fit apps":
+        return E.workload_sweep(key, a0, w, topo, sz, [4, 10],
+                                policy="best-fit", **kw)
+    if name == "cost-aware lifo score":
+        return E.score_param_sweep(key, a0, w, topo, sz,
+                                   [[1, 1, 1], [2, 0.5, 1.5]],
+                                   tick_order="lifo", **kw)
+    if name == "first-fit lifo capacity":
+        return E.capacity_sweep(key, E.capacity_grid(a0, [150, 600]), w,
+                                topo, sz, policy="first-fit",
+                                tick_order="lifo", **SW_FAULTS, **kw)
+    # The search stack's channels: exponents, risk, faults, active.
+    K, R = 2, 2
+    rt, arr, ra = E._perturbations(key, w, sz, R, args.perturb, a0.dtype)
+    rows = [E._tile_rows(x, K) for x in (rt, arr, ra)]
+    sp = torch.tensor([[1.0, 1.0, 1.0]] * R + [[1.5, 0.8, 0.5]] * R,
+                      dtype=a0.dtype, device=a0.device)
+    rc = torch.tensor([0.0] * R + [1e-3] * R, dtype=a0.dtype,
+                      device=a0.device)
+    faults = E._make_fault_schedule(key, R, 4, a0, args.tick, 2048, None,
+                                    300.0, contract=True)
+    active = (w.app_of < 7).expand(K * R, -1)
+    rows[1] = torch.where(active, rows[1], float("inf"))
+    avail = a0.expand(K * R, *a0.shape)
+    policy = name.split()[0]
+    task_u = E._tile_rows(E._opportunistic_uniforms(
+        key, R, w.n_tasks, a0.dtype, a0.device), K) \
+        if policy == "opportunistic" else None
+    return E._run_rows(
+        avail, *rows, w, topo, args.tick, 2048, None, policy, False, False,
+        faults=tuple(E._tile_rows(f, K) for f in faults), totals=avail,
+        score_params=sp if policy == "cost-aware" else None, active=active,
+        task_u=task_u, risk_coeff=rc, hazard=hazard)
+
+
+def sw_pow_check(device, n=1 << 24):
+    """The float32 pow twin on the card against the port on the CPU over
+    ``n`` (base, exponent) pairs drawn around the score tables (norms,
+    round-trip costs and bandwidths); also counts how often a float64
+    pow rounded to float32 differs from it (glibc's ``powf``, which the
+    twin follows, is not correctly rounded)."""
+    from pivot_tpu_torch.parallel.ensemble.libm import powf
+
+    g = torch.Generator().manual_seed(7)
+    base = torch.cat([torch.rand(n // 2, generator=g) * 2e5,
+                      torch.rand(n // 4, generator=g),
+                      torch.rand(n - n // 2 - n // 4, generator=g) * 2e4])
+    w = torch.rand(n, generator=g) * 2.75 + 0.25
+    w[: n // 4] = 0.5
+    w[n // 4: n // 2] = 2.0
+    t0 = time.perf_counter()
+    card = powf(base.to(device), w.to(device)).cpu()
+    card_s = time.perf_counter() - t0
+    cpu = powf(base, w)
+    if not torch.equal(card, cpu):
+        bad = int((card != cpu).sum())
+        raise AssertionError(f"(c) powf: the card differs from the CPU on "
+                             f"{bad} of {n} pairs")
+    f64 = torch.pow(base.to(device).double(), w.to(device).double()).float()
+    return dict(pairs=n, card_s=card_s,
+                f64_rounded_differs=int((f64.cpu() != card).sum()))
+
+
+def phase_sweeps(device, ens=None):
+    """Phase 7: fault ensembles and the what-if sweeps on the card; no
+    hand kernel (``greedy_place`` must make no launch).  (a) every entry
+    of ``pivot_tpu``'s fixture under torch's sync debug mode; (b) the
+    README's commands at full width through the CLI; (c) the card against
+    the port on the CPU at ``SW_APPS`` apps: best-fit, lifo, and the
+    search stack's channels (exponents, a market's risk term, faults,
+    an active mask), and the float32 pow twin."""
+    from pivot_tpu_torch.experiments import cli
     from pivot_tpu_torch.ops import cuda_kernels as ck
 
-    t_start = time.perf_counter()
-    device = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
-    log("== 1. environment")
-    log(card)
-    nvcc = subprocess.run([build._nvcc(), "--version"], check=True,
-                          capture_output=True, text=True, timeout=60)
-    log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, {nvcc.stdout.strip().splitlines()[-1]}, "
-        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        ptxas = ptxas_usage_start(build, tmp)  # beside the build
-        paths = build.build_all()
-        log(f"  built {sorted(paths)} in {time.perf_counter() - t0:.2f} s "
-            f"(nvcc {' '.join(build.NVCC_FLAGS)})")
-        for line in ptxas_usage_lines(ptxas):
-            log(f"  ptxas {line}")
-    check_shape_tables(build, ck)
-    arith_check(build)
+    out = {"fixture": {}, "runs": {}, "small": {}}
+    ck.reset_launches()
+    inputs = {n: ensemble_inputs(cli, device, n_apps=n)
+              for n in (SW_APPS, 50)}
+    fixture = sw_load_fixture()
+    for name in sw_cases():
+        st = {}
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                res = sw_run(name, inputs, stats=st)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        got = _result(res)
+        reps = got["makespan"].shape[-1]
+        worst = sw_compare(got, fixture[name], name, reps)
+        out["fixture"][name] = dict(
+            max_rel=worst, ticks=st["ticks"], place_steps=st["place_steps"],
+            host_syncs=st["host_syncs"], sync_debug_warnings=syncs,
+            wall_s=st["wall_s"], event_span_ms=st["event_span_ms"])
+        log(f"  (a) {name}, shape {tuple(got['placement'].shape)}: card "
+            f"equals pivot_tpu's fixture (egress largest rel diff "
+            f"{worst!r}); {st['ticks']} ticks, {st['place_steps']} "
+            f"placement steps, {st['host_syncs']} host reads counted, "
+            f"{syncs} synchronizing calls flagged; {st['wall_s']!r} s")
 
-    log("== 2. greedy_place vs plain on the card (f32)")
-    chk = phase_kernel_vs_plain(ck, device)
-    log(f"  {chk.cases} cases, {chk.placed} placements: all equal, max "
-        f"|avail diff| {chk.max_abs_err!r} (rtol {RTOL}, atol {ATOL})")
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        for label, fn, argv in SW_MAIN:
+            st = {}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            torch.backends.cuda.matmul.allow_tf32 = True
+            summary = getattr(cli, fn)(cli.parse_args(
+                ["--job-dir", "data/jobs", "--output-dir", tmp, *argv]),
+                stats=st)
+            peak = torch.cuda.max_memory_allocated()
+            if torch.backends.cuda.matmul.allow_tf32:
+                raise AssertionError(f"(b) {fn} left TF32 matmuls on")
+            with open(os.path.join(st["out_dir"], "summary.json")) as f:
+                if json.load(f) != json.loads(json.dumps(summary)):
+                    raise AssertionError(f"(b) {label}: summary.json "
+                                         "differs from the summary")
+            rollouts = summary.get("rollouts", summary.get("replicas"))
+            best = summary.get("best")
+            if fn == "run_ensemble":
+                best = {k: summary[k] for k in (
+                    "makespan_mean", "egress_mean", "instance_hours_mean",
+                    "unfinished_max")}
+                finite = [best["makespan_mean"], best["egress_mean"]]
+            elif fn == "run_apps":
+                best = {a: rows[-1] for a, rows in summary["arms"].items()}
+                finite = [r["makespan_mean"] for r in best.values()]
+            else:
+                if best is None:
+                    raise AssertionError(f"(b) {label}: no candidate "
+                                         "finished the workload")
+                finite = [best["makespan_mean"], best["egress_mean"]]
+            if not np.isfinite(finite).all():
+                raise AssertionError(f"(b) {label}: non-finite results")
+            row = dict(wall_s=summary["wall_s"], rollouts=rollouts,
+                       rollouts_per_s=rollouts / summary["wall_s"],
+                       ticks=st["ticks"], place_steps=st["place_steps"],
+                       host_syncs=st["host_syncs"],
+                       event_span_ms=st["event_span_ms"],
+                       peak_mem_bytes=peak, best=best)
+            out["runs"][label] = row
+            log(f"  (b) {label} ({rollouts} rollouts) through the CLI: wall "
+                f"{row['wall_s']!r} s, {row['rollouts_per_s']!r} rollouts/s;"
+                f" {row['ticks']} ticks, {row['place_steps']} placement "
+                f"steps, {row['host_syncs']} host reads; "
+                f"{row['event_span_ms']!r} ms between CUDA events; peak "
+                f"memory {peak / 2**30!r} GiB; best {json.dumps(best)}")
+            if fn == "run_autotune" and ens is not None:
+                # The (1, 1, 1) candidate is the plain cost-aware score
+                # (pow by 1 is exact): its R = 32 replicas are the first
+                # 32 of phase 6's R = 1024 run.
+                want = float(np.asarray(ens, np.float32)[None, :32]
+                             .mean(axis=1)[0])
+                got = summary["reference"]["makespan_mean"]
+                if got != want:
+                    raise AssertionError(
+                        f"(b) autotune's (1, 1, 1) makespan mean {got!r} is "
+                        f"not phase 6's first 32 replicas' {want!r}")
+                log(f"  (b) autotune's (1, 1, 1) candidate equals phase "
+                    f"6's first 32 replicas (makespan mean {got!r})")
 
-    log("== 3. overall, 600 hosts x 1000 apps: cuda with fused spans, "
-        "cuda with fusion off, numpy")
-    e2e = phase_end_to_end(device)
+    args10, on_card = inputs[SW_APPS]
+    _, on_cpu = ensemble_inputs(cli, "cpu", n_apps=SW_APPS)
+    haz = sw_hazard(cli, args10, on_card[2], device)
+    for name in ("best-fit apps", "cost-aware lifo score",
+                 "first-fit lifo capacity", "cost-aware channels",
+                 "first-fit channels", "opportunistic channels"):
+        risk = "channels" in name
+        got = _result(sw_small(name, (args10, on_card),
+                               haz if risk else None))
+        t0 = time.perf_counter()
+        want = _result(sw_small(name, (args10, on_cpu), tuple(
+            x.cpu() for x in haz) if risk else None))
+        cpu_s = time.perf_counter() - t0
+        worst = ensemble_compare(got, want, f"(c) {name} card vs CPU")
+        out["small"][name] = dict(max_rel=worst, cpu_s=cpu_s)
+        log(f"  (c) {name}, {SW_APPS} apps: the card equals the port on the "
+            f"CPU ({cpu_s!r} s there), egress largest rel diff {worst!r}")
+    pw = sw_pow_check(device)
+    out["small"]["powf"] = pw
+    log(f"  (c) float32 pow twin: the card equals the CPU on {pw['pairs']} "
+        f"pairs ({pw['card_s']!r} s on the card); a float64 pow rounded to "
+        f"float32 differs from it on {pw['f64_rounded_differs']} of them")
+    if ck.LAUNCHES["greedy_place"]:
+        raise AssertionError("phase 7 launched greedy_place")
+    return out
+
+
+def phase_5_report(ck, e2e, sens, card, device):
+    """Phase 5: times on the card (the main path's wrapper, bare launches,
+    the warp sweep, the gated R = 256 launches) and the reports of
+    phases 3 and 4.  Returns ``(times, gated times, spans)``."""
     shadow = e2e["shadow"]
-
-    log(f"== 4. sensitivity on the card: 600 hosts, R={SENS_REPLICAS}, "
-        f"Cost-Aware x {SENS_APPS['cost-aware']} apps and VBP x "
-        f"{SENS_APPS['vbp']} apps under a seeded spot market")
-    sens = phase_sensitivity(device)
     ca = sens["cost-aware"]
-
-    log("== 5. times on the card")
     times = phase_times(ck, shadow, device)
     gt = gated_times(ck, ca.pop("calls"))
     lt = times["largest_tick"]
@@ -1669,38 +1962,134 @@ def main() -> int:
             f" fetch+unpad incl. the device wait / _mc_sensitivity total): "
             f"{per['noise']!r} / {per['stage']!r} / {per['pass']!r} / "
             f"{per['fetch_unpad']!r} / {per['total']!r}")
-    log(f"== 6. the Monte-Carlo ensemble on the card: 600 hosts x 50 apps, "
-        f"R={ENS_REPLICAS} ({', '.join(ENS_ARMS)}), checked at "
-        f"R={ENS_CHECK_REPLICAS}")
-    log(f"  [{card}]")
-    ens = phase_ensemble(device)
-    log(json.dumps({"times": times, "spans": spans, "ensemble": ens,
-                    "same_files": e2e["same_files"], "gated_times": gt,
-                    "sensitivity": {p: {k: v for k, v in r.items()
-                                        if k != "check"}
-                                    for p, r in sens.items()}},
-                   default=str))
+    return times, gt, spans
 
+
+PHASES = (1, 2, 3, 4, 5, 6, 7)
+
+
+def selected_phases(argv) -> set:
+    """``--phases 1,6,7`` (default: all).  Phases 2-5 need phase 1's
+    build, phase 5 the runs of phases 3 and 4: they come along."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description="On-card smoke of the port.")
+    ap.add_argument("--phases", default=",".join(map(str, PHASES)),
+                    help="comma list of phases to run (default: all)")
+    want = {int(x) for x in ap.parse_args(argv).phases.split(",") if x}
+    if not want <= set(PHASES):
+        ap.error(f"phases are {PHASES}, got {sorted(want)}")
+    if 5 in want:
+        want |= {3, 4}
+    if want & {2, 3, 4, 5}:
+        want.add(1)
+    return want
+
+
+def main(argv=None) -> int:
+    phases = selected_phases(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False — this "
+              "smoke runs only on a machine with a CUDA card",
+              file=sys.stderr)
+        return 2
+    if not os.path.isdir("pivot_tpu_torch"):
+        print("chip_smoke: run from the root of a pivot_tpu checkout",
+              file=sys.stderr)
+        return 2
+    from pivot_tpu_torch.ops import build
+    from pivot_tpu_torch.ops import cuda_kernels as ck
+
+    t_start = time.perf_counter()
+    device = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"phases {sorted(phases)}")
+    log(card)
+    chk = e2e = sens = times = gt = spans = ens = sweeps = None
+    if 1 in phases:
+        log("== 1. environment")
+        nvcc = subprocess.run([build._nvcc(), "--version"], check=True,
+                              capture_output=True, text=True, timeout=60)
+        log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
+            f"CUDA {torch.version.cuda}, "
+            f"{nvcc.stdout.strip().splitlines()[-1]}, "
+            f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            ptxas = ptxas_usage_start(build, tmp)  # beside the build
+            paths = build.build_all()
+            log(f"  built {sorted(paths)} in {time.perf_counter() - t0:.2f} "
+                f"s (nvcc {' '.join(build.NVCC_FLAGS)})")
+            for line in ptxas_usage_lines(ptxas):
+                log(f"  ptxas {line}")
+        check_shape_tables(build, ck)
+        arith_check(build)
+    if 2 in phases:
+        log("== 2. greedy_place vs plain on the card (f32)")
+        chk = phase_kernel_vs_plain(ck, device)
+        log(f"  {chk.cases} cases, {chk.placed} placements: all equal, max "
+            f"|avail diff| {chk.max_abs_err!r} (rtol {RTOL}, atol {ATOL})")
+    if 3 in phases:
+        log("== 3. overall, 600 hosts x 1000 apps: cuda with fused spans, "
+            "cuda with fusion off, numpy")
+        e2e = phase_end_to_end(device)
+    if 4 in phases:
+        log(f"== 4. sensitivity on the card: 600 hosts, R={SENS_REPLICAS}, "
+            f"Cost-Aware x {SENS_APPS['cost-aware']} apps and VBP x "
+            f"{SENS_APPS['vbp']} apps under a seeded spot market")
+        sens = phase_sensitivity(device)
+    if 5 in phases:
+        log("== 5. times on the card")
+        times, gt, spans = phase_5_report(ck, e2e, sens, card, device)
+    ens_mk = None
+    if 6 in phases:
+        log(f"== 6. the Monte-Carlo ensemble on the card: 600 hosts x 50 "
+            f"apps, R={ENS_REPLICAS} ({', '.join(ENS_ARMS)}), checked at "
+            f"R={ENS_CHECK_REPLICAS}")
+        log(f"  [{card}]")
+        ens = phase_ensemble(device)
+        ens_mk = ens.pop("makespan_cost-aware")
+        ens.pop("makespan_first-fit")
+    if 7 in phases:
+        log(f"== 7. fault ensembles and the what-if sweeps on the card: the "
+            f"pivot_tpu fixture, the README's commands at 600 hosts, card "
+            f"vs CPU at {SW_APPS} apps")
+        log(f"  [{card}]")
+        sweeps = phase_sweeps(device, ens_mk)
+    log(json.dumps({
+        "times": times, "spans": spans, "ensemble": ens, "sweeps": sweeps,
+        "same_files": e2e and e2e["same_files"], "gated_times": gt,
+        "sensitivity": sens and {p: {k: v for k, v in r.items()
+                                     if k != "check"}
+                                 for p, r in sens.items()}},
+        default=str))
+
+    # The kernels record; a number of a phase not run is null.
+    ca = sens and sens["cost-aware"]
+    lt = times and times["largest_tick"]
+    errs = [x.max_abs_err for x in (
+        chk, e2e and e2e["shadow"].check, e2e and e2e["referee"],
+        ca and ca["check"]) if x is not None]
     record = {"kernels": [{
         "name": "greedy_place",
         "route": "cuda",
         "source": "pivot_tpu_torch/csrc/greedy_place.cu",
         "replaces": "pivot_tpu/ops/pallas_kernels.py:265",
-        "launches": (e2e["runs"]["cuda"]["launches"]
+        "launches": (e2e and ca and e2e["runs"]["cuda"]["launches"]
                      + sum(ca["launches"].values())),
-        "launches_r1": (e2e["runs"]["cuda"]["launches"]
+        "launches_r1": (e2e and ca and e2e["runs"]["cuda"]["launches"]
                         + ca["launches"][1]),
-        f"launches_r{SENS_REPLICAS}": ca["launches"][SENS_REPLICAS],
-        "max_abs_err": max(chk.max_abs_err, shadow.check.max_abs_err,
-                           e2e["referee"].max_abs_err,
-                           ca["check"].max_abs_err),
-        "ms": lt["ms"],
-        "plain_ms": lt["plain_ms"],
-        "bound_ms": lt["bound_ms"],
-        "bound_by": lt["bound_by"],
+        f"launches_r{SENS_REPLICAS}": ca and ca["launches"][SENS_REPLICAS],
+        "max_abs_err": max(errs) if errs else None,
+        "ms": lt and lt["ms"],
+        "plain_ms": lt and lt["plain_ms"],
+        "bound_ms": lt and lt["bound_ms"],
+        "bound_by": lt and lt["bound_by"],
         "library_ms": None,
-        f"r{SENS_REPLICAS}_ms": gt["ms_median"],
-        f"r{SENS_REPLICAS}_kernel_ms": gt["kernel_ms_median"],
+        f"r{SENS_REPLICAS}_ms": gt and gt["ms_median"],
+        f"r{SENS_REPLICAS}_kernel_ms": gt and gt["kernel_ms_median"],
     }]}
     log(f"  smoke wall: {time.perf_counter() - t_start!r} s")
     print(card, flush=True)

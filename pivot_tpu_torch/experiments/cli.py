@@ -1,7 +1,7 @@
 """Experiment CLI of the port: ``overall``, ``num-apps``,
-``sensitivity`` and ``ensemble``.
+``sensitivity``, ``ensemble``, ``autotune``, ``capacity`` and ``apps``.
 
-Port of ``pivot_tpu/experiments/cli.py``, cut to four subcommands:
+Port of ``pivot_tpu/experiments/cli.py``, cut to seven subcommands:
 
   * ``overall`` (``:914``): the three reference scheduler arms
     (Opportunistic / VBP / Cost-Aware,
@@ -21,19 +21,27 @@ Port of ``pivot_tpu/experiments/cli.py``, cut to four subcommands:
     config 5, ``parallel/ensemble``) of the first trace's first
     ``--num-apps`` apps over ``--replicas`` perturbed replicas, writing
     ``rollout.npz`` and ``summary.json`` under
-    ``<output-dir>/ensemble/<stamp>/``.  Fault schedules, congestion,
-    realtime scoring and checkpoints raise ``NotImplementedError``; the
-    distribution plot is not drawn.
+    ``<output-dir>/ensemble/<stamp>/``, with per-replica fault schedules
+    (``--faults``, ``--fault-horizon``, ``--fault-mttr``).  Congestion,
+    realtime scoring and checkpoints raise ``NotImplementedError``
+    (ROADMAP.md Queue 1); the distribution plot is not drawn;
+  * ``autotune`` (``:1309``), ``capacity`` (``:1404``) and ``apps``
+    (``:1525``): the what-if sweeps of ``parallel/ensemble/sweeps.py``
+    (cost-aware score exponents, cluster sizes with optional faults,
+    app counts per policy arm), each writing ``summary.json`` under
+    ``<output-dir>/<name>/<stamp>/``.  They run unsharded, in the
+    reference's 256-tick segments; their figures are not drawn (the
+    plots are ROADMAP.md Queue 1 item 12).
 
 ``--device`` picks the policy backend of ``overall`` / ``num-apps``:
 ``cuda`` (the default: the torch device policies, the Cost-Aware arm
 through the hand-written kernel, every tick on the card unless
 ``--adaptive`` lets small ticks go to the numpy twin) or ``naive`` /
 ``numpy`` (the CPU policies); ``sensitivity`` always runs the device
-policies; ``ensemble`` runs on the card (``run_ensemble``'s
-``torch_device``).  The other subcommands, ``--network native``,
-``--batch-runs`` and ``--profile-dir``, and the plots are not ported yet
-(ROADMAP.md, port queue).
+policies; ``ensemble`` and the sweeps run on the card (the
+``torch_device`` of their ``run_*`` function).  The other subcommands,
+``--network native``, ``--batch-runs`` and ``--profile-dir``, and the
+plots are not ported yet (ROADMAP.md, port queue).
 
 Usage:
   python -m pivot_tpu_torch.experiments.cli --num-hosts 600 overall \\
@@ -43,7 +51,12 @@ Usage:
   python -m pivot_tpu_torch.experiments.cli --num-hosts 600 sensitivity \\
       --replicas 256 [--market FILE] [--policy cost-aware|vbp|best-fit]
   python -m pivot_tpu_torch.experiments.cli ensemble --replicas 1024 \\
-      [--policy cost-aware|first-fit|best-fit|opportunistic]
+      [--policy cost-aware|first-fit|best-fit|opportunistic] \\
+      [--faults 4 --fault-mttr 300]
+  python -m pivot_tpu_torch.experiments.cli autotune --replicas 32
+  python -m pivot_tpu_torch.experiments.cli capacity \\
+      --host-counts 100 200 400 600 [--faults 4 --fault-mttr 300]
+  python -m pivot_tpu_torch.experiments.cli apps --app-counts 10 25 50
 """
 
 from __future__ import annotations
@@ -289,8 +302,8 @@ def parse_args(argv=None):
                           "a different (equally i.i.d.) sample set than "
                           "one call")
     ens.add_argument("--faults", type=int, default=0, metavar="N",
-                     help="per-replica random host crashes (not ported "
-                          "yet: N > 0 raises)")
+                     help="per-replica random host crashes (resilience "
+                          "what-if: N crashes per replica)")
     ens.add_argument("--fault-horizon", type=float, default=None,
                      help="crash times drawn uniform in [0, horizon) "
                           "(default: tick x max-ticks)")
@@ -304,7 +317,110 @@ def parse_args(argv=None):
                      dest="realtime_scoring",
                      help="backlog-discounted cost-aware scoring (implies "
                           "--congestion; not ported yet: raises)")
+    at = sub.add_parser(
+        "autotune",
+        help="scheduler-hyperparameter search: sweep the cost-aware score "
+             "exponents cost^a / (norm^c × bw^b) over a grid, every "
+             "candidate × Monte-Carlo replica in one batch on the card "
+             "with paired draws",
+    )
+    at.add_argument("--num-apps", type=int, dest="num_apps", default=50)
+    at.add_argument("--replicas", type=int, default=32,
+                    help="Monte-Carlo replicas per candidate")
+    at.add_argument("--perturb", type=float, default=0.1)
+    _add_tick_order(at)
+    at.add_argument("--tick", type=float, default=5.0)
+    at.add_argument("--max-ticks", type=int, default=2048)
+    at.add_argument("--exponents", nargs="+", type=float,
+                    default=[0.5, 1.0, 2.0],
+                    help="candidate values for each of the three "
+                         "exponents; the grid is their cube (default "
+                         "3^3 = 27 candidates) plus the reference shape "
+                         "(1,1,1) if absent")
+    at.add_argument("--objective", choices=["makespan", "egress"],
+                    default="makespan",
+                    help="winner selection: mean makespan or mean egress")
+    at.add_argument("--congestion", action="store_true",
+                    help="score candidates under the link-contention "
+                         "transfer model (not ported yet: raises)")
+    cap = sub.add_parser(
+        "capacity",
+        help="capacity planning: roll the workload out on K candidate "
+             "cluster sizes × R Monte-Carlo replicas in one batch on the "
+             "card (paired draws) and report the cost/makespan trade-off "
+             "per size",
+    )
+    cap.add_argument("--num-apps", type=int, dest="num_apps", default=50)
+    cap.add_argument("--host-counts", nargs="+", type=int, required=True,
+                     help="candidate cluster sizes (each ≤ --num-hosts); "
+                          "prefixes of the generated cluster, so zone "
+                          "balance is preserved")
+    cap.add_argument("--replicas", type=int, default=32)
+    cap.add_argument("--perturb", type=float, default=0.1)
+    _add_tick_order(cap)
+    cap.add_argument("--tick", type=float, default=5.0)
+    cap.add_argument("--max-ticks", type=int, default=2048)
+    cap.add_argument("--host-hourly-rate", type=float, default=0.932,
+                     help="$/host-hour for the total-cost column (ref "
+                          "alibaba/sim.py:44-45)")
+    cap.add_argument("--slo-makespan", type=float, default=None,
+                     help="pick the cheapest size whose MEAN makespan "
+                          "meets this bound (default: cheapest that "
+                          "finishes the workload)")
+    cap.add_argument("--policy", default="cost-aware",
+                     choices=["cost-aware", "first-fit", "best-fit",
+                              "opportunistic"])
+    cap.add_argument("--congestion", action="store_true",
+                     help="link-contention model (not ported yet: raises)")
+    cap.add_argument("--realtime-score", action="store_true",
+                     dest="realtime_scoring",
+                     help="backlog-discounted cost-aware scoring (implies "
+                          "--congestion; not ported yet: raises)")
+    cap.add_argument("--faults", type=int, default=0, metavar="N",
+                     help="resilience-aware sizing: each replica draws an "
+                          "independent N-crash schedule, applied as the "
+                          "same physical failure trace to every candidate "
+                          "size (a crash on a host a small candidate "
+                          "doesn't have is a no-op there)")
+    cap.add_argument("--fault-horizon", type=float, default=None,
+                     help="crash times drawn uniform in [0, horizon) "
+                          "(default: tick x max-ticks)")
+    cap.add_argument("--fault-mttr", type=float, default=None,
+                     help="mean outage duration (Exp-distributed); "
+                          "omit for permanent crashes")
+    aps = sub.add_parser(
+        "apps",
+        help="num-apps sweep: cost vs workload size for the three "
+             "reference policy arms, each arm one batch over K app-counts "
+             "× R Monte-Carlo replicas (paired draws) on the card",
+    )
+    aps.add_argument("--app-counts", nargs="+", type=int, required=True,
+                     help="candidate workload sizes (first N apps of the "
+                          "trace, in submission order)")
+    aps.add_argument("--replicas", type=int, default=32)
+    aps.add_argument("--perturb", type=float, default=0.1)
+    _add_tick_order(aps)
+    aps.add_argument("--tick", type=float, default=5.0)
+    aps.add_argument("--max-ticks", type=int, default=4096)
+    aps.add_argument("--host-hourly-rate", type=float, default=0.932)
+    aps.add_argument("--policies", nargs="+",
+                     default=["opportunistic", "first-fit", "cost-aware"],
+                     choices=["cost-aware", "first-fit", "best-fit",
+                              "opportunistic"],
+                     help="arms to sweep (default: the reference's three)")
+    aps.add_argument("--congestion", action="store_true",
+                     help="link-contention model (not ported yet: raises)")
     return parser.parse_args(argv)
+
+
+def _add_tick_order(sub_parser, default="fifo"):
+    """The ``--tick-order`` flag of the estimator subcommands."""
+    sub_parser.add_argument(
+        "--tick-order", default=default, choices=["fifo", "lifo"],
+        help="within-tick batch order: 'fifo' (task-index, bit-stable "
+             "throughput default) or 'lifo' (exact DES popitem-queue "
+             f"emulation; default: {default})",
+    )
 
 
 def _list_traces(job_dir: str, limit=None) -> List[str]:
@@ -517,25 +633,40 @@ def run_sensitivity(args, torch_device: str = "cuda",
     return report
 
 
-def run_ensemble(args, torch_device: str = "cuda", dtype: str = "float32",
-                 stats: Optional[dict] = None) -> dict:
-    """BASELINE config 5: ``--replicas`` perturbed what-if replicas of a
-    trace workload, scheduled on one device.  Writes ``rollout.npz`` and
-    ``summary.json`` (the keys of ``pivot_tpu``'s) and returns the
-    summary; ``stats``, when given, gains the rollout's tick-loop counts
-    (``parallel.ensemble.rollout``)."""
-    import numpy as np
+#: The sweeps' segment length: ``pivot_tpu``'s unsharded fallback
+#: (``_maybe_shard_sweep``) runs them in 256-tick device calls; the port's
+#: segments are loops of the same length, the same bits as one loop.
+SWEEP_SEGMENT_TICKS = 256
+
+
+def _fault_outages(args) -> Optional[str]:
+    """``"fault outages"`` where a run draws Exp(mttr) outages (the C
+    library's ``log`` in float64), else None."""
+    return "fault outages" if args.faults and args.fault_mttr is not None \
+        else None
+
+
+def _ensemble_setup(args, torch_device: str, dtype: str,
+                    host_libm: Optional[str] = None):
+    """``(trace, schedule, workload, topo, avail0, storage_zones)`` on
+    ``torch_device``: the trace→tensors preamble of ``ensemble`` and the
+    sweeps.  Refuses float64 off the CPU where the run needs the C
+    library's float64 ``log`` / ``pow`` (``host_libm`` names the feature;
+    ``parallel/ensemble/libm.py``), then resolves the device (no card, no
+    run) and turns TF32 matmuls off: the egress bill's product is not
+    exact in TF32."""
     import torch
 
     from pivot_tpu_torch.experiments.calibrate import (
         ensemble_inputs_from_schedule,
     )
     from pivot_tpu_torch.ops.kernels import resolve_device
-    from pivot_tpu_torch.parallel.ensemble import prng, rollout_chunked
+    from pivot_tpu_torch.parallel.ensemble.libm import require_host
     from pivot_tpu_torch.workload.trace import load_trace_jobs
 
+    if host_libm is not None:
+        require_host(getattr(torch, dtype), torch_device, host_libm)
     device = resolve_device(torch_device)
-    # The egress bill's product is not exact in TF32; the counts are.
     torch.backends.cuda.matmul.allow_tf32 = False
     trace = _list_traces(args.job_dir, 1)[0]
     schedule = load_trace_jobs(trace, args.scale_factor).take(args.num_apps)
@@ -544,6 +675,34 @@ def run_ensemble(args, torch_device: str = "cuda", dtype: str = "float32",
         ensemble_inputs_from_schedule(schedule, cluster,
                                       dtype=getattr(torch, dtype),
                                       device=device))
+    return trace, schedule, workload, topo, avail0, storage_zones
+
+
+def _write_summary(args, name: str, summary: dict,
+                   stats: Optional[dict]) -> str:
+    out_dir = os.path.join(args.output_dir, name, str(int(time.time())))
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=2)
+    if stats is not None:
+        stats["out_dir"] = out_dir
+    return out_dir
+
+
+def run_ensemble(args, torch_device: str = "cuda", dtype: str = "float32",
+                 stats: Optional[dict] = None) -> dict:
+    """BASELINE config 5: ``--replicas`` perturbed what-if replicas of a
+    trace workload, scheduled on one device.  Writes ``rollout.npz`` and
+    ``summary.json`` (the keys of ``pivot_tpu``'s) and returns the
+    summary; ``stats``, when given, gains the rollout's tick-loop counts
+    (``parallel.ensemble.rollout``)."""
+    import numpy as np
+
+    from pivot_tpu_torch.parallel.ensemble import prng, rollout_chunked
+
+    trace, schedule, workload, topo, avail0, storage_zones = (
+        _ensemble_setup(args, torch_device, dtype,
+                        _fault_outages(args)))
     apps = schedule.apps
     key = prng.PRNGKey(args.seed)
     kw = dict(
@@ -596,8 +755,7 @@ def run_ensemble(args, torch_device: str = "cuda", dtype: str = "float32",
         "wall_s": round(wall, 3),
         "replica_rollouts_per_sec": round(args.replicas / wall, 2),
     }
-    out_dir = os.path.join(args.output_dir, "ensemble", str(int(time.time())))
-    os.makedirs(out_dir, exist_ok=True)
+    out_dir = _write_summary(args, "ensemble", summary, stats)
     np.savez(
         os.path.join(out_dir, "rollout.npz"),
         makespan=mk,
@@ -606,10 +764,243 @@ def run_ensemble(args, torch_device: str = "cuda", dtype: str = "float32",
         finish_time=finish,
         placement=placement,
     )
-    with open(os.path.join(out_dir, "summary.json"), "w") as f:
-        json.dump(summary, f, indent=2)
-    if stats is not None:
-        stats["out_dir"] = out_dir
+    print(json.dumps(summary))
+    return summary
+
+
+def _host(res):
+    """A sweep's ``[K, R]`` results on the host: makespan, egress,
+    instance-hours and the per-candidate worst unfinished count."""
+    return (res.makespan.cpu().numpy(), res.egress_cost.cpu().numpy(),
+            res.instance_hours.cpu().numpy(),
+            res.n_unfinished.amax(1).cpu().numpy())
+
+
+def run_autotune(args, torch_device: str = "cuda", dtype: str = "float32",
+                 stats: Optional[dict] = None) -> dict:
+    """K-candidate × R-replica search over the cost-aware score
+    exponents (``score_param_sweep``), candidates paired on the same
+    draws.  Writes ``summary.json`` with ``pivot_tpu``'s keys and values;
+    the winner minimises ``--objective`` among the candidates that finish
+    the workload.  No figure is drawn (the plots are ROADMAP.md Queue 1
+    item 12).  ``stats`` as in ``run_ensemble``."""
+    import itertools
+
+    import numpy as np
+
+    from pivot_tpu_torch.parallel.ensemble import prng, score_param_sweep
+
+    trace, schedule, workload, topo, avail0, storage_zones = (
+        _ensemble_setup(args, torch_device, dtype, "score exponents"))
+    grid = list(itertools.product(args.exponents, repeat=3))
+    if (1.0, 1.0, 1.0) not in grid:
+        grid.append((1.0, 1.0, 1.0))  # the reference shape is measured
+    grid = np.array(grid, dtype=np.float32)  # [K, 3] (w_cost, w_bw, w_norm)
+
+    wall0 = time.perf_counter()
+    res = score_param_sweep(
+        prng.PRNGKey(args.seed), avail0, workload, topo, storage_zones, grid,
+        n_replicas=args.replicas, tick=args.tick, max_ticks=args.max_ticks,
+        perturb=args.perturb, congestion=args.congestion,
+        segment_ticks=SWEEP_SEGMENT_TICKS, tick_order=args.tick_order,
+        stats=stats)
+    mk, eg, _ih, unfinished = _host(res)
+    wall = time.perf_counter() - wall0
+    mk, eg = mk.mean(axis=1), eg.mean(axis=1)
+    objective = mk if args.objective == "makespan" else eg
+    objective = np.where(unfinished > 0, np.inf, objective)
+    order = np.argsort(objective, kind="stable")
+    ref_idx = int(np.where((grid == 1.0).all(axis=1))[0][0])
+
+    def row(k):
+        return {"exponents": [float(x) for x in grid[k]],
+                "makespan_mean": float(mk[k]), "egress_mean": float(eg[k]),
+                "unfinished_max": int(unfinished[k])}
+
+    candidates = [row(k) for k in order]
+    best = candidates[0] if np.isfinite(objective).any() else None
+    if best is None:
+        logger.warning("all %d candidates left tasks unfinished at the "
+                       "horizon — no winner; raise --max-ticks", len(grid))
+    summary = {
+        "trace": os.path.basename(trace),
+        "n_apps": len(schedule.apps),
+        "n_tasks": workload.n_tasks,
+        "n_hosts": args.n_hosts,
+        "replicas": args.replicas,
+        "perturb": args.perturb,
+        "congestion": args.congestion,
+        "objective": args.objective,
+        "grid_size": len(grid),
+        "rollouts": len(grid) * args.replicas,
+        "wall_s": round(wall, 3),
+        "best": best,
+        "reference": row(ref_idx),
+        "candidates": candidates,
+    }
+    _write_summary(args, "autotune", summary, stats)
+    print(json.dumps({k: v for k, v in summary.items() if k != "candidates"}))
+    return summary
+
+
+def _clamped_makespan(args, mk, unfinished):
+    """Mean makespan per candidate, clamped up to the horizon where a
+    candidate left tasks unfinished (max finish over done tasks would
+    understate it)."""
+    import numpy as np
+
+    return np.where(unfinished > 0,
+                    np.maximum(mk.mean(axis=1), args.tick * args.max_ticks),
+                    mk.mean(axis=1))
+
+
+def run_capacity(args, torch_device: str = "cuda", dtype: str = "float32",
+                 stats: Optional[dict] = None) -> dict:
+    """K cluster sizes × R replicas in one batch (``capacity_sweep``);
+    reports two cost columns per size — ``busy_cost_mean`` (busy
+    instance-hours, the reference's financial model) and
+    ``total_cost_mean`` (provisioned hosts × makespan + egress) — and
+    picks the cheapest size by provisioned cost that finishes the
+    workload (within ``--slo-makespan``).  Writes ``summary.json`` with
+    ``pivot_tpu``'s keys and values.  No figure is drawn (ROADMAP.md
+    Queue 1 item 12)."""
+    import numpy as np
+
+    from pivot_tpu_torch.parallel.ensemble import (
+        capacity_grid,
+        capacity_sweep,
+        prng,
+    )
+
+    if max(args.host_counts) > args.n_hosts:
+        raise SystemExit(
+            f"error: --host-counts max {max(args.host_counts)} exceeds "
+            f"--num-hosts {args.n_hosts}")
+    trace, schedule, workload, topo, avail0, storage_zones = (
+        _ensemble_setup(args, torch_device, dtype,
+                        _fault_outages(args)))
+    grid = capacity_grid(avail0, args.host_counts)
+
+    wall0 = time.perf_counter()
+    res = capacity_sweep(
+        prng.PRNGKey(args.seed), grid, workload, topo, storage_zones,
+        n_replicas=args.replicas, tick=args.tick, max_ticks=args.max_ticks,
+        perturb=args.perturb, policy=args.policy,
+        congestion=args.congestion or args.realtime_scoring,
+        realtime_scoring=args.realtime_scoring, n_faults=args.faults,
+        fault_horizon=args.fault_horizon, mttr=args.fault_mttr,
+        segment_ticks=SWEEP_SEGMENT_TICKS, tick_order=args.tick_order,
+        stats=stats)
+    mk, eg, ih, unfinished = _host(res)
+    wall = time.perf_counter() - wall0
+
+    mk_mean = _clamped_makespan(args, mk, unfinished)
+    hosts = np.asarray(args.host_counts, dtype=np.float64)
+    busy_cost = ih.mean(axis=1) * args.host_hourly_rate + eg.mean(axis=1)
+    provisioned_hours = hosts * mk_mean / 3600.0
+    total_cost = provisioned_hours * args.host_hourly_rate + eg.mean(axis=1)
+    candidates = [
+        {
+            "hosts": int(n),
+            "makespan_mean": float(mk_mean[k]),
+            "makespan_p95": float(np.percentile(mk[k], 95)),
+            "egress_mean": float(eg[k].mean()),
+            "instance_hours_mean": float(ih[k].mean()),
+            "busy_cost_mean": float(busy_cost[k]),
+            "provisioned_hours_mean": float(provisioned_hours[k]),
+            "total_cost_mean": float(total_cost[k]),
+            "unfinished_max": int(unfinished[k]),
+        }
+        for k, n in enumerate(args.host_counts)
+    ]
+    feasible = [c for c in candidates if c["unfinished_max"] == 0 and (
+        args.slo_makespan is None
+        or c["makespan_mean"] <= args.slo_makespan)]
+    best = min(feasible, key=lambda c: c["total_cost_mean"], default=None)
+    if best is None:
+        logger.warning(
+            "no candidate size finishes the workload%s — raise "
+            "--host-counts or --max-ticks",
+            "" if args.slo_makespan is None else " within the SLO")
+    summary = {
+        "trace": os.path.basename(trace),
+        "n_apps": len(schedule.apps),
+        "n_tasks": workload.n_tasks,
+        "policy": args.policy,
+        "replicas": args.replicas,
+        "perturb": args.perturb,
+        "congestion": args.congestion or args.realtime_scoring,
+        "realtime_scoring": args.realtime_scoring,
+        "faults": args.faults,
+        "fault_horizon": args.fault_horizon,
+        "fault_mttr": args.fault_mttr,
+        "host_hourly_rate": args.host_hourly_rate,
+        "slo_makespan": args.slo_makespan,
+        "rollouts": len(args.host_counts) * args.replicas,
+        "wall_s": round(wall, 3),
+        "best": best,
+        "candidates": candidates,
+    }
+    _write_summary(args, "capacity", summary, stats)
+    print(json.dumps(summary))
+    return summary
+
+
+def run_apps(args, torch_device: str = "cuda", dtype: str = "float32",
+             stats: Optional[dict] = None) -> dict:
+    """Workload-size sweep per policy arm (``workload_sweep``): one batch
+    per arm over the sorted, deduplicated app counts × R replicas; an
+    arm's makespan is clamped to the horizon where it left tasks
+    unfinished.  Writes ``summary.json`` with ``pivot_tpu``'s keys and
+    values.  No figure is drawn (ROADMAP.md Queue 1 item 12)."""
+    from pivot_tpu_torch.parallel.ensemble import prng, workload_sweep
+
+    args.num_apps = max(args.app_counts)
+    trace, schedule, workload, topo, avail0, storage_zones = (
+        _ensemble_setup(args, torch_device, dtype))
+    n_loaded = len(schedule.apps)
+    counts = sorted({n for n in args.app_counts if n <= n_loaded})
+    if len(counts) < len(set(args.app_counts)):
+        logger.warning("trace has only %d apps — dropping larger counts",
+                       n_loaded)
+
+    wall0 = time.perf_counter()
+    arms = {}
+    for policy in args.policies:
+        res = workload_sweep(
+            prng.PRNGKey(args.seed), avail0, workload, topo, storage_zones,
+            counts, n_replicas=args.replicas, tick=args.tick,
+            max_ticks=args.max_ticks, perturb=args.perturb, policy=policy,
+            congestion=args.congestion, segment_ticks=SWEEP_SEGMENT_TICKS,
+            tick_order=args.tick_order, stats=stats)
+        mk, eg, ih, unfinished = _host(res)
+        mk_mean = _clamped_makespan(args, mk, unfinished)
+        arms[policy] = [
+            {
+                "n_apps": int(n),
+                "makespan_mean": float(mk_mean[k]),
+                "egress_mean": float(eg[k].mean()),
+                "instance_hours_mean": float(ih[k].mean()),
+                "host_cost_mean": float(ih[k].mean()
+                                        * args.host_hourly_rate),
+                "unfinished_max": int(unfinished[k]),
+            }
+            for k, n in enumerate(counts)
+        ]
+    wall = time.perf_counter() - wall0
+    summary = {
+        "trace": os.path.basename(trace),
+        "n_hosts": args.n_hosts,
+        "app_counts": counts,
+        "replicas": args.replicas,
+        "perturb": args.perturb,
+        "congestion": args.congestion,
+        "host_hourly_rate": args.host_hourly_rate,
+        "rollouts": len(counts) * args.replicas * len(args.policies),
+        "wall_s": round(wall, 3),
+        "arms": arms,
+    }
+    _write_summary(args, "apps", summary, stats)
     print(json.dumps(summary))
     return summary
 
@@ -619,8 +1010,10 @@ def main(argv=None) -> None:
     if args.command == "sensitivity":
         run_sensitivity(args)
         return
-    if args.command == "ensemble":
-        run_ensemble(args)
+    sweeps = {"ensemble": run_ensemble, "autotune": run_autotune,
+              "capacity": run_capacity, "apps": run_apps}
+    if args.command in sweeps:
+        sweeps[args.command](args)
         return
     run = run_num_apps if args.command == "num-apps" else run_overall
     exp_dir, _ = run(args)

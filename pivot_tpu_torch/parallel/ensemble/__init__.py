@@ -11,18 +11,28 @@ JAX package's (module docstring of ``pivot_tpu.parallel.ensemble``);
 
 Module map (as in the JAX package): ``state.py`` workload encoding and
 rollout state, ``tick.py`` the tick body, ``bill.py`` finalization and
-the egress bill, ``draws.py`` the Monte-Carlo draws, ``prng.py`` the
-threefry twin of ``jax.random`` they draw from.
+the egress bill, ``draws.py`` the Monte-Carlo draws (perturbations,
+fault schedules), ``prng.py`` the threefry twin of ``jax.random`` they
+draw from, ``libm.py`` XLA:CPU's ``log1p`` and ``pow``, ``sweeps.py``
+the row runner and the score, capacity and workload sweeps.
+
+Runs: fault schedules (``n_faults``, ``fault_horizon``, ``mttr``), and
+through the row runner per-row score exponents, the eviction-risk term,
+the active-task mask and per-row initial availability.  Raises
+``NotImplementedError`` (ROADMAP.md Queue 1): the congestion backlog
+model, realtime scoring and checkpoint files; sharding
+(``sharded_rollout``, ``shard_sweep``) has no counterpart yet.
 
 Results on the CPU in float64 equal ``pivot_tpu``'s bit for bit, except
 the egress bill, which agrees to a few ulps (``bill.py``).  Entry points
-run where ``avail0`` lives; build the inputs with
+run where ``avail0`` lives; float64 with Exp(mttr) outages or score
+exponents runs on the CPU only (the C library's ``log`` / ``pow``:
+``libm.py``), the card runs float32.  Build the inputs with
 ``pivot_tpu_torch.experiments.calibrate.ensemble_inputs_from_schedule``.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import torch
@@ -34,7 +44,9 @@ from pivot_tpu_torch.parallel.ensemble.bill import (  # noqa: F401
     _sampling_table,
 )
 from pivot_tpu_torch.parallel.ensemble.draws import (  # noqa: F401
+    _fault_schedule,
     _keyed_storage_index,
+    _make_fault_schedule,
     _opportunistic_uniforms,
     _perturbations,
     _seed_bits,
@@ -49,17 +61,31 @@ from pivot_tpu_torch.parallel.ensemble.state import (  # noqa: F401
     _init_state,
     _resolve_forms,
 )
+from pivot_tpu_torch.parallel.ensemble.sweeps import (  # noqa: F401
+    _reshape_rows,
+    _run_rows,
+    _tile_rows,
+    capacity_grid,
+    capacity_sweep,
+    score_param_sweep,
+    workload_sweep,
+)
 from pivot_tpu_torch.parallel.ensemble.tick import (  # noqa: F401
     _rollout_segment,
     check_supported,
+    loop_clock,
 )
 
 __all__ = [
     "EnsembleWorkload",
     "RolloutResult",
     "RolloutState",
+    "capacity_grid",
+    "capacity_sweep",
     "rollout",
     "rollout_chunked",
+    "score_param_sweep",
+    "workload_sweep",
 ]
 
 
@@ -82,9 +108,16 @@ def _single_rollout(
     forms: Optional[str] = None,
     tick_order: str = "fifo",
 ) -> RolloutResult:
-    """One replica's rollout on given draws: unbatched results."""
+    """One replica's rollout on given draws (``faults`` a triple of
+    ``[F]`` tensors, ``active`` ``[T]``): unbatched results."""
     state = _init_state(avail0, workload.n_tasks, topo.cost.shape[0], 1,
                         congestion=congestion)
+    if faults is not None:
+        faults = tuple(f[None] for f in faults)
+    if score_params is not None:
+        score_params = score_params[None]
+    if active is not None:
+        active = active[None]
     state = _rollout_segment(
         state, runtime[None], arrival[None], root_anchor[None].long(),
         workload, topo, tick, max_ticks, faults=faults, totals=avail0,
@@ -116,22 +149,26 @@ def _rollout_states(
     forms: Optional[str] = None,
     tick_order: str = "fifo",
     stats: Optional[dict] = None,
+    *,
+    contract: bool,
 ) -> RolloutState:
     """The rollout body: the R replicas' final states (no finalize).
-    ``_rollout_segment`` checks the options it does not run yet; the
-    fault schedule is drawn here, so ``n_faults`` is checked here."""
-    check_supported(n_faults=n_faults)
+    ``contract``: the fault draw's rounding (``draws._fault_schedule``)."""
     dtype = avail0.dtype
     rt, arr, root_anchor = _perturbations(
         key, workload, storage_zones, n_replicas, perturb, dtype)
     task_u = _opportunistic_uniforms(
         key, n_replicas, workload.n_tasks, dtype, avail0.device,
     ) if policy == "opportunistic" else None
+    faults = _make_fault_schedule(
+        key, n_replicas, n_faults, avail0, tick, max_ticks, fault_horizon,
+        mttr, contract=contract) if n_faults else None
     state = _init_state(avail0, workload.n_tasks, topo.cost.shape[0],
-                        n_replicas)
+                        n_replicas, congestion=congestion)
     return _rollout_segment(
         state, rt, arr, root_anchor, workload, topo, tick, max_ticks,
-        totals=avail0, policy=policy, task_u=task_u, congestion=congestion,
+        faults=faults, totals=avail0, policy=policy, task_u=task_u,
+        congestion=congestion,
         realtime_scoring=realtime_scoring, forms=forms,
         tick_order=tick_order, stats=stats,
     )
@@ -161,6 +198,14 @@ def rollout(
     results.  ``key`` is a threefry key (``prng.PRNGKey(seed)``, the key
     data of ``jax.random.PRNGKey(seed)``).
 
+    With ``n_faults > 0`` each replica draws an independent crash
+    schedule (``n_faults`` crashes uniform in ``[0, fault_horizon)``,
+    Exp(``mttr``) outages, never recovering without ``mttr``);
+    ``fault_horizon`` defaults to ``tick × max_ticks``.  ``avail0`` must
+    be full host capacity: a recovered host gets it back.  The schedule
+    rounds as ``pivot_tpu``'s jitted ``rollout`` draws it
+    (``recover_at = fail_at + mttr · outage`` contracted: one rounding).
+
     ``stats``, when given, gains the run's ``ticks``, ``place_steps``
     (placement-chain steps walked), ``host_syncs`` (device→host reads of
     the tick loop), ``wall_s`` and, on the card, ``event_span_ms`` (the
@@ -171,27 +216,26 @@ def rollout(
     egress bill's product needs full float32 (``allow_tf32`` off, torch's
     default; the ``ensemble`` CLI sets it).
     """
+    return _rollout(key, avail0, workload, topo, storage_zones,
+                    n_replicas=n_replicas, tick=tick, max_ticks=max_ticks,
+                    perturb=perturb, n_faults=n_faults,
+                    fault_horizon=fault_horizon, mttr=mttr, policy=policy,
+                    congestion=congestion,
+                    realtime_scoring=realtime_scoring, forms=forms,
+                    tick_order=tick_order, stats=stats, contract=True)
+
+
+def _rollout(key, avail0, workload, topo, storage_zones, *, contract,
+             stats=None, **kw) -> RolloutResult:
+    """:func:`rollout` with the fault draw's rounding chosen:
+    ``contract=False`` rounds ``fail_at + mttr · outage`` twice, as
+    ``pivot_tpu``'s ``rollout_checkpointed`` (the ``ensemble`` CLI's
+    path) draws the schedule eagerly."""
     workload.check_group_demands()
     counts = stats if stats is not None else {}
-    cuda = avail0.is_cuda
-    if cuda:
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
-        start.record()
-    wall0 = time.perf_counter()
-    states = _rollout_states(
-        key, avail0, workload, topo, storage_zones,
-        n_replicas=n_replicas, tick=tick, max_ticks=max_ticks,
-        perturb=perturb, n_faults=n_faults, policy=policy,
-        congestion=congestion, realtime_scoring=realtime_scoring,
-        forms=forms, tick_order=tick_order, stats=counts,
-    )
-    if cuda:
-        end.record()
-        end.synchronize()
-        counts["event_span_ms"] = counts.get("event_span_ms", 0.0) + \
-            start.elapsed_time(end)
-    counts["wall_s"] = counts.get("wall_s", 0.0) + \
-        time.perf_counter() - wall0
+    with loop_clock(counts, avail0.device):
+        states = _rollout_states(key, avail0, workload, topo, storage_zones,
+                                 stats=counts, contract=contract, **kw)
     return _finalize(states, workload, topo)
 
 
@@ -211,12 +255,13 @@ def rollout_chunked(
     """Ensemble rollout in replica chunks of ``replica_chunk``: chunk 0
     uses ``key`` verbatim, chunk ``c > 0`` draws from ``fold_in(key, c)``.
     ``replica_chunk <= 0`` (or ``>= n_replicas``) is one :func:`rollout`
-    (``pivot_tpu``'s segmented path equals it bit for bit).  Checkpoint
+    (``pivot_tpu``'s segmented path equals it bit for bit, its fault
+    schedule drawn eagerly: ``_rollout(contract=False)``).  Checkpoint
     files are not ported yet."""
     check_supported(checkpoint_path=checkpoint_path)
     if replica_chunk <= 0 or n_replicas <= replica_chunk:
-        return rollout(key, avail0, workload, topo, storage_zones,
-                       n_replicas=n_replicas, **kw)
+        return _rollout(key, avail0, workload, topo, storage_zones,
+                        n_replicas=n_replicas, contract=False, **kw)
     parts = []
     done = 0
     while done < n_replicas:

@@ -111,11 +111,8 @@ def _sampled_egress(workload, topo, zcp, pz, placed):
 
 def _finalize(state: RolloutState, workload: EnsembleWorkload,
               topo: DeviceTopology, active=None) -> RolloutResult:
-    """Result metrics of R final replica states."""
-    if active is not None:
-        raise NotImplementedError(
-            "the active-task mask belongs to the workload sweeps, which are "
-            "not ported yet (ROADMAP.md Queue 1, the rest of the ensemble)")
+    """Result metrics of R final replica states; with ``active`` (``[R,
+    T]`` or ``[T]`` bool) only active tasks count as unfinished."""
     H = state.avail.shape[1]
     dtype, dev = state.avail.dtype, state.avail.device
     finish, place, stage = state.finish, state.place, state.stage
@@ -141,6 +138,6 @@ def _finalize(state: RolloutState, workload: EnsembleWorkload,
         egress_cost=egress,
         finish_time=finish,
         placement=place.to(torch.int32),
-        n_unfinished=(~done).sum(1),
+        n_unfinished=(~done if active is None else ~done & active).sum(-1),
         instance_hours=state.busy * _recip(3600.0, dtype, dev),
     )

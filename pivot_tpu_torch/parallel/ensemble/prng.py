@@ -17,7 +17,13 @@ jax 0.5):
   * ``uniform`` ORs the top mantissa bits into the bits of 1.0, subtracts
     1, computes ``floats * (maxval − minval) + minval`` and floors at
     ``minval``.  XLA's CPU backend contracts that multiply-add into one
-    fused multiply-add, so the twin rounds it once (:func:`fma`).
+    fused multiply-add, so the twin rounds it once (:func:`fma`);
+  * ``randint`` splits the key in two, draws higher and lower words of
+    the integer width (32 bits, or 64 under ``jax_enable_x64``) and
+    reduces them modulo the span with the multiplier
+    ``(2**(bits/2) % span)**2 % span``, in unsigned arithmetic;
+  * ``exponential`` is ``-log1p(-uniform)``, with XLA:CPU's ``log1p``
+    (``libm.neg_log1p_neg``: torch's rounds differently).
 
 Keys live on the host as numpy ``uint32[2]`` arrays (``key_data`` of a
 JAX key).  Draws are computed on the requested device in ``int64``
@@ -33,7 +39,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-__all__ = ["PRNGKey", "fma", "fold_in", "random_bits", "split", "uniform"]
+__all__ = ["PRNGKey", "exponential", "fma", "fold_in", "randint",
+           "random_bits", "split", "uniform"]
 
 _M32 = 0xFFFFFFFF
 _SPLIT64 = 134217729.0  # 2**27 + 1, Dekker's splitter for float64
@@ -167,3 +174,47 @@ def uniform(key, shape: Sequence[int], dtype=torch.float32,
     lo = torch.tensor(minval, dtype=dtype, device=device)
     hi = torch.tensor(maxval, dtype=dtype, device=device)
     return torch.maximum(lo, fma(floats, hi - lo, lo.expand(floats.shape)))
+
+
+def _mod_words(hi, lo, span):
+    """``(hi · 2**32 + lo) % span`` for uint32 words ``hi``, ``lo`` and
+    ``0 < span < 2**31`` (a uint64 remainder in int64 arithmetic)."""
+    r = (hi % span) * ((1 << 32) % span) + lo % span
+    return r % span
+
+
+def randint(key, shape: Sequence[int], minval, maxval, bits: int = 32,
+            device="cpu") -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` drawn at the
+    integer width ``bits`` (32, or 64 where jax runs with
+    ``jax_enable_x64``), as int64.  ``maxval`` may be a tensor (0-d or
+    broadcasting against ``shape``): ``capacity_sweep`` draws over a
+    host count it computes on the device.  Spans must be below 2**31."""
+    k_hi, k_lo = split(key, 2)
+    lo_v = torch.as_tensor(minval, dtype=torch.int64, device=device)
+    hi_v = torch.as_tensor(maxval, dtype=torch.int64, device=device)
+    span = torch.where(hi_v <= lo_v, 1, hi_v - lo_v)
+    h0, h1 = _hash_words(k_hi, shape, device)
+    l0, l1 = _hash_words(k_lo, shape, device)
+    if bits == 32:
+        higher, lower = h0 ^ h1, l0 ^ l1
+        mult = (1 << 16) % span
+    elif bits == 64:
+        higher, lower = _mod_words(h0, h1, span), _mod_words(l0, l1, span)
+        mult = (1 << 32) % span
+    else:
+        raise ValueError(f"bits must be 32 or 64, got {bits}")
+    # The products stay below 2**62; the 32-bit draw wraps them as its
+    # uint32 arithmetic does.
+    wrap = _M32 if bits == 32 else -1
+    mult = ((mult * mult) & wrap) % span
+    offset = (((higher % span) * mult) & wrap) + lower % span
+    return lo_v + (offset & wrap) % span
+
+
+def exponential(key, shape: Sequence[int], dtype=torch.float32,
+                device="cpu") -> torch.Tensor:
+    """``jax.random.exponential(key, shape, dtype)``, bit for bit."""
+    from pivot_tpu_torch.parallel.ensemble.libm import neg_log1p_neg
+
+    return neg_log1p_neg(uniform(key, shape, dtype, device=device))

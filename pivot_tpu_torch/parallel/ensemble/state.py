@@ -174,18 +174,24 @@ def _resolve_forms(forms: Optional[str]) -> str:
 
 def _init_state(avail0, T: int, Z: int, n_replicas: int = 1,
                 congestion=False) -> RolloutState:
+    """The initial state of ``n_replicas`` rows on ``avail0``: ``[H, 4]``
+    shared by every row, or ``[R, H, 4]`` one per row (the capacity
+    sweep's candidates differ by row)."""
     if congestion:
         raise NotImplementedError(
             "the congestion backlog model is not ported yet (ROADMAP.md "
-            "Queue 1, the rest of the ensemble)")
+            "Queue 1)")
     dtype, dev = avail0.dtype, avail0.device
     R = n_replicas
+    if avail0.dim() == 3 and avail0.shape[0] != R:
+        raise ValueError(f"per-row availability has {avail0.shape[0]} rows "
+                         f"for {R} replicas")
     return RolloutState(
         t=torch.zeros(R, dtype=dtype, device=dev),
         stage=torch.full((R, T), _PENDING, dtype=torch.int64, device=dev),
         finish=torch.full((R, T), float("inf"), dtype=dtype, device=dev),
         place=torch.full((R, T), -1, dtype=torch.int64, device=dev),
-        avail=avail0.expand(R, *avail0.shape).clone(),
+        avail=avail0.expand(R, *avail0.shape[-2:]).clone(),
         busy=torch.zeros(R, dtype=dtype, device=dev),
         q=None,
         qpos=torch.full((R, T), -1, dtype=torch.int64, device=dev),

@@ -30,14 +30,22 @@ order), maxima ``scatter_reduce`` (exact in any order), the busy
 integral ``_ordered_sum`` (XLA:CPU's order on both devices: the same
 bits on the card as on the CPU).
 
-Not ported yet (each raises ``NotImplementedError``; ROADMAP.md Queue 1,
-the rest of the ensemble): fault schedules, the congestion backlog model
-(``True`` and ``"pairs"``), realtime scoring, score exponents, the
-eviction-risk term and the active-task mask.
+Per-row channels (the row runner of ``sweeps.py`` feeds them, ``B``
+rows in front): fault schedules ``([B, F] host, fail_at, recover_at)``
+with ``totals`` ``[H, 4]`` or ``[B, H, 4]`` (recovery target), score
+exponents ``[B, 3]`` (pow tables hoisted per call, ``norm ** w_norm``
+taken once per snapshot, all with XLA:CPU's ``pow``: ``libm.py``;
+float64 on the CPU only), the
+eviction-risk term (``risk_coeff [B]`` with a row-shared ``hazard``) and
+the active-task mask ``[B, T]``.  Not ported yet (each raises
+``NotImplementedError``; ROADMAP.md Queue 1): the congestion backlog
+model (``True`` and ``"pairs"``) and realtime scoring.
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import Optional
 
 import torch
@@ -49,6 +57,7 @@ from pivot_tpu_torch.parallel.ensemble.bill import (
     _ordered_sum,
     _recip,
 )
+from pivot_tpu_torch.parallel.ensemble.libm import require_host, xla_pow
 from pivot_tpu_torch.parallel.ensemble.prng import fma
 from pivot_tpu_torch.parallel.ensemble.state import (
     _DONE,
@@ -59,28 +68,43 @@ from pivot_tpu_torch.parallel.ensemble.state import (
     _resolve_forms,
 )
 
-_LATER = "(ROADMAP.md Queue 1, the rest of the ensemble)"
+_LATER = "(ROADMAP.md Queue 1)"
 POLICIES = ("cost-aware", "first-fit", "best-fit", "opportunistic")
 
 
-def check_supported(n_faults=0, congestion=False, realtime_scoring=False,
-                    score_params=None, risk_coeff=None, hazard=None,
-                    active=None, checkpoint_path=None) -> None:
+def check_supported(congestion=False, realtime_scoring=False,
+                    checkpoint_path=None) -> None:
     """Raise ``NotImplementedError`` for an option of the JAX rollout the
     port does not run yet, naming where it stands in the roadmap."""
     for name, asked in (
-        ("fault schedules (n_faults > 0)", n_faults),
         ("the congestion backlog model", congestion),
         ("realtime scoring", realtime_scoring),
-        ("score exponents (score_params)", score_params is not None),
-        ("the eviction-risk term (hazard / risk_coeff)",
-         hazard is not None or risk_coeff is not None),
-        ("the active-task mask", active is not None),
         ("checkpointed rollouts", checkpoint_path),
     ):
         if asked:
             raise NotImplementedError(
                 f"{name} is not ported to pivot_tpu_torch yet {_LATER}")
+
+
+@contextlib.contextmanager
+def loop_clock(counts: Optional[dict], device):
+    """Add a run's ``wall_s`` (host clock) and, on the card,
+    ``event_span_ms`` (the stream's elapsed time between CUDA events
+    around it, idle gaps included: not busy time) to ``counts``."""
+    counts = counts if counts is not None else {}
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+    wall0 = time.perf_counter()
+    yield
+    if cuda:
+        end.record()
+        end.synchronize()
+        counts["event_span_ms"] = counts.get("event_span_ms", 0.0) + \
+            start.elapsed_time(end)
+    counts["wall_s"] = counts.get("wall_s", 0.0) + \
+        time.perf_counter() - wall0
 
 
 def _pred_lists(pred_group: torch.Tensor) -> torch.Tensor:
@@ -96,6 +120,35 @@ def _pred_lists(pred_group: torch.Tensor) -> torch.Tensor:
     return table.to(pred_group.device)
 
 
+def _norm_snapshot(avail, w_norm):
+    """The cost-aware chain's per-step host norm term, ``‖avail‖`` (``**
+    w_norm`` with score exponents) of the tensor ``avail``, which the
+    chain updates in place.  On the card its ~90 launches (~390 with the
+    pow twin) are captured once into a CUDA graph and replayed as one:
+    the same kernels on the same buffers, so the same bits, at a fraction
+    of the host's launch time.  Returns ``snap() -> [R, H]`` (on the card
+    the graph's own output buffer, rewritten by the next call)."""
+    def snap():
+        live = _fma_norms(avail)
+        return live if w_norm is None else xla_pow(live, w_norm)
+
+    if not avail.is_cuda:
+        return snap
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        snap()  # warm-up: lazy tables and allocations outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = snap()
+
+    def replay():
+        graph.replay()
+        return out
+    return replay
+
+
 def _rollout_segment(
     state: RolloutState,
     runtime,  # [R, T] perturbed
@@ -105,27 +158,37 @@ def _rollout_segment(
     topo,
     tick: float,
     n_ticks: int,
-    faults=None,
-    totals=None,
-    score_params=None,
+    faults=None,  # ([R, F] host, [R, F] fail_at, [R, F] recover_at)
+    totals=None,  # [H, 4] or [R, H, 4]: what a recovered host gets back
+    score_params=None,  # [R, 3] exponents (w_cost, w_bw, w_norm)
     policy: str = "cost-aware",
     task_u=None,  # [R, T] uniforms of the opportunistic arm
     congestion=False,
     realtime_scoring: bool = False,
-    active=None,
+    active=None,  # [R, T] bool: inactive tasks do not keep a row going
     forms: Optional[str] = None,
     tick_order: str = "fifo",
-    risk_coeff=None,
-    hazard=None,
+    risk_coeff=None,  # [R] risk_weight × rework_cost
+    hazard=None,  # ([P] segment starts, [P, H] per-host hazards), shared
     stats: Optional[dict] = None,
 ) -> RolloutState:
     """Advance R replicas' rollouts by at most ``n_ticks`` ticks (stops
-    once every replica's tasks are done).  ``stats``, when given, gains
-    ``ticks``, ``place_steps`` and ``host_syncs``."""
-    check_supported(n_faults=faults is not None, congestion=congestion,
-                    realtime_scoring=realtime_scoring,
-                    score_params=score_params, risk_coeff=risk_coeff,
-                    hazard=hazard, active=active)
+    once every replica's active tasks are done).  ``stats``, when given,
+    gains ``ticks``, ``place_steps`` and ``host_syncs``.
+
+    Faults follow ``pivot_tpu``'s tick semantics: after the window's
+    completions retire, a crash in the window aborts the host's running
+    tasks back to PENDING (no refund), a down host carries the −1
+    sentinel (re-applied every tick) and a recovery hands back the row's
+    ``totals``.  With ``risk_coeff`` and ``hazard``, each tick prices the
+    market's hazard row at ``t`` (``searchsorted(times, t, right) - 1``,
+    clipped): cost-aware and best-fit add it to the score, first-fit
+    takes the lowest-risk fitting host (ties to the lowest index) and
+    opportunistic draws among the fitting hosts of least risk."""
+    check_supported(congestion=congestion,
+                    realtime_scoring=realtime_scoring)
+    if (hazard is None) != (risk_coeff is None):
+        raise ValueError("the risk term needs both hazard and risk_coeff")
     _resolve_forms(forms)
     if tick_order not in ("fifo", "lifo"):
         raise ValueError(
@@ -174,11 +237,40 @@ def _rollout_segment(
     fits = torch.gt if strict else torch.ge
     if policy == "opportunistic":
         golden = torch.tensor(0.6180339887498949, dtype=dtype, device=dev)
+    if faults is not None:
+        fail_at, recover_at = faults[1], faults[2]
+        fault_idx = torch.where(faults[0] >= 0, faults[0].long(), H)
+        F = fault_idx.shape[1]
+        tot = totals.expand(R, H, 4)
+
+        def scatter_hosts(hit):  # [R, F] bool → [R, H] bool (misses → H)
+            m = torch.zeros((R, H + 1), dtype=torch.bool, device=dev)
+            m.scatter_(1, torch.where(hit, fault_idx, H),
+                       torch.ones((R, F), dtype=torch.bool, device=dev))
+            return m[:, :H]
+    if score_params is not None:
+        require_host(dtype, dev, "score exponents")
+        # Per-row pow tables, hoisted (pure topology × exponents); the
+        # norm's pow is taken once per snapshot in the chain.
+        sp = score_params.to(dtype)
+        cost_rt = xla_pow(cost_rt[None], sp[:, 0, None, None])  # [R, Z, H]
+        bw_rt = xla_pow(bw_rt[None], sp[:, 1, None, None])
+        w_norm = sp[:, 2:3]
+    if hazard is not None:
+        h_times, h_rows = hazard
+        kind = torch.promote_types(h_times.dtype, dtype)
+        h_times = h_times.to(kind)
+        risk_c = risk_coeff[:, None]
     counts = stats if stats is not None else {}
     for k in ("ticks", "place_steps", "host_syncs"):
         counts.setdefault(k, 0)
 
-    alive = (stage != _DONE).any(1)  # [R] the loop condition per replica
+    def pending(stage):  # [R] the loop condition per replica
+        left = stage != _DONE
+        return (left & active if active is not None else left).any(1)
+
+    alive = pending(stage)
+    snap = None  # the chain's norm snapshot, built on the first tick
     go = n_ticks > 0 and R > 0 and bool(alive.any())
     counts["host_syncs"] += 1
     i = 0
@@ -197,7 +289,26 @@ def _rollout_segment(
             accumulate=True)
         avail = avail + refund[:R * H].reshape(R, H, 4)
         stage = torch.where(newly_done, _DONE, stage)
-        alive_next = (stage != _DONE).any(1)
+
+        # 1b. Faults strike after this window's completions retire.  A
+        #     frozen replica's hosts stay as they are.
+        if faults is not None:
+            t_prev = (t - tick_t)[:, None]
+            tc = t[:, None]
+            struck = scatter_hosts((fail_at > t_prev) & (fail_at <= tc))
+            down = scatter_hosts((fail_at <= tc) & (tc < recover_at))
+            prev_down = scatter_hosts((fail_at <= t_prev)
+                                      & (t_prev < recover_at))
+            aborted = ((stage == _RUNNING) & (place >= 0)
+                       & struck.gather(1, place.clamp(0, H - 1)))
+            stage = torch.where(aborted, _PENDING, stage)
+            place = torch.where(aborted, -1, place)
+            finish = torch.where(aborted, inf, finish)
+            recovered = (prev_down | struck) & ~down & alive[:, None]
+            avail = torch.where(recovered[..., None], tot, avail)
+            avail = torch.where((down & alive[:, None])[..., None], -1.0,
+                                avail)
+        alive_next = pending(stage)
 
         # 2. Readiness: every predecessor instance done, and the DES
         #    dispatch pipeline's pump time (strictly after the last
@@ -294,15 +405,27 @@ def _rollout_segment(
         if policy == "opportunistic" and task_u is not None:
             tick_idx = (t * inv_tick).to(torch.int32)
             weyl_rot = tick_idx.to(dtype) * golden  # [R]
+        # 5a'. The tick's eviction-risk row per replica.
+        if hazard is not None:
+            seg = torch.searchsorted(h_times, t.to(kind)[:, None],
+                                     right=True)[:, 0] - 1
+            risk_row = risk_c * h_rows[seg.clamp(0, h_rows.shape[0] - 1)]
 
         # 5b. The placement chain: step j places each replica's j-th
         #     eligible task (a no-op past that replica's n_ready).
         pl = torch.full((R, T), -1, dtype=torch.int64, device=dev)
         delay = torch.zeros((R, T), dtype=dtype, device=dev)
-        place_row = _place_replicas(avail)
         if policy == "cost-aware":
-            norm_snap = _fma_norms(avail)
+            # The chain runs on one buffer for the whole call, the
+            # snapshot's input.
+            if snap is None:
+                chain_avail = avail.clone()
+                snap = _norm_snapshot(
+                    chain_avail, w_norm if score_params is not None else None)
+            avail = chain_avail.copy_(avail)
+            norm_snap = zero  # replaced at step 0 (bf_p ≥ 0 > prev_bf)
             prev_bf = torch.full((R,), -1, dtype=torch.int64, device=dev)
+        place_row = _place_replicas(avail)
         for j in range(n_steps):
             g = g_p[:, j]
             demand = dem_group[g]  # [R, 4]
@@ -310,19 +433,35 @@ def _rollout_segment(
             if policy == "cost-aware":
                 # Host scores frozen per anchor bucket (availability at
                 # bucket start), live fit checks.
+                # A new snapshot where a row opens a bucket.  On the CPU
+                # reading that flag costs nothing, so a step where no row
+                # opens one skips the snapshot (the same values).
                 bf_j = bf_p[:, j]
-                norm_snap = torch.where((bf_j != prev_bf)[:, None],
-                                        _fma_norms(avail), norm_snap)
+                opens = bf_j != prev_bf
+                if dev.type != "cpu" or bool(opens.any()):
+                    norm_snap = torch.where(opens[:, None], snap(),
+                                            norm_snap)
                 prev_bf = bf_j
                 az = az_p[:, j]
-                score = cost_rt[az] / (norm_snap * bw_rt[az])
+                if score_params is None:
+                    score = cost_rt[az] / (norm_snap * bw_rt[az])
+                else:
+                    score = cost_rt[rep, az] / (norm_snap * bw_rt[rep, az])
+                if hazard is not None:
+                    score = score + risk_row
                 h = torch.where(fit, score, inf).argmin(1)
             elif policy == "first-fit":
-                h = _first_true(fit)
+                h = _first_true(fit) if hazard is None else \
+                    torch.where(fit, risk_row, inf).argmin(1)
             elif policy == "best-fit":
                 score = _fma_norms(avail - demand[:, None, :])
+                if hazard is not None:
+                    score = score + risk_row
                 h = torch.where(fit, score, inf).argmin(1)
             else:  # opportunistic: uniform among fits, Weyl-rotated per tick
+                if hazard is not None:  # the least-risk tier of fits
+                    rmin = torch.where(fit, risk_row, inf).amin(1)
+                    fit = fit & (risk_row == rmin[:, None])
                 u_eff = torch.fmod(u_p[:, j] + weyl_rot, 1.0)
                 n_fit = fit.sum(1)
                 k = torch.minimum((u_eff * n_fit.to(dtype)).to(torch.int64),

@@ -278,13 +278,27 @@ def test_instance_hours(port_cluster, case):
 
 
 @pytest.mark.parametrize("option", [
-    dict(n_faults=2), dict(congestion=True), dict(congestion="pairs"),
+    dict(congestion=True), dict(congestion="pairs"),
     dict(congestion=True, realtime_scoring=True),
 ])
 def test_unported_options_raise(port_cluster, option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _run(port_cluster, [chain_app()], n_replicas=2, max_ticks=8,
              **option)
+
+
+def test_fault_option_runs_and_matches_pivot_tpu(jax_cluster, port_cluster):
+    """``n_faults`` runs (``tests/test_torch_ensemble_faults.py`` holds it
+    over every policy and order)."""
+    apps, arrivals, wdtype = _workload("3")
+    (jw, jtopo, ja0, jsz), (pw, ptopo, pa0, psz) = _pair_inputs(
+        jax_cluster, port_cluster, apps, arrivals, wdtype)
+    kw = dict(n_replicas=4, tick=5.0, max_ticks=96, perturb=0.1,
+              n_faults=2, fault_horizon=60.0, mttr=20.0)
+    got = E.rollout(prng.PRNGKey(2), pa0, pw, ptopo, psz, **kw)
+    want = JE.rollout(jax.random.PRNGKey(2), ja0, jw, jtopo, jsz,
+                      forms="indexed", **kw)
+    assert_results_equal(got, want)
 
 
 def test_checkpoint_path_raises(port_cluster):

@@ -7,7 +7,10 @@ equal key for key, except the walls, the device count (the JAX side sees
 the test's virtual 8-device mesh) and the egress bill, which is held to
 rtol 1e-12 (``tests/test_torch_ensemble.py`` says why).  Float64 runs
 set ``pivot_tpu``'s trace bridge to float64 (its CLI has no dtype flag).
-Every option the port does not run yet raises ``NotImplementedError``.
+``--faults`` runs, on the unchunked path (``pivot_tpu`` draws its
+schedule eagerly there) and the chunked one (inside its jitted
+rollout).  Every option the port does not run yet raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -63,6 +66,8 @@ def _files(out):
     ("float64", ("--policy", "first-fit", "--perturb", "0.3")),
     ("float64", ("--policy", "best-fit", "--replica-chunk", "3")),
     ("float32", ()),
+    ("float64", ("--faults", "2", "--fault-mttr", "40")),
+    ("float64", ("--faults", "2", "--replica-chunk", "3")),
 ])
 def test_run_ensemble_matches_pivot_tpu(tmp_path, monkeypatch, dtype, extra):
     if dtype == "float64":
@@ -102,7 +107,6 @@ def test_run_ensemble_matches_pivot_tpu(tmp_path, monkeypatch, dtype, extra):
 
 
 @pytest.mark.parametrize("flags", [
-    ("--faults", "2"),
     ("--congestion",),
     ("--realtime-score",),
     ("--checkpoint", "ck.npz"),

@@ -120,6 +120,9 @@ def test_port_cpu_matches_fixture_prefix(arm):
         pcal.ensemble_inputs_from_schedule(
             schedule, pcli.build_cluster(pcli._cluster_config(args)),
             dtype=torch.float32, device="cpu"))
+    # The vote and fit tests are [G, R·H] here, not small: two threads
+    # keep the case inside the tier's per-test budget under load.
+    torch.set_num_threads(2)
     res = rollout(prng.PRNGKey(args.seed), avail0, workload, topo, sz,
                   n_replicas=2, tick=args.tick, max_ticks=args.max_ticks,
                   perturb=args.perturb, policy=arm,

@@ -2,7 +2,8 @@
 
 The test process itself has imported ``jax`` (``tests/conftest.py``), so
 the run-time check happens in a fresh subprocess: it imports the port,
-runs one tiny ``overall`` and one tiny ``ensemble`` on the CPU, and
+runs one tiny ``overall``, one tiny ``ensemble`` with faults and one
+tiny ``capacity`` sweep (the row runner, ``sweeps.py``) on the CPU, and
 lists what is in ``sys.modules``.  A static AST scan covers every file
 of the package and ``chip_smoke.py``.
 """
@@ -30,11 +31,17 @@ with tempfile.TemporaryDirectory() as out:
     _, summaries = cli.run_overall(args, torch_device="cpu")
     ens = cli.run_ensemble(cli.parse_args(
         ["--num-hosts", "8", "--output-dir", out, "ensemble",
-         "--num-apps", "3", "--replicas", "2", "--max-ticks", "256"]),
+         "--num-apps", "3", "--replicas", "2", "--max-ticks", "256",
+         "--faults", "2", "--fault-mttr", "20"]),
         torch_device="cpu")
+    cap = cli.run_capacity(cli.parse_args(
+        ["--num-hosts", "8", "--output-dir", out, "capacity",
+         "--num-apps", "2", "--host-counts", "4", "8", "--replicas", "2",
+         "--max-ticks", "256"]), torch_device="cpu")
 print(json.dumps({
     "arms": [s["label"] for s in summaries],
     "ensemble_unfinished": ens["unfinished_max"],
+    "capacity_best": cap["best"] is not None,
     "modules": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "pivot_tpu")),
 }))
@@ -55,6 +62,7 @@ def test_port_runs_without_jax_or_reference_modules():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["arms"] == ["Opportunistic", "VBP", "Cost-Aware"]
     assert report["ensemble_unfinished"] == 0
+    assert report["capacity_best"]
     assert report["modules"] == []
 
 
@@ -86,5 +94,7 @@ def test_no_file_of_the_port_imports_jax_or_reference():
     assert len(seen) > 20
     assert {"pivot_tpu_torch/ops/tickloop.py", "chip_smoke.py",
             "pivot_tpu_torch/infra/market.py",
-            "pivot_tpu_torch/sched/sensitivity.py"} <= seen
+            "pivot_tpu_torch/sched/sensitivity.py",
+            "pivot_tpu_torch/parallel/ensemble/sweeps.py",
+            "pivot_tpu_torch/parallel/ensemble/libm.py"} <= seen
     assert offenders == []
