@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --phases 6,7 # some phases (default: all)
+    python3 chip_smoke.py --phases 8   # the policy search alone
 
 One card.  ``--phases`` takes a comma list; phases 2-5 bring phase 1's
 build along, phase 5 the runs of phases 3 and 4.
@@ -98,11 +99,35 @@ Phases, each fatal on failure:
      the search stack's channels (score exponents, a
      ``MarketSchedule.generate`` market's risk term, faults, an active
      mask) per arm, and the float32 pow twin on 2**24 pairs.  The same
-     rule as phase 6.
+     rule as phase 6;
+  8. the policy search on the card (no hand kernel: ``greedy_place``
+     must make no launch): (a) every entry of ``pivot_tpu``'s fixture
+     ``tests/data/search_seed0.npz`` — ``_fitness_rows``' per-row egress,
+     instance-hours, unfinished counts and makespans and the scores of
+     six candidates in the tiny and the README worlds (shared and
+     redrawn preemption plans, no hazard trace, capacity scales with
+     admission masks) and a two-generation anchored CEM's populations,
+     scores and argmins — under torch's sync debug mode; (b) ``search``
+     through the CLI: the README quickstart (CEM, 96 rows a generation,
+     with the DES validation), the same world with ES (88 rows), the
+     committed ``data/search/ci_seed.json`` twice (the reports must be
+     equal) and the 10,240-row population (64 candidates x 160
+     replicas) at 600 hosts x 50 apps, 1 generation — wall,
+     generations/s, rollouts/s, the slowest generation's ticks,
+     placement steps and host reads, CUDA-event ms, peak memory, the
+     best against the initial score and the oracle's regrets — and two
+     of the population's candidates run alone on the card at its key
+     (their rows must be the population's); (c) at
+     600 hosts x 50 apps, 2 candidates x R = 16 on the card against the
+     port on the CPU, and the float32 pow twin on 2**24 pairs with
+     exponents in [0, 3] (bases from the tables and at the edges of
+     float32's range).  Unfinished counts, makespans and instance-hours
+     equal, egress and scores within rtol 1e-5.
 
-The line before the last is a JSON ``kernels`` record (its ``launches``
-split into the R = 1 and R = 256 launches of phases 3 and 4; a number
-of a phase not run is null); the last line is
+Each phase logs its wall.  The line before the last is a JSON
+``kernels`` record (its ``launches`` split into the R = 1 and R = 256
+launches of phases 3 and 4; a number of a phase not run is null); the
+last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout of the repository, the script exits non-zero and prints no
 result.
@@ -110,6 +135,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -1869,6 +1895,481 @@ def phase_sweeps(device, ens=None):
     return out
 
 
+SR_FIXTURE = "tests/data/search_seed0.npz"
+#: Phase 8 (a): the fixture's environments — the tiny test world and the
+#: README quickstart's world (``make_search_env`` keywords).
+SR_ENVS = {
+    "tiny": dict(n_hosts=8, seed=3, n_apps=3, horizon=300.0, n_replicas=4),
+    "readme": dict(n_hosts=12, seed=5, n_apps=8, n_replicas=8),
+}
+#: The fixture's candidates: ``DEFAULT_WEIGHTS``, the two hand-tuned arms
+#: (the first is the default), ``BAD_INIT`` and two learned-looking ones.
+SR_VECTORS = np.array([
+    [1.0, 1.0, 1.0, 0.0, 1.0],
+    [1.0, 1.0, 1.0, 0.0, 1.0],
+    [1.0, 1.0, 1.0, 1.0, 50.0],
+    [0.0, 0.0, 0.0, 0.0, 1.0],
+    [0.5, 2.0, 1.5, 5.0, 1.0],
+    [3.0, 0.0, 0.25, 50.0, 1.0],
+])
+SR_FIELDS = ("egress", "instance_hours", "n_unfinished", "makespan")
+#: The fixture's anchored CEM (on the README world).
+SR_CEM = dict(generations=2, popsize=6, seed=5)
+
+
+def sr_cases() -> dict:
+    """``{entry: (env, variant, generation)}``: shared plans at generation
+    keys 0 and 1, then at key 0 redrawn plans, no hazard trace, and
+    capacity scales + admission masks."""
+    out = {}
+    for env in SR_ENVS:
+        for gen in (0, 1):
+            out[f"{env}__shared__g{gen}"] = (env, "shared", gen)
+        for variant in ("redraw", "nohazard", "capact"):
+            out[f"{env}__{variant}__g0"] = (env, variant, 0)
+    return out
+
+
+def sr_actions(n_tasks: int):
+    """The ``capact`` case's ``cap_rows`` [B] and ``active_rows`` [B, T]:
+    candidate 1 sheds the last task, candidate 4 the last four."""
+    cap = np.array([1.0, 0.5, 1.0, 0.75, 1.0, 1.25])
+    act = np.ones((len(SR_VECTORS), n_tasks), dtype=bool)
+    act[1, -1] = False
+    act[4, -4:] = False
+    return cap, act
+
+
+def sr_case_inputs(prng, name, envs):
+    """``(env, key, cap_rows, active_rows)`` of fixture entry ``name``
+    for either package (``prng``: a module with ``fold_in`` /
+    ``PRNGKey``, the port's twin or ``jax.random``); ``envs`` maps
+    ``"<env>"`` and ``"<env>/redraw"`` to built environments."""
+    env_name, variant, gen = sr_cases()[name]
+    env = envs[env_name + ("/redraw" if variant == "redraw" else "")]
+    if variant == "nohazard":
+        env = env._replace(hazard=None)
+    key = prng.fold_in(prng.PRNGKey(env.seed), gen)
+    cap = act = None
+    if variant == "capact":
+        cap, act = sr_actions(env.n_tasks)
+    return env, key, cap, act
+
+
+def sr_envs(make_search_env, **kw) -> dict:
+    """The fixture's environments, ``"<env>"`` and ``"<env>/redraw"``
+    (one preemption plan per replica), built by either package's
+    ``make_search_env`` (``kw``: the port's ``device``)."""
+    out = {}
+    for name, env_kw in SR_ENVS.items():
+        out[name] = make_search_env(**env_kw, **kw)
+        out[name + "/redraw"] = make_search_env(**env_kw, redraw_faults=True,
+                                                **kw)
+    return out
+
+
+def sr_key(name, field) -> str:
+    return f"{name}__{field}"
+
+
+def sr_load_fixture(path=SR_FIXTURE) -> dict:
+    with np.load(path) as z:
+        out = {n: {f: z[sr_key(n, f)] for f in SR_FIELDS + ("scores",)}
+               for n in sr_cases()}
+        out["cem"] = {k: z[f"cem__{k}"] for k in (
+            "pops", "scores", "best_score", "init_score")}
+    return out
+
+
+@contextlib.contextmanager
+def sr_record(F):
+    """Record one dict per ``evaluate_rows`` call made inside the block
+    (``F``: the port's ``search.fitness``): ``rows``, ``wall_s`` (host
+    clock around the call: draws, row loop and host reduction), the
+    call's ``weights``, ``env``, ``key`` and ``scores``, the row loop's
+    ``ticks``, ``place_steps``, ``host_syncs``, ``loop_wall_s`` and, on
+    the card, ``event_span_ms`` (``parallel/ensemble/tick.py``), and
+    ``out``: ``_fitness_rows``' per-row fields (``SR_FIELDS``, on the
+    device)."""
+    calls = []
+    evaluate, fitness_rows = F.evaluate_rows, F._fitness_rows
+
+    def rows(*args, **kw):
+        out = fitness_rows(*args, **dict(kw, stats=calls[-1]))
+        calls[-1]["out"] = dict(zip(SR_FIELDS, out))
+        return out
+
+    def recorded(weights, env, **kw):
+        calls.append({})
+        t0 = time.perf_counter()
+        scores, details = evaluate(weights, env, **kw)
+        c = calls[-1]
+        c.update(loop_wall_s=c.pop("wall_s"),
+                 wall_s=time.perf_counter() - t0, rows=details["n_rows"],
+                 weights=np.asarray(weights), env=env, key=kw.get("key"),
+                 scores=scores)
+        return scores, details
+
+    F.evaluate_rows, F._fitness_rows = recorded, rows
+    try:
+        yield calls
+    finally:
+        F.evaluate_rows, F._fitness_rows = evaluate, fitness_rows
+
+
+def sr_fitness(env, key, vecs, cap=None, act=None, stats=None) -> dict:
+    """The port's ``_fitness_rows`` per-row fields and ``evaluate_rows``
+    scores of candidates ``vecs`` on ``env`` (its device), as numpy, from
+    one evaluator call; ``stats`` gets its record (``sr_record``)."""
+    from pivot_tpu_torch.search import fitness as F
+
+    with sr_record(F) as calls:
+        scores, _ = F.evaluate_rows(vecs, env, key=key, cap_rows=cap,
+                                    active_rows=act)
+    out = {f: x.cpu().numpy() for f, x in calls[0]["out"].items()}
+    out["scores"] = scores
+    if stats is not None:
+        stats.update(calls[0])
+    return out
+
+
+def sr_run(name, envs, stats=None) -> dict:
+    """The port's run of fixture entry ``name`` on the device of
+    ``envs`` (``sr_fitness``)."""
+    from pivot_tpu_torch.parallel.ensemble import prng
+
+    env, key, cap, act = sr_case_inputs(prng, name, envs)
+    return sr_fitness(env, key, SR_VECTORS, cap, act, stats)
+
+
+def sr_compare(got: dict, want: dict, what: str) -> float:
+    """Unfinished counts, makespans and instance-hours equal; egress and
+    scores within ``ENS_RTOL``.  Returns the largest relative difference
+    of egress and scores."""
+    worst = 0.0
+    for f in SR_FIELDS + ("scores",):
+        g, w = np.asarray(got[f]), np.asarray(want[f])
+        if g.shape != w.shape:
+            raise AssertionError(f"{what}: {f} shape {g.shape} vs {w.shape}")
+        if f in ("egress", "scores"):
+            rel = np.abs(g.astype(np.float64) - w) / np.maximum(
+                np.abs(w.astype(np.float64)), 1e-30)
+            worst = max(worst, float(rel.max(initial=0.0)))
+            if not np.allclose(g, w, rtol=ENS_RTOL, atol=0):
+                raise AssertionError(f"{what}: {f} beyond rtol {ENS_RTOL} "
+                                     f"(largest {rel.max()!r})")
+        elif not np.array_equal(g, w):
+            bad = np.argwhere(g != w)
+            raise AssertionError(f"{what}: {f} differs at {len(bad)} "
+                                 f"entries, first {bad[0].tolist()}")
+    return worst
+
+
+def sr_compare_cem(res, pops, scores, want) -> float:
+    """The anchored CEM against the fixture's: generation 0's population
+    equal, later ones within rtol 1e-9 (they follow the scores), scores,
+    best and initial score within ``ENS_RTOL``, each generation's argmin
+    equal.  Returns the scores' largest relative difference."""
+    if pops.shape != want["pops"].shape:
+        raise AssertionError(f"CEM populations {pops.shape} vs "
+                             f"{want['pops'].shape}")
+    if not np.array_equal(pops[0], want["pops"][0]):
+        raise AssertionError("CEM generation 0's population differs")
+    if not np.allclose(pops, want["pops"], rtol=1e-9, atol=0):
+        raise AssertionError("CEM populations differ")
+    if not np.array_equal(scores.argmin(1), want["scores"].argmin(1)):
+        raise AssertionError(f"CEM argmins {scores.argmin(1)} vs "
+                             f"{want['scores'].argmin(1)}")
+    pairs = ((scores, want["scores"]),
+             (np.float64(res.best_score), want["best_score"]),
+             (np.float64(res.init_score), want["init_score"]))
+    worst = 0.0
+    for g, w in pairs:
+        if not np.allclose(g, w, rtol=ENS_RTOL, atol=0):
+            raise AssertionError(f"CEM scores beyond rtol {ENS_RTOL}: "
+                                 f"{g!r} vs {w!r}")
+        worst = max(worst, float(np.max(np.abs(g - w) / np.abs(w))))
+    return worst
+
+
+def sr_record_cem(cem, env, anchors):
+    """``cem.cem_search`` on ``env`` at ``SR_CEM`` with ``anchors``,
+    recording each generation's population and scores (``cem``: either
+    package's ``search.cem`` module).  Returns ``(result, pops [G, B, 5],
+    scores [G, B])``."""
+    calls = []
+    score = cem.score_population
+
+    def recorded(pop, env_, gen, **kw):
+        s = score(pop, env_, gen, **kw)
+        calls.append((np.array(pop), np.asarray(s, np.float64)))
+        return s
+
+    cem.score_population = recorded
+    try:
+        res = cem.cem_search(env, anchors=anchors, **SR_CEM)
+    finally:
+        cem.score_population = score
+    return (res, np.stack([c[0] for c in calls]),
+            np.stack([c[1] for c in calls]))
+
+
+#: Phase 8 (b): the search through the CLI — the README quickstart (CEM),
+#: the same world with ES, the committed replay config (run twice), and
+#: the 10,240-row population at the other phases' cluster size (its depth
+#: cut from 4 generations to 1: PERF.md, section 4).  Each with the rows a
+#: generation must have.
+SR_MAIN = (
+    ("1 cem, README quickstart", 96,
+     ["search", "--method", "cem", "--generations", "6", "--popsize", "12",
+      "--replicas", "8", "--hosts", "12", "--seed", "5", "--holdout", "2",
+      "--des-validate"]),
+    ("2 es, README world", 88,
+     ["search", "--method", "es", "--generations", "6", "--popsize", "12",
+      "--replicas", "8", "--hosts", "12", "--seed", "5", "--holdout", "2",
+      "--des-validate"]),
+    ("3 ci_seed.json", 16, ["search", "--config", "data/search/ci_seed.json"]),
+    ("3 ci_seed.json again", 16,
+     ["search", "--config", "data/search/ci_seed.json"]),
+    ("4 population, 600 hosts", 64 * 160,
+     ["search", "--method", "cem", "--hosts", "600", "--num-apps", "50",
+      "--horizon", "2400", "--popsize", "64", "--replicas", "160",
+      "--generations", "1", "--holdout", "1"]),
+)
+#: Phase 8 (b): the population's candidates held against a run of their
+#: own on the card at the same key (draws are tiled across candidates).
+SR_PICK = [2, 4]
+#: Phase 8 (c): the card against the port on the CPU at 600 hosts.
+SR_CHECK = dict(n_hosts=600, seed=5, n_apps=50, horizon=2400.0,
+                n_replicas=16)
+
+
+def sr_cli_run(cli, fitness, argv, out_path) -> tuple:
+    """One ``search`` run through the CLI's entry with its report written
+    to ``out_path`` (the printed copy is captured).  Returns ``(report,
+    row, calls)``: wall (host clock), generations/s and rollouts/s (over
+    the evaluator's calls), the slowest generation's ticks, placement
+    steps and host reads, CUDA-event ms of the row loops, peak memory;
+    the evaluator's calls as ``sr_record`` gives them."""
+    import contextlib
+    import io
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    args = cli.parse_args([*argv, "--out", out_path])
+    t0 = time.perf_counter()
+    with sr_record(fitness) as calls, \
+            contextlib.redirect_stdout(io.StringIO()) as printed:
+        report = cli.run_search_cli(args)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("(b) run_search_cli left TF32 matmuls on")
+    with open(out_path) as f:
+        written = json.load(f)
+    if written != json.loads(printed.getvalue()) or written != json.loads(
+            json.dumps(report)):
+        raise AssertionError("(b) the printed, written and returned "
+                             "reports differ")
+    G = report["config"]["generations"]
+    gens = calls[:G]
+    slow = max(gens, key=lambda c: c["wall_s"])
+    row = dict(
+        wall_s=wall, generations=G,
+        generations_per_s=G / sum(c["wall_s"] for c in gens),
+        rows_per_generation=gens[0]["rows"],
+        rollouts=sum(c["rows"] for c in calls),
+        rollouts_per_s=sum(c["rows"] for c in calls) / sum(
+            c["wall_s"] for c in calls),
+        evaluator_calls=len(calls),
+        slowest_generation={k: slow[k] for k in (
+            "wall_s", "ticks", "place_steps", "host_syncs",
+            "event_span_ms")},
+        event_span_ms=sum(c["event_span_ms"] for c in calls),
+        peak_mem_bytes=peak,
+        best_score=report["search"]["best_score"],
+        init_score=report["search"]["init_score"],
+        beats_bad_init=report["beats_bad_init"],
+        learned_beats_hand_tuned=report.get("learned_beats_hand_tuned"),
+        regret=report.get("oracle", {}).get("regret"),
+        best_weights=report["search"]["best_weights"])
+    return report, row, calls
+
+
+def sr_pow_check(device, env, n=1 << 24):
+    """The float32 pow twin on the card against the port on the CPU over
+    ``n`` (base, exponent) pairs: bases from the score tables of ``env``
+    (a 600-host search environment on the CPU: round-trip costs and
+    bandwidths, norms of partly used hosts) and at the edges (0,
+    subnormal, near the float32 underflow and overflow of the result),
+    exponents uniform in [0, 3] with 0 and 3 themselves."""
+    from pivot_tpu_torch.parallel.ensemble.bill import _fma_norms
+    from pivot_tpu_torch.parallel.ensemble.libm import powf
+
+    hz = env.topo.host_zone.long()
+    cost, bw = env.topo.cost, env.topo.bw
+    tables = torch.cat([(cost[:, hz] + cost[hz, :].T).reshape(-1),
+                        (bw[:, hz] + bw[hz, :].T).reshape(-1)])
+    g = torch.Generator().manual_seed(8)
+    used = torch.rand((n // (2 * env.avail0.shape[0]) + 1,)
+                      + tuple(env.avail0.shape), generator=g)
+    norms = _fma_norms(env.avail0[None] * used).reshape(-1)
+    pick = torch.randint(0, tables.numel(), (n // 4,), generator=g)
+    w = torch.rand(n, generator=g) * 3.0
+    w[:1024], w[1024:2048] = 0.0, 3.0
+    edge = n - n // 2 - n // 4
+    lg = (torch.rand(edge, generator=g) * 300.0 - 160.0) / w[-edge:].clamp(
+        min=1e-3)  # log2 of the base: results from 2**-160 to 2**140
+    bases = torch.cat([norms[: n // 2], tables[pick],
+                       torch.exp2(lg.double()).float()])
+    bases[:64] = 0.0
+    bases[64:128] = 2.0 ** -130  # subnormal
+    t0 = time.perf_counter()
+    card = powf(bases.to(device), w.to(device)).cpu()
+    card_s = time.perf_counter() - t0
+    cpu = powf(bases, w)
+    same = (card == cpu) | (torch.isnan(card) & torch.isnan(cpu))
+    if not bool(same.all()):
+        raise AssertionError(f"(c) powf: the card differs from the CPU on "
+                             f"{int((~same).sum())} of {n} pairs")
+    return dict(pairs=n, card_s=card_s)
+
+
+def phase_search(device):
+    """Phase 8: the policy search on the card; no hand kernel
+    (``greedy_place`` must make no launch).  (a) ``pivot_tpu``'s fixture
+    under torch's sync debug mode; (b) the four runs through the CLI;
+    (c) the card against the port on the CPU at 600 hosts, and the pow
+    twin over continuous exponents."""
+    from pivot_tpu_torch.experiments import cli
+    from pivot_tpu_torch.experiments.search import HAND_TUNED_ARMS
+    from pivot_tpu_torch.ops import cuda_kernels as ck
+    from pivot_tpu_torch.parallel.ensemble import prng
+    from pivot_tpu_torch.search import cem
+    from pivot_tpu_torch.search import fitness as F
+
+    out = {"fixture": {}, "runs": {}, "check": {}}
+    ck.reset_launches()
+    envs = sr_envs(F.make_search_env, device=device)
+    fixture = sr_load_fixture()
+    for name in sr_cases():
+        st = {}
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                got = sr_run(name, envs, stats=st)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        worst = sr_compare(got, fixture[name], name)
+        out["fixture"][name] = dict(
+            max_rel=worst, ticks=st["ticks"], place_steps=st["place_steps"],
+            host_syncs=st["host_syncs"], sync_debug_warnings=syncs,
+            wall_s=st["wall_s"], event_span_ms=st["event_span_ms"])
+        log(f"  (a) {name}: card equals pivot_tpu's fixture (egress / "
+            f"scores largest rel diff {worst!r}); {st['ticks']} ticks, "
+            f"{st['place_steps']} placement steps, {st['host_syncs']} host "
+            f"reads counted, {syncs} synchronizing calls flagged; "
+            f"{st['wall_s']!r} s")
+    res, pops, scores = sr_record_cem(cem, envs["readme"],
+                                      list(HAND_TUNED_ARMS.values()))
+    worst = sr_compare_cem(res, pops, scores, fixture["cem"])
+    out["fixture"]["cem"] = dict(max_rel=worst, argmins=scores.argmin(
+        1).tolist(), best_score=res.best_score, init_score=res.init_score)
+    log(f"  (a) anchored CEM, {SR_CEM}: populations, argmins "
+        f"{scores.argmin(1).tolist()} and scores equal pivot_tpu's "
+        f"(largest rel diff {worst!r}); best {res.best_score!r}, init "
+        f"{res.init_score!r}")
+
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        reports = {}
+        for label, rows, argv in SR_MAIN:
+            report, row, calls = sr_cli_run(cli, F, argv,
+                                            os.path.join(tmp, "report.json"))
+            if row["rows_per_generation"] != rows:
+                raise AssertionError(
+                    f"(b) {label}: {row['rows_per_generation']} rows a "
+                    f"generation, not {rows}")
+            finite = [row["best_score"], row["init_score"]] + [
+                h["mean_cost_per_task"] for h in report["holdout"].values()]
+            if not np.isfinite(finite).all():
+                raise AssertionError(f"(b) {label}: non-finite scores")
+            if min(row["regret"].values()) < -1e-12:
+                raise AssertionError(f"(b) {label}: negative regret")
+            if "des_validation" in report:
+                row["des"] = report["des_validation"]
+            reports[label] = report
+            out["runs"][label] = row
+            sl = row["slowest_generation"]
+            log(f"  (b) {label} ({rows} rows a generation) through the CLI: "
+                f"wall {row['wall_s']!r} s, {row['generations_per_s']!r} "
+                f"generations/s, {row['rollouts_per_s']!r} rollouts/s over "
+                f"{row['evaluator_calls']} evaluator calls; slowest "
+                f"generation {sl['wall_s']!r} s: {sl['ticks']} ticks, "
+                f"{sl['place_steps']} placement steps, {sl['host_syncs']} "
+                f"host reads; {row['event_span_ms']!r} ms between CUDA "
+                f"events; peak memory {row['peak_mem_bytes'] / 2**30!r} GiB;"
+                f" best {row['best_score']!r} vs init {row['init_score']!r},"
+                f" learned beats hand-tuned "
+                f"{row['learned_beats_hand_tuned']}, regret "
+                f"{json.dumps(row['regret'])}")
+            if "des" in row:
+                log(f"      DES validation: {json.dumps(row['des'])}")
+            if rows == SR_MAIN[-1][1]:
+                big = next(c for c in calls if c["rows"] == rows)
+            del calls
+        if reports["3 ci_seed.json"] != reports["3 ci_seed.json again"]:
+            raise AssertionError("(b) the two ci_seed.json reports differ")
+        log("  (b) the two ci_seed.json reports are equal")
+
+    # The population's rows are independent and its draws tiled across
+    # candidates: two of its candidates, run alone at the same key, give
+    # the same rows (the batch-size paths of the tick loop: indices over
+    # [B·R, ...], scatters, matmuls).
+    R = big["env"].n_replicas
+    t0 = time.perf_counter()
+    alone = sr_fitness(big["env"], big["key"], big["weights"][SR_PICK])
+    alone_s = time.perf_counter() - t0
+    idx = np.concatenate([np.arange(b * R, (b + 1) * R) for b in SR_PICK])
+    want = {f: x.cpu().numpy()[idx] for f, x in big["out"].items()}
+    want["scores"] = big["scores"][SR_PICK]
+    worst = sr_compare(alone, want, "(b) candidates alone vs in the "
+                       "population")
+    out["check"]["population_vs_alone"] = dict(max_rel=worst, s=alone_s)
+    log(f"  (b) candidates {SR_PICK} of the {big['rows']}-row population, "
+        f"run alone at its key ({len(SR_PICK)} x R={R}, {alone_s!r} s): "
+        f"rows equal, egress / scores largest rel diff {worst!r}")
+    del big
+
+    key = prng.fold_in(prng.PRNGKey(SR_CHECK["seed"]), 0)
+    got = {}
+    for d in (device, "cpu"):
+        t0 = time.perf_counter()
+        env = F.make_search_env(**SR_CHECK, device=d)
+        got[d] = sr_fitness(env, key, SR_VECTORS[SR_PICK])
+        got[d]["s"] = time.perf_counter() - t0
+    worst = sr_compare(got[device], got["cpu"], "(c) card vs CPU")
+    out["check"]["card_vs_cpu"] = dict(max_rel=worst, cpu_s=got["cpu"]["s"],
+                                       card_s=got[device]["s"])
+    log(f"  (c) {SR_CHECK['n_hosts']} hosts x {SR_CHECK['n_apps']} apps, 2 "
+        f"candidates x R={SR_CHECK['n_replicas']}: the card equals the port "
+        f"on the CPU "
+        f"({got['cpu']['s']!r} s there, {got[device]['s']!r} s on the "
+        f"card), egress / scores largest rel diff {worst!r}")
+    pw = sr_pow_check(device, env)
+    out["check"]["powf"] = pw
+    log(f"  (c) float32 pow twin, exponents in [0, 3]: the card equals the "
+        f"CPU on {pw['pairs']} pairs ({pw['card_s']!r} s on the card)")
+    n = ck.LAUNCHES["greedy_place"]
+    out["greedy_place_launches"] = n
+    log(f"  (d) greedy_place launches in phase 8: {n}")
+    if n:
+        raise AssertionError("phase 8 launched greedy_place")
+    return out
+
+
 def phase_5_report(ck, e2e, sens, card, device):
     """Phase 5: times on the card (the main path's wrapper, bare launches,
     the warp sweep, the gated R = 256 launches) and the reports of
@@ -1965,7 +2466,7 @@ def phase_5_report(ck, e2e, sens, card, device):
     return times, gt, spans
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8)
 
 
 def selected_phases(argv) -> set:
@@ -2008,7 +2509,9 @@ def main(argv=None) -> int:
     log(f"phases {sorted(phases)}")
     log(card)
     chk = e2e = sens = times = gt = spans = ens = sweeps = None
+    walls = {}
     if 1 in phases:
+        tp = time.perf_counter()
         log("== 1. environment")
         nvcc = subprocess.run([build._nvcc(), "--version"], check=True,
                               capture_output=True, text=True, timeout=60)
@@ -2026,25 +2529,40 @@ def main(argv=None) -> int:
                 log(f"  ptxas {line}")
         check_shape_tables(build, ck)
         arith_check(build)
+        walls[1] = time.perf_counter() - tp
+        log(f"  phase 1 wall: {walls[1]!r} s")
     if 2 in phases:
+        tp = time.perf_counter()
         log("== 2. greedy_place vs plain on the card (f32)")
         chk = phase_kernel_vs_plain(ck, device)
         log(f"  {chk.cases} cases, {chk.placed} placements: all equal, max "
             f"|avail diff| {chk.max_abs_err!r} (rtol {RTOL}, atol {ATOL})")
+        walls[2] = time.perf_counter() - tp
+        log(f"  phase 2 wall: {walls[2]!r} s")
     if 3 in phases:
+        tp = time.perf_counter()
         log("== 3. overall, 600 hosts x 1000 apps: cuda with fused spans, "
             "cuda with fusion off, numpy")
         e2e = phase_end_to_end(device)
+        walls[3] = time.perf_counter() - tp
+        log(f"  phase 3 wall: {walls[3]!r} s")
     if 4 in phases:
+        tp = time.perf_counter()
         log(f"== 4. sensitivity on the card: 600 hosts, R={SENS_REPLICAS}, "
             f"Cost-Aware x {SENS_APPS['cost-aware']} apps and VBP x "
             f"{SENS_APPS['vbp']} apps under a seeded spot market")
         sens = phase_sensitivity(device)
+        walls[4] = time.perf_counter() - tp
+        log(f"  phase 4 wall: {walls[4]!r} s")
     if 5 in phases:
+        tp = time.perf_counter()
         log("== 5. times on the card")
         times, gt, spans = phase_5_report(ck, e2e, sens, card, device)
+        walls[5] = time.perf_counter() - tp
+        log(f"  phase 5 wall: {walls[5]!r} s")
     ens_mk = None
     if 6 in phases:
+        tp = time.perf_counter()
         log(f"== 6. the Monte-Carlo ensemble on the card: 600 hosts x 50 "
             f"apps, R={ENS_REPLICAS} ({', '.join(ENS_ARMS)}), checked at "
             f"R={ENS_CHECK_REPLICAS}")
@@ -2052,14 +2570,30 @@ def main(argv=None) -> int:
         ens = phase_ensemble(device)
         ens_mk = ens.pop("makespan_cost-aware")
         ens.pop("makespan_first-fit")
+        walls[6] = time.perf_counter() - tp
+        log(f"  phase 6 wall: {walls[6]!r} s")
     if 7 in phases:
+        tp = time.perf_counter()
         log(f"== 7. fault ensembles and the what-if sweeps on the card: the "
             f"pivot_tpu fixture, the README's commands at 600 hosts, card "
             f"vs CPU at {SW_APPS} apps")
         log(f"  [{card}]")
         sweeps = phase_sweeps(device, ens_mk)
+        walls[7] = time.perf_counter() - tp
+        log(f"  phase 7 wall: {walls[7]!r} s")
+    search = None
+    if 8 in phases:
+        tp = time.perf_counter()
+        log("== 8. the policy search on the card: the pivot_tpu fixture, the "
+            "four runs through the CLI (the 10,240-row population at 600 "
+            "hosts), card vs CPU at 600 hosts")
+        log(f"  [{card}]")
+        search = phase_search(device)
+        walls[8] = time.perf_counter() - tp
+        log(f"  phase 8 wall: {walls[8]!r} s")
     log(json.dumps({
         "times": times, "spans": spans, "ensemble": ens, "sweeps": sweeps,
+        "search": search, "phase_walls": walls,
         "same_files": e2e and e2e["same_files"], "gated_times": gt,
         "sensitivity": sens and {p: {k: v for k, v in r.items()
                                      if k != "check"}

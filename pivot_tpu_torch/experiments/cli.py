@@ -1,7 +1,8 @@
 """Experiment CLI of the port: ``overall``, ``num-apps``,
-``sensitivity``, ``ensemble``, ``autotune``, ``capacity`` and ``apps``.
+``sensitivity``, ``ensemble``, ``autotune``, ``capacity``, ``apps`` and
+``search``.
 
-Port of ``pivot_tpu/experiments/cli.py``, cut to seven subcommands:
+Port of ``pivot_tpu/experiments/cli.py``, cut to eight subcommands:
 
   * ``overall`` (``:914``): the three reference scheduler arms
     (Opportunistic / VBP / Cost-Aware,
@@ -31,17 +32,27 @@ Port of ``pivot_tpu/experiments/cli.py``, cut to seven subcommands:
     app counts per policy arm), each writing ``summary.json`` under
     ``<output-dir>/<name>/<stamp>/``.  They run unsharded, in the
     reference's 256-tick segments; their figures are not drawn (the
-    plots are ROADMAP.md Queue 1 item 12).
+    plots are ROADMAP.md Queue 1 item 12);
+  * ``search`` (``:484``, ``run_search_cli`` ``:1911``): the policy
+    search (``experiments/search.py``): CEM or ES over scoring-weight
+    vectors, each generation's ``--popsize × --replicas`` rows one batch
+    of the ensemble's row runner under a seeded spot market and its
+    preemption plan, then held-out seeds, the branch-and-bound oracle's
+    regrets and, with ``--des-validate``, the exact DES
+    (``experiments/spot.py``).  The report goes to stdout and ``--out``.
+    ``--backend sharded_rollout`` raises ``NotImplementedError``
+    (ROADMAP.md Queue 1 item 9).
 
 ``--device`` picks the policy backend of ``overall`` / ``num-apps``:
 ``cuda`` (the default: the torch device policies, the Cost-Aware arm
 through the hand-written kernel, every tick on the card unless
 ``--adaptive`` lets small ticks go to the numpy twin) or ``naive`` /
 ``numpy`` (the CPU policies); ``sensitivity`` always runs the device
-policies; ``ensemble`` and the sweeps run on the card (the
-``torch_device`` of their ``run_*`` function).  The other subcommands,
-``--network native``, ``--batch-runs`` and ``--profile-dir``, and the
-plots are not ported yet (ROADMAP.md, port queue).
+policies; ``ensemble``, the sweeps and ``search`` run on the card (the
+``torch_device`` of their ``run_*`` function).  The other subcommands
+(``calibrate``, ``serve``, ``worker``; the MPC is ROADMAP.md Queue 1
+item 5), ``--network native``, ``--batch-runs`` and ``--profile-dir``,
+and the plots are not ported yet (ROADMAP.md, port queue).
 
 Usage:
   python -m pivot_tpu_torch.experiments.cli --num-hosts 600 overall \\
@@ -57,6 +68,9 @@ Usage:
   python -m pivot_tpu_torch.experiments.cli capacity \\
       --host-counts 100 200 400 600 [--faults 4 --fault-mttr 300]
   python -m pivot_tpu_torch.experiments.cli apps --app-counts 10 25 50
+  python -m pivot_tpu_torch.experiments.cli search --method cem \\
+      --generations 6 --popsize 12 --replicas 8 --hosts 12 --seed 5 \\
+      --holdout 2 --des-validate [--config data/search/ci_seed.json]
 """
 
 from __future__ import annotations
@@ -410,6 +424,51 @@ def parse_args(argv=None):
                      help="arms to sweep (default: the reference's three)")
     aps.add_argument("--congestion", action="store_true",
                      help="link-contention model (not ported yet: raises)")
+    sch = sub.add_parser(
+        "search",
+        help="policy search at ensemble scale (pivot_tpu_torch/search/): "
+             "learn scoring weights (fit/egress/bw exponents + the risk "
+             "pair) with CEM/ES — every generation's candidate population "
+             "is one row batch of the ensemble rollout on the card under "
+             "the seeded market + preemption environment — then score "
+             "learned vs hand-tuned on held-out seeds and report regret "
+             "against the exact branch-and-bound oracle; prints the "
+             "report JSON",
+    )
+    sch.add_argument("--method", default="cem", choices=["cem", "es"])
+    sch.add_argument("--generations", type=int, default=6)
+    sch.add_argument("--popsize", type=int, default=12,
+                     help="candidate weight vectors per generation")
+    sch.add_argument("--replicas", type=int, default=8,
+                     help="Monte-Carlo rollouts per candidate (the "
+                          "population dispatch is popsize x replicas "
+                          "rows)")
+    sch.add_argument("--hosts", type=int, default=12)
+    sch.add_argument("--num-apps", type=int, dest="num_apps", default=8)
+    sch.add_argument("--horizon", type=float, default=600.0)
+    sch.add_argument("--seed", type=int, default=5)
+    sch.add_argument("--holdout", type=int, default=2,
+                     help="held-out environment seeds for the "
+                          "learned-vs-hand-tuned comparison")
+    sch.add_argument("--backend", default="rollout",
+                     choices=["rollout", "sharded_rollout"],
+                     help="fitness backend: single-device rows, or rows "
+                          "sharded over a replica mesh (not ported yet: "
+                          "raises, ROADMAP.md Queue 1 item 9)")
+    sch.add_argument("--bad-init", action="store_true",
+                     help="start from the deliberately-bad vector (the "
+                          "smoke gate's shape) instead of the hand-tuned "
+                          "default")
+    sch.add_argument("--no-oracle", action="store_true",
+                     help="skip the small-instance regret section")
+    sch.add_argument("--des-validate", action="store_true",
+                     help="also play learned vs hand-tuned through the "
+                          "exact DES under the first held-out market")
+    sch.add_argument("--config", default=None, metavar="FILE",
+                     help="JSON config overriding the flags above (e.g. "
+                          "the replay anchor data/search/ci_seed.json)")
+    sch.add_argument("--out", default=None, metavar="FILE",
+                     help="write the report JSON here as well")
     return parser.parse_args(argv)
 
 
@@ -1005,10 +1064,64 @@ def run_apps(args, torch_device: str = "cuda", dtype: str = "float32",
     return summary
 
 
+def run_search_cli(args, torch_device: str = "cuda",
+                   dtype: str = "float32") -> dict:
+    """The ``search`` subcommand: run the learn → hold out → regret
+    pipeline (``experiments/search.py``), print the report JSON and write
+    it to ``--out`` when given; returns the report.  Its environments
+    live on ``torch_device`` in ``dtype``.  Before anything runs or is
+    written, float64 off the CPU raises (``libm.require_host``: every
+    candidate rides the score-exponent pow path), ``cuda`` without a
+    card raises, and TF32 matmuls are turned off (the egress bill's
+    product is not exact in TF32).  ``--backend sharded_rollout`` raises
+    ``NotImplementedError`` (ROADMAP.md Queue 1 item 9)."""
+    import torch
+
+    from pivot_tpu_torch.experiments.search import (
+        load_config,
+        run_search_experiment,
+    )
+    from pivot_tpu_torch.ops.kernels import resolve_device
+    from pivot_tpu_torch.parallel.ensemble.libm import require_host
+
+    kw = dict(
+        method=args.method,
+        generations=args.generations,
+        popsize=args.popsize,
+        seed=args.seed,
+        n_hosts=args.hosts,
+        n_apps=args.num_apps,
+        horizon=args.horizon,
+        n_replicas=args.replicas,
+        holdout=args.holdout,
+        backend=args.backend,
+        bad_init=args.bad_init,
+        oracle=not args.no_oracle,
+        des_validate=args.des_validate,
+    )
+    if args.config:
+        kw.update(load_config(args.config))
+    require_host(getattr(torch, dtype), torch_device,
+                 "search scores (score exponents)")
+    device = resolve_device(torch_device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    report = run_search_experiment(device=device,
+                                   dtype=getattr(torch, dtype), **kw)
+    text = json.dumps(report, indent=2, sort_keys=True)
+    print(text)
+    if args.out:
+        with open(args.out, "w") as fh:
+            fh.write(text + "\n")
+    return report
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     if args.command == "sensitivity":
         run_sensitivity(args)
+        return
+    if args.command == "search":
+        run_search_cli(args)
         return
     sweeps = {"ensemble": run_ensemble, "autotune": run_autotune,
               "capacity": run_capacity, "apps": run_apps}

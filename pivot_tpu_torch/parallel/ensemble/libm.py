@@ -214,14 +214,18 @@ def _device_tables(device):
 
 def powf(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """glibc's ``powf(x, y)`` for float32 ``x >= 0`` and float32
-    exponents ``y`` broadcasting against ``x``:
-    the same bits as XLA:CPU's call of the FMA build of glibc 2.28+ on
-    every input of the ensemble's score tables: zero and normal bases,
-    results that neither overflow nor underflow.  A subnormal base (none
-    occurs in the tables; XLA's result there depends on its CPU's
-    flush-to-zero mode) is taken as zero."""
+    exponents ``y`` broadcasting against ``x``, as XLA:CPU calls it (the
+    FMA build of glibc 2.28+, under XLA's denormals-are-zero and
+    flush-to-zero modes): the same bits for zero, subnormal, normal and
+    infinite bases and every exponent.  glibc normalises a subnormal
+    base as ``bits(x · 2**23) − (23 << 23)``; with denormals read as
+    zero the product is 0, so the twin takes ``−(23 << 23)`` there (not
+    the base's power: XLA's own result).  A result below the smallest
+    normal float32 is flushed to zero; an overflow rounds to ``inf`` by
+    itself."""
     log2_tab, exp2_tab = _device_tables(x.device)
     ix = x.view(torch.int32).to(torch.int64)
+    ix = torch.where(ix < 0x00800000, -(23 << 23), ix)
     # log2 x = log1p(z/c - 1)/ln 2 + log2 c + k, x = 2**k z.
     tmp = ix - _POWF_OFF
     i = (tmp >> 19) & 15
@@ -249,10 +253,14 @@ def powf(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     r2 = r * r
     w = fma(r, _EXP2F_POLY[2], torch.ones_like(r))
     out = (fma(zc, r2, w) * s).to(torch.float32)
-    # Special cases: x == 0 (0, or inf for y < 0) and y == 0 (1).
-    at_zero = torch.where(y < 0, float("inf"), 0.0).to(torch.float32)
-    out = torch.where(x < 2.0 ** -126, at_zero, out)
-    return torch.where(y == 0, 1.0, out)
+    out = torch.where(out < 2.0 ** -126, 0.0, out)
+    # Special cases: x == 0 (0, or inf for y < 0), x == inf (inf, or 0
+    # for y < 0) and y == 0 (1).
+    neg = y < 0
+    out = torch.where(x == 0, torch.where(neg, float("inf"), 0.0), out)
+    out = torch.where(x == float("inf"), torch.where(neg, 0.0,
+                                                     float("inf")), out)
+    return torch.where(y == 0, 1.0, out).to(torch.float32)
 
 
 def pow64(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -275,12 +275,19 @@ def _rollout_segment(
     counts["host_syncs"] += 1
     i = 0
     while go and i < n_ticks:
+        # A replica whose loop has ended (``alive`` false) sits the tick
+        # out whole, as a row of ``pivot_tpu``'s vmapped while_loop does:
+        # under an active mask its inactive tasks may still be running or
+        # ready, so ``live`` gates every state change at its source
+        # (retire, abort, fault, eligibility, the lifo carry).  Without a
+        # mask such a replica has nothing left to change.
+        live = alive[:, None]
         # 1. Retire finished tasks and refund their resources: an index-
         #    ordered sum per host.  Each miss adds 0 to a dropped row of
         #    its own past the R·H host rows: on the card the accumulate
         #    walks each run of equal rows in one thread, and one shared
         #    dropped row would be a run of R·T.
-        newly_done = (stage == _RUNNING) & (finish <= t[:, None])
+        newly_done = (stage == _RUNNING) & (finish <= t[:, None]) & live
         rows = torch.where(newly_done, rep[:, None] * H + place, miss_row)
         refund = torch.zeros((R * H + R * T, 4), dtype=dtype, device=dev)
         refund.index_put_(
@@ -299,15 +306,14 @@ def _rollout_segment(
             down = scatter_hosts((fail_at <= tc) & (tc < recover_at))
             prev_down = scatter_hosts((fail_at <= t_prev)
                                       & (t_prev < recover_at))
-            aborted = ((stage == _RUNNING) & (place >= 0)
+            aborted = ((stage == _RUNNING) & (place >= 0) & live
                        & struck.gather(1, place.clamp(0, H - 1)))
             stage = torch.where(aborted, _PENDING, stage)
             place = torch.where(aborted, -1, place)
             finish = torch.where(aborted, inf, finish)
-            recovered = (prev_down | struck) & ~down & alive[:, None]
+            recovered = (prev_down | struck) & ~down & live
             avail = torch.where(recovered[..., None], tot, avail)
-            avail = torch.where((down & alive[:, None])[..., None], -1.0,
-                                avail)
+            avail = torch.where((down & live)[..., None], -1.0, avail)
         alive_next = pending(stage)
 
         # 2. Readiness: every predecessor instance done, and the DES
@@ -366,7 +372,7 @@ def _rollout_segment(
         fit_g = fits(avail[:, None, :, 0], dem_group[None, :, None, 0])
         for k in range(1, 4):
             fit_g &= fits(avail[:, None, :, k], dem_group[None, :, None, k])
-        eligible = ready & fit_g.any(-1).gather(1, group_of)
+        eligible = ready & live & fit_g.any(-1).gather(1, group_of)
         del fit_g
         if policy == "cost-aware":
             bucket = torch.where(has_pred, anchor, Z + workload.app_of)
@@ -484,7 +490,8 @@ def _rollout_segment(
                 srank = _inverse(sord, iota_r)
             else:
                 srank = brank
-            qpos = torch.where(ready & ~placed, srank, -1)
+            qpos = torch.where(live, torch.where(ready & ~placed, srank, -1),
+                               qpos)
 
         stage = torch.where(placed, _RUNNING, stage)
         place = torch.where(placed, pl, place)

@@ -15,6 +15,10 @@ seed) and reports the egress / runtime / makespan deltas across seeds.
 On the card, a gated Cost-Aware tick is one launch of the replica-batched
 ``greedy_place`` kernel; the First-Fit / Best-Fit arms run the batched
 torch passes of ``ops/kernels.py``.
+
+:func:`evaluate_candidates` is the batched evaluator over *candidate
+weight vectors* that the policy search drives: it delegates to
+``search/fitness.py::evaluate_rows`` (the ensemble's row runner).
 """
 
 from __future__ import annotations
@@ -30,15 +34,31 @@ __all__ = ["SensitivityGatedCostAware", "evaluate_candidates"]
 
 
 def evaluate_candidates(weights, env, **kw) -> np.ndarray:
-    """Score a ``[B]`` population of scoring-weight vectors under a seeded
-    market environment (``pivot_tpu/sched/sensitivity.py:34``).  It runs
-    on the ensemble rollouts of ``search/fitness.py``, which the port does
-    not have yet."""
-    raise NotImplementedError(
-        "evaluate_candidates needs search/fitness.py and the ensemble "
-        "rollouts, which are not ported to pivot_tpu_torch yet (ROADMAP.md, "
-        "port queue: ensembles, then search)"
-    )
+    """Score a ``[B]`` population of scoring-weight vectors under a
+    seeded market environment: ``scores[b]`` is candidate b's mean
+    cost-per-completed-task over the environment's R paired Monte-Carlo
+    rollouts (lower is better).
+
+    The library surface of the search loop (``pivot_tpu_torch.search.es``
+    / ``pivot_tpu_torch.search.cem``), as
+    ``pivot_tpu/sched/sensitivity.py:34`` is.  ``weights`` is a ``[B,
+    5]`` matrix (:meth:`pivot_tpu_torch.search.PolicyWeights.stack`) or a
+    sequence of :class:`~pivot_tpu_torch.search.PolicyWeights`; ``env`` a
+    :class:`~pivot_tpu_torch.search.fitness.SearchEnv`.  Keyword
+    arguments (``key``, ``backend``, ``mesh``, ``tick_order``,
+    ``cap_rows``, ``active_rows``) pass through to
+    :func:`pivot_tpu_torch.search.fitness.evaluate_rows`: the population
+    is one row batch of the ensemble rollout on the environment's
+    device (the ``sharded_rollout`` backend raises there, ROADMAP.md
+    Queue 1 item 9).
+
+    Imported lazily so this module never drags the search/ensemble
+    stack in by itself.
+    """
+    from pivot_tpu_torch.search.fitness import evaluate_rows
+
+    scores, _details = evaluate_rows(weights, env, **kw)
+    return scores
 
 
 class SensitivityGatedCostAware(Policy):

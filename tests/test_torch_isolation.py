@@ -2,10 +2,13 @@
 
 The test process itself has imported ``jax`` (``tests/conftest.py``), so
 the run-time check happens in a fresh subprocess: it imports the port,
-runs one tiny ``overall``, one tiny ``ensemble`` with faults and one
-tiny ``capacity`` sweep (the row runner, ``sweeps.py``) on the CPU, and
-lists what is in ``sys.modules``.  A static AST scan covers every file
-of the package and ``chip_smoke.py``.
+runs one tiny ``overall``, one tiny ``ensemble`` with faults, one tiny
+``capacity`` sweep (the row runner, ``sweeps.py``), a one-generation CEM
+``search`` (fitness, optimizer, held-out seeds, oracle, DES validation)
+and the market-replay tool on the CPU, and lists what is in
+``sys.modules``.  A static AST scan covers every file of the package —
+``search/``, ``experiments/search.py``, ``experiments/spot.py`` and
+``tools/`` among them — and ``chip_smoke.py``.
 """
 
 import ast
@@ -38,10 +41,21 @@ with tempfile.TemporaryDirectory() as out:
         ["--num-hosts", "8", "--output-dir", out, "capacity",
          "--num-apps", "2", "--host-counts", "4", "8", "--replicas", "2",
          "--max-ticks", "256"]), torch_device="cpu")
+    search = cli.run_search_cli(cli.parse_args(
+        ["search", "--generations", "1", "--popsize", "3", "--replicas",
+         "2", "--hosts", "6", "--num-apps", "2", "--horizon", "200",
+         "--holdout", "1", "--des-validate", "--out", out + "/s.json"]),
+        torch_device="cpu")
+    from pivot_tpu_torch.tools import market_replay
+    replay = market_replay.main(["generate", "--hosts", "6", "--out",
+                                 out + "/m.json"])
 print(json.dumps({
     "arms": [s["label"] for s in summaries],
     "ensemble_unfinished": ens["unfinished_max"],
     "capacity_best": cap["best"] is not None,
+    "search_regret": sorted(search["oracle"]["regret"]),
+    "search_des": sorted(search["des_validation"]),
+    "market_replay": replay,
     "modules": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "pivot_tpu")),
 }))
@@ -63,6 +77,9 @@ def test_port_runs_without_jax_or_reference_modules():
     assert report["arms"] == ["Opportunistic", "VBP", "Cost-Aware"]
     assert report["ensemble_unfinished"] == 0
     assert report["capacity_best"]
+    assert report["search_regret"] == report["search_des"] == [
+        "hand_tuned_default", "hand_tuned_risk_aware", "learned"]
+    assert report["market_replay"] == 0
     assert report["modules"] == []
 
 
@@ -96,5 +113,13 @@ def test_no_file_of_the_port_imports_jax_or_reference():
             "pivot_tpu_torch/infra/market.py",
             "pivot_tpu_torch/sched/sensitivity.py",
             "pivot_tpu_torch/parallel/ensemble/sweeps.py",
-            "pivot_tpu_torch/parallel/ensemble/libm.py"} <= seen
+            "pivot_tpu_torch/parallel/ensemble/libm.py",
+            "pivot_tpu_torch/search/fitness.py",
+            "pivot_tpu_torch/search/loop.py",
+            "pivot_tpu_torch/search/cem.py",
+            "pivot_tpu_torch/search/es.py",
+            "pivot_tpu_torch/search/oracle.py",
+            "pivot_tpu_torch/experiments/search.py",
+            "pivot_tpu_torch/experiments/spot.py",
+            "pivot_tpu_torch/tools/market_replay.py"} <= seen
     assert offenders == []

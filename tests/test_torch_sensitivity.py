@@ -153,8 +153,16 @@ def test_gate_wraps_vbp_inner():
         SensitivityGatedCostAware(inner=object())
     with pytest.raises(ValueError):
         SensitivityGatedCostAware(inner=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        evaluate_candidates(np.ones((2, 5)), None)
+    # evaluate_candidates is the search's library surface: on a tiny CPU
+    # environment it returns evaluate_rows' scores.
+    from pivot_tpu_torch.search.fitness import evaluate_rows, make_search_env
+
+    env = make_search_env(n_hosts=6, seed=2, n_apps=2, horizon=200.0,
+                          n_replicas=2, dtype=torch.float64, device="cpu")
+    pop = np.array([[1.0, 1.0, 1.0, 0.0, 1.0], [2.0, 0.5, 1.0, 3.0, 1.0]])
+    want, _ = evaluate_rows(pop, env)
+    np.testing.assert_array_equal(evaluate_candidates(pop, env), want)
+    assert np.isfinite(want).all()
 
 
 # -- the replica-batched passes ------------------------------------------------
