@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # from the root of a checkout
     python3 chip_smoke.py --phases 6,7 # some phases (default: all)
     python3 chip_smoke.py --phases 8   # the policy search alone
+    python3 chip_smoke.py --phases 9   # congestion, checkpoints, calibrate
 
 One card.  ``--phases`` takes a comma list; phases 2-5 bring phase 1's
 build along, phase 5 the runs of phases 3 and 4.
@@ -29,7 +30,7 @@ Phases, each fatal on failure:
      shared-memory-state build at H = 9664.  Placements must be equal;
      availability within rtol 1e-6 / atol 1e-5;
   3. end to end: the ``overall`` experiment (Opportunistic, VBP,
-     Cost-Aware) at 600 hosts x 1000 apps through the port's CLI entry
+     Cost-Aware) at 600 hosts x 500 apps through the port's CLI entry
      point, on ``--device cuda --no-adaptive`` with fused spans (the
      default), again with fusion off, and on ``--device numpy``.  Every
      span of the fused run executes under
@@ -122,7 +123,24 @@ Phases, each fatal on failure:
      port on the CPU, and the float32 pow twin on 2**24 pairs with
      exponents in [0, 3] (bases from the tables and at the edges of
      float32's range).  Unfinished counts, makespans and instance-hours
-     equal, egress and scores within rtol 1e-5.
+     equal, egress and scores within rtol 1e-5;
+  9. the congestion backlog model, realtime scoring, checkpoints and
+     ``calibrate`` on the card (no hand kernel: ``greedy_place`` must make
+     no launch): (a) ``calibrate --num-apps 50`` and ``... --realtime``
+     through the CLI at its defaults (600 hosts, cost-aware, R = 1,
+     perturb 0, lifo, float32), each report equal to ``pivot_tpu``'s
+     (``tests/data/calibrate_seed0.json``; egress within rtol 1e-5) —
+     wall, and each mode's rollout ticks, placement steps and host
+     reads; (b) the README's ``ensemble --policy opportunistic
+     --congestion`` with ``--checkpoint`` at R = 1024 (50 apps, 600
+     hosts), its first 16 replicas equal to ``pivot_tpu``'s R = 16 run
+     (``tests/data/ensemble_congestion_seed0.npz``) — wall, rollouts/s,
+     ticks, placement steps, host reads, CUDA-event ms, peak memory;
+     (c) at 10 apps, R = 4: a checkpointed run killed after its first
+     segment and resumed from the file equals the uninterrupted run bit
+     for bit, and first-fit and best-fit with congestion, host-pair pipes
+     and realtime scoring with faults equal the port on the CPU.  The
+     same rule as phase 6.
 
 Each phase logs its wall.  The line before the last is a JSON
 ``kernels`` record (its ``launches`` split into the R = 1 and R = 256
@@ -751,7 +769,12 @@ def make_shadow_policy(cuda_mod, ck):
     return ShadowCostAware
 
 
-def phase_end_to_end(device, n_hosts=600, n_apps=1000):
+#: Phase 3's depth: 500 apps, not 1000: with phase 9 the whole script
+#: passed 1,080 s of its 1,200 s limit (PERF.md, section 4).
+E2E_APPS = 500
+
+
+def phase_end_to_end(device, n_hosts=600, n_apps=E2E_APPS):
     from pivot_tpu_torch.experiments import cli, runner
     from pivot_tpu_torch.ops import cuda_kernels as ck
     from pivot_tpu_torch.ops import tickloop
@@ -2370,6 +2393,263 @@ def phase_search(device):
     return out
 
 
+#: Phase 9: the congestion model, realtime scoring, checkpoints and
+#: ``calibrate``.  The fixtures ``pivot_tpu`` wrote
+#: (``tests/test_torch_calibrate.py``, ``tests/test_torch_congestion_
+#: fixture.py``) and their configurations.
+CAL_FIXTURE = "tests/data/calibrate_seed0.json"
+CAL_RUNS = {"modes": (), "realtime": ("--realtime",)}
+CAL_RTOL = 1e-5
+CG_FIXTURE = "tests/data/ensemble_congestion_seed0.npz"
+CG_ARGV = ("--policy", "opportunistic", "--congestion")
+CG_REPLICAS = 1024
+CG_CHECK_REPLICAS = 16
+CG_APPS = 10
+CG_SMALL_REPLICAS = 4
+#: (c)'s card-vs-CPU cases at ``CG_APPS`` apps: (policy, options).
+CG_SMALL = (
+    ("first-fit", dict(congestion=True, tick_order="lifo")),
+    ("best-fit", dict(congestion=True)),
+    ("cost-aware", dict(congestion="pairs", tick_order="lifo")),
+    ("cost-aware", dict(congestion=True, realtime_scoring=True,
+                        n_faults=4, mttr=300.0)),
+)
+
+
+def reports_equal(got, want, path="report") -> float:
+    """``calibrate`` reports equal key for key; an estimate's egress (and
+    what derives from it) within ``CAL_RTOL``.  Returns the largest
+    relative egress difference."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{path}: keys {sorted(set(got) ^ set(want))}")
+        return max([reports_equal(got[k], want[k], f"{path}.{k}")
+                    for k in want] + [0.0])
+    if isinstance(want, list):
+        if len(got) != len(want):
+            raise AssertionError(f"{path}: length {len(got)} vs {len(want)}")
+        return max([reports_equal(g, w, f"{path}[{i}]")
+                    for i, (g, w) in enumerate(zip(got, want))] + [0.0])
+    if ("egress_cost" in path and ".des" not in path
+            and isinstance(want, float)):
+        rel = abs(got - want) / max(abs(want), 1e-30) if want else abs(got)
+        if rel > CAL_RTOL:
+            raise AssertionError(f"{path}: {got!r} vs {want!r}")
+        return rel
+    if got != want:
+        raise AssertionError(f"{path}: {got!r} vs {want!r}")
+    return 0.0
+
+
+def cg_small(inputs, policy, opts, path=None):
+    """Phase 9 (c)'s runs at ``CG_APPS`` apps, R = 4, through
+    ``rollout_checkpointed`` (faults drawn eagerly, as the CLI draws
+    them)."""
+    from pivot_tpu_torch.parallel import ensemble as E
+    from pivot_tpu_torch.parallel.ensemble import prng
+
+    args, (a0, w, topo, sz) = inputs
+    return E.rollout_checkpointed(
+        prng.PRNGKey(args.seed), a0, w, topo, sz, path,
+        n_replicas=CG_SMALL_REPLICAS, tick=args.tick,
+        max_ticks=args.max_ticks, perturb=args.perturb, segment_ticks=64,
+        policy=policy, **opts)
+
+
+def cg_kernels_per_tick(inputs, congestion, skip=60, window=20):
+    """Device kernels a tick of an opportunistic rollout at ``CG_APPS``
+    apps, R = 4, over ``window`` ticks after ``skip``, by
+    ``torch.profiler``; None when it records no device kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pivot_tpu_torch.parallel import ensemble as E
+    from pivot_tpu_torch.parallel.ensemble import prng
+
+    args, (a0, w, topo, sz) = inputs
+    key = prng.PRNGKey(args.seed)
+    rt, arr, ra = E._perturbations(key, w, sz, CG_SMALL_REPLICAS,
+                                   args.perturb, a0.dtype)
+    u = E._opportunistic_uniforms(key, CG_SMALL_REPLICAS, w.n_tasks,
+                                  a0.dtype, a0.device)
+    kw = dict(policy="opportunistic", task_u=u, congestion=congestion)
+    state = E._init_state(a0, w.n_tasks, topo.cost.shape[0],
+                          CG_SMALL_REPLICAS, congestion=congestion)
+    state = E._rollout_segment(state, rt, arr, ra, w, topo, args.tick, skip,
+                               **kw)
+    torch.cuda.synchronize()
+    st = {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        E._rollout_segment(state, rt, arr, ra, w, topo, args.tick, window,
+                           stats=st, **kw)
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA"))
+    return (n / st["ticks"], st["place_steps"] / st["ticks"]) if n else None
+
+
+def phase_congestion(device):
+    """Phase 9: (a) ``calibrate`` through the CLI at its defaults, static
+    and congested, then ``--realtime``, each report against
+    ``pivot_tpu``'s; (b) the README's ``ensemble --policy opportunistic
+    --congestion`` with ``--checkpoint`` at R = 1024, its first 16 rows
+    against ``pivot_tpu``'s R = 16 run; (c) at ``CG_APPS`` apps on the
+    card against the port on the CPU: a checkpointed run killed after its
+    first segment and resumed, and the arms and modes of ``CG_SMALL``.
+    No hand kernel lies on this path: ``greedy_place`` must make no
+    launch."""
+    from pivot_tpu_torch.experiments import cli
+    from pivot_tpu_torch.ops import cuda_kernels as ck
+    from pivot_tpu_torch.parallel import ensemble as E
+
+    out = {"calibrate": {}, "checks": {}}
+    ck.reset_launches()
+    with open(CAL_FIXTURE) as f:
+        cal_fx = json.load(f)
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        # (a) calibrate at the CLI's defaults (600 hosts, cost-aware,
+        #     R = 1, perturb 0, lifo, float32).
+        for name, extra in CAL_RUNS.items():
+            st = {}
+            torch.backends.cuda.matmul.allow_tf32 = True
+            t0 = time.perf_counter()
+            report = cli.run_calibrate(cli.parse_args(
+                ["--job-dir", "data/jobs", "--output-dir", tmp, "calibrate",
+                 *extra]), stats=st)
+            wall = time.perf_counter() - t0
+            if torch.backends.cuda.matmul.allow_tf32:
+                raise AssertionError("run_calibrate left TF32 matmuls on")
+            worst = reports_equal(json.loads(json.dumps(report)),
+                                  cal_fx[name], f"(a) calibrate {name}")
+            modes = {m: {k: st[m][k] for k in ("ticks", "place_steps",
+                                               "host_syncs", "wall_s",
+                                               "event_span_ms")}
+                     for m in st if m != "out_dir"}
+            out["calibrate"][name] = dict(wall_s=wall, egress_max_rel=worst,
+                                          modes=modes)
+            log(f"  (a) calibrate{' ' + ' '.join(extra) if extra else ''} "
+                f"--num-apps 50 through the CLI: wall {wall!r} s; report "
+                f"equals pivot_tpu's (egress largest rel diff {worst!r}); "
+                + "; ".join(
+                    f"{m}: {r['ticks']} ticks, {r['place_steps']} placement "
+                    f"steps, {r['host_syncs']} host reads, rollout "
+                    f"{r['wall_s']!r} s, {r['event_span_ms']!r} ms between "
+                    f"CUDA events, makespan rel err "
+                    f"{report[m]['rel_err']['makespan']!r}"
+                    for m, r in modes.items()))
+
+        # (b) the README's command at full width, checkpointed.
+        with np.load(CG_FIXTURE) as z:
+            fixture = {f: z[f] for f in ENS_FIELDS}
+        st = {}
+        ckpt = os.path.join(tmp, "congestion.npz")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        summary = cli.run_ensemble(cli.parse_args(ensemble_argv(
+            tmp, "--replicas", str(CG_REPLICAS), *CG_ARGV, "--checkpoint",
+            ckpt)), stats=st)
+        peak = torch.cuda.max_memory_allocated()
+        with np.load(os.path.join(st["out_dir"], "rollout.npz")) as z:
+            got = {k: z[k] for k in z.files}
+        with np.load(ckpt) as z:
+            done = int(z["ticks_done"])
+            q_shape = z["q"].shape
+        if (got["placement"].shape[0] != CG_REPLICAS
+                or summary["unfinished_max"] != 0
+                or not summary["congestion"]
+                or not np.isfinite(got["finish_time"]).all()
+                or q_shape[0] != CG_REPLICAS or done <= 0):
+            raise AssertionError("(b) malformed congestion run or checkpoint")
+        worst = ensemble_compare(got, fixture, "(b) opportunistic congestion "
+                                 f"R={CG_REPLICAS} prefix vs pivot_tpu",
+                                 rows=CG_CHECK_REPLICAS)
+        row = dict(wall_s=summary["wall_s"],
+                   replica_rollouts_per_sec=summary[
+                       "replica_rollouts_per_sec"],
+                   loop_wall_s=st["wall_s"],
+                   event_span_ms=st["event_span_ms"], ticks=st["ticks"],
+                   place_steps=st["place_steps"],
+                   host_syncs=st["host_syncs"], peak_mem_bytes=peak,
+                   checkpoint_ticks=done, prefix_max_rel=worst,
+                   makespan_mean=summary["makespan_mean"],
+                   egress_mean=summary["egress_mean"])
+        out["ensemble"] = row
+        log(f"  (b) ensemble {' '.join(CG_ARGV)} --checkpoint, "
+            f"R={CG_REPLICAS}, 50 apps, 600 hosts through the CLI: wall "
+            f"{row['wall_s']!r} s, {row['replica_rollouts_per_sec']!r} "
+            f"replica rollouts/s; {row['ticks']} ticks, {row['place_steps']} "
+            f"placement steps, {row['host_syncs']} host reads; tick loop "
+            f"{row['loop_wall_s']!r} s on the host clock (file writes "
+            f"included), {row['event_span_ms']!r} ms between CUDA events; "
+            f"peak memory {peak / 2**30!r} GiB; checkpoint at tick {done}, "
+            f"q {list(q_shape)}; rows 0-{CG_CHECK_REPLICAS - 1} equal "
+            f"pivot_tpu's R={CG_CHECK_REPLICAS} run (egress rel diff "
+            f"{worst!r}); makespan mean {row['makespan_mean']!r} s")
+
+        # (c) small cases, the card against the port on the CPU.
+        on_card = ensemble_inputs(cli, device, n_apps=CG_APPS)
+        on_cpu = ensemble_inputs(cli, "cpu", n_apps=CG_APPS)
+        opts = dict(congestion=True, tick_order="lifo")
+        whole = _result(cg_small(on_card, "opportunistic", opts))
+        path = os.path.join(tmp, "killed.npz")
+        orig = E._segment_step
+        calls = []
+
+        def dying(*a, **k):
+            if calls:
+                raise KeyboardInterrupt("killed after the first segment")
+            calls.append(1)
+            return orig(*a, **k)
+
+        E._segment_step = dying
+        try:
+            cg_small(on_card, "opportunistic", opts, path)
+            raise AssertionError("(c) the kill hook did not fire")
+        except KeyboardInterrupt:
+            pass
+        finally:
+            E._segment_step = orig
+        with np.load(path) as z:
+            killed_at = int(z["ticks_done"])
+        resumed = _result(cg_small(on_card, "opportunistic", opts, path))
+        for f in ENS_FIELDS:
+            if not np.array_equal(resumed[f], whole[f]):
+                raise AssertionError(f"(c) resumed run differs in {f}")
+        out["checks"]["resume"] = dict(killed_at=killed_at)
+        log(f"  (c) opportunistic congestion lifo, {CG_APPS} apps, "
+            f"R={CG_SMALL_REPLICAS}, killed at tick {killed_at} and resumed "
+            "from the file: every field equals the uninterrupted run's bits")
+        for policy, kw in CG_SMALL:
+            t0 = time.perf_counter()
+            got = _result(cg_small(on_card, policy, kw))
+            card_s = time.perf_counter() - t0
+            worst = ensemble_compare(got, _result(cg_small(on_cpu, policy,
+                                                           kw)),
+                                     f"(c) {policy} {kw} card vs CPU")
+            if got["n_unfinished"].max() != 0:
+                raise AssertionError(f"(c) {policy} {kw}: tasks unfinished")
+            label = f"{policy} " + " ".join(f"{k}={v}" for k, v in kw.items())
+            out["checks"][label] = dict(max_rel=worst, card_s=card_s)
+            log(f"  (c) {label}, {CG_APPS} apps, R={CG_SMALL_REPLICAS}: card "
+                f"equals the port on the CPU, egress rel diff {worst!r}; "
+                f"card {card_s!r} s")
+        per_tick = {c: cg_kernels_per_tick(on_card, c) for c in (False, True)}
+        out["kernels_per_tick"] = per_tick
+        if None in per_tick.values():
+            log("  (c) torch.profiler recorded no device kernel: kernels a "
+                "tick not measured")
+        else:
+            log(f"  (c) device kernels a tick, opportunistic, {CG_APPS} apps, "
+                f"R={CG_SMALL_REPLICAS}, ticks 60-80 (torch.profiler): "
+                f"{per_tick[True][0]!r} with congestion, "
+                f"{per_tick[False][0]!r} without ({per_tick[True][1]!r} / "
+                f"{per_tick[False][1]!r} placement steps a tick)")
+    if ck.LAUNCHES["greedy_place"]:
+        raise AssertionError("phase 9 launched greedy_place")
+    log("  greedy_place launches in phase 9: 0 (no hand kernel on this "
+        "path)")
+    return out
+
+
 def phase_5_report(ck, e2e, sens, card, device):
     """Phase 5: times on the card (the main path's wrapper, bare launches,
     the warp sweep, the gated R = 256 launches) and the reports of
@@ -2466,7 +2746,7 @@ def phase_5_report(ck, e2e, sens, card, device):
     return times, gt, spans
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9)
 
 
 def selected_phases(argv) -> set:
@@ -2541,8 +2821,8 @@ def main(argv=None) -> int:
         log(f"  phase 2 wall: {walls[2]!r} s")
     if 3 in phases:
         tp = time.perf_counter()
-        log("== 3. overall, 600 hosts x 1000 apps: cuda with fused spans, "
-            "cuda with fusion off, numpy")
+        log(f"== 3. overall, 600 hosts x {E2E_APPS} apps: cuda with fused "
+            "spans, cuda with fusion off, numpy")
         e2e = phase_end_to_end(device)
         walls[3] = time.perf_counter() - tp
         log(f"  phase 3 wall: {walls[3]!r} s")
@@ -2591,9 +2871,20 @@ def main(argv=None) -> int:
         search = phase_search(device)
         walls[8] = time.perf_counter() - tp
         log(f"  phase 8 wall: {walls[8]!r} s")
+    congestion = None
+    if 9 in phases:
+        tp = time.perf_counter()
+        log("== 9. the congestion model, realtime scoring, checkpoints and "
+            "calibrate on the card: calibrate and the README's congestion "
+            f"command through the CLI against pivot_tpu, card vs CPU at "
+            f"{CG_APPS} apps")
+        log(f"  [{card}]")
+        congestion = phase_congestion(device)
+        walls[9] = time.perf_counter() - tp
+        log(f"  phase 9 wall: {walls[9]!r} s")
     log(json.dumps({
         "times": times, "spans": spans, "ensemble": ens, "sweeps": sweeps,
-        "search": search, "phase_walls": walls,
+        "search": search, "congestion": congestion, "phase_walls": walls,
         "same_files": e2e and e2e["same_files"], "gated_times": gt,
         "sensitivity": sens and {p: {k: v for k, v in r.items()
                                      if k != "check"}

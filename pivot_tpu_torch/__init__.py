@@ -12,7 +12,10 @@ it imports ``torch`` and numpy, never ``jax`` and never ``pivot_tpu``.
     policies of ``sched/cuda.py``;
   - ``ops``: the placement kernels as plain torch (``ops/kernels.py``)
     and the hand-written CUDA kernel's wrapper (``ops/cuda_kernels.py``);
-  - ``experiments``: the runner and the ``overall`` CLI.
+  - ``parallel``: the Monte-Carlo ensemble (faults, congestion,
+    checkpoints, the sweeps);
+  - ``experiments``: the runner, the CLI (``overall`` through ``search``
+    and ``calibrate``), the calibration harness and the trace sampler.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -1,8 +1,8 @@
 """Experiment CLI of the port: ``overall``, ``num-apps``,
-``sensitivity``, ``ensemble``, ``autotune``, ``capacity``, ``apps`` and
-``search``.
+``sensitivity``, ``ensemble``, ``calibrate``, ``autotune``, ``capacity``,
+``apps`` and ``search``.
 
-Port of ``pivot_tpu/experiments/cli.py``, cut to eight subcommands:
+Port of ``pivot_tpu/experiments/cli.py``, cut to nine subcommands:
 
   * ``overall`` (``:914``): the three reference scheduler arms
     (Opportunistic / VBP / Cost-Aware,
@@ -23,9 +23,16 @@ Port of ``pivot_tpu/experiments/cli.py``, cut to eight subcommands:
     ``--num-apps`` apps over ``--replicas`` perturbed replicas, writing
     ``rollout.npz`` and ``summary.json`` under
     ``<output-dir>/ensemble/<stamp>/``, with per-replica fault schedules
-    (``--faults``, ``--fault-horizon``, ``--fault-mttr``).  Congestion,
-    realtime scoring and checkpoints raise ``NotImplementedError``
-    (ROADMAP.md Queue 1); the distribution plot is not drawn;
+    (``--faults``, ``--fault-horizon``, ``--fault-mttr``), the congestion
+    backlog model (``--congestion``), realtime scoring
+    (``--realtime-score``) and checkpoint/resume (``--checkpoint``); the
+    distribution plot is not drawn;
+  * ``calibrate`` (``:1118``): the estimator against the exact DES on
+    the first trace (``experiments/calibrate.py``), static and congested
+    transfer models or ``--realtime``, over ``--des-seeds`` /
+    ``--cluster-seeds``; the report goes to stdout (its first line) and
+    ``<output-dir>/calibrate/<stamp>/report.json``.  The spread figure
+    is not drawn (the plots are ROADMAP.md Queue 1 item 12);
   * ``autotune`` (``:1309``), ``capacity`` (``:1404``) and ``apps``
     (``:1525``): the what-if sweeps of ``parallel/ensemble/sweeps.py``
     (cost-aware score exponents, cluster sizes with optional faults,
@@ -48,10 +55,10 @@ Port of ``pivot_tpu/experiments/cli.py``, cut to eight subcommands:
 through the hand-written kernel, every tick on the card unless
 ``--adaptive`` lets small ticks go to the numpy twin) or ``naive`` /
 ``numpy`` (the CPU policies); ``sensitivity`` always runs the device
-policies; ``ensemble``, the sweeps and ``search`` run on the card (the
-``torch_device`` of their ``run_*`` function).  The other subcommands
-(``calibrate``, ``serve``, ``worker``; the MPC is ROADMAP.md Queue 1
-item 5), ``--network native``, ``--batch-runs`` and ``--profile-dir``,
+policies; ``ensemble``, the sweeps, ``calibrate``'s estimator and
+``search`` run on the card (the ``torch_device`` of their ``run_*``
+function).  The other subcommands (``serve``, ``worker``; the MPC is
+ROADMAP.md Queue 1 item 5), ``--network native``, ``--batch-runs`` and ``--profile-dir``,
 and the plots are not ported yet (ROADMAP.md, port queue).
 
 Usage:
@@ -308,8 +315,9 @@ def parse_args(argv=None):
     ens.add_argument("--tick", type=float, default=5.0)
     ens.add_argument("--max-ticks", type=int, default=2048)
     ens.add_argument("--checkpoint", default=None, metavar="NPZ",
-                     help="segmented rollout with checkpoint/resume (not "
-                          "ported yet: raises)")
+                     help="segmented rollout with checkpoint/resume: the "
+                          "state goes to NPZ every 256 ticks and a rerun "
+                          "with the same arguments continues from it")
     ens.add_argument("--replica-chunk", type=int, default=0, metavar="R",
                      help="run the ensemble in replica chunks of R (0 = "
                           "off); chunk c > 0 draws from fold_in(key, c), "
@@ -325,12 +333,52 @@ def parse_args(argv=None):
                      help="mean outage duration (Exp-distributed); "
                           "omit for permanent crashes")
     ens.add_argument("--congestion", action="store_true",
-                     help="tick-resolution link-contention model (not "
-                          "ported yet: raises)")
+                     help="tick-resolution link-contention model: transfer "
+                          "delays account for queued backlog on each "
+                          "(src zone → dst host) pipe instead of assuming "
+                          "uncontended bandwidth")
     ens.add_argument("--realtime-score", action="store_true",
                      dest="realtime_scoring",
-                     help="backlog-discounted cost-aware scoring (implies "
-                          "--congestion; not ported yet: raises)")
+                     help="cost-aware scoring reads the backlog-discounted "
+                          "inbound bandwidth (the DES realtime_bw arm's "
+                          "estimator analog; implies --congestion)")
+    cal = sub.add_parser(
+        "calibrate",
+        help="quantify the ensemble estimator against DES ground truth: "
+             "same (trace, cluster, policy) through both engines, "
+             "side-by-side metrics with relative errors for the static "
+             "and congestion-aware transfer models",
+    )
+    cal.add_argument("--num-apps", type=int, dest="num_apps", default=50)
+    cal.add_argument("--policy", default="cost-aware",
+                     choices=["cost-aware", "first-fit", "best-fit",
+                              "opportunistic"])
+    cal.add_argument("--replicas", type=int, default=1,
+                     help="ensemble replicas (1 + --perturb 0 = nominal "
+                          "scenario; more = Monte-Carlo mean)")
+    cal.add_argument("--perturb", type=float, default=0.0)
+    cal.add_argument("--tick", type=float, default=5.0)
+    cal.add_argument("--max-ticks", type=int, default=4096)
+    cal.add_argument("--des-seeds", type=int, default=1,
+                     help="run the DES ground truth at this many "
+                          "consecutive seeds and calibrate against the "
+                          "seed MEAN (records des_per_seed/des_spread; "
+                          "the right comparison for the order-chaotic "
+                          "packing arms — pair with --replicas > 1; the "
+                          "spread figure is not drawn yet)")
+    cal.add_argument("--cluster-seeds", type=int, default=1,
+                     help="repeat the paired DES-vs-estimator comparison "
+                          "on this many independently generated clusters "
+                          "(fresh zone layout + bandwidth jitter) and "
+                          "report mean/std rel err per metric (the spread "
+                          "figure is not drawn yet)")
+    cal.add_argument("--x64", action="store_true",
+                     help="run the estimator in float64 like the DES")
+    _add_tick_order(cal, default="lifo")
+    cal.add_argument("--realtime", action="store_true",
+                     help="calibrate the bandwidth-aware variants against "
+                          "each other: DES realtime_bw arm vs estimator "
+                          "congestion + realtime scoring (cost-aware only)")
     at = sub.add_parser(
         "autotune",
         help="scheduler-hyperparameter search: sweep the cost-aware score "
@@ -356,7 +404,7 @@ def parse_args(argv=None):
                     help="winner selection: mean makespan or mean egress")
     at.add_argument("--congestion", action="store_true",
                     help="score candidates under the link-contention "
-                         "transfer model (not ported yet: raises)")
+                         "transfer model")
     cap = sub.add_parser(
         "capacity",
         help="capacity planning: roll the workload out on K candidate "
@@ -385,11 +433,11 @@ def parse_args(argv=None):
                      choices=["cost-aware", "first-fit", "best-fit",
                               "opportunistic"])
     cap.add_argument("--congestion", action="store_true",
-                     help="link-contention model (not ported yet: raises)")
+                     help="link-contention model")
     cap.add_argument("--realtime-score", action="store_true",
                      dest="realtime_scoring",
                      help="backlog-discounted cost-aware scoring (implies "
-                          "--congestion; not ported yet: raises)")
+                          "--congestion)")
     cap.add_argument("--faults", type=int, default=0, metavar="N",
                      help="resilience-aware sizing: each replica draws an "
                           "independent N-crash schedule, applied as the "
@@ -423,7 +471,7 @@ def parse_args(argv=None):
                               "opportunistic"],
                      help="arms to sweep (default: the reference's three)")
     aps.add_argument("--congestion", action="store_true",
-                     help="link-contention model (not ported yet: raises)")
+                     help="link-contention model")
     sch = sub.add_parser(
         "search",
         help="policy search at ensemble scale (pivot_tpu_torch/search/): "
@@ -469,7 +517,16 @@ def parse_args(argv=None):
                           "the replay anchor data/search/ci_seed.json)")
     sch.add_argument("--out", default=None, metavar="FILE",
                      help="write the report JSON here as well")
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    if (
+        getattr(args, "realtime_scoring", False)
+        or getattr(args, "realtime", False)
+    ) and args.policy != "cost-aware":
+        parser.error(
+            "--realtime-score/--realtime apply to the cost-aware arm only "
+            "— no other policy scores on bandwidth"
+        )
+    return args
 
 
 def _add_tick_order(sub_parser, default="fifo"):
@@ -827,6 +884,52 @@ def run_ensemble(args, torch_device: str = "cuda", dtype: str = "float32",
     return summary
 
 
+def run_calibrate(args, torch_device: str = "cuda",
+                  stats: Optional[dict] = None) -> dict:
+    """Estimator-fidelity report: the DES against the ensemble on the
+    first trace (``experiments/calibrate.py::calibrate``), the estimator
+    on ``torch_device`` (TF32 off).  Writes ``report.json`` under
+    ``<output-dir>/calibrate/<stamp>/`` and prints the report as the
+    first line of stdout; returns it.  ``stats``, when given, gains each
+    mode's rollout counts and ``out_dir``.  The spread figure of
+    ``--des-seeds`` / ``--cluster-seeds`` reports is not drawn (the plots
+    are ROADMAP.md Queue 1 item 12)."""
+    from pivot_tpu_torch.experiments.calibrate import calibrate
+
+    trace = _list_traces(args.job_dir, 1)[0]
+    multi_cluster = args.cluster_seeds > 1
+    report = calibrate(
+        trace,
+        cluster=None if multi_cluster else build_cluster(
+            _cluster_config(args)),
+        cluster_config=_cluster_config(args) if multi_cluster else None,
+        n_apps=args.num_apps,
+        policy=args.policy,
+        scale_factor=args.scale_factor,
+        seed=args.seed,
+        tick=args.tick,
+        max_ticks=args.max_ticks,
+        replicas=args.replicas,
+        perturb=args.perturb,
+        realtime=args.realtime,
+        x64=args.x64,
+        des_seeds=args.des_seeds,
+        cluster_seeds=args.cluster_seeds,
+        tick_order=args.tick_order,
+        device=torch_device,
+        stats=stats,
+    )
+    out_dir = os.path.join(args.output_dir, "calibrate",
+                           str(int(time.time())))
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "report.json"), "w") as f:
+        json.dump(report, f, indent=2)
+    if stats is not None:
+        stats["out_dir"] = out_dir
+    print(json.dumps(report))
+    return report
+
+
 def _host(res):
     """A sweep's ``[K, R]`` results on the host: makespan, egress,
     instance-hours and the per-candidate worst unfinished count."""
@@ -1123,8 +1226,9 @@ def main(argv=None) -> None:
     if args.command == "search":
         run_search_cli(args)
         return
-    sweeps = {"ensemble": run_ensemble, "autotune": run_autotune,
-              "capacity": run_capacity, "apps": run_apps}
+    sweeps = {"ensemble": run_ensemble, "calibrate": run_calibrate,
+              "autotune": run_autotune, "capacity": run_capacity,
+              "apps": run_apps}
     if args.command in sweeps:
         sweeps[args.command](args)
         return

@@ -14,17 +14,22 @@ rollout state, ``tick.py`` the tick body, ``bill.py`` finalization and
 the egress bill, ``draws.py`` the Monte-Carlo draws (perturbations,
 fault schedules), ``prng.py`` the threefry twin of ``jax.random`` they
 draw from, ``libm.py`` XLA:CPU's ``log1p`` and ``pow``, ``sweeps.py``
-the row runner and the score, capacity and workload sweeps.
+the row runner and the score, capacity and workload sweeps,
+``checkpoint.py`` segmented runs with checkpoint files and replica
+chunks.
 
-Runs: fault schedules (``n_faults``, ``fault_horizon``, ``mttr``), and
-through the row runner per-row score exponents, the eviction-risk term,
-the active-task mask and per-row initial availability.  Raises
-``NotImplementedError`` (ROADMAP.md Queue 1): the congestion backlog
-model, realtime scoring and checkpoint files; sharding
-(``sharded_rollout``, ``shard_sweep``) has no counterpart yet.
+Runs: fault schedules (``n_faults``, ``fault_horizon``, ``mttr``), the
+congestion backlog model (``congestion=True`` or ``"pairs"``), realtime
+scoring, checkpoint files (``rollout_checkpointed``), and through the
+row runner per-row score exponents, the eviction-risk term, the
+active-task mask and per-row initial availability.  Sharding
+(``sharded_rollout``, ``shard_sweep``) raises ``NotImplementedError``
+(ROADMAP.md Queue 1 item 9).
 
 Results on the CPU in float64 equal ``pivot_tpu``'s bit for bit, except
-the egress bill, which agrees to a few ulps (``bill.py``).  Entry points
+the egress bill, which agrees to a few ulps (``bill.py``), and, with the
+congestion model, the pull-volume product (``tick._pull_volumes``,
+ROADMAP.md Queue 3).  Entry points
 run where ``avail0`` lives; float64 with Exp(mttr) outages or score
 exponents runs on the CPU only (the C library's ``log`` / ``pow``:
 ``libm.py``), the card runs float32.  Build the inputs with
@@ -35,13 +40,17 @@ from __future__ import annotations
 
 from typing import Optional
 
-import torch
-
-from pivot_tpu_torch.parallel.ensemble import prng
+from pivot_tpu_torch.parallel.ensemble import prng  # noqa: F401
 from pivot_tpu_torch.parallel.ensemble.bill import (  # noqa: F401
     _finalize,
     _sampled_egress,
     _sampling_table,
+)
+from pivot_tpu_torch.parallel.ensemble.checkpoint import (  # noqa: F401
+    _fingerprint,
+    _segment_step,
+    rollout_checkpointed,
+    rollout_chunked,
 )
 from pivot_tpu_torch.parallel.ensemble.draws import (  # noqa: F401
     _fault_schedule,
@@ -83,8 +92,11 @@ __all__ = [
     "capacity_grid",
     "capacity_sweep",
     "rollout",
+    "rollout_checkpointed",
     "rollout_chunked",
     "score_param_sweep",
+    "shard_sweep",
+    "sharded_rollout",
     "workload_sweep",
 ]
 
@@ -239,36 +251,11 @@ def _rollout(key, avail0, workload, topo, storage_zones, *, contract,
     return _finalize(states, workload, topo)
 
 
-def rollout_chunked(
-    key,
-    avail0,
-    workload: EnsembleWorkload,
-    topo,
-    storage_zones,
-    checkpoint_path: Optional[str],
-    replica_chunk: int,
-    n_replicas: int = 64,
-    segment_ticks: int = 256,
-    resume: bool = True,
-    **kw,
-) -> RolloutResult:
-    """Ensemble rollout in replica chunks of ``replica_chunk``: chunk 0
-    uses ``key`` verbatim, chunk ``c > 0`` draws from ``fold_in(key, c)``.
-    ``replica_chunk <= 0`` (or ``>= n_replicas``) is one :func:`rollout`
-    (``pivot_tpu``'s segmented path equals it bit for bit, its fault
-    schedule drawn eagerly: ``_rollout(contract=False)``).  Checkpoint
-    files are not ported yet."""
-    check_supported(checkpoint_path=checkpoint_path)
-    if replica_chunk <= 0 or n_replicas <= replica_chunk:
-        return _rollout(key, avail0, workload, topo, storage_zones,
-                        n_replicas=n_replicas, contract=False, **kw)
-    parts = []
-    done = 0
-    while done < n_replicas:
-        c = len(parts)
-        n = min(replica_chunk, n_replicas - done)
-        ck = key if c == 0 else prng.fold_in(key, c)
-        parts.append(rollout(ck, avail0, workload, topo, storage_zones,
-                             n_replicas=n, **kw))
-        done += n
-    return RolloutResult(*(torch.cat(xs, 0) for xs in zip(*parts)))
+def sharded_rollout(*args, **kwargs):
+    """``pivot_tpu``'s mesh-sharded rollout: not ported yet."""
+    check_supported()
+
+
+def shard_sweep(*args, **kwargs):
+    """``pivot_tpu``'s mesh-sharded sweeps: not ported yet."""
+    check_supported()

@@ -153,7 +153,9 @@ class RolloutState(NamedTuple):
     place: torch.Tensor  # [R, T] int64
     avail: torch.Tensor  # [R, H, 4]
     busy: torch.Tensor  # [R] busy host-seconds accumulator
-    q: Optional[torch.Tensor]  # congestion backlog: not ported (None)
+    q: Optional[torch.Tensor]  # [R, Z, H] queued MB per (src zone → dst
+    # host) pipe, [R, H, H] per (src host → dst host) under
+    # congestion="pairs"; None without the congestion model
     qpos: torch.Tensor  # [R, T] int64 last-batch position of a waiting
     # task (−1 otherwise) — the wait-queue order carry of tick_order="lifo"
 
@@ -176,13 +178,13 @@ def _init_state(avail0, T: int, Z: int, n_replicas: int = 1,
                 congestion=False) -> RolloutState:
     """The initial state of ``n_replicas`` rows on ``avail0``: ``[H, 4]``
     shared by every row, or ``[R, H, 4]`` one per row (the capacity
-    sweep's candidates differ by row)."""
-    if congestion:
-        raise NotImplementedError(
-            "the congestion backlog model is not ported yet (ROADMAP.md "
-            "Queue 1)")
+    sweep's candidates differ by row).  With ``congestion`` the backlog
+    pipes start empty: rows are source zones, or source hosts for
+    ``"pairs"``, columns destination hosts (``pivot_tpu``'s
+    ``state.py:215-231``); without it ``q`` is None."""
     dtype, dev = avail0.dtype, avail0.device
     R = n_replicas
+    H = avail0.shape[-2]
     if avail0.dim() == 3 and avail0.shape[0] != R:
         raise ValueError(f"per-row availability has {avail0.shape[0]} rows "
                          f"for {R} replicas")
@@ -193,6 +195,7 @@ def _init_state(avail0, T: int, Z: int, n_replicas: int = 1,
         place=torch.full((R, T), -1, dtype=torch.int64, device=dev),
         avail=avail0.expand(R, *avail0.shape[-2:]).clone(),
         busy=torch.zeros(R, dtype=dtype, device=dev),
-        q=None,
+        q=torch.zeros((R, H if congestion == "pairs" else Z, H), dtype=dtype,
+                      device=dev) if congestion else None,
         qpos=torch.full((R, T), -1, dtype=torch.int64, device=dev),
     )

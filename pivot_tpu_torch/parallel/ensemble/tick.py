@@ -37,9 +37,18 @@ exponents ``[B, 3]`` (pow tables hoisted per call, ``norm ** w_norm``
 taken once per snapshot, all with XLA:CPU's ``pow``: ``libm.py``;
 float64 on the CPU only), the
 eviction-risk term (``risk_coeff [B]`` with a row-shared ``hazard``) and
-the active-task mask ``[B, T]``.  Not ported yet (each raises
-``NotImplementedError``; ROADMAP.md Queue 1): the congestion backlog
-model (``True`` and ``"pairs"``) and realtime scoring.
+the active-task mask ``[B, T]``.
+
+The congestion backlog model (``congestion=True``: one FIFO pipe per
+(source zone → destination host), ``"pairs"``: per (source host →
+destination host)) and realtime scoring follow ``pivot_tpu``'s indexed
+form (``tick.py:923-1030``): a tick's placements join the pipes as a
+segment sum in task-index order (``index_put_`` with ``accumulate``, as
+the refund), a placed task waits for the backlog of every pipe it pulls
+from, and the pipes drain by ``bw · tick``, one fused multiply-add as
+XLA:CPU computes ``q − bw · tick``.  The pull volumes ``pull_frac @
+counts`` are one product (:func:`_pull_volumes`) whose rounding is not
+XLA:CPU's (ROADMAP.md Queue 3).
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ from pivot_tpu_torch.parallel.ensemble.bill import (
     _fma_norms,
     _ordered_sum,
     _recip,
+    _sampling_table,
 )
 from pivot_tpu_torch.parallel.ensemble.libm import require_host, xla_pow
 from pivot_tpu_torch.parallel.ensemble.prng import fma
@@ -68,22 +78,78 @@ from pivot_tpu_torch.parallel.ensemble.state import (
     _resolve_forms,
 )
 
-_LATER = "(ROADMAP.md Queue 1)"
 POLICIES = ("cost-aware", "first-fit", "best-fit", "opportunistic")
 
 
-def check_supported(congestion=False, realtime_scoring=False,
-                    checkpoint_path=None) -> None:
-    """Raise ``NotImplementedError`` for an option of the JAX rollout the
-    port does not run yet, naming where it stands in the roadmap."""
-    for name, asked in (
-        ("the congestion backlog model", congestion),
-        ("realtime scoring", realtime_scoring),
-        ("checkpointed rollouts", checkpoint_path),
-    ):
-        if asked:
-            raise NotImplementedError(
-                f"{name} is not ported to pivot_tpu_torch yet {_LATER}")
+def check_supported() -> None:
+    """Raise ``NotImplementedError`` for the one part of the JAX ensemble
+    the port does not run yet: sharding over a device mesh
+    (``sharded_rollout``, ``shard_sweep``; ROADMAP.md Queue 1 item 9)."""
+    raise NotImplementedError(
+        "sharded ensemble rollouts are not ported to pivot_tpu_torch yet "
+        "(ROADMAP.md Queue 1 item 9)")
+
+
+def check_options(congestion, realtime_scoring, policy,
+                  score_params=None) -> None:
+    """``pivot_tpu``'s argument checks of the congestion model and
+    realtime scoring (``tick.py:119-141``), with its exception types."""
+    if congestion not in (False, True, "pairs"):
+        raise ValueError(
+            f"congestion must be False, True, or 'pairs', got {congestion!r}")
+    if realtime_scoring and not congestion:
+        raise ValueError("realtime_scoring needs congestion=True (the "
+                         "backlog state is the bandwidth signal)")
+    if realtime_scoring and congestion == "pairs":
+        raise ValueError("realtime_scoring reads zone-resolution backlog "
+                         "(the score tables are [Z, H]); use "
+                         "congestion=True with it")
+    if realtime_scoring and policy != "cost-aware":
+        raise ValueError("realtime_scoring applies to the cost-aware arm "
+                         "only — no other policy scores on bandwidth")
+    if realtime_scoring and score_params is not None:
+        raise ValueError("realtime_scoring and parameterized score "
+                         "exponents are mutually exclusive")
+
+
+def _pull_volumes(pull_frac, counts):
+    """``[R, G, S]`` MB a consumer instance of each group pulls from each
+    source (zone, or host for ``"pairs"``): ``pull_frac @ counts`` per
+    replica (``pivot_tpu``'s ``tick.py:935`` / ``:962``).  XLA:CPU's
+    vmapped product accumulates as the batch width lays out its GEMM
+    tiles (an ascending fused multiply-add chain at some widths, the
+    chain split in two at others), which no fixed order can follow
+    (ROADMAP.md Queue 3); the tests swap in XLA's own product here to
+    hold everything else bitwise."""
+    return torch.matmul(pull_frac, counts)
+
+
+def _pipe_step(q, vol, dst, valid, inv_bw, neg_bw, tick):
+    """One tick of the backlog pipes ``q`` ``[R, S, H]`` (source rows,
+    destination-host columns), given this tick's placed tasks in
+    task-index order per replica: ``vol`` ``[R, n, S]`` the MB each pulls
+    from each source, ``dst`` ``[R, n]`` its host, ``valid`` ``[R, n]``
+    (false on padding).  The volumes join the pipes as a segment sum in
+    that order; a task's congested delay is the largest ``q_now / bw``
+    over the sources it pulls a nonzero volume from.  Returns the drained
+    pipes ``max(q_now − bw · tick, 0)`` (one fused multiply-add, as
+    XLA:CPU computes it) and the delays ``[R, n]``."""
+    R, S, H = q.shape
+    n = dst.shape[1]
+    dev = q.device
+    rep = torch.arange(R, device=dev)[:, None]
+    # Padding adds to dropped rows of its own past the R·H pipe rows (the
+    # refund's reason: one shared dropped row would be one long run).
+    rows = torch.where(valid, rep * H + dst,
+                       R * H + rep * n + torch.arange(n, device=dev))
+    acc = torch.zeros((R * H + R * n, S), dtype=q.dtype, device=dev)
+    acc.index_put_((rows.reshape(-1),), vol.reshape(-1, S), accumulate=True)
+    q_now = q + acc[:R * H].reshape(R, H, S).transpose(1, 2)
+    ratio = (q_now * inv_bw).transpose(1, 2)[rep, dst]  # [R, n, S]
+    zero = torch.zeros((), dtype=q.dtype, device=dev)
+    cong = torch.where(vol > 0, ratio, zero).amax(-1)
+    drained = fma(neg_bw.expand_as(q_now), tick, q_now)
+    return torch.clamp_min(drained, 0.0), cong
 
 
 @contextlib.contextmanager
@@ -184,9 +250,15 @@ def _rollout_segment(
     market's hazard row at ``t`` (``searchsorted(times, t, right) - 1``,
     clipped): cost-aware and best-fit add it to the score, first-fit
     takes the lowest-risk fitting host (ties to the lowest index) and
-    opportunistic draws among the fitting hosts of least risk."""
-    check_supported(congestion=congestion,
-                    realtime_scoring=realtime_scoring)
+    opportunistic draws among the fitting hosts of least risk.
+
+    With ``congestion`` the state's ``q`` carries the backlog pipes; a
+    crash empties the struck host's inbound pipes (and, for ``"pairs"``,
+    its outbound ones), and with ``realtime_scoring`` the cost-aware
+    score reads the inbound bandwidth discounted by the tick-start
+    backlog, ``bw_in / (q + 1)`` (``pivot_tpu``'s ``tick.py:643-655``)."""
+    check_options(congestion, realtime_scoring, policy, score_params)
+    pairs = congestion == "pairs"
     if (hazard is None) != (risk_coeff is None):
         raise ValueError("the risk term needs both hazard and risk_coeff")
     _resolve_forms(forms)
@@ -256,6 +328,20 @@ def _rollout_segment(
         cost_rt = xla_pow(cost_rt[None], sp[:, 0, None, None])  # [R, Z, H]
         bw_rt = xla_pow(bw_rt[None], sp[:, 1, None, None])
         w_norm = sp[:, 2:3]
+    if congestion:
+        # Pipe tables (pure topology, hoisted): the bandwidth of each
+        # (source → destination host) pipe, its reciprocal, and the pull
+        # volume of a consumer instance per done producer instance (the
+        # DES's pull-sample rule, ``bill._sampling_table``).
+        bw_zh = topo.bw[:, host_zone]  # [Z, H]
+        inv_zh = torch.where(bw_zh > 0, 1.0 / bw_zh, zero)
+        # Host pipes: row s is source host s, with its zone's bandwidth.
+        bw_pipe, inv_pipe = (bw_zh[host_zone], inv_zh[host_zone]) if pairs \
+            else (bw_zh, inv_zh)
+        neg_bw = -bw_pipe
+        inst, samp = _sampling_table(workload)
+        pull_frac = (workload.pred_group * samp
+                     * (workload.out_group / inst)[None, :]).to(dtype)
     if hazard is not None:
         h_times, h_rows = hazard
         kind = torch.promote_types(h_times.dtype, dtype)
@@ -314,6 +400,13 @@ def _rollout_segment(
             recovered = (prev_down | struck) & ~down & live
             avail = torch.where(recovered[..., None], tot, avail)
             avail = torch.where((down & live)[..., None], -1.0, avail)
+            if congestion:
+                # A crash cancels the host's queued inbound transfers;
+                # host-pair rows cancel its outbound ones too.
+                hit = struck & live
+                q = torch.where(hit[:, None, :], 0.0, q)
+                if pairs:
+                    q = torch.where(hit[:, :, None], 0.0, q)
         alive_next = pending(stage)
 
         # 2. Readiness: every predecessor instance done, and the DES
@@ -366,6 +459,10 @@ def _rollout_segment(
             anchor = torch.where(has_pred, majority_zone, root_anchor)
         else:
             anchor = root_anchor
+        if pairs:  # [R, G, H] done counts per (group, host)
+            slot = (rep[:, None] * G + group_of) * H + host_c
+            hv_g = torch.zeros(R * G * H, dtype=dtype, device=dev).index_add_(
+                0, slot.reshape(-1), done_f.reshape(-1)).reshape(R, G, H)
 
         # 4. Eligibility: ready, with a fitting host at tick start (the
         #    fit test is exact at group level: demands are group-constant).
@@ -417,6 +514,13 @@ def _rollout_segment(
                                      right=True)[:, 0] - 1
             risk_row = risk_c * h_rows[seg.clamp(0, h_rows.shape[0] - 1)]
 
+        # 5a''. Realtime scoring: the inbound leg of the round trip
+        #      discounted by the tick-start backlog (an empty pipe keeps
+        #      the static entry's bits).
+        if realtime_scoring:
+            score_bw = torch.where(q > 0, bw_rt - bw_zh + bw_zh / (q + 1.0),
+                                   bw_rt)  # [R, Z, H]
+
         # 5b. The placement chain: step j places each replica's j-th
         #     eligible task (a no-op past that replica's n_ready).
         pl = torch.full((R, T), -1, dtype=torch.int64, device=dev)
@@ -449,7 +553,9 @@ def _rollout_segment(
                                             norm_snap)
                 prev_bf = bf_j
                 az = az_p[:, j]
-                if score_params is None:
+                if realtime_scoring:
+                    score = cost_rt[az] / (norm_snap * score_bw[rep, az])
+                elif score_params is None:
                     score = cost_rt[az] / (norm_snap * bw_rt[az])
                 else:
                     score = cost_rt[rep, az] / (norm_snap * bw_rt[rep, az])
@@ -492,6 +598,28 @@ def _rollout_segment(
                 srank = brank
             qpos = torch.where(live, torch.where(ready & ~placed, srank, -1),
                                qpos)
+
+        if congestion:
+            # 5c. The pipes: this tick's placements in task-index order
+            #     per replica (at most n_steps each), their pull volumes,
+            #     the congested delay (never below the static bound),
+            #     then the drain.  A frozen replica's pipes stay as they
+            #     are.
+            cand = order[:, :n_steps]
+            tasks = torch.sort(torch.where(pl.gather(1, cand) >= 0, cand, T),
+                               1).values  # [R, n], T on padding
+            valid = tasks < T
+            tc = tasks.clamp(max=max(T - 1, 0))
+            vols = _pull_volumes(pull_frac, hv_g if pairs else zc)
+            vol = vols[rep[:, None], group_of.gather(1, tc)]  # [R, n, S]
+            vol = torch.where(valid[..., None], vol, zero)
+            q_next, cong = _pipe_step(q, vol, pl.gather(1, tc).clamp(min=0),
+                                      valid, inv_pipe, neg_bw, tick_t)
+            q = torch.where(alive[:, None, None], q_next, q)
+            d_pad = torch.cat([delay, delay.new_zeros((R, 1))], 1)
+            d_pad.scatter_(1, tasks, torch.maximum(d_pad.gather(1, tasks),
+                                                    cong))
+            delay = d_pad[:, :T]
 
         stage = torch.where(placed, _RUNNING, stage)
         place = torch.where(placed, pl, place)

@@ -4,8 +4,9 @@
     own cluster, workload and rollout (chain makespan 85, one parallel
     wave, capacity waves, transfer delay and egress, first-fit lowest
     index, best-fit tightest, opportunistic determinism, cost-aware
-    winning on egress, instance-hours, the group-demand guard) and the
-    options the port does not run yet raising ``NotImplementedError``;
+    winning on egress, instance-hours, the group-demand guard), the
+    option combinations ``pivot_tpu`` refuses raising its ``ValueError``
+    and sharding raising ``NotImplementedError``;
   * **parity on the CPU in float64**: the port's ``rollout`` and
     ``pivot_tpu``'s on the same inputs, every policy × {fifo, lifo},
     against both JAX tick-body forms (``vector`` and ``indexed``).
@@ -278,11 +279,14 @@ def test_instance_hours(port_cluster, case):
 
 
 @pytest.mark.parametrize("option", [
-    dict(congestion=True), dict(congestion="pairs"),
-    dict(congestion=True, realtime_scoring=True),
+    dict(congestion="zones"), dict(congestion="pairs", realtime_scoring=True),
+    dict(realtime_scoring=True),
 ])
 def test_unported_options_raise(port_cluster, option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The congestion model and realtime scoring run now
+    (``tests/test_torch_ensemble_congestion.py``); what still raises is a
+    combination ``pivot_tpu`` refuses too, with its ``ValueError``."""
+    with pytest.raises(ValueError):
         _run(port_cluster, [chain_app()], n_replicas=2, max_ticks=8,
              **option)
 
@@ -301,12 +305,22 @@ def test_fault_option_runs_and_matches_pivot_tpu(jax_cluster, port_cluster):
     assert_results_equal(got, want)
 
 
-def test_checkpoint_path_raises(port_cluster):
+def test_checkpoint_path_raises(port_cluster, tmp_path):
+    """Checkpoint files run now (``tests/test_torch_checkpoint.py``); a
+    segment length that could never advance raises, and sharding (ROADMAP.md
+    Queue 1 item 9) still raises ``NotImplementedError``."""
     topo, a0, sz = _inputs(port_cluster)
     w = E.EnsembleWorkload.from_applications([chain_app()], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        E.rollout_chunked(prng.PRNGKey(0), a0, w, topo, sz, "ck.npz", 0,
-                          n_replicas=2)
+    path = str(tmp_path / "ck.npz")
+    res = E.rollout_chunked(prng.PRNGKey(0), a0, w, topo, sz, path, 0,
+                            n_replicas=2, max_ticks=64, segment_ticks=4)
+    assert res.n_unfinished.tolist() == [0, 0]
+    with pytest.raises(ValueError, match="segment_ticks"):
+        E.rollout_chunked(prng.PRNGKey(0), a0, w, topo, sz, path, 0,
+                          n_replicas=2, segment_ticks=0)
+    for fn in (E.sharded_rollout, E.shard_sweep):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            fn(prng.PRNGKey(0), a0, w, topo, sz)
 
 
 # -- parity with pivot_tpu (float64) -----------------------------------------

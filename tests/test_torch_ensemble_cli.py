@@ -9,8 +9,8 @@ rtol 1e-12 (``tests/test_torch_ensemble.py`` says why).  Float64 runs
 set ``pivot_tpu``'s trace bridge to float64 (its CLI has no dtype flag).
 ``--faults`` runs, on the unchunked path (``pivot_tpu`` draws its
 schedule eagerly there) and the chunked one (inside its jitted
-rollout).  Every option the port does not run yet raises
-``NotImplementedError``.
+rollout).  ``--congestion``, ``--realtime-score`` and ``--checkpoint``
+write ``pivot_tpu``'s files (float32).
 """
 
 from __future__ import annotations
@@ -112,10 +112,35 @@ def test_run_ensemble_matches_pivot_tpu(tmp_path, monkeypatch, dtype, extra):
     ("--checkpoint", "ck.npz"),
 ])
 def test_unported_flags_raise(tmp_path, flags):
-    args = pcli.parse_args(_argv(str(tmp_path), *flags))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pcli.run_ensemble(args, torch_device="cpu")
-    assert not os.path.exists(tmp_path / "ensemble")
+    """These flags run now and write ``pivot_tpu``'s files (float32, its
+    default config); what still raises is ``--realtime-score`` off the
+    cost-aware arm, at parse time, as in ``pivot_tpu``."""
+    import jax
+
+    flags = tuple(str(tmp_path / f) if f.endswith(".npz") else f
+                  for f in flags)
+    jdir, pdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    with jax.enable_x64(False):
+        jcli.run_ensemble(jcli.parse_args(_argv(jdir, *flags)))
+    pcli.run_ensemble(pcli.parse_args(_argv(pdir, *flags)),
+                      torch_device="cpu")
+    (jfile, jarr), (pfile, parr) = _files(jdir), _files(pdir)
+    assert pfile["congestion"] is ("--checkpoint" not in flags)
+    for k in jfile:
+        if k in NOT_COMPARED:
+            continue
+        if k in EGRESS:
+            assert pfile[k] == pytest.approx(jfile[k], rel=1e-5, abs=0), k
+        else:
+            assert pfile[k] == jfile[k], k
+    for k in jarr:
+        if k in EGRESS:
+            np.testing.assert_allclose(parr[k], jarr[k], rtol=1e-5, atol=0)
+        else:
+            np.testing.assert_array_equal(parr[k], jarr[k], err_msg=k)
+    with pytest.raises(SystemExit):
+        pcli.parse_args(_argv(pdir, "--realtime-score", "--policy",
+                              "first-fit"))
 
 
 def test_run_ensemble_runs_on_the_card_by_default(tmp_path, monkeypatch):

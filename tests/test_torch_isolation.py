@@ -2,12 +2,15 @@
 
 The test process itself has imported ``jax`` (``tests/conftest.py``), so
 the run-time check happens in a fresh subprocess: it imports the port,
-runs one tiny ``overall``, one tiny ``ensemble`` with faults, one tiny
-``capacity`` sweep (the row runner, ``sweeps.py``), a one-generation CEM
-``search`` (fitness, optimizer, held-out seeds, oracle, DES validation)
-and the market-replay tool on the CPU, and lists what is in
-``sys.modules``.  A static AST scan covers every file of the package —
-``search/``, ``experiments/search.py``, ``experiments/spot.py`` and
+runs one tiny ``overall``, one tiny ``ensemble`` with faults, one with
+congestion and a checkpoint file, one tiny ``capacity`` sweep (the row
+runner, ``sweeps.py``), a tiny ``calibrate``, a one-generation CEM
+``search`` (fitness, optimizer, held-out seeds, oracle, DES validation),
+the market-replay tool and the workload generators on the CPU, imports
+the trace converter and sampler, and lists what is in ``sys.modules``.
+A static AST scan covers every file of the package — ``search/``,
+``experiments/search.py``, ``experiments/spot.py``,
+``experiments/sample.py``, ``workload/``, ``parallel/ensemble/`` and
 ``tools/`` among them — and ``chip_smoke.py``.
 """
 
@@ -26,6 +29,9 @@ from pivot_tpu_torch.experiments import calibrate, cli
 from pivot_tpu_torch.infra import faults, market
 from pivot_tpu_torch.ops import tickloop
 from pivot_tpu_torch.sched import sensitivity
+from pivot_tpu_torch.experiments import sample
+from pivot_tpu_torch.parallel.ensemble import checkpoint
+from pivot_tpu_torch.workload import convert, gen
 with tempfile.TemporaryDirectory() as out:
     args = cli.parse_args(
         ["--device", "cuda", "--no-adaptive", "--num-hosts", "8",
@@ -37,6 +43,17 @@ with tempfile.TemporaryDirectory() as out:
          "--num-apps", "3", "--replicas", "2", "--max-ticks", "256",
          "--faults", "2", "--fault-mttr", "20"]),
         torch_device="cpu")
+    cong = cli.run_ensemble(cli.parse_args(
+        ["--num-hosts", "8", "--output-dir", out, "ensemble",
+         "--num-apps", "3", "--replicas", "2", "--max-ticks", "256",
+         "--congestion", "--realtime-score", "--checkpoint",
+         out + "/ck.npz"]), torch_device="cpu")
+    cal = cli.run_calibrate(cli.parse_args(
+        ["--num-hosts", "8", "--output-dir", out, "calibrate",
+         "--num-apps", "2", "--max-ticks", "256"]), torch_device="cpu")
+    app = gen.SequentialApplicationGenerator(
+        (3, 3), gen._RangeSpec(cpus=(1, 2), mem=(64, 128),
+                               runtime=(1, 10)), seed=0).generate()
     cap = cli.run_capacity(cli.parse_args(
         ["--num-hosts", "8", "--output-dir", out, "capacity",
          "--num-apps", "2", "--host-counts", "4", "8", "--replicas", "2",
@@ -52,6 +69,11 @@ with tempfile.TemporaryDirectory() as out:
 print(json.dumps({
     "arms": [s["label"] for s in summaries],
     "ensemble_unfinished": ens["unfinished_max"],
+    "congestion_unfinished": cong["unfinished_max"],
+    "calibrate_modes": sorted(m for m in ("static", "congested")
+                              if cal[m]["unfinished_max"] == 0),
+    "generated_groups": len(app.groups),
+    "yaml_loaded": "yaml" in sys.modules,
     "capacity_best": cap["best"] is not None,
     "search_regret": sorted(search["oracle"]["regret"]),
     "search_des": sorted(search["des_validation"]),
@@ -76,6 +98,12 @@ def test_port_runs_without_jax_or_reference_modules():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["arms"] == ["Opportunistic", "VBP", "Cost-Aware"]
     assert report["ensemble_unfinished"] == 0
+    assert report["congestion_unfinished"] == 0
+    assert report["calibrate_modes"] == ["congested", "static"]
+    assert report["generated_groups"] == 3
+    # The card's machine has no PyYAML: importing the converter and the
+    # sampler must not need it.
+    assert report["yaml_loaded"] is False
     assert report["capacity_best"]
     assert report["search_regret"] == report["search_des"] == [
         "hand_tuned_default", "hand_tuned_risk_aware", "learned"]
@@ -121,5 +149,10 @@ def test_no_file_of_the_port_imports_jax_or_reference():
             "pivot_tpu_torch/search/oracle.py",
             "pivot_tpu_torch/experiments/search.py",
             "pivot_tpu_torch/experiments/spot.py",
-            "pivot_tpu_torch/tools/market_replay.py"} <= seen
+            "pivot_tpu_torch/tools/market_replay.py",
+            "pivot_tpu_torch/parallel/ensemble/checkpoint.py",
+            "pivot_tpu_torch/experiments/calibrate.py",
+            "pivot_tpu_torch/experiments/sample.py",
+            "pivot_tpu_torch/workload/gen.py",
+            "pivot_tpu_torch/workload/convert.py"} <= seen
     assert offenders == []

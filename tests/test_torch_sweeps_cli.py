@@ -241,11 +241,22 @@ def test_parser_defaults_match_pivot_tpu(name, extra):
     assert set(jargs) - ens <= set(SUB_KEYS[name])
 
 
-def test_congestion_raises(tmp_path):
-    args = pcli.parse_args(["--num-hosts", "8", "--job-dir", JOBS,
-                            "--output-dir", str(tmp_path), "autotune",
-                            "--num-apps", "2", "--replicas", "2",
-                            "--congestion"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pcli.run_autotune(args, torch_device="cpu")
-    assert not os.path.exists(tmp_path / "autotune")
+def test_congestion_raises(tmp_path, jax_f64):
+    """``--congestion`` runs now (``capacity`` takes ``--realtime-score``
+    too) and gives ``pivot_tpu``'s summaries; what raises is
+    ``--realtime-score`` off the cost-aware arm, at parse time."""
+    _both(tmp_path / "at", "autotune", [
+        "--num-hosts", "8", "autotune", "--num-apps", "2", "--replicas",
+        "2", "--max-ticks", "256", "--exponents", "1.0", "--congestion"])
+    summary, _ = _both(tmp_path / "cap", "capacity", [
+        "--num-hosts", "16", "capacity", "--num-apps", "2", "--host-counts",
+        "2", "8", "--replicas", "2", "--max-ticks", "256", "--congestion",
+        "--realtime-score"])
+    assert summary["congestion"] and summary["realtime_scoring"]
+    _both(tmp_path / "aps", "apps", [
+        "--num-hosts", "8", "apps", "--app-counts", "1", "2", "--replicas",
+        "2", "--max-ticks", "256", "--policies", "first-fit",
+        "--congestion"])
+    with pytest.raises(SystemExit):
+        pcli.parse_args(["capacity", "--host-counts", "2",
+                         "--realtime-score", "--policy", "first-fit"])
