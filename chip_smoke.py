@@ -5,9 +5,10 @@
     python3 chip_smoke.py --phases 6,7 # some phases (default: all)
     python3 chip_smoke.py --phases 8   # the policy search alone
     python3 chip_smoke.py --phases 9   # congestion, checkpoints, calibrate
+    python3 chip_smoke.py --phases 10  # serving and the per-row launch
 
-One card.  ``--phases`` takes a comma list; phases 2-5 bring phase 1's
-build along, phase 5 the runs of phases 3 and 4.
+One card.  ``--phases`` takes a comma list; phases 2-5 and 10 bring
+phase 1's build along, phase 5 the runs of phases 3 and 4.
 
 Phases, each fatal on failure:
 
@@ -92,7 +93,7 @@ Phases, each fatal on failure:
      its defaults (27 candidates × 32 replicas), ``ensemble --replicas
      256 --faults 4 --fault-mttr 300`` (cost-aware, first-fit),
      ``capacity --host-counts 100 200 400 600 --faults 4 --fault-mttr
-     300`` and ``apps --app-counts 10 25 50`` (cut from 100 500 1000) —
+     300`` and ``apps --app-counts 10 25`` (cut from 100 500 1000) —
      wall, rollouts/s, ticks, placement steps, host reads, CUDA-event
      ms, peak memory and the summary's best; with phase 6, autotune's
      (1, 1, 1) candidate against phase 6's first 32 replicas; (c) the
@@ -140,11 +141,37 @@ Phases, each fatal on failure:
      segment and resumed from the file equals the uninterrupted run bit
      for bit, and first-fit and best-fit with congestion, host-pair pipes
      and realtime scoring with faults equal the port on the CPU.  The
-     same rule as phase 6.
+     same rule as phase 6;
+ 10. serving on the card: the per-row launch of ``greedy_place`` against
+     ``cost_aware_plain_rows`` (every mode over five (G, T, H) shapes
+     up to 16 rows x 600 hosts, sparse and dense, per-row step bounds,
+     live masks and risk rows, T = 0); then the README's serve commands
+     through ``cli.main`` on cuda at 600 hosts a session, seed 0, each
+     with the launch counts zeroed just before and read just after:
+     (a) ``serve --sessions 4 --jobs 200 --arrival-rate 0.5`` (Cost-
+     Aware) — every arrival counted and every admitted job completed
+     (replay mode sheds past the queue depth of 64, as ``pivot_tpu``'s
+     run does), flushes coalesced, each coalesced Cost-Aware group ONE
+     per-row launch and every other Cost-Aware tick one R = 1 launch,
+     every per-row launch held against ``cost_aware_plain_rows`` on its
+     own f32 operands, and each session's per-tick placements and
+     summary equal to a batch-mode ``ExperimentRun`` on cuda of the jobs
+     it served; (b) ``--source trace --queue-depth 32 --backpressure
+     shed`` and ``--policy first-fit --closed-loop 8 --jobs 100`` (no
+     ``greedy_place`` launch), counters consistent and audited; (c) the
+     multi-tenant command (tiers, preemption, least-loaded routing,
+     autoscaling 1:8), tier 0 never shed or preempted, ``audit()``
+     clean.  Each run prints wall, decisions/s, p50 / p99 decision
+     latency overall and per tier, the batcher's stats and the launches
+     by G and R; (a) and (b)'s trace run time the largest per-row launch
+     (wrapper and bare launch by CUDA events, the plain version, the
+     bound).
 
 Each phase logs its wall.  The line before the last is a JSON
-``kernels`` record (its ``launches`` split into the R = 1 and R = 256
-launches of phases 3 and 4; a number of a phase not run is null); the
+``kernels`` record (its ``launches`` split into the R = 1 launches of
+phases 3, 4 and 10, the R = 256 launches of phase 4 and the per-row
+launches of phase 10, with the per-row form's times; a number of a
+phase not run is null); the
 last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout of the repository, the script exits non-zero and prints no
@@ -155,6 +182,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import io
 import json
 import os
 import re
@@ -517,6 +545,64 @@ def phase_kernel_vs_plain(ck, device) -> Check:
                     chk.same(go(), want, ("shape", R, T, H, mode, cfg),
                              dense_floor(args, R) if dense and H == 600
                              else 0)
+    return chk
+
+
+def rows_inputs(seed, G, T, H, device, dense=False, live=False,
+                risk=False):
+    """Per-row operands of a per-row launch: G rows of
+    :func:`make_inputs` (each its own stream, host rows and tables), each
+    row's step bound drawn in [0, T] (row 0 walks all T), and, when asked,
+    a ``[G, H]`` live mask and risk row."""
+    rows = [make_inputs(seed * 101 + r, T, H, "cpu", dense=dense)
+            for r in range(G)]
+    args = [torch.stack([row[i] for row in rows]).to(device)
+            for i in range(9)]
+    rng = np.random.default_rng(seed)
+    n_eff = rng.integers(0, T + 1, size=G).astype(np.int32)
+    n_eff[0] = T
+    kw = {"n_eff_g": torch.from_numpy(n_eff).to(device)}
+    if live:
+        kw["live"] = torch.from_numpy(rng.random((G, H)) < 0.8).to(device)
+    if risk:
+        kw["risk"] = torch.from_numpy(rng.choice(
+            [0.0, 0.4, 1.5], size=(G, H)).astype(np.float32)).to(device)
+    return args, kw
+
+
+#: (G, T, H) of the synthetic per-row cases.
+ROWS_SHAPES = ((2, 37, 13), (3, 300, 50), (5, 5, 200), (4, 120, 600),
+               (16, 40, 600))
+
+
+def rows_vs_plain(ck, device) -> Check:
+    """The per-row launch of ``greedy_place`` against
+    ``cost_aware_plain_rows`` on the card: every mode over the shapes of
+    ``ROWS_SHAPES``, sparse and dense, with per-row step bounds; a live
+    mask, a risk row and both on the 600-host shape; T = 0."""
+    chk = Check()
+    for dense in (False, True):
+        for mode in MODES:
+            for seed, (G, T, H) in enumerate(ROWS_SHAPES):
+                args, kw = rows_inputs(seed, G, T, H, device, dense=dense)
+                chk.same(ck.cost_aware_cuda_rows(*args, **mode, **kw),
+                         ck.cost_aware_plain_rows(*args, **mode, **kw),
+                         ("rows", mode, G, T, H, dense))
+    for live, risk in ((True, False), (False, True), (True, True)):
+        args, kw = rows_inputs(7, 4, 120, 600, device, dense=True, live=live,
+                               risk=risk)
+        for mode in MODES:
+            got = ck.cost_aware_cuda_rows(*args, **mode, **kw)
+            chk.same(got, ck.cost_aware_plain_rows(*args, **mode, **kw),
+                     ("rows live/risk", mode, live, risk))
+            if live:
+                for r in range(4):
+                    placed = got[0][r][got[0][r] >= 0].long()
+                    if not bool(kw["live"][r][placed].all()):
+                        raise AssertionError("placed on a masked host")
+    args, kw = rows_inputs(9, 3, 0, 8, device)
+    chk.same(ck.cost_aware_cuda_rows(*args, **kw),
+             ck.cost_aware_plain_rows(*args, **kw), "rows T=0")
     return chk
 
 
@@ -1618,7 +1704,7 @@ SW_HOST_COUNTS = (100, 300, 600)
 SW_APP_COUNTS = (3, 6, 10)
 SW_APP_ARMS = ("opportunistic", "first-fit", "cost-aware")
 #: Phase 7 (b): the README's sweep commands at full width through the CLI
-#: (``apps`` cut from 100 500 1000 apps to 10 25 50: PERF.md, section 4).
+#: (``apps`` cut from 100 500 1000 apps to 10 25: PERF.md, section 4).
 SW_MAIN = (
     ("autotune", "run_autotune", ["autotune"]),
     ("ensemble-faults cost-aware", "run_ensemble",
@@ -1630,7 +1716,7 @@ SW_MAIN = (
     ("capacity", "run_capacity",
      ["capacity", "--host-counts", "100", "200", "400", "600", "--faults",
       "4", "--fault-mttr", "300"]),
-    ("apps", "run_apps", ["apps", "--app-counts", "10", "25", "50"]),
+    ("apps", "run_apps", ["apps", "--app-counts", "10", "25"]),
 )
 
 
@@ -2650,6 +2736,424 @@ def phase_congestion(device):
     return out
 
 
+#: Phase 10: the README's serve commands through the port's CLI at its
+#: default cluster (600 hosts a session, seed 0), each on cuda.
+SERVE_RUNS = {
+    "a": ("--sessions", "4", "--jobs", "200", "--arrival-rate", "0.5"),
+    "b_trace": ("--source", "trace", "--queue-depth", "32",
+                "--backpressure", "shed"),
+    "b_closed": ("--policy", "first-fit", "--closed-loop", "8", "--jobs",
+                 "100"),
+    "c": ("--sessions", "2", "--jobs", "300", "--arrival-rate", "2.5",
+          "--queue-depth", "16", "--tier-mix", "0.25,0.35,0.40",
+          "--tier-reserve", "0,2,4", "--tier-policies", "spill,shed,shed",
+          "--preempt", "--routing", "least-loaded", "--autoscale", "1:8",
+          "--slo-p99-ms", "50"),
+}
+#: Run (a)'s served sessions against batch-mode runs on these summary
+#: keys (``tests/test_serve.py:137-141``).
+SERVE_KEYS = ("egress_cost", "cum_instance_hours", "avg_congestion_delay",
+              "total_scheduling_ops", "avg_scheduling_turnover",
+              "avg_runtime", "n_apps")
+
+
+class ServeRecorder:
+    """Phase 10's taps on one CLI ``serve`` run: the driver and sessions
+    the CLI builds (subclasses put in place of ``pivot_tpu_torch.serve``'s
+    for the run), each session's per-tick placements, the flush groups of
+    more than one Cost-Aware tick (``sched.batch.batch_execute``), and
+    every per-row launch's operands and outputs
+    (``cuda_kernels.cost_aware_cuda_rows``, as the batcher calls it)."""
+
+    def __init__(self):
+        self.driver = None
+        self.sessions = []
+        self.groups = []  # sizes of coalesced Cost-Aware flush groups
+        self.rows = []  # (args, kw, (placements, avail)) per launch
+
+    @contextlib.contextmanager
+    def attach(self):
+        from pivot_tpu_torch import serve
+        from pivot_tpu_torch.ops import cuda_kernels as ck
+        from pivot_tpu_torch.sched import batch
+
+        rec = self
+        base_driver, base_session = serve.ServeDriver, serve.ServeSession
+        execute, rows = batch.batch_execute, ck.cost_aware_cuda_rows
+
+        class Driver(base_driver):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                rec.driver = self
+
+        class Session(base_session):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                rec.sessions.append(self)
+                self.log = []
+                orig = self.policy.place
+
+                def record(ctx, _orig=orig, _log=self.log):
+                    out = _orig(ctx)
+                    _log.append(np.asarray(out).copy())
+                    return out
+
+                self.policy.place = record
+
+        def batch_execute(kernel, requests, *a, **k):
+            if kernel is ck.cost_aware_cuda and len(requests) > 1:
+                rec.groups.append(len(requests))
+            return execute(kernel, requests, *a, **k)
+
+        def cost_aware_cuda_rows(*a, **k):
+            out = rows(*a, **k)
+            rec.rows.append((a, k, out))
+            return out
+
+        serve.ServeDriver, serve.ServeSession = Driver, Session
+        batch.batch_execute = batch_execute
+        ck.cost_aware_cuda_rows = cost_aware_cuda_rows
+        try:
+            yield self
+        finally:
+            serve.ServeDriver, serve.ServeSession = base_driver, base_session
+            batch.batch_execute, ck.cost_aware_cuda_rows = execute, rows
+
+
+def rows_bound(args, kw):
+    """Least time for one per-row launch at these inputs, as
+    :func:`bound` counts it, summed over the launch's G rows: bytes of
+    each row's availability (in and out), its task stream up to its step
+    bound, its two ``[Z, Z]`` tables, host zones and base counts (live /
+    risk when given), its placements and step bound; operations of each
+    row's round-trip tables and per-host steps."""
+    avail, dem, ng, cost = args[0], args[1], args[3], args[5]
+    G, H, T, nz = avail.shape[0], avail.shape[1], dem.shape[1], cost.shape[1]
+    n_eff = kw["n_eff_g"].tolist()
+    first_fit = kw.get("bin_pack", "first-fit") == "first-fit"
+    decay, risk = kw.get("host_decay", False), kw.get("risk") is not None
+    nbytes = ops = 0
+    for r in range(G):
+        n = n_eff[r]
+        nbytes += (2 * H * 16 + n * 22 + 2 * nz * nz * 4 + 8 * H + 4 * T
+                   + 4 + (4 * H if risk else 0)
+                   + (H if kw.get("live") is not None else 0))
+        if first_fit:
+            entries = (int(ng[r][:n].sum()) if kw.get("sort_hosts", True)
+                       else 0)
+            per_host = 6 * n + (10 + decay + risk) * entries
+        else:
+            per_host = (6 + 15 + 2 * decay + risk) * n
+        ops += 2 * nz * H + H * per_host
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32_OPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bare_rows_launch(ck, args, kw):
+    """The per-row launch alone: ``_check_rows`` once, outputs allocated
+    once, then a function that runs ``_launch`` (the kernel's one launch
+    site) on them."""
+    live, risk, n_eff = kw.get("live"), kw.get("risk"), kw["n_eff_g"]
+    bin_pack = kw.get("bin_pack", "first-fit")
+    G, T, _H, cfg = ck._check_rows(*args, bin_pack, live, risk, n_eff)
+    placements = torch.empty((G, T), dtype=torch.int32, device=args[0].device)
+    out = torch.empty_like(args[0])
+
+    def go():
+        ck._launch(cfg, *args, live, risk, placements, out, T,
+                   bin_pack == "first-fit", kw.get("sort_hosts", True),
+                   kw.get("host_decay", False), n_eff_rows=n_eff)
+        return placements, out
+    return go
+
+
+def rows_times(ck, calls):
+    """Wrapper and bare-launch ms (CUDA events), plain ms (host clock) and
+    the bound of the largest per-row launch of a run (most rows, then the
+    most steps)."""
+    big = max(range(len(calls)), key=lambda i: (
+        calls[i][0][0].shape[0], int(calls[i][1]["n_eff_g"].sum())))
+    a, k, _o = calls[big]
+    b_ms, b_by = rows_bound(a, k)
+    return dict(
+        G=a[0].shape[0], T=a[1].shape[1], H=a[0].shape[1],
+        n_eff=k["n_eff_g"].tolist(),
+        ms=_events_ms(lambda: ck.cost_aware_cuda_rows(*a, **k), 20),
+        kernel_ms=_events_ms(bare_rows_launch(ck, a, k), 20),
+        plain_ms=_host_ms(lambda: ck.cost_aware_plain_rows(*a, **k), 1),
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def serve_run(cli, ck, name, out):
+    """One CLI ``serve`` run of ``SERVE_RUNS[name]`` on cuda through
+    ``cli.main``, launch counts zeroed just before and read just after.
+    Returns ``(report, recorder, launches)``."""
+    from pivot_tpu_torch.utils import reset_ids
+
+    argv = ["--output-dir", out, "serve", *SERVE_RUNS[name]]
+    rec = ServeRecorder()
+    buf = io.StringIO()
+    reset_ids()
+    ck.reset_launches()
+    with rec.attach(), contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    launches = dict(total=ck.LAUNCHES["greedy_place"],
+                    rows=dict(ck.LAUNCHES_ROWS),
+                    by_replicas=dict(ck.LAUNCHES_BY_REPLICAS))
+    report = json.loads(buf.getvalue().strip().splitlines()[-1])
+    stamps = sorted(os.listdir(os.path.join(out, "serve")))
+    with open(os.path.join(out, "serve", stamps[-1], "report.json")) as f:
+        if json.load(f)["slo"] != report["slo"]:
+            raise AssertionError(f"serve {name}: report.json differs from "
+                                 "the printed report")
+    return report, rec, launches
+
+
+def serve_consistent(name, report, launches, cost_aware) -> None:
+    """The counters of a drained run agree with each other, and with the
+    kernel's launch counts: every coalesced Cost-Aware group one per-row
+    launch, every other Cost-Aware tick one R = 1 launch."""
+    c, st = report["slo"]["counters"], report["batcher"]
+    settled = c["completed"] + c.get("failed_jobs", 0) + c.get("preempted", 0)
+    if c["admitted"] != settled:
+        raise AssertionError(f"serve {name}: admitted {c['admitted']} != "
+                             f"settled {settled}")
+    # Each arrival is shed or admitted once (directly, or after a spill or
+    # a block); a preempted job re-enters through the spill buffer.
+    if c["admitted"] != c["arrived"] - c["shed"] + c.get(
+            "preempt_requeued", 0):
+        raise AssertionError(f"serve {name}: arrivals do not add up: {c}")
+    if st["dispatches"] != report["slo"]["decision_latency_s"]["count"]:
+        raise AssertionError(f"serve {name}: {st['dispatches']} dispatches,"
+                             f" {report['slo']['decision_latency_s']['count']}"
+                             " decisions metered")
+    rows = sum(launches["rows"].values())
+    r1 = launches["by_replicas"].get(1, 0)
+    if not cost_aware:
+        if launches["total"]:
+            raise AssertionError(f"serve {name}: a torch arm launched "
+                                 "greedy_place")
+        return
+    if launches["total"] != rows + r1 or set(launches["by_replicas"]) - {1}:
+        raise AssertionError(f"serve {name}: launches {launches}")
+    if r1 != st["dispatches"] - st["coalesced"] or \
+            st["device_calls"] != rows + r1:
+        raise AssertionError(f"serve {name}: launches {launches} do not "
+                             f"match the batcher's {st}")
+
+
+def serve_log(name, report, launches, card) -> dict:
+    """Print one run's numbers; return them for the JSON record."""
+    slo, st = report["slo"], report["batcher"]
+    lat = slo["decision_latency_s"]
+    tiers = {t: dict(p50_ms=v["decision_latency_s"]["p50"] * 1e3,
+                     p99_ms=v["decision_latency_s"]["p99"] * 1e3)
+             for t, v in slo["tiers"].items()}
+    row = dict(wall_s=report["wall_s"],
+               decisions_per_sec=report["decisions_per_sec"],
+               p50_ms=lat["p50"] * 1e3, p99_ms=lat["p99"] * 1e3,
+               tiers=tiers, batcher=st, launches=launches,
+               counters={k: slo["counters"].get(k, 0) for k in (
+                   "arrived", "admitted", "completed", "shed", "spilled",
+                   "preempted", "decisions")},
+               pool=report["pool"])
+    log(f"  [{card}]")
+    log(f"  serve {name}: wall {row['wall_s']!r} s, "
+        f"{row['decisions_per_sec']!r} decisions/s, decision latency p50 "
+        f"{row['p50_ms']!r} ms p99 {row['p99_ms']!r} ms; per tier "
+        + ", ".join(f"{t}: p50 {v['p50_ms']!r} p99 {v['p99_ms']!r} ms"
+                    for t, v in tiers.items()))
+    log(f"    counters {row['counters']}; pool {report['pool']}")
+    log(f"    batcher {st}")
+    log(f"    greedy_place launches: per-row by G {launches['rows']}, "
+        f"shared-stream by R {launches['by_replicas']}")
+    return row
+
+
+def serve_breakdown(cli, ck, out) -> dict:
+    """Run (a) again with ``--trace-out``: where a decision's wall goes.
+    From the trace: the placement calls (``dispatch``/``place``, each
+    from the policy's entry to its return: host prep, park, flush,
+    unpad) and the batcher's flushes (``dispatch``/``flush``: staging,
+    launch or row calls, fetch); a request rides its flush for the
+    flush's whole duration, so the rest of its call is host prep and
+    park.  Also the per-row launches' device time (CUDA events, bare
+    launch) against the run's wall."""
+    path = os.path.join(out, "a_trace.json")
+    argv = ["--output-dir", out, "serve", *SERVE_RUNS["a"], "--trace-out",
+            path]
+    rec = ServeRecorder()
+    buf = io.StringIO()
+    from pivot_tpu_torch.utils import reset_ids
+
+    reset_ids()
+    with rec.attach(), contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    report = json.loads(buf.getvalue().strip().splitlines()[-1])
+    with open(path + ".jsonl") as f:
+        events = [json.loads(line) for line in f]
+    place = [e["dur"] for e in events
+             if e["cat"] == "dispatch" and e["name"] == "place"]
+    flush = [(e["dur"], e["args"]["group"]) for e in events
+             if e["cat"] == "dispatch" and e["name"] == "flush"]
+    in_flush = sum(d * g for d, g in flush)
+    device = sum(_events_ms(bare_rows_launch(ck, a, k), 3)
+                 for a, k, _o in rec.rows) / 1e3
+    row = dict(
+        wall_s=report["wall_s"], place_calls=len(place),
+        place_s=sum(place), place_median_ms=statistics.median(place) * 1e3,
+        flushes=len(flush), flush_s=sum(d for d, _g in flush),
+        flush_median_ms=statistics.median(d for d, _g in flush) * 1e3,
+        in_flush_share=in_flush / sum(place),
+        rows_launches=len(rec.rows), rows_device_s=device,
+        device_share=device / report["wall_s"])
+    log(f"    traced rerun: wall {row['wall_s']!r} s; {row['place_calls']} "
+        f"placement calls, {row['place_s']!r} s in all (median "
+        f"{row['place_median_ms']!r} ms); {row['flushes']} flushes, "
+        f"{row['flush_s']!r} s (median {row['flush_median_ms']!r} ms); "
+        f"a call's share inside its flush {row['in_flush_share']!r}; "
+        f"{row['rows_launches']} per-row launches, {row['rows_device_s']!r}"
+        f" s of device time = {row['device_share']!r} of the wall")
+    return row
+
+
+def phase_serve(device):
+    """Phase 10: ``serve`` on the card through the CLI (module docstring):
+    (a) the README's first command, its coalesced Cost-Aware flushes each
+    one per-row launch held against ``cost_aware_plain_rows``, its
+    sessions equal to batch-mode runs on cuda; (b) the trace source with
+    shedding, and first-fit closed-loop; (c) the multi-tenant command,
+    audited.  Returns the record of phase 10."""
+    from pivot_tpu_torch.experiments import cli
+    from pivot_tpu_torch.experiments.runner import ExperimentRun
+    from pivot_tpu_torch.ops import cuda_kernels as ck
+    from pivot_tpu_torch.serve import poisson_arrivals
+    from pivot_tpu_torch.utils import reset_ids
+    from pivot_tpu_torch.utils.config import (
+        PolicyConfig, build_cluster, make_policy)
+    from pivot_tpu_torch.workload.trace import TraceSchedule
+
+    card = card_line()
+    out_rec = {}
+    chk = Check()
+    with tempfile.TemporaryDirectory() as out:
+        # (a)
+        report, rec, launches = serve_run(cli, ck, "a", out)
+        c, st = report["slo"]["counters"], report["batcher"]
+        # Replay mode admits as fast as the producer runs, so the
+        # README's command sheds past its queue depth of 64 (as
+        # pivot_tpu's own run does): every arrival is counted, and every
+        # admitted job completes.
+        if c["arrived"] != 200 or c["completed"] != c["admitted"] or \
+                c["completed"] + c["shed"] != 200:
+            raise AssertionError(f"serve a: {c}")
+        if not st["coalesced"] or st["device_calls"] >= st["dispatches"]:
+            raise AssertionError(f"serve a: nothing coalesced: {st}")
+        rows = sum(launches["rows"].values())
+        if rows != len(rec.groups) or rows != len(rec.rows) or not rows:
+            raise AssertionError(
+                f"serve a: {rows} per-row launches for {len(rec.groups)} "
+                f"coalesced Cost-Aware groups ({len(rec.rows)} recorded)")
+        serve_consistent("a", report, launches, True)
+        out_rec["a"] = serve_log("a", report, launches, card)
+        t0 = time.perf_counter()
+        for i, (a, k, got) in enumerate(rec.rows):
+            chk.same(got, ck.cost_aware_plain_rows(*a, **k), ("rows", i))
+        log(f"    {len(rec.rows)} per-row launches (groups of "
+            f"{sorted(set(rec.groups))}) equal cost_aware_plain_rows: "
+            f"{chk.placed} placements, max |avail diff| "
+            f"{chk.max_abs_err!r} ({time.perf_counter() - t0:.1f} s)")
+        out_rec["a"]["rows_times"] = rows_times(ck, rec.rows)
+        rt = out_rec["a"]["rows_times"]
+        log(f"    largest flush (G={rt['G']}, T={rt['T']}, H={rt['H']}, "
+            f"n_eff {rt['n_eff']}): wrapper {rt['ms']!r} ms, kernel_ms "
+            f"{rt['kernel_ms']!r}, plain {rt['plain_ms']!r} ms, bound "
+            f"{rt['bound_ms']!r} ms ({rt['bound_by']})")
+        # Each session against a batch-mode run of the jobs it served (the
+        # round-robin share of the admitted ones), fresh from the seed.
+        t0 = time.perf_counter()
+        args = cli.parse_args(["serve", *SERVE_RUNS["a"]])
+        reset_ids()
+        fresh = {x.app.id: x.app for x in poisson_arrivals(
+            args.arrival_rate, args.jobs, seed=args.seed)}
+        pcfg = PolicyConfig(name="cost-aware", device="cuda",
+                            bin_pack="first-fit", sort_tasks=True,
+                            sort_hosts=True)
+        sessions = sorted(rec.sessions, key=lambda s: s.slot)
+        G, ticks = len(sessions), 0
+        for g, sess in enumerate(sessions):
+            policy = make_policy(pcfg)
+            run = ExperimentRun(
+                f"batch-{g}", build_cluster(cli._cluster_config(args)),
+                policy, schedule=TraceSchedule([(0.0, [])] + [
+                    (app._serve_admit_ts, [fresh[app.id]])
+                    for app in sess._injected]),
+                seed=args.seed, interval=5.0, fuse_spans=False)
+            log_b, orig = [], policy.place
+
+            def record(ctx, _orig=orig, _log=log_b):
+                got = _orig(ctx)
+                _log.append(np.asarray(got).copy())
+                return got
+
+            policy.place = record
+            want = run.run()
+            if len(log_b) != len(sess.log) or any(
+                    not np.array_equal(x, y) for x, y in zip(sess.log, log_b)):
+                raise AssertionError(f"serve a: session {g}'s placements "
+                                     "differ from its batch-mode run")
+            got = sess.summary()
+            if {k: got[k] for k in SERVE_KEYS} != {
+                    k: want[k] for k in SERVE_KEYS}:
+                raise AssertionError(f"serve a: session {g}'s summary "
+                                     f"{got} differs from batch mode {want}")
+            ticks += len(log_b)
+        log(f"    served = batch mode on cuda: {G} sessions, {ticks} ticks "
+            f"of placements and the summaries equal "
+            f"({time.perf_counter() - t0:.1f} s)")
+        out_rec["a"]["traced"] = serve_breakdown(cli, ck, out)
+        # (b)
+        for name in ("b_trace", "b_closed"):
+            report, rec, launches = serve_run(cli, ck, name, out)
+            c = report["slo"]["counters"]
+            if name == "b_closed" and (c["completed"] != 100 or c["shed"]
+                                       or report["slo"]["queue_depth"]["max"]
+                                       > 8):
+                raise AssertionError(f"serve {name}: {c}")
+            if name == "b_trace" and (not c["completed"]
+                                      or c["arrived"] != 50):
+                raise AssertionError(f"serve {name}: {c}")
+            serve_consistent(name, report, launches, name == "b_trace")
+            rec.driver.audit()
+            for i, (a, k, got) in enumerate(rec.rows):
+                chk.same(got, ck.cost_aware_plain_rows(*a, **k),
+                         (name, "rows", i))
+            out_rec[name] = serve_log(name, report, launches, card)
+            if rec.rows:
+                rt = out_rec[name]["rows_times"] = rows_times(ck, rec.rows)
+                log(f"    largest flush (G={rt['G']}, T={rt['T']}, n_eff "
+                    f"{rt['n_eff']}): wrapper {rt['ms']!r} ms, kernel_ms "
+                    f"{rt['kernel_ms']!r}, plain {rt['plain_ms']!r} ms, "
+                    f"bound {rt['bound_ms']!r} ms ({rt['bound_by']})")
+        # (c)
+        report, rec, launches = serve_run(cli, ck, "c", out)
+        serve_consistent("c", report, launches, True)
+        rec.driver.audit("serve c")
+        c0 = report["slo"]["tiers"]["0"]["counters"]
+        if c0["shed"] or c0.get("preempted", 0):
+            raise AssertionError(f"serve c: tier 0 degraded: {c0}")
+        for i, (a, k, got) in enumerate(rec.rows):
+            chk.same(got, ck.cost_aware_plain_rows(*a, **k), ("c", "rows", i))
+        out_rec["c"] = serve_log("c", report, launches, card)
+        log("    audit(): no violation")
+    log(f"  per-row launches of phase 10: {chk.cases} held against "
+        f"cost_aware_plain_rows, {chk.placed} placements, max |avail diff| "
+        f"{chk.max_abs_err!r}")
+    out_rec["max_abs_err"] = chk.max_abs_err
+    return out_rec
+
+
 def phase_5_report(ck, e2e, sens, card, device):
     """Phase 5: times on the card (the main path's wrapper, bare launches,
     the warp sweep, the gated R = 256 launches) and the reports of
@@ -2746,12 +3250,12 @@ def phase_5_report(ck, e2e, sens, card, device):
     return times, gt, spans
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10)
 
 
 def selected_phases(argv) -> set:
-    """``--phases 1,6,7`` (default: all).  Phases 2-5 need phase 1's
-    build, phase 5 the runs of phases 3 and 4: they come along."""
+    """``--phases 1,6,7`` (default: all).  Phases 2-5 and 10 need phase
+    1's build, phase 5 the runs of phases 3 and 4: they come along."""
     import argparse
 
     ap = argparse.ArgumentParser(description="On-card smoke of the port.")
@@ -2762,7 +3266,7 @@ def selected_phases(argv) -> set:
         ap.error(f"phases are {PHASES}, got {sorted(want)}")
     if 5 in want:
         want |= {3, 4}
-    if want & {2, 3, 4, 5}:
+    if want & {2, 3, 4, 5, 10}:
         want.add(1)
     return want
 
@@ -2882,9 +3386,23 @@ def main(argv=None) -> int:
         congestion = phase_congestion(device)
         walls[9] = time.perf_counter() - tp
         log(f"  phase 9 wall: {walls[9]!r} s")
+    serve = rows = None
+    if 10 in phases:
+        tp = time.perf_counter()
+        log("== 10. serve on the card: the per-row launch vs plain, then "
+            "the README's serve commands through the CLI at 600 hosts a "
+            "session")
+        log(f"  [{card}]")
+        rows = rows_vs_plain(ck, device)
+        log(f"  per-row launch vs plain: {rows.cases} cases, {rows.placed} "
+            f"placements: all equal, max |avail diff| {rows.max_abs_err!r}")
+        serve = phase_serve(device)
+        walls[10] = time.perf_counter() - tp
+        log(f"  phase 10 wall: {walls[10]!r} s")
     log(json.dumps({
         "times": times, "spans": spans, "ensemble": ens, "sweeps": sweeps,
-        "search": search, "congestion": congestion, "phase_walls": walls,
+        "search": search, "congestion": congestion, "serve": serve,
+        "phase_walls": walls,
         "same_files": e2e and e2e["same_files"], "gated_times": gt,
         "sensitivity": sens and {p: {k: v for k, v in r.items()
                                      if k != "check"}
@@ -2896,17 +3414,27 @@ def main(argv=None) -> int:
     lt = times and times["largest_tick"]
     errs = [x.max_abs_err for x in (
         chk, e2e and e2e["shadow"].check, e2e and e2e["referee"],
-        ca and ca["check"]) if x is not None]
+        ca and ca["check"], rows) if x is not None]
+    if serve is not None:
+        errs.append(serve["max_abs_err"])
+    sv = serve and [serve[k]["launches"] for k in SERVE_RUNS]
+    sv_rows = sv and sum(sum(x["rows"].values()) for x in sv)
+    sv_r1 = sv and sum(x["by_replicas"].get(1, 0) for x in sv)
+    rt = serve and serve["a"]["rows_times"]
     record = {"kernels": [{
         "name": "greedy_place",
         "route": "cuda",
         "source": "pivot_tpu_torch/csrc/greedy_place.cu",
         "replaces": "pivot_tpu/ops/pallas_kernels.py:265",
-        "launches": (e2e and ca and e2e["runs"]["cuda"]["launches"]
-                     + sum(ca["launches"].values())),
-        "launches_r1": (e2e and ca and e2e["runs"]["cuda"]["launches"]
-                        + ca["launches"][1]),
+        "launches": (e2e and ca and serve and e2e["runs"]["cuda"]["launches"]
+                     + sum(ca["launches"].values()) + sv_rows + sv_r1),
+        "launches_r1": (e2e and ca and serve and e2e["runs"]["cuda"]["launches"]
+                        + ca["launches"][1] + sv_r1),
         f"launches_r{SENS_REPLICAS}": ca and ca["launches"][SENS_REPLICAS],
+        "launches_rows": sv_rows,
+        "launches_rows_by_g": sv and {
+            g: sum(x["rows"].get(g, 0) for x in sv)
+            for g in sorted({g for x in sv for g in x["rows"]})},
         "max_abs_err": max(errs) if errs else None,
         "ms": lt and lt["ms"],
         "plain_ms": lt and lt["plain_ms"],
@@ -2915,6 +3443,11 @@ def main(argv=None) -> int:
         "library_ms": None,
         f"r{SENS_REPLICAS}_ms": gt and gt["ms_median"],
         f"r{SENS_REPLICAS}_kernel_ms": gt and gt["kernel_ms_median"],
+        "rows_ms": rt and rt["ms"],
+        "rows_kernel_ms": rt and rt["kernel_ms"],
+        "rows_plain_ms": rt and rt["plain_ms"],
+        "rows_bound_ms": rt and rt["bound_ms"],
+        "rows_bound_by": rt and rt["bound_by"],
     }]}
     log(f"  smoke wall: {time.perf_counter() - t_start!r} s")
     print(card, flush=True)

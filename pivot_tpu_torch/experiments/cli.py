@@ -517,6 +517,140 @@ def parse_args(argv=None):
                           "the replay anchor data/search/ci_seed.json)")
     sch.add_argument("--out", default=None, metavar="FILE",
                      help="write the report JSON here as well")
+    srv = sub.add_parser(
+        "serve",
+        help="online serving layer: stream Poisson/trace job arrivals "
+             "through G always-on scheduling sessions — bounded admission "
+             "queue with backpressure, shared batched device dispatch "
+             "(--device cuda: a coalesced Cost-Aware flush is one per-row launch of greedy_place), SLO-metered (p50/p95/p99 decision latency, "
+             "queue depth, shed counts); prints the service report JSON",
+    )
+    srv.add_argument("--sessions", type=int, default=2, metavar="G",
+                     help="concurrent scheduling sessions multiplexed "
+                          "onto one batched dispatch")
+    srv.add_argument("--jobs", type=int, default=50,
+                     help="jobs to serve before shutdown")
+    srv.add_argument("--arrival-rate", type=float, default=0.2,
+                     help="Poisson arrivals per sim-second (with "
+                          "--source trace, 0 replays the recorded "
+                          "submit times instead)")
+    srv.add_argument("--source", choices=["poisson", "trace"],
+                     default="poisson",
+                     help="'poisson': synthetic chain-DAG jobs at "
+                          "exponential gaps; 'trace': the first Alibaba "
+                          "trace window in --job-dir, re-timed onto a "
+                          "Poisson process at --arrival-rate")
+    srv.add_argument("--queue-depth", type=int, default=64,
+                     help="admission queue bound (admitted-but-"
+                          "incomplete jobs)")
+    srv.add_argument("--backpressure",
+                     choices=["block", "shed", "spill"], default="shed",
+                     help="policy when the admission queue is full: "
+                          "block the stream, shed with a recorded "
+                          "reason, or spill to the next scheduler tick")
+    srv.add_argument("--flush-after-us", type=float, default=5000.0,
+                     help="dispatch-batcher deadline flush in "
+                          "microseconds (0 = quiescence-only, the batch "
+                          "grid driver's behavior)")
+    srv.add_argument("--closed-loop", type=int, default=0, metavar="C",
+                     help="closed-loop load generator: keep C jobs in "
+                          "flight (each completion injects the next) "
+                          "instead of the open-loop arrival stream")
+    srv.add_argument("--pace", type=float, default=0.0,
+                     help="wall pacing in sim-seconds per wall-second "
+                          "(0 = replay as fast as the sessions can "
+                          "schedule)")
+    srv.add_argument("--policy", default="cost-aware",
+                     choices=["cost-aware", "first-fit", "best-fit",
+                              "opportunistic"],
+                     help="placement arm every session runs")
+    srv.add_argument("--shard-hosts", type=int, default=0, metavar="S",
+                     help="2-D mesh serving (not ported yet: ROADMAP.md "
+                          "Queue 1 item 9).  0 = off")
+    srv.add_argument("--fuse-spans", choices=["off", "slo"],
+                     default="off",
+                     help="serve-span mode: 'off' keeps per-tick "
+                          "dispatch; 'slo' (fused spans between SLO "
+                          "checkpoints) is not ported yet (ROADMAP.md "
+                          "Queue 1 item 4)")
+    srv.add_argument("--resident", action=argparse.BooleanOptionalAction,
+                     default=False,
+                     help="resident span carries (not ported yet: "
+                          "ROADMAP.md Queue 1 item 4)")
+    srv.add_argument("--splice-tier", type=int, default=0,
+                     help="with --resident (not ported yet: ROADMAP.md "
+                          "Queue 1 item 4)")
+    srv.add_argument("--tenant-quota", type=float, default=0.0,
+                     help="DRF tenant fairness within a tier: cap each "
+                          "tenant's dominant-resource occupancy at "
+                          "this share (0 < q <= 1) of its tier's "
+                          "total, shedding/spilling over-quota "
+                          "arrivals with reason 'tenant_quota'.  "
+                          "0 = off")
+    srv.add_argument("--tier-mix", default="",
+                     help="multi-tenant arrival mix: comma-separated "
+                          "tier weights, index = priority tier (0 = "
+                          "serving, most important), e.g. "
+                          "'0.25,0.35,0.40'.  Empty = single-tenant "
+                          "tier-0 stream (the bit-parity default)")
+    srv.add_argument("--tier-reserve", default="",
+                     help="per-tier depth reservations, e.g. '0,2,4': "
+                          "reserve[t] queue slots are off-limits to "
+                          "tier t, so low tiers run out of queue first")
+    srv.add_argument("--tier-policies", default="",
+                     help="per-tier backpressure override, e.g. "
+                          "'spill,shed,shed' (tier 0 lossless, lower "
+                          "tiers shed).  Empty = --backpressure for all")
+    srv.add_argument("--routing", choices=["rr", "least-loaded"],
+                     default="rr",
+                     help="job routing: deterministic round-robin (the "
+                          "bit-parity default) or least-loaded over "
+                          "inbox depth + recent decision latency")
+    srv.add_argument("--preempt", action="store_true",
+                     help="in-queue preemption: a high-tier arrival "
+                          "meeting a full queue cancels an admitted-"
+                          "but-unplaced lower-tier job (requeued to "
+                          "the spill buffer) instead of degrading")
+    srv.add_argument("--autoscale", default="", metavar="GMIN:GMAX",
+                     help="SLO-driven session-pool autoscaling between "
+                          "GMIN and GMAX (e.g. '1:8'): grow on p99 "
+                          "decision-latency breach, drain-then-retire "
+                          "on calm.  Empty = fixed pool")
+    srv.add_argument("--slo-p99-ms", type=float, default=50.0,
+                     help="tier-0 p99 decision-latency target (ms) the "
+                          "autoscaler sizes the pool against")
+    srv.add_argument("--mpc", action="store_true",
+                     help="model-predictive serving (not ported yet: "
+                          "ROADMAP.md Queue 1 item 5)")
+    srv.add_argument("--mpc-pool", default="", metavar="GMIN:GMAX")
+    srv.add_argument("--mpc-horizon", type=float, default=None)
+    srv.add_argument("--mpc-interval-ms", type=float, default=None)
+    srv.add_argument("--mpc-replicas", type=int, default=None)
+    srv.add_argument("--mpc-max-regret", type=float, default=None)
+    srv.add_argument("--mpc-dry-run", action="store_true")
+    srv.add_argument("--mpc-no-tune", action="store_true")
+    srv.add_argument("--trace-out", default="", metavar="PATH",
+                     help="write the service's causal trace timeline "
+                          "(every job's arrival→completion chain, "
+                          "dispatch spans, autoscaler actions) as "
+                          "Perfetto/Chrome trace_event JSON to PATH "
+                          "(plus PATH.jsonl raw events); render with "
+                          "tools/obs_report.py or load in ui.perfetto.dev")
+    srv.add_argument("--metrics-out", default="", metavar="PATH",
+                     help="export the unified metrics registry "
+                          "(SLO counters, latency summaries, dispatch "
+                          "mix, autoscaler actions) as Prometheus text "
+                          "exposition to PATH (plus PATH.json)")
+    srv.add_argument("--metrics-port", type=int, default=0, metavar="N",
+                     help="serve the registry's Prometheus text "
+                          "exposition LIVE at http://127.0.0.1:N"
+                          "/metrics (stdlib HTTP thread, thread-guarded "
+                          "snapshot; /metrics.json for the JSON form). "
+                          "0 = off")
+    srv.add_argument("--profile-dispatch", type=int, default=0,
+                     metavar="N",
+                     help="sampled device-dispatch profiler (not ported "
+                          "yet: ROADMAP.md Queue 1 item 12).  0 = off")
     args = parser.parse_args(argv)
     if (
         getattr(args, "realtime_scoring", False)
@@ -526,7 +660,52 @@ def parse_args(argv=None):
             "--realtime-score/--realtime apply to the cost-aware arm only "
             "— no other policy scores on bandwidth"
         )
+    if args.command == "serve":
+        _check_serve_args(parser, args)
     return args
+
+
+#: ``serve`` options of features not ported yet, with their ROADMAP.md
+#: (Queue 1) items: (attribute, flag, item).
+_SERVE_NOT_PORTED = (
+    ("shard_hosts", "--shard-hosts", 9),
+    ("resident", "--resident", 4),
+    ("splice_tier", "--splice-tier", 4),
+    ("mpc", "--mpc", 5),
+    ("mpc_pool", "--mpc-pool", 5),
+    ("mpc_horizon", "--mpc-horizon", 5),
+    ("mpc_interval_ms", "--mpc-interval-ms", 5),
+    ("mpc_replicas", "--mpc-replicas", 5),
+    ("mpc_max_regret", "--mpc-max-regret", 5),
+    ("mpc_dry_run", "--mpc-dry-run", 5),
+    ("mpc_no_tune", "--mpc-no-tune", 5),
+    ("profile_dispatch", "--profile-dispatch", 12),
+)
+
+
+def _check_serve_args(parser, args) -> None:
+    """The ``serve`` checks of ``pivot_tpu/experiments/cli.py:735-770``,
+    with ``cuda`` for ``tpu``, and an exit naming the ROADMAP.md item for
+    each feature not ported yet."""
+    if args.fuse_spans == "slo":
+        parser.error("--fuse-spans slo (serve spans) is not ported to "
+                     "pivot_tpu_torch yet (ROADMAP.md, Queue 1 item 4)")
+    for attr, flag, item in _SERVE_NOT_PORTED:
+        if getattr(args, attr) not in (None, 0, False, ""):
+            parser.error(f"{flag} is not ported to pivot_tpu_torch yet "
+                         f"(ROADMAP.md, Queue 1 item {item})")
+    if args.tier_mix and (args.source == "trace" or args.closed_loop):
+        parser.error(
+            "--tier-mix generates its own synthetic mixed-tier Poisson "
+            "stream — it cannot be combined with --source trace or "
+            "--closed-loop (the trace/closed-loop jobs would be "
+            "silently replaced)"
+        )
+    if args.device == "cuda":
+        # Shared-dispatch serving needs deterministic routing: adaptive
+        # timing-based twin routing would make batch membership (and, in
+        # float32, placements) nondeterministic.
+        args.adaptive = False
 
 
 def _add_tick_order(sub_parser, default="fifo"):
@@ -1218,6 +1397,148 @@ def run_search_cli(args, torch_device: str = "cuda",
     return report
 
 
+def run_serve_stream(args, torch_device: str = "cuda",
+                     dtype: str = "float32") -> dict:
+    """The online serving layer (``pivot_tpu_torch.serve``,
+    ``pivot_tpu/experiments/cli.py:1614``): G always-on scheduling
+    sessions fed by a streaming arrival source through a bounded
+    admission queue; device-backed sessions (``--device cuda``, the
+    default, their torch tensors on ``torch_device`` in ``dtype``) share
+    their co-pending per-tick dispatches through idle-aware,
+    deadline-flushed ``DispatchBatcher`` slots — a coalesced Cost-Aware
+    flush is one per-row launch of ``greedy_place``.  Prints (and writes
+    ``<output-dir>/serve/<stamp>/report.json``) the service report: SLO
+    snapshot, batcher stats, per-session metrics."""
+    from pivot_tpu_torch.obs import MetricsHTTPServer, MetricsRegistry, Tracer
+    from pivot_tpu_torch.serve import (
+        AutoscaleConfig,
+        ServeDriver,
+        ServeSession,
+        closed_loop_source,
+        mixed_tier_arrivals,
+        poisson_arrivals,
+        synthetic_app_factory,
+        trace_arrivals,
+    )
+
+    arm = dict(name=args.policy, device=args.device, adaptive=args.adaptive)
+    if args.policy == "cost-aware":
+        arm.update(bin_pack="first-fit", sort_tasks=True, sort_hosts=True)
+    elif args.policy == "first-fit":
+        arm.update(decreasing=True)  # the reference's VBP arm
+    pcfg = PolicyConfig(**arm)
+
+    def make_session(label):
+        return ServeSession(
+            label,
+            build_cluster(_cluster_config(args)),
+            make_policy(pcfg, torch_device=torch_device, dtype=dtype),
+            seed=args.seed,
+        )
+
+    sessions = [make_session(f"session-{g}") for g in range(args.sessions)]
+    flush_after = (args.flush_after_us or 0) / 1e6 or None
+
+    def _csv(text, cast):
+        return tuple(cast(x) for x in text.split(",")) if text else None
+
+    autoscale = None
+    if args.autoscale:
+        try:
+            g_min, g_max = (int(x) for x in args.autoscale.split(":"))
+        except ValueError:
+            raise SystemExit(
+                f"--autoscale wants GMIN:GMAX, got {args.autoscale!r}"
+            )
+        autoscale = AutoscaleConfig(
+            g_min=g_min, g_max=g_max, slo_p99_s=args.slo_p99_ms / 1e3,
+        )
+    tracer = Tracer() if args.trace_out else None
+    registry = (
+        MetricsRegistry()
+        if args.metrics_out or args.metrics_port else None
+    )
+    driver = ServeDriver(
+        sessions,
+        queue_depth=args.queue_depth,
+        backpressure=args.backpressure,
+        flush_after=flush_after,
+        tier_reserve=_csv(args.tier_reserve, int),
+        tier_policies=_csv(args.tier_policies, str),
+        routing=args.routing.replace("-", "_"),
+        preempt=args.preempt,
+        session_factory=make_session if autoscale else None,
+        autoscale=autoscale,
+        tracer=tracer,
+        registry=registry,
+        tenant_quota=args.tenant_quota or None,
+    )
+    metrics_server = None
+    if args.metrics_port:
+        # Live scrape endpoint: every GET re-publishes the service's
+        # current state into the registry and renders the exposition.
+        def _render_text() -> str:
+            driver.publish_metrics(registry)
+            return registry.to_prometheus()
+
+        def _render_json() -> dict:
+            return driver.publish_metrics(registry) or {}
+
+        metrics_server = MetricsHTTPServer(
+            _render_text, _render_json, port=args.metrics_port
+        )
+        metrics_server.start()
+    if args.closed_loop:
+        arrivals = closed_loop_source(
+            driver, synthetic_app_factory(seed=args.seed),
+            args.closed_loop, args.jobs,
+        )
+    elif args.tier_mix:
+        arrivals = mixed_tier_arrivals(
+            args.arrival_rate, args.jobs,
+            weights=_csv(args.tier_mix, float), seed=args.seed,
+        )
+    elif args.source == "trace":
+        arrivals = trace_arrivals(
+            _list_traces(args.job_dir, 1)[0], n_apps=args.jobs,
+            scale_factor=args.scale_factor, rate=args.arrival_rate or None,
+            seed=args.seed,
+        )
+    else:
+        arrivals = poisson_arrivals(
+            args.arrival_rate, args.jobs, seed=args.seed
+        )
+    wall0 = time.perf_counter()
+    try:
+        report = driver.run(arrivals, pace=args.pace or None)
+    finally:
+        if metrics_server is not None:
+            metrics_server.stop()
+    wall = time.perf_counter() - wall0
+    report["wall_s"] = round(wall, 3)
+    report["decisions_per_sec"] = round(
+        report["slo"]["counters"]["decisions"] / max(wall, 1e-9), 1
+    )
+    out_dir = os.path.join(args.output_dir, "serve", str(int(time.time())))
+    os.makedirs(out_dir, exist_ok=True)
+    if tracer is not None:
+        tracer.save_perfetto(args.trace_out)
+        tracer.save_jsonl(args.trace_out + ".jsonl")
+        report["trace_out"] = args.trace_out
+        report["trace_events"] = len(tracer.events)
+    if metrics_server is not None:
+        report["metrics_port"] = metrics_server.port
+    if registry is not None and args.metrics_out:
+        driver.publish_metrics(registry)
+        registry.save_prometheus(args.metrics_out)
+        registry.save_json(args.metrics_out + ".json")
+        report["metrics_out"] = args.metrics_out
+    with open(os.path.join(out_dir, "report.json"), "w") as f:
+        json.dump(report, f, indent=2)
+    print(json.dumps(report))
+    return report
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     if args.command == "sensitivity":
@@ -1225,6 +1546,9 @@ def main(argv=None) -> None:
         return
     if args.command == "search":
         run_search_cli(args)
+        return
+    if args.command == "serve":
+        run_serve_stream(args)
         return
     sweeps = {"ensemble": run_ensemble, "calibrate": run_calibrate,
               "autotune": run_autotune, "capacity": run_capacity,

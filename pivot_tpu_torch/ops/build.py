@@ -12,6 +12,9 @@ kernels' results depend on it (``csrc/greedy_place.cu``).
 
 ``nvcc`` is ``$CUDA_HOME/bin/nvcc`` (default ``/usr/local/cuda``), else
 the one on ``PATH``.
+
+A build and a load hold one lock: serving session threads may reach a
+kernel's first use together.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from typing import Dict, Iterable
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "BuildError", "build_all", "load"]
@@ -37,6 +41,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
+
+
+#: Held across a build and a load (re-entrant: a load builds first).
+_LOCK = threading.RLock()
 
 
 class BuildError(RuntimeError):
@@ -70,6 +78,11 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     per source, all started together — and return ``{name: .so path}``.
     Each compiles to a private temporary path and is renamed into place,
     so a concurrent build never loads a half-written library."""
+    with _LOCK:
+        return _build_all(names)
+
+
+def _build_all(names: Iterable[str]) -> Dict[str, str]:
     paths = {name: _lib_path(name) for name in names}
     todo = {n: p for n, p in paths.items() if not os.path.exists(p)}
     if not todo:
@@ -105,7 +118,12 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     return paths
 
 
-@functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _LOCK:
+        return _load(name)
+
+
+@functools.lru_cache(maxsize=None)
+def _load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(build_all((name,))[name])

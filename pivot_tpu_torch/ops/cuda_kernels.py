@@ -16,20 +16,31 @@ shared memory a chunk ahead, and reduces with ``redux.sync``; a replica
 is a group of W warps, several groups to a block.  :func:`_launch_config`
 picks W, the hosts per thread K and the groups per block.
 
-Beside the kernel, ``cost_aware_plain_batched`` / ``cost_aware_plain`` are
-the same pass as a straightforward torch loop over tasks with the
-kernel's arithmetic, phase 1 as torch ops.  The wrappers take the plain
-version for tensors on the CPU — and only then: on a CUDA tensor they
-launch the kernel or raise.
+``cost_aware_cuda_rows`` is the kernel's per-row form: G rows, each with
+its own task stream, host rows, ``[Z, Z]`` tables and step bound, in one
+launch — what ``jax.vmap`` of the kernel computes over G serving
+sessions' ticks (``pivot_tpu/sched/batch.py:118-168``), and what a
+coalesced Cost-Aware flush of the serving batcher (``sched/batch.py``)
+runs.
 
-``LAUNCHES["greedy_place"]`` counts kernel launches (never plain calls),
-and ``LAUNCHES_BY_REPLICAS`` the same launches by their replica count R.
+Beside the kernel, ``cost_aware_plain_batched`` / ``cost_aware_plain`` /
+``cost_aware_plain_rows`` are the same pass as a straightforward torch
+loop over tasks with the kernel's arithmetic, phase 1 as torch ops.  The
+wrappers take the plain version for tensors on the CPU — and only then:
+on a CUDA tensor they launch the kernel or raise.
+
+``LAUNCHES["greedy_place"]`` counts kernel launches (never plain calls);
+``LAUNCHES_BY_REPLICAS`` the shared-stream launches by their replica
+count R, and ``LAUNCHES_ROWS`` the per-row launches by their row count
+G.  Session threads launch concurrently: the counts, the build and the
+load are taken under locks.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -37,18 +48,28 @@ import torch
 __all__ = [
     "LAUNCHES",
     "LAUNCHES_BY_REPLICAS",
+    "LAUNCHES_ROWS",
     "MAX_HOSTS",
+    "load_library",
     "reset_launches",
     "cost_aware_cuda",
     "cost_aware_cuda_batched",
+    "cost_aware_cuda_rows",
     "cost_aware_plain",
     "cost_aware_plain_batched",
+    "cost_aware_plain_rows",
 ]
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel name.
 LAUNCHES = {"greedy_place": 0}
-#: The same launches of ``greedy_place``, by replica count R.
+#: The shared-stream launches of ``greedy_place``, by replica count R.
 LAUNCHES_BY_REPLICAS: dict = {}
+#: The per-row launches of ``greedy_place``, by row count G.
+LAUNCHES_ROWS: dict = {}
+#: Guards the three counts (session threads launch concurrently).
+_COUNT_LOCK = threading.Lock()
+#: Guards the typing of the library's entry points.
+_LOAD_LOCK = threading.Lock()
 
 _BIG = 1e30
 _NEG = -1e30
@@ -76,9 +97,11 @@ _EXCHANGE_HOSTS = 4
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-    LAUNCHES_BY_REPLICAS.clear()
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+        LAUNCHES_BY_REPLICAS.clear()
+        LAUNCHES_ROWS.clear()
 
 
 class _Config(NamedTuple):
@@ -154,6 +177,14 @@ def _launch_config(R: int, H: int, Z: int,
     return _Config(W, K, smem_state, G, 32 * W * G, -(-R // G), smem)
 
 
+def _rows_config(G: int, H: int, Z: int) -> _Config:
+    """The per-row launch shape: :func:`_launch_config`'s W and K for
+    ``H`` hosts, one row a block (each block copies its own row's tables;
+    the kernel refuses a per-row launch with more groups to a block)."""
+    cfg = _launch_config(1, H, Z)
+    return cfg._replace(blocks=G)
+
+
 def _want(name, t, device, dtype, shape) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, avail on {device}")
@@ -198,6 +229,43 @@ def _check(avail_r, demands, valid, new_group, anchor_zone, cost_zz, bw_zz,
     elif not 0 <= n_eff <= T:
         raise ValueError(f"n_eff must be in [0, {T}], got {n_eff}")
     return R, T, H, n_eff, _launch_config(R, H, Z)
+
+
+def _check_rows(avail_g, demands_g, valid_g, new_group_g, anchor_zone_g,
+                cost_zz_g, bw_zz_g, host_zone_g, base_task_counts_g,
+                bin_pack, live, risk, n_eff_g):
+    """Validate the per-row contract (every operand with a leading ``[G]``
+    row axis); returns ``(G, T, H, launch config)``."""
+    if bin_pack not in ("first-fit", "best-fit"):
+        raise ValueError(f"bin_pack must be 'first-fit' or 'best-fit', "
+                         f"got {bin_pack!r}")
+    if avail_g.dim() != 3 or avail_g.shape[2] != 4:
+        raise ValueError(f"avail must be [G, H, 4], got "
+                         f"{tuple(avail_g.shape)}")
+    G, H = avail_g.shape[0], avail_g.shape[1]
+    if demands_g.dim() != 3 or cost_zz_g.dim() != 3:
+        raise ValueError("the per-row form takes demands [G, T, 4] and "
+                         "cost_zz / bw_zz [G, Z, Z]")
+    T, Z = demands_g.shape[1], cost_zz_g.shape[1]
+    dev = avail_g.device
+    _want("avail", avail_g, dev, _F32, (G, H, 4))
+    _want("demands", demands_g, dev, _F32, (G, T, 4))
+    _want("valid", valid_g, dev, _BOOL, (G, T))
+    _want("new_group", new_group_g, dev, _BOOL, (G, T))
+    _want("anchor_zone", anchor_zone_g, dev, _I32, (G, T))
+    _want("cost_zz", cost_zz_g, dev, _F32, (G, Z, Z))
+    _want("bw_zz", bw_zz_g, dev, _F32, (G, Z, Z))
+    _want("host_zone", host_zone_g, dev, _I32, (G, H))
+    _want("base_task_counts", base_task_counts_g, dev, _I32, (G, H))
+    if live is not None:
+        _want("live", live, dev, _BOOL, (G, H))
+    if risk is not None:
+        _want("risk", risk, dev, _F32, (G, H))
+    if n_eff_g is not None:
+        _want("n_eff", n_eff_g, dev, _I32, (G,))
+    if H < 1:
+        raise ValueError("the greedy pass needs at least one host")
+    return G, T, H, _rows_config(G, H, Z)
 
 
 def _phase1(cost_zz, bw_zz, host_zone):
@@ -311,55 +379,120 @@ def cost_aware_plain(avail, demands, valid, new_group, anchor_zone, cost_zz,
     return p[0], a[0]
 
 
+def cost_aware_plain_rows(avail_g, demands_g, valid_g, new_group_g,
+                          anchor_zone_g, cost_zz_g, bw_zz_g, host_zone_g,
+                          base_task_counts_g, bin_pack: str = "first-fit",
+                          sort_hosts: bool = True, host_decay: bool = False,
+                          live=None, risk=None, n_eff_g=None):
+    """The per-row pass of :func:`cost_aware_cuda_rows`: row ``r`` is
+    :func:`cost_aware_plain` on row ``r`` of every operand, walking tasks
+    ``[0, n_eff_g[r])`` (clamped to ``[0, T]``; default all ``T``).
+    Returns ``([G, T] int32 placements, [G, H, 4] availability)``."""
+    G, T, _H, _cfg = _check_rows(avail_g, demands_g, valid_g, new_group_g,
+                                 anchor_zone_g, cost_zz_g, bw_zz_g,
+                                 host_zone_g, base_task_counts_g, bin_pack,
+                                 live, risk, n_eff_g)
+    bounds = [T] * G if n_eff_g is None else n_eff_g.tolist()
+    rows = [
+        cost_aware_plain(
+            avail_g[r], demands_g[r], valid_g[r], new_group_g[r],
+            anchor_zone_g[r], cost_zz_g[r], bw_zz_g[r], host_zone_g[r],
+            base_task_counts_g[r], bin_pack=bin_pack, sort_hosts=sort_hosts,
+            host_decay=host_decay, live=None if live is None else live[r],
+            risk=None if risk is None else risk[r],
+            n_eff=min(max(int(bounds[r]), 0), T),
+        )
+        for r in range(G)
+    ]
+    if not rows:
+        return (torch.empty((0, T), dtype=torch.int32,
+                            device=avail_g.device), avail_g.clone())
+    return (torch.stack([p for p, _ in rows]),
+            torch.stack([a for _, a in rows]))
+
+
 # ---------------------------------------------------------------------------
 # The kernel.
 # ---------------------------------------------------------------------------
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    """``greedy_place_launch`` of the built library, typed once: thirteen
-    pointers, twelve ints, the stream."""
+def _entries():
+    """The built library's two launch entry points, typed once:
+    ``greedy_place_launch`` (thirteen pointers, twelve ints, the stream)
+    and ``greedy_place_launch_rows`` (fourteen pointers, ten ints, the
+    stream)."""
     from pivot_tpu_torch.ops.build import load
 
-    fn = load("greedy_place").greedy_place_launch
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 12 + [
+    lib = load("greedy_place")
+    shared, rows = lib.greedy_place_launch, lib.greedy_place_launch_rows
+    shared.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 12 + [
         ctypes.c_void_p
     ]
-    fn.restype = ctypes.c_int
-    return fn
+    rows.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 10 + [
+        ctypes.c_void_p
+    ]
+    shared.restype = rows.restype = ctypes.c_int
+    return shared, rows
+
+
+def load_library():
+    """Build (if needed) and load ``greedy_place`` now, on the calling
+    thread; returns its two typed entry points.  The serving driver calls
+    it before any session thread dispatches."""
+    with _LOAD_LOCK:
+        return _entries()
 
 
 def _launch(cfg, avail_r, demands, valid, new_group, anchor_zone, cost_zz,
             bw_zz, host_zone, base_task_counts, live, risk, placements,
-            avail_out, n_eff, first_fit, sort_hosts, host_decay) -> None:
+            avail_out, n_eff, first_fit, sort_hosts, host_decay,
+            n_eff_rows=None) -> None:
     """Launch ``greedy_place`` once, in shape ``cfg``, on the current
-    stream of ``avail_r``'s device, on operands :func:`_check` has passed,
+    stream of ``avail_r``'s device, on operands :func:`_check` (or, with
+    ``n_eff_rows``, the per-row form of :func:`_check_rows`) has passed,
     into ``placements`` / ``avail_out``; count the launch, and raise if
-    CUDA refused it.  The kernel's one launch site."""
+    CUDA refused it.  The kernel's one launch site.  ``n_eff_rows`` (an
+    int32 ``[G]`` tensor, or the string ``"all"`` for T each) selects the
+    per-row form, whose rows' bounds it holds; ``n_eff`` is then
+    unused."""
     dev = avail_r.device
-    args = (
+    R = avail_r.shape[0]
+    rows = n_eff_rows is not None
+    ptrs = (
         avail_r.data_ptr(), demands.data_ptr(), valid.data_ptr(),
         new_group.data_ptr(), anchor_zone.data_ptr(), cost_zz.data_ptr(),
         bw_zz.data_ptr(), host_zone.data_ptr(), base_task_counts.data_ptr(),
         None if risk is None else risk.data_ptr(),
         None if live is None else live.data_ptr(),
-        placements.data_ptr(), avail_out.data_ptr(),
-        avail_r.shape[0], demands.shape[0], n_eff, avail_r.shape[1],
-        cost_zz.shape[0], first_fit, sort_hosts, host_decay,
-        cfg.hosts_per_thread, cfg.smem_state, cfg.warps, cfg.groups,
-        torch._C._cuda_getCurrentRawStream(dev.index),  # current_stream()'s
     )
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)  # current_stream()'s
+    mode = (first_fit, sort_hosts, host_decay, cfg.hosts_per_thread,
+            cfg.smem_state, cfg.warps)
+    shared, per_row = load_library()
+    if rows:
+        bounds = (None if isinstance(n_eff_rows, str)
+                  else n_eff_rows.data_ptr())
+        fn = per_row
+        args = (*ptrs, bounds, placements.data_ptr(), avail_out.data_ptr(),
+                R, demands.shape[1], avail_r.shape[1], cost_zz.shape[1],
+                *mode, stream)
+    else:
+        fn = shared
+        args = (*ptrs, placements.data_ptr(), avail_out.data_ptr(),
+                R, demands.shape[0], n_eff, avail_r.shape[1],
+                cost_zz.shape[0], *mode, cfg.groups, stream)
     if dev.index == torch.cuda.current_device():
-        err = _launcher()(*args)
+        err = fn(*args)
     else:
         with torch.cuda.device(dev):
-            err = _launcher()(*args)
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(f"greedy_place launch failed: CUDA error {err}")
-    LAUNCHES["greedy_place"] += 1
-    R = avail_r.shape[0]
-    LAUNCHES_BY_REPLICAS[R] = LAUNCHES_BY_REPLICAS.get(R, 0) + 1
+    with _COUNT_LOCK:
+        LAUNCHES["greedy_place"] += 1
+        counts = LAUNCHES_ROWS if rows else LAUNCHES_BY_REPLICAS
+        counts[R] = counts.get(R, 0) + 1
 
 
 def cost_aware_cuda_batched(avail_r, demands, valid, new_group, anchor_zone,
@@ -417,3 +550,43 @@ def cost_aware_cuda(avail, demands, valid, new_group, anchor_zone, cost_zz,
         host_decay=host_decay, live=live, risk=risk, n_eff=n_eff,
     )
     return p[0], a[0]
+
+
+def cost_aware_cuda_rows(avail_g, demands_g, valid_g, new_group_g,
+                         anchor_zone_g, cost_zz_g, bw_zz_g, host_zone_g,
+                         base_task_counts_g, bin_pack: str = "first-fit",
+                         sort_hosts: bool = True, host_decay: bool = False,
+                         live=None, risk=None, n_eff_g=None):
+    """The per-row greedy pass: G rows, each one tick of its own —
+
+      avail_g [G, H, 4] f32, demands_g [G, T, 4] f32, valid_g /
+      new_group_g [G, T] bool, anchor_zone_g [G, T] i32, cost_zz_g /
+      bw_zz_g [G, Z, Z] f32, host_zone_g / base_task_counts_g [G, H] i32,
+      optional live [G, H] bool and risk [G, H] f32, optional n_eff_g [G]
+      i32 (each row's step bound, clamped to [0, T]; default T), all
+      contiguous and on one device; zones in [0, Z).
+
+    Row ``r`` of the result is :func:`cost_aware_cuda` on row ``r`` of
+    every operand: ``([G, T] int32 placements, [G, H, 4] f32
+    availability)``.  CUDA tensors launch ``greedy_place`` once on the
+    current stream (one row a block), with no other device operation and
+    no synchronisation; CPU tensors take :func:`cost_aware_plain_rows`;
+    anything else raises."""
+    args = (avail_g, demands_g, valid_g, new_group_g, anchor_zone_g,
+            cost_zz_g, bw_zz_g, host_zone_g, base_task_counts_g)
+    if avail_g.device.type == "cpu":
+        return cost_aware_plain_rows(
+            *args, bin_pack=bin_pack, sort_hosts=sort_hosts,
+            host_decay=host_decay, live=live, risk=risk, n_eff_g=n_eff_g,
+        )
+    if avail_g.device.type != "cuda":
+        raise ValueError(f"greedy_place runs on cuda or (plain) cpu tensors, "
+                         f"got {avail_g.device}")
+    G, T, _H, cfg = _check_rows(*args, bin_pack, live, risk, n_eff_g)
+    placements = torch.empty((G, T), dtype=torch.int32, device=avail_g.device)
+    avail_out = torch.empty_like(avail_g)
+    if G:
+        _launch(cfg, *args, live, risk, placements, avail_out, T,
+                bin_pack == "first-fit", sort_hosts, host_decay,
+                n_eff_rows="all" if n_eff_g is None else n_eff_g)
+    return placements, avail_out

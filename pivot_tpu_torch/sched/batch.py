@@ -1,0 +1,412 @@
+"""Cross-run dispatch batching: co-pending ticks of many runs, one flush.
+
+Port of ``pivot_tpu/sched/batch.py`` without the mesh, the ragged span
+repack, the dispatch profiler and the recovery journal (ROADMAP.md,
+Queue 1 items 4, 8, 9 and 12).  G concurrently stepped DES runs — the
+serving sessions of ``pivot_tpu_torch.serve`` — submit their per-tick
+placement calls to a :class:`DispatchBatcher`; the coordinator coalesces
+co-pending calls of one (kernel, shape, static config) key into one
+flush and hands each run back its own row.
+
+What a flush of G same-key requests runs (:func:`batch_execute`):
+
+  * every operand column is stacked on the host (``np.stack``) and the
+    whole flush is staged on the device in ONE host→device copy
+    (``sched.cuda.stage``), and only the placements come back, in ONE
+    device→host copy;
+  * a kernel with a batched form in the registry (``_BATCHED``) runs it
+    once over the ``[G, ...]`` columns: the Cost-Aware kernel call
+    (``ops.cuda_kernels.cost_aware_cuda``) becomes one per-row launch of
+    ``greedy_place`` (``cost_aware_cuda_rows``), each row its own stream,
+    host rows, tables and step bound — what ``jax.vmap`` of the kernel
+    computes in the reference.  The rows pad to :func:`group_bucket`
+    with copies of row 0, as the reference stages;
+  * any other callable — the torch arms ``first_fit_impl``,
+    ``best_fit_impl``, ``opportunistic_impl`` and ``cost_aware_impl`` off
+    the kernel among them — runs its rows one after another through the
+    same call as an unbatched tick, on row views of the staged columns:
+    bit-identical by construction.  Their batched hand kernel is ROADMAP
+    Queue 2 item 1;
+  * a group of one runs the unbatched call, as the reference does.
+
+Correctness contract (``tests/test_torch_batch.py``): a run's placements
+are identical whether its tick was served alone or inside any flush —
+the kernels are pure functions of their per-tick inputs, and a row of
+the per-row launch is the unbatched launch of that row (``chip_smoke.py``
+holds every coalesced launch against its plain version on the card).
+
+Operands arrive as host numpy (the policies stage to the host when a
+client is attached, ``sched/cuda.py``); a 0-d operand (the Cost-Aware
+step bound ``n_eff``) is a per-row scalar: a ``[G]`` column of the
+batched form, a host int of an unbatched call.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from pivot_tpu_torch.ops import cuda_kernels
+from pivot_tpu_torch.sched.cuda import pad_bucket, stage
+
+__all__ = [
+    "BatchClient",
+    "DispatchBatcher",
+    "batch_execute",
+    "group_bucket",
+]
+
+#: Small-G buckets below the task-axis bucket ladder
+#: (``pivot_tpu/sched/batch.py:96``).
+_G_BUCKETS = (2, 4, 8, 16)
+
+
+def group_bucket(g: int) -> int:
+    """Smallest batch bucket ≥ g; 1 is its own bucket (a lone request
+    runs the unbatched call)."""
+    if g <= 1:
+        return 1
+    for b in _G_BUCKETS:
+        if g <= b:
+            return b
+    return pad_bucket(g)
+
+
+def _cost_aware_rows(args, kw, static_kw):
+    """The batched form of the Cost-Aware kernel call: one per-row launch
+    (``n_eff``, a per-row operand, becomes ``n_eff_g``)."""
+    kw = dict(kw)
+    n_eff = kw.pop("n_eff", None)
+    return cuda_kernels.cost_aware_cuda_rows(*args, **kw, **static_kw,
+                                             n_eff_g=n_eff)
+
+
+#: Batched forms by kernel callable; any other callable runs its rows in
+#: sequence (module docstring).
+_BATCHED = {cuda_kernels.cost_aware_cuda: _cost_aware_rows}
+
+
+def _fetch(outs: list) -> list:
+    """Each request's output with its placements — the whole output, or
+    the first element of a tuple — on the host, fetched for all requests
+    in one device→host copy; other elements stay where the kernel left
+    them."""
+    first = [o[0] if isinstance(o, tuple) else o for o in outs]
+    if torch.is_tensor(first[0]):
+        host = torch.stack(first).cpu().numpy()
+        first = list(host)
+    return [
+        (f, *o[1:]) if isinstance(o, tuple) else f
+        for f, o in zip(first, outs)
+    ]
+
+
+def batch_execute(
+    kernel,
+    requests: Sequence[Tuple[tuple, dict]],
+    static_kw: Optional[dict] = None,
+    device="cuda",
+) -> list:
+    """Serve N same-shaped kernel requests as one flush on ``device``.
+
+    ``requests`` is a sequence of ``(args, arr_kw)`` pairs of host arrays
+    whose shapes and dtypes match pairwise (the caller groups by
+    :func:`_request_key`).  Returns one output per request, in order,
+    with its placements on the host (:func:`_fetch`).  The flush stages
+    its columns in one copy and fetches the placements in one copy;
+    module docstring for what runs in between."""
+    static_kw = static_kw or {}
+    g = len(requests)
+    if g == 0:
+        return []
+    device = torch.device(device)
+    kw_keys = tuple(sorted(requests[0][1]))
+    n_args = len(requests[0][0])
+    cols = [np.stack([np.asarray(r[0][i]) for r in requests])
+            for i in range(n_args)]
+    cols += [np.stack([np.asarray(r[1][k]) for r in requests])
+             for k in kw_keys]
+    batched = _BATCHED.get(kernel) if g > 1 else None
+    if batched is not None:
+        gb = group_bucket(g)
+        if gb > g:
+            # Pad rows replicate row 0: same shapes, finite values; their
+            # output rows are dropped below.
+            cols = [np.concatenate([c, np.repeat(c[:1], gb - g, axis=0)])
+                    for c in cols]
+        st = stage(device, **{str(i): c for i, c in enumerate(cols)})
+        dev_cols = [st[str(i)] for i in range(len(cols))]
+        out = batched(tuple(dev_cols[:n_args]),
+                      dict(zip(kw_keys, dev_cols[n_args:])), static_kw)
+        outs = [tuple(o[r] for o in out) for r in range(g)]
+        return _fetch(outs)
+    # Row by row: 0-d operands (a [G] column here) stay host scalars.
+    scalar = [c.ndim == 1 for c in cols]
+    st = stage(device, **{str(i): c for i, c in enumerate(cols)
+                          if not scalar[i]})
+    outs = []
+    for r in range(g):
+        row = [cols[i][r].item() if scalar[i] else st[str(i)][r]
+               for i in range(len(cols))]
+        outs.append(kernel(*row[:n_args], **dict(zip(kw_keys, row[n_args:])),
+                           **static_kw))
+    return _fetch(outs)
+
+
+def _request_key(kernel, args, arr_kw, static_kw) -> tuple:
+    """Requests with equal keys may share one flush."""
+    return (
+        kernel,
+        tuple(sorted(static_kw.items())),
+        tuple((tuple(np.shape(a)), str(np.asarray(a).dtype)) for a in args),
+        tuple(
+            (k, tuple(np.shape(v)), str(np.asarray(v).dtype))
+            for k, v in sorted(arr_kw.items())
+        ),
+    )
+
+
+class _Request:
+    __slots__ = ("slot", "kernel", "args", "arr_kw", "static_kw", "key",
+                 "done", "result", "error")
+
+    def __init__(self, slot, kernel, args, arr_kw, static_kw):
+        self.slot = slot
+        self.kernel = kernel
+        self.args = args
+        self.arr_kw = arr_kw
+        self.static_kw = static_kw
+        self.key = _request_key(kernel, args, arr_kw, static_kw)
+        self.done = threading.Event()
+        self.result = None
+        self.error: Optional[BaseException] = None
+
+
+class BatchClient:
+    """One run's handle on the batcher: ``dispatch`` blocks the run's
+    thread at its tick boundary until the coordinator serves the batch."""
+
+    def __init__(self, batcher: "DispatchBatcher", slot: int):
+        self._batcher = batcher
+        self.slot = slot
+        self._closed = False
+        self._idle = False
+
+    def dispatch(self, kernel, args, arr_kw=None, static_kw=None):
+        if self._closed:
+            # An abandoned (stall-supervised) session thread waking up
+            # after its slot was reclaimed must not re-enter the barrier.
+            raise RuntimeError("batch client is closed")
+        batcher = self._batcher
+        with batcher._cond:
+            # Single-live-slot fast path: the one open slot with nothing
+            # pending has nobody to coalesce with — serve the call on
+            # this thread (a one-request flush, bit-identical).
+            solo = batcher._open == 1 and not batcher._pending
+            if solo:
+                batcher.stats["dispatches"] += 1
+                batcher.stats["device_calls"] += 1
+                batcher.stats["single_fast_path"] += 1
+        if solo:
+            return batch_execute(
+                kernel, [(tuple(args), dict(arr_kw or {}))],
+                dict(static_kw or {}), device=batcher.device,
+            )[0]
+        req = _Request(
+            self.slot, kernel, tuple(args), dict(arr_kw or {}),
+            dict(static_kw or {}),
+        )
+        batcher._submit(req)
+        req.done.wait()
+        if req.error is not None:
+            raise req.error
+        return req.result
+
+    def set_idle(self, idle: bool) -> None:
+        """Declare this slot idle (excluded from the quiescence count) or
+        busy again.  Idempotent; a closed client ignores the call."""
+        if self._closed or idle == self._idle:
+            return
+        self._idle = idle
+        self._batcher._set_idle(1 if idle else -1)
+
+    def close(self) -> None:
+        """Mark this run finished (idempotent) — the coordinator stops
+        waiting for it.  MUST be called (``finally``) or the barrier
+        deadlocks."""
+        if not self._closed:
+            self._closed = True
+            self._batcher._close_slot(was_idle=self._idle)
+
+
+class DispatchBatcher:
+    """Tick-synchronous barrier + coalescer for G concurrent runs
+    (``pivot_tpu/sched/batch.py:457``).
+
+    Each run executes in its own thread; a placement dispatch parks the
+    thread.  The coordinator (:meth:`serve`, on the driver thread) waits
+    for quiescence — every live, non-idle run parked on a request — or,
+    with ``flush_after`` seconds set, at most that long once a request is
+    pending, then flushes: co-pending requests with identical keys become
+    one :func:`batch_execute` call.
+
+    ``stats`` has the reference's keys (``SloMeter.DISPATCH_KEYS``):
+    ``runs``, ``dispatches`` (kernel calls requested), ``device_calls``
+    (kernel calls made: one per group with a batched form, one per
+    request for a group run row by row), ``coalesced`` (requests served
+    inside a group of more than one), ``max_group``,
+    ``deadline_flushes``, ``single_fast_path``, ``respawns``,
+    ``retired_slots``; the mesh and ragged counters stay 0 (not ported).
+    At any instant ``live_slots == runs − retired_slots``.
+    """
+
+    def __init__(self, n_slots: int, flush_after: Optional[float] = None,
+                 tracer=None, device="cuda"):
+        if n_slots < 1:
+            raise ValueError("DispatchBatcher needs at least one slot")
+        if flush_after is not None and flush_after <= 0:
+            raise ValueError("flush_after must be positive (or None)")
+        if tracer is None:
+            from pivot_tpu_torch.obs.tracer import NULL_TRACER
+
+            tracer = NULL_TRACER
+        self.tracer = tracer
+        self.device = torch.device(device)
+        self._cond = threading.Condition()
+        self._n_slots = n_slots
+        self._open = n_slots
+        self._idle = 0
+        self._flush_after = flush_after
+        self._pending: List[_Request] = []
+        self._clients = 0
+        self.stats: Dict[str, int] = {"runs": n_slots, **dict.fromkeys((
+            "dispatches", "device_calls", "coalesced", "max_group",
+            "deadline_flushes", "single_fast_path", "mesh_dispatches",
+            "mesh_fallbacks", "mesh_fallback_unshardable",
+            "mesh_fallback_mixed_shapes", "mesh_fallback_indivisible",
+            "ragged_merges", "ragged_rows", "ragged_pad_cells", "respawns",
+            "retired_slots",
+        ), 0)}
+
+    def client(self) -> BatchClient:
+        with self._cond:
+            if self._clients >= self._n_slots:
+                raise ValueError(
+                    f"all {self._n_slots} batcher slots already claimed"
+                )
+            slot = self._clients
+            self._clients += 1
+        return BatchClient(self, slot)
+
+    def respawn_client(self) -> BatchClient:
+        """Open a FRESH slot beyond the construction-time count — the
+        supervisor's restart path and the autoscaler's growth path."""
+        with self._cond:
+            slot = self._clients
+            self._clients += 1
+            self._n_slots += 1
+            self._open += 1
+            self.stats["runs"] = self._n_slots
+            self.stats["respawns"] += 1
+            self._cond.notify_all()
+        return BatchClient(self, slot)
+
+    @property
+    def live_slots(self) -> int:
+        """Open (not yet retired) slots."""
+        with self._cond:
+            return self._open
+
+    # -- run-thread side --------------------------------------------------
+    def _submit(self, req: _Request) -> None:
+        with self._cond:
+            self._pending.append(req)
+            self._cond.notify_all()
+
+    def _close_slot(self, was_idle: bool = False) -> None:
+        with self._cond:
+            self._open -= 1
+            self.stats["retired_slots"] += 1
+            if was_idle:
+                self._idle -= 1
+            self._cond.notify_all()
+
+    def _set_idle(self, delta: int) -> None:
+        with self._cond:
+            self._idle += delta
+            self._cond.notify_all()
+
+    # -- coordinator side -------------------------------------------------
+    def _quiescent(self) -> bool:
+        # Every live, non-idle run is parked on a request.
+        if self._open == 0:
+            return True
+        if not self._pending:
+            return False
+        return len(self._pending) >= max(self._open - self._idle, 0)
+
+    def serve(self) -> None:
+        """Coordinator loop: flush batches until every run finished."""
+        while True:
+            with self._cond:
+                self._cond.wait_for(
+                    lambda: self._pending or self._open == 0
+                )
+                if self._open == 0 and not self._pending:
+                    return
+                quiesced = self._cond.wait_for(
+                    self._quiescent, timeout=self._flush_after
+                )
+                if not self._pending:
+                    continue
+                if not quiesced:
+                    self.stats["deadline_flushes"] += 1
+                batch, self._pending = self._pending, []
+            self._flush(batch)
+
+    def _flush(self, batch: List[_Request]) -> None:
+        # Groups in first-key-seen order, rows in slot order.
+        try:
+            groups: Dict[tuple, List[_Request]] = {}
+            for req in batch:
+                groups.setdefault(req.key, []).append(req)
+            for reqs in groups.values():
+                reqs.sort(key=lambda r: r.slot)
+                calls = (1 if len(reqs) > 1 and reqs[0].kernel in _BATCHED
+                         else len(reqs))
+                with self._cond:
+                    self.stats["dispatches"] += len(reqs)
+                    self.stats["device_calls"] += calls
+                    self.stats["max_group"] = max(
+                        self.stats["max_group"], len(reqs)
+                    )
+                    if len(reqs) > 1:
+                        self.stats["coalesced"] += len(reqs)
+                try:
+                    with self.tracer.wall_span(
+                        "dispatch", "flush", group=len(reqs),
+                        slots=[r.slot for r in reqs],
+                    ):
+                        outs = batch_execute(
+                            reqs[0].kernel,
+                            [(r.args, r.arr_kw) for r in reqs],
+                            reqs[0].static_kw, device=self.device,
+                        )
+                except BaseException as exc:  # noqa: BLE001 — deliver, don't hang
+                    for r in reqs:
+                        r.error = exc
+                        r.done.set()
+                    continue
+                for r, out in zip(reqs, outs):
+                    r.result = out
+                    r.done.set()
+        except BaseException as exc:  # noqa: BLE001 — coordinator crash-safety
+            # A failure outside the per-group call must still reach every
+            # owning slot, or its run thread parks forever.
+            for r in batch:
+                if not r.done.is_set():
+                    r.error = exc
+                    r.done.set()

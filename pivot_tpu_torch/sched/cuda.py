@@ -56,8 +56,17 @@ snapshots, the Cost-Aware arm on one launch of the batched kernel, the
 First-Fit / Best-Fit arms on the batched torch passes of
 ``ops/kernels.py``.
 
-Not in this slice (ROADMAP.md, port queue): cross-run batching, host
-sharding, the resident carry, the degrade guard and the fault gate — the
+Cross-run batching (``enable_batching``, ``pivot_tpu/sched/tpu.py:534``):
+with a :class:`~pivot_tpu_torch.sched.batch.BatchClient` attached, a
+tick's operands stay host numpy and its kernel call goes through the
+batcher (``_call_kernel``), which coalesces co-pending ticks of the
+serving sessions into one flush.  The Cost-Aware kernel call is
+dispatched as the module-level ``cost_aware_cuda`` with its step bound
+``n_eff`` a per-row array, so that every session's tick shares one key
+and a coalesced flush is one per-row launch of ``greedy_place``.
+
+Not in this slice (ROADMAP.md, port queue): host sharding, the resident
+carry, the degrade guard, the fault gate and the dispatch profiler — the
 methods that would attach them raise ``NotImplementedError``.
 """
 
@@ -72,6 +81,7 @@ import torch
 from pivot_tpu_torch.ops.cuda_kernels import (
     cost_aware_cuda,
     cost_aware_cuda_batched,
+    load_library,
 )
 from pivot_tpu_torch.ops.kernels import (
     DeviceTopology,
@@ -226,6 +236,10 @@ class _DevicePolicyBase(Policy):
         # segment and the [P, Z, Z] stack, reset at bind.
         self._market_cost_dev: Dict[int, torch.Tensor] = {}
         self._market_stack_dev: Optional[torch.Tensor] = None
+        #: The cross-run batcher's client, when attached; then the host
+        #: copy of the topology the flushes stage (fetched once a bind).
+        self._batch_client = None
+        self._topology_host: Optional[DeviceTopology] = None
 
     @property
     def np_dtype(self):
@@ -241,6 +255,7 @@ class _DevicePolicyBase(Policy):
         self._scheduler = scheduler
         self._market_cost_dev = {}  # a rebind may bring another market
         self._market_stack_dev = None
+        self._topology_host = None
         self.topology = DeviceTopology.from_cluster(
             scheduler.cluster, self.dtype, self.device
         )
@@ -348,7 +363,26 @@ class _DevicePolicyBase(Policy):
         )
 
     def enable_batching(self, client) -> None:
-        self._not_ported("cross-run batching")
+        """Attach a :class:`~pivot_tpu_torch.sched.batch.BatchClient`: the
+        per-tick kernel calls block at the tick boundary and coalesce with
+        the other sessions' co-pending ticks (``sched/batch.py``).
+        Requires deterministic routing: the adaptive twin routes on
+        measured latencies, which would make batch membership
+        timing-dependent (``pivot_tpu/sched/tpu.py:534-566``)."""
+        if self.adaptive:
+            raise ValueError(
+                "cross-run batching needs deterministic dispatch — "
+                "construct the policy with adaptive=False"
+            )
+        self._batch_client = client
+
+    def prepare(self) -> None:
+        """Initialise CUDA on this policy's device now, on the calling
+        thread (the serving driver calls it before any session thread
+        dispatches).  A no-op on the CPU."""
+        if self.device.type == "cuda":
+            torch.cuda.init()
+            torch.zeros(1, device=self.device)
 
     def enable_sharding(self, mesh) -> None:
         self._not_ported("host sharding")
@@ -362,6 +396,37 @@ class _DevicePolicyBase(Policy):
     def enable_profiler(self, profiler) -> None:
         self._not_ported("the sampled dispatch profiler")
 
+    # -- kernel-call indirection (``pivot_tpu/sched/tpu.py:798-838``) ------
+    def _call_kernel(self, kernel, *args, **kw):
+        """Direct when unbatched, through the batcher when a client is
+        attached: array keywords batch with the positional arrays, plain
+        keywords stay static (a ``None`` operand is static too, so ticks
+        with and without a live mask or risk row fall into different
+        groups)."""
+        if self._batch_client is None:
+            return kernel(*args, **kw)
+        arr_kw = {k: v for k, v in kw.items() if hasattr(v, "shape")}
+        static_kw = {k: v for k, v in kw.items() if k not in arr_kw}
+        return self._batch_client.dispatch(kernel, args, arr_kw, static_kw)
+
+    def _stage(self, **arrays) -> dict:
+        """A tick's host operands: on the device in one copy when
+        unbatched; left on the host when batched — the batcher stacks the
+        flush's rows and stages them in one copy."""
+        if self._batch_client is not None:
+            return arrays
+        return stage(self.device, **arrays)
+
+    def _staged_topology(self) -> DeviceTopology:
+        """The topology operands of a tick: the bind-time device tensors,
+        or their host copy (fetched once a bind) when batched."""
+        if self._batch_client is None:
+            return self.topology
+        if self._topology_host is None:
+            self._topology_host = DeviceTopology(
+                *(t.cpu().numpy() for t in self.topology))
+        return self._topology_host
+
     # -- per-tick operands ---------------------------------------------------
     def _live_np(self, ctx: TickContext):
         live = ctx.live_mask
@@ -372,16 +437,18 @@ class _DevicePolicyBase(Policy):
         (``pivot_tpu/sched/tpu.py:880``): the bind-time table without a
         market, else the market's price-scaled slice for this tick's
         segment — computed in f64 on the host, rounded once into the
-        policy dtype and staged once per segment."""
+        policy dtype and staged once per segment (kept on the host when
+        batched)."""
         market = getattr(ctx.scheduler, "market", None)
         if market is None:
-            return self.topology.cost
+            return self._staged_topology().cost
         seg = market.segment(ctx.env_now)
         buf = self._market_cost_dev.get(seg)
         if buf is None:
-            buf = torch.tensor(
-                np.asarray(market.cost_matrix_at(ctx.env_now, ctx.meta),
-                           self.np_dtype), device=self.device)
+            buf = np.asarray(market.cost_matrix_at(ctx.env_now, ctx.meta),
+                             self.np_dtype)
+            if self._batch_client is None:
+                buf = torch.tensor(buf, device=self.device)
             self._market_cost_dev[seg] = buf
         return buf
 
@@ -408,9 +475,12 @@ class _DevicePolicyBase(Policy):
     @staticmethod
     def _unpad(placements, T: int,
                order: Optional[List[int]] = None) -> np.ndarray:
-        """The first ``T`` placements, fetched in one device→host copy,
-        returned in ctx task order."""
-        out = placements[:T].cpu().numpy().astype(np.int64)
+        """The first ``T`` placements, fetched in one device→host copy
+        (already on the host from a batched flush), returned in ctx task
+        order."""
+        if torch.is_tensor(placements):
+            placements = placements[:T].cpu().numpy()
+        out = np.asarray(placements[:T]).astype(np.int64)
         if order is None:
             return out
         unscrambled = np.full(T, -1, dtype=np.int64)
@@ -544,11 +614,11 @@ class CudaOpportunisticPolicy(_DevicePolicyBase):
         avail, dem, valid = self._padded(ctx)
         u = np.zeros(valid.shape[0], dtype=self.np_dtype)
         u[:T] = tick_uniforms(ctx.scheduler.seed or 0, ctx.tick_seq, T)
-        st = stage(self.device, avail=avail, dem=dem, valid=valid, u=u,
-                   live=self._live_np(ctx), risk=self._risk_np(ctx))
-        placements, _ = opportunistic_impl(
-            st["avail"], st["dem"], st["valid"], st["u"], phase2=self.phase2,
-            live=st["live"], risk=st["risk"],
+        st = self._stage(avail=avail, dem=dem, valid=valid, u=u,
+                         live=self._live_np(ctx), risk=self._risk_np(ctx))
+        placements, _ = self._call_kernel(
+            opportunistic_impl, st["avail"], st["dem"], st["valid"], st["u"],
+            phase2=self.phase2, live=st["live"], risk=st["risk"],
         )
         return self._unpad(placements, T)
 
@@ -587,12 +657,12 @@ class CudaFirstFitPolicy(_DevicePolicyBase):
     def _device_place(self, ctx: TickContext) -> np.ndarray:
         order = self._order(ctx)
         avail, dem, valid = self._padded(ctx, order)
-        st = stage(self.device, avail=avail, dem=dem, valid=valid,
-                   live=self._live_np(ctx), risk=self._risk_np(ctx))
-        placements, _ = first_fit_impl(
-            st["avail"], st["dem"], st["valid"], strict=False,
-            totals=self.topology.totals, phase2=self.phase2,
-            live=st["live"], risk=st["risk"],
+        st = self._stage(avail=avail, dem=dem, valid=valid,
+                         live=self._live_np(ctx), risk=self._risk_np(ctx))
+        placements, _ = self._call_kernel(
+            first_fit_impl, st["avail"], st["dem"], st["valid"],
+            strict=False, totals=self._staged_topology().totals,
+            phase2=self.phase2, live=st["live"], risk=st["risk"],
         )
         return self._unpad(placements, ctx.n_tasks, order)
 
@@ -640,11 +710,12 @@ class CudaBestFitPolicy(_DevicePolicyBase):
     def _device_place(self, ctx: TickContext) -> np.ndarray:
         order = self._order(ctx)
         avail, dem, valid = self._padded(ctx, order)
-        st = stage(self.device, avail=avail, dem=dem, valid=valid,
-                   live=self._live_np(ctx), risk=self._risk_np(ctx))
-        placements, _ = best_fit_impl(
-            st["avail"], st["dem"], st["valid"], totals=self.topology.totals,
-            phase2=self.phase2, live=st["live"], risk=st["risk"],
+        st = self._stage(avail=avail, dem=dem, valid=valid,
+                         live=self._live_np(ctx), risk=self._risk_np(ctx))
+        placements, _ = self._call_kernel(
+            best_fit_impl, st["avail"], st["dem"], st["valid"],
+            totals=self._staged_topology().totals, phase2=self.phase2,
+            live=st["live"], risk=st["risk"],
         )
         return self._unpad(placements, ctx.n_tasks, order)
 
@@ -750,6 +821,13 @@ class CudaCostAwarePolicy(_DevicePolicyBase):
             return self.use_kernel
         return (self.device.type == "cuda" and self.dtype == torch.float32
                 and not self.realtime_bw and self._score_exp is None)
+
+    def prepare(self) -> None:
+        """Initialise CUDA, and build and load ``greedy_place`` when it
+        serves this policy, on the calling thread."""
+        super().prepare()
+        if self._kernel_serves() and self.device.type == "cuda":
+            load_library()
 
     # The two calls into the hand-written kernel.
     def _greedy(self, *args, **kw):
@@ -870,11 +948,11 @@ class CudaCostAwarePolicy(_DevicePolicyBase):
             idx[:T] = row_idx
         score_exp = (None if self._score_exp is None
                      else np.asarray(self._score_exp, self.np_dtype))
-        st = stage(self.device, avail=avail, dem=dem, valid=valid, ng=ng_arr,
-                   az=az_arr, counts=counts, live=self._live_np(ctx),
-                   risk=self._risk_np(ctx), rows=rows, idx=idx,
-                   score_exp=score_exp)
-        topo = self.topology
+        st = self._stage(avail=avail, dem=dem, valid=valid, ng=ng_arr,
+                         az=az_arr, counts=counts, live=self._live_np(ctx),
+                         risk=self._risk_np(ctx), rows=rows, idx=idx,
+                         score_exp=score_exp)
+        topo = self._staged_topology()
         args = (st["avail"], st["dem"], st["valid"], st["ng"], st["az"],
                 self._market_cost_arg(ctx), topo.bw, topo.host_zone,
                 st["counts"])
@@ -882,12 +960,18 @@ class CudaCostAwarePolicy(_DevicePolicyBase):
                     host_decay=self.host_decay, live=st["live"],
                     risk=st["risk"])
         if self._kernel_serves():
-            placements, _ = self._greedy(*args, **mode, n_eff=T)
+            if self._batch_client is None:
+                placements, _ = self._greedy(*args, **mode, n_eff=T)
+            else:
+                # The module-level call, one key for every session; the
+                # step bound a per-row operand, or T would split flushes.
+                placements, _ = self._call_kernel(
+                    cost_aware_cuda, *args, **mode, n_eff=np.int32(T))
             self.kernel_ticks += 1
         else:
-            placements, _ = cost_aware_impl(
-                *args, **mode, rt_bw_rows=st["rows"], rt_bw_idx=st["idx"],
-                totals=topo.totals, phase2=self.phase2,
+            placements, _ = self._call_kernel(
+                cost_aware_impl, *args, **mode, rt_bw_rows=st["rows"],
+                rt_bw_idx=st["idx"], totals=topo.totals, phase2=self.phase2,
                 score_exp=st["score_exp"],
             )
         return self._unpad(placements, T, order)

@@ -6,9 +6,11 @@ runs one tiny ``overall``, one tiny ``ensemble`` with faults, one with
 congestion and a checkpoint file, one tiny ``capacity`` sweep (the row
 runner, ``sweeps.py``), a tiny ``calibrate``, a one-generation CEM
 ``search`` (fitness, optimizer, held-out seeds, oracle, DES validation),
-the market-replay tool and the workload generators on the CPU, imports
-the trace converter and sampler, and lists what is in ``sys.modules``.
-A static AST scan covers every file of the package — ``search/``,
+the market-replay tool, the workload generators and a tiny ``serve``
+(two sessions on the dispatch batcher, with tiers and the metrics
+registry) on the CPU, imports the trace converter and sampler, and lists
+what is in ``sys.modules``.  A static AST scan covers every file of the
+package — ``serve/``, ``sched/batch.py``, ``obs/``, ``search/``,
 ``experiments/search.py``, ``experiments/spot.py``,
 ``experiments/sample.py``, ``workload/``, ``parallel/ensemble/`` and
 ``tools/`` among them — and ``chip_smoke.py``.
@@ -66,6 +68,11 @@ with tempfile.TemporaryDirectory() as out:
     from pivot_tpu_torch.tools import market_replay
     replay = market_replay.main(["generate", "--hosts", "6", "--out",
                                  out + "/m.json"])
+    serve = cli.run_serve_stream(cli.parse_args(
+        ["--num-hosts", "8", "--output-dir", out, "serve", "--sessions",
+         "2", "--jobs", "6", "--arrival-rate", "0.5", "--tier-mix",
+         "0.5,0.5", "--metrics-out", out + "/metrics.prom"]),
+        torch_device="cpu")
 print(json.dumps({
     "arms": [s["label"] for s in summaries],
     "ensemble_unfinished": ens["unfinished_max"],
@@ -78,6 +85,8 @@ print(json.dumps({
     "search_regret": sorted(search["oracle"]["regret"]),
     "search_des": sorted(search["des_validation"]),
     "market_replay": replay,
+    "serve_completed": serve["slo"]["counters"]["completed"],
+    "serve_coalesced": serve["batcher"]["coalesced"],
     "modules": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "pivot_tpu")),
 }))
@@ -108,6 +117,8 @@ def test_port_runs_without_jax_or_reference_modules():
     assert report["search_regret"] == report["search_des"] == [
         "hand_tuned_default", "hand_tuned_risk_aware", "learned"]
     assert report["market_replay"] == 0
+    assert report["serve_completed"] == 6
+    assert report["serve_coalesced"] > 0
     assert report["modules"] == []
 
 
@@ -154,5 +165,14 @@ def test_no_file_of_the_port_imports_jax_or_reference():
             "pivot_tpu_torch/experiments/calibrate.py",
             "pivot_tpu_torch/experiments/sample.py",
             "pivot_tpu_torch/workload/gen.py",
-            "pivot_tpu_torch/workload/convert.py"} <= seen
+            "pivot_tpu_torch/workload/convert.py",
+            "pivot_tpu_torch/sched/batch.py",
+            "pivot_tpu_torch/serve/__init__.py",
+            "pivot_tpu_torch/serve/admission.py",
+            "pivot_tpu_torch/serve/arrivals.py",
+            "pivot_tpu_torch/serve/autoscale.py",
+            "pivot_tpu_torch/serve/driver.py",
+            "pivot_tpu_torch/serve/session.py",
+            "pivot_tpu_torch/obs/registry.py",
+            "pivot_tpu_torch/obs/metrics_http.py"} <= seen
     assert offenders == []

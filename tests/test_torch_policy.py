@@ -338,10 +338,11 @@ def test_cuda_without_a_card_raises():
 
 
 def test_features_of_later_slices_raise(metas):
-    """Spans and chunk commit are ported: the device policies are
-    span-capable by the reference's rule and ``phase2=8`` is served.
-    Batching, sharding, the resident carry, the fault gate and the
-    profiler still raise."""
+    """Spans, chunk commit and cross-run batching are ported: the device
+    policies are span-capable by the reference's rule, ``phase2=8`` is
+    served, and ``enable_batching`` takes a client (refusing the adaptive
+    twin, ``tests/test_torch_batch.py``).  Sharding, the resident carry,
+    the fault gate and the profiler still raise."""
     pol = pcuda.CudaCostAwarePolicy(device="cpu")
     assert pol.span_capable()
     for cls in (pcuda.CudaOpportunisticPolicy, pcuda.CudaFirstFitPolicy,
@@ -354,8 +355,12 @@ def test_features_of_later_slices_raise(metas):
         device="cpu", use_kernel=True).span_capable()
     assert pcuda.CudaCostAwarePolicy(
         device="cpu", use_kernel=False).span_capable()
-    for attach in (pol.enable_batching, pol.enable_sharding,
-                   pol.enable_fault_gate, pol.enable_profiler):
+    pcuda.CudaCostAwarePolicy(device="cpu").enable_batching(object())
+    with pytest.raises(ValueError, match="adaptive"):
+        pcuda.CudaCostAwarePolicy(device="cpu",
+                                  adaptive=True).enable_batching(object())
+    for attach in (pol.enable_sharding, pol.enable_fault_gate,
+                   pol.enable_profiler):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             attach(None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
