@@ -6,8 +6,9 @@
     python3 chip_smoke.py --phases 8   # the policy search alone
     python3 chip_smoke.py --phases 9   # congestion, checkpoints, calibrate
     python3 chip_smoke.py --phases 10  # serving and the per-row launch
+    python3 chip_smoke.py --phases 11  # cross-run batching of spans
 
-One card.  ``--phases`` takes a comma list; phases 2-5 and 10 bring
+One card.  ``--phases`` takes a comma list; phases 2-5, 10 and 11 bring
 phase 1's build along, phase 5 the runs of phases 3 and 4.
 
 Phases, each fatal on failure:
@@ -31,7 +32,7 @@ Phases, each fatal on failure:
      shared-memory-state build at H = 9664.  Placements must be equal;
      availability within rtol 1e-6 / atol 1e-5;
   3. end to end: the ``overall`` experiment (Opportunistic, VBP,
-     Cost-Aware) at 600 hosts x 500 apps through the port's CLI entry
+     Cost-Aware) at 600 hosts x 150 apps through the port's CLI entry
      point, on ``--device cuda --no-adaptive`` with fused spans (the
      default), again with fusion off, and on ``--device numpy``.  Every
      span of the fused run executes under
@@ -79,7 +80,7 @@ Phases, each fatal on failure:
      placement steps, host reads, CUDA-event ms of the tick loop, peak
      memory, its first 16 replicas equal to the R = 16 run; a
      ``torch.profiler`` window of ticks 600-650 per arm; the cost-aware
-     run's first 4 replicas against the port on the CPU; best-fit,
+     run's first 2 replicas against the port on the CPU; best-fit,
      opportunistic and lifo at 10 apps, card against CPU.  Placements,
      finish times, makespans, instance-hours and unfinished counts must
      be equal, egress within rtol 1e-5;
@@ -93,7 +94,8 @@ Phases, each fatal on failure:
      its defaults (27 candidates × 32 replicas), ``ensemble --replicas
      256 --faults 4 --fault-mttr 300`` (cost-aware, first-fit),
      ``capacity --host-counts 100 200 400 600 --faults 4 --fault-mttr
-     300`` and ``apps --app-counts 10 25`` (cut from 100 500 1000) —
+     300`` (both at 25 apps, cut from 50) and ``apps --app-counts 10
+     15`` (cut from 100 500 1000) —
      wall, rollouts/s, ticks, placement steps, host reads, CUDA-event
      ms, peak memory and the summary's best; with phase 6, autotune's
      (1, 1, 1) candidate against phase 6's first 32 replicas; (c) the
@@ -133,8 +135,9 @@ Phases, each fatal on failure:
      (``tests/data/calibrate_seed0.json``; egress within rtol 1e-5) —
      wall, and each mode's rollout ticks, placement steps and host
      reads; (b) the README's ``ensemble --policy opportunistic
-     --congestion`` with ``--checkpoint`` at R = 1024 (50 apps, 600
-     hosts), its first 16 replicas equal to ``pivot_tpu``'s R = 16 run
+     --congestion`` with ``--checkpoint`` at R = 256 (cut from 1024;
+     50 apps, 600 hosts), its first 16 replicas equal to
+     ``pivot_tpu``'s R = 16 run
      (``tests/data/ensemble_congestion_seed0.npz``) — wall, rollouts/s,
      ticks, placement steps, host reads, CUDA-event ms, peak memory;
      (c) at 10 apps, R = 4: a checkpointed run killed after its first
@@ -165,13 +168,34 @@ Phases, each fatal on failure:
      latency overall and per tier, the batcher's stats and the launches
      by G and R; (a) and (b)'s trace run time the largest per-row launch
      (wrapper and bare launch by CUDA events, the plain version, the
-     bound).
+     bound);
+ 11. cross-run batching on the card: (a) synthetic mixed-horizon
+     Cost-Aware span groups at 600 hosts (G = 2, 3, 4; horizons up to 32;
+     with and without a market's risk rows, cost stack and live mask),
+     each dispatched by G client threads through a ragged
+     ``DispatchBatcher``: one merge, the batched span driver under
+     ``torch.cuda.set_sync_debug_mode("error")``, each span tick ONE
+     per-row launch of ``greedy_place`` held against
+     ``cost_aware_plain_rows``, each trimmed result equal to its solo
+     span (R = 1 launches); (d) a chain of four resident Cost-Aware spans
+     with edit rows against the re-staged spans; (b) ``overall
+     --batch-runs 4`` over 4 traces at 600 hosts against the sequential
+     cuda grid — files byte-identical — with its per-row launches, span
+     flushes, ragged merges and walls; (c) the serve span commands
+     (``serve --sessions 3 --jobs 300 --arrival-rate 25 --fuse-spans
+     slo``, the same with ``--no-ragged``, and with ``--resident
+     --splice-tier 1``) through ``cli.main``: sessions equal batch mode on
+     the jobs they injected, ``audit()`` clean, every per-row launch held
+     against the plain version, the ragged arm merging and the resident
+     arm running spans with edit rows; p50 / p99 per tier, fused spans,
+     merges, pad cells, resident spans, edit rows, splices and the
+     launches by route.
 
 Each phase logs its wall.  The line before the last is a JSON
 ``kernels`` record (its ``launches`` split into the R = 1 launches of
-phases 3, 4 and 10, the R = 256 launches of phase 4 and the per-row
-launches of phase 10, with the per-row form's times; a number of a
-phase not run is null); the
+phases 3, 4, 10 and 11, the R = 256 launches of phase 4 and the per-row
+launches of phases 10 and 11, with the per-row form's times; a number
+of a phase not run is null); the
 last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout of the repository, the script exits non-zero and prints no
@@ -855,9 +879,9 @@ def make_shadow_policy(cuda_mod, ck):
     return ShadowCostAware
 
 
-#: Phase 3's depth: 500 apps, not 1000: with phase 9 the whole script
-#: passed 1,080 s of its 1,200 s limit (PERF.md, section 4).
-E2E_APPS = 500
+#: Phase 3's depth: 150 apps, not 1000: cut to 500 when phase 9 came
+#: and to 150 for phase 11, for the script's 1,200 s (PERF.md, section 4).
+E2E_APPS = 150
 
 
 def phase_end_to_end(device, n_hosts=600, n_apps=E2E_APPS):
@@ -1704,19 +1728,20 @@ SW_HOST_COUNTS = (100, 300, 600)
 SW_APP_COUNTS = (3, 6, 10)
 SW_APP_ARMS = ("opportunistic", "first-fit", "cost-aware")
 #: Phase 7 (b): the README's sweep commands at full width through the CLI
-#: (``apps`` cut from 100 500 1000 apps to 10 25: PERF.md, section 4).
+#: (``apps`` cut from 100 500 1000 apps to 10 15, the faulted ensembles
+#: and ``capacity`` from 50 apps to 25: PERF.md, section 4).
 SW_MAIN = (
     ("autotune", "run_autotune", ["autotune"]),
     ("ensemble-faults cost-aware", "run_ensemble",
      ["ensemble", "--replicas", "256", "--faults", "4", "--fault-mttr",
-      "300", "--policy", "cost-aware"]),
+      "300", "--policy", "cost-aware", "--num-apps", "25"]),
     ("ensemble-faults first-fit", "run_ensemble",
      ["ensemble", "--replicas", "256", "--faults", "4", "--fault-mttr",
-      "300", "--policy", "first-fit"]),
+      "300", "--policy", "first-fit", "--num-apps", "25"]),
     ("capacity", "run_capacity",
      ["capacity", "--host-counts", "100", "200", "400", "600", "--faults",
-      "4", "--fault-mttr", "300"]),
-    ("apps", "run_apps", ["apps", "--app-counts", "10", "25"]),
+      "4", "--fault-mttr", "300", "--num-apps", "25"]),
+    ("apps", "run_apps", ["apps", "--app-counts", "10", "15"]),
 )
 
 
@@ -2488,7 +2513,7 @@ CAL_RUNS = {"modes": (), "realtime": ("--realtime",)}
 CAL_RTOL = 1e-5
 CG_FIXTURE = "tests/data/ensemble_congestion_seed0.npz"
 CG_ARGV = ("--policy", "opportunistic", "--congestion")
-CG_REPLICAS = 1024
+CG_REPLICAS = 256  # cut from 1024 for the script's 1,200 s (PERF.md, 4)
 CG_CHECK_REPLICAS = 16
 CG_APPS = 10
 CG_SMALL_REPLICAS = 4
@@ -2577,7 +2602,8 @@ def phase_congestion(device):
     """Phase 9: (a) ``calibrate`` through the CLI at its defaults, static
     and congested, then ``--realtime``, each report against
     ``pivot_tpu``'s; (b) the README's ``ensemble --policy opportunistic
-    --congestion`` with ``--checkpoint`` at R = 1024, its first 16 rows
+    --congestion`` with ``--checkpoint`` at R = ``CG_REPLICAS``, its
+    first 16 rows
     against ``pivot_tpu``'s R = 16 run; (c) at ``CG_APPS`` apps on the
     card against the port on the CPU: a checkpointed run killed after its
     first segment and resumed, and the arms and modes of ``CG_SMALL``.
@@ -2763,23 +2789,30 @@ class ServeRecorder:
     for the run), each session's per-tick placements, the flush groups of
     more than one Cost-Aware tick (``sched.batch.batch_execute``), and
     every per-row launch's operands and outputs
-    (``cuda_kernels.cost_aware_cuda_rows``, as the batcher calls it)."""
+    (``cuda_kernels.cost_aware_cuda_rows``, as the batcher calls it), and
+    every R = 1 call the policy makes itself (``_greedy``: the resident
+    tier's span ticks and its per-tick placements; a batched policy's
+    calls go through the batcher instead)."""
 
     def __init__(self):
         self.driver = None
         self.sessions = []
         self.groups = []  # sizes of coalesced Cost-Aware flush groups
+        self.span_groups = []  # sizes of coalesced span flushes
         self.rows = []  # (args, kw, (placements, avail)) per launch
+        self.r1 = []  # (args, kw, (placements, avail)) per policy R = 1 call
 
     @contextlib.contextmanager
     def attach(self):
         from pivot_tpu_torch import serve
         from pivot_tpu_torch.ops import cuda_kernels as ck
         from pivot_tpu_torch.sched import batch
+        from pivot_tpu_torch.sched.cuda import CudaCostAwarePolicy
 
         rec = self
         base_driver, base_session = serve.ServeDriver, serve.ServeSession
         execute, rows = batch.batch_execute, ck.cost_aware_cuda_rows
+        greedy = CudaCostAwarePolicy._greedy
 
         class Driver(base_driver):
             def __init__(self, *a, **k):
@@ -2803,6 +2836,8 @@ class ServeRecorder:
         def batch_execute(kernel, requests, *a, **k):
             if kernel is ck.cost_aware_cuda and len(requests) > 1:
                 rec.groups.append(len(requests))
+            if kernel is batch.fused_tick_run and len(requests) > 1:
+                rec.span_groups.append(len(requests))
             return execute(kernel, requests, *a, **k)
 
         def cost_aware_cuda_rows(*a, **k):
@@ -2810,14 +2845,21 @@ class ServeRecorder:
             rec.rows.append((a, k, out))
             return out
 
+        def policy_greedy(policy, *a, **k):
+            out = greedy(policy, *a, **k)
+            rec.r1.append((a, k, out))
+            return out
+
         serve.ServeDriver, serve.ServeSession = Driver, Session
         batch.batch_execute = batch_execute
         ck.cost_aware_cuda_rows = cost_aware_cuda_rows
+        CudaCostAwarePolicy._greedy = policy_greedy
         try:
             yield self
         finally:
             serve.ServeDriver, serve.ServeSession = base_driver, base_session
             batch.batch_execute, ck.cost_aware_cuda_rows = execute, rows
+            CudaCostAwarePolicy._greedy = greedy
 
 
 def rows_bound(args, kw):
@@ -2885,13 +2927,14 @@ def rows_times(ck, calls):
         bound_ms=b_ms, bound_by=b_by)
 
 
-def serve_run(cli, ck, name, out):
-    """One CLI ``serve`` run of ``SERVE_RUNS[name]`` on cuda through
-    ``cli.main``, launch counts zeroed just before and read just after.
-    Returns ``(report, recorder, launches)``."""
+def serve_run(cli, ck, name, out, args=None):
+    """One CLI ``serve`` run of ``args`` (default ``SERVE_RUNS[name]``) on
+    cuda through ``cli.main``, launch counts zeroed just before and read
+    just after.  Returns ``(report, recorder, launches)``."""
     from pivot_tpu_torch.utils import reset_ids
 
-    argv = ["--output-dir", out, "serve", *SERVE_RUNS[name]]
+    argv = ["--output-dir", out, "serve",
+            *(SERVE_RUNS[name] if args is None else args)]
     rec = ServeRecorder()
     buf = io.StringIO()
     reset_ids()
@@ -3154,6 +3197,630 @@ def phase_serve(device):
     return out_rec
 
 
+# -- phase 11: cross-run batching on the card ----------------------------------
+
+#: (a) synthetic mixed-horizon Cost-Aware span groups at H = 600: each
+#: row's (horizon, slots), and whether a market's risk rows and cost stack
+#: ride along (and a live mask, with the market).
+P11_GROUPS = (
+    (((3, 40), (17, 200)), False),
+    (((1, 8), (9, 100), (32, 300)), True),
+    (((2, 30), (5, 60), (12, 250), (30, 120)), False),
+    (((4, 300), (8, 90), (16, 20), (32, 200)), True),
+)
+#: (b) the lock-step grid: ``overall`` over the first P11_TRACES traces
+#: of ``data/jobs``, P11_APPS apps a run (cut from the README's 1000 for
+#: the script's time), G = 4 runs an arm in lock-step.
+P11_TRACES = 4
+P11_APPS = 20
+#: (c) the serve commands of the path (the README's span commands without
+#: the mesh flag), at 600 hosts a session, and the same stream from the
+#: first trace window with quiescence-only flushes: the README stream
+#: serves few spans (6 at seed 0, as ``pivot_tpu``'s own run of it), too
+#: few to meet in a flush, so the trace run is the one that must merge.
+P11_SERVE_BASE = ("--sessions", "3", "--jobs", "300", "--arrival-rate", "25",
+                  "--fuse-spans", "slo")
+P11_SERVE = {
+    "ragged": P11_SERVE_BASE,
+    "no_ragged": P11_SERVE_BASE + ("--no-ragged",),
+    "resident": P11_SERVE_BASE + ("--resident", "--splice-tier", "1"),
+    "ragged_trace": P11_SERVE_BASE + ("--source", "trace",
+                                      "--flush-after-us", "0"),
+}
+
+
+def p11_request(seed, n_ticks, S, market, H=600):
+    """One Cost-Aware span request as a policy stages it for the batcher
+    (host numpy, float32): ``(args, arr_kw, static_kw)``.  Cohorts arrive
+    over the horizon; demand dimension 1 is drawn from [0, 8) against
+    availability in [0, 16), and one task in ten asks for 20 (it never
+    fits, so the wait stack carries it every tick)."""
+    from pivot_tpu_torch.ops import cuda_kernels as ck
+    from pivot_tpu_torch.ops.tickloop import span_bucket
+    from pivot_tpu_torch.sched.cuda import pad_bucket
+
+    rng = np.random.default_rng(seed)
+    K, B = span_bucket(n_ticks), pad_bucket(S)
+    avail = rng.uniform(0, 16, size=(H, 4)).astype(np.float32)
+    dem = np.zeros((B, 4), np.float32)
+    dem[:S, 0] = rng.choice([0.5, 1.0, 2.0, 4.0], size=S)
+    dem[:S, 1] = np.where(rng.random(S) < 0.1, 20.0,
+                          rng.uniform(0, 8, size=S))
+    arrive = np.full(B, K, np.int32)
+    arrive[:S] = np.sort(rng.integers(0, n_ticks, size=S))
+    arrive[0] = 0
+    cost = rng.uniform(0, 0.11, size=(Z, Z)).astype(np.float32)
+    np.fill_diagonal(cost, 0.0)
+    kw = dict(
+        anchor_zone=rng.integers(0, Z, size=B).astype(np.int32),
+        bucket_id=rng.integers(0, min(B, 12), size=B).astype(np.int32),
+        sort_norm=np.sqrt((dem * dem).sum(1)).astype(np.float32),
+        cost_zz=cost,
+        bw_zz=rng.uniform(50, 15000, size=(Z, Z)).astype(np.float32),
+        host_zone=rng.integers(0, Z, size=H).astype(np.int32),
+        base_task_counts=rng.integers(0, 5, size=H).astype(np.int32),
+    )
+    if market:
+        kw["risk_rows"] = rng.choice([0.0, 0.4, 1.5],
+                                     size=(K, H)).astype(np.float32)
+        kw["cost_stack"] = rng.uniform(0, 0.11,
+                                       size=(4, Z, Z)).astype(np.float32)
+        kw["cost_seg"] = rng.integers(0, 4, size=K).astype(np.int32)
+        kw["live"] = rng.random(H) < 0.9
+    static = dict(policy="cost-aware", n_ticks=K, bin_pack="first-fit",
+                  sort_tasks=True, sort_hosts=True, host_decay=False,
+                  phase2="auto", greedy=ck.cost_aware_cuda)
+    return (avail, dem, arrive, np.int32(n_ticks)), kw, static
+
+
+class RowsTap:
+    """While active: the batched span driver (``sched.batch.
+    fused_tick_run_rows``) runs under ``torch.cuda.set_sync_debug_mode(
+    "error")`` between CUDA events, and every per-row launch
+    (``cuda_kernels.cost_aware_cuda_rows``, as the driver calls it) keeps
+    its operands and outputs.  The sync debug mode is process-wide: use
+    it only where no other thread touches the card during a flush."""
+
+    def __init__(self, sync_debug=True):
+        self.sync_debug = sync_debug
+        self.calls = []  # (args, kw, (placements, avail)) per launch
+        self.flushes = []  # dict(G, ticks, greedy, ev) per driver call
+
+    def __enter__(self):
+        from pivot_tpu_torch.ops import cuda_kernels as ck
+        from pivot_tpu_torch.sched import batch
+
+        self.ck, self.batch = ck, batch
+        self.rows, self.driver = ck.cost_aware_cuda_rows, \
+            batch.fused_tick_run_rows
+
+        def rows(*a, **k):
+            out = self.rows(*a, **k)
+            self.calls.append((a, k, out))
+            return out
+
+        def driver(avail, demands, arrive, n_ticks_dyn, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            if self.sync_debug:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                res = self.driver(avail, demands, arrive, n_ticks_dyn, **kw)
+            finally:
+                if self.sync_debug:
+                    torch.cuda.set_sync_debug_mode("default")
+            ev[1].record()
+            self.flushes.append(dict(
+                G=int(avail.shape[0]), ticks=int(max(n_ticks_dyn)),
+                greedy=kw.get("greedy") is not None, ev=ev))
+            return res
+
+        ck.cost_aware_cuda_rows, batch.fused_tick_run_rows = rows, driver
+        return self
+
+    def __exit__(self, *exc):
+        self.ck.cost_aware_cuda_rows = self.rows
+        self.batch.fused_tick_run_rows = self.driver
+
+    def flush_ms(self):
+        torch.cuda.synchronize()
+        return [f["ev"][0].elapsed_time(f["ev"][1]) for f in self.flushes]
+
+
+def _dispatch_spans(batch, tickloop, device, reqs):
+    """Co-pending span requests, one client thread each, through a ragged
+    ``DispatchBatcher`` on ``device``; returns (results, stats)."""
+    import threading
+
+    batcher = batch.DispatchBatcher(len(reqs), device=device, ragged=True)
+    clients = [batcher.client() for _ in reqs]
+    out, errs = [None] * len(reqs), []
+
+    def work(i):
+        try:
+            out[i] = clients[i].dispatch(tickloop.fused_tick_run, *reqs[i])
+        except BaseException as exc:  # noqa: BLE001 — raised below
+            errs.append(exc)
+        finally:
+            clients[i].close()
+
+    threads = [threading.Thread(target=work, args=(i,), daemon=True)
+               for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    batcher.serve()
+    for t in threads:
+        t.join(timeout=120)
+    if errs:
+        raise errs[0]
+    return out, batcher.stats
+
+
+def _solo_span(tickloop, device, args, arr_kw, static):
+    """One request as the policy's unbatched path runs it: staged on the
+    card, its host bounds and segments on the host; R = 1 launches."""
+    kw = {k: v if k in tickloop.SPAN_HOST_OPERANDS
+          else torch.from_numpy(v).to(device) for k, v in arr_kw.items()}
+    t = [torch.from_numpy(np.asarray(a)).to(device) for a in args[:3]]
+    return tickloop.fused_tick_run(
+        *t, int(args[3]), n_bound=tickloop.span_step_bounds(
+            args[2], int(args[3])), **kw, **static)
+
+
+def p11_flushes(device, n_hosts=600) -> dict:
+    """Phase 11 (a): each synthetic group of P11_GROUPS dispatched through a
+    ragged batcher: merged into one flush (one ``ragged_merges``), the
+    batched span driver under sync debug "error", each span tick ONE
+    per-row launch held against ``cost_aware_plain_rows``, each trimmed
+    result equal to its solo span (R = 1 launches)."""
+    from pivot_tpu_torch.ops import cuda_kernels as ck
+    from pivot_tpu_torch.ops import tickloop
+    from pivot_tpu_torch.sched import batch
+
+    chk = Check()
+    out = dict(cases=[], rows_launches=0, rows_by_g={},
+               compare_r1_launches=0)
+    all_calls = []
+    # Warm-up flush (first pinned staging, first launches), not counted.
+    _dispatch_spans(batch, tickloop, device, [
+        p11_request(r, n, S, False, H=n_hosts)
+        for r, (n, S) in enumerate(P11_GROUPS[0][0])])
+    for gi, (rows, market) in enumerate(P11_GROUPS):
+        reqs = [p11_request(1000 * gi + r, n, S, market, H=n_hosts)
+                for r, (n, S) in enumerate(rows)]
+        G, loop = len(reqs), max(n for n, _S in rows)
+        with RowsTap() as tap:
+            ck.reset_launches()
+            res, stats = _dispatch_spans(batch, tickloop, device, reqs)
+            torch.cuda.synchronize()
+            launches = (dict(ck.LAUNCHES_ROWS), dict(ck.LAUNCHES_BY_REPLICAS))
+        if launches != ({G: loop}, {}) or len(tap.calls) != loop:
+            raise AssertionError(f"flush {gi}: launches {launches}, "
+                                 f"{len(tap.calls)} recorded, want {loop} "
+                                 f"per-row launches of G={G}")
+        if (stats["ragged_merges"], stats["ragged_rows"],
+                stats["device_calls"], stats["coalesced"]) != (1, G, 1, G):
+            raise AssertionError(f"flush {gi}: batcher {stats}")
+        for k, (a, kw, got) in enumerate(tap.calls):
+            chk.same(got, ck.cost_aware_plain_rows(*a, **kw), (gi, k))
+        ck.reset_launches()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        solo = [_solo_span(tickloop, device, *r) for r in reqs]
+        ev[1].record()
+        torch.cuda.synchronize()
+        r1 = dict(ck.LAUNCHES_BY_REPLICAS)
+        if r1 != {1: sum(n for n, _S in rows)}:
+            raise AssertionError(f"flush {gi}: solo launches {r1}")
+        same_avail = True
+        for r, (got, want) in enumerate(zip(res, solo)):
+            if not np.array_equal(got.placements,
+                                  want.placements.cpu().numpy()):
+                raise AssertionError(f"flush {gi} row {r}: trimmed "
+                                     "placements differ from the solo span")
+            for f in ("n_ready", "n_placed", "ticks_run", "n_stack_final",
+                      "stackpos"):
+                if not torch.equal(getattr(got, f), getattr(want, f)):
+                    raise AssertionError(f"flush {gi} row {r}: {f} differs")
+            if not torch.allclose(got.avail, want.avail, rtol=RTOL,
+                                  atol=ATOL):
+                raise AssertionError(f"flush {gi} row {r}: availability")
+            same_avail = same_avail and torch.equal(got.avail, want.avail)
+        case = dict(
+            G=G, horizons=[n for n, _S in rows], slots=[S for _n, S in rows],
+            market=market, launches=loop, pad_cells=stats["ragged_pad_cells"],
+            placed=int(sum((x.placements >= 0).sum() for x in res)),
+            flush_ms=tap.flush_ms()[0], solo_ms=ev[0].elapsed_time(ev[1]),
+            avail_bitwise=same_avail)
+        out["cases"].append(case)
+        out["rows_launches"] += loop
+        out["rows_by_g"][G] = out["rows_by_g"].get(G, 0) + loop
+        out["compare_r1_launches"] += sum(r1.values())
+        all_calls += tap.calls
+        log(f"  (a) G={G} horizons {case['horizons']} slots {case['slots']}"
+            f" market {market}: one flush, {loop} per-row launches (each = "
+            f"plain), {case['pad_cells']} pad cells, {case['placed']} "
+            f"placements; batched driver {case['flush_ms']!r} ms vs "
+            f"{case['solo_ms']!r} ms for the {G} solo spans "
+            f"({sum(r1.values())} R=1 launches); trimmed = solo "
+            f"(availability bitwise: {same_avail})")
+    rt = out["rows_times"] = rows_times(ck, all_calls)
+    out["max_abs_err"] = chk.max_abs_err
+    log(f"  (a) {chk.cases} span ticks held against cost_aware_plain_rows, "
+        f"{chk.placed} placements, max |avail diff| {chk.max_abs_err!r}; "
+        f"largest span tick (G={rt['G']}, T={rt['T']}, n_eff {rt['n_eff']}):"
+        f" wrapper {rt['ms']!r} ms, kernel_ms {rt['kernel_ms']!r}, plain "
+        f"{rt['plain_ms']!r} ms, bound {rt['bound_ms']!r} ms "
+        f"({rt['bound_by']})")
+    return out
+
+
+def p11_resident(device, n_hosts=600) -> dict:
+    """Phase 11 (d): a chain of four Cost-Aware spans on one resident carry
+    (edit rows before the third: freed capacity and a quarantine flip),
+    each ``resident_span_run`` under sync debug "error" (its ticks R = 1
+    launches), against the re-staged ``fused_tick_run`` on the host mirror
+    of the same state served by the plain version
+    (``cost_aware_plain``)."""
+    from pivot_tpu_torch.ops import cuda_kernels as ck
+    from pivot_tpu_torch.ops import tickloop
+
+    args, kw, static = p11_request(77, 8, 200, False, H=n_hosts)
+    host_avail, host_counts = args[0].copy(), kw.pop("base_task_counts")
+    host_live = np.ones(n_hosts, bool)
+    carry = tickloop.resident_carry_init(host_avail, host_counts, host_live,
+                                         device=device)
+    dev = {k: torch.from_numpy(v).to(device) for k, v in kw.items()}
+    rng = np.random.default_rng(78)
+    chk = Check()
+    spans = horizon = edits = launches = 0
+    for i in range(4):
+        dem = args[1].copy()
+        dem[: 200] *= rng.uniform(0.5, 1.0, size=(200, 1)).astype(np.float32)
+        arrive = args[2]
+        edit = {}
+        if i == 2:
+            rows = np.unique(np.array([5, 17, 123, 599]) % n_hosts
+                             ).astype(np.int32)
+            host_avail[rows] += 4.0
+            host_live[rows[-1]] = False
+            E = tickloop.edit_bucket(len(rows))
+            eidx = np.full(E, n_hosts, np.int32)
+            eidx[: len(rows)] = rows
+            eav = np.zeros((E, 4), np.float32)
+            eav[: len(rows)] = host_avail[rows]
+            ect = np.zeros(E, np.int32)
+            ect[: len(rows)] = host_counts[rows]
+            elv = np.ones(E, bool)
+            elv[: len(rows)] = host_live[rows]
+            edit = {k: torch.from_numpy(v).to(device) for k, v in (
+                ("edit_idx", eidx), ("edit_avail", eav),
+                ("edit_counts", ect), ("edit_live", elv))}
+            edits += len(rows)
+        t_dem = torch.from_numpy(dem).to(device)
+        t_arr = torch.from_numpy(arrive).to(device)
+        n_bound = tickloop.span_step_bounds(arrive, 8)
+        want = tickloop.fused_tick_run(
+            torch.from_numpy(host_avail).to(device), t_dem, t_arr, 8,
+            n_bound=n_bound, base_task_counts=torch.from_numpy(
+                host_counts).to(device),
+            live=torch.from_numpy(host_live).to(device), **dev,
+            **dict(static, greedy=ck.cost_aware_plain))
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, carry = tickloop.resident_span_run(
+                carry, t_dem, t_arr, 8, n_bound=n_bound, **edit, **dev,
+                **static)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        launches += ck.LAUNCHES_BY_REPLICAS.get(1, 0)
+        if ck.LAUNCHES_ROWS or set(ck.LAUNCHES_BY_REPLICAS) - {1}:
+            raise AssertionError(f"resident span {i}: launches "
+                                 f"{dict(ck.LAUNCHES_BY_REPLICAS)}")
+        chk.same((got.placements, got.avail), (want.placements, want.avail),
+                 f"resident span {i} vs the plain re-staged span")
+        pl = want.placements.cpu().numpy()
+        host_avail = want.avail.cpu().numpy().copy()
+        np.add.at(host_counts, pl[pl >= 0], 1)
+        if not np.array_equal(carry.counts.cpu().numpy(), host_counts):
+            raise AssertionError(f"resident span {i}: counts differ")
+        spans += 1
+        horizon += 8
+    if launches != horizon:
+        raise AssertionError(f"resident chain: {launches} R=1 launches for "
+                             f"{horizon} span ticks")
+    log(f"  (d) resident chain: {spans} spans, {edits} edit rows, each equal"
+        f" to the re-staged span served by cost_aware_plain ({chk.placed} "
+        f"placements, max |avail diff| {chk.max_abs_err!r}); {launches} R=1 "
+        "launches, no host read inside a resident span")
+    return dict(spans=spans, edit_rows=edits, r1_launches=launches,
+                max_abs_err=chk.max_abs_err)
+
+
+def p11_lockstep(device, n_hosts=600, apps=P11_APPS,
+                 traces=P11_TRACES) -> dict:
+    """Phase 11 (b): ``overall --batch-runs 4`` through the CLI against the
+    sequential ``--batch-runs 1`` cuda run of the same grid: files
+    byte-identical; every per-row launch of the lock-step run (coalesced
+    ticks and span ticks) held against ``cost_aware_plain_rows``;
+    launches, span flushes, ragged merges and walls."""
+    from pivot_tpu_torch.experiments import cli, runner
+    from pivot_tpu_torch.ops import cuda_kernels as ck
+    from pivot_tpu_torch.sched import batch
+
+    res = {}
+    chk = Check()
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        for name, g in (("lockstep", 4), ("sequential", 1)):
+            argv = ["--device", "cuda", "--num-hosts", str(n_hosts),
+                    "--job-dir", "data/jobs", "--output-dir",
+                    os.path.join(tmp, name), "--seed", "0", "--trace-limit",
+                    str(traces), "--batch-runs", str(g), "overall",
+                    "--num-apps", str(apps)]
+            chunks, groups = [], {"ticks": [], "spans": []}
+            lock, execute = runner.run_grid_lockstep, batch.batch_execute
+
+            def run_grid_lockstep(runs, stats_out=None):
+                stats = {}
+                out = lock(runs, stats_out=stats)
+                chunks.append(stats)
+                if stats_out is not None:
+                    stats_out.update(stats)
+                return out
+
+            def batch_execute(kernel, requests, *a, **k):
+                if len(requests) > 1:
+                    key = ("spans" if kernel is batch.fused_tick_run
+                           else "ticks")
+                    groups[key].append(len(requests))
+                return execute(kernel, requests, *a, **k)
+
+            runner.run_grid_lockstep = run_grid_lockstep
+            batch.batch_execute = batch_execute
+            try:
+                with RowsTap(sync_debug=False) as tap:
+                    ck.reset_launches()  # the path's count starts here
+                    t0 = time.perf_counter()
+                    exp_dir, sums = cli.run_overall(cli.parse_args(argv),
+                                                    torch_device=device)
+                    wall = time.perf_counter() - t0
+                    launches = dict(rows=dict(ck.LAUNCHES_ROWS),
+                                    by_replicas=dict(ck.LAUNCHES_BY_REPLICAS))
+            finally:
+                runner.run_grid_lockstep = lock
+                batch.batch_execute = execute
+            if len(tap.calls) != sum(launches["rows"].values()):
+                raise AssertionError(f"{name}: {len(tap.calls)} per-row "
+                                     f"launches recorded of {launches}")
+            for i, (a, kw, got) in enumerate(tap.calls):
+                chk.same(got, ck.cost_aware_plain_rows(*a, **kw),
+                         ("lockstep", i))
+            res[name] = dict(
+                dir=exp_dir, wall=wall, launches=launches, chunks=chunks,
+                tick_groups=len(groups["ticks"]),
+                span_flushes=len(groups["spans"]),
+                span_rows_launches=sum(f["ticks"] for f in tap.flushes
+                                       if f["greedy"]),
+                span_ms=sum(tap.flush_ms()),
+                arms={s["label"] + "/" + str(i // 3): s["wall_clock"]
+                      for i, s in enumerate(sums)})
+        names = sorted(os.listdir(os.path.join(res["sequential"]["dir"],
+                                               "data")))
+        differ = []
+        for sub in names:
+            for arm in ARMS:
+                for f in ("general.json", "transfers.json", "scheduler.json",
+                          "host_usage.json"):
+                    paths = [os.path.join(res[n]["dir"], "data", sub, arm, f)
+                             for n in ("lockstep", "sequential")]
+                    with open(paths[0], "rb") as a, open(paths[1], "rb") as b:
+                        if a.read() != b.read():
+                            differ.append((sub, arm, f))
+    lk, sq = res["lockstep"], res["sequential"]
+    rows = sum(lk["launches"]["rows"].values())
+    if differ or len(names) != traces:
+        raise AssertionError(f"lockstep files differ from sequential: "
+                             f"{differ[:6]} ({len(names)} traces)")
+    if sum(sq["launches"]["rows"].values()) or sq["chunks"]:
+        raise AssertionError(f"the sequential grid coalesced: {sq}")
+    if not rows or not lk["span_flushes"] or not lk["span_rows_launches"]:
+        raise AssertionError(f"lockstep: nothing coalesced: {lk}")
+    stats = {k: sum(c.get(k, 0) for c in lk["chunks"]) for k in (
+        "dispatches", "device_calls", "coalesced", "ragged_merges",
+        "ragged_rows", "ragged_pad_cells")}
+    ca_ticks = rows - lk["span_rows_launches"]
+    log(f"  (b) lockstep overall, {traces} traces x 3 arms x {apps} apps at "
+        f"{n_hosts} hosts: files byte-identical to the sequential cuda grid;"
+        f" wall {lk['wall']!r} s vs {sq['wall']!r} s sequential")
+    log(f"    {rows} per-row launches ({ca_ticks} coalesced Cost-Aware "
+        f"ticks, {lk['span_rows_launches']} span ticks of "
+        f"{lk['span_flushes']} coalesced span flushes), by G "
+        f"{lk['launches']['rows']}, each held against cost_aware_plain_rows "
+        f"(max |avail diff| {chk.max_abs_err!r}); R=1 launches "
+        f"{lk['launches']['by_replicas']} (sequential, the comparison: "
+        f"{sq['launches']['by_replicas']}); batched span driver "
+        f"{lk['span_ms']!r} ms on the device timeline; batcher {stats}")
+    return dict(
+        wall=lk["wall"], wall_sequential=sq["wall"], batcher=stats,
+        rows_launches=rows, span_flushes=lk["span_flushes"],
+        span_rows_launches=lk["span_rows_launches"],
+        tick_groups=lk["tick_groups"],
+        launches=lk["launches"], launches_sequential=sq["launches"],
+        rows_by_g=lk["launches"]["rows"],
+        r1_launches=lk["launches"]["by_replicas"].get(1, 0),
+        compare_r1_launches=sq["launches"]["by_replicas"].get(1, 0),
+        max_abs_err=chk.max_abs_err,
+        arm_walls=dict(lockstep=lk["arms"], sequential=sq["arms"]))
+
+
+def p11_serve(device) -> dict:
+    """Phase 11 (c): the three serve commands of the path through
+    ``cli.main`` on cuda: sessions equal batch mode on the jobs they
+    injected, ``audit()`` clean, every per-row launch (coalesced ticks and
+    span ticks) held against ``cost_aware_plain_rows`` and every R = 1
+    call of the resident run (its span ticks and per-tick placements)
+    against ``cost_aware_plain``; the ragged arm merges, the resident arm
+    runs spans on its carries with edit rows."""
+    from pivot_tpu_torch.experiments import cli
+    from pivot_tpu_torch.experiments.runner import ExperimentRun
+    from pivot_tpu_torch.ops import cuda_kernels as ck
+    from pivot_tpu_torch.serve import poisson_arrivals, trace_arrivals
+    from pivot_tpu_torch.utils import reset_ids
+    from pivot_tpu_torch.utils.config import (
+        PolicyConfig, build_cluster, make_policy)
+    from pivot_tpu_torch.workload.trace import TraceSchedule
+
+    card = card_line()
+    chk = Check()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv in P11_SERVE.items():
+            report, rec, launches = serve_run(cli, ck, name, tmp, argv)
+            c, st = report["slo"]["counters"], report["batcher"]
+            rows = sum(launches["rows"].values())
+            r1 = launches["by_replicas"].get(1, 0)
+            if c["completed"] != c["admitted"] or \
+                    c["completed"] + c["shed"] != c["arrived"]:
+                raise AssertionError(f"serve {name}: {c}")
+            if launches["total"] != rows + r1 or \
+                    set(launches["by_replicas"]) - {1} or \
+                    rows != len(rec.rows):
+                raise AssertionError(f"serve {name}: launches {launches}, "
+                                     f"{len(rec.rows)} recorded")
+            span_stats = [s.summary()["span_stats"] for s in rec.sessions]
+            fused = sum(x["fused_spans"] for x in span_stats)
+            resident = [s.policy.dispatch_stats().get("resident")
+                        for s in rec.sessions]
+            if not fused or not c.get("span_dispatches"):
+                raise AssertionError(f"serve {name}: no span served")
+            if name == "resident":
+                spans = sum(x["spans"] for x in resident)
+                edits = sum(x["edit_rows"] for x in resident)
+                if st is not None or rows or not spans or not edits:
+                    raise AssertionError(f"serve resident: batcher {st}, "
+                                         f"{rows} per-row launches, "
+                                         f"resident {resident}")
+                if len(rec.r1) != r1:
+                    raise AssertionError(f"serve resident: {len(rec.r1)} "
+                                         f"R=1 calls recorded of {r1}")
+            elif name == "ragged_trace" and not st["ragged_merges"]:
+                raise AssertionError(f"serve ragged_trace: no merge: {st}")
+            elif name == "no_ragged" and st["ragged_merges"]:
+                raise AssertionError(f"serve no_ragged merged: {st}")
+            rec.driver.audit(f"serve {name}")
+            for i, (a, k, got) in enumerate(rec.rows):
+                chk.same(got, ck.cost_aware_plain_rows(*a, **k),
+                         (name, "rows", i))
+            for i, (a, k, got) in enumerate(rec.r1):
+                chk.same(got, ck.cost_aware_plain(*a, **k), (name, "r1", i))
+            # Each session against a batch-mode run (per-tick, no spans)
+            # of the jobs it injected, fresh from the seed.
+            args = cli.parse_args(["serve", *argv])
+            reset_ids()
+            if args.source == "trace":
+                stream = trace_arrivals(
+                    cli._list_traces(args.job_dir, 1)[0], n_apps=args.jobs,
+                    scale_factor=args.scale_factor,
+                    rate=args.arrival_rate or None, seed=args.seed)
+            else:
+                stream = poisson_arrivals(args.arrival_rate, args.jobs,
+                                          seed=args.seed)
+            fresh = {x.app.id: x.app for x in stream}
+            if c["arrived"] != len(fresh):
+                raise AssertionError(f"serve {name}: {c['arrived']} arrived "
+                                     f"of a {len(fresh)}-job stream")
+            pcfg = PolicyConfig(name="cost-aware", device="cuda",
+                                bin_pack="first-fit", sort_tasks=True,
+                                sort_hosts=True)
+            for g, sess in enumerate(sorted(rec.sessions,
+                                            key=lambda s: s.slot)):
+                apps = [fresh[app.id] for app in sess._injected]
+                run = ExperimentRun(
+                    f"batch-{g}", build_cluster(cli._cluster_config(args)),
+                    make_policy(pcfg), schedule=TraceSchedule(
+                        [(0.0, [])] + [(app._serve_admit_ts, [f]) for app, f
+                                       in zip(sess._injected, apps)]),
+                    seed=args.seed, interval=5.0, fuse_spans=False)
+                want = run.run()
+                served = [t.placement for app in sess._injected
+                          for grp in app.groups for t in grp.tasks]
+                batch_p = [t.placement for app in apps
+                           for grp in app.groups for t in grp.tasks]
+                if served != batch_p:
+                    raise AssertionError(f"serve {name}: session {g}'s "
+                                         "placements differ from batch mode")
+                got = sess.summary()
+                if {k: got[k] for k in SERVE_KEYS} != {
+                        k: want[k] for k in SERVE_KEYS}:
+                    raise AssertionError(f"serve {name}: session {g}'s "
+                                         f"summary {got} != batch {want}")
+            row = serve_log(name, report, launches, card)
+            row.update(
+                fused_spans=fused, span_dispatches=c["span_dispatches"],
+                span_ticks=c["span_ticks"],
+                span_aborts=sum(x["span_aborts"] for x in span_stats),
+                span_splices=sum(x["span_splices"] for x in span_stats),
+                span_groups=len(rec.span_groups),
+                resident=resident if name == "resident" else None)
+            if name == "resident":
+                row["resident_totals"] = {k: sum(x[k] for x in resident)
+                                          for k in resident[0]}
+            log(f"    spans: {fused} served ({c['span_ticks']} ticks, "
+                f"{row['span_aborts']} aborted, {row['span_splices']} "
+                f"spliced), {row['span_groups']} coalesced span flushes; "
+                + (f"resident {row['resident_totals']}"
+                   if name == "resident" else
+                   f"ragged merges {st['ragged_merges']}, rows "
+                   f"{st['ragged_rows']}, pad cells {st['ragged_pad_cells']}")
+                + f"; sessions = batch mode on their "
+                f"{sum(len(s._injected) for s in rec.sessions)} jobs, audit "
+                "clean")
+            out[name] = row
+    log(f"  (c) {chk.cases} launches held against their plain version "
+        f"(per-row: cost_aware_plain_rows; the resident run's R=1: "
+        f"cost_aware_plain), {chk.placed} placements, max |avail diff| "
+        f"{chk.max_abs_err!r}")
+    out["max_abs_err"] = chk.max_abs_err
+    return out
+
+
+def phase_batching(device) -> dict:
+    """Phase 11: cross-run batching on the card (module docstring)."""
+    card = card_line()
+    log(f"  [{card}]")
+    rec = {}
+    t0 = time.perf_counter()
+    rec["flushes"] = p11_flushes(device)
+    rec["resident_chain"] = p11_resident(device)
+    log(f"  (a) + (d): {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    rec["lockstep"] = p11_lockstep(device)
+    log(f"  (b): {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    rec["serve"] = p11_serve(device)
+    log(f"  (c): {time.perf_counter() - t0!r} s")
+    # The path's launches; the comparison sides' (the solo spans of (a),
+    # the sequential grid of (b)) apart.
+    sv = [rec["serve"][k]["launches"] for k in P11_SERVE]
+    rec["launches_r1"] = (
+        rec["resident_chain"]["r1_launches"] + rec["lockstep"]["r1_launches"]
+        + sum(x["by_replicas"].get(1, 0) for x in sv))
+    rec["compare_launches_r1"] = (rec["flushes"]["compare_r1_launches"]
+                                  + rec["lockstep"]["compare_r1_launches"])
+    by_g = {}
+    for d in (rec["flushes"]["rows_by_g"], rec["lockstep"]["rows_by_g"],
+              *(x["rows"] for x in sv)):
+        for g, n in d.items():
+            by_g[g] = by_g.get(g, 0) + n
+    rec["launches_rows_by_g"] = by_g
+    rec["launches_rows"] = sum(by_g.values())
+    rec["max_abs_err"] = max(rec[k]["max_abs_err"] for k in (
+        "flushes", "resident_chain", "lockstep", "serve"))
+    return rec
+
+
 def phase_5_report(ck, e2e, sens, card, device):
     """Phase 5: times on the card (the main path's wrapper, bare launches,
     the warp sweep, the gated R = 256 launches) and the reports of
@@ -3250,12 +3917,13 @@ def phase_5_report(ck, e2e, sens, card, device):
     return times, gt, spans
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11)
 
 
 def selected_phases(argv) -> set:
-    """``--phases 1,6,7`` (default: all).  Phases 2-5 and 10 need phase
-    1's build, phase 5 the runs of phases 3 and 4: they come along."""
+    """``--phases 1,6,7`` (default: all).  Phases 2-5, 10 and 11 need
+    phase 1's build, phase 5 the runs of phases 3 and 4: they come
+    along."""
     import argparse
 
     ap = argparse.ArgumentParser(description="On-card smoke of the port.")
@@ -3266,7 +3934,7 @@ def selected_phases(argv) -> set:
         ap.error(f"phases are {PHASES}, got {sorted(want)}")
     if 5 in want:
         want |= {3, 4}
-    if want & {2, 3, 4, 5, 10}:
+    if want & {2, 3, 4, 5, 10, 11}:
         want.add(1)
     return want
 
@@ -3399,9 +4067,20 @@ def main(argv=None) -> int:
         serve = phase_serve(device)
         walls[10] = time.perf_counter() - tp
         log(f"  phase 10 wall: {walls[10]!r} s")
+    batching = None
+    if 11 in phases:
+        tp = time.perf_counter()
+        log("== 11. cross-run batching on the card: batched and ragged span "
+            "flushes vs plain, a resident span chain, the lock-step overall "
+            f"grid ({P11_TRACES} traces x {P11_APPS} apps, 600 hosts) and "
+            "the serve span commands through the CLI")
+        batching = phase_batching(device)
+        walls[11] = time.perf_counter() - tp
+        log(f"  phase 11 wall: {walls[11]!r} s")
     log(json.dumps({
         "times": times, "spans": spans, "ensemble": ens, "sweeps": sweeps,
         "search": search, "congestion": congestion, "serve": serve,
+        "batching": batching,
         "phase_walls": walls,
         "same_files": e2e and e2e["same_files"], "gated_times": gt,
         "sensitivity": sens and {p: {k: v for k, v in r.items()
@@ -3417,24 +4096,38 @@ def main(argv=None) -> int:
         ca and ca["check"], rows) if x is not None]
     if serve is not None:
         errs.append(serve["max_abs_err"])
+    if batching is not None:
+        errs.append(batching["max_abs_err"])
     sv = serve and [serve[k]["launches"] for k in SERVE_RUNS]
     sv_rows = sv and sum(sum(x["rows"].values()) for x in sv)
     sv_r1 = sv and sum(x["by_replicas"].get(1, 0) for x in sv)
     rt = serve and serve["a"]["rows_times"]
+    st = batching and batching["flushes"]["rows_times"]
+    b_r1 = batching and batching["launches_r1"]
+    b_rows = batching and batching["launches_rows"]
     record = {"kernels": [{
         "name": "greedy_place",
         "route": "cuda",
         "source": "pivot_tpu_torch/csrc/greedy_place.cu",
         "replaces": "pivot_tpu/ops/pallas_kernels.py:265",
-        "launches": (e2e and ca and serve and e2e["runs"]["cuda"]["launches"]
-                     + sum(ca["launches"].values()) + sv_rows + sv_r1),
-        "launches_r1": (e2e and ca and serve and e2e["runs"]["cuda"]["launches"]
-                        + ca["launches"][1] + sv_r1),
+        "launches": (e2e and ca and serve and batching
+                     and e2e["runs"]["cuda"]["launches"]
+                     + sum(ca["launches"].values()) + sv_rows + sv_r1
+                     + b_r1 + b_rows),
+        "launches_r1": (e2e and ca and serve and batching
+                        and e2e["runs"]["cuda"]["launches"]
+                        + ca["launches"][1] + sv_r1 + b_r1),
         f"launches_r{SENS_REPLICAS}": ca and ca["launches"][SENS_REPLICAS],
-        "launches_rows": sv_rows,
-        "launches_rows_by_g": sv and {
+        "launches_rows": serve and batching and sv_rows + b_rows,
+        "launches_rows_by_g": sv and batching and {
             g: sum(x["rows"].get(g, 0) for x in sv)
-            for g in sorted({g for x in sv for g in x["rows"]})},
+            + batching["launches_rows_by_g"].get(g, 0)
+            for g in sorted({g for x in sv for g in x["rows"]}
+                            | set(batching["launches_rows_by_g"]))},
+        "phase11_launches_r1": b_r1,
+        "phase11_launches_rows": b_rows,
+        "phase11_compare_launches_r1": batching
+        and batching["compare_launches_r1"],
         "max_abs_err": max(errs) if errs else None,
         "ms": lt and lt["ms"],
         "plain_ms": lt and lt["plain_ms"],
@@ -3448,6 +4141,11 @@ def main(argv=None) -> int:
         "rows_plain_ms": rt and rt["plain_ms"],
         "rows_bound_ms": rt and rt["bound_ms"],
         "rows_bound_by": rt and rt["bound_by"],
+        "span_rows_ms": st and st["ms"],
+        "span_rows_kernel_ms": st and st["kernel_ms"],
+        "span_rows_plain_ms": st and st["plain_ms"],
+        "span_rows_bound_ms": st and st["bound_ms"],
+        "span_rows_bound_by": st and st["bound_by"],
     }]}
     log(f"  smoke wall: {time.perf_counter() - t_start!r} s")
     print(card, flush=True)

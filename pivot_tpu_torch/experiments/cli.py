@@ -57,13 +57,26 @@ through the hand-written kernel, every tick on the card unless
 ``numpy`` (the CPU policies); ``sensitivity`` always runs the device
 policies; ``ensemble``, the sweeps, ``calibrate``'s estimator and
 ``search`` run on the card (the ``torch_device`` of their ``run_*``
-function).  The other subcommands (``serve``, ``worker``; the MPC is
-ROADMAP.md Queue 1 item 5), ``--network native``, ``--batch-runs`` and ``--profile-dir``,
-and the plots are not ported yet (ROADMAP.md, port queue).
+function).  ``--batch-runs G`` (``:773-786``, ``:821-899``) runs the
+``overall`` / ``num-apps`` grid in lock-step chunks of G same-arm runs
+(``runner.run_grid_lockstep``): their co-pending ticks and spans
+coalesce, a Cost-Aware flush one per-row launch of ``greedy_place``; it
+needs ``--device cuda``, refuses ``--workers > 1`` and forces
+``--no-adaptive``.  ``serve`` (``:1614``) runs the online serving layer,
+with serve spans (``--fuse-spans slo``), ragged span batching (the
+default; ``--no-ragged`` for the A/B) and resident span carries
+(``--resident``, ``--splice-tier``).  The ``worker`` subcommand, the MPC
+(ROADMAP.md Queue 1 item 5), ``--network native``, ``--profile-dir`` and
+the plots are not ported yet (ROADMAP.md, port queue).
 
 Usage:
   python -m pivot_tpu_torch.experiments.cli --num-hosts 600 overall \\
       --num-apps 1000
+  python -m pivot_tpu_torch.experiments.cli --num-hosts 600 \\
+      --trace-limit 4 --batch-runs 4 overall --num-apps 200
+  python -m pivot_tpu_torch.experiments.cli serve --sessions 3 \\
+      --jobs 300 --arrival-rate 25 --fuse-spans slo \\
+      [--no-ragged | --resident --splice-tier 1]
   python -m pivot_tpu_torch.experiments.cli num-apps \\
       --num-apps-list 100 500 1000
   python -m pivot_tpu_torch.experiments.cli --num-hosts 600 sensitivity \\
@@ -245,6 +258,12 @@ def parse_args(argv=None):
                         help="write structured event traces per run")
     parser.add_argument("--workers", type=int, default=1,
                         help="process-parallel runs (1 = sequential)")
+    parser.add_argument("--batch-runs", type=int, default=1, metavar="G",
+                        help="advance G grid runs of one arm "
+                             "tick-synchronously and coalesce their "
+                             "placement calls and spans into shared "
+                             "flushes (--device cuda only, implies "
+                             "--no-adaptive; equal to sequential runs)")
     parser.add_argument("--resume", default=None, metavar="EXP_DIR",
                         help="resume an interrupted sweep: reuse this "
                              "experiment directory and skip completed runs")
@@ -570,16 +589,33 @@ def parse_args(argv=None):
     srv.add_argument("--fuse-spans", choices=["off", "slo"],
                      default="off",
                      help="serve-span mode: 'off' keeps per-tick "
-                          "dispatch; 'slo' (fused spans between SLO "
-                          "checkpoints) is not ported yet (ROADMAP.md "
-                          "Queue 1 item 4)")
+                          "dispatch (the bit-parity default); 'slo' "
+                          "fuses multi-tick spans between SLO "
+                          "checkpoints — spans bounded by the "
+                          "admission window, one decision latency per "
+                          "span")
+    srv.add_argument("--no-ragged", action="store_true",
+                     help="disable ragged span batching: by default "
+                          "co-pending spans of different horizons pad "
+                          "to one (K, B) bucket and share one flush "
+                          "(trimmed per request, equal results); this "
+                          "flag keeps same-shape-only coalescing for "
+                          "A/B runs")
     srv.add_argument("--resident", action=argparse.BooleanOptionalAction,
                      default=False,
-                     help="resident span carries (not ported yet: "
-                          "ROADMAP.md Queue 1 item 4)")
+                     help="resident span carries: keep each session's "
+                          "span state (availability, counts, live mask) "
+                          "on the card between spans and ship only "
+                          "mirror-diff edit rows (equal placements; "
+                          "the sessions then run without the shared "
+                          "batcher).  --no-resident pins the re-staged "
+                          "path")
     srv.add_argument("--splice-tier", type=int, default=0,
-                     help="with --resident (not ported yet: ROADMAP.md "
-                          "Queue 1 item 4)")
+                     help="with --resident: arrivals at or below this "
+                          "priority tier may join a running span (a "
+                          "re-run from the span-entry carry clone, its "
+                          "committed prefix checked); higher tiers wait "
+                          "for the span's end")
     srv.add_argument("--tenant-quota", type=float, default=0.0,
                      help="DRF tenant fairness within a tier: cap each "
                           "tenant's dominant-resource occupancy at "
@@ -662,6 +698,17 @@ def parse_args(argv=None):
         )
     if args.command == "serve":
         _check_serve_args(parser, args)
+    if args.batch_runs > 1:
+        if args.device != "cuda":
+            parser.error("--batch-runs coalesces device-kernel dispatches — "
+                         "it requires --device cuda")
+        if args.workers > 1:
+            parser.error("--batch-runs and --workers are mutually exclusive "
+                         "(the lock-step driver already runs the grid "
+                         "concurrently)")
+        # Adaptive routing is timing-dependent: it would make batch
+        # membership nondeterministic.
+        args.adaptive = False
     return args
 
 
@@ -669,8 +716,6 @@ def parse_args(argv=None):
 #: (Queue 1) items: (attribute, flag, item).
 _SERVE_NOT_PORTED = (
     ("shard_hosts", "--shard-hosts", 9),
-    ("resident", "--resident", 4),
-    ("splice_tier", "--splice-tier", 4),
     ("mpc", "--mpc", 5),
     ("mpc_pool", "--mpc-pool", 5),
     ("mpc_horizon", "--mpc-horizon", 5),
@@ -687,9 +732,6 @@ def _check_serve_args(parser, args) -> None:
     """The ``serve`` checks of ``pivot_tpu/experiments/cli.py:735-770``,
     with ``cuda`` for ``tpu``, and an exit naming the ROADMAP.md item for
     each feature not ported yet."""
-    if args.fuse_spans == "slo":
-        parser.error("--fuse-spans slo (serve spans) is not ported to "
-                     "pivot_tpu_torch yet (ROADMAP.md, Queue 1 item 4)")
     for attr, flag, item in _SERVE_NOT_PORTED:
         if getattr(args, attr) not in (None, 0, False, ""):
             parser.error(f"{flag} is not ported to pivot_tpu_torch yet "
@@ -738,9 +780,14 @@ def _list_traces(job_dir: str, limit=None) -> List[str]:
     return out[:limit] if limit else out
 
 
-def _run_grid(specs: List[RunSpec], workers: int) -> List[Optional[dict]]:
-    """Execute runs sequentially, or across ``workers`` spawned
-    processes (summaries are then not returned: ``None`` each)."""
+def _run_grid(specs: List[RunSpec], workers: int,
+              batch_runs: int = 1) -> List[Optional[dict]]:
+    """Execute runs sequentially, across ``workers`` spawned processes
+    (summaries are then not returned: ``None`` each), or — with
+    ``batch_runs > 1`` — in lock-step chunks (:func:`_run_grid_batched`).
+    Summaries come back in spec order, ``None`` for a skipped run."""
+    if batch_runs > 1:
+        return _run_grid_batched(specs, batch_runs)
     if workers <= 1:
         return [_execute_run(spec) for spec in specs]
     import multiprocessing as mp
@@ -749,6 +796,35 @@ def _run_grid(specs: List[RunSpec], workers: int) -> List[Optional[dict]]:
     with ctx.Pool(workers) as pool:
         pool.map(_execute_run, specs)
     return [None] * len(specs)
+
+
+def _run_grid_batched(specs: List[RunSpec],
+                      batch_runs: int) -> List[Optional[dict]]:
+    """Lock-step chunks of ≤ ``batch_runs`` same-arm runs
+    (``pivot_tpu/experiments/cli.py:869-899``): grouped by arm before
+    chunking, since only same-kernel, same-config calls share a flush;
+    completed runs are skipped up front."""
+    from pivot_tpu_torch.experiments.runner import run_grid_lockstep
+
+    results: List[Optional[dict]] = [None] * len(specs)
+    by_label: dict = {}
+    for i, spec in enumerate(specs):
+        if _is_complete(spec):
+            logger.info("skipping completed run %s (%s)",
+                        spec.policy.display_label, spec.data_dir)
+            continue
+        by_label.setdefault(spec.policy.display_label, []).append(i)
+    for label, idxs in by_label.items():
+        for i in range(0, len(idxs), batch_runs):
+            chunk = idxs[i:i + batch_runs]
+            stats: dict = {}
+            out = run_grid_lockstep([_build_run(specs[j]) for j in chunk],
+                                    stats_out=stats)
+            for j, summary in zip(chunk, out):
+                results[j] = summary
+            logger.info("lockstep chunk %s[%d:%d]: %s",
+                        label, i, i + len(chunk), stats)
+    return results
 
 
 def _cluster_config(args) -> ClusterConfig:
@@ -785,7 +861,7 @@ def _reference_grid(args, kind: str, counts, torch_device, dtype
     ]
     logger.info("%s: %d runs (%d traces × %d policies) → %s", kind,
                 len(specs), len(traces), len(policy_set), exp_dir)
-    return exp_dir, _run_grid(specs, args.workers)
+    return exp_dir, _run_grid(specs, args.workers, args.batch_runs)
 
 
 def run_overall(args, torch_device: str = "cuda",
@@ -1404,9 +1480,12 @@ def run_serve_stream(args, torch_device: str = "cuda",
     sessions fed by a streaming arrival source through a bounded
     admission queue; device-backed sessions (``--device cuda``, the
     default, their torch tensors on ``torch_device`` in ``dtype``) share
-    their co-pending per-tick dispatches through idle-aware,
-    deadline-flushed ``DispatchBatcher`` slots — a coalesced Cost-Aware
-    flush is one per-row launch of ``greedy_place``.  Prints (and writes
+    their co-pending per-tick dispatches — and, with ``--fuse-spans
+    slo``, their spans, ragged unless ``--no-ragged`` — through
+    idle-aware, deadline-flushed ``DispatchBatcher`` slots: a coalesced
+    Cost-Aware flush is one per-row launch of ``greedy_place``.  With
+    ``--resident`` the sessions run free, each on its resident span
+    carry, arrivals up to ``--splice-tier`` joining running spans.  Prints (and writes
     ``<output-dir>/serve/<stamp>/report.json``) the service report: SLO
     snapshot, batcher stats, per-session metrics."""
     from pivot_tpu_torch.obs import MetricsHTTPServer, MetricsRegistry, Tracer
@@ -1427,6 +1506,7 @@ def run_serve_stream(args, torch_device: str = "cuda",
     elif args.policy == "first-fit":
         arm.update(decreasing=True)  # the reference's VBP arm
     pcfg = PolicyConfig(**arm)
+    fuse = "slo" if args.fuse_spans == "slo" else False
 
     def make_session(label):
         return ServeSession(
@@ -1434,6 +1514,7 @@ def run_serve_stream(args, torch_device: str = "cuda",
             build_cluster(_cluster_config(args)),
             make_policy(pcfg, torch_device=torch_device, dtype=dtype),
             seed=args.seed,
+            fuse_spans=fuse,
         )
 
     sessions = [make_session(f"session-{g}") for g in range(args.sessions)]
@@ -1472,6 +1553,9 @@ def run_serve_stream(args, torch_device: str = "cuda",
         tracer=tracer,
         registry=registry,
         tenant_quota=args.tenant_quota or None,
+        ragged=not args.no_ragged,
+        resident=args.resident,
+        splice_tier=args.splice_tier,
     )
     metrics_server = None
     if args.metrics_port:

@@ -8,12 +8,15 @@ inter-arrival gaps, then stops the scheduler; the run executes to event
 exhaustion and writes the meter's JSON output plus ``avg_runtime``.
 
 Runs are plain callables — the grid in ``experiments.cli`` executes
-them sequentially or via ``multiprocessing`` (the reference always forks; on
-a single-core host sequential is faster).
+them sequentially, via ``multiprocessing`` (the reference always forks; on
+a single-core host sequential is faster), or — for device-backed policies
+— tick-synchronously through one cross-run :class:`DispatchBatcher`
+(:func:`run_grid_lockstep`, the ``--batch-runs`` path): G runs advance in
+lock-step and their co-pending placement calls and spans coalesce into
+single flushes.
 
 Port of ``pivot_tpu/experiments/runner.py``, with its spot-market hook
-(``market=``).  The lock-step grid (``run_grid_lockstep``) is not ported
-yet (ROADMAP.md, port queue).
+(``market=``).
 """
 
 from __future__ import annotations
@@ -27,13 +30,14 @@ from pivot_tpu_torch.des import Environment
 from pivot_tpu_torch.infra import Cluster
 from pivot_tpu_torch.infra.meter import Meter
 from pivot_tpu_torch.sched import GlobalScheduler, Policy
-from pivot_tpu_torch.utils import LogMixin
+from pivot_tpu_torch.utils import LogMixin, get_logger
 from pivot_tpu_torch.utils.trace import Tracer
 from pivot_tpu_torch.workload.trace import TraceSchedule, load_trace_jobs
 
 __all__ = [
     "ExperimentRun",
     "replay_schedule",
+    "run_grid_lockstep",
     "sentinel_path",
 ]
 
@@ -69,6 +73,110 @@ def replay_schedule(
             break
         last_ts = ts
     scheduler.stop()
+
+
+def run_grid_lockstep(runs, stats_out: Optional[dict] = None) -> list:
+    """Advance several :class:`ExperimentRun`\\ s tick-synchronously
+    through one cross-run dispatch batcher
+    (``pivot_tpu/experiments/runner.py:76-199``).
+
+    Each run executes its DES event loop in its own thread; a
+    device-policy placement call or span parks the thread at its tick
+    boundary, and the coordinator (this thread) flushes whenever every
+    live run is parked — co-pending same-key calls become ONE flush
+    (``sched/batch.py``: a coalesced Cost-Aware tick is one per-row
+    launch of ``greedy_place``, a coalesced span one per span tick).  All
+    runs share the tick grid, so runs of one grid stay aligned until
+    their workloads drain; a run with no co-pending partner falls back
+    to plain sequential calls.  Per-run placements, meter output and
+    files equal the same runs executed sequentially.
+
+    Runs whose policy is not device-backed (or is adaptive) execute
+    sequentially first, then the batchable runs in lock-step.  CUDA and
+    the kernel library initialise once, on this thread, before any run
+    thread starts (``policy.prepare()``).  Returns per-run summaries in
+    input order; ``stats_out`` receives the batcher's counters, the
+    reference's key set: ``runs`` (0 when nothing was batchable, and
+    then no other key), ``dispatches``, ``device_calls``, ``coalesced``,
+    ``max_group``, ``deadline_flushes`` (always 0: the grid runs
+    quiescence-only), ``single_fast_path``, the mesh counters (0 here),
+    the ragged trio ``ragged_merges`` / ``ragged_rows`` /
+    ``ragged_pad_cells``, ``respawns`` and ``retired_slots``."""
+    import threading
+
+    from pivot_tpu_torch.sched.batch import DispatchBatcher
+    from pivot_tpu_torch.sched.cuda import _DevicePolicyBase
+
+    logger = get_logger("runner")
+    batchable, sequential = [], []
+    for i, run in enumerate(runs):
+        if (isinstance(run.policy, _DevicePolicyBase)
+                and not run.policy.adaptive):
+            batchable.append((i, run))
+        else:
+            sequential.append((i, run))
+    results: list = [None] * len(runs)
+    if sequential:
+        logger.info(
+            "lockstep grid: %d run(s) not batchable (non-device or "
+            "adaptive policy) — executing sequentially", len(sequential),
+        )
+        for i, run in sequential:
+            results[i] = run.run()
+    if len(batchable) == 1:
+        # A batch of one is the sequential program with extra threads.
+        i, run = batchable[0]
+        results[i] = run.run()
+        batchable = []
+    if not batchable:
+        if stats_out is not None:
+            stats_out.update(runs=0)
+        return results
+
+    devices = {str(run.policy.device) for _, run in batchable}
+    if len(devices) != 1:
+        raise ValueError(f"lock-step runs must share one device, got "
+                         f"{sorted(devices)}")
+    for _, run in batchable:
+        run.policy.prepare()
+    batcher = DispatchBatcher(len(batchable),
+                              device=batchable[0][1].policy.device)
+    errors: list = [None] * len(batchable)
+
+    def work(slot, idx, run, client):
+        try:
+            run.policy.enable_batching(client)
+            results[idx] = run.run()
+        except BaseException as exc:  # noqa: BLE001 — joined below
+            errors[slot] = exc
+        finally:
+            client.close()
+
+    threads = [
+        threading.Thread(
+            target=work, args=(slot, idx, run, batcher.client()),
+            name=f"lockstep-{run.label}", daemon=True,
+        )
+        for slot, (idx, run) in enumerate(batchable)
+    ]
+    for t in threads:
+        t.start()
+    batcher.serve()
+    for t in threads:
+        t.join()
+    failed = [e for e in errors if e is not None]
+    if failed:
+        raise failed[0]
+    if stats_out is not None:
+        stats_out.update(batcher.stats)
+    logger.info(
+        "lockstep grid: %d runs, %d kernel dispatches in %d device calls "
+        "(%d coalesced, max batch %d)",
+        len(batchable), batcher.stats["dispatches"],
+        batcher.stats["device_calls"], batcher.stats["coalesced"],
+        batcher.stats["max_group"],
+    )
+    return results
 
 
 class ExperimentRun(LogMixin):

@@ -129,14 +129,15 @@ def _fits(avail, demand, strict: bool):
 
 
 def _apply_live(avail, live):
-    """Optional [H] quarantine mask: masked rows get the −1 sentinel no
-    fit test can select; ``restore`` writes their original rows back into
-    the availability output (``pivot_tpu`` ``_apply_live``)."""
+    """Optional [H] quarantine mask (``[G, H]`` for ``[G, H, 4]`` rows):
+    masked rows get the −1 sentinel no fit test can select; ``restore``
+    writes their original rows back into the availability output
+    (``pivot_tpu`` ``_apply_live``)."""
     if live is None:
         return avail, lambda out: out
     orig = avail
-    masked = torch.where(live[:, None], avail, avail.new_full((), -1.0))
-    return masked, lambda out: torch.where(live[:, None], out, orig)
+    masked = torch.where(live[..., None], avail, avail.new_full((), -1.0))
+    return masked, lambda out: torch.where(live[..., None], out, orig)
 
 
 def _norms(mat):

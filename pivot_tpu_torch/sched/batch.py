@@ -1,44 +1,60 @@
 """Cross-run dispatch batching: co-pending ticks of many runs, one flush.
 
-Port of ``pivot_tpu/sched/batch.py`` without the mesh, the ragged span
-repack, the dispatch profiler and the recovery journal (ROADMAP.md,
-Queue 1 items 4, 8, 9 and 12).  G concurrently stepped DES runs — the
-serving sessions of ``pivot_tpu_torch.serve`` — submit their per-tick
-placement calls to a :class:`DispatchBatcher`; the coordinator coalesces
-co-pending calls of one (kernel, shape, static config) key into one
-flush and hands each run back its own row.
+Port of ``pivot_tpu/sched/batch.py`` without the mesh, the dispatch
+profiler and the recovery journal (ROADMAP.md, Queue 1 items 8, 9 and
+12).  G concurrently stepped DES runs — the lock-step grid's runs
+(``experiments.runner.run_grid_lockstep``) or the serving sessions of
+``pivot_tpu_torch.serve`` — submit their placement calls, per-tick
+kernel calls and whole fused spans alike, to a :class:`DispatchBatcher`;
+the coordinator coalesces co-pending calls of one (kernel, shape, static
+config) key into one flush and hands each run back its own row.
 
 What a flush of G same-key requests runs (:func:`batch_execute`):
 
   * every operand column is stacked on the host (``np.stack``) and the
     whole flush is staged on the device in ONE host→device copy
     (``sched.cuda.stage``), and only the placements come back, in ONE
-    device→host copy;
+    device→host copy; the span operands read on the host (a span's
+    market segments, ``ops.tickloop.SPAN_HOST_OPERANDS``) and the span
+    horizons stay on the host, and each span's step bounds are computed
+    from its host ``arrive``;
   * a kernel with a batched form in the registry (``_BATCHED``) runs it
-    once over the ``[G, ...]`` columns: the Cost-Aware kernel call
+    once over the ``[G, ...]`` columns.  The Cost-Aware kernel call
     (``ops.cuda_kernels.cost_aware_cuda``) becomes one per-row launch of
-    ``greedy_place`` (``cost_aware_cuda_rows``), each row its own stream,
-    host rows, tables and step bound — what ``jax.vmap`` of the kernel
-    computes in the reference.  The rows pad to :func:`group_bucket`
-    with copies of row 0, as the reference stages;
+    ``greedy_place`` (``cost_aware_cuda_rows``), each row its own
+    stream, host rows, tables and step bound — what ``jax.vmap`` of the
+    kernel computes in the reference; its rows pad to
+    :func:`group_bucket` with copies of row 0, as the reference stages.
+    A fused span (``ops.tickloop.fused_tick_run``) becomes one call of
+    the batched span driver (``fused_tick_run_rows``): a kernel-served
+    Cost-Aware span is one per-row launch of ``greedy_place`` per span
+    tick over the G rows, the torch arms' spans run their rows one after
+    another (their batched hand kernel is ROADMAP Queue 2 item 1);
   * any other callable — the torch arms ``first_fit_impl``,
     ``best_fit_impl``, ``opportunistic_impl`` and ``cost_aware_impl`` off
     the kernel among them — runs its rows one after another through the
     same call as an unbatched tick, on row views of the staged columns:
-    bit-identical by construction.  Their batched hand kernel is ROADMAP
-    Queue 2 item 1;
+    bit-identical by construction;
   * a group of one runs the unbatched call, as the reference does.
 
-Correctness contract (``tests/test_torch_batch.py``): a run's placements
-are identical whether its tick was served alone or inside any flush —
-the kernels are pure functions of their per-tick inputs, and a row of
-the per-row launch is the unbatched launch of that row (``chip_smoke.py``
+Ragged spans (``DispatchBatcher(ragged=True)``, the default): co-pending
+span requests that differ only in their span bucket K and slot bucket B
+are padded to one (K′, B′) = (max K, max B) on the host
+(``ops.tickloop.ragged_span_pad``), ride one flush, and each result is
+sliced back to its own buckets (``ragged_span_trim``) — bit-identical to
+the request's solo dispatch by the inert-tail contract.
+
+Correctness contract (``tests/test_torch_batch.py``,
+``tests/test_torch_ragged.py``): a run's placements are identical
+whether its tick or span was served alone or inside any flush — the
+kernels are pure functions of their per-tick inputs, and a row of the
+per-row launch is the unbatched launch of that row (``chip_smoke.py``
 holds every coalesced launch against its plain version on the card).
 
 Operands arrive as host numpy (the policies stage to the host when a
 client is attached, ``sched/cuda.py``); a 0-d operand (the Cost-Aware
-step bound ``n_eff``) is a per-row scalar: a ``[G]`` column of the
-batched form, a host int of an unbatched call.
+step bound ``n_eff``, a span's horizon) is a per-row scalar: a ``[G]``
+column of the batched form, a host int of an unbatched call.
 """
 
 from __future__ import annotations
@@ -50,6 +66,16 @@ import numpy as np
 import torch
 
 from pivot_tpu_torch.ops import cuda_kernels
+from pivot_tpu_torch.ops.tickloop import (
+    SPAN_HOST_OPERANDS,
+    ResidentCarry,
+    fused_tick_run,
+    fused_tick_run_rows,
+    ragged_span_pad,
+    ragged_span_signature,
+    ragged_span_trim,
+    span_step_bounds,
+)
 from pivot_tpu_torch.sched.cuda import pad_bucket, stage
 
 __all__ = [
@@ -84,9 +110,44 @@ def _cost_aware_rows(args, kw, static_kw):
                                              n_eff_g=n_eff)
 
 
+def _rows_form(greedy):
+    """The per-row form of a span's one-row greedy pass (looked up when
+    called, as :func:`_cost_aware_rows` does), or None."""
+    if greedy is cuda_kernels.cost_aware_cuda:
+        return cuda_kernels.cost_aware_cuda_rows
+    return None
+
+
+def _span_rows(args, kw, static_kw):
+    """The batched form of a fused span: the batched span driver, the
+    span's ``greedy`` swapped for its per-row form."""
+    static_kw = dict(static_kw)
+    greedy = static_kw.pop("greedy", None)
+    rows = _rows_form(greedy)
+    if greedy is not None and rows is None:
+        raise ValueError(f"a span's greedy pass {greedy!r} has no per-row "
+                         "form to serve a coalesced flush")
+    return fused_tick_run_rows(*args, **kw, **static_kw, greedy=rows)
+
+
 #: Batched forms by kernel callable; any other callable runs its rows in
 #: sequence (module docstring).
-_BATCHED = {cuda_kernels.cost_aware_cuda: _cost_aware_rows}
+_BATCHED = {cuda_kernels.cost_aware_cuda: _cost_aware_rows,
+            fused_tick_run: _span_rows}
+#: Batched forms whose rows pad to :func:`group_bucket`.
+_PADDED = frozenset({cuda_kernels.cost_aware_cuda})
+
+
+def _row(out, r: int):
+    """Row ``r`` of a batched output (a tuple keeps its type)."""
+    vals = tuple(o[r] for o in out)
+    return type(out)(*vals) if hasattr(out, "_fields") else vals
+
+
+def _with_first(out, first):
+    """``out`` with its first element replaced."""
+    vals = (first, *out[1:])
+    return type(out)(*vals) if hasattr(out, "_fields") else vals
 
 
 def _fetch(outs: list) -> list:
@@ -99,7 +160,7 @@ def _fetch(outs: list) -> list:
         host = torch.stack(first).cpu().numpy()
         first = list(host)
     return [
-        (f, *o[1:]) if isinstance(o, tuple) else f
+        _with_first(o, f) if isinstance(o, tuple) else f
         for f, o in zip(first, outs)
     ]
 
@@ -118,10 +179,19 @@ def batch_execute(
     with its placements on the host (:func:`_fetch`).  The flush stages
     its columns in one copy and fetches the placements in one copy;
     module docstring for what runs in between."""
-    static_kw = static_kw or {}
+    static_kw = dict(static_kw or {})
     g = len(requests)
     if g == 0:
         return []
+    for args, arr_kw in requests:
+        if any(isinstance(a, ResidentCarry)
+               for a in (*args, *arr_kw.values())):
+            raise TypeError(
+                "batch_execute cannot serve a resident-carry dispatch: a "
+                "flush re-stages its operands from host numpy — call "
+                "ops.tickloop.resident_span_run directly (the resident "
+                "tier and the cross-run batcher are mutually exclusive)"
+            )
     device = torch.device(device)
     kw_keys = tuple(sorted(requests[0][1]))
     n_args = len(requests[0][0])
@@ -129,30 +199,46 @@ def batch_execute(
             for i in range(n_args)]
     cols += [np.stack([np.asarray(r[1][k]) for r in requests])
              for k in kw_keys]
+    names = [str(i) for i in range(n_args)] + list(kw_keys)
+    span = kernel is fused_tick_run
+    # Host-side operands: a span's host segments, and — in every form —
+    # the 0-d per-row scalars, except a batched form's kernel bound.
+    on_host = [name in SPAN_HOST_OPERANDS for name in names]
+    bounds = None
+    if span:
+        # Each span's step bounds from its host arrive (args: avail,
+        # demands, arrive, n_ticks_dyn): no device read in the span.
+        on_host[3] = True
+        bounds = [span_step_bounds(cols[2][r], int(cols[3][r]))
+                  for r in range(g)]
     batched = _BATCHED.get(kernel) if g > 1 else None
     if batched is not None:
-        gb = group_bucket(g)
+        gb = group_bucket(g) if kernel in _PADDED else g
         if gb > g:
             # Pad rows replicate row 0: same shapes, finite values; their
             # output rows are dropped below.
             cols = [np.concatenate([c, np.repeat(c[:1], gb - g, axis=0)])
                     for c in cols]
-        st = stage(device, **{str(i): c for i, c in enumerate(cols)})
-        dev_cols = [st[str(i)] for i in range(len(cols))]
-        out = batched(tuple(dev_cols[:n_args]),
-                      dict(zip(kw_keys, dev_cols[n_args:])), static_kw)
-        outs = [tuple(o[r] for o in out) for r in range(g)]
-        return _fetch(outs)
+        st = stage(device, **{str(i): c for i, c in enumerate(cols)
+                              if not on_host[i]})
+        cols = [c if on_host[i] else st[str(i)] for i, c in enumerate(cols)]
+        if span:
+            static_kw["n_bound"] = bounds
+        out = batched(tuple(cols[:n_args]),
+                      dict(zip(kw_keys, cols[n_args:])), static_kw)
+        return _fetch([_row(out, r) for r in range(g)])
     # Row by row: 0-d operands (a [G] column here) stay host scalars.
-    scalar = [c.ndim == 1 for c in cols]
+    scalar = [on_host[i] or c.ndim == 1 for i, c in enumerate(cols)]
     st = stage(device, **{str(i): c for i, c in enumerate(cols)
                           if not scalar[i]})
     outs = []
     for r in range(g):
-        row = [cols[i][r].item() if scalar[i] else st[str(i)][r]
-               for i in range(len(cols))]
-        outs.append(kernel(*row[:n_args], **dict(zip(kw_keys, row[n_args:])),
-                           **static_kw))
+        row = [(cols[i][r].item() if cols[i].ndim == 1 else cols[i][r])
+               if scalar[i] else st[str(i)][r] for i in range(len(cols))]
+        kw = dict(zip(kw_keys, row[n_args:]))
+        if span:
+            kw["n_bound"] = bounds[r]
+        outs.append(kernel(*row[:n_args], **kw, **static_kw))
     return _fetch(outs)
 
 
@@ -171,7 +257,7 @@ def _request_key(kernel, args, arr_kw, static_kw) -> tuple:
 
 class _Request:
     __slots__ = ("slot", "kernel", "args", "arr_kw", "static_kw", "key",
-                 "done", "result", "error")
+                 "done", "result", "error", "trim")
 
     def __init__(self, slot, kernel, args, arr_kw, static_kw):
         self.slot = slot
@@ -183,6 +269,10 @@ class _Request:
         self.done = threading.Event()
         self.result = None
         self.error: Optional[BaseException] = None
+        #: The (K, B) buckets a span request was staged at, set when the
+        #: ragged repack pads it into a merged (K′, B′) flush: the demux
+        #: slices its result back to these.
+        self.trim: Optional[Tuple[int, int]] = None
 
 
 class BatchClient:
@@ -255,16 +345,26 @@ class DispatchBatcher:
 
     ``stats`` has the reference's keys (``SloMeter.DISPATCH_KEYS``):
     ``runs``, ``dispatches`` (kernel calls requested), ``device_calls``
-    (kernel calls made: one per group with a batched form, one per
-    request for a group run row by row), ``coalesced`` (requests served
+    (kernel calls made: one per group with a batched form — a span
+    group's is one call of the batched span driver, which runs a torch
+    arm's rows one after another — one per request for a group run row
+    by row), ``coalesced`` (requests served
     inside a group of more than one), ``max_group``,
     ``deadline_flushes``, ``single_fast_path``, ``respawns``,
-    ``retired_slots``; the mesh and ragged counters stay 0 (not ported).
-    At any instant ``live_slots == runs − retired_slots``.
+    ``retired_slots``, and the ragged trio ``ragged_merges``
+    (mixed-horizon span groups merged into one (K′, B′) bucket),
+    ``ragged_rows`` (requests that rode a merged flush) and
+    ``ragged_pad_cells`` (K×B cells run beyond the members' own
+    buckets); the mesh counters stay 0 (ROADMAP.md Queue 1 item 9).  At
+    any instant ``live_slots == runs − retired_slots``.
+
+    ``ragged=True`` (the default) turns on the ragged span repack
+    (module docstring); ``ragged=False`` keeps exact-shape coalescing,
+    the A/B arm.
     """
 
     def __init__(self, n_slots: int, flush_after: Optional[float] = None,
-                 tracer=None, device="cuda"):
+                 tracer=None, device="cuda", ragged: bool = True):
         if n_slots < 1:
             raise ValueError("DispatchBatcher needs at least one slot")
         if flush_after is not None and flush_after <= 0:
@@ -275,6 +375,7 @@ class DispatchBatcher:
             tracer = NULL_TRACER
         self.tracer = tracer
         self.device = torch.device(device)
+        self._ragged = bool(ragged)
         self._cond = threading.Condition()
         self._n_slots = n_slots
         self._open = n_slots
@@ -367,9 +468,43 @@ class DispatchBatcher:
                 batch, self._pending = self._pending, []
             self._flush(batch)
 
+    def _ragged_regroup(self, batch: List[_Request]) -> None:
+        """Merge co-pending span requests that differ only in their
+        (K, B) buckets into one (K′, B′) = (max K, max B) bucket
+        (``pivot_tpu/sched/batch.py:767-816``): their keys are rewritten
+        in place, so the exact-key grouping coalesces them; each result
+        is sliced back through ``req.trim``."""
+        cand: Dict[tuple, List[_Request]] = {}
+        for req in batch:
+            if req.kernel is not fused_tick_run:
+                continue
+            sig = ragged_span_signature(req.args, req.arr_kw, req.static_kw)
+            if sig is not None:
+                cand.setdefault(sig, []).append(req)
+        for reqs in cand.values():
+            if len(reqs) < 2 or len({r.key for r in reqs}) < 2:
+                continue  # solo or already same-shape: nothing to merge
+            k2 = max(int(r.static_kw["n_ticks"]) for r in reqs)
+            b2 = max(int(r.args[1].shape[0]) for r in reqs)
+            pad_cells = 0
+            for r in reqs:
+                k, b = int(r.static_kw["n_ticks"]), int(r.args[1].shape[0])
+                r.args, r.arr_kw = ragged_span_pad(r.args, r.arr_kw, k2, b2)
+                r.static_kw = dict(r.static_kw, n_ticks=k2)
+                r.trim = (k, b)
+                r.key = _request_key(r.kernel, r.args, r.arr_kw,
+                                     r.static_kw)
+                pad_cells += k2 * b2 - k * b
+            with self._cond:
+                self.stats["ragged_merges"] += 1
+                self.stats["ragged_rows"] += len(reqs)
+                self.stats["ragged_pad_cells"] += pad_cells
+
     def _flush(self, batch: List[_Request]) -> None:
         # Groups in first-key-seen order, rows in slot order.
         try:
+            if self._ragged:
+                self._ragged_regroup(batch)
             groups: Dict[tuple, List[_Request]] = {}
             for req in batch:
                 groups.setdefault(req.key, []).append(req)
@@ -401,7 +536,8 @@ class DispatchBatcher:
                         r.done.set()
                     continue
                 for r, out in zip(reqs, outs):
-                    r.result = out
+                    r.result = (ragged_span_trim(out, *r.trim)
+                                if r.trim is not None else out)
                     r.done.set()
         except BaseException as exc:  # noqa: BLE001 — coordinator crash-safety
             # A failure outside the per-group call must still reach every

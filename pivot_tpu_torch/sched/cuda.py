@@ -60,14 +60,29 @@ Cross-run batching (``enable_batching``, ``pivot_tpu/sched/tpu.py:534``):
 with a :class:`~pivot_tpu_torch.sched.batch.BatchClient` attached, a
 tick's operands stay host numpy and its kernel call goes through the
 batcher (``_call_kernel``), which coalesces co-pending ticks of the
-serving sessions into one flush.  The Cost-Aware kernel call is
-dispatched as the module-level ``cost_aware_cuda`` with its step bound
-``n_eff`` a per-row array, so that every session's tick shares one key
-and a coalesced flush is one per-row launch of ``greedy_place``.
+lock-step grid's runs or the serving sessions into one flush.  The
+Cost-Aware kernel call is dispatched as the module-level
+``cost_aware_cuda`` with its step bound ``n_eff`` a per-row array, so
+that every run's tick shares one key and a coalesced flush is one
+per-row launch of ``greedy_place``.  A span goes through the batcher
+too (``pivot_tpu/sched/tpu.py:1074-1082``), its operands host numpy and
+its Cost-Aware ``greedy`` the module-level ``cost_aware_cuda``: a
+coalesced span flush is one per-row launch per span tick.
 
-Not in this slice (ROADMAP.md, port queue): host sharding, the resident
-carry, the degrade guard, the fault gate and the dispatch profiler — the
-methods that would attach them raise ``NotImplementedError``.
+Resident span carries (``enable_resident``,
+``pivot_tpu/sched/tpu.py:1091-1390``): the span carry — availability,
+task counts, live mask — stays on the device from span to span
+(``ops.tickloop.resident_span_run``); each span ships the rows where the
+DES truth differs from the pending carry (a mirror-diff: one fetch of
+the carry), its slot operands and, under a market, a [K] segment row
+into a once-staged [P, H] risk table.  With ``splice=True`` a clone of
+each span-entry carry lets a mid-span arrival join the running span
+(``span_splice``).
+
+Not in this slice (ROADMAP.md, port queue): host sharding and elastic
+padding (Queue 1 item 9), the degrade guard, the fault gate and the
+dispatch profiler — the methods that would attach them raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -94,7 +109,12 @@ from pivot_tpu_torch.ops.kernels import (
     resolve_device,
 )
 from pivot_tpu_torch.ops.tickloop import (
+    SPAN_HOST_OPERANDS,
+    edit_bucket,
     fused_tick_run,
+    resident_carry_clone,
+    resident_carry_init,
+    resident_span_run,
     span_bucket,
     span_step_bounds,
 )
@@ -128,6 +148,7 @@ _TORCH_DTYPE = {
     np.dtype(np.int32): torch.int32,
     np.dtype(np.bool_): torch.bool,
 }
+_NP_OF = {t: n for n, t in _TORCH_DTYPE.items()}
 
 
 def pad_bucket(n: int) -> int:
@@ -182,6 +203,57 @@ class _SpanOutcome:
 
     def __init__(self, placements: np.ndarray):
         self.placements = placements
+
+
+class _ResidentState:
+    """The resident span tier's bookkeeping
+    (``pivot_tpu/sched/tpu.py:239-262``): the pending carry, the splice
+    checkpoint and the span's host operands, the once-staged risk table,
+    and the counts ``dispatch_stats`` reports.  Reset at bind."""
+
+    __slots__ = ("splice", "carry", "checkpoint", "staging",
+                 "risk_table_np", "risk_table_dev", "spans", "splices",
+                 "edit_rows", "d2h_bytes")
+
+    def __init__(self, splice: bool):
+        self.splice = splice
+        self.reset()
+
+    def reset(self) -> None:
+        self.carry = None
+        self.checkpoint = None
+        self.staging = None
+        self.risk_table_np = None
+        self.risk_table_dev = None
+        self.spans = 0
+        self.splices = 0
+        self.edit_rows = 0
+        self.d2h_bytes = 0
+
+
+class _SplicePlan:
+    """A span plan with a splice's extended slot set."""
+
+    __slots__ = ("slots", "arrive", "n_ticks", "grid")
+
+    def __init__(self, slots, arrive, n_ticks, grid):
+        self.slots = slots
+        self.arrive = arrive
+        self.n_ticks = n_ticks
+        self.grid = grid
+
+
+def _fetch_carry(carry) -> tuple:
+    """The carry's three buffers on the host in one device→host copy:
+    ``(avail, counts, live, bytes fetched)``."""
+    parts = [t.reshape(-1).view(torch.uint8) for t in carry]
+    host = torch.cat(parts).cpu().numpy()
+    out, o = [], 0
+    for t, p in zip(carry, parts):
+        n = p.numel()
+        out.append(host[o:o + n].view(_NP_OF[t.dtype]).reshape(t.shape))
+        o += n
+    return (*out, int(host.nbytes))
 
 
 class _DevicePolicyBase(Policy):
@@ -240,6 +312,8 @@ class _DevicePolicyBase(Policy):
         #: copy of the topology the flushes stage (fetched once a bind).
         self._batch_client = None
         self._topology_host: Optional[DeviceTopology] = None
+        #: The resident span tier, when enabled (``enable_resident``).
+        self._resident: Optional[_ResidentState] = None
 
     @property
     def np_dtype(self):
@@ -256,6 +330,8 @@ class _DevicePolicyBase(Policy):
         self._market_cost_dev = {}  # a rebind may bring another market
         self._market_stack_dev = None
         self._topology_host = None
+        if self._resident is not None:
+            self._resident.reset()  # a new cluster: a new [H] layout
         self.topology = DeviceTopology.from_cluster(
             scheduler.cluster, self.dtype, self.device
         )
@@ -265,11 +341,19 @@ class _DevicePolicyBase(Policy):
             self._device_floor = _probe_device_floor(self.device)
 
     def dispatch_stats(self) -> dict:
-        """Where this policy's ticks were served."""
-        return {"device_ticks": self.device_ticks,
-                "twin_ticks": self.twin_ticks,
-                "kernel_ticks": self.kernel_ticks,
-                "span_kernel_ticks": self.span_kernel_ticks}
+        """Where this policy's ticks were served; with the resident tier
+        on, also its ``spans``, ``splices``, ``edit_rows`` (the
+        reference's names) and the mirror-diff's fetched ``d2h_bytes``."""
+        out = {"device_ticks": self.device_ticks,
+               "twin_ticks": self.twin_ticks,
+               "kernel_ticks": self.kernel_ticks,
+               "span_kernel_ticks": self.span_kernel_ticks}
+        rs = self._resident
+        if rs is not None:
+            out["resident"] = {"spans": rs.spans, "splices": rs.splices,
+                               "edit_rows": rs.edit_rows,
+                               "d2h_bytes": rs.d2h_bytes}
+        return out
 
     # -- fused span tier (``pivot_tpu/sched/tpu.py:980-1087``) -------------
     #
@@ -298,14 +382,16 @@ class _DevicePolicyBase(Policy):
         and static values."""
         raise NotImplementedError
 
-    def _span_market_kw(self, ctx: TickContext, plan, K: int) -> dict:
+    def _span_market_kw(self, ctx: TickContext, plan, K: int,
+                        risk: bool = True) -> dict:
         """The span's market operands (``pivot_tpu/sched/tpu.py:898``):
         ``risk_rows`` [K, H], the per-tick risk over the span's exact
         grid instants (the values ``resolve_risk`` feeds the per-tick
         path), built in the policy dtype so the f64 products round once.
-        Empty without a market."""
+        Empty without a market, or with ``risk=False`` (the resident
+        tier gathers its rows on the device)."""
         market = getattr(ctx.scheduler, "market", None)
-        if market is None or not self.risk_weight:
+        if market is None or not self.risk_weight or not risk:
             return {}
         hz = ctx.host_zones
         k_dyn = plan.n_ticks
@@ -323,11 +409,26 @@ class _DevicePolicyBase(Policy):
             np.sum(dem_host * dem_host, axis=1))
         return norms
 
+    def _span_operands(self, dem_host: np.ndarray, arrive, S: int, B: int,
+                       K: int):
+        """The span's ``[B, 4]`` demands and ``[B]`` arrival ticks, pad
+        slots arriving at the bucket ``K`` (past any horizon)."""
+        dem = np.zeros((B, 4), dtype=self.np_dtype)
+        dem[:S] = dem_host
+        arr = np.full(B, K, dtype=np.int32)
+        arr[:S] = arrive
+        return dem, arr
+
     def place_span(self, ctx: TickContext, plan) -> Optional[_SpanOutcome]:
         """Serve a whole pure tick run as one device program: one staging
         copy of the span operands, :func:`fused_tick_run`, one fetch of
-        the ``[K, B]`` slot-indexed placements (−1 unplaced).  Returns
-        None to decline; the scheduler then serves the tick per-tick."""
+        the ``[K, B]`` slot-indexed placements (−1 unplaced).  Through
+        the batcher when a client is attached (co-pending spans of G runs
+        coalesce, ``sched/batch.py``), on the resident carry when the
+        resident tier is on.  Returns None to decline; the scheduler then
+        serves the tick per-tick."""
+        if self._resident is not None:
+            return self._place_span_resident(ctx, plan)
         slots = plan.slots
         S = len(slots)
         B = pad_bucket(S)
@@ -338,13 +439,21 @@ class _DevicePolicyBase(Policy):
         if kw is None:
             return None
         kw.update(self._span_market_kw(ctx, plan, K))
-        dem = np.zeros((B, 4), dtype=self.np_dtype)
-        dem[:S] = dem_host
-        arrive = np.full(B, K, dtype=np.int32)
-        arrive[:S] = plan.arrive
-        host = {k: v for k, v in kw.items() if isinstance(v, np.ndarray)}
-        st = stage(self.device, avail=np.asarray(ctx.avail, self.np_dtype),
-                   dem=dem, arrive=arrive, live=self._live_np(ctx), **host)
+        dem, arrive = self._span_operands(dem_host, plan.arrive, S, B, K)
+        avail = np.asarray(ctx.avail, self.np_dtype)
+        if self._batch_client is not None:
+            if kw.get("greedy") is not None:
+                # The module-level call: one key for every run's span.
+                kw["greedy"] = cost_aware_cuda
+                self.span_kernel_ticks += k_dyn
+            res = self._call_kernel(fused_tick_run, avail, dem, arrive,
+                                    np.int32(k_dyn), n_ticks=K,
+                                    live=self._live_np(ctx), **kw)
+            return _SpanOutcome(np.asarray(res.placements))
+        host = {k: v for k, v in kw.items()
+                if isinstance(v, np.ndarray) and k not in SPAN_HOST_OPERANDS}
+        st = stage(self.device, avail=avail, dem=dem, arrive=arrive,
+                   live=self._live_np(ctx), **host)
         kw.update((k, st[k]) for k in host)
         res = fused_tick_run(
             st["avail"], st["dem"], st["arrive"], k_dyn, n_ticks=K,
@@ -354,6 +463,195 @@ class _DevicePolicyBase(Policy):
         # One fetch: the placements are the span's whole host-visible
         # output (the scheduler's replay derives the meters from them).
         return _SpanOutcome(res.placements.cpu().numpy())
+
+    # -- resident span tier (``pivot_tpu/sched/tpu.py:1091-1390``) ---------
+    def enable_resident(self, splice: bool = True) -> None:
+        """Keep the span carry on the device between consecutive
+        ``place_span`` calls (module docstring); ``splice=True`` keeps a
+        clone of each span-entry carry for :meth:`span_splice`.  Refused
+        with the adaptive twin, with ``realtime_bw``, with the batcher
+        attached (a flush re-stages every operand from host numpy), and
+        with ``use_kernel=True``, which opts out of spans as
+        ``use_pallas=True`` does in the reference."""
+        if self.adaptive:
+            raise ValueError(
+                "resident span carries need deterministic dispatch — "
+                "construct the policy with adaptive=False"
+            )
+        if getattr(self, "use_kernel", None) is True:
+            raise ValueError(
+                "use_kernel=True opts out of the span tier, and so of its "
+                "resident form; drop use_kernel=True"
+            )
+        if getattr(self, "realtime_bw", False):
+            raise ValueError(
+                "realtime_bw samples per-tick host state — there is no "
+                "resident form to carry it in"
+            )
+        if self._batch_client is not None:
+            raise ValueError(
+                "resident span carries cannot ride the cross-run batcher "
+                "(it re-stages every operand at the flush boundary) — "
+                "detach the batcher first"
+            )
+        self._resident = _ResidentState(bool(splice))
+
+    def _resident_risk_kw(self, ctx: TickContext, plan, K: int) -> dict:
+        """The resident form of the span's risk rows: the [P, H]
+        per-segment table (hazard × risk_weight × rework_cost, rounded
+        once into the policy dtype, as the re-staged rows are) staged
+        once per bind, and this span's [K] segment row; the device
+        gathers ``table[seg[k]]``.  Empty when the span's rows are all
+        calm, as the re-staged arm's ``rows.any()``."""
+        market = getattr(ctx.scheduler, "market", None)
+        if market is None or not self.risk_weight:
+            return {}
+        rs = self._resident
+        if rs.risk_table_np is None:
+            hz = ctx.host_zones
+            table = np.zeros((market.hazard.shape[0], len(hz)),
+                             dtype=self.np_dtype)
+            table[:] = (self.risk_weight * self.rework_cost
+                        * market.hazard[:, hz])
+            rs.risk_table_np = table
+        k_dyn = plan.n_ticks
+        seg = np.zeros(K, dtype=np.int32)
+        seg[:k_dyn] = market.segment_indices(np.asarray(plan.grid[:k_dyn]))
+        if not rs.risk_table_np[seg[:k_dyn]].any():
+            return {}
+        if rs.risk_table_dev is None:
+            rs.risk_table_dev = torch.tensor(rs.risk_table_np,
+                                             device=self.device)
+        return {"risk_table": rs.risk_table_dev, "risk_seg": seg}
+
+    def _resident_run(self, carry, dem, arrive, k_dyn: int, K: int,
+                      run_kw: dict):
+        """One resident span: the host operands of ``run_kw`` staged with
+        ``dem`` / ``arrive`` in one copy, then
+        :func:`resident_span_run`.  ``carry`` is consumed."""
+        host = {k: v for k, v in run_kw.items()
+                if isinstance(v, np.ndarray) and k not in SPAN_HOST_OPERANDS}
+        st = stage(self.device, dem=dem, arrive=arrive, **host)
+        kw = dict(run_kw)
+        kw.update((k, st[k]) for k in host)
+        return resident_span_run(
+            carry, st["dem"], st["arrive"], k_dyn, n_ticks=K,
+            n_bound=span_step_bounds(arrive, k_dyn), **kw)
+
+    def _place_span_resident(self, ctx: TickContext, plan):
+        """The resident tier's ``place_span``: mirror-diff → edit rows →
+        one span on the carry (``pivot_tpu/sched/tpu.py:1172-1286``)."""
+        rs = self._resident
+        slots = plan.slots
+        S = len(slots)
+        B = pad_bucket(S)
+        k_dyn = plan.n_ticks
+        K = span_bucket(k_dyn)
+        dem_host = np.stack([t.demand for t in slots])
+        kw = self._span_kw(ctx, plan, dem_host, B, K)
+        if kw is None:
+            return None
+        kw.pop("base_task_counts", None)  # carried on the device
+        kw.update(self._span_market_kw(ctx, plan, K, risk=False))
+        kw.update(self._resident_risk_kw(ctx, plan, K))
+        host_avail = np.asarray(ctx.avail, self.np_dtype)
+        H = host_avail.shape[0]
+        host_counts = np.asarray(ctx.host_task_counts, np.int32)
+        lm = ctx.live_mask
+        host_live = np.ones(H, bool) if lm is None else np.asarray(lm, bool)
+        carry = rs.carry
+        if carry is not None and carry.avail.shape[0] != H:
+            carry = None  # the cluster's geometry changed: re-stage
+        edits: dict = {}
+        if carry is None:
+            # The one full [H] staging the resident path pays.
+            carry = resident_carry_init(host_avail, host_counts, host_live,
+                                        device=self.device)
+        else:
+            # Mirror-diff: the DES truth against the pending carry, exact.
+            # The span's own placements were folded in on the device, so
+            # a steady state diffs empty; completions, quarantine flips
+            # and aborted span replays become repair rows.
+            d_avail, d_counts, d_live, nbytes = _fetch_carry(carry)
+            rs.d2h_bytes += nbytes
+            diff = ((d_avail != host_avail).any(axis=1)
+                    | (d_counts != host_counts) | (d_live != host_live))
+            rows = np.nonzero(diff)[0].astype(np.int32)
+            if rows.size:
+                n = int(rows.size)
+                E = edit_bucket(n)
+                edits = dict(
+                    edit_idx=np.full(E, H, np.int32),
+                    edit_avail=np.zeros((E, 4), self.np_dtype),
+                    edit_counts=np.zeros(E, np.int32),
+                    edit_live=np.ones(E, bool),
+                )
+                edits["edit_idx"][:n] = rows
+                edits["edit_avail"][:n] = host_avail[rows]
+                edits["edit_counts"][:n] = host_counts[rows]
+                edits["edit_live"][:n] = host_live[rows]
+                rs.edit_rows += n
+        dem, arrive = self._span_operands(dem_host, plan.arrive, S, B, K)
+        ckpt = resident_carry_clone(carry) if rs.splice else None
+        res, rs.carry = self._resident_run(carry, dem, arrive, k_dyn, K,
+                                           {**kw, **edits})
+        rs.checkpoint = ckpt
+        rs.spans += 1
+        rs.staging = (
+            dict(S=S, B=B, K=K, k_dyn=k_dyn, dem_host=dem_host,
+                 arrive0=np.asarray(plan.arrive, np.int32), kw=kw,
+                 edits=edits)
+            if rs.splice else None
+        )
+        # One fetch, as the re-staged arm.
+        return _SpanOutcome(res.placements.cpu().numpy())
+
+    def span_splice(self, ctx: TickContext, plan, k: int, new_tasks):
+        """Join ``new_tasks`` into the running span at tick ``k``
+        (``pivot_tpu/sched/tpu.py:1313-1391``): the whole span re-runs
+        from a clone of the span-entry carry with the new slots arriving
+        at ``k``; ticks ``[0, k)`` of the re-run must equal the committed
+        placements (checked) before it is adopted.  Returns the spliced
+        ``[K, B]`` placements, or None to decline — the committed span
+        and the pending carry stay as they were.  ``ctx`` is the
+        span-start context (``plan.ctx``)."""
+        rs = self._resident
+        if (rs is None or not rs.splice or rs.checkpoint is None
+                or rs.staging is None):
+            return None
+        st = rs.staging
+        S0, B, K, k_dyn = st["S"], st["B"], st["K"], st["k_dyn"]
+        n_new = len(new_tasks)
+        if n_new == 0 or S0 + n_new > B or not 0 < k < k_dyn:
+            return None
+        S1 = S0 + n_new
+        dem_host = np.concatenate(
+            [st["dem_host"], np.stack([t.demand for t in new_tasks])])
+        arrive0 = np.concatenate(
+            [st["arrive0"], np.full(n_new, k, np.int32)]).astype(np.int32)
+        proxy = _SplicePlan(tuple(plan.slots) + tuple(new_tasks), arrive0,
+                            k_dyn, plan.grid)
+        kw = self._span_kw(ctx, proxy, dem_host, B, K)
+        if kw is None:
+            return None
+        kw.pop("base_task_counts", None)
+        for key in ("risk_table", "risk_seg", "cost_stack", "cost_seg"):
+            if key in st["kw"]:
+                kw[key] = st["kw"][key]
+        dem, arrive = self._span_operands(dem_host, arrive0, S1, B, K)
+        res, new_carry = self._resident_run(
+            resident_carry_clone(rs.checkpoint), dem, arrive, k_dyn, K,
+            {**kw, **st["edits"]})
+        pl = res.placements.cpu().numpy()
+        if not np.array_equal(pl[:k], plan.outcome.placements[:k]):
+            # The extended slot set moved a committed tick (a grouping
+            # walk reordered an old bucket): keep the committed span; the
+            # arrival waits for the span's end.
+            return None
+        rs.carry = new_carry
+        rs.splices += 1
+        st.update(S=S1, dem_host=dem_host, arrive0=arrive0, kw=kw)
+        return pl
 
     # -- features of later slices ------------------------------------------
     def _not_ported(self, what: str):
@@ -374,6 +672,13 @@ class _DevicePolicyBase(Policy):
                 "cross-run batching needs deterministic dispatch — "
                 "construct the policy with adaptive=False"
             )
+        if self._resident is not None:
+            raise ValueError(
+                "resident span carries cannot ride the cross-run batcher "
+                "— it re-stages every operand from host numpy at the "
+                "flush boundary, the staging the resident tier removes; "
+                "drop enable_resident() or the batcher"
+            )
         self._batch_client = client
 
     def prepare(self) -> None:
@@ -385,10 +690,7 @@ class _DevicePolicyBase(Policy):
             torch.zeros(1, device=self.device)
 
     def enable_sharding(self, mesh) -> None:
-        self._not_ported("host sharding")
-
-    def enable_resident(self, splice: bool = True) -> None:
-        self._not_ported("the resident span carry")
+        self._not_ported("host sharding (Queue 1 item 9)")
 
     def enable_fault_gate(self, gate) -> None:
         self._not_ported("the elastic fault gate")
@@ -644,7 +946,7 @@ class CudaFirstFitPolicy(_DevicePolicyBase):
             policy="first-fit", strict=False, decreasing=self.decreasing,
             sort_norm=(self._span_norms(dem_host, B) if self.decreasing
                        else None),
-            totals=self.topology.totals, phase2=self.phase2,
+            totals=self._staged_topology().totals, phase2=self.phase2,
         )
 
     def _order(self, ctx: TickContext):
@@ -702,7 +1004,7 @@ class CudaBestFitPolicy(_DevicePolicyBase):
             policy="best-fit", decreasing=self.decreasing,
             sort_norm=(self._span_norms(dem_host, B) if self.decreasing
                        else None),
-            totals=self.topology.totals, phase2=self.phase2,
+            totals=self._staged_topology().totals, phase2=self.phase2,
         )
 
     _order = CudaFirstFitPolicy._order
@@ -858,7 +1160,7 @@ class CudaCostAwarePolicy(_DevicePolicyBase):
                                                      len(storage))]
             az[idxs] = ctx.meta.zone_index[anchor.locality]
             bucket[idxs] = bi
-        topo = self.topology
+        topo = self._staged_topology()
         kw = dict(
             policy="cost-aware", bin_pack=self.bin_pack,
             sort_tasks=self.sort_tasks, sort_hosts=self.sort_hosts,
@@ -876,24 +1178,26 @@ class CudaCostAwarePolicy(_DevicePolicyBase):
             kw["score_exp"] = np.asarray(self._score_exp, self.np_dtype)
         return kw
 
-    def _span_market_kw(self, ctx, plan, K):
+    def _span_market_kw(self, ctx, plan, K, risk=True):
         """The base class's risk rows plus the price-scaled cost operands
         (``pivot_tpu/sched/tpu.py:1949-1964``): the ``[P, Z, Z]``
         ``cost_stack`` (f64 on the host, rounded once, staged once per
-        market) and the span's ``[K]`` segment row as host ints — tick k
-        scores with ``cost_stack[cost_seg[k]]``, the per-tick path's
+        market; kept on the host when batched) and the span's ``[K]``
+        segment row, host ints — tick k scores with
+        ``cost_stack[cost_seg[k]]``, the per-tick path's
         ``cost_matrix_at`` slice."""
-        kw = super()._span_market_kw(ctx, plan, K)
+        kw = super()._span_market_kw(ctx, plan, K, risk)
         market = getattr(ctx.scheduler, "market", None)
         if market is None:
             return kw
         if self._market_stack_dev is None:
-            self._market_stack_dev = torch.tensor(
-                np.asarray(market.cost_tensor(ctx.meta), self.np_dtype),
-                device=self.device)
-        seg = np.zeros(K, dtype=np.int64)
+            stack = np.asarray(market.cost_tensor(ctx.meta), self.np_dtype)
+            self._market_stack_dev = (
+                stack if self._batch_client is not None
+                else torch.tensor(stack, device=self.device))
+        seg = np.zeros(K, dtype=np.int32)
         seg[: plan.n_ticks] = market.segment_indices(plan.grid[: plan.n_ticks])
-        kw.update(cost_stack=self._market_stack_dev, cost_seg=seg.tolist())
+        kw.update(cost_stack=self._market_stack_dev, cost_seg=seg)
         return kw
 
     def _anchor_stream(self, ctx: TickContext):

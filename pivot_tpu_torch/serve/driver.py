@@ -46,15 +46,18 @@ is both the bench configuration and the deterministic one.
 
 Port of ``pivot_tpu/serve/driver.py``: the supervisor, the stall
 watchdog, tiers, preemption, routing, the autoscaler pool, ``report()``,
-``audit()`` and ``publish_metrics()``.  Where the reference initialises
-its backend before any session thread starts, the port initialises CUDA
-and builds and loads ``greedy_place`` on the caller's thread
-(``policy.prepare()``).  Not ported yet, each raising
+``audit()`` and ``publish_metrics()``, serve spans (each ``fuse_spans=
+"slo"`` session's spans bounded at the release frontier), ragged span
+batching (``ragged=True``, the default) and the resident pool
+(``resident=True``: no batcher, each session's policy on its resident
+carry, mid-span splices up to ``splice_tier``).  Where the reference
+initialises its backend before any session thread starts, the port
+initialises CUDA and builds and loads ``greedy_place`` on the caller's
+thread (``policy.prepare()``).  Not ported yet, each raising
 ``NotImplementedError`` with its ROADMAP.md item (Queue 1): the 2-D mesh
 (``mesh=``, item 9), elastic serving (``elastic=``, item 9), the recovery
-plane (``recovery=``, item 8), resident span carries (``resident=True``,
-item 4), the MPC (``mpc=``, item 5) and the dispatch profiler
-(``profiler=``, item 12).
+plane (``recovery=``, item 8), the MPC (``mpc=``, item 5) and the
+dispatch profiler (``profiler=``, item 12).
 """
 
 from __future__ import annotations
@@ -168,7 +171,9 @@ class ServeDriver(LogMixin):
         profiler=None,
         mesh=None,
         tenant_quota: Optional[float] = None,
+        ragged: bool = True,
         resident: bool = False,
+        splice_tier: int = 0,
         recovery=None,
         elastic=None,
     ):
@@ -176,7 +181,6 @@ class ServeDriver(LogMixin):
             (mesh, "the 2-D serving mesh (mesh=)", 9),
             (elastic, "elastic mesh serving (elastic=)", 9),
             (recovery, "the recovery plane (recovery=)", 8),
-            (resident or None, "resident span carries (resident=True)", 4),
             (mpc, "model-predictive serving (mpc=)", 5),
             (profiler, "the dispatch profiler (profiler=)", 12),
         ):
@@ -238,6 +242,19 @@ class ServeDriver(LogMixin):
         self.preempt_timeout = preempt_timeout
         self.autoscale = autoscale
         self.interval = sessions[0].interval
+        #: Ragged span batching: the batcher pads co-pending spans of
+        #: different horizons into one (K′, B′) flush (``sched/batch.py``;
+        #: equal results).  ``False`` keeps exact-shape coalescing — the
+        #: A/B arm.
+        self.ragged = bool(ragged)
+        #: Resident span carries: every session policy keeps its [H] span
+        #: state on the card between spans (``enable_resident``).  A
+        #: flush re-stages every operand, so a resident pool runs its
+        #: sessions free, without the batcher.  ``splice_tier`` gates
+        #: mid-span admission: an arrival of at most this tier may join
+        #: a running span (``GlobalScheduler.splice_gate``).
+        self.resident = bool(resident)
+        self.splice_tier = int(splice_tier)
         self.batcher = None
         self._cv = threading.Condition()
         self._released = 0.0
@@ -288,6 +305,18 @@ class ServeDriver(LogMixin):
             # clock-unification contract).
             s.clock = self.clock
             s.meter.clock = self.clock
+            if getattr(s, "fuse_spans", False) == "slo":
+                # The SLO-checkpoint span bound: spans end at the
+                # stream's revealed frontier (serve/session.py).
+                s.scheduler.span_horizon = self.release_frontier
+
+    def release_frontier(self) -> float:
+        """The admission window's edge: the largest sim instant the
+        arrival stream has revealed (∞ once it drains) — what
+        ``fuse_spans="slo"`` sessions bound their spans at
+        (``GlobalScheduler.span_horizon``)."""
+        with self._cv:
+            return self._released
 
     # -- gate + coordination ----------------------------------------------
     def wait_released(self, session: ServeSession, t: float,
@@ -572,11 +601,15 @@ class ServeDriver(LogMixin):
         new.scheduler.tracer = self.tracer
         new.clock = self.clock  # one wall epoch service-wide
         new.meter.clock = self.clock
+        if getattr(new, "fuse_spans", False) == "slo":
+            new.scheduler.span_horizon = self.release_frontier
         client = None
         if self.batcher is not None:
             client = self.batcher.respawn_client()
             new.policy.enable_batching(client)
             new.slot = client.slot
+        elif self.resident:
+            self._enable_resident(new)
         new._client = client
         thread = threading.Thread(
             target=new.loop, args=(client,),
@@ -1049,6 +1082,21 @@ class ServeDriver(LogMixin):
             for s in pool:
                 s.shutdown()
 
+    def _splice_gate(self, task) -> bool:
+        """Mid-span admission predicate of every session's scheduler:
+        only arrivals at or below ``splice_tier`` may join a running
+        span; the rest wait for the span's end."""
+        return (int(getattr(task.application, "_serve_tier", 0))
+                <= self.splice_tier)
+
+    def _enable_resident(self, s: ServeSession) -> None:
+        """(cv held) The resident span tier for one session: the carry on
+        its policy, the tier-gated splice on its scheduler.  Policies
+        without the tier (the numpy arms) serve per-tick regardless."""
+        if hasattr(s.policy, "enable_resident"):
+            s.policy.enable_resident()
+            s.scheduler.splice_gate = self._splice_gate
+
     def _batching_compatible(self) -> bool:
         """(cv held) Whether the pool can share a DispatchBatcher: every
         policy batchable (device-backed, deterministic routing) and on
@@ -1082,13 +1130,19 @@ class ServeDriver(LogMixin):
                 # dispatches.
                 if hasattr(s.policy, "prepare"):
                     s.policy.prepare()
-            if self._batching_compatible():
+            if self.resident:
+                # Resident pool: no batcher (see __init__); CUDA was
+                # initialised above, on this thread.
+                for s in self.sessions:
+                    self._enable_resident(s)
+            elif self._batching_compatible():
                 from pivot_tpu_torch.sched.batch import DispatchBatcher
 
                 self.batcher = DispatchBatcher(
                     len(self.sessions), flush_after=self.flush_after,
                     tracer=self.tracer,
                     device=self.sessions[0].policy.device,
+                    ragged=self.ragged,
                 )
                 clients = [self.batcher.client() for _ in self.sessions]
                 for s, c in zip(self.sessions, clients):
@@ -1194,16 +1248,15 @@ class ServeDriver(LogMixin):
 
     def report(self) -> dict:
         """The service report, with the reference's keys; the features
-        not ported report off (no ragged repack, no resident carry, no
-        mesh, no MPC, no recovery plane)."""
+        not ported report off (no mesh, no MPC, no recovery plane)."""
         return {
             "sessions": len(self.sessions),
             "backpressure": self.queue.policy,
             "queue_depth": self.queue.depth,
             "flush_after_s": self.flush_after,
-            "ragged": False,
-            "resident": False,
-            "splice_tier": 0,
+            "ragged": self.ragged,
+            "resident": self.resident,
+            "splice_tier": self.splice_tier,
             "routing": self.routing,
             "preempt": self.preempt,
             "tenant_quota": self.queue.tenant_quota,

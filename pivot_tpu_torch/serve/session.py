@@ -28,9 +28,10 @@ Two serving-specific couplings:
     its timestamp — without the gate, a fast session could race ahead
     of the arrival stream and every later job would slip.
 
-Port of ``pivot_tpu/serve/session.py``.  Serve spans (``fuse_spans="slo"``)
-and the recovery plane's hooks are not ported (ROADMAP.md, Queue 1 items 4
-and 8): ``fuse_spans="slo"`` raises ``NotImplementedError``.
+Port of ``pivot_tpu/serve/session.py``, with serve spans
+(``fuse_spans="slo"``, ``:93-121``, ``:174-190``, ``:251-296``).  The
+recovery plane's hooks (``attach_recovery``) are not ported (ROADMAP.md,
+Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -95,19 +96,24 @@ class ServeSession(LogMixin):
         clock: Optional[ObsClock] = None,
         fuse_spans=False,
     ):
-        if fuse_spans == "slo":
-            raise NotImplementedError(
-                'serve spans (fuse_spans="slo") are not ported to '
-                "pivot_tpu_torch yet (ROADMAP.md, Queue 1 item 4)"
-            )
-        if fuse_spans is not False:
+        if fuse_spans not in (False, "slo"):
             raise ValueError(
-                "ServeSession fuse_spans must be False (per-tick "
-                "dispatch) — unbounded True is a batch-mode knob: an "
-                "online scheduler may not speculate past the stream's "
-                "revealed frontier without an SLO checkpoint"
+                'ServeSession fuse_spans must be False (per-tick '
+                'dispatch, the bit-parity default) or "slo" (fused '
+                "spans bounded by the driver's admission window, one "
+                "SLO latency sample per span) — unbounded True is a "
+                "batch-mode knob: an online scheduler may not "
+                "speculate past the stream's revealed frontier "
+                "without an SLO checkpoint"
             )
         self.label = label
+        #: Serve-span mode: ``False`` keeps per-tick dispatch; ``"slo"``
+        #: lets the scheduler fuse spans between SLO checkpoints — spans
+        #: bounded by the driver's release frontier (inclusive:
+        #: ``GlobalScheduler.span_horizon``, wired by the driver), the
+        #: SLO meter recording ONE decision latency per span.
+        #: Placements are identical either way.
+        self.fuse_spans = fuse_spans
         self.policy = policy
         self.seed = seed
         self.interval = interval
@@ -162,15 +168,18 @@ class ServeSession(LogMixin):
             retry=retry,
             breaker=breaker,
             slo=self.slo,
-            # Per-tick dispatch: the SLO meter counts one decision
-            # latency per dispatch, and the driver's amortization is
-            # coalescing per-tick calls across sessions.
-            fuse_spans=False,
+            # Per-tick dispatch (fuse_spans=False): one decision latency
+            # per dispatch, coalesced across sessions.  "slo" turns span
+            # fusion on, each span bounded at the driver's release
+            # frontier and metered once by the span tap below.
+            fuse_spans=bool(fuse_spans),
         )
         self.cluster.start()
         self.scheduler.start()
         self._last_unfinished = 0
         self._install_decision_tap()
+        if fuse_spans == "slo":
+            self._install_span_tap()
 
     @property
     def batchable(self) -> bool:
@@ -229,6 +238,47 @@ class ServeSession(LogMixin):
             return out
 
         self.policy.place = timed_place
+
+    def _install_span_tap(self) -> None:
+        """Wrap ``policy.place_span`` with the SLO span recorder
+        (``fuse_spans="slo"`` only): a served span is ONE dispatch, so it
+        lands as one decision-latency sample plus the span length
+        (``SloMeter.record_span_decision``); a declined span (None)
+        records nothing — the per-tick path then serves the tick through
+        the ordinary decision tap.  No-op for policies without a span
+        tier (the numpy arms)."""
+        orig = getattr(self.policy, "place_span", None)
+        if orig is None:
+            return
+
+        def timed_place_span(ctx, plan):
+            t0 = time.perf_counter()
+            out = orig(ctx, plan)
+            dt = time.perf_counter() - t0
+            if out is None:
+                return None
+            k_dyn = plan.n_ticks
+            n_placed = int((out.placements[:k_dyn] >= 0).sum())
+            n_tasks = len(plan.slots)
+            self.slo.record_span_decision(dt, k_dyn, n_tasks, n_placed)
+            if self.tracer.enabled:
+                self.tracer.record_span(
+                    "dispatch", "place_span", dt, sim=ctx.env_now,
+                    session=self.label, n_ticks=k_dyn, n_tasks=n_tasks,
+                    n_placed=n_placed,
+                )
+            # Per-tier attribution, as the per-tick tap: the span's
+            # latency counts toward every tier with slots in it.
+            tier_tasks = {}
+            for t in plan.slots:
+                tier = int(getattr(t.application, "_serve_tier", 0))
+                tier_tasks[tier] = tier_tasks.get(tier, 0) + 1
+            for tier, n in tier_tasks.items():
+                self.slo.record_decision_tier(tier, dt, n_tasks=n)
+            self.recent_decision_s = 0.8 * self.recent_decision_s + 0.2 * dt
+            return out
+
+        self.policy.place_span = timed_place_span
 
     # -- driver-facing ----------------------------------------------------
     def offer(self, arrival: JobArrival) -> None:
@@ -425,8 +475,9 @@ class ServeSession(LogMixin):
         )
         s["n_failed"] = len(self.failed)
         s["degraded"] = bool(getattr(self.policy, "degraded", False))
-        # Span-fusion observability: fast-forwarded no-op ticks; the
-        # span counters stay zero under per-tick dispatch.
+        # Span-fusion observability (fuse_spans="slo"): fused spans
+        # served, ticks they covered, replay aborts, fast-forwarded
+        # no-op ticks — all zero under per-tick dispatch.
         s["span_stats"] = dict(self.scheduler.span_stats)
         s["kernel_failures"] = int(
             getattr(self.policy, "kernel_failures", 0)

@@ -6,10 +6,12 @@ runs one tiny ``overall``, one tiny ``ensemble`` with faults, one with
 congestion and a checkpoint file, one tiny ``capacity`` sweep (the row
 runner, ``sweeps.py``), a tiny ``calibrate``, a one-generation CEM
 ``search`` (fitness, optimizer, held-out seeds, oracle, DES validation),
-the market-replay tool, the workload generators and a tiny ``serve``
+the market-replay tool, the workload generators, a tiny ``serve``
 (two sessions on the dispatch batcher, with tiers and the metrics
-registry) on the CPU, imports the trace converter and sampler, and lists
-what is in ``sys.modules``.  A static AST scan covers every file of the
+registry), a lock-step ``overall --batch-runs 2``, and ``serve`` with
+serve spans (``--fuse-spans slo``) and resident carries (``--resident
+--splice-tier 1``) on the CPU, imports the trace converter and sampler,
+and lists what is in ``sys.modules``.  A static AST scan covers every file of the
 package — ``serve/``, ``sched/batch.py``, ``obs/``, ``search/``,
 ``experiments/search.py``, ``experiments/spot.py``,
 ``experiments/sample.py``, ``workload/``, ``parallel/ensemble/`` and
@@ -73,6 +75,15 @@ with tempfile.TemporaryDirectory() as out:
          "2", "--jobs", "6", "--arrival-rate", "0.5", "--tier-mix",
          "0.5,0.5", "--metrics-out", out + "/metrics.prom"]),
         torch_device="cpu")
+    _, lock = cli.run_overall(cli.parse_args(
+        ["--num-hosts", "8", "--trace-limit", "2", "--batch-runs", "2",
+         "--output-dir", out, "overall", "--num-apps", "3"]),
+        torch_device="cpu")
+    spans = [cli.run_serve_stream(cli.parse_args(
+        ["--num-hosts", "8", "--output-dir", out, "serve", "--sessions",
+         "2", "--jobs", "6", "--arrival-rate", "5", "--fuse-spans", "slo",
+         *extra]), torch_device="cpu")
+        for extra in ((), ("--resident", "--splice-tier", "1"))]
 print(json.dumps({
     "arms": [s["label"] for s in summaries],
     "ensemble_unfinished": ens["unfinished_max"],
@@ -87,6 +98,10 @@ print(json.dumps({
     "market_replay": replay,
     "serve_completed": serve["slo"]["counters"]["completed"],
     "serve_coalesced": serve["batcher"]["coalesced"],
+    "lockstep_runs": len([x for x in lock if x is not None]),
+    "span_serve_completed": [r["slo"]["counters"]["completed"]
+                             for r in spans],
+    "span_serve_resident": [r["resident"] for r in spans],
     "modules": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "pivot_tpu")),
 }))
@@ -119,6 +134,9 @@ def test_port_runs_without_jax_or_reference_modules():
     assert report["market_replay"] == 0
     assert report["serve_completed"] == 6
     assert report["serve_coalesced"] > 0
+    assert report["lockstep_runs"] == 6
+    assert report["span_serve_completed"] == [6, 6]
+    assert report["span_serve_resident"] == [False, True]
     assert report["modules"] == []
 
 
@@ -167,6 +185,9 @@ def test_no_file_of_the_port_imports_jax_or_reference():
             "pivot_tpu_torch/workload/gen.py",
             "pivot_tpu_torch/workload/convert.py",
             "pivot_tpu_torch/sched/batch.py",
+            "pivot_tpu_torch/sched/cuda.py",
+            "pivot_tpu_torch/experiments/runner.py",
+            "pivot_tpu_torch/experiments/cli.py",
             "pivot_tpu_torch/serve/__init__.py",
             "pivot_tpu_torch/serve/admission.py",
             "pivot_tpu_torch/serve/arrivals.py",

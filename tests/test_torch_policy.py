@@ -341,8 +341,9 @@ def test_features_of_later_slices_raise(metas):
     """Spans, chunk commit and cross-run batching are ported: the device
     policies are span-capable by the reference's rule, ``phase2=8`` is
     served, and ``enable_batching`` takes a client (refusing the adaptive
-    twin, ``tests/test_torch_batch.py``).  Sharding, the resident carry,
-    the fault gate and the profiler still raise."""
+    twin, ``tests/test_torch_batch.py``).  Sharding,
+    the fault gate and the profiler still raise; the resident carry is
+    ported (``tests/test_torch_resident.py``)."""
     pol = pcuda.CudaCostAwarePolicy(device="cpu")
     assert pol.span_capable()
     for cls in (pcuda.CudaOpportunisticPolicy, pcuda.CudaFirstFitPolicy,
@@ -363,8 +364,9 @@ def test_features_of_later_slices_raise(metas):
                    pol.enable_profiler):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             attach(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pol.enable_resident()
+    pol.enable_resident()
+    assert pol.dispatch_stats()["resident"] == {
+        "spans": 0, "splices": 0, "edit_rows": 0, "d2h_bytes": 0}
     got = []
     for phase2 in (8, "slim"):
         ff = port_dev(pcuda.CudaFirstFitPolicy, phase2=phase2)

@@ -331,19 +331,28 @@ def test_supervisor_restart_on_fresh_batcher_slot():
 
 
 def test_not_ported_options_raise():
+    """The options of later slices raise naming their item; the resident
+    pool and serve spans (item 4) are ported and construct
+    (``tests/test_torch_serve_spans.py`` runs them)."""
     ss = sessions(pserve, pconfig, numpy_policy, 1)
     for kw, item in ((dict(mesh=object()), "item 9"),
                      (dict(elastic=object()), "item 9"),
                      (dict(recovery=object()), "item 8"),
-                     (dict(resident=True), "item 4"),
                      (dict(mpc=object()), "item 5"),
                      (dict(profiler=object()), "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             pserve.ServeDriver(ss, **kw)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    driver = pserve.ServeDriver(ss, resident=True, splice_tier=1)
+    assert driver.report()["resident"] is True
+    assert driver.report()["splice_tier"] == 1
+    s = pserve.ServeSession(
+        "x", pconfig.build_cluster(pconfig.ClusterConfig(n_hosts=4)),
+        numpy_policy(), fuse_spans="slo")
+    assert s.fuse_spans == "slo" and s.scheduler.fuse_spans
+    with pytest.raises(ValueError, match="fuse_spans"):
         pserve.ServeSession(
-            "x", pconfig.build_cluster(pconfig.ClusterConfig(n_hosts=4)),
-            numpy_policy(), fuse_spans="slo")
+            "y", pconfig.build_cluster(pconfig.ClusterConfig(n_hosts=4)),
+            numpy_policy(), fuse_spans=True)
 
 
 def serve_argv(out, device, extra=()):
@@ -381,8 +390,7 @@ def test_cli_serve_report_has_reference_keys(tmp_path, capsys, extra):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--fuse-spans", "slo"], "item 4"), (["--resident"], "item 4"),
-    (["--splice-tier", "1"], "item 4"), (["--shard-hosts", "2"], "item 9"),
+    (["--shard-hosts", "2"], "item 9"),
     (["--mpc"], "item 5"), (["--mpc-dry-run"], "item 5"),
     (["--profile-dispatch", "4"], "item 12")])
 def test_cli_serve_not_ported_flags_exit_naming_item(flags, item, capsys):
@@ -391,6 +399,25 @@ def test_cli_serve_not_ported_flags_exit_naming_item(flags, item, capsys):
     with pytest.raises(SystemExit):
         pcli.parse_args(["serve", *flags])
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--fuse-spans", "slo"], ["--resident"],
+    ["--fuse-spans", "slo", "--resident", "--splice-tier", "1"]])
+def test_cli_serve_span_flags_run(tmp_path, flags):
+    """The item-4 flags, once refused, now serve: the report carries them
+    and every job completes."""
+    from pivot_tpu_torch.experiments import cli as pcli
+
+    p_reset_ids()
+    report = pcli.run_serve_stream(
+        pcli.parse_args(serve_argv(tmp_path, "cuda", flags)),
+        torch_device="cpu", dtype="float64")
+    assert report["slo"]["counters"]["completed"] == 10
+    assert report["resident"] is ("--resident" in flags)
+    assert report["splice_tier"] == (1 if "--splice-tier" in flags else 0)
+    assert report["ragged"] is True
+    assert (report["batcher"] is None) is ("--resident" in flags)
 
 
 def test_cli_serve_defaults_to_the_card_without_adaptive():
