@@ -7,8 +7,9 @@
     python3 chip_smoke.py --phases 9   # congestion, checkpoints, calibrate
     python3 chip_smoke.py --phases 10  # serving and the per-row launch
     python3 chip_smoke.py --phases 11  # cross-run batching of spans
+    python3 chip_smoke.py --phases 12  # serve --mpc and the recovery plane
 
-One card.  ``--phases`` takes a comma list; phases 2-5, 10 and 11 bring
+One card.  ``--phases`` takes a comma list; phases 2-5 and 10-12 bring
 phase 1's build along, phase 5 the runs of phases 3 and 4.
 
 Phases, each fatal on failure:
@@ -189,12 +190,48 @@ Phases, each fatal on failure:
      against the plain version, the ragged arm merging and the resident
      arm running spans with edit rows; p50 / p99 per tier, fused spans,
      merges, pad cells, resident spans, edit rows, splices and the
-     launches by route.
+     launches by route;
+ 12. model-predictive serving and the recovery plane on the card (the
+     serving threads, the MPC's planner and tuner threads and the
+     snapshot worker share the card; torch's sync debug mode stays
+     off): (a) the README's MPC command (``serve --sessions 1 --jobs 300
+     --arrival-rate 2.5 --queue-depth 16 --tier-mix 0.4,0.3,0.3
+     --tier-policies spill,shed,shed --preempt --mpc --mpc-pool 1:4``)
+     through ``cli.main`` at 600 hosts, again with ``--mpc-dry-run``, and
+     without ``--mpc``: at least one plan, never referee-disabled, the
+     forecaster seeing every arrival, no graph captured after the
+     controller's warm-up, TF32 turned off by the entry, tier 0 never
+     shed, ``audit()`` clean, and the dry run serving the MPC-off
+     outcome; (b) a paced soak through the library: one session of 600
+     hosts growing to 4, Cost-Aware on the card, the controller at
+     ``MpcConfig``'s defaults with the tuner on and a referee every 4th
+     window, a mixed-tier stream paced (from one timed window) so that
+     at least 8 windows are planned — every referee check passing, the
+     controller never disabled, no graph captured after its warm-up,
+     tier 0 lossless, ``audit()`` clean; it prints the windows, the
+     planner's ms a window (CUDA events around ``plan``), the rollout
+     ticks, steps and host reads a window, the referee checks, the
+     actions by kind, the tuner's rounds and the rollout's stage events;
+     (c) phase 11 (c)'s resident run (3 sessions, ``--fuse-spans slo
+     --resident --splice-tier 1``, one far-future straggler appended)
+     through the library: ``recovery=None`` and the armed plane
+     (``snapshot_every=2``) decide alike, a run killed after its first
+     snapshot and resumed (``resume=True``, its journal tail torn)
+     decides as the uninterrupted run, and the resumed session that
+     re-reaches the snapshot's span and splice counts holds a carry equal
+     to it (fingerprint and arrays); it prints the journal records, the snapshots, the
+     clone's ms on the dispatch thread and the bytes copied off the card;
+     (d) the watchdog armed (``dispatch_timeout_s=2``): one resident
+     dispatch wedged past the timeout is abandoned and retried, and the
+     run decides as the no-fault run.  Every ``greedy_place`` launch of
+     every run is held against ``cost_aware_plain`` /
+     ``cost_aware_plain_rows`` (the batcher's one-request calls, the
+     coalesced per-row launches and the resident tier's calls).
 
 Each phase logs its wall.  The line before the last is a JSON
 ``kernels`` record (its ``launches`` split into the R = 1 launches of
-phases 3, 4, 10 and 11, the R = 256 launches of phase 4 and the per-row
-launches of phases 10 and 11, with the per-row form's times; a number
+phases 3, 4, 10-12, the R = 256 launches of phase 4 and the per-row
+launches of phases 10-12, with the per-row form's times; a number
 of a phase not run is null); the
 last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
@@ -214,6 +251,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -2792,7 +2830,10 @@ class ServeRecorder:
     (``cuda_kernels.cost_aware_cuda_rows``, as the batcher calls it), and
     every R = 1 call the policy makes itself (``_greedy``: the resident
     tier's span ticks and its per-tick placements; a batched policy's
-    calls go through the batcher instead)."""
+    calls go through the batcher instead, and the batcher's one-request
+    Cost-Aware calls — its single-live-slot path and flushes of one — are
+    recorded into ``r1`` too).  Each session's log holds its per-tick
+    placements and its span outcomes, in decision order."""
 
     def __init__(self):
         self.driver = None
@@ -2800,7 +2841,7 @@ class ServeRecorder:
         self.groups = []  # sizes of coalesced Cost-Aware flush groups
         self.span_groups = []  # sizes of coalesced span flushes
         self.rows = []  # (args, kw, (placements, avail)) per launch
-        self.r1 = []  # (args, kw, (placements, avail)) per policy R = 1 call
+        self.r1 = []  # (args, kw, (placements, avail)) per R = 1 call
 
     @contextlib.contextmanager
     def attach(self):
@@ -2832,12 +2873,28 @@ class ServeRecorder:
                     return out
 
                 self.policy.place = record
+                span = getattr(self.policy, "place_span", None)
+                if span is not None:
+                    def record_span(ctx, plan, _orig=span, _log=self.log):
+                        out = _orig(ctx, plan)
+                        _log.append(None if out is None
+                                    else np.asarray(out.placements).copy())
+                        return out
+
+                    self.policy.place_span = record_span
+
+        def solo_r1(*a, **k):
+            out = ck.cost_aware_cuda(*a, **k)
+            rec.r1.append((a, k, out))
+            return out
 
         def batch_execute(kernel, requests, *a, **k):
             if kernel is ck.cost_aware_cuda and len(requests) > 1:
                 rec.groups.append(len(requests))
             if kernel is batch.fused_tick_run and len(requests) > 1:
                 rec.span_groups.append(len(requests))
+            if kernel is ck.cost_aware_cuda and len(requests) == 1:
+                kernel = solo_r1  # a one-request flush: one R = 1 call
             return execute(kernel, requests, *a, **k)
 
         def cost_aware_cuda_rows(*a, **k):
@@ -3779,7 +3836,8 @@ def p11_serve(device) -> dict:
                 "clean")
             out[name] = row
     log(f"  (c) {chk.cases} launches held against their plain version "
-        f"(per-row: cost_aware_plain_rows; the resident run's R=1: "
+        f"(per-row: cost_aware_plain_rows; the R=1 calls of the "
+        f"batcher's one-request flushes and of the resident run: "
         f"cost_aware_plain), {chk.placed} placements, max |avail diff| "
         f"{chk.max_abs_err!r}")
     out["max_abs_err"] = chk.max_abs_err
@@ -3818,6 +3876,612 @@ def phase_batching(device) -> dict:
     rec["launches_rows"] = sum(by_g.values())
     rec["max_abs_err"] = max(rec[k]["max_abs_err"] for k in (
         "flushes", "resident_chain", "lockstep", "serve"))
+    return rec
+
+
+# -- phase 12: model-predictive serving and the recovery plane ---------------
+
+#: (a) the README's MPC command (``README.md``, the model-predictive
+#: serving section), at the CLI's 600 hosts a session; the same with
+#: ``--mpc-dry-run``, and without the MPC (the outcome the dry run must
+#: serve).
+P12_README = ("--sessions", "1", "--jobs", "300", "--arrival-rate", "2.5",
+              "--queue-depth", "16", "--tier-mix", "0.4,0.3,0.3",
+              "--tier-policies", "spill,shed,shed", "--preempt")
+P12_MPC = ("--mpc", "--mpc-pool", "1:4")
+#: (b) the paced soak: a mixed-tier stream at the README's tier mix, the
+#: controller at MpcConfig's defaults (env_apps 6, 4 replicas, horizon
+#: 300, tick 5) with the pool 1:4, the tuner on and a referee every 4th
+#: window; paced so that the controller plans at least P12_WINDOWS
+#: windows (the pace is set from one timed window before the run).
+P12_SOAK_JOBS = 120
+P12_SOAK_RATE = 0.5
+P12_WINDOWS = 8
+#: A window in the run over the lone timed window: the serving threads
+#: and the tuner share the card and the host (2.7 on an NVIDIA H100 80GB
+#: HBM3 at 700 W, ``chip_smoke.py --phases 12``).
+P12_CONTENTION = 3.0
+#: (c) phase 11 (c)'s resident run (3 sessions, 300 jobs at rate 25,
+#: ``--fuse-spans slo --resident --splice-tier 1``) through the library,
+#: with one far-future straggler that keeps the release frontier open
+#: while the killed run waits for its first snapshot (as
+#: ``tests/test_recovery.py``'s soak): every run slices its spans alike.
+#: The plane's snapshot cadence counts the spans of the whole pool
+#: (``RecoveryPlane.note_span``, as the reference), so with several
+#: session threads which session's carry a snapshot holds is a matter of
+#: thread timing, and the plane's own resume check (``resume_verified``)
+#: may meet the snapshot's span number on another session's carry: the
+#: phase matches the snapshot to the resumed session whose own span and
+#: splice counts it recorded, and holds the carries equal there.
+P12_RESIDENT = dict(sessions=3, jobs=300, rate=25.0)
+P12_STRAGGLER_TS = 10_000.0
+
+
+def p12_outcome(report) -> dict:
+    c = report["slo"]["counters"]
+    return {k: c.get(k, 0) for k in ("arrived", "admitted", "completed",
+                                     "shed", "decisions")}
+
+
+def p12_hold(ck, rec, chk, what) -> None:
+    """Every ``greedy_place`` launch a recorder saw against its plain
+    version on the same operands."""
+    for i, (a, k, got) in enumerate(rec.rows):
+        chk.same(got, ck.cost_aware_plain_rows(*a, **k), (what, "rows", i))
+    for i, (a, k, got) in enumerate(rec.r1):
+        chk.same(got, ck.cost_aware_plain(*a, **k), (what, "r1", i))
+
+
+def p12_launches(ck) -> dict:
+    return dict(total=ck.LAUNCHES["greedy_place"],
+                rows=dict(ck.LAUNCHES_ROWS),
+                by_replicas=dict(ck.LAUNCHES_BY_REPLICAS))
+
+
+def p12_readme(device, chk) -> dict:
+    """(a) The README's MPC command through ``cli.main`` on the card, with
+    ``--mpc-dry-run``, and without the MPC: at least one plan, never
+    referee-disabled, ``audit()`` clean; the dry run serves the MPC-off
+    outcome; every launch held against its plain version."""
+    from pivot_tpu_torch.experiments import cli
+    from pivot_tpu_torch.ops import cuda_kernels as ck
+    from pivot_tpu_torch.utils import reset_ids
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, extra in (("mpc", P12_MPC),
+                            ("dry_run", P12_MPC + ("--mpc-dry-run",)),
+                            ("off", ())):
+            argv = ["--output-dir", tmp, "serve", *P12_README, *extra]
+            rec = ServeRecorder()
+            buf = io.StringIO()
+            reset_ids()
+            if extra:
+                # The entry must turn TF32 off itself (its evaluator's
+                # egress product needs full float32).
+                torch.backends.cuda.matmul.allow_tf32 = True
+            ck.reset_launches()
+            t0 = time.perf_counter()
+            with rec.attach(), contextlib.redirect_stdout(buf):
+                cli.main(argv)
+            wall = time.perf_counter() - t0
+            launches = p12_launches(ck)
+            report = json.loads(buf.getvalue().strip().splitlines()[-1])
+            rec.driver.audit(f"serve {name}")
+            if torch.backends.cuda.matmul.allow_tf32:
+                raise AssertionError("serve --mpc left TF32 on")
+            rows = sum(launches["rows"].values())
+            r1 = launches["by_replicas"].get(1, 0)
+            if launches["total"] != rows + r1 or rows != len(rec.rows) \
+                    or r1 != len(rec.r1):
+                raise AssertionError(f"serve {name}: launches {launches}, "
+                                     f"{len(rec.rows)} per-row and "
+                                     f"{len(rec.r1)} R=1 recorded")
+            p12_hold(ck, rec, chk, name)
+            m = report["mpc"]
+            if name != "off":
+                if not m["plans"] or m["disabled"]:
+                    raise AssertionError(f"serve {name}: mpc {m}")
+                if m["forecast"]["n_observed"] != \
+                        report["slo"]["counters"]["arrived"]:
+                    raise AssertionError(f"serve {name}: the forecaster "
+                                         "missed arrivals")
+                if rec.driver._mpc.captures_after_warmup():
+                    raise AssertionError(f"serve {name}: graphs captured "
+                                         "after the warm-up")
+            elif m is not None:
+                raise AssertionError("serve off: an MPC report")
+            if report["slo"]["tiers"]["0"]["counters"]["shed"]:
+                raise AssertionError(f"serve {name}: tier 0 shed")
+            out[name] = dict(
+                wall_s=wall, outcome=p12_outcome(report), launches=launches,
+                mpc=m and {k: m[k] for k in ("rounds", "plans", "disabled",
+                                              "dry_run", "tuner")},
+                actions=m and rec.driver._mpc.action_counts(),
+                pool=report["pool"])
+            log(f"  (a) serve {name}: wall {wall!r} s, outcome "
+                f"{out[name]['outcome']}, pool {report['pool']}, launches "
+                f"R=1 {r1} per-row {launches['rows']}"
+                + (f", mpc rounds {m['rounds']} plans {m['plans']} actions "
+                   f"{out[name]['actions']} tuner {m['tuner']}" if m else ""))
+    if out["dry_run"]["outcome"] != out["off"]["outcome"]:
+        raise AssertionError(f"--mpc-dry-run served {out['dry_run']} but "
+                             f"the MPC-off run {out['off']}")
+    return out
+
+
+@contextlib.contextmanager
+def p12_eval_tap(F):
+    """Record one dict per ``evaluate_rows`` call (``F``: the port's
+    ``search.fitness``) from any thread: ``thread``, ``rows``,
+    ``wall_s``, and the row loop's ``ticks``, ``place_steps``,
+    ``host_syncs`` and ``event_span_ms``."""
+    calls = []
+    local = threading.local()
+    evaluate, fitness_rows = F.evaluate_rows, F._fitness_rows
+
+    def rows(*args, **kw):
+        return fitness_rows(*args, **dict(kw, stats=local.rec))
+
+    def recorded(weights, env, **kw):
+        local.rec = rec = {"thread": threading.current_thread().name}
+        t0 = time.perf_counter()
+        out = evaluate(weights, env, **kw)
+        rec.update(wall_s=time.perf_counter() - t0, rows=out[1]["n_rows"])
+        calls.append(rec)
+        return out
+
+    F.evaluate_rows, F._fitness_rows = recorded, rows
+    try:
+        yield calls
+    finally:
+        F.evaluate_rows, F._fitness_rows = evaluate, fitness_rows
+
+
+@contextlib.contextmanager
+def p12_planner_tap(PC):
+    """Time each ``plan`` the controller makes (CUDA events on its
+    thread; host clock off the card) and count its referee checks."""
+    plans, referees = [], []
+    plan, referee = PC.plan, PC.referee_check
+
+    def timed(*a, **k):
+        cuda = torch.cuda.is_available()
+        if cuda:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+            start.record()
+        t0 = time.perf_counter()
+        out = plan(*a, **k)
+        wall = time.perf_counter() - t0
+        if cuda:
+            end.record()
+            end.synchronize()
+        plans.append(dict(wall_ms=wall * 1e3, event_ms=(
+            start.elapsed_time(end) if cuda else None)))
+        return out
+
+    def refereed(*a, **k):
+        ok = referee(*a, **k)
+        referees.append(ok)
+        return ok
+
+    PC.plan, PC.referee_check = timed, refereed
+    try:
+        yield plans, referees
+    finally:
+        PC.plan, PC.referee_check = plan, referee
+
+
+def p12_cluster(cli, n_hosts):
+    from pivot_tpu_torch.utils.config import build_cluster
+
+    args = cli.parse_args(["--num-hosts", str(n_hosts), "serve"])
+    return build_cluster(cli._cluster_config(args))
+
+
+def p12_policy(device):
+    from pivot_tpu_torch.utils.config import PolicyConfig, make_policy
+
+    return make_policy(PolicyConfig(
+        name="cost-aware", device="cuda", bin_pack="first-fit",
+        sort_tasks=True, sort_hosts=True, adaptive=False),
+        torch_device=str(device))
+
+
+def p12_soak(device, chk, n_hosts=600) -> dict:
+    """(b) The paced MPC soak through the library (module docstring)."""
+    from pivot_tpu_torch import serve
+    from pivot_tpu_torch.experiments import cli
+    from pivot_tpu_torch.mpc import MpcConfig
+    from pivot_tpu_torch.mpc import controller as PC
+    from pivot_tpu_torch.mpc.forecast import TierForecast, render_env
+    from pivot_tpu_torch.mpc.planner import enumerate_actions, plan
+    from pivot_tpu_torch.ops import cuda_kernels as ck
+    from pivot_tpu_torch.parallel.ensemble.tick import SNAPSHOT_GRAPHS
+    from pivot_tpu_torch.search import fitness as F
+    from pivot_tpu_torch.search.weights import DEFAULT_WEIGHTS
+    from pivot_tpu_torch.utils import reset_ids
+
+    cfg = MpcConfig(g_min=1, g_max=4, referee_every=4, tune=True, seed=0)
+    # One window timed before the run sets the pace: the stream lasts
+    # the wall of 2 x P12_WINDOWS windows in the run (a referee window
+    # runs two plans), within 12-40 s.
+    reset_ids()
+    tpl = p12_cluster(cli, n_hosts)
+    from pivot_tpu_torch.infra.market import MarketSchedule
+
+    market = MarketSchedule.generate(tpl.meta, seed=0, horizon=cfg.horizon)
+    env, _, tiers = render_env(
+        TierForecast((0.2, 0.15, 0.15), (0.4, 0.3, 0.3), 8, 60.0),
+        cluster=tpl, market=market, horizon=cfg.horizon, seed=cfg.seed,
+        n_replicas=cfg.n_replicas, tick=cfg.tick, n_apps=cfg.env_apps,
+        device=device)
+    menu = enumerate_actions(1, g_min=1, g_max=4, incumbent=DEFAULT_WEIGHTS,
+                             shed_tier=2)
+    plan(menu, env, tiers, 1)  # warm: the graphs of this shape
+    t0 = time.perf_counter()
+    plan(menu, env, tiers, 1)
+    window_s = time.perf_counter() - t0 + cfg.check_interval_s
+    sim_span = P12_SOAK_JOBS / P12_SOAK_RATE
+    wall_target = min(max(
+        2 * P12_WINDOWS * 1.25 * P12_CONTENTION * window_s, 12.0), 40.0)
+    pace = sim_span / wall_target
+    log(f"  (b) one window {window_s!r} s: pace {pace!r} sim-s a wall-s "
+        f"for ~{wall_target!r} s of stream")
+
+    rec = ServeRecorder()
+    reset_ids()
+    ck.reset_launches()
+    captures0 = SNAPSHOT_GRAPHS.captures
+    with rec.attach(), p12_eval_tap(F) as evals, \
+            p12_planner_tap(PC) as (plans, referees):
+        def make_session(label):
+            return serve.ServeSession(label, p12_cluster(cli, n_hosts),
+                                      p12_policy(device), seed=0)
+
+        driver = serve.ServeDriver(
+            [make_session("s0")], queue_depth=24, backpressure="shed",
+            tier_policies=("spill", "shed", "shed"), preempt=True,
+            session_factory=make_session, mpc=cfg)
+        stream = serve.mixed_tier_arrivals(
+            P12_SOAK_RATE, P12_SOAK_JOBS, (0.4, 0.3, 0.3), seed=0)
+        t0 = time.perf_counter()
+        report = driver.run(stream, pace=pace)
+        wall = time.perf_counter() - t0
+    launches = p12_launches(ck)
+    driver.audit("mpc soak")
+    ctl = driver._mpc
+    m = report["mpc"]
+    if m["rounds"] < P12_WINDOWS or m["disabled"]:
+        raise AssertionError(f"mpc soak: {m['rounds']} windows planned, "
+                             f"disabled {m['disabled']}")
+    if not referees or not all(referees):
+        raise AssertionError(f"mpc soak: referee checks {referees}")
+    if report["slo"]["tiers"]["0"]["counters"]["shed"]:
+        raise AssertionError("mpc soak: tier 0 shed")
+    if ctl.captures_after_warmup():
+        raise AssertionError(f"mpc soak: {ctl.captures_after_warmup()} "
+                             "graph captures after the warm-up")
+    rows = sum(launches["rows"].values())
+    r1 = launches["by_replicas"].get(1, 0)
+    if launches["total"] != rows + r1 or rows != len(rec.rows) or \
+            r1 != len(rec.r1):
+        raise AssertionError(f"mpc soak: launches {launches}, "
+                             f"{len(rec.rows)} per-row and {len(rec.r1)} "
+                             "R=1 recorded")
+    p12_hold(ck, rec, chk, "soak")
+    planner = [e for e in evals if e["thread"] == "serve-mpc"]
+    tuner = [e for e in evals if e["thread"] == "mpc-tuner"]
+    stages = {}
+    for evt in ctl.rollout.events:
+        stages[evt["stage"]] = stages.get(evt["stage"], 0) + 1
+
+    def med(xs):
+        return statistics.median(xs) if xs else None
+
+    row = dict(
+        wall_s=wall, pace=pace, windows=m["rounds"], plans=m["plans"],
+        plan_event_ms=[p["event_ms"] for p in plans],
+        plan_wall_ms=[p["wall_ms"] for p in plans],
+        plan_event_ms_median=med([p["event_ms"] for p in plans
+                                  if p["event_ms"] is not None]),
+        plan_wall_ms_median=med([p["wall_ms"] for p in plans]),
+        window_ticks=med([e["ticks"] for e in planner]),
+        window_place_steps=med([e["place_steps"] for e in planner]),
+        window_host_syncs=med([e["host_syncs"] for e in planner]),
+        window_rows=med([e["rows"] for e in planner]),
+        tuner_calls=len(tuner), tuner_rows=med([e["rows"] for e in tuner]),
+        referee_checks=len(referees), referee_passed=sum(referees),
+        actions=ctl.action_counts(), tuner_rounds=ctl.tuner.rounds,
+        tuner_eligible=m["tuner"]["eligible"], rollout_stages=stages,
+        captures_after_warmup=ctl.captures_after_warmup(),
+        captures_in_run=SNAPSHOT_GRAPHS.captures - captures0,
+        outcome=p12_outcome(report), pool=report["pool"],
+        launches=launches,
+        p50_ms=report["slo"]["decision_latency_s"]["p50"] * 1e3,
+        p99_ms=report["slo"]["decision_latency_s"]["p99"] * 1e3)
+    log(f"  (b) soak: wall {wall!r} s, {row['windows']} windows planned "
+        f"({row['plans']} plans), plan ms median {row['plan_event_ms_median']!r}"
+        f" (events) / {row['plan_wall_ms_median']!r} (host), a window "
+        f"{row['window_ticks']!r} ticks, {row['window_place_steps']!r} "
+        f"steps, {row['window_host_syncs']!r} host reads over "
+        f"{row['window_rows']!r} rows; referee {row['referee_passed']}/"
+        f"{row['referee_checks']} passed; actions {row['actions']}; tuner "
+        f"{row['tuner_rounds']} rounds ({row['tuner_eligible']} eligible, "
+        f"{row['tuner_calls']} evaluator calls); rollout {stages}; graph "
+        f"captures after warm-up {row['captures_after_warmup']} (in the "
+        f"run {row['captures_in_run']}); outcome {row['outcome']}, pool "
+        f"{report['pool']}; launches R=1 {r1} per-row {launches['rows']}")
+    return row
+
+
+def p12_resident_stream(straggler=True):
+    from pivot_tpu_torch.serve import JobArrival, poisson_arrivals
+    from pivot_tpu_torch.utils import reset_ids
+    from pivot_tpu_torch.workload import Application, TaskGroup
+
+    reset_ids()
+    arrs = list(poisson_arrivals(P12_RESIDENT["rate"], P12_RESIDENT["jobs"],
+                                 seed=0))
+    if straggler:
+        arrs.append(JobArrival(ts=P12_STRAGGLER_TS, app=Application(
+            "straggler", [TaskGroup("s", cpus=1, mem=32, runtime=2.0,
+                                    instances=1)]), tier=0))
+    return arrs
+
+
+def p12_kill_when_snapshotted(arrs, driver, timeout_s=120.0):
+    """The stream, then a wait for the first snapshot, then a kill."""
+    yield from arrs
+    deadline = time.monotonic() + timeout_s
+    while driver._recovery.snapshots.written < 1:
+        if time.monotonic() > deadline:
+            raise AssertionError("the killed run wrote no snapshot")
+        time.sleep(0.01)
+    raise RuntimeError("injected kill: the server died mid-stream")
+
+
+def p12_resident_run(device, chk, name, recovery, n_hosts=600, kill=False,
+                     wedge=None, carries=None):
+    """One run of (c) / (d): the resident pool through the library, every
+    R = 1 call recorded and held against its plain version; with
+    ``carries`` (a list), each span's pending carry, exported to the host
+    after the span, with its session's span and splice counts.  Returns
+    ``(sorted final placements, each session's decision log, report or
+    None, driver, launches)``."""
+    from pivot_tpu_torch.ops.tickloop import resident_carry_export
+    from pivot_tpu_torch import serve
+    from pivot_tpu_torch.experiments import cli
+    from pivot_tpu_torch.ops import cuda_kernels as ck
+
+    arrs = p12_resident_stream()
+    rec = ServeRecorder()
+    ck.reset_launches()
+    report = None
+    with rec.attach():
+        sessions = [serve.ServeSession(
+            f"session-{g}", p12_cluster(cli, n_hosts), p12_policy(device),
+            seed=0, fuse_spans="slo")
+            for g in range(P12_RESIDENT["sessions"])]
+        if wedge is not None:
+            wedge(sessions[0].policy)
+        for s in sessions if carries is not None else ():
+            def export(ctx, plan, _orig=s.policy.place_span, _p=s.policy):
+                out = _orig(ctx, plan)
+                rs = _p._resident
+                carries.append((rs.spans, rs.splices,
+                                resident_carry_export(rs.carry)))
+                return out
+
+            s.policy.place_span = export
+        driver = serve.ServeDriver(
+            sessions, queue_depth=64, backpressure="shed", resident=True,
+            splice_tier=1, recovery=recovery)
+        if kill:
+            try:
+                driver.run(p12_kill_when_snapshotted(arrs, driver))
+            except RuntimeError as e:
+                if "injected kill" not in str(e):
+                    raise
+            else:
+                raise AssertionError("the killed run was not killed")
+        else:
+            report = driver.run(iter(arrs))
+            driver.audit(f"resident {name}")
+    launches = p12_launches(ck)
+    r1 = launches["by_replicas"].get(1, 0)
+    if launches["total"] != r1 or r1 != len(rec.r1):
+        raise AssertionError(f"resident {name}: launches {launches}, "
+                             f"{len(rec.r1)} R=1 recorded")
+    p12_hold(ck, rec, chk, name)
+    placements = sorted(((t.id, t.placement) for a in arrs
+                         for g in a.app.groups for t in g.tasks),
+                        key=lambda x: (x[0], str(x[1])))
+    logs = [[None if x is None else x.tolist() for x in s.log]
+            for s in sorted(rec.sessions, key=lambda s: s.label)]
+    return placements, logs, report, driver, launches
+
+
+def p12_recovery(device, chk, n_hosts=600) -> dict:
+    """(c) recovery over the resident stream and (d) the armed watchdog
+    (module docstring)."""
+    from pivot_tpu_torch.recover import DispatchTimeout, RecoveryConfig
+    from pivot_tpu_torch.sched.retry import RetryPolicy
+
+    out = {}
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        plain, plain_log, rep_plain, _, launches["none"] = p12_resident_run(
+            device, chk, "none", None, n_hosts)
+
+        def cfg(sub, **kw):
+            return RecoveryConfig(directory=os.path.join(tmp, sub),
+                                  snapshot_every=2, **kw)
+
+        t0 = time.perf_counter()
+        ref, ref_log, rep_ref, drv_ref, launches["armed"] = \
+            p12_resident_run(device, chk, "armed", cfg("ref"), n_hosts)
+        armed_wall = time.perf_counter() - t0
+        if (ref, ref_log) != (plain, plain_log) or \
+                p12_outcome(rep_ref) != p12_outcome(rep_plain):
+            raise AssertionError("recovery=None and the armed plane decide "
+                                 "differently")
+        plane = drv_ref._recovery
+        snap = rep_ref["recovery"]["snapshots"]
+        if not snap["written"]:
+            raise AssertionError("the armed run wrote no snapshot")
+        _, _, _, drv_kill, launches["killed"] = p12_resident_run(
+            device, chk, "killed", cfg("kill"), n_hosts, kill=True)
+        with open(os.path.join(tmp, "kill", "journal.jsonl"), "a",
+                  encoding="utf-8") as f:
+            f.write('{"seq": 99999, "kind": "adm')  # torn mid-append
+        carries = []
+        res, res_log, rep_res, drv_res, launches["resumed"] = \
+            p12_resident_run(device, chk, "resumed",
+                             cfg("kill", resume=True), n_hosts,
+                             carries=carries)
+        resumed = drv_res._recovery
+        if resumed.restored is None:
+            raise AssertionError("resume: no snapshot survived the kill")
+        if (res, res_log) != (ref, ref_log) or \
+                p12_outcome(rep_res) != p12_outcome(rep_ref):
+            raise AssertionError("the resumed run decides differently from "
+                                 "the uninterrupted run")
+        # The snapshot against the resumed session that re-reached its
+        # span and splice counts (P12_RESIDENT's note): equal carry,
+        # equal fingerprint under the snapshot's own meta.
+        from pivot_tpu_torch.recover import fingerprint_arrays
+
+        arrays, rmeta = resumed.restored
+        submit = {k: v for k, v in rmeta.items()
+                  if k not in ("fingerprint", "snapshot_seq")}
+        matched = [
+            c for spans, splices, c in carries
+            if (spans, splices) == (rmeta["policy_spans"], rmeta["splices"])
+            and set(c) == set(arrays) - {"risk"}
+            and all(np.array_equal(c[k], arrays[k]) for k in c)
+            and fingerprint_arrays(
+                dict(c, **({"risk": arrays["risk"]} if "risk" in arrays
+                           else {})), submit) == rmeta["fingerprint"]]
+        if not matched:
+            raise AssertionError("resume: no resumed session's carry "
+                                 "equals the restored snapshot")
+        out["c"] = dict(
+            armed_wall_s=armed_wall, decisions=sum(map(len, ref_log)),
+            journal_records=rep_ref["recovery"]["journal"]["records"],
+            journal_fsyncs=rep_ref["recovery"]["journal"]["fsyncs"],
+            snapshots_written=snap["written"],
+            snapshots_dropped=snap["dropped"],
+            spans_seen=rep_ref["recovery"]["spans_seen"],
+            splices_seen=rep_ref["recovery"]["splices_seen"],
+            clone_ms=list(plane.clone_ms),
+            clone_ms_median=statistics.median(plane.clone_ms),
+            d2h_bytes=plane.snapshots.d2h_bytes,
+            d2h_bytes_a_snapshot=plane.snapshots.d2h_bytes // snap["written"],
+            killed_snapshots=drv_kill._recovery.snapshots.written,
+            resumed_snapshot_span=resumed.restored[1]["span"],
+            resume_verified=resumed.resume_verified,
+            carry_matched=len(matched),
+            outcome=p12_outcome(rep_ref))
+        c = out["c"]
+        log(f"  (c) resident x {P12_RESIDENT['sessions']} sessions: "
+            f"recovery=None and the armed plane decide alike "
+            f"({c['decisions']} decisions); armed wall {armed_wall!r} s; "
+            f"journal {c['journal_records']} records ({c['journal_fsyncs']} "
+            f"fsyncs), {c['snapshots_written']} snapshots written "
+            f"({c['snapshots_dropped']} dropped) of {c['spans_seen']} spans; "
+            f"clone on the dispatch thread median {c['clone_ms_median']!r} "
+            f"ms ({len(c['clone_ms'])} clones); D2H {c['d2h_bytes']} bytes "
+            f"({c['d2h_bytes_a_snapshot']} a snapshot); killed after "
+            f"{c['killed_snapshots']} snapshots, resumed from span "
+            f"{c['resumed_snapshot_span']}: decisions equal the "
+            "uninterrupted run's, a resumed session's carry equal to the "
+            "snapshot (fingerprint and arrays; the plane's own check "
+            f"{c['resume_verified']})")
+
+        # (d) the watchdog armed: one resident dispatch wedges (parked past
+        # the timeout, before it consumes the carry), is abandoned, retried.
+        release = threading.Event()
+        wedged = []
+
+        def wedge(policy):
+            orig = policy._resident_dispatch
+
+            def wedged_dispatch(*a, **k):
+                if not wedged:
+                    wedged.append(threading.current_thread().name)
+                    release.wait(120.0)
+                    raise DispatchTimeout("wedged dispatch released")
+                return orig(*a, **k)
+
+            policy._resident_dispatch = wedged_dispatch
+
+        t0 = time.perf_counter()
+        try:
+            wd_pl, wd_log, rep_wd, _, launches["watchdog"] = \
+                p12_resident_run(device, chk, "watchdog",
+                                 cfg("wd", dispatch_timeout_s=2.0,
+                                     retry=RetryPolicy(max_retries=1,
+                                                       base=0.0)),
+                                 n_hosts, wedge=wedge)
+        finally:
+            release.set()
+        wd_wall = time.perf_counter() - t0
+        wd = rep_wd["recovery"]["watchdog"]
+        if (wd_pl, wd_log) != (plain, plain_log) or \
+                p12_outcome(rep_wd) != p12_outcome(rep_plain):
+            raise AssertionError("the armed watchdog run decides differently "
+                                 "from the no-fault run")
+        if wd["timeouts"] != 1 or wd["retries_total"] != 1 or \
+                wd["failures"]:
+            raise AssertionError(f"watchdog {wd}")
+        out["d"] = dict(wall_s=wd_wall, watchdog=wd,
+                        wedged_thread=wedged[0])
+        log(f"  (d) watchdog: one wedged resident dispatch timed out "
+            f"(2.0 s) and was retried; decisions equal the no-fault run; "
+            f"wall {wd_wall!r} s; {wd}")
+    out["launches"] = launches
+    return out
+
+
+def phase_mpc_recovery(device) -> dict:
+    """Phase 12: model-predictive serving and the recovery plane on the
+    card (module docstring)."""
+    card = card_line()
+    log(f"  [{card}]")
+    chk = Check()
+    rec = {}
+    t0 = time.perf_counter()
+    rec["readme"] = p12_readme(device, chk)
+    log(f"  (a): {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    rec["soak"] = p12_soak(device, chk)
+    log(f"  (b): {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    rec["recovery"] = p12_recovery(device, chk)
+    log(f"  (c) + (d): {time.perf_counter() - t0!r} s")
+    path = [rec["readme"]["mpc"]["launches"],
+            rec["readme"]["dry_run"]["launches"], rec["soak"]["launches"],
+            *(rec["recovery"]["launches"][k]
+              for k in ("armed", "killed", "resumed", "watchdog"))]
+    compare = [rec["readme"]["off"]["launches"],
+               rec["recovery"]["launches"]["none"]]
+    rec["launches_r1"] = sum(x["by_replicas"].get(1, 0) for x in path)
+    by_g = {}
+    for x in path:
+        for g, n in x["rows"].items():
+            by_g[g] = by_g.get(g, 0) + n
+    rec["launches_rows_by_g"] = by_g
+    rec["launches_rows"] = sum(by_g.values())
+    rec["compare_launches"] = sum(x["total"] for x in compare)
+    rec["held"] = chk.cases
+    rec["max_abs_err"] = chk.max_abs_err
+    log(f"  {chk.cases} launches held against their plain version "
+        f"(R=1: cost_aware_plain, per-row: cost_aware_plain_rows), "
+        f"{chk.placed} placements, max |avail diff| {chk.max_abs_err!r}; "
+        f"path launches R=1 {rec['launches_r1']} per-row {by_g}; "
+        f"comparison sides (the MPC-off and recovery=None runs) "
+        f"{rec['compare_launches']}")
     return rec
 
 
@@ -3917,11 +4581,11 @@ def phase_5_report(ck, e2e, sens, card, device):
     return times, gt, spans
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12)
 
 
 def selected_phases(argv) -> set:
-    """``--phases 1,6,7`` (default: all).  Phases 2-5, 10 and 11 need
+    """``--phases 1,6,7`` (default: all).  Phases 2-5 and 10-12 need
     phase 1's build, phase 5 the runs of phases 3 and 4: they come
     along."""
     import argparse
@@ -3934,7 +4598,7 @@ def selected_phases(argv) -> set:
         ap.error(f"phases are {PHASES}, got {sorted(want)}")
     if 5 in want:
         want |= {3, 4}
-    if want & {2, 3, 4, 5, 10, 11}:
+    if want & {2, 3, 4, 5, 10, 11, 12}:
         want.add(1)
     return want
 
@@ -4077,10 +4741,19 @@ def main(argv=None) -> int:
         batching = phase_batching(device)
         walls[11] = time.perf_counter() - tp
         log(f"  phase 11 wall: {walls[11]!r} s")
+    p12 = None
+    if 12 in phases:
+        tp = time.perf_counter()
+        log("== 12. model-predictive serving and the recovery plane on the "
+            "card: the README's MPC command through the CLI, a paced MPC "
+            "soak, a resident run killed and resumed, the watchdog armed")
+        p12 = phase_mpc_recovery(device)
+        walls[12] = time.perf_counter() - tp
+        log(f"  phase 12 wall: {walls[12]!r} s")
     log(json.dumps({
         "times": times, "spans": spans, "ensemble": ens, "sweeps": sweeps,
         "search": search, "congestion": congestion, "serve": serve,
-        "batching": batching,
+        "batching": batching, "mpc_recovery": p12,
         "phase_walls": walls,
         "same_files": e2e and e2e["same_files"], "gated_times": gt,
         "sensitivity": sens and {p: {k: v for k, v in r.items()
@@ -4098,6 +4771,8 @@ def main(argv=None) -> int:
         errs.append(serve["max_abs_err"])
     if batching is not None:
         errs.append(batching["max_abs_err"])
+    if p12 is not None:
+        errs.append(p12["max_abs_err"])
     sv = serve and [serve[k]["launches"] for k in SERVE_RUNS]
     sv_rows = sv and sum(sum(x["rows"].values()) for x in sv)
     sv_r1 = sv and sum(x["by_replicas"].get(1, 0) for x in sv)
@@ -4105,29 +4780,37 @@ def main(argv=None) -> int:
     st = batching and batching["flushes"]["rows_times"]
     b_r1 = batching and batching["launches_r1"]
     b_rows = batching and batching["launches_rows"]
+    m_r1 = p12 and p12["launches_r1"]
+    m_rows = p12 and p12["launches_rows"]
     record = {"kernels": [{
         "name": "greedy_place",
         "route": "cuda",
         "source": "pivot_tpu_torch/csrc/greedy_place.cu",
         "replaces": "pivot_tpu/ops/pallas_kernels.py:265",
-        "launches": (e2e and ca and serve and batching
+        "launches": (e2e and ca and serve and batching and p12
                      and e2e["runs"]["cuda"]["launches"]
                      + sum(ca["launches"].values()) + sv_rows + sv_r1
-                     + b_r1 + b_rows),
-        "launches_r1": (e2e and ca and serve and batching
+                     + b_r1 + b_rows + m_r1 + m_rows),
+        "launches_r1": (e2e and ca and serve and batching and p12
                         and e2e["runs"]["cuda"]["launches"]
-                        + ca["launches"][1] + sv_r1 + b_r1),
+                        + ca["launches"][1] + sv_r1 + b_r1 + m_r1),
         f"launches_r{SENS_REPLICAS}": ca and ca["launches"][SENS_REPLICAS],
-        "launches_rows": serve and batching and sv_rows + b_rows,
-        "launches_rows_by_g": sv and batching and {
+        "launches_rows": serve and batching and p12
+        and sv_rows + b_rows + m_rows,
+        "launches_rows_by_g": sv and batching and p12 and {
             g: sum(x["rows"].get(g, 0) for x in sv)
             + batching["launches_rows_by_g"].get(g, 0)
+            + p12["launches_rows_by_g"].get(g, 0)
             for g in sorted({g for x in sv for g in x["rows"]}
-                            | set(batching["launches_rows_by_g"]))},
+                            | set(batching["launches_rows_by_g"])
+                            | set(p12["launches_rows_by_g"]))},
         "phase11_launches_r1": b_r1,
         "phase11_launches_rows": b_rows,
         "phase11_compare_launches_r1": batching
         and batching["compare_launches_r1"],
+        "phase12_launches_r1": m_r1,
+        "phase12_launches_rows": m_rows,
+        "phase12_compare_launches": p12 and p12["compare_launches"],
         "max_abs_err": max(errs) if errs else None,
         "ms": lt and lt["ms"],
         "plain_ms": lt and lt["plain_ms"],

@@ -14,6 +14,8 @@ it imports ``torch`` and numpy, never ``jax`` and never ``pivot_tpu``.
     and the hand-written CUDA kernel's wrapper (``ops/cuda_kernels.py``);
   - ``parallel``: the Monte-Carlo ensemble (faults, congestion,
     checkpoints, the sweeps);
+  - ``serve``, ``mpc``, ``recover``: the online serving layer, its
+    model-predictive controller and its crash-safe recovery plane;
   - ``experiments``: the runner, the CLI (``overall`` through ``search``
     and ``calibrate``), the calibration harness and the trace sampler.
 

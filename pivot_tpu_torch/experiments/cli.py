@@ -64,10 +64,11 @@ coalesce, a Cost-Aware flush one per-row launch of ``greedy_place``; it
 needs ``--device cuda``, refuses ``--workers > 1`` and forces
 ``--no-adaptive``.  ``serve`` (``:1614``) runs the online serving layer,
 with serve spans (``--fuse-spans slo``), ragged span batching (the
-default; ``--no-ragged`` for the A/B) and resident span carries
-(``--resident``, ``--splice-tier``).  The ``worker`` subcommand, the MPC
-(ROADMAP.md Queue 1 item 5), ``--network native``, ``--profile-dir`` and
-the plots are not ported yet (ROADMAP.md, port queue).
+default; ``--no-ragged`` for the A/B), resident span carries
+(``--resident``, ``--splice-tier``) and model-predictive serving
+(``--mpc``).  The ``worker`` subcommand, ``--network native``,
+``--profile-dir`` and the plots are not ported yet (ROADMAP.md, port
+queue).
 
 Usage:
   python -m pivot_tpu_torch.experiments.cli --num-hosts 600 overall \\
@@ -656,15 +657,38 @@ def parse_args(argv=None):
                      help="tier-0 p99 decision-latency target (ms) the "
                           "autoscaler sizes the pool against")
     srv.add_argument("--mpc", action="store_true",
-                     help="model-predictive serving (not ported yet: "
-                          "ROADMAP.md Queue 1 item 5)")
-    srv.add_argument("--mpc-pool", default="", metavar="GMIN:GMAX")
-    srv.add_argument("--mpc-horizon", type=float, default=None)
-    srv.add_argument("--mpc-interval-ms", type=float, default=None)
-    srv.add_argument("--mpc-replicas", type=int, default=None)
-    srv.add_argument("--mpc-max-regret", type=float, default=None)
-    srv.add_argument("--mpc-dry-run", action="store_true")
-    srv.add_argument("--mpc-no-tune", action="store_true")
+                     help="model-predictive serving (pivot_tpu_torch/mpc): "
+                          "a control thread forecasts the arrival "
+                          "stream, scores hold/grow/drain/shed/weight "
+                          "actions with seeded shadow rollouts of the "
+                          "predicted horizon (ONE evaluator call per "
+                          "window, on the card with --device cuda), "
+                          "executes the predicted best, and promotes "
+                          "tuned PolicyWeights through a canary→fleet "
+                          "rollout with automatic SLO rollback")
+    srv.add_argument("--mpc-pool", default="", metavar="GMIN:GMAX",
+                     help="pool bounds the MPC planner moves between "
+                          "(e.g. '1:8'); empty pins the pool at the "
+                          "launch size (plan actions limited to "
+                          "hold/shed/weights)")
+    srv.add_argument("--mpc-horizon", type=float, default=300.0,
+                     help="shadow-rollout horizon (sim seconds) each "
+                          "decision window predicts over")
+    srv.add_argument("--mpc-interval-ms", type=float, default=50.0,
+                     help="wall milliseconds between MPC decision "
+                          "windows")
+    srv.add_argument("--mpc-replicas", type=int, default=4,
+                     help="seeded shadow rollouts per candidate action")
+    srv.add_argument("--mpc-max-regret", type=float, default=1.0,
+                     help="oracle regret gate ($ from the proven "
+                          "optimum) a tuned weight vector must pass "
+                          "before canary eligibility")
+    srv.add_argument("--mpc-dry-run", action="store_true",
+                     help="score and record every MPC window but never "
+                          "actuate — the observe-only A/B arm")
+    srv.add_argument("--mpc-no-tune", action="store_true",
+                     help="disable the background CEM weight tuner "
+                          "(plan pool/shed actions only)")
     srv.add_argument("--trace-out", default="", metavar="PATH",
                      help="write the service's causal trace timeline "
                           "(every job's arrival→completion chain, "
@@ -716,14 +740,6 @@ def parse_args(argv=None):
 #: (Queue 1) items: (attribute, flag, item).
 _SERVE_NOT_PORTED = (
     ("shard_hosts", "--shard-hosts", 9),
-    ("mpc", "--mpc", 5),
-    ("mpc_pool", "--mpc-pool", 5),
-    ("mpc_horizon", "--mpc-horizon", 5),
-    ("mpc_interval_ms", "--mpc-interval-ms", 5),
-    ("mpc_replicas", "--mpc-replicas", 5),
-    ("mpc_max_regret", "--mpc-max-regret", 5),
-    ("mpc_dry_run", "--mpc-dry-run", 5),
-    ("mpc_no_tune", "--mpc-no-tune", 5),
     ("profile_dispatch", "--profile-dispatch", 12),
 )
 
@@ -743,6 +759,16 @@ def _check_serve_args(parser, args) -> None:
             "--closed-loop (the trace/closed-loop jobs would be "
             "silently replaced)"
         )
+    if args.mpc and args.autoscale:
+        parser.error(
+            "--mpc and --autoscale are mutually exclusive: two "
+            "supervisors resizing the same pool would fight (the "
+            "MPC planner subsumes the autoscaler's grow/drain)"
+        )
+    if not args.mpc and (
+        args.mpc_pool or args.mpc_dry_run or args.mpc_no_tune
+    ):
+        parser.error("--mpc-* options require --mpc")
     if args.device == "cuda":
         # Shared-dispatch serving needs deterministic routing: adaptive
         # timing-based twin routing would make batch membership (and, in
@@ -1534,6 +1560,39 @@ def run_serve_stream(args, torch_device: str = "cuda",
         autoscale = AutoscaleConfig(
             g_min=g_min, g_max=g_max, slo_p99_s=args.slo_p99_ms / 1e3,
         )
+    mpc = None
+    if args.mpc:
+        import torch
+
+        from pivot_tpu_torch.mpc import MpcConfig
+
+        if args.mpc_pool:
+            try:
+                mpc_min, mpc_max = (
+                    int(x) for x in args.mpc_pool.split(":")
+                )
+            except ValueError:
+                raise SystemExit(
+                    f"--mpc-pool wants GMIN:GMAX, got {args.mpc_pool!r}"
+                )
+        else:
+            mpc_min = mpc_max = args.sessions
+        tier_weights = _csv(args.tier_mix, float)
+        mpc = MpcConfig(
+            check_interval_s=args.mpc_interval_ms / 1e3,
+            horizon=args.mpc_horizon,
+            n_replicas=args.mpc_replicas,
+            seed=args.seed or 0,
+            g_min=mpc_min,
+            g_max=mpc_max,
+            n_tiers=max(len(tier_weights), 1) if tier_weights else 1,
+            max_regret=args.mpc_max_regret,
+            dry_run=args.mpc_dry_run,
+            tune=not args.mpc_no_tune,
+        )
+        # The planner's evaluator needs full-f32 products (its egress
+        # bill), as ``search`` does: TF32 off for the whole service.
+        torch.backends.cuda.matmul.allow_tf32 = False
     tracer = Tracer() if args.trace_out else None
     registry = (
         MetricsRegistry()
@@ -1548,8 +1607,11 @@ def run_serve_stream(args, torch_device: str = "cuda",
         tier_policies=_csv(args.tier_policies, str),
         routing=args.routing.replace("-", "_"),
         preempt=args.preempt,
-        session_factory=make_session if autoscale else None,
+        session_factory=(
+            make_session if (autoscale or mpc) else None
+        ),
         autoscale=autoscale,
+        mpc=mpc,
         tracer=tracer,
         registry=registry,
         tenant_quota=args.tenant_quota or None,

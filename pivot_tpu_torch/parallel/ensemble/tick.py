@@ -53,7 +53,9 @@ XLA:CPU's (ROADMAP.md Queue 3).
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import threading
 import time
 from typing import Optional
 
@@ -186,33 +188,96 @@ def _pred_lists(pred_group: torch.Tensor) -> torch.Tensor:
     return table.to(pred_group.device)
 
 
+class _SnapshotGraphs:
+    """The captured norm-snapshot graphs of the process, keyed by the
+    operands' layout ``(avail shape, dtype, device, w_norm shape)``.  A
+    rollout checks a graph of its layout out for the whole call
+    (:meth:`take`) and hands it back at its end (:meth:`give`): it runs
+    its chain on the graph's own ``avail`` buffer and copies its
+    exponents into the graph's ``w_norm`` buffer.  A layout with no free
+    graph captures one, so two threads (the MPC's planner and tuner)
+    never share a graph, and a graph captured on one thread (a warm-up
+    before the serving threads start) is replayed on another.  At most
+    :attr:`keep` free graphs are kept (least recently returned dropped
+    first).  :attr:`captures` counts every capture in the process."""
+
+    keep = 8
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._free = collections.OrderedDict()  # (key, id) -> entry
+        self.captures = 0
+
+    def take(self, avail, w_norm):
+        """``(chain buffer, snap, entry)`` for this layout."""
+        key = (tuple(avail.shape), avail.dtype, str(avail.device),
+               None if w_norm is None else tuple(w_norm.shape))
+        with self._lock:
+            slot = next((k for k in self._free if k[0] == key), None)
+            entry = self._free.pop(slot) if slot is not None else None
+        if entry is None:
+            entry = self._capture(key, avail, w_norm)
+        _, buf, w_buf, replay = entry
+        if w_buf is not None:
+            w_buf.copy_(w_norm)
+        return buf, replay, entry
+
+    def give(self, entry) -> None:
+        """Return a graph taken by :meth:`take`."""
+        with self._lock:
+            self._free[(entry[0], id(entry))] = entry
+            while len(self._free) > self.keep:
+                self._free.popitem(last=False)
+
+    def _capture(self, key, avail, w_norm):
+        buf = torch.empty_like(avail)
+        w_buf = None if w_norm is None else w_norm.clone()
+
+        def snap():
+            live = _fma_norms(buf)
+            return live if w_buf is None else xla_pow(live, w_buf)
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            snap()  # warm-up: lazy tables and allocations outside it
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # "thread_local": the serving threads may allocate and read the
+        # card while this thread captures.
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = snap()
+        with self._lock:
+            self.captures += 1
+
+        def replay():
+            graph.replay()
+            return out
+        return key, buf, w_buf, replay
+
+
+SNAPSHOT_GRAPHS = _SnapshotGraphs()
+
+
 def _norm_snapshot(avail, w_norm):
     """The cost-aware chain's per-step host norm term, ``‖avail‖`` (``**
-    w_norm`` with score exponents) of the tensor ``avail``, which the
-    chain updates in place.  On the card its ~90 launches (~390 with the
-    pow twin) are captured once into a CUDA graph and replayed as one:
-    the same kernels on the same buffers, so the same bits, at a fraction
-    of the host's launch time.  Returns ``snap() -> [R, H]`` (on the card
-    the graph's own output buffer, rewritten by the next call)."""
+    w_norm`` with score exponents).  Returns ``(buffer, snap, graph)``:
+    the chain copies its availability into ``buffer``, updates it there
+    in place, and ``snap() -> [R, H]`` reads it.  On the card its ~90
+    launches (~390 with the pow twin) are one CUDA graph replay, the
+    graph checked out of :data:`SNAPSHOT_GRAPHS` (``graph``: hand it back
+    with ``SNAPSHOT_GRAPHS.give`` when the rollout ends; None on the
+    CPU): the same kernels on the same buffers, so the same bits, at a
+    fraction of the host's launch time; ``snap()`` returns the graph's
+    own output buffer, rewritten by the next call."""
+    if avail.is_cuda:
+        return SNAPSHOT_GRAPHS.take(avail, w_norm)
+    buf = avail.clone()
+
     def snap():
-        live = _fma_norms(avail)
+        live = _fma_norms(buf)
         return live if w_norm is None else xla_pow(live, w_norm)
-
-    if not avail.is_cuda:
-        return snap
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        snap()  # warm-up: lazy tables and allocations outside the capture
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = snap()
-
-    def replay():
-        graph.replay()
-        return out
-    return replay
+    return buf, snap, None
 
 
 def _rollout_segment(
@@ -356,7 +421,7 @@ def _rollout_segment(
         return (left & active if active is not None else left).any(1)
 
     alive = pending(stage)
-    snap = None  # the chain's norm snapshot, built on the first tick
+    snap = graph = None  # the chain's norm snapshot, built on first use
     go = n_ticks > 0 and R > 0 and bool(alive.any())
     counts["host_syncs"] += 1
     i = 0
@@ -529,9 +594,8 @@ def _rollout_segment(
             # The chain runs on one buffer for the whole call, the
             # snapshot's input.
             if snap is None:
-                chain_avail = avail.clone()
-                snap = _norm_snapshot(
-                    chain_avail, w_norm if score_params is not None else None)
+                chain_avail, snap, graph = _norm_snapshot(
+                    avail, w_norm if score_params is not None else None)
             avail = chain_avail.copy_(avail)
             norm_snap = zero  # replaced at step 0 (bf_p ≥ 0 > prev_bf)
             prev_bf = torch.full((R,), -1, dtype=torch.int64, device=dev)
@@ -642,4 +706,9 @@ def _rollout_segment(
         counts["ticks"] += 1
         counts["place_steps"] += n_steps
         i += 1
+    if graph is not None:
+        # The chain's buffer belongs to the snapshot graph, which the
+        # next rollout of this layout reuses: the state owns a copy.
+        avail = avail.clone()
+        SNAPSHOT_GRAPHS.give(graph)
     return RolloutState(t, stage, finish, place, avail, busy, q, qpos)

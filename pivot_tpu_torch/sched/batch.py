@@ -1,13 +1,16 @@
 """Cross-run dispatch batching: co-pending ticks of many runs, one flush.
 
-Port of ``pivot_tpu/sched/batch.py`` without the mesh, the dispatch
-profiler and the recovery journal (ROADMAP.md, Queue 1 items 8, 9 and
-12).  G concurrently stepped DES runs — the lock-step grid's runs
-(``experiments.runner.run_grid_lockstep``) or the serving sessions of
-``pivot_tpu_torch.serve`` — submit their placement calls, per-tick
-kernel calls and whole fused spans alike, to a :class:`DispatchBatcher`;
-the coordinator coalesces co-pending calls of one (kernel, shape, static
-config) key into one flush and hands each run back its own row.
+Port of ``pivot_tpu/sched/batch.py`` without the mesh and the dispatch
+profiler (ROADMAP.md, Queue 1 items 9 and 12); with the recovery
+plane's write-ahead journal (``DispatchBatcher(journal=)``: each flush's
+composition is journaled before its first device call, a solo dispatch
+as a one-request flush).  G concurrently stepped DES runs — the
+lock-step grid's runs (``experiments.runner.run_grid_lockstep``) or the
+serving sessions of ``pivot_tpu_torch.serve`` — submit their placement
+calls, per-tick kernel calls and whole fused spans alike, to a
+:class:`DispatchBatcher`; the coordinator coalesces co-pending calls of
+one (kernel, shape, static config) key into one flush and hands each run
+back its own row.
 
 What a flush of G same-key requests runs (:func:`batch_execute`):
 
@@ -301,6 +304,11 @@ class BatchClient:
                 batcher.stats["device_calls"] += 1
                 batcher.stats["single_fast_path"] += 1
         if solo:
+            if batcher._journal is not None:
+                # Write-ahead parity with _flush: a solo dispatch is a
+                # one-request flush and journals as one before the
+                # device call commits it.
+                batcher._journal.append("flush", groups=1, reqs=1)
             return batch_execute(
                 kernel, [(tuple(args), dict(arr_kw or {}))],
                 dict(static_kw or {}), device=batcher.device,
@@ -360,11 +368,13 @@ class DispatchBatcher:
 
     ``ragged=True`` (the default) turns on the ragged span repack
     (module docstring); ``ragged=False`` keeps exact-shape coalescing,
-    the A/B arm.
+    the A/B arm.  ``journal`` (a ``pivot_tpu_torch.recover.Journal``)
+    receives one ``flush`` record per flush before its device calls.
     """
 
     def __init__(self, n_slots: int, flush_after: Optional[float] = None,
-                 tracer=None, device="cuda", ragged: bool = True):
+                 tracer=None, device="cuda", ragged: bool = True,
+                 journal=None):
         if n_slots < 1:
             raise ValueError("DispatchBatcher needs at least one slot")
         if flush_after is not None and flush_after <= 0:
@@ -376,6 +386,11 @@ class DispatchBatcher:
         self.tracer = tracer
         self.device = torch.device(device)
         self._ragged = bool(ragged)
+        #: Write-ahead journal: when the serve driver runs a recovery
+        #: plane, every flush appends a ``flush`` record (groups,
+        #: requests) BEFORE its first device call.  ``None`` (default) =
+        #: no recovery plane, zero cost.
+        self._journal = journal
         self._cond = threading.Condition()
         self._n_slots = n_slots
         self._open = n_slots
@@ -508,6 +523,13 @@ class DispatchBatcher:
             groups: Dict[tuple, List[_Request]] = {}
             for req in batch:
                 groups.setdefault(req.key, []).append(req)
+            if self._journal is not None and batch:
+                # Write-ahead: the flush's composition hits the journal
+                # before its first device call, so a crash mid-flush
+                # leaves a record of what was committed.
+                self._journal.append(
+                    "flush", groups=len(groups), reqs=len(batch),
+                )
             for reqs in groups.values():
                 reqs.sort(key=lambda r: r.slot)
                 calls = (1 if len(reqs) > 1 and reqs[0].kernel in _BATCHED

@@ -524,10 +524,11 @@ class _DevicePolicyBase(Policy):
                                              device=self.device)
         return {"risk_table": rs.risk_table_dev, "risk_seg": seg}
 
-    def _resident_run(self, carry, dem, arrive, k_dyn: int, K: int,
-                      run_kw: dict):
-        """One resident span: the host operands of ``run_kw`` staged with
-        ``dem`` / ``arrive`` in one copy, then
+    def _resident_dispatch(self, carry, dem, arrive, k_dyn: int, K: int,
+                           run_kw: dict):
+        """One resident span (the reference's seam of the same name,
+        ``pivot_tpu/sched/tpu.py:1288``): the host operands of ``run_kw``
+        staged with ``dem`` / ``arrive`` in one copy, then
         :func:`resident_span_run`.  ``carry`` is consumed."""
         host = {k: v for k, v in run_kw.items()
                 if isinstance(v, np.ndarray) and k not in SPAN_HOST_OPERANDS}
@@ -593,8 +594,8 @@ class _DevicePolicyBase(Policy):
                 rs.edit_rows += n
         dem, arrive = self._span_operands(dem_host, plan.arrive, S, B, K)
         ckpt = resident_carry_clone(carry) if rs.splice else None
-        res, rs.carry = self._resident_run(carry, dem, arrive, k_dyn, K,
-                                           {**kw, **edits})
+        res, rs.carry = self._resident_dispatch(carry, dem, arrive, k_dyn,
+                                                K, {**kw, **edits})
         rs.checkpoint = ckpt
         rs.spans += 1
         rs.staging = (
@@ -639,7 +640,7 @@ class _DevicePolicyBase(Policy):
             if key in st["kw"]:
                 kw[key] = st["kw"][key]
         dem, arrive = self._span_operands(dem_host, arrive0, S1, B, K)
-        res, new_carry = self._resident_run(
+        res, new_carry = self._resident_dispatch(
             resident_carry_clone(rs.checkpoint), dem, arrive, k_dyn, K,
             {**kw, **st["edits"]})
         pl = res.placements.cpu().numpy()

@@ -17,8 +17,9 @@ Port of ``pivot_tpu/search/__init__.py``:
     regret against an optimum.
 
 The ``"sharded_rollout"`` fitness backend raises ``NotImplementedError``
-(ROADMAP.md Queue 1 item 9); the model-predictive controller that scores
-through this evaluator is Queue 1 item 5.
+(ROADMAP.md Queue 1 item 9); the model-predictive controller
+(``pivot_tpu_torch.mpc``) scores its action menus through this
+evaluator.
 
 The package ``__init__`` stays import-light on purpose: ``sched``
 imports :class:`PolicyWeights` from here, so the optimizer/fitness stack

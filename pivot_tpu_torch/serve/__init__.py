@@ -17,9 +17,9 @@ SLO-driven autoscaler (:mod:`~pivot_tpu_torch.serve.autoscale`).
 Entry points: ``python -m pivot_tpu_torch.experiments.cli serve`` and the
 classes below.  A served schedule equals the same job set run through
 batch-mode ``ExperimentRun`` (``tests/test_torch_serve.py``).  The
-recovery plane and elastic meshes (``RecoveryConfig``, ``ElasticConfig``,
-``ElasticMeshManager``) are not ported (ROADMAP.md, Queue 1 items 8 and
-9).
+recovery plane's config (``RecoveryConfig``) rides this namespace as in
+the reference; elastic meshes (``ElasticConfig``,
+``ElasticMeshManager``) are not ported (ROADMAP.md, Queue 1 item 9).
 """
 
 from pivot_tpu_torch.serve.admission import (
@@ -41,6 +41,11 @@ from pivot_tpu_torch.serve.autoscale import AutoscaleConfig, SloAutoscaler
 from pivot_tpu_torch.serve.driver import ServeDriver, closed_loop_source
 from pivot_tpu_torch.serve.session import STOP, PreemptRequest, ServeSession
 
+# Crash-safe serving: the recovery plane's config rides the serve
+# namespace so `ServeDriver(recovery=RecoveryConfig(...))` is one import
+# away from the driver it arms.
+from pivot_tpu_torch.recover import RecoveryConfig
+
 __all__ = [
     "ADMITTED",
     "AdmissionQueue",
@@ -48,6 +53,7 @@ __all__ = [
     "BLOCKED",
     "JobArrival",
     "PreemptRequest",
+    "RecoveryConfig",
     "SHED",
     "SPILLED",
     "STOP",

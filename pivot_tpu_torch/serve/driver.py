@@ -53,11 +53,14 @@ batching (``ragged=True``, the default) and the resident pool
 carry, mid-span splices up to ``splice_tier``).  Where the reference
 initialises its backend before any session thread starts, the port
 initialises CUDA and builds and loads ``greedy_place`` on the caller's
-thread (``policy.prepare()``).  Not ported yet, each raising
-``NotImplementedError`` with its ROADMAP.md item (Queue 1): the 2-D mesh
-(``mesh=``, item 9), elastic serving (``elastic=``, item 9), the recovery
-plane (``recovery=``, item 8), the MPC (``mpc=``, item 5) and the
-dispatch profiler (``profiler=``, item 12).
+thread (``policy.prepare()``), and warms the MPC's evaluator graphs up
+there too (``MpcController.warmup``).  The model-predictive controller
+(``mpc=``, ``pivot_tpu_torch.mpc``) and the recovery plane
+(``recovery=``, ``pivot_tpu_torch.recover``) are the reference's.  Not
+ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
+item (Queue 1): the 2-D mesh (``mesh=``, item 9), elastic serving
+(``elastic=``, item 9) and the dispatch profiler (``profiler=``, item
+12).
 """
 
 from __future__ import annotations
@@ -180,8 +183,6 @@ class ServeDriver(LogMixin):
         for value, what, item in (
             (mesh, "the 2-D serving mesh (mesh=)", 9),
             (elastic, "elastic mesh serving (elastic=)", 9),
-            (recovery, "the recovery plane (recovery=)", 8),
-            (mpc, "model-predictive serving (mpc=)", 5),
             (profiler, "the dispatch profiler (profiler=)", 12),
         ):
             if value is not None:
@@ -209,6 +210,17 @@ class ServeDriver(LogMixin):
                 raise ValueError(
                     f"initial pool {len(sessions)} below autoscale.g_min "
                     f"{autoscale.g_min}"
+                )
+        if mpc is not None:
+            if session_factory is None and mpc.g_max > len(sessions):
+                raise ValueError(
+                    "mpc growth (g_max > initial pool) needs a "
+                    "session_factory"
+                )
+            if len(sessions) < mpc.g_min:
+                raise ValueError(
+                    f"initial pool {len(sessions)} below mpc.g_min "
+                    f"{mpc.g_min}"
                 )
         self.sessions = list(sessions)
         #: Observability plane (round 14).  ``tracer`` records the
@@ -255,6 +267,17 @@ class ServeDriver(LogMixin):
         #: a running span (``GlobalScheduler.splice_gate``).
         self.resident = bool(resident)
         self.splice_tier = int(splice_tier)
+        #: Crash-safe serving (``pivot_tpu_torch.recover``): ``recovery``
+        #: is a ``RecoveryConfig`` or None.  None — the default — builds
+        #: nothing and leaves the service bit-identical to the stack
+        #: without it.  A config constructs the plane HERE (its
+        #: write-ahead journal must be open before the first admission);
+        #: the snapshot worker starts/stops inside :meth:`run`.
+        self._recovery = None
+        if recovery is not None:
+            from pivot_tpu_torch.recover import RecoveryPlane
+
+            self._recovery = RecoveryPlane(recovery, tracer=self.tracer)
         self.batcher = None
         self._cv = threading.Condition()
         self._released = 0.0
@@ -292,6 +315,14 @@ class ServeDriver(LogMixin):
         self._retired: List[ServeSession] = []
         self._autoscaler: Optional[SloAutoscaler] = None
         self._watch_stop = threading.Event()
+        #: Model-predictive serving (``pivot_tpu_torch.mpc``): the config
+        #: is an ``MpcConfig`` or None.  ``None`` — the default — never
+        #: imports the package, starts no thread, and leaves the reactive
+        #: driver bit-identical.  The controller is built (and warmed up)
+        #: in :meth:`run` before any serving thread starts, so ``_mpc`` is
+        #: set-once-then-read (no lock).
+        self.mpc = mpc
+        self._mpc = None
         for slot, s in enumerate(self.sessions):
             s._driver = self
             s.slot = slot
@@ -611,6 +642,11 @@ class ServeDriver(LogMixin):
         elif self.resident:
             self._enable_resident(new)
         new._client = client
+        if self._recovery is not None:
+            # Supervisor replacements and MPC / autoscaler growth join the
+            # recovery plane too — a restarted session's spans journal
+            # and snapshot exactly like the original's.
+            new.attach_recovery(self._recovery)
         thread = threading.Thread(
             target=new.loop, args=(client,),
             name=f"serve-{new.label}", daemon=True,
@@ -663,6 +699,19 @@ class ServeDriver(LogMixin):
                 self._restart_session(s, close_client=True)
 
     # -- autoscaler pool surgery -------------------------------------------
+    def policy_pool(self) -> List:
+        """``[(label, policy)]`` snapshot of the active pool (retiring
+        and abandoned excluded) — the MPC rollout's promotion surface.
+        The list is a snapshot; the policy objects are live (attribute
+        swaps via ``Policy.apply_weights`` take effect on the session's
+        next decision)."""
+        with self._cv:
+            return [
+                (s.label, s.policy)
+                for s in self.sessions
+                if not s.retiring and not s.abandoned
+            ]
+
     def pool_size(self) -> int:
         """Sessions currently accepting work (retiring excluded)."""
         with self._cv:
@@ -954,6 +1003,16 @@ class ServeDriver(LogMixin):
 
     def _admit(self, arrival: JobArrival) -> None:
         tier = int(getattr(arrival, "tier", 0))
+        if self._recovery is not None:
+            # Write-ahead: the admission is journaled BEFORE any effect
+            # (gate release, queue offer, routing) — after a crash the
+            # journal tail is exactly the set of arrivals the dead
+            # server had committed to.
+            self._recovery.journal_admit(arrival)
+        if self._mpc is not None:
+            # Forecast tap: sim timestamp + tier, before any admission
+            # verdict — shed/spilled arrivals are still demand.
+            self._mpc.forecaster.observe(arrival.ts, tier)
         if self.tracer.enabled:
             # Trace ids are allocated in admission order (the producer
             # thread is the only allocator), so replaying a seeded
@@ -1116,6 +1175,16 @@ class ServeDriver(LogMixin):
         caller's thread runs the flush coordinator.  Otherwise sessions
         run free (numpy/naive policies have no dispatch to coalesce).
         """
+        if self.mpc is not None:
+            # Imported here, not at module scope: mpc=None serving must
+            # never pay for (or depend on) the search/planner stack.
+            # Built before any thread starts: its warm-up captures the
+            # evaluator's CUDA graphs on this thread, and a failure
+            # leaves nothing running.
+            from pivot_tpu_torch.mpc.controller import MpcController
+
+            self._mpc = MpcController(self, self.mpc)
+            self._mpc.warmup()
         # Setup under the cv: no session/producer/watchdog thread
         # exists yet, so the lock is uncontended — holding it keeps the
         # thread-guard discipline checkable instead of exempting run()
@@ -1143,11 +1212,19 @@ class ServeDriver(LogMixin):
                     tracer=self.tracer,
                     device=self.sessions[0].policy.device,
                     ragged=self.ragged,
+                    journal=(
+                        self._recovery.journal
+                        if self._recovery is not None else None
+                    ),
                 )
                 clients = [self.batcher.client() for _ in self.sessions]
                 for s, c in zip(self.sessions, clients):
                     s.policy.enable_batching(c)
                 self.slo.attach_dispatch_stats(self.batcher.stats)
+            if self._recovery is not None:
+                self._recovery.start()
+                for s in self.sessions:
+                    s.attach_recovery(self._recovery)
             for s, c in zip(self.sessions, clients):
                 s._client = c
                 thread = threading.Thread(
@@ -1167,6 +1244,8 @@ class ServeDriver(LogMixin):
         if self.autoscale is not None:
             self._autoscaler = SloAutoscaler(self, self.autoscale)
             self._autoscaler.start()
+        if self._mpc is not None:
+            self._mpc.start()
         producer = threading.Thread(
             target=self._produce, args=(arrivals, pace),
             name="serve-producer", daemon=True,
@@ -1199,6 +1278,13 @@ class ServeDriver(LogMixin):
             watchdog.join()
         if self._autoscaler is not None:
             self._autoscaler.stop()
+        if self._mpc is not None:
+            self._mpc.stop()
+        if self._recovery is not None:
+            # Drain the pending snapshot and fsync the journal tail —
+            # runs on the error path too (the whole point is that the
+            # journal is trustworthy after ANY exit).
+            self._recovery.stop()
         with self._cv:
             errors = self._errors + [
                 s.error
@@ -1242,13 +1328,33 @@ class ServeDriver(LogMixin):
                 registry.set(
                     "pivot_autoscale_actions_total", n, action=action
                 )
+        if self._mpc is not None:
+            registry.counter(
+                "pivot_mpc_actions_total",
+                "mpc planner actions (hold/grow/drain/shed/canary)",
+                labelnames=("action",),
+            )
+            for action, n in self._mpc.action_counts().items():
+                registry.set("pivot_mpc_actions_total", n, action=action)
+            registry.counter(
+                "pivot_mpc_stage_events_total",
+                "mpc rollout stage transitions",
+                labelnames=("stage",),
+            )
+            stages: Dict[str, int] = {}
+            for evt in list(self._mpc.rollout.events):
+                stages[evt["stage"]] = stages.get(evt["stage"], 0) + 1
+            for stage, n in stages.items():
+                registry.set("pivot_mpc_stage_events_total", n, stage=stage)
         for s in sessions:
             s.meter.publish_metrics(registry, run=s.label)
+        if self._recovery is not None:
+            self._recovery.publish(registry)
         return registry.to_json()
 
     def report(self) -> dict:
-        """The service report, with the reference's keys; the features
-        not ported report off (no mesh, no MPC, no recovery plane)."""
+        """The service report, with the reference's keys; the mesh, not
+        ported, reports off."""
         return {
             "sessions": len(self.sessions),
             "backpressure": self.queue.policy,
@@ -1285,8 +1391,15 @@ class ServeDriver(LogMixin):
                 }
                 if self._autoscaler is not None else None
             ),
-            "mpc": None,
-            "recovery": None,
+            "mpc": (
+                self._mpc.summary() if self._mpc is not None else None
+            ),
+            # Recovery plane: journal / snapshot / watchdog state when
+            # crash-safety is armed; None = the stack without it.
+            "recovery": (
+                self._recovery.summary()
+                if self._recovery is not None else None
+            ),
             "slo": self.slo.snapshot(),
             "batcher": dict(self.batcher.stats) if self.batcher else None,
             "per_session": [

@@ -29,9 +29,8 @@ Two serving-specific couplings:
     of the arrival stream and every later job would slip.
 
 Port of ``pivot_tpu/serve/session.py``, with serve spans
-(``fuse_spans="slo"``, ``:93-121``, ``:174-190``, ``:251-296``).  The
-recovery plane's hooks (``attach_recovery``) are not ported (ROADMAP.md,
-Queue 1 item 8).
+(``fuse_spans="slo"``, ``:93-121``, ``:174-190``, ``:251-296``) and the
+recovery plane's hooks (``attach_recovery``, ``:298-366``).
 """
 
 from __future__ import annotations
@@ -133,6 +132,7 @@ class ServeSession(LogMixin):
         self._injected: List = []  # every app ever injected, in order
         self._driver = None  # attached by ServeDriver
         self._client = None  # this session's BatchClient (driver-owned)
+        self._recovery = None  # RecoveryPlane (driver-owned)
         self.slot = -1
         #: Supervisor liveness: wall clock of the last event-kernel step
         #: (or inbox wait) — the stall watchdog's heartbeat.
@@ -279,6 +279,72 @@ class ServeSession(LogMixin):
             return out
 
         self.policy.place_span = timed_place_span
+
+    def attach_recovery(self, plane) -> None:
+        """Wire the serve recovery plane into this session's
+        dispatch path.  Three hooks, each honoring the write-ahead
+        contract:
+
+          * a ``span`` journal record is appended BEFORE each
+            ``place_span`` dispatch, a ``splice`` record before each
+            ``span_splice`` — the decision is durable-before-effective;
+          * the snapshot cadence tap fires AFTER a span dispatch
+            returns — the pending carry is the previous span's OUTPUT,
+            the same safe window (before the next span consumes it) the
+            resident mirror-diff reads in;
+          * when the plane's watchdog is armed
+            (``RecoveryConfig.dispatch_timeout_s``), the dispatch runs
+            under its timeout + capped deterministic-backoff retries.
+
+        Installed by the driver AFTER the session's own SLO taps, so
+        the journal wraps the outermost dispatch surface — the latency
+        the taps measure includes any watchdog retries, which is the
+        latency the caller really experienced."""
+        self._recovery = plane
+        armed = plane.config.dispatch_timeout_s is not None
+        orig_span = getattr(self.policy, "place_span", None)
+        if orig_span is not None:
+
+            def recovered_place_span(ctx, plan, _orig=orig_span):
+                plane.journal_span(
+                    self.label, ctx.env_now, plan.n_ticks,
+                    len(plan.slots),
+                )
+                if armed:
+                    out = plane.watchdog.guard(
+                        lambda: _orig(ctx, plan),
+                        key=f"{self.label}:span",
+                    )
+                else:
+                    out = _orig(ctx, plan)
+                if out is not None:
+                    plane.note_span(self.policy)
+                return out
+
+            self.policy.place_span = recovered_place_span
+        orig_splice = getattr(self.policy, "span_splice", None)
+        if orig_splice is not None:
+
+            def recovered_span_splice(ctx, plan, k, new_tasks,
+                                      _orig=orig_splice):
+                plane.journal_splice(
+                    self.label, ctx.env_now, k, len(new_tasks)
+                )
+                out = _orig(ctx, plan, k, new_tasks)
+                if out is not None:
+                    plane.note_splice()
+                return out
+
+            self.policy.span_splice = recovered_span_splice
+        if armed:
+            orig_place = self.policy.place
+
+            def guarded_place(ctx, _orig=orig_place):
+                return plane.watchdog.guard(
+                    lambda: _orig(ctx), key=f"{self.label}:place",
+                )
+
+            self.policy.place = guarded_place
 
     # -- driver-facing ----------------------------------------------------
     def offer(self, arrival: JobArrival) -> None:

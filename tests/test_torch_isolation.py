@@ -8,14 +8,15 @@ runner, ``sweeps.py``), a tiny ``calibrate``, a one-generation CEM
 ``search`` (fitness, optimizer, held-out seeds, oracle, DES validation),
 the market-replay tool, the workload generators, a tiny ``serve``
 (two sessions on the dispatch batcher, with tiers and the metrics
-registry), a lock-step ``overall --batch-runs 2``, and ``serve`` with
+registry), a lock-step ``overall --batch-runs 2``, ``serve`` with
 serve spans (``--fuse-spans slo``) and resident carries (``--resident
---splice-tier 1``) on the CPU, imports the trace converter and sampler,
-and lists what is in ``sys.modules``.  A static AST scan covers every file of the
+--splice-tier 1``), ``serve --mpc`` with one planner window scored, and
+a resident serve with the recovery plane armed, on the CPU, imports the
+trace converter and sampler, and lists what is in ``sys.modules``.  A static AST scan covers every file of the
 package — ``serve/``, ``sched/batch.py``, ``obs/``, ``search/``,
 ``experiments/search.py``, ``experiments/spot.py``,
-``experiments/sample.py``, ``workload/``, ``parallel/ensemble/`` and
-``tools/`` among them — and ``chip_smoke.py``.
+``experiments/sample.py``, ``workload/``, ``parallel/ensemble/``,
+``mpc/``, ``recover/`` and ``tools/`` among them — and ``chip_smoke.py``.
 """
 
 import ast
@@ -84,6 +85,34 @@ with tempfile.TemporaryDirectory() as out:
          "2", "--jobs", "6", "--arrival-rate", "5", "--fuse-spans", "slo",
          *extra]), torch_device="cpu")
         for extra in ((), ("--resident", "--splice-tier", "1"))]
+    mpc = cli.run_serve_stream(cli.parse_args(
+        ["--num-hosts", "8", "--output-dir", out, "serve", "--sessions",
+         "1", "--jobs", "8", "--arrival-rate", "2.5", "--tier-mix",
+         "0.4,0.3,0.3", "--mpc", "--mpc-pool", "1:2"]), torch_device="cpu")
+    from pivot_tpu_torch.mpc import forecast, planner
+    from pivot_tpu_torch.search.weights import DEFAULT_WEIGHTS
+    from pivot_tpu_torch.serve import (
+        RecoveryConfig, ServeDriver, ServeSession, poisson_arrivals)
+    from pivot_tpu_torch.utils.config import (
+        ClusterConfig, PolicyConfig, build_cluster, make_policy)
+    tpl = build_cluster(ClusterConfig(n_hosts=6, seed=1))
+    env, _, tiers = forecast.render_env(
+        forecast.TierForecast((0.05, 0.0, 0.0), (1.0, 0.0, 0.0), 4, 60.0),
+        cluster=tpl, market=market.MarketSchedule.generate(
+            tpl.meta, seed=1, horizon=60.0),
+        horizon=60.0, seed=1, n_replicas=2, n_apps=2, device="cpu")
+    window = planner.plan(planner.enumerate_actions(
+        1, g_min=1, g_max=2, incumbent=DEFAULT_WEIGHTS), env, tiers, 1)
+    drv = ServeDriver(
+        [ServeSession("s0", build_cluster(ClusterConfig(n_hosts=6, seed=0)),
+                      make_policy(PolicyConfig(
+                          name="cost-aware", device="cuda", adaptive=False,
+                          bin_pack="first-fit", sort_tasks=True,
+                          sort_hosts=True), torch_device="cpu"),
+                      seed=0, fuse_spans="slo")],
+        resident=True, splice_tier=1,
+        recovery=RecoveryConfig(directory=out + "/rec", snapshot_every=1))
+    rec = drv.run(poisson_arrivals(5.0, 6, seed=0))
 print(json.dumps({
     "arms": [s["label"] for s in summaries],
     "ensemble_unfinished": ens["unfinished_max"],
@@ -102,6 +131,10 @@ print(json.dumps({
     "span_serve_completed": [r["slo"]["counters"]["completed"]
                              for r in spans],
     "span_serve_resident": [r["resident"] for r in spans],
+    "mpc_observed": mpc["mpc"]["forecast"]["n_observed"],
+    "mpc_window_slots": len(window.objectives),
+    "recovery_completed": rec["slo"]["counters"]["completed"],
+    "recovery_journal": rec["recovery"]["journal"]["records"],
     "modules": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "pivot_tpu")),
 }))
@@ -137,6 +170,10 @@ def test_port_runs_without_jax_or_reference_modules():
     assert report["lockstep_runs"] == 6
     assert report["span_serve_completed"] == [6, 6]
     assert report["span_serve_resident"] == [False, True]
+    assert report["mpc_observed"] == 8
+    assert report["mpc_window_slots"] == 5
+    assert report["recovery_completed"] == 6
+    assert report["recovery_journal"] > 6
     assert report["modules"] == []
 
 
@@ -195,5 +232,15 @@ def test_no_file_of_the_port_imports_jax_or_reference():
             "pivot_tpu_torch/serve/driver.py",
             "pivot_tpu_torch/serve/session.py",
             "pivot_tpu_torch/obs/registry.py",
-            "pivot_tpu_torch/obs/metrics_http.py"} <= seen
+            "pivot_tpu_torch/obs/metrics_http.py",
+            "pivot_tpu_torch/mpc/__init__.py",
+            "pivot_tpu_torch/mpc/controller.py",
+            "pivot_tpu_torch/mpc/forecast.py",
+            "pivot_tpu_torch/mpc/planner.py",
+            "pivot_tpu_torch/mpc/rollout.py",
+            "pivot_tpu_torch/mpc/tuner.py",
+            "pivot_tpu_torch/recover/__init__.py",
+            "pivot_tpu_torch/recover/journal.py",
+            "pivot_tpu_torch/recover/snapshot.py",
+            "pivot_tpu_torch/recover/watchdog.py"} <= seen
     assert offenders == []

@@ -330,18 +330,27 @@ def test_supervisor_restart_on_fresh_batcher_slot():
     driver.audit()
 
 
-def test_not_ported_options_raise():
+def test_not_ported_options_raise(tmp_path):
     """The options of later slices raise naming their item; the resident
-    pool and serve spans (item 4) are ported and construct
-    (``tests/test_torch_serve_spans.py`` runs them)."""
+    pool and serve spans (item 4), the recovery plane (item 8) and the MPC
+    (item 5) are ported and construct (``tests/test_torch_serve_spans.py``,
+    ``test_torch_recovery.py`` and ``test_torch_mpc.py`` run them)."""
+    from pivot_tpu_torch.mpc import MpcConfig
+
     ss = sessions(pserve, pconfig, numpy_policy, 1)
     for kw, item in ((dict(mesh=object()), "item 9"),
                      (dict(elastic=object()), "item 9"),
-                     (dict(recovery=object()), "item 8"),
-                     (dict(mpc=object()), "item 5"),
                      (dict(profiler=object()), "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             pserve.ServeDriver(ss, **kw)
+    with pytest.raises(TypeError, match="RecoveryConfig"):
+        pserve.ServeDriver(ss, recovery=object())
+    armed = pserve.ServeDriver(
+        ss, mpc=MpcConfig(g_max=1),
+        recovery=pserve.RecoveryConfig(directory=str(tmp_path)))
+    assert armed.report()["recovery"]["journal"]["records"] == 1
+    armed._recovery.stop()
+    assert armed.mpc.g_max == 1 and armed.report()["mpc"] is None
     driver = pserve.ServeDriver(ss, resident=True, splice_tier=1)
     assert driver.report()["resident"] is True
     assert driver.report()["splice_tier"] == 1
@@ -391,7 +400,8 @@ def test_cli_serve_report_has_reference_keys(tmp_path, capsys, extra):
 
 @pytest.mark.parametrize("flags,item", [
     (["--shard-hosts", "2"], "item 9"),
-    (["--mpc"], "item 5"), (["--mpc-dry-run"], "item 5"),
+    (["--mpc", "--autoscale", "1:2"], "mutually exclusive"),
+    (["--mpc-dry-run"], "require --mpc"),
     (["--profile-dispatch", "4"], "item 12")])
 def test_cli_serve_not_ported_flags_exit_naming_item(flags, item, capsys):
     from pivot_tpu_torch.experiments import cli as pcli

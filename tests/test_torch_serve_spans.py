@@ -16,6 +16,8 @@ throughout.
 
 from __future__ import annotations
 
+import threading
+
 import pytest
 import torch
 
@@ -36,6 +38,19 @@ CA = dict(name="cost-aware", bin_pack="first-fit", sort_tasks=True,
           sort_hosts=True)
 #: A span-heavy stream: co-pending spans of different horizons.
 HEAVY = dict(n_jobs=30, rate=25.0)
+
+
+@pytest.fixture(autouse=True)
+def _join_threads():
+    """Every thread a test starts (either package's sessions, producer
+    and batcher) has ended when the test ends: a reference thread left
+    running would compile JAX programs inside a later test's window."""
+    before = set(threading.enumerate())
+    yield
+    left = [t for t in threading.enumerate() if t not in before]
+    for t in left:
+        t.join(timeout=30.0)
+    assert not [t.name for t in left if t.is_alive()]
 
 
 @pytest.fixture
