@@ -8,9 +8,13 @@
     python3 chip_smoke.py --phases 10  # serving and the per-row launch
     python3 chip_smoke.py --phases 11  # cross-run batching of spans
     python3 chip_smoke.py --phases 12  # serve --mpc and the recovery plane
+    python3 chip_smoke.py --phases 13  # native fabric, degrade guard,
+                                       # dispatch profiler, --profile-dir
 
-One card.  ``--phases`` takes a comma list; phases 2-5 and 10-12 bring
-phase 1's build along, phase 5 the runs of phases 3 and 4.
+One card.  ``--phases`` takes a comma list; phases 2-5 and 10-13 bring
+phase 1's build along, phase 5 the runs of phases 3 and 4, phase 13
+phase 3's run (its python-fabric arms are what the native fabric is held
+against).
 
 Phases, each fatal on failure:
 
@@ -80,7 +84,7 @@ Phases, each fatal on failure:
      apps, R = 1024, both arms — wall, replica rollouts/s, ticks,
      placement steps, host reads, CUDA-event ms of the tick loop, peak
      memory, its first 16 replicas equal to the R = 16 run; a
-     ``torch.profiler`` window of ticks 600-650 per arm; the cost-aware
+     ``torch.profiler`` window of ticks 300-350 per arm; the cost-aware
      run's first 2 replicas against the port on the CPU; best-fit,
      opportunistic and lifo at 10 apps, card against CPU.  Placements,
      finish times, makespans, instance-hours and unfinished counts must
@@ -91,15 +95,15 @@ Phases, each fatal on failure:
      fault rollouts at 50 apps, R = 16; ``score_param_sweep``,
      ``capacity_sweep`` with faults and ``workload_sweep`` (three arms)
      at 10 apps, R = 4 — under torch's sync debug mode; (b) the
-     README's commands at 600 hosts through the CLI: ``autotune`` at
-     its defaults (27 candidates × 32 replicas), ``ensemble --replicas
-     256 --faults 4 --fault-mttr 300`` (cost-aware, first-fit),
-     ``capacity --host-counts 100 200 400 600 --faults 4 --fault-mttr
-     300`` (both at 25 apps, cut from 50) and ``apps --app-counts 10
-     15`` (cut from 100 500 1000) —
+     README's commands at 600 hosts through the CLI: ``autotune
+     --replicas 4`` (27 candidates × 4 replicas, cut from its default
+     32), ``ensemble --replicas 256 --faults 4 --fault-mttr 300``
+     (cost-aware, first-fit), ``capacity --host-counts 100 200 400 600
+     --faults 4 --fault-mttr 300`` (both at 25 apps, cut from 50) and
+     ``apps --app-counts 10 15`` (cut from 100 500 1000) —
      wall, rollouts/s, ticks, placement steps, host reads, CUDA-event
      ms, peak memory and the summary's best; with phase 6, autotune's
-     (1, 1, 1) candidate against phase 6's first 32 replicas; (c) the
+     (1, 1, 1) candidate against phase 6's first 4 replicas; (c) the
      card against the port on the CPU at 10 apps: best-fit, lifo, and
      the search stack's channels (score exponents, a
      ``MarketSchedule.generate`` market's risk term, faults, an active
@@ -117,7 +121,8 @@ Phases, each fatal on failure:
      with the DES validation), the same world with ES (88 rows), the
      committed ``data/search/ci_seed.json`` twice (the reports must be
      equal) and the 10,240-row population (64 candidates x 160
-     replicas) at 600 hosts x 50 apps, 1 generation — wall,
+     replicas) at 600 hosts x 50 apps, 1 generation, horizon 1200 s
+     (cut from 2400) — wall,
      generations/s, rollouts/s, the slowest generation's ticks,
      placement steps and host reads, CUDA-event ms, peak memory, the
      best against the initial score and the oracle's regrets — and two
@@ -226,12 +231,54 @@ Phases, each fatal on failure:
      run decides as the no-fault run.  Every ``greedy_place`` launch of
      every run is held against ``cost_aware_plain`` /
      ``cost_aware_plain_rows`` (the batcher's one-request calls, the
-     coalesced per-row launches and the resident tier's calls).
+     coalesced per-row launches and the resident tier's calls);
+ 13. the native network fabric, the degrade guard, the sampled dispatch
+     profiler and ``--profile-dir`` on the card, at the CLI default
+     cluster (600 hosts, seed 0): (a) ``overall --network native`` on
+     cuda with fused spans, the three arms at phase 3's depth on its
+     trace, against phase 3's python-fabric cuda run — ``sim_time``
+     within rel 1e-12, ``avg_runtime``, ``egress_cost`` and
+     ``avg_congestion_delay`` within rel 1e-9
+     (``tests/test_native.py``'s tolerances), whether each arm's
+     ``general.json`` is byte-equal, and each arm's wall and host ms per
+     tick on each fabric (the run's wall less the host-clock time inside
+     the policy's device calls, over the ticks that reached the policy);
+     (b) the degrade guard refused on the card: every device policy
+     built on ``cuda`` raises ``NotImplementedError`` for
+     ``degrade_after=2``, at construction and through the setter, and a
+     Cost-Aware and a First-Fit run (600 hosts, phase 3's trace,
+     per-tick dispatch) whose kernel entry point raises on call
+     ``P13_FAULT_AT`` end with that error, no tick served by the numpy
+     twin, the ticks before it equal to the run with no faults; (c)
+     phase 10's README serve command with ``--profile-dispatch 4`` and
+     without: decisions equal, the census listing each family's calls,
+     samples, median wall and median measured/predicted ratio, the
+     sampled call numbers equal to ``sampled_indices``, beside the
+     phase's own CUDA-event ``kernel_ms`` of the same launches; (d) the
+     README's ``--network native --profile-dir DIR overall``, three arms
+     at 8 apps (three profiler sessions one after another, late in this
+     process: a trace's first kernel records go missing, the more the
+     older the process, unless ``device_profile``'s synchronised warm-up
+     opens the window): every trace holds a kernel record for each
+     kernel launch after the warm-up, and the Cost-Aware trace the
+     ``greedy_place`` kernel by name, as many as the run's launches.
+     Every ``greedy_place`` launch of the phase is held against its
+     plain version.
+
+The CPU sides of the card-vs-CPU checks of phases 6 (b) and (d), 7 (c),
+8 (c) and 9 (c) run in one spawned worker process a phase
+(``cpu_side``), on two cores of the host's eight that the main process
+leaves while the phase runs: the card's host loop and the phase's timed
+windows keep the other six to themselves.
+
+Every phase asserts, at its end, that every device policy it built runs
+with the degrade guard off (``degrade_after is None``) and recorded no
+kernel failure: no failure is served by the numpy twin unseen.
 
 Each phase logs its wall.  The line before the last is a JSON
 ``kernels`` record (its ``launches`` split into the R = 1 launches of
-phases 3, 4, 10-12, the R = 256 launches of phase 4 and the per-row
-launches of phases 10-12, with the per-row form's times; a number
+phases 3, 4, 10-13, the R = 256 launches of phase 4 and the per-row
+launches of phases 10-13, with the per-row form's times; a number
 of a phase not run is null); the
 last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
@@ -258,10 +305,8 @@ import warnings
 import numpy as np
 import torch
 
-#: H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): f32 outside the
-#: tensor cores, and HBM3 bandwidth.
-PEAK_F32_OPS = 67e12
-PEAK_BYTES = 3.35e12
+from pivot_tpu_torch.infra.roofline import PEAK_BYTES, PEAK_F32_OPS
+
 RTOL, ATOL = 1e-6, 1e-5  # tests/test_pallas.py's tolerance
 Z = 31
 MODES = [
@@ -803,15 +848,50 @@ class SpanReferee:
     __exit__ = SpanMeter.__exit__
 
 
+def time_device_calls(policy) -> dict:
+    """Wrap ``policy``'s device calls (``place``, ``place_span``) in
+    host-clock timers: the returned dict holds their summed seconds
+    (each call's fetch included, so its device work too) and the number
+    of per-tick calls."""
+    acc = dict(seconds=0.0, place_calls=0)
+    for name in ("place", "place_span"):
+        orig = getattr(policy, name, None)
+        if orig is None:
+            continue
+
+        def timed(*a, _orig=orig, _tick=name == "place", **k):
+            t0 = time.perf_counter()
+            try:
+                return _orig(*a, **k)
+            finally:
+                acc["seconds"] += time.perf_counter() - t0
+                acc["place_calls"] += _tick
+
+        setattr(policy, name, timed)
+    return acc
+
+
+def host_ms_per_tick(summary, acc) -> dict:
+    """Host ms per tick of one run: its wall less the host-clock time
+    inside the policy's device calls, over the ticks that reached the
+    policy (per-tick calls + ticks replayed from fused spans)."""
+    ticks = acc["place_calls"] + summary["spans"]["fused_ticks"]
+    host_s = summary["wall_clock"] - acc["seconds"]
+    return dict(wall_s=summary["wall_clock"], device_call_s=acc["seconds"],
+                ticks=ticks, host_ms_per_tick=host_s * 1e3 / max(ticks, 1))
+
+
 def run_cli(cli, argv, device, fuse):
     """``run_overall`` on ``argv`` with fused spans on or off; returns
     ``(exp_dir, summaries, runs)`` — the ``ExperimentRun`` objects keep
-    every task's placement."""
+    every task's placement, and each carries ``device_calls``, its
+    policy's :func:`time_device_calls` timers."""
     runs, build = [], cli._build_run
 
     def build_run(spec):
         run = build(spec)
         run.fuse_spans = fuse
+        run.device_calls = time_device_calls(run.policy)
         runs.append(run)
         return run
 
@@ -952,7 +1032,10 @@ def phase_end_to_end(device, n_hosts=600, n_apps=E2E_APPS):
             check_outputs(exp_dir)
             runs[name] = dict(wall=wall, launches=launches, dir=exp_dir,
                               objs=objs, spans=meter.by_arm(),
-                              arms={s["label"]: s for s in summaries})
+                              arms={s["label"]: s for s in summaries},
+                              host={s["label"]: host_ms_per_tick(
+                                  s, r.device_calls)
+                                  for s, r in zip(summaries, objs)})
         cuda, numpy_ = runs["cuda"]["arms"], runs["numpy"]["arms"]
         for name in ("cuda", "cuda_off"):
             ca = runs[name]["arms"]["Cost-Aware"]["dispatch"]
@@ -990,6 +1073,12 @@ def phase_end_to_end(device, n_hosts=600, n_apps=E2E_APPS):
         res["same_files"] = compare_outputs(
             runs["cuda"]["dir"], runs["cuda_off"]["dir"], runs["cuda"]["objs"],
             runs["cuda_off"]["objs"])
+        # Phase 13 holds the native fabric against this run's files.
+        runs["cuda"]["general"] = {}
+        for arm in ARMS:
+            with open(os.path.join(runs["cuda"]["dir"], "data", "0", arm,
+                                   "general.json"), "rb") as f:
+                runs["cuda"]["general"][arm] = f.read()
         for r in runs.values():
             r.pop("objs")
         res["runs"] = runs
@@ -1326,7 +1415,13 @@ def bound(args, kw, R, n_eff):
     per entry each), then per host and replica the fit test, select and
     min (6) every step, plus the first-fit group score at each group
     entry (10, +1 decay, +1 risk) or the best-fit score every step (15,
-    +2 decay, +1 risk)."""
+    +2 decay, +1 risk).
+
+    This is PERF.md's bound of a kernel — what the function must move and
+    compute on its actual inputs — not ``infra/roofline.py``'s
+    ``placement_cost``, the dispatch profiler's trend-level work model of
+    a placement call; the two share only the peak constants, which live
+    in ``infra/roofline.py``."""
     avail, dem, ng, cost_zz = args[0], args[1], args[3], args[5]
     H, T, nz = avail.shape[-2], dem.shape[0], cost_zz.shape[0]
     first_fit = kw.get("bin_pack", "first-fit") == "first-fit"
@@ -1522,7 +1617,95 @@ def _result(res) -> dict:
     return {f: getattr(res, f).cpu().numpy() for f in res._fields}
 
 
-def ensemble_profile(on_card, args, key, policy, skip=600, window=50):
+def cpu_side_cores(cores) -> tuple:
+    """``(worker's, main process's)`` cores for ``cpu_side``: the last
+    quarter of ``cores`` (at least one) for the worker, the rest for the
+    main process; both all of them on a one-core host."""
+    cores = sorted(cores)
+    n = max(1, len(cores) // 4) if len(cores) > 1 else 0
+    return (set(cores[-n:]) if n else set(cores),
+            set(cores[:-n]) if n else set(cores))
+
+
+def set_process_affinity(cpus) -> None:
+    """Every thread of this process onto ``cpus`` (``sched_setaffinity``
+    of pid 0 moves only the calling thread)."""
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            os.sched_setaffinity(int(tid), cpus)
+        except OSError:  # a thread that has ended
+            pass
+
+
+def _cpu_side_init(cpus, n_threads) -> None:
+    set_process_affinity(cpus)
+    torch.set_num_threads(n_threads)
+
+
+@contextlib.contextmanager
+def cpu_side(jobs):
+    """The CPU sides of a phase's card-vs-CPU checks in one spawned worker
+    process: it runs the port on the CPU while the card runs the phase's
+    other work (those CPU runs took ~40% of phases 6-9's walls, one after
+    another with the card's).  ``jobs`` are ``(function, *args)`` tuples
+    of top-level functions; yields their futures, in order; the block's
+    end waits for (and stops) the worker.  The worker runs on its own
+    cores (``cpu_side_cores``: 2 of 8) and the main process keeps off
+    them until the block ends, so the card's host loop and the timed
+    windows of the block do not share a core with it.  It keeps the main
+    process's torch thread count, so the CPU side's results stay as they
+    were, and its OpenMP threads wait passively (``OMP_WAIT_POLICY``,
+    read when the worker starts) on its two cores."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    cores = os.sched_getaffinity(0)
+    side, main_cores = cpu_side_cores(cores)
+    old = os.environ.get("OMP_WAIT_POLICY")
+    os.environ["OMP_WAIT_POLICY"] = "PASSIVE"
+    try:
+        pool = cf.ProcessPoolExecutor(
+            max_workers=1, mp_context=mp.get_context("spawn"),
+            initializer=_cpu_side_init,
+            initargs=(side, torch.get_num_threads()))
+        # A spawn-context pool starts its worker inside the first submit.
+        futures = [pool.submit(fn, *args) for fn, *args in jobs]
+    finally:
+        if old is None:
+            os.environ.pop("OMP_WAIT_POLICY")
+        else:
+            os.environ["OMP_WAIT_POLICY"] = old
+    set_process_affinity(main_cores)
+    try:
+        with pool:
+            yield futures
+    finally:
+        set_process_affinity(cores)
+
+
+def cpu_rollout(n_apps, policy, kw) -> tuple:
+    """``rollout`` of the ``ensemble`` defaults' inputs (``n_apps`` apps)
+    on the port on the CPU: ``(result, seconds)`` (the worker's side of
+    phase 6 (b) and (d))."""
+    from pivot_tpu_torch.experiments import cli
+    from pivot_tpu_torch.parallel.ensemble import prng, rollout
+
+    args, on_cpu = ensemble_inputs(cli, "cpu", n_apps=n_apps)
+    t0 = time.perf_counter()
+    res = _result(rollout(prng.PRNGKey(args.seed), *on_cpu, policy=policy,
+                          **kw))
+    return res, time.perf_counter() - t0
+
+
+#: Phase 6 (e): the profiled window's first tick (cut from 600 to 300 for
+#: phase 13: the unprofiled ticks before it are walked again for each
+#: arm) and its length.
+ENS_PROFILE_SKIP = 300
+ENS_PROFILE_WINDOW = 50
+
+
+def ensemble_profile(on_card, args, key, policy, skip=ENS_PROFILE_SKIP,
+                     window=ENS_PROFILE_WINDOW):
     """Device time by operator over ``window`` ticks of the R = 1024 tick
     loop, after ``skip`` unprofiled ticks (the middle of the run, where
     the cluster is loaded), by ``torch.profiler``: the window's host wall
@@ -1594,6 +1777,26 @@ def phase_ensemble(device):
               max_ticks=args.max_ticks, perturb=args.perturb,
               tick_order=args.tick_order)
     key = prng.PRNGKey(args.seed)
+    jobs = [(cpu_rollout, None, "cost-aware",
+             dict(kw, n_replicas=ENS_CPU_REPLICAS))]
+    jobs += [(cpu_rollout, 10, arm,
+              dict(kw, tick_order=order, n_replicas=ENS_SMALL_REPLICAS))
+             for arm, order in ENS_SMALL]
+    with cpu_side(jobs) as futures:
+        cpu_b, *rest = futures
+        return _phase_ensemble(device, cli, ck, rollout, out, args, on_card,
+                               kw, key, cpu_b, dict(zip(ENS_SMALL, rest)))
+
+
+#: Phase 6 (d): the other arms and lifo, card against CPU.
+ENS_SMALL = (("best-fit", "fifo"), ("opportunistic", "fifo"),
+             ("cost-aware", "lifo"), ("first-fit", "lifo"))
+
+
+def _phase_ensemble(device, cli, ck, rollout, out, args, on_card, kw, key,
+                    cpu_b, cpu_d):
+    """Phase 6 after its inputs, the CPU sides of (b) and (d) running on
+    the worker (``cpu_b``, ``cpu_d``: futures)."""
     # The refund sums each host's retiring tasks in task-index order: the
     # trace's demands are not integers, so that order must hold on the
     # card too (index_put_ with accumulate: sort by row, then one
@@ -1707,7 +1910,8 @@ def phase_ensemble(device):
             log(f"  (e) {arm}: torch.profiler recorded no device time: "
                 "not measured")
             continue
-        log(f"  (e) {arm} R={ENS_REPLICAS}, ticks 600-{600 + prof['ticks']}"
+        log(f"  (e) {arm} R={ENS_REPLICAS}, ticks {ENS_PROFILE_SKIP}-"
+            f"{ENS_PROFILE_SKIP + prof['ticks']}"
             f" under torch.profiler: {prof['wall_ms']!r} ms of host wall "
             f"(profiler overhead included), device busy "
             f"{prof['device_busy_ms']!r} ms = {prof['busy_share']!r} of it, "
@@ -1716,11 +1920,7 @@ def phase_ensemble(device):
                 for r in prof["top"]))
 
     # (b) the first replicas against the port on the CPU (prefix-stable).
-    _, on_cpu = ensemble_inputs(cli, "cpu")
-    t0 = time.perf_counter()
-    cpu_res = _result(rollout(key, *on_cpu, policy="cost-aware",
-                              **dict(kw, n_replicas=ENS_CPU_REPLICAS)))
-    cpu_s = time.perf_counter() - t0
+    cpu_res, cpu_s = cpu_b.result()
     worst = ensemble_compare(card16["cost-aware"], cpu_res,
                              f"(b) cost-aware card R={ENS_CPU_REPLICAS} vs "
                              "the port on the CPU", rows=ENS_CPU_REPLICAS)
@@ -1732,16 +1932,13 @@ def phase_ensemble(device):
 
     # (d) the other arms and lifo, card vs CPU, at 10 apps.
     _, small_card = ensemble_inputs(cli, device, n_apps=10)
-    _, small_cpu = ensemble_inputs(cli, "cpu", n_apps=10)
-    for arm, order in (("best-fit", "fifo"), ("opportunistic", "fifo"),
-                       ("cost-aware", "lifo"), ("first-fit", "lifo")):
+    for arm, order in ENS_SMALL:
         kw10 = dict(kw, tick_order=order, n_replicas=ENS_SMALL_REPLICAS)
         st = {}
         got = _result(rollout(key, *small_card, policy=arm, stats=st,
                               **kw10))
-        worst = ensemble_compare(got, _result(rollout(
-            key, *small_cpu, policy=arm, **kw10)),
-            f"(d) {arm} {order} card vs CPU at 10 apps")
+        worst = ensemble_compare(got, cpu_d[arm, order].result()[0],
+                                 f"(d) {arm} {order} card vs CPU at 10 apps")
         if got["n_unfinished"].max() != 0:
             raise AssertionError(f"(d) {arm} {order}: tasks unfinished")
         out["checks"][f"{arm}_{order}_10apps"] = dict(max_rel=worst,
@@ -1767,9 +1964,12 @@ SW_APP_COUNTS = (3, 6, 10)
 SW_APP_ARMS = ("opportunistic", "first-fit", "cost-aware")
 #: Phase 7 (b): the README's sweep commands at full width through the CLI
 #: (``apps`` cut from 100 500 1000 apps to 10 15, the faulted ensembles
-#: and ``capacity`` from 50 apps to 25: PERF.md, section 4).
+#: and ``capacity`` from 50 apps to 25, ``autotune``'s replicas a
+#: candidate from 32 to ``SW_AUTOTUNE_REPLICAS``: PERF.md, section 4).
+SW_AUTOTUNE_REPLICAS = 4
 SW_MAIN = (
-    ("autotune", "run_autotune", ["autotune"]),
+    ("autotune", "run_autotune",
+     ["autotune", "--replicas", str(SW_AUTOTUNE_REPLICAS)]),
     ("ensemble-faults cost-aware", "run_ensemble",
      ["ensemble", "--replicas", "256", "--faults", "4", "--fault-mttr",
       "300", "--policy", "cost-aware", "--num-apps", "25"]),
@@ -1954,6 +2154,33 @@ def phase_sweeps(device, ens=None):
 
     out = {"fixture": {}, "runs": {}, "small": {}}
     ck.reset_launches()
+    with cpu_side([(cpu_sw_small, name) for name in SW_SMALL]) as futures:
+        return _phase_sweeps(device, ens, cli, ck, out,
+                             dict(zip(SW_SMALL, futures)))
+
+
+#: Phase 7 (c)'s card-vs-CPU cases (``sw_small``).
+SW_SMALL = ("best-fit apps", "cost-aware lifo score",
+            "first-fit lifo capacity", "cost-aware channels",
+            "first-fit channels", "opportunistic channels")
+
+
+def cpu_sw_small(name) -> tuple:
+    """The CPU side of one phase 7 (c) case, on the port on the CPU (the
+    worker's side): ``(result, seconds)``.  The market's hazard rows are
+    host values, so they equal the card's copied back."""
+    from pivot_tpu_torch.experiments import cli
+
+    args, on_cpu = ensemble_inputs(cli, "cpu", n_apps=SW_APPS)
+    haz = sw_hazard(cli, args, on_cpu[2], "cpu")
+    t0 = time.perf_counter()
+    res = _result(sw_small(name, (args, on_cpu),
+                           haz if "channels" in name else None))
+    return res, time.perf_counter() - t0
+
+
+def _phase_sweeps(device, ens, cli, ck, out, cpu_c):
+    """Phase 7 with the CPU sides of (c) on the worker (``cpu_c``)."""
     inputs = {n: ensemble_inputs(cli, device, n_apps=n)
               for n in (SW_APPS, 50)}
     fixture = sw_load_fixture()
@@ -2028,31 +2255,26 @@ def phase_sweeps(device, ens=None):
                 f"memory {peak / 2**30!r} GiB; best {json.dumps(best)}")
             if fn == "run_autotune" and ens is not None:
                 # The (1, 1, 1) candidate is the plain cost-aware score
-                # (pow by 1 is exact): its R = 32 replicas are the first
-                # 32 of phase 6's R = 1024 run.
-                want = float(np.asarray(ens, np.float32)[None, :32]
+                # (pow by 1 is exact): its replicas are the first
+                # SW_AUTOTUNE_REPLICAS of phase 6's R = 1024 run.
+                n = SW_AUTOTUNE_REPLICAS
+                want = float(np.asarray(ens, np.float32)[None, :n]
                              .mean(axis=1)[0])
                 got = summary["reference"]["makespan_mean"]
                 if got != want:
                     raise AssertionError(
                         f"(b) autotune's (1, 1, 1) makespan mean {got!r} is "
-                        f"not phase 6's first 32 replicas' {want!r}")
+                        f"not phase 6's first {n} replicas' {want!r}")
                 log(f"  (b) autotune's (1, 1, 1) candidate equals phase "
-                    f"6's first 32 replicas (makespan mean {got!r})")
+                    f"6's first {n} replicas (makespan mean {got!r})")
 
     args10, on_card = inputs[SW_APPS]
-    _, on_cpu = ensemble_inputs(cli, "cpu", n_apps=SW_APPS)
     haz = sw_hazard(cli, args10, on_card[2], device)
-    for name in ("best-fit apps", "cost-aware lifo score",
-                 "first-fit lifo capacity", "cost-aware channels",
-                 "first-fit channels", "opportunistic channels"):
+    for name in SW_SMALL:
         risk = "channels" in name
         got = _result(sw_small(name, (args10, on_card),
                                haz if risk else None))
-        t0 = time.perf_counter()
-        want = _result(sw_small(name, (args10, on_cpu), tuple(
-            x.cpu() for x in haz) if risk else None))
-        cpu_s = time.perf_counter() - t0
+        want, cpu_s = cpu_c[name].result()
         worst = ensemble_compare(got, want, f"(c) {name} card vs CPU")
         out["small"][name] = dict(max_rel=worst, cpu_s=cpu_s)
         log(f"  (c) {name}, {SW_APPS} apps: the card equals the port on the "
@@ -2289,8 +2511,10 @@ def sr_record_cem(cem, env, anchors):
 #: Phase 8 (b): the search through the CLI — the README quickstart (CEM),
 #: the same world with ES, the committed replay config (run twice), and
 #: the 10,240-row population at the other phases' cluster size (its depth
-#: cut from 4 generations to 1: PERF.md, section 4).  Each with the rows a
-#: generation must have.
+#: cut from 4 generations to 1, and its horizon — the ticks it walks —
+#: from 2400 s to ``SR_POPULATION_HORIZON``: PERF.md, section 4).  Each
+#: with the rows a generation must have.
+SR_POPULATION_HORIZON = 1200
 SR_MAIN = (
     ("1 cem, README quickstart", 96,
      ["search", "--method", "cem", "--generations", "6", "--popsize", "12",
@@ -2305,8 +2529,8 @@ SR_MAIN = (
      ["search", "--config", "data/search/ci_seed.json"]),
     ("4 population, 600 hosts", 64 * 160,
      ["search", "--method", "cem", "--hosts", "600", "--num-apps", "50",
-      "--horizon", "2400", "--popsize", "64", "--replicas", "160",
-      "--generations", "1", "--holdout", "1"]),
+      "--horizon", str(SR_POPULATION_HORIZON), "--popsize", "64",
+      "--replicas", "160", "--generations", "1", "--holdout", "1"]),
 )
 #: Phase 8 (b): the population's candidates held against a run of their
 #: own on the card at the same key (draws are tiled across candidates).
@@ -2408,12 +2632,34 @@ def sr_pow_check(device, env, n=1 << 24):
     return dict(pairs=n, card_s=card_s)
 
 
+def cpu_sr_check() -> dict:
+    """Phase 8 (c)'s CPU side: ``SR_PICK``'s candidates on the
+    ``SR_CHECK`` environment on the port on the CPU (the worker's side),
+    with its seconds (environment included) under ``"s"``."""
+    from pivot_tpu_torch.parallel.ensemble import prng
+    from pivot_tpu_torch.search import fitness as F
+
+    t0 = time.perf_counter()
+    env = F.make_search_env(**SR_CHECK, device="cpu")
+    out = sr_fitness(env, prng.fold_in(prng.PRNGKey(SR_CHECK["seed"]), 0),
+                     SR_VECTORS[SR_PICK])
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
 def phase_search(device):
     """Phase 8: the policy search on the card; no hand kernel
     (``greedy_place`` must make no launch).  (a) ``pivot_tpu``'s fixture
     under torch's sync debug mode; (b) the four runs through the CLI;
-    (c) the card against the port on the CPU at 600 hosts, and the pow
-    twin over continuous exponents."""
+    (c) the card against the port on the CPU at 600 hosts (its CPU side
+    on the worker process), and the pow twin over continuous
+    exponents."""
+    with cpu_side([(cpu_sr_check,)]) as (cpu_check,):
+        return _phase_search(device, cpu_check)
+
+
+def _phase_search(device, cpu_check):
+    """Phase 8 with (c)'s CPU side on the worker (``cpu_check``)."""
     from pivot_tpu_torch.experiments import cli
     from pivot_tpu_torch.experiments.search import HAND_TUNED_ARMS
     from pivot_tpu_torch.ops import cuda_kernels as ck
@@ -2516,12 +2762,13 @@ def phase_search(device):
     del big
 
     key = prng.fold_in(prng.PRNGKey(SR_CHECK["seed"]), 0)
-    got = {}
-    for d in (device, "cpu"):
-        t0 = time.perf_counter()
-        env = F.make_search_env(**SR_CHECK, device=d)
-        got[d] = sr_fitness(env, key, SR_VECTORS[SR_PICK])
-        got[d]["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    env = F.make_search_env(**SR_CHECK, device=device)
+    got = {device: sr_fitness(env, key, SR_VECTORS[SR_PICK])}
+    got[device]["s"] = time.perf_counter() - t0
+    got["cpu"] = cpu_check.result()
+    # The pow check's bases come from the CPU environment's tables.
+    env = F.make_search_env(**SR_CHECK, device="cpu")
     worst = sr_compare(got[device], got["cpu"], "(c) card vs CPU")
     out["check"]["card_vs_cpu"] = dict(max_rel=worst, cpu_s=got["cpu"]["s"],
                                        card_s=got[device]["s"])
@@ -2605,6 +2852,16 @@ def cg_small(inputs, policy, opts, path=None):
         policy=policy, **opts)
 
 
+def cpu_cg_small(i) -> dict:
+    """The CPU side of ``CG_SMALL[i]`` on the port on the CPU (the
+    worker's side of phase 9 (c))."""
+    from pivot_tpu_torch.experiments import cli
+
+    policy, kw = CG_SMALL[i]
+    return _result(cg_small(ensemble_inputs(cli, "cpu", n_apps=CG_APPS),
+                            policy, kw))
+
+
 def cg_kernels_per_tick(inputs, congestion, skip=60, window=20):
     """Device kernels a tick of an opportunistic rollout at ``CG_APPS``
     apps, R = 4, over ``window`` ticks after ``skip``, by
@@ -2655,7 +2912,9 @@ def phase_congestion(device):
     ck.reset_launches()
     with open(CAL_FIXTURE) as f:
         cal_fx = json.load(f)
-    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+    # The CPU sides of (c) run on the worker meanwhile.
+    with cpu_side([(cpu_cg_small, i) for i in range(len(CG_SMALL))]) as \
+            cpu_c, tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
         # (a) calibrate at the CLI's defaults (600 hosts, cost-aware,
         #     R = 1, perturb 0, lifo, float32).
         for name, extra in CAL_RUNS.items():
@@ -2737,7 +2996,6 @@ def phase_congestion(device):
 
         # (c) small cases, the card against the port on the CPU.
         on_card = ensemble_inputs(cli, device, n_apps=CG_APPS)
-        on_cpu = ensemble_inputs(cli, "cpu", n_apps=CG_APPS)
         opts = dict(congestion=True, tick_order="lifo")
         whole = _result(cg_small(on_card, "opportunistic", opts))
         path = os.path.join(tmp, "killed.npz")
@@ -2768,12 +3026,11 @@ def phase_congestion(device):
         log(f"  (c) opportunistic congestion lifo, {CG_APPS} apps, "
             f"R={CG_SMALL_REPLICAS}, killed at tick {killed_at} and resumed "
             "from the file: every field equals the uninterrupted run's bits")
-        for policy, kw in CG_SMALL:
+        for i, (policy, kw) in enumerate(CG_SMALL):
             t0 = time.perf_counter()
             got = _result(cg_small(on_card, policy, kw))
             card_s = time.perf_counter() - t0
-            worst = ensemble_compare(got, _result(cg_small(on_cpu, policy,
-                                                           kw)),
+            worst = ensemble_compare(got, cpu_c[i].result(),
                                      f"(c) {policy} {kw} card vs CPU")
             if got["n_unfinished"].max() != 0:
                 raise AssertionError(f"(c) {policy} {kw}: tasks unfinished")
@@ -2967,19 +3224,42 @@ def bare_rows_launch(ck, args, kw):
     return go
 
 
+#: Rounds of :func:`rows_times`: the wrapper's and the bare launch's
+#: 20-call windows alternate this many times and each time is the median.
+ROWS_TIME_ROUNDS = 5
+
+
 def rows_times(ck, calls):
-    """Wrapper and bare-launch ms (CUDA events), plain ms (host clock) and
-    the bound of the largest per-row launch of a run (most rows, then the
-    most steps)."""
+    """Wrapper and bare-launch ms (CUDA events), ns per live step, plain
+    ms (host clock) and the bound of the largest per-row launch of a run
+    (most rows, then the most steps).
+
+    A launch this small (tens of microseconds) keeps the card waiting on
+    the host's issue of the next one, so one 20-call window times the
+    host's pace as much as the kernel's: a stall of the issuing thread in
+    one window once put the bare launch above its own wrapper (0.12318
+    against 0.04706 ms, PERF.md).  So the two windows alternate
+    ``ROWS_TIME_ROUNDS`` times and each time is the median of its
+    rounds.  ``ns_per_step`` is ``kernel_ms`` over the launch's summed
+    live steps (each row's step bound)."""
     big = max(range(len(calls)), key=lambda i: (
         calls[i][0][0].shape[0], int(calls[i][1]["n_eff_g"].sum())))
     a, k, _o = calls[big]
     b_ms, b_by = rows_bound(a, k)
+    wrapper, bare = [], []
+    go = bare_rows_launch(ck, a, k)
+    for _ in range(ROWS_TIME_ROUNDS):
+        wrapper.append(_events_ms(
+            lambda: ck.cost_aware_cuda_rows(*a, **k), 20))
+        bare.append(_events_ms(go, 20))
+    steps = int(k["n_eff_g"].sum())
+    kernel_ms = statistics.median(bare)
     return dict(
         G=a[0].shape[0], T=a[1].shape[1], H=a[0].shape[1],
-        n_eff=k["n_eff_g"].tolist(),
-        ms=_events_ms(lambda: ck.cost_aware_cuda_rows(*a, **k), 20),
-        kernel_ms=_events_ms(bare_rows_launch(ck, a, k), 20),
+        n_eff=k["n_eff_g"].tolist(), steps=steps,
+        ms=statistics.median(wrapper), kernel_ms=kernel_ms,
+        ms_rounds=wrapper, kernel_ms_rounds=bare,
+        ns_per_step=kernel_ms * 1e6 / max(steps, 1),
         plain_ms=_host_ms(lambda: ck.cost_aware_plain_rows(*a, **k), 1),
         bound_ms=b_ms, bound_by=b_by)
 
@@ -3168,8 +3448,11 @@ def phase_serve(device):
         rt = out_rec["a"]["rows_times"]
         log(f"    largest flush (G={rt['G']}, T={rt['T']}, H={rt['H']}, "
             f"n_eff {rt['n_eff']}): wrapper {rt['ms']!r} ms, kernel_ms "
-            f"{rt['kernel_ms']!r}, plain {rt['plain_ms']!r} ms, bound "
-            f"{rt['bound_ms']!r} ms ({rt['bound_by']})")
+            f"{rt['kernel_ms']!r} (medians of {ROWS_TIME_ROUNDS} alternated"
+            f" rounds: {rt['ms_rounds']!r} / {rt['kernel_ms_rounds']!r}), "
+            f"{rt['ns_per_step']!r} ns per live step ({rt['steps']}), "
+            f"plain {rt['plain_ms']!r} ms, bound {rt['bound_ms']!r} ms "
+            f"({rt['bound_by']})")
         # Each session against a batch-mode run of the jobs it served (the
         # round-robin share of the admitted ones), fresh from the seed.
         t0 = time.perf_counter()
@@ -3234,8 +3517,9 @@ def phase_serve(device):
                 rt = out_rec[name]["rows_times"] = rows_times(ck, rec.rows)
                 log(f"    largest flush (G={rt['G']}, T={rt['T']}, n_eff "
                     f"{rt['n_eff']}): wrapper {rt['ms']!r} ms, kernel_ms "
-                    f"{rt['kernel_ms']!r}, plain {rt['plain_ms']!r} ms, "
-                    f"bound {rt['bound_ms']!r} ms ({rt['bound_by']})")
+                    f"{rt['kernel_ms']!r}, {rt['ns_per_step']!r} ns per "
+                    f"live step, plain {rt['plain_ms']!r} ms, bound "
+                    f"{rt['bound_ms']!r} ms ({rt['bound_by']})")
         # (c)
         report, rec, launches = serve_run(cli, ck, "c", out)
         serve_consistent("c", report, launches, True)
@@ -3267,9 +3551,10 @@ P11_GROUPS = (
 )
 #: (b) the lock-step grid: ``overall`` over the first P11_TRACES traces
 #: of ``data/jobs``, P11_APPS apps a run (cut from the README's 1000 for
-#: the script's time), G = 4 runs an arm in lock-step.
+#: the script's time: to 20 for phase 11, to 10 for phase 13), G = 4
+#: runs an arm in lock-step.
 P11_TRACES = 4
-P11_APPS = 20
+P11_APPS = 10
 #: (c) the serve commands of the path (the README's span commands without
 #: the mesh flag), at 600 hosts a session, and the same stream from the
 #: first trace window with quiescence-only flushes: the README stream
@@ -3506,9 +3791,10 @@ def p11_flushes(device, n_hosts=600) -> dict:
     log(f"  (a) {chk.cases} span ticks held against cost_aware_plain_rows, "
         f"{chk.placed} placements, max |avail diff| {chk.max_abs_err!r}; "
         f"largest span tick (G={rt['G']}, T={rt['T']}, n_eff {rt['n_eff']}):"
-        f" wrapper {rt['ms']!r} ms, kernel_ms {rt['kernel_ms']!r}, plain "
-        f"{rt['plain_ms']!r} ms, bound {rt['bound_ms']!r} ms "
-        f"({rt['bound_by']})")
+        f" wrapper {rt['ms']!r} ms, kernel_ms {rt['kernel_ms']!r} (medians "
+        f"of {ROWS_TIME_ROUNDS} alternated rounds), {rt['ns_per_step']!r} ns"
+        f" per live step ({rt['steps']}), plain {rt['plain_ms']!r} ms, "
+        f"bound {rt['bound_ms']!r} ms ({rt['bound_by']})")
     return out
 
 
@@ -4485,6 +4771,519 @@ def phase_mpc_recovery(device) -> dict:
     return rec
 
 
+# -- phase 13: the native fabric, the degrade guard, the profiler ----------
+
+#: (b) the kernel entry point's call (0-based) that raises in the
+#: guard-off run, and the ``degrade_after`` the card policies must refuse.
+P13_FAULT_AT = 5
+P13_DEGRADE_AFTER = 2
+#: (b) apps of phase 3's trace each run serves, per-tick dispatch
+#: (37 ticks).
+P13_GUARD_APPS = 16
+#: (c) the profiler's cadence on phase 10's README serve command.
+P13_PROFILE_EVERY = 4
+#: (d) apps of the ``--profile-dir`` run.
+P13_TRACE_APPS = 8
+#: The relative tolerances of ``tests/test_native.py``'s full-sim parity.
+P13_REL = {"sim_time": 1e-12, "avg_runtime": 1e-9, "egress_cost": 1e-9,
+           "avg_congestion_delay": 1e-9}
+
+
+def census_line(census, phase, exempt=()) -> None:
+    n = census.check(phase, exempt)
+    log(f"  phase {phase}: {n} device policies built, each with the degrade "
+        "guard off (degrade_after is None) and no kernel failure")
+
+
+class PolicyCensus:
+    """Every device policy (``sched.cuda._DevicePolicyBase``) built while
+    installed, so that a phase can assert at its end that none ran with
+    the degrade guard on or recorded a kernel failure: a failing kernel
+    is never served by the numpy twin unseen."""
+
+    def __init__(self):
+        self.policies = []
+        self._base = None
+        self._init = None
+
+    def install(self) -> "PolicyCensus":
+        from pivot_tpu_torch.sched.cuda import _DevicePolicyBase
+
+        init, policies = _DevicePolicyBase.__init__, self.policies
+
+        def counted(policy, *a, **k):
+            init(policy, *a, **k)
+            policies.append(policy)
+
+        self._base, self._init = _DevicePolicyBase, init
+        _DevicePolicyBase.__init__ = counted
+        return self
+
+    def uninstall(self) -> None:
+        if self._base is not None:
+            self._base.__init__ = self._init
+            self._base = None
+
+    def check(self, phase, exempt=()) -> int:
+        """Assert the guard off and no kernel failure on every policy the
+        phase built (but ``exempt``); forget them; return how many."""
+        skip = {id(p) for p in exempt}
+        seen = [p for p in self.policies if id(p) not in skip]
+        self.policies.clear()
+        for p in seen:
+            if p.degrade_after is not None or p.kernel_failures:
+                raise AssertionError(
+                    f"phase {phase}: {type(p).__name__} ran with "
+                    f"degrade_after={p.degrade_after!r} and "
+                    f"{p.kernel_failures} kernel failures")
+        return len(seen)
+
+
+def _clone(x):
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, tuple):
+        return tuple(_clone(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    return x
+
+
+class CloneTap:
+    """Records every ``CudaCostAwarePolicy._greedy`` call that returns —
+    one ``greedy_place`` launch each — with clones of its operands and
+    outputs (queued on the stream: no sync), held against
+    ``cost_aware_plain`` after the run."""
+
+    def __init__(self):
+        self.calls = []
+
+    @contextlib.contextmanager
+    def attach(self):
+        from pivot_tpu_torch.sched.cuda import CudaCostAwarePolicy
+
+        greedy, calls = CudaCostAwarePolicy._greedy, self.calls
+
+        def _greedy(policy, *a, **k):
+            out = greedy(policy, *a, **k)
+            calls.append((_clone(a), _clone(k), _clone(out)))
+            return out
+
+        CudaCostAwarePolicy._greedy = _greedy
+        try:
+            yield self
+        finally:
+            CudaCostAwarePolicy._greedy = greedy
+
+    def hold(self, ck, chk, what) -> None:
+        for i, (a, k, got) in enumerate(self.calls):
+            chk.same(got, ck.cost_aware_plain(*a, **k), (what, i))
+
+
+def _rel_ok(a, b, rel) -> bool:
+    return abs(a - b) <= rel * max(abs(a), abs(b))
+
+
+def _trace_job_dir(tmp) -> str:
+    """A job directory holding phase 3's trace alone."""
+    job_dir = os.path.join(tmp, "jobs")
+    os.makedirs(job_dir)
+    os.symlink(os.path.abspath(TRACE),
+               os.path.join(job_dir, os.path.basename(TRACE)))
+    return job_dir
+
+
+def p13_native(device, e2e, chk, n_apps=E2E_APPS) -> dict:
+    """(a) ``overall --network native`` on cuda, fusion on, against phase
+    3's python-fabric cuda run; every Cost-Aware launch held."""
+    from pivot_tpu_torch import native
+    from pivot_tpu_torch.experiments import cli
+    from pivot_tpu_torch.ops import cuda_kernels as ck
+
+    if not native.available():
+        raise AssertionError("the native fabric did not build (g++): "
+                             f"{native._lib_error}")
+    py = e2e["runs"]["cuda"]
+    tap = CloneTap()
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        argv = overall_argv(os.path.join(tmp, "native"),
+                            _trace_job_dir(tmp), "cuda")
+        argv[-1] = str(n_apps)
+        argv = ["--network", "native", *argv]
+        with tap.attach():
+            ck.reset_launches()  # the main path's count starts here
+            t0 = time.perf_counter()
+            exp_dir, summaries, objs = run_cli(cli, argv, device, True)
+            wall = time.perf_counter() - t0
+            launches = ck.LAUNCHES["greedy_place"]
+        if [r.cluster.network_backend for r in objs] != ["native"] * 3:
+            raise AssertionError("(a) a run did not use the native fabric")
+        check_outputs(exp_dir)
+        arms = {s["label"]: s for s in summaries}
+        host = {s["label"]: host_ms_per_tick(s, r.device_calls)
+                for s, r in zip(summaries, objs)}
+        same_general = {}
+        for arm in ARMS:
+            with open(os.path.join(exp_dir, "data", "0", arm,
+                                   "general.json"), "rb") as f:
+                same_general[arm] = f.read() == py["general"][arm]
+    for arm in ARMS:
+        for key, rel in P13_REL.items():
+            got, want = arms[arm][key], py["arms"][arm][key]
+            if not _rel_ok(got, want, rel):
+                raise AssertionError(
+                    f"(a) {arm}: {key} {got!r} on the native fabric vs "
+                    f"{want!r} on the python fabric (rel {rel})")
+    ca = arms["Cost-Aware"]["dispatch"]
+    if not (ca["device_ticks"] > 0 and ca["kernel_ticks"] == ca["device_ticks"]
+            and launches == ca["kernel_ticks"] + ca["span_kernel_ticks"]
+            == len(tap.calls)):
+        raise AssertionError(f"(a) not every Cost-Aware tick was a launch: "
+                             f"{ca}, {launches} launches, "
+                             f"{len(tap.calls)} recorded")
+    for arm in ARMS[:2]:
+        d = arms[arm]["dispatch"]
+        if d["kernel_ticks"] or d["span_kernel_ticks"]:
+            raise AssertionError(f"(a) {arm} went through the kernel")
+    t0 = time.perf_counter()
+    tap.hold(ck, chk, "(a) native Cost-Aware")
+    log(f"  (a) overall --network native, 600 hosts x {n_apps} apps, cuda, "
+        f"fusion on: {wall!r} s for 3 arms; against phase 3's python "
+        f"fabric: sim_time within rel 1e-12, avg_runtime, egress_cost and "
+        f"avg_congestion_delay within rel 1e-9 in every arm; "
+        f"{launches} greedy_place launches ({ca['kernel_ticks']} per-tick,"
+        f" {ca['span_kernel_ticks']} span ticks), each equal to "
+        f"cost_aware_plain ({time.perf_counter() - t0:.1f} s to hold)")
+    for arm in ARMS:
+        hp, hn = py["host"][arm], host[arm]
+        log(f"    {arm}: general.json byte-equal to the python fabric's: "
+            f"{same_general[arm]}; wall python {hp['wall_s']!r} s / native "
+            f"{hn['wall_s']!r} s; device calls {hp['device_call_s']!r} / "
+            f"{hn['device_call_s']!r} s; host ms per tick "
+            f"{hp['host_ms_per_tick']!r} / {hn['host_ms_per_tick']!r} over "
+            f"{hp['ticks']} / {hn['ticks']} ticks")
+    return dict(wall_s=wall, launches_r1=launches, same_general=same_general,
+                host_native=host, host_python=py["host"],
+                arms={a: {k: arms[a][k] for k in P13_REL} for a in ARMS})
+
+
+def p13_guard_run(cli, device, arm, fault_at=None):
+    """One per-tick run of ``arm`` on phase 3's trace, its kernel entry
+    point raising on call ``fault_at`` (none when ``None``); returns
+    ``(policy, log, entry calls, error)`` — the log holds each served
+    tick's availability at entry and its placements, ``error`` what the
+    run raised (``None`` when it ended)."""
+    from pivot_tpu_torch.experiments.runner import ExperimentRun
+    from pivot_tpu_torch.sched import cuda as cuda_mod
+    from pivot_tpu_torch.utils import reset_ids
+    from pivot_tpu_torch.utils.config import build_cluster, make_policy
+
+    policy = make_policy(p13_guard_config(arm), torch_device=str(device))
+    calls = {"n": 0}
+
+    def faulty(fn):
+        def entry(*a, **k):
+            n = calls["n"]
+            calls["n"] += 1
+            if n == fault_at:
+                raise RuntimeError(f"injected kernel fault at call {n}")
+            return fn(*a, **k)
+        return entry
+
+    ff = cuda_mod.first_fit_impl
+    if arm == "cost-aware":
+        policy._greedy = faulty(policy._greedy)
+    else:
+        cuda_mod.first_fit_impl = faulty(ff)
+    log_, place = [], policy.place
+
+    def logged(ctx):
+        avail = np.array(ctx.avail, copy=True)
+        out = place(ctx)
+        log_.append((avail, np.asarray(out).copy()))
+        return out
+
+    policy.place = logged
+    reset_ids()
+    err = None
+    try:
+        ExperimentRun(
+            f"guard-{arm}", build_cluster(cli._cluster_config(
+                cli.parse_args(["overall"]))), policy, TRACE,
+            n_apps=P13_GUARD_APPS, seed=0, fuse_spans=False).run()
+    except RuntimeError as exc:
+        err = exc
+    finally:
+        cuda_mod.first_fit_impl = ff
+    return policy, log_, calls["n"], err
+
+
+def p13_guard_config(arm):
+    from pivot_tpu_torch.utils.config import PolicyConfig
+
+    if arm == "cost-aware":
+        return PolicyConfig(name="cost-aware", device="cuda", adaptive=False,
+                            bin_pack="first-fit", sort_tasks=True,
+                            sort_hosts=True)
+    return PolicyConfig(name="first-fit", device="cuda", adaptive=False)
+
+
+def p13_guard(device, chk) -> dict:
+    """(b) The degrade guard on the card (module docstring): refused by
+    every card policy, and a kernel failure with the guard off reaches
+    the caller with no tick served by the numpy twin."""
+    from pivot_tpu_torch.experiments import cli
+    from pivot_tpu_torch.ops import cuda_kernels as ck
+    from pivot_tpu_torch.sched import cuda as cuda_mod
+    from pivot_tpu_torch.utils.config import make_policy
+
+    out = {}
+    refused = []
+    for cls in (cuda_mod.CudaOpportunisticPolicy, cuda_mod.CudaFirstFitPolicy,
+                cuda_mod.CudaBestFitPolicy, cuda_mod.CudaCostAwarePolicy):
+        try:
+            cls(adaptive=False, device=device,
+                degrade_after=P13_DEGRADE_AFTER)
+        except NotImplementedError:
+            refused.append(cls.__name__)
+        else:
+            raise AssertionError(f"(b) {cls.__name__} on the card accepted "
+                                 f"degrade_after={P13_DEGRADE_AFTER}")
+    log(f"  (b) degrade_after={P13_DEGRADE_AFTER} refused on the card by "
+        f"{', '.join(refused)}")
+    for arm in ("cost-aware", "first-fit"):
+        policy = make_policy(p13_guard_config(arm), torch_device=str(device))
+        try:
+            policy.degrade_after = P13_DEGRADE_AFTER
+        except NotImplementedError:
+            pass
+        else:
+            raise AssertionError(f"(b) {arm}: the setter accepted the guard")
+        clean_tap = CloneTap()
+        with clean_tap.attach():
+            ck.reset_launches()
+            _p, clean, _n, err = p13_guard_run(cli, device, arm)
+            clean_launches = ck.LAUNCHES["greedy_place"]
+        if err is not None:
+            raise err
+        clean_tap.hold(ck, chk, "(b) fault-free Cost-Aware")
+        tap = CloneTap()
+        with tap.attach():
+            ck.reset_launches()
+            policy, got, n_calls, err = p13_guard_run(cli, device, arm,
+                                                      P13_FAULT_AT)
+            launches = ck.LAUNCHES["greedy_place"]
+        want = f"injected kernel fault at call {P13_FAULT_AT}"
+        if err is None or want not in str(err):
+            raise AssertionError(f"(b) {arm}: the injected fault did not "
+                                 f"propagate (raised {err!r})")
+        if (n_calls != P13_FAULT_AT + 1 or policy.twin_ticks
+                or policy.kernel_failures or policy.degraded
+                or len(got) >= len(clean)):
+            raise AssertionError(
+                f"(b) {arm}: {n_calls} entry calls, {len(got)} ticks served, "
+                f"{policy.twin_ticks} by the twin, {policy.kernel_failures} "
+                "kernel failures counted")
+        for i, (x, y) in enumerate(zip(got, clean)):
+            if not (np.array_equal(x[0], y[0]) and np.array_equal(x[1],
+                                                                  y[1])):
+                raise AssertionError(f"(b) {arm}: tick {i}'s availability "
+                                     "or placements differ from the run "
+                                     "with no faults")
+        if arm == "cost-aware":
+            if launches != len(tap.calls) or launches != P13_FAULT_AT:
+                raise AssertionError(f"(b) {launches} launches, "
+                                     f"{len(tap.calls)} recorded")
+            tap.hold(ck, chk, "(b) Cost-Aware up to the fault")
+        out[arm] = dict(ticks_clean=len(clean), ticks_served=len(got),
+                        entry_calls=n_calls, launches=launches,
+                        clean_launches=clean_launches)
+        log(f"  (b) {arm}: the fault at kernel entry call {P13_FAULT_AT} "
+            f"propagated; {len(got)} ticks served before it, each equal to "
+            f"the run with no faults ({len(clean)} ticks), 0 by the numpy "
+            f"twin; {launches} greedy_place launches up to the fault, "
+            f"{clean_launches} in the run with no faults, each = plain")
+    return out
+
+
+def p13_profiler(device, chk) -> dict:
+    """(c) Phase 10's README serve command with ``--profile-dispatch`` and
+    without (module docstring)."""
+    from pivot_tpu_torch import obs
+    from pivot_tpu_torch.experiments import cli
+    from pivot_tpu_torch.ops import cuda_kernels as ck
+
+    base, made = obs.DispatchProfiler, []
+
+    class RecordingProfiler(base):
+        """Records the call numbers it samples, per family."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.hits = {}
+            made.append(self)
+
+        def _tick(self, family):
+            st = self._stats.get(family)
+            n = st.calls if st is not None else 0
+            hit = super()._tick(family)
+            if hit:
+                self.hits.setdefault(family, []).append(n)
+            return hit
+
+    argv = SERVE_RUNS["a"] + ("--profile-dispatch", str(P13_PROFILE_EVERY))
+    with tempfile.TemporaryDirectory() as out:
+        obs.DispatchProfiler = RecordingProfiler
+        try:
+            on, rec_on, l_on = serve_run(cli, ck, "a", out, args=argv)
+        finally:
+            obs.DispatchProfiler = base
+        off, rec_off, l_off = serve_run(cli, ck, "a", out)
+    if len(made) != 1 or "profiler" not in on or "profiler" in off:
+        raise AssertionError("(c) the profiled run built no profiler")
+    prof = made[0]
+    serve_consistent("c profiled", on, l_on, True)
+    if on["slo"]["counters"] != off["slo"]["counters"]:
+        raise AssertionError("(c) counters differ with the profiler on")
+    s_on = sorted(rec_on.sessions, key=lambda s: s.slot)
+    s_off = sorted(rec_off.sessions, key=lambda s: s.slot)
+    decisions = 0
+    for a, b in zip(s_on, s_off):
+        if len(a.log) != len(b.log) or any(
+                not np.array_equal(x, y) for x, y in zip(a.log, b.log)):
+            raise AssertionError(f"(c) session {a.slot} decided otherwise "
+                                 "with the profiler on")
+        decisions += len(a.log)
+    census = on["profiler"]["families"]
+    if not census:
+        raise AssertionError("(c) empty census")
+    for fam, row in census.items():
+        missing = {"calls", "sampled", "p50_us", "model_ratio_p50"} - set(row)
+        if missing:
+            raise AssertionError(f"(c) census row {fam} lacks {missing}")
+        want = prof.sampled_indices(fam, row["calls"])
+        if prof.hits.get(fam, []) != want or row["sampled"] != len(want):
+            raise AssertionError(f"(c) {fam}: sampled calls "
+                                 f"{prof.hits.get(fam)} are not "
+                                 f"sampled_indices {want}")
+    p12_hold(ck, rec_on, chk, "(c) profiled serve")
+    p12_hold(ck, rec_off, chk, "(c) unprofiled serve")
+    kernel = [_events_ms(bare_rows_launch(ck, a, k), 3)
+              for a, k, _o in rec_on.rows]
+    kernel += [_events_ms(bare_launch(ck, a, k)[0], 3)
+               for a, k, _o in rec_on.r1]
+    kms = statistics.median(kernel) if kernel else None
+    log(f"  (c) serve {' '.join(argv)}: {decisions} decisions equal the "
+        f"unprofiled run's, decision for decision; profiler on "
+        f"{on['profiler']['backend']}, dispatch floor "
+        f"{on['profiler']['dispatch_floor_us']!r} us")
+    for fam, row in census.items():
+        log(f"    {fam}: {row['calls']} calls, {row['sampled']} sampled at "
+            f"{prof.hits.get(fam)} (= sampled_indices), median wall "
+            f"{row['p50_us']!r} us, median measured/predicted "
+            f"{row['model_ratio_p50']!r}; the phase's CUDA-event kernel_ms "
+            f"of the same {len(kernel)} launches: median {kms!r} ms")
+    log(f"    {len(rec_on.rows)} per-row and {len(rec_on.r1)} R=1 launches "
+        f"each = plain; unprofiled run {l_off['total']} launches")
+    return dict(decisions=decisions, census=census, launches=l_on,
+                compare_launches=l_off["total"], kernel_ms_median=kms,
+                floor_us=on["profiler"]["dispatch_floor_us"])
+
+
+def p13_profile_dir(device, chk) -> dict:
+    """(d) The README's ``--network native --profile-dir DIR overall``,
+    three arms (three ``torch.profiler`` sessions one after another, late
+    in this process: see ``obs.tracer.TRACE_WARMUP_KERNELS``), at
+    ``P13_TRACE_APPS`` apps on phase 3's trace: every arm's trace holds
+    a kernel record for each kernel launch (``trace_census``), and the
+    Cost-Aware (third) trace holds the ``greedy_place`` kernel by name,
+    once for each of the run's launches, each held against the plain
+    version."""
+    from pivot_tpu_torch.experiments import cli
+    from pivot_tpu_torch.obs.tracer import PROFILE_TRACE_FILE, trace_census
+    from pivot_tpu_torch.ops import cuda_kernels as ck
+
+    tap = CloneTap()
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        prof_dir = os.path.join(tmp, "prof")
+        argv = overall_argv(os.path.join(tmp, "out"), _trace_job_dir(tmp),
+                            "cuda")
+        argv[-1] = str(P13_TRACE_APPS)
+        argv = ["--network", "native", "--profile-dir", prof_dir, *argv]
+        with tap.attach(), warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ck.reset_launches()
+            t0 = time.perf_counter()
+            _exp, summaries, _objs = run_cli(cli, argv, device, True)
+            wall = time.perf_counter() - t0
+            launches = ck.LAUNCHES["greedy_place"]
+        census, kern = {}, []
+        for arm in ARMS:
+            path = os.path.join(prof_dir, "0", arm, PROFILE_TRACE_FILE)
+            census[arm] = trace_census(path)
+            census[arm]["bytes"] = os.path.getsize(path)
+        with open(path) as f:  # the Cost-Aware trace, the third session
+            kern = [e for e in json.load(f)["traceEvents"]
+                    if e.get("cat") == "kernel"
+                    and "greedy_place" in e.get("name", "")]
+    short = {a: c for a, c in census.items()
+             if c["missing"] or c["launches"] != c["kernels"]}
+    if short or any("no kernel record" in str(w.message) for w in caught):
+        raise AssertionError(f"(d) traces missing kernel records: {short}")
+    d = {s_["label"]: s_ for s_ in summaries}["Cost-Aware"]["dispatch"]
+    if not (launches == len(kern) == len(tap.calls)
+            == d["kernel_ticks"] + d["span_kernel_ticks"] and launches):
+        raise AssertionError(f"(d) {len(kern)} greedy_place kernels in the "
+                             f"Cost-Aware trace, {launches} launches, {d}")
+    tap.hold(ck, chk, "(d) profiled Cost-Aware")
+    log(f"  (d) --network native --profile-dir overall, 3 arms x "
+        f"{P13_TRACE_APPS} apps: {wall!r} s; kernel launches / kernel "
+        "records / missing per trace: " + ", ".join(
+            f"{a} {c['launches']} / {c['kernels']} / {c['missing']} "
+            f"({c['bytes']} bytes, least launch-to-kernel "
+            f"{c['min_launch_to_kernel_us']!r} us)"
+            for a, c in census.items())
+        + f"; the Cost-Aware trace holds {len(kern)} greedy_place kernels "
+        f"by name (e.g. {kern[0]['name']!r}) = the run's {launches} "
+        "launches, each = plain")
+    return dict(wall_s=wall, launches_r1=launches, trace_kernels=len(kern),
+                census=census)
+
+
+def phase_native_guard_profiler(device, e2e) -> dict:
+    """Phase 13 (module docstring).  Returns its record."""
+    card = card_line()
+    log(f"  [{card}]")
+    chk = Check()
+    rec = {}
+    for key, fn, args in (("native", p13_native, (device, e2e, chk)),
+                          ("guard", p13_guard, (device, chk)),
+                          ("profiler", p13_profiler, (device, chk)),
+                          ("profile_dir", p13_profile_dir, (device, chk))):
+        t0 = time.perf_counter()
+        rec[key] = fn(*args)
+        rec[key]["wall_s_part"] = time.perf_counter() - t0
+        log(f"  ({'abcd'[len(rec) - 1]}): {rec[key]['wall_s_part']!r} s")
+    prof = rec["profiler"]["launches"]
+    rec["launches_r1"] = (rec["native"]["launches_r1"]
+                          + rec["guard"]["cost-aware"]["launches"]
+                          + prof["by_replicas"].get(1, 0)
+                          + rec["profile_dir"]["launches_r1"])
+    rec["launches_rows_by_g"] = dict(prof["rows"])
+    rec["launches_rows"] = sum(prof["rows"].values())
+    rec["compare_launches"] = (rec["profiler"]["compare_launches"]
+                               + rec["guard"]["cost-aware"]["clean_launches"])
+    rec["held"] = chk.cases
+    rec["max_abs_err"] = chk.max_abs_err
+    log(f"  {chk.cases} greedy_place launches held against their plain "
+        f"version, {chk.placed} placements, max |avail diff| "
+        f"{chk.max_abs_err!r}; path launches R=1 {rec['launches_r1']}, "
+        f"per-row {rec['launches_rows_by_g']}; comparison sides (the "
+        f"unprofiled serve run, the guard's fault-free run) "
+        f"{rec['compare_launches']}")
+    return rec
+
+
 def phase_5_report(ck, e2e, sens, card, device):
     """Phase 5: times on the card (the main path's wrapper, bare launches,
     the warp sweep, the gated R = 256 launches) and the reports of
@@ -4581,13 +5380,13 @@ def phase_5_report(ck, e2e, sens, card, device):
     return times, gt, spans
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13)
 
 
 def selected_phases(argv) -> set:
-    """``--phases 1,6,7`` (default: all).  Phases 2-5 and 10-12 need
-    phase 1's build, phase 5 the runs of phases 3 and 4: they come
-    along."""
+    """``--phases 1,6,7`` (default: all).  Phases 2-5 and 10-13 need
+    phase 1's build, phase 5 the runs of phases 3 and 4, phase 13 the
+    python-fabric run of phase 3: they come along."""
     import argparse
 
     ap = argparse.ArgumentParser(description="On-card smoke of the port.")
@@ -4598,7 +5397,9 @@ def selected_phases(argv) -> set:
         ap.error(f"phases are {PHASES}, got {sorted(want)}")
     if 5 in want:
         want |= {3, 4}
-    if want & {2, 3, 4, 5, 10, 11, 12}:
+    if 13 in want:
+        want.add(3)
+    if want & {2, 3, 4, 5, 10, 11, 12, 13}:
         want.add(1)
     return want
 
@@ -4617,6 +5418,7 @@ def main(argv=None) -> int:
     from pivot_tpu_torch.ops import build
     from pivot_tpu_torch.ops import cuda_kernels as ck
 
+    census = PolicyCensus().install()
     t_start = time.perf_counter()
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4646,6 +5448,7 @@ def main(argv=None) -> int:
         check_shape_tables(build, ck)
         arith_check(build)
         walls[1] = time.perf_counter() - tp
+        census_line(census, 1)
         log(f"  phase 1 wall: {walls[1]!r} s")
     if 2 in phases:
         tp = time.perf_counter()
@@ -4654,6 +5457,7 @@ def main(argv=None) -> int:
         log(f"  {chk.cases} cases, {chk.placed} placements: all equal, max "
             f"|avail diff| {chk.max_abs_err!r} (rtol {RTOL}, atol {ATOL})")
         walls[2] = time.perf_counter() - tp
+        census_line(census, 2)
         log(f"  phase 2 wall: {walls[2]!r} s")
     if 3 in phases:
         tp = time.perf_counter()
@@ -4661,6 +5465,7 @@ def main(argv=None) -> int:
             "spans, cuda with fusion off, numpy")
         e2e = phase_end_to_end(device)
         walls[3] = time.perf_counter() - tp
+        census_line(census, 3)
         log(f"  phase 3 wall: {walls[3]!r} s")
     if 4 in phases:
         tp = time.perf_counter()
@@ -4669,12 +5474,14 @@ def main(argv=None) -> int:
             f"{SENS_APPS['vbp']} apps under a seeded spot market")
         sens = phase_sensitivity(device)
         walls[4] = time.perf_counter() - tp
+        census_line(census, 4)
         log(f"  phase 4 wall: {walls[4]!r} s")
     if 5 in phases:
         tp = time.perf_counter()
         log("== 5. times on the card")
         times, gt, spans = phase_5_report(ck, e2e, sens, card, device)
         walls[5] = time.perf_counter() - tp
+        census_line(census, 5)
         log(f"  phase 5 wall: {walls[5]!r} s")
     ens_mk = None
     if 6 in phases:
@@ -4687,6 +5494,7 @@ def main(argv=None) -> int:
         ens_mk = ens.pop("makespan_cost-aware")
         ens.pop("makespan_first-fit")
         walls[6] = time.perf_counter() - tp
+        census_line(census, 6)
         log(f"  phase 6 wall: {walls[6]!r} s")
     if 7 in phases:
         tp = time.perf_counter()
@@ -4696,6 +5504,7 @@ def main(argv=None) -> int:
         log(f"  [{card}]")
         sweeps = phase_sweeps(device, ens_mk)
         walls[7] = time.perf_counter() - tp
+        census_line(census, 7)
         log(f"  phase 7 wall: {walls[7]!r} s")
     search = None
     if 8 in phases:
@@ -4706,6 +5515,7 @@ def main(argv=None) -> int:
         log(f"  [{card}]")
         search = phase_search(device)
         walls[8] = time.perf_counter() - tp
+        census_line(census, 8)
         log(f"  phase 8 wall: {walls[8]!r} s")
     congestion = None
     if 9 in phases:
@@ -4717,6 +5527,7 @@ def main(argv=None) -> int:
         log(f"  [{card}]")
         congestion = phase_congestion(device)
         walls[9] = time.perf_counter() - tp
+        census_line(census, 9)
         log(f"  phase 9 wall: {walls[9]!r} s")
     serve = rows = None
     if 10 in phases:
@@ -4730,6 +5541,7 @@ def main(argv=None) -> int:
             f"placements: all equal, max |avail diff| {rows.max_abs_err!r}")
         serve = phase_serve(device)
         walls[10] = time.perf_counter() - tp
+        census_line(census, 10)
         log(f"  phase 10 wall: {walls[10]!r} s")
     batching = None
     if 11 in phases:
@@ -4740,6 +5552,7 @@ def main(argv=None) -> int:
             "the serve span commands through the CLI")
         batching = phase_batching(device)
         walls[11] = time.perf_counter() - tp
+        census_line(census, 11)
         log(f"  phase 11 wall: {walls[11]!r} s")
     p12 = None
     if 12 in phases:
@@ -4749,11 +5562,25 @@ def main(argv=None) -> int:
             "soak, a resident run killed and resumed, the watchdog armed")
         p12 = phase_mpc_recovery(device)
         walls[12] = time.perf_counter() - tp
+        census_line(census, 12)
         log(f"  phase 12 wall: {walls[12]!r} s")
+    p13 = None
+    if 13 in phases:
+        tp = time.perf_counter()
+        log(f"== 13. the native network fabric, the degrade guard and the "
+            f"dispatch profiler on the card: overall --network native (600 "
+            f"hosts x {E2E_APPS} apps) against phase 3, injected kernel "
+            f"faults, serve --profile-dispatch {P13_PROFILE_EVERY}, "
+            f"--profile-dir")
+        p13 = phase_native_guard_profiler(device, e2e)
+        walls[13] = time.perf_counter() - tp
+        census_line(census, 13)
+        log(f"  phase 13 wall: {walls[13]!r} s")
+    census.uninstall()
     log(json.dumps({
         "times": times, "spans": spans, "ensemble": ens, "sweeps": sweeps,
         "search": search, "congestion": congestion, "serve": serve,
-        "batching": batching, "mpc_recovery": p12,
+        "batching": batching, "mpc_recovery": p12, "native_guard": p13,
         "phase_walls": walls,
         "same_files": e2e and e2e["same_files"], "gated_times": gt,
         "sensitivity": sens and {p: {k: v for k, v in r.items()
@@ -4773,6 +5600,8 @@ def main(argv=None) -> int:
         errs.append(batching["max_abs_err"])
     if p12 is not None:
         errs.append(p12["max_abs_err"])
+    if p13 is not None:
+        errs.append(p13["max_abs_err"])
     sv = serve and [serve[k]["launches"] for k in SERVE_RUNS]
     sv_rows = sv and sum(sum(x["rows"].values()) for x in sv)
     sv_r1 = sv and sum(x["by_replicas"].get(1, 0) for x in sv)
@@ -4782,28 +5611,32 @@ def main(argv=None) -> int:
     b_rows = batching and batching["launches_rows"]
     m_r1 = p12 and p12["launches_r1"]
     m_rows = p12 and p12["launches_rows"]
+    n_r1 = p13 and p13["launches_r1"]
+    n_rows = p13 and p13["launches_rows"]
     record = {"kernels": [{
         "name": "greedy_place",
         "route": "cuda",
         "source": "pivot_tpu_torch/csrc/greedy_place.cu",
         "replaces": "pivot_tpu/ops/pallas_kernels.py:265",
-        "launches": (e2e and ca and serve and batching and p12
+        "launches": (e2e and ca and serve and batching and p12 and p13
                      and e2e["runs"]["cuda"]["launches"]
                      + sum(ca["launches"].values()) + sv_rows + sv_r1
-                     + b_r1 + b_rows + m_r1 + m_rows),
-        "launches_r1": (e2e and ca and serve and batching and p12
+                     + b_r1 + b_rows + m_r1 + m_rows + n_r1 + n_rows),
+        "launches_r1": (e2e and ca and serve and batching and p12 and p13
                         and e2e["runs"]["cuda"]["launches"]
-                        + ca["launches"][1] + sv_r1 + b_r1 + m_r1),
+                        + ca["launches"][1] + sv_r1 + b_r1 + m_r1 + n_r1),
         f"launches_r{SENS_REPLICAS}": ca and ca["launches"][SENS_REPLICAS],
-        "launches_rows": serve and batching and p12
-        and sv_rows + b_rows + m_rows,
-        "launches_rows_by_g": sv and batching and p12 and {
+        "launches_rows": serve and batching and p12 and p13
+        and sv_rows + b_rows + m_rows + n_rows,
+        "launches_rows_by_g": sv and batching and p12 and p13 and {
             g: sum(x["rows"].get(g, 0) for x in sv)
             + batching["launches_rows_by_g"].get(g, 0)
             + p12["launches_rows_by_g"].get(g, 0)
+            + p13["launches_rows_by_g"].get(g, 0)
             for g in sorted({g for x in sv for g in x["rows"]}
                             | set(batching["launches_rows_by_g"])
-                            | set(p12["launches_rows_by_g"]))},
+                            | set(p12["launches_rows_by_g"])
+                            | set(p13["launches_rows_by_g"]))},
         "phase11_launches_r1": b_r1,
         "phase11_launches_rows": b_rows,
         "phase11_compare_launches_r1": batching
@@ -4811,6 +5644,9 @@ def main(argv=None) -> int:
         "phase12_launches_r1": m_r1,
         "phase12_launches_rows": m_rows,
         "phase12_compare_launches": p12 and p12["compare_launches"],
+        "phase13_launches_r1": n_r1,
+        "phase13_launches_rows": n_rows,
+        "phase13_compare_launches": p13 and p13["compare_launches"],
         "max_abs_err": max(errs) if errs else None,
         "ms": lt and lt["ms"],
         "plain_ms": lt and lt["plain_ms"],

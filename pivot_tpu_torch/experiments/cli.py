@@ -65,10 +65,15 @@ needs ``--device cuda``, refuses ``--workers > 1`` and forces
 ``--no-adaptive``.  ``serve`` (``:1614``) runs the online serving layer,
 with serve spans (``--fuse-spans slo``), ragged span batching (the
 default; ``--no-ragged`` for the A/B), resident span carries
-(``--resident``, ``--splice-tier``) and model-predictive serving
-(``--mpc``).  The ``worker`` subcommand, ``--network native``,
-``--profile-dir`` and the plots are not ported yet (ROADMAP.md, port
-queue).
+(``--resident``, ``--splice-tier``), model-predictive serving
+(``--mpc``) and the sampled dispatch profiler (``--profile-dispatch N``,
+``--device cuda`` only).  ``--network native`` serves the network
+fabric in the C++ co-simulator (``pivot_tpu_torch/native``; a failed
+``g++`` build exits, it never falls back to the Python fabric);
+``--profile-dir DIR`` captures a ``torch.profiler`` trace of each run
+under ``DIR/<data-dir tail>/<arm>/trace.json`` (ignored, with a warning,
+under ``--batch-runs``).  The ``worker`` subcommand and the plots are
+not ported yet (ROADMAP.md, Queue 1 item 12).
 
 Usage:
   python -m pivot_tpu_torch.experiments.cli --num-hosts 600 overall \\
@@ -122,7 +127,9 @@ class RunSpec:
     """One (policy × trace) run, fully described by picklable values so
     it can cross a process boundary; the run rebuilds its cluster from
     the seeded config.  ``torch_device`` / ``dtype`` place the ``cuda``
-    backend's torch tensors (``"cpu"`` in the tests)."""
+    backend's torch tensors (``"cpu"`` in the tests); ``profile_dir``
+    (``--profile-dir``) captures a ``torch.profiler`` trace of the run
+    under it.  Neither it nor ``audit`` is part of the run identity."""
 
     cluster: ClusterConfig
     policy: PolicyConfig
@@ -135,6 +142,7 @@ class RunSpec:
     audit: bool = False
     torch_device: str = "cuda"
     dtype: str = "float32"
+    profile_dir: str = ""
 
 
 def _spec_identity(spec: RunSpec) -> dict:
@@ -195,12 +203,25 @@ def _build_run(spec: RunSpec) -> ExperimentRun:
 
 def _execute_run(spec: RunSpec) -> Optional[dict]:
     """Run one spec unless its sentinel says it is complete; returns the
-    run's summary, or None for a skipped run."""
+    run's summary, or None for a skipped run.  With ``profile_dir`` the
+    run is traced into ``<profile_dir>/<data-dir tail>/<arm>/``: the
+    run's unique data-dir tail keys the directory, so concurrent runs
+    sharing one ``--profile-dir`` never collide
+    (``pivot_tpu/experiments/cli.py:137-157``)."""
+    from pivot_tpu_torch.obs.tracer import device_profile
+
     if _is_complete(spec):
         logger.info("skipping completed run %s (%s)",
                     spec.policy.display_label, spec.data_dir)
         return None
-    return _build_run(spec).run()
+    run = _build_run(spec)
+    profile_dir = ""
+    if spec.profile_dir:
+        tail = spec.data_dir.split(os.sep + "data" + os.sep, 1)[-1]
+        profile_dir = os.path.join(spec.profile_dir, tail,
+                                   spec.policy.display_label)
+    with device_profile(profile_dir):
+        return run.run()
 
 
 def parse_args(argv=None):
@@ -247,9 +268,8 @@ def parse_args(argv=None):
              "bit-identical trajectories",
     )
     parser.add_argument(
-        "--network", choices=["python"], default="python",
-        help="network fabric backend (the native C++ fabric is not "
-             "ported yet)",
+        "--network", choices=["python", "native"], default="python",
+        help="network fabric backend (native = C++ co-simulator)",
     )
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--audit", action="store_true",
@@ -257,6 +277,10 @@ def parse_args(argv=None):
                              "abort on violation")
     parser.add_argument("--trace-events", action="store_true",
                         help="write structured event traces per run")
+    parser.add_argument("--profile-dir", default="",
+                        help="capture a torch.profiler device trace (CUDA "
+                             "and CPU activities, Chrome trace JSON) of "
+                             "each run into this directory")
     parser.add_argument("--workers", type=int, default=1,
                         help="process-parallel runs (1 = sequential)")
     parser.add_argument("--batch-runs", type=int, default=1, metavar="G",
@@ -709,8 +733,13 @@ def parse_args(argv=None):
                           "0 = off")
     srv.add_argument("--profile-dispatch", type=int, default=0,
                      metavar="N",
-                     help="sampled device-dispatch profiler (not ported "
-                          "yet: ROADMAP.md Queue 1 item 12).  0 = off")
+                     help="sampled device-dispatch profiler: time every "
+                          "Nth kernel dispatch to completion (a CUDA "
+                          "event synchronised after it) at the dispatch "
+                          "boundaries, publishing per-family latency "
+                          "summaries into the registry and 'device' "
+                          "lane spans into --trace-out.  Placements "
+                          "are bit-identical either way.  0 = off")
     args = parser.parse_args(argv)
     if (
         getattr(args, "realtime_scoring", False)
@@ -733,6 +762,15 @@ def parse_args(argv=None):
         # Adaptive routing is timing-dependent: it would make batch
         # membership nondeterministic.
         args.adaptive = False
+    if args.network == "native":
+        from pivot_tpu_torch import native
+
+        if not native.available():
+            parser.exit(
+                1,
+                "error: --network native needs a working g++ toolchain "
+                "(native build failed); use --network python\n",
+            )
     return args
 
 
@@ -740,7 +778,6 @@ def parse_args(argv=None):
 #: (Queue 1) items: (attribute, flag, item).
 _SERVE_NOT_PORTED = (
     ("shard_hosts", "--shard-hosts", 9),
-    ("profile_dispatch", "--profile-dispatch", 12),
 )
 
 
@@ -774,6 +811,13 @@ def _check_serve_args(parser, args) -> None:
         # timing-based twin routing would make batch membership (and, in
         # float32, placements) nondeterministic.
         args.adaptive = False
+    if args.profile_dispatch and args.device != "cuda":
+        # The profiler brackets DEVICE dispatches; a numpy/naive policy
+        # has none, so the run would silently produce an empty census.
+        parser.error(
+            "--profile-dispatch requires --device cuda (the numpy/naive "
+            "policies dispatch no kernels for the profiler to bracket)"
+        )
 
 
 def _add_tick_order(sub_parser, default="fifo"):
@@ -840,6 +884,12 @@ def _run_grid_batched(specs: List[RunSpec],
                         spec.policy.display_label, spec.data_dir)
             continue
         by_label.setdefault(spec.policy.display_label, []).append(i)
+    if any(specs[i].profile_dir for idxs in by_label.values()
+           for i in idxs):
+        logger.warning(
+            "--profile-dir is ignored under --batch-runs (the device "
+            "profiler is process-global; concurrent run sessions collide)"
+        )
     for label, idxs in by_label.items():
         for i in range(0, len(idxs), batch_runs):
             chunk = idxs[i:i + batch_runs]
@@ -880,7 +930,8 @@ def _reference_grid(args, kind: str, counts, torch_device, dtype
         RunSpec(cluster_cfg, pc, trace,
                 os.path.join(exp_dir, "data", *sub, str(i)),
                 n, args.scale_factor, args.seed,
-                args.trace_events, args.audit, str(torch_device), dtype)
+                args.trace_events, args.audit, str(torch_device), dtype,
+                args.profile_dir)
         for sub, n in counts
         for i, trace in enumerate(traces)
         for pc in policy_set
@@ -1514,7 +1565,12 @@ def run_serve_stream(args, torch_device: str = "cuda",
     carry, arrivals up to ``--splice-tier`` joining running spans.  Prints (and writes
     ``<output-dir>/serve/<stamp>/report.json``) the service report: SLO
     snapshot, batcher stats, per-session metrics."""
-    from pivot_tpu_torch.obs import MetricsHTTPServer, MetricsRegistry, Tracer
+    from pivot_tpu_torch.obs import (
+        DispatchProfiler,
+        MetricsHTTPServer,
+        MetricsRegistry,
+        Tracer,
+    )
     from pivot_tpu_torch.serve import (
         AutoscaleConfig,
         ServeDriver,
@@ -1598,6 +1654,14 @@ def run_serve_stream(args, torch_device: str = "cuda",
         MetricsRegistry()
         if args.metrics_out or args.metrics_port else None
     )
+    # --profile-dispatch N samples the device dispatches.
+    profiler = (
+        DispatchProfiler(
+            sample_every=args.profile_dispatch, seed=args.seed or 0,
+            registry=registry,
+        )
+        if args.profile_dispatch else None
+    )
     driver = ServeDriver(
         sessions,
         queue_depth=args.queue_depth,
@@ -1614,6 +1678,7 @@ def run_serve_stream(args, torch_device: str = "cuda",
         mpc=mpc,
         tracer=tracer,
         registry=registry,
+        profiler=profiler,
         tenant_quota=args.tenant_quota or None,
         ragged=not args.no_ragged,
         resident=args.resident,

@@ -437,11 +437,11 @@ class Cluster(LogMixin):
         self.network_backend = network_backend
         self.net_engine = None
         if network_backend == "native":
-            raise NotImplementedError(
-                "network_backend='native' (the C++ network co-simulator of "
-                "pivot_tpu/native/) is not ported to pivot_tpu_torch yet; "
-                "use network_backend='python' (ROADMAP.md, port queue)"
-            )
+            from pivot_tpu_torch.native import NativeNetworkEngine
+
+            self.net_engine = NativeNetworkEngine(env)
+            if meter is not None:
+                meter.add_native_source(self.net_engine)
         self.executor_backend = executor_backend
         self.executor = None
         if executor_backend == "fast":

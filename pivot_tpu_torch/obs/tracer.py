@@ -54,7 +54,8 @@ from typing import Any, Dict, List, Optional
 
 from pivot_tpu_torch.obs.clock import ObsClock
 
-__all__ = ["Tracer", "NULL_TRACER", "TERMINAL_STAGES"]
+__all__ = ["Tracer", "NULL_TRACER", "TERMINAL_STAGES", "device_profile",
+           "PROFILE_TRACE_FILE", "trace_census", "TRACE_WARMUP_KERNELS"]
 
 #: Stage names that end a job's causal chain — used by the Perfetto
 #: exporter (async-span close) and the report/check walkers.  Exactly
@@ -375,3 +376,120 @@ class Tracer:
 
 
 NULL_TRACER = Tracer(enabled=False)
+
+
+#: The Chrome trace file :func:`device_profile` writes in its directory.
+PROFILE_TRACE_FILE = "trace.json"
+
+#: CUDA API calls that launch one kernel each (a graph launch, which may
+#: launch many, stays out of :func:`trace_census`).
+_LAUNCH_CALLS = frozenset((
+    "cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel",
+    "cuLaunchKernel", "cuLaunchKernelEx"))
+
+#: The range :func:`device_profile` puts its warm-up launches in.
+WARMUP_RANGE = "device_profile.warmup"
+
+#: Tiny kernels :func:`device_profile` launches, and synchronises, at the
+#: start of its window before the block runs.  On the H100 (torch 2.11,
+#: CUDA 12.8) a trace lost the kernel records of a session's first
+#: launches, more of them the older the process: 5 at 69 s, 30 at 391 s
+#: (``python -m pivot_tpu_torch.tools.trace_window``); launches made
+#: after a synchronised warm-up kept every record.  1024 covers that rate
+#: for some hours; :func:`trace_census` counts what it misses.
+TRACE_WARMUP_KERNELS = 1024
+
+
+def trace_census(path: str) -> Dict[str, Any]:
+    """Kernel launches against kernel records in a Chrome trace that
+    :func:`device_profile` wrote, the launches of its warm-up range left
+    out: ``launches`` (host calls that launch one kernel each),
+    ``kernels`` (their device kernel records), ``missing`` (launches
+    whose correlation id has no kernel record), ``missing_at`` (where
+    the first missing ones stand among the launches, in time order),
+    ``window_us`` (the capture window's start and end, microseconds),
+    ``first_launch_us`` and ``first_kernel_us`` (the first launch call's
+    and kernel record's start, from the window's start) and
+    ``min_launch_to_kernel_us`` (the least time from a launch call's
+    start to its kernel's start)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    launches, starts, window, after = [], {}, None, None
+    for e in events:
+        cat = e.get("cat")
+        corr = (e.get("args") or {}).get("correlation")
+        if cat in ("cuda_runtime", "cuda_driver") \
+                and e.get("name") in _LAUNCH_CALLS:
+            launches.append((e["ts"], corr))
+        elif cat == "kernel":
+            starts.setdefault(corr, e["ts"])
+        elif cat == "Trace":
+            window = (e["ts"], e["ts"] + e.get("dur", 0.0))
+        elif cat == "user_annotation" and e.get("name") == WARMUP_RANGE:
+            after = e["ts"] + e.get("dur", 0.0)
+    if after is not None:
+        launches = [x for x in launches if x[0] >= after]
+    launches.sort()
+    missing = [i for i, (_, c) in enumerate(launches) if c not in starts]
+    kept = [starts[c] for _, c in launches if c in starts]
+    offsets = [starts[c] - ts for ts, c in launches if c in starts]
+    t0 = window[0] if window else 0.0
+    return dict(launches=len(launches), kernels=len(kept),
+                missing=len(missing), missing_at=missing[:16],
+                window_us=window,
+                first_launch_us=launches[0][0] - t0 if launches else None,
+                first_kernel_us=min(kept) - t0 if kept else None,
+                min_launch_to_kernel_us=min(offsets) if offsets else None)
+
+
+@contextlib.contextmanager
+def device_profile(logdir: Optional[str],
+                   warmup: int = TRACE_WARMUP_KERNELS):
+    """Capture a ``torch.profiler`` trace around the enclosed block
+    (``pivot_tpu/obs/tracer.py::device_profile``, which captures a
+    ``jax.profiler`` trace): CPU activities, and CUDA activities when a
+    card is present, exported as Chrome trace JSON to
+    ``<logdir>/trace.json`` — the kernels' launches and device times on
+    the card's timeline, loadable in ``chrome://tracing`` or Perfetto.
+    On the card the window opens with ``warmup`` tiny kernels in the
+    range ``WARMUP_RANGE``, synchronised (see ``TRACE_WARMUP_KERNELS``).
+    Yields a dict that holds, once the block has ended, the trace's
+    ``path`` and, on the card, its :func:`trace_census`; a trace that
+    lacks a launch's kernel record raises a warning naming the count.
+    No-op when ``logdir`` is falsy (so call sites can thread an optional
+    CLI flag straight through)."""
+    record: Dict[str, Any] = {}
+    if not logdir:
+        yield record
+        return
+    import os
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    on_card = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU]
+    if on_card:
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        if on_card and warmup:
+            with record_function(WARMUP_RANGE):
+                x = torch.zeros(1, device="cuda")
+                for _ in range(warmup):
+                    x.add_(1.0)
+                torch.cuda.synchronize()
+        yield record
+        if on_card:
+            torch.cuda.synchronize()  # the block's last kernels, recorded
+    record["path"] = os.path.join(logdir, PROFILE_TRACE_FILE)
+    prof.export_chrome_trace(record["path"])
+    if on_card:
+        census = record["census"] = trace_census(record["path"])
+        if census["missing"]:
+            warnings.warn(
+                f"{record['path']}: {census['missing']} of "
+                f"{census['launches']} kernel launches have no kernel "
+                f"record in the trace ({census})", RuntimeWarning,
+                stacklevel=3)

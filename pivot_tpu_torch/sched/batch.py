@@ -1,16 +1,17 @@
 """Cross-run dispatch batching: co-pending ticks of many runs, one flush.
 
-Port of ``pivot_tpu/sched/batch.py`` without the mesh and the dispatch
-profiler (ROADMAP.md, Queue 1 items 9 and 12); with the recovery
-plane's write-ahead journal (``DispatchBatcher(journal=)``: each flush's
-composition is journaled before its first device call, a solo dispatch
-as a one-request flush).  G concurrently stepped DES runs — the
-lock-step grid's runs (``experiments.runner.run_grid_lockstep``) or the
-serving sessions of ``pivot_tpu_torch.serve`` — submit their placement
-calls, per-tick kernel calls and whole fused spans alike, to a
-:class:`DispatchBatcher`; the coordinator coalesces co-pending calls of
-one (kernel, shape, static config) key into one flush and hands each run
-back its own row.
+Port of ``pivot_tpu/sched/batch.py`` without the mesh (ROADMAP.md,
+Queue 1 item 9); with the recovery plane's write-ahead journal
+(``DispatchBatcher(journal=)``: each flush's composition is journaled
+before its first device call, a solo dispatch as a one-request flush)
+and the sampled dispatch profiler (``DispatchBatcher(profiler=)``: it
+brackets each group's :func:`batch_execute` inside the flush). G
+concurrently stepped DES runs — the lock-step grid's runs
+(``experiments.runner.run_grid_lockstep``) or the serving sessions of
+``pivot_tpu_torch.serve`` — submit their placement calls, per-tick
+kernel calls and whole fused spans alike, to a :class:`DispatchBatcher`;
+the coordinator coalesces co-pending calls of one (kernel, shape, static
+config) key into one flush and hands each run back its own row.
 
 What a flush of G same-key requests runs (:func:`batch_execute`):
 
@@ -370,11 +371,13 @@ class DispatchBatcher:
     (module docstring); ``ragged=False`` keeps exact-shape coalescing,
     the A/B arm.  ``journal`` (a ``pivot_tpu_torch.recover.Journal``)
     receives one ``flush`` record per flush before its device calls.
+    ``profiler`` (a ``pivot_tpu_torch.obs.DispatchProfiler``) times a
+    sample of the flushes' device calls (:meth:`_execute`).
     """
 
     def __init__(self, n_slots: int, flush_after: Optional[float] = None,
                  tracer=None, device="cuda", ragged: bool = True,
-                 journal=None):
+                 journal=None, profiler=None):
         if n_slots < 1:
             raise ValueError("DispatchBatcher needs at least one slot")
         if flush_after is not None and flush_after <= 0:
@@ -391,6 +394,13 @@ class DispatchBatcher:
         #: requests) BEFORE its first device call.  ``None`` (default) =
         #: no recovery plane, zero cost.
         self._journal = journal
+        #: Sampled dispatch profiler (``pivot_tpu/sched/batch.py:531``):
+        #: the flush boundary is where batched kernel calls hit the card,
+        #: so the profiler brackets ``batch_execute`` HERE — the policy's
+        #: ``_call_kernel`` hook stands down when a batch client is
+        #: attached (it would time slot park time, not the dispatch).
+        #: ``None`` = zero cost.
+        self.profiler = profiler
         self._cond = threading.Condition()
         self._n_slots = n_slots
         self._open = n_slots
@@ -515,6 +525,45 @@ class DispatchBatcher:
                 self.stats["ragged_rows"] += len(reqs)
                 self.stats["ragged_pad_cells"] += pad_cells
 
+    def _execute(self, reqs: List[_Request]) -> list:
+        """One flush call for a same-key request group — through the
+        sampled profiler when one is attached
+        (``pivot_tpu/sched/batch.py:700-747``): its span carries
+        ``in_flush``, the group size ``g``, H, B, a span's K, the ragged
+        pad cells and the operand bytes staged for it."""
+        def call():
+            return batch_execute(
+                reqs[0].kernel, [(r.args, r.arr_kw) for r in reqs],
+                reqs[0].static_kw, device=self.device,
+            )
+
+        prof = self.profiler
+        if prof is None or not prof.enabled:
+            return call()
+        from pivot_tpu_torch.obs.profiler import family_of
+        from pivot_tpu_torch.sched.cuda import _dispatch_shape
+
+        shape = {"g": len(reqs),
+                 **_dispatch_shape(reqs[0].args, reqs[0].static_kw)}
+        n_ticks = shape.get("k")
+        # Ragged attribution: the K×B cells this merged dispatch runs
+        # beyond its members' own buckets (zero on exact-shape groups).
+        pad = sum(
+            n_ticks * shape.get("b", 0) - t[0] * t[1]
+            for t in (r.trim for r in reqs) if t is not None
+        )
+        if pad:
+            shape["ragged_pad_cells"] = pad
+        h2d = sum(
+            int(getattr(a, "nbytes", 0))
+            for r in reqs
+            for a in (*r.args, *r.arr_kw.values())
+        )
+        return prof.profile(
+            family_of(reqs[0].kernel), call, shape=shape, flush=True,
+            h2d_bytes=h2d, device=self.device,
+        )
+
     def _flush(self, batch: List[_Request]) -> None:
         # Groups in first-key-seen order, rows in slot order.
         try:
@@ -547,11 +596,7 @@ class DispatchBatcher:
                         "dispatch", "flush", group=len(reqs),
                         slots=[r.slot for r in reqs],
                     ):
-                        outs = batch_execute(
-                            reqs[0].kernel,
-                            [(r.args, r.arr_kw) for r in reqs],
-                            reqs[0].static_kw, device=self.device,
-                        )
+                        outs = self._execute(reqs)
                 except BaseException as exc:  # noqa: BLE001 — deliver, don't hang
                     for r in reqs:
                         r.error = exc

@@ -79,10 +79,27 @@ into a once-staged [P, H] risk table.  With ``splice=True`` a clone of
 each span-entry carry lets a mid-span arrival join the running span
 (``span_splice``).
 
-Not in this slice (ROADMAP.md, port queue): host sharding and elastic
-padding (Queue 1 item 9), the degrade guard, the fault gate and the
-dispatch profiler — the methods that would attach them raise
-``NotImplementedError``.
+Graceful degradation (``degrade_after=N``,
+``pivot_tpu/sched/tpu.py:143-232``): after N consecutive device-kernel
+failures a policy serves from its numpy twin; every
+``_DegradeGuard.PROBE_EVERY`` twin decisions a half-open probe
+shadow-runs the device and promotes it back on an exact placement match.
+A probe never changes a placement.  ``None`` (the default) keeps a
+kernel failure fatal: batch experiments must not mask a broken kernel
+as twin output.  The guard is accepted only on a policy whose torch
+device is the CPU: a kernel failure on the card never moves the card's
+work to the CPU twin, so a ``cuda`` policy refuses ``degrade_after``
+with ``NotImplementedError``.
+
+Sampled dispatch profiling (``enable_profiler``,
+``pivot_tpu_torch/obs/profiler.py``): a deterministic 1-in-N sample of
+the policy's direct dispatches — per-tick kernels through
+``_call_kernel``, fused spans, resident spans — is timed to completion.
+Batched dispatches are timed at the batcher's flush instead.
+
+Not in this slice (ROADMAP.md, Queue 1 item 9): host sharding, elastic
+padding and the elastic fault gate — the methods that would attach them
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -93,6 +110,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from pivot_tpu_torch.infra.faults import DeviceLostError
 from pivot_tpu_torch.ops.cuda_kernels import (
     cost_aware_cuda,
     cost_aware_cuda_batched,
@@ -196,6 +214,28 @@ def _probe_device_floor(device: torch.device) -> float:
     return best
 
 
+def _dispatch_shape(args, kw) -> dict:
+    """Shape labels of one kernel dispatch for the profiler's device
+    spans and prediction (``pivot_tpu/sched/tpu.py:300``): H from the
+    [H, 4] availability operand, B from the padded batch, K from a fused
+    span's static tick count."""
+    shape = {}
+    if args and hasattr(args[0], "shape") and len(args[0].shape) == 2:
+        shape["h"] = int(args[0].shape[0])
+    if len(args) > 1 and hasattr(args[1], "shape") and args[1].shape:
+        shape["b"] = int(args[1].shape[0])
+    n_ticks = kw.get("n_ticks")
+    if isinstance(n_ticks, (int, np.integer)):
+        shape["k"] = int(n_ticks)
+    return shape
+
+
+def _nbytes(*arrays) -> int:
+    """Bytes of the host arrays among ``arrays`` (what a staging copy
+    moves to the device)."""
+    return sum(int(a.nbytes) for a in arrays if isinstance(a, np.ndarray))
+
+
 class _SpanOutcome:
     """A priced span: slot-indexed per-tick placements, host-fetched."""
 
@@ -203,6 +243,98 @@ class _SpanOutcome:
 
     def __init__(self, placements: np.ndarray):
         self.placements = placements
+
+
+class _DegradeGuard:
+    """Graceful-degradation state machine: closed → degraded → half-open
+    (``pivot_tpu/sched/tpu.py:143-232``).
+
+    *Closed*: the device kernel serves; ``after`` CONSECUTIVE failures
+    trip the guard to *degraded* (any success resets the streak;
+    individual failures are served by the numpy twin per tick).
+    *Degraded*: the twin serves every decision.  Every ``probe_every``
+    twin-served decisions the guard goes *half-open* for one decision:
+    the device kernel is shadow-run and its placements diffed against
+    the twin's.  The decision is served by the TWIN either way — a probe
+    can never change a placement — and an exact match promotes the
+    device back to closed; a mismatch or a raise keeps the twin serving
+    and restarts the probe countdown.  ``probe_every=None`` makes the
+    fallback permanent.
+
+    ``after=None`` disables the guard entirely — kernel exceptions stay
+    fatal (the batch-experiment default)."""
+
+    #: Twin-served decisions between half-open probes.
+    PROBE_EVERY = 64
+
+    __slots__ = ("after", "probe_every", "degraded", "kernel_failures",
+                 "consecutive", "since_probe", "probes", "promotions")
+
+    def __init__(self, after: Optional[int],
+                 probe_every: Optional[int] = PROBE_EVERY):
+        self.after = after
+        self.probe_every = probe_every
+        self.degraded = False
+        self.kernel_failures = 0
+        self.consecutive = 0
+        self.since_probe = 0
+        self.probes = 0
+        self.promotions = 0
+
+    def note_success(self) -> None:
+        self.consecutive = 0
+
+    def note_failure(self, exc: BaseException, logger) -> None:
+        self.kernel_failures += 1
+        self.consecutive += 1
+        if self.consecutive >= self.after:
+            self.degraded = True
+            self.since_probe = 0
+            logger.error(
+                "device kernel failed %d times consecutively — degrading "
+                "to the numpy twin%s: %s",
+                self.consecutive,
+                (" permanently" if self.probe_every is None
+                 else f" (half-open probe every {self.probe_every})"),
+                exc,
+            )
+        else:
+            logger.warning(
+                "device kernel failed (%d/%d before degradation): %s",
+                self.consecutive, self.after, exc,
+            )
+
+    def should_probe(self) -> bool:
+        """Call once per degraded (twin-served) decision; True on the
+        decision that should shadow-run the device kernel."""
+        if not self.degraded or self.probe_every is None:
+            return False
+        self.since_probe += 1
+        if self.since_probe >= self.probe_every:
+            self.since_probe = 0
+            return True
+        return False
+
+    def note_probe(self, ok: bool, logger,
+                   exc: Optional[BaseException] = None) -> None:
+        self.probes += 1
+        if ok:
+            self.degraded = False
+            self.consecutive = 0
+            self.promotions += 1
+            logger.info(
+                "half-open probe matched the numpy twin — promoting the "
+                "device kernel back (probe %d)", self.probes,
+            )
+        elif exc is not None:
+            logger.warning(
+                "half-open probe raised — device still down: %s", exc,
+            )
+        else:
+            logger.warning(
+                "half-open probe DIVERGED from the numpy twin — keeping "
+                "the twin (probe %d)", self.probes,
+            )
 
 
 class _ResidentState:
@@ -277,7 +409,8 @@ class _DevicePolicyBase(Policy):
 
     def __init__(self, adaptive: bool = False, phase2="auto",
                  risk_weight: float = 0.0, rework_cost: float = 1.0,
-                 weights=None, device="cuda"):
+                 weights=None, device="cuda",
+                 degrade_after: Optional[int] = None):
         self.device = resolve_device(device)
         self.topology: Optional[DeviceTopology] = None
         self._scheduler = None
@@ -314,6 +447,48 @@ class _DevicePolicyBase(Policy):
         self._topology_host: Optional[DeviceTopology] = None
         #: The resident span tier, when enabled (``enable_resident``).
         self._resident: Optional[_ResidentState] = None
+        #: Graceful degradation (module docstring): after
+        #: ``degrade_after`` CONSECUTIVE device-kernel failures the
+        #: policy serves from its numpy twin, probing the device back
+        #: half-open; individual failures are served by the twin too and
+        #: counted in ``kernel_failures``.  ``None`` (default) keeps
+        #: kernel exceptions fatal; only a CPU-device policy accepts it.
+        self._degrade = _DegradeGuard(self._guard_allowed(degrade_after))
+        #: The sampled dispatch profiler, when attached
+        #: (``enable_profiler``); consulted on the direct dispatch path
+        #: only (batched dispatches are timed at the batcher's flush).
+        self._profiler = None
+
+    # -- degrade-guard views (``pivot_tpu/sched/tpu.py:466-499``) ----------
+    @property
+    def degrade_after(self) -> Optional[int]:
+        return self._degrade.after
+
+    @degrade_after.setter
+    def degrade_after(self, value: Optional[int]) -> None:
+        self._degrade.after = self._guard_allowed(value)
+
+    def _guard_allowed(self, value: Optional[int]) -> Optional[int]:
+        """``value`` if this policy may run the guard: always for
+        ``None``; otherwise only when its torch device is the CPU, where
+        the twin's plain decision stands in for a plain torch pass on a
+        CPU tensor.  On the card a kernel failure must reach the caller:
+        moving the card's work to the CPU twin would hide it."""
+        if value is not None and self.device.type != "cpu":
+            raise NotImplementedError(
+                f"degrade_after={value!r} on a {self.device.type} policy: "
+                "the port never moves a card policy's work to the CPU "
+                "twin when its kernel fails; the guard runs only on a "
+                "policy whose torch device is the CPU")
+        return value
+
+    @property
+    def degraded(self) -> bool:
+        return self._degrade.degraded
+
+    @property
+    def kernel_failures(self) -> int:
+        return self._degrade.kernel_failures
 
     @property
     def np_dtype(self):
@@ -365,12 +540,14 @@ class _DevicePolicyBase(Policy):
     span_cap = 32
 
     def span_capable(self) -> bool:
-        """Spans need deterministic device routing (no adaptive twin),
-        span-constant inputs (no realtime bandwidth), and the tick-loop
-        kernel family — forcing ``use_kernel=True`` opts out, as
-        ``use_pallas=True`` does in the reference."""
+        """Spans need deterministic device routing (no adaptive twin), a
+        healthy kernel (not degraded), span-constant inputs (no realtime
+        bandwidth), and the tick-loop kernel family — forcing
+        ``use_kernel=True`` opts out, as ``use_pallas=True`` does in the
+        reference."""
         return not (
             self.adaptive
+            or self.degraded
             or getattr(self, "realtime_bw", False)
             or getattr(self, "use_kernel", None) is True
         )
@@ -455,10 +632,16 @@ class _DevicePolicyBase(Policy):
         st = stage(self.device, avail=avail, dem=dem, arrive=arrive,
                    live=self._live_np(ctx), **host)
         kw.update((k, st[k]) for k in host)
-        res = fused_tick_run(
-            st["avail"], st["dem"], st["arrive"], k_dyn, n_ticks=K,
-            n_bound=span_step_bounds(plan.arrive, k_dyn), live=st["live"],
-            **kw,
+        res = self._profiled(
+            "fused_tick_run",
+            lambda: fused_tick_run(
+                st["avail"], st["dem"], st["arrive"], k_dyn, n_ticks=K,
+                n_bound=span_step_bounds(plan.arrive, k_dyn),
+                live=st["live"], **kw,
+            ),
+            lambda: (dict(h=avail.shape[0], b=B, k=K),
+                     _nbytes(avail, dem, arrive, self._live_np(ctx),
+                             *host.values())),
         )
         # One fetch: the placements are the span's whole host-visible
         # output (the scheduler's replay derives the meters from them).
@@ -535,9 +718,14 @@ class _DevicePolicyBase(Policy):
         st = stage(self.device, dem=dem, arrive=arrive, **host)
         kw = dict(run_kw)
         kw.update((k, st[k]) for k in host)
-        return resident_span_run(
-            carry, st["dem"], st["arrive"], k_dyn, n_ticks=K,
-            n_bound=span_step_bounds(arrive, k_dyn), **kw)
+        return self._profiled(
+            "resident_span_run",
+            lambda: resident_span_run(
+                carry, st["dem"], st["arrive"], k_dyn, n_ticks=K,
+                n_bound=span_step_bounds(arrive, k_dyn), **kw),
+            lambda: (dict(h=carry.avail.shape[0], b=dem.shape[0], k=K),
+                     _nbytes(dem, arrive, *host.values())),
+        )
 
     def _place_span_resident(self, ctx: TickContext, plan):
         """The resident tier's ``place_span``: mirror-diff → edit rows →
@@ -696,8 +884,28 @@ class _DevicePolicyBase(Policy):
     def enable_fault_gate(self, gate) -> None:
         self._not_ported("the elastic fault gate")
 
+    # -- sampled dispatch profiling (``pivot_tpu/sched/tpu.py:786``) -------
     def enable_profiler(self, profiler) -> None:
-        self._not_ported("the sampled dispatch profiler")
+        """Attach a :class:`pivot_tpu_torch.obs.DispatchProfiler`: a
+        deterministic 1-in-N sample of this policy's direct device
+        dispatches (per-tick kernels through :meth:`_call_kernel`, fused
+        and resident spans) is timed to completion and published as
+        per-family latency summaries and ``device``-lane trace spans.
+        Placements are untouched; ``None`` detaches.  With the batcher
+        attached the flush boundary owns the timing instead
+        (``DispatchBatcher(profiler=...)``)."""
+        self._profiler = profiler
+
+    def _profiled(self, family: str, thunk, meta):
+        """``thunk()``, through the profiler when one is attached;
+        ``meta()`` gives the dispatch's ``(shape, h2d_bytes)`` and runs
+        only then, so a run without a profiler pays nothing for it."""
+        prof = self._profiler
+        if prof is None or not prof.enabled:
+            return thunk()
+        shape, h2d_bytes = meta()
+        return prof.profile(family, thunk, shape=shape, h2d_bytes=h2d_bytes,
+                            device=self.device)
 
     # -- kernel-call indirection (``pivot_tpu/sched/tpu.py:798-838``) ------
     def _call_kernel(self, kernel, *args, **kw):
@@ -705,9 +913,17 @@ class _DevicePolicyBase(Policy):
         attached: array keywords batch with the positional arrays, plain
         keywords stay static (a ``None`` operand is static too, so ticks
         with and without a live mask or risk row fall into different
-        groups)."""
+        groups).  A direct call goes through the profiler when one is
+        attached, under the kernel's family (``obs.profiler.family_of``):
+        the profiler owns the clock and the sampling decision."""
         if self._batch_client is None:
-            return kernel(*args, **kw)
+            if self._profiler is None:
+                return kernel(*args, **kw)
+            from pivot_tpu_torch.obs.profiler import family_of
+
+            return self._profiled(family_of(kernel),
+                                  lambda: kernel(*args, **kw),
+                                  lambda: (_dispatch_shape(args, kw), 0))
         arr_kw = {k: v for k, v in kw.items() if hasattr(v, "shape")}
         static_kw = {k: v for k, v in kw.items() if k not in arr_kw}
         return self._batch_client.dispatch(kernel, args, arr_kw, static_kw)
@@ -792,9 +1008,11 @@ class _DevicePolicyBase(Policy):
 
     # -- adaptive dispatch (``pivot_tpu/sched/tpu.py:1408-1500``) ----------
     def place(self, ctx: TickContext) -> np.ndarray:
+        if self.degraded and self._cpu_twin is not None:
+            self.twin_ticks += 1
+            return self._degraded_place(ctx)
         if not (self.adaptive and self._cpu_twin is not None):
-            self.device_ticks += 1
-            return self._device_place(ctx)
+            return self._guarded_device_place(ctx)
         cells = ctx.n_tasks * ctx.n_hosts
         bucket = pad_bucket(ctx.n_tasks)
         pred_twin = cells * self._cpu_cell_cost
@@ -829,7 +1047,20 @@ class _DevicePolicyBase(Policy):
             self.twin_ticks += 1
             return out
         t0 = time.perf_counter()
-        out = self._device_place(ctx)
+        if self.degrade_after is not None:
+            try:
+                out = self._device_place(ctx)
+            except DeviceLostError:
+                raise  # mesh loss is the elastic supervisor's (item 9)
+            except Exception as exc:  # noqa: BLE001 — degradation guard
+                # Twin fallback; no EMA update (the sample measures
+                # neither side's healthy cost).
+                self._note_kernel_failure(exc)
+                self.twin_ticks += 1
+                return self._cpu_twin.place(ctx)
+            self._degrade.note_success()
+        else:
+            out = self._device_place(ctx)
         dt = time.perf_counter() - t0
         if big and bucket in self._warm_buckets:
             self._device_cell_cost = 0.5 * (
@@ -846,6 +1077,55 @@ class _DevicePolicyBase(Policy):
 
     def _device_place(self, ctx: TickContext) -> np.ndarray:
         raise NotImplementedError
+
+    # -- graceful degradation (``pivot_tpu/sched/tpu.py:933-977``) ---------
+    def _note_kernel_failure(self, exc: BaseException) -> None:
+        self._degrade.note_failure(exc, self.logger)
+
+    def _degraded_place(self, ctx: TickContext) -> np.ndarray:
+        """A twin-served decision while degraded, with the half-open
+        probe: on the probe cadence the device kernel is SHADOW-run and
+        its placements diffed against the twin's — an exact match
+        promotes the device back (:class:`_DegradeGuard`).  The decision
+        returned is always the twin's, whatever the probe's verdict."""
+        out = self._cpu_twin.place(ctx)
+        if self._degrade.should_probe():
+            try:
+                shadow = self._device_place(ctx)
+            except Exception as exc:  # noqa: BLE001 — probe of a dead device
+                self._degrade.note_probe(False, self.logger, exc)
+            else:
+                self._degrade.note_probe(
+                    np.array_equal(np.asarray(shadow), np.asarray(out)),
+                    self.logger,
+                )
+        return out
+
+    def _guarded_device_place(self, ctx: TickContext) -> np.ndarray:
+        """Device dispatch with the degradation guard: a failing kernel
+        call is served by the numpy twin for this tick (the twin consumes
+        the same per-tick Philox stream, so on the CPU in float64 the
+        placements are the device's bit for bit); ``degrade_after``
+        consecutive failures make the fallback sticky until a half-open
+        probe matches.  Guard disabled (``degrade_after=None``):
+        exceptions propagate unchanged.  :class:`DeviceLostError` — the
+        loss of a mesh device, raised by item 9's elastic fault gate —
+        always propagates: the elastic supervisor handles it, not the
+        twin."""
+        if self.degrade_after is None or self._cpu_twin is None:
+            self.device_ticks += 1
+            return self._device_place(ctx)
+        try:
+            out = self._device_place(ctx)
+        except DeviceLostError:
+            raise
+        except Exception as exc:  # noqa: BLE001 — the guard's whole point
+            self._note_kernel_failure(exc)
+            self.twin_ticks += 1
+            return self._cpu_twin.place(ctx)
+        self._degrade.note_success()
+        self.device_ticks += 1
+        return out
 
     def _replicas(self, avail: np.ndarray, n_replicas: int, perturb: float,
                   seed: int) -> np.ndarray:
@@ -896,9 +1176,10 @@ class CudaOpportunisticPolicy(_DevicePolicyBase):
 
     def __init__(self, adaptive: bool = False, phase2="auto",
                  risk_weight: float = 0.0, rework_cost: float = 1.0,
-                 weights=None, device="cuda"):
+                 weights=None, device="cuda",
+                 degrade_after: Optional[int] = None):
         super().__init__(adaptive, phase2, risk_weight, rework_cost, weights,
-                         device)
+                         device, degrade_after)
         self._cpu_twin = OpportunisticPolicy(mode="numpy",
                                              weights=self.weights)
 
@@ -935,9 +1216,10 @@ class CudaFirstFitPolicy(_DevicePolicyBase):
 
     def __init__(self, decreasing: bool = False, adaptive: bool = False,
                  phase2="auto", risk_weight: float = 0.0,
-                 rework_cost: float = 1.0, weights=None, device="cuda"):
+                 rework_cost: float = 1.0, weights=None, device="cuda",
+                 degrade_after: Optional[int] = None):
         super().__init__(adaptive, phase2, risk_weight, rework_cost, weights,
-                         device)
+                         device, degrade_after)
         self.decreasing = decreasing
         self._cpu_twin = FirstFitPolicy(decreasing=decreasing, mode="numpy",
                                         weights=self.weights)
@@ -993,9 +1275,10 @@ class CudaBestFitPolicy(_DevicePolicyBase):
 
     def __init__(self, decreasing: bool = False, adaptive: bool = False,
                  phase2="auto", risk_weight: float = 0.0,
-                 rework_cost: float = 1.0, weights=None, device="cuda"):
+                 rework_cost: float = 1.0, weights=None, device="cuda",
+                 degrade_after: Optional[int] = None):
         super().__init__(adaptive, phase2, risk_weight, rework_cost, weights,
-                         device)
+                         device, degrade_after)
         self.decreasing = decreasing
         self._cpu_twin = BestFitPolicy(decreasing=decreasing, mode="numpy",
                                        weights=self.weights)
@@ -1052,9 +1335,10 @@ class CudaCostAwarePolicy(_DevicePolicyBase):
                  realtime_bw: bool = False, use_kernel: Optional[bool] = None,
                  adaptive: bool = False, phase2="auto",
                  risk_weight: float = 0.0, rework_cost: float = 1.0,
-                 weights=None, device="cuda"):
+                 weights=None, device="cuda",
+                 degrade_after: Optional[int] = None):
         super().__init__(adaptive, phase2, risk_weight, rework_cost, weights,
-                         device)
+                         device, degrade_after)
         if bin_pack not in ("first-fit", "best-fit"):
             raise ValueError(f"bin_pack must be 'first-fit' or 'best-fit', "
                              f"got {bin_pack!r}")
@@ -1266,7 +1550,8 @@ class CudaCostAwarePolicy(_DevicePolicyBase):
                     risk=st["risk"])
         if self._kernel_serves():
             if self._batch_client is None:
-                placements, _ = self._greedy(*args, **mode, n_eff=T)
+                placements, _ = self._call_kernel(self._greedy, *args,
+                                                  **mode, n_eff=T)
             else:
                 # The module-level call, one key for every session; the
                 # step bound a per-row operand, or T would split flushes.

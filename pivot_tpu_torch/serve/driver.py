@@ -56,11 +56,11 @@ initialises CUDA and builds and loads ``greedy_place`` on the caller's
 thread (``policy.prepare()``), and warms the MPC's evaluator graphs up
 there too (``MpcController.warmup``).  The model-predictive controller
 (``mpc=``, ``pivot_tpu_torch.mpc``) and the recovery plane
-(``recovery=``, ``pivot_tpu_torch.recover``) are the reference's.  Not
-ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-item (Queue 1): the 2-D mesh (``mesh=``, item 9), elastic serving
-(``elastic=``, item 9) and the dispatch profiler (``profiler=``, item
-12).
+(``recovery=``, ``pivot_tpu_torch.recover``) and the sampled dispatch
+profiler (``profiler=``, ``pivot_tpu_torch.obs.DispatchProfiler``) are
+the reference's.  Not ported yet, each raising ``NotImplementedError``
+with its ROADMAP.md item (Queue 1): the 2-D mesh (``mesh=``, item 9)
+and elastic serving (``elastic=``, item 9).
 """
 
 from __future__ import annotations
@@ -183,7 +183,6 @@ class ServeDriver(LogMixin):
         for value, what, item in (
             (mesh, "the 2-D serving mesh (mesh=)", 9),
             (elastic, "elastic mesh serving (elastic=)", 9),
-            (profiler, "the dispatch profiler (profiler=)", 12),
         ):
             if value is not None:
                 raise NotImplementedError(
@@ -235,6 +234,16 @@ class ServeDriver(LogMixin):
         self.tracer = tracer or NULL_TRACER
         self.registry = registry
         self.clock = clock or ObsClock()
+        #: Sampled dispatch profiler (``obs/profiler.py``): attached to
+        #: every device-backed session policy (direct dispatches) AND the
+        #: shared batcher (coalesced flushes); its census lands in
+        #: :meth:`publish_metrics` and :meth:`report`, its ``device``
+        #: spans on the service trace timeline.  ``None`` = zero cost.
+        self.profiler = profiler
+        if profiler is not None and profiler.tracer is None:
+            # Device spans land on the service-wide timeline unless the
+            # caller attached a dedicated tracer explicitly.
+            profiler.tracer = self.tracer
         self.slo = slo or SloMeter(clock=self.clock)
         #: DRF tenant fairness (round 17, ``serve/admission.py``): the
         #: dominant-share reference capacity is the first session's
@@ -340,6 +349,10 @@ class ServeDriver(LogMixin):
                 # The SLO-checkpoint span bound: spans end at the
                 # stream's revealed frontier (serve/session.py).
                 s.scheduler.span_horizon = self.release_frontier
+            if self.profiler is not None and hasattr(
+                s.policy, "enable_profiler"
+            ):
+                s.policy.enable_profiler(self.profiler)
 
     def release_frontier(self) -> float:
         """The admission window's edge: the largest sim instant the
@@ -634,6 +647,10 @@ class ServeDriver(LogMixin):
         new.meter.clock = self.clock
         if getattr(new, "fuse_spans", False) == "slo":
             new.scheduler.span_horizon = self.release_frontier
+        if self.profiler is not None and hasattr(
+            new.policy, "enable_profiler"
+        ):
+            new.policy.enable_profiler(self.profiler)
         client = None
         if self.batcher is not None:
             client = self.batcher.respawn_client()
@@ -1209,7 +1226,7 @@ class ServeDriver(LogMixin):
 
                 self.batcher = DispatchBatcher(
                     len(self.sessions), flush_after=self.flush_after,
-                    tracer=self.tracer,
+                    tracer=self.tracer, profiler=self.profiler,
                     device=self.sessions[0].policy.device,
                     ragged=self.ragged,
                     journal=(
@@ -1348,6 +1365,8 @@ class ServeDriver(LogMixin):
                 registry.set("pivot_mpc_stage_events_total", n, stage=stage)
         for s in sessions:
             s.meter.publish_metrics(registry, run=s.label)
+        if self.profiler is not None:
+            self.profiler.publish_metrics(registry)
         if self._recovery is not None:
             self._recovery.publish(registry)
         return registry.to_json()
@@ -1402,6 +1421,12 @@ class ServeDriver(LogMixin):
             ),
             "slo": self.slo.snapshot(),
             "batcher": dict(self.batcher.stats) if self.batcher else None,
+            # Dispatch-profiler census: per-family sampled latency and
+            # model-ratio medians; present when profiling.
+            **(
+                {"profiler": self.profiler.summary()}
+                if self.profiler is not None else {}
+            ),
             "per_session": [
                 s.summary() for s in self.sessions + self._retired
             ],

@@ -31,8 +31,8 @@ class ClusterConfig:
     shape: HostShape = HostShape()
     uniform: bool = True
     seed: Optional[int] = 0
-    #: 'python' serves network chunks on the event kernel; 'native' (the
-    #: C++ co-simulator of ``pivot_tpu/native``) is not ported yet.
+    #: 'python' serves network chunks on the event kernel; 'native' in
+    #: the C++ co-simulator (``pivot_tpu_torch/native``).
     network: str = "python"
     #: 'fast' drives executions with bare callbacks; 'process' mirrors the
     #: reference's one-process-per-execution shape.  Bit-identical runs.

@@ -14,6 +14,7 @@ from pivot_tpu_torch.obs.tracer import (  # noqa: F401 — re-exports
     NULL_TRACER,
     TERMINAL_STAGES,
     Tracer,
+    device_profile,
 )
 
-__all__ = ["Tracer", "NULL_TRACER", "TERMINAL_STAGES"]
+__all__ = ["Tracer", "NULL_TRACER", "TERMINAL_STAGES", "device_profile"]

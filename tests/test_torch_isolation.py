@@ -12,11 +12,15 @@ registry), a lock-step ``overall --batch-runs 2``, ``serve`` with
 serve spans (``--fuse-spans slo``) and resident carries (``--resident
 --splice-tier 1``), ``serve --mpc`` with one planner window scored, and
 a resident serve with the recovery plane armed, on the CPU, imports the
-trace converter and sampler, and lists what is in ``sys.modules``.  A static AST scan covers every file of the
-package — ``serve/``, ``sched/batch.py``, ``obs/``, ``search/``,
-``experiments/search.py``, ``experiments/spot.py``,
-``experiments/sample.py``, ``workload/``, ``parallel/ensemble/``,
-``mpc/``, ``recover/`` and ``tools/`` among them — and ``chip_smoke.py``.
+trace converter and sampler, and lists what is in ``sys.modules``; a
+second probe runs ``overall --network native`` (the C++ fabric), one
+device policy degraded by an injected kernel fault and promoted back by
+a half-open probe, and ``serve --profile-dispatch``.  A static AST scan covers
+every file of the package — ``serve/``, ``sched/batch.py``, ``obs/``
+(``obs/profiler.py`` among them), ``search/``, ``experiments/search.py``,
+``experiments/spot.py``, ``experiments/sample.py``, ``workload/``,
+``parallel/ensemble/``, ``mpc/``, ``recover/``, ``native/``,
+``infra/roofline.py`` and ``tools/`` among them — and ``chip_smoke.py``.
 """
 
 import ast
@@ -177,6 +181,67 @@ def test_port_runs_without_jax_or_reference_modules():
     assert report["modules"] == []
 
 
+#: The native fabric, the degrade guard and the dispatch profiler, in a
+#: probe of their own (the first probe is near the per-test budget).
+PROBE_12 = r"""
+import json, sys, tempfile
+from pivot_tpu_torch.experiments import cli
+from pivot_tpu_torch.experiments.runner import ExperimentRun
+from pivot_tpu_torch.utils.config import (
+    ClusterConfig, PolicyConfig, build_cluster, make_policy)
+with tempfile.TemporaryDirectory() as out:
+    _, native_runs = cli.run_overall(cli.parse_args(
+        ["--device", "numpy", "--num-hosts", "8", "--trace-limit", "1",
+         "--network", "native", "--output-dir", out, "overall",
+         "--num-apps", "3"]))
+    deg = make_policy(PolicyConfig(name="first-fit", device="cuda",
+                                   adaptive=False), torch_device="cpu",
+                      dtype="float64")
+    deg.degrade_after, deg._degrade.probe_every = 1, 1
+    flaky, left = deg._device_place, [1]
+    def device_place(ctx):
+        if left[0]:
+            left[0] -= 1
+            raise RuntimeError("injected kernel fault")
+        return flaky(ctx)
+    deg._device_place = device_place
+    ExperimentRun("deg", build_cluster(ClusterConfig(n_hosts=8, seed=0)),
+                  deg, "data/jobs/jobs-5000-200-172800-259200.npz",
+                  n_apps=3, seed=0).run()
+    prof = cli.run_serve_stream(cli.parse_args(
+        ["--num-hosts", "8", "--output-dir", out, "serve", "--sessions",
+         "2", "--jobs", "6", "--arrival-rate", "0.5",
+         "--profile-dispatch", "2"]), torch_device="cpu")
+print(json.dumps({
+    "native_arms": [s["label"] for s in native_runs],
+    "degrade": [deg.kernel_failures, deg._degrade.probes,
+                deg._degrade.promotions, deg.degraded],
+    "profiled_families": sorted(prof["profiler"]["families"]),
+    "modules": sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "pivot_tpu")),
+}))
+"""
+
+
+def test_native_guard_profiler_run_without_jax_or_reference_modules():
+    """``overall --network native``, a device policy degraded by an
+    injected kernel fault and promoted back by a half-open probe, and
+    ``serve --profile-dispatch`` load neither ``jax`` nor ``pivot_tpu``."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", PROBE_12], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["native_arms"] == ["Opportunistic", "VBP", "Cost-Aware"]
+    failures, probes, promotions, degraded = report["degrade"]
+    assert (failures, promotions, degraded) == (1, 1, False)
+    assert probes >= 1
+    assert report["profiled_families"] == ["cost_aware"]
+    assert report["modules"] == []
+
+
 def _sources():
     pkg = os.path.join(ROOT, "pivot_tpu_torch")
     for dirpath, _dirs, files in os.walk(pkg):
@@ -242,5 +307,8 @@ def test_no_file_of_the_port_imports_jax_or_reference():
             "pivot_tpu_torch/recover/__init__.py",
             "pivot_tpu_torch/recover/journal.py",
             "pivot_tpu_torch/recover/snapshot.py",
-            "pivot_tpu_torch/recover/watchdog.py"} <= seen
+            "pivot_tpu_torch/recover/watchdog.py",
+            "pivot_tpu_torch/native/__init__.py",
+            "pivot_tpu_torch/obs/profiler.py",
+            "pivot_tpu_torch/infra/roofline.py"} <= seen
     assert offenders == []

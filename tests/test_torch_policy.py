@@ -341,9 +341,10 @@ def test_features_of_later_slices_raise(metas):
     """Spans, chunk commit and cross-run batching are ported: the device
     policies are span-capable by the reference's rule, ``phase2=8`` is
     served, and ``enable_batching`` takes a client (refusing the adaptive
-    twin, ``tests/test_torch_batch.py``).  Sharding,
-    the fault gate and the profiler still raise; the resident carry is
-    ported (``tests/test_torch_resident.py``)."""
+    twin, ``tests/test_torch_batch.py``).  Sharding and the fault gate
+    still raise; the resident carry (``tests/test_torch_resident.py``),
+    the dispatch profiler (``tests/test_torch_profiler.py``) and the
+    degrade guard (``tests/test_torch_degrade.py``) are ported."""
     pol = pcuda.CudaCostAwarePolicy(device="cpu")
     assert pol.span_capable()
     for cls in (pcuda.CudaOpportunisticPolicy, pcuda.CudaFirstFitPolicy,
@@ -360,10 +361,14 @@ def test_features_of_later_slices_raise(metas):
     with pytest.raises(ValueError, match="adaptive"):
         pcuda.CudaCostAwarePolicy(device="cpu",
                                   adaptive=True).enable_batching(object())
-    for attach in (pol.enable_sharding, pol.enable_fault_gate,
-                   pol.enable_profiler):
+    for attach in (pol.enable_sharding, pol.enable_fault_gate):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             attach(None)
+    prof = object()
+    pol.enable_profiler(prof)
+    assert pol._profiler is prof
+    pol.enable_profiler(None)
+    assert pol.degrade_after is None and not pol.degraded
     pol.enable_resident()
     assert pol.dispatch_stats()["resident"] == {
         "spans": 0, "splices": 0, "edit_rows": 0, "d2h_bytes": 0}

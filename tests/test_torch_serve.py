@@ -332,17 +332,21 @@ def test_supervisor_restart_on_fresh_batcher_slot():
 
 def test_not_ported_options_raise(tmp_path):
     """The options of later slices raise naming their item; the resident
-    pool and serve spans (item 4), the recovery plane (item 8) and the MPC
-    (item 5) are ported and construct (``tests/test_torch_serve_spans.py``,
-    ``test_torch_recovery.py`` and ``test_torch_mpc.py`` run them)."""
+    pool and serve spans (item 4), the recovery plane (item 8), the MPC
+    (item 5) and the dispatch profiler (item 12) are ported and construct
+    (``tests/test_torch_serve_spans.py``, ``test_torch_recovery.py``,
+    ``test_torch_mpc.py`` and ``test_torch_profiler.py`` run them)."""
     from pivot_tpu_torch.mpc import MpcConfig
+    from pivot_tpu_torch.obs import DispatchProfiler
 
     ss = sessions(pserve, pconfig, numpy_policy, 1)
     for kw, item in ((dict(mesh=object()), "item 9"),
-                     (dict(elastic=object()), "item 9"),
-                     (dict(profiler=object()), "item 12")):
+                     (dict(elastic=object()), "item 9")):
         with pytest.raises(NotImplementedError, match=item):
             pserve.ServeDriver(ss, **kw)
+    prof = DispatchProfiler(4)
+    profiled = pserve.ServeDriver(ss, profiler=prof)
+    assert profiled.report()["profiler"] == prof.summary()
     with pytest.raises(TypeError, match="RecoveryConfig"):
         pserve.ServeDriver(ss, recovery=object())
     armed = pserve.ServeDriver(
@@ -402,12 +406,15 @@ def test_cli_serve_report_has_reference_keys(tmp_path, capsys, extra):
     (["--shard-hosts", "2"], "item 9"),
     (["--mpc", "--autoscale", "1:2"], "mutually exclusive"),
     (["--mpc-dry-run"], "require --mpc"),
-    (["--profile-dispatch", "4"], "item 12")])
+    (["--profile-dispatch", "4"], "requires --device cuda")])
 def test_cli_serve_not_ported_flags_exit_naming_item(flags, item, capsys):
+    """Refused serve flags exit naming why; ``--profile-dispatch`` is
+    ported and exits only off the device."""
     from pivot_tpu_torch.experiments import cli as pcli
 
+    device = ["--device", "numpy"] if "--profile-dispatch" in flags else []
     with pytest.raises(SystemExit):
-        pcli.parse_args(["serve", *flags])
+        pcli.parse_args([*device, "serve", *flags])
     assert item in capsys.readouterr().err
 
 
