@@ -10,8 +10,10 @@
     python3 chip_smoke.py --phases 12  # serve --mpc and the recovery plane
     python3 chip_smoke.py --phases 13  # native fabric, degrade guard,
                                        # dispatch profiler, --profile-dir
+    python3 chip_smoke.py --phases 14  # graftcheck, kernel budget, cost
+                                       # attribution, compile check, worker
 
-One card.  ``--phases`` takes a comma list; phases 2-5 and 10-13 bring
+One card.  ``--phases`` takes a comma list; phases 2-5 and 10-14 bring
 phase 1's build along, phase 5 the runs of phases 3 and 4, phase 13
 phase 3's run (its python-fabric arms are what the native fabric is held
 against).
@@ -37,7 +39,7 @@ Phases, each fatal on failure:
      shared-memory-state build at H = 9664.  Placements must be equal;
      availability within rtol 1e-6 / atol 1e-5;
   3. end to end: the ``overall`` experiment (Opportunistic, VBP,
-     Cost-Aware) at 600 hosts x 150 apps through the port's CLI entry
+     Cost-Aware) at 600 hosts x 100 apps through the port's CLI entry
      point, on ``--device cuda --no-adaptive`` with fused spans (the
      default), again with fusion off, and on ``--device numpy``.  Every
      span of the fused run executes under
@@ -84,7 +86,7 @@ Phases, each fatal on failure:
      apps, R = 1024, both arms — wall, replica rollouts/s, ticks,
      placement steps, host reads, CUDA-event ms of the tick loop, peak
      memory, its first 16 replicas equal to the R = 16 run; a
-     ``torch.profiler`` window of ticks 300-350 per arm; the cost-aware
+     ``torch.profiler`` window of ticks 300-325 per arm; the cost-aware
      run's first 2 replicas against the port on the CPU; best-fit,
      opportunistic and lifo at 10 apps, card against CPU.  Placements,
      finish times, makespans, instance-hours and unfinished counts must
@@ -263,7 +265,33 @@ Phases, each fatal on failure:
      kernel launch after the warm-up, and the Cost-Aware trace the
      ``greedy_place`` kernel by name, as many as the run's launches.
      Every ``greedy_place`` launch of the phase is held against its
-     plain version.
+     plain version;
+ 14. the tooling that reads the port: (a) ``python -m
+     pivot_tpu_torch.analysis --json`` over the checkout is clean; (b)
+     the ``kernel-budget`` pass against the card — the static
+     shared-memory bytes of every launch shape the script computed
+     (recorded on ``cuda_kernels._launch_config``'s cache misses, never
+     on the launch path) equal ``_launch_config``'s
+     and fit the card's opt-in shared memory per block, and phase 1's
+     ``ptxas`` registers x each instantiation's thread limit fit the
+     65,536-register file (spills printed); (c)
+     ``cost_attribution(device="cuda")`` is complete, with each torch
+     row's dispatched ops, bytes, CUDA-event ``device_ms`` and model
+     ratios and ``greedy_place``'s rows at R = 1, R = 4 and per-row
+     G = 2; (d) ``--compile-check full``: after warming the span path,
+     the serve dispatch path and one ensemble snapshot shape, a steady
+     window counts 0 kernel builds and 0 graph captures, and a new
+     snapshot shape exactly 1 capture; (e) the ``worker`` subcommand in
+     this process, stdin swapped: the README's three-arm ``overall`` at
+     8 apps twice, a malformed line, ``quit`` — both requests'
+     ``general.json`` byte-equal to a one-shot run of the same argv in a
+     fresh process (``P14OneShot``: started after phase 1's build, run
+     beside phase 2, which times nothing, and ended before phase 3, so
+     no time of the script is taken beside it), the malformed line
+     answered ``ok: false``, the figures named as skipped where
+     matplotlib is absent.
+     Every ``greedy_place`` launch of the phase, (c)'s timed calls too,
+     is held against its plain version.
 
 The CPU sides of the card-vs-CPU checks of phases 6 (b) and (d), 7 (c),
 8 (c) and 9 (c) run in one spawned worker process a phase
@@ -277,8 +305,8 @@ kernel failure: no failure is served by the numpy twin unseen.
 
 Each phase logs its wall.  The line before the last is a JSON
 ``kernels`` record (its ``launches`` split into the R = 1 launches of
-phases 3, 4, 10-13, the R = 256 launches of phase 4 and the per-row
-launches of phases 10-13, with the per-row form's times; a number
+phases 3, 4, 10-14, the R = 256 launches of phase 4, the R = 4 launches
+of phase 14 and the per-row launches of phases 10-14, with the per-row form's times; a number
 of a phase not run is null); the
 last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
@@ -288,8 +316,10 @@ result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
+import functools
 import io
 import json
 import os
@@ -997,9 +1027,10 @@ def make_shadow_policy(cuda_mod, ck):
     return ShadowCostAware
 
 
-#: Phase 3's depth: 150 apps, not 1000: cut to 500 when phase 9 came
-#: and to 150 for phase 11, for the script's 1,200 s (PERF.md, section 4).
-E2E_APPS = 150
+#: Phase 3's depth: 100 apps, not 1000: cut to 500 when phase 9 came,
+#: to 150 for phase 11 and to 100 for phase 14, for the script's 1,200 s
+#: (PERF.md, section 4).
+E2E_APPS = 100
 
 
 def phase_end_to_end(device, n_hosts=600, n_apps=E2E_APPS):
@@ -1699,9 +1730,9 @@ def cpu_rollout(n_apps, policy, kw) -> tuple:
 
 #: Phase 6 (e): the profiled window's first tick (cut from 600 to 300 for
 #: phase 13: the unprofiled ticks before it are walked again for each
-#: arm) and its length.
+#: arm) and its length (cut from 50 to 25 for phase 14).
 ENS_PROFILE_SKIP = 300
-ENS_PROFILE_WINDOW = 50
+ENS_PROFILE_WINDOW = 25
 
 
 def ensemble_profile(on_card, args, key, policy, skip=ENS_PROFILE_SKIP,
@@ -4383,15 +4414,16 @@ def p12_soak(device, chk, n_hosts=600) -> dict:
     from pivot_tpu_torch.mpc.forecast import TierForecast, render_env
     from pivot_tpu_torch.mpc.planner import enumerate_actions, plan
     from pivot_tpu_torch.ops import cuda_kernels as ck
-    from pivot_tpu_torch.parallel.ensemble.tick import SNAPSHOT_GRAPHS
     from pivot_tpu_torch.search import fitness as F
     from pivot_tpu_torch.search.weights import DEFAULT_WEIGHTS
     from pivot_tpu_torch.utils import reset_ids
+    from pivot_tpu_torch.utils.compile_counter import count_compiles
 
     cfg = MpcConfig(g_min=1, g_max=4, referee_every=4, tune=True, seed=0)
     # One window timed before the run sets the pace: the stream lasts
-    # the wall of 2 x P12_WINDOWS windows in the run (a referee window
-    # runs two plans), within 12-40 s.
+    # the wall of 1.5 x P12_WINDOWS windows in the run (a referee window
+    # runs two plans), within 12-40 s (at 2 x the whole script planned
+    # 21-25 windows, at 1 x 9 of the 8 needed).
     reset_ids()
     tpl = p12_cluster(cli, n_hosts)
     from pivot_tpu_torch.infra.market import MarketSchedule
@@ -4410,7 +4442,7 @@ def p12_soak(device, chk, n_hosts=600) -> dict:
     window_s = time.perf_counter() - t0 + cfg.check_interval_s
     sim_span = P12_SOAK_JOBS / P12_SOAK_RATE
     wall_target = min(max(
-        2 * P12_WINDOWS * 1.25 * P12_CONTENTION * window_s, 12.0), 40.0)
+        1.5 * P12_WINDOWS * 1.25 * P12_CONTENTION * window_s, 12.0), 40.0)
     pace = sim_span / wall_target
     log(f"  (b) one window {window_s!r} s: pace {pace!r} sim-s a wall-s "
         f"for ~{wall_target!r} s of stream")
@@ -4418,8 +4450,8 @@ def p12_soak(device, chk, n_hosts=600) -> dict:
     rec = ServeRecorder()
     reset_ids()
     ck.reset_launches()
-    captures0 = SNAPSHOT_GRAPHS.captures
-    with rec.attach(), p12_eval_tap(F) as evals, \
+    with count_compiles() as compiles, rec.attach(), \
+            p12_eval_tap(F) as evals, \
             p12_planner_tap(PC) as (plans, referees):
         def make_session(label):
             return serve.ServeSession(label, p12_cluster(cli, n_hosts),
@@ -4481,7 +4513,7 @@ def p12_soak(device, chk, n_hosts=600) -> dict:
         actions=ctl.action_counts(), tuner_rounds=ctl.tuner.rounds,
         tuner_eligible=m["tuner"]["eligible"], rollout_stages=stages,
         captures_after_warmup=ctl.captures_after_warmup(),
-        captures_in_run=SNAPSHOT_GRAPHS.captures - captures0,
+        captures_in_run=compiles.graph_captures,
         outcome=p12_outcome(report), pool=report["pool"],
         launches=launches,
         p50_ms=report["slo"]["decision_latency_s"]["p50"] * 1e3,
@@ -5284,6 +5316,370 @@ def phase_native_guard_profiler(device, e2e) -> dict:
     return rec
 
 
+#: Phase 14 (e): the README's three-arm ``overall`` at this many apps,
+#: served twice by the resident worker.
+P14_WORKER_APPS = 8
+#: Phase 14 (d): the falsifier's new norm-snapshot layout ``[R, H, 4]``
+#: (the compile check warms ``[4, 64, 4]``).
+P14_NEW_SNAPSHOT = (8, 64)
+
+
+class LaunchConfigs:
+    """Every launch shape of ``greedy_place`` the script computes,
+    ``(config, Z)``, read by phase 14 (b).  Each launch takes its shape
+    from ``cuda_kernels._launch_config``, a ``functools.lru_cache``; this
+    puts a fresh cache of the same size in its place whose function
+    records the shape and computes it.  Only a miss records, so a launch
+    whose shape is cached (every timed one) runs the same cache lookup as
+    without it, and the launch site itself is untouched."""
+
+    def __init__(self):
+        self.seen = set()
+
+    def install(self) -> "LaunchConfigs":
+        from pivot_tpu_torch.ops import cuda_kernels as ck
+
+        self._ck, self._config = ck, ck._launch_config
+        compute, seen = ck._launch_config.__wrapped__, self.seen
+
+        @functools.lru_cache(
+            maxsize=ck._launch_config.cache_parameters()["maxsize"])
+        def launch_config(R, H, Z, warps=None):
+            cfg = compute(R, H, Z, warps)
+            seen.add((cfg, Z))
+            return cfg
+
+        ck._launch_config = launch_config
+        return self
+
+    def uninstall(self) -> None:
+        self._ck._launch_config = self._config
+
+
+def p14_analysis() -> dict:
+    """(a) ``python -m pivot_tpu_torch.analysis --json`` over the
+    checkout: clean, every rule listed."""
+    from pivot_tpu_torch.analysis import main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(["--json"])
+    rep = json.loads(out.getvalue())
+    if rc != 0 or not rep["clean"]:
+        raise AssertionError(f"(a) graftcheck findings: {rep['findings']}")
+    log(f"  (a) python -m pivot_tpu_torch.analysis --json: clean, "
+        f"{len(rep['rules'])} rules: {', '.join(rep['rules'])}")
+    return dict(rules=rep["rules"], clean=True)
+
+
+def p14_budget(configs, ptxas_rows) -> dict:
+    """(b) The ``kernel-budget`` pass against the card: the static
+    shared-memory bytes of every launch shape the script made equal
+    ``_launch_config``'s and fit the card's opt-in shared memory per
+    block; ``ptxas``'s registers x each instantiation's thread limit fit
+    the register file (spills printed, not failed)."""
+    from pivot_tpu_torch.analysis import kernel_budget as kb
+    from pivot_tpu_torch.infra.roofline import H100_REGS_PER_BLOCK
+    from pivot_tpu_torch.ops import cuda_kernels as ck
+
+    model = kb.cuda_model()
+    if model is None:
+        raise AssertionError("(b) greedy_place.cu unreadable by the pass")
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    shapes = set(configs) | {(ck._launch_config(1, 600, Z), Z),
+                             (ck._launch_config(SENS_REPLICAS, 600, Z), Z)}
+    rows = []
+    for cfg, z in sorted(shapes, key=lambda c: (c[1], tuple(c[0]))):
+        static = model.smem_bytes(z, cfg.warps, cfg.groups,
+                                  cfg.hosts_per_thread, cfg.smem_state)
+        if static != cfg.smem_bytes or static > optin:
+            raise AssertionError(
+                f"(b) {cfg} at Z={z}: the pass counts {static} B of shared "
+                f"memory, _launch_config {cfg.smem_bytes} B, the card's "
+                f"opt-in {optin} B")
+        rows.append(dict(W=cfg.warps, K=cfg.hosts_per_thread,
+                         smem_state=cfg.smem_state, G=cfg.groups, Z=z,
+                         smem_bytes=static))
+    bad = kb.register_findings(ptxas_rows, H100_REGS_PER_BLOCK)
+    if bad or not ptxas_rows:
+        raise AssertionError(f"(b) registers: {[str(f) for f in bad]} "
+                             f"({len(ptxas_rows)} ptxas rows)")
+    regs = [dict(K=r["K"], state=r["state"], registers=r["registers"],
+                 threads=model.max_threads(r["K"], r["state"] == "smem"),
+                 spill_stores=r.get("spill_stores"),
+                 spill_loads=r.get("spill_loads")) for r in ptxas_rows]
+    log(f"  (b) kernel-budget on the card: {len(rows)} launch shapes, "
+        f"static shared memory = _launch_config's, at most "
+        f"{max(r['smem_bytes'] for r in rows)} B against the card's opt-in "
+        f"{optin} B (roofline H100_SMEM_OPTIN_BYTES "
+        f"{ck._SMEM_LIMIT}); registers x threads <= {H100_REGS_PER_BLOCK}: "
+        + ", ".join(f"K={r['K']}{'s' if r['state'] == 'smem' else ''} "
+                    f"{r['registers']}x{r['threads']}"
+                    f"={r['registers'] * r['threads']}" for r in regs))
+    spills = [r for r in regs if r["spill_stores"] or r["spill_loads"]]
+    log("  (b) spills (printed, not failed): " + (", ".join(
+        f"K={r['K']} {r['spill_stores']} B stored / {r['spill_loads']} B "
+        "loaded" for r in spills) or "none"))
+    return dict(shapes=rows, optin=optin, registers=regs)
+
+
+def p14_costattr(device) -> dict:
+    """(c) ``cost_attribution(device="cuda")``: complete, each torch
+    row's ops, bytes, CUDA-event ``device_ms`` and model ratios, and the
+    hand kernel's rows (R = 1, R = 4, per-row G = 2), each launch held
+    against its plain version inside the call."""
+    from pivot_tpu_torch.obs.costattr import cost_attribution
+    from pivot_tpu_torch.ops import cuda_kernels as ck
+
+    n0 = dict(ck.LAUNCHES_BY_REPLICAS), dict(ck.LAUNCHES_ROWS)
+    rep = cost_attribution(device=str(device))
+    if not rep["complete"]:
+        raise AssertionError(f"(c) cost attribution incomplete: "
+                             f"{rep['coverage_problems']}")
+    kern = {n: r for n, r in rep["rows"].items() if "kernel" in r}
+    if sorted(r["form"] for r in kern.values()) != ["r1", "r4", "rows"]:
+        raise AssertionError(f"(c) hand-kernel rows: {sorted(kern)}")
+    for name, r in kern.items():
+        if r["compared"] != r["launches"]:
+            raise AssertionError(f"(c) {name}: {r['launches']} launches, "
+                                 f"{r['compared']} held against plain")
+    log(f"  (c) cost_attribution(device='cuda') at T={rep['t']}, "
+        f"H={rep['h']}: complete, {rep['measured']} measured, "
+        f"{rep['flagged']} flagged, {len(rep['reference'])} reference "
+        f"entries covered ({rep['device']})")
+    for name, r in sorted(rep["rows"].items()):
+        if "flagged" in r:
+            continue
+        log(f"    {name}: " + (
+            f"greedy_place {r['form']}: {r['launches']} launch(es), each "
+            f"held against plain, device_ms {r['device_ms']!r}, bytes {r['bytes']!r}, "
+            f"max |avail diff| vs plain {r['max_abs_err']!r}, "
+            f"bytes_vs_model {r.get('bytes_vs_model')!r}"
+            if "kernel" in r else
+            f"ops {r['ops']}, bytes {r['bytes']!r}, flops {r['flops']!r}, "
+            f"device_ms {r['device_ms']!r}, flops_vs_model "
+            f"{r.get('flops_vs_model')!r}, bytes_vs_model "
+            f"{r.get('bytes_vs_model')!r}"))
+    r1 = ck.LAUNCHES_BY_REPLICAS.get(1, 0) - n0[0].get(1, 0)
+    r4 = ck.LAUNCHES_BY_REPLICAS.get(4, 0) - n0[0].get(4, 0)
+    g2 = ck.LAUNCHES_ROWS.get(2, 0) - n0[1].get(2, 0)
+    return dict(rows=rep["rows"], launches_r1=r1, launches_r4=r4,
+                launches_rows_g2=g2,
+                max_abs_err=max(r["max_abs_err"] for r in kern.values()))
+
+
+def p14_compile(device, chk) -> dict:
+    """(d) ``--compile-check full`` on the card (the fused span driver,
+    the serve dispatch path and one ensemble snapshot shape warmed, then
+    a steady window: 0 kernel builds, 0 graph captures), every
+    ``greedy_place`` launch of its serve runs held against the plain
+    version; then the falsifier: a new snapshot shape counts exactly one
+    ``graph_capture``, and its second use none."""
+    from pivot_tpu_torch import analysis
+    from pivot_tpu_torch.ops import cuda_kernels as ck
+    from pivot_tpu_torch.utils.compile_counter import count_compiles
+
+    rec = ServeRecorder()
+    n0 = ck.LAUNCHES["greedy_place"]
+    out = io.StringIO()
+    with rec.attach(), contextlib.redirect_stdout(out):
+        rc = analysis.main(["--compile-check", "full", "--device",
+                            str(device)])
+    launches = ck.LAUNCHES["greedy_place"] - n0
+    if rc != 0:
+        raise AssertionError(f"(d) --compile-check full failed: "
+                             f"{out.getvalue()}")
+    if launches != len(rec.r1) + len(rec.rows) or not launches:
+        raise AssertionError(f"(d) {launches} launches, {len(rec.r1)} R=1 "
+                             f"and {len(rec.rows)} per-row recorded")
+    p12_hold(ck, rec, chk, "(d) compile-check serve")
+    R, H = P14_NEW_SNAPSHOT
+    with count_compiles() as new:
+        analysis._snapshot_once(device, R, H)
+    with count_compiles() as again:
+        analysis._snapshot_once(device, R, H)
+    if (new.graph_captures, new.kernel_builds) != (1, 0) or \
+            (again.graph_captures, again.kernel_builds) != (0, 0):
+        raise AssertionError(
+            f"(d) falsifier: a new snapshot shape counted "
+            f"{new.graph_captures} capture(s) / {new.kernel_builds} "
+            f"build(s), its second use {again.graph_captures} / "
+            f"{again.kernel_builds}")
+    log(f"  (d) {out.getvalue().strip()}; {launches} greedy_place "
+        f"launches in its serve runs (R=1 {len(rec.r1)}, per-row "
+        f"{len(rec.rows)}), each = plain; a new snapshot shape "
+        f"[{R}, {H}, 4]: 1 graph capture, its second use 0")
+    return dict(launches_r1=len(rec.r1), launches_rows=len(rec.rows),
+                launches_rows_by_g=dict(collections.Counter(
+                    int(a[0].shape[0]) for a, _k, _o in rec.rows)))
+
+
+class _Requests:
+    """The worker's stdin: the request lines in turn.  Before a request
+    that repeats the one before it, wait for the clock's next whole
+    second, so that the repeat stamps its own experiment directory
+    (``<output-dir>/overall/<int(time.time())>``) and runs anew."""
+
+    def __init__(self, lines):
+        self.lines = lines
+
+    def __iter__(self):
+        prev = None
+        for line in self.lines:
+            if line == prev:
+                time.sleep(1.0 - (time.time() % 1.0) + 0.01)
+            prev = line
+            yield line + "\n"
+
+
+class P14OneShot:
+    """(e)'s one-shot run: the README's three-arm ``overall`` at
+    ``P14_WORKER_APPS`` apps through the CLI in a fresh process.  It
+    needs phase 1's build, and ``main`` ends it before the first phase
+    that times the card: it runs beside phase 2, which only compares
+    the kernel with its plain version, so no time the script reports is
+    taken beside a second process on the card."""
+
+    def __init__(self):
+        self._tmp = tempfile.TemporaryDirectory(dir=os.getcwd())
+        self.job_dir = _trace_job_dir(self._tmp.name)
+        self.out = os.path.join(self._tmp.name, "oneshot")
+        self.worker_out = os.path.join(self._tmp.name, "worker")
+        self.ref_dir = self.wall_s = None
+        argv = overall_argv(self.out, self.job_dir, "cuda")
+        argv[-1] = str(P14_WORKER_APPS)
+        os.makedirs(self.out)
+        self._log = os.path.join(self.out, "oneshot.log")
+        self._t0 = time.perf_counter()
+        with open(self._log, "w") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "pivot_tpu_torch.experiments.cli",
+                 *argv], stdout=f, stderr=subprocess.STDOUT)
+
+    def wait(self) -> None:
+        """Wait for the run (killed after 600 s); raises if it failed.
+        Sets ``ref_dir``, its experiment directory."""
+        if self.ref_dir is not None:
+            return
+        try:
+            rc = self.proc.wait(timeout=600)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        self.wall_s = time.perf_counter() - self._t0
+        if rc != 0:
+            with open(self._log) as f:
+                raise AssertionError(f"(e) one-shot run failed:\n"
+                                     f"{f.read()[-2000:]}")
+        (self.ref_dir,) = [
+            os.path.join(self.out, "overall", d)
+            for d in os.listdir(os.path.join(self.out, "overall"))]
+
+    def cleanup(self) -> None:
+        self._tmp.cleanup()
+
+
+def p14_worker(chk, oneshot) -> dict:
+    """(e) ``worker`` in this process, stdin swapped: the README's
+    three-arm ``overall`` at ``P14_WORKER_APPS`` apps, the same request
+    again, a malformed line, ``quit``.  Both requests' ``general.json``
+    files are byte-equal to the one-shot run's (``P14OneShot``), the
+    malformed line answers ``ok: false``, every launch is held against
+    the plain version; without matplotlib the figures are named on
+    stderr."""
+    import importlib.util
+
+    from pivot_tpu_torch.experiments import cli
+    from pivot_tpu_torch.ops import cuda_kernels as ck
+
+    oneshot.wait()
+    out_dir, ref_dir = oneshot.worker_out, oneshot.ref_dir
+    argv = overall_argv(out_dir, oneshot.job_dir, "cuda")
+    argv[-1] = str(P14_WORKER_APPS)
+    req = json.dumps(argv)
+    tap = CloneTap()
+    out, err = io.StringIO(), io.StringIO()
+    stdin = sys.stdin
+    n0 = ck.LAUNCHES["greedy_place"]
+    try:
+        sys.stdin = _Requests([req, req, '{"not": "argv"}', "quit"])
+        with tap.attach(), contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            cli.run_worker()
+    finally:
+        sys.stdin = stdin
+    launches = ck.LAUNCHES["greedy_place"] - n0
+    lines = out.getvalue().splitlines()
+    sent = [json.loads(ln) for ln in lines if ln.startswith('{"served"')]
+    dirs = [ln for ln in lines if ln.startswith(out_dir)
+            and ln.rstrip("/").split("/")[-2] == "overall"]
+    if [s["ok"] for s in sent] != [True, True, False] or len(dirs) != 2 \
+            or dirs[0] == dirs[1]:
+        raise AssertionError(f"(e) worker answers {sent}, experiment dirs "
+                             f"{dirs}:\n{out.getvalue()[-2000:]}")
+    for arm in ARMS:
+        rel = os.path.join("data", "0", arm, "general.json")
+        with open(os.path.join(ref_dir, rel), "rb") as f:
+            want = f.read()
+        for d in dirs:
+            with open(os.path.join(d, rel), "rb") as f:
+                if f.read() != want:
+                    raise AssertionError(f"(e) {arm}: {d}'s general.json "
+                                         "differs from the one-shot run's")
+    if len(tap.calls) != launches or not launches:
+        raise AssertionError(f"(e) {launches} launches, {len(tap.calls)} "
+                             "recorded")
+    tap.hold(ck, chk, "(e) worker Cost-Aware")
+    skipped = [ln for ln in err.getvalue().splitlines()
+               if ln.startswith("figures not drawn")]
+    if importlib.util.find_spec("matplotlib") is None and len(skipped) != 2:
+        raise AssertionError(f"(e) without matplotlib each request must "
+                             f"name its skipped figures: {skipped}")
+    log(f"  (e) worker, 4 lines: request 1 wall_s {sent[0]['wall_s']!r}, "
+        f"request 2 (the same) {sent[1]['wall_s']!r}, the malformed line "
+        f"ok={sent[2]['ok']}; both requests' general.json = the one-shot "
+        f"run's (3 arms); {launches} greedy_place launches, each = plain; "
+        f"figures: " + (skipped[0] if skipped else "drawn (matplotlib)"))
+    return dict(wall_s=[s["wall_s"] for s in sent[:2]],
+                launches_r1=launches, figures_skipped=skipped)
+
+
+def phase_tooling(device, configs, ptxas_rows, oneshot) -> dict:
+    """Phase 14 (module docstring); ``oneshot``: the ended
+    :class:`P14OneShot`.  Returns its record."""
+    card = card_line()
+    log(f"  [{card}]")
+    chk = Check()
+    rec = {}
+    for key, fn, args in (("analysis", p14_analysis, ()),
+                          ("budget", p14_budget, (configs, ptxas_rows)),
+                          ("costattr", p14_costattr, (device,)),
+                          ("compile", p14_compile, (device, chk)),
+                          ("worker", p14_worker, (chk, oneshot))):
+        t0 = time.perf_counter()
+        rec[key] = fn(*args)
+        rec[key]["wall_s_part"] = time.perf_counter() - t0
+        log(f"  ({'abcde'[len(rec) - 1]}): {rec[key]['wall_s_part']!r} s")
+    ca, cc, wk = rec["costattr"], rec["compile"], rec["worker"]
+    rec["launches_r1"] = (ca["launches_r1"] + cc["launches_r1"]
+                          + wk["launches_r1"])
+    rec["launches_r4"] = ca["launches_r4"]
+    rec["launches_rows_by_g"] = dict(collections.Counter(
+        {2: ca["launches_rows_g2"]}) + collections.Counter(
+        cc["launches_rows_by_g"]))
+    rec["launches_rows"] = sum(rec["launches_rows_by_g"].values())
+    rec["held"] = chk.cases
+    rec["max_abs_err"] = max(chk.max_abs_err, ca["max_abs_err"])
+    log(f"  {chk.cases} greedy_place launches of (d) and (e) held against "
+        f"their plain version ({chk.placed} placements), (c)'s "
+        f"{ca['launches_r1'] + ca['launches_r4'] + ca['launches_rows_g2']} "
+        f"inside cost_attribution; max |avail diff| "
+        f"{rec['max_abs_err']!r}; path launches R=1 {rec['launches_r1']}, "
+        f"R=4 {rec['launches_r4']}, per-row {rec['launches_rows_by_g']}")
+    return rec
+
+
 def phase_5_report(ck, e2e, sens, card, device):
     """Phase 5: times on the card (the main path's wrapper, bare launches,
     the warp sweep, the gated R = 256 launches) and the reports of
@@ -5380,13 +5776,14 @@ def phase_5_report(ck, e2e, sens, card, device):
     return times, gt, spans
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14)
 
 
 def selected_phases(argv) -> set:
-    """``--phases 1,6,7`` (default: all).  Phases 2-5 and 10-13 need
-    phase 1's build, phase 5 the runs of phases 3 and 4, phase 13 the
-    python-fabric run of phase 3: they come along."""
+    """``--phases 1,6,7`` (default: all).  Phases 2-5 and 10-14 need
+    phase 1's build (phase 14 its ``ptxas`` rows too), phase 5 the runs
+    of phases 3 and 4, phase 13 the python-fabric run of phase 3: they
+    come along."""
     import argparse
 
     ap = argparse.ArgumentParser(description="On-card smoke of the port.")
@@ -5399,7 +5796,7 @@ def selected_phases(argv) -> set:
         want |= {3, 4}
     if 13 in want:
         want.add(3)
-    if want & {2, 3, 4, 5, 10, 11, 12, 13}:
+    if want & {2, 3, 4, 5, 10, 11, 12, 13, 14}:
         want.add(1)
     return want
 
@@ -5419,6 +5816,7 @@ def main(argv=None) -> int:
     from pivot_tpu_torch.ops import cuda_kernels as ck
 
     census = PolicyCensus().install()
+    configs = LaunchConfigs().install() if 14 in phases else None
     t_start = time.perf_counter()
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5427,7 +5825,7 @@ def main(argv=None) -> int:
     log(f"phases {sorted(phases)}")
     log(card)
     chk = e2e = sens = times = gt = spans = ens = sweeps = None
-    walls = {}
+    walls, ptxas_rows = {}, []
     if 1 in phases:
         tp = time.perf_counter()
         log("== 1. environment")
@@ -5445,20 +5843,32 @@ def main(argv=None) -> int:
                 f"s (nvcc {' '.join(build.NVCC_FLAGS)})")
             for line in ptxas_usage_lines(ptxas):
                 log(f"  ptxas {line}")
+                ptxas_rows.append(json.loads(line))
         check_shape_tables(build, ck)
         arith_check(build)
         walls[1] = time.perf_counter() - tp
         census_line(census, 1)
         log(f"  phase 1 wall: {walls[1]!r} s")
-    if 2 in phases:
-        tp = time.perf_counter()
-        log("== 2. greedy_place vs plain on the card (f32)")
-        chk = phase_kernel_vs_plain(ck, device)
-        log(f"  {chk.cases} cases, {chk.placed} placements: all equal, max "
-            f"|avail diff| {chk.max_abs_err!r} (rtol {RTOL}, atol {ATOL})")
-        walls[2] = time.perf_counter() - tp
-        census_line(census, 2)
-        log(f"  phase 2 wall: {walls[2]!r} s")
+    # Phase 14 (e)'s one-shot run, beside phase 2 (which times nothing).
+    oneshot = P14OneShot() if 14 in phases else None
+    try:
+        if 2 in phases:
+            tp = time.perf_counter()
+            log("== 2. greedy_place vs plain on the card (f32)"
+                + (" (phase 14's one-shot run beside it)" if oneshot else ""))
+            chk = phase_kernel_vs_plain(ck, device)
+            log(f"  {chk.cases} cases, {chk.placed} placements: all equal, "
+                f"max |avail diff| {chk.max_abs_err!r} (rtol {RTOL}, atol "
+                f"{ATOL})")
+            walls[2] = time.perf_counter() - tp
+            census_line(census, 2)
+            log(f"  phase 2 wall: {walls[2]!r} s")
+    finally:
+        if oneshot is not None:
+            oneshot.wait()
+    if oneshot is not None:
+        log(f"  phase 14 (e)'s one-shot run ended: {oneshot.wall_s!r} s "
+            "from its start")
     if 3 in phases:
         tp = time.perf_counter()
         log(f"== 3. overall, 600 hosts x {E2E_APPS} apps: cuda with fused "
@@ -5576,11 +5986,28 @@ def main(argv=None) -> int:
         walls[13] = time.perf_counter() - tp
         census_line(census, 13)
         log(f"  phase 13 wall: {walls[13]!r} s")
+    p14 = None
+    if 14 in phases:
+        tp = time.perf_counter()
+        log("== 14. the tooling on the card: the graftcheck suite, the "
+            "kernel budget against the card, cost attribution, the compile "
+            "check and its falsifier, the resident worker")
+        p14 = phase_tooling(device, configs.seen, ptxas_rows, oneshot)
+        walls[14] = time.perf_counter() - tp
+        census_line(census, 14)
+        log(f"  phase 14 wall: {walls[14]!r} s")
+    if configs is not None:
+        configs.uninstall()
+    if oneshot is not None:
+        oneshot.cleanup()
     census.uninstall()
     log(json.dumps({
         "times": times, "spans": spans, "ensemble": ens, "sweeps": sweeps,
         "search": search, "congestion": congestion, "serve": serve,
         "batching": batching, "mpc_recovery": p12, "native_guard": p13,
+        "tooling": p14 and {k: v for k, v in p14.items()
+                            if k not in ("costattr",)},
+        "cost_attribution": p14 and p14["costattr"]["rows"],
         "phase_walls": walls,
         "same_files": e2e and e2e["same_files"], "gated_times": gt,
         "sensitivity": sens and {p: {k: v for k, v in r.items()
@@ -5602,6 +6029,8 @@ def main(argv=None) -> int:
         errs.append(p12["max_abs_err"])
     if p13 is not None:
         errs.append(p13["max_abs_err"])
+    if p14 is not None:
+        errs.append(p14["max_abs_err"])
     sv = serve and [serve[k]["launches"] for k in SERVE_RUNS]
     sv_rows = sv and sum(sum(x["rows"].values()) for x in sv)
     sv_r1 = sv and sum(x["by_replicas"].get(1, 0) for x in sv)
@@ -5613,30 +6042,39 @@ def main(argv=None) -> int:
     m_rows = p12 and p12["launches_rows"]
     n_r1 = p13 and p13["launches_r1"]
     n_rows = p13 and p13["launches_rows"]
+    t_r1 = p14 and p14["launches_r1"]
+    t_rows = p14 and p14["launches_rows"]
     record = {"kernels": [{
         "name": "greedy_place",
         "route": "cuda",
         "source": "pivot_tpu_torch/csrc/greedy_place.cu",
         "replaces": "pivot_tpu/ops/pallas_kernels.py:265",
         "launches": (e2e and ca and serve and batching and p12 and p13
+                     and p14
                      and e2e["runs"]["cuda"]["launches"]
                      + sum(ca["launches"].values()) + sv_rows + sv_r1
-                     + b_r1 + b_rows + m_r1 + m_rows + n_r1 + n_rows),
+                     + b_r1 + b_rows + m_r1 + m_rows + n_r1 + n_rows
+                     + t_r1 + p14["launches_r4"] + t_rows),
         "launches_r1": (e2e and ca and serve and batching and p12 and p13
+                        and p14
                         and e2e["runs"]["cuda"]["launches"]
-                        + ca["launches"][1] + sv_r1 + b_r1 + m_r1 + n_r1),
+                        + ca["launches"][1] + sv_r1 + b_r1 + m_r1 + n_r1
+                        + t_r1),
         f"launches_r{SENS_REPLICAS}": ca and ca["launches"][SENS_REPLICAS],
-        "launches_rows": serve and batching and p12 and p13
-        and sv_rows + b_rows + m_rows + n_rows,
-        "launches_rows_by_g": sv and batching and p12 and p13 and {
+        "launches_r4": p14 and p14["launches_r4"],
+        "launches_rows": serve and batching and p12 and p13 and p14
+        and sv_rows + b_rows + m_rows + n_rows + t_rows,
+        "launches_rows_by_g": sv and batching and p12 and p13 and p14 and {
             g: sum(x["rows"].get(g, 0) for x in sv)
             + batching["launches_rows_by_g"].get(g, 0)
             + p12["launches_rows_by_g"].get(g, 0)
             + p13["launches_rows_by_g"].get(g, 0)
+            + p14["launches_rows_by_g"].get(g, 0)
             for g in sorted({g for x in sv for g in x["rows"]}
                             | set(batching["launches_rows_by_g"])
                             | set(p12["launches_rows_by_g"])
-                            | set(p13["launches_rows_by_g"]))},
+                            | set(p13["launches_rows_by_g"])
+                            | set(p14["launches_rows_by_g"]))},
         "phase11_launches_r1": b_r1,
         "phase11_launches_rows": b_rows,
         "phase11_compare_launches_r1": batching
@@ -5647,6 +6085,9 @@ def main(argv=None) -> int:
         "phase13_launches_r1": n_r1,
         "phase13_launches_rows": n_rows,
         "phase13_compare_launches": p13 and p13["compare_launches"],
+        "phase14_launches_r1": t_r1,
+        "phase14_launches_r4": p14 and p14["launches_r4"],
+        "phase14_launches_rows": t_rows,
         "max_abs_err": max(errs) if errs else None,
         "ms": lt and lt["ms"],
         "plain_ms": lt and lt["plain_ms"],

@@ -1,0 +1,376 @@
+"""Kernel-budget pass: ``greedy_place``'s shared memory and threads.
+
+Recomputed from its CUDA source.
+Counterpart of ``pivot_tpu/analysis/pallas_budget.py``.  The reference
+recomputes each Pallas kernel's VMEM footprint from its BlockSpecs and
+holds it against the hand formulas the auto-sizer trusts and the
+roofline's budget.  The port's one hand kernel sizes its launch against
+two tables that exist twice — once in ``csrc/greedy_place.cu``
+(``table_bytes`` / ``group_bytes`` / ``smem_bytes``, ``max_threads``,
+the instantiated K of ``dispatch``) and once in the Python sizer
+``ops/cuda_kernels.py`` (``_smem_bytes``, ``_REG_THREADS``, ``_SMEM_K``,
+``_SMEM_LIMIT``).  A copy edited without the other launches a block the
+kernel refuses, or one whose shared memory overruns its opt-in.  This
+pass closes the loop without a card:
+
+  1. **Read** the CUDA formulas' constants from the source (the bytes a
+     [Z, Z] table entry pair, a staged task and a cross-warp slot take,
+     the chunk cap, the shared-memory K, each K's thread limit).  A
+     formula rewritten past what the pass can read is itself a finding.
+  2. **Drift check**: the Python sizer equals the CUDA formula at every
+     probe point, and the thread tables and instantiated K agree.
+  3. **Budget check**: the wrapper's ``_SMEM_LIMIT`` equals the H100's
+     opt-in shared memory per block in ``infra/roofline.py``
+     (``H100_SMEM_OPTIN_BYTES``), and the largest block the wrapper can
+     ask for (``MAX_HOSTS`` hosts at the CLI's 31 zones) fits it.
+  4. **Registers**: ``max_threads(K) × registers ≤ 65,536``
+     (``H100_REGS_PER_BLOCK``) wherever a register count is known — the
+     static run knows none; ``register_findings`` takes ``ptxas``'s
+     counts (``chip_smoke.py`` phases 1 and 14).
+
+The pass imports neither ``torch`` nor the wrapper: the Python sizer is
+evaluated from its own AST in an empty namespace.
+"""
+
+from __future__ import annotations
+
+import ast
+import re
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+from pivot_tpu_torch.analysis import Finding, SourceFile
+
+RULE = "kernel-budget"
+
+_CU_FILE = "pivot_tpu_torch/csrc/greedy_place.cu"
+_WRAPPER_FILE = "pivot_tpu_torch/ops/cuda_kernels.py"
+_ROOFLINE_FILE = "pivot_tpu_torch/infra/roofline.py"
+_BUDGET_CONSTS = ("H100_SMEM_OPTIN_BYTES", "H100_REGS_PER_BLOCK")
+
+#: Zones of the CLI's default cluster (``infra/gen.py``'s 31 regions):
+#: the largest table the shipped configurations stage.
+_CLI_ZONES = 31
+_Z_PROBES = (1, 7, 31, 64)
+_W_PROBES = (1, 2, 4, 19, 32)
+_G_PROBES = (1, 2, 15)
+
+
+class CudaModel(NamedTuple):
+    """The constants of ``greedy_place.cu``'s sizing formulas."""
+
+    max_chunk: int               # kMaxChunk
+    smem_k: int                  # kSmemK
+    warp: int                    # chunk_of's 32 · W
+    table_entry: int             # table_bytes: bytes per [Z, Z] entry pair
+    group_task: int              # group_bytes: bytes per staged task
+    group_slot: int              # group_bytes: bytes per warp slot
+    state_host: int              # smem_bytes: bytes per host of state
+    threads_smem: int            # max_threads(K, smem_state=true)
+    threads_by_k: Tuple[Tuple[int, int], ...]  # (K ≤ k, threads)
+    threads_default: int
+    ks: Tuple[int, ...]          # register-state K of dispatch()
+    launch_bounded: bool         # __launch_bounds__(max_threads(K, kSmem))
+
+    def max_threads(self, K: int, smem_state: bool) -> int:
+        if smem_state:
+            return self.threads_smem
+        for k, t in self.threads_by_k:
+            if K <= k:
+                return t
+        return self.threads_default
+
+    def smem_bytes(self, Z: int, W: int, G: int, K: int,
+                   smem_state: bool) -> int:
+        """``smem_bytes`` of the CUDA source."""
+        def align16(n):
+            return -(-n // 16) * 16
+        chunk = min(self.warp * W, self.max_chunk)
+        return (align16(self.table_entry * Z * Z)
+                + G * align16(self.group_task * chunk + self.group_slot * W)
+                + (self.state_host * K * self.warp * W if smem_state else 0))
+
+
+_PATTERNS = {
+    "max_chunk": r"constexpr\s+int\s+kMaxChunk\s*=\s*(\d+)\s*;",
+    "smem_k": r"constexpr\s+int\s+kSmemK\s*=\s*(\d+)\s*;",
+    "chunk": r"chunk_of\(int W\)\s*\{\s*return\s+(\d+)\s*\*\s*W\s*<\s*"
+             r"kMaxChunk\s*\?\s*\1\s*\*\s*W\s*:\s*kMaxChunk\s*;",
+    "table": r"table_bytes\(int Z\)\s*\{\s*return\s+align16\(\s*"
+             r"static_cast<size_t>\((\d+)\)\s*\*\s*Z\s*\*\s*Z\s*\)\s*;",
+    "group": r"group_bytes\(int W\)\s*\{\s*return\s+align16\(\s*"
+             r"static_cast<size_t>\((\d+)\)\s*\*\s*chunk_of\(W\)\s*\+\s*"
+             r"(\d+)\s*\*\s*W\s*\)\s*;",
+    "state": r"smem_state\s*\?\s*static_cast<size_t>\((\d+)\)\s*\*\s*K\s*"
+             r"\*\s*(\d+)\s*\*\s*W\s*:\s*0",
+    "threads": r"max_threads\(int K,\s*bool smem_state\)\s*\{\s*return\s+"
+               r"(.*?);\s*\}",
+}
+
+
+def parse_cuda(text: str) -> Tuple[Optional[CudaModel], List[str]]:
+    """The sizing constants of ``greedy_place.cu``, or None and the list
+    of formulas the pass could not read."""
+    hits = {k: re.search(p, text, re.S) for k, p in _PATTERNS.items()}
+    missing = [k for k, m in hits.items() if m is None]
+    if missing:
+        return None, missing
+    body = hits["threads"].group(1)
+    smem = re.match(r"\s*smem_state\s*\?\s*(\d+)\s*:", body)
+    steps = re.findall(r"K\s*<=\s*(\d+)\s*\?\s*(\d+)", body)
+    last = re.search(r":\s*(\d+)\s*$", body.strip())
+    if smem is None or not steps or last is None:
+        return None, ["threads"]
+    pairs = re.findall(
+        r"case\s+(\d+)\s*:\s*return\s+launch<\s*(\d+)\s*,\s*false\s*>",
+        text)
+    if not pairs or any(a != b for a, b in pairs):
+        return None, ["dispatch"]
+    ks = tuple(sorted(int(a) for a, _ in pairs))
+    if hits["chunk"].group(1) != hits["state"].group(2):
+        return None, ["state"]
+    return CudaModel(
+        max_chunk=int(hits["max_chunk"].group(1)),
+        smem_k=int(hits["smem_k"].group(1)),
+        warp=int(hits["chunk"].group(1)),
+        table_entry=int(hits["table"].group(1)),
+        group_task=int(hits["group"].group(1)),
+        group_slot=int(hits["group"].group(2)),
+        state_host=int(hits["state"].group(1)),
+        threads_smem=int(smem.group(1)),
+        threads_by_k=tuple((int(k), int(t)) for k, t in steps),
+        threads_default=int(last.group(1)),
+        ks=ks,
+        launch_bounded=re.search(
+            r"__launch_bounds__\(\s*max_threads\(\s*K\s*,\s*kSmem\s*\)\s*\)",
+            text) is not None,
+    ), []
+
+
+def _module_values(src: SourceFile, names) -> Dict[str, ast.AST]:
+    out: Dict[str, ast.AST] = {}
+    for node in src.tree.body:
+        if isinstance(node, ast.Assign) and len(node.targets) == 1:
+            tgt = node.targets[0]
+            if isinstance(tgt, ast.Name) and tgt.id in names:
+                out[tgt.id] = node.value
+        elif isinstance(node, ast.AnnAssign) and isinstance(
+                node.target, ast.Name) and node.target.id in names:
+            out[node.target.id] = node.value
+    return out
+
+
+def _literal(node: Optional[ast.AST]):
+    try:
+        return ast.literal_eval(node) if node is not None else None
+    except ValueError:
+        return None
+
+
+def _python_sizer(src: SourceFile):
+    """``_smem_bytes`` of the wrapper, compiled from its own AST into an
+    empty namespace (it is pure integer arithmetic)."""
+    for node in src.tree.body:
+        if isinstance(node, ast.FunctionDef) and node.name == "_smem_bytes":
+            fn = ast.FunctionDef(
+                name=node.name, args=node.args, body=node.body,
+                decorator_list=[], returns=None, type_comment=None,
+                type_params=[],
+            )
+            mod = ast.fix_missing_locations(ast.Module([fn], []))
+            ns: dict = {"__builtins__": {"min": min, "max": max}}
+            exec(compile(mod, src.path, "exec"), ns)  # noqa: S102
+            return ns[node.name], node.lineno
+    return None, 0
+
+
+def _roofline_consts(cache) -> Tuple[Dict[str, int], List[Finding]]:
+    src = cache.get(_ROOFLINE_FILE)
+    if src is None:
+        return {}, [Finding(RULE, _ROOFLINE_FILE, 0,
+                            "roofline file missing — the H100 budget "
+                            "constants live there")]
+    vals = _module_values(src, _BUDGET_CONSTS)
+    out: Dict[str, int] = {}
+    problems: List[Finding] = []
+    for name in _BUDGET_CONSTS:
+        v = _literal(vals.get(name))
+        if not isinstance(v, int):
+            problems.append(Finding(
+                RULE, _ROOFLINE_FILE, 1,
+                f"budget constant {name} missing or not an int literal in "
+                f"{_ROOFLINE_FILE}",
+            ))
+        else:
+            out[name] = v
+    return out, problems
+
+
+def _cu_text(root: str) -> Optional[str]:
+    """The CUDA source (C++, so not a :class:`SourceFile`), or None."""
+    import os
+
+    path = os.path.join(root, _CU_FILE)
+    if not os.path.isfile(path):
+        return None
+    with open(path) as fh:
+        return fh.read()
+
+
+def cuda_model(root: Optional[str] = None) -> Optional[CudaModel]:
+    """The parsed model of the tree's ``greedy_place.cu`` (None when it
+    is missing or unreadable; :func:`collect` says why)."""
+    from pivot_tpu_torch.analysis import repo_root
+
+    text = _cu_text(root or repo_root())
+    return None if text is None else parse_cuda(text)[0]
+
+
+def register_findings(usage, regs_per_block: int) -> List[Finding]:
+    """``max_threads(K) × registers ≤ regs_per_block`` for each
+    instantiation of ``usage``: rows of ``ptxas -v`` as
+    ``chip_smoke.py`` prints them (``K``, ``state``, ``registers``)."""
+    model = cuda_model()
+    out: List[Finding] = []
+    if model is None:
+        return [Finding(RULE, _CU_FILE, 0, "greedy_place.cu unreadable")]
+    for row in usage:
+        smem = row["state"] == "smem"
+        threads = model.max_threads(row["K"], smem)
+        if row["registers"] * threads > regs_per_block:
+            out.append(Finding(
+                RULE, _CU_FILE, 1,
+                f"greedy_place K={row['K']} ({row['state']}): "
+                f"{row['registers']} registers x {threads} threads > "
+                f"{regs_per_block} — the launch bound does not fit the "
+                "register file",
+            ))
+    return out
+
+
+def collect(cache) -> Tuple[List[Finding], List[str]]:
+    out: List[Finding] = []
+    scanned: List[str] = []
+    cu = _cu_text(cache.root)
+    wrapper = cache.get(_WRAPPER_FILE)
+    for rel, src in ((_CU_FILE, cu), (_WRAPPER_FILE, wrapper)):
+        if src is None:
+            out.append(Finding(
+                RULE, rel, 0,
+                f"{rel} is missing — renamed/deleted? update "
+                "pivot_tpu_torch/analysis/kernel_budget.py",
+            ))
+    if cu is None or wrapper is None:
+        return out, scanned
+    scanned.append(_WRAPPER_FILE)
+    consts, problems = _roofline_consts(cache)
+    out.extend(problems)
+    if cache.get(_ROOFLINE_FILE) is not None:
+        scanned.append(_ROOFLINE_FILE)
+
+    model, unread = parse_cuda(cu)
+    for what in unread:
+        out.append(Finding(
+            RULE, _CU_FILE, 1,
+            f"cannot read greedy_place.cu's {what!r} formula — rewritten? "
+            "update the patterns of pivot_tpu_torch/analysis/"
+            "kernel_budget.py with it",
+        ))
+    if model is None:
+        return out, scanned
+    if not model.launch_bounded:
+        out.append(Finding(
+            RULE, _CU_FILE, 1,
+            "greedy_place_kernel lost __launch_bounds__(max_threads(K, "
+            "kSmem)): its register budget per thread is no longer tied "
+            "to the thread table",
+        ))
+
+    vals = _module_values(wrapper, ("_SMEM_LIMIT", "_SMEM_K",
+                                    "_REG_THREADS", "MAX_HOSTS"))
+    line = {n: v.lineno for n, v in vals.items()}
+    reg_threads = _literal(vals.get("_REG_THREADS"))
+    smem_k = _literal(vals.get("_SMEM_K"))
+    if not isinstance(reg_threads, dict) or not isinstance(smem_k, int):
+        out.append(Finding(
+            RULE, _WRAPPER_FILE, 1,
+            "_REG_THREADS / _SMEM_K missing or not literals — the pass "
+            "cannot hold the wrapper's tables to the kernel's",
+        ))
+        return out, scanned
+
+    # -- thread tables and instantiations --------------------------------
+    if tuple(sorted(reg_threads)) != model.ks:
+        out.append(Finding(
+            RULE, _WRAPPER_FILE, line["_REG_THREADS"],
+            f"_REG_THREADS covers K={sorted(reg_threads)} but the kernel "
+            f"instantiates K={list(model.ks)} (dispatch in "
+            f"{_CU_FILE})",
+        ))
+    for K, threads in sorted(reg_threads.items()):
+        if model.max_threads(K, False) != threads:
+            out.append(Finding(
+                RULE, _WRAPPER_FILE, line["_REG_THREADS"],
+                f"_REG_THREADS[{K}] = {threads} but greedy_place.cu's "
+                f"max_threads({K}) = {model.max_threads(K, False)}",
+            ))
+    if smem_k != model.smem_k:
+        out.append(Finding(
+            RULE, _WRAPPER_FILE, line["_SMEM_K"],
+            f"_SMEM_K = {smem_k} but greedy_place.cu's kSmemK = "
+            f"{model.smem_k}",
+        ))
+    if model.threads_smem < model.warp * 32:
+        out.append(Finding(
+            RULE, _CU_FILE, 1,
+            f"shared-memory state allows {model.threads_smem} threads, "
+            f"below the 32 warps the wrapper sizes it for",
+        ))
+
+    # -- the sizer against the kernel's formula ---------------------------
+    sizer, sizer_line = _python_sizer(wrapper)
+    if sizer is None:
+        out.append(Finding(RULE, _WRAPPER_FILE, 1,
+                           "_smem_bytes not found in the wrapper"))
+    else:
+        bad = []
+        for Z in _Z_PROBES:
+            for W in _W_PROBES:
+                for G in _G_PROBES:
+                    for K in model.ks:
+                        if sizer(Z, W, G, K, False) != model.smem_bytes(
+                                Z, W, G, K, False):
+                            bad.append((Z, W, G, K, False))
+                if sizer(Z, W, 1, model.smem_k, True) != model.smem_bytes(
+                        Z, W, 1, model.smem_k, True):
+                    bad.append((Z, W, 1, model.smem_k, True))
+        if bad:
+            out.append(Finding(
+                RULE, _WRAPPER_FILE, sizer_line,
+                f"_smem_bytes disagrees with greedy_place.cu's smem_bytes "
+                f"at {len(bad)} probe(s), first (Z, W, G, K, smem_state) "
+                f"= {bad[0]}",
+            ))
+
+    # -- the budget ---------------------------------------------------------
+    optin = consts.get("H100_SMEM_OPTIN_BYTES")
+    limit_node = vals.get("_SMEM_LIMIT")
+    limit = _literal(limit_node)
+    if isinstance(limit_node, ast.Name):
+        limit = optin if limit_node.id == "H100_SMEM_OPTIN_BYTES" else None
+    if optin is not None:
+        if limit != optin:
+            out.append(Finding(
+                RULE, _WRAPPER_FILE, line.get("_SMEM_LIMIT", 1),
+                f"_SMEM_LIMIT ({limit}) is not the H100's opt-in shared "
+                f"memory per block, H100_SMEM_OPTIN_BYTES = {optin} "
+                f"({_ROOFLINE_FILE})",
+            ))
+        biggest = model.smem_bytes(_CLI_ZONES, 32, 1, model.smem_k, True)
+        if biggest > optin:
+            out.append(Finding(
+                RULE, _WRAPPER_FILE, line.get("MAX_HOSTS", 1),
+                f"the largest block (MAX_HOSTS hosts, shared-memory state, "
+                f"{_CLI_ZONES} zones) needs {biggest} B of shared memory, "
+                f"above the {optin} B opt-in",
+            ))
+    return out, scanned

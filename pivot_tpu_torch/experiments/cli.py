@@ -1,17 +1,19 @@
 """Experiment CLI of the port: ``overall``, ``num-apps``,
 ``sensitivity``, ``ensemble``, ``calibrate``, ``autotune``, ``capacity``,
-``apps`` and ``search``.
+``apps``, ``search``, ``serve`` and ``worker``.
 
-Port of ``pivot_tpu/experiments/cli.py``, cut to nine subcommands:
+Port of ``pivot_tpu/experiments/cli.py``:
 
   * ``overall`` (``:914``): the three reference scheduler arms
     (Opportunistic / VBP / Cost-Aware,
     ``utils/config.py::reference_policy_set``) over every trace file in
     the job directory, each writing ``general.json``, ``transfers.json``,
     ``scheduler.json`` and ``host_usage.json`` under
-    ``<output-dir>/overall/<stamp>/data/<trace index>/<arm>/``;
+    ``<output-dir>/overall/<stamp>/data/<trace index>/<arm>/``, then the
+    ``overall`` and ``transfer`` figures under ``plot/``;
   * ``num-apps`` (``:935``): the same grid once per ``--num-apps-list``
-    entry, under ``<output-dir>/n_app/<stamp>/data/<n>/<trace index>/``;
+    entry, under ``<output-dir>/n_app/<stamp>/data/<n>/<trace index>/``,
+    then the financial-cost figure;
   * ``sensitivity`` (``:1158``): the paired baseline / sensitivity-gated
     DES experiment (``sched/sensitivity.py``) on the first trace, over
     ``--des-seeds`` seeds, optionally under a saved spot market
@@ -25,21 +27,21 @@ Port of ``pivot_tpu/experiments/cli.py``, cut to nine subcommands:
     ``<output-dir>/ensemble/<stamp>/``, with per-replica fault schedules
     (``--faults``, ``--fault-horizon``, ``--fault-mttr``), the congestion
     backlog model (``--congestion``), realtime scoring
-    (``--realtime-score``) and checkpoint/resume (``--checkpoint``); the
-    distribution plot is not drawn;
+    (``--realtime-score``) and checkpoint/resume (``--checkpoint``), and
+    the makespan distribution figure;
   * ``calibrate`` (``:1118``): the estimator against the exact DES on
     the first trace (``experiments/calibrate.py``), static and congested
     transfer models or ``--realtime``, over ``--des-seeds`` /
     ``--cluster-seeds``; the report goes to stdout (its first line) and
-    ``<output-dir>/calibrate/<stamp>/report.json``.  The spread figure
-    is not drawn (the plots are ROADMAP.md Queue 1 item 12);
+    ``<output-dir>/calibrate/<stamp>/report.json``, with the spread
+    figure of a ``--des-seeds`` / ``--cluster-seeds`` report;
   * ``autotune`` (``:1309``), ``capacity`` (``:1404``) and ``apps``
     (``:1525``): the what-if sweeps of ``parallel/ensemble/sweeps.py``
     (cost-aware score exponents, cluster sizes with optional faults,
     app counts per policy arm), each writing ``summary.json`` under
-    ``<output-dir>/<name>/<stamp>/``.  They run unsharded, in the
-    reference's 256-tick segments; their figures are not drawn (the
-    plots are ROADMAP.md Queue 1 item 12);
+    ``<output-dir>/<name>/<stamp>/``, ``capacity`` and ``apps`` with
+    their figures.  They run unsharded, in the reference's 256-tick
+    segments;
   * ``search`` (``:484``, ``run_search_cli`` ``:1911``): the policy
     search (``experiments/search.py``): CEM or ES over scoring-weight
     vectors, each generation's ``--popsize × --replicas`` rows one batch
@@ -72,8 +74,12 @@ fabric in the C++ co-simulator (``pivot_tpu_torch/native``; a failed
 ``g++`` build exits, it never falls back to the Python fabric);
 ``--profile-dir DIR`` captures a ``torch.profiler`` trace of each run
 under ``DIR/<data-dir tail>/<arm>/trace.json`` (ignored, with a warning,
-under ``--batch-runs``).  The ``worker`` subcommand and the plots are
-not ported yet (ROADMAP.md, Queue 1 item 12).
+under ``--batch-runs``).  ``worker`` (``:716``, ``run_worker``
+``:1834``) serves repeated requests from stdin in one warm process.
+
+The figures are ``experiments/plots.py``'s.  Without matplotlib (the
+card's machine has none) the CLI writes one line to stderr naming the
+figures it did not draw; its exit code and data files do not change.
 
 Usage:
   python -m pivot_tpu_torch.experiments.cli --num-hosts 600 overall \\
@@ -97,6 +103,8 @@ Usage:
   python -m pivot_tpu_torch.experiments.cli search --method cem \\
       --generations 6 --popsize 12 --replicas 8 --hosts 12 --seed 5 \\
       --holdout 2 --des-validate [--config data/search/ci_seed.json]
+  echo '["--device", "numpy", "overall", "--num-apps", "8"]' | \
+      python -m pivot_tpu_torch.experiments.cli worker
 """
 
 from __future__ import annotations
@@ -408,14 +416,14 @@ def parse_args(argv=None):
                           "consecutive seeds and calibrate against the "
                           "seed MEAN (records des_per_seed/des_spread; "
                           "the right comparison for the order-chaotic "
-                          "packing arms — pair with --replicas > 1; the "
-                          "spread figure is not drawn yet)")
+                          "packing arms — pair with --replicas > 1; draws "
+                          "the spread figure)")
     cal.add_argument("--cluster-seeds", type=int, default=1,
                      help="repeat the paired DES-vs-estimator comparison "
                           "on this many independently generated clusters "
                           "(fresh zone layout + bandwidth jitter) and "
-                          "report mean/std rel err per metric (the spread "
-                          "figure is not drawn yet)")
+                          "report mean/std rel err per metric, with the "
+                          "spread figure)")
     cal.add_argument("--x64", action="store_true",
                      help="run the estimator in float64 like the DES")
     _add_tick_order(cal, default="lifo")
@@ -740,6 +748,14 @@ def parse_args(argv=None):
                           "summaries into the registry and 'device' "
                           "lane spans into --trace-out.  Placements "
                           "are bit-identical either way.  0 = off")
+    sub.add_parser(
+        "worker",
+        help="resident what-if worker: serve repeated CLI requests from "
+             "stdin in one warm process (one JSON argv array per line), "
+             "amortizing the torch import, the CUDA context, the kernel "
+             "library's load and the graph captures across queries — see "
+             "run_worker",
+    )
     args = parser.parse_args(argv)
     if (
         getattr(args, "realtime_scoring", False)
@@ -1126,6 +1142,24 @@ def _ensemble_setup(args, torch_device: str, dtype: str,
     return trace, schedule, workload, topo, avail0, storage_zones
 
 
+def _draw(*figures) -> List[str]:
+    """Draw each ``(plots function name, *args)`` and return the paths.
+    Without matplotlib, write one line to stderr naming the figures not
+    drawn and return none: the run's data files and exit code stay as
+    they are."""
+    import importlib.util
+    import sys
+
+    if importlib.util.find_spec("matplotlib") is None:
+        print("figures not drawn (matplotlib is not installed): "
+              + ", ".join(f"{name}({', '.join(map(str, a))})"
+                          for name, *a in figures), file=sys.stderr)
+        return []
+    from pivot_tpu_torch.experiments import plots
+
+    return [getattr(plots, name)(*a) for name, *a in figures]
+
+
 def _write_summary(args, name: str, summary: dict,
                    stats: Optional[dict]) -> str:
     out_dir = os.path.join(args.output_dir, name, str(int(time.time())))
@@ -1143,7 +1177,8 @@ def run_ensemble(args, torch_device: str = "cuda", dtype: str = "float32",
     trace workload, scheduled on one device.  Writes ``rollout.npz`` and
     ``summary.json`` (the keys of ``pivot_tpu``'s) and returns the
     summary; ``stats``, when given, gains the rollout's tick-loop counts
-    (``parallel.ensemble.rollout``)."""
+    (``parallel.ensemble.rollout``).  Draws the makespan distribution
+    (``plots.plot_ensemble_distribution``)."""
     import numpy as np
 
     from pivot_tpu_torch.parallel.ensemble import prng, rollout_chunked
@@ -1212,6 +1247,7 @@ def run_ensemble(args, torch_device: str = "cuda", dtype: str = "float32",
         finish_time=finish,
         placement=placement,
     )
+    _draw(("plot_ensemble_distribution", out_dir))
     print(json.dumps(summary))
     return summary
 
@@ -1223,9 +1259,9 @@ def run_calibrate(args, torch_device: str = "cuda",
     on ``torch_device`` (TF32 off).  Writes ``report.json`` under
     ``<output-dir>/calibrate/<stamp>/`` and prints the report as the
     first line of stdout; returns it.  ``stats``, when given, gains each
-    mode's rollout counts and ``out_dir``.  The spread figure of
-    ``--des-seeds`` / ``--cluster-seeds`` reports is not drawn (the plots
-    are ROADMAP.md Queue 1 item 12)."""
+    mode's rollout counts and ``out_dir``.  A ``--des-seeds`` /
+    ``--cluster-seeds`` report's spread figure is drawn after the report
+    (``plots.plot_calibration_spread``; its path is printed)."""
     from pivot_tpu_torch.experiments.calibrate import calibrate
 
     trace = _list_traces(args.job_dir, 1)[0]
@@ -1259,6 +1295,11 @@ def run_calibrate(args, torch_device: str = "cuda",
     if stats is not None:
         stats["out_dir"] = out_dir
     print(json.dumps(report))
+    # The figure's path AFTER the JSON document: the first stdout line is
+    # the report.
+    if "clusters" in report or "des_per_seed" in report:
+        for path in _draw(("plot_calibration_spread", out_dir)):
+            print(path)
     return report
 
 
@@ -1276,8 +1317,8 @@ def run_autotune(args, torch_device: str = "cuda", dtype: str = "float32",
     exponents (``score_param_sweep``), candidates paired on the same
     draws.  Writes ``summary.json`` with ``pivot_tpu``'s keys and values;
     the winner minimises ``--objective`` among the candidates that finish
-    the workload.  No figure is drawn (the plots are ROADMAP.md Queue 1
-    item 12).  ``stats`` as in ``run_ensemble``."""
+    the workload.  No figure is drawn (as in the reference).  ``stats``
+    as in ``run_ensemble``."""
     import itertools
 
     import numpy as np
@@ -1356,8 +1397,8 @@ def run_capacity(args, torch_device: str = "cuda", dtype: str = "float32",
     ``total_cost_mean`` (provisioned hosts × makespan + egress) — and
     picks the cheapest size by provisioned cost that finishes the
     workload (within ``--slo-makespan``).  Writes ``summary.json`` with
-    ``pivot_tpu``'s keys and values.  No figure is drawn (ROADMAP.md
-    Queue 1 item 12)."""
+    ``pivot_tpu``'s keys and values, and draws the cost/makespan
+    frontier (``plots.plot_capacity_frontier``)."""
     import numpy as np
 
     from pivot_tpu_torch.parallel.ensemble import (
@@ -1435,7 +1476,8 @@ def run_capacity(args, torch_device: str = "cuda", dtype: str = "float32",
         "best": best,
         "candidates": candidates,
     }
-    _write_summary(args, "capacity", summary, stats)
+    out_dir = _write_summary(args, "capacity", summary, stats)
+    _draw(("plot_capacity_frontier", out_dir))
     print(json.dumps(summary))
     return summary
 
@@ -1446,7 +1488,7 @@ def run_apps(args, torch_device: str = "cuda", dtype: str = "float32",
     per arm over the sorted, deduplicated app counts × R replicas; an
     arm's makespan is clamped to the horizon where it left tasks
     unfinished.  Writes ``summary.json`` with ``pivot_tpu``'s keys and
-    values.  No figure is drawn (ROADMAP.md Queue 1 item 12)."""
+    values, and draws the cost-vs-apps figure (``plots.plot_apps_cost``)."""
     from pivot_tpu_torch.parallel.ensemble import prng, workload_sweep
 
     args.num_apps = max(args.app_counts)
@@ -1494,7 +1536,8 @@ def run_apps(args, torch_device: str = "cuda", dtype: str = "float32",
         "wall_s": round(wall, 3),
         "arms": arms,
     }
-    _write_summary(args, "apps", summary, stats)
+    out_dir = _write_summary(args, "apps", summary, stats)
+    _draw(("plot_apps_cost", out_dir))
     print(json.dumps(summary))
     return summary
 
@@ -1750,8 +1793,80 @@ def run_serve_stream(args, torch_device: str = "cuda",
     return report
 
 
+_serving = False
+
+
+def run_worker() -> None:
+    """Resident what-if worker (``pivot_tpu/experiments/cli.py:1834``):
+    one process serves many CLI requests, paying the per-process costs
+    once — the torch import, the CUDA context, the ``greedy_place``
+    library's load (and its build on a fresh checkout) and the ensemble's
+    CUDA-graph captures.  After the first request, repeated queries run
+    warm.
+
+    Protocol (the reference's): one JSON argv array per stdin line,
+    exactly as the one-shot CLI would receive it, e.g.
+    ``["--num-hosts", "100", "ensemble", "--num-apps", "25"]``.  The
+    request's normal output prints to stdout, followed by one sentinel
+    line ``{"served": n, "ok": ..., "wall_s": ...}``.  Id counters reset
+    per request, so every report is bit-identical to the same request in
+    a fresh process.  An argparse rejection or an exception answers
+    ``ok: false`` (an exception also prints ``{"error": ...}``) and the
+    loop goes on; a nested ``worker`` request is refused; ``quit`` or EOF
+    ends the loop.
+    """
+    import sys
+
+    from pivot_tpu_torch.utils import reset_ids
+
+    global _serving
+    if _serving:
+        # A request whose parsed command is `worker` dispatches back here
+        # through main(); reading stdin recursively would deadlock.
+        raise RuntimeError("nested worker requests are not allowed")
+    _serving = True
+    served = 0
+    try:
+        for line in sys.stdin:
+            line = line.strip()
+            if line == "quit":
+                break
+            if not line:
+                continue
+            t0 = time.perf_counter()
+            ok = True
+            try:
+                req = json.loads(line)
+                if not isinstance(req, list) or not all(
+                    isinstance(a, str) for a in req
+                ):
+                    raise ValueError(
+                        "request must be a JSON array of argv strings"
+                    )
+                reset_ids()  # fresh-process determinism per request
+                main(req)
+            except SystemExit as exc:  # argparse rejection — keep serving
+                ok = (exc.code or 0) == 0
+            except Exception as exc:  # noqa: BLE001 — request isolation
+                ok = False
+                print(json.dumps(
+                    {"error": f"{type(exc).__name__}: {exc}"[:300]}),
+                    flush=True)
+            served += 1
+            print(json.dumps({
+                "served": served,
+                "ok": ok,
+                "wall_s": round(time.perf_counter() - t0, 3),
+            }), flush=True)
+    finally:
+        _serving = False
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
+    if args.command == "worker":
+        run_worker()
+        return
     if args.command == "sensitivity":
         run_sensitivity(args)
         return
@@ -1770,6 +1885,12 @@ def main(argv=None) -> None:
     run = run_num_apps if args.command == "num-apps" else run_overall
     exp_dir, _ = run(args)
     print(exp_dir)
+    if args.command == "overall":
+        figures = (("plot_overall", exp_dir), ("plot_transfers", exp_dir))
+    else:
+        figures = (("plot_financial_cost", exp_dir, args.host_hourly_rate),)
+    for path in _draw(*figures):
+        print(path)
 
 
 if __name__ == "__main__":

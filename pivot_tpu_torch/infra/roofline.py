@@ -24,9 +24,11 @@ H100's peaks in place of the TPU v5e's:
 
 The reference's v5e table and its Pallas VMEM budget constants
 (``TPU_PEAKS``, ``V5E_SCOPED_VMEM_BYTES``, ``PALLAS_VMEM_BUDGET_BYTES``,
-``PALLAS_PROVEN_HP``) have no CUDA meaning and are left out:
-``greedy_place``'s own budget is registers and shared memory, which
-``ptxas`` reports at build time (``chip_smoke.py`` phase 1 prints it).
+``PALLAS_PROVEN_HP``) have no CUDA meaning and are left out.
+``greedy_place``'s own budget is shared memory and registers per block:
+:data:`H100_SMEM_OPTIN_BYTES` and :data:`H100_REGS_PER_BLOCK`, which the
+``kernel-budget`` pass (``analysis/kernel_budget.py``) holds the
+wrapper's sizer and ``ptxas``'s register counts to.
 
 This work model is the dispatch profiler's prediction
 (``obs/profiler.py``): a trend-level estimate of the dominant dense ops
@@ -46,6 +48,8 @@ import numpy as np
 
 __all__ = [
     "H100_PEAKS",
+    "H100_REGS_PER_BLOCK",
+    "H100_SMEM_OPTIN_BYTES",
     "PEAK_BYTES",
     "PEAK_F32_OPS",
     "annotate",
@@ -63,6 +67,12 @@ __all__ = [
 #: this work).  ``chip_smoke.py``'s kernel bounds read these two.
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
+
+#: Shared memory one block may opt into on the H100 (227 KB, compute
+#: capability 9.0: ``cudaDevAttrMaxSharedMemoryPerBlockOptin``), and the
+#: 32-bit registers one block may hold (the SM's register file).
+H100_SMEM_OPTIN_BYTES = 232448
+H100_REGS_PER_BLOCK = 65536
 
 #: The peak table of the card, in :func:`annotate`'s units.
 H100_PEAKS: Dict[str, float] = {

@@ -66,7 +66,7 @@ from pivot_tpu_torch.mpc.planner import (
 from pivot_tpu_torch.mpc.rollout import WeightRollout
 from pivot_tpu_torch.mpc.tuner import MpcTuner
 from pivot_tpu_torch.search.weights import DEFAULT_WEIGHTS
-from pivot_tpu_torch.utils import LogMixin
+from pivot_tpu_torch.utils import LogMixin, compile_counter
 
 __all__ = ["MpcController"]
 
@@ -233,7 +233,6 @@ class MpcController(LogMixin):
         card.  The driver calls it before any serving thread starts; the
         scores are thrown away and nothing of the controller's state
         moves (no plan is counted, no key is drawn from ``plans``)."""
-        from pivot_tpu_torch.parallel.ensemble.tick import SNAPSHOT_GRAPHS
         from pivot_tpu_torch.search.fitness import evaluate_rows
 
         cfg = self.config
@@ -248,16 +247,14 @@ class MpcController(LogMixin):
             if self.tuner is not None:
                 evaluate_rows([DEFAULT_WEIGHTS] * self.tuner.popsize, env,
                               backend=cfg.backend)
-        self._captures0 = SNAPSHOT_GRAPHS.captures
+        self._captures0 = compile_counter.totals()["graph_capture"]
 
     def captures_after_warmup(self) -> Optional[int]:
         """CUDA graph captures in the process since :meth:`warmup`
-        (None before it)."""
-        from pivot_tpu_torch.parallel.ensemble.tick import SNAPSHOT_GRAPHS
-
+        (None before it), read from the compile counter."""
         if self._captures0 is None:
             return None
-        return SNAPSHOT_GRAPHS.captures - self._captures0
+        return compile_counter.totals()["graph_capture"] - self._captures0
 
     def start(self) -> None:
         if self.tuner is not None:

@@ -10,6 +10,7 @@ shared library is compiled on first use with ``g++`` into
 by source hash.  Construction fails fast with :class:`BuildError` when no
 toolchain is present; the experiment CLI checks :func:`available` up
 front and exits — it never falls back to the Python fabric on its own.
+A build counts one ``kernel_build`` (``utils/compile_counter.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import os
 import subprocess
 from math import inf
 from typing import Dict, List, Optional, Tuple
+
+from pivot_tpu_torch.utils import compile_counter
 
 __all__ = ["available", "load_library", "NativeNetworkEngine", "BuildError"]
 
@@ -60,6 +63,7 @@ def load_library() -> ctypes.CDLL:
         try:
             subprocess.run(cmd, check=True, capture_output=True, text=True)
             os.replace(tmp_path, so_path)
+            compile_counter.record("kernel_build")
         except (subprocess.CalledProcessError, FileNotFoundError) as e:
             detail = getattr(e, "stderr", str(e))
             _lib_error = f"native build failed: {detail}"

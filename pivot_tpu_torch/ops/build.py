@@ -14,7 +14,8 @@ kernels' results depend on it (``csrc/greedy_place.cu``).
 the one on ``PATH``.
 
 A build and a load hold one lock: serving session threads may reach a
-kernel's first use together.
+kernel's first use together.  Each ``nvcc`` run that writes a library
+counts one ``kernel_build`` (``utils/compile_counter.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ import shutil
 import subprocess
 import threading
 from typing import Dict, Iterable
+
+from pivot_tpu_torch.utils import compile_counter
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "BuildError", "build_all", "load"]
 
@@ -106,6 +109,7 @@ def _build_all(names: Iterable[str]) -> Dict[str, str]:
                 failed.append(f"{name}.cu (exit {proc.returncode}):\n{out}")
             else:
                 os.replace(tmp, todo[name])
+                compile_counter.record("kernel_build")
         if failed:
             raise BuildError("nvcc failed: " + "\n".join(failed))
     finally:

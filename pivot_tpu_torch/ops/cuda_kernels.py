@@ -45,6 +45,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from pivot_tpu_torch.infra.roofline import H100_SMEM_OPTIN_BYTES
+
 __all__ = [
     "LAUNCHES",
     "LAUNCHES_BY_REPLICAS",
@@ -75,7 +77,7 @@ _BIG = 1e30
 _NEG = -1e30
 _F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
 #: Shared memory one block may opt into on Hopper (227 KB).
-_SMEM_LIMIT = 232448
+_SMEM_LIMIT = H100_SMEM_OPTIN_BYTES
 #: SMs of an H100 SXM; replica groups spread over about this many blocks.
 _SMS = 132
 #: Hosts per thread the kernel is built for with per-host state in

@@ -276,6 +276,7 @@ def _span_tick(k, state, out, alive, settle, place, policy, decreasing,
         decreasing, in_batch, placed, batch_pos, order, iota, big)
     # 5. Span-cumulative resident-task counts (the host-decay base).
     H = cum.shape[-1]
+    # graftcheck: ignore[determinism] -- int32 counts: exact in any order
     cum_new = torch.zeros(cum.shape[:-1] + (H + 1,), dtype=torch.int32,
                           device=cum.device).scatter_add_(
         -1, torch.where(placed, row, H).long(), placed.to(torch.int32)
@@ -423,7 +424,7 @@ def _host_table(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """A small host int table on ``device``, copied from pinned memory
     without a synchronising copy (the caching host allocator keeps the
     buffer until the copy has run)."""
-    t = torch.from_numpy(arr)
+    t = torch.from_numpy(arr)  # graftcheck: ignore[dtype] -- every caller's table is np.int32 by construction
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
@@ -491,9 +492,11 @@ def fused_tick_run_rows(
     configuration (the torch arms, Cost-Aware through
     ``cost_aware_impl``) runs its rows one after another through
     :func:`fused_tick_run`: bit-identical by construction."""
+    # graftcheck: ignore[host-sync] -- the rows' horizons are host ints, read before the loop
     n_dyn = [int(x) for x in np.asarray(n_ticks_dyn).reshape(-1)]
     G = len(n_dyn)
     if n_bound is None:
+        # graftcheck: ignore[host-sync] -- a caller without host step bounds pays one read of arrive before the loop, none inside it
         arr_host = arrive.cpu().numpy()
         n_bound = [span_step_bounds(arr_host[g], n_dyn[g]) for g in range(G)]
     static = dict(policy=policy, n_ticks=n_ticks, strict=strict,
@@ -528,6 +531,7 @@ def fused_tick_run_rows(
             tab[1, :nd, g] = 1
             tab[2, :nd, g] = _cohort_ahead(n_bound[g], nd)
             if cost_stack is not None:
+                # graftcheck: ignore[host-sync] -- cost_seg is a host operand (SPAN_HOST_OPERANDS), tabled before the loop
                 tab[3, :nd, g] = np.asarray(cost_seg[g])[:nd]
     tab = _host_table(tab, dev)
     bounds, in_horizon, ahead = tab[0], tab[1] != 0, tab[2] != 0
@@ -734,6 +738,7 @@ def resident_span_run(
     )
     placed = res.placements >= 0
     tgt = torch.where(placed, res.placements, H).reshape(-1).long()
+    # graftcheck: ignore[determinism] -- int32 counts: exact in any order
     hist = torch.zeros((H + 1,), dtype=torch.int32,
                        device=counts.device).scatter_add_(
         0, tgt, placed.reshape(-1).to(torch.int32))[:H]
@@ -789,6 +794,7 @@ def reference_tick_run(
     stack: list = []
 
     def put(x):
+        # graftcheck: ignore[dtype] -- the sequential referee keeps each host operand's own dtype (the caller's policy dtype)
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
     for k in range(n_ticks):

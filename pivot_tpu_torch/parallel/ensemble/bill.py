@@ -129,6 +129,7 @@ def _finalize(state: RolloutState, workload: EnsembleWorkload,
     slot = (torch.arange(R, device=dev)[:, None] * (G * Z)
             + workload.group_of[None, :] * Z + pz)
     slot = torch.where(placed, slot, R * G * Z)
+    # graftcheck: ignore[determinism] -- integer-valued counts: exact in any order
     zcp = torch.zeros(R * G * Z + 1, dtype=dtype, device=dev).index_add_(
         0, slot.reshape(-1), placed.reshape(-1).to(dtype))[:-1]
     egress = _sampled_egress(workload, topo, zcp.reshape(R, G, Z), pz,

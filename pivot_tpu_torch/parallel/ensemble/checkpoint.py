@@ -113,7 +113,7 @@ def _load_state(path, fp, congestion, device) -> Optional[tuple]:
             return None
         fields = {}
         for f in RolloutState._fields:
-            x = torch.from_numpy(np.array(ckpt[f])).to(device)
+            x = torch.from_numpy(np.array(ckpt[f])).to(device)  # graftcheck: ignore[dtype] -- each field comes back in the dtype the run saved it in (the run's own state dtype)
             fields[f] = x.long() if f in _INT_FIELDS else x
         if not congestion:
             fields["q"] = None

@@ -119,8 +119,9 @@ class EnsembleWorkload(NamedTuple):
 
         def put(x, dt=dtype):
             # Through float64 numpy, like ``jnp.asarray(np.array(x), dtype)``.
-            return torch.as_tensor(np.asarray(x), device=dev).to(dt)
+            return torch.as_tensor(np.asarray(x), device=dev).to(dt)  # graftcheck: ignore[dtype] -- cast to the state dtype at once (.to(dt))
 
+        # graftcheck: ignore[dtype] -- host float64 rounded once to the state dtype by put(), as the reference's jnp.asarray(np.array(x), dtype)
         return cls(
             demands=put(np.array(demands, dtype=np.float64).reshape(T, 4)),
             runtime=put(np.array(runtime, dtype=np.float64)),

@@ -63,6 +63,7 @@ import torch
 
 from pivot_tpu_torch.ops.kernels import _first_true, _place_replicas
 from pivot_tpu_torch.ops.tickloop import _inverse, _lexsort
+from pivot_tpu_torch.utils import compile_counter
 from pivot_tpu_torch.parallel.ensemble.bill import (
     _fma_norms,
     _ordered_sum,
@@ -145,6 +146,7 @@ def _pipe_step(q, vol, dst, valid, inv_bw, neg_bw, tick):
     rows = torch.where(valid, rep * H + dst,
                        R * H + rep * n + torch.arange(n, device=dev))
     acc = torch.zeros((R * H + R * n, S), dtype=q.dtype, device=dev)
+    # graftcheck: ignore[determinism] -- index_put_'s accumulate adds each row's run in index order on both devices (module docstring: a sort by row and one sequential pass a row on the card, no atomics)
     acc.index_put_((rows.reshape(-1),), vol.reshape(-1, S), accumulate=True)
     q_now = q + acc[:R * H].reshape(R, H, S).transpose(1, 2)
     ratio = (q_now * inv_bw).transpose(1, 2)[rep, dst]  # [R, n, S]
@@ -164,13 +166,14 @@ def loop_clock(counts: Optional[dict], device):
     if cuda:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
         start.record()
-    wall0 = time.perf_counter()
+    wall0 = time.perf_counter()  # graftcheck: ignore[determinism] -- the run's wall_s counter only; no result reads it
     yield
     if cuda:
         end.record()
         end.synchronize()
         counts["event_span_ms"] = counts.get("event_span_ms", 0.0) + \
             start.elapsed_time(end)
+    # graftcheck: ignore[determinism] -- the run's wall_s counter only
     counts["wall_s"] = counts.get("wall_s", 0.0) + \
         time.perf_counter() - wall0
 
@@ -199,14 +202,14 @@ class _SnapshotGraphs:
     never share a graph, and a graph captured on one thread (a warm-up
     before the serving threads start) is replayed on another.  At most
     :attr:`keep` free graphs are kept (least recently returned dropped
-    first).  :attr:`captures` counts every capture in the process."""
+    first).  Each capture is a ``graph_capture`` of
+    ``utils/compile_counter.py``."""
 
     keep = 8
 
     def __init__(self):
         self._lock = threading.Lock()
         self._free = collections.OrderedDict()  # (key, id) -> entry
-        self.captures = 0
 
     def take(self, avail, w_norm):
         """``(chain buffer, snap, entry)`` for this layout."""
@@ -247,8 +250,7 @@ class _SnapshotGraphs:
         # card while this thread captures.
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             out = snap()
-        with self._lock:
-            self.captures += 1
+        compile_counter.record("graph_capture")
 
         def replay():
             graph.replay()
@@ -422,6 +424,7 @@ def _rollout_segment(
 
     alive = pending(stage)
     snap = graph = None  # the chain's norm snapshot, built on first use
+    # graftcheck: ignore[host-sync] -- the rollout's first host read, counted in counts["host_syncs"]
     go = n_ticks > 0 and R > 0 and bool(alive.any())
     counts["host_syncs"] += 1
     i = 0
@@ -441,6 +444,7 @@ def _rollout_segment(
         newly_done = (stage == _RUNNING) & (finish <= t[:, None]) & live
         rows = torch.where(newly_done, rep[:, None] * H + place, miss_row)
         refund = torch.zeros((R * H + R * T, 4), dtype=dtype, device=dev)
+        # graftcheck: ignore[determinism] -- the refund's task-index order per host (module docstring): index_put_'s accumulate, a sequential pass a row on both devices
         refund.index_put_(
             (rows.reshape(-1),),
             torch.where(newly_done[..., None], demands, zero).reshape(-1, 4),
@@ -511,11 +515,13 @@ def _rollout_segment(
         #    slot collects the misses' atomics.
         host_c = place.clamp(0, H - 1)
         slot = (rep[:, None] * G + group_of) * Z + host_zone[host_c]
+        # graftcheck: ignore[determinism] -- 0/1 operands, integer sums below 2**24: exact in any order
         zc = torch.zeros(R * G * Z, dtype=dtype, device=dev).index_add_(
             0, slot.reshape(-1), done_f.reshape(-1)).reshape(R, G, Z)
         if policy == "cost-aware":
             # [G, R, H] layout: the vote is one [G, G] @ [G, R·H] product.
             slot = (group_of * R + rep[:, None]) * H + host_c
+            # graftcheck: ignore[determinism] -- 0/1 operands, integer sums below 2**24: exact in any order
             hv = torch.zeros(G * R * H, dtype=dtype, device=dev).index_add_(
                 0, slot.reshape(-1), done_f.reshape(-1))
             votes = torch.matmul(pred_group, hv.reshape(G, R * H))
@@ -526,6 +532,7 @@ def _rollout_segment(
             anchor = root_anchor
         if pairs:  # [R, G, H] done counts per (group, host)
             slot = (rep[:, None] * G + group_of) * H + host_c
+            # graftcheck: ignore[determinism] -- 0/1 operands, integer sums below 2**24: exact in any order
             hv_g = torch.zeros(R * G * H, dtype=dtype, device=dev).index_add_(
                 0, slot.reshape(-1), done_f.reshape(-1)).reshape(R, G, H)
 
@@ -558,6 +565,7 @@ def _rollout_segment(
         g_p = group_of.gather(1, order)
         u_p = task_u.gather(1, order) if task_u is not None else None
         n_ready = eligible.sum(1)
+        # graftcheck: ignore[host-sync] -- the one host read a tick (the chain's step count and the loop's end), counted in counts["host_syncs"]
         n_steps, go_next = torch.stack(
             [n_ready.max(), alive_next.any().long()]).tolist()
         counts["host_syncs"] += 1
@@ -612,6 +620,7 @@ def _rollout_segment(
                 # opens one skips the snapshot (the same values).
                 bf_j = bf_p[:, j]
                 opens = bf_j != prev_bf
+                # graftcheck: ignore[host-sync] -- short-circuits on the card; read on the CPU only, where it is no device sync
                 if dev.type != "cpu" or bool(opens.any()):
                     norm_snap = torch.where(opens[:, None], snap(),
                                             norm_snap)
@@ -702,7 +711,7 @@ def _rollout_segment(
             alive, busy + _ordered_sum(busy_host.reshape(R, H)), busy)
         t = torch.where(alive, t + tick_t, t)
         alive = alive_next
-        go = bool(go_next)
+        go = bool(go_next)  # graftcheck: ignore[host-sync] -- a host int of the tick's one read above
         counts["ticks"] += 1
         counts["place_steps"] += n_steps
         i += 1

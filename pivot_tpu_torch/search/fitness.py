@@ -346,12 +346,15 @@ def _fitness_rows(
     B = warr.shape[0]
     n_rows = rt_rows.shape[0]
     R = n_rows // B
+    # graftcheck: ignore[host-sync] -- warr, cap_rows and active_rows are host operands, staged once a call
     warr = torch.as_tensor(np.asarray(warr, np.float64)).to(dev, dtype)
     avail_rows = avail0.expand((B * R,) + tuple(avail0.shape))
     if cap_rows is not None:
+        # graftcheck: ignore[host-sync] -- a host operand, staged once a call
         scale = torch.as_tensor(np.asarray(cap_rows, np.float64)).to(
             dev, dtype).repeat_interleave(R)
         avail_rows = avail_rows * scale[:, None, None]
+    # graftcheck: ignore[host-sync] -- a host operand, staged once a call
     active = (
         torch.as_tensor(np.asarray(active_rows, bool)).to(dev)
         .repeat_interleave(R, 0)

@@ -20,7 +20,11 @@ every file of the package — ``serve/``, ``sched/batch.py``, ``obs/``
 (``obs/profiler.py`` among them), ``search/``, ``experiments/search.py``,
 ``experiments/spot.py``, ``experiments/sample.py``, ``workload/``,
 ``parallel/ensemble/``, ``mpc/``, ``recover/``, ``native/``,
-``infra/roofline.py`` and ``tools/`` among them — and ``chip_smoke.py``.
+``infra/roofline.py``, ``analysis/``, ``obs/costattr.py``,
+``utils/compile_counter.py``, ``experiments/plots.py`` and ``tools/``
+among them — and ``chip_smoke.py``.  A third probe runs the tooling:
+the graftcheck suite and its compile check, cost attribution, the
+compile counter's observer and the ``worker`` subcommand.
 """
 
 import ast
@@ -242,6 +246,60 @@ def test_native_guard_profiler_run_without_jax_or_reference_modules():
     assert report["modules"] == []
 
 
+#: The tooling: the graftcheck suite (static passes and the
+#: compile check), the compile counter's observer, cost attribution, the
+#: figures and the resident worker.
+PROBE_13 = r"""
+import contextlib, io, json, sys, tempfile
+from pivot_tpu_torch import analysis
+from pivot_tpu_torch.experiments import cli, plots
+from pivot_tpu_torch.obs import MetricsRegistry, attach_compile_observer
+from pivot_tpu_torch.obs.costattr import cost_attribution
+from pivot_tpu_torch.utils import compile_counter
+detach = attach_compile_observer(MetricsRegistry())
+compile_counter.record("graph_capture")
+detach()
+static_rc = analysis.main([])
+check = analysis.compile_check(quick=True, device="cpu")
+ca = cost_attribution(device="cpu")
+with tempfile.TemporaryDirectory() as out:
+    argv = ["--device", "numpy", "--num-hosts", "8", "--trace-limit", "1",
+            "--output-dir", out, "overall", "--num-apps", "2"]
+    sys.stdin = io.StringIO(json.dumps(argv) + "\nquit\n")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.run_worker()
+    served = [json.loads(ln) for ln in buf.getvalue().splitlines()
+              if ln.startswith('{"served"')]
+print(json.dumps({
+    "static_rc": static_rc,
+    "steady": check["steady"],
+    "complete": ca["complete"],
+    "served": served[0]["ok"],
+    "modules": sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "pivot_tpu")),
+}))
+"""
+
+
+def test_tooling_runs_without_jax_or_reference_modules():
+    """The graftcheck suite, the compile check, cost attribution and the
+    worker (serving one ``overall`` request, figures drawn) load neither
+    ``jax`` nor ``pivot_tpu``."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", PROBE_13], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["static_rc"] == 0
+    assert report["steady"] == {"kernel_build": 0, "graph_capture": 0}
+    assert report["complete"] is True
+    assert report["served"] is True
+    assert report["modules"] == []
+
+
 def _sources():
     pkg = os.path.join(ROOT, "pivot_tpu_torch")
     for dirpath, _dirs, files in os.walk(pkg):
@@ -310,5 +368,19 @@ def test_no_file_of_the_port_imports_jax_or_reference():
             "pivot_tpu_torch/recover/watchdog.py",
             "pivot_tpu_torch/native/__init__.py",
             "pivot_tpu_torch/obs/profiler.py",
-            "pivot_tpu_torch/infra/roofline.py"} <= seen
+            "pivot_tpu_torch/infra/roofline.py",
+            "pivot_tpu_torch/analysis/__init__.py",
+            "pivot_tpu_torch/analysis/__main__.py",
+            "pivot_tpu_torch/analysis/determinism.py",
+            "pivot_tpu_torch/analysis/dtype.py",
+            "pivot_tpu_torch/analysis/entrymap.py",
+            "pivot_tpu_torch/analysis/hostsync.py",
+            "pivot_tpu_torch/analysis/kernel_budget.py",
+            "pivot_tpu_torch/analysis/obsbound.py",
+            "pivot_tpu_torch/analysis/parity.py",
+            "pivot_tpu_torch/analysis/profbound.py",
+            "pivot_tpu_torch/analysis/threadguard.py",
+            "pivot_tpu_torch/obs/costattr.py",
+            "pivot_tpu_torch/utils/compile_counter.py",
+            "pivot_tpu_torch/experiments/plots.py"} <= seen
     assert offenders == []

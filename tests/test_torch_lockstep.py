@@ -242,32 +242,40 @@ def outputs(exp_dir, n_traces=2):
     return out
 
 
-def test_cli_batch_runs_files_equal_reference(tmp_path, ref_f64):
+@pytest.fixture(scope="module")
+def batch_runs_reference(tmp_path_factory):
+    """``pivot_tpu``'s ``--batch-runs 2`` grid (its device policies in
+    float64), run once for both port grids below."""
     from pivot_tpu.experiments import cli as jcli
     from pivot_tpu.utils import reset_ids as j_reset
+
+    out = tmp_path_factory.mktemp("batch_runs_reference")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtpu._DevicePolicyBase, "dtype", jnp.float64)
+        j_reset()
+        ref_dir = jcli.run_overall(jcli.parse_args(ARGV.format(
+            out=out, extra="--device tpu --batch-runs 2").split()))
+    return outputs(ref_dir)
+
+
+@pytest.mark.parametrize("extra", [
+    "--device cuda --batch-runs 2", "--device cuda --no-adaptive"],
+    ids=["batched", "sequential"])
+def test_cli_batch_runs_files_equal_reference(tmp_path, batch_runs_reference,
+                                              extra):
+    """The port's lock-step grid and its sequential grid each write
+    ``pivot_tpu``'s ``--batch-runs 2`` files byte for byte."""
     from pivot_tpu_torch.experiments import cli as pcli
     from pivot_tpu_torch.utils import reset_ids as p_reset
 
-    def argv(sub, extra):
-        return ARGV.format(out=tmp_path / sub, extra=extra).split()
-
     p_reset()
     exp_dir, sums = pcli.run_overall(
-        pcli.parse_args(argv("b", "--device cuda --batch-runs 2")),
+        pcli.parse_args(ARGV.format(out=tmp_path, extra=extra).split()),
         torch_device="cpu", dtype="float64")
-    got = outputs(exp_dir)
     assert len(sums) == 6 and all(s is not None for s in sums)
-    p_reset()
-    seq_dir, _ = pcli.run_overall(
-        pcli.parse_args(argv("s", "--device cuda --no-adaptive")),
-        torch_device="cpu", dtype="float64")
-    j_reset()
-    ref_dir = jcli.run_overall(jcli.parse_args(
-        argv("j", "--device tpu --batch-runs 2")))
-    seq, ref = outputs(seq_dir), outputs(ref_dir)
-    for key, want in ref.items():
+    got = outputs(exp_dir)
+    for key, want in batch_runs_reference.items():
         assert got[key] == want, key
-        assert seq[key] == want, key
 
 
 @pytest.mark.parametrize("extra,msg", [

@@ -22,9 +22,9 @@
   * **write-ahead** — an MPC actuation is journaled before its effect;
     the CLI's ``--mpc*`` flags.
 
-The reference's zero-recompile case counts JAX compiles; its port is the
-graph-capture count.  Wall-clock soaks hold only properties that do not
-depend on timing: planned at least once, never referee-disabled, tier 0
+The reference's zero-recompile case counts JAX compiles; its port counts
+graph captures through ``utils/compile_counter.py::count_compiles``.
+Wall-clock soaks hold only properties that do not depend on timing: planned at least once, never referee-disabled, tier 0
 lossless, ``audit()`` clean.  Every thread a test starts ends with it.
 """
 
@@ -51,6 +51,8 @@ from pivot_tpu.search import weights as JW
 from pivot_tpu.utils import config as jconfig
 from pivot_tpu.utils import reset_ids as j_reset_ids
 from pivot_tpu_torch.experiments import cli as pcli
+from pivot_tpu_torch.utils import compile_counter
+from pivot_tpu_torch.utils.compile_counter import count_compiles
 from pivot_tpu_torch.infra.market import MarketSchedule
 from pivot_tpu_torch.infra.meter import SloMeter
 from pivot_tpu_torch.mpc import MpcConfig
@@ -505,8 +507,7 @@ def _fake_capture(self, key, avail, w_norm):
         live = bill._fma_norms(buf)
         return live if w_buf is None else libm.xla_pow(live, w_buf)
 
-    with self._lock:
-        self.captures += 1
+    compile_counter.record("graph_capture")
     return key, buf, w_buf, snap
 
 
@@ -529,20 +530,22 @@ def test_plan_zero_captures_after_warmup(world, env_pair, cpu_graphs):
     menu = enumerate_actions(2, g_min=1, g_max=3, incumbent=DEFAULT_WEIGHTS,
                              shed_tier=2,
                              challenger=PolicyWeights(w_cost=1.3, w_bw=0.8))
-    plan(menu, env, tiers, 2, key=prng.PRNGKey(0))  # warm: the planner
-    PF.evaluate_rows([DEFAULT_WEIGHTS] * 4, env)  # warm: a population
-    warm = cpu_graphs.captures
-    assert warm == 2
+    with count_compiles() as warm:
+        plan(menu, env, tiers, 2, key=prng.PRNGKey(0))  # the planner
+        PF.evaluate_rows([DEFAULT_WEIGHTS] * 4, env)  # a population
+    assert warm.graph_captures == 2
     env2, _, tiers2 = _render(world, _forecast(rate=1.5,
                                                mix=(0.2, 0.3, 0.5)))
     menu2 = enumerate_actions(3, g_min=1, g_max=3,
                               incumbent=PolicyWeights(w_cost=1.1),
                               shed_tier=1)
     key2 = prng.fold_in(prng.PRNGKey(0), 41)
-    got = plan(menu2, env2, tiers2, 3, key=key2)
-    pop = PF.evaluate_rows([PolicyWeights(w_cost=0.5 + i) for i in range(4)],
-                           env2, key=key2)
-    assert cpu_graphs.captures == warm
+    with count_compiles() as steady:
+        got = plan(menu2, env2, tiers2, 3, key=key2)
+        pop = PF.evaluate_rows(
+            [PolicyWeights(w_cost=0.5 + i) for i in range(4)], env2,
+            key=key2)
+    assert steady.graph_captures == 0
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tick, "_norm_snapshot", _PLAIN_SNAPSHOT)
         want = plan(menu2, env2, tiers2, 3, key=key2)
@@ -561,18 +564,21 @@ def test_graph_pool_never_shares_a_graph(cpu_graphs):
     equal shapes) take two graphs; handed back, both are reused."""
     a = torch.ones((6, 5, 4), dtype=torch.float64)
     w = torch.full((6, 1), 0.5, dtype=torch.float64)
-    buf1, _, g1 = cpu_graphs.take(a, w)
-    buf2, _, g2 = cpu_graphs.take(a, w)
+    with count_compiles() as first:
+        buf1, _, g1 = cpu_graphs.take(a, w)
+        buf2, _, g2 = cpu_graphs.take(a, w)
     assert buf1.data_ptr() != buf2.data_ptr()
-    assert cpu_graphs.captures == 2
+    assert first.graph_captures == 2
     cpu_graphs.give(g1)
     cpu_graphs.give(g2)
-    _, _, g3 = cpu_graphs.take(a, w)
-    _, _, g4 = cpu_graphs.take(a, w)
+    with count_compiles() as reuse:
+        _, _, g3 = cpu_graphs.take(a, w)
+        _, _, g4 = cpu_graphs.take(a, w)
     assert {id(g3), id(g4)} == {id(g1), id(g2)}
-    assert cpu_graphs.captures == 2
-    _, _, g5 = cpu_graphs.take(a[:3], w[:3])  # another layout: a capture
-    assert cpu_graphs.captures == 3
+    assert reuse.graph_captures == 0
+    with count_compiles() as other:
+        _, _, g5 = cpu_graphs.take(a[:3], w[:3])  # another layout
+    assert other.graph_captures == 1
     for g in (g3, g4, g5):
         cpu_graphs.give(g)
 
@@ -601,16 +607,17 @@ def test_graph_pool_threads_never_hold_one_graph(cpu_graphs):
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        threads = [threading.Thread(target=worker) for _ in range(8)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=60.0)
+        with count_compiles() as counter:
+            threads = [threading.Thread(target=worker) for _ in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60.0)
     finally:
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
     assert not clashes
-    assert 1 <= cpu_graphs.captures <= 8
+    assert 1 <= counter.graph_captures <= 8
 
 
 # -- staged rollout (tests/test_mpc.py) --------------------------------------------

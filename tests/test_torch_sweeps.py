@@ -51,6 +51,17 @@ from tests.test_torch_ensemble import (
 from tests.test_torch_ensemble import _cluster as _make_cluster
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _clear_jax_caches():
+    """``pivot_tpu``'s sweeps (``score_param_sweep``, ``capacity_sweep``,
+    ``workload_sweep``) leave JAX's caches in a state where a jitted
+    function first traced afterwards retraces on every call: run later in
+    the same process, ``tests/test_jitcheck.py`` counts those traces and
+    fails.  Clear the caches when this module ends."""
+    yield
+    jax.clear_caches()
+
+
 @pytest.fixture(autouse=True)
 def _one_torch_thread():
     n = torch.get_num_threads()
