@@ -12,8 +12,9 @@
                                        # dispatch profiler, --profile-dir
     python3 chip_smoke.py --phases 14  # graftcheck, kernel budget, cost
                                        # attribution, compile check, worker
+    python3 chip_smoke.py --phases 15  # host sharding (ops/shard.py)
 
-One card.  ``--phases`` takes a comma list; phases 2-5 and 10-14 bring
+One card.  ``--phases`` takes a comma list; phases 2-5 and 10-15 bring
 phase 1's build along, phase 5 the runs of phases 3 and 4, phase 13
 phase 3's run (its python-fabric arms are what the native fabric is held
 against).
@@ -86,7 +87,7 @@ Phases, each fatal on failure:
      apps, R = 1024, both arms — wall, replica rollouts/s, ticks,
      placement steps, host reads, CUDA-event ms of the tick loop, peak
      memory, its first 16 replicas equal to the R = 16 run; a
-     ``torch.profiler`` window of ticks 300-325 per arm; the cost-aware
+     ``torch.profiler`` window of ticks 100-125 per arm; the cost-aware
      run's first 2 replicas against the port on the CPU; best-fit,
      opportunistic and lifo at 10 apps, card against CPU.  Placements,
      finish times, makespans, instance-hours and unfinished counts must
@@ -99,9 +100,10 @@ Phases, each fatal on failure:
      at 10 apps, R = 4 — under torch's sync debug mode; (b) the
      README's commands at 600 hosts through the CLI: ``autotune
      --replicas 4`` (27 candidates × 4 replicas, cut from its default
-     32), ``ensemble --replicas 256 --faults 4 --fault-mttr 300``
-     (cost-aware, first-fit), ``capacity --host-counts 100 200 400 600
-     --faults 4 --fault-mttr 300`` (both at 25 apps, cut from 50) and
+     32), ``ensemble --replicas 64 --faults 4 --fault-mttr 300``
+     (cost-aware, first-fit; replicas cut from 256), ``capacity
+     --host-counts 100 200 400 600 --faults 4 --fault-mttr 300`` (both
+     at 25 apps, cut from 50) and
      ``apps --app-counts 10 15`` (cut from 100 500 1000) —
      wall, rollouts/s, ticks, placement steps, host reads, CUDA-event
      ms, peak memory and the summary's best; with phase 6, autotune's
@@ -123,7 +125,7 @@ Phases, each fatal on failure:
      with the DES validation), the same world with ES (88 rows), the
      committed ``data/search/ci_seed.json`` twice (the reports must be
      equal) and the 10,240-row population (64 candidates x 160
-     replicas) at 600 hosts x 50 apps, 1 generation, horizon 1200 s
+     replicas) at 600 hosts x 50 apps, 1 generation, horizon 600 s
      (cut from 2400) — wall,
      generations/s, rollouts/s, the slowest generation's ticks,
      placement steps and host reads, CUDA-event ms, peak memory, the
@@ -143,7 +145,7 @@ Phases, each fatal on failure:
      (``tests/data/calibrate_seed0.json``; egress within rtol 1e-5) —
      wall, and each mode's rollout ticks, placement steps and host
      reads; (b) the README's ``ensemble --policy opportunistic
-     --congestion`` with ``--checkpoint`` at R = 256 (cut from 1024;
+     --congestion`` with ``--checkpoint`` at R = 64 (cut from 1024;
      50 apps, 600 hosts), its first 16 replicas equal to
      ``pivot_tpu``'s R = 16 run
      (``tests/data/ensemble_congestion_seed0.npz``) — wall, rollouts/s,
@@ -152,7 +154,11 @@ Phases, each fatal on failure:
      segment and resumed from the file equals the uninterrupted run bit
      for bit, and first-fit and best-fit with congestion, host-pair pipes
      and realtime scoring with faults equal the port on the CPU.  The
-     same rule as phase 6;
+     same rule as phase 6.  The card sides of 6 (d), 7 (a) and (c) and
+     9 (c) time nothing: the first of phases 6, 7 and 9 runs them in a
+     pool of spawned processes beside the main process (the loops are
+     bound by the host's issue of small launches), and waits for them
+     before it times anything;
  10. serving on the card: the per-row launch of ``greedy_place`` against
      ``cost_aware_plain_rows`` (every mode over five (G, T, H) shapes
      up to 16 rows x 600 hosts, sparse and dense, per-row step bounds,
@@ -291,7 +297,23 @@ Phases, each fatal on failure:
      answered ``ok: false``, the figures named as skipped where
      matplotlib is absent.
      Every ``greedy_place`` launch of the phase, (c)'s timed calls too,
-     is held against its plain version.
+     is held against its plain version;
+ 15. host sharding on the card (``ops/shard.py``; the sharded path
+     launches no ``greedy_place``): (a) at the reference's pod scale
+     (H = 98,304 hosts, T = 256 ready tasks, ``bench.py``'s
+     ``_SHARD_H0`` / ``_SHARD_T``), f32, the four arms through the
+     sharded passes on meshes of S = 1 and 4 logical shards of the card,
+     per-step and chunk (C = 8), each placement and availability bit for
+     bit the unsharded torch form's, every call timed by CUDA events
+     beside the unsharded per-step and chunk forms; the Cost-Aware pass
+     (sharded and not) against ``greedy_place`` on a tick of H = 9,664,
+     the largest shape the kernel holds that phase 2 builds (placements
+     equal, availability within the tolerance); (b) ``overall``'s VBP and
+     Cost-Aware arms at 600 hosts x 30 apps through ``ExperimentRun``
+     with ``enable_sharding`` over 4 logical shards, each ``general.json``
+     byte-equal to the unsharded run's (Cost-Aware with
+     ``use_kernel=False``), spans engaged, no ``greedy_place`` launch
+     (counts zeroed just before each run and read just after).
 
 The CPU sides of the card-vs-CPU checks of phases 6 (b) and (d), 7 (c),
 8 (c) and 9 (c) run in one spawned worker process a phase
@@ -306,7 +328,9 @@ kernel failure: no failure is served by the numpy twin unseen.
 Each phase logs its wall.  The line before the last is a JSON
 ``kernels`` record (its ``launches`` split into the R = 1 launches of
 phases 3, 4, 10-14, the R = 256 launches of phase 4, the R = 4 launches
-of phase 14 and the per-row launches of phases 10-14, with the per-row form's times; a number
+of phase 14 and the per-row launches of phases 10-14, with the per-row
+form's times; phase 15's path launches none, its comparison launch
+apart; a number
 of a phase not run is null); the
 last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
@@ -1675,10 +1699,10 @@ def _cpu_side_init(cpus, n_threads) -> None:
 
 @contextlib.contextmanager
 def cpu_side(jobs):
-    """The CPU sides of a phase's card-vs-CPU checks in one spawned worker
-    process: it runs the port on the CPU while the card runs the phase's
-    other work (those CPU runs took ~40% of phases 6-9's walls, one after
-    another with the card's).  ``jobs`` are ``(function, *args)`` tuples
+    """The CPU sides of card-vs-CPU checks in one spawned worker process
+    (``side_workers``: those of phases 6-9): it runs the port on the CPU
+    while the card runs the phases' other work (those CPU runs took ~40%
+    of phases 6-9's walls, one after another with the card's).  ``jobs`` are ``(function, *args)`` tuples
     of top-level functions; yields their futures, in order; the block's
     end waits for (and stops) the worker.  The worker runs on its own
     cores (``cpu_side_cores``: 2 of 8) and the main process keeps off
@@ -1714,24 +1738,216 @@ def cpu_side(jobs):
         set_process_affinity(cores)
 
 
-def cpu_rollout(n_apps, policy, kw) -> tuple:
-    """``rollout`` of the ``ensemble`` defaults' inputs (``n_apps`` apps)
-    on the port on the CPU: ``(result, seconds)`` (the worker's side of
-    phase 6 (b) and (d))."""
+def ens_rollout(device, n_apps, policy, n_replicas, tick_order=None):
+    """``rollout`` of the ``ensemble`` defaults' inputs (``n_apps`` apps,
+    the defaults' own when None) on ``device``: ``(result, seconds,
+    ticks)`` (the CPU sides of phase 6 (b) and (d) on the worker, the
+    card side of (d) in the card pool)."""
     from pivot_tpu_torch.experiments import cli
     from pivot_tpu_torch.parallel.ensemble import prng, rollout
 
-    args, on_cpu = ensemble_inputs(cli, "cpu", n_apps=n_apps)
+    args, inputs = ensemble_inputs(cli, device, n_apps=n_apps)
+    st = {}
     t0 = time.perf_counter()
-    res = _result(rollout(prng.PRNGKey(args.seed), *on_cpu, policy=policy,
-                          **kw))
-    return res, time.perf_counter() - t0
+    res = _result(rollout(
+        prng.PRNGKey(args.seed), *inputs, policy=policy,
+        n_replicas=n_replicas, tick=args.tick, max_ticks=args.max_ticks,
+        perturb=args.perturb, tick_order=tick_order or args.tick_order,
+        stats=st))
+    return res, time.perf_counter() - t0, st["ticks"]
+
+
+def sync_debug(fn):
+    """``fn()`` under torch's sync debug mode: ``(its value, the
+    synchronizing calls flagged)``."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            value = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return value, sum("synchroniz" in str(w.message) for w in caught)
+
+
+#: Processes of the card pool at most (beside the main process).
+CARD_POOL_WORKERS = 5
+
+
+def _card_pool_init(n_threads) -> None:
+    torch.set_num_threads(n_threads)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _card_pool_job(fn, device, *args):
+    """One run of the card pool: ``(fn's value, greedy_place launches)``."""
+    from pivot_tpu_torch.ops import cuda_kernels as ck
+
+    ck.reset_launches()
+    value = fn(device, *args)
+    return value, ck.LAUNCHES["greedy_place"]
+
+
+def card_pool_jobs(phases) -> dict:
+    """The untimed card runs of phases 6, 7 and 9 (their checks against
+    ``pivot_tpu``'s fixtures and against the port on the CPU) for the
+    ``phases`` selected: ``{key: (function, *args)}``, the longest
+    first.  Each function takes the device first and is top-level."""
+    jobs = {}
+    if 7 in phases:
+        jobs.update({(7, "fixture", n): (sw_fixture_run, n)
+                     for n in sw_cases() if n.startswith("fault__")})
+    if 9 in phases:
+        jobs[9, "resume", True] = (cg_resume_run, True)
+        jobs[9, "resume", False] = (cg_resume_run, False)
+        jobs.update({(9, "small", i): (cg_small_run, i)
+                     for i in range(len(CG_SMALL))})
+    if 7 in phases:
+        jobs.update({(7, "fixture", n): (sw_fixture_run, n)
+                     for n in sw_cases() if not n.startswith("fault__")})
+    if 6 in phases:
+        jobs.update({(6, "small", arm, order): (
+            ens_rollout, 10, arm, ENS_SMALL_REPLICAS, order)
+            for arm, order in ENS_SMALL})
+    if 7 in phases:
+        jobs.update({(7, "small", n): (sw_small_run, n) for n in SW_SMALL})
+    return jobs
+
+
+def cpu_side_jobs(phases) -> dict:
+    """The CPU sides of the card-vs-CPU checks of phases 6-9 for the
+    ``phases`` selected: ``{key: (function, *args)}``, in phase order (one
+    worker runs them one after another, each before its phase needs
+    it)."""
+    jobs = {}
+    if 6 in phases:
+        jobs[6, "b"] = (ens_rollout, "cpu", None, "cost-aware",
+                        ENS_CPU_REPLICAS)
+        jobs.update({(6, "d", arm, order): (
+            ens_rollout, "cpu", 10, arm, ENS_SMALL_REPLICAS, order)
+            for arm, order in ENS_SMALL})
+    if 7 in phases:
+        jobs.update({(7, "c", n): (sw_small_run, "cpu", n)
+                     for n in SW_SMALL})
+    if 8 in phases:
+        jobs[8, "c"] = (cpu_sr_check,)
+    if 9 in phases:
+        jobs.update({(9, "c", i): (cg_small_run, "cpu", i)
+                     for i in range(len(CG_SMALL))})
+    return jobs
+
+
+@contextlib.contextmanager
+def side_workers(phases, device):
+    """The side processes of phases 6-9 (those of ``phases``): one
+    ``cpu_side`` worker for the CPU sides of their card-vs-CPU checks
+    (across the phases: each phase's card work alone is shorter than its
+    CPU side) and a started ``CardPool`` for their untimed card runs.
+    Yields ``(pool, cpu)``, ``cpu`` mapping ``cpu_side_jobs``' keys to
+    futures; the block's end stops both."""
+    jobs = cpu_side_jobs(phases)
+    with cpu_side(list(jobs.values())) as futures:
+        pool = CardPool(card_pool_jobs(phases), device)
+        try:
+            pool.start()
+            yield pool, dict(zip(jobs, futures))
+        finally:
+            pool.close()
+
+
+class CardPool:
+    """The untimed card runs of phases 6, 7 and 9 in spawned processes
+    that share the card with the main process.  Those loops are bound by
+    the host's issue of small launches, and the card idles most of the
+    time, so five processes finish them ~3x sooner than one.  The first
+    of those phases calls ``start`` inside its ``cpu_side`` block (the
+    workers inherit the main process's cores) and ``wait`` before
+    anything it times: ``wait`` collects every result and stops the
+    processes, so no second process runs beside a timed window.  A run's
+    own wall in the pool is not a time of the card alone."""
+
+    def __init__(self, jobs, device):
+        self.jobs = dict(jobs)
+        self.device = str(device)
+        self.pool = None
+        self.futures = {}
+        self.results = {}
+        self.workers = 0
+
+    def start(self) -> None:
+        import concurrent.futures as cf
+        import multiprocessing as mp
+
+        if not self.jobs:
+            return
+        self.workers = max(1, min(CARD_POOL_WORKERS, len(self.jobs),
+                                  len(os.sched_getaffinity(0)) - 1))
+        self.t0 = time.perf_counter()
+        # The main process's thread count keeps any host-side reduction
+        # as it was; its OpenMP threads wait passively (read as a worker
+        # starts, inside the first submits).
+        old = os.environ.get("OMP_WAIT_POLICY")
+        os.environ["OMP_WAIT_POLICY"] = "PASSIVE"
+        try:
+            self.pool = cf.ProcessPoolExecutor(
+                max_workers=self.workers, mp_context=mp.get_context("spawn"),
+                initializer=_card_pool_init,
+                initargs=(torch.get_num_threads(),))
+            self.futures = {k: self.pool.submit(_card_pool_job, fn,
+                                                self.device, *args)
+                            for k, (fn, *args) in self.jobs.items()}
+        finally:
+            if old is None:
+                os.environ.pop("OMP_WAIT_POLICY")
+            else:
+                os.environ["OMP_WAIT_POLICY"] = old
+
+    def wait(self) -> None:
+        """Every run's value, then the processes stopped (a no-op once
+        done)."""
+        if self.pool is None:
+            return
+        try:
+            for key, fut in self.futures.items():
+                self.results[key], launched = fut.result()
+                if launched:
+                    raise AssertionError(f"the card pool's run {key} "
+                                         f"launched greedy_place {launched} "
+                                         "times")
+            self.pool.shutdown(wait=True)
+            self.pool = None
+        finally:
+            self.close()
+        phases = sorted({k[0] for k in self.jobs})
+        log(f"  card pool: {len(self.jobs)} untimed runs of phases "
+            f"{', '.join(map(str, phases))} (checks against pivot_tpu's "
+            f"fixtures and the CPU) in {self.workers} processes beside this "
+            f"one: {time.perf_counter() - self.t0!r} s; nothing timed ran "
+            "beside them")
+
+    def close(self) -> None:
+        """Stop the processes, ending any run still going."""
+        if self.pool is None:
+            return
+        pool, self.pool = self.pool, None
+        procs = list((getattr(pool, "_processes", None) or {}).values())
+        pool.shutdown(wait=False, cancel_futures=True)
+        for proc in procs:
+            if proc.is_alive():
+                proc.terminate()
+        for proc in procs:
+            proc.join()
+
+    def __getitem__(self, key):
+        return self.results[key]
 
 
 #: Phase 6 (e): the profiled window's first tick (cut from 600 to 300 for
-#: phase 13: the unprofiled ticks before it are walked again for each
-#: arm) and its length (cut from 50 to 25 for phase 14).
-ENS_PROFILE_SKIP = 300
+#: phase 13 and to 100 for the script's 1,200 s on slower machines: the
+#: unprofiled ticks before it are walked again for each arm) and its
+#: length (cut from 50 to 25 for phase 14).
+ENS_PROFILE_SKIP = 100
 ENS_PROFILE_WINDOW = 25
 
 
@@ -1790,14 +2006,16 @@ def ensemble_profile(on_card, args, key, policy, skip=ENS_PROFILE_SKIP,
                 top=[dict(op=k, ms=ms, calls=c) for k, ms, c in ops[:10]])
 
 
-def phase_ensemble(device):
+def phase_ensemble(device, pool, cpu):
     """Phase 6: the Monte-Carlo ensemble on the card.  The refund's sum
     order and (c) the R = 16 runs against ``pivot_tpu``'s fixture first
-    (they also warm the card up); then (a) the main path, the CLI at
-    R = 1024 for the cost-aware and first-fit arms; (e) a profiled
-    window of each; (b) the cost-aware run's first ``ENS_CPU_REPLICAS``
-    replicas against the port on the CPU; (d) the other arms and lifo,
-    card against CPU, at 10 apps."""
+    (they also warm the card up), while ``pool`` (``side_workers``'
+    ``CardPool``) runs the untimed card runs of the phases selected,
+    (d)'s among them; then (a) the main path, the CLI at R = 1024 for
+    the cost-aware and first-fit arms; (e) a profiled window of each;
+    (b) the cost-aware run's first ``ENS_CPU_REPLICAS`` replicas against
+    the port on the CPU; (d) the other arms and lifo, card against CPU,
+    at 10 apps.  ``cpu``: the CPU sides' futures (``side_workers``)."""
     from pivot_tpu_torch.experiments import cli
     from pivot_tpu_torch.ops import cuda_kernels as ck
     from pivot_tpu_torch.parallel.ensemble import prng, rollout
@@ -1808,15 +2026,10 @@ def phase_ensemble(device):
               max_ticks=args.max_ticks, perturb=args.perturb,
               tick_order=args.tick_order)
     key = prng.PRNGKey(args.seed)
-    jobs = [(cpu_rollout, None, "cost-aware",
-             dict(kw, n_replicas=ENS_CPU_REPLICAS))]
-    jobs += [(cpu_rollout, 10, arm,
-              dict(kw, tick_order=order, n_replicas=ENS_SMALL_REPLICAS))
-             for arm, order in ENS_SMALL]
-    with cpu_side(jobs) as futures:
-        cpu_b, *rest = futures
-        return _phase_ensemble(device, cli, ck, rollout, out, args, on_card,
-                               kw, key, cpu_b, dict(zip(ENS_SMALL, rest)))
+    return _phase_ensemble(device, cli, ck, rollout, out, args, on_card, kw,
+                           key, cpu[6, "b"],
+                           {(a, o): cpu[6, "d", a, o] for a, o in ENS_SMALL},
+                           pool)
 
 
 #: Phase 6 (d): the other arms and lifo, card against CPU.
@@ -1825,9 +2038,10 @@ ENS_SMALL = (("best-fit", "fifo"), ("opportunistic", "fifo"),
 
 
 def _phase_ensemble(device, cli, ck, rollout, out, args, on_card, kw, key,
-                    cpu_b, cpu_d):
+                    cpu_b, cpu_d, pool):
     """Phase 6 after its inputs, the CPU sides of (b) and (d) running on
-    the worker (``cpu_b``, ``cpu_d``: futures)."""
+    the worker (``cpu_b``, ``cpu_d``: futures), the card side of (d) in
+    ``pool``."""
     # The refund sums each host's retiring tasks in task-index order: the
     # trace's demands are not integers, so that order must hold on the
     # card too (index_put_ with accumulate: sort by row, then one
@@ -1851,15 +2065,9 @@ def _phase_ensemble(device, cli, ck, rollout, out, args, on_card, kw, key,
     card16 = {}
     for arm in ENS_ARMS:
         st = {}
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                res = rollout(key, *on_card, policy=arm, stats=st, **kw)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
+        res, syncs = sync_debug(lambda: rollout(key, *on_card, policy=arm,
+                                                stats=st, **kw))
         card16[arm] = _result(res)
-        syncs = sum("synchroniz" in str(w.message) for w in caught)
         worst = ensemble_compare(card16[arm], fixture[arm],
                                  f"(c) {arm} card R=16 vs pivot_tpu fixture",
                                  rows=ENS_CHECK_REPLICAS)
@@ -1873,6 +2081,7 @@ def _phase_ensemble(device, cli, ck, rollout, out, args, on_card, kw, key,
             f"{st['ticks']} ticks, {st['place_steps']} placement steps, "
             f"{st['host_syncs']} host reads counted, {syncs} synchronizing "
             f"calls flagged by torch's sync debug mode")
+    pool.wait()  # nothing timed before this
 
     # (a) the main path: the CLI on the card at R = 1024.
     with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
@@ -1951,7 +2160,7 @@ def _phase_ensemble(device, cli, ck, rollout, out, args, on_card, kw, key,
                 for r in prof["top"]))
 
     # (b) the first replicas against the port on the CPU (prefix-stable).
-    cpu_res, cpu_s = cpu_b.result()
+    cpu_res, cpu_s, _ticks = cpu_b.result()
     worst = ensemble_compare(card16["cost-aware"], cpu_res,
                              f"(b) cost-aware card R={ENS_CPU_REPLICAS} vs "
                              "the port on the CPU", rows=ENS_CPU_REPLICAS)
@@ -1961,22 +2170,18 @@ def _phase_ensemble(device, cli, ck, rollout, out, args, on_card, kw, key,
         f"times, makespans, instance-hours, unfinished equal; egress "
         f"largest rel diff {worst!r}")
 
-    # (d) the other arms and lifo, card vs CPU, at 10 apps.
-    _, small_card = ensemble_inputs(cli, device, n_apps=10)
+    # (d) the other arms and lifo, card (in the pool) vs CPU, at 10 apps.
     for arm, order in ENS_SMALL:
-        kw10 = dict(kw, tick_order=order, n_replicas=ENS_SMALL_REPLICAS)
-        st = {}
-        got = _result(rollout(key, *small_card, policy=arm, stats=st,
-                              **kw10))
+        got, _s, ticks = pool[6, "small", arm, order]
         worst = ensemble_compare(got, cpu_d[arm, order].result()[0],
                                  f"(d) {arm} {order} card vs CPU at 10 apps")
         if got["n_unfinished"].max() != 0:
             raise AssertionError(f"(d) {arm} {order}: tasks unfinished")
         out["checks"][f"{arm}_{order}_10apps"] = dict(max_rel=worst,
-                                                      ticks=st["ticks"])
+                                                      ticks=ticks)
         log(f"  (d) {arm} {order}, 10 apps "
-            f"({small_card[1].n_tasks} tasks), R={ENS_SMALL_REPLICAS}: card "
-            f"equals CPU, rel diff {worst!r}, {st['ticks']} ticks")
+            f"({got['placement'].shape[-1]} tasks), R={ENS_SMALL_REPLICAS}: "
+            f"card equals CPU, rel diff {worst!r}, {ticks} ticks")
 
     return out
 
@@ -1995,18 +2200,22 @@ SW_APP_COUNTS = (3, 6, 10)
 SW_APP_ARMS = ("opportunistic", "first-fit", "cost-aware")
 #: Phase 7 (b): the README's sweep commands at full width through the CLI
 #: (``apps`` cut from 100 500 1000 apps to 10 15, the faulted ensembles
-#: and ``capacity`` from 50 apps to 25, ``autotune``'s replicas a
+#: and ``capacity`` from 50 apps to 25, the faulted ensembles' replicas
+#: from 256 to ``SW_FAULT_MAIN_REPLICAS``, ``autotune``'s replicas a
 #: candidate from 32 to ``SW_AUTOTUNE_REPLICAS``: PERF.md, section 4).
+SW_FAULT_MAIN_REPLICAS = 64
 SW_AUTOTUNE_REPLICAS = 4
 SW_MAIN = (
     ("autotune", "run_autotune",
      ["autotune", "--replicas", str(SW_AUTOTUNE_REPLICAS)]),
     ("ensemble-faults cost-aware", "run_ensemble",
-     ["ensemble", "--replicas", "256", "--faults", "4", "--fault-mttr",
-      "300", "--policy", "cost-aware", "--num-apps", "25"]),
+     ["ensemble", "--replicas", str(SW_FAULT_MAIN_REPLICAS), "--faults",
+      "4", "--fault-mttr", "300", "--policy", "cost-aware", "--num-apps",
+      "25"]),
     ("ensemble-faults first-fit", "run_ensemble",
-     ["ensemble", "--replicas", "256", "--faults", "4", "--fault-mttr",
-      "300", "--policy", "first-fit", "--num-apps", "25"]),
+     ["ensemble", "--replicas", str(SW_FAULT_MAIN_REPLICAS), "--faults",
+      "4", "--fault-mttr", "300", "--policy", "first-fit", "--num-apps",
+      "25"]),
     ("capacity", "run_capacity",
      ["capacity", "--host-counts", "100", "200", "400", "600", "--faults",
       "4", "--fault-mttr", "300", "--num-apps", "25"]),
@@ -2172,22 +2381,25 @@ def sw_pow_check(device, n=1 << 24):
                 f64_rounded_differs=int((f64.cpu() != card).sum()))
 
 
-def phase_sweeps(device, ens=None):
+def phase_sweeps(device, ens, pool, cpu):
     """Phase 7: fault ensembles and the what-if sweeps on the card; no
     hand kernel (``greedy_place`` must make no launch).  (a) every entry
     of ``pivot_tpu``'s fixture under torch's sync debug mode; (b) the
     README's commands at full width through the CLI; (c) the card against
     the port on the CPU at ``SW_APPS`` apps: best-fit, lifo, and the
     search stack's channels (exponents, a market's risk term, faults,
-    an active mask), and the float32 pow twin."""
+    an active mask), and the float32 pow twin.  The card sides of (a)
+    and (c) run in ``pool``, the CPU sides of (c) on the ``cpu`` worker
+    (``side_workers``); ``ens``: phase 6's cost-aware makespans, or
+    None."""
     from pivot_tpu_torch.experiments import cli
     from pivot_tpu_torch.ops import cuda_kernels as ck
 
     out = {"fixture": {}, "runs": {}, "small": {}}
     ck.reset_launches()
-    with cpu_side([(cpu_sw_small, name) for name in SW_SMALL]) as futures:
-        return _phase_sweeps(device, ens, cli, ck, out,
-                             dict(zip(SW_SMALL, futures)))
+    pool.wait()  # nothing timed before this
+    return _phase_sweeps(device, ens, cli, ck, out,
+                         {n: cpu[7, "c", n] for n in SW_SMALL}, pool)
 
 
 #: Phase 7 (c)'s card-vs-CPU cases (``sw_small``).
@@ -2196,36 +2408,40 @@ SW_SMALL = ("best-fit apps", "cost-aware lifo score",
             "first-fit channels", "opportunistic channels")
 
 
-def cpu_sw_small(name) -> tuple:
-    """The CPU side of one phase 7 (c) case, on the port on the CPU (the
-    worker's side): ``(result, seconds)``.  The market's hazard rows are
-    host values, so they equal the card's copied back."""
+def sw_small_run(device, name) -> tuple:
+    """One phase 7 (c) case on ``device`` (the CPU side on the worker,
+    the card side in the card pool): ``(result, seconds)``.  The
+    market's hazard rows are host values, so the card's equal the
+    CPU's."""
     from pivot_tpu_torch.experiments import cli
 
-    args, on_cpu = ensemble_inputs(cli, "cpu", n_apps=SW_APPS)
-    haz = sw_hazard(cli, args, on_cpu[2], "cpu")
+    args, inputs = ensemble_inputs(cli, device, n_apps=SW_APPS)
+    haz = sw_hazard(cli, args, inputs[2], device)
     t0 = time.perf_counter()
-    res = _result(sw_small(name, (args, on_cpu),
+    res = _result(sw_small(name, (args, inputs),
                            haz if "channels" in name else None))
     return res, time.perf_counter() - t0
 
 
-def _phase_sweeps(device, ens, cli, ck, out, cpu_c):
-    """Phase 7 with the CPU sides of (c) on the worker (``cpu_c``)."""
-    inputs = {n: ensemble_inputs(cli, device, n_apps=n)
-              for n in (SW_APPS, 50)}
+def sw_fixture_run(device, name) -> tuple:
+    """Phase 7 (a): fixture entry ``name`` on ``device`` under torch's
+    sync debug mode (in the card pool): ``(result, stats, synchronizing
+    calls flagged)``."""
+    from pivot_tpu_torch.experiments import cli
+
+    n = 50 if sw_cases()[name][0] == "fault" else SW_APPS
+    inputs = {n: ensemble_inputs(cli, device, n_apps=n)}
+    st = {}
+    res, syncs = sync_debug(lambda: sw_run(name, inputs, stats=st))
+    return _result(res), st, syncs
+
+
+def _phase_sweeps(device, ens, cli, ck, out, cpu_c, pool):
+    """Phase 7 with the CPU sides of (c) on the worker (``cpu_c``) and the
+    card sides of (a) and (c) from ``pool``."""
     fixture = sw_load_fixture()
     for name in sw_cases():
-        st = {}
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                res = sw_run(name, inputs, stats=st)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        syncs = sum("synchroniz" in str(w.message) for w in caught)
-        got = _result(res)
+        got, st, syncs = pool[7, "fixture", name]
         reps = got["makespan"].shape[-1]
         worst = sw_compare(got, fixture[name], name, reps)
         out["fixture"][name] = dict(
@@ -2236,7 +2452,8 @@ def _phase_sweeps(device, ens, cli, ck, out, cpu_c):
             f"equals pivot_tpu's fixture (egress largest rel diff "
             f"{worst!r}); {st['ticks']} ticks, {st['place_steps']} "
             f"placement steps, {st['host_syncs']} host reads counted, "
-            f"{syncs} synchronizing calls flagged; {st['wall_s']!r} s")
+            f"{syncs} synchronizing calls flagged; {st['wall_s']!r} s in "
+            f"the card pool")
 
     with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
         for label, fn, argv in SW_MAIN:
@@ -2299,12 +2516,8 @@ def _phase_sweeps(device, ens, cli, ck, out, cpu_c):
                 log(f"  (b) autotune's (1, 1, 1) candidate equals phase "
                     f"6's first {n} replicas (makespan mean {got!r})")
 
-    args10, on_card = inputs[SW_APPS]
-    haz = sw_hazard(cli, args10, on_card[2], device)
     for name in SW_SMALL:
-        risk = "channels" in name
-        got = _result(sw_small(name, (args10, on_card),
-                               haz if risk else None))
+        got, _s = pool[7, "small", name]
         want, cpu_s = cpu_c[name].result()
         worst = ensemble_compare(got, want, f"(c) {name} card vs CPU")
         out["small"][name] = dict(max_rel=worst, cpu_s=cpu_s)
@@ -2545,7 +2758,7 @@ def sr_record_cem(cem, env, anchors):
 #: cut from 4 generations to 1, and its horizon — the ticks it walks —
 #: from 2400 s to ``SR_POPULATION_HORIZON``: PERF.md, section 4).  Each
 #: with the rows a generation must have.
-SR_POPULATION_HORIZON = 1200
+SR_POPULATION_HORIZON = 600
 SR_MAIN = (
     ("1 cem, README quickstart", 96,
      ["search", "--method", "cem", "--generations", "6", "--popsize", "12",
@@ -2678,15 +2891,14 @@ def cpu_sr_check() -> dict:
     return out
 
 
-def phase_search(device):
+def phase_search(device, cpu):
     """Phase 8: the policy search on the card; no hand kernel
     (``greedy_place`` must make no launch).  (a) ``pivot_tpu``'s fixture
     under torch's sync debug mode; (b) the four runs through the CLI;
     (c) the card against the port on the CPU at 600 hosts (its CPU side
-    on the worker process), and the pow twin over continuous
-    exponents."""
-    with cpu_side([(cpu_sr_check,)]) as (cpu_check,):
-        return _phase_search(device, cpu_check)
+    on the ``cpu`` worker: ``side_workers``), and the pow twin over
+    continuous exponents."""
+    return _phase_search(device, cpu[8, "c"])
 
 
 def _phase_search(device, cpu_check):
@@ -2829,7 +3041,7 @@ CAL_RUNS = {"modes": (), "realtime": ("--realtime",)}
 CAL_RTOL = 1e-5
 CG_FIXTURE = "tests/data/ensemble_congestion_seed0.npz"
 CG_ARGV = ("--policy", "opportunistic", "--congestion")
-CG_REPLICAS = 256  # cut from 1024 for the script's 1,200 s (PERF.md, 4)
+CG_REPLICAS = 64  # cut from 1024 for the script's 1,200 s (PERF.md, 4)
 CG_CHECK_REPLICAS = 16
 CG_APPS = 10
 CG_SMALL_REPLICAS = 4
@@ -2883,14 +3095,55 @@ def cg_small(inputs, policy, opts, path=None):
         policy=policy, **opts)
 
 
-def cpu_cg_small(i) -> dict:
-    """The CPU side of ``CG_SMALL[i]`` on the port on the CPU (the
-    worker's side of phase 9 (c))."""
+def cg_small_run(device, i) -> tuple:
+    """``CG_SMALL[i]`` on ``device`` (phase 9 (c): the CPU side on the
+    worker, the card side in the card pool): ``(result, seconds)``."""
     from pivot_tpu_torch.experiments import cli
 
     policy, kw = CG_SMALL[i]
-    return _result(cg_small(ensemble_inputs(cli, "cpu", n_apps=CG_APPS),
-                            policy, kw))
+    inputs = ensemble_inputs(cli, device, n_apps=CG_APPS)
+    t0 = time.perf_counter()
+    res = _result(cg_small(inputs, policy, kw))
+    return res, time.perf_counter() - t0
+
+
+#: Phase 9 (c)'s run killed after its first segment and resumed.
+CG_RESUME = ("opportunistic", dict(congestion=True, tick_order="lifo"))
+
+
+def cg_resume_run(device, kill) -> tuple:
+    """Phase 9 (c)'s resume check on ``device`` (in the card pool): with
+    ``kill``, ``CG_RESUME`` checkpointed to a file, killed after its first
+    segment and resumed from the file; without, the uninterrupted run.
+    ``(result, the tick the file was written at, or None)``."""
+    from pivot_tpu_torch.experiments import cli
+    from pivot_tpu_torch.parallel import ensemble as E
+
+    inputs = ensemble_inputs(cli, device, n_apps=CG_APPS)
+    if not kill:
+        return _result(cg_small(inputs, *CG_RESUME)), None
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        path = os.path.join(tmp, "killed.npz")
+        orig = E._segment_step
+        calls = []
+
+        def dying(*a, **k):
+            if calls:
+                raise KeyboardInterrupt("killed after the first segment")
+            calls.append(1)
+            return orig(*a, **k)
+
+        E._segment_step = dying
+        try:
+            cg_small(inputs, *CG_RESUME, path)
+            raise AssertionError("(c) the kill hook did not fire")
+        except KeyboardInterrupt:
+            pass
+        finally:
+            E._segment_step = orig
+        with np.load(path) as z:
+            killed_at = int(z["ticks_done"])
+        return _result(cg_small(inputs, *CG_RESUME, path)), killed_at
 
 
 def cg_kernels_per_tick(inputs, congestion, skip=60, window=20):
@@ -2924,7 +3177,7 @@ def cg_kernels_per_tick(inputs, congestion, skip=60, window=20):
     return (n / st["ticks"], st["place_steps"] / st["ticks"]) if n else None
 
 
-def phase_congestion(device):
+def phase_congestion(device, pool, cpu):
     """Phase 9: (a) ``calibrate`` through the CLI at its defaults, static
     and congested, then ``--realtime``, each report against
     ``pivot_tpu``'s; (b) the README's ``ensemble --policy opportunistic
@@ -2932,20 +3185,21 @@ def phase_congestion(device):
     first 16 rows
     against ``pivot_tpu``'s R = 16 run; (c) at ``CG_APPS`` apps on the
     card against the port on the CPU: a checkpointed run killed after its
-    first segment and resumed, and the arms and modes of ``CG_SMALL``.
-    No hand kernel lies on this path: ``greedy_place`` must make no
-    launch."""
+    first segment and resumed, and the arms and modes of ``CG_SMALL``;
+    the card sides of (c) run in ``pool``, their CPU sides on the ``cpu``
+    worker (``side_workers``).  No hand kernel lies on this path:
+    ``greedy_place`` must make no launch."""
     from pivot_tpu_torch.experiments import cli
     from pivot_tpu_torch.ops import cuda_kernels as ck
-    from pivot_tpu_torch.parallel import ensemble as E
 
     out = {"calibrate": {}, "checks": {}}
     ck.reset_launches()
     with open(CAL_FIXTURE) as f:
         cal_fx = json.load(f)
     # The CPU sides of (c) run on the worker meanwhile.
-    with cpu_side([(cpu_cg_small, i) for i in range(len(CG_SMALL))]) as \
-            cpu_c, tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+    cpu_c = [cpu[9, "c", i] for i in range(len(CG_SMALL))]
+    pool.wait()  # nothing timed before this
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
         # (a) calibrate at the CLI's defaults (600 hosts, cost-aware,
         #     R = 1, perturb 0, lifo, float32).
         for name, extra in CAL_RUNS.items():
@@ -3025,31 +3279,10 @@ def phase_congestion(device):
             f"pivot_tpu's R={CG_CHECK_REPLICAS} run (egress rel diff "
             f"{worst!r}); makespan mean {row['makespan_mean']!r} s")
 
-        # (c) small cases, the card against the port on the CPU.
-        on_card = ensemble_inputs(cli, device, n_apps=CG_APPS)
-        opts = dict(congestion=True, tick_order="lifo")
-        whole = _result(cg_small(on_card, "opportunistic", opts))
-        path = os.path.join(tmp, "killed.npz")
-        orig = E._segment_step
-        calls = []
-
-        def dying(*a, **k):
-            if calls:
-                raise KeyboardInterrupt("killed after the first segment")
-            calls.append(1)
-            return orig(*a, **k)
-
-        E._segment_step = dying
-        try:
-            cg_small(on_card, "opportunistic", opts, path)
-            raise AssertionError("(c) the kill hook did not fire")
-        except KeyboardInterrupt:
-            pass
-        finally:
-            E._segment_step = orig
-        with np.load(path) as z:
-            killed_at = int(z["ticks_done"])
-        resumed = _result(cg_small(on_card, "opportunistic", opts, path))
+        # (c) small cases, the card (in the pool) against the port on the
+        #     CPU.
+        whole, _ = pool[9, "resume", False]
+        resumed, killed_at = pool[9, "resume", True]
         for f in ENS_FIELDS:
             if not np.array_equal(resumed[f], whole[f]):
                 raise AssertionError(f"(c) resumed run differs in {f}")
@@ -3058,10 +3291,8 @@ def phase_congestion(device):
             f"R={CG_SMALL_REPLICAS}, killed at tick {killed_at} and resumed "
             "from the file: every field equals the uninterrupted run's bits")
         for i, (policy, kw) in enumerate(CG_SMALL):
-            t0 = time.perf_counter()
-            got = _result(cg_small(on_card, policy, kw))
-            card_s = time.perf_counter() - t0
-            worst = ensemble_compare(got, cpu_c[i].result(),
+            got, card_s = pool[9, "small", i]
+            worst = ensemble_compare(got, cpu_c[i].result()[0],
                                      f"(c) {policy} {kw} card vs CPU")
             if got["n_unfinished"].max() != 0:
                 raise AssertionError(f"(c) {policy} {kw}: tasks unfinished")
@@ -3069,7 +3300,8 @@ def phase_congestion(device):
             out["checks"][label] = dict(max_rel=worst, card_s=card_s)
             log(f"  (c) {label}, {CG_APPS} apps, R={CG_SMALL_REPLICAS}: card "
                 f"equals the port on the CPU, egress rel diff {worst!r}; "
-                f"card {card_s!r} s")
+                f"card {card_s!r} s in the card pool")
+        on_card = ensemble_inputs(cli, device, n_apps=CG_APPS)
         per_tick = {c: cg_kernels_per_tick(on_card, c) for c in (False, True)}
         out["kernels_per_tick"] = per_tick
         if None in per_tick.values():
@@ -5679,6 +5911,210 @@ def phase_tooling(device, configs, ptxas_rows, oneshot) -> dict:
         f"R=4 {rec['launches_r4']}, per-row {rec['launches_rows_by_g']}")
     return rec
 
+#: Phase 15 (a): the reference's pod scale (``bench.py:3018-3019``,
+#: ``_SHARD_T``, ``_SHARD_H0``), the shard counts, the chunk size.
+P15_T, P15_H = 256, 98_304
+P15_SHARDS = (1, 4)
+P15_CHUNK = 8
+P15_REPS = 3
+#: greedy_place holds at most ``cuda_kernels.MAX_HOSTS`` (10,240) hosts,
+#: so the Cost-Aware pass is held against it on a tick of phase 2's
+#: largest shape (the shared-memory-state build).
+P15_GREEDY_H = 9664
+P15_ARMS = ("opportunistic", "first-fit", "best-fit", "cost-aware")
+#: The ``overall`` Cost-Aware arm's pass (``reference_policy_set``).
+P15_CA = dict(bin_pack="first-fit", sort_hosts=True, host_decay=False)
+#: Phase 15 (b): logical shards of the mesh and the apps of each run.
+P15_E2E_SHARDS = 4
+P15_APPS = 30
+
+
+def p15_inputs(seed, T, H, device) -> dict:
+    """A dense seeded f32 tick (:func:`make_inputs`) with the low-index
+    hosts fuller (availability scaled from 0.05x to 1x along the host
+    axis), so first fits land past shard 0, and the opportunistic
+    uniforms."""
+    keys = ("avail", "dem", "valid", "ng", "az", "cost", "bw", "hz",
+            "counts")
+    x = dict(zip(keys, make_inputs(seed, T, H, device, dense=True)))
+    scale = torch.linspace(0.05, 1.0, H, device=device)[:, None]
+    x["avail"] = (x["avail"] * scale).contiguous()
+    x["u"] = torch.from_numpy(
+        np.random.default_rng(seed).random(T).astype(np.float32)).to(device)
+    return x
+
+
+def p15_call(arm, x, mesh=None, phase2="auto"):
+    """One placement call of ``arm`` on the tick ``x``: the port's
+    unsharded torch form, or with ``mesh`` its host-sharded twin."""
+    from pivot_tpu_torch.ops import kernels as tk
+    from pivot_tpu_torch.ops import shard as sh
+
+    forms = {"opportunistic": (tk.opportunistic_impl,
+                               sh.opportunistic_kernel_sharded),
+             "first-fit": (tk.first_fit_impl, sh.first_fit_kernel_sharded),
+             "best-fit": (tk.best_fit_impl, sh.best_fit_kernel_sharded),
+             "cost-aware": (tk.cost_aware_impl,
+                            sh.cost_aware_kernel_sharded)}[arm]
+    fn = forms[0] if mesh is None else functools.partial(forms[1], mesh)
+    args = (x["avail"], x["dem"], x["valid"])
+    if arm == "opportunistic":
+        return fn(*args, x["u"], phase2=phase2)
+    if arm == "cost-aware":
+        return fn(*args, x["ng"], x["az"], x["cost"], x["bw"], x["hz"],
+                  x["counts"], **P15_CA, phase2=phase2)
+    return fn(*args, phase2=phase2)
+
+
+def p15_exact(got, want, what) -> None:
+    """Placements and availability bit for bit."""
+    (p, a), (pp, pa) = got, want
+    if not torch.equal(p, pp):
+        bad = (p != pp).nonzero()[:5].tolist()
+        raise AssertionError(f"{what}: placements differ at {bad}")
+    if not torch.equal(a.view(torch.int32), pa.view(torch.int32)):
+        raise AssertionError(f"{what}: availability differs")
+
+
+def p15_pod(device, ck, chk) -> dict:
+    """Phase 15 (a): the four arms at pod scale through the sharded
+    passes at S in P15_SHARDS, per-step and chunk, each exactly the
+    unsharded form's result and timed beside it; the Cost-Aware pass
+    held against ``greedy_place`` on a tick it holds."""
+    from pivot_tpu_torch.parallel.mesh import host_sharded_mesh
+
+    x = p15_inputs(15, P15_T, P15_H, device)
+    meshes = {S: host_sharded_mesh(devices=[device] * S)
+              for S in P15_SHARDS}
+    modes = {"step": "auto", "chunk": P15_CHUNK}
+    rec = {}
+    for arm in P15_ARMS:
+        want = p15_call(arm, x)
+        row = {"placed": int((want[0] >= 0).sum())}
+        if row["placed"] < int(x["valid"].sum()) // 4:
+            raise AssertionError(f"{arm}: {row['placed']} placements")
+        for mname, mode in modes.items():
+            p15_exact(p15_call(arm, x, phase2=mode), want,
+                      f"{arm} unsharded {mname}")
+            row[f"unsharded_{mname}_ms"] = _events_ms(
+                lambda: p15_call(arm, x, phase2=mode), P15_REPS)
+            for S, mesh in meshes.items():
+                p15_exact(p15_call(arm, x, mesh, mode), want,
+                          f"{arm} S={S} {mname}")
+                row[f"S{S}_{mname}_ms"] = _events_ms(
+                    lambda: p15_call(arm, x, mesh, mode), P15_REPS)
+        rec[arm] = row
+        log(f"  (a) {arm}, H={P15_H}, T={P15_T}: {row['placed']} "
+            "placements, every sharded form = the unsharded form bit for "
+            "bit; ms per call (CUDA events, mean of "
+            f"{P15_REPS}): " + ", ".join(
+                f"{k[:-3]} {v!r}" for k, v in row.items() if k != "placed"))
+    g = p15_inputs(16, P15_T, P15_GREEDY_H, device)
+    args = (g["avail"], g["dem"], g["valid"], g["ng"], g["az"], g["cost"],
+            g["bw"], g["hz"], g["counts"])
+    n0 = ck.LAUNCHES["greedy_place"]
+    kernel = ck.cost_aware_cuda(*args, **P15_CA, n_eff=P15_T)
+    compare = ck.LAUNCHES["greedy_place"] - n0
+    torch_ca = p15_call("cost-aware", g)
+    chk.same(torch_ca, kernel, f"cost-aware H={P15_GREEDY_H} unsharded "
+             "vs greedy_place", min_placed=dense_floor(args))
+    for S in P15_SHARDS:
+        got = p15_call("cost-aware", g,
+                       host_sharded_mesh(devices=[device] * S))
+        p15_exact(got, torch_ca, f"cost-aware H={P15_GREEDY_H} S={S}")
+        chk.same(got, kernel, f"cost-aware H={P15_GREEDY_H} S={S} vs "
+                 "greedy_place", min_placed=dense_floor(args))
+    log(f"  (a) cost-aware at H={P15_GREEDY_H} (greedy_place's largest "
+        f"tested shape; it holds at most {ck.MAX_HOSTS} hosts): S="
+        f"{'/'.join(map(str, P15_SHARDS))} and unsharded placements = "
+        f"greedy_place's ({int((kernel[0] >= 0).sum())} placed, "
+        f"{compare} comparison launch), max |avail diff| "
+        f"{chk.max_abs_err!r}")
+    return dict(arms=rec, compare_launches=compare)
+
+
+def p15_e2e(device) -> dict:
+    """Phase 15 (b): ``overall``'s VBP and Cost-Aware arms at the CLI
+    default cluster through ``ExperimentRun``, host-sharded over
+    P15_E2E_SHARDS logical shards of the card and unsharded (Cost-Aware
+    with ``use_kernel=False``): ``general.json`` byte-equal, spans
+    engaged, no ``greedy_place`` launch in either."""
+    from pivot_tpu_torch.experiments import cli
+    from pivot_tpu_torch.experiments.runner import ExperimentRun
+    from pivot_tpu_torch.ops import cuda_kernels as ck
+    from pivot_tpu_torch.parallel.mesh import host_sharded_mesh
+    from pivot_tpu_torch.utils import reset_ids
+    from pivot_tpu_torch.utils.config import (
+        build_cluster,
+        make_policy,
+        reference_policy_set,
+    )
+
+    cluster_cfg = cli._cluster_config(cli.parse_args(["overall"]))
+    mesh = host_sharded_mesh(devices=[device] * P15_E2E_SHARDS)
+    rec = {}
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        for pc in reference_policy_set("cuda")[1:]:
+            runs = {}
+            for name in ("sharded", "unsharded"):
+                policy = make_policy(pc, torch_device=str(device))
+                if pc.name == "cost-aware":
+                    policy.use_kernel = False
+                if name == "sharded":
+                    policy.enable_sharding(mesh)
+                reset_ids()
+                ck.reset_launches()  # the path's count starts here
+                t0 = time.perf_counter()
+                summary = ExperimentRun(
+                    pc.label, build_cluster(cluster_cfg), policy, TRACE,
+                    n_apps=P15_APPS, seed=0,
+                    data_dir=os.path.join(tmp, name)).run()
+                wall = time.perf_counter() - t0
+                launches = ck.LAUNCHES["greedy_place"]
+                with open(os.path.join(tmp, name, pc.label,
+                                       "general.json"), "rb") as f:
+                    general = f.read()
+                runs[name] = dict(wall_s=wall, launches=launches,
+                                  general=general, spans=summary["spans"],
+                                  dispatch=summary["dispatch"])
+            sh_, un = runs["sharded"], runs["unsharded"]
+            if sh_["general"] != un["general"]:
+                raise AssertionError(f"{pc.label}: sharded general.json "
+                                     "differs from the unsharded run's")
+            if not sh_["spans"]["fused_spans"]:
+                raise AssertionError(f"{pc.label}: no span served sharded")
+            if sh_["launches"] or un["launches"]:
+                raise AssertionError(f"{pc.label}: greedy_place launched")
+            rec[pc.label] = dict(
+                sharded_wall_s=sh_["wall_s"], unsharded_wall_s=un["wall_s"],
+                launches=sh_["launches"], spans=sh_["spans"],
+                dispatch=sh_["dispatch"])
+            log(f"  (b) {pc.label}, {P15_APPS} apps at 600 hosts: "
+                f"general.json byte-equal sharded (S={P15_E2E_SHARDS}) and "
+                f"unsharded; walls {sh_['wall_s']!r} / {un['wall_s']!r} s; "
+                f"{sh_['spans']['fused_spans']} spans of "
+                f"{sh_['spans']['fused_ticks']} ticks, "
+                f"{sh_['dispatch']['device_ticks']} per-tick dispatches; "
+                "0 greedy_place launches")
+    return rec
+
+
+def phase_sharding(device, ck) -> dict:
+    """Phase 15 (module docstring).  Returns its record."""
+    card = card_line()
+    log(f"  [{card}]")
+    chk = Check()
+    t0 = time.perf_counter()
+    pod = p15_pod(device, ck, chk)
+    t1 = time.perf_counter()
+    log(f"  (a): {t1 - t0!r} s")
+    e2e = p15_e2e(device)
+    log(f"  (b): {time.perf_counter() - t1!r} s")
+    return dict(pod=pod["arms"], e2e=e2e,
+                launches=sum(r["launches"] for r in e2e.values()),
+                compare_launches=pod["compare_launches"],
+                max_abs_err=chk.max_abs_err)
+
 
 def phase_5_report(ck, e2e, sens, card, device):
     """Phase 5: times on the card (the main path's wrapper, bare launches,
@@ -5776,11 +6212,11 @@ def phase_5_report(ck, e2e, sens, card, device):
     return times, gt, spans
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
 
 
 def selected_phases(argv) -> set:
-    """``--phases 1,6,7`` (default: all).  Phases 2-5 and 10-14 need
+    """``--phases 1,6,7`` (default: all).  Phases 2-5 and 10-15 need
     phase 1's build (phase 14 its ``ptxas`` rows too), phase 5 the runs
     of phases 3 and 4, phase 13 the python-fabric run of phase 3: they
     come along."""
@@ -5796,9 +6232,63 @@ def selected_phases(argv) -> set:
         want |= {3, 4}
     if 13 in want:
         want.add(3)
-    if want & {2, 3, 4, 5, 10, 11, 12, 13, 14}:
+    if want & {2, 3, 4, 5, 10, 11, 12, 13, 14, 15}:
         want.add(1)
     return want
+
+
+def phases_6_to_9(phases, device, card, census, walls):
+    """Phases 6-9 of ``main`` (those selected), sharing one
+    ``side_workers``: the CPU sides of their checks on one worker, and
+    their untimed card runs in a ``CardPool`` that the first of them
+    waits for before it times anything.  Their reports (None for a phase
+    not run)."""
+    ens_mk = ens = sweeps = search = congestion = None
+    with side_workers(phases, device) as (pool, cpu):
+        if 6 in phases:
+            tp = time.perf_counter()
+            log(f"== 6. the Monte-Carlo ensemble on the card: 600 hosts x "
+                f"50 apps, R={ENS_REPLICAS} ({', '.join(ENS_ARMS)}), "
+                f"checked at R={ENS_CHECK_REPLICAS}")
+            log(f"  [{card}]")
+            ens = phase_ensemble(device, pool, cpu)
+            ens_mk = ens.pop("makespan_cost-aware")
+            ens.pop("makespan_first-fit")
+            walls[6] = time.perf_counter() - tp
+            census_line(census, 6)
+            log(f"  phase 6 wall: {walls[6]!r} s")
+        if 7 in phases:
+            tp = time.perf_counter()
+            log(f"== 7. fault ensembles and the what-if sweeps on the card: "
+                f"the pivot_tpu fixture, the README's commands at 600 hosts, "
+                f"card vs CPU at {SW_APPS} apps")
+            log(f"  [{card}]")
+            sweeps = phase_sweeps(device, ens_mk, pool, cpu)
+            walls[7] = time.perf_counter() - tp
+            census_line(census, 7)
+            log(f"  phase 7 wall: {walls[7]!r} s")
+        if 8 in phases:
+            tp = time.perf_counter()
+            log("== 8. the policy search on the card: the pivot_tpu fixture, "
+                "the four runs through the CLI (the 10,240-row population at "
+                "600 hosts), card vs CPU at 600 hosts")
+            log(f"  [{card}]")
+            search = phase_search(device, cpu)
+            walls[8] = time.perf_counter() - tp
+            census_line(census, 8)
+            log(f"  phase 8 wall: {walls[8]!r} s")
+        if 9 in phases:
+            tp = time.perf_counter()
+            log("== 9. the congestion model, realtime scoring, checkpoints "
+                "and calibrate on the card: calibrate and the README's "
+                "congestion command through the CLI against pivot_tpu, card "
+                f"vs CPU at {CG_APPS} apps")
+            log(f"  [{card}]")
+            congestion = phase_congestion(device, pool, cpu)
+            walls[9] = time.perf_counter() - tp
+            census_line(census, 9)
+            log(f"  phase 9 wall: {walls[9]!r} s")
+    return ens, sweeps, search, congestion
 
 
 def main(argv=None) -> int:
@@ -5893,52 +6383,10 @@ def main(argv=None) -> int:
         walls[5] = time.perf_counter() - tp
         census_line(census, 5)
         log(f"  phase 5 wall: {walls[5]!r} s")
-    ens_mk = None
-    if 6 in phases:
-        tp = time.perf_counter()
-        log(f"== 6. the Monte-Carlo ensemble on the card: 600 hosts x 50 "
-            f"apps, R={ENS_REPLICAS} ({', '.join(ENS_ARMS)}), checked at "
-            f"R={ENS_CHECK_REPLICAS}")
-        log(f"  [{card}]")
-        ens = phase_ensemble(device)
-        ens_mk = ens.pop("makespan_cost-aware")
-        ens.pop("makespan_first-fit")
-        walls[6] = time.perf_counter() - tp
-        census_line(census, 6)
-        log(f"  phase 6 wall: {walls[6]!r} s")
-    if 7 in phases:
-        tp = time.perf_counter()
-        log(f"== 7. fault ensembles and the what-if sweeps on the card: the "
-            f"pivot_tpu fixture, the README's commands at 600 hosts, card "
-            f"vs CPU at {SW_APPS} apps")
-        log(f"  [{card}]")
-        sweeps = phase_sweeps(device, ens_mk)
-        walls[7] = time.perf_counter() - tp
-        census_line(census, 7)
-        log(f"  phase 7 wall: {walls[7]!r} s")
-    search = None
-    if 8 in phases:
-        tp = time.perf_counter()
-        log("== 8. the policy search on the card: the pivot_tpu fixture, the "
-            "four runs through the CLI (the 10,240-row population at 600 "
-            "hosts), card vs CPU at 600 hosts")
-        log(f"  [{card}]")
-        search = phase_search(device)
-        walls[8] = time.perf_counter() - tp
-        census_line(census, 8)
-        log(f"  phase 8 wall: {walls[8]!r} s")
-    congestion = None
-    if 9 in phases:
-        tp = time.perf_counter()
-        log("== 9. the congestion model, realtime scoring, checkpoints and "
-            "calibrate on the card: calibrate and the README's congestion "
-            f"command through the CLI against pivot_tpu, card vs CPU at "
-            f"{CG_APPS} apps")
-        log(f"  [{card}]")
-        congestion = phase_congestion(device)
-        walls[9] = time.perf_counter() - tp
-        census_line(census, 9)
-        log(f"  phase 9 wall: {walls[9]!r} s")
+    ens = sweeps = search = congestion = None
+    if phases & {6, 7, 8, 9}:
+        ens, sweeps, search, congestion = phases_6_to_9(
+            phases, device, card, census, walls)
     serve = rows = None
     if 10 in phases:
         tp = time.perf_counter()
@@ -5996,6 +6444,18 @@ def main(argv=None) -> int:
         walls[14] = time.perf_counter() - tp
         census_line(census, 14)
         log(f"  phase 14 wall: {walls[14]!r} s")
+    p15 = None
+    if 15 in phases:
+        tp = time.perf_counter()
+        log(f"== 15. host sharding on the card: the four arms at "
+            f"H={P15_H}, T={P15_T} through the sharded passes (S="
+            f"{'/'.join(map(str, P15_SHARDS))}, per-step and C="
+            f"{P15_CHUNK}), overall's VBP and Cost-Aware arms sharded over "
+            f"{P15_E2E_SHARDS} logical shards")
+        p15 = phase_sharding(device, ck)
+        walls[15] = time.perf_counter() - tp
+        census_line(census, 15)
+        log(f"  phase 15 wall: {walls[15]!r} s")
     if configs is not None:
         configs.uninstall()
     if oneshot is not None:
@@ -6008,6 +6468,7 @@ def main(argv=None) -> int:
         "tooling": p14 and {k: v for k, v in p14.items()
                             if k not in ("costattr",)},
         "cost_attribution": p14 and p14["costattr"]["rows"],
+        "sharding": p15,
         "phase_walls": walls,
         "same_files": e2e and e2e["same_files"], "gated_times": gt,
         "sensitivity": sens and {p: {k: v for k, v in r.items()
@@ -6031,6 +6492,8 @@ def main(argv=None) -> int:
         errs.append(p13["max_abs_err"])
     if p14 is not None:
         errs.append(p14["max_abs_err"])
+    if p15 is not None:
+        errs.append(p15["max_abs_err"])
     sv = serve and [serve[k]["launches"] for k in SERVE_RUNS]
     sv_rows = sv and sum(sum(x["rows"].values()) for x in sv)
     sv_r1 = sv and sum(x["by_replicas"].get(1, 0) for x in sv)
@@ -6088,6 +6551,8 @@ def main(argv=None) -> int:
         "phase14_launches_r1": t_r1,
         "phase14_launches_r4": p14 and p14["launches_r4"],
         "phase14_launches_rows": t_rows,
+        "phase15_launches": p15 and p15["launches"],
+        "phase15_compare_launches": p15 and p15["compare_launches"],
         "max_abs_err": max(errs) if errs else None,
         "ms": lt and lt["ms"],
         "plain_ms": lt and lt["plain_ms"],

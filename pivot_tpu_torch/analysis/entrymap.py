@@ -20,8 +20,9 @@ shapes:
     (``obs/profiler.py``'s docstring table): the public ``*_impl``,
     ``*_kernel_ref`` and ``*_batched`` forms of ``ops/kernels.py``, the
     span drivers of ``ops/tickloop.py`` (``*tick_run``,
-    ``*tick_run_rows``, ``*span_run``), and each key of
-    ``PORT_FAMILIES`` where it is defined.
+    ``*tick_run_rows``, ``*span_run``), the host-sharded twins of
+    ``ops/shard.py`` (``*_kernel_sharded``, ``sharded_fused_tick_run``),
+    and each key of ``PORT_FAMILIES`` where it is defined.
 
 :data:`ENTRY_FILES` is the registry of files allowed to host entry
 points.  The sweep flags a package file outside it that loads a kernel
@@ -45,6 +46,7 @@ from pivot_tpu_torch.analysis import Finding, SourceFile
 ENTRY_FILES: Tuple[str, ...] = (
     "pivot_tpu_torch/ops/kernels.py",
     "pivot_tpu_torch/ops/tickloop.py",
+    "pivot_tpu_torch/ops/shard.py",
     "pivot_tpu_torch/ops/cuda_kernels.py",
     "pivot_tpu_torch/sched/cuda.py",
     "pivot_tpu_torch/parallel/ensemble/tick.py",
@@ -57,6 +59,8 @@ _FAMILY_PATTERNS = {
         re.compile(r"^[a-z]\w*_(impl|kernel_ref|batched)$"),
     "pivot_tpu_torch/ops/tickloop.py":
         re.compile(r"^[a-z]\w*(tick_run|tick_run_rows|span_run)$"),
+    "pivot_tpu_torch/ops/shard.py":
+        re.compile(r"^[a-z]\w*(_kernel_sharded|tick_run)$"),
 }
 
 

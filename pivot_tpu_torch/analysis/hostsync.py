@@ -10,9 +10,9 @@ the card the port's span driver promises no host read inside a span
 Hot bodies are found by **naming convention** (:data:`DISCOVER`), as in
 the reference: every top-level function matching a hot-path pattern in
 the registered files is a lint target the moment it is written, and
-:data:`REQUIRED` keeps the rename protection.  The reference's
-``ops/shard.py`` bodies have no counterpart yet (ROADMAP.md Queue 1
-item 9).
+:data:`REQUIRED` keeps the rename protection.  ``ops/shard.py``'s
+sharded passes, reduces and span driver are targets as in the reference
+(``pivot_tpu/ops/shard.py:88-89``).
 
 Banned constructs (in a discovered body, nested closures included):
 the reference's — ``.block_until_ready()`` / ``.item()`` /
@@ -44,6 +44,14 @@ DISCOVER: Dict[str, Tuple[str, ...]] = {
         # would fetch device state every tick of a span.
         "_span_*", "fused_tick_run_rows", "resident_span_run",
     ),
+    "pivot_tpu_torch/ops/shard.py": (
+        # The sharded passes and chunk drives, the two-stage reduces and
+        # the sharded span driver.
+        "*_sharded_pass", "*_sharded_chunk*", "_sharded_chunk_drive",
+        "_two_stage_argmin", "_first_index_of", "_opportunistic_pick",
+        "_risk_restrict_sharded", "_place_local", "_bump_local",
+        "sharded_fused_tick_run",
+    ),
     "pivot_tpu_torch/parallel/ensemble/tick.py": ("_rollout_segment",),
     # The reference's ``*_impl`` bodies are the port's eager functions.
     "pivot_tpu_torch/search/fitness.py": ("_fitness_rows", "_draw_rows"),
@@ -58,6 +66,10 @@ REQUIRED: Dict[str, Tuple[str, ...]] = {
     ),
     "pivot_tpu_torch/ops/tickloop.py": (
         "_span_tick", "fused_tick_run_rows", "resident_span_run",
+    ),
+    "pivot_tpu_torch/ops/shard.py": (
+        "_two_stage_argmin", "_cost_aware_sharded_pass",
+        "sharded_fused_tick_run",
     ),
     "pivot_tpu_torch/parallel/ensemble/tick.py": ("_rollout_segment",),
     "pivot_tpu_torch/search/fitness.py": ("_fitness_rows",),

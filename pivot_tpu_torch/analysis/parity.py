@@ -9,8 +9,10 @@ kernel's wrappers (``cost_aware_cuda[_batched|_rows]``, the port of
 ``cost_aware_pallas[_batched]``) and their plain versions
 (``cost_aware_plain[_batched|_rows]``) — plus the span-driver family
 (``fused_tick_run`` / ``reference_tick_run`` / ``fused_tick_run_rows`` /
-``resident_span_run``) and the ``sched/cuda.py`` routing layer.  A knob
-that reaches some forms but not others is a silent parity break.
+``resident_span_run``), the host-sharded twins of ``ops/shard.py``
+(``*_kernel_sharded``, ``sharded_fused_tick_run``) and the
+``sched/cuda.py`` routing layer.  A knob that reaches some forms but not
+others is a silent parity break.
 
 The reference's four checks, unchanged: the signature matrix (modulo
 each form's declared exemptions in :data:`MANIFEST`), auto-discovery of
@@ -19,10 +21,10 @@ unregistered forms in ``ops/``, the routing layer's forwarding
 ``_span_market_kw``), and the ragged axis tables' coverage of the span
 driver's array knobs.
 
-The reference's sharded forms (``*_kernel_sharded[_batched]``,
-``sharded_*_tick_run``, ``sharded_resident_span_run``) are declared
-absent in :data:`ABSENT` until ROADMAP.md Queue 1 item 9 ports
-``ops/shard.py``, not dropped silently.
+The reference's ``[G]``-batched 2-D forms (``*_kernel_sharded_batched``,
+``sharded_batched_tick_run``) and ``sharded_resident_span_run`` are
+declared absent in :data:`ABSENT` until ROADMAP.md Queue 1 item 9b ports
+them, not dropped silently.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ SPAN_KNOBS = frozenset({
 _KERNELS = "pivot_tpu_torch/ops/kernels.py"
 _CUDA = "pivot_tpu_torch/ops/cuda_kernels.py"
 _TICKLOOP = "pivot_tpu_torch/ops/tickloop.py"
+_SHARD = "pivot_tpu_torch/ops/shard.py"
 _ROUTING_FILE = "pivot_tpu_torch/sched/cuda.py"
 
 #: The scan oracles have no two-phase machinery: ``phase2``/``totals``
@@ -70,6 +73,10 @@ _KERNEL_EXEMPT = frozenset({
 #: as in the reference's ``jax.vmap`` sensitivity pass
 #: (``pivot_tpu/sched/tpu.py:1659-1666``).
 _BATCHED_EXEMPT = frozenset({"live", "phase2", "totals"})
+#: The sharded twins have not been threaded for learned exponents —
+#: ``enable_sharding`` refuses non-default ``score_exponents()`` at the
+#: policy layer (the reference's exemption).
+_SHARD_EXEMPT = frozenset({"score_exp"})
 
 #: family stem → {form name: (repo-relative file, exempt knobs)}.
 #: Registering a form here is a statement that its knob set matches the
@@ -78,16 +85,19 @@ MANIFEST: Dict[str, Dict[str, Tuple[str, FrozenSet[str]]]] = {
     "opportunistic": {
         "opportunistic_kernel_ref": (_KERNELS, _REF_EXEMPT),
         "opportunistic_impl": (_KERNELS, frozenset()),
+        "opportunistic_kernel_sharded": (_SHARD, frozenset()),
     },
     "first_fit": {
         "first_fit_kernel_ref": (_KERNELS, _REF_EXEMPT),
         "first_fit_impl": (_KERNELS, frozenset()),
         "first_fit_batched": (_KERNELS, _BATCHED_EXEMPT),
+        "first_fit_kernel_sharded": (_SHARD, frozenset()),
     },
     "best_fit": {
         "best_fit_kernel_ref": (_KERNELS, _REF_EXEMPT),
         "best_fit_impl": (_KERNELS, frozenset()),
         "best_fit_batched": (_KERNELS, _BATCHED_EXEMPT),
+        "best_fit_kernel_sharded": (_SHARD, frozenset()),
     },
     "cost_aware": {
         "cost_aware_kernel_ref": (_KERNELS, _REF_EXEMPT),
@@ -98,6 +108,7 @@ MANIFEST: Dict[str, Dict[str, Tuple[str, FrozenSet[str]]]] = {
         "cost_aware_plain": (_CUDA, _KERNEL_EXEMPT),
         "cost_aware_plain_batched": (_CUDA, _KERNEL_EXEMPT),
         "cost_aware_plain_rows": (_CUDA, _KERNEL_EXEMPT),
+        "cost_aware_kernel_sharded": (_SHARD, _SHARD_EXEMPT),
     },
 }
 
@@ -120,18 +131,18 @@ SPAN_MANIFEST: Dict[str, Tuple[str, FrozenSet[str]]] = {
     "reference_tick_run": (_TICKLOOP, frozenset()),
     "fused_tick_run_rows": (_TICKLOOP, frozenset()),
     "resident_span_run": (_TICKLOOP, _RESIDENT_EXEMPT),
+    "sharded_fused_tick_run": (_SHARD, _SHARD_EXEMPT),
 }
 
 #: The reference's forms with no port counterpart yet, and why.
 ABSENT: Dict[str, str] = {
-    name: "ops/shard.py: ROADMAP.md Queue 1 item 9"
+    name: "ROADMAP.md Queue 1 item 9b"
     for name in (
-        "opportunistic_kernel_sharded", "opportunistic_kernel_sharded_batched",
-        "first_fit_kernel_sharded", "first_fit_kernel_sharded_batched",
-        "best_fit_kernel_sharded", "best_fit_kernel_sharded_batched",
-        "cost_aware_kernel_sharded", "cost_aware_kernel_sharded_batched",
-        "sharded_fused_tick_run", "sharded_batched_tick_run",
-        "sharded_resident_span_run",
+        "opportunistic_kernel_sharded_batched",
+        "first_fit_kernel_sharded_batched",
+        "best_fit_kernel_sharded_batched",
+        "cost_aware_kernel_sharded_batched",
+        "sharded_batched_tick_run", "sharded_resident_span_run",
     )
 }
 
@@ -162,6 +173,7 @@ _FORM_ALIASES: Dict[str, str] = {}
 #: is a backend form and must be registered.
 _DISCOVER = (
     (re.compile(r"^(?P<stem>[a-z]\w*)_kernel_ref$"), "kernel_ref"),
+    (re.compile(r"^(?P<stem>[a-z]\w*)_kernel_sharded$"), "kernel_sharded"),
     (re.compile(r"^(?P<stem>[a-z]\w*)_impl$"), "impl"),
     (re.compile(r"^(?P<stem>[a-z]\w*)_batched$"), "batched"),
     (re.compile(r"^(?P<stem>[a-z]\w*)_(cuda|plain)(_batched|_rows)?$"),

@@ -50,7 +50,7 @@ Port of ``pivot_tpu/experiments/cli.py``:
     regrets and, with ``--des-validate``, the exact DES
     (``experiments/spot.py``).  The report goes to stdout and ``--out``.
     ``--backend sharded_rollout`` raises ``NotImplementedError``
-    (ROADMAP.md Queue 1 item 9).
+    (ROADMAP.md Queue 1 item 9d).
 
 ``--device`` picks the policy backend of ``overall`` / ``num-apps``:
 ``cuda`` (the default: the torch device policies, the Cost-Aware arm
@@ -554,7 +554,7 @@ def parse_args(argv=None):
                      choices=["rollout", "sharded_rollout"],
                      help="fitness backend: single-device rows, or rows "
                           "sharded over a replica mesh (not ported yet: "
-                          "raises, ROADMAP.md Queue 1 item 9)")
+                          "raises, ROADMAP.md Queue 1 item 9d)")
     sch.add_argument("--bad-init", action="store_true",
                      help="start from the deliberately-bad vector (the "
                           "smoke gate's shape) instead of the hand-tuned "
@@ -618,7 +618,7 @@ def parse_args(argv=None):
                      help="placement arm every session runs")
     srv.add_argument("--shard-hosts", type=int, default=0, metavar="S",
                      help="2-D mesh serving (not ported yet: ROADMAP.md "
-                          "Queue 1 item 9).  0 = off")
+                          "Queue 1 item 9b).  0 = off")
     srv.add_argument("--fuse-spans", choices=["off", "slo"],
                      default="off",
                      help="serve-span mode: 'off' keeps per-tick "
@@ -793,7 +793,7 @@ def parse_args(argv=None):
 #: ``serve`` options of features not ported yet, with their ROADMAP.md
 #: (Queue 1) items: (attribute, flag, item).
 _SERVE_NOT_PORTED = (
-    ("shard_hosts", "--shard-hosts", 9),
+    ("shard_hosts", "--shard-hosts", "9b"),
 )
 
 
@@ -1552,7 +1552,7 @@ def run_search_cli(args, torch_device: str = "cuda",
     candidate rides the score-exponent pow path), ``cuda`` without a
     card raises, and TF32 matmuls are turned off (the egress bill's
     product is not exact in TF32).  ``--backend sharded_rollout`` raises
-    ``NotImplementedError`` (ROADMAP.md Queue 1 item 9)."""
+    ``NotImplementedError`` (ROADMAP.md Queue 1 item 9d)."""
     import torch
 
     from pivot_tpu_torch.experiments.search import (

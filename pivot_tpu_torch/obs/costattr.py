@@ -37,6 +37,7 @@ ratios are recorded, not gated.
 
 from __future__ import annotations
 
+import functools
 import statistics
 from typing import Callable, Dict, List, Tuple
 
@@ -50,10 +51,12 @@ __all__ = [
 #: Canonical measurement shape (the reference's).
 _T, _H = 32, 16
 #: Replicas of the batched forms, rows of the per-row form, ticks of a
-#: span (the reference's span rows model T · 4 steps).
-_R, _G, _K = 4, 2, 4
+#: span (the reference's span rows model T · 4 steps), logical host
+#: shards of the sharded forms.
+_R, _G, _K, _S = 4, 2, 4, 4
 _KERNELS = "pivot_tpu_torch/ops/kernels.py"
 _TICKLOOP = "pivot_tpu_torch/ops/tickloop.py"
+_SHARD = "pivot_tpu_torch/ops/shard.py"
 _CUDA = "pivot_tpu_torch/ops/cuda_kernels.py"
 _REF_KERNELS = "pivot_tpu/ops/kernels.py"
 _REF_TICKLOOP = "pivot_tpu/ops/tickloop.py"
@@ -108,11 +111,12 @@ def _b_ref(name):
     return build
 
 
-def _b_impl(name):
+def _b_impl(name, form=None):
+    """The two-phase ``name`` (or ``form(o)``, called as it is)."""
     def build(o):
         from pivot_tpu_torch.ops import kernels as k
 
-        fn = getattr(k, name)
+        fn = getattr(k, name) if form is None else form(o)
         if name.startswith("cost_aware"):
             return lambda: fn(*_ca_args(o), **_CA_KW, totals=o["totals"],
                               phase2="auto")
@@ -126,6 +130,19 @@ def _b_impl(name):
     return build
 
 
+def _sharded_form(name):
+    """``o`` → the 1-D host-sharded form ``name`` bound to a mesh of
+    ``_S`` logical shards on the operands' device."""
+    def form(o):
+        from pivot_tpu_torch.ops import shard
+        from pivot_tpu_torch.parallel.mesh import host_sharded_mesh
+
+        return functools.partial(
+            getattr(shard, name),
+            host_sharded_mesh(devices=[o["avail"].device] * _S))
+    return form
+
+
 def _b_batched(name):
     def build(o):
         from pivot_tpu_torch.ops import kernels as k
@@ -136,12 +153,12 @@ def _b_batched(name):
     return build
 
 
-def _b_fused(o):
+def _b_fused(o, form=None):
     from pivot_tpu_torch.ops.tickloop import fused_tick_run
 
-    return lambda: fused_tick_run(
-        o["avail"], o["dem"], o["arrive"], _K, policy="first-fit",
-        n_ticks=_K)
+    run = fused_tick_run if form is None else form(o)
+    return lambda: run(o["avail"], o["dem"], o["arrive"], _K,
+                       policy="first-fit", n_ticks=_K)
 
 
 def _b_resident(o):
@@ -185,6 +202,14 @@ _BUILDERS: Dict[str, Tuple[Callable, str, int, int]] = {
        for s in ("first_fit", "best_fit")},
     "fused_tick_run": (_b_fused, "scan", 1, _K),
     "resident_span_run": (_b_resident, "scan", 1, _K),
+    **{f"{s}_kernel_sharded": (
+        _b_impl(f"{s}_impl", _sharded_form(f"{s}_kernel_sharded")), "slim",
+        1, 1)
+       for s in ("opportunistic", "first_fit", "best_fit", "cost_aware")},
+    "sharded_fused_tick_run": (
+        functools.partial(_b_fused,
+                          form=_sharded_form("sharded_fused_tick_run")),
+        "scan", 1, _K),
 }
 
 _KERNEL_FLAG = (
@@ -213,7 +238,9 @@ def flag(reason: str) -> Tuple[str, str]:
 #: kernel, or flagged with the reason it has no standalone row.
 ENTRY_POINTS: Dict[Tuple[str, str], Tuple[str, str]] = {
     **{(_KERNELS, k): measure(k) for k in _BUILDERS
-       if k not in ("fused_tick_run", "resident_span_run")},
+       if k not in ("fused_tick_run", "resident_span_run")
+       and "sharded" not in k},
+    **{(_SHARD, k): measure(k) for k in _BUILDERS if "sharded" in k},
     (_TICKLOOP, "fused_tick_run"): measure("fused_tick_run"),
     (_TICKLOOP, "resident_span_run"): measure("resident_span_run"),
     (_TICKLOOP, "reference_tick_run"): flag(
@@ -241,7 +268,9 @@ ENTRY_POINTS: Dict[Tuple[str, str], Tuple[str, str]] = {
     ),
 }
 
-_ITEM9 = "not ported: ROADMAP.md Queue 1 item 9 (sharding)"
+_ITEM9B = ("not ported: ROADMAP.md Queue 1 item 9b (the 2-D mesh and the "
+           "sharded resident carry)")
+_ITEM9D = "not ported: ROADMAP.md Queue 1 item 9d (the sharded ensemble)"
 _ENSEMBLE = (
     "the ensemble rollout (parallel/ensemble): torch passes attributed at "
     "their real shape by chip_smoke.py phases 6-9 (CUDA events, the "
@@ -265,10 +294,11 @@ REFERENCE: Dict[Tuple[str, str], object] = {
         "ops/tickloop.py::resident_carry_clone: O(H) device copies before "
         "a spliceable span — dwarfed by the span it brackets"
     ),
-    **{(_REF_SHARD, n): flag(_ITEM9) for n in (
-        "_opportunistic_sharded_fn", "_first_fit_sharded_fn",
-        "_best_fit_sharded_fn", "_cost_aware_sharded_fn",
-        "_sharded_span_fn", "_opportunistic_sharded_batched_fn",
+    **{(_REF_SHARD, f"_{s}_sharded_fn"): (_SHARD, f"{s}_kernel_sharded")
+       for s in ("opportunistic", "first_fit", "best_fit", "cost_aware")},
+    (_REF_SHARD, "_sharded_span_fn"): (_SHARD, "sharded_fused_tick_run"),
+    **{(_REF_SHARD, n): flag(_ITEM9B) for n in (
+        "_opportunistic_sharded_batched_fn",
         "_first_fit_sharded_batched_fn", "_best_fit_sharded_batched_fn",
         "_cost_aware_sharded_batched_fn", "_sharded_span_batched_fn",
         "_sharded_resident_span_fn", "_sharded_resident_init_fn",
@@ -308,7 +338,7 @@ REFERENCE: Dict[Tuple[str, str], object] = {
         "search/fitness.py::_fitness_rows: the population's rollout rows, "
         "attributed at scale by chip_smoke.py phase 8 (generations/s)"
     ),
-    ("pivot_tpu/search/fitness.py", "_sharded_fitness_fn"): flag(_ITEM9),
+    ("pivot_tpu/search/fitness.py", "_sharded_fitness_fn"): flag(_ITEM9D),
 }
 
 

@@ -417,10 +417,12 @@ def _ca_phase1(cost_zz, bw_zz, host_zone, base_counts, prescale_decay,
                score_exp=None):
     """Cost-aware phase-1 tables: the ``[Z, H]`` round-trip cost and
     bandwidth tables and the optional exact host-decay prescale of the
-    cost table (``pivot_tpu`` ``_ca_phase1``)."""
+    cost table (``pivot_tpu`` ``_ca_phase1``).  ``host_zone`` may carry
+    leading axes (the host-sharded ``[S, H/S]`` blocks of
+    ``ops/shard.py``); the tables then have them after ``Z``."""
     hz = host_zone.long()
-    cost_rt = cost_zz[:, hz] + cost_zz[hz, :].T
-    bw_rt = bw_zz[:, hz] + bw_zz[hz, :].T
+    cost_rt = cost_zz[:, hz] + cost_zz[hz, :].movedim(-1, 0)
+    bw_rt = bw_zz[:, hz] + bw_zz[hz, :].movedim(-1, 0)
     if score_exp is not None:
         cost_rt = cost_rt ** score_exp[0]
         bw_rt = bw_rt ** score_exp[1]
@@ -515,7 +517,8 @@ def _fill_pick_sorted(caps_s, hid_s, ranks):
     return h, ok
 
 
-def _speculate_commit(avail, extra, track_extra, dem_c, h_s, ok_s, recheck):
+def _speculate_commit(avail, extra, track_extra, dem_c, h_s, ok_s, recheck,
+                      place=_place, bump=_bump_count):
     """The exact core of speculative chunk commit
     (``pivot_tpu/ops/kernels.py::_speculate_commit``).
 
@@ -530,7 +533,9 @@ def _speculate_commit(avail, extra, track_extra, dem_c, h_s, ok_s, recheck):
 
     Returns ``(p_c, h_c, ok_c, fc, commit_state)``; ``commit_state(n)``
     (a host int n ≥ 1) gives the exact availability and extra counter
-    after committing the first n positions."""
+    after committing the first n positions.  ``place`` / ``bump`` are the
+    carry fold's ops (the host-sharded passes give their shard-local
+    forms)."""
     C = dem_c.shape[0]
     a = avail.clone()
     a_pre = avail.new_empty((C,) + tuple(avail.shape))
@@ -540,10 +545,10 @@ def _speculate_commit(avail, extra, track_extra, dem_c, h_s, ok_s, recheck):
         ex_pre = extra.new_empty((C,) + tuple(extra.shape))
     for k in range(C):
         a_pre[k] = a
-        _place(a, dem_c[k], h_s[k], ok_s[k])
+        place(a, dem_c[k], h_s[k], ok_s[k])
         if track_extra:
             ex_pre[k] = ex
-            _bump_count(ex, h_s[k], ok_s[k])
+            bump(ex, h_s[k], ok_s[k])
     h_c, ok_c = recheck(a_pre, ex_pre)
     p_c = torch.where(ok_c, h_c, -1).to(torch.int32)
     p_s = torch.where(ok_s, h_s, -1).to(torch.int32)
@@ -556,11 +561,11 @@ def _speculate_commit(avail, extra, track_extra, dem_c, h_s, ok_s, recheck):
         # true decision finishes it.
         cm = min(n_commit - 1, C - 1)
         new_avail = a_pre[cm].clone()
-        _place(new_avail, dem_c[cm], h_c[cm], ok_c[cm])
+        place(new_avail, dem_c[cm], h_c[cm], ok_c[cm])
         if not track_extra:
             return new_avail, extra
         new_extra = ex_pre[cm].clone()
-        _bump_count(new_extra, h_c[cm], ok_c[cm])
+        bump(new_extra, h_c[cm], ok_c[cm])
         return new_avail, new_extra
 
     return p_c, h_c, ok_c, fc, commit_state

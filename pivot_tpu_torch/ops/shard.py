@@ -1,0 +1,837 @@
+"""Host-axis-sharded placement passes — one cluster's hosts in S blocks.
+
+Port of the 1-D forms of ``pivot_tpu/ops/shard.py``.  The reference
+partitions the host axis of the placement hot path over the ``host``
+axis of a ``jax.sharding.Mesh``: the ``[H, 4]`` availability carry, the
+live mask, the risk row, the phase-1 score rows and the host-decay
+counters live shard-resident (``[H/S, ...]`` per shard), each sequential
+placement step runs its O(H) fit/score work shard-parallel, and a small
+collective picks the winner.
+
+The port keeps that single-controller program and runs it on one device
+(``parallel/mesh.py``): every ``[H, ...]`` host operand is viewed as
+``[S, H/S, ...]`` — shard s owns hosts ``[s·H/S, (s+1)·H/S)`` — the
+per-shard body runs batched over the leading shard axis, and the
+collectives are the reference's two stages, on the device:
+
+  1. every shard takes a **local argmin** over its block (ties → lowest
+     local index) and adds its offset ``s·H/S``;
+  2. an argmin over the S ``(score, global index)`` pairs picks the
+     winner (ties → lowest shard).
+
+Lower shard ⇒ strictly lower global indices, so stage 2's first
+occurrence composed with stage 1's is exactly "minimum ``(score, global
+index)``" — the flat argmin's rule, bit for bit.  Every score element is
+computed per host by the SAME helpers the unsharded forms use
+(``ops/kernels.py``: ``_fits``, ``_apply_live``, ``_norms``,
+``_risk_key``, ``_ca_phase1``, ``_ca_group_score``,
+``_ca_best_fit_score``), each depending only on its own host, so
+sharding cannot move a rounding.  First-fit's lowest-index fit is a min
+over the per-shard first fits; the opportunistic arm's k-th fitting host
+is a local integer cumsum plus the exclusive prefix of the shard totals
+— exact.  A mesh whose devices are not all one device raises
+``NotImplementedError``: a mesh over several cards waits for a machine
+with several cards (ROADMAP.md Queue 1 item 9b).
+
+**Phase-2 modes.**  ``"auto"``, ``"scan"`` and ``"slim"`` resolve to the
+per-step pass: it reads the batch's step bound from the device once
+(as ``kernels._slim_drive`` does), then walks the steps with no host
+read.  ``phase2 = int C`` selects the sharded speculative chunk commit:
+speculate every chunk position against chunk-entry state with one
+batched two-stage reduce, replay the exact carry fold shard-locally,
+re-decide all C positions against their exact prefixes in one batched
+reduce, commit through the first disagreement
+(``kernels._speculate_commit``'s induction) — one host read of the
+commit position a chunk, like the unsharded chunk forms.  Every mode is
+bit-identical to every unsharded mode.
+
+**Fused spans.**  :func:`sharded_fused_tick_run` drives the span
+algebra of ``ops/tickloop.py`` (``_span_tick``) with a sharded ``place``
+callable: the ``[S, H/S, 4]`` availability and the ``[S, H/S]``
+span-cumulative decay counts stay in the sharded layout between ticks.
+
+The reference's ``[G]``-batched 2-D twins, the sharded resident carry
+(ROADMAP.md Queue 1 item 9b) and the elastic helpers (item 9c) are not
+ported here.  No pass here may read the device inside its step loop
+(``analysis/hostsync.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from pivot_tpu_torch.ops.kernels import (
+    _apply_live,
+    _ca_best_fit_score,
+    _ca_group_score,
+    _ca_phase1,
+    _at,
+    _first_true,
+    _fits,
+    _host_rows,
+    _norms,
+    _pad_chunk,
+    _resolve_phase2,
+    _risk_key,
+    _risk_score,
+    _set_placement,
+    _speculate_commit,
+    best_fit_impl,
+    cost_aware_impl,
+    first_fit_impl,
+    opportunistic_impl,
+)
+from pivot_tpu_torch.ops.tickloop import (
+    SpanResult,
+    _cohort_ahead,
+    _cost_aware_stream,
+    _span_tick,
+    _tick_cost,
+    fused_tick_run,
+    span_step_bounds,
+)
+from pivot_tpu_torch.parallel.mesh import host_axis_size
+
+__all__ = [
+    "HOST_AXIS",
+    "REPLICA_AXIS",
+    "UNSHARDABLE_KW",
+    "best_fit_kernel_sharded",
+    "cost_aware_kernel_sharded",
+    "first_fit_kernel_sharded",
+    "mesh_device",
+    "mesh_is_2d",
+    "opportunistic_kernel_sharded",
+    "sharded_fused_tick_run",
+    "sharded_twin_of",
+]
+
+#: Mesh axis the host dimension shards over (``parallel/mesh.py``).
+HOST_AXIS = "host"
+
+#: Mesh axis row/replica batches shard over (``parallel/mesh.py``).
+REPLICA_AXIS = "replica"
+
+#: Integer sentinel above any host index — the "no candidate" value of
+#: the min reduces.
+_NO_HOST = 1 << 30
+
+
+def _check_host_axis(H: int, mesh) -> int:
+    n = host_axis_size(mesh)
+    if H % n:
+        raise ValueError(
+            f"host axis H={H} does not divide over the mesh's {n} host "
+            f"shards — pad the cluster with DOWN-sentinel hosts (a -1 "
+            f"availability row is never selected) to a multiple of {n}"
+        )
+    return n
+
+
+def mesh_is_2d(mesh) -> bool:
+    """True when ``mesh`` composes both program axes: a non-trivial
+    ``host`` axis next to the ``replica`` axis."""
+    return (
+        HOST_AXIS in mesh.shape and REPLICA_AXIS in mesh.shape
+        and int(mesh.shape[HOST_AXIS]) > 1
+    )
+
+
+def _sharded_mode(phase2):
+    """The scan/slim family collapses to the per-step pass ("step"); an
+    int chunk size selects the sharded chunk commit."""
+    mode = _resolve_phase2(phase2)
+    return mode if isinstance(mode, int) else "step"
+
+
+def _same_device(d: torch.device) -> torch.device:
+    """``d`` with its index made explicit (``cuda`` → ``cuda:<current>``)."""
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def mesh_device(mesh, expect=None) -> torch.device:
+    """The one device every shard of ``mesh`` lives on (checked against
+    ``expect`` when given).  A mesh over several distinct devices raises:
+    its passes would need a transfer between cards each step, which
+    nothing here can run or test."""
+    devs = {_same_device(torch.device(d)) for d in mesh.devices.flat}
+    if len(devs) != 1:
+        raise NotImplementedError(
+            f"a mesh over {len(devs)} distinct devices "
+            f"({sorted(map(str, devs))}) is not ported to pivot_tpu_torch "
+            "yet — its host shards must name one device (logical shards; "
+            "ROADMAP.md Queue 1 item 9b)"
+        )
+    dev = devs.pop()
+    if expect is not None and _same_device(torch.device(expect)) != dev:
+        raise ValueError(
+            f"the mesh's shards live on {dev}, the work on {expect} — a "
+            "mesh names the device its passes run on"
+        )
+    return dev
+
+
+def _layout(mesh, avail):
+    """``(S, offset)`` for ``avail [H, 4]`` on ``mesh``: the shard count
+    and the ``[S]`` int64 first global host of each block.  The operands
+    must live on the mesh's device."""
+    S = _check_host_axis(avail.shape[0], mesh)
+    mesh_device(mesh, avail.device)
+    Hl = avail.shape[0] // S
+    return S, torch.arange(S, device=avail.device) * Hl
+
+
+def _shard(x, S: int):
+    """``[H, ...]`` → ``[S, H/S, ...]`` (contiguous blocks); None stays."""
+    if x is None:
+        return None
+    return x.reshape((S, x.shape[0] // S) + tuple(x.shape[1:]))
+
+
+# ---------------------------------------------------------------------------
+# The collectives.  Each takes per-host rows ``[..., S, H/S]`` — one step's
+# ``[S, H/S]``, or a chunk's ``[C, S, H/S]`` rows (the reference's
+# ``_rows`` forms) — reduces them per shard (stage 1), then over the
+# shard axis (stage 2).
+# ---------------------------------------------------------------------------
+
+
+def _two_stage_argmin(masked, fit, offset):
+    """Exact decomposition of the flat ``argmin(masked)`` plus ``ok``:
+    stage 1 a local argmin per shard, ties to the lowest local index,
+    plus the shard's offset; stage 2 an argmin over the S minima, first
+    occurrence (the lowest shard) winning.  ``ok`` is the global fit
+    flag; ``h`` is 0 when nothing fits."""
+    li = torch.argmin(masked, dim=-1)                          # [..., S]
+    lmin = masked.gather(-1, li[..., None])[..., 0]
+    s = torch.argmin(lmin, dim=-1, keepdim=True)               # [..., 1]
+    h = (li + offset).gather(-1, s)[..., 0]
+    ok = fit.any(dim=-1).any(dim=-1)
+    return torch.where(ok, h, torch.zeros_like(h)), ok
+
+
+def _first_index_of(fit, offset):
+    """Lowest GLOBAL index with ``fit`` True — the sharded form of
+    first-fit's ``argmax(fit)``: per-shard first fit, then a min over the
+    shards' candidates."""
+    cand = torch.where(fit.any(dim=-1), _first_true(fit) + offset,
+                       offset.new_full((), _NO_HOST))
+    h = cand.min(dim=-1).values
+    ok = h < _NO_HOST
+    return torch.where(ok, h, torch.zeros_like(h)), ok
+
+
+def _opportunistic_pick(fit, u, offset):
+    """The k-th fitting host (k = ⌊u·n_fit⌋): the global ``n_fit`` and
+    the 1-based cumulative rank are local integer cumsums plus the
+    exclusive prefix of the shard totals — exact.  The unique matching
+    host reduces by a min like first-fit."""
+    c = fit.sum(dim=-1)                                        # [..., S]
+    n_fit = c.sum(dim=-1)
+    prefix = torch.cumsum(c, dim=-1) - c
+    k = torch.minimum((u * n_fit).to(torch.int32),
+                      (n_fit - 1).to(torch.int32))
+    rank = torch.cumsum(fit, dim=-1) + prefix[..., None]
+    match = fit & (rank == (k + 1)[..., None, None])
+    cand = torch.where(match.any(dim=-1), _first_true(match) + offset,
+                       offset.new_full((), _NO_HOST))
+    h = cand.min(dim=-1).values
+    ok = n_fit > 0
+    return torch.where(ok, h, torch.zeros_like(h)), ok
+
+
+def _risk_restrict_sharded(fit, risk):
+    """The opportunistic risk rule: narrow ``fit`` to the GLOBAL
+    minimum-risk tier of fitting hosts (a min per shard, then over the
+    shards; no-op when nothing fits, as +inf equals no finite risk)."""
+    if risk is None:
+        return fit
+    rmin = _risk_key(fit, risk).min(dim=-1).values.min(dim=-1).values
+    return fit & (risk == rmin[..., None, None])
+
+
+def _place_local(avail, demand, h, ok, offset):
+    """In place on ``avail [S, H/S, 4]``: the owner of global row ``h``
+    subtracts ``demand`` from its local row; every other shard adds −0 to
+    its row 0 (``x + (−0)`` is ``x``) — the flat ``_place``'s arithmetic
+    on the same element."""
+    h_local = h - offset
+    local = ok & (h_local >= 0) & (h_local < avail.shape[-2])
+    delta = torch.where(local[:, None], demand, torch.zeros_like(demand))
+    # graftcheck: ignore[determinism] -- one row a shard: indices never collide
+    avail.view(-1, avail.shape[-1]).index_add_(
+        0, offset + torch.where(local, h_local, torch.zeros_like(h_local)),
+        -delta)
+
+
+def _bump_local(counts, h, ok, offset):
+    """In place on ``counts [S, H/S]``: ``counts[h] += 1`` on the owner
+    of ``h`` when ``ok``."""
+    h_local = h - offset
+    local = ok & (h_local >= 0) & (h_local < counts.shape[-1])
+    # graftcheck: ignore[determinism] -- one row a shard, integer counts
+    counts.view(-1).index_add_(
+        0, offset + torch.where(local, h_local, torch.zeros_like(h_local)),
+        local.to(counts.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Sharded per-step passes (avail is the [S, H/S, 4] view)
+# ---------------------------------------------------------------------------
+
+
+def _carry_free_sharded_pass(avail, demands, valid, decide, offset,
+                             n_bound=None):
+    """Sharded ``kernels._slim_drive``: ``decide(avail, j, demand) ->
+    (h, ok)`` already reduced over the shards; the step bound is read
+    once before the loop (or given by the host, ``n_bound``)."""
+    avail = avail.clone()
+    B = demands.shape[0]
+    placements = torch.full((B,), -1, dtype=torch.int32, device=avail.device)
+    n = _host_rows(valid)[0] if n_bound is None else min(n_bound, B)
+    for j in range(n):
+        h, ok = decide(avail, j, demands[j])
+        _place_local(avail, demands[j], h, ok, offset)
+        _set_placement(placements, j, h, ok)
+    return placements, avail
+
+
+def _opportunistic_sharded_pass(avail, demands, valid, uniforms, offset,
+                                risk=None, n_bound=None):
+    def decide(avail, j, demand):
+        fit = _fits(avail, demand, strict=False) & valid[j]
+        fit = _risk_restrict_sharded(fit, risk)
+        return _opportunistic_pick(fit, uniforms[j], offset)
+
+    return _carry_free_sharded_pass(avail, demands, valid, decide, offset,
+                                    n_bound)
+
+
+def _first_fit_sharded_pass(avail, demands, valid, strict, offset, risk=None,
+                            n_bound=None):
+    def decide(avail, j, demand):
+        fit = _fits(avail, demand, strict) & valid[j]
+        if risk is None:
+            return _first_index_of(fit, offset)
+        # Risk-aware first fit: lexicographic (risk, global index), the
+        # two-stage argmin's composed tie rule.
+        return _two_stage_argmin(_risk_key(fit, risk), fit, offset)
+
+    return _carry_free_sharded_pass(avail, demands, valid, decide, offset,
+                                    n_bound)
+
+
+def _best_fit_sharded_pass(avail, demands, valid, offset, risk=None,
+                           n_bound=None):
+    big = avail.new_full((), float("inf"))
+
+    def decide(avail, j, demand):
+        fit = _fits(avail, demand, strict=True) & valid[j]
+        residual = _risk_score(_norms(avail - demand), risk)
+        return _two_stage_argmin(torch.where(fit, residual, big), fit, offset)
+
+    return _carry_free_sharded_pass(avail, demands, valid, decide, offset,
+                                    n_bound)
+
+
+# ---------------------------------------------------------------------------
+# Sharded speculative chunk commit (phase2 = int C)
+# ---------------------------------------------------------------------------
+
+
+def _shard_fold(offset):
+    """The carry fold's ``place`` / ``bump`` ops for
+    ``kernels._speculate_commit`` on the sharded layout."""
+    return (lambda a, d, h, ok: _place_local(a, d, h, ok, offset),
+            lambda c, h, ok: _bump_local(c, h, ok, offset))
+
+
+def _sharded_chunk_drive(avail, demands, valid, C, decide_rows, offset):
+    """Sharded ``kernels._chunk_drive``: ``decide_rows(a_rows [C, S, H/S,
+    4], dem_c, valid_c, pos) -> (h [C], ok [C])`` is the exact batched
+    per-position decision; speculation calls it on chunk-entry rows, the
+    re-decision on the exact prefix rows.  One host read a chunk (the
+    commit position)."""
+    B = demands.shape[0]
+    n_eff, _ = _host_rows(valid)
+    demP, validP = _pad_chunk(demands, C), _pad_chunk(valid, C)
+    placements = torch.full((B + C,), -1, dtype=torch.int32,
+                            device=avail.device)
+    place, bump = _shard_fold(offset)
+    pos = 0
+    while pos < n_eff:
+        dem_c, valid_c = demP[pos:pos + C], validP[pos:pos + C]
+        h_s, ok_s = decide_rows(avail.expand((C,) + tuple(avail.shape)),
+                                dem_c, valid_c, pos)
+        ok_s = ok_s & valid_c
+        h_s = torch.where(ok_s, h_s, torch.zeros_like(h_s))
+        p_c, _h, _ok, fc, commit_state = _speculate_commit(
+            avail, None, False, dem_c, h_s, ok_s,
+            lambda a_pre, _ex: decide_rows(a_pre, dem_c, valid_c, pos),
+            place=place, bump=bump,
+        )
+        # graftcheck: ignore[host-sync] -- the chunk form (phase2=int) reads each chunk's committed prefix length: one read a chunk of C steps, as the unsharded chunk forms
+        n_commit = min(int(fc) + 1, C)
+        placements[pos:pos + C] = p_c
+        avail, _ = commit_state(n_commit)
+        pos += n_commit
+    return placements[:B], avail
+
+
+def _opportunistic_sharded_chunk(avail, demands, valid, uniforms, C, offset,
+                                 risk=None):
+    uP = _pad_chunk(uniforms, C)
+
+    def decide_rows(a_rows, dem_c, valid_c, pos):
+        fit = (_fits(a_rows, dem_c[:, None, None, :], strict=False)
+               & valid_c[:, None, None])
+        fit = _risk_restrict_sharded(fit, risk)
+        return _opportunistic_pick(fit, uP[pos:pos + C], offset)
+
+    return _sharded_chunk_drive(avail, demands, valid, C, decide_rows, offset)
+
+
+def _first_fit_sharded_chunk(avail, demands, valid, C, strict, offset,
+                             risk=None):
+    def decide_rows(a_rows, dem_c, valid_c, pos):
+        fit = (_fits(a_rows, dem_c[:, None, None, :], strict)
+               & valid_c[:, None, None])
+        if risk is None:
+            return _first_index_of(fit, offset)
+        return _two_stage_argmin(_risk_key(fit, risk), fit, offset)
+
+    return _sharded_chunk_drive(avail, demands, valid, C, decide_rows, offset)
+
+
+def _best_fit_sharded_chunk(avail, demands, valid, C, offset, risk=None):
+    big = avail.new_full((), float("inf"))
+
+    def decide_rows(a_rows, dem_c, valid_c, pos):
+        fit = (_fits(a_rows, dem_c[:, None, None, :], strict=True)
+               & valid_c[:, None, None])
+        residual = _risk_score(_norms(a_rows - dem_c[:, None, None, :]), risk)
+        return _two_stage_argmin(torch.where(fit, residual, big), fit, offset)
+
+    return _sharded_chunk_drive(avail, demands, valid, C, decide_rows, offset)
+
+
+def _cost_aware_sharded_pass(avail, demands, valid, new_group, anchor_zone,
+                             cost_zz, bw_zz, host_zone, base_task_counts,
+                             offset, bin_pack, sort_hosts, host_decay,
+                             risk=None):
+    """Sharded Cost-Aware per-step pass — the slim phase 2 of
+    ``kernels.cost_aware_impl`` with every host-row expression on the
+    ``[S, H/S]`` blocks (``host_zone``, ``base_task_counts`` and ``risk``
+    in that layout) and the argmin swapped for the two-stage reduce.
+    Reads the control stream (valid, group entries, anchor zones) to the
+    host once, as the slim pass does."""
+    B = demands.shape[0]
+    dtype = avail.dtype
+    first_fit = bin_pack == "first-fit"
+    big = avail.new_full((), float("inf"))
+    base_counts = base_task_counts.to(dtype)
+    track_extra = (not first_fit) and host_decay
+    cost_rt, bw_rt, num_rt = _ca_phase1(
+        cost_zz, bw_zz, host_zone, base_counts,
+        first_fit and sort_hosts and host_decay,
+    )                                                       # [Z, S, H/S]
+    Hl = avail.shape[1]
+    # The identity host order: the GLOBAL index (exact in any float).
+    iota_h = (offset[:, None]
+              + torch.arange(Hl, device=avail.device)).to(dtype)
+    avail = avail.clone()
+    frozen = torch.zeros_like(base_counts)
+    extra = torch.zeros(base_counts.shape, dtype=torch.int32,
+                        device=avail.device)
+    placements = torch.full((B,), -1, dtype=torch.int32, device=avail.device)
+    n_eff, (ng, az) = _host_rows(valid, new_group, anchor_zone)
+    for j in range(n_eff):
+        demand = demands[j]
+        if first_fit:
+            if ng[j]:
+                if sort_hosts:
+                    frozen = _risk_score(_ca_group_score(
+                        num_rt[az[j]], avail, bw_rt[az[j]]), risk)
+                else:
+                    frozen = iota_h if risk is None else risk
+            fit = _fits(avail, demand, strict=True) & valid[j]
+            h, ok = _two_stage_argmin(torch.where(fit, frozen, big), fit,
+                                      offset)
+        else:
+            decay = (
+                torch.clamp_min(base_counts + extra.to(dtype), 1.0)
+                if host_decay else 1.0
+            )
+            per_task = _risk_score(_ca_best_fit_score(
+                cost_rt[az[j]], avail, demand, decay, bw_rt[az[j]]), risk)
+            fit = _fits(avail, demand, strict=False) & valid[j]
+            h, ok = _two_stage_argmin(torch.where(fit, per_task, big), fit,
+                                      offset)
+        _place_local(avail, demand, h, ok, offset)
+        if track_extra:
+            _bump_local(extra, h, ok, offset)
+        _set_placement(placements, j, h, ok)
+    return placements, avail
+
+
+def _cost_aware_sharded_chunk_pass(avail, demands, valid, new_group,
+                                   anchor_zone, cost_zz, bw_zz, host_zone,
+                                   base_task_counts, C, offset, bin_pack,
+                                   sort_hosts, host_decay, risk=None):
+    """Sharded Cost-Aware chunk commit: shard-local score and fold
+    arithmetic, the batched two-stage reduce for the speculation (against
+    chunk-entry state) and for the exact re-decision.  First-fit keeps
+    the unsharded form's segment capping: the commit never crosses the
+    chunk's SECOND group entry, and the entry score row is recomputed
+    from the exact prefix state."""
+    B = demands.shape[0]
+    S, Hl = avail.shape[0], avail.shape[1]
+    dev, dtype = avail.device, avail.dtype
+    first_fit = bin_pack == "first-fit"
+    big = avail.new_full((), float("inf"))
+    base_counts = base_task_counts.to(dtype)
+    track_extra = (not first_fit) and host_decay
+    cost_rt, bw_rt, num_rt = _ca_phase1(
+        cost_zz, bw_zz, host_zone, base_counts,
+        first_fit and sort_hosts and host_decay,
+    )
+    iota_h = (offset[:, None] + torch.arange(Hl, device=dev)).to(dtype)
+    n_eff, _ = _host_rows(valid)
+    demP, validP, ngP = (_pad_chunk(x, C) for x in (demands, valid, new_group))
+    azP = _pad_chunk(anchor_zone, C)
+    idx = torch.arange(C, device=dev)
+    placements = torch.full((B + C,), -1, dtype=torch.int32, device=dev)
+    frozen = torch.zeros_like(base_counts)
+    extra = torch.zeros((S, Hl), dtype=torch.int32, device=dev)
+    place, bump = _shard_fold(offset)
+    pos = 0
+    while pos < n_eff:
+        dem_c, valid_c = demP[pos:pos + C], validP[pos:pos + C]
+        ng_c, az_c = ngP[pos:pos + C], azP[pos:pos + C].long()
+        fit_of = (lambda a_rows, strict: _fits(
+            a_rows, dem_c[:, None, None, :], strict) & valid_c[:, None, None])
+        if first_fit:
+            e1 = torch.where(ng_c, idx, torch.full_like(idx, C)).min()
+            e2 = torch.where(ng_c & (idx > e1), idx,
+                             torch.full_like(idx, C)).min()
+            e1c = e1.clamp(max=C - 1)
+            az_e1 = _at(az_c, e1c)
+            seg = (idx >= e1)[:, None, None]
+            row_check = []
+
+            def group_row(entry_avail):
+                if sort_hosts:
+                    return _risk_score(_ca_group_score(
+                        _at(num_rt, az_e1), entry_avail, _at(bw_rt, az_e1)),
+                        risk)
+                return risk if risk is not None else iota_h
+
+            def decide(a_rows, row):
+                fit = fit_of(a_rows, True)
+                score_rows = torch.where(seg, row[None], frozen[None])
+                return _two_stage_argmin(torch.where(fit, score_rows, big),
+                                         fit, offset)
+
+            h_s, ok_s = decide(avail.expand((C,) + tuple(avail.shape)),
+                               group_row(avail))
+            commit_cap = e2
+
+            def recheck(a_pre, _ex):
+                row = group_row(_at(a_pre, e1c))
+                row_check.append(row)
+                return decide(a_pre, row)
+        else:
+            cost_rows, bw_rows = cost_rt[az_c], bw_rt[az_c]  # [C, S, H/S]
+
+            def recheck(a_rows, ex_rows):
+                fit = fit_of(a_rows, False)
+                residual = _norms(a_rows - dem_c[:, None, None, :])
+                decay = (
+                    torch.clamp_min(base_counts[None] + ex_rows.to(dtype), 1.0)
+                    if host_decay else 1.0
+                )
+                cand = _risk_score(cost_rows * residual * decay / bw_rows,
+                                   risk)
+                return _two_stage_argmin(torch.where(fit, cand, big), fit,
+                                         offset)
+
+            h_s, ok_s = recheck(avail.expand((C,) + tuple(avail.shape)),
+                                extra.expand((C, S, Hl)))
+            commit_cap = None
+        ok_s = ok_s & valid_c
+        h_s = torch.where(ok_s, h_s, torch.zeros_like(h_s))
+        p_c, _h, _ok, fc, commit_state = _speculate_commit(
+            avail, extra, track_extra, dem_c, h_s, ok_s, recheck,
+            place=place, bump=bump)
+        n_commit = fc + 1
+        if commit_cap is not None:
+            n_commit = torch.minimum(n_commit, commit_cap)
+        # graftcheck: ignore[host-sync] -- the chunk form (phase2=int) reads each chunk's committed prefix length: one read a chunk, as cost_aware_impl's chunks
+        n_commit = max(min(int(n_commit), C), 1)
+        placements[pos:pos + C] = p_c
+        avail, extra = commit_state(n_commit)
+        if first_fit:
+            frozen = torch.where(e1 < n_commit, row_check[0], frozen)
+        pos += n_commit
+    return placements[:B], avail
+
+
+# ---------------------------------------------------------------------------
+# Public sharded kernels
+# ---------------------------------------------------------------------------
+
+
+def _sharded_call(mesh, avail, demands, live, body):
+    """The shared wrapper of the four kernels: the host-axis checks, the
+    empty-batch passthrough, the live mask on the ``[S, H/S]`` blocks,
+    and ``body(avail [S, H/S, 4], S, offset) -> (placements, avail)``;
+    the availability comes back as ``[H, 4]``."""
+    S, offset = _layout(mesh, avail)
+    if demands.shape[0] == 0:
+        return (torch.zeros((0,), dtype=torch.int32, device=avail.device),
+                avail)
+    a, restore = _apply_live(_shard(avail, S), _shard(live, S))
+    p, out = body(a, S, offset)
+    return p, restore(out).reshape(avail.shape)
+
+
+def opportunistic_kernel_sharded(mesh, avail, demands, valid, uniforms,
+                                 phase2="auto", live=None, risk=None):
+    """Host-sharded ``kernels.opportunistic_impl`` — bit-identical to it
+    in every ``phase2`` mode.  ``risk`` (optional [H] eviction-risk
+    vector) narrows the random choice to the global minimum-risk tier."""
+    mode = _sharded_mode(phase2)
+
+    def body(a, S, offset):
+        r = _shard(risk, S)
+        if mode == "step":
+            return _opportunistic_sharded_pass(a, demands, valid, uniforms,
+                                               offset, r)
+        return _opportunistic_sharded_chunk(
+            a, demands, valid, uniforms, min(mode, demands.shape[0]),
+            offset, r)
+
+    return _sharded_call(mesh, avail, demands, live, body)
+
+
+def first_fit_kernel_sharded(mesh, avail, demands, valid, strict=False,
+                             totals=None, phase2="auto", live=None,
+                             risk=None):
+    """Host-sharded ``kernels.first_fit_impl``.  ``totals`` (the chunked
+    form's speculation pre-filter) is accepted and ignored: the sharded
+    chunk speculates against chunk-entry state, and the pre-filter can
+    never change a placement.  ``risk`` swaps the index order for the
+    lexicographic (risk, global index) order."""
+    mode = _sharded_mode(phase2)
+
+    def body(a, S, offset):
+        r = _shard(risk, S)
+        if mode == "step":
+            return _first_fit_sharded_pass(a, demands, valid, bool(strict),
+                                           offset, r)
+        return _first_fit_sharded_chunk(
+            a, demands, valid, min(mode, demands.shape[0]), bool(strict),
+            offset, r)
+
+    return _sharded_call(mesh, avail, demands, live, body)
+
+
+def best_fit_kernel_sharded(mesh, avail, demands, valid, totals=None,
+                            phase2="auto", live=None, risk=None):
+    """Host-sharded ``kernels.best_fit_impl`` (``totals`` accepted and
+    ignored; ``risk`` adds the shared ``score += risk`` term)."""
+    mode = _sharded_mode(phase2)
+
+    def body(a, S, offset):
+        r = _shard(risk, S)
+        if mode == "step":
+            return _best_fit_sharded_pass(a, demands, valid, offset, r)
+        return _best_fit_sharded_chunk(
+            a, demands, valid, min(mode, demands.shape[0]), offset, r)
+
+    return _sharded_call(mesh, avail, demands, live, body)
+
+
+def cost_aware_kernel_sharded(
+    mesh,
+    avail,
+    demands,
+    valid,
+    new_group,
+    anchor_zone,
+    cost_zz,
+    bw_zz,
+    host_zone,
+    base_task_counts,
+    bin_pack: str = "first-fit",
+    sort_hosts: bool = True,
+    host_decay: bool = False,
+    rt_bw_rows=None,
+    rt_bw_idx=None,
+    totals=None,
+    phase2="auto",
+    live=None,
+    risk=None,
+):
+    """Host-sharded ``kernels.cost_aware_impl`` — the same argument
+    contract minus the realtime-bandwidth rows (per-tick sampled host
+    state; the device policy declines sharding for ``realtime_bw``) and
+    the learned score exponents (``enable_sharding`` refuses them).
+    ``risk`` applies the shared rules (``score += risk``;
+    ``sort_hosts=False`` order → lexicographic (risk, global index))."""
+    mode = _sharded_mode(phase2)
+    if rt_bw_rows is not None or rt_bw_idx is not None:
+        raise ValueError(
+            "realtime_bw has no sharded form — the per-tick sampled "
+            "[G, H] rows would reshard every dispatch; use the "
+            "single-device kernel for realtime scoring"
+        )
+
+    def body(a, S, offset):
+        ca = (a, demands, valid, new_group, anchor_zone, cost_zz, bw_zz,
+              _shard(host_zone, S), _shard(base_task_counts, S))
+        r = _shard(risk, S)
+        if mode == "step":
+            return _cost_aware_sharded_pass(*ca, offset, bin_pack,
+                                            bool(sort_hosts),
+                                            bool(host_decay), r)
+        return _cost_aware_sharded_chunk_pass(
+            *ca, min(mode, demands.shape[0]), offset, bin_pack,
+            bool(sort_hosts), bool(host_decay), r)
+
+    return _sharded_call(mesh, avail, demands, live, body)
+
+
+# ---------------------------------------------------------------------------
+# Sharded fused span driver
+# ---------------------------------------------------------------------------
+
+
+def sharded_fused_tick_run(
+    mesh,
+    avail,
+    demands,
+    arrive,
+    n_ticks_dyn: int,
+    *,
+    policy: str,
+    n_ticks: int,
+    n_bound: Optional[Sequence[int]] = None,
+    uniforms=None,
+    sort_norm=None,
+    anchor_zone=None,
+    bucket_id=None,
+    cost_zz=None,
+    bw_zz=None,
+    host_zone=None,
+    base_task_counts=None,
+    totals=None,
+    live=None,
+    risk_rows=None,
+    cost_stack=None,
+    cost_seg=None,
+    strict: bool = False,
+    decreasing: bool = False,
+    bin_pack: str = "first-fit",
+    sort_tasks: bool = False,
+    sort_hosts: bool = True,
+    host_decay: bool = False,
+    phase2="auto",
+) -> SpanResult:
+    """Host-sharded ``tickloop.fused_tick_run`` — the same contract and
+    :class:`SpanResult` (``avail`` back as ``[H, 4]``), the availability
+    carry and the span-cumulative decay counts kept in the ``[S, H/S]``
+    layout between ticks.  Each tick is the span algebra's
+    ``_span_tick`` with the per-step sharded passes placing: the
+    carry-free arms walk ``n_bound[k]`` steps with no device read (the
+    host step bounds of :func:`tickloop.span_step_bounds`; None reads
+    ``arrive`` once), Cost-Aware reads its control stream once a tick as
+    ``cost_aware_impl`` does.  ``totals`` / ``phase2`` are accepted for
+    the signature (every mode is the per-step pass).  The market operands
+    follow ``fused_tick_run``: ``risk_rows`` [K, H] rides the host axis
+    like ``live``; ``cost_stack`` [P, Z, Z] with host ``cost_seg`` [K]."""
+    _resolve_phase2(phase2)
+    S, offset = _layout(mesh, avail)
+    B, H = demands.shape[0], avail.shape[0]
+    dev = avail.device
+    n_dyn = n_ticks_dyn
+    if n_bound is None:
+        # graftcheck: ignore[host-sync] -- a caller without host step bounds pays one read of arrive before the loop, none inside it
+        n_bound = span_step_bounds(arrive.cpu().numpy(), n_dyn)
+    a, restore = _apply_live(_shard(avail, S), _shard(live, S))
+    hz, base = _shard(host_zone, S), _shard(base_task_counts, S)
+    arrive = arrive.long()
+    iota_b = torch.arange(B, device=dev)
+    if bucket_id is not None:
+        bucket_id = bucket_id.long()
+    i32 = dict(dtype=torch.int32, device=dev)
+    state = (torch.zeros((), dtype=torch.bool, device=dev),  # done
+             torch.full((B,), -1, dtype=torch.int64, device=dev),  # stackpos
+             torch.zeros((), dtype=torch.int64, device=dev),  # n_stack
+             a, torch.zeros((S, H // S), **i32))  # avail, cum
+    out = (torch.full((n_ticks, B), -1, **i32), torch.zeros((n_ticks,), **i32),
+           torch.zeros((n_ticks,), **i32), torch.zeros((), **i32))
+    ahead = _cohort_ahead(n_bound, n_dyn)
+
+    def place(k, avail, cum, order, dem_p, valid_p):
+        risk_k = None if risk_rows is None else _shard(risk_rows[k], S)
+        if policy == "opportunistic":
+            return _opportunistic_sharded_pass(
+                avail, dem_p, valid_p, uniforms[k], offset, risk_k,
+                n_bound=n_bound[k])
+        if policy == "first-fit":
+            return _first_fit_sharded_pass(
+                avail, dem_p, valid_p, strict, offset, risk_k,
+                n_bound=n_bound[k])
+        if policy == "best-fit":
+            return _best_fit_sharded_pass(avail, dem_p, valid_p, offset,
+                                          risk_k, n_bound=n_bound[k])
+        if policy != "cost-aware":
+            raise ValueError(f"unknown span policy {policy!r}")
+        ca = _cost_aware_stream(
+            avail, cum, order, dem_p, valid_p, bucket_id, anchor_zone,
+            _tick_cost(cost_zz, cost_stack, cost_seg, k), bw_zz, hz, base,
+            iota_b)
+        return _cost_aware_sharded_pass(*ca, offset, bin_pack, sort_hosts,
+                                        host_decay, risk_k)
+
+    for k in range(n_dyn):
+        state = _span_tick(k, state, out, ~state[0], not ahead[k], place,
+                           policy, decreasing, sort_tasks, demands, arrive,
+                           sort_norm, bucket_id, iota_b, offset=offset)
+    _done, stackpos, n_stack, a, _cum = state
+    return SpanResult(*out, n_stack.to(torch.int32), stackpos.to(torch.int32),
+                      restore(a).reshape(H, avail.shape[1]))
+
+
+# ---------------------------------------------------------------------------
+# Unsharded form → its host-sharded twin
+# ---------------------------------------------------------------------------
+
+#: Unsharded public form → its 1-D host-sharded twin.
+_SHARDED_TWINS = {
+    opportunistic_impl: opportunistic_kernel_sharded,
+    first_fit_impl: first_fit_kernel_sharded,
+    best_fit_impl: best_fit_kernel_sharded,
+    cost_aware_impl: cost_aware_kernel_sharded,
+    fused_tick_run: sharded_fused_tick_run,
+}
+
+#: Array-kwarg names that disqualify a dispatch from the sharded forms:
+#: the realtime-bandwidth rows are per-tick host state (the sharded
+#: Cost-Aware form raises on them).
+UNSHARDABLE_KW = frozenset({"rt_bw_rows", "rt_bw_idx"})
+
+
+def sharded_twin_of(kernel, arr_kw_keys=()):
+    """The 1-D host-sharded twin of an unsharded public form, or None
+    when the form has none (e.g. the ``greedy_place`` wrappers) or the
+    request carries operands the sharded forms reject
+    (:data:`UNSHARDABLE_KW`)."""
+    if UNSHARDABLE_KW & set(arr_kw_keys):
+        return None
+    return _SHARDED_TWINS.get(kernel)

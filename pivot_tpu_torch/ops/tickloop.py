@@ -242,7 +242,8 @@ def _cost_aware_stream(avail, cum, order, dem_p, valid_p, bucket_id,
 
 
 def _span_tick(k, state, out, alive, settle, place, policy, decreasing,
-               sort_tasks, demands, arrive, sort_norm, bucket_id, iota):
+               sort_tasks, demands, arrive, sort_norm, bucket_id, iota,
+               offset=None):
     """One span tick of :func:`fused_tick_run` (one span: ``[B]`` slots,
     0-dim flags) or :func:`fused_tick_run_rows` (G spans: ``[G, B]``
     rows, ``[G, 1]`` flags).  ``state`` is ``(done, stackpos, n_stack,
@@ -251,8 +252,10 @@ def _span_tick(k, state, out, alive, settle, place, policy, decreasing,
     every write, as the reference's body gates dead rows under ``vmap``;
     ``settle`` is False where a cohort still arrives inside the horizon;
     ``place(k, avail, cum, order, dem_p, valid_p)`` runs the tick's pass
-    and returns ``(placements in stream order, availability)``.  Returns
-    the new state."""
+    and returns ``(placements in stream order, availability)``.  On a
+    host-sharded span (``ops/shard.py``) ``avail`` is ``[S, H/S, 4]``,
+    ``cum`` ``[S, H/S]`` and ``offset`` the ``[S]`` first global host of
+    each shard's block.  Returns the new state."""
     done, stackpos, n_stack, avail, cum = state
     big = 2 * iota.shape[-1] + 2  # > any real batch position
     # 1. This tick's ready batch.
@@ -274,12 +277,17 @@ def _span_tick(k, state, out, alive, settle, place, policy, decreasing,
     # 4. Wait-stack rebuild.
     new_stackpos, new_n_stack = _span_requeue(
         decreasing, in_batch, placed, batch_pos, order, iota, big)
-    # 5. Span-cumulative resident-task counts (the host-decay base).
+    # 5. Span-cumulative resident-task counts (the host-decay base); a
+    #    host-sharded span folds each placement into its owner's block.
     H = cum.shape[-1]
+    mine, host = placed, row
+    if offset is not None:
+        host = row - offset[:, None]
+        mine = placed & (host >= 0) & (host < H)
     # graftcheck: ignore[determinism] -- int32 counts: exact in any order
     cum_new = torch.zeros(cum.shape[:-1] + (H + 1,), dtype=torch.int32,
                           device=cum.device).scatter_add_(
-        -1, torch.where(placed, row, H).long(), placed.to(torch.int32)
+        -1, torch.where(mine, host, H).long(), mine.to(torch.int32)
     )[..., :H] + cum
     # 6. Provable-no-op exit: no cohort ahead and nothing left or nothing
     #    placed (availability only decreases inside a span).

@@ -24,7 +24,7 @@ scoring, checkpoint files (``rollout_checkpointed``), and through the
 row runner per-row score exponents, the eviction-risk term, the
 active-task mask and per-row initial availability.  Sharding
 (``sharded_rollout``, ``shard_sweep``) raises ``NotImplementedError``
-(ROADMAP.md Queue 1 item 9).
+(ROADMAP.md Queue 1 item 9d).
 
 Results on the CPU in float64 equal ``pivot_tpu``'s bit for bit, except
 the egress bill, which agrees to a few ulps (``bill.py``), and, with the

@@ -1,7 +1,7 @@
 """Cross-run dispatch batching: co-pending ticks of many runs, one flush.
 
 Port of ``pivot_tpu/sched/batch.py`` without the mesh (ROADMAP.md,
-Queue 1 item 9); with the recovery plane's write-ahead journal
+Queue 1 item 9b); with the recovery plane's write-ahead journal
 (``DispatchBatcher(journal=)``: each flush's composition is journaled
 before its first device call, a solo dispatch as a one-request flush)
 and the sampled dispatch profiler (``DispatchBatcher(profiler=)``: it
@@ -364,7 +364,7 @@ class DispatchBatcher:
     (mixed-horizon span groups merged into one (K′, B′) bucket),
     ``ragged_rows`` (requests that rode a merged flush) and
     ``ragged_pad_cells`` (K×B cells run beyond the members' own
-    buckets); the mesh counters stay 0 (ROADMAP.md Queue 1 item 9).  At
+    buckets); the mesh counters stay 0 (ROADMAP.md Queue 1 item 9b).  At
     any instant ``live_slots == runs − retired_slots``.
 
     ``ragged=True`` (the default) turns on the ragged span repack

@@ -97,13 +97,25 @@ the policy's direct dispatches — per-tick kernels through
 ``_call_kernel``, fused spans, resident spans — is timed to completion.
 Batched dispatches are timed at the batcher's flush instead.
 
-Not in this slice (ROADMAP.md, Queue 1 item 9): host sharding, elastic
-padding and the elastic fault gate — the methods that would attach them
-raise ``NotImplementedError``.
+Host sharding (``enable_sharding``, ``pivot_tpu/sched/tpu.py:594-647``):
+with a host-axis mesh (``parallel/mesh.py``) every placement dispatch —
+the per-tick passes and the fused spans — runs through the 1-D sharded
+forms of ``ops/shard.py`` on the ``[S, H/S]`` host blocks, bit-identical
+to the unsharded forms.  A Cost-Aware policy with a mesh runs the
+sharded torch pass and never launches ``greedy_place`` (the reference's
+Pallas exclusion, ``:2115-2125``); it runs on the policy's device or
+fails.  Refused with the adaptive twin, ``use_kernel=True``,
+``realtime_bw``, learned score exponents, the batcher (the port's
+``DispatchBatcher`` has no mesh: ROADMAP.md Queue 1 item 9b) and the
+resident tier (item 9b).
+
+Not in this slice: the elastic fault gate (ROADMAP.md, Queue 1 item
+9c) — ``enable_fault_gate`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Dict, List, Optional
 
@@ -126,6 +138,14 @@ from pivot_tpu_torch.ops.kernels import (
     opportunistic_impl,
     resolve_device,
 )
+from pivot_tpu_torch.ops.shard import (
+    best_fit_kernel_sharded,
+    cost_aware_kernel_sharded,
+    first_fit_kernel_sharded,
+    mesh_device,
+    opportunistic_kernel_sharded,
+    sharded_fused_tick_run,
+)
 from pivot_tpu_torch.ops.tickloop import (
     SPAN_HOST_OPERANDS,
     edit_bucket,
@@ -136,6 +156,7 @@ from pivot_tpu_torch.ops.tickloop import (
     span_bucket,
     span_step_bounds,
 )
+from pivot_tpu_torch.parallel.mesh import host_axis_size
 from pivot_tpu_torch.sched import Policy, TickContext
 from pivot_tpu_torch.sched.policies import (
     BestFitPolicy,
@@ -448,6 +469,9 @@ class _DevicePolicyBase(Policy):
         self._topology_host: Optional[DeviceTopology] = None
         #: The resident span tier, when enabled (``enable_resident``).
         self._resident: Optional[_ResidentState] = None
+        #: The host-sharding mesh, when enabled (``enable_sharding``):
+        #: every placement dispatch runs host-sharded over its host axis.
+        self._mesh = None
         #: Graceful degradation (module docstring): after
         #: ``degrade_after`` CONSECUTIVE device-kernel failures the
         #: policy serves from its numpy twin, probing the device back
@@ -511,6 +535,8 @@ class _DevicePolicyBase(Policy):
         self.topology = DeviceTopology.from_cluster(
             scheduler.cluster, self.dtype, self.device
         )
+        if self._mesh is not None:
+            self._check_mesh_hosts(self._mesh)  # rebind: re-validate
         if self._cpu_twin is not None:
             self._cpu_twin.bind(scheduler)
         if self.adaptive:
@@ -633,6 +659,15 @@ class _DevicePolicyBase(Policy):
         st = stage(self.device, avail=avail, dem=dem, arrive=arrive,
                    live=self._live_np(ctx), **host)
         kw.update((k, st[k]) for k in host)
+        if self._mesh is not None:
+            # The host-sharded span driver: the [S, H/S] carry stays in
+            # its blocks between ticks (``pivot_tpu/sched/tpu.py:1069``).
+            res = sharded_fused_tick_run(
+                self._mesh, st["avail"], st["dem"], st["arrive"], k_dyn,
+                n_ticks=K, n_bound=span_step_bounds(plan.arrive, k_dyn),
+                live=st["live"], **kw,
+            )
+            return _SpanOutcome(res.placements.cpu().numpy())
         res = self._profiled(
             "fused_tick_run",
             lambda: fused_tick_run(
@@ -678,6 +713,8 @@ class _DevicePolicyBase(Policy):
                 "(it re-stages every operand at the flush boundary) — "
                 "detach the batcher first"
             )
+        if self._mesh is not None:
+            self._refuse_sharded_resident()
         self._resident = _ResidentState(bool(splice))
 
     def _resident_risk_kw(self, ctx: TickContext, plan, K: int) -> dict:
@@ -856,7 +893,9 @@ class _DevicePolicyBase(Policy):
         the other sessions' co-pending ticks (``sched/batch.py``).
         Requires deterministic routing: the adaptive twin routes on
         measured latencies, which would make batch membership
-        timing-dependent (``pivot_tpu/sched/tpu.py:534-566``)."""
+        timing-dependent (``pivot_tpu/sched/tpu.py:534-566``).  Refused
+        beside :meth:`enable_sharding`: composing them needs the
+        batcher's 2-D mesh (``_check_batch_mesh``)."""
         if self.adaptive:
             raise ValueError(
                 "cross-run batching needs deterministic dispatch — "
@@ -869,7 +908,29 @@ class _DevicePolicyBase(Policy):
                 "flush boundary, the staging the resident tier removes; "
                 "drop enable_resident() or the batcher"
             )
+        if self._mesh is not None:
+            self._check_batch_mesh(self._mesh)
         self._batch_client = client
+
+    def _check_batch_mesh(self, mesh) -> None:
+        """Batching × sharding needs a batcher on a 2-D ``replica ×
+        host`` mesh whose host axis matches this policy's
+        (``pivot_tpu/sched/tpu.py:568-592``).  The port's
+        ``DispatchBatcher`` has no mesh yet, so this raises the
+        reference's error for a batcher without one."""
+        raise ValueError(
+            "composing host sharding with cross-run batching needs a "
+            "DispatchBatcher built on a 2-D replica x host mesh whose "
+            f"host axis matches enable_sharding's "
+            f"({host_axis_size(mesh)} shards); the port's "
+            "DispatchBatcher has no mesh yet (ROADMAP.md Queue 1 item 9b)"
+        )
+
+    def _refuse_sharded_resident(self):
+        raise NotImplementedError(
+            "the host-sharded resident span carry is not ported to "
+            "pivot_tpu_torch yet (ROADMAP.md Queue 1 item 9b): use "
+            "enable_sharding or enable_resident, not both")
 
     def prepare(self) -> None:
         """Initialise CUDA on this policy's device now, on the calling
@@ -879,11 +940,65 @@ class _DevicePolicyBase(Policy):
             torch.cuda.init()
             torch.zeros(1, device=self.device)
 
+    # -- host sharding (``pivot_tpu/sched/tpu.py:594-647``) -----------------
     def enable_sharding(self, mesh) -> None:
-        self._not_ported("host sharding (Queue 1 item 9)")
+        """Run every placement dispatch host-sharded over ``mesh``'s
+        ``host`` axis (``ops/shard.py``): the per-tick passes and the
+        fused spans on the ``[S, H/S]`` host blocks, the argmin a
+        two-stage reduce — placements bit-identical to the unsharded
+        forms.  ``mesh`` must place its shards on this policy's device
+        (logical shards: ``host_sharded_mesh(devices=[device] * S)``).
+
+        Refused with the adaptive twin (its latency model prices the
+        unsharded pass), ``use_kernel=True`` and ``realtime_bw`` (no
+        sharded form), the batcher and the resident tier (ROADMAP.md
+        Queue 1 item 9b)."""
+        if self.adaptive:
+            raise ValueError(
+                "host sharding needs deterministic dispatch — construct "
+                "the policy with adaptive=False"
+            )
+        if getattr(self, "use_kernel", None) is True:
+            raise ValueError(
+                "the greedy_place kernel keeps the whole tick in one "
+                "block — it has no sharded form; drop use_kernel=True"
+            )
+        if getattr(self, "realtime_bw", False):
+            raise ValueError(
+                "realtime_bw has no sharded form (per-tick sampled "
+                "[G, H] rows would reshard every dispatch)"
+            )
+        if host_axis_size(mesh) < 1:
+            raise ValueError("mesh has an empty host axis")
+        if self._batch_client is not None:
+            self._check_batch_mesh(mesh)
+        if self._resident is not None:
+            self._refuse_sharded_resident()
+        mesh_device(mesh, self.device)
+        if self.topology is not None:
+            self._check_mesh_hosts(mesh)
+        self._mesh = mesh
+
+    def _check_mesh_hosts(self, mesh) -> None:
+        H = self.topology.n_hosts
+        n = host_axis_size(mesh)
+        if H % n:
+            raise ValueError(
+                f"cluster has H={H} hosts, not divisible over the "
+                f"mesh's {n} host shards — pad the cluster to a "
+                f"multiple of {n} hosts"
+            )
+
+    def _kernel_for(self, kernel, sharded_kernel):
+        """The dispatch rung for one placement call: the host-sharded
+        twin when a mesh is enabled, else the unsharded form through
+        :meth:`_call_kernel` (``pivot_tpu/sched/tpu.py:771-783``)."""
+        if self._mesh is not None:
+            return functools.partial(sharded_kernel, self._mesh)
+        return functools.partial(self._call_kernel, kernel)
 
     def enable_fault_gate(self, gate) -> None:
-        self._not_ported("the elastic fault gate")
+        self._not_ported("the elastic fault gate (Queue 1 item 9c)")
 
     # -- sampled dispatch profiling (``pivot_tpu/sched/tpu.py:786``) -------
     def enable_profiler(self, profiler) -> None:
@@ -1052,7 +1167,7 @@ class _DevicePolicyBase(Policy):
             try:
                 out = self._device_place(ctx)
             except DeviceLostError:
-                raise  # mesh loss is the elastic supervisor's (item 9)
+                raise  # mesh loss is the elastic supervisor's (item 9c)
             except Exception as exc:  # noqa: BLE001 — degradation guard
                 # Twin fallback; no EMA update (the sample measures
                 # neither side's healthy cost).
@@ -1110,7 +1225,7 @@ class _DevicePolicyBase(Policy):
         consecutive failures make the fallback sticky until a half-open
         probe matches.  Guard disabled (``degrade_after=None``):
         exceptions propagate unchanged.  :class:`DeviceLostError` — the
-        loss of a mesh device, raised by item 9's elastic fault gate —
+        loss of a mesh device, raised by item 9c's elastic fault gate —
         always propagates: the elastic supervisor handles it, not the
         twin."""
         if self.degrade_after is None or self._cpu_twin is None:
@@ -1201,8 +1316,9 @@ class CudaOpportunisticPolicy(_DevicePolicyBase):
         u[:T] = tick_uniforms(ctx.scheduler.seed or 0, ctx.tick_seq, T)
         st = self._stage(avail=avail, dem=dem, valid=valid, u=u,
                          live=self._live_np(ctx), risk=self._risk_np(ctx))
-        placements, _ = self._call_kernel(
-            opportunistic_impl, st["avail"], st["dem"], st["valid"], st["u"],
+        placements, _ = self._kernel_for(
+            opportunistic_impl, opportunistic_kernel_sharded)(
+            st["avail"], st["dem"], st["valid"], st["u"],
             phase2=self.phase2, live=st["live"], risk=st["risk"],
         )
         return self._unpad(placements, T)
@@ -1245,8 +1361,9 @@ class CudaFirstFitPolicy(_DevicePolicyBase):
         avail, dem, valid = self._padded(ctx, order)
         st = self._stage(avail=avail, dem=dem, valid=valid,
                          live=self._live_np(ctx), risk=self._risk_np(ctx))
-        placements, _ = self._call_kernel(
-            first_fit_impl, st["avail"], st["dem"], st["valid"],
+        placements, _ = self._kernel_for(
+            first_fit_impl, first_fit_kernel_sharded)(
+            st["avail"], st["dem"], st["valid"],
             strict=False, totals=self._staged_topology().totals,
             phase2=self.phase2, live=st["live"], risk=st["risk"],
         )
@@ -1299,8 +1416,9 @@ class CudaBestFitPolicy(_DevicePolicyBase):
         avail, dem, valid = self._padded(ctx, order)
         st = self._stage(avail=avail, dem=dem, valid=valid,
                          live=self._live_np(ctx), risk=self._risk_np(ctx))
-        placements, _ = self._call_kernel(
-            best_fit_impl, st["avail"], st["dem"], st["valid"],
+        placements, _ = self._kernel_for(
+            best_fit_impl, best_fit_kernel_sharded)(
+            st["avail"], st["dem"], st["valid"],
             totals=self._staged_topology().totals, phase2=self.phase2,
             live=st["live"], risk=st["risk"],
         )
@@ -1397,11 +1515,27 @@ class CudaCostAwarePolicy(_DevicePolicyBase):
         if exps is not None and self.use_kernel:
             raise ValueError("cannot promote learned score exponents onto a "
                              "greedy_place-kernel policy")
+        if exps is not None and self._mesh is not None:
+            raise ValueError("cannot promote learned score exponents onto a "
+                             "host-sharded policy (ops/shard.py exemption)")
         super().apply_weights(w)
         self._score_exp = exps
 
+    def enable_sharding(self, mesh) -> None:
+        if self._score_exp is not None:
+            raise ValueError(
+                "the host-sharded passes (ops/shard.py) have not been "
+                "threaded for learned score exponents (a declared "
+                "exemption in analysis/parity.py) — serve learned "
+                "exponents unsharded, or keep the reference shape"
+            )
+        super().enable_sharding(mesh)
+
     def _kernel_serves(self) -> bool:
-        """The reference's auto rule, with ``cuda`` for the TPU backend."""
+        """The reference's auto rule, with ``cuda`` for the TPU backend;
+        never with a mesh (the kernel has no sharded form)."""
+        if self._mesh is not None:
+            return False
         if self.use_kernel is not None:
             if self.use_kernel and self.dtype != torch.float32:
                 raise ValueError("the greedy_place kernel is float32 only; "
@@ -1560,10 +1694,12 @@ class CudaCostAwarePolicy(_DevicePolicyBase):
                     cost_aware_cuda, *args, **mode, n_eff=np.int32(T))
             self.kernel_ticks += 1
         else:
-            placements, _ = self._call_kernel(
-                cost_aware_impl, *args, **mode, rt_bw_rows=st["rows"],
-                rt_bw_idx=st["idx"], totals=topo.totals, phase2=self.phase2,
-                score_exp=st["score_exp"],
+            exps = ({} if st["score_exp"] is None
+                    else {"score_exp": st["score_exp"]})
+            placements, _ = self._kernel_for(
+                cost_aware_impl, cost_aware_kernel_sharded)(
+                *args, **mode, rt_bw_rows=st["rows"], rt_bw_idx=st["idx"],
+                totals=topo.totals, phase2=self.phase2, **exps,
             )
         return self._unpad(placements, T, order)
 

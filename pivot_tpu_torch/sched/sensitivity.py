@@ -50,7 +50,7 @@ def evaluate_candidates(weights, env, **kw) -> np.ndarray:
     :func:`pivot_tpu_torch.search.fitness.evaluate_rows`: the population
     is one row batch of the ensemble rollout on the environment's
     device (the ``sharded_rollout`` backend raises there, ROADMAP.md
-    Queue 1 item 9).
+    Queue 1 item 9d).
 
     Imported lazily so this module never drags the search/ensemble
     stack in by itself.

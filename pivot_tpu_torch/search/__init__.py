@@ -17,7 +17,7 @@ Port of ``pivot_tpu/search/__init__.py``:
     regret against an optimum.
 
 The ``"sharded_rollout"`` fitness backend raises ``NotImplementedError``
-(ROADMAP.md Queue 1 item 9); the model-predictive controller
+(ROADMAP.md Queue 1 item 9d); the model-predictive controller
 (``pivot_tpu_torch.mpc``) scores its action menus through this
 evaluator.
 

@@ -27,7 +27,7 @@ host, in float64, in ``pivot_tpu``'s fixed order.
 One backend runs: ``"rollout"``.  ``pivot_tpu``'s ``"sharded_rollout"``
 (its ``_sharded_fitness_fn`` jit over a replica mesh) has no counterpart
 here; asking for it raises ``NotImplementedError`` (ROADMAP.md Queue 1
-item 9, sharding).  Neither have ``pivot_tpu``'s jit wrappers
+item 9d, the sharded ensemble).  Neither have ``pivot_tpu``'s jit wrappers
 (``_draw_rows``, ``_fitness_rows`` are plain functions: the port's tick
 loop runs on the host).
 
@@ -426,7 +426,7 @@ def evaluate_rows(
     so draws refresh while staying seed-replayable.
 
     ``backend="sharded_rollout"`` raises ``NotImplementedError``: the
-    sharded backend is ROADMAP.md Queue 1 item 9 (``mesh`` is accepted
+    sharded backend is ROADMAP.md Queue 1 item 9d (``mesh`` is accepted
     for the same call signature and unused).
 
     ``cap_rows`` ([B], capacity scale) and ``active_rows`` ([B, T]
@@ -445,7 +445,8 @@ def evaluate_rows(
     if backend == "sharded_rollout":
         raise NotImplementedError(
             "the 'sharded_rollout' fitness backend is not ported to "
-            "pivot_tpu_torch yet (ROADMAP.md Queue 1 item 9, sharding); "
+            "pivot_tpu_torch yet (ROADMAP.md Queue 1 item 9d, the sharded "
+            "ensemble); "
             "use backend='rollout'")
     warr = (
         np.asarray(weights, dtype=np.float64)

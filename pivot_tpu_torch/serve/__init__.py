@@ -19,7 +19,7 @@ classes below.  A served schedule equals the same job set run through
 batch-mode ``ExperimentRun`` (``tests/test_torch_serve.py``).  The
 recovery plane's config (``RecoveryConfig``) rides this namespace as in
 the reference; elastic meshes (``ElasticConfig``,
-``ElasticMeshManager``) are not ported (ROADMAP.md, Queue 1 item 9).
+``ElasticMeshManager``) are not ported (ROADMAP.md, Queue 1 item 9c).
 """
 
 from pivot_tpu_torch.serve.admission import (

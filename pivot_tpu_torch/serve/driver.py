@@ -59,8 +59,8 @@ there too (``MpcController.warmup``).  The model-predictive controller
 (``recovery=``, ``pivot_tpu_torch.recover``) and the sampled dispatch
 profiler (``profiler=``, ``pivot_tpu_torch.obs.DispatchProfiler``) are
 the reference's.  Not ported yet, each raising ``NotImplementedError``
-with its ROADMAP.md item (Queue 1): the 2-D mesh (``mesh=``, item 9)
-and elastic serving (``elastic=``, item 9).
+with its ROADMAP.md item (Queue 1): the 2-D mesh (``mesh=``, item 9b)
+and elastic serving (``elastic=``, item 9c).
 """
 
 from __future__ import annotations
@@ -181,8 +181,8 @@ class ServeDriver(LogMixin):
         elastic=None,
     ):
         for value, what, item in (
-            (mesh, "the 2-D serving mesh (mesh=)", 9),
-            (elastic, "elastic mesh serving (elastic=)", 9),
+            (mesh, "the 2-D serving mesh (mesh=)", "9b"),
+            (elastic, "elastic mesh serving (elastic=)", "9c"),
         ):
             if value is not None:
                 raise NotImplementedError(

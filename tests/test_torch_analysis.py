@@ -11,7 +11,9 @@
 * Each torch-only addition has a falsifier; a suppression without a
   reason is a finding.
 * The port's own tree is clean under every pass, and the parity pass's
-  per-family knob sets equal the reference's, less the sharded forms.
+  per-family knob sets equal the reference's, the 1-D host-sharded forms
+  included, less the 2-D and resident sharded forms (ROADMAP.md Queue 1
+  item 9b).
 """
 
 import json
@@ -263,6 +265,57 @@ def test_hostsync_required_body_renamed_away(tmp_path):
         "required hot-path body resident_span_run()"}
 
 
+def test_hostsync_sharded_bodies(tmp_path):
+    """``ops/shard.py``'s passes, reduces and span driver are hot paths,
+    as in the reference (``pivot_tpu/ops/shard.py:88-89``)."""
+    got = _port(tmp_path, "ops/shard.py", """\
+        def _two_stage_argmin(m):
+            return m.item()
+        def _cost_aware_sharded_pass(x):
+            return x.tolist()
+        def sharded_fused_tick_run(x):
+            return x
+        def _opportunistic_sharded_chunk(x):
+            return int(x)
+        def _helper(x):
+            return x.cpu()
+        """, "host-sync")
+    assert sorted(f.line for f in got) == [2, 4, 8]
+    got = _port(tmp_path, "ops/shard.py", """\
+        def _two_stage_argmin(x):
+            return x
+        """, "host-sync")
+    assert {f.message.split(" not")[0] for f in got} == {
+        "required hot-path body _cost_aware_sharded_pass()",
+        "required hot-path body sharded_fused_tick_run()"}
+
+
+def test_entry_map_lists_the_sharded_forms():
+    entries, findings, _s = entrymap.collect_entries(port._Cache(ROOT))
+    assert findings == []
+    assert sorted((e.name, e.kind) for e in
+                  entries["pivot_tpu_torch/ops/shard.py"]) == [
+        (name, "family") for name in (
+            "best_fit_kernel_sharded", "cost_aware_kernel_sharded",
+            "first_fit_kernel_sharded", "opportunistic_kernel_sharded",
+            "sharded_fused_tick_run")]
+
+
+def test_parity_flags_an_unregistered_sharded_form(tmp_path):
+    root = str(tmp_path)
+    _write(root, "pivot_tpu_torch/ops/shard.py", """\
+        def greedy_kernel_sharded(mesh, avail):
+            return avail
+        def sharded_batched_tick_run(mesh, avail):
+            return avail
+        """)
+    got = [f.message for f in port.run(root=root, rules=["backend-parity"])
+           if f.path == "pivot_tpu_torch/ops/shard.py"]
+    for name in ("greedy_kernel_sharded", "sharded_batched_tick_run"):
+        assert any(m.startswith(f"unregistered backend form {name}()")
+                   for m in got), (name, got)
+
+
 def test_dtype_torch_inherit(tmp_path):
     got = _port(tmp_path, "ops/snippet.py", """\
         import torch
@@ -462,7 +515,10 @@ def test_parity_knob_sets_equal_the_reference_less_sharded():
             assert "shard" in name
             continue
         assert as_ref[name] == knobs, name
+    assert {"cost_aware_kernel_sharded", "sharded_fused_tick_run"} <= set(
+        port_sets)
     assert set(port_parity.ABSENT) == {
         n for forms in [*ref_parity.MANIFEST.values(),
                         ref_parity.SPAN_MANIFEST]
-        for n in forms if "shard" in n}
+        for n in forms if "shard" in n and ("batched" in n or "resident" in n)}
+    assert set(port_parity.ABSENT.values()) == {"ROADMAP.md Queue 1 item 9b"}

@@ -36,10 +36,14 @@ def test_every_reference_entry_point_has_a_port_row(attribution):
             assert got["flagged"], name
         else:
             assert got["port"] in rows, name
-    # The sharded entries wait for ROADMAP.md Queue 1 item 9.
+    # The 1-D sharded entries are ported (ops/shard.py); the 2-D and
+    # resident ones wait for ROADMAP.md Queue 1 item 9b.
     for (path, name), port in costattr.REFERENCE.items():
         if path == "pivot_tpu/ops/shard.py":
-            assert port[0] == "flag" and "item 9" in port[1], name
+            if "batched" in name or "resident" in name:
+                assert port[0] == "flag" and "item 9b" in port[1], name
+            else:
+                assert port[0] == "pivot_tpu_torch/ops/shard.py", name
 
 
 def _reference_model(name):

@@ -24,7 +24,9 @@ every file of the package — ``serve/``, ``sched/batch.py``, ``obs/``
 ``utils/compile_counter.py``, ``experiments/plots.py`` and ``tools/``
 among them — and ``chip_smoke.py``.  A third probe runs the tooling:
 the graftcheck suite and its compile check, cost attribution, the
-compile counter's observer and the ``worker`` subcommand.
+compile counter's observer and the ``worker`` subcommand, and one
+host-sharded pass on a mesh of logical shards (``ops/shard.py``,
+``parallel/mesh.py``).
 """
 
 import ast
@@ -256,6 +258,12 @@ from pivot_tpu_torch.experiments import cli, plots
 from pivot_tpu_torch.obs import MetricsRegistry, attach_compile_observer
 from pivot_tpu_torch.obs.costattr import cost_attribution
 from pivot_tpu_torch.utils import compile_counter
+import torch
+from pivot_tpu_torch.ops.shard import first_fit_kernel_sharded
+from pivot_tpu_torch.parallel.mesh import host_sharded_mesh
+sharded, _ = first_fit_kernel_sharded(
+    host_sharded_mesh(devices=[torch.device("cpu")] * 2), torch.ones(4, 4),
+    torch.full((3, 4), 0.6), torch.tensor([True, True, False]))
 detach = attach_compile_observer(MetricsRegistry())
 compile_counter.record("graph_capture")
 detach()
@@ -276,6 +284,7 @@ print(json.dumps({
     "steady": check["steady"],
     "complete": ca["complete"],
     "served": served[0]["ok"],
+    "sharded": sharded.tolist(),
     "modules": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "pivot_tpu")),
 }))
@@ -297,6 +306,7 @@ def test_tooling_runs_without_jax_or_reference_modules():
     assert report["steady"] == {"kernel_build": 0, "graph_capture": 0}
     assert report["complete"] is True
     assert report["served"] is True
+    assert report["sharded"] == [0, 1, -1]
     assert report["modules"] == []
 
 
@@ -327,6 +337,8 @@ def test_no_file_of_the_port_imports_jax_or_reference():
                           f"{name}" for name in names if _forbidden(name)]
     assert len(seen) > 20
     assert {"pivot_tpu_torch/ops/tickloop.py", "chip_smoke.py",
+            "pivot_tpu_torch/ops/shard.py",
+            "pivot_tpu_torch/parallel/mesh.py",
             "pivot_tpu_torch/infra/market.py",
             "pivot_tpu_torch/sched/sensitivity.py",
             "pivot_tpu_torch/parallel/ensemble/sweeps.py",

@@ -341,8 +341,10 @@ def test_features_of_later_slices_raise(metas):
     """Spans, chunk commit and cross-run batching are ported: the device
     policies are span-capable by the reference's rule, ``phase2=8`` is
     served, and ``enable_batching`` takes a client (refusing the adaptive
-    twin, ``tests/test_torch_batch.py``).  Sharding and the fault gate
-    still raise; the resident carry (``tests/test_torch_resident.py``),
+    twin, ``tests/test_torch_batch.py``).  Host sharding is ported
+    (``tests/test_torch_shard.py``) but a mesh over several distinct
+    devices still raises, as does the fault gate; the resident carry
+    (``tests/test_torch_resident.py``),
     the dispatch profiler (``tests/test_torch_profiler.py``) and the
     degrade guard (``tests/test_torch_degrade.py``) are ported."""
     pol = pcuda.CudaCostAwarePolicy(device="cpu")
@@ -361,9 +363,14 @@ def test_features_of_later_slices_raise(metas):
     with pytest.raises(ValueError, match="adaptive"):
         pcuda.CudaCostAwarePolicy(device="cpu",
                                   adaptive=True).enable_batching(object())
-    for attach in (pol.enable_sharding, pol.enable_fault_gate):
+    from pivot_tpu_torch.parallel.mesh import host_sharded_mesh
+
+    two_devices = host_sharded_mesh(
+        devices=[torch.device("cpu"), torch.device("meta")])
+    for attach, arg in ((pol.enable_sharding, two_devices),
+                        (pol.enable_fault_gate, None)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            attach(None)
+            attach(arg)
     prof = object()
     pol.enable_profiler(prof)
     assert pol._profiler is prof

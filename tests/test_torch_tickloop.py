@@ -273,9 +273,9 @@ def test_span_reads_nothing_from_the_device(config):
 # -- DES parity ----------------------------------------------------------------
 
 
-def _port_full_sim(policy_fn, fuse, n_apps=3):
+def _port_full_sim(policy_fn, fuse, n_apps=3, n_hosts=4, cpus=4.0):
     """``tests/test_tickloop.py::_run_full_sim`` (without chaos) from the
-    port's own modules."""
+    port's own modules (``n_hosts``, ``cpus``: ``_build_cluster``'s)."""
     from pivot_tpu_torch.des import Environment
     from pivot_tpu_torch.infra import Cluster, Host, Storage
     from pivot_tpu_torch.infra.locality import ResourceMetadata
@@ -289,8 +289,8 @@ def _port_full_sim(policy_fn, fuse, n_apps=3):
     meta = ResourceMetadata(seed=0)
     meter = Meter(env, meta)
     zones = meta.zones
-    hosts = [Host(env, 4.0, 1024, 100, 1, locality=zones[i % 2], meter=meter,
-                  id=f"h{i}") for i in range(4)]
+    hosts = [Host(env, cpus, 1024, 100, 1, locality=zones[i % 2], meter=meter,
+                  id=f"h{i}") for i in range(n_hosts)]
     storage = [Storage(env, z) for z in dict.fromkeys(h.locality
                                                       for h in hosts)]
     cluster = Cluster(env, hosts=hosts, storage=storage, meta=meta,
