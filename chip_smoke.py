@@ -13,8 +13,11 @@
     python3 chip_smoke.py --phases 14  # graftcheck, kernel budget, cost
                                        # attribution, compile check, worker
     python3 chip_smoke.py --phases 15  # host sharding (ops/shard.py)
+    python3 chip_smoke.py --phases 16  # the replica axis: sharded
+                                       # ensemble, sweeps, search and the
+                                       # batcher's replica mesh
 
-One card.  ``--phases`` takes a comma list; phases 2-5 and 10-15 bring
+One card.  ``--phases`` takes a comma list; phases 2-5 and 10-16 bring
 phase 1's build along, phase 5 the runs of phases 3 and 4, phase 13
 phase 3's run (its python-fabric arms are what the native fabric is held
 against).
@@ -314,6 +317,29 @@ Phases, each fatal on failure:
      byte-equal to the unsharded run's (Cost-Aware with
      ``use_kernel=False``), spans engaged, no ``greedy_place`` launch
      (counts zeroed just before each run and read just after).
+ 16. the replica axis on the card (``parallel/mesh.py::replica_mesh``
+     naming the card S times: S logical replica shards): (a)
+     ``sharded_rollout`` over 4 shards at the ``ensemble`` defaults
+     (600 hosts x 50 apps, R = 1024, cost-aware), every field bit-equal
+     to the unsharded rollout (phase 6 (a)'s CLI run), the tick loop's
+     wall of each; (b) the same over R = 64 with ``--faults 4
+     --fault-mttr 300`` at 25 apps (phase 7 (b)'s command) against the
+     unsharded ``rollout`` (the contracted fault draw); (c) ``search
+     --backend sharded_rollout`` on the README quickstart through the
+     CLI, its report equal to phase 8's ``rollout`` backend's, and
+     ``evaluate_rows(backend="sharded_rollout")`` over 4 shards on phase
+     8's 10,240-row population, scores bit-equal; (d) phase 7 (b)'s
+     ``capacity`` command with its sweep ``shard_sweep(capacity_sweep,
+     force_mesh=True)`` over 4 shards, the summary equal to phase 7's;
+     (e) ``overall --batch-runs 4`` on phase 11 (b)'s grid with each
+     lock-step grid's batcher on ``replica_mesh(devices=[cuda:0] * 2)``:
+     files byte-equal to phase 11's meshless grid, flushes on the mesh
+     and the fallbacks counted by cause, every per-row ``greedy_place``
+     launch held against ``cost_aware_plain_rows`` (counts zeroed just
+     before the run and read just after).  (a)-(d) launch no
+     ``greedy_place``; (b) and (d) run in the card pool of phases 6-9
+     when one of phases 6, 7 and 9 runs, and a referent of a phase not
+     run is run here.
 
 The CPU sides of the card-vs-CPU checks of phases 6 (b) and (d), 7 (c),
 8 (c) and 9 (c) run in one spawned worker process a phase
@@ -327,10 +353,10 @@ kernel failure: no failure is served by the numpy twin unseen.
 
 Each phase logs its wall.  The line before the last is a JSON
 ``kernels`` record (its ``launches`` split into the R = 1 launches of
-phases 3, 4, 10-14, the R = 256 launches of phase 4, the R = 4 launches
-of phase 14 and the per-row launches of phases 10-14, with the per-row
-form's times; phase 15's path launches none, its comparison launch
-apart; a number
+phases 3, 4, 10-14 and 16, the R = 256 launches of phase 4, the R = 4
+launches of phase 14 and the per-row launches of phases 10-14 and 16,
+with the per-row form's times; phase 15's path launches none, its
+comparison launch apart; a number
 of a phase not run is null); the
 last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
@@ -1798,6 +1824,12 @@ def card_pool_jobs(phases) -> dict:
     if 7 in phases:
         jobs.update({(7, "fixture", n): (sw_fixture_run, n)
                      for n in sw_cases() if n.startswith("fault__")})
+    if 16 in phases and phases & {6, 7, 9}:
+        # Phase 16's untimed runs; the first of phases 6, 7 and 9 waits
+        # for them before it times anything.
+        jobs.update({(16, "faults", sharded): (p16_faults, sharded)
+                     for sharded in (True, False)})
+        jobs[16, "capacity"] = (p16_capacity,)
     if 9 in phases:
         jobs[9, "resume", True] = (cg_resume_run, True)
         jobs[9, "resume", False] = (cg_resume_run, False)
@@ -2127,6 +2159,10 @@ def _phase_ensemble(device, cli, ck, rollout, out, args, on_card, kw, key,
                 prefix_max_rel=worst)
             out["arms"][arm] = row
             out["makespan_" + arm] = got["makespan"]  # for phase 7
+            if arm == "cost-aware":  # phase 16 (a)'s referent
+                out["rollout_" + arm] = dict(
+                    arrays=got, loop_wall_s=st["wall_s"],
+                    event_span_ms=st["event_span_ms"], ticks=st["ticks"])
             log(f"  (a) {arm} R={ENS_REPLICAS} through the CLI on the card: "
                 f"wall {row['wall_s']!r} s, "
                 f"{row['replica_rollouts_per_sec']!r} replica rollouts/s; "
@@ -2495,6 +2531,8 @@ def _phase_sweeps(device, ens, cli, ck, out, cpu_c, pool):
                        event_span_ms=st["event_span_ms"],
                        peak_mem_bytes=peak, best=best)
             out["runs"][label] = row
+            if label in P16_FROM_PHASE_7:
+                out["summary_" + label] = summary  # phase 16's referents
             log(f"  (b) {label} ({rollouts} rollouts) through the CLI: wall "
                 f"{row['wall_s']!r} s, {row['rollouts_per_s']!r} rollouts/s;"
                 f" {row['ticks']} ticks, {row['place_steps']} placement "
@@ -2981,6 +3019,7 @@ def _phase_search(device, cpu_check):
             if rows == SR_MAIN[-1][1]:
                 big = next(c for c in calls if c["rows"] == rows)
             del calls
+        out["quickstart_report"] = reports[SR_MAIN[0][0]]  # for phase 16
         if reports["3 ci_seed.json"] != reports["3 ci_seed.json again"]:
             raise AssertionError("(b) the two ci_seed.json reports differ")
         log("  (b) the two ci_seed.json reports are equal")
@@ -3002,6 +3041,9 @@ def _phase_search(device, cpu_check):
     log(f"  (b) candidates {SR_PICK} of the {big['rows']}-row population, "
         f"run alone at its key ({len(SR_PICK)} x R={R}, {alone_s!r} s): "
         f"rows equal, egress / scores largest rel diff {worst!r}")
+    # Phase 16 (c) holds the sharded backend against this call.
+    out["population"] = {k: big[k] for k in ("weights", "env", "key",
+                                             "scores", "rows")}
     del big
 
     key = prng.fold_in(prng.PRNGKey(SR_CHECK["seed"]), 0)
@@ -3932,6 +3974,43 @@ class RowsTap:
         return [f["ev"][0].elapsed_time(f["ev"][1]) for f in self.flushes]
 
 
+class R1Tap:
+    """While active: every shared-stream launch
+    (``cuda_kernels.cost_aware_cuda_batched``; each R = 1
+    ``cost_aware_cuda`` call, a span tick's included, goes through it)
+    keeps clones of its operands and outputs (queued on the stream: no
+    sync), held against ``cost_aware_plain_batched`` by :meth:`hold`."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from pivot_tpu_torch.ops import cuda_kernels as ck
+
+        self.ck, self.fn = ck, ck.cost_aware_cuda_batched
+
+        def batched(*a, **k):
+            out = self.fn(*a, **k)
+            self.calls.append((_clone(a), _clone(k), _clone(out)))
+            return out
+
+        ck.cost_aware_cuda_batched = batched
+        return self
+
+    def __exit__(self, *exc):
+        self.ck.cost_aware_cuda_batched = self.fn
+
+    def hold(self, chk, launches, what) -> None:
+        """Each recorded launch against its plain version; ``launches``,
+        the run's ``LAUNCHES_BY_REPLICAS``, must count them all."""
+        if len(self.calls) != sum(launches.values()):
+            raise AssertionError(f"{what}: {len(self.calls)} shared-stream "
+                                 f"launches recorded of {launches}")
+        for i, (a, k, got) in enumerate(self.calls):
+            chk.same(got, self.ck.cost_aware_plain_batched(*a, **k),
+                     (what, "r1", i))
+
+
 def _dispatch_spans(batch, tickloop, device, reqs):
     """Co-pending span requests, one client thread each, through a ragged
     ``DispatchBatcher`` on ``device``; returns (results, stats)."""
@@ -4186,7 +4265,7 @@ def p11_lockstep(device, n_hosts=600, apps=P11_APPS,
             runner.run_grid_lockstep = run_grid_lockstep
             batch.batch_execute = batch_execute
             try:
-                with RowsTap(sync_debug=False) as tap:
+                with RowsTap(sync_debug=False) as tap, R1Tap() as r1:
                     ck.reset_launches()  # the path's count starts here
                     t0 = time.perf_counter()
                     exp_dir, sums = cli.run_overall(cli.parse_args(argv),
@@ -4203,6 +4282,8 @@ def p11_lockstep(device, n_hosts=600, apps=P11_APPS,
             for i, (a, kw, got) in enumerate(tap.calls):
                 chk.same(got, ck.cost_aware_plain_rows(*a, **kw),
                          ("lockstep", i))
+            r1.hold(chk, launches["by_replicas"], name)
+            del r1
             res[name] = dict(
                 dir=exp_dir, wall=wall, launches=launches, chunks=chunks,
                 tick_groups=len(groups["ticks"]),
@@ -4212,18 +4293,10 @@ def p11_lockstep(device, n_hosts=600, apps=P11_APPS,
                 span_ms=sum(tap.flush_ms()),
                 arms={s["label"] + "/" + str(i // 3): s["wall_clock"]
                       for i, s in enumerate(sums)})
-        names = sorted(os.listdir(os.path.join(res["sequential"]["dir"],
-                                               "data")))
-        differ = []
-        for sub in names:
-            for arm in ARMS:
-                for f in ("general.json", "transfers.json", "scheduler.json",
-                          "host_usage.json"):
-                    paths = [os.path.join(res[n]["dir"], "data", sub, arm, f)
-                             for n in ("lockstep", "sequential")]
-                    with open(paths[0], "rb") as a, open(paths[1], "rb") as b:
-                        if a.read() != b.read():
-                            differ.append((sub, arm, f))
+        files = {n: grid_files(res[n]["dir"])
+                 for n in ("lockstep", "sequential")}
+        names = sorted({k[0] for k in files["sequential"]})
+        differ = files_differ(files["lockstep"], files["sequential"])
     lk, sq = res["lockstep"], res["sequential"]
     rows = sum(lk["launches"]["rows"].values())
     if differ or len(names) != traces:
@@ -4243,10 +4316,11 @@ def p11_lockstep(device, n_hosts=600, apps=P11_APPS,
     log(f"    {rows} per-row launches ({ca_ticks} coalesced Cost-Aware "
         f"ticks, {lk['span_rows_launches']} span ticks of "
         f"{lk['span_flushes']} coalesced span flushes), by G "
-        f"{lk['launches']['rows']}, each held against cost_aware_plain_rows "
-        f"(max |avail diff| {chk.max_abs_err!r}); R=1 launches "
-        f"{lk['launches']['by_replicas']} (sequential, the comparison: "
-        f"{sq['launches']['by_replicas']}); batched span driver "
+        f"{lk['launches']['rows']}, each held against cost_aware_plain_rows; "
+        f"R=1 launches {lk['launches']['by_replicas']} (sequential, the "
+        f"comparison: {sq['launches']['by_replicas']}), each held against "
+        f"cost_aware_plain (max |avail diff| {chk.max_abs_err!r}); batched "
+        f"span driver "
         f"{lk['span_ms']!r} ms on the device timeline; batcher {stats}")
     return dict(
         wall=lk["wall"], wall_sequential=sq["wall"], batcher=stats,
@@ -4258,7 +4332,29 @@ def p11_lockstep(device, n_hosts=600, apps=P11_APPS,
         r1_launches=lk["launches"]["by_replicas"].get(1, 0),
         compare_r1_launches=sq["launches"]["by_replicas"].get(1, 0),
         max_abs_err=chk.max_abs_err,
-        arm_walls=dict(lockstep=lk["arms"], sequential=sq["arms"]))
+        arm_walls=dict(lockstep=lk["arms"], sequential=sq["arms"]),
+        files=files["lockstep"])
+
+
+GRID_FILES = ("general.json", "transfers.json", "scheduler.json",
+              "host_usage.json")
+
+
+def grid_files(exp_dir) -> dict:
+    """An ``overall`` grid's output files: ``{(trace, arm, file): bytes}``."""
+    out = {}
+    for sub in sorted(os.listdir(os.path.join(exp_dir, "data"))):
+        for arm in ARMS:
+            for f in GRID_FILES:
+                with open(os.path.join(exp_dir, "data", sub, arm, f),
+                          "rb") as fh:
+                    out[sub, arm, f] = fh.read()
+    return out
+
+
+def files_differ(a: dict, b: dict) -> list:
+    """The keys whose bytes differ, or that one side lacks."""
+    return sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
 
 
 def p11_serve(device) -> dict:
@@ -6116,6 +6212,369 @@ def phase_sharding(device, ck) -> dict:
                 max_abs_err=chk.max_abs_err)
 
 
+# -- phase 16: the replica axis ---------------------------------------------
+
+#: Logical replica shards of the card: the sharded rollouts, the search
+#: population and the capacity sweep (4), the lock-step grid's batcher (2:
+#: its flushes of 2-4 runs pad to buckets of 2 and 4).
+P16_SHARDS = 4
+P16_GRID_SHARDS = 2
+#: (b) and (d) run phase 7 (b)'s commands (25 apps, cut from the
+#: ``ensemble`` default 50 for the script's 1,200 s; R = 64, ``--faults 4
+#: --fault-mttr 300``; ``capacity --host-counts 100 200 400 600``).
+P16_FROM_PHASE_7 = ("ensemble-faults cost-aware", "capacity")
+
+
+def p16_mesh(device, S):
+    from pivot_tpu_torch.parallel.mesh import replica_mesh
+
+    return replica_mesh(devices=[torch.device(device)] * S)
+
+
+def p16_argv(label) -> list:
+    return next(argv for name, _fn, argv in SW_MAIN if name == label)
+
+
+def p16_faults(device, sharded):
+    """(b): the ``ensemble --replicas 64 --faults 4 --fault-mttr 300``
+    rollout (25 apps) sharded over ``P16_SHARDS`` logical shards, or the
+    unsharded ``rollout`` (the contracted fault draw, as the sharded
+    program draws it): ``(result, seconds, ticks)``."""
+    import functools
+
+    from pivot_tpu_torch.experiments import cli
+    from pivot_tpu_torch.parallel.ensemble import (
+        prng,
+        rollout,
+        sharded_rollout,
+    )
+
+    args = cli.parse_args(ensemble_argv("unused", *p16_argv(
+        P16_FROM_PHASE_7[0])[1:]))
+    _a, inputs = ensemble_inputs(cli, device, n_apps=args.num_apps)
+    fn = (functools.partial(sharded_rollout, p16_mesh(device, P16_SHARDS))
+          if sharded else rollout)
+    st = {}
+    t0 = time.perf_counter()
+    res = _result(fn(
+        prng.PRNGKey(args.seed), *inputs, n_replicas=args.replicas,
+        tick=args.tick, max_ticks=args.max_ticks, perturb=args.perturb,
+        n_faults=args.faults, fault_horizon=args.fault_horizon,
+        mttr=args.fault_mttr, policy=args.policy,
+        tick_order=args.tick_order, stats=st))
+    return res, time.perf_counter() - t0, st["ticks"]
+
+
+def p16_capacity(device):
+    """(d): phase 7 (b)'s ``capacity`` command through the CLI, its sweep
+    ``shard_sweep(capacity_sweep, force_mesh=True)`` over ``P16_SHARDS``
+    logical shards of the card: ``(summary, ticks, the sweep's type)``."""
+    from pivot_tpu_torch.experiments import cli
+    from pivot_tpu_torch.parallel.ensemble import shard_sweep
+
+    routed = []
+
+    def sharded(sweep_fn, _device, **static_kw):
+        fn = shard_sweep(sweep_fn, force_mesh=True, devices=[
+            torch.device(device)] * P16_SHARDS, **static_kw)
+        routed.append(type(fn).__name__)
+        return fn
+
+    st = {}
+    orig, cli._maybe_shard_sweep = cli._maybe_shard_sweep, sharded
+    try:
+        with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+            summary = cli.run_capacity(cli.parse_args(
+                ["--job-dir", "data/jobs", "--output-dir", tmp,
+                 *p16_argv(P16_FROM_PHASE_7[1])]), stats=st)
+    finally:
+        cli._maybe_shard_sweep = orig
+    return summary, st["ticks"], routed
+
+
+def p16_same(got: dict, want: dict, what) -> None:
+    """Every field two rollout results share equal bit for bit (the same
+    program on the same card: the egress bill too).  The CLI's
+    ``rollout.npz`` has all but ``n_unfinished``."""
+    shared = [f for f in ENS_FIELDS if f in got and f in want]
+    if len(shared) < len(ENS_FIELDS) - 1:
+        raise AssertionError(f"{what}: only {shared} to compare")
+    for f in shared:
+        g, w = np.asarray(got[f]), np.asarray(want[f])
+        if g.shape != w.shape or not np.array_equal(g, w):
+            raise AssertionError(f"{what}: {f} differs")
+
+
+def p16_rollout(device, sharded, args, on_card):
+    """(a)'s rollout at the ``ensemble`` defaults, R = 1024, cost-aware:
+    sharded over ``P16_SHARDS`` logical shards or not.  Returns the
+    arrays and the tick loop's counts (``rollout``'s ``stats``)."""
+    import functools
+
+    from pivot_tpu_torch.parallel.ensemble import (
+        prng,
+        rollout,
+        sharded_rollout,
+    )
+
+    fn = (functools.partial(sharded_rollout, p16_mesh(device, P16_SHARDS))
+          if sharded else rollout)
+    st = {}
+    torch.cuda.synchronize()
+    res = _result(fn(
+        prng.PRNGKey(args.seed), *on_card, n_replicas=ENS_REPLICAS,
+        tick=args.tick, max_ticks=args.max_ticks, perturb=args.perturb,
+        policy="cost-aware", tick_order=args.tick_order, stats=st))
+    return dict(arrays=res, loop_wall_s=st["wall_s"],
+                event_span_ms=st.get("event_span_ms"), ticks=st["ticks"])
+
+
+def p16_without_backend(report) -> dict:
+    """A search report with its backend names taken out."""
+    report = json.loads(json.dumps(report))
+    for section in ("config", "search"):
+        report[section].pop("backend")
+    return report
+
+
+def p16_search(device, refs) -> dict:
+    """(c): the README quickstart with ``--backend sharded_rollout``
+    through the CLI (one card: a mesh of one shard) against phase 8's
+    report, and the 10,240-row population over ``P16_SHARDS`` logical
+    shards against phase 8's scores."""
+    from pivot_tpu_torch.experiments import cli
+    from pivot_tpu_torch.search import fitness as F
+
+    label, _rows, argv = SR_MAIN[0]
+    out = {}
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        path = os.path.join(tmp, "report.json")
+        want = refs.get("quickstart")
+        if want is None:
+            want, _row, _calls = sr_cli_run(cli, F, argv, path)
+        got, row, _calls = sr_cli_run(
+            cli, F, [*argv, "--backend", "sharded_rollout"], path)
+        if p16_without_backend(got) != p16_without_backend(want):
+            raise AssertionError("(c) the sharded backend's quickstart "
+                                 "report differs from the rollout backend's")
+        pop = refs.get("population")
+        if pop is None:
+            _report, _row, calls = sr_cli_run(cli, F, SR_MAIN[-1][2], path)
+            pop = next(c for c in calls if c["rows"] == SR_MAIN[-1][1])
+            del calls
+    out["quickstart"] = dict(wall_s=row["wall_s"],
+                             generations_per_s=row["generations_per_s"],
+                             best_score=row["best_score"])
+    log(f"  (c) {label} with --backend sharded_rollout through the CLI (a "
+        f"mesh of the one visible card): the report equals the rollout "
+        f"backend's ({'phase 8' if 'quickstart' in refs else 'run here'}); "
+        f"wall {row['wall_s']!r} s, {row['generations_per_s']!r} "
+        f"generations/s")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores, details = F.evaluate_rows(
+        pop["weights"], pop["env"], key=pop["key"],
+        backend="sharded_rollout", mesh=p16_mesh(device, P16_SHARDS))
+    wall = time.perf_counter() - t0
+    if not np.array_equal(scores, pop["scores"]):
+        raise AssertionError("(c) the sharded population's scores differ "
+                             "from the rollout backend's")
+    if details["n_rows"] != pop["rows"]:
+        raise AssertionError(f"(c) {details['n_rows']} rows, not "
+                             f"{pop['rows']}")
+    out["population"] = dict(rows=pop["rows"], wall_s=wall)
+    log(f"  (c) the {pop['rows']}-row population (generation 0 of phase 8's "
+        f"run{'' if 'population' in refs else ', run here'}) through "
+        f"evaluate_rows(backend='sharded_rollout') over {P16_SHARDS} "
+        f"logical shards: scores equal the rollout backend's bit for bit; "
+        f"{wall!r} s")
+    return out
+
+
+def p16_grid(device, ck, mesh, tmp, chk) -> dict:
+    """(e): ``overall --batch-runs 4`` on phase 11 (b)'s grid through the
+    CLI, each lock-step grid's batcher on ``mesh`` (None: the meshless
+    grid).  The launch counts are zeroed just before the run and read
+    just after; every per-row launch is held against
+    ``cost_aware_plain_rows``, every R = 1 launch against
+    ``cost_aware_plain``."""
+    from pivot_tpu_torch.experiments import cli, runner
+
+    argv = ["--device", "cuda", "--num-hosts", "600", "--job-dir",
+            "data/jobs", "--output-dir", tmp, "--seed", "0", "--trace-limit",
+            str(P11_TRACES), "--batch-runs", "4", "overall", "--num-apps",
+            str(P11_APPS)]
+    chunks, lock = [], runner.run_grid_lockstep
+
+    def run_grid_lockstep(runs, stats_out=None):
+        stats = {}
+        out = lock(runs, stats_out=stats, mesh=mesh)
+        chunks.append(stats)
+        if stats_out is not None:
+            stats_out.update(stats)
+        return out
+
+    runner.run_grid_lockstep = run_grid_lockstep
+    try:
+        with RowsTap(sync_debug=False) as tap, R1Tap() as r1:
+            ck.reset_launches()  # the path's count starts here
+            t0 = time.perf_counter()
+            exp_dir, _sums = cli.run_overall(cli.parse_args(argv),
+                                             torch_device=device)
+            wall = time.perf_counter() - t0
+            launches = dict(rows=dict(ck.LAUNCHES_ROWS),
+                            by_replicas=dict(ck.LAUNCHES_BY_REPLICAS))
+    finally:
+        runner.run_grid_lockstep = lock
+    if len(tap.calls) != sum(launches["rows"].values()):
+        raise AssertionError(f"(e) {len(tap.calls)} per-row launches "
+                             f"recorded of {launches}")
+    for i, (a, kw, got) in enumerate(tap.calls):
+        chk.same(got, ck.cost_aware_plain_rows(*a, **kw), ("(e)", i))
+    r1.hold(chk, launches["by_replicas"], "(e)")
+    stats = {k: sum(c.get(k, 0) for c in chunks) for k in (
+        "dispatches", "device_calls", "coalesced", "mesh_dispatches",
+        "mesh_fallbacks", "mesh_fallback_unshardable",
+        "mesh_fallback_mixed_shapes", "mesh_fallback_indivisible")}
+    return dict(files=grid_files(exp_dir), wall=wall, launches=launches,
+                batcher=stats)
+
+
+def phase_replica_axis(device, ck, refs) -> dict:
+    """Phase 16 (module docstring).  ``refs``: the referents the earlier
+    phases left (``p16_refs``); what is missing is run here.  Returns its
+    record."""
+    from pivot_tpu_torch.experiments import cli
+
+    card = card_line()
+    log(f"  [{card}]")
+    chk = Check()
+    rec = {}
+    ck.reset_launches()  # (a)-(d) launch no greedy_place
+
+    # (a) the sharded rollout at the ensemble defaults, R = 1024.
+    t0 = time.perf_counter()
+    args, on_card = ensemble_inputs(cli, device)
+    want = refs.get("ensemble") or p16_rollout(device, False, args, on_card)
+    got = p16_rollout(device, True, args, on_card)
+    p16_same(got["arrays"], want["arrays"], "(a) sharded vs unsharded")
+    if got["arrays"]["n_unfinished"].max() != 0:
+        raise AssertionError("(a) tasks unfinished at the horizon")
+    rec["a"] = {k: {f: r[f] for f in ("loop_wall_s", "event_span_ms",
+                                      "ticks")}
+                for k, r in (("sharded", got), ("unsharded", want))}
+    ratio = got["loop_wall_s"] / want["loop_wall_s"]
+    rec["a"]["wall_ratio"] = ratio
+    log(f"  (a) sharded_rollout over {P16_SHARDS} logical shards, "
+        f"cost-aware R={ENS_REPLICAS} at the ensemble defaults (T="
+        f"{on_card[1].n_tasks}, H={on_card[0].shape[0]}): every field equals "
+        f"the unsharded rollout's bit for bit "
+        f"({'phase 6 (a)' if 'ensemble' in refs else 'run here'}); tick "
+        f"loop {got['loop_wall_s']!r} s sharded vs {want['loop_wall_s']!r} "
+        f"s unsharded ({ratio!r}x), {got['event_span_ms']!r} / "
+        f"{want['event_span_ms']!r} ms between CUDA events, {got['ticks']} "
+        f"/ {want['ticks']} ticks")
+    del got, want
+    log(f"  (a): {time.perf_counter() - t0!r} s")
+
+    # (b) faults with an mttr, R = 64: the contracted draw.
+    t0 = time.perf_counter()
+    runs = {s: refs.get(("faults", s)) or p16_faults(device, s)
+            for s in (True, False)}
+    (sh, sh_s, sh_t), (un, un_s, un_t) = runs[True], runs[False]
+    p16_same(sh, un, "(b) sharded vs unsharded, faults with an mttr")
+    if not np.isfinite(sh["makespan"]).all():
+        raise AssertionError("(b) non-finite makespans")
+    rec["b"] = dict(sharded_s=sh_s, unsharded_s=un_s, ticks=sh_t,
+                    in_pool=("faults", True) in refs)
+    cli_eager = refs.get(P16_FROM_PHASE_7[0])
+    eager = None
+    if cli_eager is not None:
+        eager = cli_eager["makespan_mean"] == float(sh["makespan"].mean())
+        rec["b"]["equals_phase7_cli"] = eager
+    log(f"  (b) sharded_rollout, R=64, --faults 4 --fault-mttr 300, 25 apps "
+        f"over {P16_SHARDS} logical shards: every field equals the unsharded "
+        f"rollout's (the contracted fault draw) bit for bit; {sh_t} ticks; "
+        f"{sh_s!r} s sharded, {un_s!r} s unsharded"
+        + (" (in the card pool)" if rec["b"]["in_pool"] else "")
+        + ("" if eager is None else f"; makespan mean equal to phase 7 "
+           f"(b)'s CLI run (the eager draw): {eager}"))
+    log(f"  (b): {time.perf_counter() - t0!r} s")
+
+    # (c) the search's sharded backend.
+    t0 = time.perf_counter()
+    rec["c"] = p16_search(device, refs)
+    log(f"  (c): {time.perf_counter() - t0!r} s")
+
+    # (d) the capacity sweep, sharded.
+    t0 = time.perf_counter()
+    summary, ticks, routed = (refs.get(("capacity",))
+                              or p16_capacity(device))
+    want = refs.get(P16_FROM_PHASE_7[1])
+    if want is None:
+        with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+            want = cli.run_capacity(cli.parse_args(
+                ["--job-dir", "data/jobs", "--output-dir", tmp,
+                 *p16_argv(P16_FROM_PHASE_7[1])]))
+    if routed != ["_ShardedSweep"]:
+        raise AssertionError(f"(d) the capacity sweep was not sharded: "
+                             f"{routed}")
+    drop = ("wall_s",)
+    if ({k: v for k, v in summary.items() if k not in drop}
+            != {k: v for k, v in want.items() if k not in drop}):
+        raise AssertionError("(d) the sharded capacity sweep's summary "
+                             "differs from phase 7's")
+    rec["d"] = dict(wall_s=summary["wall_s"], ticks=ticks,
+                    in_pool=("capacity",) in refs)
+    log(f"  (d) shard_sweep(capacity_sweep, force_mesh=True) over "
+        f"{P16_SHARDS} logical shards through the capacity CLI (--faults 4 "
+        f"--fault-mttr 300, 25 apps, {summary['rollouts']} rollouts): the "
+        f"summary equals phase 7 (b)'s unsharded one; {summary['wall_s']!r} "
+        f"s, {ticks} ticks"
+        + (" (in the card pool)" if rec["d"]["in_pool"] else ""))
+    if ck.LAUNCHES["greedy_place"]:
+        raise AssertionError("(a)-(d) launched greedy_place")
+    log(f"  (d): {time.perf_counter() - t0!r} s")
+
+    # (e) the lock-step grid on the batcher's replica mesh.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        ref = refs.get("grid")
+        if ref is None:
+            ref = p16_grid(device, ck, None, os.path.join(tmp, "plain"),
+                           Check())["files"]
+        grid = p16_grid(device, ck, p16_mesh(device, P16_GRID_SHARDS),
+                        os.path.join(tmp, "mesh"), chk)
+    differ = files_differ(grid["files"], ref)
+    n_traces = len({k[0] for k in ref})
+    if differ or n_traces != P11_TRACES:
+        raise AssertionError(f"(e) files differ from the meshless grid: "
+                             f"{differ[:6]} ({n_traces} traces)")
+    st, launches = grid["batcher"], grid["launches"]
+    rows = sum(launches["rows"].values())
+    if not st["mesh_dispatches"] or not rows:
+        raise AssertionError(f"(e) nothing rode the mesh: {st}, {launches}")
+    if st["mesh_fallbacks"] != sum(st[f"mesh_fallback_{c}"] for c in (
+            "unshardable", "mixed_shapes", "indivisible")):
+        raise AssertionError(f"(e) the fallback causes do not add up: {st}")
+    rec["e"] = dict(wall=grid["wall"], batcher=st, launches=launches)
+    log(f"  (e) overall --batch-runs 4, {P11_TRACES} traces x 3 arms x "
+        f"{P11_APPS} apps at 600 hosts, each lock-step grid's batcher on "
+        f"replica_mesh(devices=[cuda:0] * {P16_GRID_SHARDS}): files "
+        f"byte-identical to the meshless grid "
+        f"({'phase 11 (b)' if 'grid' in refs else 'run here'}); wall "
+        f"{grid['wall']!r} s; batcher {st}; {rows} per-row launches by G "
+        f"{launches['rows']}, each held against cost_aware_plain_rows; R=1 "
+        f"launches {launches['by_replicas']}, each held against "
+        f"cost_aware_plain (max |avail diff| {chk.max_abs_err!r})")
+    log(f"  (e): {time.perf_counter() - t0!r} s")
+    rec["launches_r1"] = launches["by_replicas"].get(1, 0)
+    rec["launches_rows_by_g"] = launches["rows"]
+    rec["launches_rows"] = rows
+    rec["max_abs_err"] = chk.max_abs_err
+    return rec
+
+
 def phase_5_report(ck, e2e, sens, card, device):
     """Phase 5: times on the card (the main path's wrapper, bare launches,
     the warp sweep, the gated R = 256 launches) and the reports of
@@ -6212,11 +6671,11 @@ def phase_5_report(ck, e2e, sens, card, device):
     return times, gt, spans
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16)
 
 
 def selected_phases(argv) -> set:
-    """``--phases 1,6,7`` (default: all).  Phases 2-5 and 10-15 need
+    """``--phases 1,6,7`` (default: all).  Phases 2-5 and 10-16 need
     phase 1's build (phase 14 its ``ptxas`` rows too), phase 5 the runs
     of phases 3 and 4, phase 13 the python-fabric run of phase 3: they
     come along."""
@@ -6232,17 +6691,18 @@ def selected_phases(argv) -> set:
         want |= {3, 4}
     if 13 in want:
         want.add(3)
-    if want & {2, 3, 4, 5, 10, 11, 12, 13, 14, 15}:
+    if want & {2, 3, 4, 5, 10, 11, 12, 13, 14, 15, 16}:
         want.add(1)
     return want
 
 
-def phases_6_to_9(phases, device, card, census, walls):
+def phases_6_to_9(phases, device, card, census, walls, p16):
     """Phases 6-9 of ``main`` (those selected), sharing one
     ``side_workers``: the CPU sides of their checks on one worker, and
     their untimed card runs in a ``CardPool`` that the first of them
     waits for before it times anything.  Their reports (None for a phase
-    not run)."""
+    not run); ``p16`` gains phase 16's referents from them and its runs
+    from the pool (``p16_refs``' keys)."""
     ens_mk = ens = sweeps = search = congestion = None
     with side_workers(phases, device) as (pool, cpu):
         if 6 in phases:
@@ -6288,6 +6748,14 @@ def phases_6_to_9(phases, device, card, census, walls):
             walls[9] = time.perf_counter() - tp
             census_line(census, 9)
             log(f"  phase 9 wall: {walls[9]!r} s")
+        p16.update({k[1:]: v for k, v in pool.results.items() if k[0] == 16})
+    if ens is not None:
+        p16["ensemble"] = ens.pop("rollout_cost-aware")
+    if sweeps is not None:
+        p16.update({k: sweeps.pop("summary_" + k) for k in P16_FROM_PHASE_7})
+    if search is not None:
+        p16["quickstart"] = search.pop("quickstart_report")
+        p16["population"] = search.pop("population")
     return ens, sweeps, search, congestion
 
 
@@ -6384,9 +6852,10 @@ def main(argv=None) -> int:
         census_line(census, 5)
         log(f"  phase 5 wall: {walls[5]!r} s")
     ens = sweeps = search = congestion = None
+    p16_refs = {}  # phase 16's referents from phases 6-9 and 11
     if phases & {6, 7, 8, 9}:
         ens, sweeps, search, congestion = phases_6_to_9(
-            phases, device, card, census, walls)
+            phases, device, card, census, walls, p16_refs)
     serve = rows = None
     if 10 in phases:
         tp = time.perf_counter()
@@ -6409,6 +6878,7 @@ def main(argv=None) -> int:
             f"grid ({P11_TRACES} traces x {P11_APPS} apps, 600 hosts) and "
             "the serve span commands through the CLI")
         batching = phase_batching(device)
+        p16_refs["grid"] = batching["lockstep"].pop("files")
         walls[11] = time.perf_counter() - tp
         census_line(census, 11)
         log(f"  phase 11 wall: {walls[11]!r} s")
@@ -6456,6 +6926,19 @@ def main(argv=None) -> int:
         walls[15] = time.perf_counter() - tp
         census_line(census, 15)
         log(f"  phase 15 wall: {walls[15]!r} s")
+    p16 = None
+    if 16 in phases:
+        tp = time.perf_counter()
+        log(f"== 16. the replica axis on the card: sharded_rollout over "
+            f"{P16_SHARDS} logical shards (R={ENS_REPLICAS}; R=64 with "
+            f"faults), search --backend sharded_rollout and the "
+            f"{SR_MAIN[-1][1]}-row population, the sharded capacity sweep, "
+            f"the lock-step grid on the batcher's replica mesh")
+        p16 = phase_replica_axis(device, ck, p16_refs)
+        del p16_refs
+        walls[16] = time.perf_counter() - tp
+        census_line(census, 16)
+        log(f"  phase 16 wall: {walls[16]!r} s")
     if configs is not None:
         configs.uninstall()
     if oneshot is not None:
@@ -6468,7 +6951,7 @@ def main(argv=None) -> int:
         "tooling": p14 and {k: v for k, v in p14.items()
                             if k not in ("costattr",)},
         "cost_attribution": p14 and p14["costattr"]["rows"],
-        "sharding": p15,
+        "sharding": p15, "replica_axis": p16,
         "phase_walls": walls,
         "same_files": e2e and e2e["same_files"], "gated_times": gt,
         "sensitivity": sens and {p: {k: v for k, v in r.items()
@@ -6494,6 +6977,8 @@ def main(argv=None) -> int:
         errs.append(p14["max_abs_err"])
     if p15 is not None:
         errs.append(p15["max_abs_err"])
+    if p16 is not None:
+        errs.append(p16["max_abs_err"])
     sv = serve and [serve[k]["launches"] for k in SERVE_RUNS]
     sv_rows = sv and sum(sum(x["rows"].values()) for x in sv)
     sv_r1 = sv and sum(x["by_replicas"].get(1, 0) for x in sv)
@@ -6507,37 +6992,42 @@ def main(argv=None) -> int:
     n_rows = p13 and p13["launches_rows"]
     t_r1 = p14 and p14["launches_r1"]
     t_rows = p14 and p14["launches_rows"]
+    r_r1 = p16 and p16["launches_r1"]
+    r_rows = p16 and p16["launches_rows"]
     record = {"kernels": [{
         "name": "greedy_place",
         "route": "cuda",
         "source": "pivot_tpu_torch/csrc/greedy_place.cu",
         "replaces": "pivot_tpu/ops/pallas_kernels.py:265",
         "launches": (e2e and ca and serve and batching and p12 and p13
-                     and p14
+                     and p14 and p16
                      and e2e["runs"]["cuda"]["launches"]
                      + sum(ca["launches"].values()) + sv_rows + sv_r1
                      + b_r1 + b_rows + m_r1 + m_rows + n_r1 + n_rows
-                     + t_r1 + p14["launches_r4"] + t_rows),
+                     + t_r1 + p14["launches_r4"] + t_rows + r_r1 + r_rows),
         "launches_r1": (e2e and ca and serve and batching and p12 and p13
-                        and p14
+                        and p14 and p16
                         and e2e["runs"]["cuda"]["launches"]
                         + ca["launches"][1] + sv_r1 + b_r1 + m_r1 + n_r1
-                        + t_r1),
+                        + t_r1 + r_r1),
         f"launches_r{SENS_REPLICAS}": ca and ca["launches"][SENS_REPLICAS],
         "launches_r4": p14 and p14["launches_r4"],
-        "launches_rows": serve and batching and p12 and p13 and p14
-        and sv_rows + b_rows + m_rows + n_rows + t_rows,
-        "launches_rows_by_g": sv and batching and p12 and p13 and p14 and {
+        "launches_rows": serve and batching and p12 and p13 and p14 and p16
+        and sv_rows + b_rows + m_rows + n_rows + t_rows + r_rows,
+        "launches_rows_by_g": sv and batching and p12 and p13 and p14
+        and p16 and {
             g: sum(x["rows"].get(g, 0) for x in sv)
             + batching["launches_rows_by_g"].get(g, 0)
             + p12["launches_rows_by_g"].get(g, 0)
             + p13["launches_rows_by_g"].get(g, 0)
             + p14["launches_rows_by_g"].get(g, 0)
+            + p16["launches_rows_by_g"].get(g, 0)
             for g in sorted({g for x in sv for g in x["rows"]}
                             | set(batching["launches_rows_by_g"])
                             | set(p12["launches_rows_by_g"])
                             | set(p13["launches_rows_by_g"])
-                            | set(p14["launches_rows_by_g"]))},
+                            | set(p14["launches_rows_by_g"])
+                            | set(p16["launches_rows_by_g"]))},
         "phase11_launches_r1": b_r1,
         "phase11_launches_rows": b_rows,
         "phase11_compare_launches_r1": batching
@@ -6553,6 +7043,8 @@ def main(argv=None) -> int:
         "phase14_launches_rows": t_rows,
         "phase15_launches": p15 and p15["launches"],
         "phase15_compare_launches": p15 and p15["compare_launches"],
+        "phase16_launches_r1": r_r1,
+        "phase16_launches_rows": r_rows,
         "max_abs_err": max(errs) if errs else None,
         "ms": lt and lt["ms"],
         "plain_ms": lt and lt["plain_ms"],

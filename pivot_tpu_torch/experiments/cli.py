@@ -28,7 +28,10 @@ Port of ``pivot_tpu/experiments/cli.py``:
     (``--faults``, ``--fault-horizon``, ``--fault-mttr``), the congestion
     backlog model (``--congestion``), realtime scoring
     (``--realtime-score``) and checkpoint/resume (``--checkpoint``), and
-    the makespan distribution figure;
+    the makespan distribution figure; over a replica mesh of several
+    shards (and no ``--checkpoint``) it runs ``sharded_rollout`` — on
+    several distinct cards it runs unsharded, logged, as a mesh over
+    them is ROADMAP.md Queue 1 item 9b;
   * ``calibrate`` (``:1118``): the estimator against the exact DES on
     the first trace (``experiments/calibrate.py``), static and congested
     transfer models or ``--realtime``, over ``--des-seeds`` /
@@ -40,8 +43,10 @@ Port of ``pivot_tpu/experiments/cli.py``:
     (cost-aware score exponents, cluster sizes with optional faults,
     app counts per policy arm), each writing ``summary.json`` under
     ``<output-dir>/<name>/<stamp>/``, ``capacity`` and ``apps`` with
-    their figures.  They run unsharded, in the reference's 256-tick
-    segments;
+    their figures.  They route through ``parallel.ensemble.shard_sweep``
+    (``_maybe_shard_sweep``): on one card, the CPU or several distinct
+    cards (item 9b, logged) they run unsharded, in the reference's
+    256-tick segments;
   * ``search`` (``:484``, ``run_search_cli`` ``:1911``): the policy
     search (``experiments/search.py``): CEM or ES over scoring-weight
     vectors, each generation's ``--popsize × --replicas`` rows one batch
@@ -49,8 +54,9 @@ Port of ``pivot_tpu/experiments/cli.py``:
     preemption plan, then held-out seeds, the branch-and-bound oracle's
     regrets and, with ``--des-validate``, the exact DES
     (``experiments/spot.py``).  The report goes to stdout and ``--out``.
-    ``--backend sharded_rollout`` raises ``NotImplementedError``
-    (ROADMAP.md Queue 1 item 9d).
+    ``--backend sharded_rollout`` splits each generation's rows over a
+    replica mesh of the visible cards (one card: a mesh of one shard),
+    with the same report.
 
 ``--device`` picks the policy backend of ``overall`` / ``num-apps``:
 ``cuda`` (the default: the torch device policies, the Cost-Aware arm
@@ -553,8 +559,8 @@ def parse_args(argv=None):
     sch.add_argument("--backend", default="rollout",
                      choices=["rollout", "sharded_rollout"],
                      help="fitness backend: single-device rows, or rows "
-                          "sharded over a replica mesh (not ported yet: "
-                          "raises, ROADMAP.md Queue 1 item 9d)")
+                          "sharded over a replica mesh of the visible "
+                          "cards (bit-identical scores)")
     sch.add_argument("--bad-init", action="store_true",
                      help="start from the deliberately-bad vector (the "
                           "smoke gate's shape) instead of the hand-tuned "
@@ -1103,6 +1109,32 @@ def run_sensitivity(args, torch_device: str = "cuda",
 SWEEP_SEGMENT_TICKS = 256
 
 
+def _replica_devices(device) -> list:
+    """The devices the CLI's replica mesh spans for a run on ``device``:
+    the visible cards when it is a card (``parallel.mesh.visible_cards``,
+    ``pivot_tpu``'s ``jax.devices()``), none on the CPU (the reference
+    runs its CPU backend unsharded: a mesh of CPU "devices" shares the
+    cores)."""
+    import torch
+
+    from pivot_tpu_torch.parallel.mesh import visible_cards
+
+    return visible_cards() if torch.device(device).type == "cuda" else []
+
+
+def _maybe_shard_sweep(sweep_fn, device, **static_kw):
+    """Shard a what-if sweep over the visible cards
+    (``parallel.ensemble.shard_sweep``; ``pivot_tpu/experiments/
+    cli.py:957-968``).  One card or the CPU — or, logged, an indivisible
+    replica count or several distinct cards (a mesh over them is
+    ROADMAP.md Queue 1 item 9b) — falls back to the unsharded sweep in
+    :data:`SWEEP_SEGMENT_TICKS`-tick segments."""
+    from pivot_tpu_torch.parallel.ensemble import shard_sweep
+
+    return shard_sweep(sweep_fn, fallback_segment_ticks=SWEEP_SEGMENT_TICKS,
+                       devices=_replica_devices(device), **static_kw)
+
+
 def _fault_outages(args) -> Optional[str]:
     """``"fault outages"`` where a run draws Exp(mttr) outages (the C
     library's ``log`` in float64), else None."""
@@ -1174,14 +1206,27 @@ def _write_summary(args, name: str, summary: dict,
 def run_ensemble(args, torch_device: str = "cuda", dtype: str = "float32",
                  stats: Optional[dict] = None) -> dict:
     """BASELINE config 5: ``--replicas`` perturbed what-if replicas of a
-    trace workload, scheduled on one device.  Writes ``rollout.npz`` and
-    ``summary.json`` (the keys of ``pivot_tpu``'s) and returns the
-    summary; ``stats``, when given, gains the rollout's tick-loop counts
-    (``parallel.ensemble.rollout``).  Draws the makespan distribution
+    trace workload.  Routed as ``pivot_tpu/experiments/cli.py:1026-1066``:
+    with ``--checkpoint``, one visible card or on the CPU it runs
+    unsharded (``rollout_chunked``); over a mesh of several replica
+    shards it runs ``sharded_rollout`` on ``replica_mesh`` and ignores
+    ``--replica-chunk``, with a warning.  Several distinct cards run
+    unsharded too, logged: a mesh over them is ROADMAP.md Queue 1 item
+    9b.
+    Writes ``rollout.npz`` and ``summary.json`` (the keys of
+    ``pivot_tpu``'s) and returns the summary; ``stats``, when given,
+    gains the rollout's tick-loop counts (``parallel.ensemble.rollout``).
+    Draws the makespan distribution
     (``plots.plot_ensemble_distribution``)."""
     import numpy as np
 
-    from pivot_tpu_torch.parallel.ensemble import prng, rollout_chunked
+    from pivot_tpu_torch.ops.shard import one_device
+    from pivot_tpu_torch.parallel.ensemble import (
+        prng,
+        rollout_chunked,
+        sharded_rollout,
+    )
+    from pivot_tpu_torch.parallel.mesh import replica_mesh
 
     trace, schedule, workload, topo, avail0, storage_zones = (
         _ensemble_setup(args, torch_device, dtype,
@@ -1203,8 +1248,30 @@ def run_ensemble(args, torch_device: str = "cuda", dtype: str = "float32",
         stats=stats,
     )
     wall0 = time.perf_counter()
-    res = rollout_chunked(key, avail0, workload, topo, storage_zones,
-                          args.checkpoint, args.replica_chunk, **kw)
+    devices = _replica_devices(avail0.device)
+    single_device = bool(args.checkpoint) or len(devices) <= 1
+    if not single_device and not one_device(devices):
+        logger.info(
+            "ensemble runs unsharded: %d distinct devices (a mesh over "
+            "several cards is not ported yet: ROADMAP.md Queue 1 item 9b)",
+            len(devices))
+        single_device = True
+    replica_chunk = args.replica_chunk
+    if replica_chunk and not single_device:
+        # Chunking is a one-card working-set remedy; the sharded path
+        # already splits the replica axis over the cards.
+        logger.warning(
+            "--replica-chunk ignored: %d-device mesh takes the sharded "
+            "rollout path, which already splits replicas across chips",
+            len(devices),
+        )
+        replica_chunk = 0
+    if single_device:
+        res = rollout_chunked(key, avail0, workload, topo, storage_zones,
+                              args.checkpoint, replica_chunk, **kw)
+    else:
+        res = sharded_rollout(replica_mesh(devices=devices), key, avail0,
+                              workload, topo, storage_zones, **kw)
     mk = res.makespan.cpu().numpy()
     eg = res.egress_cost.cpu().numpy()
     ih = res.instance_hours.cpu().numpy()
@@ -1218,7 +1285,7 @@ def run_ensemble(args, torch_device: str = "cuda", dtype: str = "float32",
         "n_tasks": workload.n_tasks,
         "n_hosts": args.n_hosts,
         "replicas": args.replicas,
-        "replica_chunk": args.replica_chunk,
+        "replica_chunk": replica_chunk,
         "perturb": args.perturb,
         "policy": args.policy,
         "faults": args.faults,
@@ -1226,7 +1293,7 @@ def run_ensemble(args, torch_device: str = "cuda", dtype: str = "float32",
         "fault_mttr": args.fault_mttr,
         "congestion": args.congestion or args.realtime_scoring,
         "realtime_scoring": args.realtime_scoring,
-        "devices": 1,
+        "devices": max(len(devices), 1),
         "makespan_mean": float(mk.mean()),
         "makespan_p5": float(np.percentile(mk, 5)),
         "makespan_p95": float(np.percentile(mk, 95)),
@@ -1333,12 +1400,12 @@ def run_autotune(args, torch_device: str = "cuda", dtype: str = "float32",
     grid = np.array(grid, dtype=np.float32)  # [K, 3] (w_cost, w_bw, w_norm)
 
     wall0 = time.perf_counter()
-    res = score_param_sweep(
-        prng.PRNGKey(args.seed), avail0, workload, topo, storage_zones, grid,
-        n_replicas=args.replicas, tick=args.tick, max_ticks=args.max_ticks,
-        perturb=args.perturb, congestion=args.congestion,
-        segment_ticks=SWEEP_SEGMENT_TICKS, tick_order=args.tick_order,
-        stats=stats)
+    sweep = _maybe_shard_sweep(
+        score_param_sweep, avail0.device, n_replicas=args.replicas,
+        tick=args.tick, max_ticks=args.max_ticks, perturb=args.perturb,
+        congestion=args.congestion, tick_order=args.tick_order)
+    res = sweep(prng.PRNGKey(args.seed), avail0, workload, topo,
+                storage_zones, grid, stats=stats)
     mk, eg, _ih, unfinished = _host(res)
     wall = time.perf_counter() - wall0
     mk, eg = mk.mean(axis=1), eg.mean(axis=1)
@@ -1417,15 +1484,16 @@ def run_capacity(args, torch_device: str = "cuda", dtype: str = "float32",
     grid = capacity_grid(avail0, args.host_counts)
 
     wall0 = time.perf_counter()
-    res = capacity_sweep(
-        prng.PRNGKey(args.seed), grid, workload, topo, storage_zones,
+    sweep = _maybe_shard_sweep(
+        capacity_sweep, avail0.device,
         n_replicas=args.replicas, tick=args.tick, max_ticks=args.max_ticks,
         perturb=args.perturb, policy=args.policy,
         congestion=args.congestion or args.realtime_scoring,
         realtime_scoring=args.realtime_scoring, n_faults=args.faults,
         fault_horizon=args.fault_horizon, mttr=args.fault_mttr,
-        segment_ticks=SWEEP_SEGMENT_TICKS, tick_order=args.tick_order,
-        stats=stats)
+        tick_order=args.tick_order)
+    res = sweep(prng.PRNGKey(args.seed), grid, workload, topo,
+                storage_zones, stats=stats)
     mk, eg, ih, unfinished = _host(res)
     wall = time.perf_counter() - wall0
 
@@ -1503,12 +1571,13 @@ def run_apps(args, torch_device: str = "cuda", dtype: str = "float32",
     wall0 = time.perf_counter()
     arms = {}
     for policy in args.policies:
-        res = workload_sweep(
-            prng.PRNGKey(args.seed), avail0, workload, topo, storage_zones,
-            counts, n_replicas=args.replicas, tick=args.tick,
-            max_ticks=args.max_ticks, perturb=args.perturb, policy=policy,
-            congestion=args.congestion, segment_ticks=SWEEP_SEGMENT_TICKS,
-            tick_order=args.tick_order, stats=stats)
+        sweep = _maybe_shard_sweep(
+            workload_sweep, avail0.device, n_replicas=args.replicas,
+            tick=args.tick, max_ticks=args.max_ticks, perturb=args.perturb,
+            policy=policy, congestion=args.congestion,
+            tick_order=args.tick_order)
+        res = sweep(prng.PRNGKey(args.seed), avail0, workload, topo,
+                    storage_zones, counts, stats=stats)
         mk, eg, ih, unfinished = _host(res)
         mk_mean = _clamped_makespan(args, mk, unfinished)
         arms[policy] = [
@@ -1551,8 +1620,10 @@ def run_search_cli(args, torch_device: str = "cuda",
     written, float64 off the CPU raises (``libm.require_host``: every
     candidate rides the score-exponent pow path), ``cuda`` without a
     card raises, and TF32 matmuls are turned off (the egress bill's
-    product is not exact in TF32).  ``--backend sharded_rollout`` raises
-    ``NotImplementedError`` (ROADMAP.md Queue 1 item 9d)."""
+    product is not exact in TF32).  ``--backend sharded_rollout`` builds
+    a replica mesh over the visible cards (``pivot_tpu/experiments/
+    cli.py:1939-1946``; on the CPU a mesh of one shard) and gives the
+    ``rollout`` backend's report."""
     import torch
 
     from pivot_tpu_torch.experiments.search import (
@@ -1583,7 +1654,12 @@ def run_search_cli(args, torch_device: str = "cuda",
                  "search scores (score exponents)")
     device = resolve_device(torch_device)
     torch.backends.cuda.matmul.allow_tf32 = False
-    report = run_search_experiment(device=device,
+    mesh = None
+    if kw["backend"] == "sharded_rollout":
+        from pivot_tpu_torch.parallel.mesh import replica_mesh
+
+        mesh = replica_mesh(devices=_replica_devices(device) or [device])
+    report = run_search_experiment(device=device, mesh=mesh,
                                    dtype=getattr(torch, dtype), **kw)
     text = json.dumps(report, indent=2, sort_keys=True)
     print(text)

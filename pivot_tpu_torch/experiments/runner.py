@@ -75,7 +75,8 @@ def replay_schedule(
     scheduler.stop()
 
 
-def run_grid_lockstep(runs, stats_out: Optional[dict] = None) -> list:
+def run_grid_lockstep(runs, stats_out: Optional[dict] = None,
+                      mesh=None) -> list:
     """Advance several :class:`ExperimentRun`\\ s tick-synchronously
     through one cross-run dispatch batcher
     (``pivot_tpu/experiments/runner.py:76-199``).
@@ -99,9 +100,19 @@ def run_grid_lockstep(runs, stats_out: Optional[dict] = None) -> list:
     reference's key set: ``runs`` (0 when nothing was batchable, and
     then no other key), ``dispatches``, ``device_calls``, ``coalesced``,
     ``max_group``, ``deadline_flushes`` (always 0: the grid runs
-    quiescence-only), ``single_fast_path``, the mesh counters (0 here),
-    the ragged trio ``ragged_merges`` / ``ragged_rows`` /
-    ``ragged_pad_cells``, ``respawns`` and ``retired_slots``."""
+    quiescence-only), ``single_fast_path``, the mesh counters, the ragged
+    trio ``ragged_merges`` / ``ragged_rows`` / ``ragged_pad_cells``,
+    ``respawns`` and ``retired_slots``.
+
+    ``mesh`` (``parallel.mesh.replica_mesh`` on the runs' device, e.g.
+    ``replica_mesh(devices=[torch.device("cuda", 0)] * 2)``) shards each
+    coalesced flush's ``[G]`` rows over its ``replica`` axis
+    (``pivot_tpu/experiments/runner.py:116-127``; ``sched/batch.py``):
+    the same placements and files.  ``stats_out['mesh_dispatches']``
+    counts the flushes that sharded, ``stats_out['mesh_fallbacks']`` the
+    coalesced ones that dropped the mesh because their padded bucket did
+    not divide the replica axis (the first is logged).  A 2-D mesh
+    raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 9b)."""
     import threading
 
     from pivot_tpu_torch.sched.batch import DispatchBatcher
@@ -140,7 +151,8 @@ def run_grid_lockstep(runs, stats_out: Optional[dict] = None) -> list:
     for _, run in batchable:
         run.policy.prepare()
     batcher = DispatchBatcher(len(batchable),
-                              device=batchable[0][1].policy.device)
+                              device=batchable[0][1].policy.device,
+                              mesh=mesh)
     errors: list = [None] * len(batchable)
 
     def work(slot, idx, run, client):

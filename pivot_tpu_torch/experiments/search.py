@@ -120,7 +120,7 @@ def _holdout_scores(
     at the held-out seeds — one population dispatch per seed (all arms
     ride one batch: paired comparisons).  Always the unsharded backend:
     the tiny fixed-arm batch (3 × R rows) rarely divides a mesh and
-    never amortizes one (the port runs no sharded backend yet)."""
+    never amortizes one."""
     from pivot_tpu_torch.search.fitness import make_search_env
     from pivot_tpu_torch.sched.sensitivity import evaluate_candidates
 

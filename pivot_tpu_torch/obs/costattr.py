@@ -270,7 +270,6 @@ ENTRY_POINTS: Dict[Tuple[str, str], Tuple[str, str]] = {
 
 _ITEM9B = ("not ported: ROADMAP.md Queue 1 item 9b (the 2-D mesh and the "
            "sharded resident carry)")
-_ITEM9D = "not ported: ROADMAP.md Queue 1 item 9d (the sharded ensemble)"
 _ENSEMBLE = (
     "the ensemble rollout (parallel/ensemble): torch passes attributed at "
     "their real shape by chip_smoke.py phases 6-9 (CUDA events, the "
@@ -320,10 +319,18 @@ REFERENCE: Dict[Tuple[str, str], object] = {
         "launches one per-row greedy_place (the cost_aware_cuda_rows row) "
         "or runs the torch arms' rows in sequence"
     ),
+    (f"{_REF_ENS}/__init__.py", "_sharded_rollout_fn"): flag(
+        "parallel/ensemble/__init__.py::sharded_rollout: the rollout's "
+        "[R] batch in row blocks over the replica mesh, the unsharded "
+        "tick loop on one card (chip_smoke.py phase 16 (a), (b))"
+    ),
+    (f"{_REF_ENS}/__init__.py", "shard_sweep"): flag(
+        "parallel/ensemble/__init__.py::shard_sweep: a sweep's replica "
+        "axis in row blocks over the replica mesh, the unsharded row "
+        "runner on one card (chip_smoke.py phase 16 (d))"
+    ),
     **{(f"{_REF_ENS}/{f}", n): flag(_ENSEMBLE) for f, n in (
         ("__init__.py", "_rollout_states"),
-        ("__init__.py", "_sharded_rollout_fn"),
-        ("__init__.py", "shard_sweep"),
         ("checkpoint.py", "_segment_step"),
         ("checkpoint.py", "_segment_step_carry"),
         ("sweeps.py", "_row_segment_step"),
@@ -338,7 +345,11 @@ REFERENCE: Dict[Tuple[str, str], object] = {
         "search/fitness.py::_fitness_rows: the population's rollout rows, "
         "attributed at scale by chip_smoke.py phase 8 (generations/s)"
     ),
-    ("pivot_tpu/search/fitness.py", "_sharded_fitness_fn"): flag(_ITEM9D),
+    ("pivot_tpu/search/fitness.py", "_sharded_fitness_fn"): flag(
+        "search/fitness.py::evaluate_rows(backend='sharded_rollout'): the "
+        "population's rows in blocks over the replica mesh — _fitness_rows' "
+        "program, attributed at scale by chip_smoke.py phases 8 and 16 (c)"
+    ),
 }
 
 

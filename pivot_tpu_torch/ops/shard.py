@@ -50,6 +50,14 @@ algebra of ``ops/tickloop.py`` (``_span_tick``) with a sharded ``place``
 callable: the ``[S, H/S, 4]`` availability and the ``[S, H/S]``
 span-cumulative decay counts stay in the sharded layout between ticks.
 
+**Rows over the replica axis.**  :func:`row_sharding` and
+:func:`check_row_divisibility` are the one definition of how a leading
+row or replica batch splits over the mesh's ``replica`` axis — the
+ensemble's ``sharded_rollout`` and ``shard_sweep``, the search's
+``sharded_rollout`` fitness backend and the dispatch batcher's mesh
+flushes all use it.  Rows never communicate, so on one device the
+sharded program is the unsharded ``[N]`` batch viewed as ``[S, N/S]``.
+
 The reference's ``[G]``-batched 2-D twins, the sharded resident carry
 (ROADMAP.md Queue 1 item 9b) and the elastic helpers (item 9c) are not
 ported here.  No pass here may read the device inside its step loop
@@ -97,13 +105,17 @@ from pivot_tpu_torch.parallel.mesh import host_axis_size
 __all__ = [
     "HOST_AXIS",
     "REPLICA_AXIS",
+    "RowSharding",
     "UNSHARDABLE_KW",
     "best_fit_kernel_sharded",
+    "check_row_divisibility",
     "cost_aware_kernel_sharded",
     "first_fit_kernel_sharded",
     "mesh_device",
     "mesh_is_2d",
+    "one_device",
     "opportunistic_kernel_sharded",
+    "row_sharding",
     "sharded_fused_tick_run",
     "sharded_twin_of",
 ]
@@ -153,6 +165,12 @@ def _same_device(d: torch.device) -> torch.device:
     return d
 
 
+def one_device(devices) -> bool:
+    """Whether every entry of ``devices`` names one device: the meshes
+    :func:`mesh_device` accepts (S logical shards of one card)."""
+    return len({_same_device(torch.device(d)) for d in devices}) == 1
+
+
 def mesh_device(mesh, expect=None) -> torch.device:
     """The one device every shard of ``mesh`` lives on (checked against
     ``expect`` when given).  A mesh over several distinct devices raises:
@@ -163,7 +181,7 @@ def mesh_device(mesh, expect=None) -> torch.device:
         raise NotImplementedError(
             f"a mesh over {len(devs)} distinct devices "
             f"({sorted(map(str, devs))}) is not ported to pivot_tpu_torch "
-            "yet — its host shards must name one device (logical shards; "
+            "yet — its shards must name one device (logical shards; "
             "ROADMAP.md Queue 1 item 9b)"
         )
     dev = devs.pop()
@@ -173,6 +191,49 @@ def mesh_device(mesh, expect=None) -> torch.device:
             "mesh names the device its passes run on"
         )
     return dev
+
+
+class RowSharding:
+    """The port's ``NamedSharding(mesh, P(REPLICA_AXIS))``: a leading row
+    axis cut into equal contiguous blocks, block ``s`` on the mesh's
+    ``s``-th replica entry (``pivot_tpu/ops/shard.py:183-193``)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.n_shards = int(mesh.shape[REPLICA_AXIS])
+
+    def device(self, expect=None) -> torch.device:
+        """The one device the blocks live on (:func:`mesh_device`)."""
+        return mesh_device(self.mesh, expect)
+
+    def blocks(self, n_rows: int) -> list:
+        """Block ``s``'s rows as a ``slice``, for each shard in order."""
+        check_row_divisibility(self.mesh, n_rows)
+        b = n_rows // self.n_shards
+        return [slice(s * b, (s + 1) * b) for s in range(self.n_shards)]
+
+
+def row_sharding(mesh) -> RowSharding:
+    """How a leading row/batch axis shards over ``mesh``'s
+    :data:`REPLICA_AXIS` — the one definition shared by the ensemble's
+    row consumers (``sharded_rollout``, ``shard_sweep``, the search's
+    candidate rows) and the dispatch batcher's ``[G]`` flushes, so "how
+    rows shard" cannot drift between them."""
+    return RowSharding(mesh)
+
+
+def check_row_divisibility(mesh, n_rows: int) -> None:
+    """Raise unless ``n_rows`` splits into equal contiguous blocks over
+    the mesh's replica axis (``pivot_tpu/ops/shard.py:196-207``)."""
+    n = int(mesh.shape[REPLICA_AXIS])
+    if n < 1:
+        raise ValueError("mesh has an empty replica axis")
+    if n_rows % n:
+        raise ValueError(
+            f"{n_rows} rows do not divide over the mesh's {n} replica "
+            f"shards — round the population/replica product up to a "
+            f"multiple of {n}"
+        )
 
 
 def _layout(mesh, avail):

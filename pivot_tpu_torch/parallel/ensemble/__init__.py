@@ -22,9 +22,14 @@ Runs: fault schedules (``n_faults``, ``fault_horizon``, ``mttr``), the
 congestion backlog model (``congestion=True`` or ``"pairs"``), realtime
 scoring, checkpoint files (``rollout_checkpointed``), and through the
 row runner per-row score exponents, the eviction-risk term, the
-active-task mask and per-row initial availability.  Sharding
-(``sharded_rollout``, ``shard_sweep``) raises ``NotImplementedError``
-(ROADMAP.md Queue 1 item 9d).
+active-task mask and per-row initial availability.  Sharding over a
+replica mesh (``parallel/mesh.py``): ``sharded_rollout`` splits the
+replica axis in contiguous blocks over the mesh's ``replica`` axis and
+``shard_sweep`` binds a sweep to the same layout
+(``ops/shard.py::row_sharding``).  Nothing crosses replicas, so on one
+device (S logical shards of a card) the sharded program is the
+unsharded ``[R]`` batch viewed as ``[S, R/S]``: the same draws, the same
+tick loop, the same bits.
 
 Results on the CPU in float64 equal ``pivot_tpu``'s bit for bit, except
 the egress bill, which agrees to a few ulps (``bill.py``), and, with the
@@ -38,7 +43,11 @@ exponents runs on the CPU only (the C library's ``log`` / ``pow``:
 
 from __future__ import annotations
 
+import functools
+import inspect
 from typing import Optional
+
+import torch
 
 from pivot_tpu_torch.parallel.ensemble import prng  # noqa: F401
 from pivot_tpu_torch.parallel.ensemble.bill import (  # noqa: F401
@@ -81,7 +90,6 @@ from pivot_tpu_torch.parallel.ensemble.sweeps import (  # noqa: F401
 )
 from pivot_tpu_torch.parallel.ensemble.tick import (  # noqa: F401
     _rollout_segment,
-    check_supported,
     loop_clock,
 )
 
@@ -251,11 +259,169 @@ def _rollout(key, avail0, workload, topo, storage_zones, *, contract,
     return _finalize(states, workload, topo)
 
 
-def sharded_rollout(*args, **kwargs):
-    """``pivot_tpu``'s mesh-sharded rollout: not ported yet."""
-    check_supported()
+def sharded_rollout(
+    mesh,
+    key,
+    avail0,
+    workload: EnsembleWorkload,
+    topo,
+    storage_zones,
+    n_replicas: int = 64,
+    tick: float = 5.0,
+    max_ticks: int = 512,
+    perturb: float = 0.1,
+    n_faults: int = 0,
+    fault_horizon: Optional[float] = None,
+    mttr: Optional[float] = None,
+    policy: str = "cost-aware",
+    congestion=False,
+    realtime_scoring: bool = False,
+    tick_order: str = "fifo",
+    stats: Optional[dict] = None,
+) -> RolloutResult:
+    """:func:`rollout` with the replica axis sharded over ``mesh``'s
+    ``replica`` axis (``pivot_tpu/parallel/ensemble/__init__.py:308``).
+
+    Replica ``r`` lives in block ``r // (R/S)`` (``ops/shard.py::
+    row_sharding``); inputs are replicated and no replica reads
+    another's state.  The blocks are slices of ONE ensemble: they take
+    their rows of the full-R draws (perturbations, anchors, fault
+    schedules, opportunistic uniforms), never draws of their own, and
+    they share the tick loop, which runs until every replica of every
+    block is done — as XLA's partition of the reference's vmapped
+    ``while_loop`` does (its predicate reduces over all R).  So the
+    result equals :func:`rollout`'s bit for bit, the contracted fault
+    draw included.  The mesh must name ``avail0``'s device (S logical
+    shards of one card, or of the CPU in the tests); a mesh over several
+    distinct devices raises ``NotImplementedError``.  ``stats`` as in
+    :func:`rollout`.
+    """
+    from pivot_tpu_torch.ops.shard import REPLICA_AXIS, mesh_device
+
+    n_rep_axis = int(mesh.shape[REPLICA_AXIS])
+    if n_replicas % n_rep_axis:
+        raise ValueError(
+            f"n_replicas={n_replicas} does not divide over the mesh's "
+            f"{n_rep_axis} replica shards — NamedSharding partitions the "
+            f"[R] axis into equal contiguous blocks; round the ensemble "
+            f"up to a multiple of {n_rep_axis}"
+        )
+    mesh_device(mesh, avail0.device)
+    return rollout(key, avail0, workload, topo, storage_zones,
+                   n_replicas=n_replicas, tick=tick, max_ticks=max_ticks,
+                   perturb=perturb, n_faults=n_faults,
+                   fault_horizon=fault_horizon, mttr=mttr, policy=policy,
+                   congestion=congestion, realtime_scoring=realtime_scoring,
+                   tick_order=tick_order, stats=stats)
 
 
-def shard_sweep(*args, **kwargs):
-    """``pivot_tpu``'s mesh-sharded sweeps: not ported yet."""
-    check_supported()
+def sweep_out_shardings(mesh) -> RolloutResult:
+    """The ``[K, R, ...]`` what-if sweeps' result layout
+    (``pivot_tpu/parallel/ensemble/__init__.py:345``): each field's
+    replica axis (axis 1) cut by ``ops/shard.py::row_sharding``, the
+    candidate and task axes whole.  Most callers want
+    :func:`shard_sweep`."""
+    from pivot_tpu_torch.ops.shard import row_sharding
+
+    rows = row_sharding(mesh)
+    return RolloutResult(*([rows] * len(RolloutResult._fields)))
+
+
+class _ShardedSweep:
+    """A sweep bound to its static config and to ``mesh``'s replica
+    layout: each call checks that the replica count divides the
+    ``replica`` axis and that the mesh names the inputs' device, then
+    runs the sweep in ONE tick loop (no segments, as the reference's
+    jitted sharded sweep).  Its fault schedule is drawn as inside
+    ``pivot_tpu``'s jit: ``fail_at + mttr · outage`` contracted."""
+
+    def __init__(self, sweep_fn, mesh, static_kw):
+        self.func = sweep_fn
+        self.mesh = mesh
+        self.keywords = static_kw
+
+    def __call__(self, key, avail, *args, **kw):
+        from pivot_tpu_torch.ops.shard import (
+            check_row_divisibility,
+            mesh_device,
+        )
+
+        kw = {**self.keywords, **kw}
+        n_replicas = kw.get("n_replicas", _default_replicas(self.func))
+        check_row_divisibility(self.mesh, n_replicas)
+        mesh_device(self.mesh, avail.device)
+        if "contract" in _params(self.func):
+            kw["contract"] = True
+        return self.func(key, avail, *args, **kw)
+
+
+def _params(fn) -> dict:
+    return inspect.signature(fn).parameters
+
+
+def _default_replicas(sweep_fn):
+    """The replica count a sweep runs with when the caller gives none:
+    its own default (None when it has none)."""
+    try:
+        default = _params(sweep_fn)["n_replicas"].default
+    except (KeyError, TypeError, ValueError):
+        return None
+    return None if default is inspect.Parameter.empty else default
+
+
+def shard_sweep(sweep_fn, fallback_segment_ticks=None, force_mesh=False,
+                devices=None, **static_kw):
+    """Bind a what-if sweep's static config and shard its replica axis
+    over a replica mesh of ``devices`` (default: the visible cards)
+    (``pivot_tpu/parallel/ensemble/__init__.py:366-430``).
+
+    Falls back to the unsharded call — a ``functools.partial`` of
+    ``sweep_fn`` — in the reference's order: on one device or none
+    (silently), on an explicit ``segment_ticks`` (the segmented loop is
+    the unsharded path's), on a replica count that does not divide the
+    devices (the sweep's own default counted when the caller gives
+    none), and on the CPU unless ``force_mesh=True`` (a mesh of CPU
+    "devices" shares the cores; tests force it to validate the layout).
+    Past the reference's reasons the port has one of its own: devices
+    that are not all one device (several cards) — a mesh over distinct
+    devices is ROADMAP.md Queue 1 item 9b.  Each fallback but the first
+    logs its reason; on the fallback, ``fallback_segment_ticks`` (when
+    set and not already in the config) runs the sweep in segments of
+    that many ticks.  ``devices`` may name one device several times
+    (logical shards).
+    """
+    from pivot_tpu_torch.ops.shard import one_device
+    from pivot_tpu_torch.parallel.mesh import replica_mesh, visible_cards
+    from pivot_tpu_torch.utils import get_logger
+
+    devs = list(devices) if devices is not None else visible_cards()
+    n_dev = len(devs)
+    n_replicas = static_kw.get("n_replicas")
+    if n_replicas is None:
+        n_replicas = _default_replicas(sweep_fn)
+    reason = None
+    if n_dev <= 1:
+        pass  # nothing to shard over — not worth a log line
+    elif static_kw.get("segment_ticks") is not None:
+        reason = "explicit segment_ticks requests the host-side segmented loop"
+    elif n_replicas is None or n_replicas % n_dev:
+        reason = (
+            f"replicas ({n_replicas}) not divisible by {n_dev} devices"
+        )
+    elif all(torch.device(d).type == "cpu" for d in devs) and not force_mesh:
+        reason = (
+            "CPU backend (forced-host-device meshes share the physical "
+            "cores; pass force_mesh=True to shard anyway)"
+        )
+    elif not one_device(devs):
+        reason = (
+            f"{n_dev} distinct devices (a mesh over several cards is not "
+            "ported yet: ROADMAP.md Queue 1 item 9b)"
+        )
+    if n_dev <= 1 or reason is not None:
+        if reason is not None:
+            get_logger("ensemble").info("sweep runs unsharded: %s", reason)
+        if fallback_segment_ticks is not None:
+            static_kw.setdefault("segment_ticks", fallback_segment_ticks)
+        return functools.partial(sweep_fn, **static_kw)
+    return _ShardedSweep(sweep_fn, replica_mesh(devices=devs), static_kw)

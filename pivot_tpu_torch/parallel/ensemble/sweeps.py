@@ -186,6 +186,7 @@ def capacity_sweep(
     forms: Optional[str] = None,
     tick_order: str = "fifo",
     stats: Optional[dict] = None,
+    contract: bool = False,
 ) -> RolloutResult:
     """The workload on K candidate cluster sizes × R replicas:
     ``[K, R]``-leading results.  With ``n_faults > 0`` each replica
@@ -194,7 +195,10 @@ def capacity_sweep(
     is a no-op there).  Crashes are drawn over the union of the
     candidates' live hosts: the draw is a rank among them, mapped to a
     host by ``searchsorted(cumsum(alive), rank + 1)`` (the identity for
-    ``capacity_grid``'s prefixes, right for any grid)."""
+    ``capacity_grid``'s prefixes, right for any grid).  ``contract``:
+    the schedule's ``fail_at + mttr · outage`` rounded once, as inside
+    ``pivot_tpu``'s jit (``shard_sweep``'s sharded call), or twice, as
+    its eager sweep draws it (the default)."""
     K, R = avail_grid.shape[0], n_replicas
     dtype, dev = avail_grid.dtype, avail_grid.device
     rt, arr, root_anchor = _perturbations(
@@ -211,7 +215,7 @@ def capacity_sweep(
             tick * max_ticks
         rank, fail_at, recover_at = _fault_schedule(
             prng.fold_in(key, 0x0FA17), n_replicas, n_faults, cum[-1],
-            horizon, mttr, dtype, dev, contract=False)
+            horizon, mttr, dtype, dev, contract=contract)
         host = torch.searchsorted(cum, rank + 1)
         faults = tuple(_tile_rows(f, K) for f in (host, fail_at, recover_at))
     res = _run_rows(

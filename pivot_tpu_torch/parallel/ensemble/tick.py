@@ -84,15 +84,6 @@ from pivot_tpu_torch.parallel.ensemble.state import (
 POLICIES = ("cost-aware", "first-fit", "best-fit", "opportunistic")
 
 
-def check_supported() -> None:
-    """Raise ``NotImplementedError`` for the one part of the JAX ensemble
-    the port does not run yet: sharding over a device mesh
-    (``sharded_rollout``, ``shard_sweep``; ROADMAP.md Queue 1 item 9d)."""
-    raise NotImplementedError(
-        "sharded ensemble rollouts are not ported to pivot_tpu_torch yet "
-        "(ROADMAP.md Queue 1 item 9d)")
-
-
 def check_options(congestion, realtime_scoring, policy,
                   score_params=None) -> None:
     """``pivot_tpu``'s argument checks of the congestion model and

@@ -34,6 +34,7 @@ __all__ = [
     "host_axis_size",
     "host_sharded_mesh",
     "replica_mesh",
+    "visible_cards",
 ]
 
 
@@ -66,15 +67,23 @@ class Mesh:
         return f"Mesh({dims}; {sorted({str(d) for d in self.devices.flat})})"
 
 
-def _visible_devices() -> list:
-    """The visible CUDA devices; without a card there is no default
-    mesh (pass ``devices=`` — e.g. ``[torch.device("cpu")] * S``)."""
+def visible_cards() -> list:
+    """The visible CUDA devices, one ``torch.device`` each (none without
+    a card): the devices a default mesh spans, the port's
+    ``jax.devices()``."""
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if n == 0:
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def _visible_devices() -> list:
+    """:func:`visible_cards`; without a card there is no default mesh
+    (pass ``devices=`` — e.g. ``[torch.device("cpu")] * S``)."""
+    devs = visible_cards()
+    if not devs:
         raise RuntimeError(
             "no CUDA device is visible (torch.cuda.is_available() is "
             "False); pass devices= to build a mesh on the CPU")
-    return [torch.device("cuda", i) for i in range(n)]
+    return devs
 
 
 def build_mesh(

@@ -1,7 +1,8 @@
 """Cross-run dispatch batching: co-pending ticks of many runs, one flush.
 
-Port of ``pivot_tpu/sched/batch.py`` without the mesh (ROADMAP.md,
-Queue 1 item 9b); with the recovery plane's write-ahead journal
+Port of ``pivot_tpu/sched/batch.py`` with its replica mesh (the 2-D
+``replica × host`` mesh is ROADMAP.md Queue 1 item 9b); with the
+recovery plane's write-ahead journal
 (``DispatchBatcher(journal=)``: each flush's composition is journaled
 before its first device call, a solo dispatch as a one-request flush)
 and the sampled dispatch profiler (``DispatchBatcher(profiler=)``: it
@@ -55,6 +56,24 @@ kernels are pure functions of their per-tick inputs, and a row of the
 per-row launch is the unbatched launch of that row (``chip_smoke.py``
 holds every coalesced launch against its plain version on the card).
 
+The replica mesh (``DispatchBatcher(mesh=)``, ``batch_execute(mesh=)``;
+``parallel.mesh.replica_mesh``): a coalesced group whose padded bucket
+divides the mesh's ``replica`` axis runs its rows in contiguous blocks
+of that bucket over it (``ops/shard.py::row_sharding``) — on one card,
+S logical shards whose blocks share the one call, so a Cost-Aware mesh
+flush is still ONE per-row launch of ``greedy_place`` (its rows padded
+to the bucket, as without a mesh) and a torch arm's rows still run one
+after another, pad rows never run.  A bucket that does not divide the
+axis, or a 1-row batch, falls back to the unsharded call; rows never
+communicate, so both give the same bits, and on one device both are the
+same call.  :func:`_plan_mesh` is the one routing decision, which the
+batcher's mesh counters read.  A mesh is checked once, where it is
+given: by :class:`DispatchBatcher` (which then hands its flushes the
+resolved device) or by a direct ``batch_execute(mesh=)`` call.
+A 2-D mesh, one with a ``host`` axis above 1, raises
+``NotImplementedError``: host-sharding each row is ROADMAP.md Queue 1
+item 9b.
+
 Operands arrive as host numpy (the policies stage to the host when a
 client is attached, ``sched/cuda.py``); a 0-d operand (the Cost-Aware
 step bound ``n_eff``, a span's horizon) is a per-row scalar: a ``[G]``
@@ -63,6 +82,7 @@ column of the batched form, a host int of an unbatched call.
 
 from __future__ import annotations
 
+import logging
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -70,6 +90,7 @@ import numpy as np
 import torch
 
 from pivot_tpu_torch.ops import cuda_kernels
+from pivot_tpu_torch.ops.shard import mesh_device, mesh_is_2d
 from pivot_tpu_torch.ops.tickloop import (
     SPAN_HOST_OPERANDS,
     ResidentCarry,
@@ -169,20 +190,59 @@ def _fetch(outs: list) -> list:
     ]
 
 
+def _check_replica_mesh(mesh, device=None) -> torch.device:
+    """The flush device of a batcher mesh: a replica-only mesh naming one
+    device (``device`` when given).  A 2-D mesh raises."""
+    if mesh_is_2d(mesh):
+        raise NotImplementedError(
+            f"a 2-D replica x host mesh ({dict(mesh.shape)}) is not ported "
+            "to pivot_tpu_torch's DispatchBatcher yet — the [G]-batched "
+            "host-sharded twins are ROADMAP.md Queue 1 item 9b (the host "
+            "axis on top of the replica axis); pass a replica-only mesh "
+            "(parallel.mesh.replica_mesh)")
+    return mesh_device(mesh, device)
+
+
+def _replica_mesh_for(mesh, gb: int):
+    """The mesh to shard a ``gb``-row batch over, or None
+    (``pivot_tpu/sched/batch.py:171-184``): the replica axis must divide
+    the padded group bucket (contiguous row blocks), and a 1-row batch
+    has nothing to spread.  None on a real mesh is a fallback to the
+    unsharded call — bit-identical, and metered by the batcher
+    (``mesh_fallbacks``)."""
+    if mesh is None or gb <= 1:
+        return None
+    return mesh if gb % int(mesh.shape["replica"]) == 0 else None
+
+
+def _plan_mesh(mesh, g: int):
+    """One coalesced group's ``(padded bucket, mesh or None)`` — the ONE
+    routing decision :func:`batch_execute` executes and the batcher's
+    counters mirror (the replica-only form of
+    ``pivot_tpu/sched/batch.py:187-227``)."""
+    gb = group_bucket(g)
+    return gb, _replica_mesh_for(mesh, gb)
+
+
 def batch_execute(
     kernel,
     requests: Sequence[Tuple[tuple, dict]],
     static_kw: Optional[dict] = None,
-    device="cuda",
+    device=None,
+    mesh=None,
 ) -> list:
-    """Serve N same-shaped kernel requests as one flush on ``device``.
+    """Serve N same-shaped kernel requests as one flush on ``device``
+    (default: ``mesh``'s device, else ``cuda``).
 
     ``requests`` is a sequence of ``(args, arr_kw)`` pairs of host arrays
     whose shapes and dtypes match pairwise (the caller groups by
     :func:`_request_key`).  Returns one output per request, in order,
     with its placements on the host (:func:`_fetch`).  The flush stages
     its columns in one copy and fetches the placements in one copy;
-    module docstring for what runs in between."""
+    module docstring for what runs in between, and for ``mesh`` (a
+    replica-only mesh: the ``[G]`` rows in contiguous blocks over its
+    ``replica`` axis, or the unsharded call where the bucket does not
+    divide it)."""
     static_kw = dict(static_kw or {})
     g = len(requests)
     if g == 0:
@@ -196,7 +256,9 @@ def batch_execute(
                 "ops.tickloop.resident_span_run directly (the resident "
                 "tier and the cross-run batcher are mutually exclusive)"
             )
-    device = torch.device(device)
+    if mesh is not None:
+        device = _check_replica_mesh(mesh, device)
+    device = torch.device("cuda" if device is None else device)
     kw_keys = tuple(sorted(requests[0][1]))
     n_args = len(requests[0][0])
     cols = [np.stack([np.asarray(r[0][i]) for r in requests])
@@ -216,8 +278,12 @@ def batch_execute(
         bounds = [span_step_bounds(cols[2][r], int(cols[3][r]))
                   for r in range(g)]
     batched = _BATCHED.get(kernel) if g > 1 else None
+    # A mesh's row blocks (``_plan_mesh``) share this one call: they all
+    # live on the one device.
+    gb = group_bucket(g)
     if batched is not None:
-        gb = group_bucket(g) if kernel in _PADDED else g
+        if kernel not in _PADDED:
+            gb = g
         if gb > g:
             # Pad rows replicate row 0: same shapes, finite values; their
             # output rows are dropped below.
@@ -288,6 +354,13 @@ class BatchClient:
         self.slot = slot
         self._closed = False
         self._idle = False
+
+    @property
+    def mesh(self):
+        """The owning batcher's replica mesh (or None): what
+        ``sched.cuda`` checks host sharding against when a policy
+        composes batching with sharding."""
+        return self._batcher._mesh
 
     def dispatch(self, kernel, args, arr_kw=None, static_kw=None):
         if self._closed:
@@ -364,8 +437,21 @@ class DispatchBatcher:
     (mixed-horizon span groups merged into one (K′, B′) bucket),
     ``ragged_rows`` (requests that rode a merged flush) and
     ``ragged_pad_cells`` (K×B cells run beyond the members' own
-    buckets); the mesh counters stay 0 (ROADMAP.md Queue 1 item 9b).  At
-    any instant ``live_slots == runs − retired_slots``.
+    buckets), and the mesh counters: ``mesh_dispatches`` (groups whose
+    ``[G]`` rows went over the mesh's replica axis) and
+    ``mesh_fallbacks`` (groups that lost the mesh — coalesced, or
+    fragmented into several shape keys of one kernel, but not sharded),
+    partitioned exactly by ``mesh_fallback_unshardable`` (no sharded
+    form: 0 on a replica-only mesh), ``mesh_fallback_mixed_shapes`` and
+    ``mesh_fallback_indivisible`` (the bucket does not divide the
+    axis); the first fallback is logged.  At any instant ``live_slots ==
+    runs − retired_slots``.
+
+    ``mesh`` (``parallel.mesh.replica_mesh``, e.g. ``replica_mesh(
+    devices=[torch.device("cuda", 0)] * 2)``) shards each coalesced
+    flush's ``[G]`` rows over its ``replica`` axis (module docstring);
+    the flush device is the mesh's.  A 2-D mesh raises
+    ``NotImplementedError`` (ROADMAP.md Queue 1 item 9b).
 
     ``ragged=True`` (the default) turns on the ragged span repack
     (module docstring); ``ragged=False`` keeps exact-shape coalescing,
@@ -376,8 +462,8 @@ class DispatchBatcher:
     """
 
     def __init__(self, n_slots: int, flush_after: Optional[float] = None,
-                 tracer=None, device="cuda", ragged: bool = True,
-                 journal=None, profiler=None):
+                 tracer=None, device=None, ragged: bool = True,
+                 journal=None, profiler=None, mesh=None):
         if n_slots < 1:
             raise ValueError("DispatchBatcher needs at least one slot")
         if flush_after is not None and flush_after <= 0:
@@ -387,7 +473,13 @@ class DispatchBatcher:
 
             tracer = NULL_TRACER
         self.tracer = tracer
-        self.device = torch.device(device)
+        if mesh is not None:
+            device = _check_replica_mesh(mesh, device)
+        self.device = torch.device("cuda" if device is None else device)
+        #: Replica-axis mesh (``parallel.mesh.replica_mesh``): coalesced
+        #: flushes shard their ``[G]`` rows over it (``batch_execute``).
+        self._mesh = mesh
+        self._mesh_fallback_logged = False
         self._ragged = bool(ragged)
         #: Write-ahead journal: when the serve driver runs a recovery
         #: plane, every flush appends a ``flush`` record (groups,
@@ -532,6 +624,8 @@ class DispatchBatcher:
         ``in_flush``, the group size ``g``, H, B, a span's K, the ragged
         pad cells and the operand bytes staged for it."""
         def call():
+            # The mesh was checked at construction and its device is
+            # self.device (module docstring).
             return batch_execute(
                 reqs[0].kernel, [(r.args, r.arr_kw) for r in reqs],
                 reqs[0].static_kw, device=self.device,
@@ -572,6 +666,11 @@ class DispatchBatcher:
             groups: Dict[tuple, List[_Request]] = {}
             for req in batch:
                 groups.setdefault(req.key, []).append(req)
+            # Shape keys per kernel in THIS flush: a group that lost the
+            # mesh while its kernel rode other keys fragmented.
+            kernel_keys: Dict[object, set] = {}
+            for key in groups:
+                kernel_keys.setdefault(key[0], set()).add(key)
             if self._journal is not None and batch:
                 # Write-ahead: the flush's composition hits the journal
                 # before its first device call, so a crash mid-flush
@@ -583,6 +682,11 @@ class DispatchBatcher:
                 reqs.sort(key=lambda r: r.slot)
                 calls = (1 if len(reqs) > 1 and reqs[0].kernel in _BATCHED
                          else len(reqs))
+                fragmented = len(kernel_keys[reqs[0].kernel]) > 1
+                # The SAME routing decision batch_execute makes for this
+                # group: the counters cannot disagree with the flush.
+                gb, grp_mesh = _plan_mesh(self._mesh, len(reqs))
+                cause = None
                 with self._cond:
                     self.stats["dispatches"] += len(reqs)
                     self.stats["device_calls"] += calls
@@ -591,6 +695,28 @@ class DispatchBatcher:
                     )
                     if len(reqs) > 1:
                         self.stats["coalesced"] += len(reqs)
+                    if grp_mesh is not None:
+                        self.stats["mesh_dispatches"] += 1
+                    elif self._mesh is not None and (
+                        len(reqs) > 1 or fragmented
+                    ):
+                        # The cause (``pivot_tpu/sched/batch.py:750-766``):
+                        # ``unshardable``, a kernel without a host-sharded
+                        # twin on a 2-D mesh, cannot occur here.
+                        cause = ("mixed_shapes" if fragmented
+                                 else "indivisible")
+                        self.stats["mesh_fallbacks"] += 1
+                        self.stats["mesh_fallback_" + cause] += 1
+                        if self._mesh_fallback_logged:
+                            cause = None
+                        self._mesh_fallback_logged = True
+                if cause is not None:
+                    logging.getLogger(__name__).warning(
+                        "DispatchBatcher: %d-request flush (bucket %d) "
+                        "cannot ride the mesh (%s) — serving unsharded; "
+                        "further fallbacks counted in "
+                        "stats['mesh_fallbacks'] and the per-cause "
+                        "mesh_fallback_* counters", len(reqs), gb, cause)
                 try:
                     with self.tracer.wall_span(
                         "dispatch", "flush", group=len(reqs),

@@ -105,9 +105,10 @@ to the unsharded forms.  A Cost-Aware policy with a mesh runs the
 sharded torch pass and never launches ``greedy_place`` (the reference's
 Pallas exclusion, ``:2115-2125``); it runs on the policy's device or
 fails.  Refused with the adaptive twin, ``use_kernel=True``,
-``realtime_bw``, learned score exponents, the batcher (the port's
-``DispatchBatcher`` has no mesh: ROADMAP.md Queue 1 item 9b) and the
-resident tier (item 9b).
+``realtime_bw``, learned score exponents, the batcher (composing them
+needs the batcher's 2-D ``replica × host`` mesh; the port's
+``DispatchBatcher`` takes a replica-only mesh: ROADMAP.md Queue 1 item
+9b) and the resident tier (item 9b).
 
 Not in this slice: the elastic fault gate (ROADMAP.md, Queue 1 item
 9c) — ``enable_fault_gate`` raises ``NotImplementedError``.
@@ -909,21 +910,26 @@ class _DevicePolicyBase(Policy):
                 "drop enable_resident() or the batcher"
             )
         if self._mesh is not None:
-            self._check_batch_mesh(self._mesh)
+            self._check_batch_mesh(client)
         self._batch_client = client
 
-    def _check_batch_mesh(self, mesh) -> None:
+    def _check_batch_mesh(self, client, mesh=None) -> None:
         """Batching × sharding needs a batcher on a 2-D ``replica ×
         host`` mesh whose host axis matches this policy's
         (``pivot_tpu/sched/tpu.py:568-592``).  The port's
-        ``DispatchBatcher`` has no mesh yet, so this raises the
-        reference's error for a batcher without one."""
+        ``DispatchBatcher`` takes only a replica-only mesh (a 2-D one
+        raises), so every client fails this check: with no mesh, or
+        with a replica-only one, whose host axis is 1.  ``mesh``: the
+        policy's host mesh (default: the one enabled)."""
+        bmesh = getattr(client, "mesh", None)
         raise ValueError(
             "composing host sharding with cross-run batching needs a "
             "DispatchBatcher built on a 2-D replica x host mesh whose "
             f"host axis matches enable_sharding's "
-            f"({host_axis_size(mesh)} shards); the port's "
-            "DispatchBatcher has no mesh yet (ROADMAP.md Queue 1 item 9b)"
+            f"({host_axis_size(mesh or self._mesh)} shards); this batcher has "
+            f"{'no mesh' if bmesh is None else dict(bmesh.shape)}, and "
+            "the port's DispatchBatcher takes only a replica-only mesh "
+            "(the 2-D mesh is ROADMAP.md Queue 1 item 9b)"
         )
 
     def _refuse_sharded_resident(self):
@@ -971,7 +977,7 @@ class _DevicePolicyBase(Policy):
         if host_axis_size(mesh) < 1:
             raise ValueError("mesh has an empty host axis")
         if self._batch_client is not None:
-            self._check_batch_mesh(mesh)
+            self._check_batch_mesh(self._batch_client, mesh)
         if self._resident is not None:
             self._refuse_sharded_resident()
         mesh_device(mesh, self.device)

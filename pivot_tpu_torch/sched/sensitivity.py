@@ -49,8 +49,8 @@ def evaluate_candidates(weights, env, **kw) -> np.ndarray:
     ``cap_rows``, ``active_rows``) pass through to
     :func:`pivot_tpu_torch.search.fitness.evaluate_rows`: the population
     is one row batch of the ensemble rollout on the environment's
-    device (the ``sharded_rollout`` backend raises there, ROADMAP.md
-    Queue 1 item 9d).
+    device, or (``backend="sharded_rollout"``, ``mesh``) its rows in
+    blocks over a replica mesh's ``replica`` axis — the same scores.
 
     Imported lazily so this module never drags the search/ensemble
     stack in by itself.

@@ -16,8 +16,9 @@ Port of ``pivot_tpu/search/__init__.py``:
     branch-and-bound solver, so "learned beats hand-tuned" is reported as
     regret against an optimum.
 
-The ``"sharded_rollout"`` fitness backend raises ``NotImplementedError``
-(ROADMAP.md Queue 1 item 9d); the model-predictive controller
+The ``"sharded_rollout"`` fitness backend splits the population's rows
+over a replica mesh (``parallel/mesh.py``) with the ``"rollout"``
+backend's scores bit for bit; the model-predictive controller
 (``pivot_tpu_torch.mpc``) scores its action menus through this
 evaluator.
 

@@ -24,10 +24,13 @@ row runner (``parallel/ensemble/sweeps.py::_run_rows``) as one tick loop
 over ``[B·R, ...]`` tensors.  Per-candidate reductions happen on the
 host, in float64, in ``pivot_tpu``'s fixed order.
 
-One backend runs: ``"rollout"``.  ``pivot_tpu``'s ``"sharded_rollout"``
-(its ``_sharded_fitness_fn`` jit over a replica mesh) has no counterpart
-here; asking for it raises ``NotImplementedError`` (ROADMAP.md Queue 1
-item 9d, the sharded ensemble).  Neither have ``pivot_tpu``'s jit wrappers
+Two backends, as in ``pivot_tpu``: ``"rollout"`` runs the rows on the
+environment's device, ``"sharded_rollout"`` splits them in contiguous
+blocks over a replica mesh's ``replica`` axis (``ops/shard.py::
+row_sharding``; ``parallel/mesh.py``: S logical shards of one card).
+Rows never communicate and the draws come from the one unsharded
+program, so both backends give the same per-row values and scores bit
+for bit.  ``pivot_tpu``'s jit wrappers have no counterpart
 (``_draw_rows``, ``_fitness_rows`` are plain functions: the port's tick
 loop runs on the host).
 
@@ -49,6 +52,7 @@ import numpy as np
 import torch
 
 from pivot_tpu_torch.ops.kernels import DeviceTopology, resolve_device
+from pivot_tpu_torch.ops.shard import check_row_divisibility, row_sharding
 from pivot_tpu_torch.parallel.ensemble.draws import _perturbations
 from pivot_tpu_torch.parallel.ensemble.sweeps import _run_rows, _tile_rows
 from pivot_tpu_torch.search.weights import PolicyWeights
@@ -60,7 +64,7 @@ __all__ = [
     "make_search_env",
 ]
 
-#: Fitness backends of ``pivot_tpu``; the port runs the first.
+#: Fitness backends (``pivot_tpu/search/fitness.py``).
 BACKENDS = ("rollout", "sharded_rollout")
 
 
@@ -425,9 +429,10 @@ def evaluate_rows(
     to ``PRNGKey(env.seed)``; optimizers fold the generation index in
     so draws refresh while staying seed-replayable.
 
-    ``backend="sharded_rollout"`` raises ``NotImplementedError``: the
-    sharded backend is ROADMAP.md Queue 1 item 9d (``mesh`` is accepted
-    for the same call signature and unused).
+    ``backend="sharded_rollout"`` requires ``mesh`` (a replica mesh,
+    ``parallel.mesh.replica_mesh``, on the environment's device) and
+    ``B × R`` divisible over its replica axis; per-row values — and
+    therefore scores — are bit-identical to the ``"rollout"`` backend.
 
     ``cap_rows`` ([B], capacity scale) and ``active_rows`` ([B, T]
     bool, admit masks) attach per-candidate *actions* to the rollout —
@@ -442,12 +447,6 @@ def evaluate_rows(
         raise ValueError(
             f"unknown fitness backend {backend!r} — one of {BACKENDS}"
         )
-    if backend == "sharded_rollout":
-        raise NotImplementedError(
-            "the 'sharded_rollout' fitness backend is not ported to "
-            "pivot_tpu_torch yet (ROADMAP.md Queue 1 item 9d, the sharded "
-            "ensemble); "
-            "use backend='rollout'")
     warr = (
         np.asarray(weights, dtype=np.float64)
         if isinstance(weights, np.ndarray)
@@ -482,6 +481,17 @@ def evaluate_rows(
         key, env.workload, env.avail0, env.storage_zones,
         n_candidates=B, n_replicas=R, perturb=env.perturb,
     )
+    if backend == "sharded_rollout":
+        # The reference's ``_sharded_fitness_fn`` (``:429-445``): the same
+        # row program on the mesh's contiguous row blocks — on one device
+        # the unsharded batch viewed as ``[S, B·R/S]``.
+        if mesh is None:
+            raise ValueError(
+                "backend='sharded_rollout' needs a replica mesh "
+                "(parallel.mesh.replica_mesh)"
+            )
+        check_row_divisibility(mesh, B * R)
+        row_sharding(mesh).device(env.avail0.device)
     egress, ihours, unfin, makespan = _fitness_rows(
         rt_rows, arr_rows, ra_rows, warr, env.avail0, env.workload,
         env.topo, env.hazard, env.faults, cap_rows, active_rows,

@@ -6,7 +6,9 @@
     index, best-fit tightest, opportunistic determinism, cost-aware
     winning on egress, instance-hours, the group-demand guard), the
     option combinations ``pivot_tpu`` refuses raising its ``ValueError``
-    and sharding raising ``NotImplementedError``;
+    and a mesh over several distinct devices raising
+    ``NotImplementedError`` (``tests/test_torch_replica_mesh.py`` holds
+    the sharded rollout and sweeps);
   * **parity on the CPU in float64**: the port's ``rollout`` and
     ``pivot_tpu``'s on the same inputs, every policy × {fifo, lifo},
     against both JAX tick-body forms (``vector`` and ``indexed``).
@@ -307,8 +309,10 @@ def test_fault_option_runs_and_matches_pivot_tpu(jax_cluster, port_cluster):
 
 def test_checkpoint_path_raises(port_cluster, tmp_path):
     """Checkpoint files run now (``tests/test_torch_checkpoint.py``); a
-    segment length that could never advance raises, and sharding (ROADMAP.md
-    Queue 1 item 9) still raises ``NotImplementedError``."""
+    segment length that could never advance raises, and a sharded
+    rollout over a mesh of several distinct devices (ROADMAP.md Queue 1
+    item 9b) raises ``NotImplementedError``, where a sweep over them
+    runs unsharded."""
     topo, a0, sz = _inputs(port_cluster)
     w = E.EnsembleWorkload.from_applications([chain_app()], device="cpu")
     path = str(tmp_path / "ck.npz")
@@ -318,9 +322,16 @@ def test_checkpoint_path_raises(port_cluster, tmp_path):
     with pytest.raises(ValueError, match="segment_ticks"):
         E.rollout_chunked(prng.PRNGKey(0), a0, w, topo, sz, path, 0,
                           n_replicas=2, segment_ticks=0)
-    for fn in (E.sharded_rollout, E.shard_sweep):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            fn(prng.PRNGKey(0), a0, w, topo, sz)
+    from pivot_tpu_torch.parallel.mesh import replica_mesh
+
+    two = replica_mesh(devices=[torch.device("cpu"), torch.device("meta")])
+    with pytest.raises(NotImplementedError, match="item 9"):
+        E.sharded_rollout(two, prng.PRNGKey(0), a0, w, topo, sz,
+                          n_replicas=2)
+    sweep = E.shard_sweep(E.capacity_sweep, force_mesh=True,
+                          devices=list(two.devices.flat), n_replicas=2)
+    res = sweep(prng.PRNGKey(0), E.capacity_grid(a0, [8]), w, topo, sz)
+    assert res.n_unfinished.tolist() == [[0, 0]]
 
 
 # -- parity with pivot_tpu (float64) -----------------------------------------

@@ -158,10 +158,10 @@ def test_lockstep_kernel_path_is_one_per_row_call_per_tick(monkeypatch):
         finally:
             in_span.pop()
 
-    def execute(kernel, requests, static_kw=None, device="cuda"):
+    def execute(kernel, requests, static_kw=None, **kw):
         if kernel is pbatch.fused_tick_run and len(requests) > 1:
             span_flushes.append(len(requests))
-        return orig_exec(kernel, requests, static_kw, device)
+        return orig_exec(kernel, requests, static_kw, **kw)
 
     monkeypatch.setattr(ck, "cost_aware_cuda_rows", rows)
     monkeypatch.setattr(pbatch, "fused_tick_run_rows", span_driver)

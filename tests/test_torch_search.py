@@ -10,8 +10,7 @@ the CPU in float64 under x64:
     built in float64 (its ``make_search_env`` takes the dtype; the
     harness does not pass one);
   * ``tests/test_search.py``'s optimizer and harness cases on the port
-    (its sharded-backend halves have no counterpart: the backend raises,
-    ``tests/test_torch_search_fitness.py``).
+    (its sharded-backend halves are in ``tests/test_torch_replica_mesh.py``).
 """
 
 from __future__ import annotations
@@ -141,7 +140,7 @@ def test_optimizer_argument_checks(tiny_env):
         cem_search(tiny_env, popsize=1)
     with pytest.raises(ValueError, match="generations"):
         es_search(tiny_env, generations=0)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="needs a replica mesh"):
         cem_search(tiny_env, generations=1, popsize=2,
                    backend="sharded_rollout")
 

@@ -9,8 +9,9 @@ cli.py``) against ``pivot_tpu``'s:
     float64 (floats within rtol 1e-12, everything else exactly);
   * the entry's guards: without a card it raises before it writes
     anything, float64 off the CPU raises, TF32 matmuls are off after it,
-    and ``--backend sharded_rollout`` raises ``NotImplementedError``
-    naming ROADMAP.md Queue 1 item 9.
+    and ``--backend sharded_rollout`` gives the ``rollout`` backend's
+    report (a mesh over several distinct devices names ROADMAP.md Queue 1
+    item 9b).
 """
 
 from __future__ import annotations
@@ -128,14 +129,33 @@ def test_search_cli_turns_tf32_off(tmp_path, capsys):
     assert json.loads(capsys.readouterr().out)["config"]["holdout"] == 0
 
 
-def test_search_cli_sharded_backend_points_to_roadmap(tmp_path):
+def test_search_cli_sharded_backend_points_to_roadmap(tmp_path,
+                                                     monkeypatch):
+    """The sharded backend runs over a mesh of the CPU (one shard) and
+    reports what the rollout backend reports; a mesh over several
+    distinct devices raises naming its ROADMAP.md item."""
+    argv = ["search", "--generations", "1", "--popsize", "3", "--replicas",
+            "2", "--hosts", "6", "--num-apps", "2", "--holdout", "0",
+            "--no-oracle"]
+    reports = {}
+    for backend in ("rollout", "sharded_rollout"):
+        out = tmp_path / f"{backend}.json"
+        reports[backend] = pcli.run_search_cli(pcli.parse_args(
+            argv + ["--backend", backend, "--out", str(out)]),
+            torch_device="cpu", dtype="float64")
+        assert json.loads(out.read_text()) == reports[backend]
+    for backend, report in reports.items():
+        for section in ("config", "search"):
+            assert report[section].pop("backend") == backend
+    assert reports["sharded_rollout"] == reports["rollout"]
+    monkeypatch.setattr(pcli, "_replica_devices", lambda device: [
+        torch.device("cpu"), torch.device("meta")])
     out = tmp_path / "r.json"
     with pytest.raises(NotImplementedError,
                        match=r"ROADMAP\.md Queue 1 item 9"):
         pcli.run_search_cli(pcli.parse_args(
-            ["search", "--backend", "sharded_rollout", "--generations", "1",
-             "--popsize", "3", "--replicas", "2", "--hosts", "6",
-             "--num-apps", "2", "--out", str(out)]), torch_device="cpu")
+            argv + ["--backend", "sharded_rollout", "--out", str(out)]),
+            torch_device="cpu", dtype="float64")
     assert not out.exists()
 
 

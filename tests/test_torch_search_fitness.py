@@ -18,7 +18,8 @@ against ``pivot_tpu``'s, on the CPU in float64 under x64:
     trace, with redrawn plans and with capacity scales and admission
     masks;
   * ``tests/test_search.py``'s fitness cases on the port, the sharded
-    backend's halves replaced by its ``NotImplementedError``.
+    backend's input checks included (its parity is in
+    ``tests/test_torch_replica_mesh.py``).
 """
 
 from __future__ import annotations
@@ -320,12 +321,22 @@ def test_fitness_input_validation(tiny_env):
     one = PolicyWeights.stack([DEFAULT_WEIGHTS])
     with pytest.raises(ValueError, match="unknown fitness backend"):
         PF.evaluate_rows(one, tiny_env, backend="nope")
-    # The sharded backend is not ported: it says where it stands.
-    for mesh in (None, object()):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md Queue 1 item 9"):
-            PF.evaluate_rows(one, tiny_env, backend="sharded_rollout",
-                             mesh=mesh)
+    from pivot_tpu_torch.parallel.mesh import replica_mesh
+
+    with pytest.raises(ValueError, match="needs a replica mesh"):
+        PF.evaluate_rows(one, tiny_env, backend="sharded_rollout")
+    with pytest.raises(ValueError, match="divide"):
+        # 3 candidates x 4 replicas = 12 rows over 8 shards.
+        PF.evaluate_rows(
+            PolicyWeights.stack([DEFAULT_WEIGHTS] * 3), tiny_env,
+            backend="sharded_rollout",
+            mesh=replica_mesh(devices=[torch.device("cpu")] * 8))
+    # A mesh over several distinct devices says where it stands.
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP\.md Queue 1 item 9"):
+        PF.evaluate_rows(one, tiny_env, backend="sharded_rollout",
+                         mesh=replica_mesh(devices=[torch.device("cpu"),
+                                                    torch.device("meta")]))
     with pytest.raises(ValueError, match="finite"):
         PF.evaluate_rows(np.full((2, 5), np.nan), tiny_env)
     with pytest.raises(ValueError, match=r"\[B, 5\]"):
