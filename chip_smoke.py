@@ -16,8 +16,10 @@
     python3 chip_smoke.py --phases 16  # the replica axis: sharded
                                        # ensemble, sweeps, search and the
                                        # batcher's replica mesh
+    python3 chip_smoke.py --phases 17  # the 2-D serving mesh: batched
+                                       # twins, 2-D serve, sharded resident
 
-One card.  ``--phases`` takes a comma list; phases 2-5 and 10-16 bring
+One card.  ``--phases`` takes a comma list; phases 2-5 and 10-17 bring
 phase 1's build along, phase 5 the runs of phases 3 and 4, phase 13
 phase 3's run (its python-fabric arms are what the native fabric is held
 against).
@@ -320,9 +322,9 @@ Phases, each fatal on failure:
  16. the replica axis on the card (``parallel/mesh.py::replica_mesh``
      naming the card S times: S logical replica shards): (a)
      ``sharded_rollout`` over 4 shards at the ``ensemble`` defaults
-     (600 hosts x 50 apps, R = 1024, cost-aware), every field bit-equal
-     to the unsharded rollout (phase 6 (a)'s CLI run), the tick loop's
-     wall of each; (b) the same over R = 64 with ``--faults 4
+     (600 hosts x 50 apps, cost-aware) at R = 256 (cut from 1024 for
+     phase 17), every field bit-equal to the unsharded rollout, the tick
+     loop's wall of each; (b) the same over R = 64 with ``--faults 4
      --fault-mttr 300`` at 25 apps (phase 7 (b)'s command) against the
      unsharded ``rollout`` (the contracted fault draw); (c) ``search
      --backend sharded_rollout`` on the README quickstart through the
@@ -331,15 +333,40 @@ Phases, each fatal on failure:
      8's 10,240-row population, scores bit-equal; (d) phase 7 (b)'s
      ``capacity`` command with its sweep ``shard_sweep(capacity_sweep,
      force_mesh=True)`` over 4 shards, the summary equal to phase 7's;
-     (e) ``overall --batch-runs 4`` on phase 11 (b)'s grid with each
-     lock-step grid's batcher on ``replica_mesh(devices=[cuda:0] * 2)``:
-     files byte-equal to phase 11's meshless grid, flushes on the mesh
+     (e) ``overall --batch-runs 4`` on the first 2 of phase 11 (b)'s 4
+     traces (cut for phase 17) with each lock-step grid's batcher on
+     ``replica_mesh(devices=[cuda:0] * 2)``: files byte-equal to phase
+     11's meshless grid on those traces, flushes on the mesh
      and the fallbacks counted by cause, every per-row ``greedy_place``
      launch held against ``cost_aware_plain_rows`` (counts zeroed just
      before the run and read just after).  (a)-(d) launch no
-     ``greedy_place``; (b) and (d) run in the card pool of phases 6-9
-     when one of phases 6, 7 and 9 runs, and a referent of a phase not
-     run is run here.
+     ``greedy_place``; (a)'s unsharded referent, (b) and (d) run in the
+     card pool of phases 6-9 when one of phases 6, 7 and 9 runs, and a
+     referent of a phase not run is run here;
+ 17. the 2-D serving mesh on the card (``build_hybrid_mesh`` over
+     logical shards: ``replica × host``): (a) the four ``[G]``-batched
+     host-sharded twins at phase 15's pod scale, G = 2 rows on a (1, 2,
+     4) mesh, per-step and Cost-Aware at C = 8, each row bit-equal to
+     the unsharded torch form on it, ms a call by CUDA events; and one
+     ``sharded_batched_tick_run`` of 3 Cost-Aware spans of different
+     horizons at 600 hosts (market operands, a live mask) padded to one
+     bucket, each row equal to its solo ``sharded_fused_tick_run``; (b)
+     the README's 2-D ``serve`` command at 600 hosts a session through
+     the CLI, ``--shard-hosts 2`` over a (1, 2, 2) mesh of logical
+     shards: every session host-sharded, flushes on the mesh, the
+     fallback causes adding up, ``report["mesh"]``, no ``greedy_place``
+     launch, each session equal to the unsharded per-tick run of the
+     jobs it injected (placements and meters), latency per tier; (c)
+     the same command with the sessions unsharded and the driver's
+     batcher on a (1, 4, 2) mesh: every per-row and R = 1
+     ``greedy_place`` launch held against its plain version, every
+     fallback ``unshardable``; (d) the README's resident command with
+     the sessions host-sharded over 2 shards: spans on the sharded
+     carries, edit rows, splices, each session equal to the unsharded
+     per-tick run of its jobs, 0 kernel builds and graph captures; (e)
+     ``serve --shard-hosts 1`` through ``python -m
+     pivot_tpu_torch.experiments.cli`` in a process of its own, beside
+     phase 2, to its end.
 
 The CPU sides of the card-vs-CPU checks of phases 6 (b) and (d), 7 (c),
 8 (c) and 9 (c) run in one spawned worker process a phase
@@ -353,8 +380,8 @@ kernel failure: no failure is served by the numpy twin unseen.
 
 Each phase logs its wall.  The line before the last is a JSON
 ``kernels`` record (its ``launches`` split into the R = 1 launches of
-phases 3, 4, 10-14 and 16, the R = 256 launches of phase 4, the R = 4
-launches of phase 14 and the per-row launches of phases 10-14 and 16,
+phases 3, 4, 10-14, 16 and 17, the R = 256 launches of phase 4, the R = 4
+launches of phase 14 and the per-row launches of phases 10-14, 16 and 17,
 with the per-row form's times; phase 15's path launches none, its
 comparison launch apart; a number
 of a phase not run is null); the
@@ -1827,6 +1854,7 @@ def card_pool_jobs(phases) -> dict:
     if 16 in phases and phases & {6, 7, 9}:
         # Phase 16's untimed runs; the first of phases 6, 7 and 9 waits
         # for them before it times anything.
+        jobs[16, "rollout"] = (p16_rollout_ref,)
         jobs.update({(16, "faults", sharded): (p16_faults, sharded)
                      for sharded in (True, False)})
         jobs[16, "capacity"] = (p16_capacity,)
@@ -2159,10 +2187,6 @@ def _phase_ensemble(device, cli, ck, rollout, out, args, on_card, kw, key,
                 prefix_max_rel=worst)
             out["arms"][arm] = row
             out["makespan_" + arm] = got["makespan"]  # for phase 7
-            if arm == "cost-aware":  # phase 16 (a)'s referent
-                out["rollout_" + arm] = dict(
-                    arrays=got, loop_wall_s=st["wall_s"],
-                    event_span_ms=st["event_span_ms"], ticks=st["ticks"])
             log(f"  (a) {arm} R={ENS_REPLICAS} through the CLI on the card: "
                 f"wall {row['wall_s']!r} s, "
                 f"{row['replica_rollouts_per_sec']!r} replica rollouts/s; "
@@ -6219,6 +6243,12 @@ def phase_sharding(device, ck) -> dict:
 #: its flushes of 2-4 runs pad to buckets of 2 and 4).
 P16_SHARDS = 4
 P16_GRID_SHARDS = 2
+#: (a)'s replicas: cut from the ``ensemble`` default 1024 for phase 17's
+#: time (the unsharded referent runs in the card pool).
+P16_ROLLOUT_REPLICAS = 256
+#: (e)'s traces: the first 2 of phase 11 (b)'s 4, cut for phase 17's
+#: time.
+P16_GRID_TRACES = 2
 #: (b) and (d) run phase 7 (b)'s commands (25 apps, cut from the
 #: ``ensemble`` default 50 for the script's 1,200 s; R = 64, ``--faults 4
 #: --fault-mttr 300``; ``capacity --host-counts 100 200 400 600``).
@@ -6306,9 +6336,10 @@ def p16_same(got: dict, want: dict, what) -> None:
 
 
 def p16_rollout(device, sharded, args, on_card):
-    """(a)'s rollout at the ``ensemble`` defaults, R = 1024, cost-aware:
-    sharded over ``P16_SHARDS`` logical shards or not.  Returns the
-    arrays and the tick loop's counts (``rollout``'s ``stats``)."""
+    """(a)'s rollout at the ``ensemble`` defaults, R =
+    ``P16_ROLLOUT_REPLICAS``, cost-aware: sharded over ``P16_SHARDS``
+    logical shards or not.  Returns the arrays and the tick loop's counts
+    (``rollout``'s ``stats``)."""
     import functools
 
     from pivot_tpu_torch.parallel.ensemble import (
@@ -6322,11 +6353,20 @@ def p16_rollout(device, sharded, args, on_card):
     st = {}
     torch.cuda.synchronize()
     res = _result(fn(
-        prng.PRNGKey(args.seed), *on_card, n_replicas=ENS_REPLICAS,
-        tick=args.tick, max_ticks=args.max_ticks, perturb=args.perturb,
-        policy="cost-aware", tick_order=args.tick_order, stats=st))
+        prng.PRNGKey(args.seed), *on_card,
+        n_replicas=P16_ROLLOUT_REPLICAS, tick=args.tick,
+        max_ticks=args.max_ticks, perturb=args.perturb, policy="cost-aware",
+        tick_order=args.tick_order, stats=st))
     return dict(arrays=res, loop_wall_s=st["wall_s"],
                 event_span_ms=st.get("event_span_ms"), ticks=st["ticks"])
+
+
+def p16_rollout_ref(device):
+    """(a)'s unsharded referent (the card pool's run)."""
+    from pivot_tpu_torch.experiments import cli
+
+    args, on_card = ensemble_inputs(cli, device)
+    return p16_rollout(device, False, args, on_card)
 
 
 def p16_without_backend(report) -> dict:
@@ -6402,8 +6442,8 @@ def p16_grid(device, ck, mesh, tmp, chk) -> dict:
 
     argv = ["--device", "cuda", "--num-hosts", "600", "--job-dir",
             "data/jobs", "--output-dir", tmp, "--seed", "0", "--trace-limit",
-            str(P11_TRACES), "--batch-runs", "4", "overall", "--num-apps",
-            str(P11_APPS)]
+            str(P16_GRID_TRACES), "--batch-runs", "4", "overall",
+            "--num-apps", str(P11_APPS)]
     chunks, lock = [], runner.run_grid_lockstep
 
     def run_grid_lockstep(runs, stats_out=None):
@@ -6452,10 +6492,12 @@ def phase_replica_axis(device, ck, refs) -> dict:
     rec = {}
     ck.reset_launches()  # (a)-(d) launch no greedy_place
 
-    # (a) the sharded rollout at the ensemble defaults, R = 1024.
+    # (a) the sharded rollout at the ensemble defaults, R = 256.
     t0 = time.perf_counter()
     args, on_card = ensemble_inputs(cli, device)
-    want = refs.get("ensemble") or p16_rollout(device, False, args, on_card)
+    in_pool = ("rollout",) in refs
+    want = refs.get(("rollout",)) or p16_rollout(device, False, args,
+                                                 on_card)
     got = p16_rollout(device, True, args, on_card)
     p16_same(got["arrays"], want["arrays"], "(a) sharded vs unsharded")
     if got["arrays"]["n_unfinished"].max() != 0:
@@ -6465,13 +6507,17 @@ def phase_replica_axis(device, ck, refs) -> dict:
                 for k, r in (("sharded", got), ("unsharded", want))}
     ratio = got["loop_wall_s"] / want["loop_wall_s"]
     rec["a"]["wall_ratio"] = ratio
+    rec["a"]["unsharded_in_pool"] = in_pool
     log(f"  (a) sharded_rollout over {P16_SHARDS} logical shards, "
-        f"cost-aware R={ENS_REPLICAS} at the ensemble defaults (T="
+        f"cost-aware R={P16_ROLLOUT_REPLICAS} at the ensemble defaults (T="
         f"{on_card[1].n_tasks}, H={on_card[0].shape[0]}): every field equals "
         f"the unsharded rollout's bit for bit "
-        f"({'phase 6 (a)' if 'ensemble' in refs else 'run here'}); tick "
+        f"({'in the card pool' if in_pool else 'run here'}); tick "
         f"loop {got['loop_wall_s']!r} s sharded vs {want['loop_wall_s']!r} "
-        f"s unsharded ({ratio!r}x), {got['event_span_ms']!r} / "
+        f"s unsharded ({ratio!r}x"
+        + (", the unsharded loop shared the card with the pool"
+           if in_pool else "")
+        + f"), {got['event_span_ms']!r} / "
         f"{want['event_span_ms']!r} ms between CUDA events, {got['ticks']} "
         f"/ {want['ticks']} ticks")
     del got, want
@@ -6545,11 +6591,12 @@ def phase_replica_axis(device, ck, refs) -> dict:
                            Check())["files"]
         grid = p16_grid(device, ck, p16_mesh(device, P16_GRID_SHARDS),
                         os.path.join(tmp, "mesh"), chk)
-    differ = files_differ(grid["files"], ref)
-    n_traces = len({k[0] for k in ref})
-    if differ or n_traces != P11_TRACES:
+    traces = {k[0] for k in grid["files"]}
+    differ = files_differ(grid["files"],
+                          {k: v for k, v in ref.items() if k[0] in traces})
+    if differ or len(traces) != P16_GRID_TRACES:
         raise AssertionError(f"(e) files differ from the meshless grid: "
-                             f"{differ[:6]} ({n_traces} traces)")
+                             f"{differ[:6]} ({len(traces)} traces)")
     st, launches = grid["batcher"], grid["launches"]
     rows = sum(launches["rows"].values())
     if not st["mesh_dispatches"] or not rows:
@@ -6558,7 +6605,8 @@ def phase_replica_axis(device, ck, refs) -> dict:
             "unshardable", "mixed_shapes", "indivisible")):
         raise AssertionError(f"(e) the fallback causes do not add up: {st}")
     rec["e"] = dict(wall=grid["wall"], batcher=st, launches=launches)
-    log(f"  (e) overall --batch-runs 4, {P11_TRACES} traces x 3 arms x "
+    log(f"  (e) overall --batch-runs 4, {P16_GRID_TRACES} traces (of "
+        f"phase 11 (b)'s {P11_TRACES}) x 3 arms x "
         f"{P11_APPS} apps at 600 hosts, each lock-step grid's batcher on "
         f"replica_mesh(devices=[cuda:0] * {P16_GRID_SHARDS}): files "
         f"byte-identical to the meshless grid "
@@ -6571,6 +6619,513 @@ def phase_replica_axis(device, ck, refs) -> dict:
     rec["launches_r1"] = launches["by_replicas"].get(1, 0)
     rec["launches_rows_by_g"] = launches["rows"]
     rec["launches_rows"] = rows
+    rec["max_abs_err"] = chk.max_abs_err
+    return rec
+
+
+# -- phase 17: the 2-D serving mesh -----------------------------------------
+
+#: (a) phase 15's pod-scale tick (``bench.py:3018-3019``), G rows, on a
+#: (1, replica 2, host 4) mesh of 8 logical shards of the card.
+P17_G = 2
+P17_MESH_A = (2, 4)
+#: (a) the ragged batched span: (horizon, slots) of its G = 3 spans at 600
+#: hosts (phase 11's Cost-Aware requests with a market, served by the
+#: torch pass), on a (1, replica 3, host 4) mesh.
+P17_SPANS = ((3, 24), (11, 48), (6, 32))
+P17_SPAN_MESH = (3, 4)
+#: (b) the README's 2-D serve command (``README.md:100-102``) without its
+#: ``--shard-hosts 2``, which each run sets on a mesh of logical shards.
+P17_SERVE = ("--sessions", "3", "--jobs", "300", "--arrival-rate", "25",
+             "--fuse-spans", "slo", "--tenant-quota", "0.5", "--tier-mix",
+             "0.25,0.35,0.40", "--tier-reserve", "0,2,4", "--tier-policies",
+             "spill,shed,shed")
+#: (replica, host) logical shards of (b) and (c): on replica 4 a coalesced
+#: pair of kernel ticks (bucket 2) cannot ride the mesh.
+P17_MESH_B = (2, 2)
+P17_MESH_C = (4, 2)
+#: (d) the README's resident command (``README.md:122-123``), its
+#: sessions host-sharded over ``P17_RESIDENT_SHARDS`` logical shards.
+P17_RESIDENT = ("--sessions", "3", "--jobs", "300", "--arrival-rate", "25",
+                "--fuse-spans", "slo", "--resident", "--splice-tier", "1")
+P17_RESIDENT_SHARDS = 2
+#: (e) ``serve --shard-hosts 1`` through the real CLI in a process of its
+#: own (one card: only S = 1 divides the visible devices).
+P17_ONESHOT = ("--device", "cuda", "serve", "--shard-hosts", "1",
+               "--sessions", "2", "--jobs", "40", "--arrival-rate", "5",
+               "--fuse-spans", "slo")
+
+
+def p17_mesh(device, R, S):
+    """``build_hybrid_mesh(host_parallel=S)`` over R·S logical shards."""
+    from pivot_tpu_torch.parallel.mesh import build_hybrid_mesh
+
+    return build_hybrid_mesh(host_parallel=S,
+                             devices=[torch.device(device)] * (R * S))
+
+
+def p17_twin_call(arm, x, mesh, phase2="auto"):
+    """One call of ``arm``'s [G]-batched 2-D twin on the stacked tick
+    ``x`` (``p15_inputs``' operands, a leading row axis)."""
+    from pivot_tpu_torch.ops import shard as sh
+
+    args = (x["avail"], x["dem"], x["valid"])
+    if arm == "opportunistic":
+        return sh.opportunistic_kernel_sharded_batched(
+            mesh, *args, x["u"], phase2=phase2)
+    if arm == "cost-aware":
+        return sh.cost_aware_kernel_sharded_batched(
+            mesh, *args, x["ng"], x["az"], x["cost"], x["bw"], x["hz"],
+            x["counts"], **P15_CA, phase2=phase2)
+    fn = {"first-fit": sh.first_fit_kernel_sharded_batched,
+          "best-fit": sh.best_fit_kernel_sharded_batched}[arm]
+    return fn(mesh, *args, phase2=phase2)
+
+
+def p17_pod(device, p15) -> dict:
+    """(a): the four arms per-step and Cost-Aware at C = 8 through the
+    batched twins on G rows of the pod-scale tick, each row bit-equal to
+    the unsharded torch form on it; ms a call by CUDA events."""
+    rows = [p15_inputs(17 + g, P15_T, P15_H, device) for g in range(P17_G)]
+    x = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+    mesh = p17_mesh(device, *P17_MESH_A)
+    rec = {}
+    for arm, mode in [(a, "auto") for a in P15_ARMS] + [
+            ("cost-aware", P15_CHUNK)]:
+        got = p17_twin_call(arm, x, mesh, mode)
+        placed = []
+        for g, r in enumerate(rows):
+            want = p15_call(arm, r)
+            p15_exact((got[0][g], got[1][g]), want,
+                      f"(a) {arm} {mode} row {g}")
+            placed.append(int((want[0] >= 0).sum()))
+        ms = _events_ms(lambda: p17_twin_call(arm, x, mesh, mode), 1)
+        key = f"{arm} {'step' if mode == 'auto' else f'C={mode}'}"
+        one_d = p15 and p15["pod"][arm][
+            f"S4_{'step' if mode == 'auto' else 'chunk'}_ms"]
+        rec[key] = dict(ms=ms, placed=placed, phase15_S4_ms=one_d)
+        log(f"  (a) {key}, G={P17_G} x H={P15_H} x T={P15_T} on "
+            f"(1, {P17_MESH_A[0]}, {P17_MESH_A[1]}): every row = the "
+            f"unsharded torch form's bit for bit ({placed} placed); "
+            f"{ms!r} ms a call (CUDA events)"
+            + ("" if one_d is None else
+               f"; phase 15's 1-D S=4 form {one_d!r} ms a row"))
+    return rec
+
+
+def p17_ragged(device) -> dict:
+    """(a) the ragged span: G = 3 spans of different horizons padded to
+    one (K', B') bucket through ``sharded_batched_tick_run`` (``n_ticks
+    _dyn`` a [G] operand), each row trimmed back equal to its solo
+    ``sharded_fused_tick_run``."""
+    from pivot_tpu_torch.ops import shard as sh
+    from pivot_tpu_torch.ops import tickloop as tt
+    from pivot_tpu_torch.parallel.mesh import host_sharded_mesh
+
+    reqs = []
+    for seed, (n, S) in enumerate(P17_SPANS):
+        args, kw, static = p11_request(170 + seed, n, S, True)
+        static.pop("greedy")
+        reqs.append((args, kw, static))
+    k2 = max(r[2]["n_ticks"] for r in reqs)
+    b2 = max(r[0][1].shape[0] for r in reqs)
+    padded = [tt.ragged_span_pad(a, k, k2, b2) for a, k, _s in reqs]
+    static = dict(reqs[0][2], n_ticks=k2)
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    cols = [dev(np.stack([p[0][i] for p in padded])) for i in range(3)]
+    kw = {k: (np.stack([p[1][k] for p in padded])
+              if k in tt.SPAN_HOST_OPERANDS
+              else dev(np.stack([p[1][k] for p in padded])))
+          for k in padded[0][1]}
+    horizons = np.array([n for n, _S in P17_SPANS], np.int32)
+    mesh = p17_mesh(device, *P17_SPAN_MESH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = sh.sharded_batched_tick_run(mesh, *cols, horizons, **kw, **static)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    solo_mesh = host_sharded_mesh(devices=[device] * P17_SPAN_MESH[1])
+    placed = []
+    for g, (args, k, own) in enumerate(reqs):
+        row = tt.ragged_span_trim(tt.SpanResult(*(f[g] for f in got)),
+                                  own["n_ticks"], args[1].shape[0])
+        solo = sh.sharded_fused_tick_run(
+            solo_mesh, dev(args[0]), dev(args[1]), dev(args[2]),
+            int(args[3]), **{n: v if n in tt.SPAN_HOST_OPERANDS else dev(v)
+                             for n, v in k.items()}, **own)
+        for f in row._fields:
+            a, b = getattr(row, f), getattr(solo, f)
+            if a.shape != b.shape or not torch.equal(
+                    a.view(torch.int32) if a.dtype == torch.float32 else a,
+                    b.view(torch.int32) if b.dtype == torch.float32 else b):
+                raise AssertionError(f"(a) ragged span row {g}: {f} differs "
+                                     "from its solo sharded span")
+        placed.append(int((row.placements >= 0).sum()))
+    if not all(placed):
+        raise AssertionError(f"(a) ragged spans placed {placed}")
+    log(f"  (a) sharded_batched_tick_run: G={len(reqs)} Cost-Aware spans "
+        f"of horizons {horizons.tolist()} (market operands, a live mask) at "
+        f"600 hosts padded to (K'={k2}, B'={b2}) on (1, {P17_SPAN_MESH[0]}, "
+        f"{P17_SPAN_MESH[1]}): each row = its solo sharded_fused_tick_run "
+        f"bit for bit ({placed} placed); {wall!r} s")
+    return dict(horizons=horizons.tolist(), k2=k2, b2=b2, placed=placed,
+                wall_s=wall)
+
+
+@contextlib.contextmanager
+def p17_cards(n, device):
+    """The CLI's visible cards as ``n`` logical shards of the card, so
+    ``serve --shard-hosts S`` builds its hybrid mesh over them."""
+    from pivot_tpu_torch.parallel import mesh as pm
+
+    orig = pm.visible_cards
+    pm.visible_cards = lambda: [torch.device(device)] * n
+    try:
+        yield
+    finally:
+        pm.visible_cards = orig
+
+
+@contextlib.contextmanager
+def p17_driver_mesh(mesh):
+    """The CLI's ``ServeDriver`` handed ``mesh`` (its sessions' policies
+    left unsharded): put in place inside ``ServeRecorder.attach``."""
+    from pivot_tpu_torch import serve
+
+    base = serve.ServeDriver
+
+    class Driver(base):
+        def __init__(self, *a, **k):
+            k["mesh"] = mesh
+            super().__init__(*a, **k)
+
+    serve.ServeDriver = Driver
+    try:
+        yield
+    finally:
+        serve.ServeDriver = base
+
+
+@contextlib.contextmanager
+def p17_submits():
+    """Each scheduler's submissions, in the order it took them: a list of
+    ``(sim instant, app id)`` on the scheduler (``_p17_submits``)."""
+    from pivot_tpu_torch.sched import GlobalScheduler
+
+    orig = GlobalScheduler.submit
+
+    def submit(self, app):
+        self.__dict__.setdefault("_p17_submits", []).append(
+            (self.env.now, app.id))
+        return orig(self, app)
+
+    GlobalScheduler.submit = submit
+    try:
+        yield
+    finally:
+        GlobalScheduler.submit = orig
+
+
+def p17_serve(cli, ck, name, tmp, argv, cards=None, driver_mesh=None,
+              device="cuda"):
+    """One CLI ``serve`` of ``argv`` through ``cli.main`` (``ServeRecorder``
+    taps, an ``R1Tap``, each session's submissions recorded, launch counts
+    zeroed just before and read just after): ``(report, recorder,
+    launches, R=1 tap)``."""
+    from pivot_tpu_torch.utils import reset_ids
+
+    rec, r1 = ServeRecorder(), R1Tap()
+    buf = io.StringIO()
+    reset_ids()
+    with contextlib.ExitStack() as stack:
+        if cards is not None:
+            stack.enter_context(p17_cards(cards, device))
+        stack.enter_context(rec.attach())
+        if driver_mesh is not None:
+            stack.enter_context(p17_driver_mesh(driver_mesh))
+        stack.enter_context(r1)
+        stack.enter_context(p17_submits())
+        stack.enter_context(contextlib.redirect_stdout(buf))
+        ck.reset_launches()
+        cli.main(["--output-dir", os.path.join(tmp, name), "serve", *argv])
+        launches = dict(total=ck.LAUNCHES["greedy_place"],
+                        rows=dict(ck.LAUNCHES_ROWS),
+                        by_replicas=dict(ck.LAUNCHES_BY_REPLICAS))
+    report = json.loads(buf.getvalue().strip().splitlines()[-1])
+    c = report["slo"]["counters"]
+    if c["completed"] != c["admitted"] or \
+            c["completed"] + c["shed"] != c["arrived"]:
+        raise AssertionError(f"serve {name}: {c}")
+    rec.driver.audit(f"serve {name}")
+    return report, rec, launches, r1
+
+
+def p17_stream(cli, args) -> dict:
+    """The CLI's arrival stream for ``args``, fresh from the seed:
+    ``{app id: app}``."""
+    from pivot_tpu_torch.serve import mixed_tier_arrivals, poisson_arrivals
+    from pivot_tpu_torch.utils import reset_ids
+
+    reset_ids()
+    if args.tier_mix:
+        stream = mixed_tier_arrivals(
+            args.arrival_rate, args.jobs,
+            weights=tuple(float(w) for w in args.tier_mix.split(",")),
+            seed=args.seed)
+    else:
+        stream = poisson_arrivals(args.arrival_rate, args.jobs,
+                                  seed=args.seed)
+    return {x.app.id: x.app for x in stream}
+
+
+def p17_batch_referee(cli, argv, rec, report, name) -> int:
+    """Each session against the per-tick, unsharded batch-mode run of the
+    jobs it injected, submitted at the instants and in the order its
+    scheduler took them (``p17_submits``; the torch Cost-Aware pass:
+    ``use_kernel=False``, no launch): placements and the run meters
+    equal.  Which session gets which job, and when a spilled job
+    re-enters (a late injection, at the session's clock), follow the
+    threads' timing in replay mode, so two service runs need not admit
+    alike; each session's own submissions have one unsharded answer.
+    Returns the jobs compared."""
+    from pivot_tpu_torch.experiments.runner import ExperimentRun
+    from pivot_tpu_torch.utils.config import (
+        PolicyConfig, build_cluster, make_policy)
+    from pivot_tpu_torch.workload.trace import TraceSchedule
+
+    args = cli.parse_args(["serve", *argv])
+    fresh = p17_stream(cli, args)
+    if report["slo"]["counters"]["arrived"] != len(fresh):
+        raise AssertionError(f"serve {name}: {report['slo']['counters']} of "
+                             f"a {len(fresh)}-job stream")
+    pcfg = PolicyConfig(name="cost-aware", device="cuda",
+                        bin_pack="first-fit", sort_tasks=True,
+                        sort_hosts=True)
+    n = 0
+    for g, sess in enumerate(sorted(rec.sessions, key=lambda s: s.slot)):
+        apps = [fresh[app.id] for app in sess._injected]
+        bins = [(0.0, [])]
+        for t, app_id in sess.scheduler._p17_submits:
+            if t == bins[-1][0]:
+                bins[-1][1].append(fresh[app_id])
+            else:
+                bins.append((t, [fresh[app_id]]))
+        policy = make_policy(pcfg)
+        policy.use_kernel = False
+        want = ExperimentRun(
+            f"batch-{g}", build_cluster(cli._cluster_config(args)), policy,
+            schedule=TraceSchedule(bins), seed=args.seed, interval=5.0,
+            fuse_spans=False).run()
+        served = [t.placement for app in sess._injected
+                  for grp in app.groups for t in grp.tasks]
+        batch_p = [t.placement for app in apps
+                   for grp in app.groups for t in grp.tasks]
+        if served != batch_p:
+            raise AssertionError(f"serve {name}: session {g}'s placements "
+                                 "differ from the unsharded per-tick run")
+        got = sess.summary()
+        if {k: got[k] for k in SERVE_KEYS} != {k: want[k]
+                                              for k in SERVE_KEYS}:
+            raise AssertionError(f"serve {name}: session {g}'s meters "
+                                 f"{got} != unsharded per-tick {want}")
+        n += len(apps)
+    return n
+
+
+def p17_2d_serve(device, ck, cli, tmp, card, serve10) -> dict:
+    """(b): the README's 2-D command at 600 hosts a session, every session
+    host-sharded and the driver's batcher on the (1, 2, 2) mesh."""
+    R, S = P17_MESH_B
+    argv = [*P17_SERVE, "--shard-hosts", str(S)]
+    report, rec, launches, _r1 = p17_serve(cli, ck, "b", tmp, argv,
+                                           cards=R * S, device=device)
+    st = report["batcher"]
+    if launches["total"]:
+        raise AssertionError(f"(b) the sharded serve launched greedy_place: "
+                             f"{launches}")
+    if report["mesh"] != {"replica_dcn": 1, "replica": R, "host": S}:
+        raise AssertionError(f"(b) report mesh {report['mesh']}")
+    if not all(s.policy._mesh is not None for s in rec.sessions):
+        raise AssertionError("(b) a session's policy is not host-sharded")
+    if not st["mesh_dispatches"] or st["mesh_fallbacks"] != sum(
+            st[f"mesh_fallback_{c}"] for c in (
+                "unshardable", "mixed_shapes", "indivisible")):
+        raise AssertionError(f"(b) batcher {st}")
+    spans = sum(s.summary()["span_stats"]["fused_spans"] for s in rec.sessions)
+    if not spans:
+        raise AssertionError("(b) no span served")
+    t0 = time.perf_counter()
+    jobs = p17_batch_referee(cli, argv, rec, report, "b")
+    ref_s = time.perf_counter() - t0
+    row = serve_log("17 (b)", report, launches, card)
+    row.update(spans=spans, referee_jobs=jobs, referee_s=ref_s,
+               mesh=report["mesh"])
+    if serve10 is not None:
+        log(f"    phase 10 (c)'s unsharded tiers (its own command): "
+            + ", ".join(f"{t}: p50 {v['p50_ms']!r} p99 {v['p99_ms']!r} ms"
+                        for t, v in serve10["c"]["tiers"].items()))
+    log(f"    (b) sessions host-sharded (S={S}) on the (1, {R}, {S}) mesh: "
+        f"{spans} spans, {st['mesh_dispatches']} mesh dispatches, "
+        f"fallbacks {st['mesh_fallbacks']} (unshardable "
+        f"{st['mesh_fallback_unshardable']}, mixed shapes "
+        f"{st['mesh_fallback_mixed_shapes']}, indivisible "
+        f"{st['mesh_fallback_indivisible']}); each session = the unsharded "
+        f"per-tick run of its {jobs} jobs in all (placements and meters; "
+        f"{ref_s!r} s); 0 greedy_place launches; audit clean")
+    return row
+
+
+def p17_kernel_serve(device, ck, cli, tmp, card, chk) -> dict:
+    """(c): the same command, the sessions unsharded (their Cost-Aware
+    ticks on ``greedy_place``) and the driver's batcher on the (1, 4, 2)
+    mesh: every per-row and R = 1 launch held against its plain version;
+    a coalesced pair cannot ride replica 4 and falls back as
+    ``unshardable``."""
+    mesh = p17_mesh(device, *P17_MESH_C)
+    report, rec, launches, r1 = p17_serve(cli, ck, "c", tmp, P17_SERVE,
+                                          driver_mesh=mesh, device=device)
+    st = report["batcher"]
+    rows = sum(launches["rows"].values())
+    if launches["total"] != rows + launches["by_replicas"].get(1, 0) or \
+            set(launches["by_replicas"]) - {1} or rows != len(rec.rows):
+        raise AssertionError(f"(c) launches {launches}, {len(rec.rows)} "
+                             "per-row recorded")
+    if any(s.policy._mesh is not None for s in rec.sessions):
+        raise AssertionError("(c) a session is host-sharded")
+    for i, (a, k, got) in enumerate(rec.rows):
+        chk.same(got, ck.cost_aware_plain_rows(*a, **k), ("(c)", "rows", i))
+    r1.hold(chk, launches["by_replicas"], "(c)")
+    if not st["mesh_fallbacks"] or \
+            st["mesh_fallback_unshardable"] != st["mesh_fallbacks"]:
+        raise AssertionError(f"(c) the kernel's fallbacks are not all "
+                             f"unshardable: {st}")
+    row = serve_log("17 (c)", report, launches, card)
+    row["mesh"] = report["mesh"]
+    log(f"    (c) unsharded Cost-Aware sessions on the (1, "
+        f"{P17_MESH_C[0]}, {P17_MESH_C[1]}) batcher: {rows} per-row launches "
+        f"by G {launches['rows']}, {launches['by_replicas'].get(1, 0)} R=1, "
+        f"each held against its plain version (max |avail diff| "
+        f"{chk.max_abs_err!r}); {st['mesh_dispatches']} mesh dispatches, "
+        f"{st['mesh_fallbacks']} fallbacks, all unshardable; audit clean")
+    return row
+
+
+def p17_resident(device, ck, cli, tmp, card) -> dict:
+    """(d): the README's resident command with every session host-sharded
+    over 2 logical shards: spans on the sharded carries, edit rows and
+    splices, each session equal to the unsharded per-tick run of its
+    jobs, no kernel build or graph capture."""
+    from pivot_tpu_torch.utils.compile_counter import count_compiles
+
+    argv = [*P17_RESIDENT, "--shard-hosts", str(P17_RESIDENT_SHARDS)]
+    with count_compiles() as counter:
+        report, rec, launches, _r1 = p17_serve(
+            cli, ck, "d", tmp, argv, cards=P17_RESIDENT_SHARDS, device=device)
+    if counter.kernel_builds or counter.graph_captures:
+        raise AssertionError(f"(d) {counter.kernel_builds} kernel builds, "
+                             f"{counter.graph_captures} graph captures")
+    if launches["total"] or report["batcher"] is not None:
+        raise AssertionError(f"(d) launches {launches}, batcher "
+                             f"{report['batcher']}")
+    resident = [s.policy.dispatch_stats()["resident"] for s in rec.sessions]
+    tot = {k: sum(x[k] for x in resident) for k in resident[0]}
+    splices = sum(s.summary()["span_stats"]["span_splices"]
+                  for s in rec.sessions)
+    if not tot["spans"] or not tot["edit_rows"] or any(
+            s.policy._mesh is None for s in rec.sessions):
+        raise AssertionError(f"(d) resident {tot}")
+    t0 = time.perf_counter()
+    jobs = p17_batch_referee(cli, argv, rec, report, "d")
+    ref_s = time.perf_counter() - t0
+    row = serve_log("17 (d)", report, launches, card)
+    row.update(resident=tot, splices=splices, referee_jobs=jobs,
+               referee_s=ref_s, kernel_builds=0, graph_captures=0)
+    log(f"    (d) resident carries host-sharded (S={P17_RESIDENT_SHARDS}): "
+        f"{tot['spans']} spans on the carries, {tot['edit_rows']} edit rows,"
+        f" {splices} splices, {tot['d2h_bytes']} mirror-diff bytes; each "
+        f"session = the unsharded per-tick run of its {jobs} jobs in all "
+        f"({ref_s!r} s); 0 kernel builds, 0 graph captures, 0 greedy_place "
+        "launches")
+    return row
+
+
+class P17OneShot:
+    """(e): ``serve --shard-hosts 1`` through the real CLI in a process of
+    its own.  Like ``P14OneShot`` it needs phase 1's build and runs beside
+    phase 2, which times nothing; ``wait`` reads its report."""
+
+    def __init__(self):
+        self._tmp = tempfile.TemporaryDirectory(dir=os.getcwd())
+        self._log = os.path.join(self._tmp.name, "oneshot.log")
+        self._t0 = time.perf_counter()
+        self.report = self.wall_s = None
+        with open(self._log, "w") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "pivot_tpu_torch.experiments.cli",
+                 "--output-dir", self._tmp.name, *P17_ONESHOT],
+                stdout=f, stderr=subprocess.STDOUT)
+
+    def wait(self) -> None:
+        """Wait for the run (killed after 600 s); raises if it failed."""
+        if self.report is not None:
+            return
+        try:
+            rc = self.proc.wait(timeout=600)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        self.wall_s = time.perf_counter() - self._t0
+        with open(self._log) as f:
+            text = f.read()
+        if rc != 0:
+            raise AssertionError(f"(e) serve --shard-hosts 1 failed:\n"
+                                 f"{text[-2000:]}")
+        self.report = json.loads(text.strip().splitlines()[-1])
+        self._tmp.cleanup()
+
+
+def phase_2d_mesh(device, ck, p15, serve10, oneshot) -> dict:
+    """Phase 17 (module docstring).  Returns its record."""
+    from pivot_tpu_torch.experiments import cli
+
+    card = card_line()
+    log(f"  [{card}]")
+    chk = Check()
+    rec = {}
+    t0 = time.perf_counter()
+    rec["pod"] = p17_pod(device, p15)
+    rec["ragged"] = p17_ragged(device)
+    log(f"  (a): {time.perf_counter() - t0!r} s")
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        t0 = time.perf_counter()
+        rec["b"] = p17_2d_serve(device, ck, cli, tmp, card, serve10)
+        log(f"  (b): {time.perf_counter() - t0!r} s")
+        t0 = time.perf_counter()
+        rec["c"] = p17_kernel_serve(device, ck, cli, tmp, card, chk)
+        log(f"  (c): {time.perf_counter() - t0!r} s")
+        t0 = time.perf_counter()
+        rec["d"] = p17_resident(device, ck, cli, tmp, card)
+        log(f"  (d): {time.perf_counter() - t0!r} s")
+    oneshot.wait()
+    e = oneshot.report
+    c = e["slo"]["counters"]
+    if e["mesh"] != {"replica_dcn": 1, "replica": 1, "host": 1} or \
+            not c["completed"] or c["completed"] + c["shed"] != c["arrived"]:
+        raise AssertionError(f"(e) serve --shard-hosts 1: mesh {e['mesh']}, "
+                             f"{c}")
+    rec["e"] = dict(wall_s=oneshot.wall_s, mesh=e["mesh"], counters=c)
+    log(f"  (e) python -m pivot_tpu_torch.experiments.cli "
+        f"{' '.join(P17_ONESHOT)} (its own process, beside phase 2): ended "
+        f"in {oneshot.wall_s!r} s from its start, {c['completed']} of "
+        f"{c['arrived']} jobs completed, report mesh {e['mesh']}")
+    launches = rec["c"]["launches"]
+    rec["launches_r1"] = launches["by_replicas"].get(1, 0)
+    rec["launches_rows_by_g"] = launches["rows"]
+    rec["launches_rows"] = sum(launches["rows"].values())
     rec["max_abs_err"] = chk.max_abs_err
     return rec
 
@@ -6671,11 +7226,11 @@ def phase_5_report(ck, e2e, sens, card, device):
     return times, gt, spans
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17)
 
 
 def selected_phases(argv) -> set:
-    """``--phases 1,6,7`` (default: all).  Phases 2-5 and 10-16 need
+    """``--phases 1,6,7`` (default: all).  Phases 2-5 and 10-17 need
     phase 1's build (phase 14 its ``ptxas`` rows too), phase 5 the runs
     of phases 3 and 4, phase 13 the python-fabric run of phase 3: they
     come along."""
@@ -6691,7 +7246,7 @@ def selected_phases(argv) -> set:
         want |= {3, 4}
     if 13 in want:
         want.add(3)
-    if want & {2, 3, 4, 5, 10, 11, 12, 13, 14, 15, 16}:
+    if want & {2, 3, 4, 5, 10, 11, 12, 13, 14, 15, 16, 17}:
         want.add(1)
     return want
 
@@ -6749,8 +7304,6 @@ def phases_6_to_9(phases, device, card, census, walls, p16):
             census_line(census, 9)
             log(f"  phase 9 wall: {walls[9]!r} s")
         p16.update({k[1:]: v for k, v in pool.results.items() if k[0] == 16})
-    if ens is not None:
-        p16["ensemble"] = ens.pop("rollout_cost-aware")
     if sweeps is not None:
         p16.update({k: sweeps.pop("summary_" + k) for k in P16_FROM_PHASE_7})
     if search is not None:
@@ -6807,8 +7360,10 @@ def main(argv=None) -> int:
         walls[1] = time.perf_counter() - tp
         census_line(census, 1)
         log(f"  phase 1 wall: {walls[1]!r} s")
-    # Phase 14 (e)'s one-shot run, beside phase 2 (which times nothing).
+    # Phases 14 (e)'s and 17 (e)'s one-shot runs, beside phase 2 (which
+    # times nothing).
     oneshot = P14OneShot() if 14 in phases else None
+    oneshot17 = P17OneShot() if 17 in phases else None
     try:
         if 2 in phases:
             tp = time.perf_counter()
@@ -6822,10 +7377,17 @@ def main(argv=None) -> int:
             census_line(census, 2)
             log(f"  phase 2 wall: {walls[2]!r} s")
     finally:
-        if oneshot is not None:
-            oneshot.wait()
+        try:
+            if oneshot is not None:
+                oneshot.wait()
+        finally:
+            if oneshot17 is not None:
+                oneshot17.wait()
     if oneshot is not None:
         log(f"  phase 14 (e)'s one-shot run ended: {oneshot.wall_s!r} s "
+            "from its start")
+    if oneshot17 is not None:
+        log(f"  phase 17 (e)'s one-shot run ended: {oneshot17.wall_s!r} s "
             "from its start")
     if 3 in phases:
         tp = time.perf_counter()
@@ -6930,7 +7492,8 @@ def main(argv=None) -> int:
     if 16 in phases:
         tp = time.perf_counter()
         log(f"== 16. the replica axis on the card: sharded_rollout over "
-            f"{P16_SHARDS} logical shards (R={ENS_REPLICAS}; R=64 with "
+            f"{P16_SHARDS} logical shards (R={P16_ROLLOUT_REPLICAS}; R=64 "
+            f"with "
             f"faults), search --backend sharded_rollout and the "
             f"{SR_MAIN[-1][1]}-row population, the sharded capacity sweep, "
             f"the lock-step grid on the batcher's replica mesh")
@@ -6939,6 +7502,19 @@ def main(argv=None) -> int:
         walls[16] = time.perf_counter() - tp
         census_line(census, 16)
         log(f"  phase 16 wall: {walls[16]!r} s")
+    p17 = None
+    if 17 in phases:
+        tp = time.perf_counter()
+        log(f"== 17. the 2-D serving mesh on the card: the [G]-batched "
+            f"twins at H={P15_H}, T={P15_T}, G={P17_G} and a ragged batched "
+            f"span, the README's 2-D serve command on a (1, "
+            f"{P17_MESH_B[0]}, {P17_MESH_B[1]}) mesh of logical shards, "
+            f"unsharded Cost-Aware sessions on a 2-D batcher, the sharded "
+            f"resident carry, serve --shard-hosts 1 through the CLI")
+        p17 = phase_2d_mesh(device, ck, p15, serve, oneshot17)
+        walls[17] = time.perf_counter() - tp
+        census_line(census, 17)
+        log(f"  phase 17 wall: {walls[17]!r} s")
     if configs is not None:
         configs.uninstall()
     if oneshot is not None:
@@ -6951,7 +7527,7 @@ def main(argv=None) -> int:
         "tooling": p14 and {k: v for k, v in p14.items()
                             if k not in ("costattr",)},
         "cost_attribution": p14 and p14["costattr"]["rows"],
-        "sharding": p15, "replica_axis": p16,
+        "sharding": p15, "replica_axis": p16, "mesh_2d": p17,
         "phase_walls": walls,
         "same_files": e2e and e2e["same_files"], "gated_times": gt,
         "sensitivity": sens and {p: {k: v for k, v in r.items()
@@ -6979,6 +7555,8 @@ def main(argv=None) -> int:
         errs.append(p15["max_abs_err"])
     if p16 is not None:
         errs.append(p16["max_abs_err"])
+    if p17 is not None:
+        errs.append(p17["max_abs_err"])
     sv = serve and [serve[k]["launches"] for k in SERVE_RUNS]
     sv_rows = sv and sum(sum(x["rows"].values()) for x in sv)
     sv_r1 = sv and sum(x["by_replicas"].get(1, 0) for x in sv)
@@ -6994,40 +7572,38 @@ def main(argv=None) -> int:
     t_rows = p14 and p14["launches_rows"]
     r_r1 = p16 and p16["launches_r1"]
     r_rows = p16 and p16["launches_rows"]
+    m2_r1 = p17 and p17["launches_r1"]
+    m2_rows = p17 and p17["launches_rows"]
     record = {"kernels": [{
         "name": "greedy_place",
         "route": "cuda",
         "source": "pivot_tpu_torch/csrc/greedy_place.cu",
         "replaces": "pivot_tpu/ops/pallas_kernels.py:265",
         "launches": (e2e and ca and serve and batching and p12 and p13
-                     and p14 and p16
+                     and p14 and p16 and p17
                      and e2e["runs"]["cuda"]["launches"]
                      + sum(ca["launches"].values()) + sv_rows + sv_r1
                      + b_r1 + b_rows + m_r1 + m_rows + n_r1 + n_rows
-                     + t_r1 + p14["launches_r4"] + t_rows + r_r1 + r_rows),
+                     + t_r1 + p14["launches_r4"] + t_rows + r_r1 + r_rows
+                     + m2_r1 + m2_rows),
         "launches_r1": (e2e and ca and serve and batching and p12 and p13
-                        and p14 and p16
+                        and p14 and p16 and p17
                         and e2e["runs"]["cuda"]["launches"]
                         + ca["launches"][1] + sv_r1 + b_r1 + m_r1 + n_r1
-                        + t_r1 + r_r1),
+                        + t_r1 + r_r1 + m2_r1),
         f"launches_r{SENS_REPLICAS}": ca and ca["launches"][SENS_REPLICAS],
         "launches_r4": p14 and p14["launches_r4"],
         "launches_rows": serve and batching and p12 and p13 and p14 and p16
-        and sv_rows + b_rows + m_rows + n_rows + t_rows + r_rows,
+        and p17
+        and sv_rows + b_rows + m_rows + n_rows + t_rows + r_rows + m2_rows,
         "launches_rows_by_g": sv and batching and p12 and p13 and p14
-        and p16 and {
+        and p16 and p17 and {
             g: sum(x["rows"].get(g, 0) for x in sv)
-            + batching["launches_rows_by_g"].get(g, 0)
-            + p12["launches_rows_by_g"].get(g, 0)
-            + p13["launches_rows_by_g"].get(g, 0)
-            + p14["launches_rows_by_g"].get(g, 0)
-            + p16["launches_rows_by_g"].get(g, 0)
-            for g in sorted({g for x in sv for g in x["rows"]}
-                            | set(batching["launches_rows_by_g"])
-                            | set(p12["launches_rows_by_g"])
-                            | set(p13["launches_rows_by_g"])
-                            | set(p14["launches_rows_by_g"])
-                            | set(p16["launches_rows_by_g"]))},
+            + sum(p["launches_rows_by_g"].get(g, 0)
+                  for p in (batching, p12, p13, p14, p16, p17))
+            for g in sorted({g for x in sv for g in x["rows"]}.union(
+                *(p["launches_rows_by_g"]
+                  for p in (batching, p12, p13, p14, p16, p17))))},
         "phase11_launches_r1": b_r1,
         "phase11_launches_rows": b_rows,
         "phase11_compare_launches_r1": batching
@@ -7045,6 +7621,8 @@ def main(argv=None) -> int:
         "phase15_compare_launches": p15 and p15["compare_launches"],
         "phase16_launches_r1": r_r1,
         "phase16_launches_rows": r_rows,
+        "phase17_launches_r1": m2_r1,
+        "phase17_launches_rows": m2_rows,
         "max_abs_err": max(errs) if errs else None,
         "ms": lt and lt["ms"],
         "plain_ms": lt and lt["plain_ms"],

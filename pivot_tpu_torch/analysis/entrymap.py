@@ -21,7 +21,8 @@ shapes:
     ``*_kernel_ref`` and ``*_batched`` forms of ``ops/kernels.py``, the
     span drivers of ``ops/tickloop.py`` (``*tick_run``,
     ``*tick_run_rows``, ``*span_run``), the host-sharded twins of
-    ``ops/shard.py`` (``*_kernel_sharded``, ``sharded_fused_tick_run``),
+    ``ops/shard.py`` (``*_kernel_sharded[_batched]``, ``*tick_run``,
+    ``*span_run``),
     and each key of ``PORT_FAMILIES`` where it is defined.
 
 :data:`ENTRY_FILES` is the registry of files allowed to host entry
@@ -60,7 +61,8 @@ _FAMILY_PATTERNS = {
     "pivot_tpu_torch/ops/tickloop.py":
         re.compile(r"^[a-z]\w*(tick_run|tick_run_rows|span_run)$"),
     "pivot_tpu_torch/ops/shard.py":
-        re.compile(r"^[a-z]\w*(_kernel_sharded|tick_run)$"),
+        re.compile(r"^[a-z]\w*(_kernel_sharded(_batched)?|tick_run|"
+                   r"span_run)$"),
 }
 
 

@@ -45,12 +45,14 @@ DISCOVER: Dict[str, Tuple[str, ...]] = {
         "_span_*", "fused_tick_run_rows", "resident_span_run",
     ),
     "pivot_tpu_torch/ops/shard.py": (
-        # The sharded passes and chunk drives, the two-stage reduces and
-        # the sharded span driver.
+        # The sharded passes and chunk drives, the two-stage reduces, the
+        # sharded span drivers (solo, [G]-batched, resident) and the
+        # batched twins' row loop.
         "*_sharded_pass", "*_sharded_chunk*", "_sharded_chunk_drive",
         "_two_stage_argmin", "_first_index_of", "_opportunistic_pick",
         "_risk_restrict_sharded", "_place_local", "_bump_local",
-        "sharded_fused_tick_run",
+        "sharded_fused_tick_run", "sharded_batched_tick_run",
+        "sharded_resident_span_run", "_batched_rows", "_set_rows_local",
     ),
     "pivot_tpu_torch/parallel/ensemble/tick.py": ("_rollout_segment",),
     # The reference's ``*_impl`` bodies are the port's eager functions.
@@ -69,7 +71,8 @@ REQUIRED: Dict[str, Tuple[str, ...]] = {
     ),
     "pivot_tpu_torch/ops/shard.py": (
         "_two_stage_argmin", "_cost_aware_sharded_pass",
-        "sharded_fused_tick_run",
+        "sharded_fused_tick_run", "sharded_batched_tick_run",
+        "sharded_resident_span_run",
     ),
     "pivot_tpu_torch/parallel/ensemble/tick.py": ("_rollout_segment",),
     "pivot_tpu_torch/search/fitness.py": ("_fitness_rows",),

@@ -10,8 +10,10 @@ kernel's wrappers (``cost_aware_cuda[_batched|_rows]``, the port of
 (``cost_aware_plain[_batched|_rows]``) — plus the span-driver family
 (``fused_tick_run`` / ``reference_tick_run`` / ``fused_tick_run_rows`` /
 ``resident_span_run``), the host-sharded twins of ``ops/shard.py``
-(``*_kernel_sharded``, ``sharded_fused_tick_run``) and the
-``sched/cuda.py`` routing layer.  A knob that reaches some forms but not
+(``*_kernel_sharded``, the ``[G]``-batched ``*_kernel_sharded_batched``,
+``sharded_fused_tick_run``, ``sharded_batched_tick_run``,
+``sharded_resident_span_run``) and the ``sched/cuda.py`` routing
+layer.  A knob that reaches some forms but not
 others is a silent parity break.
 
 The reference's four checks, unchanged: the signature matrix (modulo
@@ -21,10 +23,8 @@ unregistered forms in ``ops/``, the routing layer's forwarding
 ``_span_market_kw``), and the ragged axis tables' coverage of the span
 driver's array knobs.
 
-The reference's ``[G]``-batched 2-D forms (``*_kernel_sharded_batched``,
-``sharded_batched_tick_run``) and ``sharded_resident_span_run`` are
-declared absent in :data:`ABSENT` until ROADMAP.md Queue 1 item 9b ports
-them, not dropped silently.
+A reference form the port does not have is declared in :data:`ABSENT`
+with the reason, not dropped silently (none today).
 """
 
 from __future__ import annotations
@@ -86,18 +86,21 @@ MANIFEST: Dict[str, Dict[str, Tuple[str, FrozenSet[str]]]] = {
         "opportunistic_kernel_ref": (_KERNELS, _REF_EXEMPT),
         "opportunistic_impl": (_KERNELS, frozenset()),
         "opportunistic_kernel_sharded": (_SHARD, frozenset()),
+        "opportunistic_kernel_sharded_batched": (_SHARD, frozenset()),
     },
     "first_fit": {
         "first_fit_kernel_ref": (_KERNELS, _REF_EXEMPT),
         "first_fit_impl": (_KERNELS, frozenset()),
         "first_fit_batched": (_KERNELS, _BATCHED_EXEMPT),
         "first_fit_kernel_sharded": (_SHARD, frozenset()),
+        "first_fit_kernel_sharded_batched": (_SHARD, frozenset()),
     },
     "best_fit": {
         "best_fit_kernel_ref": (_KERNELS, _REF_EXEMPT),
         "best_fit_impl": (_KERNELS, frozenset()),
         "best_fit_batched": (_KERNELS, _BATCHED_EXEMPT),
         "best_fit_kernel_sharded": (_SHARD, frozenset()),
+        "best_fit_kernel_sharded_batched": (_SHARD, frozenset()),
     },
     "cost_aware": {
         "cost_aware_kernel_ref": (_KERNELS, _REF_EXEMPT),
@@ -109,6 +112,7 @@ MANIFEST: Dict[str, Dict[str, Tuple[str, FrozenSet[str]]]] = {
         "cost_aware_plain_batched": (_CUDA, _KERNEL_EXEMPT),
         "cost_aware_plain_rows": (_CUDA, _KERNEL_EXEMPT),
         "cost_aware_kernel_sharded": (_SHARD, _SHARD_EXEMPT),
+        "cost_aware_kernel_sharded_batched": (_SHARD, _SHARD_EXEMPT),
     },
 }
 
@@ -132,19 +136,12 @@ SPAN_MANIFEST: Dict[str, Tuple[str, FrozenSet[str]]] = {
     "fused_tick_run_rows": (_TICKLOOP, frozenset()),
     "resident_span_run": (_TICKLOOP, _RESIDENT_EXEMPT),
     "sharded_fused_tick_run": (_SHARD, _SHARD_EXEMPT),
+    "sharded_batched_tick_run": (_SHARD, _SHARD_EXEMPT),
+    "sharded_resident_span_run": (_SHARD, _RESIDENT_EXEMPT | _SHARD_EXEMPT),
 }
 
 #: The reference's forms with no port counterpart yet, and why.
-ABSENT: Dict[str, str] = {
-    name: "ROADMAP.md Queue 1 item 9b"
-    for name in (
-        "opportunistic_kernel_sharded_batched",
-        "first_fit_kernel_sharded_batched",
-        "best_fit_kernel_sharded_batched",
-        "cost_aware_kernel_sharded_batched",
-        "sharded_batched_tick_run", "sharded_resident_span_run",
-    )
-}
+ABSENT: Dict[str, str] = {}
 
 #: Keyword-only span-driver parameters defaulting to None that are not
 #: device array operands, so the ragged tables do not classify them.

@@ -31,7 +31,7 @@ Port of ``pivot_tpu/experiments/cli.py``:
     the makespan distribution figure; over a replica mesh of several
     shards (and no ``--checkpoint``) it runs ``sharded_rollout`` — on
     several distinct cards it runs unsharded, logged, as a mesh over
-    them is ROADMAP.md Queue 1 item 9b;
+    them is ROADMAP.md Queue 1, several cards;
   * ``calibrate`` (``:1118``): the estimator against the exact DES on
     the first trace (``experiments/calibrate.py``), static and congested
     transfer models or ``--realtime``, over ``--des-seeds`` /
@@ -45,8 +45,8 @@ Port of ``pivot_tpu/experiments/cli.py``:
     ``<output-dir>/<name>/<stamp>/``, ``capacity`` and ``apps`` with
     their figures.  They route through ``parallel.ensemble.shard_sweep``
     (``_maybe_shard_sweep``): on one card, the CPU or several distinct
-    cards (item 9b, logged) they run unsharded, in the reference's
-    256-tick segments;
+    cards (Queue 1, several cards; logged) they run unsharded, in the
+    reference's 256-tick segments;
   * ``search`` (``:484``, ``run_search_cli`` ``:1911``): the policy
     search (``experiments/search.py``): CEM or ES over scoring-weight
     vectors, each generation's ``--popsize × --replicas`` rows one batch
@@ -623,8 +623,13 @@ def parse_args(argv=None):
                               "opportunistic"],
                      help="placement arm every session runs")
     srv.add_argument("--shard-hosts", type=int, default=0, metavar="S",
-                     help="2-D mesh serving (not ported yet: ROADMAP.md "
-                          "Queue 1 item 9b).  0 = off")
+                     help="2-D mesh serving: shard every session's host "
+                          "axis over S mesh shards AND coalesce "
+                          "co-pending dispatches over the remaining "
+                          "visible cards' replica axis "
+                          "(build_hybrid_mesh(host_parallel=S); needs "
+                          "--device cuda and n_hosts divisible by S; on "
+                          "one card only S = 1 divides).  0 = off")
     srv.add_argument("--fuse-spans", choices=["off", "slo"],
                      default="off",
                      help="serve-span mode: 'off' keeps per-tick "
@@ -796,21 +801,15 @@ def parse_args(argv=None):
     return args
 
 
-#: ``serve`` options of features not ported yet, with their ROADMAP.md
-#: (Queue 1) items: (attribute, flag, item).
-_SERVE_NOT_PORTED = (
-    ("shard_hosts", "--shard-hosts", "9b"),
-)
-
-
 def _check_serve_args(parser, args) -> None:
-    """The ``serve`` checks of ``pivot_tpu/experiments/cli.py:735-770``,
-    with ``cuda`` for ``tpu``, and an exit naming the ROADMAP.md item for
-    each feature not ported yet."""
-    for attr, flag, item in _SERVE_NOT_PORTED:
-        if getattr(args, attr) not in (None, 0, False, ""):
-            parser.error(f"{flag} is not ported to pivot_tpu_torch yet "
-                         f"(ROADMAP.md, Queue 1 item {item})")
+    """The ``serve`` checks of ``pivot_tpu/experiments/cli.py:735-770``
+    and ``:1650-1654`` (``--shard-hosts``, a run-time exit there), with
+    ``cuda`` for ``tpu``."""
+    if args.shard_hosts and args.device != "cuda":
+        parser.error(
+            "--shard-hosts needs a device-backed policy (--device cuda); "
+            "numpy policies have no sharded form"
+        )
     if args.tier_mix and (args.source == "trace" or args.closed_loop):
         parser.error(
             "--tier-mix generates its own synthetic mixed-tier Poisson "
@@ -1127,7 +1126,7 @@ def _maybe_shard_sweep(sweep_fn, device, **static_kw):
     (``parallel.ensemble.shard_sweep``; ``pivot_tpu/experiments/
     cli.py:957-968``).  One card or the CPU — or, logged, an indivisible
     replica count or several distinct cards (a mesh over them is
-    ROADMAP.md Queue 1 item 9b) — falls back to the unsharded sweep in
+    ROADMAP.md Queue 1, several cards) — falls back to the unsharded sweep in
     :data:`SWEEP_SEGMENT_TICKS`-tick segments."""
     from pivot_tpu_torch.parallel.ensemble import shard_sweep
 
@@ -1211,8 +1210,8 @@ def run_ensemble(args, torch_device: str = "cuda", dtype: str = "float32",
     unsharded (``rollout_chunked``); over a mesh of several replica
     shards it runs ``sharded_rollout`` on ``replica_mesh`` and ignores
     ``--replica-chunk``, with a warning.  Several distinct cards run
-    unsharded too, logged: a mesh over them is ROADMAP.md Queue 1 item
-    9b.
+    unsharded too, logged: a mesh over them is ROADMAP.md Queue 1,
+    several cards.
     Writes ``rollout.npz`` and ``summary.json`` (the keys of
     ``pivot_tpu``'s) and returns the summary; ``stats``, when given,
     gains the rollout's tick-loop counts (``parallel.ensemble.rollout``).
@@ -1253,7 +1252,8 @@ def run_ensemble(args, torch_device: str = "cuda", dtype: str = "float32",
     if not single_device and not one_device(devices):
         logger.info(
             "ensemble runs unsharded: %d distinct devices (a mesh over "
-            "several cards is not ported yet: ROADMAP.md Queue 1 item 9b)",
+            "several cards is not ported yet: ROADMAP.md Queue 1, several "
+            "cards)",
             len(devices))
         single_device = True
     replica_chunk = args.replica_chunk
@@ -1681,7 +1681,10 @@ def run_serve_stream(args, torch_device: str = "cuda",
     idle-aware, deadline-flushed ``DispatchBatcher`` slots: a coalesced
     Cost-Aware flush is one per-row launch of ``greedy_place``.  With
     ``--resident`` the sessions run free, each on its resident span
-    carry, arrivals up to ``--splice-tier`` joining running spans.  Prints (and writes
+    carry, arrivals up to ``--splice-tier`` joining running spans.  With
+    ``--shard-hosts S`` every session is host-sharded over the hybrid
+    ``replica × host`` mesh of the visible cards and the batcher runs on
+    it (on one card only S = 1 divides).  Prints (and writes
     ``<output-dir>/serve/<stamp>/report.json``) the service report: SLO
     snapshot, batcher stats, per-session metrics."""
     from pivot_tpu_torch.obs import (
@@ -1707,13 +1710,34 @@ def run_serve_stream(args, torch_device: str = "cuda",
     elif args.policy == "first-fit":
         arm.update(decreasing=True)  # the reference's VBP arm
     pcfg = PolicyConfig(**arm)
+    # 2-D mesh serving (``pivot_tpu/experiments/cli.py:1644-1665``):
+    # --shard-hosts S builds the hybrid replica × host mesh once over the
+    # visible devices (the cards; the one CPU device off the card),
+    # shards every session policy's host axis over it and hands it to the
+    # driver, whose batcher runs coalesced flushes on it.
+    mesh = None
+    if args.shard_hosts:
+        import torch
+
+        from pivot_tpu_torch.parallel.mesh import (
+            build_hybrid_mesh,
+            visible_cards,
+        )
+
+        dev = torch.device(torch_device)
+        mesh = build_hybrid_mesh(
+            host_parallel=args.shard_hosts,
+            devices=visible_cards() if dev.type == "cuda" else [dev])
     fuse = "slo" if args.fuse_spans == "slo" else False
 
     def make_session(label):
+        policy = make_policy(pcfg, torch_device=torch_device, dtype=dtype)
+        if mesh is not None:
+            policy.enable_sharding(mesh)
         return ServeSession(
             label,
             build_cluster(_cluster_config(args)),
-            make_policy(pcfg, torch_device=torch_device, dtype=dtype),
+            policy,
             seed=args.seed,
             fuse_spans=fuse,
         )
@@ -1798,6 +1822,7 @@ def run_serve_stream(args, torch_device: str = "cuda",
         tracer=tracer,
         registry=registry,
         profiler=profiler,
+        mesh=mesh,
         tenant_quota=args.tenant_quota or None,
         ragged=not args.no_ragged,
         resident=args.resident,

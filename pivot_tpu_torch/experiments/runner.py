@@ -104,15 +104,16 @@ def run_grid_lockstep(runs, stats_out: Optional[dict] = None,
     trio ``ragged_merges`` / ``ragged_rows`` / ``ragged_pad_cells``,
     ``respawns`` and ``retired_slots``.
 
-    ``mesh`` (``parallel.mesh.replica_mesh`` on the runs' device, e.g.
+    ``mesh`` (``parallel.mesh.replica_mesh`` or a 2-D
+    ``build_hybrid_mesh(host_parallel=S)`` on the runs' device, e.g.
     ``replica_mesh(devices=[torch.device("cuda", 0)] * 2)``) shards each
-    coalesced flush's ``[G]`` rows over its ``replica`` axis
+    coalesced flush's ``[G]`` rows over its ``replica`` axis and, on a
+    2-D mesh, each row's hosts over its ``host`` axis
     (``pivot_tpu/experiments/runner.py:116-127``; ``sched/batch.py``):
     the same placements and files.  ``stats_out['mesh_dispatches']``
-    counts the flushes that sharded, ``stats_out['mesh_fallbacks']`` the
-    coalesced ones that dropped the mesh because their padded bucket did
-    not divide the replica axis (the first is logged).  A 2-D mesh
-    raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 9b)."""
+    counts the flushes that rode the mesh, ``stats_out['mesh_fallbacks']``
+    the coalesced ones that dropped it, by cause (the first is
+    logged)."""
     import threading
 
     from pivot_tpu_torch.sched.batch import DispatchBatcher

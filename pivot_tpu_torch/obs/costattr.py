@@ -143,6 +143,55 @@ def _sharded_form(name):
     return form
 
 
+def _mesh_2d(device):
+    """A ``replica × host`` mesh of ``_G`` × ``_S`` logical shards."""
+    from pivot_tpu_torch.parallel.mesh import build_hybrid_mesh
+
+    return build_hybrid_mesh(host_parallel=_S, devices=[device] * (_G * _S))
+
+
+def _rows_of(o) -> dict:
+    """``o``'s operands stacked to ``_G`` rows."""
+    import torch
+
+    return {k: torch.stack([v] * _G) for k, v in o.items()}
+
+
+def _b_sharded_batched(stem):
+    """The ``[G]``-batched 2-D twin of ``{stem}_impl`` on ``_G`` rows."""
+    def build(o):
+        from pivot_tpu_torch.ops import shard
+
+        fn = functools.partial(
+            getattr(shard, f"{stem}_kernel_sharded_batched"),
+            _mesh_2d(o["avail"].device))
+        return _b_impl(f"{stem}_impl", lambda _o: fn)(_rows_of(o))
+    return build
+
+
+def _b_sharded_span_rows(o):
+    from pivot_tpu_torch.ops.shard import sharded_batched_tick_run
+
+    r, mesh = _rows_of(o), _mesh_2d(o["avail"].device)
+    return lambda: sharded_batched_tick_run(
+        mesh, r["avail"], r["dem"], r["arrive"], [_K] * _G,
+        policy="first-fit", n_ticks=_K)
+
+
+def _b_sharded_resident(o):
+    from pivot_tpu_torch.ops.shard import (
+        sharded_resident_carry_init,
+        sharded_resident_span_run,
+    )
+    from pivot_tpu_torch.parallel.mesh import host_sharded_mesh
+
+    mesh = host_sharded_mesh(devices=[o["avail"].device] * _S)
+    carry = sharded_resident_carry_init(mesh, o["avail"])
+    return lambda: sharded_resident_span_run(
+        mesh, carry, o["dem"], o["arrive"], _K, policy="first-fit",
+        n_ticks=_K)
+
+
 def _b_batched(name):
     def build(o):
         from pivot_tpu_torch.ops import kernels as k
@@ -210,6 +259,10 @@ _BUILDERS: Dict[str, Tuple[Callable, str, int, int]] = {
         functools.partial(_b_fused,
                           form=_sharded_form("sharded_fused_tick_run")),
         "scan", 1, _K),
+    **{f"{s}_kernel_sharded_batched": (_b_sharded_batched(s), "slim", _G, 1)
+       for s in ("opportunistic", "first_fit", "best_fit", "cost_aware")},
+    "sharded_batched_tick_run": (_b_sharded_span_rows, "scan", _G, _K),
+    "sharded_resident_span_run": (_b_sharded_resident, "scan", 1, _K),
 }
 
 _KERNEL_FLAG = (
@@ -268,8 +321,6 @@ ENTRY_POINTS: Dict[Tuple[str, str], Tuple[str, str]] = {
     ),
 }
 
-_ITEM9B = ("not ported: ROADMAP.md Queue 1 item 9b (the 2-D mesh and the "
-           "sharded resident carry)")
 _ENSEMBLE = (
     "the ensemble rollout (parallel/ensemble): torch passes attributed at "
     "their real shape by chip_smoke.py phases 6-9 (CUDA events, the "
@@ -296,12 +347,17 @@ REFERENCE: Dict[Tuple[str, str], object] = {
     **{(_REF_SHARD, f"_{s}_sharded_fn"): (_SHARD, f"{s}_kernel_sharded")
        for s in ("opportunistic", "first_fit", "best_fit", "cost_aware")},
     (_REF_SHARD, "_sharded_span_fn"): (_SHARD, "sharded_fused_tick_run"),
-    **{(_REF_SHARD, n): flag(_ITEM9B) for n in (
-        "_opportunistic_sharded_batched_fn",
-        "_first_fit_sharded_batched_fn", "_best_fit_sharded_batched_fn",
-        "_cost_aware_sharded_batched_fn", "_sharded_span_batched_fn",
-        "_sharded_resident_span_fn", "_sharded_resident_init_fn",
-    )},
+    **{(_REF_SHARD, f"_{s}_sharded_batched_fn"):
+       (_SHARD, f"{s}_kernel_sharded_batched")
+       for s in ("opportunistic", "first_fit", "best_fit", "cost_aware")},
+    (_REF_SHARD, "_sharded_span_batched_fn"):
+        (_SHARD, "sharded_batched_tick_run"),
+    (_REF_SHARD, "_sharded_resident_span_fn"):
+        (_SHARD, "sharded_resident_span_run"),
+    (_REF_SHARD, "_sharded_resident_init_fn"): flag(
+        "ops/shard.py::sharded_resident_carry_init: O(H) carry staging, "
+        "one call a bind — not a device entry point of its own"
+    ),
     (_REF_PALLAS, "cost_aware_pallas"): (_CUDA, "cost_aware_cuda"),
     (_REF_PALLAS, "cost_aware_pallas_batched"):
         (_CUDA, "cost_aware_cuda_batched"),

@@ -31,7 +31,7 @@ over the per-shard first fits; the opportunistic arm's k-th fitting host
 is a local integer cumsum plus the exclusive prefix of the shard totals
 — exact.  A mesh whose devices are not all one device raises
 ``NotImplementedError``: a mesh over several cards waits for a machine
-with several cards (ROADMAP.md Queue 1 item 9b).
+with several cards (:data:`SEVERAL_CARDS`).
 
 **Phase-2 modes.**  ``"auto"``, ``"scan"`` and ``"slim"`` resolve to the
 per-step pass: it reads the batch's step bound from the device once
@@ -58,9 +58,30 @@ ensemble's ``sharded_rollout`` and ``shard_sweep``, the search's
 flushes all use it.  Rows never communicate, so on one device the
 sharded program is the unsharded ``[N]`` batch viewed as ``[S, N/S]``.
 
-The reference's ``[G]``-batched 2-D twins, the sharded resident carry
-(ROADMAP.md Queue 1 item 9b) and the elastic helpers (item 9c) are not
-ported here.  No pass here may read the device inside its step loop
+**The 2-D mesh.**  On a ``replica × host`` mesh the dispatch batcher
+(``sched/batch.py``) serves a coalesced group of G same-key requests
+through the ``[G]``-batched twins (``*_kernel_sharded_batched``,
+:func:`sharded_batched_tick_run`; :func:`batched_sharded_call`): every
+operand carries a leading ``[G]`` run axis over the ``replica`` axis and
+each row's host axis keeps the 1-D layout.  Rows never communicate, and
+on one card the replica blocks are one device, so the G rows run one
+after another through the 1-D sharded body — the reference's ``vmap``,
+row for row, each row bit-identical to the 1-D twin on that row.  A
+lone request runs its 1-D twin (:func:`sharded_twin_of`).
+
+**The sharded resident carry.**  :func:`sharded_resident_carry_init` and
+:func:`sharded_resident_span_run` keep ``tickloop.resident_span_run``'s
+delta contract on the host blocks: edits arrive as GLOBAL host indices
+and each shard projects them into its own block (foreign and pad rows
+drop), the risk rows are gathered per shard from the once-staged
+``[P, H]`` table, and the span's placements fold into the shard-local
+counts.  The carry's tensors stay in the flat ``[H, ...]`` layout
+between spans (viewed as ``[S, H/S]`` inside), so
+``resident_carry_clone`` / ``_export`` / ``_restore`` and the recovery
+plane's snapshots take it unchanged.
+
+The elastic helpers (ROADMAP.md Queue 1 item 9c) are not ported here.
+No pass here may read the device inside its step loop
 (``analysis/hostsync.py``).
 """
 
@@ -68,6 +89,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from pivot_tpu_torch.ops.kernels import (
@@ -92,12 +114,15 @@ from pivot_tpu_torch.ops.kernels import (
     opportunistic_impl,
 )
 from pivot_tpu_torch.ops.tickloop import (
+    ResidentCarry,
     SpanResult,
     _cohort_ahead,
     _cost_aware_stream,
     _span_tick,
+    _stack_spans,
     _tick_cost,
     fused_tick_run,
+    resident_carry_init,
     span_step_bounds,
 )
 from pivot_tpu_torch.parallel.mesh import host_axis_size
@@ -106,17 +131,26 @@ __all__ = [
     "HOST_AXIS",
     "REPLICA_AXIS",
     "RowSharding",
+    "SEVERAL_CARDS",
     "UNSHARDABLE_KW",
+    "batched_sharded_call",
     "best_fit_kernel_sharded",
+    "best_fit_kernel_sharded_batched",
     "check_row_divisibility",
     "cost_aware_kernel_sharded",
+    "cost_aware_kernel_sharded_batched",
     "first_fit_kernel_sharded",
+    "first_fit_kernel_sharded_batched",
     "mesh_device",
     "mesh_is_2d",
     "one_device",
     "opportunistic_kernel_sharded",
+    "opportunistic_kernel_sharded_batched",
     "row_sharding",
+    "sharded_batched_tick_run",
     "sharded_fused_tick_run",
+    "sharded_resident_carry_init",
+    "sharded_resident_span_run",
     "sharded_twin_of",
 ]
 
@@ -129,6 +163,10 @@ REPLICA_AXIS = "replica"
 #: Integer sentinel above any host index — the "no candidate" value of
 #: the min reduces.
 _NO_HOST = 1 << 30
+
+#: Where a mesh over several distinct cards stands: a machine with one
+#: card can neither run nor test it.
+SEVERAL_CARDS = "ROADMAP.md Queue 1, several cards"
 
 
 def _check_host_axis(H: int, mesh) -> int:
@@ -149,6 +187,16 @@ def mesh_is_2d(mesh) -> bool:
         HOST_AXIS in mesh.shape and REPLICA_AXIS in mesh.shape
         and int(mesh.shape[HOST_AXIS]) > 1
     )
+
+
+def _check_g_axis(mesh, G: int) -> None:
+    n = int(mesh.shape[REPLICA_AXIS])
+    if G % n:
+        raise ValueError(
+            f"batch axis G={G} does not divide over the mesh's {n} "
+            f"replica shards — the batcher's group bucket must be a "
+            f"multiple of the replica axis (sched.batch.group_bucket)"
+        )
 
 
 def _sharded_mode(phase2):
@@ -182,7 +230,7 @@ def mesh_device(mesh, expect=None) -> torch.device:
             f"a mesh over {len(devs)} distinct devices "
             f"({sorted(map(str, devs))}) is not ported to pivot_tpu_torch "
             "yet — its shards must name one device (logical shards; "
-            "ROADMAP.md Queue 1 item 9b)"
+            f"{SEVERAL_CARDS})"
         )
     dev = devs.pop()
     if expect is not None and _same_device(torch.device(expect)) != dev:
@@ -768,6 +816,108 @@ def cost_aware_kernel_sharded(
 
 
 # ---------------------------------------------------------------------------
+# [G]-batched 2-D twins (the batcher's coalesced flushes on a 2-D mesh)
+# ---------------------------------------------------------------------------
+
+
+def _row(x, g: int):
+    """Row ``g`` of a ``[G, ...]`` operand; None stays."""
+    return None if x is None else x[g]
+
+
+def _batched_rows(mesh, avail, demands, one_row):
+    """The shared wrapper of the four batched twins: the host- and
+    G-axis checks, the empty-batch passthrough, then ``one_row(g) ->
+    (placements, avail)`` — the 1-D twin on row ``g`` — for each row in
+    order, stacked to ``([G, T], [G, H, 4])``."""
+    _check_host_axis(avail.shape[1], mesh)
+    _check_g_axis(mesh, avail.shape[0])
+    if demands.shape[0] == 0 or demands.shape[1] == 0:
+        return (torch.zeros(demands.shape[:2], dtype=torch.int32,
+                            device=avail.device), avail)
+    outs = [one_row(g) for g in range(avail.shape[0])]
+    return (torch.stack([p for p, _ in outs]),
+            torch.stack([a for _, a in outs]))
+
+
+def opportunistic_kernel_sharded_batched(mesh, avail, demands, valid,
+                                         uniforms, phase2="auto",
+                                         live=None, risk=None):
+    """[G]-batched :func:`opportunistic_kernel_sharded`: every operand
+    carries a leading run axis over the mesh's ``replica`` axis, the host
+    axis keeps the 1-D twin's layout; row ``g`` is the 1-D twin on row
+    ``g`` of every operand."""
+    _sharded_mode(phase2)
+    return _batched_rows(mesh, avail, demands, lambda g: (
+        opportunistic_kernel_sharded(
+            mesh, avail[g], demands[g], valid[g], uniforms[g], phase2,
+            _row(live, g), _row(risk, g))))
+
+
+def first_fit_kernel_sharded_batched(mesh, avail, demands, valid,
+                                     strict=False, totals=None,
+                                     phase2="auto", live=None, risk=None):
+    """[G]-batched :func:`first_fit_kernel_sharded` (``totals`` accepted
+    and ignored like the 1-D twin)."""
+    _sharded_mode(phase2)
+    return _batched_rows(mesh, avail, demands, lambda g: (
+        first_fit_kernel_sharded(
+            mesh, avail[g], demands[g], valid[g], strict, phase2=phase2,
+            live=_row(live, g), risk=_row(risk, g))))
+
+
+def best_fit_kernel_sharded_batched(mesh, avail, demands, valid,
+                                    totals=None, phase2="auto", live=None,
+                                    risk=None):
+    """[G]-batched :func:`best_fit_kernel_sharded` (``totals`` accepted
+    and ignored like the 1-D twin)."""
+    _sharded_mode(phase2)
+    return _batched_rows(mesh, avail, demands, lambda g: (
+        best_fit_kernel_sharded(
+            mesh, avail[g], demands[g], valid[g], phase2=phase2,
+            live=_row(live, g), risk=_row(risk, g))))
+
+
+def cost_aware_kernel_sharded_batched(
+    mesh,
+    avail,
+    demands,
+    valid,
+    new_group,
+    anchor_zone,
+    cost_zz,
+    bw_zz,
+    host_zone,
+    base_task_counts,
+    bin_pack: str = "first-fit",
+    sort_hosts: bool = True,
+    host_decay: bool = False,
+    rt_bw_rows=None,
+    rt_bw_idx=None,
+    totals=None,
+    phase2="auto",
+    live=None,
+    risk=None,
+):
+    """[G]-batched :func:`cost_aware_kernel_sharded` (the same
+    realtime-bandwidth exclusion, the same ignored ``totals``); the
+    ``[Z, Z]`` tables are ``[G, Z, Z]``, one a row."""
+    _sharded_mode(phase2)
+    if rt_bw_rows is not None or rt_bw_idx is not None:
+        raise ValueError(
+            "realtime_bw has no sharded form — the per-tick sampled "
+            "[G, H] rows would reshard every dispatch; use the "
+            "single-device kernel for realtime scoring"
+        )
+    return _batched_rows(mesh, avail, demands, lambda g: (
+        cost_aware_kernel_sharded(
+            mesh, avail[g], demands[g], valid[g], new_group[g],
+            anchor_zone[g], cost_zz[g], bw_zz[g], host_zone[g],
+            base_task_counts[g], bin_pack, sort_hosts, host_decay,
+            phase2=phase2, live=_row(live, g), risk=_row(risk, g))))
+
+
+# ---------------------------------------------------------------------------
 # Sharded fused span driver
 # ---------------------------------------------------------------------------
 
@@ -869,11 +1019,203 @@ def sharded_fused_tick_run(
                       restore(a).reshape(H, avail.shape[1]))
 
 
+def sharded_batched_tick_run(
+    mesh,
+    avail,
+    demands,
+    arrive,
+    n_ticks_dyn,
+    *,
+    policy: str,
+    n_ticks: int,
+    n_bound: Optional[Sequence[Sequence[int]]] = None,
+    uniforms=None,
+    sort_norm=None,
+    anchor_zone=None,
+    bucket_id=None,
+    cost_zz=None,
+    bw_zz=None,
+    host_zone=None,
+    base_task_counts=None,
+    totals=None,
+    live=None,
+    risk_rows=None,
+    cost_stack=None,
+    cost_seg=None,
+    strict: bool = False,
+    decreasing: bool = False,
+    bin_pack: str = "first-fit",
+    sort_tasks: bool = False,
+    sort_hosts: bool = True,
+    host_decay: bool = False,
+    phase2="auto",
+) -> SpanResult:
+    """[G]-batched :func:`sharded_fused_tick_run`: G coalesced fused
+    spans on the 2-D ``replica × host`` mesh.  Every operand carries a
+    leading ``[G]`` run axis (``avail`` [G, H, 4], ``risk_rows`` [G, K,
+    H], ``cost_seg`` [G, K] host ints, …); row ``g`` of the result is
+    :func:`sharded_fused_tick_run` on row ``g`` of every operand.
+
+    The ragged contract (``pivot_tpu/ops/shard.py:1571-1581``):
+    ``n_ticks_dyn`` is a ``[G]`` operand of host horizons and ``n_bound``
+    each row's host step bounds (:func:`tickloop.span_step_bounds`; None
+    reads ``arrive`` to the host once), so each row walks its own
+    horizon and bounds; the static ``n_ticks`` is the shared K bucket,
+    and the padded K and B extents of a row stay inert."""
+    _resolve_phase2(phase2)
+    _check_host_axis(avail.shape[1], mesh)
+    _check_g_axis(mesh, avail.shape[0])
+    if torch.is_tensor(n_ticks_dyn):
+        # graftcheck: ignore[host-sync] -- the rows' horizons, read before any step loop
+        n_ticks_dyn = n_ticks_dyn.cpu().numpy()
+    # graftcheck: ignore[host-sync] -- the rows' horizons are host ints, read before the loop
+    n_dyn = [int(x) for x in np.asarray(n_ticks_dyn).reshape(-1)]
+    if n_bound is None:
+        # graftcheck: ignore[host-sync] -- a caller without host step bounds pays one read of arrive before the loop, none inside it
+        arr_host = arrive.cpu().numpy()
+        n_bound = [span_step_bounds(arr_host[g], nd)
+                   for g, nd in enumerate(n_dyn)]
+    static = dict(policy=policy, n_ticks=n_ticks, strict=strict,
+                  decreasing=decreasing, bin_pack=bin_pack,
+                  sort_tasks=sort_tasks, sort_hosts=sort_hosts,
+                  host_decay=host_decay, phase2=phase2)
+    operands = dict(uniforms=uniforms, sort_norm=sort_norm,
+                    anchor_zone=anchor_zone, bucket_id=bucket_id,
+                    cost_zz=cost_zz, bw_zz=bw_zz, host_zone=host_zone,
+                    base_task_counts=base_task_counts, totals=totals,
+                    live=live, risk_rows=risk_rows, cost_stack=cost_stack,
+                    cost_seg=cost_seg)
+    return _stack_spans([
+        sharded_fused_tick_run(
+            mesh, avail[g], demands[g], arrive[g], nd, n_bound=n_bound[g],
+            **static, **{k: _row(v, g) for k, v in operands.items()})
+        for g, nd in enumerate(n_dyn)
+    ])
+
+
+# ---------------------------------------------------------------------------
+# Sharded resident span driver (the ``tickloop.resident_span_run`` twin)
+# ---------------------------------------------------------------------------
+
+
+def _set_rows_local(x, local, rows):
+    """Each shard's edit of its own block: ``x`` [H, ...] viewed as
+    ``[S, H/S, ...]``, ``local`` [S, E] the edit rows' local indices
+    (H/S where the row is foreign to the shard or a pad), ``rows`` [E,
+    ...] the replacement rows.  Out-of-block entries land in a scratch
+    row per shard that is cut away."""
+    S, E = local.shape
+    Hl = x.shape[0] // S
+    tail = tuple(x.shape[1:])
+    ext = torch.cat([x.reshape((S, Hl) + tail),
+                     x.new_zeros((S, 1) + tail)], dim=1)
+    flat = (torch.arange(S, device=x.device)[:, None] * (Hl + 1)
+            + local).reshape(-1)
+    ext.view((S * (Hl + 1),) + tail).index_copy_(
+        0, flat, rows.to(x.dtype).expand((S,) + tuple(rows.shape))
+        .reshape((S * E,) + tail))
+    return ext[:, :Hl].reshape(x.shape)
+
+
+def sharded_resident_carry_init(mesh, avail, counts=None,
+                                live=None) -> ResidentCarry:
+    """A :class:`ResidentCarry` for the host-sharded resident path,
+    copied from host (or device) state onto the mesh's device — the one
+    full ``[H]`` staging of the path.  The tensors keep the flat ``[H,
+    ...]`` layout (module docstring)."""
+    _check_host_axis(avail.shape[0], mesh)
+    return resident_carry_init(avail, counts, live, device=mesh_device(mesh))
+
+
+def sharded_resident_span_run(
+    mesh,
+    carry: ResidentCarry,
+    demands,
+    arrive,
+    n_ticks_dyn: int,
+    *,
+    policy: str,
+    n_ticks: int,
+    n_bound: Optional[Sequence[int]] = None,
+    edit_idx=None,
+    edit_avail=None,
+    edit_counts=None,
+    edit_live=None,
+    uniforms=None,
+    sort_norm=None,
+    anchor_zone=None,
+    bucket_id=None,
+    cost_zz=None,
+    bw_zz=None,
+    host_zone=None,
+    totals=None,
+    risk_table=None,
+    risk_seg=None,
+    cost_stack=None,
+    cost_seg=None,
+    strict: bool = False,
+    decreasing: bool = False,
+    bin_pack: str = "first-fit",
+    sort_tasks: bool = False,
+    sort_hosts: bool = True,
+    host_decay: bool = False,
+    phase2="auto",
+):
+    """Host-sharded :func:`tickloop.resident_span_run` — the same delta
+    contract and ``(SpanResult, ResidentCarry)`` return
+    (``pivot_tpu/ops/shard.py:1794-1850``).  ``edit_idx`` holds GLOBAL
+    host indices (pad entries = H): each shard projects them into its
+    own block and drops foreign and pad rows.  The risk rows are
+    gathered per shard from the once-staged ``[P, H]`` ``risk_table``
+    by the span's ``risk_seg`` row; after the span each shard folds the
+    placements' histogram into its counts.  ``carry`` is consumed.  The
+    result equals :func:`sharded_fused_tick_run` on the post-edit state,
+    and so :func:`tickloop.resident_span_run` bit for bit."""
+    _resolve_phase2(phase2)
+    S, offset = _layout(mesh, carry.avail)
+    H = carry.avail.shape[0]
+    Hl = H // S
+    avail, counts, live = carry
+    if edit_idx is not None:
+        local = edit_idx.long()[None, :] - offset[:, None]       # [S, E]
+        local = torch.where((local >= 0) & (local < Hl), local, Hl)
+        avail = _set_rows_local(avail, local, edit_avail)
+        counts = _set_rows_local(counts, local, edit_counts)
+        live = _set_rows_local(live, local, edit_live)
+    else:
+        live = live.clone()
+    risk_rows = None
+    if risk_seg is not None:
+        blocks = risk_table.reshape(risk_table.shape[0], S, Hl)
+        risk_rows = blocks.index_select(0, risk_seg.long()).reshape(-1, H)
+    res = sharded_fused_tick_run(
+        mesh, avail, demands, arrive, n_ticks_dyn, policy=policy,
+        n_ticks=n_ticks, n_bound=n_bound, uniforms=uniforms,
+        sort_norm=sort_norm, anchor_zone=anchor_zone, bucket_id=bucket_id,
+        cost_zz=cost_zz, bw_zz=bw_zz, host_zone=host_zone,
+        base_task_counts=counts, totals=totals, live=live,
+        risk_rows=risk_rows, cost_stack=cost_stack, cost_seg=cost_seg,
+        strict=strict, decreasing=decreasing, bin_pack=bin_pack,
+        sort_tasks=sort_tasks, sort_hosts=sort_hosts, host_decay=host_decay,
+        phase2=phase2,
+    )
+    # Each shard's histogram of the span's placements on its own block.
+    p = res.placements.reshape(-1).long()
+    local = p[None, :] - offset[:, None]                          # [S, KB]
+    mine = (p >= 0)[None, :] & (local >= 0) & (local < Hl)
+    # graftcheck: ignore[determinism] -- int32 counts: exact in any order
+    hist = torch.zeros((S, Hl + 1), dtype=torch.int32,
+                       device=counts.device).scatter_add_(
+        1, torch.where(mine, local, Hl), mine.to(torch.int32))[:, :Hl]
+    return res, ResidentCarry(res.avail, counts + hist.reshape(H), live)
+
+
 # ---------------------------------------------------------------------------
 # Unsharded form → its host-sharded twin
 # ---------------------------------------------------------------------------
 
-#: Unsharded public form → its 1-D host-sharded twin.
+#: Unsharded public form → its 1-D host-sharded twin: what a lone
+#: request on a 2-D batcher mesh runs.
 _SHARDED_TWINS = {
     opportunistic_impl: opportunistic_kernel_sharded,
     first_fit_impl: first_fit_kernel_sharded,
@@ -882,17 +1224,46 @@ _SHARDED_TWINS = {
     fused_tick_run: sharded_fused_tick_run,
 }
 
+#: Unsharded public form → its [G]-batched 2-D form: what a coalesced
+#: flush on a 2-D batcher mesh runs.
+_BATCHED_TWINS = {
+    opportunistic_impl: opportunistic_kernel_sharded_batched,
+    first_fit_impl: first_fit_kernel_sharded_batched,
+    best_fit_impl: best_fit_kernel_sharded_batched,
+    cost_aware_impl: cost_aware_kernel_sharded_batched,
+    fused_tick_run: sharded_batched_tick_run,
+}
+
 #: Array-kwarg names that disqualify a dispatch from the sharded forms:
 #: the realtime-bandwidth rows are per-tick host state (the sharded
-#: Cost-Aware form raises on them).
+#: Cost-Aware forms raise on them).
 UNSHARDABLE_KW = frozenset({"rt_bw_rows", "rt_bw_idx"})
 
 
-def sharded_twin_of(kernel, arr_kw_keys=()):
+def sharded_twin_of(kernel, arr_kw_keys=(), static_kw=None):
     """The 1-D host-sharded twin of an unsharded public form, or None
-    when the form has none (e.g. the ``greedy_place`` wrappers) or the
-    request carries operands the sharded forms reject
-    (:data:`UNSHARDABLE_KW`)."""
+    when the form has none (e.g. the ``greedy_place`` wrappers, or a
+    span served by them: ``greedy=`` set) or the request carries
+    operands the sharded forms reject (:data:`UNSHARDABLE_KW`)."""
     if UNSHARDABLE_KW & set(arr_kw_keys):
         return None
+    if static_kw and static_kw.get("greedy") is not None:
+        return None
     return _SHARDED_TWINS.get(kernel)
+
+
+def batched_sharded_call(mesh, kernel, static_kw, n_args, kw_keys):
+    """A coalesced batch of ``kernel`` dispatches as its 2-D ``replica ×
+    host`` form, or None when ``kernel`` has none
+    (``pivot_tpu/ops/shard.py:1911-1933``).  The callable takes the
+    batcher's flat columns — the stacked positional arguments first, the
+    stacked array keywords in ``kw_keys`` order after."""
+    batched = _BATCHED_TWINS.get(kernel)
+    if batched is None:
+        return None
+
+    def call(*cols):
+        return batched(mesh, *cols[:n_args],
+                       **dict(zip(kw_keys, cols[n_args:])), **static_kw)
+
+    return call

@@ -384,10 +384,10 @@ def shard_sweep(sweep_fn, fallback_segment_ticks=None, force_mesh=False,
     "devices" shares the cores; tests force it to validate the layout).
     Past the reference's reasons the port has one of its own: devices
     that are not all one device (several cards) — a mesh over distinct
-    devices is ROADMAP.md Queue 1 item 9b.  Each fallback but the first
-    logs its reason; on the fallback, ``fallback_segment_ticks`` (when
-    set and not already in the config) runs the sweep in segments of
-    that many ticks.  ``devices`` may name one device several times
+    devices is ROADMAP.md Queue 1, several cards.  Each fallback but the
+    first logs its reason; on the fallback, ``fallback_segment_ticks``
+    (when set and not already in the config) runs the sweep in segments
+    of that many ticks.  ``devices`` may name one device several times
     (logical shards).
     """
     from pivot_tpu_torch.ops.shard import one_device
@@ -416,7 +416,7 @@ def shard_sweep(sweep_fn, fallback_segment_ticks=None, force_mesh=False,
     elif not one_device(devs):
         reason = (
             f"{n_dev} distinct devices (a mesh over several cards is not "
-            "ported yet: ROADMAP.md Queue 1 item 9b)"
+            "ported yet: ROADMAP.md Queue 1, several cards)"
         )
     if n_dev <= 1 or reason is not None:
         if reason is not None:

@@ -1,8 +1,7 @@
 """Cross-run dispatch batching: co-pending ticks of many runs, one flush.
 
-Port of ``pivot_tpu/sched/batch.py`` with its replica mesh (the 2-D
-``replica × host`` mesh is ROADMAP.md Queue 1 item 9b); with the
-recovery plane's write-ahead journal
+Port of ``pivot_tpu/sched/batch.py`` with its mesh, replica-only or
+2-D ``replica × host``; with the recovery plane's write-ahead journal
 (``DispatchBatcher(journal=)``: each flush's composition is journaled
 before its first device call, a solo dispatch as a one-request flush)
 and the sampled dispatch profiler (``DispatchBatcher(profiler=)``: it
@@ -56,23 +55,32 @@ kernels are pure functions of their per-tick inputs, and a row of the
 per-row launch is the unbatched launch of that row (``chip_smoke.py``
 holds every coalesced launch against its plain version on the card).
 
-The replica mesh (``DispatchBatcher(mesh=)``, ``batch_execute(mesh=)``;
-``parallel.mesh.replica_mesh``): a coalesced group whose padded bucket
-divides the mesh's ``replica`` axis runs its rows in contiguous blocks
-of that bucket over it (``ops/shard.py::row_sharding``) — on one card,
-S logical shards whose blocks share the one call, so a Cost-Aware mesh
-flush is still ONE per-row launch of ``greedy_place`` (its rows padded
-to the bucket, as without a mesh) and a torch arm's rows still run one
-after another, pad rows never run.  A bucket that does not divide the
-axis, or a 1-row batch, falls back to the unsharded call; rows never
-communicate, so both give the same bits, and on one device both are the
-same call.  :func:`_plan_mesh` is the one routing decision, which the
-batcher's mesh counters read.  A mesh is checked once, where it is
-given: by :class:`DispatchBatcher` (which then hands its flushes the
-resolved device) or by a direct ``batch_execute(mesh=)`` call.
-A 2-D mesh, one with a ``host`` axis above 1, raises
-``NotImplementedError``: host-sharding each row is ROADMAP.md Queue 1
-item 9b.
+The mesh (``DispatchBatcher(mesh=)``, ``batch_execute(mesh=)``;
+``parallel.mesh.replica_mesh`` or ``build_hybrid_mesh``) must name one
+device, the flush device (``ops/shard.py::mesh_device``): a batcher
+checks it at construction, and ``batch_execute`` against the device it
+is handed.  :func:`_plan_mesh` is the one routing decision, which the
+batcher's mesh counters read:
+
+  * on a replica-only mesh, a coalesced group whose padded bucket
+    divides the ``replica`` axis runs its rows in contiguous blocks of
+    that bucket over it (``ops/shard.py::row_sharding``) — on one card,
+    S logical shards whose blocks share the one call, so a Cost-Aware
+    mesh flush is still ONE per-row launch of ``greedy_place`` and a
+    torch arm's rows still run one after another, pad rows never run.
+    A bucket that does not divide the axis, or a 1-row batch, falls
+    back to the unsharded call; rows never communicate, so both give
+    the same bits, and on one device both are the same call;
+  * on a 2-D mesh (a ``host`` axis above 1), a group of a form with a
+    host-sharded twin (``ops/shard.py::sharded_twin_of``) whose H
+    divides the host axis pads to the smallest multiple of the replica
+    axis ≥ g and runs the ``[G]``-batched 2-D twin
+    (``ops/shard.py::batched_sharded_call``); a lone request runs its
+    1-D twin.  Every other group — the Cost-Aware kernel call and a span
+    it serves (``greedy_place`` has no sharded form: the reference's
+    Pallas exclusion), the realtime-bandwidth rows
+    (``ops/shard.py::UNSHARDABLE_KW``) — keeps the replica-only path, and
+    where that falls back the batcher counts the cause ``unshardable``.
 
 Operands arrive as host numpy (the policies stage to the host when a
 client is attached, ``sched/cuda.py``); a 0-d operand (the Cost-Aware
@@ -82,6 +90,7 @@ column of the batched form, a host int of an unbatched call.
 
 from __future__ import annotations
 
+import functools
 import logging
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -90,7 +99,12 @@ import numpy as np
 import torch
 
 from pivot_tpu_torch.ops import cuda_kernels
-from pivot_tpu_torch.ops.shard import mesh_device, mesh_is_2d
+from pivot_tpu_torch.ops.shard import (
+    batched_sharded_call,
+    mesh_device,
+    mesh_is_2d,
+    sharded_twin_of,
+)
 from pivot_tpu_torch.ops.tickloop import (
     SPAN_HOST_OPERANDS,
     ResidentCarry,
@@ -101,6 +115,7 @@ from pivot_tpu_torch.ops.tickloop import (
     ragged_span_trim,
     span_step_bounds,
 )
+from pivot_tpu_torch.parallel.mesh import host_axis_size
 from pivot_tpu_torch.sched.cuda import pad_bucket, stage
 
 __all__ = [
@@ -190,19 +205,6 @@ def _fetch(outs: list) -> list:
     ]
 
 
-def _check_replica_mesh(mesh, device=None) -> torch.device:
-    """The flush device of a batcher mesh: a replica-only mesh naming one
-    device (``device`` when given).  A 2-D mesh raises."""
-    if mesh_is_2d(mesh):
-        raise NotImplementedError(
-            f"a 2-D replica x host mesh ({dict(mesh.shape)}) is not ported "
-            "to pivot_tpu_torch's DispatchBatcher yet — the [G]-batched "
-            "host-sharded twins are ROADMAP.md Queue 1 item 9b (the host "
-            "axis on top of the replica axis); pass a replica-only mesh "
-            "(parallel.mesh.replica_mesh)")
-    return mesh_device(mesh, device)
-
-
 def _replica_mesh_for(mesh, gb: int):
     """The mesh to shard a ``gb``-row batch over, or None
     (``pivot_tpu/sched/batch.py:171-184``): the replica axis must divide
@@ -215,13 +217,33 @@ def _replica_mesh_for(mesh, gb: int):
     return mesh if gb % int(mesh.shape["replica"]) == 0 else None
 
 
-def _plan_mesh(mesh, g: int):
-    """One coalesced group's ``(padded bucket, mesh or None)`` — the ONE
-    routing decision :func:`batch_execute` executes and the batcher's
-    counters mirror (the replica-only form of
-    ``pivot_tpu/sched/batch.py:187-227``)."""
+def _hosts_divide(mesh, args0) -> bool:
+    """Whether the request's host axis (its first operand's rows)
+    divides the mesh's host axis."""
+    return bool(args0) and hasattr(args0[0], "shape") and (
+        args0[0].shape[0] % host_axis_size(mesh) == 0)
+
+
+def _plan_mesh(mesh, kernel, g: int, args0=(), arr_kw_keys=(),
+               static_kw=None):
+    """One coalesced group's ``(padded bucket, mesh or None, host_ok)``
+    — the ONE routing decision :func:`batch_execute` executes and the
+    batcher's counters mirror (``pivot_tpu/sched/batch.py:187-227``).
+    On a 2-D mesh a group of a form with a host-sharded twin whose host
+    axis divides the mesh's pads to the smallest multiple of the replica
+    axis ≥ g (a 3-row group on replica 2 pads to 4) and runs the 2-D
+    program (``host_ok``).  ``static_kw``: the group's static keywords
+    (a span served by ``greedy_place`` has no twin)."""
     gb = group_bucket(g)
-    return gb, _replica_mesh_for(mesh, gb)
+    host_ok = False
+    if (mesh is not None and g > 1 and mesh_is_2d(mesh)
+            and sharded_twin_of(kernel, arr_kw_keys, static_kw) is not None
+            and _hosts_divide(mesh, args0)):
+        r = int(mesh.shape["replica"])
+        gb = -(-g // r) * r
+        host_ok = True
+    fn_mesh = _replica_mesh_for(mesh, gb)
+    return gb, fn_mesh, host_ok and fn_mesh is not None
 
 
 def batch_execute(
@@ -239,14 +261,14 @@ def batch_execute(
     :func:`_request_key`).  Returns one output per request, in order,
     with its placements on the host (:func:`_fetch`).  The flush stages
     its columns in one copy and fetches the placements in one copy;
-    module docstring for what runs in between, and for ``mesh`` (a
-    replica-only mesh: the ``[G]`` rows in contiguous blocks over its
-    ``replica`` axis, or the unsharded call where the bucket does not
-    divide it)."""
+    module docstring for what runs in between, and for ``mesh``."""
     static_kw = dict(static_kw or {})
     g = len(requests)
     if g == 0:
         return []
+    if mesh is not None:
+        device = mesh_device(mesh, device)
+    device = torch.device("cuda" if device is None else device)
     for args, arr_kw in requests:
         if any(isinstance(a, ResidentCarry)
                for a in (*args, *arr_kw.values())):
@@ -256,9 +278,6 @@ def batch_execute(
                 "ops.tickloop.resident_span_run directly (the resident "
                 "tier and the cross-run batcher are mutually exclusive)"
             )
-    if mesh is not None:
-        device = _check_replica_mesh(mesh, device)
-    device = torch.device("cuda" if device is None else device)
     kw_keys = tuple(sorted(requests[0][1]))
     n_args = len(requests[0][0])
     cols = [np.stack([np.asarray(r[0][i]) for r in requests])
@@ -270,33 +289,48 @@ def batch_execute(
     # Host-side operands: a span's host segments, and — in every form —
     # the 0-d per-row scalars, except a batched form's kernel bound.
     on_host = [name in SPAN_HOST_OPERANDS for name in names]
-    bounds = None
     if span:
-        # Each span's step bounds from its host arrive (args: avail,
-        # demands, arrive, n_ticks_dyn): no device read in the span.
+        # A span's horizon (args: avail, demands, arrive, n_ticks_dyn)
+        # stays on the host: its step bounds come from its host arrive,
+        # so the span reads nothing from the device.
         on_host[3] = True
-        bounds = [span_step_bounds(cols[2][r], int(cols[3][r]))
-                  for r in range(g)]
-    batched = _BATCHED.get(kernel) if g > 1 else None
-    # A mesh's row blocks (``_plan_mesh``) share this one call: they all
-    # live on the one device.
-    gb = group_bucket(g)
-    if batched is not None:
+    gb, _fn_mesh, host_ok = _plan_mesh(mesh, kernel, g, requests[0][0],
+                                       kw_keys, static_kw)
+    # A mesh's row blocks share this one call: they all live on the one
+    # device.  A 2-D group runs the [G]-batched twin.
+    batched = None
+    if host_ok:
+        batched = batched_sharded_call  # bound below, with the bounds
+    elif g > 1:
+        batched = _BATCHED.get(kernel)
         if kernel not in _PADDED:
             gb = g
+    if batched is not None:
         if gb > g:
             # Pad rows replicate row 0: same shapes, finite values; their
             # output rows are dropped below.
             cols = [np.concatenate([c, np.repeat(c[:1], gb - g, axis=0)])
                     for c in cols]
+        if span:
+            static_kw["n_bound"] = [span_step_bounds(cols[2][r],
+                                                     int(cols[3][r]))
+                                    for r in range(gb)]
         st = stage(device, **{str(i): c for i, c in enumerate(cols)
                               if not on_host[i]})
         cols = [c if on_host[i] else st[str(i)] for i, c in enumerate(cols)]
-        if span:
-            static_kw["n_bound"] = bounds
-        out = batched(tuple(cols[:n_args]),
-                      dict(zip(kw_keys, cols[n_args:])), static_kw)
+        if host_ok:
+            out = batched(mesh, kernel, static_kw, n_args, kw_keys)(*cols)
+        else:
+            out = batched(tuple(cols[:n_args]),
+                          dict(zip(kw_keys, cols[n_args:])), static_kw)
         return _fetch([_row(out, r) for r in range(g)])
+    call = kernel
+    if g == 1 and mesh is not None and mesh_is_2d(mesh):
+        twin = sharded_twin_of(kernel, kw_keys, static_kw)
+        if twin is not None and _hosts_divide(mesh, requests[0][0]):
+            # A lone request on a 2-D mesh still runs host-sharded,
+            # through its 1-D twin (``pivot_tpu/sched/batch.py:289-309``).
+            call = functools.partial(twin, mesh)
     # Row by row: 0-d operands (a [G] column here) stay host scalars.
     scalar = [on_host[i] or c.ndim == 1 for i, c in enumerate(cols)]
     st = stage(device, **{str(i): c for i, c in enumerate(cols)
@@ -307,8 +341,8 @@ def batch_execute(
                if scalar[i] else st[str(i)][r] for i in range(len(cols))]
         kw = dict(zip(kw_keys, row[n_args:]))
         if span:
-            kw["n_bound"] = bounds[r]
-        outs.append(kernel(*row[:n_args], **kw, **static_kw))
+            kw["n_bound"] = span_step_bounds(cols[2][r], int(cols[3][r]))
+        outs.append(call(*row[:n_args], **kw, **static_kw))
     return _fetch(outs)
 
 
@@ -357,7 +391,7 @@ class BatchClient:
 
     @property
     def mesh(self):
-        """The owning batcher's replica mesh (or None): what
+        """The owning batcher's mesh (None, replica-only or 2-D): what
         ``sched.cuda`` checks host sharding against when a policy
         composes batching with sharding."""
         return self._batcher._mesh
@@ -383,9 +417,12 @@ class BatchClient:
                 # one-request flush and journals as one before the
                 # device call commits it.
                 batcher._journal.append("flush", groups=1, reqs=1)
+            # The batcher's mesh rides along: a lone slot on a 2-D mesh
+            # still dispatches host-sharded (the 1-D twin).
             return batch_execute(
                 kernel, [(tuple(args), dict(arr_kw or {}))],
                 dict(static_kw or {}), device=batcher.device,
+                mesh=batcher._mesh,
             )[0]
         req = _Request(
             self.slot, kernel, tuple(args), dict(arr_kw or {}),
@@ -428,9 +465,10 @@ class DispatchBatcher:
     ``stats`` has the reference's keys (``SloMeter.DISPATCH_KEYS``):
     ``runs``, ``dispatches`` (kernel calls requested), ``device_calls``
     (kernel calls made: one per group with a batched form — a span
-    group's is one call of the batched span driver, which runs a torch
-    arm's rows one after another — one per request for a group run row
-    by row), ``coalesced`` (requests served
+    group's is one call of the batched span driver, a 2-D group's one
+    call of its batched twin, each running a torch arm's rows one after
+    another — one per request for a group run row by row),
+    ``coalesced`` (requests served
     inside a group of more than one), ``max_group``,
     ``deadline_flushes``, ``single_fast_path``, ``respawns``,
     ``retired_slots``, and the ragged trio ``ragged_merges``
@@ -441,17 +479,19 @@ class DispatchBatcher:
     ``[G]`` rows went over the mesh's replica axis) and
     ``mesh_fallbacks`` (groups that lost the mesh — coalesced, or
     fragmented into several shape keys of one kernel, but not sharded),
-    partitioned exactly by ``mesh_fallback_unshardable`` (no sharded
-    form: 0 on a replica-only mesh), ``mesh_fallback_mixed_shapes`` and
-    ``mesh_fallback_indivisible`` (the bucket does not divide the
-    axis); the first fallback is logged.  At any instant ``live_slots ==
-    runs − retired_slots``.
+    partitioned exactly by ``mesh_fallback_unshardable`` (a 2-D mesh
+    and no host-sharded twin: 0 on a replica-only mesh),
+    ``mesh_fallback_mixed_shapes`` and ``mesh_fallback_indivisible``
+    (the bucket does not divide the axis) — :meth:`_fallback_cause`;
+    the first fallback is logged.  At any instant ``live_slots == runs
+    − retired_slots``.
 
     ``mesh`` (``parallel.mesh.replica_mesh``, e.g. ``replica_mesh(
-    devices=[torch.device("cuda", 0)] * 2)``) shards each coalesced
-    flush's ``[G]`` rows over its ``replica`` axis (module docstring);
-    the flush device is the mesh's.  A 2-D mesh raises
-    ``NotImplementedError`` (ROADMAP.md Queue 1 item 9b).
+    devices=[torch.device("cuda", 0)] * 2)``, or a 2-D
+    ``build_hybrid_mesh(host_parallel=S, devices=...)``) shards each
+    coalesced flush's ``[G]`` rows over its ``replica`` axis and, on a
+    2-D mesh, each row's hosts over its ``host`` axis (module
+    docstring); the flush device is the mesh's.
 
     ``ragged=True`` (the default) turns on the ragged span repack
     (module docstring); ``ragged=False`` keeps exact-shape coalescing,
@@ -474,10 +514,11 @@ class DispatchBatcher:
             tracer = NULL_TRACER
         self.tracer = tracer
         if mesh is not None:
-            device = _check_replica_mesh(mesh, device)
+            device = mesh_device(mesh, device)
         self.device = torch.device("cuda" if device is None else device)
-        #: Replica-axis mesh (``parallel.mesh.replica_mesh``): coalesced
-        #: flushes shard their ``[G]`` rows over it (``batch_execute``).
+        #: The mesh, replica-only or 2-D: coalesced flushes shard their
+        #: ``[G]`` rows over its replica axis and, on a 2-D mesh, each
+        #: row's hosts over its host axis (``batch_execute``).
         self._mesh = mesh
         self._mesh_fallback_logged = False
         self._ragged = bool(ragged)
@@ -624,11 +665,9 @@ class DispatchBatcher:
         ``in_flush``, the group size ``g``, H, B, a span's K, the ragged
         pad cells and the operand bytes staged for it."""
         def call():
-            # The mesh was checked at construction and its device is
-            # self.device (module docstring).
             return batch_execute(
                 reqs[0].kernel, [(r.args, r.arr_kw) for r in reqs],
-                reqs[0].static_kw, device=self.device,
+                reqs[0].static_kw, device=self.device, mesh=self._mesh,
             )
 
         prof = self.profiler
@@ -658,6 +697,21 @@ class DispatchBatcher:
             h2d_bytes=h2d, device=self.device,
         )
 
+    def _fallback_cause(self, req: _Request, fragmented: bool) -> str:
+        """Root cause of one mesh fallback
+        (``pivot_tpu/sched/batch.py:750-766``) — the three causes
+        partition ``mesh_fallbacks`` exactly: ``unshardable`` (a 2-D mesh
+        and no host-sharded twin, or operands the sharded forms reject),
+        ``mixed_shapes`` (the flush held this kernel under ≥ 2 shape
+        keys), ``indivisible`` (the padded bucket does not divide the
+        replica axis)."""
+        if mesh_is_2d(self._mesh) and sharded_twin_of(
+                req.kernel, req.arr_kw, req.static_kw) is None:
+            return "unshardable"
+        if fragmented:
+            return "mixed_shapes"
+        return "indivisible"
+
     def _flush(self, batch: List[_Request]) -> None:
         # Groups in first-key-seen order, rows in slot order.
         try:
@@ -680,12 +734,14 @@ class DispatchBatcher:
                 )
             for reqs in groups.values():
                 reqs.sort(key=lambda r: r.slot)
-                calls = (1 if len(reqs) > 1 and reqs[0].kernel in _BATCHED
-                         else len(reqs))
                 fragmented = len(kernel_keys[reqs[0].kernel]) > 1
                 # The SAME routing decision batch_execute makes for this
                 # group: the counters cannot disagree with the flush.
-                gb, grp_mesh = _plan_mesh(self._mesh, len(reqs))
+                gb, grp_mesh, host_ok = _plan_mesh(
+                    self._mesh, reqs[0].kernel, len(reqs), reqs[0].args,
+                    reqs[0].arr_kw, reqs[0].static_kw)
+                calls = (1 if len(reqs) > 1 and (
+                    host_ok or reqs[0].kernel in _BATCHED) else len(reqs))
                 cause = None
                 with self._cond:
                     self.stats["dispatches"] += len(reqs)
@@ -700,11 +756,7 @@ class DispatchBatcher:
                     elif self._mesh is not None and (
                         len(reqs) > 1 or fragmented
                     ):
-                        # The cause (``pivot_tpu/sched/batch.py:750-766``):
-                        # ``unshardable``, a kernel without a host-sharded
-                        # twin on a 2-D mesh, cannot occur here.
-                        cause = ("mixed_shapes" if fragmented
-                                 else "indivisible")
+                        cause = self._fallback_cause(reqs[0], fragmented)
                         self.stats["mesh_fallbacks"] += 1
                         self.stats["mesh_fallback_" + cause] += 1
                         if self._mesh_fallback_logged:

@@ -105,10 +105,15 @@ to the unsharded forms.  A Cost-Aware policy with a mesh runs the
 sharded torch pass and never launches ``greedy_place`` (the reference's
 Pallas exclusion, ``:2115-2125``); it runs on the policy's device or
 fails.  Refused with the adaptive twin, ``use_kernel=True``,
-``realtime_bw``, learned score exponents, the batcher (composing them
-needs the batcher's 2-D ``replica × host`` mesh; the port's
-``DispatchBatcher`` takes a replica-only mesh: ROADMAP.md Queue 1 item
-9b) and the resident tier (item 9b).
+``realtime_bw`` and learned score exponents.  It composes, in either
+order, with the batcher (``pivot_tpu/sched/tpu.py:534-592``): the
+batcher must carry a 2-D ``replica × host`` mesh whose host axis matches
+the policy's, and the policy's dispatches go through it as the
+unsharded forms, which the batcher's 2-D mesh resolves to their
+``[G]``-batched twins (a lone request to its 1-D twin).  It composes
+with the resident tier (``pivot_tpu/sched/tpu.py:1091-1300``): the span
+carry lives host-sharded (``ops/shard.py::sharded_resident_span_run``),
+its splice checkpoints too.
 
 Not in this slice: the elastic fault gate (ROADMAP.md, Queue 1 item
 9c) — ``enable_fault_gate`` raises ``NotImplementedError``.
@@ -140,12 +145,16 @@ from pivot_tpu_torch.ops.kernels import (
     resolve_device,
 )
 from pivot_tpu_torch.ops.shard import (
+    HOST_AXIS,
+    REPLICA_AXIS,
     best_fit_kernel_sharded,
     cost_aware_kernel_sharded,
     first_fit_kernel_sharded,
     mesh_device,
     opportunistic_kernel_sharded,
     sharded_fused_tick_run,
+    sharded_resident_carry_init,
+    sharded_resident_span_run,
 )
 from pivot_tpu_torch.ops.tickloop import (
     SPAN_HOST_OPERANDS,
@@ -688,10 +697,11 @@ class _DevicePolicyBase(Policy):
     def enable_resident(self, splice: bool = True) -> None:
         """Keep the span carry on the device between consecutive
         ``place_span`` calls (module docstring); ``splice=True`` keeps a
-        clone of each span-entry carry for :meth:`span_splice`.  Refused
-        with the adaptive twin, with ``realtime_bw``, with the batcher
-        attached (a flush re-stages every operand from host numpy), and
-        with ``use_kernel=True``, which opts out of spans as
+        clone of each span-entry carry for :meth:`span_splice`.  Composes
+        with :meth:`enable_sharding` (the carry lives host-sharded).
+        Refused with the adaptive twin, with ``realtime_bw``, with the
+        batcher attached (a flush re-stages every operand from host
+        numpy), and with ``use_kernel=True``, which opts out of spans as
         ``use_pallas=True`` does in the reference."""
         if self.adaptive:
             raise ValueError(
@@ -714,8 +724,6 @@ class _DevicePolicyBase(Policy):
                 "(it re-stages every operand at the flush boundary) — "
                 "detach the batcher first"
             )
-        if self._mesh is not None:
-            self._refuse_sharded_resident()
         self._resident = _ResidentState(bool(splice))
 
     def _resident_risk_kw(self, ctx: TickContext, plan, K: int) -> dict:
@@ -749,17 +757,21 @@ class _DevicePolicyBase(Policy):
     def _resident_dispatch(self, carry, dem, arrive, k_dyn: int, K: int,
                            run_kw: dict):
         """One resident span (the reference's seam of the same name,
-        ``pivot_tpu/sched/tpu.py:1288``): the host operands of ``run_kw``
-        staged with ``dem`` / ``arrive`` in one copy, then
-        :func:`resident_span_run`.  ``carry`` is consumed."""
+        ``pivot_tpu/sched/tpu.py:1288-1300``): the host operands of
+        ``run_kw`` staged with ``dem`` / ``arrive`` in one copy, then
+        :func:`resident_span_run`, or with a mesh its host-sharded twin
+        (``ops/shard.py::sharded_resident_span_run``).  ``carry`` is
+        consumed."""
         host = {k: v for k, v in run_kw.items()
                 if isinstance(v, np.ndarray) and k not in SPAN_HOST_OPERANDS}
         st = stage(self.device, dem=dem, arrive=arrive, **host)
         kw = dict(run_kw)
         kw.update((k, st[k]) for k in host)
+        run = (resident_span_run if self._mesh is None
+               else functools.partial(sharded_resident_span_run, self._mesh))
         return self._profiled(
             "resident_span_run",
-            lambda: resident_span_run(
+            lambda: run(
                 carry, st["dem"], st["arrive"], k_dyn, n_ticks=K,
                 n_bound=span_step_bounds(arrive, k_dyn), **kw),
             lambda: (dict(h=carry.avail.shape[0], b=dem.shape[0], k=K),
@@ -768,7 +780,10 @@ class _DevicePolicyBase(Policy):
 
     def _place_span_resident(self, ctx: TickContext, plan):
         """The resident tier's ``place_span``: mirror-diff → edit rows →
-        one span on the carry (``pivot_tpu/sched/tpu.py:1172-1286``)."""
+        one span on the carry (``pivot_tpu/sched/tpu.py:1172-1286``),
+        host-sharded with a mesh (the carry keeps its flat ``[H]``
+        layout, so the mirror-diff and the splice checkpoints are the
+        unsharded path's)."""
         rs = self._resident
         slots = plan.slots
         S = len(slots)
@@ -793,8 +808,10 @@ class _DevicePolicyBase(Policy):
         edits: dict = {}
         if carry is None:
             # The one full [H] staging the resident path pays.
-            carry = resident_carry_init(host_avail, host_counts, host_live,
-                                        device=self.device)
+            carry = (resident_carry_init(host_avail, host_counts, host_live,
+                                         device=self.device)
+                     if self._mesh is None else sharded_resident_carry_init(
+                         self._mesh, host_avail, host_counts, host_live))
         else:
             # Mirror-diff: the DES truth against the pending carry, exact.
             # The span's own placements were folded in on the device, so
@@ -894,9 +911,9 @@ class _DevicePolicyBase(Policy):
         the other sessions' co-pending ticks (``sched/batch.py``).
         Requires deterministic routing: the adaptive twin routes on
         measured latencies, which would make batch membership
-        timing-dependent (``pivot_tpu/sched/tpu.py:534-566``).  Refused
-        beside :meth:`enable_sharding`: composing them needs the
-        batcher's 2-D mesh (``_check_batch_mesh``)."""
+        timing-dependent (``pivot_tpu/sched/tpu.py:534-566``).  Beside
+        :meth:`enable_sharding` the batcher must carry a matching 2-D
+        mesh (``_check_batch_mesh``)."""
         if self.adaptive:
             raise ValueError(
                 "cross-run batching needs deterministic dispatch — "
@@ -915,28 +932,24 @@ class _DevicePolicyBase(Policy):
 
     def _check_batch_mesh(self, client, mesh=None) -> None:
         """Batching × sharding needs a batcher on a 2-D ``replica ×
-        host`` mesh whose host axis matches this policy's
-        (``pivot_tpu/sched/tpu.py:568-592``).  The port's
-        ``DispatchBatcher`` takes only a replica-only mesh (a 2-D one
-        raises), so every client fails this check: with no mesh, or
-        with a replica-only one, whose host axis is 1.  ``mesh``: the
-        policy's host mesh (default: the one enabled)."""
+        host`` mesh whose host axis matches this policy's, so the
+        coalesced 2-D program and a lone request's 1-D twin partition
+        the same ``[H]`` layout (``pivot_tpu/sched/tpu.py:568-592``).
+        ``mesh``: the policy's host mesh (default: the one enabled)."""
         bmesh = getattr(client, "mesh", None)
-        raise ValueError(
-            "composing host sharding with cross-run batching needs a "
-            "DispatchBatcher built on a 2-D replica x host mesh whose "
-            f"host axis matches enable_sharding's "
-            f"({host_axis_size(mesh or self._mesh)} shards); this batcher has "
-            f"{'no mesh' if bmesh is None else dict(bmesh.shape)}, and "
-            "the port's DispatchBatcher takes only a replica-only mesh "
-            "(the 2-D mesh is ROADMAP.md Queue 1 item 9b)"
-        )
-
-    def _refuse_sharded_resident(self):
-        raise NotImplementedError(
-            "the host-sharded resident span carry is not ported to "
-            "pivot_tpu_torch yet (ROADMAP.md Queue 1 item 9b): use "
-            "enable_sharding or enable_resident, not both")
+        n = host_axis_size(mesh or self._mesh)
+        if (bmesh is None or HOST_AXIS not in bmesh.shape
+                # No replica axis: nothing to stack the [G] run axis over.
+                or REPLICA_AXIS not in bmesh.shape
+                or host_axis_size(bmesh) != n):
+            raise ValueError(
+                "composing host sharding with cross-run batching needs "
+                "a DispatchBatcher built on a 2-D replica x host mesh "
+                f"whose host axis matches enable_sharding's ({n} "
+                "shards) — build one with parallel.mesh."
+                "build_hybrid_mesh(host_parallel=...) and pass it as "
+                "DispatchBatcher(mesh=...)"
+            )
 
     def prepare(self) -> None:
         """Initialise CUDA on this policy's device now, on the calling
@@ -957,8 +970,9 @@ class _DevicePolicyBase(Policy):
 
         Refused with the adaptive twin (its latency model prices the
         unsharded pass), ``use_kernel=True`` and ``realtime_bw`` (no
-        sharded form), the batcher and the resident tier (ROADMAP.md
-        Queue 1 item 9b)."""
+        sharded form).  Composes with :meth:`enable_batching` when the
+        batcher carries a matching 2-D mesh, and with
+        :meth:`enable_resident` (the carry lives host-sharded)."""
         if self.adaptive:
             raise ValueError(
                 "host sharding needs deterministic dispatch — construct "
@@ -978,8 +992,6 @@ class _DevicePolicyBase(Policy):
             raise ValueError("mesh has an empty host axis")
         if self._batch_client is not None:
             self._check_batch_mesh(self._batch_client, mesh)
-        if self._resident is not None:
-            self._refuse_sharded_resident()
         mesh_device(mesh, self.device)
         if self.topology is not None:
             self._check_mesh_hosts(mesh)
@@ -996,9 +1008,13 @@ class _DevicePolicyBase(Policy):
             )
 
     def _kernel_for(self, kernel, sharded_kernel):
-        """The dispatch rung for one placement call: the host-sharded
-        twin when a mesh is enabled, else the unsharded form through
-        :meth:`_call_kernel` (``pivot_tpu/sched/tpu.py:771-783``)."""
+        """The dispatch rung for one placement call
+        (``pivot_tpu/sched/tpu.py:771-783``): the unsharded form through
+        the batcher when one is attached (on a sharded policy the
+        batcher's 2-D mesh resolves it to its twin), the host-sharded
+        twin when only a mesh is enabled, else the unsharded form."""
+        if self._batch_client is not None:
+            return functools.partial(self._call_kernel, kernel)
         if self._mesh is not None:
             return functools.partial(sharded_kernel, self._mesh)
         return functools.partial(self._call_kernel, kernel)
@@ -1524,6 +1540,11 @@ class CudaCostAwarePolicy(_DevicePolicyBase):
         if exps is not None and self._mesh is not None:
             raise ValueError("cannot promote learned score exponents onto a "
                              "host-sharded policy (ops/shard.py exemption)")
+        if exps is not None and getattr(self._batch_client, "mesh",
+                                        None) is not None:
+            raise ValueError("cannot promote learned score exponents onto a "
+                             "2-D-mesh-batched policy (ops/shard.py "
+                             "exemption)")
         super().apply_weights(w)
         self._score_exp = exps
 

@@ -58,9 +58,14 @@ there too (``MpcController.warmup``).  The model-predictive controller
 (``mpc=``, ``pivot_tpu_torch.mpc``) and the recovery plane
 (``recovery=``, ``pivot_tpu_torch.recover``) and the sampled dispatch
 profiler (``profiler=``, ``pivot_tpu_torch.obs.DispatchProfiler``) are
-the reference's.  Not ported yet, each raising ``NotImplementedError``
-with its ROADMAP.md item (Queue 1): the 2-D mesh (``mesh=``, item 9b)
-and elastic serving (``elastic=``, item 9c).
+the reference's, and so is the 2-D serving mesh (``mesh=``, a
+``parallel.mesh.build_hybrid_mesh``): the shared batcher's flushes shard
+their ``[G]`` rows over its replica axis and, for sessions whose
+policies have ``enable_sharding`` on a matching host axis, each row's
+hosts over its host axis (``sched/batch.py``).  On one card the mesh
+names the card R·S times (logical shards).  Not ported yet: elastic
+serving (``elastic=``, ROADMAP.md Queue 1 item 9c) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -180,15 +185,17 @@ class ServeDriver(LogMixin):
         recovery=None,
         elastic=None,
     ):
-        for value, what, item in (
-            (mesh, "the 2-D serving mesh (mesh=)", "9b"),
-            (elastic, "elastic mesh serving (elastic=)", "9c"),
-        ):
-            if value is not None:
-                raise NotImplementedError(
-                    f"{what} is not ported to pivot_tpu_torch yet "
-                    f"(ROADMAP.md, Queue 1 item {item})"
+        if elastic is not None:
+            if mesh is not None:
+                raise ValueError(
+                    "elastic serving does not compose with the driver's "
+                    "2-D batcher mesh (fixed at construction) — shard "
+                    "the session policies instead (enable_sharding)"
                 )
+            raise NotImplementedError(
+                "elastic mesh serving (elastic=) is not ported to "
+                "pivot_tpu_torch yet (ROADMAP.md, Queue 1 item 9c)"
+            )
         if not sessions:
             raise ValueError("ServeDriver needs at least one session")
         if stall_timeout is not None and stall_timeout <= 0:
@@ -258,6 +265,11 @@ class ServeDriver(LogMixin):
             tenant_quota=tenant_quota, capacity=capacity,
         )
         self.flush_after = flush_after
+        #: 2-D serving mesh: handed to the DispatchBatcher, so coalesced
+        #: flushes shard ``[G]`` over ``replica`` and — for sessions whose
+        #: policies have ``enable_sharding`` on — each row's hosts over
+        #: ``host``.  ``None`` keeps the meshless flush.
+        self.mesh = mesh
         self.routing = routing
         self.preempt = preempt
         self.preempt_timeout = preempt_timeout
@@ -1174,12 +1186,31 @@ class ServeDriver(LogMixin):
             s.scheduler.splice_gate = self._splice_gate
 
     def _batching_compatible(self) -> bool:
-        """(cv held) Whether the pool can share a DispatchBatcher: every
-        policy batchable (device-backed, deterministic routing) and on
-        one device — a flush stages its rows on one device."""
+        """(cv held) Whether the pool can share a DispatchBatcher
+        (``pivot_tpu/serve/driver.py:1224-1256``): every policy batchable
+        (device-backed, deterministic routing) and on one device — a
+        flush stages its rows on one device — and, when sharding is in
+        play, the driver's mesh carrying both axes, its host axis
+        agreeing with every sharded policy's.  A sharded pool without a
+        compatible driver mesh runs free: 1-D host-sharded per-session
+        dispatches, no coalescing."""
         if not all(s.batchable for s in self.sessions):
             return False
-        return len({str(s.policy.device) for s in self.sessions}) == 1
+        if len({str(s.policy.device) for s in self.sessions}) != 1:
+            return False
+        # A mesh axis is a name and a size: no torch needed to read one.
+        if self.mesh is not None and not {"replica", "host"} <= set(
+                self.mesh.shape):
+            # The flush machinery keys on both axes.
+            return False
+        for s in self.sessions:
+            pmesh = getattr(s.policy, "_mesh", None)
+            if pmesh is None:
+                continue
+            if self.mesh is None or (int(self.mesh.shape["host"])
+                                     != int(pmesh.shape["host"])):
+                return False
+        return True
 
     # -- lifecycle ---------------------------------------------------------
     def run(self, arrivals: Iterable[JobArrival],
@@ -1227,7 +1258,7 @@ class ServeDriver(LogMixin):
                 self.batcher = DispatchBatcher(
                     len(self.sessions), flush_after=self.flush_after,
                     tracer=self.tracer, profiler=self.profiler,
-                    device=self.sessions[0].policy.device,
+                    device=self.sessions[0].policy.device, mesh=self.mesh,
                     ragged=self.ragged,
                     journal=(
                         self._recovery.journal
@@ -1372,8 +1403,8 @@ class ServeDriver(LogMixin):
         return registry.to_json()
 
     def report(self) -> dict:
-        """The service report, with the reference's keys; the mesh, not
-        ported, reports off."""
+        """The service report, with the reference's keys (``"mesh"``:
+        the serving mesh's axis sizes, or None)."""
         return {
             "sessions": len(self.sessions),
             "backpressure": self.queue.policy,
@@ -1385,7 +1416,10 @@ class ServeDriver(LogMixin):
             "routing": self.routing,
             "preempt": self.preempt,
             "tenant_quota": self.queue.tenant_quota,
-            "mesh": None,
+            "mesh": (
+                {str(k): int(v) for k, v in self.mesh.shape.items()}
+                if self.mesh is not None else None
+            ),
             "tier_reserve": (
                 list(self.queue.tier_reserve)
                 if self.queue.tier_reserve else None

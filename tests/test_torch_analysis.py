@@ -11,9 +11,8 @@
 * Each torch-only addition has a falsifier; a suppression without a
   reason is a finding.
 * The port's own tree is clean under every pass, and the parity pass's
-  per-family knob sets equal the reference's, the 1-D host-sharded forms
-  included, less the 2-D and resident sharded forms (ROADMAP.md Queue 1
-  item 9b).
+  per-family knob sets equal the reference's, every host-sharded form
+  (1-D, ``[G]``-batched 2-D, resident) included.
 """
 
 import json
@@ -279,15 +278,21 @@ def test_hostsync_sharded_bodies(tmp_path):
             return int(x)
         def _helper(x):
             return x.cpu()
+        def sharded_batched_tick_run(x):
+            return x
+        def sharded_resident_span_run(x):
+            return int(x)
         """, "host-sync")
-    assert sorted(f.line for f in got) == [2, 4, 8]
+    assert sorted(f.line for f in got) == [2, 4, 8, 14]
     got = _port(tmp_path, "ops/shard.py", """\
         def _two_stage_argmin(x):
             return x
         """, "host-sync")
     assert {f.message.split(" not")[0] for f in got} == {
         "required hot-path body _cost_aware_sharded_pass()",
-        "required hot-path body sharded_fused_tick_run()"}
+        "required hot-path body sharded_fused_tick_run()",
+        "required hot-path body sharded_batched_tick_run()",
+        "required hot-path body sharded_resident_span_run()"}
 
 
 def test_entry_map_lists_the_sharded_forms():
@@ -296,9 +301,13 @@ def test_entry_map_lists_the_sharded_forms():
     assert sorted((e.name, e.kind) for e in
                   entries["pivot_tpu_torch/ops/shard.py"]) == [
         (name, "family") for name in (
-            "best_fit_kernel_sharded", "cost_aware_kernel_sharded",
-            "first_fit_kernel_sharded", "opportunistic_kernel_sharded",
-            "sharded_fused_tick_run")]
+            "best_fit_kernel_sharded", "best_fit_kernel_sharded_batched",
+            "cost_aware_kernel_sharded", "cost_aware_kernel_sharded_batched",
+            "first_fit_kernel_sharded", "first_fit_kernel_sharded_batched",
+            "opportunistic_kernel_sharded",
+            "opportunistic_kernel_sharded_batched",
+            "sharded_batched_tick_run", "sharded_fused_tick_run",
+            "sharded_resident_span_run")]
 
 
 def test_parity_flags_an_unregistered_sharded_form(tmp_path):
@@ -306,12 +315,12 @@ def test_parity_flags_an_unregistered_sharded_form(tmp_path):
     _write(root, "pivot_tpu_torch/ops/shard.py", """\
         def greedy_kernel_sharded(mesh, avail):
             return avail
-        def sharded_batched_tick_run(mesh, avail):
+        def sharded_replay_tick_run(mesh, avail):
             return avail
         """)
     got = [f.message for f in port.run(root=root, rules=["backend-parity"])
            if f.path == "pivot_tpu_torch/ops/shard.py"]
-    for name in ("greedy_kernel_sharded", "sharded_batched_tick_run"):
+    for name in ("greedy_kernel_sharded", "sharded_replay_tick_run"):
         assert any(m.startswith(f"unregistered backend form {name}()")
                    for m in got), (name, got)
 
@@ -511,14 +520,10 @@ def test_parity_knob_sets_equal_the_reference_less_sharded():
     as_ref = {port_parity.REFERENCE_FORM.get(n, n): s
               for n, s in port_sets.items()}
     for name, knobs in ref_sets.items():
-        if name in port_parity.ABSENT:
-            assert "shard" in name
-            continue
+        assert name not in port_parity.ABSENT
         assert as_ref[name] == knobs, name
-    assert {"cost_aware_kernel_sharded", "sharded_fused_tick_run"} <= set(
-        port_sets)
-    assert set(port_parity.ABSENT) == {
-        n for forms in [*ref_parity.MANIFEST.values(),
-                        ref_parity.SPAN_MANIFEST]
-        for n in forms if "shard" in n and ("batched" in n or "resident" in n)}
-    assert set(port_parity.ABSENT.values()) == {"ROADMAP.md Queue 1 item 9b"}
+    assert {"cost_aware_kernel_sharded", "sharded_fused_tick_run",
+            "cost_aware_kernel_sharded_batched", "sharded_batched_tick_run",
+            "sharded_resident_span_run"} <= set(port_sets)
+    # Every reference form has its port form: nothing is declared absent.
+    assert port_parity.ABSENT == {}

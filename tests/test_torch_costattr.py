@@ -36,14 +36,17 @@ def test_every_reference_entry_point_has_a_port_row(attribution):
             assert got["flagged"], name
         else:
             assert got["port"] in rows, name
-    # The 1-D sharded entries are ported (ops/shard.py); the 2-D and
-    # resident ones wait for ROADMAP.md Queue 1 item 9b.
+    # Every sharded entry is ported (ops/shard.py): the 1-D, the 2-D and
+    # the resident ones; the resident carry's staging is flagged, as the
+    # unsharded one's is.
     for (path, name), port in costattr.REFERENCE.items():
         if path == "pivot_tpu/ops/shard.py":
-            if "batched" in name or "resident" in name:
-                assert port[0] == "flag" and "item 9b" in port[1], name
+            if name == "_sharded_resident_init_fn":
+                assert port[0] == "flag" and \
+                    "sharded_resident_carry_init" in port[1], name
             else:
                 assert port[0] == "pivot_tpu_torch/ops/shard.py", name
+                assert port[1] in rows and "ops" in rows[port[1]], name
 
 
 def _reference_model(name):

@@ -310,9 +310,9 @@ def test_fault_option_runs_and_matches_pivot_tpu(jax_cluster, port_cluster):
 def test_checkpoint_path_raises(port_cluster, tmp_path):
     """Checkpoint files run now (``tests/test_torch_checkpoint.py``); a
     segment length that could never advance raises, and a sharded
-    rollout over a mesh of several distinct devices (ROADMAP.md Queue 1
-    item 9b) raises ``NotImplementedError``, where a sweep over them
-    runs unsharded."""
+    rollout over a mesh of several distinct devices (ROADMAP.md Queue 1,
+    several cards) raises ``NotImplementedError``, where a sweep over
+    them runs unsharded."""
     topo, a0, sz = _inputs(port_cluster)
     w = E.EnsembleWorkload.from_applications([chain_app()], device="cpu")
     path = str(tmp_path / "ck.npz")
@@ -325,7 +325,7 @@ def test_checkpoint_path_raises(port_cluster, tmp_path):
     from pivot_tpu_torch.parallel.mesh import replica_mesh
 
     two = replica_mesh(devices=[torch.device("cpu"), torch.device("meta")])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="Queue 1, several cards"):
         E.sharded_rollout(two, prng.PRNGKey(0), a0, w, topo, sz,
                           n_replicas=2)
     sweep = E.shard_sweep(E.capacity_sweep, force_mesh=True,

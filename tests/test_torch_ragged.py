@@ -23,9 +23,10 @@ batcher's span flushes (``sched/batch.py``) against ``pivot_tpu``'s.
     ``tests/test_ragged.py:253``), ``ragged=False`` fragments them, a
     same-shape flush is untouched; every result equals its solo span.
 
-``pivot_tpu``'s zero-recompile case (``count_compiles``) and its mesh
-case have no counterpart here: torch compiles nothing, and the mesh is
-ROADMAP.md Queue 1 item 9.
+``pivot_tpu``'s zero-recompile case (``count_compiles``) has no
+counterpart here (torch compiles nothing); its mesh case is
+``tests/test_torch_mesh_2d.py::test_ragged_mesh_flush_rides_mesh_where_
+sameshape_falls_back``.
 """
 
 from __future__ import annotations

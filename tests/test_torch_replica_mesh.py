@@ -257,8 +257,9 @@ def test_shard_sweep_fallbacks_log_the_reference_reasons(pair):
     """The fallback order and reasons of ``pivot_tpu``'s ``shard_sweep``
     (one device, an explicit ``segment_ticks``, an indivisible replica
     count — the sweep's own default counted — and the CPU without
-    ``force_mesh``), then the port's own (several distinct cards: item
-    9b), each an unsharded ``functools.partial``."""
+    ``force_mesh``), then the port's own (several distinct cards:
+    ROADMAP.md Queue 1, several cards), each an unsharded
+    ``functools.partial``."""
     _, (pw, ptopo, pa0, psz) = pair
     cases = [
         (dict(devices=[CPU]), dict(n_replicas=16), None),
@@ -274,7 +275,7 @@ def test_shard_sweep_fallbacks_log_the_reference_reasons(pair):
          "cores; pass force_mesh=True to shard anyway)"),
         (dict(devices=CARDS), dict(n_replicas=16),
          "2 distinct devices (a mesh over several cards is not ported "
-         "yet: ROADMAP.md Queue 1 item 9b)"),
+         "yet: ROADMAP.md Queue 1, several cards)"),
     ]
     for opts, kw, reason in cases:
         with LogRecords("ensemble") as logged:
@@ -464,8 +465,8 @@ def test_cli_ensemble_routes_over_the_replica_mesh(tmp_path, monkeypatch):
 def test_cli_sweeps_route_through_shard_sweep(monkeypatch):
     """``_maybe_shard_sweep``: over a mesh of logical shards of one card a
     sharded sweep; on the CPU, one card or several distinct cards (a
-    mesh over them is item 9b) the unsharded sweep in 256-tick
-    segments."""
+    mesh over them is ROADMAP.md Queue 1, several cards) the unsharded
+    sweep in 256-tick segments."""
     from pivot_tpu_torch.experiments import cli as pcli
 
     for devices, sharded in (([], False), (CARDS[:1], False),
@@ -516,7 +517,7 @@ def test_cli_runs_unsharded_over_distinct_cards(tmp_path, monkeypatch):
         two, two_arr = ensemble(CARDS)
     assert logged == ["ensemble runs unsharded: 2 distinct devices (a mesh "
                       "over several cards is not ported yet: ROADMAP.md "
-                      "Queue 1 item 9b)"]
+                      "Queue 1, several cards)"]
     none, none_arr = ensemble([])
     assert not calls and two["devices"] == 2 and none["devices"] == 1
     for key in none_arr:
@@ -526,7 +527,7 @@ def test_cli_runs_unsharded_over_distinct_cards(tmp_path, monkeypatch):
         cap_two = capacity(CARDS)
     assert logged == ["sweep runs unsharded: 2 distinct devices (a mesh "
                       "over several cards is not ported yet: ROADMAP.md "
-                      "Queue 1 item 9b)"]
+                      "Queue 1, several cards)"]
     cap_none = capacity([])
     skip = ("wall_s", "devices", "replica_chunk", "replica_rollouts_per_sec")
     assert {k: v for k, v in two.items() if k not in skip} == \

@@ -15,9 +15,10 @@ the CPU S times (``replica_mesh(devices=[cpu] * S)``):
   * ``run_grid_lockstep(mesh=)``: placements and summaries equal to the
     meshless grid and to ``pivot_tpu``'s ``run_grid_lockstep(mesh=)``,
     and ``--batch-runs`` files byte-equal to ``pivot_tpu``'s;
-  * the refusals: a 2-D mesh, a mesh over several distinct devices, a
-    mesh on another device than the batcher's, and host sharding beside
-    a batcher.
+  * the refusals: a mesh over several distinct devices, a mesh on
+    another device than the batcher's, and host sharding beside a
+    replica-only batcher; a 2-D mesh is taken
+    (``tests/test_torch_mesh_2d.py`` holds it).
 """
 
 from __future__ import annotations
@@ -112,7 +113,8 @@ def test_batch_execute_mesh_matches_reference(arm, g):
     want = jb.batch_execute(
         ref, [(tuple(jnp.asarray(a) for a in r), k) for r, k in reqs],
         static, mesh=j_replica_mesh(4))
-    assert (pb._plan_mesh(cpu_mesh(4), g)[1] is None) == (g < 3)
+    assert (pb._plan_mesh(cpu_mesh(4), impl, g, reqs[0][0])[1] is None) == (
+        g < 3)
     for (args, _), (p, a), (pp, pa), (rp, ra) in zip(reqs, got, plain, want):
         own_p, own_a = impl(*(torch.from_numpy(x) for x in args), **static)
         for x in (p, pp):
@@ -295,16 +297,22 @@ def test_cli_batch_runs_on_the_mesh_files_equal_reference(
 
 
 def test_mesh_refusals():
+    """A 2-D mesh, once refused, is taken: ``DispatchBatcher``,
+    ``batch_execute`` and ``run_grid_lockstep`` run on it.  A mesh over
+    several distinct devices still raises, under its ROADMAP label."""
     two_d = build_mesh(devices=[CPU] * 4, host_parallel=2)
     req = [(_arm_request("first-fit", 0), {})]
-    for call in (lambda: pb.DispatchBatcher(2, mesh=two_d),
-                 lambda: pb.batch_execute(tk.first_fit_impl, req * 2, {},
-                                          mesh=two_d)):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md Queue 1 item 9b"):
-            call()
+    assert pb.DispatchBatcher(2, mesh=two_d).client().mesh is two_d
+    got = pb.batch_execute(tk.first_fit_impl, req * 2, {"strict": False},
+                           mesh=two_d)
+    want = pb.batch_execute(tk.first_fit_impl, req * 2, {"strict": False},
+                            device="cpu")
+    for (p, a), (pp, pa) in zip(got, want):
+        np.testing.assert_array_equal(p, pp)
+        assert torch.equal(a, pa)
     distinct = replica_mesh(devices=[CPU, torch.device("meta")])
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP\.md Queue 1, several cards"):
         pb.DispatchBatcher(2, mesh=distinct)
     with pytest.raises(ValueError, match="mesh names the device"):
         pb.DispatchBatcher(2, mesh=cpu_mesh(2), device="meta")
@@ -317,13 +325,15 @@ def test_mesh_refusals():
 
     runs = grid_runs("pivot_tpu_torch", lambda: port_policy("first-fit"), 2,
                      n_hosts=8, n_apps=2)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        run_grid_lockstep(runs, mesh=two_d)
+    stats: dict = {}
+    sums = run_grid_lockstep(runs, stats_out=stats, mesh=two_d)
+    assert len(sums) == 2 and stats["runs"] == 2
 
 
 def test_host_sharding_beside_a_replica_mesh_batcher_still_refused():
-    """Composing ``enable_sharding`` with a batcher needs the 2-D mesh:
-    a replica-only batcher mesh is refused in either order."""
+    """Composing ``enable_sharding`` with a batcher needs a 2-D mesh
+    whose host axis matches: a replica-only batcher mesh is refused in
+    either order, with the reference's text."""
     from pivot_tpu_torch.parallel.mesh import host_sharded_mesh
     from pivot_tpu_torch.sched import cuda as pc
 
@@ -333,8 +343,9 @@ def test_host_sharding_beside_a_replica_mesh_batcher_still_refused():
     pol.enable_batching(client)
     with pytest.raises(ValueError, match="2-D replica x host mesh") as exc:
         pol.enable_sharding(hosts)
-    assert "{'replica': 2, 'host': 1}" in str(exc.value)
-    assert "item 9b" in str(exc.value) and pol._mesh is None
+    assert "host axis matches enable_sharding's (2 shards)" in str(
+        exc.value)
+    assert "build_hybrid_mesh" in str(exc.value) and pol._mesh is None
     pol2 = pc.CudaFirstFitPolicy(device="cpu")
     pol2.enable_sharding(hosts)
     with pytest.raises(ValueError, match="2-D replica x host mesh"):
@@ -345,15 +356,20 @@ def test_host_sharding_beside_a_replica_mesh_batcher_still_refused():
 def test_plan_mesh_is_the_reference_replica_rule():
     """The padded bucket and the routing of ``_plan_mesh`` equal
     ``pivot_tpu``'s on a replica-only mesh, for every group size up to
-    40 on 2, 3, 4 and 8 shards."""
+    40 on 2, 3, 4 and 8 shards (never the 2-D program there)."""
+    args0 = (np.zeros((8, 4)),)
     for S in (2, 3, 4, 8):
         ref_mesh = j_replica_mesh(S)
         for g in range(1, 41):
-            gb, fn_mesh = pb._plan_mesh(cpu_mesh(S), g)
-            rgb, rmesh, host_ok = jb._plan_mesh(ref_mesh, object(), g, ())
-            assert (gb, fn_mesh is not None, False) == \
+            gb, fn_mesh, ok = pb._plan_mesh(cpu_mesh(S), tk.first_fit_impl,
+                                            g, args0)
+            rgb, rmesh, host_ok = jb._plan_mesh(ref_mesh, jk.first_fit_kernel,
+                                                g, args0)
+            assert (gb, fn_mesh is not None, ok) == \
                 (rgb, rmesh is not None, host_ok), (S, g)
-    assert pb._plan_mesh(None, 5) == (8, None)
+            assert not ok
+    assert pb._plan_mesh(None, tk.first_fit_impl, 5, args0) == (8, None,
+                                                                False)
 
 
 def test_batcher_mesh_stats_through_threads():

@@ -252,7 +252,7 @@ def test_resident_export_restore_round_trip():
 
 
 def _port_sim(policy_fn, fuse, resident=False, splice=True, chaos=False,
-              market=False, late_at=None):
+              market=False, late_at=None, n_hosts=4):
     """``tests/test_resident.py::_run_full_sim`` from the port's modules."""
     from pivot_tpu_torch.des import Environment
     from pivot_tpu_torch.infra import Cluster, Host, Storage
@@ -270,7 +270,7 @@ def _port_sim(policy_fn, fuse, resident=False, splice=True, chaos=False,
     meter = Meter(env, meta)
     zones = meta.zones
     hosts = [Host(env, 4.0, 1024, 100, 1, locality=zones[i % 2],
-                  meter=meter, id=f"h{i}") for i in range(4)]
+                  meter=meter, id=f"h{i}") for i in range(n_hosts)]
     storage = [Storage(env, z)
                for z in dict.fromkeys(h.locality for h in hosts)]
     cluster = Cluster(env, hosts=hosts, storage=storage, meta=meta,

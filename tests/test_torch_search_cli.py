@@ -10,8 +10,8 @@ cli.py``) against ``pivot_tpu``'s:
   * the entry's guards: without a card it raises before it writes
     anything, float64 off the CPU raises, TF32 matmuls are off after it,
     and ``--backend sharded_rollout`` gives the ``rollout`` backend's
-    report (a mesh over several distinct devices names ROADMAP.md Queue 1
-    item 9b).
+    report (a mesh over several distinct devices names ROADMAP.md Queue 1,
+    several cards).
 """
 
 from __future__ import annotations
@@ -152,7 +152,7 @@ def test_search_cli_sharded_backend_points_to_roadmap(tmp_path,
         torch.device("cpu"), torch.device("meta")])
     out = tmp_path / "r.json"
     with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md Queue 1 item 9"):
+                       match=r"ROADMAP\.md Queue 1, several cards"):
         pcli.run_search_cli(pcli.parse_args(
             argv + ["--backend", "sharded_rollout", "--out", str(out)]),
             torch_device="cpu", dtype="float64")

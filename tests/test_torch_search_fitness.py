@@ -333,7 +333,7 @@ def test_fitness_input_validation(tiny_env):
             mesh=replica_mesh(devices=[torch.device("cpu")] * 8))
     # A mesh over several distinct devices says where it stands.
     with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md Queue 1 item 9"):
+                       match=r"ROADMAP\.md Queue 1, several cards"):
         PF.evaluate_rows(one, tiny_env, backend="sharded_rollout",
                          mesh=replica_mesh(devices=[torch.device("cpu"),
                                                     torch.device("meta")]))

@@ -340,10 +340,20 @@ def test_not_ported_options_raise(tmp_path):
     from pivot_tpu_torch.obs import DispatchProfiler
 
     ss = sessions(pserve, pconfig, numpy_policy, 1)
-    for kw, item in ((dict(mesh=object()), "item 9"),
-                     (dict(elastic=object()), "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            pserve.ServeDriver(ss, **kw)
+    import torch
+
+    from pivot_tpu_torch.parallel.mesh import build_hybrid_mesh
+
+    # The 2-D serving mesh is ported (tests/test_torch_serve_2d.py runs
+    # it); elastic serving is item 9c, and refused beside a mesh.
+    mesh = build_hybrid_mesh(host_parallel=2,
+                             devices=[torch.device("cpu")] * 4)
+    assert pserve.ServeDriver(ss, mesh=mesh).report()["mesh"] == {
+        "replica_dcn": 1, "replica": 2, "host": 2}
+    with pytest.raises(NotImplementedError, match="item 9c"):
+        pserve.ServeDriver(ss, elastic=object())
+    with pytest.raises(ValueError, match="does not compose"):
+        pserve.ServeDriver(ss, mesh=mesh, elastic=object())
     prof = DispatchProfiler(4)
     profiled = pserve.ServeDriver(ss, profiler=prof)
     assert profiled.report()["profiler"] == prof.summary()
@@ -403,16 +413,17 @@ def test_cli_serve_report_has_reference_keys(tmp_path, capsys, extra):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--shard-hosts", "2"], "item 9"),
+    (["--shard-hosts", "2"], "needs a device-backed policy (--device cuda)"),
     (["--mpc", "--autoscale", "1:2"], "mutually exclusive"),
     (["--mpc-dry-run"], "require --mpc"),
     (["--profile-dispatch", "4"], "requires --device cuda")])
 def test_cli_serve_not_ported_flags_exit_naming_item(flags, item, capsys):
-    """Refused serve flags exit naming why; ``--profile-dispatch`` is
-    ported and exits only off the device."""
+    """Refused serve flags exit naming why; ``--profile-dispatch`` and
+    ``--shard-hosts`` are ported and exit only off the device."""
     from pivot_tpu_torch.experiments import cli as pcli
 
-    device = ["--device", "numpy"] if "--profile-dispatch" in flags else []
+    device = (["--device", "numpy"]
+              if {"--profile-dispatch", "--shard-hosts"} & set(flags) else [])
     with pytest.raises(SystemExit):
         pcli.parse_args([*device, "serve", *flags])
     assert item in capsys.readouterr().err

@@ -235,7 +235,7 @@ def test_sharded_kernel_validation():
             rt_bw_rows=torch.ones((2, 16), dtype=torch.float64),
             rt_bw_idx=torch.zeros(16, dtype=torch.int32))
     two = pm.host_sharded_mesh(devices=[CPU, torch.device("meta")])
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    with pytest.raises(NotImplementedError, match="Queue 1, several cards"):
         sh.best_fit_kernel_sharded(two, x["avail"], x["dem"], x["valid"])
     with pytest.raises(ValueError, match="mesh names the device"):
         sh.best_fit_kernel_sharded(
@@ -245,6 +245,8 @@ def test_sharded_kernel_validation():
         sh.cost_aware_kernel_sharded
     assert sh.sharded_twin_of(sh.cost_aware_impl, ("rt_bw_rows",)) is None
     assert sh.sharded_twin_of(object()) is None
+    assert sh.sharded_twin_of(sh.fused_tick_run, (),
+                              {"greedy": object()}) is None
 
 
 def test_sharded_empty_batch_passthrough():
@@ -485,9 +487,9 @@ def test_enable_sharding_validation():
     sharded_ca.enable_sharding(m)
     with pytest.raises(ValueError, match="host-sharded"):
         sharded_ca.apply_weights(learned)
-    # Batching × sharding needs the batcher's 2-D mesh, which the port's
-    # DispatchBatcher does not have yet: refused in either order, with
-    # no partial state left.
+    # Batching × sharding needs a batcher on a 2-D mesh whose host axis
+    # matches: a meshless batcher is refused in either order, with no
+    # partial state left; a matching 2-D one composes.
     pol = pc.CudaFirstFitPolicy(device="cpu")
     pol.enable_batching(DispatchBatcher(1, device="cpu").client())
     with pytest.raises(ValueError, match="2-D replica x host mesh"):
@@ -498,17 +500,20 @@ def test_enable_sharding_validation():
     with pytest.raises(ValueError, match="2-D replica x host mesh"):
         pol2.enable_batching(DispatchBatcher(1, device="cpu").client())
     assert pol2._batch_client is None and pol2._mesh is m
-    # The sharded resident carry is item 9b, in either order.
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        pol2.enable_resident()
-    assert pol2._resident is None
+    pol2.enable_batching(DispatchBatcher(1, mesh=pm.build_hybrid_mesh(
+        host_parallel=8, devices=[CPU] * 16)).client())
+    assert pol2._batch_client is not None
+    # The sharded resident carry composes, in either order.
+    pol2b = pc.CudaFirstFitPolicy(device="cpu")
+    pol2b.enable_sharding(m)
+    pol2b.enable_resident()
+    assert pol2b._resident is not None and pol2b._mesh is m
     pol3 = pc.CudaFirstFitPolicy(device="cpu")
     pol3.enable_resident()
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        pol3.enable_sharding(m)
-    assert pol3._mesh is None
+    pol3.enable_sharding(m)
+    assert pol3._mesh is m and pol3._resident is not None
     # A mesh over two devices, or on another device than the policy's.
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    with pytest.raises(NotImplementedError, match="Queue 1, several cards"):
         pc.CudaFirstFitPolicy(device="cpu").enable_sharding(
             pm.host_sharded_mesh(devices=[CPU, torch.device("meta")]))
     with pytest.raises(ValueError, match="mesh names the device"):
