@@ -18,6 +18,8 @@
                                        # batcher's replica mesh
     python3 chip_smoke.py --phases 17  # the 2-D serving mesh: batched
                                        # twins, 2-D serve, sharded resident
+    python3 chip_smoke.py --phases 18  # elastic meshes: mid-run reshard,
+                                       # the serving soak, the shadow probe
 
 One card.  ``--phases`` takes a comma list; phases 2-5 and 10-17 bring
 phase 1's build along, phase 5 the runs of phases 3 and 4, phase 13
@@ -367,6 +369,27 @@ Phases, each fatal on failure:
      ``serve --shard-hosts 1`` through ``python -m
      pivot_tpu_torch.experiments.cli`` in a process of its own, beside
      phase 2, to its end.
+ 18. elastic meshes on the card (``serve/elastic.py``, ``reshard``; S
+     logical shards of the card, f32, 600 hosts; the elastic path runs
+     the sharded torch passes and launches no ``greedy_place``): (a)
+     DES runs of ``tests/test_elastic.py``'s app chain (``P18_APPS``
+     apps), First-Fit and Cost-Aware, resident tier on, resharded at
+     t = 12 — 8 shards shrunk to 4, 4 regrown to 8, unsharded to 7 (the
+     padded extent 602) — each equal to the unsharded run on the card in
+     placements and end times, no placement naming a pad row; (b) the
+     reference's serving soak (``tests/test_elastic.py::_elastic_soak``:
+     mixed tiers at rate 20, 18 jobs and a straggler at t = 10,000, a
+     host preemption, a market, resident, splice tier 2, 4 restarts) on
+     Cost-Aware sessions sharded over 8 shards with shard 3 failing at
+     t = 6 for 200 s: the reference's assertions, decisions/s, latency
+     per tier, the recovery latency (wall ms from the ``DeviceLostError``
+     to the first dispatch the shrunk mesh serves, and to its end) and the
+     manager's ``describe()``; its healthy arm (an empty plan) equal in
+     placements to ``elastic=None`` on unsharded sessions, with 0 kernel
+     builds and graph captures once warm; (c) the shadow probe True on
+     the 8, 4, 2 and 1 rungs at 600 hosts, and False, holding the shard
+     out, when the candidate's run raises.  Unsharded referees run the
+     torch form (``use_kernel=False``).
 
 The CPU sides of the card-vs-CPU checks of phases 6 (b) and (d), 7 (c),
 8 (c) and 9 (c) run in one spawned worker process a phase
@@ -383,7 +406,7 @@ Each phase logs its wall.  The line before the last is a JSON
 phases 3, 4, 10-14, 16 and 17, the R = 256 launches of phase 4, the R = 4
 launches of phase 14 and the per-row launches of phases 10-14, 16 and 17,
 with the per-row form's times; phase 15's path launches none, its
-comparison launch apart; a number
+comparison launch apart, and phase 18's none at all; a number
 of a phase not run is null); the
 last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
@@ -7130,6 +7153,466 @@ def phase_2d_mesh(device, ck, p15, serve10, oneshot) -> dict:
     return rec
 
 
+# -- phase 18: elastic meshes -------------------------------------------------
+
+#: (a) the mid-run reshards: (case, launch shards or None, shards after).
+P18_RESHARDS = (("shrink 8->4", 8, 4), ("regrow 4->8", 4, 8),
+                ("unsharded->7 (padded)", None, 7))
+#: (a) ``tests/test_elastic.py::_chain_apps``' chain, this many apps (the
+#: reference's 3 place at tick 0 on 600 hosts).
+P18_APPS = 24
+P18_RESHARD_AT = 12.0
+#: (b) the soak's logical shards, failing ordinal and window.
+P18_SHARDS = 8
+P18_FAULT = (6.0, 3, 200.0)
+P18_JOBS = 18
+
+
+def p18_policy(device, arm, shards=None):
+    """A float32 ``cuda`` policy of ``arm`` ("first-fit" or "cost-aware",
+    the torch form: no ``greedy_place``), host-sharded over ``shards``
+    logical shards of the card when given."""
+    from pivot_tpu_torch.parallel.mesh import host_sharded_mesh
+    from pivot_tpu_torch.sched import cuda as pc
+
+    if arm == "first-fit":
+        pol = pc.CudaFirstFitPolicy(device=device)
+    else:
+        pol = pc.CudaCostAwarePolicy(sort_tasks=True, sort_hosts=True,
+                                     use_kernel=False, device=device)
+    if shards is not None:
+        pol.enable_sharding(host_sharded_mesh(
+            devices=[torch.device(device)] * shards))
+    return pol
+
+
+class P18PadWatch:
+    """Wraps a policy's ``place`` / ``place_span``: the largest host
+    index any decision named."""
+
+    def __init__(self, pol):
+        self.max_index = -1
+        place, span = pol.place, pol.place_span
+
+        def placed(ctx):
+            out = place(ctx)
+            if len(out):
+                self.max_index = max(self.max_index, int(np.max(out)))
+            return out
+
+        def spanned(ctx, plan):
+            out = span(ctx, plan)
+            if out is not None and out.placements.size:
+                self.max_index = max(self.max_index,
+                                     int(out.placements.max()))
+            return out
+
+        pol.place, pol.place_span = placed, spanned
+
+
+def p18_des(device, arm, start=None, after=None, reshard=True):
+    """One DES run of the chain at 600 hosts (``tests/test_elastic.py::
+    _full_sim``: 4-cpu hosts over 2 zones, fused spans, resident tier),
+    resharded at ``P18_RESHARD_AT`` onto ``after`` shards (None:
+    unsharded) when ``reshard``.  Returns ``((placements, ends), policy,
+    watch, wall_s, span_stats)``."""
+    from pivot_tpu_torch.des import Environment
+    from pivot_tpu_torch.infra import Cluster, Host, Storage
+    from pivot_tpu_torch.infra.locality import ResourceMetadata
+    from pivot_tpu_torch.infra.meter import Meter
+    from pivot_tpu_torch.parallel.mesh import host_sharded_mesh
+    from pivot_tpu_torch.sched import GlobalScheduler
+    from pivot_tpu_torch.utils import reset_ids
+    from pivot_tpu_torch.workload import Application, TaskGroup
+
+    reset_ids()
+    env = Environment()
+    meta = ResourceMetadata(seed=0)
+    meter = Meter(env, meta)
+    zones = meta.zones
+    hosts = [Host(env, 4.0, 1024, 100, 1, locality=zones[i % 2],
+                  meter=meter, id=f"h{i}") for i in range(600)]
+    storage = [Storage(env, z)
+               for z in dict.fromkeys(h.locality for h in hosts)]
+    cluster = Cluster(env, hosts=hosts, storage=storage, meta=meta,
+                      meter=meter, route_mode="meta", seed=0,
+                      executor_backend="fast")
+    pol = p18_policy(device, arm, start)
+    pol.enable_resident(splice=True)
+    watch = P18PadWatch(pol)
+    sched = GlobalScheduler(env, cluster, pol, seed=3, meter=meter,
+                            fuse_spans=True)
+    cluster.start()
+    sched.start()
+    apps = [Application(f"app{i}", [
+        TaskGroup("a", cpus=1, mem=64, runtime=17.0, output_size=400,
+                  instances=10),
+        TaskGroup("b", cpus=2, mem=64, runtime=9.0, dependencies=["a"],
+                  instances=6),
+        TaskGroup("c", cpus=1, mem=32, runtime=5.0, dependencies=["b"],
+                  instances=8),
+    ]) for i in range(P18_APPS)]
+    t0 = time.perf_counter()
+    for a in apps:
+        sched.submit(a)
+    if reshard:
+        env.run(until=P18_RESHARD_AT)
+        pol.reshard(None if after is None else host_sharded_mesh(
+            devices=[torch.device(device)] * after))
+    sched.stop()
+    env.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    placements = sorted((t.id, t.placement)
+                        for a in apps for g in a.groups for t in g.tasks)
+    ends = sorted((a.id, a.end_time) for a in apps)
+    return (placements, ends), pol, watch, wall, dict(sched.span_stats)
+
+
+def p18_reshard(device) -> dict:
+    """(a): every reshard of ``P18_RESHARDS`` for both arms, against the
+    unsharded run of the arm on the card."""
+    rec = {}
+    for arm in ("first-fit", "cost-aware"):
+        want, _pol, _w, ref_s, ref_spans = p18_des(device, arm,
+                                                    reshard=False)
+        if any(h is None for _id, h in want[0]):
+            raise AssertionError(f"(a) {arm}: the unsharded run left "
+                                 "tasks unplaced")
+        for case, start, after in P18_RESHARDS:
+            got, pol, watch, wall, spans = p18_des(device, arm, start, after)
+            if got != want:
+                bad = [x for x, y in zip(got[0], want[0]) if x != y][:3]
+                raise AssertionError(f"(a) {arm} {case}: placements or end "
+                                     f"times differ from the unsharded run "
+                                     f"(first {bad}; ends {got[1][:2]} vs "
+                                     f"{want[1][:2]})")
+            extent = pol._host_extent or 600
+            if watch.max_index >= 600 or (after == 7) != (extent == 602):
+                raise AssertionError(f"(a) {arm} {case}: a placement named "
+                                     f"host {watch.max_index} (extent "
+                                     f"{extent})")
+            rs = pol.dispatch_stats()["resident"]
+            rec[f"{arm} {case}"] = dict(wall_s=wall, extent=extent,
+                                        spans=spans, resident=rs,
+                                        max_index=watch.max_index)
+            log(f"  (a) {arm} {case} at t={P18_RESHARD_AT}: placements and "
+                f"end times = the unsharded run's ({len(got[0])} tasks, "
+                f"{spans['fused_spans']} fused spans, {rs['spans']} on the "
+                f"carry, host extent {extent}, largest index named "
+                f"{watch.max_index}); wall {wall!r} s (unsharded "
+                f"{ref_s!r} s)")
+    return rec
+
+
+class P18Timer:
+    """The soak's recovery latency, wall clock from the first
+    ``DeviceLostError`` the gate raises: to the first dispatch the
+    shrunk mesh's gate lets through (``ms``, the reference bench's
+    ``recovery_latency_ms``, ``bench.py:2815-2842``), and to the end of
+    that dispatch (``served_ms``; the policies' ``place`` / ``place_span``
+    wrapped as the factory builds them)."""
+
+    def __init__(self, mgr):
+        self.mgr = mgr
+        self.raised_at = self.resumed_at = self.served_at = None
+        gate_for = mgr._gate_for
+
+        def timed_gate_for(policy):
+            gate = gate_for(policy)
+
+            def timed(now):
+                from pivot_tpu_torch.infra.faults import DeviceLostError
+
+                try:
+                    gate(now)
+                except DeviceLostError:
+                    if self.raised_at is None:
+                        self.raised_at = time.perf_counter()
+                    raise
+                if (self.raised_at is not None and self.resumed_at is None
+                        and self._shrunk(policy)):
+                    self.resumed_at = time.perf_counter()
+
+            return timed
+
+        mgr._gate_for = timed_gate_for
+
+    def _shrunk(self, pol) -> bool:
+        return len(self.mgr._mesh_key(pol._mesh)) < len(self.mgr.devices)
+
+    def wrap(self, pol) -> None:
+        for name in ("place", "place_span"):
+            fn = getattr(pol, name)
+
+            def served(*a, _fn=fn):
+                out = _fn(*a)
+                if (self.resumed_at is not None and self.served_at is None
+                        and self._shrunk(pol)):
+                    self.served_at = time.perf_counter()
+                return out
+
+            setattr(pol, name, served)
+
+    def _since_raise(self, t):
+        return None if t is None else (t - self.raised_at) * 1e3
+
+    @property
+    def ms(self):
+        return self._since_raise(self.resumed_at)
+
+    @property
+    def served_ms(self):
+        return self._since_raise(self.served_at)
+
+
+def p18_soak(device, elastic, sharded=True, timer=None, chaos=True,
+             market=True):
+    """``tests/test_elastic.py::_elastic_soak`` on the card at 600 hosts
+    a session: Cost-Aware sessions (the torch form), sharded over
+    ``P18_SHARDS`` logical shards when ``sharded``.  Returns
+    ``(placements, driver, report)``."""
+    from pivot_tpu_torch import serve as ps
+    from pivot_tpu_torch.infra.faults import FaultInjector
+    from pivot_tpu_torch.infra.market import MarketSchedule
+    from pivot_tpu_torch.utils import reset_ids
+    from pivot_tpu_torch.utils.config import ClusterConfig, build_cluster
+    from pivot_tpu_torch.workload import Application, TaskGroup
+
+    reset_ids()
+    arrs = list(ps.mixed_tier_arrivals(
+        rate=20.0, n_jobs=P18_JOBS, weights=(0.5, 0.3, 0.2), seed=7,
+        make_app=ps.synthetic_app_factory(seed=11)))
+    arrs.append(ps.JobArrival(ts=10_000.0, app=Application("straggler", [
+        TaskGroup("s", cpus=1, mem=32, runtime=2.0, instances=1)]), tier=0))
+
+    def factory(label):
+        pol = p18_policy(device, "cost-aware",
+                         P18_SHARDS if sharded else None)
+        if timer is not None:
+            timer.wrap(pol)
+        s = ps.ServeSession(label, build_cluster(ClusterConfig(
+            n_hosts=600, seed=0)), pol, seed=0, fuse_spans="slo")
+        if chaos:
+            FaultInjector(s.cluster, seed=0).preempt_host(
+                s.cluster.hosts[2].id, at=8.0, lead=6.0, outage=25.0)
+        if market:
+            s.scheduler.market = MarketSchedule.generate(
+                s.cluster.meta, seed=5, horizon=400.0, n_segments=4,
+                hot_fraction=0.3, hot_hazard=1e-2, base_hazard=1e-4)
+        return s
+
+    driver = ps.ServeDriver(
+        [factory("s0")], queue_depth=64, backpressure="shed",
+        flush_after=0.02, resident=True, splice_tier=2,
+        session_factory=factory, max_restarts=4, elastic=elastic)
+    t0 = time.perf_counter()
+    report = driver.run(iter(arrs))
+    torch.cuda.synchronize()
+    # The CLI's serve metrics (``cli.run_serve_stream``), unrounded.
+    report["wall_s"] = time.perf_counter() - t0
+    report["decisions_per_sec"] = (report["slo"]["counters"]["decisions"]
+                                   / report["wall_s"])
+    placements = sorted((t.id, t.placement) for a in (x.app for x in arrs)
+                        for g in a.groups for t in g.tasks)
+    return placements, driver, report
+
+
+def p18_tiers(report) -> dict:
+    return {t: dict(p50_ms=v["decision_latency_s"]["p50"] * 1e3,
+                    p99_ms=v["decision_latency_s"]["p99"] * 1e3)
+            for t, v in report["slo"]["tiers"].items()}
+
+
+def p18_serve(device, card) -> dict:
+    """(b): the kill arm with the reference's assertions, then the
+    healthy arm against ``elastic=None`` on unsharded sessions."""
+    from pivot_tpu_torch import serve as ps
+    from pivot_tpu_torch.infra.audit import audit_serve
+    from pivot_tpu_torch.infra.faults import ChaosEvent, ChaosSchedule
+    from pivot_tpu_torch.utils.compile_counter import count_compiles
+
+    at, ordinal, duration = P18_FAULT
+    mgr = ps.ElasticMeshManager(ps.ElasticConfig(schedule=ChaosSchedule(
+        seed=13, events=[ChaosEvent(kind="device_fault", at=at,
+                                    target=f"device:{ordinal}",
+                                    duration=duration)])))
+    timer = P18Timer(mgr)
+    from pivot_tpu_torch.sched import cuda as pc
+
+    folds, fold = [], pc.elastic_fold_carry
+
+    def counted_fold(carry, H, mesh):
+        folds.append(carry.avail.shape[0])
+        return fold(carry, H, mesh)
+
+    pc.elastic_fold_carry = counted_fold
+    try:
+        _pl, driver, report = p18_soak(device, mgr, timer=timer)
+    finally:
+        pc.elastic_fold_carry = fold
+    c = report["slo"]["counters"]
+    kinds = [k for _, k, _ in mgr.events]
+    problems = [
+        c["arrived"] != P18_JOBS + 1, c["completed"] != P18_JOBS + 1,
+        c.get("failed_jobs", 0) != 0, c.get("device_losses", 0) < 1,
+        c.get("session_restarts", 0) < 1, audit_serve(driver) != [],
+        mgr.shrinks < 1, mgr.regrows < 1, mgr.probes < 1,
+        mgr.probe_failures != 0, not kinds or kinds[0] != "loss"
+        or kinds[-1] != "regrow",
+        any(k == "loss" and o != (ordinal,) for _, k, o in mgr.events),
+        timer.ms is None, timer.served_ms is None, not folds,
+    ]
+    if any(problems):
+        raise AssertionError(f"(b) kill arm: checks {problems}; counters "
+                             f"{c}; events {mgr.events}")
+    kill = dict(wall_s=report["wall_s"],
+                decisions_per_sec=report["decisions_per_sec"],
+                tiers=p18_tiers(report), recovery_ms=timer.ms,
+                recovery_served_ms=timer.served_ms,
+                counters={k: c.get(k, 0) for k in (
+                    "arrived", "completed", "device_losses",
+                    "session_restarts", "requeued", "decisions")},
+                events=mgr.events, describe=mgr.describe(),
+                carries_folded=len(folds))
+    log(f"  [{card}]")
+    log(f"  (b) kill arm, shard {ordinal} down [{at:g}, {at + duration:g}) "
+        f"over {P18_SHARDS} logical shards: {c['completed']} of "
+        f"{c['arrived']} jobs completed, 0 failed, "
+        f"{c.get('device_losses', 0)} device losses, "
+        f"{c.get('session_restarts', 0)} restarts, audit_serve clean, "
+        f"{len(folds)} pending resident carries folded by the regrow; "
+        f"events {[(t, k, o) for t, k, o in mgr.events]}")
+    log(f"    {report['decisions_per_sec']!r} decisions/s, wall "
+        f"{report['wall_s']!r} s; per tier "
+        + ", ".join(f"{t}: p50 {v['p50_ms']!r} p99 {v['p99_ms']!r} ms"
+                    for t, v in kill["tiers"].items()))
+    log(f"    recovery: {timer.ms!r} ms of wall clock from the "
+        f"DeviceLostError to the first dispatch the shrunk mesh serves (its"
+        f" gate passed), {timer.served_ms!r} ms to that dispatch's end")
+    for line in mgr.describe().splitlines():
+        log(f"    describe: {line}")
+    want, _drv, rep_none = p18_soak(device, None, sharded=False,
+                                    chaos=False, market=False)
+    gated = ps.ElasticMeshManager()
+    with count_compiles() as counter:
+        got, drv_g, rep_g = p18_soak(device, gated, chaos=False,
+                                     market=False)
+    if got != want or counter.kernel_builds or counter.graph_captures or (
+            gated.events or rep_g["slo"]["counters"]["completed"]
+            != P18_JOBS + 1):
+        raise AssertionError(
+            f"(b) healthy arm: placements equal {got == want}, "
+            f"{counter.kernel_builds} builds, {counter.graph_captures} "
+            f"captures, events {gated.events}, counters "
+            f"{rep_g['slo']['counters']}")
+    healthy = dict(decisions_per_sec=rep_g["decisions_per_sec"],
+                   tiers=p18_tiers(rep_g),
+                   none_decisions_per_sec=rep_none["decisions_per_sec"],
+                   none_tiers=p18_tiers(rep_none), kernel_builds=0,
+                   graph_captures=0, tasks=len(got))
+    log(f"  (b) healthy arm (empty plan, sharded): placements = elastic=None"
+        f" on unsharded sessions ({len(got)} tasks); 0 kernel builds, 0 "
+        f"graph captures once warm; {rep_g['decisions_per_sec']!r} "
+        f"decisions/s (elastic=None unsharded "
+        f"{rep_none['decisions_per_sec']!r}); per tier "
+        + ", ".join(f"{t}: p50 {v['p50_ms']!r} p99 {v['p99_ms']!r} ms"
+                    for t, v in healthy["tiers"].items()))
+    return dict(kill=kill, healthy=healthy)
+
+
+def p18_probe(device) -> dict:
+    """(c): the real shadow probe at 600 hosts on every rung of the
+    8-shard ladder; a candidate whose run raises fails it, and the
+    manager holds the shard out until a later probe passes."""
+    from pivot_tpu_torch import serve as ps
+    from pivot_tpu_torch.infra.faults import (
+        ChaosEvent,
+        ChaosSchedule,
+        DeviceLostError,
+    )
+    from pivot_tpu_torch.ops import shard as sh
+    from pivot_tpu_torch.parallel.mesh import host_sharded_mesh
+    from pivot_tpu_torch.sched import GlobalScheduler
+    from pivot_tpu_torch.utils.config import ClusterConfig, build_cluster
+
+    def bound():
+        pol = p18_policy(device, "cost-aware", P18_SHARDS)
+        cluster = build_cluster(ClusterConfig(n_hosts=600, seed=0))
+        pol.bind(GlobalScheduler(cluster.env, cluster, pol, seed=0))
+        return pol
+
+    mgr = ps.ElasticMeshManager(ps.ElasticConfig(
+        schedule=ChaosSchedule(seed=1, events=[ChaosEvent(
+            kind="device_fault", at=5.0, target="device:3",
+            duration=10.0)]), probe_every=2))
+    first = bound()
+    mgr.attach(first)
+    rungs = {}
+    for S in mgr.ladder:
+        t0 = time.perf_counter()
+        ok = mgr.shadow_probe(first, host_sharded_mesh(
+            devices=[torch.device(device)] * S))
+        rungs[S] = dict(ok=ok, ms=(time.perf_counter() - t0) * 1e3)
+        if ok is not True:
+            raise AssertionError(f"(c) the probe failed on the {S}-shard "
+                                 "rung")
+    try:
+        first._fault_gate(6.0)
+    except DeviceLostError:
+        pass
+    else:
+        raise AssertionError("(c) the gate did not raise in the window")
+    second = bound()
+    mgr.attach(second)
+    real = sh.sharded_fused_tick_run
+
+    def sick(*a, **k):
+        raise RuntimeError("the candidate shard raised")
+
+    sh.sharded_fused_tick_run = sick
+    try:
+        second._fault_gate(20.0)
+    finally:
+        sh.sharded_fused_tick_run = real
+    held = mgr._mesh_key(second._mesh)
+    if (mgr.probe_failures, mgr.regrows, held) != (1, 0, (0, 1, 2, 4)):
+        raise AssertionError(f"(c) a raising probe did not hold the shard "
+                             f"out: {mgr.events}, mesh {held}")
+    for t in (20.5, 21.0, 21.5):
+        second._fault_gate(t)
+    if mgr.regrows != 1 or mgr._mesh_key(second._mesh) != tuple(range(8)):
+        raise AssertionError(f"(c) no regrow after the cooldown: "
+                             f"{mgr.events}")
+    log(f"  (c) shadow probe at 600 hosts: True on rungs "
+        + ", ".join(f"{S} ({v['ms']!r} ms)" for S, v in rungs.items())
+        + f"; a raising candidate failed it and the manager held shard 3 "
+        f"out on {held}, then regrew after the cooldown; events "
+        f"{[k for _, k, _ in mgr.events]}")
+    return dict(rungs=rungs, events=mgr.events)
+
+
+def phase_elastic(device, ck) -> dict:
+    """Phase 18 (module docstring).  Returns its record."""
+    card = card_line()
+    log(f"  [{card}]")
+    rec = {}
+    ck.reset_launches()  # the path's count starts here
+    for key, fn in (("a", lambda: p18_reshard(device)),
+                    ("b", lambda: p18_serve(device, card)),
+                    ("c", lambda: p18_probe(device))):
+        t0 = time.perf_counter()
+        rec[key] = fn()
+        rec[f"{key}_wall_s"] = time.perf_counter() - t0
+        log(f"  ({key}): {rec[f'{key}_wall_s']!r} s")
+    rec["launches"] = ck.LAUNCHES["greedy_place"]
+    if rec["launches"]:
+        raise AssertionError(f"phase 18: {rec['launches']} greedy_place "
+                             "launches on a path of sharded torch passes")
+    log("  0 greedy_place launches on the phase's path")
+    return rec
+
+
 def phase_5_report(ck, e2e, sens, card, device):
     """Phase 5: times on the card (the main path's wrapper, bare launches,
     the warp sweep, the gated R = 256 launches) and the reports of
@@ -7226,7 +7709,7 @@ def phase_5_report(ck, e2e, sens, card, device):
     return times, gt, spans
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18)
 
 
 def selected_phases(argv) -> set:
@@ -7515,6 +7998,17 @@ def main(argv=None) -> int:
         walls[17] = time.perf_counter() - tp
         census_line(census, 17)
         log(f"  phase 17 wall: {walls[17]!r} s")
+    p18 = None
+    if 18 in phases:
+        tp = time.perf_counter()
+        log(f"== 18. elastic meshes on the card: DES runs resharded mid-run "
+            f"(8->4, 4->8, unsharded->7 padded) at 600 hosts, the "
+            f"reference's serving soak with shard {P18_FAULT[1]} of "
+            f"{P18_SHARDS} lost and regrown, the shadow probe")
+        p18 = phase_elastic(device, ck)
+        walls[18] = time.perf_counter() - tp
+        census_line(census, 18)
+        log(f"  phase 18 wall: {walls[18]!r} s")
     if configs is not None:
         configs.uninstall()
     if oneshot is not None:
@@ -7528,6 +8022,7 @@ def main(argv=None) -> int:
                             if k not in ("costattr",)},
         "cost_attribution": p14 and p14["costattr"]["rows"],
         "sharding": p15, "replica_axis": p16, "mesh_2d": p17,
+        "elastic": p18,
         "phase_walls": walls,
         "same_files": e2e and e2e["same_files"], "gated_times": gt,
         "sensitivity": sens and {p: {k: v for k, v in r.items()
@@ -7623,6 +8118,7 @@ def main(argv=None) -> int:
         "phase16_launches_rows": r_rows,
         "phase17_launches_r1": m2_r1,
         "phase17_launches_rows": m2_rows,
+        "phase18_launches": p18 and p18["launches"],
         "max_abs_err": max(errs) if errs else None,
         "ms": lt and lt["ms"],
         "plain_ms": lt and lt["plain_ms"],

@@ -53,6 +53,11 @@ DISCOVER: Dict[str, Tuple[str, ...]] = {
         "_risk_restrict_sharded", "_place_local", "_bump_local",
         "sharded_fused_tick_run", "sharded_batched_tick_run",
         "sharded_resident_span_run", "_batched_rows", "_set_rows_local",
+        # Elastic meshes add no device body (``pivot_tpu/analysis/
+        # hostsync.py:64-71``): every rung reuses the bodies above.  The
+        # ``elastic_*`` / ``mesh_shape_ladder`` helpers are host-side on
+        # purpose (a fold exports the carry) and stay out of the
+        # patterns.
     ),
     "pivot_tpu_torch/parallel/ensemble/tick.py": ("_rollout_segment",),
     # The reference's ``*_impl`` bodies are the port's eager functions.

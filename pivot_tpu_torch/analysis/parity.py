@@ -130,6 +130,11 @@ REFERENCE_FORM: Dict[str, str] = {
 #: pins their parity against the re-staged driver).
 _RESIDENT_EXEMPT = frozenset({"live", "risk_rows"})
 
+#: Elastic meshes register no span form here (``pivot_tpu/analysis/
+#: parity.py:144``): a shrink or regrow runs the ``sharded_*`` entries
+#: below on another rung of the ladder (``ops.shard.mesh_shape_ladder``),
+#: and the ``elastic_*`` re-layout helpers are host-side numpy between
+#: device programs, invisible to the discovery patterns.
 SPAN_MANIFEST: Dict[str, Tuple[str, FrozenSet[str]]] = {
     "fused_tick_run": (_TICKLOOP, frozenset()),
     "reference_tick_run": (_TICKLOOP, frozenset()),

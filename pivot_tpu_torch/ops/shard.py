@@ -80,7 +80,23 @@ between spans (viewed as ``[S, H/S]`` inside), so
 ``resident_carry_clone`` / ``_export`` / ``_restore`` and the recovery
 plane's snapshots take it unchanged.
 
-The elastic helpers (ROADMAP.md Queue 1 item 9c) are not ported here.
+**Elastic re-layout.**  When a mesh shard is lost mid-serve, the pool
+shrinks onto the next rung of a declared ladder of mesh shapes
+(:func:`mesh_shape_ladder`, the descending divisors of the launch shard
+count; :func:`next_ladder_shape`) and regrows up it when the shard
+returns (``serve/elastic.py``).  Host state re-lays from one rung onto
+another on the host, in numpy (``pivot_tpu/ops/shard.py:1914-2078``):
+:func:`elastic_trim_rows` cuts the old rung's pad rows back to the true
+host count H, :func:`elastic_pad_rows` / :func:`elastic_pad_state` pad
+to the new rung's extent (:func:`elastic_host_extent`, the smallest
+multiple of the shard count ≥ H) with :data:`DEAD_AVAIL` availability, a
+False live mask and zero counts, risk and zone.  A pad row can never be
+chosen: no demand fits a negative availability and the live mask
+excludes it, so placements on padded operands equal the unpadded run's.
+:func:`elastic_fold_carry` moves a pending resident carry onto another
+rung (or onto the unsharded layout).  These helpers run between device
+programs, never inside one, and add no device body.
+
 No pass here may read the device inside its step loop
 (``analysis/hostsync.py``).
 """
@@ -122,6 +138,7 @@ from pivot_tpu_torch.ops.tickloop import (
     _stack_spans,
     _tick_cost,
     fused_tick_run,
+    resident_carry_export,
     resident_carry_init,
     span_step_bounds,
 )
@@ -136,13 +153,21 @@ __all__ = [
     "batched_sharded_call",
     "best_fit_kernel_sharded",
     "best_fit_kernel_sharded_batched",
+    "DEAD_AVAIL",
     "check_row_divisibility",
     "cost_aware_kernel_sharded",
     "cost_aware_kernel_sharded_batched",
+    "elastic_fold_carry",
+    "elastic_host_extent",
+    "elastic_pad_rows",
+    "elastic_pad_state",
+    "elastic_trim_rows",
     "first_fit_kernel_sharded",
     "first_fit_kernel_sharded_batched",
     "mesh_device",
     "mesh_is_2d",
+    "mesh_shape_ladder",
+    "next_ladder_shape",
     "one_device",
     "opportunistic_kernel_sharded",
     "opportunistic_kernel_sharded_batched",
@@ -1267,3 +1292,139 @@ def batched_sharded_call(mesh, kernel, static_kw, n_args, kw_keys):
                        **dict(zip(kw_keys, cols[n_args:])), **static_kw)
 
     return call
+
+
+# ---------------------------------------------------------------------------
+# Elastic re-layout (``pivot_tpu/ops/shard.py:1914-2078``; module docstring)
+# ---------------------------------------------------------------------------
+
+#: Availability of a dead-sentinel pad host: below any demand (demands
+#: are >= 0), so a pad row fails every fit test even before its False
+#: live mask excludes it.
+DEAD_AVAIL = -1.0
+
+
+def mesh_shape_ladder(n_devices: int) -> tuple:
+    """The declared elastic shapes of an ``n_devices`` launch mesh: its
+    divisors, descending (8 → ``(8, 4, 2, 1)``).  A shrink walks down to
+    the largest rung the survivors fill, a regrow walks back up."""
+    n = int(n_devices)
+    if n < 1:
+        raise ValueError(f"mesh ladder needs n_devices >= 1, got {n}")
+    return tuple(s for s in range(n, 0, -1) if n % s == 0)
+
+
+def next_ladder_shape(ladder, n_live: int) -> int:
+    """The largest rung of ``ladder`` that ``n_live`` surviving devices
+    fill — the shrink target after a loss.  Raises when none survives."""
+    for s in ladder:
+        if s <= n_live:
+            return int(s)
+    raise ValueError(
+        f"no ladder rung <= {n_live} surviving devices (ladder {ladder})"
+    )
+
+
+def elastic_host_extent(H: int, n_shards: int) -> int:
+    """The smallest multiple of ``n_shards`` >= ``H``: the padded host
+    extent a non-dividing host count re-lays onto."""
+    if H < 1 or n_shards < 1:
+        raise ValueError(
+            f"elastic extent needs H >= 1 and n_shards >= 1, "
+            f"got H={H}, n_shards={n_shards}"
+        )
+    return -(-H // n_shards) * n_shards
+
+
+def elastic_pad_rows(arr, extent: int, fill):
+    """``arr``'s leading host axis padded to ``extent`` with ``fill`` rows
+    (``arr`` itself when already there).  numpy in, numpy out."""
+    arr = np.asarray(arr)
+    H = arr.shape[0]
+    if H > extent:
+        raise ValueError(f"host axis {H} exceeds elastic extent {extent}")
+    if H == extent:
+        return arr
+    pad = np.full((extent - H,) + arr.shape[1:], fill, dtype=arr.dtype)
+    return np.concatenate([arr, pad], axis=0)
+
+
+def elastic_trim_rows(arr, H: int):
+    """The first ``H`` host rows of a padded array (the inverse of
+    :func:`elastic_pad_rows`)."""
+    arr = np.asarray(arr)
+    if arr.shape[0] < H:
+        raise ValueError(
+            f"cannot trim to H={H}: array has {arr.shape[0]} host rows"
+        )
+    return arr[:H]
+
+
+def elastic_pad_state(H: int, n_shards: int, *, avail=None, counts=None,
+                      live=None, risk_rows=None, host_zone=None,
+                      base_task_counts=None):
+    """Global host-state arrays (true host count ``H``) re-laid onto an
+    ``n_shards`` mesh: ``(extent, dict)`` with every array given padded to
+    the elastic extent — :data:`DEAD_AVAIL` availability, False live
+    mask, zero counts, risk and zone.  ``live`` defaults to all-True over
+    ``H`` when padding occurs and ``avail`` is given: a None live mask
+    means "every host selectable", pad rows included.  ``risk_rows`` pads
+    its TRAILING axis (the ``[K, H]`` layout)."""
+    extent = elastic_host_extent(H, n_shards)
+    out = {}
+    if avail is not None:
+        avail = np.asarray(avail)
+        if avail.shape[0] != H:
+            raise ValueError(
+                f"avail has {avail.shape[0]} host rows, expected H={H}"
+            )
+        out["avail"] = elastic_pad_rows(avail, extent, DEAD_AVAIL)
+        if live is None and extent != H:
+            live = np.ones((H,), bool)
+    if counts is not None:
+        out["counts"] = elastic_pad_rows(
+            np.asarray(counts, np.int32), extent, 0
+        )
+    if live is not None:
+        out["live"] = elastic_pad_rows(np.asarray(live, bool), extent, False)
+    if risk_rows is not None:
+        risk_rows = np.asarray(risk_rows)
+        if risk_rows.shape[-1] != H:
+            raise ValueError(
+                f"risk_rows trailing axis {risk_rows.shape[-1]} != H={H}"
+            )
+        pad = extent - H
+        if pad:
+            widths = [(0, 0)] * (risk_rows.ndim - 1) + [(0, pad)]
+            risk_rows = np.pad(risk_rows, widths, constant_values=0.0)
+        out["risk_rows"] = risk_rows
+    if host_zone is not None:
+        out["host_zone"] = elastic_pad_rows(
+            np.asarray(host_zone, np.int32), extent, 0
+        )
+    if base_task_counts is not None:
+        out["base_task_counts"] = elastic_pad_rows(
+            np.asarray(base_task_counts, np.int32), extent, 0
+        )
+    return extent, out
+
+
+def elastic_fold_carry(carry: ResidentCarry, H: int, mesh) -> ResidentCarry:
+    """A resident span carry re-laid onto ``mesh`` (the unsharded layout
+    on the carry's device when ``mesh`` is None): one device→host export,
+    the old rung's pad rows trimmed back to the true host count ``H``,
+    padded to the new rung's extent, copied back as a new carry.  The
+    result equals the source on the true host rows: a fold moves state,
+    it changes no decision.  ``carry`` must be a pending carry or a clone
+    (``tickloop.resident_carry_export``)."""
+    snap = resident_carry_export(carry)
+    trimmed = {k: elastic_trim_rows(snap[k], H)
+               for k in ("avail", "counts", "live")}
+    if mesh is None:
+        return resident_carry_init(
+            trimmed["avail"], counts=trimmed["counts"],
+            live=trimmed["live"], device=carry.avail.device)
+    _, padded = elastic_pad_state(H, host_axis_size(mesh), **trimmed)
+    return sharded_resident_carry_init(
+        mesh, padded["avail"], counts=padded["counts"], live=padded["live"]
+    )

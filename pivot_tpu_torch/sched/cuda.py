@@ -115,8 +115,23 @@ with the resident tier (``pivot_tpu/sched/tpu.py:1091-1300``): the span
 carry lives host-sharded (``ops/shard.py::sharded_resident_span_run``),
 its splice checkpoints too.
 
-Not in this slice: the elastic fault gate (ROADMAP.md, Queue 1 item
-9c) — ``enable_fault_gate`` raises ``NotImplementedError``.
+Elastic meshes (``reshard``, ``enable_fault_gate``,
+``pivot_tpu/sched/tpu.py:649-767``): ``reshard(mesh)`` swaps a sharded
+policy onto another rung of the elastic ladder mid-serve, or back to
+the unsharded layout with ``None``.  Where the true host count does not
+divide the new shard count, every staged ``[H]`` operand is padded to
+the elastic extent with dead-sentinel rows (``ops/shard.py``'s elastic
+helpers: ``DEAD_AVAIL`` availability, a False live mask, zero counts,
+risk and zone), which no pass can select, so placements equal an
+unpadded run's.  A pending resident carry is folded onto the new layout
+(``elastic_fold_carry``); the splice checkpoint, the span staging and
+the staged risk table are dropped.  ``enable_fault_gate(gate)`` installs
+a callable ``gate(env_now)`` that runs at the top of every ``place`` and
+``place_span``: the elastic manager's gate (``serve/elastic.py``) raises
+:class:`~pivot_tpu_torch.infra.faults.DeviceLostError` when a fault
+window covers a shard of the policy's mesh.  That error passes through
+the degrade guard to the serving supervisor, which shrinks the pool's
+mesh and requeues; no twin serves it.
 """
 
 from __future__ import annotations
@@ -145,10 +160,14 @@ from pivot_tpu_torch.ops.kernels import (
     resolve_device,
 )
 from pivot_tpu_torch.ops.shard import (
+    DEAD_AVAIL,
     HOST_AXIS,
     REPLICA_AXIS,
     best_fit_kernel_sharded,
     cost_aware_kernel_sharded,
+    elastic_fold_carry,
+    elastic_host_extent,
+    elastic_pad_rows,
     first_fit_kernel_sharded,
     mesh_device,
     opportunistic_kernel_sharded,
@@ -482,6 +501,16 @@ class _DevicePolicyBase(Policy):
         #: The host-sharding mesh, when enabled (``enable_sharding``):
         #: every placement dispatch runs host-sharded over its host axis.
         self._mesh = None
+        #: The elastic pad extent (``reshard``): every staged [H] operand
+        #: is padded to it with dead-sentinel rows; None when unsharded
+        #: or when the host count divides the mesh.  Then the zone row
+        #: padded once a reshard (``_host_zone_arg``).
+        self._host_extent: Optional[int] = None
+        self._padded_host_zone = None
+        #: The elastic fault gate (``enable_fault_gate``): a callable
+        #: ``gate(env_now)`` run at the top of every ``place`` /
+        #: ``place_span``; None costs nothing.
+        self._fault_gate = None
         #: Graceful degradation (module docstring): after
         #: ``degrade_after`` CONSECUTIVE device-kernel failures the
         #: policy serves from its numpy twin, probing the device back
@@ -545,8 +574,14 @@ class _DevicePolicyBase(Policy):
         self.topology = DeviceTopology.from_cluster(
             scheduler.cluster, self.dtype, self.device
         )
+        self._padded_host_zone = None  # padded from the new topology
         if self._mesh is not None:
-            self._check_mesh_hosts(self._mesh)  # rebind: re-validate
+            if self._host_extent is not None:
+                # A resharded (padded) policy re-derives its extent for
+                # the new host count: pad rows are inert either way.
+                self._refresh_host_extent()
+            else:
+                self._check_mesh_hosts(self._mesh)  # rebind: re-validate
         if self._cpu_twin is not None:
             self._cpu_twin.bind(scheduler)
         if self.adaptive:
@@ -609,10 +644,13 @@ class _DevicePolicyBase(Policy):
             return {}
         hz = ctx.host_zones
         k_dyn = plan.n_ticks
-        rows = np.zeros((K, len(hz)), dtype=self.np_dtype)
+        # Pad columns (the elastic extent) stay zero: their hosts are
+        # dead sentinels.
+        rows = np.zeros((K, self._host_extent or len(hz)),
+                        dtype=self.np_dtype)
         seg = market.segment_indices(np.asarray(plan.grid[:k_dyn]))
-        rows[:k_dyn] = (self.risk_weight * self.rework_cost
-                        * market.hazard[seg][:, hz])
+        rows[:k_dyn, :len(hz)] = (self.risk_weight * self.rework_cost
+                                  * market.hazard[seg][:, hz])
         return {"risk_rows": rows} if rows.any() else {}
 
     def _span_norms(self, dem_host: np.ndarray, B: int) -> np.ndarray:
@@ -641,6 +679,8 @@ class _DevicePolicyBase(Policy):
         coalesce, ``sched/batch.py``), on the resident carry when the
         resident tier is on.  Returns None to decline; the scheduler then
         serves the tick per-tick."""
+        if self._fault_gate is not None:
+            self._fault_gate(ctx.env_now)
         if self._resident is not None:
             return self._place_span_resident(ctx, plan)
         slots = plan.slots
@@ -654,7 +694,7 @@ class _DevicePolicyBase(Policy):
             return None
         kw.update(self._span_market_kw(ctx, plan, K))
         dem, arrive = self._span_operands(dem_host, plan.arrive, S, B, K)
-        avail = np.asarray(ctx.avail, self.np_dtype)
+        avail = self._pad_avail_np(ctx.avail)
         if self._batch_client is not None:
             if kw.get("greedy") is not None:
                 # The module-level call: one key for every run's span.
@@ -750,8 +790,9 @@ class _DevicePolicyBase(Policy):
         if not rs.risk_table_np[seg[:k_dyn]].any():
             return {}
         if rs.risk_table_dev is None:
-            rs.risk_table_dev = torch.tensor(rs.risk_table_np,
-                                             device=self.device)
+            # Padded on its host axis under the elastic extent.
+            rs.risk_table_dev = torch.tensor(
+                self._pad_tail(rs.risk_table_np), device=self.device)
         return {"risk_table": rs.risk_table_dev, "risk_seg": seg}
 
     def _resident_dispatch(self, carry, dem, arrive, k_dyn: int, K: int,
@@ -802,6 +843,14 @@ class _DevicePolicyBase(Policy):
         host_counts = np.asarray(ctx.host_task_counts, np.int32)
         lm = ctx.live_mask
         host_live = np.ones(H, bool) if lm is None else np.asarray(lm, bool)
+        if self._host_extent is not None:
+            # The elastic pad layout: the mirror, the carry, the edit
+            # rows' drop sentinel and the geometry check live at the
+            # padded extent; pad rows never diff (their truth is fixed).
+            H = self._host_extent
+            host_avail = elastic_pad_rows(host_avail, H, DEAD_AVAIL)
+            host_counts = elastic_pad_rows(host_counts, H, 0)
+            host_live = elastic_pad_rows(host_live, H, False)
         carry = rs.carry
         if carry is not None and carry.avail.shape[0] != H:
             carry = None  # the cluster's geometry changed: re-stage
@@ -898,13 +947,7 @@ class _DevicePolicyBase(Policy):
         st.update(S=S1, dem_host=dem_host, arrive0=arrive0, kw=kw)
         return pl
 
-    # -- features of later slices ------------------------------------------
-    def _not_ported(self, what: str):
-        raise NotImplementedError(
-            f"{what} is not ported to pivot_tpu_torch yet (ROADMAP.md, "
-            "port queue)"
-        )
-
+    # -- cross-run batching (``pivot_tpu/sched/tpu.py:534-592``) ------------
     def enable_batching(self, client) -> None:
         """Attach a :class:`~pivot_tpu_torch.sched.batch.BatchClient`: the
         per-tick kernel calls block at the tick boundary and coalesce with
@@ -1019,8 +1062,121 @@ class _DevicePolicyBase(Policy):
             return functools.partial(sharded_kernel, self._mesh)
         return functools.partial(self._call_kernel, kernel)
 
+    # -- elastic meshes (``pivot_tpu/sched/tpu.py:649-767``) ----------------
+    def reshard(self, mesh) -> None:
+        """Swap the host-sharding mesh for another shape mid-serve — the
+        shrink / regrow step of elastic serving (``serve/elastic.py``).
+        ``mesh`` is a rung of the elastic ladder, or None for the
+        unsharded layout.  Where the true host count does not divide the
+        new shard count, the staged [H] operands pad to the elastic extent
+        with inert dead-sentinel rows.  A pending resident carry is folded
+        onto the new layout (``ops/shard.py::elastic_fold_carry``, equal
+        on the true host rows); the splice checkpoint cannot cross a
+        reshard and is dropped, and the next mirror-diff repairs any
+        divergence from the DES truth.  Refused with the adaptive twin,
+        with the batcher attached (its 2-D mesh is fixed), and onto a
+        mesh with ``use_kernel=True`` or ``realtime_bw`` (no sharded
+        form) or an empty host axis; the mesh must place its shards on
+        this policy's device, as in :meth:`enable_sharding`."""
+        if self.adaptive:
+            raise ValueError(
+                "elastic resharding needs deterministic dispatch — "
+                "construct the policy with adaptive=False"
+            )
+        if self._batch_client is not None:
+            raise ValueError(
+                "elastic resharding does not compose with the cross-run "
+                "batcher (its 2-D mesh is fixed at construction) — "
+                "detach the batcher first"
+            )
+        if mesh is not None:
+            if getattr(self, "use_kernel", None) is True:
+                raise ValueError(
+                    "the greedy_place kernel has no sharded form; drop "
+                    "use_kernel=True"
+                )
+            if getattr(self, "realtime_bw", False):
+                raise ValueError(
+                    "realtime_bw has no sharded form (per-tick sampled "
+                    "rows would reshard every dispatch)"
+                )
+            if host_axis_size(mesh) < 1:
+                raise ValueError("mesh has an empty host axis")
+            mesh_device(mesh, self.device)
+        self._mesh = mesh
+        self._padded_host_zone = None
+        self._refresh_host_extent()
+        rs = self._resident
+        if rs is not None:
+            if rs.carry is not None and self.topology is not None:
+                rs.carry = elastic_fold_carry(
+                    rs.carry, self.topology.n_hosts, mesh)
+            rs.checkpoint = None
+            rs.staging = None
+            rs.risk_table_dev = None  # re-staged (padded) on the next span
+
     def enable_fault_gate(self, gate) -> None:
-        self._not_ported("the elastic fault gate (Queue 1 item 9c)")
+        """Install (or clear, ``None``) the elastic fault gate: a callable
+        ``gate(env_now)`` run at the top of every ``place`` /
+        ``place_span``.  The elastic manager's gate raises
+        :class:`DeviceLostError` when a device-fault window covers the
+        dispatch instant; the error passes through the degrade guard to
+        the serving supervisor (``serve/elastic.py``)."""
+        self._fault_gate = gate
+
+    def _refresh_host_extent(self) -> None:
+        """The elastic pad extent of the current (mesh, topology) pair:
+        None when unsharded, unbound, or when the host count divides the
+        mesh (no padding)."""
+        if self._mesh is None or self.topology is None:
+            self._host_extent = None
+            return
+        H = self.topology.n_hosts
+        extent = elastic_host_extent(H, host_axis_size(self._mesh))
+        self._host_extent = None if extent == H else extent
+
+    def _pad_avail_np(self, avail) -> np.ndarray:
+        """``[H, 4]`` availability in the policy dtype, padded to the
+        elastic extent with :data:`DEAD_AVAIL` rows."""
+        avail = np.asarray(avail, self.np_dtype)
+        if self._host_extent is None:
+            return avail
+        return elastic_pad_rows(avail, self._host_extent, DEAD_AVAIL)
+
+    def _pad_h(self, arr, fill):
+        """An ``[H]`` host vector padded to the elastic extent with
+        ``fill``."""
+        if self._host_extent is None:
+            return arr
+        return elastic_pad_rows(arr, self._host_extent, fill)
+
+    def _pad_tail(self, arr):
+        """An ``[..., H]`` array zero-padded on its trailing axis to the
+        elastic extent (the risk table's layout)."""
+        if self._host_extent is None:
+            return arr
+        pad = self._host_extent - arr.shape[-1]
+        if pad <= 0:
+            return arr
+        widths = [(0, 0)] * (arr.ndim - 1) + [(0, pad)]
+        return np.pad(arr, widths, constant_values=0)
+
+    def _host_zone_arg(self, topo):
+        """The ``[H]`` host→zone row of a dispatch: the bind-time row, or
+        under the elastic extent a copy padded with zone 0 (a dead
+        sentinel is never selected), made once a reshard — on the device
+        with no host read, or in numpy for the batcher's host copy."""
+        if self._host_extent is None:
+            return topo.host_zone
+        if self._padded_host_zone is None:
+            hz = topo.host_zone
+            if torch.is_tensor(hz):
+                self._padded_host_zone = torch.cat(
+                    [hz, hz.new_zeros(self._host_extent - hz.shape[0])])
+            else:
+                self._padded_host_zone = elastic_pad_rows(
+                    hz, self._host_extent, 0)
+        return self._padded_host_zone
 
     # -- sampled dispatch profiling (``pivot_tpu/sched/tpu.py:786``) -------
     def enable_profiler(self, profiler) -> None:
@@ -1086,7 +1242,15 @@ class _DevicePolicyBase(Policy):
 
     # -- per-tick operands ---------------------------------------------------
     def _live_np(self, ctx: TickContext):
+        """The tick's ``[H]`` quarantine mask, or None when every host is
+        live.  Under the elastic extent it is always made: None would
+        mean "all live" and take in the dead-sentinel pad rows."""
         live = ctx.live_mask
+        if self._host_extent is not None:
+            full = np.zeros(self._host_extent, dtype=bool)
+            full[: ctx.n_hosts] = (True if live is None
+                                   else np.asarray(live, bool))
+            return full
         return None if live is None else np.asarray(live, dtype=bool)
 
     def _market_cost_arg(self, ctx: TickContext) -> torch.Tensor:
@@ -1113,7 +1277,8 @@ class _DevicePolicyBase(Policy):
         """The tick's [H] risk vector (``resolve_risk``, shared with the
         numpy twins) in the policy dtype, or None when disengaged."""
         risk = resolve_risk(ctx, self.risk_weight, self.rework_cost)
-        return None if risk is None else np.asarray(risk, self.np_dtype)
+        return (None if risk is None
+                else self._pad_h(np.asarray(risk, self.np_dtype), 0.0))
 
     def _padded(self, ctx: TickContext, order: Optional[List[int]] = None):
         """Host ``(avail [H,4], demands [B,4], valid [B])`` in the policy
@@ -1127,7 +1292,7 @@ class _DevicePolicyBase(Policy):
         dem[:T] = demands
         valid = np.zeros(B, dtype=bool)
         valid[:T] = True
-        return np.asarray(ctx.avail, self.np_dtype), dem, valid
+        return self._pad_avail_np(ctx.avail), dem, valid
 
     @staticmethod
     def _unpad(placements, T: int,
@@ -1146,6 +1311,8 @@ class _DevicePolicyBase(Policy):
 
     # -- adaptive dispatch (``pivot_tpu/sched/tpu.py:1408-1500``) ----------
     def place(self, ctx: TickContext) -> np.ndarray:
+        if self._fault_gate is not None:
+            self._fault_gate(ctx.env_now)
         if self.degraded and self._cpu_twin is not None:
             self.twin_ticks += 1
             return self._degraded_place(ctx)
@@ -1189,7 +1356,7 @@ class _DevicePolicyBase(Policy):
             try:
                 out = self._device_place(ctx)
             except DeviceLostError:
-                raise  # mesh loss is the elastic supervisor's (item 9c)
+                raise  # mesh loss is the elastic supervisor's
             except Exception as exc:  # noqa: BLE001 — degradation guard
                 # Twin fallback; no EMA update (the sample measures
                 # neither side's healthy cost).
@@ -1247,9 +1414,9 @@ class _DevicePolicyBase(Policy):
         consecutive failures make the fallback sticky until a half-open
         probe matches.  Guard disabled (``degrade_after=None``):
         exceptions propagate unchanged.  :class:`DeviceLostError` — the
-        loss of a mesh device, raised by item 9c's elastic fault gate —
-        always propagates: the elastic supervisor handles it, not the
-        twin."""
+        loss of a mesh shard, raised by the elastic fault gate
+        (``serve/elastic.py``) — always propagates: the elastic
+        supervisor handles it, not the twin."""
         if self.degrade_after is None or self._cpu_twin is None:
             self.device_ticks += 1
             return self._device_place(ctx)
@@ -1558,6 +1725,15 @@ class CudaCostAwarePolicy(_DevicePolicyBase):
             )
         super().enable_sharding(mesh)
 
+    def reshard(self, mesh) -> None:
+        if mesh is not None and self._score_exp is not None:
+            raise ValueError(
+                "the host-sharded passes have not been threaded for "
+                "learned score exponents — reshard only a policy at the "
+                "reference shape"
+            )
+        super().reshard(mesh)
+
     def _kernel_serves(self) -> bool:
         """The reference's auto rule, with ``cuda`` for the TPU backend;
         never with a mesh (the kernel has no sharded form)."""
@@ -1615,8 +1791,9 @@ class CudaCostAwarePolicy(_DevicePolicyBase):
             sort_norm=(self._span_norms(dem_host, B) if self.sort_tasks
                        else None),
             anchor_zone=az, bucket_id=bucket, cost_zz=topo.cost,
-            bw_zz=topo.bw, host_zone=topo.host_zone,
-            base_task_counts=np.asarray(ctx.host_task_counts, np.int32),
+            bw_zz=topo.bw, host_zone=self._host_zone_arg(topo),
+            base_task_counts=self._pad_h(
+                np.asarray(ctx.host_task_counts, np.int32), 0),
             totals=topo.totals, phase2=self.phase2,
         )
         if self._kernel_serves():
@@ -1686,7 +1863,7 @@ class CudaCostAwarePolicy(_DevicePolicyBase):
         T = ctx.n_tasks
         order, az_arr, ng_arr, group_rows, row_idx = self._anchor_stream(ctx)
         avail, dem, valid = self._padded(ctx, order)
-        counts = np.asarray(ctx.host_task_counts, dtype=np.int32)
+        counts = self._pad_h(np.asarray(ctx.host_task_counts, np.int32), 0)
         rows = idx = None
         if group_rows is not None:
             # One [H] row per anchor group + a per-task row index, the
@@ -1705,8 +1882,8 @@ class CudaCostAwarePolicy(_DevicePolicyBase):
                          score_exp=score_exp)
         topo = self._staged_topology()
         args = (st["avail"], st["dem"], st["valid"], st["ng"], st["az"],
-                self._market_cost_arg(ctx), topo.bw, topo.host_zone,
-                st["counts"])
+                self._market_cost_arg(ctx), topo.bw,
+                self._host_zone_arg(topo), st["counts"])
         mode = dict(bin_pack=self.bin_pack, sort_hosts=self.sort_hosts,
                     host_decay=self.host_decay, live=st["live"],
                     risk=st["risk"])
@@ -1754,9 +1931,11 @@ class CudaCostAwarePolicy(_DevicePolicyBase):
                     host_decay=self.host_decay)
         kernel = self._kernel_serves()
 
+        host_zone = self._host_zone_arg(topo)
+
         def batched(st, T):
             args = (st["dem"], st["valid"], st["ng"], st["az"], cost,
-                    topo.bw, topo.host_zone, st["counts"])
+                    topo.bw, host_zone, st["counts"])
             if kernel:
                 return self._greedy_batched(st["avail_r"], *args, **mode,
                                             risk=st["risk"], n_eff=T)[0]
@@ -1770,6 +1949,7 @@ class CudaCostAwarePolicy(_DevicePolicyBase):
                      else np.asarray(self._score_exp, self.np_dtype))
         return self._mc_sensitivity(
             ctx, order, batched, n_replicas, perturb, seed, ng=ng_arr,
-            az=az_arr, counts=np.asarray(ctx.host_task_counts, np.int32),
+            az=az_arr,
+            counts=self._pad_h(np.asarray(ctx.host_task_counts, np.int32), 0),
             risk=self._risk_np(ctx), score_exp=score_exp,
         )

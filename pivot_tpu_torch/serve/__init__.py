@@ -18,8 +18,9 @@ Entry points: ``python -m pivot_tpu_torch.experiments.cli serve`` and the
 classes below.  A served schedule equals the same job set run through
 batch-mode ``ExperimentRun`` (``tests/test_torch_serve.py``).  The
 recovery plane's config (``RecoveryConfig``) rides this namespace as in
-the reference; elastic meshes (``ElasticConfig``,
-``ElasticMeshManager``) are not ported (ROADMAP.md, Queue 1 item 9c).
+the reference, and so do the elastic-mesh classes (``ElasticConfig``,
+``ElasticMeshManager``: ``ServeDriver(elastic=...)``,
+:mod:`~pivot_tpu_torch.serve.elastic`).
 """
 
 from pivot_tpu_torch.serve.admission import (
@@ -39,6 +40,7 @@ from pivot_tpu_torch.serve.arrivals import (
 )
 from pivot_tpu_torch.serve.autoscale import AutoscaleConfig, SloAutoscaler
 from pivot_tpu_torch.serve.driver import ServeDriver, closed_loop_source
+from pivot_tpu_torch.serve.elastic import ElasticConfig, ElasticMeshManager
 from pivot_tpu_torch.serve.session import STOP, PreemptRequest, ServeSession
 
 # Crash-safe serving: the recovery plane's config rides the serve
@@ -51,6 +53,8 @@ __all__ = [
     "AdmissionQueue",
     "AutoscaleConfig",
     "BLOCKED",
+    "ElasticConfig",
+    "ElasticMeshManager",
     "JobArrival",
     "PreemptRequest",
     "RecoveryConfig",

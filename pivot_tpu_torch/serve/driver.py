@@ -63,9 +63,12 @@ the reference's, and so is the 2-D serving mesh (``mesh=``, a
 their ``[G]`` rows over its replica axis and, for sessions whose
 policies have ``enable_sharding`` on a matching host axis, each row's
 hosts over its host axis (``sched/batch.py``).  On one card the mesh
-names the card R·S times (logical shards).  Not ported yet: elastic
-serving (``elastic=``, ROADMAP.md Queue 1 item 9c) raises
-``NotImplementedError``.
+names the card R·S times (logical shards).  Elastic serving
+(``elastic=``, ``pivot_tpu_torch.serve.elastic``) is the reference's
+too: a fault gate on every host-sharded session policy, a loss handled
+by the supervisor's restart path, the replacement resharded onto the
+surviving logical shards before its thread starts, and a regrow after a
+shadow probe; an elastic pool runs without the batcher.
 """
 
 from __future__ import annotations
@@ -185,6 +188,17 @@ class ServeDriver(LogMixin):
         recovery=None,
         elastic=None,
     ):
+        #: Elastic mesh serving (``serve/elastic.py``): ``elastic`` is an
+        #: ``ElasticMeshManager``, an ``ElasticConfig``, a
+        #: ``ChaosSchedule`` with device events, or None.  None — the
+        #: default — builds nothing.  Otherwise the manager gates every
+        #: session policy's dispatches against the device-fault plan: a
+        #: covered dispatch raises ``DeviceLostError``, the supervisor
+        #: requeues through its restart path, and the replacement is
+        #: resharded onto the surviving shards before it serves.  An
+        #: elastic pool runs resident or free, never on the batcher (its
+        #: 2-D mesh is fixed at construction).
+        self._elastic = None
         if elastic is not None:
             if mesh is not None:
                 raise ValueError(
@@ -192,10 +206,23 @@ class ServeDriver(LogMixin):
                     "2-D batcher mesh (fixed at construction) — shard "
                     "the session policies instead (enable_sharding)"
                 )
-            raise NotImplementedError(
-                "elastic mesh serving (elastic=) is not ported to "
-                "pivot_tpu_torch yet (ROADMAP.md, Queue 1 item 9c)"
+            if session_factory is None:
+                raise ValueError(
+                    "elastic serving needs a session_factory — a shrink "
+                    "replaces the crashed session on the smaller mesh"
+                )
+            from pivot_tpu_torch.serve.elastic import (
+                ElasticConfig,
+                ElasticMeshManager,
             )
+
+            if isinstance(elastic, ElasticMeshManager):
+                self._elastic = elastic
+            elif isinstance(elastic, ElasticConfig):
+                self._elastic = ElasticMeshManager(elastic)
+            else:  # a ChaosSchedule with device_fault / restore events
+                self._elastic = ElasticMeshManager(
+                    ElasticConfig(schedule=elastic))
         if not sessions:
             raise ValueError("ServeDriver needs at least one session")
         if stall_timeout is not None and stall_timeout <= 0:
@@ -475,6 +502,17 @@ class ServeDriver(LogMixin):
                 self._session_factory is not None
                 and self._restarts < self._max_restarts
             )
+        if self._elastic is not None:
+            from pivot_tpu_torch.serve.elastic import is_device_loss
+
+            if is_device_loss(exc):
+                # A mesh-level loss: record it, then let the supervisor
+                # path below replace the session — _wire_and_start
+                # reshards the replacement onto the survivors, and
+                # _requeue sends its in-flight work back through the
+                # admission queue (tier 0 first).
+                self._elastic.note_loss(exc, session.label)
+                self.slo.count("device_losses")
         if session.retiring and not stopped:
             # A crash DURING a scale-down drain: the retire was already
             # decided — settle it (requeue the in-flight jobs onto the
@@ -676,6 +714,12 @@ class ServeDriver(LogMixin):
             # recovery plane too — a restarted session's spans journal
             # and snapshot exactly like the original's.
             new.attach_recovery(self._recovery)
+        if self._elastic is not None:
+            # The factory-fresh policy is gated AND resharded onto the
+            # current surviving-shard mesh here, before its thread
+            # starts, or its first gated dispatch would hit the same
+            # window and burn another restart.
+            self._elastic.attach(new.policy)
         thread = threading.Thread(
             target=new.loop, args=(client,),
             name=f"serve-{new.label}", daemon=True,
@@ -1252,7 +1296,7 @@ class ServeDriver(LogMixin):
                 # initialised above, on this thread.
                 for s in self.sessions:
                     self._enable_resident(s)
-            elif self._batching_compatible():
+            elif self._elastic is None and self._batching_compatible():
                 from pivot_tpu_torch.sched.batch import DispatchBatcher
 
                 self.batcher = DispatchBatcher(
@@ -1273,6 +1317,11 @@ class ServeDriver(LogMixin):
                 self._recovery.start()
                 for s in self.sessions:
                     s.attach_recovery(self._recovery)
+            if self._elastic is not None:
+                # Gate and align every launch policy before its thread
+                # exists (attach may reshard; the cv is held).
+                for s in self.sessions:
+                    self._elastic.attach(s.policy)
             for s, c in zip(self.sessions, clients):
                 s._client = c
                 thread = threading.Thread(

@@ -26,7 +26,9 @@ among them — and ``chip_smoke.py``.  A third probe runs the tooling:
 the graftcheck suite and its compile check, cost attribution, the
 compile counter's observer and the ``worker`` subcommand, and one
 host-sharded pass on a mesh of logical shards (``ops/shard.py``,
-``parallel/mesh.py``).
+``parallel/mesh.py``).  A fourth runs elastic serving (``serve/
+elastic.py``: a shard killed mid-soak, the pool shrunk and regrown) and
+the chaos-replay tool (``tools/chaos_replay.py``).
 """
 
 import ast
@@ -310,6 +312,74 @@ def test_tooling_runs_without_jax_or_reference_modules():
     assert report["modules"] == []
 
 
+#: Elastic serving and the chaos-replay tool.
+PROBE_18 = r"""
+import json, sys, tempfile
+import torch
+from pivot_tpu_torch import serve
+from pivot_tpu_torch.infra.faults import ChaosEvent, ChaosSchedule
+from pivot_tpu_torch.parallel.mesh import host_sharded_mesh
+from pivot_tpu_torch.tools import chaos_replay
+from pivot_tpu_torch.utils.config import (
+    ClusterConfig, PolicyConfig, build_cluster, make_policy)
+
+def factory(label):
+    pol = make_policy(PolicyConfig(
+        name="cost-aware", device="cuda", adaptive=False,
+        bin_pack="first-fit", sort_tasks=True, sort_hosts=True),
+        torch_device="cpu")
+    pol.enable_sharding(host_sharded_mesh(devices=[torch.device("cpu")] * 4))
+    return serve.ServeSession(
+        label, build_cluster(ClusterConfig(n_hosts=8, seed=0)), pol,
+        seed=0, fuse_spans="slo")
+
+mgr = serve.ElasticMeshManager(serve.ElasticConfig(schedule=ChaosSchedule(
+    seed=1, events=[ChaosEvent(kind="device_fault", at=2.0,
+                               target="device:1", duration=100.0)])))
+arrivals = list(serve.poisson_arrivals(2.0, 6, seed=0)) + [
+    serve.JobArrival(ts=5000.0, app=serve.synthetic_app_factory(seed=3)(),
+                     tier=0)]
+driver = serve.ServeDriver([factory("s0")], resident=True,
+                           session_factory=factory, max_restarts=2,
+                           elastic=mgr)
+report = driver.run(iter(arrivals))
+from pivot_tpu_torch.utils import reset_ids
+reset_ids()  # generate names hosts by the process's id counters
+with tempfile.TemporaryDirectory() as out:
+    rcs = [chaos_replay.main(["generate", "--hosts", "6", "--out",
+                              out + "/c.json"])]
+    for tag in "ab":
+        rcs.append(chaos_replay.main(["run", "--schedule", out + "/c.json",
+                                      "--hosts", "6", "--apps", "2",
+                                      "--out", out + f"/{tag}.json"]))
+    rcs.append(chaos_replay.main(["diff", out + "/a.json", out + "/b.json"]))
+print(json.dumps({
+    "completed": report["slo"]["counters"]["completed"],
+    "events": [kind for _, kind, _ in mgr.events],
+    "chaos_replay": rcs,
+    "modules": sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "pivot_tpu")),
+}))
+"""
+
+
+def test_elastic_and_chaos_replay_run_without_jax_or_reference_modules():
+    """Elastic serving (a logical shard lost mid-soak: shrink, then regrow
+    after a probe) and ``chaos_replay`` generate / run / diff load
+    neither ``jax`` nor ``pivot_tpu``."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", PROBE_18], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["completed"] == 7
+    assert report["events"] == ["loss", "regrow"]
+    assert report["chaos_replay"] == [0, 0, 0, 0]
+    assert report["modules"] == []
+
+
 def _sources():
     pkg = os.path.join(ROOT, "pivot_tpu_torch")
     for dirpath, _dirs, files in os.walk(pkg):
@@ -394,5 +464,7 @@ def test_no_file_of_the_port_imports_jax_or_reference():
             "pivot_tpu_torch/analysis/threadguard.py",
             "pivot_tpu_torch/obs/costattr.py",
             "pivot_tpu_torch/utils/compile_counter.py",
-            "pivot_tpu_torch/experiments/plots.py"} <= seen
+            "pivot_tpu_torch/experiments/plots.py",
+            "pivot_tpu_torch/serve/elastic.py",
+            "pivot_tpu_torch/tools/chaos_replay.py"} <= seen
     assert offenders == []

@@ -343,7 +343,8 @@ def test_features_of_later_slices_raise(metas):
     served, and ``enable_batching`` takes a client (refusing the adaptive
     twin, ``tests/test_torch_batch.py``).  Host sharding is ported
     (``tests/test_torch_shard.py``) but a mesh over several distinct
-    devices still raises, as does the fault gate; the resident carry
+    devices still raises; the elastic fault gate is ported and stores
+    its callable (``tests/test_torch_elastic.py``); the resident carry
     (``tests/test_torch_resident.py``),
     the dispatch profiler (``tests/test_torch_profiler.py``) and the
     degrade guard (``tests/test_torch_degrade.py``) are ported."""
@@ -367,10 +368,13 @@ def test_features_of_later_slices_raise(metas):
 
     two_devices = host_sharded_mesh(
         devices=[torch.device("cpu"), torch.device("meta")])
-    for attach, arg in ((pol.enable_sharding, two_devices),
-                        (pol.enable_fault_gate, None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            attach(arg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pol.enable_sharding(two_devices)
+    gate = object()
+    pol.enable_fault_gate(gate)
+    assert pol._fault_gate is gate
+    pol.enable_fault_gate(None)
+    assert pol._fault_gate is None
     prof = object()
     pol.enable_profiler(prof)
     assert pol._profiler is prof

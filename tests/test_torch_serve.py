@@ -345,12 +345,13 @@ def test_not_ported_options_raise(tmp_path):
     from pivot_tpu_torch.parallel.mesh import build_hybrid_mesh
 
     # The 2-D serving mesh is ported (tests/test_torch_serve_2d.py runs
-    # it); elastic serving is item 9c, and refused beside a mesh.
+    # it); elastic serving is ported (tests/test_torch_elastic_serve.py),
+    # needs a session factory and is refused beside a mesh.
     mesh = build_hybrid_mesh(host_parallel=2,
                              devices=[torch.device("cpu")] * 4)
     assert pserve.ServeDriver(ss, mesh=mesh).report()["mesh"] == {
         "replica_dcn": 1, "replica": 2, "host": 2}
-    with pytest.raises(NotImplementedError, match="item 9c"):
+    with pytest.raises(ValueError, match="session_factory"):
         pserve.ServeDriver(ss, elastic=object())
     with pytest.raises(ValueError, match="does not compose"):
         pserve.ServeDriver(ss, mesh=mesh, elastic=object())

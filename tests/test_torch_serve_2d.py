@@ -164,7 +164,8 @@ def test_driver_mesh_without_replica_axis_declines_batching():
 
 def test_driver_mesh_and_elastic():
     """``mesh=`` constructs and reports its axes; with ``elastic=`` it
-    keeps the reference's refusal; ``elastic=`` alone is item 9c."""
+    keeps the reference's refusal; ``elastic=`` alone needs a session
+    factory (``tests/test_torch_elastic_serve.py`` serves it)."""
     ss = [pserve.ServeSession(
         "s", pconfig.build_cluster(pconfig.ClusterConfig(n_hosts=8)),
         sharded_policy(mesh2d()))]
@@ -173,7 +174,7 @@ def test_driver_mesh_and_elastic():
                                        "host": 2}
     with pytest.raises(ValueError, match="does not compose"):
         pserve.ServeDriver(ss, mesh=mesh2d(), elastic=object())
-    with pytest.raises(NotImplementedError, match="item 9c"):
+    with pytest.raises(ValueError, match="session_factory"):
         pserve.ServeDriver(ss, elastic=object())
 
 
