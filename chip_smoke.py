@@ -20,9 +20,11 @@
                                        # twins, 2-D serve, sharded resident
     python3 chip_smoke.py --phases 18  # elastic meshes: mid-run reshard,
                                        # the serving soak, the shadow probe
+    python3 chip_smoke.py --phases 19  # the carry-free kernel against its
+                                       # plain form, timed
 
-One card.  ``--phases`` takes a comma list; phases 2-5 and 10-17 bring
-phase 1's build along, phase 5 the runs of phases 3 and 4, phase 13
+One card.  ``--phases`` takes a comma list; phases 2-5, 10-17 and 19
+bring phase 1's build along, phase 5 the runs of phases 3 and 4, phase 13
 phase 3's run (its python-fabric arms are what the native fabric is held
 against).
 
@@ -31,10 +33,10 @@ Phases, each fatal on failure:
   1. environment: the card (``nvidia-smi`` name and power limit), torch,
      CUDA and nvcc versions, the build of every hand-written kernel, and
      ``nvcc -Xptxas -v``'s registers, shared memory and spills for each
-     build of ``greedy_place``; the wrapper's launch-shape tables must
-     match the library's, and the kernel's straight-line square root and
-     division must equal the IEEE intrinsics bit for bit on 2^27 hashed
-     operand pairs each;
+     build of ``greedy_place`` and ``carry_free_place``; the wrappers'
+     launch-shape tables must match the libraries', and
+     ``greedy_place``'s straight-line square root and division must equal
+     the IEEE intrinsics bit for bit on 2^27 hashed operand pairs each;
   2. ``greedy_place`` against its plain torch version on the card, float32:
      the five cost-aware modes over six (T, H) shapes, the edge cases
      (T = 0, nothing fits, invalid tasks, a ``live`` mask, a ``risk``
@@ -49,7 +51,12 @@ Phases, each fatal on failure:
   3. end to end: the ``overall`` experiment (Opportunistic, VBP,
      Cost-Aware) at 600 hosts x 100 apps through the port's CLI entry
      point, on ``--device cuda --no-adaptive`` with fused spans (the
-     default), again with fusion off, and on ``--device numpy``.  Every
+     default), again with fusion off, and on ``--device numpy``.  The
+     Opportunistic and VBP arms on cuda serve every device tick and span
+     tick with one launch of ``carry_free_place`` (launches = kernel
+     ticks + span kernel ticks per arm, printed), each launch recorded
+     and held against its plain form after the run, and their files with
+     fusion on and off must be byte-identical.  Every
      span of the fused run executes under
      ``torch.cuda.set_sync_debug_mode("error")`` (a host read inside a
      span raises) between CUDA events that time it.  Every Cost-Aware
@@ -70,8 +77,10 @@ Phases, each fatal on failure:
      the Cost-Aware arm (300 apps: every gated tick must be one R = 256
      launch of ``greedy_place``, each held after the run against
      ``cost_aware_plain_batched`` on its own f32 operands) and the VBP
-     arm (100 apps: the replica-batched torch First-Fit pass, its largest
-     tick's first rows held against the unbatched pass); each baseline's
+     arm (100 apps: every gated tick one R = 256 launch of
+     ``carry_free_place``, its largest tick's first rows held against
+     the unbatched torch pass, and every launch of the arm's runs held
+     against its plain form after the run); each baseline's
      four metrics within 0.5% of a numpy run of the same seed and
      market; the gate's telemetry, paired walls and a host-clock split
      of a gated tick (noise draw, staging, pass, fetch + unpad);
@@ -262,8 +271,9 @@ Phases, each fatal on failure:
      built on ``cuda`` raises ``NotImplementedError`` for
      ``degrade_after=2``, at construction and through the setter, and a
      Cost-Aware and a First-Fit run (600 hosts, phase 3's trace,
-     per-tick dispatch) whose kernel entry point raises on call
-     ``P13_FAULT_AT`` end with that error, no tick served by the numpy
+     per-tick dispatch) whose kernel entry point (``_greedy``,
+     ``first_fit_cuda``) raises on call ``P13_FAULT_AT`` end with that
+     error, no tick served by the numpy
      twin, the ticks before it equal to the run with no faults; (c)
      phase 10's README serve command with ``--profile-dispatch 4`` and
      without: decisions equal, the census listing each family's calls,
@@ -319,7 +329,8 @@ Phases, each fatal on failure:
      Cost-Aware arms at 600 hosts x 30 apps through ``ExperimentRun``
      with ``enable_sharding`` over 4 logical shards, each ``general.json``
      byte-equal to the unsharded run's (Cost-Aware with
-     ``use_kernel=False``), spans engaged, no ``greedy_place`` launch
+     ``use_kernel=False``; VBP unsharded on ``carry_free_place``, sharded
+     on the torch passes), spans engaged, no ``greedy_place`` launch
      (counts zeroed just before each run and read just after).
  16. the replica axis on the card (``parallel/mesh.py::replica_mesh``
      naming the card S times: S logical replica shards): (a)
@@ -390,6 +401,25 @@ Phases, each fatal on failure:
      the 8, 4, 2 and 1 rungs at 600 hosts, and False, holding the shard
      out, when the candidate's run raises.  Unsharded referees run the
      torch form (``use_kernel=False``).
+ 19. ``carry_free_place`` on the card, float32: each arm against its plain
+     form at H = 600 for T in {1, 12, 379, 619, 2048}, with and without a
+     risk row and a ``live`` mask, and the no-fit and interspersed-invalid
+     cases; at T = 12 and 619 the NaN / ±inf / ±0 risk, exact-tie and
+     zero-demand cases; at H = 4,200 with 32 threads a CTA, so that a
+     thread owns more hosts than its fit bits cover; the R = 256
+     First-Fit and Best-Fit forms at T = 619; each arm at phase 15's pod
+     tick (H = 98,304, T = 256, the state in global memory) without risk,
+     with risk, and with risk and a ``live`` mask.  Placements equal,
+     availability within rtol 1e-6 / atol 1e-5 (max |diff| printed, 0.0
+     expected: the same operations in the same order); then
+     ``kernel_ms`` (CUDA events around the bare launch), the wrapper's
+     ms, the plain form's ms (host clock around a synchronised call), ns
+     per step and the bound (the operations this run's data needs, read
+     from the plain form's placements) at T = 619 / 2048, the R = 256
+     forms, the pod tick and, with phase 3, the largest Opportunistic and
+     VBP ticks of its run.  ``--cf-sweep`` adds the sweeps of threads a
+     CTA at T = 619, H = 600, R = 1 and R = 256 that set
+     ``_CF_HOSTS_PER_THREAD`` (each swept launch held against plain).
 
 The CPU sides of the card-vs-CPU checks of phases 6 (b) and (d), 7 (c),
 8 (c) and 9 (c) run in one spawned worker process a phase
@@ -402,7 +432,9 @@ with the degrade guard off (``degrade_after is None``) and recorded no
 kernel failure: no failure is served by the numpy twin unseen.
 
 Each phase logs its wall.  The line before the last is a JSON
-``kernels`` record (its ``launches`` split into the R = 1 launches of
+``kernels`` record: ``carry_free_place`` with the launches of phases 3
+and 4 (split by arm and R) and phase 19's times, and ``greedy_place``
+(its ``launches`` split into the R = 1 launches of
 phases 3, 4, 10-14, 16 and 17, the R = 256 launches of phase 4, the R = 4
 launches of phase 14 and the per-row launches of phases 10-14, 16 and 17,
 with the per-row form's times; phase 15's path launches none, its
@@ -502,6 +534,62 @@ def ptxas_usage_lines(proc):
         raise AssertionError(f"no ptxas usage found in:\n{out}")
     return [json.dumps(x) for x in sorted(
         lines, key=lambda x: (x["state"], x["K"]))]
+
+
+def cf_ptxas_start(build, tmp):
+    """Start ``nvcc -Xptxas -v`` on ``carry_free_place.cu`` (a cubin of
+    the build's own flags) and return the process."""
+    flags = [f for f in build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    src = os.path.join("pivot_tpu_torch", "csrc", "carry_free_place.cu")
+    return subprocess.Popen(
+        [build._nvcc(), *flags, "-cubin", "-Xptxas", "-v", src, "-o",
+         os.path.join(tmp, "carry_free_place.cubin")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def cf_ptxas_lines(proc):
+    """One row per build of ``carry_free_place`` (arm, risk row, where the
+    state lives): registers, shared memory, stack and spills."""
+    out, _ = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"nvcc -Xptxas -v failed:\n{out}")
+    rows, cur = [], None
+    for raw in out.splitlines():
+        m = re.search(r"carry_free_kernelILi(\d)ELb([01])ELb([01])E", raw)
+        if "Compiling entry function" in raw and m:
+            cur = dict(build=f"{CF_ARMS[int(m.group(1))]}"
+                             f"{'+risk' if m.group(2) == '1' else ''}"
+                             f"/{'smem' if m.group(3) == '1' else 'global'}")
+        elif cur is not None and "spill stores" in raw:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", raw)]
+            cur.update(stack=nums[0], spill_stores=nums[1],
+                       spill_loads=nums[2])
+        elif cur is not None and "Used" in raw and "registers" in raw:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             raw).group(1))
+            rows.append(cur)
+            cur = None
+    if len(rows) != 12:
+        raise AssertionError(f"{len(rows)} carry_free_place builds in:\n{out}")
+    return sorted(rows, key=lambda r: r["build"])
+
+
+def check_cf_tables(build, ck) -> None:
+    """``carry_free_place``'s shared memory and thread limit in the library
+    equal the wrapper's copies (``_cf_smem_bytes``, ``_CF_MAX_THREADS``)."""
+    lib = build.load("carry_free_place")
+    lib.carry_free_place_smem_bytes.restype = ctypes.c_size_t
+    if lib.carry_free_place_max_threads() != ck._CF_MAX_THREADS:
+        raise AssertionError("carry_free_place's thread limit differs from "
+                             "the wrapper's")
+    for H in (1, 600, 14096, 14097, 98304):
+        for s_ in (0, 1):
+            if lib.carry_free_place_smem_bytes(H, s_) != \
+                    ck._cf_smem_bytes(H, bool(s_)):
+                raise AssertionError(f"carry_free_place smem bytes differ at "
+                                     f"H={H}, smem_state={s_}")
+    log("  carry_free_place launch-shape tables: wrapper = library")
 
 
 def check_shape_tables(build, ck) -> None:
@@ -605,6 +693,74 @@ class Check:
                                  f"the {min_placed} this case must make")
         self.placed += placed
         self.cases += 1
+
+
+#: ``carry_free_place``'s arms, in the kernel's order, and the wrappers
+#: ``sched.cuda`` calls (each one's plain form: ``_cuda`` → ``_plain``).
+CF_ARMS = ("opportunistic", "first-fit", "best-fit")
+CF_WRAPPERS = ("opportunistic_cuda", "first_fit_cuda", "best_fit_cuda",
+               "first_fit_cuda_batched", "best_fit_cuda_batched")
+#: The carry-free arm of each ``overall`` arm.
+CF_ARM_OF = {"Opportunistic": "opportunistic", "VBP": "first-fit"}
+
+
+def cf_counts(ck) -> dict:
+    """``carry_free_place``'s launches since the last reset, by
+    ``"arm/R=r"``."""
+    return {f"{a}/R={r}": n for (a, r), n in ck.LAUNCHES_CARRY_FREE.items()}
+
+
+class CarryFreeTap:
+    """Wraps the ``carry_free_place`` wrappers that ``sched.cuda`` calls
+    while active: every launch is recorded with its operands and outputs
+    (fresh tensors the run never writes again) — one list append inside
+    the run — and :meth:`hold` holds each against its plain form on the
+    same inputs after the run, outside every timed window."""
+
+    def __init__(self, cuda_mod, ck):
+        self.mod, self.ck = cuda_mod, ck
+        self.calls = []  # (wrapper name, args, kw, outputs)
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.mod, n) for n in CF_WRAPPERS}
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, self._recorder(name, fn))
+        return self
+
+    def _recorder(self, name, fn):
+        calls = self.calls
+
+        @functools.wraps(fn)
+        def recorded(*a, **k):
+            out = fn(*a, **k)
+            calls.append((name, a, k, out))
+            return out
+        return recorded
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, fn)
+
+    def largest(self, name):
+        """``(args, kw)`` of the recorded ``name`` call with the most
+        steps (its ``n_bound``), or None."""
+        calls = [(k["n_bound"], a, k) for n, a, k, _o in self.calls
+                 if n == name]
+        if not calls:
+            return None
+        _n, a, k = max(calls, key=lambda c: c[0])
+        return a, k
+
+    def hold(self, chk, what) -> int:
+        """Every recorded launch against its plain form (placements equal,
+        availability within the tolerance); returns the count and drops
+        the records."""
+        for i, (name, a, k, out) in enumerate(self.calls):
+            plain = getattr(self.ck, name.replace("_cuda", "_plain"))
+            chk.same(out, plain(*a, **k), (what, name, i))
+        n = len(self.calls)
+        self.calls.clear()
+        return n
 
 
 def dense_floor(args, R=1) -> int:
@@ -1147,6 +1303,7 @@ def phase_end_to_end(device, n_hosts=600, n_apps=E2E_APPS):
         os.symlink(os.path.abspath(TRACE),
                    os.path.join(job_dir, os.path.basename(TRACE)))
         runs = {}
+        cf_check = Check()
         for name, backend, fuse in (("cuda", "cuda", True),
                                     ("cuda_off", "cuda", False),
                                     ("numpy", "numpy", True)):
@@ -1154,14 +1311,27 @@ def phase_end_to_end(device, n_hosts=600, n_apps=E2E_APPS):
             argv[argv.index("600")] = str(n_hosts)
             argv[-1] = str(n_apps)
             cluster_cfg = cli._cluster_config(cli.parse_args(argv))
-            with SpanMeter(cuda_mod) as meter:
+            with SpanMeter(cuda_mod) as meter, \
+                    CarryFreeTap(cuda_mod, ck) as tap:
                 ck.reset_launches()  # the main path's count starts here
                 t0 = time.perf_counter()
                 exp_dir, summaries, objs = run_cli(cli, argv, device, fuse)
                 wall = time.perf_counter() - t0
                 launches = ck.LAUNCHES["greedy_place"]
+                cf_launches = cf_counts(ck)
+            if backend == "cuda":
+                res.setdefault("cf_largest", {})[name] = {
+                    arm: tap.largest(w) for arm, w in (
+                        ("Opportunistic", "opportunistic_cuda"),
+                        ("VBP", "first_fit_cuda"))}
+            held = tap.hold(cf_check, ("phase 3", name))  # after the run
+            if held != sum(cf_launches.values()):
+                raise AssertionError(f"{name}: {held} carry_free_place "
+                                     f"launches recorded, {cf_launches} "
+                                     "counted")
             check_outputs(exp_dir)
-            runs[name] = dict(wall=wall, launches=launches, dir=exp_dir,
+            runs[name] = dict(wall=wall, launches=launches,
+                              cf_launches=cf_launches, dir=exp_dir,
                               objs=objs, spans=meter.by_arm(),
                               arms={s["label"]: s for s in summaries},
                               host={s["label"]: host_ms_per_tick(
@@ -1181,10 +1351,29 @@ def phase_end_to_end(device, n_hosts=600, n_apps=E2E_APPS):
                     and runs[name]["launches"]
                     == ca["kernel_ticks"] + ca["span_kernel_ticks"]):
                 raise AssertionError("not every Cost-Aware tick was a launch")
+            cf = runs[name]["cf_launches"]
             for arm in ARMS[:2]:
                 d = runs[name]["arms"][arm]["dispatch"]
-                if d["kernel_ticks"] or d["span_kernel_ticks"]:
-                    raise AssertionError(f"{arm} went through the kernel")
+                n = cf.get(f"{CF_ARM_OF[arm]}/R=1", 0)
+                log(f"  {arm.lower()} on cuda, fusion {fusion}: "
+                    f"{d['device_ticks']} per-tick device ticks, "
+                    f"{d['kernel_ticks']} served by carry_free_place, "
+                    f"{d['span_kernel_ticks']} span ticks launched on it, "
+                    f"{n} launches counted")
+                if not (d["device_ticks"] > 0
+                        and d["kernel_ticks"] == d["device_ticks"]
+                        and n == d["kernel_ticks"] + d["span_kernel_ticks"]
+                        and (d["span_kernel_ticks"] > 0) == (name == "cuda")):
+                    raise AssertionError(f"{arm}: not every device tick was "
+                                         "a carry_free_place launch")
+            if set(cf) - {"opportunistic/R=1", "first-fit/R=1"}:
+                raise AssertionError(f"{name}: carry_free_place launches "
+                                     f"{cf}")
+        log(f"  carry_free_place: {cf_check.cases} launches of the cuda runs "
+            f"held against their plain forms, {cf_check.placed} placements, "
+            f"all equal, max |avail diff| {cf_check.max_abs_err!r} (rtol "
+            f"{RTOL}, atol {ATOL})")
+        res["cf_check"] = cf_check
         if not cuda["Cost-Aware"]["dispatch"]["span_kernel_ticks"]:
             raise AssertionError("no Cost-Aware span tick was served by "
                                  "greedy_place")
@@ -1204,6 +1393,11 @@ def phase_end_to_end(device, n_hosts=600, n_apps=E2E_APPS):
         res["same_files"] = compare_outputs(
             runs["cuda"]["dir"], runs["cuda_off"]["dir"], runs["cuda"]["objs"],
             runs["cuda_off"]["objs"])
+        for arm in ARMS[:2]:
+            if res["same_files"][arm] is not None:
+                raise AssertionError(f"{arm}: fusion on and off wrote "
+                                     f"different files: "
+                                     f"{res['same_files'][arm]}")
         # Phase 13 holds the native fabric against this run's files.
         runs["cuda"]["general"] = {}
         for arm in ARMS:
@@ -1264,7 +1458,8 @@ class GateMeter:
     ``greedy_place`` call is recorded with its staged operands and its
     outputs — fresh tensors the run never reuses — for the shadow check
     and the times taken after the run; CUDA events bracket every batched
-    First-Fit pass, and the operands of the largest one are kept."""
+    First-Fit pass (the R-replica launch of ``carry_free_place``), and the
+    operands of the largest one are kept."""
 
     def __init__(self, cuda_mod):
         self.mod = cuda_mod
@@ -1280,7 +1475,7 @@ class GateMeter:
         saved = self.saved = dict(
             mc=self.base._mc_sensitivity, replicas=self.base._replicas,
             greedy=self.ca._greedy_batched, stage=mod.stage,
-            ffb=mod.first_fit_batched)
+            ffb=mod.first_fit_cuda_batched)
         cur = {}
 
         def timed(key, fn):
@@ -1320,7 +1515,7 @@ class GateMeter:
         self.base._replicas = timed("noise", saved["replicas"])
         self.ca._greedy_batched = timed("pass", greedy)
         mod.stage = timed("stage", saved["stage"])
-        mod.first_fit_batched = timed("pass", ffb)
+        mod.first_fit_cuda_batched = timed("pass", ffb)
         return self
 
     def __exit__(self, *exc):
@@ -1328,7 +1523,7 @@ class GateMeter:
         self.base._replicas = self.saved["replicas"]
         self.ca._greedy_batched = self.saved["greedy"]
         self.mod.stage = self.saved["stage"]
-        self.mod.first_fit_batched = self.saved["ffb"]
+        self.mod.first_fit_cuda_batched = self.saved["ffb"]
 
     def part_sums(self):
         """Seconds summed over the gated ticks, by part."""
@@ -1360,9 +1555,10 @@ def phase_sensitivity(device, n_hosts=600, apps=None):
     """The ``sensitivity`` experiment through the port's CLI under a
     seeded spot market: the Cost-Aware arm (every gated tick one
     R = 256 launch of ``greedy_place``, each held against the plain
-    version after the run) and the VBP arm (the batched torch First-Fit
-    pass), each baseline against a numpy run of the same seed and
-    market."""
+    version after the run) and the VBP arm (every gated tick one R = 256
+    launch of ``carry_free_place``; every launch of its runs held against
+    the plain form after the run), each baseline against a numpy run of
+    the same seed and market."""
     from pivot_tpu_torch.experiments import cli
     from pivot_tpu_torch.infra.market import MarketSchedule
     from pivot_tpu_torch.ops import cuda_kernels as ck
@@ -1395,13 +1591,15 @@ def phase_sensitivity(device, n_hosts=600, apps=None):
         for policy, n_apps in apps.items():
             argv = sensitivity_argv(os.path.join(tmp, policy), job_dir,
                                     policy, n_apps, market_path, n_hosts)
-            with GateMeter(cuda_mod) as gm:
+            with CarryFreeTap(cuda_mod, ck) as cft, \
+                    GateMeter(cuda_mod) as gm:
                 ck.reset_launches()  # this path's count starts here
                 t0 = time.perf_counter()
                 report = cli.run_sensitivity(cli.parse_args(argv),
                                              torch_device=device)
                 wall = time.perf_counter() - t0
                 launches = dict(ck.LAUNCHES_BY_REPLICAS)
+                cf_launches = cf_counts(ck)
             seed = report["per_seed"][0]
             gate = seed["gate"]
             want = numpy_metrics(cli, policy, n_apps, market, cluster_cfg)
@@ -1433,7 +1631,11 @@ def phase_sensitivity(device, n_hosts=600, apps=None):
                     f"{k} {v * 1e3 / gate['ticks']!r}"
                     for k, v in parts.items()))
             r = dict(report=report, wall=wall, launches=launches,
-                     numpy=want, parts=parts, ticks=gate["ticks"])
+                     cf_launches=cf_launches, numpy=want, parts=parts,
+                     ticks=gate["ticks"])
+            if policy == "cost-aware" and cf_launches:
+                raise AssertionError(f"cost-aware: carry_free_place "
+                                     f"launches {cf_launches}")
             if policy == "cost-aware":
                 if not (launches.get(SENS_REPLICAS) == gate["ticks"]
                         == len(gm.calls) > 0 and launches.get(1, 0) > 0
@@ -1457,10 +1659,31 @@ def phase_sensitivity(device, n_hosts=600, apps=None):
                     f"{launches[SENS_REPLICAS]}")
                 r.update(check=chk, calls=gm.calls)
             else:
-                if launches or len(gm.ff_passes) != gate["ticks"]:
+                if (launches or len(gm.ff_passes) != gate["ticks"]
+                        or cf_launches.get(f"first-fit/R={SENS_REPLICAS}")
+                        != gate["ticks"]
+                        or not cf_launches.get("first-fit/R=1")
+                        or set(cf_launches) != {
+                            "first-fit/R=1", f"first-fit/R={SENS_REPLICAS}"}):
                     raise AssertionError(
                         f"VBP: {len(gm.ff_passes)} batched passes for "
-                        f"{gate['ticks']} gated ticks, launches {launches}")
+                        f"{gate['ticks']} gated ticks, greedy_place "
+                        f"launches {launches}, carry_free_place launches "
+                        f"{cf_launches}")
+                cf_chk = Check()
+                held = cft.hold(cf_chk, "VBP sensitivity")  # after the run
+                if held != sum(cf_launches.values()):
+                    raise AssertionError(f"VBP: {held} carry_free_place "
+                                         f"launches recorded, {cf_launches} "
+                                         "counted")
+                log(f"    carry_free_place: {cf_launches['first-fit/R=1']} "
+                    f"R=1 launches (per-tick and span ticks of the baseline "
+                    f"and gated runs) and "
+                    f"{cf_launches[f'first-fit/R={SENS_REPLICAS}']} "
+                    f"R={SENS_REPLICAS} launches (one a gated tick), each "
+                    f"held against its plain form, {cf_chk.placed} "
+                    f"placements, max |avail diff| {cf_chk.max_abs_err!r}")
+                r["cf_check"] = cf_chk
                 torch.cuda.synchronize()
                 ms = [ev[0].elapsed_time(ev[1]) for ev, _n in gm.ff_passes]
                 steps = [n for _ev, n in gm.ff_passes]
@@ -5323,6 +5546,7 @@ def p13_native(device, e2e, chk, n_apps=E2E_APPS) -> dict:
             exp_dir, summaries, objs = run_cli(cli, argv, device, True)
             wall = time.perf_counter() - t0
             launches = ck.LAUNCHES["greedy_place"]
+            cf_launches = ck.LAUNCHES["carry_free_place"]
         if [r.cluster.network_backend for r in objs] != ["native"] * 3:
             raise AssertionError("(a) a run did not use the native fabric")
         check_outputs(exp_dir)
@@ -5348,10 +5572,17 @@ def p13_native(device, e2e, chk, n_apps=E2E_APPS) -> dict:
         raise AssertionError(f"(a) not every Cost-Aware tick was a launch: "
                              f"{ca}, {launches} launches, "
                              f"{len(tap.calls)} recorded")
+    cf_ticks = 0
     for arm in ARMS[:2]:
         d = arms[arm]["dispatch"]
-        if d["kernel_ticks"] or d["span_kernel_ticks"]:
-            raise AssertionError(f"(a) {arm} went through the kernel")
+        if not (d["device_ticks"] > 0
+                and d["kernel_ticks"] == d["device_ticks"]):
+            raise AssertionError(f"(a) {arm}: not every device tick was a "
+                                 f"carry_free_place launch: {d}")
+        cf_ticks += d["kernel_ticks"] + d["span_kernel_ticks"]
+    if cf_launches != cf_ticks:
+        raise AssertionError(f"(a) {cf_launches} carry_free_place launches "
+                             f"for {cf_ticks} Opportunistic and VBP ticks")
     t0 = time.perf_counter()
     tap.hold(ck, chk, "(a) native Cost-Aware")
     log(f"  (a) overall --network native, 600 hosts x {n_apps} apps, cuda, "
@@ -5397,11 +5628,11 @@ def p13_guard_run(cli, device, arm, fault_at=None):
             return fn(*a, **k)
         return entry
 
-    ff = cuda_mod.first_fit_impl
+    ff = cuda_mod.first_fit_cuda  # the card's First-Fit entry point
     if arm == "cost-aware":
         policy._greedy = faulty(policy._greedy)
     else:
-        cuda_mod.first_fit_impl = faulty(ff)
+        cuda_mod.first_fit_cuda = faulty(ff)
     log_, place = [], policy.place
 
     def logged(ctx):
@@ -5421,7 +5652,7 @@ def p13_guard_run(cli, device, arm, fault_at=None):
     except RuntimeError as exc:
         err = exc
     finally:
-        cuda_mod.first_fit_impl = ff
+        cuda_mod.first_fit_cuda = ff
     return policy, log_, calls["n"], err
 
 
@@ -5602,12 +5833,14 @@ def p13_profile_dir(device, chk) -> dict:
     three arms (three ``torch.profiler`` sessions one after another, late
     in this process: see ``obs.tracer.TRACE_WARMUP_KERNELS``), at
     ``P13_TRACE_APPS`` apps on phase 3's trace: every arm's trace holds
-    a kernel record for each kernel launch (``trace_census``), and the
-    Cost-Aware (third) trace holds the ``greedy_place`` kernel by name,
+    a kernel record for each kernel launch (``trace_census``) and for
+    its tail sentinel, with the margin the hold left (``trace_tail``),
+    and the Cost-Aware (third) trace holds the ``greedy_place`` kernel by name,
     once for each of the run's launches, each held against the plain
     version."""
     from pivot_tpu_torch.experiments import cli
-    from pivot_tpu_torch.obs.tracer import PROFILE_TRACE_FILE, trace_census
+    from pivot_tpu_torch.obs.tracer import (PROFILE_TRACE_FILE, TRACE_TAIL_S,
+                                            trace_census, trace_tail)
     from pivot_tpu_torch.ops import cuda_kernels as ck
 
     tap = CloneTap()
@@ -5629,12 +5862,14 @@ def p13_profile_dir(device, chk) -> dict:
             path = os.path.join(prof_dir, "0", arm, PROFILE_TRACE_FILE)
             census[arm] = trace_census(path)
             census[arm]["bytes"] = os.path.getsize(path)
+            census[arm]["tail"] = trace_tail(path)
         with open(path) as f:  # the Cost-Aware trace, the third session
             kern = [e for e in json.load(f)["traceEvents"]
                     if e.get("cat") == "kernel"
                     and "greedy_place" in e.get("name", "")]
     short = {a: c for a, c in census.items()
-             if c["missing"] or c["launches"] != c["kernels"]}
+             if c["missing"] or c["launches"] != c["kernels"]
+             or not c["tail"]["recorded"]}
     if short or any("no kernel record" in str(w.message) for w in caught):
         raise AssertionError(f"(d) traces missing kernel records: {short}")
     d = {s_["label"]: s_ for s_ in summaries}["Cost-Aware"]["dispatch"]
@@ -5648,7 +5883,10 @@ def p13_profile_dir(device, chk) -> dict:
         "records / missing per trace: " + ", ".join(
             f"{a} {c['launches']} / {c['kernels']} / {c['missing']} "
             f"({c['bytes']} bytes, least launch-to-kernel "
-            f"{c['min_launch_to_kernel_us']!r} us)"
+            f"{c['min_launch_to_kernel_us']!r} us; tail sentinel recorded, "
+            f"its launch-to-kernel {c['tail']['skew_us']!r} us, margin to "
+            f"the window's end {c['tail']['margin_us']!r} us of the "
+            f"{TRACE_TAIL_S * 1e6!r} us hold)"
             for a, c in census.items())
         + f"; the Cost-Aware trace holds {len(kern)} greedy_place kernels "
         f"by name (e.g. {kern[0]['name']!r}) = the run's {launches} "
@@ -5795,7 +6033,32 @@ def p14_budget(configs, ptxas_rows) -> dict:
     log("  (b) spills (printed, not failed): " + (", ".join(
         f"K={r['K']} {r['spill_stores']} B stored / {r['spill_loads']} B "
         "loaded" for r in spills) or "none"))
-    return dict(shapes=rows, optin=optin, registers=regs)
+    from pivot_tpu_torch.infra.roofline import H100_MAX_THREADS_PER_BLOCK
+
+    cf_model = kb.cf_model()
+    max_threads = getattr(torch.cuda.get_device_properties(0),
+                          "max_threads_per_block", H100_MAX_THREADS_PER_BLOCK)
+    cf_rows = []
+    for H, arm in ((P19_H, "first-fit"), (P19_H, "best-fit"),
+                   (14096, "best-fit"), (14097, "opportunistic"),
+                   (P19_POD[0], "best-fit")):
+        cfg = ck._cf_config(H, arm)
+        static = cf_model.smem_bytes(H, cfg.smem_state)
+        if (static != cfg.smem_bytes or static > optin
+                or cfg.threads > max_threads):
+            raise AssertionError(
+                f"(b) carry_free_place at H={H}: {cfg}, the pass counts "
+                f"{static} B, the card's opt-in {optin} B, "
+                f"{max_threads} threads a block")
+        cf_rows.append(dict(H=H, arm=arm, threads=cfg.threads,
+                            smem_state=cfg.smem_state, smem_bytes=static))
+    log("  (b) carry_free_place shapes: " + ", ".join(
+        f"{r['arm']} H={r['H']} {r['threads']} threads, {r['smem_bytes']} B "
+        f"({'shared' if r['smem_state'] else 'global'} state)"
+        for r in cf_rows) + f" <= the card's {optin} B opt-in and "
+        f"{max_threads} threads a block")
+    return dict(shapes=rows, optin=optin, registers=regs,
+                cf_shapes=cf_rows)
 
 
 def p14_costattr(device) -> dict:
@@ -5811,8 +6074,11 @@ def p14_costattr(device) -> dict:
     if not rep["complete"]:
         raise AssertionError(f"(c) cost attribution incomplete: "
                              f"{rep['coverage_problems']}")
+    from pivot_tpu_torch.obs.costattr import _CF_FORMS
+
     kern = {n: r for n, r in rep["rows"].items() if "kernel" in r}
-    if sorted(r["form"] for r in kern.values()) != ["r1", "r4", "rows"]:
+    if sorted(r["form"] for r in kern.values()) != sorted(
+            ["r1", "r4", "rows", *_CF_FORMS]):
         raise AssertionError(f"(c) hand-kernel rows: {sorted(kern)}")
     for name, r in kern.items():
         if r["compared"] != r["launches"]:
@@ -5826,7 +6092,7 @@ def p14_costattr(device) -> dict:
         if "flagged" in r:
             continue
         log(f"    {name}: " + (
-            f"greedy_place {r['form']}: {r['launches']} launch(es), each "
+            f"{r['kernel']} {r['form']}: {r['launches']} launch(es), each "
             f"held against plain, device_ms {r['device_ms']!r}, bytes {r['bytes']!r}, "
             f"max |avail diff| vs plain {r['max_abs_err']!r}, "
             f"bytes_vs_model {r.get('bytes_vs_model')!r}"
@@ -5840,7 +6106,10 @@ def p14_costattr(device) -> dict:
     g2 = ck.LAUNCHES_ROWS.get(2, 0) - n0[1].get(2, 0)
     return dict(rows=rep["rows"], launches_r1=r1, launches_r4=r4,
                 launches_rows_g2=g2,
-                max_abs_err=max(r["max_abs_err"] for r in kern.values()))
+                max_abs_err=max(r["max_abs_err"] for r in kern.values()
+                                if r["kernel"] == "greedy_place"),
+                cf_max_abs_err=max(r["max_abs_err"] for r in kern.values()
+                                   if r["kernel"] == "carry_free_place"))
 
 
 def p14_compile(device, chk) -> dict:
@@ -6180,7 +6449,8 @@ def p15_e2e(device) -> dict:
     """Phase 15 (b): ``overall``'s VBP and Cost-Aware arms at the CLI
     default cluster through ``ExperimentRun``, host-sharded over
     P15_E2E_SHARDS logical shards of the card and unsharded (Cost-Aware
-    with ``use_kernel=False``): ``general.json`` byte-equal, spans
+    with ``use_kernel=False``; VBP unsharded on ``carry_free_place``, the
+    sharded run on the torch passes): ``general.json`` byte-equal, spans
     engaged, no ``greedy_place`` launch in either."""
     from pivot_tpu_torch.experiments import cli
     from pivot_tpu_torch.experiments.runner import ExperimentRun
@@ -6214,10 +6484,12 @@ def p15_e2e(device) -> dict:
                     data_dir=os.path.join(tmp, name)).run()
                 wall = time.perf_counter() - t0
                 launches = ck.LAUNCHES["greedy_place"]
+                cf = ck.LAUNCHES["carry_free_place"]
                 with open(os.path.join(tmp, name, pc.label,
                                        "general.json"), "rb") as f:
                     general = f.read()
                 runs[name] = dict(wall_s=wall, launches=launches,
+                                  cf_launches=cf,
                                   general=general, spans=summary["spans"],
                                   dispatch=summary["dispatch"])
             sh_, un = runs["sharded"], runs["unsharded"]
@@ -6228,17 +6500,24 @@ def p15_e2e(device) -> dict:
                 raise AssertionError(f"{pc.label}: no span served sharded")
             if sh_["launches"] or un["launches"]:
                 raise AssertionError(f"{pc.label}: greedy_place launched")
+            vbp = pc.name == "first-fit"
+            if sh_["cf_launches"] or bool(un["cf_launches"]) != vbp:
+                raise AssertionError(
+                    f"{pc.label}: carry_free_place launches sharded "
+                    f"{sh_['cf_launches']}, unsharded {un['cf_launches']}")
             rec[pc.label] = dict(
                 sharded_wall_s=sh_["wall_s"], unsharded_wall_s=un["wall_s"],
                 launches=sh_["launches"], spans=sh_["spans"],
-                dispatch=sh_["dispatch"])
+                dispatch=sh_["dispatch"],
+                unsharded_cf_launches=un["cf_launches"])
             log(f"  (b) {pc.label}, {P15_APPS} apps at 600 hosts: "
                 f"general.json byte-equal sharded (S={P15_E2E_SHARDS}) and "
                 f"unsharded; walls {sh_['wall_s']!r} / {un['wall_s']!r} s; "
                 f"{sh_['spans']['fused_spans']} spans of "
                 f"{sh_['spans']['fused_ticks']} ticks, "
                 f"{sh_['dispatch']['device_ticks']} per-tick dispatches; "
-                "0 greedy_place launches")
+                f"0 greedy_place launches; carry_free_place launches "
+                f"sharded 0, unsharded {un['cf_launches']}")
     return rec
 
 
@@ -7613,6 +7892,384 @@ def phase_elastic(device, ck) -> dict:
     return rec
 
 
+# -- phase 19: the carry-free kernel -----------------------------------------
+
+#: Phase 19's shapes: the CLI default cluster's 600 hosts at task counts of
+#: the main path's ticks (1, 12, 379: ``overall``'s largest) and the
+#: synthetic 619 and 2048; the R = 256 forms at T = 619; phase 15's pod
+#: tick (``bench.py``'s ``_SHARD_H0`` x ``_SHARD_T``).
+P19_H = 600
+P19_TS = (1, 12, 379, 619, 2048)
+P19_R_T = 619
+P19_POD = (98304, 256)
+#: The cases the kernel has code of its own for, at H = 600 and these
+#: task counts: NaN, ±inf and ±0.0 risk, exact ties, zero demand.
+P19_EDGE_TS = (12, 619)
+P19_EDGE_CASES = ("nan_risk", "ties", "zero")
+#: Hosts and threads a CTA where a thread owns more hosts (132) than its
+#: fit bits cover (``kMaskHosts`` = 128), so the opportunistic rank walks
+#: its rows (``nth_set_bit``'s fallback).
+P19_WIDE = (4200, 32)
+#: Threads a CTA the ``--cf-sweep`` sweeps at T = 619, H = 600 time (160:
+#: four hosts a thread; 608: one; 32: one warp, no block barrier), at
+#: R = 1 and, for the R-replica arms, R = 256.  They set
+#: ``ops/cuda_kernels.py::_CF_HOSTS_PER_THREAD`` (PERF.md §6) and
+#: run only when asked.
+P19_SWEEP = (32, 64, 96, 128, 160, 224, 320, 608)
+P19_SWEEP_R = (96, 160, 320, 608)
+#: Timed launches a measurement (CUDA events); the plain form's pace is
+#: its host loop, so it takes fewer.
+P19_REPS = 20
+P19_PLAIN_REPS = 2
+
+
+def p19_inputs(seed, T, H, device, R=None, risk=False, live=False,
+               case="dense"):
+    """Seeded f32 operands of one carry-free tick, dense (most tasks place
+    until the hosts fill); ``case`` "nofit" puts every third task out of
+    reach, "invalid" drops ~30 % of the tasks and the last two,
+    "nan_risk" draws risk from {0, −0, 0.25, ±inf, NaN}, "ties" gives
+    every host and task the same rows (and risk from {0, −0}), "zero"
+    zero demand on hosts half of them empty.  ``R`` gives ``[R, H, 4]``
+    replicas."""
+    rng = np.random.default_rng(seed)
+    avail = rng.uniform(0, 16, size=(H, 4) if R is None else (R, H, 4))
+    dem = np.stack([rng.choice([0.0, 0.5, 1.0, 2.0], size=T),
+                    rng.uniform(0, 4, size=T), rng.uniform(0, 2, size=T),
+                    np.zeros(T)], axis=1)
+    valid = np.ones(T, bool)
+    r = rng.choice([0.0, 0.25, 1.0], size=H) if risk else None
+    if case == "nofit":
+        dem[::3, 1] = 1e6
+    elif case == "invalid":
+        valid = rng.random(T) > 0.3
+        valid[-2:] = False
+    elif case == "nan_risk":
+        r = rng.choice([0.0, -0.0, 0.25, np.inf, -np.inf, np.nan], size=H,
+                       p=[0.3, 0.2, 0.3, 0.08, 0.04, 0.08])
+    elif case == "ties":
+        avail[...] = 8.0
+        dem[:] = (1.0, 1.0, 0.5, 0.0)
+        if risk:
+            r = rng.choice([0.0, -0.0], size=H)
+    elif case == "zero":
+        dem[:] = 0.0
+        avail[..., ::2, :] = 0.0
+    x = dict(avail=avail.astype(np.float32), dem=dem.astype(np.float32),
+             valid=valid, u=rng.uniform(size=T).astype(np.float32),
+             risk=None if r is None else r.astype(np.float32),
+             live=rng.random(H) > 0.2 if live else None)
+    return {k: None if v is None else torch.from_numpy(v).to(device)
+            for k, v in x.items()}
+
+
+def p19_call(ck, arm, x, form="cuda"):
+    """One pass of ``arm`` on ``x``: the wrapper (``form="cuda"``) or the
+    plain form (``"plain"``); ``[R, H, 4]`` operands take the R-replica
+    forms (no live mask)."""
+    a, d, v = x["avail"], x["dem"], x["valid"]
+    stem = arm.replace("-", "_")
+    if a.dim() == 3:
+        return getattr(ck, f"{stem}_{form}_batched")(a, d, v, risk=x["risk"])
+    kw = dict(live=x["live"], risk=x["risk"])
+    if arm == "opportunistic":
+        return getattr(ck, f"opportunistic_{form}")(a, d, v, x["u"], **kw)
+    return getattr(ck, f"{stem}_{form}")(a, d, v, **kw)
+
+
+def cf_bare_launch(ck, arm, x, threads=None):
+    """The kernel alone: ``_cf_check`` once, outputs allocated once, then a
+    function that runs ``_cf_launch`` (the wrappers' one launch site) in
+    the default shape or with ``threads`` threads a CTA."""
+    batched = x["avail"].dim() == 3
+    a = x["avail"] if batched else x["avail"][None]
+    live = None if batched else x["live"]
+    u = x["u"] if arm == "opportunistic" else None
+    R, T, H, nb = ck._cf_check(arm, a, x["dem"], x["valid"], u, live,
+                               x["risk"], None)
+    cfg = ck._cf_config(H, arm, R)
+    if threads is not None:
+        cfg = cfg._replace(threads=threads)
+    placements = torch.empty((R, T), dtype=torch.int32, device=a.device)
+    out = torch.empty_like(a)
+
+    def go():
+        ck._cf_launch(cfg, arm, a, x["dem"], x["valid"], u, False, live,
+                      x["risk"], nb, placements, out)
+        return placements, out
+    return go, cfg
+
+
+def cf_fit_counts(x, placements):
+    """Best-Fit's strict fits at each task's step, ``[R, T]`` int64 (0 at
+    an invalid task): the pass replayed from its placements (the plain
+    form's), live-masked hosts reading −1 as in the kernel."""
+    a = x["avail"] if x["avail"].dim() == 3 else x["avail"][None]
+    R, T = a.shape[0], x["dem"].shape[0]
+    if x["avail"].dim() == 2 and x["live"] is not None:
+        a = torch.where(x["live"][None, :, None], a, a.new_full((), -1.0))
+    a = a.clone()
+    p = placements.reshape(R, T).long()
+    rows = torch.arange(R, device=a.device)
+    counts = torch.zeros((R, T), dtype=torch.int64, device=a.device)
+    for j in torch.nonzero(x["valid"]).flatten().tolist():
+        d = x["dem"][j]
+        counts[:, j] = (a > d).all(-1).sum(-1)
+        ok = p[:, j] >= 0
+        a[rows, p[:, j].clamp(min=0)] -= torch.where(ok[:, None], d,
+                                                     torch.zeros_like(d))
+    return counts
+
+
+def cf_bound(arm, x, placements):
+    """Least time for one pass at these inputs: the larger of the bytes
+    over HBM bandwidth and the operations over the f32 peak.  Bytes:
+    availability ``[R, H, 4]`` read and written once, the task stream up
+    to the last valid task (demands, valid, uniforms for opportunistic),
+    risk / live when given, placements ``[R, T]`` written.  Operations
+    (per replica and valid task) are what this run's data needs, read
+    from ``placements`` (the plain form's): a fit test of 8 (4 compares,
+    3 ANDs, the selection) on each host it must see — every host for
+    opportunistic (its count) plus 2 a host with risk (the tier's
+    minimum and compare) and 3 for the rank; for first-fit the hosts up
+    to the first that fits (all when none does, and all plus 1 a host
+    with risk, whose argmin sees every fit); for best-fit every host
+    plus 12 (4 subtractions, 4 squares, 3 adds, the root), +1 with
+    risk, on each host that fits (:func:`cf_fit_counts`); and 4 (the
+    decrement) for each placement.  Returns ``(ms, "bytes" or
+    "operations", steps walked)``."""
+    a, v = x["avail"], x["valid"]
+    R = a.shape[0] if a.dim() == 3 else 1
+    H, T = a.shape[-2], v.shape[0]
+    risk = x["risk"] is not None
+    live = a.dim() == 2 and x["live"] is not None
+    idx = torch.nonzero(v).flatten()
+    n_eff = int(idx[-1]) + 1 if idx.numel() else 0
+    tasks = R * int(v.sum())
+    p = placements.reshape(R, T)[:, v].long()
+    placed = int((p >= 0).sum())
+    nbytes = (2 * R * H * 16 + n_eff * (16 + 1 + 4 * (arm == "opportunistic"))
+              + R * T * 4 + H * 4 * risk + H * live)
+    if arm == "opportunistic":
+        ops = tasks * (H * (8 + 2 * risk) + 3)
+    elif arm == "first-fit" and risk:
+        ops = tasks * H * 9
+    elif arm == "first-fit":
+        ops = 8 * int(torch.where(p >= 0, p + 1, H).sum())
+    else:
+        fits = int(cf_fit_counts(x, placements).sum())
+        ops = tasks * H * 8 + (12 + risk) * fits
+    ops += 4 * placed
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32_OPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", n_eff)
+
+
+def p19_time(ck, arm, x, reps=P19_REPS, plain_reps=P19_PLAIN_REPS) -> dict:
+    """``kernel_ms`` (the bare launch) and the wrapper's ms by CUDA events,
+    the plain form's ms by host clock around a synchronised call, the
+    bound from the plain form's placements, and ns per step
+    (``kernel_ms`` over the steps walked)."""
+    go, cfg = cf_bare_launch(ck, arm, x)
+    kernel_ms = _events_ms(go, reps)
+    ms = _events_ms(lambda: p19_call(ck, arm, x), reps)
+    plain_ms = _host_ms(lambda: p19_call(ck, arm, x, "plain"), plain_reps)
+    b_ms, b_by, n_eff = cf_bound(arm, x, p19_call(ck, arm, x, "plain")[0])
+    return dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, n_eff=n_eff,
+                ns_per_step=kernel_ms * 1e6 / max(n_eff, 1),
+                threads=cfg.threads, smem_state=cfg.smem_state)
+
+
+def p19_log(key, t) -> None:
+    log(f"  {key}: wrapper {t['ms']!r} ms, kernel_ms {t['kernel_ms']!r}, "
+        f"{t['ns_per_step']!r} ns per step ({t['n_eff']} steps, "
+        f"{t['threads']} threads, state in "
+        f"{'shared' if t['smem_state'] else 'global'} memory), plain "
+        f"{t['plain_ms']!r} ms, bound {t['bound_ms']!r} ms "
+        f"({t['bound_by']})")
+
+
+def p19_sweep(ck, device, chk) -> dict:
+    """``--cf-sweep``: kernel ms by threads a CTA at T = 619, H = 600 for
+    each arm at R = 1 and the R-replica arms at R = 256, each shape held
+    against the plain form."""
+    x = p19_inputs(200 + P19_R_T, P19_R_T, P19_H, device)
+    sweep = {}
+    for arm in CF_ARMS:
+        want = p19_call(ck, arm, x, "plain")
+        sweep[arm] = {}
+        for threads in P19_SWEEP:
+            go, _cfg = cf_bare_launch(ck, arm, x, threads)
+            p, a = go()
+            chk.same((p[0], a[0]), want, (arm, "sweep", threads))
+            sweep[arm][threads] = _events_ms(go, P19_REPS)
+        log(f"  sweep {arm} T={P19_R_T} H={P19_H} (default "
+            f"{ck._cf_config(P19_H, arm).threads} threads): " + ", ".join(
+                f"{n} threads {ms!r} ms" for n, ms in sweep[arm].items()))
+    xr = p19_inputs(300, P19_R_T, P19_H, device, R=SENS_REPLICAS)
+    for arm in CF_ARMS[1:]:
+        want = p19_call(ck, arm, xr, "plain")
+        key = f"{arm} R={SENS_REPLICAS}"
+        sweep[key] = {}
+        for threads in P19_SWEEP_R:
+            go, _cfg = cf_bare_launch(ck, arm, xr, threads)
+            chk.same(go(), want, (key, "sweep", threads))
+            sweep[key][threads] = _events_ms(go, P19_REPS)
+        log(f"  sweep {key} T={P19_R_T} H={P19_H} (default "
+            f"{ck._cf_config(P19_H, arm, SENS_REPLICAS).threads} threads): "
+            + ", ".join(f"{n} threads {ms!r} ms"
+                        for n, ms in sweep[key].items()))
+    return sweep
+
+
+def phase_carry_free(device, ck, e2e=None, sweep=False) -> dict:
+    """Phase 19 (module docstring).  Returns its record."""
+    card = card_line()
+    log(f"  [{card}]")
+    chk = Check()
+    ck.reset_launches()  # the phase's own launches: comparisons and times
+    seed = 0
+    for T in P19_TS:
+        for case, extras in (("dense", ((False, False), (True, False),
+                                        (False, True), (True, True))),
+                             ("nofit", ((False, False), (True, True))),
+                             ("invalid", ((False, False), (True, True)))):
+            for risk, live in extras:
+                seed += 1
+                x = p19_inputs(seed, T, P19_H, device, risk=risk, live=live,
+                               case=case)
+                floor = (int(x["valid"].sum()) // 4
+                         if case == "dense" and T > 1 else 0)
+                for arm in CF_ARMS:
+                    chk.same(p19_call(ck, arm, x),
+                             p19_call(ck, arm, x, "plain"),
+                             (arm, T, case, risk, live), min_placed=floor)
+    n_small = chk.cases
+    for T in P19_EDGE_TS:
+        for case in P19_EDGE_CASES:
+            for risk, live in ((False, False), (True, True)):
+                seed += 1
+                x = p19_inputs(seed, T, P19_H, device, risk=risk, live=live,
+                               case=case)
+                floor = T if case in ("ties", "zero") else 0
+                for arm in CF_ARMS:
+                    chk.same(p19_call(ck, arm, x),
+                             p19_call(ck, arm, x, "plain"),
+                             (arm, T, case, risk, live), min_placed=floor)
+    n_edge = chk.cases - n_small
+    for risk in (False, True):
+        x = p19_inputs(95 + risk, P19_R_T, P19_WIDE[0], device, risk=risk,
+                       live=risk)
+        for arm in CF_ARMS:
+            go, _cfg = cf_bare_launch(ck, arm, x, P19_WIDE[1])
+            p, a = go()
+            chk.same((p[0], a[0]), p19_call(ck, arm, x, "plain"),
+                     (arm, "wide", risk), min_placed=P19_R_T // 4)
+    for arm in CF_ARMS[1:]:
+        for risk in (False, True):
+            x = p19_inputs(91 + risk, P19_R_T, P19_H, device, R=SENS_REPLICAS,
+                           risk=risk)
+            chk.same(p19_call(ck, arm, x), p19_call(ck, arm, x, "plain"),
+                     (arm, f"R={SENS_REPLICAS}", risk),
+                     min_placed=SENS_REPLICAS * P19_R_T // 4)
+    pods = {}
+    for key, risk, live in (("pod", False, False), ("pod risk", True, False),
+                            ("pod risk live", True, True)):
+        pod = p19_inputs(7, P19_POD[1], P19_POD[0], device, risk=risk,
+                         live=live)
+        pod["avail"][: P19_POD[0] // 2] *= 0.25  # low-index hosts fuller
+        pods[key] = pod
+        for arm in CF_ARMS:
+            chk.same(p19_call(ck, arm, pod), p19_call(ck, arm, pod, "plain"),
+                     (arm, key), min_placed=P19_POD[1] // 4)
+    log(f"  {chk.cases} cases ({n_small} at H={P19_H}, {n_edge} of NaN / "
+        f"inf / ±0 risk, ties and zero demand at H={P19_H}, 6 at H="
+        f"{P19_WIDE[0]} with {P19_WIDE[1]} threads (a thread past its "
+        f"fit bits), 4 at R={SENS_REPLICAS}, 9 at H={P19_POD[0]} with and "
+        f"without risk and live), {chk.placed} placements: all equal, max "
+        f"|avail diff| {chk.max_abs_err!r} (0.0 expected; rtol {RTOL}, "
+        f"atol {ATOL})")
+    compare = ck.LAUNCHES["carry_free_place"]
+    times = {}
+    for T in (P19_R_T, 2048):
+        x = p19_inputs(200 + T, T, P19_H, device)
+        for arm in CF_ARMS:
+            times[f"{arm} T={T} H={P19_H}"] = p19_time(ck, arm, x)
+    for arm in CF_ARMS[1:]:
+        x = p19_inputs(300, P19_R_T, P19_H, device, R=SENS_REPLICAS)
+        times[f"{arm} R={SENS_REPLICAS} T={P19_R_T} H={P19_H}"] = p19_time(
+            ck, arm, x)
+    for arm in CF_ARMS:
+        times[f"{arm} T={P19_POD[1]} H={P19_POD[0]}"] = p19_time(
+            ck, arm, pods["pod"], reps=5, plain_reps=1)
+    for run, largest in ((e2e or {}).get("cf_largest") or {}).items():
+        if run != "cuda":
+            continue
+        for arm_label, call in largest.items():
+            if call is None:
+                continue
+            a, k = call
+            arm = CF_ARM_OF[arm_label]
+            x = dict(avail=a[0], dem=a[1], valid=a[2],
+                     u=a[3] if arm == "opportunistic" else None,
+                     live=k.get("live"), risk=k.get("risk"))
+            times[f"largest {arm_label} tick of phase 3"] = p19_time(ck, arm,
+                                                                     x)
+    for key, t in times.items():
+        p19_log(key, t)
+    rec = dict(check=chk, cases=chk.cases, max_abs_err=chk.max_abs_err,
+               compare_launches=compare, times=times,
+               launches=ck.LAUNCHES["carry_free_place"])
+    if sweep:
+        rec["sweep"] = p19_sweep(ck, device, chk)
+    return rec
+
+
+def cf_record(e2e, sens, p14, p15, p19) -> dict:
+    """``carry_free_place``'s entry of the ``kernels`` record: the main
+    path's launches (phases 3 and 4, by run, arm and R), the largest
+    error of every comparison, and phase 19's times — its main-path shape
+    the largest VBP tick of phase 3 (else First-Fit at T = 619, H = 600).
+    A number of a phase not run is null."""
+    by_run = None
+    if e2e is not None and sens is not None:
+        by_run = {f"phase3 {n}": e2e["runs"][n]["cf_launches"]
+                  for n in ("cuda", "cuda_off")}
+        by_run["phase4 vbp"] = sens["vbp"]["cf_launches"]
+    errs = [x.max_abs_err for x in (
+        e2e and e2e["cf_check"], sens and sens["vbp"]["cf_check"],
+        p19 and p19["check"]) if x is not None]
+    if p14 is not None:
+        errs.append(p14["costattr"]["cf_max_abs_err"])
+    times = p19 and p19["times"]
+    main = times and times.get("largest VBP tick of phase 3",
+                               times[f"first-fit T={P19_R_T} H={P19_H}"])
+    return {
+        "name": "carry_free_place",
+        "route": "cuda",
+        "source": "pivot_tpu_torch/csrc/carry_free_place.cu",
+        "replaces": "pivot_tpu/ops/kernels.py:714",
+        "replaces_note": "no pallas_call: the slim lax.while_loop "
+                         "(_slim_drive) of opportunistic_impl :795, "
+                         "first_fit_impl :861 and best_fit_impl :924",
+        "launches": by_run and sum(sum(r.values()) for r in by_run.values()),
+        "launches_by_run": by_run,
+        "phase15_unsharded_launches": p15 and sum(
+            r["unsharded_cf_launches"] for r in p15["e2e"].values()),
+        "phase19_compare_launches": p19 and p19["compare_launches"],
+        "max_abs_err": max(errs) if errs else None,
+        "ms": main and main["ms"],
+        "kernel_ms": main and main["kernel_ms"],
+        "ns_per_step": main and main["ns_per_step"],
+        "plain_ms": main and main["plain_ms"],
+        "bound_ms": main and main["bound_ms"],
+        "bound_by": main and main["bound_by"],
+        "library_ms": None,
+        "times": times,
+    }
+
+
 def phase_5_report(ck, e2e, sens, card, device):
     """Phase 5: times on the card (the main path's wrapper, bare launches,
     the warp sweep, the gated R = 256 launches) and the reports of
@@ -7709,11 +8366,13 @@ def phase_5_report(ck, e2e, sens, card, device):
     return times, gt, spans
 
 
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18,
+          19)
 
 
-def selected_phases(argv) -> set:
-    """``--phases 1,6,7`` (default: all).  Phases 2-5 and 10-17 need
+def selected_phases(argv) -> tuple:
+    """``--phases 1,6,7`` (default: all) and ``--cf-sweep``: the set of
+    phases and whether phase 19 sweeps.  Phases 2-5, 10-17 and 19 need
     phase 1's build (phase 14 its ``ptxas`` rows too), phase 5 the runs
     of phases 3 and 4, phase 13 the python-fabric run of phase 3: they
     come along."""
@@ -7722,16 +8381,20 @@ def selected_phases(argv) -> set:
     ap = argparse.ArgumentParser(description="On-card smoke of the port.")
     ap.add_argument("--phases", default=",".join(map(str, PHASES)),
                     help="comma list of phases to run (default: all)")
-    want = {int(x) for x in ap.parse_args(argv).phases.split(",") if x}
+    ap.add_argument("--cf-sweep", action="store_true",
+                    help="phase 19 also times carry_free_place by threads "
+                         "a CTA (the study behind its launch shape)")
+    args = ap.parse_args(argv)
+    want = {int(x) for x in args.phases.split(",") if x}
     if not want <= set(PHASES):
         ap.error(f"phases are {PHASES}, got {sorted(want)}")
     if 5 in want:
         want |= {3, 4}
     if 13 in want:
         want.add(3)
-    if want & {2, 3, 4, 5, 10, 11, 12, 13, 14, 15, 16, 17}:
+    if want & {2, 3, 4, 5, 10, 11, 12, 13, 14, 15, 16, 17, 19}:
         want.add(1)
-    return want
+    return want, args.cf_sweep
 
 
 def phases_6_to_9(phases, device, card, census, walls, p16):
@@ -7796,7 +8459,7 @@ def phases_6_to_9(phases, device, card, census, walls, p16):
 
 
 def main(argv=None) -> int:
-    phases = selected_phases(argv)
+    phases, cf_sweep = selected_phases(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
               "smoke runs only on a machine with a CUDA card",
@@ -7832,13 +8495,25 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
             ptxas = ptxas_usage_start(build, tmp)  # beside the build
+            cf_ptxas = cf_ptxas_start(build, tmp)
             paths = build.build_all()
             log(f"  built {sorted(paths)} in {time.perf_counter() - t0:.2f} "
                 f"s (nvcc {' '.join(build.NVCC_FLAGS)})")
             for line in ptxas_usage_lines(ptxas):
                 log(f"  ptxas {line}")
                 ptxas_rows.append(json.loads(line))
+            cf_rows = cf_ptxas_lines(cf_ptxas)
+        from pivot_tpu_torch.analysis import kernel_budget as kb
+        from pivot_tpu_torch.infra.roofline import H100_REGS_PER_BLOCK
+
+        for row in cf_rows:
+            log(f"  ptxas carry_free_place {json.dumps(row)}")
+        bad = kb.cf_register_findings(cf_rows, H100_REGS_PER_BLOCK)
+        if bad:
+            raise AssertionError(f"carry_free_place registers: "
+                                 f"{[str(f) for f in bad]}")
         check_shape_tables(build, ck)
+        check_cf_tables(build, ck)
         arith_check(build)
         walls[1] = time.perf_counter() - tp
         census_line(census, 1)
@@ -8009,6 +8684,16 @@ def main(argv=None) -> int:
         walls[18] = time.perf_counter() - tp
         census_line(census, 18)
         log(f"  phase 18 wall: {walls[18]!r} s")
+    p19 = None
+    if 19 in phases:
+        tp = time.perf_counter()
+        log(f"== 19. carry_free_place vs plain on the card (f32): H={P19_H} "
+            f"at T={'/'.join(map(str, P19_TS))}, R={SENS_REPLICAS} at "
+            f"T={P19_R_T}, H={P19_POD[0]} at T={P19_POD[1]}; then times")
+        p19 = phase_carry_free(device, ck, e2e, cf_sweep)
+        walls[19] = time.perf_counter() - tp
+        census_line(census, 19)
+        log(f"  phase 19 wall: {walls[19]!r} s")
     if configs is not None:
         configs.uninstall()
     if oneshot is not None:
@@ -8026,8 +8711,10 @@ def main(argv=None) -> int:
         "phase_walls": walls,
         "same_files": e2e and e2e["same_files"], "gated_times": gt,
         "sensitivity": sens and {p: {k: v for k, v in r.items()
-                                     if k != "check"}
-                                 for p, r in sens.items()}},
+                                     if k not in ("check", "cf_check")}
+                                 for p, r in sens.items()},
+        "carry_free": p19 and {k: v for k, v in p19.items()
+                               if k != "check"}},
         default=str))
 
     # The kernels record; a number of a phase not run is null.
@@ -8137,7 +8824,7 @@ def main(argv=None) -> int:
         "span_rows_plain_ms": st and st["plain_ms"],
         "span_rows_bound_ms": st and st["bound_ms"],
         "span_rows_bound_by": st and st["bound_by"],
-    }]}
+    }, cf_record(e2e, sens, p14, p15, p19)]}
     log(f"  smoke wall: {time.perf_counter() - t_start!r} s")
     print(card, flush=True)
     print(json.dumps(record), flush=True)

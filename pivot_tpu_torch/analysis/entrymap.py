@@ -12,7 +12,11 @@ shapes:
     result of a loader (a function calling ``load(...)``) and calls what
     it bound is a launch site, and every public top-level function of
     the file whose calls reach a launch site is an entry point (the
-    ``greedy_place`` wrappers of ``ops/cuda_kernels.py``);
+    wrappers of ``ops/cuda_kernels.py``: ``greedy_place``'s
+    ``cost_aware_cuda[_batched|_rows]`` and ``carry_free_place``'s
+    ``opportunistic_cuda``, ``first_fit_cuda[_batched]`` and
+    ``best_fit_cuda[_batched]``, each reaching its own library's
+    loader);
   * **graph** — the functions that capture a CUDA graph
     (``torch.cuda.graph(...)`` / ``torch.cuda.CUDAGraph()``), named
     ``Class.method`` inside a class;

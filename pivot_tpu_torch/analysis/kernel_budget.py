@@ -1,6 +1,10 @@
-"""Kernel-budget pass: ``greedy_place``'s shared memory and threads.
+"""Kernel-budget pass: the hand kernels' shared memory and threads.
 
-Recomputed from its CUDA source.
+Recomputed from their CUDA sources: ``greedy_place`` (below) and
+``carry_free_place`` (:func:`collect_carry_free`: its staging, slot and
+state bytes, its chunk and thread limit, held against the wrapper's
+``_cf_smem_bytes`` / ``_CF_CHUNK`` / ``_CF_MAX_THREADS`` and against the
+card's opt-in shared memory and threads per block).
 Counterpart of ``pivot_tpu/analysis/pallas_budget.py``.  The reference
 recomputes each Pallas kernel's VMEM footprint from its BlockSpecs and
 holds it against the hand formulas the auto-sizer trusts and the
@@ -45,7 +49,9 @@ RULE = "kernel-budget"
 _CU_FILE = "pivot_tpu_torch/csrc/greedy_place.cu"
 _WRAPPER_FILE = "pivot_tpu_torch/ops/cuda_kernels.py"
 _ROOFLINE_FILE = "pivot_tpu_torch/infra/roofline.py"
-_BUDGET_CONSTS = ("H100_SMEM_OPTIN_BYTES", "H100_REGS_PER_BLOCK")
+_CF_CU_FILE = "pivot_tpu_torch/csrc/carry_free_place.cu"
+_BUDGET_CONSTS = ("H100_SMEM_OPTIN_BYTES", "H100_REGS_PER_BLOCK",
+                  "H100_MAX_THREADS_PER_BLOCK")
 
 #: Zones of the CLI's default cluster (``infra/gen.py``'s 31 regions):
 #: the largest table the shipped configurations stage.
@@ -166,18 +172,21 @@ def _literal(node: Optional[ast.AST]):
         return None
 
 
-def _python_sizer(src: SourceFile):
-    """``_smem_bytes`` of the wrapper, compiled from its own AST into an
-    empty namespace (it is pure integer arithmetic)."""
+def _python_sizer(src: SourceFile, name: str = "_smem_bytes",
+                  consts: Optional[dict] = None):
+    """A sizer of the wrapper (``_smem_bytes`` by default), compiled from
+    its own AST into an empty namespace (it is pure integer arithmetic
+    on its arguments and ``consts``)."""
     for node in src.tree.body:
-        if isinstance(node, ast.FunctionDef) and node.name == "_smem_bytes":
+        if isinstance(node, ast.FunctionDef) and node.name == name:
             fn = ast.FunctionDef(
                 name=node.name, args=node.args, body=node.body,
                 decorator_list=[], returns=None, type_comment=None,
                 type_params=[],
             )
             mod = ast.fix_missing_locations(ast.Module([fn], []))
-            ns: dict = {"__builtins__": {"min": min, "max": max}}
+            ns: dict = {"__builtins__": {"min": min, "max": max},
+                        **(consts or {})}
             exec(compile(mod, src.path, "exec"), ns)  # noqa: S102
             return ns[node.name], node.lineno
     return None, 0
@@ -205,11 +214,11 @@ def _roofline_consts(cache) -> Tuple[Dict[str, int], List[Finding]]:
     return out, problems
 
 
-def _cu_text(root: str) -> Optional[str]:
-    """The CUDA source (C++, so not a :class:`SourceFile`), or None."""
+def _cu_text(root: str, rel: str = _CU_FILE) -> Optional[str]:
+    """A CUDA source (C++, so not a :class:`SourceFile`), or None."""
     import os
 
-    path = os.path.join(root, _CU_FILE)
+    path = os.path.join(root, rel)
     if not os.path.isfile(path):
         return None
     with open(path) as fh:
@@ -248,6 +257,12 @@ def register_findings(usage, regs_per_block: int) -> List[Finding]:
 
 
 def collect(cache) -> Tuple[List[Finding], List[str]]:
+    out, scanned = _collect_greedy(cache)
+    cf, cf_scanned = collect_carry_free(cache)
+    return out + cf, scanned + [r for r in cf_scanned if r not in scanned]
+
+
+def _collect_greedy(cache) -> Tuple[List[Finding], List[str]]:
     out: List[Finding] = []
     scanned: List[str] = []
     cu = _cu_text(cache.root)
@@ -374,3 +389,219 @@ def collect(cache) -> Tuple[List[Finding], List[str]]:
                 f"above the {optin} B opt-in",
             ))
     return out, scanned
+
+
+# ---------------------------------------------------------------------------
+# carry_free_place
+# ---------------------------------------------------------------------------
+
+
+class CfModel(NamedTuple):
+    """The constants of ``carry_free_place.cu``'s sizing formulas."""
+
+    chunk: int            # kChunk: tasks staged at once
+    max_threads: int      # kMaxThreads: its __launch_bounds__
+    stage_task: int       # stage_bytes: bytes per staged task
+    slot_warp: int        # slot_bytes: bytes per warp slot
+    slot_warps: int       # slot_bytes: warp slots
+    state_host: int       # smem_bytes: bytes per host of state
+    launch_bounded: bool  # __launch_bounds__(kMaxThreads)
+    k_less: int           # K = (H + nthr − k_less) / nthr: hosts a thread
+
+    def smem_bytes(self, H: int, smem_state: bool) -> int:
+        """``smem_bytes`` of the CUDA source."""
+        def align16(n):
+            return -(-n // 16) * 16
+        return (align16(self.stage_task * self.chunk)
+                + align16(self.slot_warp * self.slot_warps)
+                + (self.state_host * H if smem_state else 0))
+
+    def host_ranges(self, H: int, threads: int) -> List[Tuple[int, int]]:
+        """Each thread's hosts ``[h0, h1)`` by the CUDA source's formula:
+        K = (H + threads − k_less) / threads, h0 = min(t·K, H), h1 =
+        min(h0 + K, H)."""
+        K = (H + threads - self.k_less) // threads
+        return [(min(t * K, H), min(min(t * K, H) + K, H))
+                for t in range(threads)]
+
+
+def _owns_each_once(ranges, H: int) -> bool:
+    """``ranges`` own the hosts ``0..H−1`` each once, in index order."""
+    end = 0
+    for h0, h1 in ranges:
+        if h0 != end or h1 < h0:
+            return False
+        end = h1
+    return end == H
+
+
+_CF_PATTERNS = {
+    "chunk": r"constexpr\s+int\s+kChunk\s*=\s*(\d+)\s*;",
+    "max_threads": r"constexpr\s+int\s+kMaxThreads\s*=\s*(\d+)\s*;",
+    "stage": r"stage_bytes\(\)\s*\{\s*return\s+align16\(\s*"
+             r"static_cast<size_t>\((\d+)\)\s*\*\s*kChunk\s*\)\s*;",
+    "slot": r"slot_bytes\(\)\s*\{\s*return\s+align16\(\s*"
+            r"static_cast<size_t>\((\d+)\)\s*\*\s*(\d+)\s*\)\s*;",
+    "state": r"smem_state\s*\?\s*static_cast<size_t>\((\d+)\)\s*\*\s*H"
+             r"\s*:\s*0",
+    "ranges": r"const\s+int\s+K\s*=\s*\(\s*H\s*\+\s*nthr\s*-\s*(\d+)\s*\)"
+              r"\s*/\s*nthr\s*;[^\n]*\n\s*const\s+int\s+h0\s*=\s*min\(\s*tid"
+              r"\s*\*\s*K\s*,\s*H\s*\)\s*;[^\n]*\n\s*const\s+int\s+h1\s*=\s*"
+              r"min\(\s*h0\s*\+\s*K\s*,\s*H\s*\)\s*;",
+}
+_CF_H_PROBES = (1, 7, 600, 14096, 98304)
+
+
+def parse_carry_free(text: str) -> Tuple[Optional[CfModel], List[str]]:
+    """The sizing constants of ``carry_free_place.cu``, or None and the
+    list of formulas the pass could not read."""
+    hits = {k: re.search(p, text, re.S) for k, p in _CF_PATTERNS.items()}
+    missing = [k for k, m in hits.items() if m is None]
+    if missing:
+        return None, missing
+    return CfModel(
+        chunk=int(hits["chunk"].group(1)),
+        max_threads=int(hits["max_threads"].group(1)),
+        stage_task=int(hits["stage"].group(1)),
+        slot_warp=int(hits["slot"].group(1)),
+        slot_warps=int(hits["slot"].group(2)),
+        state_host=int(hits["state"].group(1)),
+        launch_bounded=re.search(r"__launch_bounds__\(\s*kMaxThreads\s*\)",
+                                 text) is not None,
+        k_less=int(hits["ranges"].group(1)),
+    ), []
+
+
+def cf_model(root: Optional[str] = None) -> Optional[CfModel]:
+    """The parsed model of the tree's ``carry_free_place.cu``."""
+    from pivot_tpu_torch.analysis import repo_root
+
+    text = _cu_text(root or repo_root(), _CF_CU_FILE)
+    return None if text is None else parse_carry_free(text)[0]
+
+
+def cf_register_findings(usage, regs_per_block: int) -> List[Finding]:
+    """``kMaxThreads × registers ≤ regs_per_block`` for each
+    instantiation of ``carry_free_place`` in ``usage`` (rows of ``ptxas
+    -v`` with a ``registers`` count, as ``chip_smoke.py`` prints them)."""
+    model = cf_model()
+    if model is None:
+        return [Finding(RULE, _CF_CU_FILE, 0,
+                        "carry_free_place.cu unreadable")]
+    return [
+        Finding(
+            RULE, _CF_CU_FILE, 1,
+            f"carry_free_place {row.get('build', '?')}: {row['registers']} "
+            f"registers x {model.max_threads} threads > {regs_per_block} — "
+            "the launch bound does not fit the register file",
+        )
+        for row in usage
+        if row["registers"] * model.max_threads > regs_per_block
+    ]
+
+
+def collect_carry_free(cache) -> Tuple[List[Finding], List[str]]:
+    """``carry_free_place``'s formulas against the wrapper's and the
+    card's: the chunk and thread limit equal the wrapper's, the sizer
+    equals the kernel's formula at every probe, one slot per warp of the
+    largest block, the threads' host ranges own every host once at every
+    probe and block size, and the thread limit and the largest
+    global-state block fit the card."""
+    out: List[Finding] = []
+    cu = _cu_text(cache.root, _CF_CU_FILE)
+    wrapper = cache.get(_WRAPPER_FILE)
+    if cu is None:
+        return [Finding(
+            RULE, _CF_CU_FILE, 0,
+            f"{_CF_CU_FILE} is missing — renamed/deleted? update "
+            "pivot_tpu_torch/analysis/kernel_budget.py",
+        )], []
+    if wrapper is None:
+        return out, []  # the greedy_place check reports the missing file
+    model, unread = parse_carry_free(cu)
+    for what in unread:
+        out.append(Finding(
+            RULE, _CF_CU_FILE, 1,
+            f"cannot read carry_free_place.cu's {what!r} formula — "
+            "rewritten? update the patterns of pivot_tpu_torch/analysis/"
+            "kernel_budget.py with it",
+        ))
+    if model is None:
+        return out, [_WRAPPER_FILE]
+    if not model.launch_bounded:
+        out.append(Finding(
+            RULE, _CF_CU_FILE, 1,
+            "carry_free_kernel lost __launch_bounds__(kMaxThreads): its "
+            "register budget per thread is no longer tied to its thread "
+            "limit",
+        ))
+    vals = _module_values(wrapper, ("_CF_CHUNK", "_CF_MAX_THREADS"))
+    line = {n: v.lineno for n, v in vals.items()}
+    chunk = _literal(vals.get("_CF_CHUNK"))
+    threads = _literal(vals.get("_CF_MAX_THREADS"))
+    if not isinstance(chunk, int) or not isinstance(threads, int):
+        out.append(Finding(
+            RULE, _WRAPPER_FILE, 1,
+            "_CF_CHUNK / _CF_MAX_THREADS missing or not int literals — the "
+            "pass cannot hold the wrapper's sizer to the kernel's",
+        ))
+        return out, [_WRAPPER_FILE]
+    if chunk != model.chunk:
+        out.append(Finding(
+            RULE, _WRAPPER_FILE, line["_CF_CHUNK"],
+            f"_CF_CHUNK = {chunk} but carry_free_place.cu's kChunk = "
+            f"{model.chunk}",
+        ))
+    if threads != model.max_threads:
+        out.append(Finding(
+            RULE, _WRAPPER_FILE, line["_CF_MAX_THREADS"],
+            f"_CF_MAX_THREADS = {threads} but carry_free_place.cu's "
+            f"kMaxThreads = {model.max_threads}",
+        ))
+    if model.slot_warps * 32 < model.max_threads:
+        out.append(Finding(
+            RULE, _CF_CU_FILE, 1,
+            f"{model.slot_warps} warp slots cannot hold the "
+            f"{model.max_threads // 32} warps of the largest block",
+        ))
+    sizer, sizer_line = _python_sizer(wrapper, "_cf_smem_bytes",
+                                      {"_CF_CHUNK": chunk})
+    if sizer is None:
+        out.append(Finding(RULE, _WRAPPER_FILE, 1,
+                           "_cf_smem_bytes not found in the wrapper"))
+    else:
+        bad = [(H, st) for H in _CF_H_PROBES for st in (False, True)
+               if sizer(H, st) != model.smem_bytes(H, st)]
+        if bad:
+            out.append(Finding(
+                RULE, _WRAPPER_FILE, sizer_line,
+                f"_cf_smem_bytes disagrees with carry_free_place.cu's "
+                f"smem_bytes at {len(bad)} probe(s), first (H, smem_state) "
+                f"= {bad[0]}",
+            ))
+    split = [(H, n) for H in _CF_H_PROBES
+             for n in range(32, model.max_threads + 1, 32)
+             if not _owns_each_once(model.host_ranges(H, n), H)]
+    if split:
+        out.append(Finding(
+            RULE, _CF_CU_FILE, 1,
+            f"the threads' host ranges (K = (H + nthr - {model.k_less}) / "
+            f"nthr) do not own every host once at {len(split)} probe(s), "
+            f"first (H, threads) = {split[0]}",
+        ))
+    consts, _problems = _roofline_consts(cache)  # reported by greedy's
+    limit = consts.get("H100_MAX_THREADS_PER_BLOCK")
+    if limit is not None and model.max_threads > limit:
+        out.append(Finding(
+            RULE, _CF_CU_FILE, 1,
+            f"kMaxThreads = {model.max_threads} is above the card's "
+            f"{limit} threads per block",
+        ))
+    optin = consts.get("H100_SMEM_OPTIN_BYTES")
+    if optin is not None and model.smem_bytes(1, False) > optin:
+        out.append(Finding(
+            RULE, _CF_CU_FILE, 1,
+            f"the global-state block needs {model.smem_bytes(1, False)} B "
+            f"of shared memory, above the {optin} B opt-in",
+        ))
+    return out, [_WRAPPER_FILE]

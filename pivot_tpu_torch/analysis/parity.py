@@ -7,7 +7,10 @@ oracle (``*_kernel_ref``), the two-phase ``*_impl``, the replica-batched
 ``jax.vmap`` of the per-tick kernel), and for cost-aware the hand
 kernel's wrappers (``cost_aware_cuda[_batched|_rows]``, the port of
 ``cost_aware_pallas[_batched]``) and their plain versions
-(``cost_aware_plain[_batched|_rows]``) — plus the span-driver family
+(``cost_aware_plain[_batched|_rows]``), and for the other three the
+carry-free kernel's wrappers (``opportunistic_cuda``,
+``first_fit_cuda[_batched]``, ``best_fit_cuda[_batched]``) and their
+plain versions (``*_plain[_batched]``) — plus the span-driver family
 (``fused_tick_run`` / ``reference_tick_run`` / ``fused_tick_run_rows`` /
 ``resident_span_run``), the host-sharded twins of ``ops/shard.py``
 (``*_kernel_sharded``, the ``[G]``-batched ``*_kernel_sharded_batched``,
@@ -73,6 +76,11 @@ _KERNEL_EXEMPT = frozenset({
 #: as in the reference's ``jax.vmap`` sensitivity pass
 #: (``pivot_tpu/sched/tpu.py:1659-1666``).
 _BATCHED_EXEMPT = frozenset({"live", "phase2", "totals"})
+#: The carry-free kernel is the slim pass itself: no chunk speculation
+#: (``phase2``/``totals``); the routing layer serves the other modes on
+#: the torch forms (``sched/cuda.py::_carry_free_serves``).  Its R-replica
+#: forms take no live mask either, as the batched torch passes.
+_CARRY_FREE_EXEMPT = frozenset({"phase2", "totals"})
 #: The sharded twins have not been threaded for learned exponents —
 #: ``enable_sharding`` refuses non-default ``score_exponents()`` at the
 #: policy layer (the reference's exemption).
@@ -85,6 +93,8 @@ MANIFEST: Dict[str, Dict[str, Tuple[str, FrozenSet[str]]]] = {
     "opportunistic": {
         "opportunistic_kernel_ref": (_KERNELS, _REF_EXEMPT),
         "opportunistic_impl": (_KERNELS, frozenset()),
+        "opportunistic_cuda": (_CUDA, _CARRY_FREE_EXEMPT),
+        "opportunistic_plain": (_CUDA, _CARRY_FREE_EXEMPT),
         "opportunistic_kernel_sharded": (_SHARD, frozenset()),
         "opportunistic_kernel_sharded_batched": (_SHARD, frozenset()),
     },
@@ -92,6 +102,10 @@ MANIFEST: Dict[str, Dict[str, Tuple[str, FrozenSet[str]]]] = {
         "first_fit_kernel_ref": (_KERNELS, _REF_EXEMPT),
         "first_fit_impl": (_KERNELS, frozenset()),
         "first_fit_batched": (_KERNELS, _BATCHED_EXEMPT),
+        "first_fit_cuda": (_CUDA, _CARRY_FREE_EXEMPT),
+        "first_fit_plain": (_CUDA, _CARRY_FREE_EXEMPT),
+        "first_fit_cuda_batched": (_CUDA, _BATCHED_EXEMPT),
+        "first_fit_plain_batched": (_CUDA, _BATCHED_EXEMPT),
         "first_fit_kernel_sharded": (_SHARD, frozenset()),
         "first_fit_kernel_sharded_batched": (_SHARD, frozenset()),
     },
@@ -99,6 +113,10 @@ MANIFEST: Dict[str, Dict[str, Tuple[str, FrozenSet[str]]]] = {
         "best_fit_kernel_ref": (_KERNELS, _REF_EXEMPT),
         "best_fit_impl": (_KERNELS, frozenset()),
         "best_fit_batched": (_KERNELS, _BATCHED_EXEMPT),
+        "best_fit_cuda": (_CUDA, _CARRY_FREE_EXEMPT),
+        "best_fit_plain": (_CUDA, _CARRY_FREE_EXEMPT),
+        "best_fit_cuda_batched": (_CUDA, _BATCHED_EXEMPT),
+        "best_fit_plain_batched": (_CUDA, _BATCHED_EXEMPT),
         "best_fit_kernel_sharded": (_SHARD, frozenset()),
         "best_fit_kernel_sharded_batched": (_SHARD, frozenset()),
     },
@@ -154,6 +172,8 @@ SPAN_NON_ARRAY: Dict[str, str] = {
     "n_bound": "the host step bounds of each tick, read before the loop",
     "greedy": "the Cost-Aware placement callable (the hand kernel's "
               "wrapper), not an operand",
+    "carry_free": "the other arms' placement callable (the carry-free "
+                  "kernel's wrapper), not an operand",
 }
 
 #: Knobs the routing layer must forward per family (∩ the family's

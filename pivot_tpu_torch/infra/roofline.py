@@ -25,10 +25,11 @@ H100's peaks in place of the TPU v5e's:
 The reference's v5e table and its Pallas VMEM budget constants
 (``TPU_PEAKS``, ``V5E_SCOPED_VMEM_BYTES``, ``PALLAS_VMEM_BUDGET_BYTES``,
 ``PALLAS_PROVEN_HP``) have no CUDA meaning and are left out.
-``greedy_place``'s own budget is shared memory and registers per block:
-:data:`H100_SMEM_OPTIN_BYTES` and :data:`H100_REGS_PER_BLOCK`, which the
-``kernel-budget`` pass (``analysis/kernel_budget.py``) holds the
-wrapper's sizer and ``ptxas``'s register counts to.
+The hand kernels' own budget is shared memory, registers and threads per
+block: :data:`H100_SMEM_OPTIN_BYTES`, :data:`H100_REGS_PER_BLOCK` and
+:data:`H100_MAX_THREADS_PER_BLOCK`, which the ``kernel-budget`` pass
+(``analysis/kernel_budget.py``) holds the wrappers' sizers and
+``ptxas``'s register counts to.
 
 This work model is the dispatch profiler's prediction
 (``obs/profiler.py``): a trend-level estimate of the dominant dense ops
@@ -47,6 +48,7 @@ from typing import Dict, Optional
 import numpy as np
 
 __all__ = [
+    "H100_MAX_THREADS_PER_BLOCK",
     "H100_PEAKS",
     "H100_REGS_PER_BLOCK",
     "H100_SMEM_OPTIN_BYTES",
@@ -70,9 +72,11 @@ PEAK_BYTES = 3.35e12
 
 #: Shared memory one block may opt into on the H100 (227 KB, compute
 #: capability 9.0: ``cudaDevAttrMaxSharedMemoryPerBlockOptin``), and the
-#: 32-bit registers one block may hold (the SM's register file).
+#: 32-bit registers one block may hold (the SM's register file), and the
+#: threads one block may run (``cudaDevAttrMaxThreadsPerBlock``).
 H100_SMEM_OPTIN_BYTES = 232448
 H100_REGS_PER_BLOCK = 65536
+H100_MAX_THREADS_PER_BLOCK = 1024
 
 #: The peak table of the card, in :func:`annotate`'s units.
 H100_PEAKS: Dict[str, float] = {

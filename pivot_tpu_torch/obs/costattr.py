@@ -23,11 +23,13 @@ counterpart, so the torch forms are walked under a
     selects included, as the work model counts them).
 
 On the card a row adds ``device_ms``: the median of 5 CUDA-event-timed
-calls after a warm-up call.  The hand kernel ``greedy_place`` is opaque
-to the walk: on the CPU its rows are flagged (its time is the card's
-CUDA events, its budget the ``kernel-budget`` pass); on the card they
-are timed by CUDA events at R = 1, R = 4 and per-row G = 2, and each
-launch is held against its plain version (``max_abs_err``).
+calls after a warm-up call.  The hand kernels ``greedy_place`` and
+``carry_free_place`` are opaque to the walk: on the CPU their rows are
+flagged (their time is the card's CUDA events, their budget the
+``kernel-budget`` pass); on the card they are timed by CUDA events —
+``greedy_place`` at R = 1, R = 4 and per-row G = 2, ``carry_free_place``
+for each arm at R = 1 and for First-Fit and Best-Fit at R = 4 — and
+each launch is held against its plain version (``max_abs_err``).
 
 Measured rows are joined against ``infra/roofline.py::placement_cost``
 at the same shape (``analytic_flops`` / ``analytic_bytes``,
@@ -221,13 +223,35 @@ def _b_resident(o):
         carry, o["dem"], o["arrive"], _K, policy="first-fit", n_ticks=_K)
 
 
-#: The hand kernel's three launch forms: (wrapper, plain version,
-#: operands builder, replicas or rows).
+#: The carry-free kernel's forms: key → (wrapper, plain version, arm
+#: operands beyond (avail, dem, valid), replicas).
+_CF_FORMS = {
+    "cf_opportunistic": ("opportunistic_cuda", "opportunistic_plain", 1),
+    "cf_first_fit": ("first_fit_cuda", "first_fit_plain", 1),
+    "cf_best_fit": ("best_fit_cuda", "best_fit_plain", 1),
+    "cf_first_fit_r4": ("first_fit_cuda_batched", "first_fit_plain_batched",
+                        _R),
+    "cf_best_fit_r4": ("best_fit_cuda_batched", "best_fit_plain_batched",
+                       _R),
+}
+
+
+#: The hand kernels' launch forms: (wrapper, plain version, operands,
+#: keywords, replicas or rows).
 def _kernel_form(key: str, o):
     import torch
 
     from pivot_tpu_torch.ops import cuda_kernels as ck
 
+    if key in _CF_FORMS:
+        wrapper, plain, R = _CF_FORMS[key]
+        avail = (o["avail"] if R == 1
+                 else o["avail"].expand(R, -1, -1).contiguous())
+        args = (avail, o["dem"], o["valid"])
+        if key == "cf_opportunistic":
+            args += (o["u"],)
+        kw = {"strict": False} if "first_fit" in key else {}
+        return getattr(ck, wrapper), getattr(ck, plain), args, kw, R
     args = _ca_args(o)
     if key == "r1":
         return ck.cost_aware_cuda, ck.cost_aware_plain, args, _CA_KW, 1
@@ -266,9 +290,9 @@ _BUILDERS: Dict[str, Tuple[Callable, str, int, int]] = {
 }
 
 _KERNEL_FLAG = (
-    "greedy_place is opaque to the dispatch walk: its time is the "
-    "card's CUDA events, its budget the kernel-budget pass "
-    "(pivot_tpu_torch/analysis/kernel_budget.py)"
+    "the hand kernels (greedy_place, carry_free_place) are opaque to the "
+    "dispatch walk: their time is the card's CUDA events, their budget "
+    "the kernel-budget pass (pivot_tpu_torch/analysis/kernel_budget.py)"
 )
 
 
@@ -308,6 +332,11 @@ ENTRY_POINTS: Dict[Tuple[str, str], Tuple[str, str]] = {
     (_CUDA, "cost_aware_cuda"): kernel("r1"),
     (_CUDA, "cost_aware_cuda_batched"): kernel("r4"),
     (_CUDA, "cost_aware_cuda_rows"): kernel("rows"),
+    (_CUDA, "opportunistic_cuda"): kernel("cf_opportunistic"),
+    (_CUDA, "first_fit_cuda"): kernel("cf_first_fit"),
+    (_CUDA, "best_fit_cuda"): kernel("cf_best_fit"),
+    (_CUDA, "first_fit_cuda_batched"): kernel("cf_first_fit_r4"),
+    (_CUDA, "best_fit_cuda_batched"): kernel("cf_best_fit_r4"),
     ("pivot_tpu_torch/sched/cuda.py", "CudaCostAwarePolicy._greedy"): flag(
         "the Cost-Aware policy's bound call of cost_aware_cuda (its "
         "topology fixed) — see the cost_aware_cuda row"
@@ -537,6 +566,7 @@ def _kernel_row(key: str, o, T: int, H: int) -> dict:
     from pivot_tpu_torch.ops import cuda_kernels as ck
 
     wrapper, plain, args, kw, R = _kernel_form(key, o)
+    name = "carry_free_place" if key in _CF_FORMS else "greedy_place"
     p_p, a_p = plain(*args, **kw)
     errs, outs = [], []
 
@@ -544,20 +574,20 @@ def _kernel_row(key: str, o, T: int, H: int) -> dict:
         p_k, a_k = out
         if not torch.equal(p_k, p_p) or not torch.allclose(
                 a_k, a_p, rtol=1e-6, atol=1e-5):
-            raise AssertionError(f"greedy_place {key}: launch differs "
-                                 "from its plain version")
+            raise AssertionError(f"{name} {key}: launch differs from its "
+                                 "plain version")
         errs.append(float((a_k - a_p).abs().max()))
         outs[:] = out
 
-    n0 = ck.LAUNCHES["greedy_place"]
+    n0 = ck.LAUNCHES[name]
     ms = _device_ms(lambda: wrapper(*args, **kw), check=check)
     io = sum(t.numel() * t.element_size() for t in args)
     io += sum(t.numel() * t.element_size() for t in outs)
-    row = {"kernel": "greedy_place", "form": key, "device_ms": ms,
-           "launches": ck.LAUNCHES["greedy_place"] - n0,
+    row = {"kernel": name, "form": key, "device_ms": ms,
+           "launches": ck.LAUNCHES[name] - n0,
            "compared": len(errs), "bytes": float(io),
            "max_abs_err": max(errs)}
-    return _join(row, "pallas_rb", T, H, R)
+    return _join(row, "slim" if key in _CF_FORMS else "pallas_rb", T, H, R)
 
 
 def cost_attribution(T: int = _T, H: int = _H, device: str = "cuda") -> dict:

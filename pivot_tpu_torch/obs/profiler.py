@@ -53,6 +53,10 @@ in the reference):
   ``CudaCostAwarePolicy._greedy``  ``cost_aware_pallas``       pallas_rb
   ``cost_aware_cuda_batched``    ``cost_aware_pallas_batched`` pallas_rb
   ``cost_aware_cuda_rows``       ``cost_aware_pallas_batched`` pallas_rb
+  ``opportunistic_cuda``         ``opportunistic``             slim
+  (``carry_free_place``)
+  ``first_fit_cuda[_batched]``   ``first_fit``                 slim
+  ``best_fit_cuda[_batched]``    ``best_fit``                  slim
   ``opportunistic_impl``         ``opportunistic``             slim
   ``first_fit_impl``             ``first_fit``                 slim
   ``best_fit_impl``              ``best_fit``                  slim
@@ -64,7 +68,9 @@ in the reference):
 The two-phase torch forms model as ``"slim"`` on every device: their
 ``phase2="auto"`` resolves to the slim early-exit pass everywhere in the
 port (``ops/kernels.py``), where the reference's resolves to slim on the
-CPU only.
+CPU only.  The carry-free kernel's wrappers take their arm's family and
+model: the kernel is that slim pass in one launch (the reference's TPU
+census names the same families for the XLA loop it replaces).
 """
 
 from __future__ import annotations
@@ -85,6 +91,11 @@ PORT_FAMILIES: Dict[str, str] = {
     "_greedy": "cost_aware_pallas",
     "cost_aware_cuda_batched": "cost_aware_pallas_batched",
     "cost_aware_cuda_rows": "cost_aware_pallas_batched",
+    "opportunistic_cuda": "opportunistic",
+    "first_fit_cuda": "first_fit",
+    "first_fit_cuda_batched": "first_fit",
+    "best_fit_cuda": "best_fit",
+    "best_fit_cuda_batched": "best_fit",
 }
 
 _TWO_PHASE = {

@@ -55,7 +55,8 @@ from typing import Any, Dict, List, Optional
 from pivot_tpu_torch.obs.clock import ObsClock
 
 __all__ = ["Tracer", "NULL_TRACER", "TERMINAL_STAGES", "device_profile",
-           "PROFILE_TRACE_FILE", "trace_census", "TRACE_WARMUP_KERNELS"]
+           "PROFILE_TRACE_FILE", "trace_census", "trace_tail",
+           "TRACE_WARMUP_KERNELS"]
 
 #: Stage names that end a job's causal chain — used by the Perfetto
 #: exporter (async-span close) and the report/check walkers.  Exactly
@@ -399,6 +400,22 @@ WARMUP_RANGE = "device_profile.warmup"
 #: for some hours; :func:`trace_census` counts what it misses.
 TRACE_WARMUP_KERNELS = 1024
 
+#: The range :func:`device_profile` puts its tail sentinel in: one tiny
+#: kernel launched, and synchronised, after the block's last kernels.
+TAIL_RANGE = "device_profile.tail"
+
+#: Seconds :func:`device_profile` holds its window open after the tail
+#: sentinel has synchronised.  The profiler drops a kernel record that
+#: falls after the window's host-clock end, and a session's kernel
+#: records can sit later than their launches on that clock: on an NVIDIA
+#: H100 80GB HBM3 at 700 W (torch 2.11, CUDA 12.8) once by 80.6 ms, where
+#: 5-31 us is usual, and the last 8 of 743 launches lost their records
+#: (``chip_smoke.py`` phase 13 (d)).  Whether the hold covered the
+#: session is read from the trace, not assumed: the sentinel ran after
+#: every kernel of the block, so its record in the trace proves theirs
+#: were not cut, and :func:`trace_tail` gives the margin the hold left.
+TRACE_TAIL_S = 0.25
+
 
 def trace_census(path: str) -> Dict[str, Any]:
     """Kernel launches against kernel records in a Chrome trace that
@@ -442,6 +459,43 @@ def trace_census(path: str) -> Dict[str, Any]:
                 min_launch_to_kernel_us=min(offsets) if offsets else None)
 
 
+def trace_tail(path: str) -> Dict[str, Any]:
+    """The tail sentinel of a :func:`device_profile` trace: ``launches``
+    (launch calls in ``TAIL_RANGE``), ``recorded`` (whether each has its
+    kernel record; False also when the range holds no launch),
+    ``skew_us`` (the largest time from such a launch call's start to its
+    kernel's start) and ``margin_us`` (the capture window's end less the
+    latest end of their kernel records: how far the last kernel of the
+    session stood from the cut; None when a record is missing)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    launches, kernels, tail, window = [], {}, None, None
+    for e in events:
+        cat = e.get("cat")
+        corr = (e.get("args") or {}).get("correlation")
+        if cat in ("cuda_runtime", "cuda_driver") \
+                and e.get("name") in _LAUNCH_CALLS:
+            launches.append((e["ts"], corr))
+        elif cat == "kernel":
+            kernels.setdefault(corr, (e["ts"], e["ts"] + e.get("dur", 0.0)))
+        elif cat == "Trace":
+            window = (e["ts"], e["ts"] + e.get("dur", 0.0))
+        elif cat == "user_annotation" and e.get("name") == TAIL_RANGE:
+            tail = (e["ts"], e["ts"] + e.get("dur", 0.0))
+    if tail is not None:
+        launches = [x for x in launches if tail[0] <= x[0] <= tail[1]]
+    else:
+        launches = []
+    recorded = bool(launches) and all(c in kernels for _, c in launches)
+    skew = margin = None
+    if recorded:
+        skew = max(kernels[c][0] - ts for ts, c in launches)
+        if window is not None:
+            margin = window[1] - max(kernels[c][1] for _, c in launches)
+    return dict(launches=len(launches), recorded=recorded, skew_us=skew,
+                margin_us=margin)
+
+
 @contextlib.contextmanager
 def device_profile(logdir: Optional[str],
                    warmup: int = TRACE_WARMUP_KERNELS):
@@ -453,9 +507,12 @@ def device_profile(logdir: Optional[str],
     the card's timeline, loadable in ``chrome://tracing`` or Perfetto.
     On the card the window opens with ``warmup`` tiny kernels in the
     range ``WARMUP_RANGE``, synchronised (see ``TRACE_WARMUP_KERNELS``).
-    Yields a dict that holds, once the block has ended, the trace's
-    ``path`` and, on the card, its :func:`trace_census`; a trace that
-    lacks a launch's kernel record raises a warning naming the count.
+    After the block it launches one sentinel kernel in ``TAIL_RANGE``,
+    synchronised, and holds the window open ``TRACE_TAIL_S``.  Yields a
+    dict that holds, once the block has ended, the trace's ``path`` and,
+    on the card, its :func:`trace_census` and :func:`trace_tail`; a
+    trace that lacks a launch's kernel record, or the sentinel's, raises
+    a warning naming the count.
     No-op when ``logdir`` is falsy (so call sites can thread an optional
     CLI flag straight through)."""
     record: Dict[str, Any] = {}
@@ -474,22 +531,28 @@ def device_profile(logdir: Optional[str],
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
     with profile(activities=activities) as prof:
+        if on_card:
+            x = torch.zeros(1, device="cuda")
         if on_card and warmup:
             with record_function(WARMUP_RANGE):
-                x = torch.zeros(1, device="cuda")
                 for _ in range(warmup):
                     x.add_(1.0)
                 torch.cuda.synchronize()
         yield record
         if on_card:
-            torch.cuda.synchronize()  # the block's last kernels, recorded
+            torch.cuda.synchronize()  # the block's last kernels
+            with record_function(TAIL_RANGE):
+                x.add_(1.0)  # after every kernel of the block
+                torch.cuda.synchronize()
+            time.sleep(TRACE_TAIL_S)  # graftcheck: ignore[determinism] -- holds the trace window open; no placement reads it
     record["path"] = os.path.join(logdir, PROFILE_TRACE_FILE)
     prof.export_chrome_trace(record["path"])
     if on_card:
         census = record["census"] = trace_census(record["path"])
-        if census["missing"]:
+        tail = record["tail"] = trace_tail(record["path"])
+        if census["missing"] or not tail["recorded"]:
             warnings.warn(
                 f"{record['path']}: {census['missing']} of "
                 f"{census['launches']} kernel launches have no kernel "
-                f"record in the trace ({census})", RuntimeWarning,
-                stacklevel=3)
+                f"record in the trace ({census}; tail sentinel {tail})",
+                RuntimeWarning, stacklevel=3)

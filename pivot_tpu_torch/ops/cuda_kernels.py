@@ -34,6 +34,19 @@ on a CUDA tensor they launch the kernel or raise.
 count R, and ``LAUNCHES_ROWS`` the per-row launches by their row count
 G.  Session threads launch concurrently: the counts, the build and the
 load are taken under locks.
+
+The carry-free placement pass (Opportunistic, First-Fit, Best-Fit) is
+the second hand kernel, ``carry_free_place`` (``csrc/carry_free_place.
+cu``).  It ports no Pallas kernel but the XLA loop the reference runs
+for those arms (``pivot_tpu/ops/kernels.py``'s slim ``opportunistic_impl``
+/ ``first_fit_impl`` / ``best_fit_impl`` and their ``jax.vmap`` over
+replicas): ``opportunistic_cuda``, ``first_fit_cuda``, ``best_fit_cuda``
+(one tick) and ``first_fit_cuda_batched`` / ``best_fit_cuda_batched`` (R
+replicas sharing one task stream) each launch it once, one CTA a
+replica.  Beside each, a ``*_plain`` function is the port's slim torch
+form of the same pass (``ops/kernels.py``), which the wrapper takes for
+CPU tensors, and only then.  ``LAUNCHES["carry_free_place"]`` counts its
+launches and ``LAUNCHES_CARRY_FREE`` splits them by (arm, R).
 """
 
 from __future__ import annotations
@@ -46,29 +59,50 @@ from typing import NamedTuple, Optional
 import torch
 
 from pivot_tpu_torch.infra.roofline import H100_SMEM_OPTIN_BYTES
+from pivot_tpu_torch.ops.kernels import (
+    best_fit_batched,
+    best_fit_impl,
+    first_fit_batched,
+    first_fit_impl,
+    opportunistic_impl,
+)
 
 __all__ = [
     "LAUNCHES",
     "LAUNCHES_BY_REPLICAS",
+    "LAUNCHES_CARRY_FREE",
     "LAUNCHES_ROWS",
     "MAX_HOSTS",
+    "load_carry_free_library",
     "load_library",
     "reset_launches",
+    "best_fit_cuda",
+    "best_fit_cuda_batched",
+    "best_fit_plain",
+    "best_fit_plain_batched",
     "cost_aware_cuda",
     "cost_aware_cuda_batched",
     "cost_aware_cuda_rows",
     "cost_aware_plain",
     "cost_aware_plain_batched",
     "cost_aware_plain_rows",
+    "first_fit_cuda",
+    "first_fit_cuda_batched",
+    "first_fit_plain",
+    "first_fit_plain_batched",
+    "opportunistic_cuda",
+    "opportunistic_plain",
 ]
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel name.
-LAUNCHES = {"greedy_place": 0}
+LAUNCHES = {"greedy_place": 0, "carry_free_place": 0}
 #: The shared-stream launches of ``greedy_place``, by replica count R.
 LAUNCHES_BY_REPLICAS: dict = {}
 #: The per-row launches of ``greedy_place``, by row count G.
 LAUNCHES_ROWS: dict = {}
-#: Guards the three counts (session threads launch concurrently).
+#: The launches of ``carry_free_place``, by (arm, replica count R).
+LAUNCHES_CARRY_FREE: dict = {}
+#: Guards the counts (session threads launch concurrently).
 _COUNT_LOCK = threading.Lock()
 #: Guards the typing of the library's entry points.
 _LOAD_LOCK = threading.Lock()
@@ -104,6 +138,7 @@ def reset_launches() -> None:
             LAUNCHES[name] = 0
         LAUNCHES_BY_REPLICAS.clear()
         LAUNCHES_ROWS.clear()
+        LAUNCHES_CARRY_FREE.clear()
 
 
 class _Config(NamedTuple):
@@ -592,3 +627,307 @@ def cost_aware_cuda_rows(avail_g, demands_g, valid_g, new_group_g,
                 bin_pack == "first-fit", sort_hosts, host_decay,
                 n_eff_rows="all" if n_eff_g is None else n_eff_g)
     return placements, avail_out
+
+
+# ---------------------------------------------------------------------------
+# The carry-free placement pass: ``carry_free_place``.
+# ---------------------------------------------------------------------------
+
+#: The kernel's arms, in the order of its ``arm`` argument.
+_CF_ARMS = ("opportunistic", "first-fit", "best-fit")
+#: Tasks the kernel stages in shared memory at once (``kChunk``).
+_CF_CHUNK = 256
+#: Threads one CTA may run: the kernel's ``__launch_bounds__``
+#: (``kMaxThreads``).
+_CF_MAX_THREADS = 1024
+#: Hosts a thread owns before the CTA takes another warp, by arm, for one
+#: replica: from the sweep of threads a CTA at T = 619, H = 600
+#: (``chip_smoke.py`` phase 19, PERF.md), where Best-Fit's per-host score
+#: favours one host a thread and the other two arms four.  R > 1 replicas
+#: take four in every arm: small CTAs let all R sit on the SMs at once
+#: (Best-Fit at R = 256: 0.53 ms with 160 threads, 0.76 ms with 608, on an
+#: NVIDIA H100 80GB HBM3 at 700 W).
+_CF_HOSTS_PER_THREAD = {"opportunistic": 4, "first-fit": 4, "best-fit": 1}
+_CF_HOSTS_PER_THREAD_REPLICAS = 4
+
+
+def _cf_smem_bytes(H, smem_state) -> int:
+    """``carry_free_place_smem_bytes``: the staged chunk (24 B a task),
+    the per-warp slots (24 B a warp for 32 warps), and shared-memory state
+    (16 B a host)."""
+    def align16(n):
+        return -(-n // 16) * 16
+    return (align16(24 * _CF_CHUNK) + align16(24 * 32)
+            + (16 * H if smem_state else 0))
+
+
+class _CfConfig(NamedTuple):
+    """One launch shape of ``carry_free_place`` (one CTA a replica)."""
+
+    threads: int       # 32·W
+    smem_state: bool   # per-host state in shared memory, not global
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=1024)
+def _cf_config(H: int, arm: str, R: int = 1) -> _CfConfig:
+    """The launch shape of ``arm`` for ``R`` replicas of ``H`` hosts:
+    ⌈H / (32·k)⌉ warps a CTA, between 1 and 32, with k the arm's
+    ``_CF_HOSTS_PER_THREAD`` (``_CF_HOSTS_PER_THREAD_REPLICAS`` when
+    R > 1), so a thread owns at most k hosts up to 1,024·k hosts and
+    ⌈H / 1024⌉ past them; the state in shared memory while it fits the
+    card's 227 KB opt-in beside the staging (14,096 hosts), else worked
+    in place in global memory."""
+    k = _CF_HOSTS_PER_THREAD[arm] if R == 1 else _CF_HOSTS_PER_THREAD_REPLICAS
+    W = max(1, min(32, -(-H // (32 * k))))
+    smem_state = _cf_smem_bytes(H, True) <= _SMEM_LIMIT
+    return _CfConfig(32 * W, smem_state, _cf_smem_bytes(H, smem_state))
+
+
+def _cf_check(arm, avail_r, demands, valid, uniforms, live, risk, n_bound):
+    """Validate the carry-free contract in one pass — ``avail_r``
+    [R, H, 4], ``demands`` [T, 4] in avail's float dtype, ``valid`` [T]
+    bool, ``uniforms`` [T] (opportunistic), optional ``live`` [H] bool and
+    ``risk`` [H], contiguous and on one device, H ≥ 1, ``n_bound`` ≥ 0 or
+    None; returns ``(R, T, H, the kernel's step bound or −1)``."""
+    if arm not in _CF_ARMS:
+        raise ValueError(f"arm must be one of {_CF_ARMS}, got {arm!r}")
+    if avail_r.dim() != 3 or avail_r.shape[2] != 4:
+        raise ValueError(f"avail must be [H, 4] (or [R, H, 4] replicas), "
+                         f"got {tuple(avail_r.shape[1:])} per replica")
+    R, H = avail_r.shape[0], avail_r.shape[1]
+    T = demands.shape[0] if demands.dim() else 0
+    dtype, dev = avail_r.dtype, avail_r.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"avail must be float32 or float64, got {dtype}")
+    _want("avail", avail_r, dev, dtype, (R, H, 4))
+    _want("demands", demands, dev, dtype, (T, 4))
+    _want("valid", valid, dev, _BOOL, (T,))
+    if arm == "opportunistic":
+        if uniforms is None:
+            raise ValueError("the opportunistic pass needs uniforms [T]")
+        _want("uniforms", uniforms, dev, dtype, (T,))
+    if live is not None:
+        _want("live", live, dev, _BOOL, (H,))
+    if risk is not None:
+        _want("risk", risk, dev, dtype, (H,))
+    if H < 1:
+        raise ValueError("the carry-free pass needs at least one host")
+    if n_bound is None:
+        return R, T, H, -1
+    if int(n_bound) < 0:
+        raise ValueError(f"n_bound must be >= 0, got {n_bound}")
+    return R, T, H, min(int(n_bound), T)
+
+
+# -- the plain version: the port's slim torch forms -------------------------
+
+
+def opportunistic_plain(avail, demands, valid, uniforms, live=None,
+                        risk=None, n_bound=None):
+    """The pass of :func:`opportunistic_cuda` as the port's slim torch
+    form (``ops/kernels.py::opportunistic_impl``, ``phase2="slim"``):
+    ``[H, 4]`` → ``([T] int32 placements, [H, 4] availability)``;
+    ``n_bound`` caps the steps and must be at least one past the last
+    valid task."""
+    _cf_check("opportunistic", avail[None], demands, valid, uniforms, live,
+              risk, n_bound)
+    return opportunistic_impl(avail, demands, valid, uniforms,
+                              phase2="slim", live=live, risk=risk,
+                              n_bound=n_bound)
+
+
+def first_fit_plain(avail, demands, valid, strict: bool = False, live=None,
+                    risk=None, n_bound=None):
+    """The pass of :func:`first_fit_cuda` as the slim torch form
+    (``first_fit_impl``, ``phase2="slim"``)."""
+    _cf_check("first-fit", avail[None], demands, valid, None, live, risk,
+              n_bound)
+    return first_fit_impl(avail, demands, valid, strict=strict,
+                          phase2="slim", live=live, risk=risk,
+                          n_bound=n_bound)
+
+
+def best_fit_plain(avail, demands, valid, live=None, risk=None,
+                   n_bound=None):
+    """The pass of :func:`best_fit_cuda` as the slim torch form
+    (``best_fit_impl``, ``phase2="slim"``)."""
+    _cf_check("best-fit", avail[None], demands, valid, None, live, risk,
+              n_bound)
+    return best_fit_impl(avail, demands, valid, phase2="slim", live=live,
+                         risk=risk, n_bound=n_bound)
+
+
+def first_fit_plain_batched(avail_r, demands, valid, strict: bool = False,
+                            risk=None, n_bound=None):
+    """The pass of :func:`first_fit_cuda_batched` as the torch form
+    ``ops/kernels.py::first_fit_batched``: ``[R, H, 4]`` → ``([R, T]
+    int32, [R, H, 4])``."""
+    _cf_check("first-fit", avail_r, demands, valid, None, None, risk,
+              n_bound)
+    return first_fit_batched(avail_r, demands, valid, strict=strict,
+                             risk=risk, n_bound=n_bound)
+
+
+def best_fit_plain_batched(avail_r, demands, valid, risk=None, n_bound=None):
+    """The pass of :func:`best_fit_cuda_batched` as the torch form
+    ``ops/kernels.py::best_fit_batched``."""
+    _cf_check("best-fit", avail_r, demands, valid, None, None, risk, n_bound)
+    return best_fit_batched(avail_r, demands, valid, risk=risk,
+                            n_bound=n_bound)
+
+
+# -- the kernel -------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _cf_entry():
+    """The built library's launch entry point, typed once:
+    ``carry_free_place_launch`` (eight pointers, eight ints, the
+    stream)."""
+    from pivot_tpu_torch.ops.build import load
+
+    fn = load("carry_free_place").carry_free_place_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def load_carry_free_library():
+    """Build (if needed) and load ``carry_free_place`` now, on the calling
+    thread; returns its typed entry point."""
+    with _LOAD_LOCK:
+        return _cf_entry()
+
+
+def _cf_launch(cfg, arm, avail_r, demands, valid, uniforms, strict, live,
+               risk, n_bound, placements, avail_out) -> None:
+    """Launch ``carry_free_place`` once, in shape ``cfg``, on the current
+    stream of ``avail_r``'s device, on operands :func:`_cf_check` has
+    passed (float32, 16-byte aligned), into ``placements`` /
+    ``avail_out``; count the launch, and raise if CUDA refused it.  The
+    kernel's one launch site; ``n_bound`` is the checked bound (−1 for
+    none)."""
+    dev = avail_r.device
+    R, T, H = avail_r.shape[0], demands.shape[0], avail_r.shape[1]
+    args = (avail_r.data_ptr(), demands.data_ptr(), valid.data_ptr(),
+            None if uniforms is None else uniforms.data_ptr(),
+            None if risk is None else risk.data_ptr(),
+            None if live is None else live.data_ptr(),
+            placements.data_ptr(), avail_out.data_ptr(),
+            R, T, H, n_bound, _CF_ARMS.index(arm), int(bool(strict)),
+            cfg.threads, int(cfg.smem_state),
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    fn = load_carry_free_library()
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"carry_free_place launch failed: CUDA error "
+                           f"{err}")
+    with _COUNT_LOCK:
+        LAUNCHES["carry_free_place"] += 1
+        LAUNCHES_CARRY_FREE[arm, R] = LAUNCHES_CARRY_FREE.get((arm, R),
+                                                              0) + 1
+
+
+def _cf_call(arm, avail_r, demands, valid, uniforms=None, strict=False,
+             live=None, risk=None, n_bound=None):
+    """One launch on CUDA operands: check, allocate the outputs with
+    ``torch.empty``, launch; ``([R, T] int32, [R, H, 4] f32)``."""
+    if avail_r.device.type != "cuda":
+        raise ValueError(f"carry_free_place runs on cuda or (plain) cpu "
+                         f"tensors, got {avail_r.device}")
+    R, T, H, n_bound = _cf_check(arm, avail_r, demands, valid, uniforms,
+                                 live, risk, n_bound)
+    if avail_r.dtype != _F32:
+        raise TypeError(f"carry_free_place is float32 only, got "
+                        f"{avail_r.dtype}")
+    for name, t in (("avail", avail_r), ("demands", demands)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned: the kernel "
+                             "reads its rows as float4")
+    placements = torch.empty((R, T), dtype=torch.int32, device=avail_r.device)
+    avail_out = torch.empty_like(avail_r)
+    if R:
+        _cf_launch(_cf_config(H, arm, R), arm, avail_r, demands, valid,
+                   uniforms, strict, live, risk, n_bound, placements,
+                   avail_out)
+    return placements, avail_out
+
+
+def opportunistic_cuda(avail, demands, valid, uniforms, live=None,
+                       risk=None, n_bound=None):
+    """One Opportunistic tick — the contract of ``pivot_tpu``'s
+    ``opportunistic_impl`` in slim form:
+
+      avail [H, 4] f32, demands [T, 4] f32, valid [T] bool, uniforms [T]
+      f32, optional live [H] bool and risk [H] f32, all contiguous and on
+      one device; ``n_bound`` (default: the device's own bound) at least
+      one past the last valid task.
+
+    Returns ``([T] int32 placements, [H, 4] f32 availability)``.  CUDA
+    tensors launch ``carry_free_place`` once on the current stream — no
+    other device operation, no synchronisation; CPU tensors take
+    :func:`opportunistic_plain`; anything else raises."""
+    if avail.device.type == "cpu":
+        return opportunistic_plain(avail, demands, valid, uniforms,
+                                   live=live, risk=risk, n_bound=n_bound)
+    p, a = _cf_call("opportunistic", avail[None], demands, valid, uniforms,
+                    live=live, risk=risk, n_bound=n_bound)
+    return p[0], a[0]
+
+
+def first_fit_cuda(avail, demands, valid, strict: bool = False, live=None,
+                   risk=None, n_bound=None):
+    """One First-Fit tick (``first_fit_impl``'s contract, slim form): the
+    contract of :func:`opportunistic_cuda` without ``uniforms``, with
+    ``strict``."""
+    if avail.device.type == "cpu":
+        return first_fit_plain(avail, demands, valid, strict=strict,
+                               live=live, risk=risk, n_bound=n_bound)
+    p, a = _cf_call("first-fit", avail[None], demands, valid, strict=strict,
+                    live=live, risk=risk, n_bound=n_bound)
+    return p[0], a[0]
+
+
+def best_fit_cuda(avail, demands, valid, live=None, risk=None,
+                  n_bound=None):
+    """One Best-Fit tick (``best_fit_impl``'s contract, slim form)."""
+    if avail.device.type == "cpu":
+        return best_fit_plain(avail, demands, valid, live=live, risk=risk,
+                              n_bound=n_bound)
+    p, a = _cf_call("best-fit", avail[None], demands, valid, live=live,
+                    risk=risk, n_bound=n_bound)
+    return p[0], a[0]
+
+
+def first_fit_cuda_batched(avail_r, demands, valid, strict: bool = False,
+                           risk=None, n_bound=None):
+    """First-Fit over ``R`` availability replicas sharing one task stream
+    — ``jax.vmap`` of the reference's first-fit pass over ``avail_r [R, H,
+    4]`` (``pivot_tpu/sched/tpu.py:1659-1666``), no live mask: one launch,
+    one CTA a replica.  Returns ``([R, T] int32, [R, H, 4] f32)``, each
+    row bitwise the unbatched pass on that row; CPU tensors take
+    :func:`first_fit_plain_batched`."""
+    if avail_r.device.type == "cpu":
+        return first_fit_plain_batched(avail_r, demands, valid,
+                                       strict=strict, risk=risk,
+                                       n_bound=n_bound)
+    return _cf_call("first-fit", avail_r, demands, valid, strict=strict,
+                    risk=risk, n_bound=n_bound)
+
+
+def best_fit_cuda_batched(avail_r, demands, valid, risk=None, n_bound=None):
+    """Best-Fit over ``R`` replicas sharing one task stream
+    (``pivot_tpu/sched/tpu.py:1724-1729``); the contract of
+    :func:`first_fit_cuda_batched`."""
+    if avail_r.device.type == "cpu":
+        return best_fit_plain_batched(avail_r, demands, valid, risk=risk,
+                                      n_bound=n_bound)
+    return _cf_call("best-fit", avail_r, demands, valid, risk=risk,
+                    n_bound=n_bound)

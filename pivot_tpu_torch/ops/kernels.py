@@ -43,8 +43,11 @@ slim pass reads the ``[B]`` valid and group-entry flags to the host once
 per call (one device→host copy) and never synchronises inside the loop;
 given a host step bound ``n_bound`` (the fused span driver,
 ``ops/tickloop.py``), the carry-free slim passes read nothing at all.
-On the card they serve the Opportunistic and VBP arms; the Cost-Aware
-arm's per-tick pass is the hand-written kernel of ``ops/cuda_kernels.py``.
+On the card the hand-written kernels of ``ops/cuda_kernels.py`` serve
+the arms (``carry_free_place`` these three, ``greedy_place``
+Cost-Aware) wherever ``sched/cuda.py``'s rules hold; these forms are
+their plain versions, and serve float64, meshes, the batcher's rows and
+the chunked modes.
 """
 
 from __future__ import annotations

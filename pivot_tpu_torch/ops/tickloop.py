@@ -37,7 +37,11 @@ copy and its fetch:
 
   * Opportunistic, First-Fit and Best-Fit in ``phase2="auto"``/
     ``"slim"`` run the slim pass with that bound (``"scan"`` walks the
-    whole bucket and reads nothing either);
+    whole bucket and reads nothing either); with ``carry_free`` given
+    (the hand kernel's wrapper for the arm, ``ops/cuda_kernels.py::
+    opportunistic_cuda`` / ``first_fit_cuda`` / ``best_fit_cuda``, or
+    anything with its contract) each tick is one call of it with
+    ``n_bound = n_bound[k]``;
   * Cost-Aware with ``greedy`` given (the hand kernel,
     ``ops/cuda_kernels.py::cost_aware_cuda``, or anything with its
     contract) launches it once per tick with ``n_eff = n_bound[k]``.
@@ -90,6 +94,8 @@ __all__ = [
 
 #: Span-length buckets: the K axis of a span is padded to one of these.
 _K_BUCKETS = (1, 2, 4, 8, 16, 32)
+#: The span policies a ``carry_free`` callable serves.
+_CARRY_FREE_POLICIES = ("opportunistic", "first-fit", "best-fit")
 
 
 def span_bucket(k: int) -> int:
@@ -328,6 +334,7 @@ def fused_tick_run(
     cost_seg=None,
     score_exp=None,
     greedy=None,
+    carry_free=None,
     strict: bool = False,
     decreasing: bool = False,
     bin_pack: str = "first-fit",
@@ -368,6 +375,12 @@ def fused_tick_run(
                        ``cost_aware_cuda`` that serves each tick (the
                        live mask is folded into the carry, so it gets
                        ``live=None``); None runs ``cost_aware_impl``
+      carry_free       opportunistic / first-fit / best-fit only: a
+                       callable with the contract of the arm's
+                       ``ops/cuda_kernels.py`` wrapper (``opportunistic_
+                       cuda``, ``first_fit_cuda``, ``best_fit_cuda``)
+                       that serves each tick (``live`` folded into the
+                       carry); None runs the arm's ``*_impl``
 
     Static config mirrors the per-tick kernels.  Returns a
     :class:`SpanResult`; bit-identical to :func:`reference_tick_run` on
@@ -394,6 +407,12 @@ def fused_tick_run(
 
     def place(k, avail, cum, order, dem_p, valid_p):
         risk_k = None if risk_rows is None else risk_rows[k]
+        if carry_free is not None and policy in _CARRY_FREE_POLICIES:
+            kw = ({"strict": strict} if policy == "first-fit" else {})
+            if policy == "opportunistic":
+                kw["uniforms"] = uniforms[k]
+            return carry_free(avail, dem_p, valid_p, **kw, risk=risk_k,
+                              n_bound=n_bound[k])
         if policy == "opportunistic":
             return opportunistic_impl(avail, dem_p, valid_p, uniforms[k],
                                       phase2=phase2, risk=risk_k,
@@ -695,6 +714,7 @@ def resident_span_run(
     cost_seg=None,
     score_exp=None,
     greedy=None,
+    carry_free=None,
     strict: bool = False,
     decreasing: bool = False,
     bin_pack: str = "first-fit",
@@ -716,8 +736,9 @@ def resident_span_run(
       risk_seg     [K] i32 device segment row into ``risk_table`` (or
                    None: no risk this span)
 
-    The slot operands, ``n_bound``, ``cost_seg`` (host ints), ``greedy``
-    and the static configuration are :func:`fused_tick_run`'s;
+    The slot operands, ``n_bound``, ``cost_seg`` (host ints), ``greedy``,
+    ``carry_free`` and the static configuration are
+    :func:`fused_tick_run`'s;
     ``base_task_counts`` and ``live`` come from the carry.  The span's
     own placements fold into the carry's counts (a ``scatter_add_``
     histogram), so a steady state needs no edit rows.  Returns
@@ -740,9 +761,9 @@ def resident_span_run(
         bw_zz=bw_zz, host_zone=host_zone, base_task_counts=counts,
         totals=totals, live=live, risk_rows=risk_rows,
         cost_stack=cost_stack, cost_seg=cost_seg, score_exp=score_exp,
-        greedy=greedy, strict=strict, decreasing=decreasing,
-        bin_pack=bin_pack, sort_tasks=sort_tasks, sort_hosts=sort_hosts,
-        host_decay=host_decay, phase2=phase2,
+        greedy=greedy, carry_free=carry_free, strict=strict,
+        decreasing=decreasing, bin_pack=bin_pack, sort_tasks=sort_tasks,
+        sort_hosts=sort_hosts, host_decay=host_decay, phase2=phase2,
     )
     placed = res.placements >= 0
     tgt = torch.where(placed, res.placements, H).reshape(-1).long()

@@ -11,9 +11,16 @@ device→host copy.  The ``[Z, Z]`` topology is staged once at bind time
 The Cost-Aware arm's per-tick pass is the hand-written CUDA kernel
 (``ops/cuda_kernels.py``) when the policy runs on ``cuda`` in float32
 with the static bandwidth table and the reference score exponents — the
-reference's Pallas auto rule (``sched/tpu.py:2100-2123``).  Every other
-configuration, and the Opportunistic / First-Fit / Best-Fit arms, run
-the two-phase torch forms of ``ops/kernels.py``.
+reference's Pallas auto rule (``sched/tpu.py:2100-2123``).  The
+Opportunistic / First-Fit / Best-Fit arms' pass is the second hand
+kernel, ``carry_free_place`` (``opportunistic_cuda`` / ``first_fit_cuda``
+/ ``best_fit_cuda``, and the R-replica forms for ``placement_
+sensitivity``), under the static rule :meth:`_DevicePolicyBase.
+_carry_free_serves`: ``cuda``, float32, no mesh, no batch client, and
+``phase2`` of ``"auto"`` or ``"slim"`` — the reference's device program
+for those arms is its slim XLA loop.  Every other configuration runs the
+two-phase torch forms of ``ops/kernels.py``.  A kernel that fails to
+build or launch raises: no torch form stands in for it.
 
 Cross-backend parity: the policies consume the same Philox uniforms and
 the same task pre-ordering as the numpy policies, so on the CPU in
@@ -37,8 +44,9 @@ Fused spans (``place_span``, ``pivot_tpu/sched/tpu.py:980-1087``): when
 the scheduler extracts a pure tick run, a span-capable policy serves the
 whole window with ``ops.tickloop.fused_tick_run`` — one staging copy of
 the span operands, the ticks on the device, one fetch of the ``[K, B]``
-placements.  The Cost-Aware arm's span ticks launch the hand kernel
-under the same auto rule as its per-tick ticks, counted apart
+placements.  Each arm's span ticks launch its hand kernel under the
+same rule as its per-tick ticks (``greedy=`` for Cost-Aware,
+``carry_free=`` for the other three), counted apart
 (``span_kernel_ticks``).  Declined spans fall back to the per-tick path,
 bit-identically.
 
@@ -53,7 +61,8 @@ the ``[P, Z, Z]`` cost stack (staged once per market) with the span's
 Replica-batched sensitivity (``placement_sensitivity``, every arm but
 Opportunistic): one shared task stream × R perturbed availability
 snapshots, the Cost-Aware arm on one launch of the batched kernel, the
-First-Fit / Best-Fit arms on the batched torch passes of
+First-Fit / Best-Fit arms on one launch of ``carry_free_place``'s
+R-replica form where the rule holds, else the batched torch passes of
 ``ops/kernels.py``.
 
 Cross-run batching (``enable_batching``, ``pivot_tpu/sched/tpu.py:534``):
@@ -145,9 +154,15 @@ import torch
 
 from pivot_tpu_torch.infra.faults import DeviceLostError
 from pivot_tpu_torch.ops.cuda_kernels import (
+    best_fit_cuda,
+    best_fit_cuda_batched,
     cost_aware_cuda,
     cost_aware_cuda_batched,
+    first_fit_cuda,
+    first_fit_cuda_batched,
+    load_carry_free_library,
     load_library,
+    opportunistic_cuda,
 )
 from pivot_tpu_torch.ops.kernels import (
     DeviceTopology,
@@ -482,8 +497,8 @@ class _DevicePolicyBase(Policy):
         # a first call must not poison the per-cell EMA.
         self._warm_buckets: set = set()
         #: Ticks served by the device path / by the numpy twin / by the
-        #: hand-written kernel, and span ticks launched on the hand kernel
-        #: — what :meth:`dispatch_stats` reports.
+        #: arm's hand-written kernel, and span ticks launched on it — what
+        #: :meth:`dispatch_stats` reports.
         self.device_ticks = 0
         self.twin_ticks = 0
         self.kernel_ticks = 0
@@ -997,10 +1012,41 @@ class _DevicePolicyBase(Policy):
     def prepare(self) -> None:
         """Initialise CUDA on this policy's device now, on the calling
         thread (the serving driver calls it before any session thread
-        dispatches).  A no-op on the CPU."""
+        dispatches), and build and load ``carry_free_place`` when it
+        serves this policy.  A no-op on the CPU."""
         if self.device.type == "cuda":
             torch.cuda.init()
             torch.zeros(1, device=self.device)
+            if self._carry_free_serves():
+                load_carry_free_library()
+
+    #: The arm of ``carry_free_place`` this policy's pass is, or None
+    #: (Cost-Aware: ``greedy_place``).
+    _carry_free_arm: Optional[str] = None
+
+    def _carry_free_serves(self) -> bool:
+        """The static rule for ``carry_free_place`` (modelled on
+        :meth:`CudaCostAwarePolicy._kernel_serves`): a carry-free arm on
+        ``cuda`` in float32 (the kernel is float32 only), with no mesh
+        (no sharded form yet), no batch client (a coalesced flush runs its
+        G rows through the torch forms) and ``phase2`` of ``"auto"`` or
+        ``"slim"`` (the kernel is the slim pass; a chunk size or
+        ``"scan"`` asks for another algorithm)."""
+        return (self._carry_free_arm is not None
+                and self.device.type == "cuda"
+                and self.dtype == torch.float32
+                and self._mesh is None and self._batch_client is None
+                and isinstance(self.phase2, str)
+                and self.phase2 in ("auto", "slim"))
+
+    def _carry_free(self, *args, **kw):
+        """One launch of the arm's ``carry_free_place`` wrapper."""
+        raise NotImplementedError
+
+    def _span_carry_free(self, *args, **kw):
+        """A span tick served by ``carry_free_place``."""
+        self.span_kernel_ticks += 1
+        return self._carry_free(*args, **kw)
 
     # -- host sharding (``pivot_tpu/sched/tpu.py:594-647``) -----------------
     def enable_sharding(self, mesh) -> None:
@@ -1478,6 +1524,7 @@ class CudaOpportunisticPolicy(_DevicePolicyBase):
     ``pivot_tpu/sched/tpu.py:1562``)."""
 
     name = "opportunistic_cuda"
+    _carry_free_arm = "opportunistic"
 
     def __init__(self, adaptive: bool = False, phase2="auto",
                  risk_weight: float = 0.0, rework_cost: float = 1.0,
@@ -1496,7 +1543,13 @@ class CudaOpportunisticPolicy(_DevicePolicyBase):
         u = np.zeros((K, B), dtype=self.np_dtype)
         for k in range(plan.n_ticks):
             u[k] = tick_uniforms(seed, ctx.tick_seq + k, B)
-        return dict(policy="opportunistic", uniforms=u, phase2=self.phase2)
+        kw = dict(policy="opportunistic", uniforms=u, phase2=self.phase2)
+        if self._carry_free_serves():
+            kw["carry_free"] = self._span_carry_free
+        return kw
+
+    def _carry_free(self, *args, **kw):
+        return opportunistic_cuda(*args, **kw)
 
     def _device_place(self, ctx: TickContext) -> np.ndarray:
         T = ctx.n_tasks
@@ -1505,11 +1558,17 @@ class CudaOpportunisticPolicy(_DevicePolicyBase):
         u[:T] = tick_uniforms(ctx.scheduler.seed or 0, ctx.tick_seq, T)
         st = self._stage(avail=avail, dem=dem, valid=valid, u=u,
                          live=self._live_np(ctx), risk=self._risk_np(ctx))
-        placements, _ = self._kernel_for(
-            opportunistic_impl, opportunistic_kernel_sharded)(
-            st["avail"], st["dem"], st["valid"], st["u"],
-            phase2=self.phase2, live=st["live"], risk=st["risk"],
-        )
+        if self._carry_free_serves():
+            placements, _ = self._call_kernel(
+                opportunistic_cuda, st["avail"], st["dem"], st["valid"],
+                st["u"], live=st["live"], risk=st["risk"], n_bound=T)
+            self.kernel_ticks += 1
+        else:
+            placements, _ = self._kernel_for(
+                opportunistic_impl, opportunistic_kernel_sharded)(
+                st["avail"], st["dem"], st["valid"], st["u"],
+                phase2=self.phase2, live=st["live"], risk=st["risk"],
+            )
         return self._unpad(placements, T)
 
 
@@ -1519,6 +1578,7 @@ class CudaFirstFitPolicy(_DevicePolicyBase):
     ``pivot_tpu/sched/tpu.py:1604``)."""
 
     name = "first_fit_cuda"
+    _carry_free_arm = "first-fit"
 
     def __init__(self, decreasing: bool = False, adaptive: bool = False,
                  phase2="auto", risk_weight: float = 0.0,
@@ -1531,12 +1591,18 @@ class CudaFirstFitPolicy(_DevicePolicyBase):
                                         weights=self.weights)
 
     def _span_kw(self, ctx, plan, dem_host, B, K):
-        return dict(
+        kw = dict(
             policy="first-fit", strict=False, decreasing=self.decreasing,
             sort_norm=(self._span_norms(dem_host, B) if self.decreasing
                        else None),
             totals=self._staged_topology().totals, phase2=self.phase2,
         )
+        if self._carry_free_serves():
+            kw["carry_free"] = self._span_carry_free
+        return kw
+
+    def _carry_free(self, *args, **kw):
+        return first_fit_cuda(*args, **kw)
 
     def _order(self, ctx: TickContext):
         if not self.decreasing:
@@ -1550,24 +1616,35 @@ class CudaFirstFitPolicy(_DevicePolicyBase):
         avail, dem, valid = self._padded(ctx, order)
         st = self._stage(avail=avail, dem=dem, valid=valid,
                          live=self._live_np(ctx), risk=self._risk_np(ctx))
-        placements, _ = self._kernel_for(
-            first_fit_impl, first_fit_kernel_sharded)(
-            st["avail"], st["dem"], st["valid"],
-            strict=False, totals=self._staged_topology().totals,
-            phase2=self.phase2, live=st["live"], risk=st["risk"],
-        )
+        if self._carry_free_serves():
+            placements, _ = self._call_kernel(
+                first_fit_cuda, st["avail"], st["dem"], st["valid"],
+                strict=False, live=st["live"], risk=st["risk"],
+                n_bound=ctx.n_tasks)
+            self.kernel_ticks += 1
+        else:
+            placements, _ = self._kernel_for(
+                first_fit_impl, first_fit_kernel_sharded)(
+                st["avail"], st["dem"], st["valid"],
+                strict=False, totals=self._staged_topology().totals,
+                phase2=self.phase2, live=st["live"], risk=st["risk"],
+            )
         return self._unpad(placements, ctx.n_tasks, order)
 
     def placement_sensitivity(self, ctx: TickContext, n_replicas: int = 256,
                               perturb: float = 0.05, seed: int = 0):
         """Monte-Carlo robustness of this tick's first-fit decision
         (``pivot_tpu/sched/tpu.py:1644``), the contract of
-        :meth:`CudaCostAwarePolicy.placement_sensitivity`, scored with
-        :func:`first_fit_batched` — one pass over the ``[R, H]``
-        replicas, the live mask not applied, as in the reference."""
+        :meth:`CudaCostAwarePolicy.placement_sensitivity`, scored with one
+        launch of :func:`first_fit_cuda_batched` where the carry-free rule
+        holds, else :func:`first_fit_batched` — one pass over the
+        ``[R, H]`` replicas, the live mask not applied, as in the
+        reference."""
+        batched = (first_fit_cuda_batched if self._carry_free_serves()
+                   else first_fit_batched)
         return self._mc_sensitivity(
             ctx, self._order(ctx),
-            lambda st, T: first_fit_batched(
+            lambda st, T: batched(
                 st["avail_r"], st["dem"], st["valid"], strict=False,
                 risk=st["risk"], n_bound=T)[0],
             n_replicas, perturb, seed, risk=self._risk_np(ctx),
@@ -1579,6 +1656,7 @@ class CudaBestFitPolicy(_DevicePolicyBase):
     ``pivot_tpu/sched/tpu.py:1670``)."""
 
     name = "best_fit_cuda"
+    _carry_free_arm = "best-fit"
 
     def __init__(self, decreasing: bool = False, adaptive: bool = False,
                  phase2="auto", risk_weight: float = 0.0,
@@ -1591,12 +1669,18 @@ class CudaBestFitPolicy(_DevicePolicyBase):
                                        weights=self.weights)
 
     def _span_kw(self, ctx, plan, dem_host, B, K):
-        return dict(
+        kw = dict(
             policy="best-fit", decreasing=self.decreasing,
             sort_norm=(self._span_norms(dem_host, B) if self.decreasing
                        else None),
             totals=self._staged_topology().totals, phase2=self.phase2,
         )
+        if self._carry_free_serves():
+            kw["carry_free"] = self._span_carry_free
+        return kw
+
+    def _carry_free(self, *args, **kw):
+        return best_fit_cuda(*args, **kw)
 
     _order = CudaFirstFitPolicy._order
 
@@ -1605,22 +1689,31 @@ class CudaBestFitPolicy(_DevicePolicyBase):
         avail, dem, valid = self._padded(ctx, order)
         st = self._stage(avail=avail, dem=dem, valid=valid,
                          live=self._live_np(ctx), risk=self._risk_np(ctx))
-        placements, _ = self._kernel_for(
-            best_fit_impl, best_fit_kernel_sharded)(
-            st["avail"], st["dem"], st["valid"],
-            totals=self._staged_topology().totals, phase2=self.phase2,
-            live=st["live"], risk=st["risk"],
-        )
+        if self._carry_free_serves():
+            placements, _ = self._call_kernel(
+                best_fit_cuda, st["avail"], st["dem"], st["valid"],
+                live=st["live"], risk=st["risk"], n_bound=ctx.n_tasks)
+            self.kernel_ticks += 1
+        else:
+            placements, _ = self._kernel_for(
+                best_fit_impl, best_fit_kernel_sharded)(
+                st["avail"], st["dem"], st["valid"],
+                totals=self._staged_topology().totals, phase2=self.phase2,
+                live=st["live"], risk=st["risk"],
+            )
         return self._unpad(placements, ctx.n_tasks, order)
 
     def placement_sensitivity(self, ctx: TickContext, n_replicas: int = 256,
                               perturb: float = 0.05, seed: int = 0):
         """Monte-Carlo robustness of this tick's best-fit decision
         (``pivot_tpu/sched/tpu.py:1710``), scored with
+        :func:`best_fit_cuda_batched` where the carry-free rule holds, else
         :func:`best_fit_batched`."""
+        batched = (best_fit_cuda_batched if self._carry_free_serves()
+                   else best_fit_batched)
         return self._mc_sensitivity(
             ctx, self._order(ctx),
-            lambda st, T: best_fit_batched(
+            lambda st, T: batched(
                 st["avail_r"], st["dem"], st["valid"], risk=st["risk"],
                 n_bound=T)[0],
             n_replicas, perturb, seed, risk=self._risk_np(ctx),

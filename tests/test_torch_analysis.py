@@ -368,7 +368,7 @@ def test_parity_port_forms(tmp_path):
         def cost_aware_plain(avail, bin_pack="first-fit", sort_hosts=True,
                              host_decay=False, live=None, risk=None):
             pass
-        def best_fit_cuda(avail):
+        def best_fit_cuda_rows(avail):
             pass
         """)
     got = [(f.line, _norm(f.message).split(" — ")[0])
@@ -377,7 +377,7 @@ def test_parity_port_forms(tmp_path):
     assert (2, "cost_aware_cuda() is missing family 'cost_aware' knob(s) "
                "['risk']") in got
     assert any(line == 8 and m.startswith("unregistered backend form "
-                                          "best_fit_cuda()")
+                                          "best_fit_cuda_rows()")
                for line, m in got)
 
 
@@ -423,8 +423,8 @@ def test_entry_map_flags_a_graph_outside_its_files(tmp_path):
 
 def _budget_tree(tmp_path):
     root = str(tmp_path)
-    for rel in (kernel_budget._CU_FILE, kernel_budget._WRAPPER_FILE,
-                kernel_budget._ROOFLINE_FILE):
+    for rel in (kernel_budget._CU_FILE, kernel_budget._CF_CU_FILE,
+                kernel_budget._WRAPPER_FILE, kernel_budget._ROOFLINE_FILE):
         os.makedirs(os.path.dirname(os.path.join(root, rel)), exist_ok=True)
         shutil.copy(os.path.join(ROOT, rel), os.path.join(root, rel))
     return root

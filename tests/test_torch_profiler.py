@@ -486,3 +486,30 @@ def test_profile_dir_ignored_under_batch_runs(tmp_path):
     assert any("--profile-dir is ignored under --batch-runs" in line
                for line in keep.lines)
     assert not (tmp_path / "p").exists()
+
+
+@pytest.mark.parametrize("tail,recorded,want", [
+    (None, range(10, 20), dict(launches=0, recorded=False, skew_us=None,
+                               margin_us=None)),
+    ((18.5, 19.5), range(10, 20), dict(launches=1, recorded=True,
+                                       skew_us=2.0, margin_us=78.0)),
+    ((17.5, 19.5), range(10, 19), dict(launches=2, recorded=False,
+                                       skew_us=None, margin_us=None)),
+])
+def test_trace_tail_reads_the_sentinel(tmp_path, tail, recorded, want):
+    """``trace_tail`` takes the launches of ``device_profile``'s tail
+    range: recorded only when each has its kernel record, the largest
+    launch-to-kernel time, and the window's end less their records'."""
+    from pivot_tpu_torch.obs.tracer import TAIL_RANGE, trace_tail
+
+    path = tmp_path / "trace.json"
+    _chrome_trace(path, range(10, 20), recorded)
+    if tail is not None:
+        with open(path) as f:
+            doc = json.load(f)
+        doc["traceEvents"].append({
+            "ph": "X", "cat": "user_annotation", "name": TAIL_RANGE,
+            "ts": tail[0], "dur": tail[1] - tail[0], "args": {}})
+        with open(path, "w") as f:
+            json.dump(doc, f)
+    assert trace_tail(str(path)) == want

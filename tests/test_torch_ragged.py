@@ -129,14 +129,14 @@ def test_ragged_tables_equal_reference():
 
 def test_ragged_axis_tables_cover_span_operands():
     """Every array operand of the port's ``fused_tick_run`` is classified
-    (K/B-padded or invariant); ``greedy`` (a callable) and ``n_bound``
-    (host step bounds, made from the host ``arrive`` by the batcher) are
-    not array operands."""
+    (K/B-padded or invariant); ``greedy`` and ``carry_free`` (callables)
+    and ``n_bound`` (host step bounds, made from the host ``arrive`` by
+    the batcher) are not array operands."""
     sig = inspect.signature(tt.fused_tick_run)
     knobs = {n for n, p in sig.parameters.items()
              if p.kind is p.KEYWORD_ONLY and p.default is None}
     covered = set(tt.RAGGED_AXES) | set(tt.RAGGED_INVARIANT)
-    assert knobs - {"greedy", "n_bound"} == covered
+    assert knobs - {"greedy", "carry_free", "n_bound"} == covered
     assert tt.SPAN_HOST_OPERANDS <= covered
 
 
