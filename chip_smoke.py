@@ -22,6 +22,8 @@
                                        # the serving soak, the shadow probe
     python3 chip_smoke.py --phases 19  # the carry-free kernel against its
                                        # plain form, timed
+    python3 chip_smoke.py --phases 3,19 --cf-sweep
+                                       # + its launch-shape sweep
 
 One card.  ``--phases`` takes a comma list; phases 2-5, 10-17 and 19
 bring phase 1's build along, phase 5 the runs of phases 3 and 4, phase 13
@@ -405,21 +407,30 @@ Phases, each fatal on failure:
      form at H = 600 for T in {1, 12, 379, 619, 2048}, with and without a
      risk row and a ``live`` mask, and the no-fit and interspersed-invalid
      cases; at T = 12 and 619 the NaN / ±inf / ±0 risk, exact-tie and
-     zero-demand cases; at H = 4,200 with 32 threads a CTA, so that a
-     thread owns more hosts than its fit bits cover; the R = 256
-     First-Fit and Best-Fit forms at T = 619; each arm at phase 15's pod
-     tick (H = 98,304, T = 256, the state in global memory) without risk,
-     with risk, and with risk and a ``live`` mask.  Placements equal,
-     availability within rtol 1e-6 / atol 1e-5 (max |diff| printed, 0.0
-     expected: the same operations in the same order); then
-     ``kernel_ms`` (CUDA events around the bare launch), the wrapper's
-     ms, the plain form's ms (host clock around a synchronised call), ns
-     per step and the bound (the operations this run's data needs, read
-     from the plain form's placements) at T = 619 / 2048, the R = 256
-     forms, the pod tick and, with phase 3, the largest Opportunistic and
-     VBP ticks of its run.  ``--cf-sweep`` adds the sweeps of threads a
-     CTA at T = 619, H = 600, R = 1 and R = 256 that set
-     ``_CF_HOSTS_PER_THREAD`` (each swept launch held against plain).
+     zero-demand cases; at H = 4,200 in one warp of the single-CTA
+     cluster form, so that a thread owns more rows than its member bits
+     cover; the R = 256 First-Fit and Best-Fit forms at T = 619; each arm
+     at phase 15's pod tick (H = 98,304, T = 256, a cluster of 16 CTAs)
+     without risk, with risk, and with risk and a ``live`` mask; then the
+     launch shapes: every register build at its capacity with its most
+     warps, the default shapes on each side of the arms' K switches and
+     of the register form's end (H = 1,536-4,097), the cluster sizes the
+     rule does not pick (C = 1, 2, 4 at H = 4,097) and C = 16 where it
+     first does (8,193), ties across two CTAs' ranges and an
+     opportunistic rank in the last CTA (``cta_edge`` at H = 8,192 and
+     the pod tick), and the global-rows form once (one host past the
+     cluster form's capacity, T = 12).  Placements equal, availability
+     within rtol 1e-6 / atol 1e-5 (max |diff| printed, 0.0 expected: the
+     same operations in the same order); then ``kernel_ms`` (CUDA events
+     around the bare launch), the wrapper's ms, the plain form's ms (host
+     clock around a synchronised call), ns per step and the bound (the
+     operations this run's data needs, read from the plain form's
+     placements) at T = 619 / 2048, the R = 256 forms, the pod tick and,
+     with phase 3, the largest Opportunistic and VBP ticks of its run.
+     ``--cf-sweep`` adds the sweeps of launch shapes that set
+     ``_cf_config`` (register K at H = 600; K by groups a block at R =
+     256; warps a CTA at the pod tick for C = 8 and 16; C by W at H =
+     4,097 and 20,000), each swept launch held against plain.
 
 The CPU sides of the card-vs-CPU checks of phases 6 (b) and (d), 7 (c),
 8 (c) and 9 (c) run in one spawned worker process a phase
@@ -548,19 +559,29 @@ def cf_ptxas_start(build, tmp):
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
+#: The forms of ``carry_free_place`` as ``ptxas`` names them
+#: (``kForm``: K hosts a thread in registers, 0 the cluster form, −1
+#: the global-rows form).
+CF_FORM_NAMES = {"0": "shared", "n1": "global"}
+
+
 def cf_ptxas_lines(proc):
-    """One row per build of ``carry_free_place`` (arm, risk row, where the
-    state lives): registers, shared memory, stack and spills."""
+    """One row per build of ``carry_free_place`` (arm, risk row, form:
+    ``K=k`` registers, ``shared`` or ``global`` rows): registers, shared
+    memory, stack and spills, and the form number (for the register
+    check)."""
     out, _ = proc.communicate(timeout=600)
     if proc.returncode != 0:
         raise AssertionError(f"nvcc -Xptxas -v failed:\n{out}")
     rows, cur = [], None
     for raw in out.splitlines():
-        m = re.search(r"carry_free_kernelILi(\d)ELb([01])ELb([01])E", raw)
+        m = re.search(r"carry_free_kernelILi(\d)ELb([01])ELi(n?\d+)E", raw)
         if "Compiling entry function" in raw and m:
+            form = m.group(3)
             cur = dict(build=f"{CF_ARMS[int(m.group(1))]}"
-                             f"{'+risk' if m.group(2) == '1' else ''}"
-                             f"/{'smem' if m.group(3) == '1' else 'global'}")
+                             f"{'+risk' if m.group(2) == '1' else ''}/"
+                             + CF_FORM_NAMES.get(form, f"K={form}"),
+                       form=-int(form[1:]) if form[0] == "n" else int(form))
         elif cur is not None and "spill stores" in raw:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", raw)]
             cur.update(stack=nums[0], spill_stores=nums[1],
@@ -570,25 +591,36 @@ def cf_ptxas_lines(proc):
                                              raw).group(1))
             rows.append(cur)
             cur = None
-    if len(rows) != 12:
-        raise AssertionError(f"{len(rows)} carry_free_place builds in:\n{out}")
+    from pivot_tpu_torch.ops.cuda_kernels import _CF_REG_THREADS
+
+    want = 6 * (len(_CF_REG_THREADS) + 2)  # 3 arms, risk or not, forms
+    if len(rows) != want:
+        raise AssertionError(f"{len(rows)} carry_free_place builds, not "
+                             f"{want}, in:\n{out}")
     return sorted(rows, key=lambda r: r["build"])
 
 
 def check_cf_tables(build, ck) -> None:
-    """``carry_free_place``'s shared memory and thread limit in the library
-    equal the wrapper's copies (``_cf_smem_bytes``, ``_CF_MAX_THREADS``)."""
+    """``carry_free_place``'s shared memory and thread limits in the
+    library equal the wrapper's copies (``_cf_smem_bytes``,
+    ``_CF_REG_THREADS``, ``_CF_MAX_THREADS``)."""
     lib = build.load("carry_free_place")
     lib.carry_free_place_smem_bytes.restype = ctypes.c_size_t
-    if lib.carry_free_place_max_threads() != ck._CF_MAX_THREADS:
-        raise AssertionError("carry_free_place's thread limit differs from "
-                             "the wrapper's")
-    for H in (1, 600, 14096, 14097, 98304):
-        for s_ in (0, 1):
-            if lib.carry_free_place_smem_bytes(H, s_) != \
-                    ck._cf_smem_bytes(H, bool(s_)):
-                raise AssertionError(f"carry_free_place smem bytes differ at "
-                                     f"H={H}, smem_state={s_}")
+    forms = (*ck._CF_REG_THREADS, ck._CF_ROWS_SHARED, ck._CF_ROWS_GLOBAL)
+    for form in forms:
+        want = ck._CF_REG_THREADS.get(form, ck._CF_MAX_THREADS)
+        if lib.carry_free_place_max_threads(form) != want:
+            raise AssertionError(f"carry_free_place's thread limit of form "
+                                 f"{form} differs from the wrapper's")
+    for H in (1, 600, 4097, 98304, 211968):
+        for form in forms:
+            for W, G, C in ((1, 1, 1), (5, 2, 1), (32, 1, 1), (16, 1, 16),
+                            (32, 1, 8)):
+                if lib.carry_free_place_smem_bytes(H, form, W, G, C) != \
+                        ck._cf_smem_bytes(H, form, W, G, C):
+                    raise AssertionError(
+                        f"carry_free_place smem bytes differ at H={H}, "
+                        f"form={form}, W={W}, G={G}, C={C}")
     log("  carry_free_place launch-shape tables: wrapper = library")
 
 
@@ -6040,21 +6072,26 @@ def p14_budget(configs, ptxas_rows) -> dict:
                           "max_threads_per_block", H100_MAX_THREADS_PER_BLOCK)
     cf_rows = []
     for H, arm in ((P19_H, "first-fit"), (P19_H, "best-fit"),
-                   (14096, "best-fit"), (14097, "opportunistic"),
-                   (P19_POD[0], "best-fit")):
+                   (4096, "best-fit"), (4097, "opportunistic"),
+                   (P19_POD[0], "best-fit"),
+                   (ck._CF_CLUSTER_MAX_HOSTS, "first-fit"),
+                   (ck._CF_CLUSTER_MAX_HOSTS + 1, "best-fit")):
         cfg = ck._cf_config(H, arm)
-        static = cf_model.smem_bytes(H, cfg.smem_state)
+        static = cf_model.smem_bytes(H, cfg.form, cfg.warps, cfg.groups,
+                                     cfg.cluster)
         if (static != cfg.smem_bytes or static > optin
-                or cfg.threads > max_threads):
+                or cfg.threads > min(max_threads,
+                                     cf_model.form_threads(cfg.form))):
             raise AssertionError(
                 f"(b) carry_free_place at H={H}: {cfg}, the pass counts "
                 f"{static} B, the card's opt-in {optin} B, "
                 f"{max_threads} threads a block")
         cf_rows.append(dict(H=H, arm=arm, threads=cfg.threads,
-                            smem_state=cfg.smem_state, smem_bytes=static))
+                            cluster=cfg.cluster, state=cfg.state,
+                            smem_bytes=static))
     log("  (b) carry_free_place shapes: " + ", ".join(
-        f"{r['arm']} H={r['H']} {r['threads']} threads, {r['smem_bytes']} B "
-        f"({'shared' if r['smem_state'] else 'global'} state)"
+        f"{r['arm']} H={r['H']} {r['threads']} threads x {r['cluster']} "
+        f"CTAs, {r['smem_bytes']} B ({r['state']} state)"
         for r in cf_rows) + f" <= the card's {optin} B opt-in and "
         f"{max_threads} threads a block")
     return dict(shapes=rows, optin=optin, registers=regs,
@@ -7906,17 +7943,36 @@ P19_POD = (98304, 256)
 #: task counts: NaN, ±inf and ±0.0 risk, exact ties, zero demand.
 P19_EDGE_TS = (12, 619)
 P19_EDGE_CASES = ("nan_risk", "ties", "zero")
-#: Hosts and threads a CTA where a thread owns more hosts (132) than its
-#: fit bits cover (``kMaskHosts`` = 128), so the opportunistic rank walks
-#: its rows (``nth_set_bit``'s fallback).
-P19_WIDE = (4200, 32)
-#: Threads a CTA the ``--cf-sweep`` sweeps at T = 619, H = 600 time (160:
-#: four hosts a thread; 608: one; 32: one warp, no block barrier), at
-#: R = 1 and, for the R-replica arms, R = 256.  They set
-#: ``ops/cuda_kernels.py::_CF_HOSTS_PER_THREAD`` (PERF.md §6) and
-#: run only when asked.
-P19_SWEEP = (32, 64, 96, 128, 160, 224, 320, 608)
-P19_SWEEP_R = (96, 160, 320, 608)
+#: Hosts and warps a CTA (the single-CTA cluster form, C = 1) where a
+#: thread owns more rows (132) than its member bits cover (``kMaskHosts``
+#: = 32), so the opportunistic rank walks its rows.
+P19_WIDE = (4200, 1)
+#: The register builds, each at its capacity with its most warps, and
+#: the default shapes on each side of the arms' K switches and of the
+#: register form's end, at a short stream.
+P19_K_T = 64
+P19_K_HS = (1536, 1537, 2048, 2049, 4096, 4097)
+#: The cluster sizes the default rule does not pick (forced at H =
+#: 4,097) and the host count where it first picks C = 16.
+P19_C_FORCED = (1, 2, 4)
+P19_C16_H = 8193
+#: ``cta_edge`` inputs: H = 8,192 (C = 8, 1,024 hosts a CTA) and the pod
+#: tick (C = 16, 6,144 a CTA), at the pod's T.
+P19_EDGE_HS = (8192, P19_POD[0])
+#: The global-rows form, once: one host past the cluster form's capacity.
+P19_TAIL_T = 12
+#: Launch shapes the ``--cf-sweep`` sweeps time (each held against the
+#: plain form): every register build at T = 619, H = 600 for R = 1, and
+#: K by groups a block for the R-replica arms at R = 256; the cluster
+#: form's warps a CTA at the pod tick (C = 8 and 16) and C by W at H =
+#: 4,097 and 20,000, T = 256.  They set ``ops/cuda_kernels.py``'s
+#: ``_CF_REG_K``, ``_CF_REG_K_REPLICAS``, ``_CF_GROUPS_REPLICAS``,
+#: ``_CF_CTA_HOSTS`` and ``_CF_ROWS_WARPS`` (PERF.md §6) and run only
+#: when asked.
+P19_SWEEP_G = (1, 2, 4)
+P19_SWEEP_POD = ((8, 8), (8, 16), (16, 8), (16, 12), (16, 16))
+P19_SWEEP_MID = ((4097, (4, 8, 16), (4, 8, 16)),
+                 (20000, (4, 8, 16), (4, 8, 16)))
 #: Timed launches a measurement (CUDA events); the plain form's pace is
 #: its host loop, so it takes fewer.
 P19_REPS = 20
@@ -7924,14 +7980,18 @@ P19_PLAIN_REPS = 2
 
 
 def p19_inputs(seed, T, H, device, R=None, risk=False, live=False,
-               case="dense"):
+               case="dense", cta=None):
     """Seeded f32 operands of one carry-free tick, dense (most tasks place
     until the hosts fill); ``case`` "nofit" puts every third task out of
     reach, "invalid" drops ~30 % of the tasks and the last two,
     "nan_risk" draws risk from {0, −0, 0.25, ±inf, NaN}, "ties" gives
     every host and task the same rows (and risk from {0, −0}), "zero"
-    zero demand on hosts half of them empty.  ``R`` gives ``[R, H, 4]``
-    replicas."""
+    zero demand on hosts half of them empty, "cta_edge" (with ``cta``,
+    the hosts a CTA of the cluster form) fills only hosts cta − 1 and cta
+    — the last of one CTA and the first of the next, one row — and the
+    last CTA's hosts, with a flat risk row and uniforms in [0.5, 1), so
+    that argmins tie across two CTAs and the opportunistic rank lands in
+    the last CTA.  ``R`` gives ``[R, H, 4]`` replicas."""
     rng = np.random.default_rng(seed)
     avail = rng.uniform(0, 16, size=(H, 4) if R is None else (R, H, 4))
     dem = np.stack([rng.choice([0.0, 0.5, 1.0, 2.0], size=T),
@@ -7955,8 +8015,17 @@ def p19_inputs(seed, T, H, device, R=None, risk=False, live=False,
     elif case == "zero":
         dem[:] = 0.0
         avail[..., ::2, :] = 0.0
+    u = rng.uniform(size=T)
+    if case == "cta_edge":
+        avail[...] = 0.25
+        avail[..., 1] = 0.0  # a filler host fits no task (lane 1 > 0)
+        avail[..., cta - 1:cta + 1, :] = 16.0
+        avail[..., (H - 1) // cta * cta:, :] = 16.0
+        u = rng.uniform(0.5, 1.0, size=T)
+        if risk:
+            r = np.full(H, 0.25)
     x = dict(avail=avail.astype(np.float32), dem=dem.astype(np.float32),
-             valid=valid, u=rng.uniform(size=T).astype(np.float32),
+             valid=valid, u=u.astype(np.float32),
              risk=None if r is None else r.astype(np.float32),
              live=rng.random(H) > 0.2 if live else None)
     return {k: None if v is None else torch.from_numpy(v).to(device)
@@ -7977,19 +8046,18 @@ def p19_call(ck, arm, x, form="cuda"):
     return getattr(ck, f"{stem}_{form}")(a, d, v, **kw)
 
 
-def cf_bare_launch(ck, arm, x, threads=None):
+def cf_bare_launch(ck, arm, x, cfg=None):
     """The kernel alone: ``_cf_check`` once, outputs allocated once, then a
     function that runs ``_cf_launch`` (the wrappers' one launch site) in
-    the default shape or with ``threads`` threads a CTA."""
+    the default shape or in ``cfg`` (a ``_CfConfig``)."""
     batched = x["avail"].dim() == 3
     a = x["avail"] if batched else x["avail"][None]
     live = None if batched else x["live"]
     u = x["u"] if arm == "opportunistic" else None
     R, T, H, nb = ck._cf_check(arm, a, x["dem"], x["valid"], u, live,
                                x["risk"], None)
-    cfg = ck._cf_config(H, arm, R)
-    if threads is not None:
-        cfg = cfg._replace(threads=threads)
+    if cfg is None:
+        cfg = ck._cf_config(H, arm, R)
     placements = torch.empty((R, T), dtype=torch.int32, device=a.device)
     out = torch.empty_like(a)
 
@@ -7998,6 +8066,19 @@ def cf_bare_launch(ck, arm, x, threads=None):
                       x["risk"], nb, placements, out)
         return placements, out
     return go, cfg
+
+
+def cf_shape(ck, H, form, warps, groups=1, cluster=1):
+    """A ``_CfConfig`` of the given form, W, G and C (its shared memory
+    from the wrapper's sizer)."""
+    return ck._CfConfig(form, warps, groups, cluster,
+                        ck._cf_smem_bytes(H, form, warps, groups, cluster))
+
+
+def cf_shape_name(cfg) -> str:
+    return (f"{cfg.state}"
+            + (f" K={cfg.form}" if cfg.form > 0 else "")
+            + f" W={cfg.warps} G={cfg.groups} C={cfg.cluster}")
 
 
 def cf_fit_counts(x, placements):
@@ -8078,49 +8159,131 @@ def p19_time(ck, arm, x, reps=P19_REPS, plain_reps=P19_PLAIN_REPS) -> dict:
     return dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, n_eff=n_eff,
                 ns_per_step=kernel_ms * 1e6 / max(n_eff, 1),
-                threads=cfg.threads, smem_state=cfg.smem_state)
+                shape=cf_shape_name(cfg))
 
 
 def p19_log(key, t) -> None:
     log(f"  {key}: wrapper {t['ms']!r} ms, kernel_ms {t['kernel_ms']!r}, "
         f"{t['ns_per_step']!r} ns per step ({t['n_eff']} steps, "
-        f"{t['threads']} threads, state in "
-        f"{'shared' if t['smem_state'] else 'global'} memory), plain "
+        f"{t['shape']}), plain "
         f"{t['plain_ms']!r} ms, bound {t['bound_ms']!r} ms "
         f"({t['bound_by']})")
 
 
-def p19_sweep(ck, device, chk) -> dict:
-    """``--cf-sweep``: kernel ms by threads a CTA at T = 619, H = 600 for
-    each arm at R = 1 and the R-replica arms at R = 256, each shape held
-    against the plain form."""
-    x = p19_inputs(200 + P19_R_T, P19_R_T, P19_H, device)
+def p19_sweep_row(ck, arm, x, shapes, key, chk) -> dict:
+    """Kernel ms of ``arm`` on ``x`` in each launch shape, each launch
+    held against the plain form first; logs one line."""
+    want = p19_call(ck, arm, x, "plain")
+    row = {}
+    for cfg in shapes:
+        go, _cfg = cf_bare_launch(ck, arm, x, cfg)
+        p, a = go()
+        if x["avail"].dim() == 2:
+            p, a = p[0], a[0]
+        chk.same((p, a), want, (key, "sweep", cfg))
+        row[cf_shape_name(cfg)] = _events_ms(go, P19_REPS)
+    H = x["avail"].shape[-2]
+    R = x["avail"].shape[0] if x["avail"].dim() == 3 else 1
+    log(f"  sweep {key} (default {cf_shape_name(ck._cf_config(H, arm, R))}"
+        "): " + ", ".join(f"{n} {ms!r} ms" for n, ms in row.items()))
+    return row
+
+
+def p19_sweep(ck, device, chk, pod) -> dict:
+    """``--cf-sweep``: kernel ms by launch shape (``P19_SWEEP_*``)."""
     sweep = {}
+    x = p19_inputs(200 + P19_R_T, P19_R_T, P19_H, device)
     for arm in CF_ARMS:
-        want = p19_call(ck, arm, x, "plain")
-        sweep[arm] = {}
-        for threads in P19_SWEEP:
-            go, _cfg = cf_bare_launch(ck, arm, x, threads)
-            p, a = go()
-            chk.same((p[0], a[0]), want, (arm, "sweep", threads))
-            sweep[arm][threads] = _events_ms(go, P19_REPS)
-        log(f"  sweep {arm} T={P19_R_T} H={P19_H} (default "
-            f"{ck._cf_config(P19_H, arm).threads} threads): " + ", ".join(
-                f"{n} threads {ms!r} ms" for n, ms in sweep[arm].items()))
+        sweep[f"{arm} T={P19_R_T} H={P19_H}"] = p19_sweep_row(
+            ck, arm, x, [cf_shape(ck, P19_H, K, -(-P19_H // (32 * K)))
+                         for K in ck._CF_REG_THREADS],
+            f"{arm} T={P19_R_T} H={P19_H}", chk)
     xr = p19_inputs(300, P19_R_T, P19_H, device, R=SENS_REPLICAS)
     for arm in CF_ARMS[1:]:
-        want = p19_call(ck, arm, xr, "plain")
-        key = f"{arm} R={SENS_REPLICAS}"
-        sweep[key] = {}
-        for threads in P19_SWEEP_R:
-            go, _cfg = cf_bare_launch(ck, arm, xr, threads)
-            chk.same(go(), want, (key, "sweep", threads))
-            sweep[key][threads] = _events_ms(go, P19_REPS)
-        log(f"  sweep {key} T={P19_R_T} H={P19_H} (default "
-            f"{ck._cf_config(P19_H, arm, SENS_REPLICAS).threads} threads): "
-            + ", ".join(f"{n} threads {ms!r} ms"
-                        for n, ms in sweep[key].items()))
+        shapes = []
+        for K, limit in ck._CF_REG_THREADS.items():
+            W = -(-P19_H // (32 * K))
+            shapes += [cf_shape(ck, P19_H, K, W, G) for G in P19_SWEEP_G
+                       if 32 * W * G <= limit]
+        key = f"{arm} R={SENS_REPLICAS} T={P19_R_T} H={P19_H}"
+        sweep[key] = p19_sweep_row(ck, arm, xr, shapes, key, chk)
+    for arm in CF_ARMS:
+        key = f"{arm} T={P19_POD[1]} H={P19_POD[0]}"
+        sweep[key] = p19_sweep_row(
+            ck, arm, pod, [cf_shape(ck, P19_POD[0], ck._CF_ROWS_SHARED, W,
+                                    1, C) for C, W in P19_SWEEP_POD],
+            key, chk)
+    for H, cs_, ws in P19_SWEEP_MID:
+        xm = p19_inputs(H, P19_POD[1], H, device)
+        for arm in CF_ARMS:
+            key = f"{arm} T={P19_POD[1]} H={H}"
+            sweep[key] = p19_sweep_row(
+                ck, arm, xm, [cf_shape(ck, H, ck._CF_ROWS_SHARED, W, 1, C)
+                              for C in cs_ for W in ws], key, chk)
     return sweep
+
+
+def p19_new_cases(ck, device, chk) -> None:
+    """Phase 19's cases of the launch shapes: every register build at its
+    capacity, the default shapes across the K switches and the register
+    form's end, the cluster sizes the rule does not pick, C = 16 where
+    it first does, ties across two CTAs and an opportunistic rank in the
+    last CTA, and the global-rows form once."""
+    def hold(arm, x, cfg, what, floor):
+        go, _cfg = cf_bare_launch(ck, arm, x, cfg)
+        p, a = go()
+        chk.same((p[0], a[0]), p19_call(ck, arm, x, "plain"), what,
+                 min_placed=floor)
+    floor = P19_K_T // 4
+    for K, limit in ck._CF_REG_THREADS.items():
+        H = K * limit
+        for risk in (False, True):
+            x = p19_inputs(500 + K + risk, P19_K_T, H, device, risk=risk,
+                           live=risk)
+            for arm in CF_ARMS:
+                cfg = cf_shape(ck, H, K, limit // 32)
+                hold(arm, x, cfg, (arm, cf_shape_name(cfg), H, risk), floor)
+    for H in P19_K_HS:
+        x = p19_inputs(H, P19_K_T, H, device)
+        for arm in CF_ARMS:
+            chk.same(p19_call(ck, arm, x), p19_call(ck, arm, x, "plain"),
+                     (arm, "default", H), min_placed=floor)
+    x = p19_inputs(41, P19_K_T, P19_K_HS[-1], device, risk=True, live=True)
+    for C in P19_C_FORCED:
+        cfg = ck._cf_rows_config(P19_K_HS[-1], C)
+        for arm in CF_ARMS:
+            hold(arm, x, cfg, (arm, cf_shape_name(cfg)), floor)
+    x = p19_inputs(42, P19_K_T, P19_C16_H, device, risk=True, live=True)
+    for arm in CF_ARMS:
+        chk.same(p19_call(ck, arm, x), p19_call(ck, arm, x, "plain"),
+                 (arm, "default", P19_C16_H), min_placed=floor)
+    for H in P19_EDGE_HS:
+        cfg = ck._cf_config(H, "first-fit")
+        cta = -(-H // cfg.cluster)
+        for risk in (False, True):
+            x = p19_inputs(43 + risk, P19_POD[1], H, device, risk=risk,
+                           case="cta_edge", cta=cta)
+            for arm in CF_ARMS:
+                got = p19_call(ck, arm, x)
+                chk.same(got, p19_call(ck, arm, x, "plain"),
+                         (arm, "cta_edge", H, risk),
+                         min_placed=P19_POD[1] // 4)
+                p = got[0][x["valid"]]
+                if arm != "opportunistic" and int(p[0]) != cta - 1:
+                    raise AssertionError(f"{arm} cta_edge H={H}: the first "
+                                         f"task went to {int(p[0])}, not "
+                                         f"the tie's lower host {cta - 1}")
+                if arm == "opportunistic" and not bool(
+                        (p >= (H - 1) // cta * cta).any()):
+                    raise AssertionError(f"opportunistic cta_edge H={H}: no "
+                                         "rank landed in the last CTA")
+    H = ck._CF_CLUSTER_MAX_HOSTS + 1
+    x = p19_inputs(45, P19_TAIL_T, H, device, risk=True, live=True)
+    for arm in CF_ARMS:
+        if ck._cf_config(H, arm).state != "global":
+            raise AssertionError(f"H={H}: not the global-rows form")
+        chk.same(p19_call(ck, arm, x), p19_call(ck, arm, x, "plain"),
+                 (arm, "global rows", H), min_placed=P19_TAIL_T // 4)
 
 
 def phase_carry_free(device, ck, e2e=None, sweep=False) -> dict:
@@ -8158,11 +8321,12 @@ def phase_carry_free(device, ck, e2e=None, sweep=False) -> dict:
                              p19_call(ck, arm, x, "plain"),
                              (arm, T, case, risk, live), min_placed=floor)
     n_edge = chk.cases - n_small
+    wide = cf_shape(ck, P19_WIDE[0], ck._CF_ROWS_SHARED, P19_WIDE[1])
     for risk in (False, True):
         x = p19_inputs(95 + risk, P19_R_T, P19_WIDE[0], device, risk=risk,
                        live=risk)
         for arm in CF_ARMS:
-            go, _cfg = cf_bare_launch(ck, arm, x, P19_WIDE[1])
+            go, _cfg = cf_bare_launch(ck, arm, x, wide)
             p, a = go()
             chk.same((p[0], a[0]), p19_call(ck, arm, x, "plain"),
                      (arm, "wide", risk), min_placed=P19_R_T // 4)
@@ -8183,26 +8347,31 @@ def phase_carry_free(device, ck, e2e=None, sweep=False) -> dict:
         for arm in CF_ARMS:
             chk.same(p19_call(ck, arm, pod), p19_call(ck, arm, pod, "plain"),
                      (arm, key), min_placed=P19_POD[1] // 4)
+    n_old = chk.cases
+    p19_new_cases(ck, device, chk)
     log(f"  {chk.cases} cases ({n_small} at H={P19_H}, {n_edge} of NaN / "
         f"inf / ±0 risk, ties and zero demand at H={P19_H}, 6 at H="
-        f"{P19_WIDE[0]} with {P19_WIDE[1]} threads (a thread past its "
-        f"fit bits), 4 at R={SENS_REPLICAS}, 9 at H={P19_POD[0]} with and "
-        f"without risk and live), {chk.placed} placements: all equal, max "
-        f"|avail diff| {chk.max_abs_err!r} (0.0 expected; rtol {RTOL}, "
-        f"atol {ATOL})")
+        f"{P19_WIDE[0]} with {P19_WIDE[1]} warp (a thread past its "
+        f"member bits), 4 at R={SENS_REPLICAS}, 9 at H={P19_POD[0]} with "
+        f"and without risk and live; {chk.cases - n_old} of the launch "
+        f"shapes: each register build at its capacity, the default shapes "
+        f"at H={'/'.join(map(str, P19_K_HS))} and {P19_C16_H}, C="
+        f"{'/'.join(map(str, P19_C_FORCED))} forced, ties across CTAs and "
+        f"a rank in the last CTA at H={'/'.join(map(str, P19_EDGE_HS))}, "
+        f"the global rows at H={ck._CF_CLUSTER_MAX_HOSTS + 1}), "
+        f"{chk.placed} placements: all equal, max |avail diff| "
+        f"{chk.max_abs_err!r} (0.0 expected; rtol {RTOL}, atol {ATOL})")
     compare = ck.LAUNCHES["carry_free_place"]
-    times = {}
+    timed = {}  # key: (arm, inputs), the shapes timed
     for T in (P19_R_T, 2048):
         x = p19_inputs(200 + T, T, P19_H, device)
         for arm in CF_ARMS:
-            times[f"{arm} T={T} H={P19_H}"] = p19_time(ck, arm, x)
+            timed[f"{arm} T={T} H={P19_H}"] = (arm, x)
     for arm in CF_ARMS[1:]:
         x = p19_inputs(300, P19_R_T, P19_H, device, R=SENS_REPLICAS)
-        times[f"{arm} R={SENS_REPLICAS} T={P19_R_T} H={P19_H}"] = p19_time(
-            ck, arm, x)
+        timed[f"{arm} R={SENS_REPLICAS} T={P19_R_T} H={P19_H}"] = (arm, x)
     for arm in CF_ARMS:
-        times[f"{arm} T={P19_POD[1]} H={P19_POD[0]}"] = p19_time(
-            ck, arm, pods["pod"], reps=5, plain_reps=1)
+        timed[f"{arm} T={P19_POD[1]} H={P19_POD[0]}"] = (arm, pods["pod"])
     for run, largest in ((e2e or {}).get("cf_largest") or {}).items():
         if run != "cuda":
             continue
@@ -8214,15 +8383,19 @@ def phase_carry_free(device, ck, e2e=None, sweep=False) -> dict:
             x = dict(avail=a[0], dem=a[1], valid=a[2],
                      u=a[3] if arm == "opportunistic" else None,
                      live=k.get("live"), risk=k.get("risk"))
-            times[f"largest {arm_label} tick of phase 3"] = p19_time(ck, arm,
-                                                                     x)
+            timed[f"largest {arm_label} tick of phase 3"] = (arm, x)
+    times = {}
+    for key, (arm, x) in timed.items():
+        pod = x["avail"].shape[-2] == P19_POD[0]
+        times[key] = p19_time(ck, arm, x, **(
+            dict(reps=5, plain_reps=1) if pod else {}))
     for key, t in times.items():
         p19_log(key, t)
     rec = dict(check=chk, cases=chk.cases, max_abs_err=chk.max_abs_err,
                compare_launches=compare, times=times,
                launches=ck.LAUNCHES["carry_free_place"])
     if sweep:
-        rec["sweep"] = p19_sweep(ck, device, chk)
+        rec["sweep"] = p19_sweep(ck, device, chk, pods["pod"])
     return rec
 
 
@@ -8371,8 +8544,8 @@ PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18,
 
 
 def selected_phases(argv) -> tuple:
-    """``--phases 1,6,7`` (default: all) and ``--cf-sweep``: the set of
-    phases and whether phase 19 sweeps.  Phases 2-5, 10-17 and 19 need
+    """``--phases 1,6,7`` (default: all), ``--cf-sweep`` and
+    the set of phases and whether phase 19 sweeps.  Phases 2-5, 10-17 and 19 need
     phase 1's build (phase 14 its ``ptxas`` rows too), phase 5 the runs
     of phases 3 and 4, phase 13 the python-fabric run of phase 3: they
     come along."""
@@ -8382,8 +8555,8 @@ def selected_phases(argv) -> tuple:
     ap.add_argument("--phases", default=",".join(map(str, PHASES)),
                     help="comma list of phases to run (default: all)")
     ap.add_argument("--cf-sweep", action="store_true",
-                    help="phase 19 also times carry_free_place by threads "
-                         "a CTA (the study behind its launch shape)")
+                    help="phase 19 also times carry_free_place by launch "
+                         "shape (the study behind _cf_config)")
     args = ap.parse_args(argv)
     want = {int(x) for x in args.phases.split(",") if x}
     if not want <= set(PHASES):

@@ -1,8 +1,9 @@
 """Kernel-budget pass: the hand kernels' shared memory and threads.
 
 Recomputed from their CUDA sources: ``greedy_place`` (below) and
-``carry_free_place`` (:func:`collect_carry_free`: its staging, slot and
-state bytes, its chunk and thread limit, held against the wrapper's
+``carry_free_place`` (:func:`collect_carry_free`: its sizing functions
+— ``smem_bytes``, ``max_threads``, ``host_range`` — translated from the
+CUDA text and evaluated, and its named constants, held against the wrapper's
 ``_cf_smem_bytes`` / ``_CF_CHUNK`` / ``_CF_MAX_THREADS`` and against the
 card's opt-in shared memory and threads per block).
 Counterpart of ``pivot_tpu/analysis/pallas_budget.py``.  The reference
@@ -40,7 +41,7 @@ from __future__ import annotations
 
 import ast
 import re
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 from pivot_tpu_torch.analysis import Finding, SourceFile
 
@@ -397,32 +398,38 @@ def _collect_greedy(cache) -> Tuple[List[Finding], List[str]]:
 
 
 class CfModel(NamedTuple):
-    """The constants of ``carry_free_place.cu``'s sizing formulas."""
+    """``carry_free_place.cu``'s sizing: its constants and its sizing
+    functions, evaluated from the source's own text."""
 
-    chunk: int            # kChunk: tasks staged at once
-    max_threads: int      # kMaxThreads: its __launch_bounds__
-    stage_task: int       # stage_bytes: bytes per staged task
-    slot_warp: int        # slot_bytes: bytes per warp slot
-    slot_warps: int       # slot_bytes: warp slots
-    state_host: int       # smem_bytes: bytes per host of state
-    launch_bounded: bool  # __launch_bounds__(kMaxThreads)
-    k_less: int           # K = (H + nthr − k_less) / nthr: hosts a thread
+    chunk: int            # kChunk: tasks a staging buffer holds at most
+    max_threads: int      # kMaxThreads: a rows-form CTA's thread limit
+    max_cluster: int      # kMaxCluster: CTAs a replica at most
+    max_slots: int        # kMaxSlots: C·W slots a replica at most
+    rows_shared: int      # kRowsShared: the cluster form's form number
+    rows_global: int      # kRowsGlobal: the global-rows form's number
+    reg_threads: Dict[int, int]  # built K -> its thread limit
+    launch_bounded: bool  # __launch_bounds__(max_threads(kForm), 1)
+    fns: Dict[str, Callable]  # _CF_FUNCTIONS, translated to Python
 
-    def smem_bytes(self, H: int, smem_state: bool) -> int:
+    def smem_bytes(self, H: int, form: int, W: int, G: int, C: int) -> int:
         """``smem_bytes`` of the CUDA source."""
-        def align16(n):
-            return -(-n // 16) * 16
-        return (align16(self.stage_task * self.chunk)
-                + align16(self.slot_warp * self.slot_warps)
-                + (self.state_host * H if smem_state else 0))
+        return self.fns["smem_bytes"](H, form, W, G, C)
 
-    def host_ranges(self, H: int, threads: int) -> List[Tuple[int, int]]:
-        """Each thread's hosts ``[h0, h1)`` by the CUDA source's formula:
-        K = (H + threads − k_less) / threads, h0 = min(t·K, H), h1 =
-        min(h0 + K, H)."""
-        K = (H + threads - self.k_less) // threads
-        return [(min(t * K, H), min(min(t * K, H) + K, H))
-                for t in range(threads)]
+    def form_threads(self, form: int) -> int:
+        """A form's thread limit a block (``max_threads(form)``)."""
+        return self.fns["max_threads"](form)
+
+    def host_ranges(self, H: int, threads: int, C: int = 1,
+                    K: Optional[int] = None) -> List[Tuple[int, int]]:
+        """Each (rank, thread)'s hosts ``[h0, h1)``, rank-major, by the
+        CUDA source's ``host_range``."""
+        rng = self.fns["host_range"]
+        out = []
+        for rank in range(C):
+            for t in range(threads):
+                _c0, _kt, h0, h1 = rng(H, C, rank, threads, t, K or 0)
+                out.append((h0, h1))
+        return out
 
 
 def _owns_each_once(ranges, H: int) -> bool:
@@ -435,40 +442,128 @@ def _owns_each_once(ranges, H: int) -> bool:
     return end == H
 
 
-_CF_PATTERNS = {
-    "chunk": r"constexpr\s+int\s+kChunk\s*=\s*(\d+)\s*;",
-    "max_threads": r"constexpr\s+int\s+kMaxThreads\s*=\s*(\d+)\s*;",
-    "stage": r"stage_bytes\(\)\s*\{\s*return\s+align16\(\s*"
-             r"static_cast<size_t>\((\d+)\)\s*\*\s*kChunk\s*\)\s*;",
-    "slot": r"slot_bytes\(\)\s*\{\s*return\s+align16\(\s*"
-            r"static_cast<size_t>\((\d+)\)\s*\*\s*(\d+)\s*\)\s*;",
-    "state": r"smem_state\s*\?\s*static_cast<size_t>\((\d+)\)\s*\*\s*H"
-             r"\s*:\s*0",
-    "ranges": r"const\s+int\s+K\s*=\s*\(\s*H\s*\+\s*nthr\s*-\s*(\d+)\s*\)"
-              r"\s*/\s*nthr\s*;[^\n]*\n\s*const\s+int\s+h0\s*=\s*min\(\s*tid"
-              r"\s*\*\s*K\s*,\s*H\s*\)\s*;[^\n]*\n\s*const\s+int\s+h1\s*=\s*"
-              r"min\(\s*h0\s*\+\s*K\s*,\s*H\s*\)\s*;",
-}
-_CF_H_PROBES = (1, 7, 600, 14096, 98304)
+#: The named constants the sizing reads, and the sizing functions the
+#: pass evaluates, each with arguments it is probed at when read.
+_CF_CONSTS = {"chunk": "kChunk", "max_threads": "kMaxThreads",
+              "max_cluster": "kMaxCluster", "max_slots": "kMaxSlots",
+              "rows_shared": "kRowsShared", "rows_global": "kRowsGlobal"}
+_CF_FUNCTIONS = {"ceil_div": (7, 2), "chunk_of": (5,),
+                 "stage_bytes": (5,), "slot_bytes": (10,),
+                 "smem_bytes": (600, 0, 5, 1, 2), "max_threads": (2,),
+                 "host_range": (600, 2, 1, 64, 3, 0)}
+_CF_H_PROBES = (1, 7, 600, 4096, 4097, 14096, 98304, 211968, 250000)
+_CF_C_PROBES = (1, 2, 4, 8, 16)
+_CF_W_PROBES = (1, 5, 16, 32)
+#: What a translated body may hold once casts are gone: integer
+#: arithmetic, comparisons, the conditional operator, calls and braces.
+_C_EXPR = re.compile(r"[\w\s+\-*/(),<>=!?:{}]*")
+
+
+def _c_expr(e: str) -> str:
+    """A C integer expression as Python: ``static_cast`` dropped, ``/``
+    floor division (the operands are never negative), braces a tuple,
+    ``a ? b : c`` at the top level a conditional expression."""
+    e = " ".join(re.sub(r"static_cast<\w+>", "", e).split())
+    if not _C_EXPR.fullmatch(e):
+        raise ValueError(e)
+    depth, q = 0, -1
+    for i, ch in enumerate(e):
+        depth += ch in "({"
+        depth -= ch in ")}"
+        if ch == "?" and depth == 0:
+            q = i
+            break
+    if q >= 0:
+        depth, nest = 0, 0
+        for i in range(q + 1, len(e)):
+            ch = e[i]
+            depth += ch in "({"
+            depth -= ch in ")}"
+            nest += ch == "?" and depth == 0
+            if ch == ":" and depth == 0:
+                if nest == 0:
+                    return (f"(({_c_expr(e[q + 1:i])}) if ({_c_expr(e[:q])})"
+                            f" else ({_c_expr(e[i + 1:])}))")
+                nest -= 1
+        raise ValueError(e)
+    e = e.replace("/", "//")
+    return "(" + e[1:-1] + ",)" if e.startswith("{") else "(" + e + ")"
+
+
+def _c_function(text: str, name: str) -> Optional[str]:
+    """The Python source of the CUDA function ``name``: its parameters
+    and body of ``const T x = …;`` statements and one ``return``; None
+    when it is absent or holds anything else."""
+    m = re.search(rf"\b(?:int|size_t|HostRange)\s+{name}\s*\(([^)]*)\)\s*\{{",
+                  text)
+    if m is None:
+        return None
+    depth, i = 1, m.end()
+    while depth and i < len(text):
+        depth += text[i] == "{"
+        depth -= text[i] == "}"
+        i += 1
+    body = re.sub(r"//[^\n]*", "", text[m.end():i - 1])
+    params = [p.split()[-1] for p in m.group(1).split(",") if p.strip()]
+    lines = [f"def {name}({', '.join(params)}):"]
+    try:
+        for stmt in filter(None, (x.strip() for x in body.split(";"))):
+            let = re.fullmatch(r"const\s+\w+\s+(\w+)\s*=\s*(.+)", stmt, re.S)
+            ret = re.fullmatch(r"return\s+(.+)", stmt, re.S)
+            if let:
+                lines.append(f"    {let.group(1)} = {_c_expr(let.group(2))}")
+            elif ret:
+                lines.append(f"    return {_c_expr(ret.group(1))}")
+            else:
+                return None
+    except ValueError:
+        return None
+    return "\n".join(lines)
 
 
 def parse_carry_free(text: str) -> Tuple[Optional[CfModel], List[str]]:
-    """The sizing constants of ``carry_free_place.cu``, or None and the
-    list of formulas the pass could not read."""
-    hits = {k: re.search(p, text, re.S) for k, p in _CF_PATTERNS.items()}
-    missing = [k for k, m in hits.items() if m is None]
+    """The sizing of ``carry_free_place.cu``: its named constants, and its
+    sizing functions (``_CF_FUNCTIONS``) translated and evaluated; or
+    None and the list of what the pass could not read."""
+    consts = {}
+    missing = []
+    for field, name in _CF_CONSTS.items():
+        m = re.search(rf"constexpr\s+int\s+{name}\s*=\s*(-?\d+)\s*;",
+                      text)
+        if m is None:
+            missing.append(name)
+        else:
+            consts[name] = int(m.group(1))
+    ns: dict = {"__builtins__": {"min": min, "max": max}, **consts}
+    for name in _CF_FUNCTIONS:
+        src = _c_function(text, name)
+        if src is None:
+            missing.append(name)
+            continue
+        try:
+            exec(compile(src, _CF_CU_FILE, "exec"), ns)  # noqa: S102
+        except SyntaxError:
+            missing.append(name)
+    for name, probe in _CF_FUNCTIONS.items():
+        if name not in missing:
+            try:
+                ns[name](*probe)
+            except Exception:  # an unknown name or operator in the body
+                missing.append(name)
+    builds = [int(k) for k in re.findall(
+        r"case\s+(\d+)\s*:\s*return\s+launch<kArm,\s*kRisk,\s*\1>", text)]
+    if not builds:
+        missing.append("register builds")
     if missing:
         return None, missing
+    fns = {name: ns[name] for name in _CF_FUNCTIONS}
     return CfModel(
-        chunk=int(hits["chunk"].group(1)),
-        max_threads=int(hits["max_threads"].group(1)),
-        stage_task=int(hits["stage"].group(1)),
-        slot_warp=int(hits["slot"].group(1)),
-        slot_warps=int(hits["slot"].group(2)),
-        state_host=int(hits["state"].group(1)),
-        launch_bounded=re.search(r"__launch_bounds__\(\s*kMaxThreads\s*\)",
-                                 text) is not None,
-        k_less=int(hits["ranges"].group(1)),
+        **{field: consts[name] for field, name in _CF_CONSTS.items()},
+        reg_threads={K: fns["max_threads"](K) for K in builds},
+        launch_bounded=re.search(
+            r"__launch_bounds__\(\s*max_threads\(\s*kForm\s*\)\s*,\s*1\s*\)",
+            text) is not None,
+        fns=fns,
     ), []
 
 
@@ -481,32 +576,35 @@ def cf_model(root: Optional[str] = None) -> Optional[CfModel]:
 
 
 def cf_register_findings(usage, regs_per_block: int) -> List[Finding]:
-    """``kMaxThreads × registers ≤ regs_per_block`` for each
+    """``max_threads(form) × registers ≤ regs_per_block`` for each
     instantiation of ``carry_free_place`` in ``usage`` (rows of ``ptxas
-    -v`` with a ``registers`` count, as ``chip_smoke.py`` prints them)."""
+    -v`` with a ``registers`` count and the build's ``form``, as
+    ``chip_smoke.py`` prints them)."""
     model = cf_model()
     if model is None:
         return [Finding(RULE, _CF_CU_FILE, 0,
                         "carry_free_place.cu unreadable")]
-    return [
-        Finding(
-            RULE, _CF_CU_FILE, 1,
-            f"carry_free_place {row.get('build', '?')}: {row['registers']} "
-            f"registers x {model.max_threads} threads > {regs_per_block} — "
-            "the launch bound does not fit the register file",
-        )
-        for row in usage
-        if row["registers"] * model.max_threads > regs_per_block
-    ]
+    out = []
+    for row in usage:
+        threads = model.form_threads(row.get("form", model.rows_shared))
+        if row["registers"] * threads > regs_per_block:
+            out.append(Finding(
+                RULE, _CF_CU_FILE, 1,
+                f"carry_free_place {row.get('build', '?')}: "
+                f"{row['registers']} registers x {threads} threads > "
+                f"{regs_per_block} — the launch bound does not fit the "
+                "register file",
+            ))
+    return out
 
 
 def collect_carry_free(cache) -> Tuple[List[Finding], List[str]]:
     """``carry_free_place``'s formulas against the wrapper's and the
-    card's: the chunk and thread limit equal the wrapper's, the sizer
-    equals the kernel's formula at every probe, one slot per warp of the
-    largest block, the threads' host ranges own every host once at every
-    probe and block size, and the thread limit and the largest
-    global-state block fit the card."""
+    card's: the chunk, thread limits, register builds, cluster limit,
+    slot limit and form numbers equal the wrapper's, the sizer equals the
+    kernel's formula at every probe, the (rank, thread) host ranges own
+    every host once at every probe, cluster size and block size, and the
+    thread limits and the largest cluster CTA fit the card."""
     out: List[Finding] = []
     cu = _cu_text(cache.root, _CF_CU_FILE)
     wrapper = cache.get(_WRAPPER_FILE)
@@ -531,77 +629,101 @@ def collect_carry_free(cache) -> Tuple[List[Finding], List[str]]:
     if not model.launch_bounded:
         out.append(Finding(
             RULE, _CF_CU_FILE, 1,
-            "carry_free_kernel lost __launch_bounds__(kMaxThreads): its "
-            "register budget per thread is no longer tied to its thread "
-            "limit",
+            "carry_free_kernel lost __launch_bounds__(max_threads(kForm), "
+            "1): its register budget per thread is no longer tied to its "
+            "thread limit",
         ))
-    vals = _module_values(wrapper, ("_CF_CHUNK", "_CF_MAX_THREADS"))
+    names = ("_CF_CHUNK", "_CF_MAX_THREADS", "_CF_REG_THREADS",
+             "_CF_CLUSTERS", "_CF_MAX_SLOTS", "_CF_ROWS_SHARED",
+             "_CF_ROWS_GLOBAL", "_CF_ROWS_WARPS")
+    vals = _module_values(wrapper, names)
     line = {n: v.lineno for n, v in vals.items()}
-    chunk = _literal(vals.get("_CF_CHUNK"))
-    threads = _literal(vals.get("_CF_MAX_THREADS"))
-    if not isinstance(chunk, int) or not isinstance(threads, int):
+    got = {n: _literal(vals.get(n)) for n in names}
+    if any(got[n] is None for n in names):
         out.append(Finding(
             RULE, _WRAPPER_FILE, 1,
-            "_CF_CHUNK / _CF_MAX_THREADS missing or not int literals — the "
-            "pass cannot hold the wrapper's sizer to the kernel's",
+            f"{', '.join(n for n in names if got[n] is None)} missing or "
+            "not literals — the pass cannot hold the wrapper's sizer to "
+            "the kernel's",
         ))
         return out, [_WRAPPER_FILE]
-    if chunk != model.chunk:
+    want = {
+        "_CF_CHUNK": model.chunk, "_CF_MAX_THREADS": model.max_threads,
+        "_CF_REG_THREADS": model.reg_threads,
+        "_CF_MAX_SLOTS": model.max_slots,
+        "_CF_ROWS_SHARED": model.rows_shared,
+        "_CF_ROWS_GLOBAL": model.rows_global,
+    }
+    for n, v in want.items():
+        if got[n] != v:
+            out.append(Finding(
+                RULE, _WRAPPER_FILE, line[n],
+                f"{n} = {got[n]} but carry_free_place.cu has {v}",
+            ))
+    clusters = tuple(got["_CF_CLUSTERS"])
+    if max(clusters) != model.max_cluster or any(
+            c & (c - 1) for c in clusters):
         out.append(Finding(
-            RULE, _WRAPPER_FILE, line["_CF_CHUNK"],
-            f"_CF_CHUNK = {chunk} but carry_free_place.cu's kChunk = "
-            f"{model.chunk}",
+            RULE, _WRAPPER_FILE, line["_CF_CLUSTERS"],
+            f"_CF_CLUSTERS = {clusters}: powers of two up to "
+            f"carry_free_place.cu's kMaxCluster = {model.max_cluster}",
         ))
-    if threads != model.max_threads:
+    slots = max(clusters) * max(got["_CF_ROWS_WARPS"])
+    if slots > model.max_slots:
         out.append(Finding(
-            RULE, _WRAPPER_FILE, line["_CF_MAX_THREADS"],
-            f"_CF_MAX_THREADS = {threads} but carry_free_place.cu's "
-            f"kMaxThreads = {model.max_threads}",
+            RULE, _WRAPPER_FILE, line["_CF_ROWS_WARPS"],
+            f"_CF_ROWS_WARPS gives {slots} C·W slots at the largest "
+            f"cluster, above kMaxSlots = {model.max_slots}",
         ))
-    if model.slot_warps * 32 < model.max_threads:
-        out.append(Finding(
-            RULE, _CF_CU_FILE, 1,
-            f"{model.slot_warps} warp slots cannot hold the "
-            f"{model.max_threads // 32} warps of the largest block",
-        ))
-    sizer, sizer_line = _python_sizer(wrapper, "_cf_smem_bytes",
-                                      {"_CF_CHUNK": chunk})
+    sizer, sizer_line = _python_sizer(
+        wrapper, "_cf_smem_bytes",
+        {"_CF_CHUNK": model.chunk, "_CF_ROWS_SHARED": model.rows_shared})
     if sizer is None:
         out.append(Finding(RULE, _WRAPPER_FILE, 1,
                            "_cf_smem_bytes not found in the wrapper"))
     else:
-        bad = [(H, st) for H in _CF_H_PROBES for st in (False, True)
-               if sizer(H, st) != model.smem_bytes(H, st)]
+        forms = (*model.reg_threads, model.rows_shared, model.rows_global)
+        bad = [(H, f, W, C) for H in _CF_H_PROBES for f in forms
+               for W in _CF_W_PROBES for C in _CF_C_PROBES
+               if sizer(H, f, W, 1, C) != model.smem_bytes(H, f, W, 1, C)]
         if bad:
             out.append(Finding(
                 RULE, _WRAPPER_FILE, sizer_line,
                 f"_cf_smem_bytes disagrees with carry_free_place.cu's "
-                f"smem_bytes at {len(bad)} probe(s), first (H, smem_state) "
+                f"smem_bytes at {len(bad)} probe(s), first (H, form, W, C) "
                 f"= {bad[0]}",
             ))
-    split = [(H, n) for H in _CF_H_PROBES
-             for n in range(32, model.max_threads + 1, 32)
-             if not _owns_each_once(model.host_ranges(H, n), H)]
+    split = [(H, n, C) for H in _CF_H_PROBES for C in _CF_C_PROBES
+             for n in (32, 96, 512, model.max_threads)
+             if not _owns_each_once(model.host_ranges(H, n, C), H)]
+    split += [(H, 32 * W, K) for K in model.reg_threads
+              for W in _CF_W_PROBES for H in _CF_H_PROBES
+              if H <= 32 * W * K
+              and not _owns_each_once(model.host_ranges(H, 32 * W, 1, K),
+                                      H)]
     if split:
         out.append(Finding(
             RULE, _CF_CU_FILE, 1,
-            f"the threads' host ranges (K = (H + nthr - {model.k_less}) / "
-            f"nthr) do not own every host once at {len(split)} probe(s), "
-            f"first (H, threads) = {split[0]}",
+            f"the (rank, thread) host ranges of host_range do not own "
+            f"every host once at {len(split)} probe(s), first (H, threads, "
+            f"C or K) = {split[0]}",
         ))
     consts, _problems = _roofline_consts(cache)  # reported by greedy's
     limit = consts.get("H100_MAX_THREADS_PER_BLOCK")
-    if limit is not None and model.max_threads > limit:
+    top = max(model.max_threads, *model.reg_threads.values())
+    if limit is not None and top > limit:
         out.append(Finding(
             RULE, _CF_CU_FILE, 1,
-            f"kMaxThreads = {model.max_threads} is above the card's "
-            f"{limit} threads per block",
+            f"a thread limit of {top} is above the card's {limit} threads "
+            "per block",
         ))
     optin = consts.get("H100_SMEM_OPTIN_BYTES")
-    if optin is not None and model.smem_bytes(1, False) > optin:
-        out.append(Finding(
-            RULE, _CF_CU_FILE, 1,
-            f"the global-state block needs {model.smem_bytes(1, False)} B "
-            f"of shared memory, above the {optin} B opt-in",
-        ))
+    if optin is not None:
+        smallest = model.smem_bytes(1, model.rows_global, 32, 1, 1)
+        if smallest > optin:
+            out.append(Finding(
+                RULE, _CF_CU_FILE, 1,
+                f"the global-state block needs {smallest} B of shared "
+                f"memory, above the {optin} B opt-in",
+            ))
     return out, [_WRAPPER_FILE]

@@ -42,8 +42,11 @@ for those arms (``pivot_tpu/ops/kernels.py``'s slim ``opportunistic_impl``
 / ``first_fit_impl`` / ``best_fit_impl`` and their ``jax.vmap`` over
 replicas): ``opportunistic_cuda``, ``first_fit_cuda``, ``best_fit_cuda``
 (one tick) and ``first_fit_cuda_batched`` / ``best_fit_cuda_batched`` (R
-replicas sharing one task stream) each launch it once, one CTA a
-replica.  Beside each, a ``*_plain`` function is the port's slim torch
+replicas sharing one task stream) each launch it once, in the launch
+shape :func:`_cf_config` picks: a replica's host state in registers
+(a group of warps, several groups a block at large R), in the shared
+memory of a thread-block cluster of up to 16 CTAs, or past 211,968
+hosts in global memory.  Beside each, a ``*_plain`` function is the port's slim torch
 form of the same pass (``ops/kernels.py``), which the wrapper takes for
 CPU tensors, and only then.  ``LAUNCHES["carry_free_place"]`` counts its
 launches and ``LAUNCHES_CARRY_FREE`` splits them by (arm, R).
@@ -635,53 +638,125 @@ def cost_aware_cuda_rows(avail_g, demands_g, valid_g, new_group_g,
 
 #: The kernel's arms, in the order of its ``arm`` argument.
 _CF_ARMS = ("opportunistic", "first-fit", "best-fit")
-#: Tasks the kernel stages in shared memory at once (``kChunk``).
+#: Tasks a staging buffer of the kernel holds at most (``kChunk``).
 _CF_CHUNK = 256
-#: Threads one CTA may run: the kernel's ``__launch_bounds__``
-#: (``kMaxThreads``).
-_CF_MAX_THREADS = 1024
-#: Hosts a thread owns before the CTA takes another warp, by arm, for one
-#: replica: from the sweep of threads a CTA at T = 619, H = 600
-#: (``chip_smoke.py`` phase 19, PERF.md), where Best-Fit's per-host score
-#: favours one host a thread and the other two arms four.  R > 1 replicas
-#: take four in every arm: small CTAs let all R sit on the SMs at once
-#: (Best-Fit at R = 256: 0.53 ms with 160 threads, 0.76 ms with 608, on an
-#: NVIDIA H100 80GB HBM3 at 700 W).
-_CF_HOSTS_PER_THREAD = {"opportunistic": 4, "first-fit": 4, "best-fit": 1}
-_CF_HOSTS_PER_THREAD_REPLICAS = 4
+#: Threads a rows-form CTA may run (``kMaxThreads``).
+_CF_MAX_THREADS = 512
+#: The forms of the kernel's ``form`` argument: K hosts a thread in
+#: registers for each K of ``_CF_REG_THREADS`` (``kForm = K``), the rows
+#: in shared memory over a cluster (``kRowsShared``) and in global memory
+#: (``kRowsGlobal``).
+_CF_ROWS_SHARED = 0
+_CF_ROWS_GLOBAL = -1
+#: The register builds, each with its thread limit a block
+#: (``max_threads`` in the source, its ``__launch_bounds__``: no spill).
+_CF_REG_THREADS = {2: 768, 4: 512, 8: 512}
+#: Cluster sizes the kernel takes (16: Hopper's non-portable size) and
+#: the slots a replica may have (``kMaxCluster``, ``kMaxSlots``).
+_CF_CLUSTERS = (1, 2, 4, 8, 16)
+_CF_MAX_SLOTS = 256
+#: Hosts a thread keeps in registers before a replica takes another warp,
+#: by arm, for one replica and for R > 1 replicas, and the replica groups
+#: a block at R > 1 (``chip_smoke.py --cf-sweep``, PERF.md §6).
+_CF_REG_K = {"opportunistic": 2, "first-fit": 4, "best-fit": 2}
+_CF_REG_K_REPLICAS = {"opportunistic": 4, "first-fit": 4, "best-fit": 2}
+_CF_GROUPS_REPLICAS = {"opportunistic": 1, "first-fit": 1, "best-fit": 2}
+#: The cluster form: hosts a CTA aims at (C the least power of two that
+#: brings ⌈H / C⌉ down to it, at most 16), and the fewest and most warps
+#: a CTA, W = ⌈Hc / (32·``_CF_ROWS_THREAD_HOSTS``)⌉ between them
+#: (``--cf-sweep`` at H = 8,192, 20,000 and the pod tick).
+_CF_CTA_HOSTS = 1024
+_CF_ROWS_THREAD_HOSTS = 8
+_CF_ROWS_WARPS = (8, 16)
 
 
-def _cf_smem_bytes(H, smem_state) -> int:
-    """``carry_free_place_smem_bytes``: the staged chunk (24 B a task),
-    the per-warp slots (24 B a warp for 32 warps), and shared-memory state
-    (16 B a host)."""
-    def align16(n):
-        return -(-n // 16) * 16
-    return (align16(24 * _CF_CHUNK) + align16(24 * 32)
-            + (16 * H if smem_state else 0))
+def _cf_smem_bytes(H, form, warps, groups, cluster) -> int:
+    """``carry_free_place_smem_bytes``: per replica group the staged
+    tasks (two buffers of min(32·W, ``_CF_CHUNK``) tasks, 24 B each), the
+    slots (two buffers of C·W, 16 B each), and in the cluster form the
+    CTA's ⌈H / C⌉ rows (16 B a host)."""
+    chunk = min(32 * warps, _CF_CHUNK)
+    state = -(-H // cluster) if form == _CF_ROWS_SHARED else 0
+    return groups * 48 * chunk + 32 * groups * cluster * warps + 16 * state
 
 
 class _CfConfig(NamedTuple):
-    """One launch shape of ``carry_free_place`` (one CTA a replica)."""
+    """One launch shape of ``carry_free_place``."""
 
-    threads: int       # 32·W
-    smem_state: bool   # per-host state in shared memory, not global
+    form: int        # K (registers), _CF_ROWS_SHARED or _CF_ROWS_GLOBAL
+    warps: int       # W: warps a replica group (a CTA, in the rows forms)
+    groups: int      # G: replica groups a block (register form)
+    cluster: int     # C: CTAs a replica (rows in shared memory)
     smem_bytes: int
+
+    @property
+    def threads(self) -> int:
+        """Threads a block: 32·W·G."""
+        return 32 * self.warps * self.groups
+
+    @property
+    def state(self) -> str:
+        """Where a replica's per-host state lives."""
+        return ("registers" if self.form > 0 else "shared"
+                if self.form == _CF_ROWS_SHARED else "global")
+
+
+def _cf_rows_config(H: int, cluster: int) -> _CfConfig:
+    """The cluster form of ``cluster`` CTAs a replica."""
+    hc = -(-H // cluster)
+    lo, hi = _CF_ROWS_WARPS
+    W = max(lo, min(hi, -(-hc // (32 * _CF_ROWS_THREAD_HOSTS))))
+    return _CfConfig(_CF_ROWS_SHARED, W, 1, cluster,
+                     _cf_smem_bytes(H, _CF_ROWS_SHARED, W, 1, cluster))
+
+
+#: The most hosts the cluster form holds (16 CTAs of 16 warps, each CTA's
+#: rows beside its staging and slots in the 227 KB opt-in): 211,968.
+#: Past it, the rows in global memory.
+_CF_CLUSTER_MAX_HOSTS = 16 * ((_SMEM_LIMIT - _cf_smem_bytes(
+    0, _CF_ROWS_SHARED, _CF_ROWS_WARPS[1], 1, 16)) // 16)
 
 
 @functools.lru_cache(maxsize=1024)
 def _cf_config(H: int, arm: str, R: int = 1) -> _CfConfig:
     """The launch shape of ``arm`` for ``R`` replicas of ``H`` hosts:
-    ⌈H / (32·k)⌉ warps a CTA, between 1 and 32, with k the arm's
-    ``_CF_HOSTS_PER_THREAD`` (``_CF_HOSTS_PER_THREAD_REPLICAS`` when
-    R > 1), so a thread owns at most k hosts up to 1,024·k hosts and
-    ⌈H / 1024⌉ past them; the state in shared memory while it fits the
-    card's 227 KB opt-in beside the staging (14,096 hosts), else worked
-    in place in global memory."""
-    k = _CF_HOSTS_PER_THREAD[arm] if R == 1 else _CF_HOSTS_PER_THREAD_REPLICAS
-    W = max(1, min(32, -(-H // (32 * k))))
-    smem_state = _cf_smem_bytes(H, True) <= _SMEM_LIMIT
-    return _CfConfig(32 * W, smem_state, _cf_smem_bytes(H, smem_state))
+
+    ==================  ============================================
+    H                   form (where the state lives), W, G, C
+    ==================  ============================================
+    ≤ 4,096             registers: K the arm's ``_CF_REG_K`` (R = 1) or
+                        ``_CF_REG_K_REPLICAS`` (R > 1), doubled until
+                        ⌈H / 32K⌉ warps fit K's thread limit
+                        (``_CF_REG_THREADS``: 1,536 hosts at K = 2,
+                        2,048 at 4, 4,096 at 8); W =
+                        ⌈H / 32K⌉; G the arm's ``_CF_GROUPS_REPLICAS`` at
+                        R > 1 within the limit, else 1; C = 1
+    ≤ 211,968           shared memory over a cluster: C the least power
+                        of two with ⌈H / C⌉ ≤ ``_CF_CTA_HOSTS`` (at most
+                        16); W = ⌈Hc / 256⌉ within ``_CF_ROWS_WARPS``
+                        (8-16); G = 1
+    above               global memory: one CTA of 16 warps
+    ==================  ============================================
+
+    ``_CF_CLUSTER_MAX_HOSTS`` is the 211,968-host limit."""
+    k = _CF_REG_K[arm] if R == 1 else _CF_REG_K_REPLICAS[arm]
+    for K, limit in sorted(_CF_REG_THREADS.items()):
+        W = max(1, -(-H // (32 * K)))
+        if K < k or 32 * W > limit:
+            continue
+        G = 1
+        if R > 1:
+            G = max(1, min(_CF_GROUPS_REPLICAS[arm], limit // (32 * W),
+                           15 if W > 1 else R))
+        return _CfConfig(K, W, G, 1, _cf_smem_bytes(H, K, W, G, 1))
+    if H <= _CF_CLUSTER_MAX_HOSTS:
+        C = 1
+        while C < _CF_CLUSTERS[-1] and -(-H // C) > _CF_CTA_HOSTS:
+            C *= 2
+        return _cf_rows_config(H, C)
+    return _CfConfig(_CF_ROWS_GLOBAL, _CF_ROWS_WARPS[1], 1, 1,
+                     _cf_smem_bytes(H, _CF_ROWS_GLOBAL, _CF_ROWS_WARPS[1],
+                                    1, 1))
 
 
 def _cf_check(arm, avail_r, demands, valid, uniforms, live, risk, n_bound):
@@ -783,12 +858,12 @@ def best_fit_plain_batched(avail_r, demands, valid, risk=None, n_bound=None):
 @functools.lru_cache(maxsize=None)
 def _cf_entry():
     """The built library's launch entry point, typed once:
-    ``carry_free_place_launch`` (eight pointers, eight ints, the
+    ``carry_free_place_launch`` (eight pointers, ten ints, the
     stream)."""
     from pivot_tpu_torch.ops.build import load
 
     fn = load("carry_free_place").carry_free_place_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p
     ]
     fn.restype = ctypes.c_int
@@ -818,7 +893,7 @@ def _cf_launch(cfg, arm, avail_r, demands, valid, uniforms, strict, live,
             None if live is None else live.data_ptr(),
             placements.data_ptr(), avail_out.data_ptr(),
             R, T, H, n_bound, _CF_ARMS.index(arm), int(bool(strict)),
-            cfg.threads, int(cfg.smem_state),
+            cfg.form, cfg.warps, cfg.groups, cfg.cluster,
             torch._C._cuda_getCurrentRawStream(dev.index))
     fn = load_carry_free_library()
     if dev.index == torch.cuda.current_device():
@@ -910,8 +985,8 @@ def first_fit_cuda_batched(avail_r, demands, valid, strict: bool = False,
                            risk=None, n_bound=None):
     """First-Fit over ``R`` availability replicas sharing one task stream
     — ``jax.vmap`` of the reference's first-fit pass over ``avail_r [R, H,
-    4]`` (``pivot_tpu/sched/tpu.py:1659-1666``), no live mask: one launch,
-    one CTA a replica.  Returns ``([R, T] int32, [R, H, 4] f32)``, each
+    4]`` (``pivot_tpu/sched/tpu.py:1659-1666``), no live mask: one launch
+    for all R.  Returns ``([R, T] int32, [R, H, 4] f32)``, each
     row bitwise the unbatched pass on that row; CPU tensors take
     :func:`first_fit_plain_batched`."""
     if avail_r.device.type == "cpu":

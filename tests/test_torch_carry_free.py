@@ -14,8 +14,11 @@ port's wiring around the kernel.
   valid task.
 * **The wrappers on the CPU** run the plain forms and count no launch;
   their argument checks refuse what the kernel does not take.
-* **The launch shape**: every host is owned by exactly one thread, as
-  the kernel computes the ranges, and the sizer is the kernel's.
+* **The launch shape** (``_cf_config`` over H from 1 to 250,000 at every
+  boundary, R = 1 and 256, each arm): every host is owned by exactly
+  one (cluster rank, thread), as the kernel computes the ranges; the
+  sizer is the kernel's and a CTA's shared memory fits the opt-in; C is
+  a power of two up to 16; the register form takes only a built K.
 * **Routing** (``sched/cuda.py::_carry_free_serves``) for each
   condition, and the kernel route end to end with the wrappers' plain
   forms standing in (CPU tensors): per-tick and span ticks go through
@@ -290,30 +293,58 @@ def test_argument_checks():
 # -- the launch shape ----------------------------------------------------------
 
 
-@pytest.mark.parametrize("H", [1, 5, 31, 32, 33, 127, 128, 129, 600, 1000,
-                               4095, 4097, 14096, 14097, 98304])
+#: Every boundary of the launch-shape rule: the register builds'
+#: capacities (1,536, 2,048, 4,096 hosts) and the K switches, the
+#: cluster sizes (C = 8 from 4,097, 16 from 8,193), the cluster form's
+#: capacity (211,968) and past it.
+SHAPE_HS = [1, 5, 31, 32, 33, 127, 128, 129, 600, 767, 768, 769, 1000, 1536,
+            1537, 2048, 2049, 4095, 4096, 4097, 8192, 8193, 14096, 14097,
+            16384, 16385, 98304, 211968, 211969, 250000]
+
+
+@pytest.mark.parametrize("H", SHAPE_HS)
 @pytest.mark.parametrize("R", [1, 256])
 @pytest.mark.parametrize("arm", ARMS)
 def test_host_ranges_own_every_host_once(H, arm, R):
     cfg = ck._cf_config(H, arm, R)
-    assert cfg.threads % 32 == 0 and 32 <= cfg.threads <= ck._CF_MAX_THREADS
-    assert cfg.smem_state == (H <= 14096)
-    assert cfg.smem_bytes == ck._cf_smem_bytes(H, cfg.smem_state)
-    assert cfg.smem_bytes <= ck._SMEM_LIMIT
-    assert cfg.smem_bytes == kernel_budget.cf_model().smem_bytes(
-        H, cfg.smem_state)
-    for threads in {cfg.threads, 32, 96, 1024}:
-        ranges = kernel_budget.cf_model().host_ranges(H, threads)
-        assert len(ranges) == threads
+    model = kernel_budget.cf_model()
+    regs = cfg.form > 0
+    assert cfg.threads % 32 == 0 and 32 <= cfg.threads
+    assert cfg.threads <= model.form_threads(cfg.form)
+    assert cfg.smem_bytes == ck._cf_smem_bytes(H, cfg.form, cfg.warps,
+                                               cfg.groups, cfg.cluster)
+    assert cfg.smem_bytes == model.smem_bytes(H, cfg.form, cfg.warps,
+                                              cfg.groups, cfg.cluster)
+    assert cfg.smem_bytes <= ck._SMEM_LIMIT == 232448
+    C = cfg.cluster
+    assert 1 <= C <= 16 and C & (C - 1) == 0
+    assert C * cfg.warps <= model.max_slots
+    if regs:  # only a built K, one CTA, the hosts within its threads
+        assert cfg.form in model.reg_threads and C == 1
+        assert 32 * cfg.warps * cfg.form >= H
+        k = ck._CF_REG_K[arm] if R == 1 else ck._CF_REG_K_REPLICAS[arm]
+        assert cfg.form >= k
+        assert cfg.groups == 1 or (R > 1 and cfg.groups <= 15)
+        assert H <= max(K * n for K, n in model.reg_threads.items())
+    else:
+        assert cfg.groups == 1
+        assert H > max(K * n for K, n in model.reg_threads.items())
+        assert cfg.state == ("shared" if H <= ck._CF_CLUSTER_MAX_HOSTS
+                             else "global")
+        assert ck._CF_CLUSTER_MAX_HOSTS == 211968
+        if cfg.state == "global":
+            assert C == 1
+    for threads in {32 * cfg.warps, 32, 96, 512}:
+        ranges = model.host_ranges(H, threads, C,
+                                   cfg.form if regs else None)
+        if regs and threads * cfg.form < H:
+            continue  # a register shape covers H at its own warps only
+        assert len(ranges) == C * threads
         owned = [h for h0, h1 in ranges for h in range(h0, h1)]
         assert owned == list(range(H))  # each once, in index order
-        assert all(h1 - h0 <= -(-H // threads) for h0, h1 in ranges)
-    k = (ck._CF_HOSTS_PER_THREAD[arm] if R == 1
-         else ck._CF_HOSTS_PER_THREAD_REPLICAS)
-    if H <= 1024 * k:
-        assert -(-H // cfg.threads) <= k
-    else:
-        assert cfg.threads == ck._CF_MAX_THREADS
+        hc = -(-H // C)
+        assert all(h1 - h0 <= (cfg.form if regs else -(-hc // threads))
+                   for h0, h1 in ranges)
 
 
 # -- routing -----------------------------------------------------------------
@@ -505,24 +536,46 @@ def test_profiler_and_cost_attribution_know_the_route():
 
 
 @pytest.mark.parametrize("rel,old,new,expect", [
-    (kernel_budget._CF_CU_FILE, "static_cast<size_t>(16) * H",
-     "static_cast<size_t>(20) * H", "_cf_smem_bytes disagrees"),
+    (kernel_budget._CF_CU_FILE, "static_cast<size_t>(16) * state_hosts",
+     "static_cast<size_t>(20) * state_hosts", "_cf_smem_bytes disagrees"),
     (kernel_budget._CF_CU_FILE, "constexpr int kChunk = 256;",
      "constexpr int kChunk = 128;", "_CF_CHUNK = 256"),
-    (kernel_budget._CF_CU_FILE, "constexpr int kMaxThreads = 1024;",
-     "constexpr int kMaxThreads = 2048;", "above the card's 1024"),
-    (kernel_budget._CF_CU_FILE, "__launch_bounds__(kMaxThreads)", "",
-     "carry_free_kernel lost __launch_bounds__"),
-    (kernel_budget._CF_CU_FILE, "align16(static_cast<size_t>(24) * 32)",
-     "align16(static_cast<size_t>(24) * 16)", "16 warp slots"),
-    (kernel_budget._CF_CU_FILE, "static_cast<size_t>(24) * kChunk",
-     "24 * static_cast<size_t>(kChunk)", "cannot read"),
-    (kernel_budget._WRAPPER_FILE, "_CF_MAX_THREADS = 1024",
-     "_CF_MAX_THREADS = 512", "_CF_MAX_THREADS = 512"),
-    (kernel_budget._CF_CU_FILE, "(H + nthr - 1) / nthr",
-     "(H + nthr - 2) / nthr", "do not own every host once"),
-    (kernel_budget._CF_CU_FILE, "min(h0 + K, H)", "min(h0 + K + 1, H)",
-     "cannot read"),
+    (kernel_budget._CF_CU_FILE, "form == 2 ? 768",
+     "form == 2 ? 2048", "above the card's 1024"),
+    (kernel_budget._CF_CU_FILE, "__launch_bounds__(max_threads(kForm), 1)",
+     "", "carry_free_kernel lost __launch_bounds__"),
+    (kernel_budget._CF_CU_FILE, "constexpr int kMaxSlots = 256;",
+     "constexpr int kMaxSlots = 128;", "_CF_MAX_SLOTS = 256"),
+    (kernel_budget._CF_CU_FILE, "static_cast<size_t>(48) * chunk_of(W)",
+     "sizeof(float4) * 3 * chunk_of(W)", "cannot read"),
+    (kernel_budget._WRAPPER_FILE, "_CF_MAX_THREADS = 512",
+     "_CF_MAX_THREADS = 256", "_CF_MAX_THREADS = 256"),
+    (kernel_budget._CF_CU_FILE, "ceil_div(Hc, nthr)", "Hc / nthr",
+     "do not own every host once"),
+    (kernel_budget._CF_CU_FILE, "min(h0 + Kt, c1)", "min(h0 + Kt + 1, c1)",
+     "do not own every host once"),
+    # the formulas of the cluster form and the register builds
+    (kernel_budget._CF_CU_FILE, "(a + b - 1) / b", "(a + b - 2) / b",
+     "do not own every host once"),
+    (kernel_budget._CF_CU_FILE, "min(rank * Hc, H)", "min(rank * Hc + 1, H)",
+     "do not own every host once"),
+    (kernel_budget._CF_CU_FILE, "form == kRowsShared ? ceil_div(H, C) : 0",
+     "form == kRowsGlobal ? ceil_div(H, C) : 0", "_cf_smem_bytes disagrees"),
+    (kernel_budget._CF_CU_FILE, "static_cast<size_t>(32) * n_slots",
+     "static_cast<size_t>(16) * n_slots", "_cf_smem_bytes disagrees"),
+    (kernel_budget._CF_CU_FILE, "form == 2 ? 768", "form == 2 ? 1024",
+     "_CF_REG_THREADS = "),
+    (kernel_budget._CF_CU_FILE,
+     "    case 8: return launch<kArm, kRisk, 8>(p, C, s);\n", "",
+     "_CF_REG_THREADS = "),
+    (kernel_budget._CF_CU_FILE, "constexpr int kMaxCluster = 16;",
+     "constexpr int kMaxCluster = 8;", "kMaxCluster = 8"),
+    (kernel_budget._CF_CU_FILE, "constexpr int kRowsGlobal = -1;",
+     "constexpr int kRowsGlobal = -2;", "_CF_ROWS_GLOBAL = -1"),
+    (kernel_budget._WRAPPER_FILE, "_CF_ROWS_WARPS = (8, 16)",
+     "_CF_ROWS_WARPS = (8, 32)", "above kMaxSlots"),
+    (kernel_budget._CF_CU_FILE, "max_threads(int form) {",
+     "max_threads(int form) { /* */", "cannot read"),
 ])
 def test_kernel_budget_reads_carry_free(tmp_path, rel, old, new, expect):
     root = _budget_tree(tmp_path)
@@ -543,7 +596,12 @@ def test_kernel_budget_missing_source_and_registers(tmp_path):
     got = port.run(root=root, rules=["kernel-budget"])
     assert any("carry_free_place.cu is missing" in f.message for f in got)
     assert kernel_budget.cf_register_findings(
-        [dict(build="ff", registers=64)], 65536) == []
+        [dict(build="ff/K=2", form=2, registers=80),
+         dict(build="ff/shared", form=0, registers=128)], 65536) == []
     bad = kernel_budget.cf_register_findings(
-        [dict(build="bf", registers=72)], 65536)
-    assert len(bad) == 1 and "72 registers x 1024 threads" in bad[0].message
+        [dict(build="bf/K=2", form=2, registers=88),
+         dict(build="bf/K=8", form=8, registers=128),
+         dict(build="opp/shared", form=0, registers=136)], 65536)
+    assert len(bad) == 2
+    assert "88 registers x 768 threads" in bad[0].message
+    assert "136 registers x 512 threads" in bad[1].message

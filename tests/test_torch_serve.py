@@ -385,8 +385,14 @@ def serve_argv(out, device, extra=()):
             "10", "--arrival-rate", "0.5", *extra]
 
 
+# The closed-loop case flushes on quiescence only (--flush-after-us 0):
+# a flush waits until every non-idle session is parked on its dispatch,
+# so the sessions' co-pending requests coalesce whatever the threads'
+# pace.  Under the default 5 ms deadline a session slower than that
+# (a loaded CPU) flushed alone and ``coalesced`` read 0.
 @pytest.mark.parametrize("extra", [(), ("--policy", "first-fit",
-                                        "--closed-loop", "3")])
+                                        "--closed-loop", "3",
+                                        "--flush-after-us", "0")])
 def test_cli_serve_report_has_reference_keys(tmp_path, capsys, extra):
     from pivot_tpu.experiments import cli as jcli
     from pivot_tpu_torch.experiments import cli as pcli
