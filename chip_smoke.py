@@ -35,7 +35,9 @@ Phases, each fatal on failure:
   1. environment: the card (``nvidia-smi`` name and power limit), torch,
      CUDA and nvcc versions, the build of every hand-written kernel, and
      ``nvcc -Xptxas -v``'s registers, shared memory and spills for each
-     build of ``greedy_place`` and ``carry_free_place``; the wrappers'
+     build of ``greedy_place`` (registers by K, one CTA's shared memory,
+     a cluster CTA's, the global form; a line naming the builds that
+     spill) and ``carry_free_place``; the wrappers'
      launch-shape tables must match the libraries', and
      ``greedy_place``'s straight-line square root and division must equal
      the IEEE intrinsics bit for bit on 2^27 hashed operand pairs each;
@@ -47,8 +49,15 @@ Phases, each fatal on failure:
      floor on the placements made); the selection edge cases of
      ``tests/test_torch_greedy.py`` (score ties across warp boundaries,
      H = 1 / 33 / 100, ±0.0 risks, +inf and NaN scores) at several warp
-     counts; every launch shape the phase-4 sweep times; and the
-     shared-memory-state build at H = 9664.  Placements must be equal;
+     counts; every launch shape the phase-4 sweep times; the
+     shared-memory-state build at H = 9664; past one CTA the CTA edge
+     cases of ``tests/test_torch_greedy.py`` (ties across every CTA
+     boundary, the winners in the last CTA, the first CTA all masked,
+     ±0.0 and NaN risk) in every mode at the least H of each cluster
+     size C = 2, 4, 8, 16 (H = 10,241, 20,481, 40,961, 98,304) and one
+     host past the cluster form (163,841, the global form), and the
+     replica-batched (R = 3) and per-row (G = 2) launches of a cluster
+     and of the global form.  Placements must be equal;
      availability within rtol 1e-6 / atol 1e-5;
   3. end to end: the ``overall`` experiment (Opportunistic, VBP,
      Cost-Aware) at 600 hosts x 100 apps through the port's CLI entry
@@ -143,7 +152,7 @@ Phases, each fatal on failure:
      with the DES validation), the same world with ES (88 rows), the
      committed ``data/search/ci_seed.json`` twice (the reports must be
      equal) and the 10,240-row population (64 candidates x 160
-     replicas) at 600 hosts x 50 apps, 1 generation, horizon 600 s
+     replicas) at 600 hosts x 50 apps, 1 generation, horizon 300 s
      (cut from 2400) — wall,
      generations/s, rollouts/s, the slowest generation's ticks,
      placement steps and host reads, CUDA-event ms, peak memory, the
@@ -163,7 +172,7 @@ Phases, each fatal on failure:
      (``tests/data/calibrate_seed0.json``; egress within rtol 1e-5) —
      wall, and each mode's rollout ticks, placement steps and host
      reads; (b) the README's ``ensemble --policy opportunistic
-     --congestion`` with ``--checkpoint`` at R = 64 (cut from 1024;
+     --congestion`` with ``--checkpoint`` at R = 32 (cut from 1024;
      50 apps, 600 hosts), its first 16 replicas equal to
      ``pivot_tpu``'s R = 16 run
      (``tests/data/ensemble_congestion_seed0.npz``) — wall, rollouts/s,
@@ -324,16 +333,26 @@ Phases, each fatal on failure:
      sharded passes on meshes of S = 1 and 4 logical shards of the card,
      per-step and chunk (C = 8), each placement and availability bit for
      bit the unsharded torch form's, every call timed by CUDA events
-     beside the unsharded per-step and chunk forms; the Cost-Aware pass
-     (sharded and not) against ``greedy_place`` on a tick of H = 9,664,
-     the largest shape the kernel holds that phase 2 builds (placements
-     equal, availability within the tolerance); (b) ``overall``'s VBP and
+     beside the unsharded per-step and chunk forms; then ``greedy_place``
+     at that tick (a cluster of 16 CTAs a replica) at R = 1, R = 4
+     replicas and G = 2 rows (each its own tick and step bound), held
+     against the Cost-Aware pass unsharded and at S = 1 and 4 (replica
+     by replica, row by row; placements equal, availability within the
+     tolerance) and against its plain form, and timed — wrapper and bare
+     launch by CUDA events, the plain form by host clock — beside the
+     bound and the torch pass's times; (b) ``overall``'s VBP and
      Cost-Aware arms at 600 hosts x 30 apps through ``ExperimentRun``
      with ``enable_sharding`` over 4 logical shards, each ``general.json``
      byte-equal to the unsharded run's (Cost-Aware with
      ``use_kernel=False``; VBP unsharded on ``carry_free_place``, sharded
      on the torch passes), spans engaged, no ``greedy_place`` launch
-     (counts zeroed just before each run and read just after).
+     (counts zeroed just before each run and read just after); (c)
+     ``overall``'s Cost-Aware arm on cuda at 20,480 hosts x 10 apps
+     through ``ExperimentRun``, unsharded: every tick and span tick one
+     ``greedy_place`` launch in its cluster form (2 CTAs of 10,240 hosts;
+     launches = kernel ticks + span kernel ticks, none on the torch
+     pass), each held against its plain form after the run, and
+     ``general.json`` byte-equal to the ``use_kernel=False`` run's.
  16. the replica axis on the card (``parallel/mesh.py::replica_mesh``
      naming the card S times: S logical replica shards): (a)
      ``sharded_rollout`` over 4 shards at the ``ensemble`` defaults
@@ -446,11 +465,12 @@ Each phase logs its wall.  The line before the last is a JSON
 ``kernels`` record: ``carry_free_place`` with the launches of phases 3
 and 4 (split by arm and R) and phase 19's times, and ``greedy_place``
 (its ``launches`` split into the R = 1 launches of
-phases 3, 4, 10-14, 16 and 17, the R = 256 launches of phase 4, the R = 4
-launches of phase 14 and the per-row launches of phases 10-14, 16 and 17,
-with the per-row form's times; phase 15's path launches none, its
-comparison launch apart, and phase 18's none at all; a number
-of a phase not run is null); the
+phases 3, 4, 10-14, 15 (c), 16 and 17, the R = 256 launches of phase 4,
+the R = 4 launches of phase 14 and the per-row launches of phases 10-14,
+16 and 17, with the per-row form's times and phase 15 (a)'s pod-tick
+times; phase 15's sharded path launches none, (a)'s comparison
+launches apart, and phase 18's none at all; a number of a phase not run
+is null); the
 last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout of the repository, the script exits non-zero and prints no
@@ -518,18 +538,32 @@ def ptxas_usage_start(build, tmp):
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
+#: ``greedy_place``'s builds as ``ptxas`` names them: ``(kSmem,
+#: kCluster)`` of ``greedy_place_kernel<K, kSmem, kCluster>``; and each
+#: state's tag after K in the logs.
+GREEDY_STATES = {("0", "0"): "registers", ("1", "0"): "smem",
+                 ("1", "1"): "cluster"}
+GREEDY_TAGS = {"registers": "", "smem": "s", "cluster": "c",
+               "global": " global"}
+
+
 def ptxas_usage_lines(proc):
     """One line per kernel build: hosts per thread K, where the state
-    lives, registers, shared memory, stack and spills."""
+    lives (registers, ``smem`` of one CTA, ``cluster`` of a cluster's
+    CTAs, ``global`` memory: the global form, K 0), registers, shared
+    memory, stack and spills."""
     out, _ = proc.communicate(timeout=600)
     if proc.returncode != 0:
         raise AssertionError(f"nvcc -Xptxas -v failed:\n{out}")
     lines, cur = [], None
     for raw in out.splitlines():
-        m = re.search(r"greedy_place_kernelILi(\d+)ELb([01])E", raw)
+        m = re.search(r"greedy_place_kernelILi(\d+)ELb([01])ELb([01])E", raw)
         if "Compiling entry function" in raw and m:
             cur = dict(K=int(m.group(1)),
-                       state="smem" if m.group(2) == "1" else "registers")
+                       state=GREEDY_STATES[m.group(2), m.group(3)])
+        elif "Compiling entry function" in raw and "greedy_global_kernel" \
+                in raw:
+            cur = dict(K=0, state="global")
         elif cur is not None and "spill stores" in raw:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", raw)]
             cur.update(stack=nums[0], spill_stores=nums[1],
@@ -626,24 +660,35 @@ def check_cf_tables(build, ck) -> None:
 
 def check_shape_tables(build, ck) -> None:
     """The wrapper's copy of the launch-shape tables must be the
-    library's: thread limits, the shared-memory K, the smem formula."""
+    library's: thread limits of each (K, state), the shared-memory K,
+    the smem formulas of one CTA, of a cluster's CTA and of the global
+    form."""
     lib = build.load("greedy_place")
     lib.greedy_place_smem_bytes.restype = ctypes.c_size_t
     for K in range(1, 33):
-        for smem_state in (0, 1):
-            want = (ck._REG_THREADS.get(K, 0) if not smem_state
-                    else 1024 if K == ck._SMEM_K else 0)
-            got = lib.greedy_place_max_threads(K, smem_state)
+        for state in range(len(ck._STATES)):
+            want = (ck._REG_THREADS.get(K, 0) if state == 0
+                    else (1024 if K == ck._SMEM_K else 0) if state == 1
+                    else ck._GLOBAL_THREADS)
+            got = lib.greedy_place_max_threads(K, state)
             if got != want:
-                raise AssertionError(f"max threads of K={K} smem="
-                                     f"{smem_state}: {got} in the library, "
-                                     f"{want} in the wrapper")
-    for z in (1, 7, 31):
-        for W, G, K, s in ((1, 1, 1, 0), (2, 15, 10, 0), (4, 2, 5, 0),
-                           (19, 1, 1, 0), (32, 1, ck._SMEM_K, 1)):
-            if lib.greedy_place_smem_bytes(z, W, G, K, s) != \
-                    ck._smem_bytes(z, W, G, K, bool(s)):
-                raise AssertionError(f"smem bytes differ at {z, W, G, K, s}")
+                raise AssertionError(f"max threads of K={K} state="
+                                     f"{ck._STATES[state]}: {got} in the "
+                                     f"library, {want} in the wrapper")
+    for z in (1, 7, 31, 45):
+        for W, G, K, s, C in ((1, 1, 1, 0, 1), (2, 15, 10, 0, 1),
+                              (4, 2, 5, 0, 1), (19, 1, 1, 0, 1),
+                              (32, 1, ck._SMEM_K, 1, 1),
+                              (17, 1, ck._SMEM_K, 1, 2),
+                              (20, 1, ck._SMEM_K, 1, 16),
+                              (32, 1, ck._SMEM_K, 1, 16)):
+            if lib.greedy_place_smem_bytes(z, W, G, K, s, C) != \
+                    ck._smem_bytes(z, W, G, K, bool(s), C):
+                raise AssertionError(f"smem bytes differ at "
+                                     f"{z, W, G, K, s, C}")
+        if lib.greedy_place_smem_bytes(z, 32, 1, 0, 2, 1) != \
+                ck._global_smem_bytes(z):
+            raise AssertionError(f"global-form smem bytes differ at Z={z}")
     log("  launch-shape tables: wrapper = library")
 
 
@@ -803,16 +848,40 @@ def dense_floor(args, R=1) -> int:
 
 EDGE_CASES = ["ties", "h1", "h33", "h100", "risk_zeros", "zero_bw",
               "nan_only"]
+#: The edge cases of a replica split over CTAs
+#: (``tests/test_torch_greedy.py::CTA_EDGE_CASES``), and the host counts
+#: phase 2 runs them at: the least H of each cluster size C = 2, 4, 8, 16
+#: (the last one the pod tick's 98,304, whose C = 16 CTAs hold 6,144
+#: hosts each) and one host past the cluster form (the global form).
+CTA_EDGE_CASES = ["cta_ties", "cta_last", "cta_masked", "cta_risk",
+                  "cta_nan"]
+CTA_EDGE_HS = ((10241, 2), (20481, 4), (40961, 8), (98304, 16),
+               (163841, 1))
 
 
-def edge_inputs(name, device):
+def cta_slice(ck, H):
+    """``tests/test_torch_greedy.py::cta_slice``: hosts a CTA of ``H``
+    hosts' launch shape holds (the global form: the 16-CTA width)."""
+    cfg = ck._launch_config(1, H, Z)
+    return -(-H // (cfg.cluster if cfg.cluster > 1 else ck.MAX_CLUSTER))
+
+
+def edge_inputs(name, device, H=None):
     """``tests/test_torch_greedy.py::edge_inputs`` on ``device``: a dense
     40-task tick on one selection edge case (ties across warp boundaries
     at hosts 31/32 and 63/64 = H − 1; H = 1, 33, 100; a risk row of ±0.0;
-    +inf and NaN scores from zero bandwidth).  Returns the nine operands
-    and the extra keyword tensors."""
+    +inf and NaN scores from zero bandwidth; and at ``H`` hosts split
+    over CTAs of :func:`cta_slice` hosts: ties across every CTA
+    boundary, the winners in the last CTA, the first CTA all
+    ``live``-masked, ±0.0 risk, a NaN risk on one small host of the last
+    CTA).  Returns the nine operands and the extra keyword tensors."""
+    from pivot_tpu_torch.ops import cuda_kernels as ck
+
     rng = np.random.default_rng(sum(map(ord, name)))
-    H = {"h1": 1, "h33": 33, "h100": 100}.get(name, 65)
+    if name in CTA_EDGE_CASES:
+        H = H or CTA_EDGE_HS[1][0]
+    else:
+        H = {"h1": 1, "h33": 33, "h100": 100}.get(name, 65)
     T = 40
     avail = rng.uniform(0, 16, size=(H, 4)).astype(np.float32)
     demands = np.stack([rng.choice([0.0, 0.5, 1.0, 2.0], size=T),
@@ -844,6 +913,28 @@ def edge_inputs(name, device):
         bw[5, 5] = 0.0
         host_zone[:] = 5
         anchor[:] = 5
+    elif name in CTA_EDGE_CASES:
+        w = cta_slice(ck, H)
+        starts = list(range(w, H, w))  # the first host of each later CTA
+        if name == "cta_ties":
+            avail[:] = 1.5
+            for b in starts:
+                avail[[b - 1, b]] = 9.0
+            host_zone[:] = 3
+            counts[:] = 2
+        elif name == "cta_last":
+            avail[: starts[-1]] = 0.25
+        elif name == "cta_masked":
+            avail[:w] = 15.5
+            live = np.ones(H, bool)
+            live[:w] = False
+            kw["live"] = live
+        else:
+            risk = rng.choice([-0.0, 0.0, 0.25], size=H).astype(np.float32)
+            if name == "cta_nan":
+                risk[H - 2] = np.nan
+                avail[H - 2] = [0.75, 0.75, 1.0, 1.0]
+            kw["risk"] = risk
     args = [torch.from_numpy(x).to(device) for x in (
         avail, demands, valid, new_group, anchor, cost, bw, host_zone,
         counts)]
@@ -954,6 +1045,40 @@ def phase_kernel_vs_plain(ck, device) -> Check:
             if name == "nan_only" and mode["sort_hosts"] and bool(
                     (want[0] >= 0).any()):
                 raise AssertionError("a NaN minimum placed a task")
+    # Past one CTA: the CTA edge cases at each cluster size and in the
+    # global form, every mode; and the replica-batched (R = 3) and
+    # per-row (G = 2) launches of a cluster and of the global form.
+    for H, C in CTA_EDGE_HS:
+        cfg = ck._launch_config(1, H, Z)
+        if cfg.cluster != C or (C == 1) != (cfg.state == "global"):
+            raise AssertionError(f"H={H}: {cfg}, not the C={C} form")
+        for name in CTA_EDGE_CASES:
+            args, kw = edge_inputs(name, device, H)
+            for mode in MODES:
+                got = ck.cost_aware_cuda(*args, **mode, **kw)
+                chk.same(got, ck.cost_aware_plain(*args, **mode, **kw),
+                         ("cta edge", name, H, cfg.state, C, mode))
+                if "live" in kw:
+                    placed = got[0][got[0] >= 0].long()
+                    if not bool(kw["live"][placed].all()):
+                        raise AssertionError("placed on a masked host")
+    for H in (CTA_EDGE_HS[1][0], CTA_EDGE_HS[-1][0]):
+        for dense in (False, True):
+            args = make_inputs(11, 40, H, device, dense=dense)
+            noise = torch.from_numpy(np.random.default_rng(9).uniform(
+                0.5, 1.5, (3, H, 1)).astype(np.float32)).to(device)
+            avail_r = (args[0][None] * noise).contiguous()
+            rargs, rkw = rows_inputs(12, 2, 40, H, device, dense=dense,
+                                     live=True, risk=dense)
+            for mode in (MODES[0], MODES[4]):
+                chk.same(
+                    ck.cost_aware_cuda_batched(avail_r, *args[1:], **mode),
+                    ck.cost_aware_plain_batched(avail_r, *args[1:], **mode),
+                    ("cta batched", H, mode, dense),
+                    dense_floor(args, 3) if dense else 0)
+                chk.same(ck.cost_aware_cuda_rows(*rargs, **mode, **rkw),
+                         ck.cost_aware_plain_rows(*rargs, **mode, **rkw),
+                         ("cta rows", H, mode, dense))
     # Every shape the phase-4 sweep times, and the shared-memory state.
     for dense in (False, True):
         for R, T, H in ((1, 619, 600), (256, 619, 600), (1, 64, 9664)):
@@ -2537,8 +2662,9 @@ SW_HOST_COUNTS = (100, 300, 600)
 SW_APP_COUNTS = (3, 6, 10)
 SW_APP_ARMS = ("opportunistic", "first-fit", "cost-aware")
 #: Phase 7 (b): the README's sweep commands at full width through the CLI
-#: (``apps`` cut from 100 500 1000 apps to 10 15, the faulted ensembles
-#: and ``capacity`` from 50 apps to 25, the faulted ensembles' replicas
+#: (``apps`` cut from 100 500 1000 apps to 10 15: its wall follows its
+#: ~2,800 ticks, not its app counts, so fewer counts buy no time; the
+#: faulted ensembles and ``capacity`` from 50 apps to 25, their replicas
 #: from 256 to ``SW_FAULT_MAIN_REPLICAS``, ``autotune``'s replicas a
 #: candidate from 32 to ``SW_AUTOTUNE_REPLICAS``: PERF.md, section 4).
 SW_FAULT_MAIN_REPLICAS = 64
@@ -3098,7 +3224,7 @@ def sr_record_cem(cem, env, anchors):
 #: cut from 4 generations to 1, and its horizon — the ticks it walks —
 #: from 2400 s to ``SR_POPULATION_HORIZON``: PERF.md, section 4).  Each
 #: with the rows a generation must have.
-SR_POPULATION_HORIZON = 600
+SR_POPULATION_HORIZON = 300
 SR_MAIN = (
     ("1 cem, README quickstart", 96,
      ["search", "--method", "cem", "--generations", "6", "--popsize", "12",
@@ -3385,7 +3511,7 @@ CAL_RUNS = {"modes": (), "realtime": ("--realtime",)}
 CAL_RTOL = 1e-5
 CG_FIXTURE = "tests/data/ensemble_congestion_seed0.npz"
 CG_ARGV = ("--policy", "opportunistic", "--congestion")
-CG_REPLICAS = 64  # cut from 1024 for the script's 1,200 s (PERF.md, 4)
+CG_REPLICAS = 32  # cut from 1024 for the script's 1,200 s (PERF.md, 4)
 CG_CHECK_REPLICAS = 16
 CG_APPS = 10
 CG_SMALL_REPLICAS = 4
@@ -6035,22 +6161,25 @@ def p14_budget(configs, ptxas_rows) -> dict:
                              (ck._launch_config(SENS_REPLICAS, 600, Z), Z)}
     rows = []
     for cfg, z in sorted(shapes, key=lambda c: (c[1], tuple(c[0]))):
-        static = model.smem_bytes(z, cfg.warps, cfg.groups,
-                                  cfg.hosts_per_thread, cfg.smem_state)
+        static = (model.global_bytes(z) if cfg.state == "global" else
+                  model.smem_bytes(z, cfg.warps, cfg.groups,
+                                   cfg.hosts_per_thread, cfg.smem_state,
+                                   cfg.cluster))
         if static != cfg.smem_bytes or static > optin:
             raise AssertionError(
                 f"(b) {cfg} at Z={z}: the pass counts {static} B of shared "
                 f"memory, _launch_config {cfg.smem_bytes} B, the card's "
                 f"opt-in {optin} B")
         rows.append(dict(W=cfg.warps, K=cfg.hosts_per_thread,
-                         smem_state=cfg.smem_state, G=cfg.groups, Z=z,
+                         state=cfg.state, G=cfg.groups, C=cfg.cluster, Z=z,
                          smem_bytes=static))
     bad = kb.register_findings(ptxas_rows, H100_REGS_PER_BLOCK)
     if bad or not ptxas_rows:
         raise AssertionError(f"(b) registers: {[str(f) for f in bad]} "
                              f"({len(ptxas_rows)} ptxas rows)")
     regs = [dict(K=r["K"], state=r["state"], registers=r["registers"],
-                 threads=model.max_threads(r["K"], r["state"] == "smem"),
+                 threads=model.max_threads(r["K"],
+                                           r["state"] != "registers"),
                  spill_stores=r.get("spill_stores"),
                  spill_loads=r.get("spill_loads")) for r in ptxas_rows]
     log(f"  (b) kernel-budget on the card: {len(rows)} launch shapes, "
@@ -6058,13 +6187,13 @@ def p14_budget(configs, ptxas_rows) -> dict:
         f"{max(r['smem_bytes'] for r in rows)} B against the card's opt-in "
         f"{optin} B (roofline H100_SMEM_OPTIN_BYTES "
         f"{ck._SMEM_LIMIT}); registers x threads <= {H100_REGS_PER_BLOCK}: "
-        + ", ".join(f"K={r['K']}{'s' if r['state'] == 'smem' else ''} "
+        + ", ".join(f"K={r['K']}{GREEDY_TAGS[r['state']]} "
                     f"{r['registers']}x{r['threads']}"
                     f"={r['registers'] * r['threads']}" for r in regs))
     spills = [r for r in regs if r["spill_stores"] or r["spill_loads"]]
     log("  (b) spills (printed, not failed): " + (", ".join(
-        f"K={r['K']} {r['spill_stores']} B stored / {r['spill_loads']} B "
-        "loaded" for r in spills) or "none"))
+        f"K={r['K']}{GREEDY_TAGS[r['state']]} {r['spill_stores']} B stored "
+        f"/ {r['spill_loads']} B loaded" for r in spills) or "none"))
     from pivot_tpu_torch.infra.roofline import H100_MAX_THREADS_PER_BLOCK
 
     cf_model = kb.cf_model()
@@ -6365,17 +6494,26 @@ def phase_tooling(device, configs, ptxas_rows, oneshot) -> dict:
 P15_T, P15_H = 256, 98_304
 P15_SHARDS = (1, 4)
 P15_CHUNK = 8
-P15_REPS = 3
-#: greedy_place holds at most ``cuda_kernels.MAX_HOSTS`` (10,240) hosts,
-#: so the Cost-Aware pass is held against it on a tick of phase 2's
-#: largest shape (the shared-memory-state build).
-P15_GREEDY_H = 9664
+#: Calls each torch-pass time averages: cut from 3 when (c) came, for the
+#: script's 1,200 s (PERF.md, section 4).
+P15_REPS = 2
 P15_ARMS = ("opportunistic", "first-fit", "best-fit", "cost-aware")
 #: The ``overall`` Cost-Aware arm's pass (``reference_policy_set``).
 P15_CA = dict(bin_pack="first-fit", sort_hosts=True, host_decay=False)
+#: ``greedy_place`` at the pod tick (a cluster of 16 CTAs): its R = 4
+#: replicas, its G = 2 rows (row 1 bounded 37 steps short), the calls
+#: each CUDA-event time averages.
+P15_GREEDY_R = 4
+P15_GREEDY_G = 2
+P15_ROW_SHORT = 37
+P15_KERNEL_REPS = 5
 #: Phase 15 (b): logical shards of the mesh and the apps of each run.
 P15_E2E_SHARDS = 4
 P15_APPS = 30
+#: Phase 15 (c): ``overall``'s Cost-Aware arm past one CTA (a cluster of
+#: 2 CTAs of 10,240 hosts at the CLI's 31 zones), and its apps.
+P15_WIDE_HOSTS = 20480
+P15_WIDE_APPS = 10
 
 
 def p15_inputs(seed, T, H, device) -> dict:
@@ -6428,8 +6566,8 @@ def p15_exact(got, want, what) -> None:
 def p15_pod(device, ck, chk) -> dict:
     """Phase 15 (a): the four arms at pod scale through the sharded
     passes at S in P15_SHARDS, per-step and chunk, each exactly the
-    unsharded form's result and timed beside it; the Cost-Aware pass
-    held against ``greedy_place`` on a tick it holds."""
+    unsharded form's result and timed beside it; then ``greedy_place``
+    at the same tick in its three launches (:func:`p15_greedy`)."""
     from pivot_tpu_torch.parallel.mesh import host_sharded_mesh
 
     x = p15_inputs(15, P15_T, P15_H, device)
@@ -6458,28 +6596,185 @@ def p15_pod(device, ck, chk) -> dict:
             "bit; ms per call (CUDA events, mean of "
             f"{P15_REPS}): " + ", ".join(
                 f"{k[:-3]} {v!r}" for k, v in row.items() if k != "placed"))
-    g = p15_inputs(16, P15_T, P15_GREEDY_H, device)
-    args = (g["avail"], g["dem"], g["valid"], g["ng"], g["az"], g["cost"],
-            g["bw"], g["hz"], g["counts"])
-    n0 = ck.LAUNCHES["greedy_place"]
-    kernel = ck.cost_aware_cuda(*args, **P15_CA, n_eff=P15_T)
-    compare = ck.LAUNCHES["greedy_place"] - n0
-    torch_ca = p15_call("cost-aware", g)
-    chk.same(torch_ca, kernel, f"cost-aware H={P15_GREEDY_H} unsharded "
-             "vs greedy_place", min_placed=dense_floor(args))
-    for S in P15_SHARDS:
-        got = p15_call("cost-aware", g,
-                       host_sharded_mesh(devices=[device] * S))
-        p15_exact(got, torch_ca, f"cost-aware H={P15_GREEDY_H} S={S}")
-        chk.same(got, kernel, f"cost-aware H={P15_GREEDY_H} S={S} vs "
-                 "greedy_place", min_placed=dense_floor(args))
-    log(f"  (a) cost-aware at H={P15_GREEDY_H} (greedy_place's largest "
-        f"tested shape; it holds at most {ck.MAX_HOSTS} hosts): S="
-        f"{'/'.join(map(str, P15_SHARDS))} and unsharded placements = "
-        f"greedy_place's ({int((kernel[0] >= 0).sum())} placed, "
-        f"{compare} comparison launch), max |avail diff| "
+    compare0 = ck.LAUNCHES["greedy_place"]
+    greedy = p15_greedy(device, ck, chk, x, rec["cost-aware"], meshes)
+    return dict(arms=rec, greedy=greedy,
+                compare_launches=ck.LAUNCHES["greedy_place"] - compare0)
+
+
+def p15_torch_ca(x, meshes, chk, kernel, what) -> None:
+    """The Cost-Aware torch pass on the tick ``x``, unsharded and on each
+    mesh (bit for bit the unsharded), each held against ``kernel``, the
+    ``greedy_place`` result (placements equal, availability within the
+    tolerance)."""
+    want = p15_call("cost-aware", x)
+    chk.same(kernel, want, f"{what}: unsharded torch pass vs greedy_place",
+             min_placed=int(x["valid"].sum()) // 4)
+    for S, mesh in meshes.items():
+        got = p15_call("cost-aware", x, mesh)
+        p15_exact(got, want, f"{what}: cost-aware S={S}")
+        chk.same(kernel, got, f"{what}: S={S} torch pass vs greedy_place")
+
+
+def p15_greedy(device, ck, chk, x, ca, meshes) -> dict:
+    """Phase 15 (a)'s hand kernel at the pod tick, in its three launches:
+    R = 1 (``cost_aware_cuda``), ``P15_GREEDY_R`` replicas
+    (``cost_aware_cuda_batched``, the availability scaled per replica)
+    and ``P15_GREEDY_G`` rows (``cost_aware_cuda_rows``, row 1 its own
+    tick with its step bound ``P15_ROW_SHORT`` short): each held against
+    the Cost-Aware torch pass (unsharded and every mesh, replica by
+    replica, row by row) and its plain form, then timed — the wrapper
+    and the bare launch by CUDA events, the plain form by host clock —
+    beside the bound and the torch pass's times of the arms loop
+    (``ca``)."""
+    keys = ("avail", "dem", "valid", "ng", "az", "cost", "bw", "hz",
+            "counts")
+    T, H = P15_T, P15_H
+    kw = dict(P15_CA, n_eff=T)
+    a = [x[k] for k in keys]
+    out = {}
+
+    def timed(key, R, fn, go, plain, b):
+        ms = _events_ms(fn, P15_KERNEL_REPS)
+        kernel_ms = _events_ms(go, P15_KERNEL_REPS)
+        out[key] = dict(
+            R=R, ms=ms, kernel_ms=kernel_ms,
+            ns_per_step=kernel_ms * 1e6 / T,
+            plain_ms=_host_ms(plain, 1), bound_ms=b[0], bound_by=b[1],
+            torch_step_ms=ca["unsharded_step_ms"],
+            torch_chunk_ms=ca["unsharded_chunk_ms"],
+            **{f"S{S}_step_ms": ca[f"S{S}_step_ms"] for S in meshes})
+        log(f"  (a) greedy_place {key} (H={H}, T={T}, "
+            f"{ck._launch_config(1, H, Z).cluster} CTAs a replica): wrapper "
+            f"{ms!r} ms, kernel_ms {kernel_ms!r} "
+            f"({out[key]['ns_per_step']!r} ns a step), plain "
+            f"{out[key]['plain_ms']!r} ms, bound {b[0]!r} ms ({b[1]}); the "
+            f"torch pass unsharded per-step {ca['unsharded_step_ms']!r} ms "
+            f"a tick")
+
+    # R = 1.
+    kernel = ck.cost_aware_cuda(*a, **kw)
+    p15_torch_ca(x, meshes, chk, kernel, "R=1")
+    chk.same(kernel, ck.cost_aware_plain(*a, **kw), "R=1 plain")
+    timed("R=1", 1, lambda: ck.cost_aware_cuda(*a, **kw),
+          bare_launch(ck, a, kw)[0], lambda: ck.cost_aware_plain(*a, **kw),
+          bound(a, kw, 1, T))
+    # R replicas sharing the stream.
+    R = P15_GREEDY_R
+    noise = torch.from_numpy(np.random.default_rng(9).uniform(
+        0.5, 1.5, (R, H, 1)).astype(np.float32)).to(device)
+    ar = [(x["avail"][None] * noise).contiguous(), *a[1:]]
+    kernel = ck.cost_aware_cuda_batched(*ar, **kw)
+    for r in range(R):
+        p15_torch_ca(dict(x, avail=ar[0][r]), meshes, chk,
+                     (kernel[0][r], kernel[1][r]), f"R={R} replica {r}")
+    chk.same(kernel, ck.cost_aware_plain_batched(*ar, **kw), f"R={R} plain")
+    timed(f"R={R}", R, lambda: ck.cost_aware_cuda_batched(*ar, **kw),
+          bare_launch(ck, ar, kw)[0],
+          lambda: ck.cost_aware_plain_batched(*ar, **kw),
+          bound(ar, kw, R, T))
+    # G rows, each its own tick.
+    G = P15_GREEDY_G
+    rows = [x] + [p15_inputs(15 + g, T, H, device) for g in range(1, G)]
+    bounds = [T] + [T - P15_ROW_SHORT] * (G - 1)
+    for row, n in zip(rows[1:], bounds[1:]):
+        row["valid"][n:] = False  # the bound is one past the last valid
+    ag = [torch.stack([row[k] for row in rows]).contiguous() for k in keys]
+    rkw = dict(P15_CA, n_eff_g=torch.tensor(bounds, dtype=torch.int32,
+                                            device=device))
+    kernel = ck.cost_aware_cuda_rows(*ag, **rkw)
+    for g, row in enumerate(rows):
+        p15_torch_ca(row, meshes, chk, (kernel[0][g], kernel[1][g]),
+                     f"G={G} row {g}")
+    chk.same(kernel, ck.cost_aware_plain_rows(*ag, **rkw), f"G={G} plain")
+    timed(f"G={G}", G, lambda: ck.cost_aware_cuda_rows(*ag, **rkw),
+          bare_rows_launch(ck, ag, rkw),
+          lambda: ck.cost_aware_plain_rows(*ag, **rkw), rows_bound(ag, rkw))
+    log(f"  (a) cost-aware at the pod tick: the torch pass (unsharded, S="
+        f"{'/'.join(map(str, P15_SHARDS))}) = greedy_place at R=1, R={R} "
+        f"and G={G} (placements equal), max |avail diff| "
         f"{chk.max_abs_err!r}")
-    return dict(arms=rec, compare_launches=compare)
+    return out
+
+
+def p15_wide(device, ck, chk) -> dict:
+    """Phase 15 (c): ``overall``'s Cost-Aware arm on cuda at
+    ``P15_WIDE_HOSTS`` hosts x ``P15_WIDE_APPS`` apps through
+    ``ExperimentRun``, unsharded: every tick and span tick one
+    ``greedy_place`` launch (launches = kernel ticks + span kernel
+    ticks, every device tick a kernel tick: none on the torch pass), in
+    the cluster form, each launch recorded (``R1Tap``) and held against
+    the plain form after the run; ``general.json`` byte-equal to the
+    same run with ``use_kernel=False`` (the torch pass, no launch).
+    Counts are zeroed just before each run and read just after."""
+    from pivot_tpu_torch.experiments import cli
+    from pivot_tpu_torch.experiments.runner import ExperimentRun
+    from pivot_tpu_torch.utils import reset_ids
+    from pivot_tpu_torch.utils.config import (
+        build_cluster,
+        make_policy,
+        reference_policy_set,
+    )
+
+    cluster_cfg = cli._cluster_config(cli.parse_args(
+        ["--num-hosts", str(P15_WIDE_HOSTS), "overall"]))
+    pc = next(p for p in reference_policy_set("cuda")
+              if p.name == "cost-aware")
+    runs = {}
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
+        for name, use_kernel in (("kernel", None), ("torch", False)):
+            policy = make_policy(pc, torch_device=str(device))
+            policy.use_kernel = use_kernel
+            reset_ids()
+            tap = R1Tap()
+            with tap:
+                ck.reset_launches()  # the path's count starts here
+                t0 = time.perf_counter()
+                summary = ExperimentRun(
+                    pc.label, build_cluster(cluster_cfg), policy, TRACE,
+                    n_apps=P15_WIDE_APPS, seed=0,
+                    data_dir=os.path.join(tmp, name)).run()
+                wall = time.perf_counter() - t0
+                launches = ck.LAUNCHES["greedy_place"]
+                by_r = dict(ck.LAUNCHES_BY_REPLICAS)
+            with open(os.path.join(tmp, name, pc.label, "general.json"),
+                      "rb") as f:
+                general = f.read()
+            runs[name] = dict(wall_s=wall, launches=launches, by_r=by_r,
+                              general=general, tap=tap,
+                              spans=summary["spans"],
+                              dispatch=summary["dispatch"])
+    k, t = runs["kernel"], runs["torch"]
+    d = k["dispatch"]
+    H = int(k["tap"].calls[0][0][0].shape[1]) if k["tap"].calls else None
+    cfg = ck._launch_config(1, P15_WIDE_HOSTS, Z)
+    if not (k["launches"] > 0 and d["device_ticks"] > 0
+            and d["kernel_ticks"] == d["device_ticks"]
+            and k["launches"] == d["kernel_ticks"] + d["span_kernel_ticks"]
+            and set(k["by_r"]) == {1} and H == P15_WIDE_HOSTS
+            and cfg.cluster > 1):
+        raise AssertionError(
+            f"(c) Cost-Aware at {P15_WIDE_HOSTS} hosts: {k['launches']} "
+            f"greedy_place launches {k['by_r']} at H={H} for {d}; shape "
+            f"{cfg}")
+    if t["launches"] or t["tap"].calls:
+        raise AssertionError("(c) the use_kernel=False run launched "
+                             "greedy_place")
+    k["tap"].hold(chk, k["by_r"], "15 (c)")
+    if k["general"] != t["general"]:
+        raise AssertionError(f"(c) general.json on greedy_place differs "
+                             f"from the torch pass's at {P15_WIDE_HOSTS} "
+                             "hosts")
+    log(f"  (c) Cost-Aware, {P15_WIDE_APPS} apps at {P15_WIDE_HOSTS} hosts "
+        f"on cuda: {k['launches']} greedy_place launches ({cfg.cluster} "
+        f"CTAs of {cfg.threads} threads a replica) = {d['kernel_ticks']} "
+        f"kernel ticks + {d['span_kernel_ticks']} span kernel ticks, each "
+        f"held against cost_aware_plain; general.json byte-equal to the "
+        f"use_kernel=False run (0 launches); walls {k['wall_s']!r} / "
+        f"{t['wall_s']!r} s; max |avail diff| {chk.max_abs_err!r}")
+    return dict(launches=k["launches"], dispatch=d, spans=k["spans"],
+                wall_s=k["wall_s"], torch_wall_s=t["wall_s"],
+                cluster=cfg.cluster)
 
 
 def p15_e2e(device) -> dict:
@@ -6568,9 +6863,13 @@ def phase_sharding(device, ck) -> dict:
     t1 = time.perf_counter()
     log(f"  (a): {t1 - t0!r} s")
     e2e = p15_e2e(device)
-    log(f"  (b): {time.perf_counter() - t1!r} s")
-    return dict(pod=pod["arms"], e2e=e2e,
+    t2 = time.perf_counter()
+    log(f"  (b): {t2 - t1!r} s")
+    wide = p15_wide(device, ck, chk)
+    log(f"  (c): {time.perf_counter() - t2!r} s")
+    return dict(pod=pod["arms"], greedy=pod["greedy"], e2e=e2e, wide=wide,
                 launches=sum(r["launches"] for r in e2e.values()),
+                wide_launches=wide["launches"],
                 compare_launches=pod["compare_launches"],
                 max_abs_err=chk.max_abs_err)
 
@@ -7976,7 +8275,7 @@ P19_SWEEP_MID = ((4097, (4, 8, 16), (4, 8, 16)),
 #: Timed launches a measurement (CUDA events); the plain form's pace is
 #: its host loop, so it takes fewer.
 P19_REPS = 20
-P19_PLAIN_REPS = 2
+P19_PLAIN_REPS = 1
 
 
 def p19_inputs(seed, T, H, device, R=None, risk=False, live=False,
@@ -8675,6 +8974,13 @@ def main(argv=None) -> int:
             for line in ptxas_usage_lines(ptxas):
                 log(f"  ptxas {line}")
                 ptxas_rows.append(json.loads(line))
+            spilled = [r for r in ptxas_rows
+                       if r["spill_stores"] or r["spill_loads"]]
+            log(f"  greedy_place spills in {len(spilled)} of "
+                f"{len(ptxas_rows)} builds: " + (", ".join(
+                    f"K={r['K']}{GREEDY_TAGS[r['state']]} "
+                    f"{r['spill_stores']}/{r['spill_loads']} B"
+                    for r in spilled) or "none"))
             cf_rows = cf_ptxas_lines(cf_ptxas)
         from pivot_tpu_torch.analysis import kernel_budget as kb
         from pivot_tpu_torch.infra.roofline import H100_REGS_PER_BLOCK
@@ -8813,8 +9119,10 @@ def main(argv=None) -> int:
         log(f"== 15. host sharding on the card: the four arms at "
             f"H={P15_H}, T={P15_T} through the sharded passes (S="
             f"{'/'.join(map(str, P15_SHARDS))}, per-step and C="
-            f"{P15_CHUNK}), overall's VBP and Cost-Aware arms sharded over "
-            f"{P15_E2E_SHARDS} logical shards")
+            f"{P15_CHUNK}) and greedy_place there (R=1, R={P15_GREEDY_R}, "
+            f"G={P15_GREEDY_G}), overall's VBP and Cost-Aware arms sharded "
+            f"over {P15_E2E_SHARDS} logical shards, overall's Cost-Aware "
+            f"arm at {P15_WIDE_HOSTS} hosts on greedy_place")
         p15 = phase_sharding(device, ck)
         walls[15] = time.perf_counter() - tp
         census_line(census, 15)
@@ -8929,23 +9237,25 @@ def main(argv=None) -> int:
     r_rows = p16 and p16["launches_rows"]
     m2_r1 = p17 and p17["launches_r1"]
     m2_rows = p17 and p17["launches_rows"]
+    w_r1 = p15 and p15["wide_launches"]
+    pod = p15 and p15["greedy"]
     record = {"kernels": [{
         "name": "greedy_place",
         "route": "cuda",
         "source": "pivot_tpu_torch/csrc/greedy_place.cu",
         "replaces": "pivot_tpu/ops/pallas_kernels.py:265",
         "launches": (e2e and ca and serve and batching and p12 and p13
-                     and p14 and p16 and p17
+                     and p14 and p15 and p16 and p17
                      and e2e["runs"]["cuda"]["launches"]
                      + sum(ca["launches"].values()) + sv_rows + sv_r1
                      + b_r1 + b_rows + m_r1 + m_rows + n_r1 + n_rows
-                     + t_r1 + p14["launches_r4"] + t_rows + r_r1 + r_rows
-                     + m2_r1 + m2_rows),
+                     + t_r1 + p14["launches_r4"] + t_rows + w_r1 + r_r1
+                     + r_rows + m2_r1 + m2_rows),
         "launches_r1": (e2e and ca and serve and batching and p12 and p13
-                        and p14 and p16 and p17
+                        and p14 and p15 and p16 and p17
                         and e2e["runs"]["cuda"]["launches"]
                         + ca["launches"][1] + sv_r1 + b_r1 + m_r1 + n_r1
-                        + t_r1 + r_r1 + m2_r1),
+                        + t_r1 + w_r1 + r_r1 + m2_r1),
         f"launches_r{SENS_REPLICAS}": ca and ca["launches"][SENS_REPLICAS],
         "launches_r4": p14 and p14["launches_r4"],
         "launches_rows": serve and batching and p12 and p13 and p14 and p16
@@ -8973,6 +9283,7 @@ def main(argv=None) -> int:
         "phase14_launches_r4": p14 and p14["launches_r4"],
         "phase14_launches_rows": t_rows,
         "phase15_launches": p15 and p15["launches"],
+        "phase15_wide_launches_r1": w_r1,
         "phase15_compare_launches": p15 and p15["compare_launches"],
         "phase16_launches_r1": r_r1,
         "phase16_launches_rows": r_rows,
@@ -8997,6 +9308,7 @@ def main(argv=None) -> int:
         "span_rows_plain_ms": st and st["plain_ms"],
         "span_rows_bound_ms": st and st["bound_ms"],
         "span_rows_bound_by": st and st["bound_by"],
+        "pod_tick": pod,
     }, cf_record(e2e, sens, p14, p15, p19)]}
     log(f"  smoke wall: {time.perf_counter() - t_start!r} s")
     print(card, flush=True)

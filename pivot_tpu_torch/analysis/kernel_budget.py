@@ -9,25 +9,31 @@ card's opt-in shared memory and threads per block).
 Counterpart of ``pivot_tpu/analysis/pallas_budget.py``.  The reference
 recomputes each Pallas kernel's VMEM footprint from its BlockSpecs and
 holds it against the hand formulas the auto-sizer trusts and the
-roofline's budget.  The port's one hand kernel sizes its launch against
-two tables that exist twice — once in ``csrc/greedy_place.cu``
-(``table_bytes`` / ``group_bytes`` / ``smem_bytes``, ``max_threads``,
-the instantiated K of ``dispatch``) and once in the Python sizer
-``ops/cuda_kernels.py`` (``_smem_bytes``, ``_REG_THREADS``, ``_SMEM_K``,
-``_SMEM_LIMIT``).  A copy edited without the other launches a block the
-kernel refuses, or one whose shared memory overruns its opt-in.  This
-pass closes the loop without a card:
+roofline's budget.  ``greedy_place`` sizes its launch against tables
+that exist twice — once in ``csrc/greedy_place.cu`` (``table_bytes`` /
+``group_bytes`` / ``cluster_bytes`` / ``smem_bytes`` / ``global_bytes``,
+``max_threads``, ``kMaxCluster``, the instantiated K of ``dispatch``)
+and once in the Python sizer ``ops/cuda_kernels.py`` (``_smem_bytes``,
+``_global_smem_bytes``, ``_REG_THREADS``, ``_SMEM_K``, ``MAX_CLUSTER``,
+``_GLOBAL_THREADS``, ``_SMEM_LIMIT``).  A copy edited without the other
+launches a block the kernel refuses, or one whose shared memory overruns
+its opt-in.  This pass closes the loop without a card:
 
-  1. **Read** the CUDA formulas' constants from the source (the bytes a
-     [Z, Z] table entry pair, a staged task and a cross-warp slot take,
-     the chunk cap, the shared-memory K, each K's thread limit).  A
-     formula rewritten past what the pass can read is itself a finding.
-  2. **Drift check**: the Python sizer equals the CUDA formula at every
-     probe point, and the thread tables and instantiated K agree.
+  1. **Read** the CUDA source: its named constants (``kSmemK``,
+     ``kMaxCluster``, ``kMaxChunk``) and its sizing functions
+     (``align16``, ``chunk_of``, ``table_bytes``, ``group_bytes``,
+     ``cluster_bytes``, ``smem_bytes``, ``global_bytes``,
+     ``max_threads``), translated to Python and evaluated as
+     ``carry_free_place``'s are.  A formula rewritten past what the
+     pass can read is itself a finding.
+  2. **Drift check**: the Python sizers equal the CUDA formulas at every
+     probe point (one CTA, each cluster size, the global form), and the
+     thread tables, instantiated K and cluster limit agree.
   3. **Budget check**: the wrapper's ``_SMEM_LIMIT`` equals the H100's
      opt-in shared memory per block in ``infra/roofline.py``
      (``H100_SMEM_OPTIN_BYTES``), and the largest block the wrapper can
-     ask for (``MAX_HOSTS`` hosts at the CLI's 31 zones) fits it.
+     ask for — a CTA of the 16-CTA cluster, ``MAX_HOSTS`` hosts of it,
+     at the CLI's 31 zones — fits it.
   4. **Registers**: ``max_threads(K) × registers ≤ 65,536``
      (``H100_REGS_PER_BLOCK``) wherever a register count is known — the
      static run knows none; ``register_findings`` takes ``ptxas``'s
@@ -60,96 +66,69 @@ _CLI_ZONES = 31
 _Z_PROBES = (1, 7, 31, 64)
 _W_PROBES = (1, 2, 4, 19, 32)
 _G_PROBES = (1, 2, 15)
+_C_PROBES = (1, 2, 4, 8, 16)
 
 
 class CudaModel(NamedTuple):
-    """The constants of ``greedy_place.cu``'s sizing formulas."""
+    """``greedy_place.cu``'s sizing: its constants and its sizing
+    functions, evaluated from the source's own text."""
 
-    max_chunk: int               # kMaxChunk
     smem_k: int                  # kSmemK
-    warp: int                    # chunk_of's 32 · W
-    table_entry: int             # table_bytes: bytes per [Z, Z] entry pair
-    group_task: int              # group_bytes: bytes per staged task
-    group_slot: int              # group_bytes: bytes per warp slot
-    state_host: int              # smem_bytes: bytes per host of state
-    threads_smem: int            # max_threads(K, smem_state=true)
-    threads_by_k: Tuple[Tuple[int, int], ...]  # (K ≤ k, threads)
-    threads_default: int
+    max_cluster: int             # kMaxCluster
     ks: Tuple[int, ...]          # register-state K of dispatch()
-    launch_bounded: bool         # __launch_bounds__(max_threads(K, kSmem))
+    launch_bounded: bool         # __launch_bounds__(max_threads(K, kSmem), 1)
+    fns: Dict[str, Callable]     # _GP_FUNCTIONS, translated to Python
 
     def max_threads(self, K: int, smem_state: bool) -> int:
-        if smem_state:
-            return self.threads_smem
-        for k, t in self.threads_by_k:
-            if K <= k:
-                return t
-        return self.threads_default
+        """``max_threads`` of the CUDA source."""
+        return self.fns["max_threads"](K, smem_state)
+
+    @property
+    def threads_smem(self) -> int:
+        """The shared-memory (and global-form) builds' thread limit."""
+        return self.max_threads(self.smem_k, True)
 
     def smem_bytes(self, Z: int, W: int, G: int, K: int,
-                   smem_state: bool) -> int:
-        """``smem_bytes`` of the CUDA source."""
-        def align16(n):
-            return -(-n // 16) * 16
-        chunk = min(self.warp * W, self.max_chunk)
-        return (align16(self.table_entry * Z * Z)
-                + G * align16(self.group_task * chunk + self.group_slot * W)
-                + (self.state_host * K * self.warp * W if smem_state else 0))
+                   smem_state: bool, C: int = 1) -> int:
+        """``smem_bytes`` of the CUDA source (C CTAs a cluster)."""
+        return self.fns["smem_bytes"](Z, W, G, K, smem_state, C)
+
+    def global_bytes(self, Z: int) -> int:
+        """``global_bytes`` of the CUDA source: the global form's block."""
+        return self.fns["global_bytes"](Z)
 
 
-_PATTERNS = {
-    "max_chunk": r"constexpr\s+int\s+kMaxChunk\s*=\s*(\d+)\s*;",
-    "smem_k": r"constexpr\s+int\s+kSmemK\s*=\s*(\d+)\s*;",
-    "chunk": r"chunk_of\(int W\)\s*\{\s*return\s+(\d+)\s*\*\s*W\s*<\s*"
-             r"kMaxChunk\s*\?\s*\1\s*\*\s*W\s*:\s*kMaxChunk\s*;",
-    "table": r"table_bytes\(int Z\)\s*\{\s*return\s+align16\(\s*"
-             r"static_cast<size_t>\((\d+)\)\s*\*\s*Z\s*\*\s*Z\s*\)\s*;",
-    "group": r"group_bytes\(int W\)\s*\{\s*return\s+align16\(\s*"
-             r"static_cast<size_t>\((\d+)\)\s*\*\s*chunk_of\(W\)\s*\+\s*"
-             r"(\d+)\s*\*\s*W\s*\)\s*;",
-    "state": r"smem_state\s*\?\s*static_cast<size_t>\((\d+)\)\s*\*\s*K\s*"
-             r"\*\s*(\d+)\s*\*\s*W\s*:\s*0",
-    "threads": r"max_threads\(int K,\s*bool smem_state\)\s*\{\s*return\s+"
-               r"(.*?);\s*\}",
-}
+#: The named constants ``greedy_place.cu``'s sizing reads, and the sizing
+#: functions the pass evaluates, each with arguments it is probed at when
+#: read (:func:`_c_function`, the evaluator ``carry_free_place`` uses).
+_GP_CONSTS = ("kSmemK", "kMaxCluster", "kMaxChunk")
+_GP_FUNCTIONS = {"ceil_div": (7, 2), "align16": (17,), "chunk_of": (5,),
+                 "table_bytes": (31,), "group_bytes": (5,),
+                 "cluster_bytes": (2,), "smem_bytes": (31, 5, 1, 10, True, 2),
+                 "global_bytes": (31,), "max_threads": (4, False)}
 
 
 def parse_cuda(text: str) -> Tuple[Optional[CudaModel], List[str]]:
-    """The sizing constants of ``greedy_place.cu``, or None and the list
-    of formulas the pass could not read."""
-    hits = {k: re.search(p, text, re.S) for k, p in _PATTERNS.items()}
-    missing = [k for k, m in hits.items() if m is None]
-    if missing:
-        return None, missing
-    body = hits["threads"].group(1)
-    smem = re.match(r"\s*smem_state\s*\?\s*(\d+)\s*:", body)
-    steps = re.findall(r"K\s*<=\s*(\d+)\s*\?\s*(\d+)", body)
-    last = re.search(r":\s*(\d+)\s*$", body.strip())
-    if smem is None or not steps or last is None:
-        return None, ["threads"]
+    """The sizing of ``greedy_place.cu``: its named constants, and its
+    sizing functions (``_GP_FUNCTIONS``) translated and evaluated; or
+    None and the list of what the pass could not read."""
+    consts, missing = _c_consts(text, _GP_CONSTS)
+    ns = _c_namespace(text, _GP_FUNCTIONS, consts, missing, _CU_FILE)
     pairs = re.findall(
         r"case\s+(\d+)\s*:\s*return\s+launch<\s*(\d+)\s*,\s*false\s*>",
         text)
     if not pairs or any(a != b for a, b in pairs):
-        return None, ["dispatch"]
-    ks = tuple(sorted(int(a) for a, _ in pairs))
-    if hits["chunk"].group(1) != hits["state"].group(2):
-        return None, ["state"]
+        missing.append("dispatch")
+    if missing:
+        return None, missing
     return CudaModel(
-        max_chunk=int(hits["max_chunk"].group(1)),
-        smem_k=int(hits["smem_k"].group(1)),
-        warp=int(hits["chunk"].group(1)),
-        table_entry=int(hits["table"].group(1)),
-        group_task=int(hits["group"].group(1)),
-        group_slot=int(hits["group"].group(2)),
-        state_host=int(hits["state"].group(1)),
-        threads_smem=int(smem.group(1)),
-        threads_by_k=tuple((int(k), int(t)) for k, t in steps),
-        threads_default=int(last.group(1)),
-        ks=ks,
+        smem_k=consts["kSmemK"],
+        max_cluster=consts["kMaxCluster"],
+        ks=tuple(sorted(int(a) for a, _ in pairs)),
         launch_bounded=re.search(
-            r"__launch_bounds__\(\s*max_threads\(\s*K\s*,\s*kSmem\s*\)\s*\)",
-            text) is not None,
+            r"__launch_bounds__\(\s*max_threads\(\s*K\s*,\s*kSmem\s*\)\s*,"
+            r"\s*1\s*\)\s*greedy_place_kernel", text) is not None,
+        fns={name: ns[name] for name in _GP_FUNCTIONS},
     ), []
 
 
@@ -238,13 +217,14 @@ def cuda_model(root: Optional[str] = None) -> Optional[CudaModel]:
 def register_findings(usage, regs_per_block: int) -> List[Finding]:
     """``max_threads(K) × registers ≤ regs_per_block`` for each
     instantiation of ``usage``: rows of ``ptxas -v`` as
-    ``chip_smoke.py`` prints them (``K``, ``state``, ``registers``)."""
+    ``chip_smoke.py`` prints them (``K``, ``state`` — ``registers``,
+    ``smem``, ``cluster`` or ``global`` —, ``registers``)."""
     model = cuda_model()
     out: List[Finding] = []
     if model is None:
         return [Finding(RULE, _CU_FILE, 0, "greedy_place.cu unreadable")]
     for row in usage:
-        smem = row["state"] == "smem"
+        smem = row["state"] != "registers"
         threads = model.max_threads(row["K"], smem)
         if row["registers"] * threads > regs_per_block:
             out.append(Finding(
@@ -288,8 +268,7 @@ def _collect_greedy(cache) -> Tuple[List[Finding], List[str]]:
         out.append(Finding(
             RULE, _CU_FILE, 1,
             f"cannot read greedy_place.cu's {what!r} formula — rewritten? "
-            "update the patterns of pivot_tpu_torch/analysis/"
-            "kernel_budget.py with it",
+            "update pivot_tpu_torch/analysis/kernel_budget.py with it",
         ))
     if model is None:
         return out, scanned
@@ -297,20 +276,26 @@ def _collect_greedy(cache) -> Tuple[List[Finding], List[str]]:
         out.append(Finding(
             RULE, _CU_FILE, 1,
             "greedy_place_kernel lost __launch_bounds__(max_threads(K, "
-            "kSmem)): its register budget per thread is no longer tied "
+            "kSmem), 1): its register budget per thread is no longer tied "
             "to the thread table",
         ))
 
     vals = _module_values(wrapper, ("_SMEM_LIMIT", "_SMEM_K",
-                                    "_REG_THREADS", "MAX_HOSTS"))
+                                    "_REG_THREADS", "MAX_HOSTS",
+                                    "MAX_CLUSTER", "_GLOBAL_THREADS"))
     line = {n: v.lineno for n, v in vals.items()}
     reg_threads = _literal(vals.get("_REG_THREADS"))
     smem_k = _literal(vals.get("_SMEM_K"))
-    if not isinstance(reg_threads, dict) or not isinstance(smem_k, int):
+    max_cluster = _literal(vals.get("MAX_CLUSTER"))
+    global_threads = _literal(vals.get("_GLOBAL_THREADS"))
+    if not all(isinstance(v, int) for v in (smem_k, max_cluster,
+                                             global_threads)) \
+            or not isinstance(reg_threads, dict):
         out.append(Finding(
             RULE, _WRAPPER_FILE, 1,
-            "_REG_THREADS / _SMEM_K missing or not literals — the pass "
-            "cannot hold the wrapper's tables to the kernel's",
+            "_REG_THREADS / _SMEM_K / MAX_CLUSTER / _GLOBAL_THREADS missing "
+            "or not literals — the pass cannot hold the wrapper's tables "
+            "to the kernel's",
         ))
         return out, scanned
 
@@ -335,7 +320,20 @@ def _collect_greedy(cache) -> Tuple[List[Finding], List[str]]:
             f"_SMEM_K = {smem_k} but greedy_place.cu's kSmemK = "
             f"{model.smem_k}",
         ))
-    if model.threads_smem < model.warp * 32:
+    if max_cluster != model.max_cluster:
+        out.append(Finding(
+            RULE, _WRAPPER_FILE, line["MAX_CLUSTER"],
+            f"MAX_CLUSTER = {max_cluster} but greedy_place.cu's "
+            f"kMaxCluster = {model.max_cluster}",
+        ))
+    if global_threads != model.threads_smem:
+        out.append(Finding(
+            RULE, _WRAPPER_FILE, line["_GLOBAL_THREADS"],
+            f"_GLOBAL_THREADS = {global_threads} but greedy_place.cu's "
+            f"global form runs max_threads(kSmemK, true) = "
+            f"{model.threads_smem} threads",
+        ))
+    if model.threads_smem < 32 * 32:
         out.append(Finding(
             RULE, _CU_FILE, 1,
             f"shared-memory state allows {model.threads_smem} threads, "
@@ -356,15 +354,28 @@ def _collect_greedy(cache) -> Tuple[List[Finding], List[str]]:
                         if sizer(Z, W, G, K, False) != model.smem_bytes(
                                 Z, W, G, K, False):
                             bad.append((Z, W, G, K, False))
-                if sizer(Z, W, 1, model.smem_k, True) != model.smem_bytes(
-                        Z, W, 1, model.smem_k, True):
-                    bad.append((Z, W, 1, model.smem_k, True))
+                for C in _C_PROBES:
+                    if sizer(Z, W, 1, model.smem_k, True, C) != \
+                            model.smem_bytes(Z, W, 1, model.smem_k, True, C):
+                        bad.append((Z, W, 1, model.smem_k, True, C))
         if bad:
             out.append(Finding(
                 RULE, _WRAPPER_FILE, sizer_line,
                 f"_smem_bytes disagrees with greedy_place.cu's smem_bytes "
-                f"at {len(bad)} probe(s), first (Z, W, G, K, smem_state) "
-                f"= {bad[0]}",
+                f"at {len(bad)} probe(s), first (Z, W, G, K, smem_state"
+                f"[, C]) = {bad[0]}",
+            ))
+    gsizer, gline = _python_sizer(wrapper, "_global_smem_bytes")
+    if gsizer is None:
+        out.append(Finding(RULE, _WRAPPER_FILE, 1,
+                           "_global_smem_bytes not found in the wrapper"))
+    else:
+        bad = [Z for Z in _Z_PROBES if gsizer(Z) != model.global_bytes(Z)]
+        if bad:
+            out.append(Finding(
+                RULE, _WRAPPER_FILE, gline,
+                f"_global_smem_bytes disagrees with greedy_place.cu's "
+                f"global_bytes at Z = {bad}",
             ))
 
     # -- the budget ---------------------------------------------------------
@@ -381,11 +392,13 @@ def _collect_greedy(cache) -> Tuple[List[Finding], List[str]]:
                 f"memory per block, H100_SMEM_OPTIN_BYTES = {optin} "
                 f"({_ROOFLINE_FILE})",
             ))
-        biggest = model.smem_bytes(_CLI_ZONES, 32, 1, model.smem_k, True)
+        biggest = model.smem_bytes(_CLI_ZONES, 32, 1, model.smem_k, True,
+                                   model.max_cluster)
         if biggest > optin:
             out.append(Finding(
                 RULE, _WRAPPER_FILE, line.get("MAX_HOSTS", 1),
-                f"the largest block (MAX_HOSTS hosts, shared-memory state, "
+                f"the largest block (a CTA of the {model.max_cluster}-CTA "
+                f"cluster, MAX_HOSTS hosts of shared-memory state, "
                 f"{_CLI_ZONES} zones) needs {biggest} B of shared memory, "
                 f"above the {optin} B opt-in",
             ))
@@ -455,8 +468,9 @@ _CF_H_PROBES = (1, 7, 600, 4096, 4097, 14096, 98304, 211968, 250000)
 _CF_C_PROBES = (1, 2, 4, 8, 16)
 _CF_W_PROBES = (1, 5, 16, 32)
 #: What a translated body may hold once casts are gone: integer
-#: arithmetic, comparisons, the conditional operator, calls and braces.
-_C_EXPR = re.compile(r"[\w\s+\-*/(),<>=!?:{}]*")
+#: arithmetic, bitwise and / not, comparisons, the conditional operator,
+#: calls and braces (no logical ``&&``).
+_C_EXPR = re.compile(r"(?:[\w\s+\-*/(),<>=!?:{}~]|&(?!&))*")
 
 
 def _c_expr(e: str) -> str:
@@ -521,35 +535,51 @@ def _c_function(text: str, name: str) -> Optional[str]:
     return "\n".join(lines)
 
 
-def parse_carry_free(text: str) -> Tuple[Optional[CfModel], List[str]]:
-    """The sizing of ``carry_free_place.cu``: its named constants, and its
-    sizing functions (``_CF_FUNCTIONS``) translated and evaluated; or
-    None and the list of what the pass could not read."""
-    consts = {}
-    missing = []
-    for field, name in _CF_CONSTS.items():
+def _c_consts(text: str, names) -> Tuple[Dict[str, int], List[str]]:
+    """The ``constexpr int`` constants ``names`` of a CUDA source, and the
+    names it lacks."""
+    consts: Dict[str, int] = {}
+    missing: List[str] = []
+    for name in names:
         m = re.search(rf"constexpr\s+int\s+{name}\s*=\s*(-?\d+)\s*;",
                       text)
         if m is None:
             missing.append(name)
         else:
             consts[name] = int(m.group(1))
+    return consts, missing
+
+
+def _c_namespace(text: str, functions, consts, missing, path) -> dict:
+    """The CUDA functions ``functions`` (``{name: probe arguments}``) of
+    ``text`` translated by :func:`_c_function` into one namespace with
+    ``consts``; each one that is absent, does not translate or fails its
+    probe is appended to ``missing``."""
     ns: dict = {"__builtins__": {"min": min, "max": max}, **consts}
-    for name in _CF_FUNCTIONS:
+    for name in functions:
         src = _c_function(text, name)
         if src is None:
             missing.append(name)
             continue
         try:
-            exec(compile(src, _CF_CU_FILE, "exec"), ns)  # noqa: S102
+            exec(compile(src, path, "exec"), ns)  # noqa: S102
         except SyntaxError:
             missing.append(name)
-    for name, probe in _CF_FUNCTIONS.items():
+    for name, probe in functions.items():
         if name not in missing:
             try:
                 ns[name](*probe)
             except Exception:  # an unknown name or operator in the body
                 missing.append(name)
+    return ns
+
+
+def parse_carry_free(text: str) -> Tuple[Optional[CfModel], List[str]]:
+    """The sizing of ``carry_free_place.cu``: its named constants, and its
+    sizing functions (``_CF_FUNCTIONS``) translated and evaluated; or
+    None and the list of what the pass could not read."""
+    consts, missing = _c_consts(text, _CF_CONSTS.values())
+    ns = _c_namespace(text, _CF_FUNCTIONS, consts, missing, _CF_CU_FILE)
     builds = [int(k) for k in re.findall(
         r"case\s+(\d+)\s*:\s*return\s+launch<kArm,\s*kRisk,\s*\1>", text)]
     if not builds:

@@ -13,8 +13,13 @@ each task's choice feeds the next task's fit test — so it is
 latency-bound, not FLOP- or byte-bound.  The kernel keeps each host's
 state in registers of the thread that owns it, stages the task stream in
 shared memory a chunk ahead, and reduces with ``redux.sync``; a replica
-is a group of W warps, several groups to a block.  :func:`_launch_config`
-picks W, the hosts per thread K and the groups per block.
+is a group of W warps, several groups to a block.  Past the register
+file the state moves to the CTA's shared memory (``MAX_HOSTS`` = 10,240
+hosts), past one CTA to the shared memory of a thread-block cluster of
+up to 16 CTAs (``CLUSTER_MAX_HOSTS`` = 163,840 hosts at the CLI's 31
+zones), and past that to global memory, so every host count the
+reference takes has a shape.  :func:`_launch_config` picks the form, W,
+the hosts per thread K, the groups per block and the cluster size C.
 
 ``cost_aware_cuda_rows`` is the kernel's per-row form: G rows, each with
 its own task stream, host rows, ``[Z, Z]`` tables and step bound, in one
@@ -75,6 +80,7 @@ __all__ = [
     "LAUNCHES_BY_REPLICAS",
     "LAUNCHES_CARRY_FREE",
     "LAUNCHES_ROWS",
+    "CLUSTER_MAX_HOSTS",
     "MAX_HOSTS",
     "load_carry_free_library",
     "load_library",
@@ -126,9 +132,18 @@ _REG_THREADS = {1: 1024, 2: 1024, 3: 768, 4: 640, 5: 512, 6: 512, 8: 384,
 #: Hosts per thread once the state outgrows the register file and moves to
 #: shared memory (20 bytes a host), at up to 1,024 threads.
 _SMEM_K = 10
-#: The most hosts a replica can have: 1,024 threads of ``_SMEM_K`` hosts,
-#: the largest K whose shared-memory state fits 227 KB beside the tables.
+#: The most hosts one CTA holds: 1,024 threads of ``_SMEM_K`` hosts, the
+#: largest K whose shared-memory state fits 227 KB beside the tables.
 MAX_HOSTS = 32 * 32 * _SMEM_K
+#: CTAs a replica may take in the cluster form (``kMaxCluster``; 16 is
+#: Hopper's non-portable cluster size).
+MAX_CLUSTER = 16
+#: The most hosts the cluster form holds: 16 CTAs of ``MAX_HOSTS`` hosts,
+#: 163,840 (each CTA's 223,504 B fit the opt-in up to Z = 45 zones).  Past
+#: it, the per-host state lives in global memory.
+CLUSTER_MAX_HOSTS = MAX_CLUSTER * MAX_HOSTS
+#: Threads of the global form's CTA (``max_threads(kSmemK, true)``).
+_GLOBAL_THREADS = 1024
 #: The default shape's step model: a warp issues K host evaluations per
 #: thread, warps beyond four share a scheduler, and W > 1 adds one
 #: cross-warp exchange that costs about this many host evaluations.
@@ -144,53 +159,62 @@ def reset_launches() -> None:
         LAUNCHES_CARRY_FREE.clear()
 
 
+#: The kernel's ``state`` argument, by where a replica's per-host state
+#: lives.
+_STATES = ("registers", "shared", "global")
+
+
 class _Config(NamedTuple):
     """One launch shape of ``greedy_place``."""
 
-    warps: int             # W: warps per replica group
-    hosts_per_thread: int  # K
-    smem_state: bool       # per-host state in shared memory, not registers
+    warps: int             # W: warps per replica group (a CTA's, cluster)
+    hosts_per_thread: int  # K (the global form: ⌈H / 1024⌉, a loop)
+    state: str             # "registers", "shared" or "global"
     groups: int            # G: replica groups per block
     threads: int           # 32·W·G
-    blocks: int            # ⌈R / G⌉
-    smem_bytes: int
+    blocks: int            # ⌈R / G⌉, R·C in the cluster form
+    smem_bytes: int        # dynamic shared memory of one block (CTA)
+    cluster: int = 1       # C: CTAs a replica (shared state over a cluster)
+
+    @property
+    def smem_state(self) -> bool:
+        """Per-host state in shared memory (one CTA's or a cluster's)."""
+        return self.state == "shared"
 
 
-def _smem_bytes(Z, W, G, K, smem_state) -> int:
+def _smem_bytes(Z, W, G, K, smem_state, C=1) -> int:
     """``greedy_place_smem_bytes``: the [Z, Z] tables, per group the
     double-buffered task chunk (40 B a task) and the cross-warp slots,
-    and shared-memory state (20 B a host slot)."""
+    shared-memory state (20 B a host slot), and in a cluster of C > 1
+    CTAs the [2][C] (key, host) slots its peers push into."""
     def align16(n):
         return -(-n // 16) * 16
     chunk = min(32 * W, 256)
     return (align16(8 * Z * Z) + G * align16(40 * chunk + 16 * W)
-            + (20 * K * 32 * W if smem_state else 0))
+            + (20 * K * 32 * W if smem_state else 0)
+            + (16 * C if C > 1 else 0))
+
+
+def _global_smem_bytes(Z) -> int:
+    """``greedy_place_smem_bytes`` of the global form: the [Z, Z] tables
+    and [2][32] (key, host) warp slots."""
+    return -(-8 * Z * Z // 16) * 16 + 16 * 32
 
 
 def _limit_message(H, Z) -> str:
     return (
-        f"H={H} hosts at Z={Z} outgrow greedy_place: past the register "
-        f"file each host keeps 20 bytes of state in shared memory beside "
-        f"the {8 * Z * Z}-byte [Z, Z] tables, and one Hopper CTA may opt "
-        f"into at most {_SMEM_LIMIT} bytes (227 KB) of it; at most "
-        f"{MAX_HOSTS} hosts fit (1024 threads x {_SMEM_K} hosts)"
+        f"H={H} hosts at Z={Z} outgrow greedy_place: its {8 * Z * Z}-byte "
+        f"[Z, Z] tables live in shared memory, and one Hopper CTA may opt "
+        f"into at most {_SMEM_LIMIT} bytes (227 KB) of it; even the "
+        f"global-memory form, whose per-host state is off chip, needs "
+        f"{_global_smem_bytes(Z)} bytes"
     )
 
 
-@functools.lru_cache(maxsize=1024)
-def _launch_config(R: int, H: int, Z: int,
-                   warps: Optional[int] = None) -> _Config:
-    """The launch shape for ``R`` replicas of ``H`` hosts and ``Z`` zones.
-
-    By default the register-resident shape (W warps a replica, K hosts a
-    thread, 32·W·K ≥ H) with the shortest modelled step, K·⌈W/4⌉ plus
-    ``_EXCHANGE_HOSTS`` when W > 1 (from the sweep at H = 600 in
-    ``PERF.md``); ``warps`` forces W.  Past the register file, ⌈H/320⌉
-    warps of ``_SMEM_K`` hosts in shared memory.  Replica groups share a
-    block up to ⌈R / 132⌉, so R = 256 fills the SMs with small blocks.
-    Raises ValueError when H or Z outgrow the kernel."""
-    if H > MAX_HOSTS:
-        raise ValueError(_limit_message(H, Z))
+def _cta_config(R: int, H: int, Z: int, warps: Optional[int]):
+    """One CTA a replica group, ``H`` ≤ ``MAX_HOSTS``: the register shapes,
+    else ``_SMEM_K`` hosts a thread in shared memory; None when its shared
+    memory outgrows the opt-in."""
     shapes = []
     for W in ([warps] if warps else range(1, 33)):
         need = -(-H // (32 * W))
@@ -200,29 +224,80 @@ def _launch_config(R: int, H: int, Z: int,
             shapes.append((cost, W, K))
     if shapes:
         _cost, W, K = min(shapes)
-        smem_state = False
+        state = "registers"
         per_block = min(_REG_THREADS[K] // (32 * W), 15 if W > 1 else 32)
     else:
-        W, K, smem_state = warps or -(-H // (32 * _SMEM_K)), _SMEM_K, True
+        W, K, state = warps or -(-H // (32 * _SMEM_K)), _SMEM_K, "shared"
         if 32 * W * K < H or W > 32:
             raise ValueError(f"no {W}-warp shape of greedy_place holds "
                              f"{H} hosts")
         per_block = 1
+    smem_state = state == "shared"
     G = max(1, min(per_block, -(-R // _SMS)))
     while G > 1 and _smem_bytes(Z, W, G, K, smem_state) > _SMEM_LIMIT:
         G -= 1
     smem = _smem_bytes(Z, W, G, K, smem_state)
     if smem > _SMEM_LIMIT:
+        return None
+    return _Config(W, K, state, G, 32 * W * G, -(-R // G), smem)
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_config(R: int, H: int, Z: int,
+                   warps: Optional[int] = None) -> _Config:
+    """The launch shape for ``R`` replicas of ``H`` hosts and ``Z`` zones:
+
+    ==================  ============================================
+    H                   form (where the state lives), W, K, G, C
+    ==================  ============================================
+    ≤ 10,240            one CTA: the register shape (W warps a replica,
+                        K hosts a thread, 32·W·K ≥ H) with the shortest
+                        modelled step, K·⌈W/4⌉ plus ``_EXCHANGE_HOSTS``
+                        when W > 1 (the sweep at H = 600 in
+                        ``PERF.md``); past the register file ⌈H/320⌉
+                        warps of ``_SMEM_K`` hosts in shared memory.
+                        Replica groups share a block up to ⌈R / 132⌉,
+                        so R = 256 fills the SMs with small blocks
+    ≤ 163,840           shared memory over a cluster: C the least power
+                        of two with ⌈H / C⌉ ≤ ``MAX_HOSTS`` (at most 16),
+                        each CTA ⌈Hc / 320⌉ warps of ``_SMEM_K`` hosts;
+                        G = 1
+    above               global memory: one CTA of 1,024 threads
+    ==================  ============================================
+
+    A form whose shared memory outgrows the opt-in at this Z passes to
+    the next (a larger C, then global memory), so only tables that
+    outgrow shared memory raise ValueError.  ``warps`` forces W (a CTA's,
+    in the cluster form); ``CLUSTER_MAX_HOSTS`` is the 163,840-host
+    limit."""
+    if H <= MAX_HOSTS:
+        cfg = _cta_config(R, H, Z, warps)
+        if cfg is not None:
+            return cfg
+    C = 2
+    while C < MAX_CLUSTER and -(-H // C) > MAX_HOSTS:
+        C *= 2
+    while C <= MAX_CLUSTER:
+        hc = -(-H // C)
+        W = warps or -(-hc // (32 * _SMEM_K))
+        smem = _smem_bytes(Z, W, 1, _SMEM_K, True, C)
+        if W <= 32 and 32 * W * _SMEM_K >= hc and smem <= _SMEM_LIMIT:
+            return _Config(W, _SMEM_K, "shared", 1, 32 * W, R * C, smem, C)
+        C *= 2
+    smem = _global_smem_bytes(Z)
+    if smem > _SMEM_LIMIT:
         raise ValueError(_limit_message(H, Z))
-    return _Config(W, K, smem_state, G, 32 * W * G, -(-R // G), smem)
+    return _Config(_GLOBAL_THREADS // 32, -(-H // _GLOBAL_THREADS), "global",
+                   1, _GLOBAL_THREADS, R, smem)
 
 
 def _rows_config(G: int, H: int, Z: int) -> _Config:
-    """The per-row launch shape: :func:`_launch_config`'s W and K for
-    ``H`` hosts, one row a block (each block copies its own row's tables;
-    the kernel refuses a per-row launch with more groups to a block)."""
+    """The per-row launch shape: :func:`_launch_config`'s form, W, K and C
+    for ``H`` hosts, one row a block (a cluster, in the cluster form;
+    each block copies its own row's tables; the kernel refuses a per-row
+    launch with more groups to a block)."""
     cfg = _launch_config(1, H, Z)
-    return cfg._replace(blocks=G)
+    return cfg._replace(blocks=G * cfg.cluster)
 
 
 def _want(name, t, device, dtype, shape) -> None:
@@ -459,17 +534,17 @@ def cost_aware_plain_rows(avail_g, demands_g, valid_g, new_group_g,
 @functools.lru_cache(maxsize=None)
 def _entries():
     """The built library's two launch entry points, typed once:
-    ``greedy_place_launch`` (thirteen pointers, twelve ints, the stream)
-    and ``greedy_place_launch_rows`` (fourteen pointers, ten ints, the
-    stream)."""
+    ``greedy_place_launch`` (fourteen pointers, thirteen ints, the
+    stream) and ``greedy_place_launch_rows`` (fifteen pointers, eleven
+    ints, the stream)."""
     from pivot_tpu_torch.ops.build import load
 
     lib = load("greedy_place")
     shared, rows = lib.greedy_place_launch, lib.greedy_place_launch_rows
-    shared.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 12 + [
+    shared.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 13 + [
         ctypes.c_void_p
     ]
-    rows.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 10 + [
+    rows.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 11 + [
         ctypes.c_void_p
     ]
     shared.restype = rows.restype = ctypes.c_int
@@ -507,21 +582,25 @@ def _launch(cfg, avail_r, demands, valid, new_group, anchor_zone, cost_zz,
         None if live is None else live.data_ptr(),
     )
     stream = torch._C._cuda_getCurrentRawStream(dev.index)  # current_stream()'s
+    # The global form's frozen keys / best-fit counts, a row a replica.
+    scratch = (torch.empty(avail_r.shape[:2], dtype=_F32, device=dev)
+               if cfg.state == "global" else None)
+    outs = (placements.data_ptr(), avail_out.data_ptr(),
+            None if scratch is None else scratch.data_ptr())
     mode = (first_fit, sort_hosts, host_decay, cfg.hosts_per_thread,
-            cfg.smem_state, cfg.warps)
+            _STATES.index(cfg.state), cfg.warps)
     shared, per_row = load_library()
     if rows:
         bounds = (None if isinstance(n_eff_rows, str)
                   else n_eff_rows.data_ptr())
         fn = per_row
-        args = (*ptrs, bounds, placements.data_ptr(), avail_out.data_ptr(),
-                R, demands.shape[1], avail_r.shape[1], cost_zz.shape[1],
-                *mode, stream)
+        args = (*ptrs, bounds, *outs, R, demands.shape[1],
+                avail_r.shape[1], cost_zz.shape[1], *mode, cfg.cluster,
+                stream)
     else:
         fn = shared
-        args = (*ptrs, placements.data_ptr(), avail_out.data_ptr(),
-                R, demands.shape[0], n_eff, avail_r.shape[1],
-                cost_zz.shape[0], *mode, cfg.groups, stream)
+        args = (*ptrs, *outs, R, demands.shape[0], n_eff, avail_r.shape[1],
+                cost_zz.shape[0], *mode, cfg.groups, cfg.cluster, stream)
     if dev.index == torch.cuda.current_device():
         err = fn(*args)
     else:

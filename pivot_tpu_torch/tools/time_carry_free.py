@@ -22,23 +22,24 @@ by ``git archive`` into a directory ``.gitignore`` lists) it runs itself
 as four processes, DIR, this tree, this tree, DIR, each on its own
 tree's package and build, requires every output hash and recorded tick
 to agree across the four, and prints each shape's mean ms of the two
-trees and their ratio (this tree over DIR's).  The wrappers' signatures
-are the interface, so DIR needs no copy of this file.
+trees and their ratio (this tree over DIR's; ``abtime.compare``).  The
+wrappers' signatures are the interface, so DIR needs no copy of this
+file.
 """
 
 from __future__ import annotations
 
-import argparse
 import functools
-import hashlib
-import json
 import os
-import subprocess
-import sys
 import tempfile
 
 import numpy as np
 import torch
+
+if __package__:
+    from pivot_tpu_torch.tools import abtime
+else:  # a child of --against: the harness of this file's own tree
+    import abtime
 
 H_MAIN = 600
 R_GATE = 256
@@ -74,25 +75,6 @@ def _call(ck, arm, x, form):
     if arm == "opportunistic":
         return getattr(ck, f"opportunistic_{form}"), (a, d, v, x["u"]), {}
     return getattr(ck, f"{stem}_{form}"), (a, d, v), {}
-
-
-def _digest(*tensors) -> str:
-    h = hashlib.sha256()
-    for t in tensors:
-        h.update(t.detach().cpu().contiguous().numpy().tobytes())
-    return h.hexdigest()
-
-
-def _events_ms(fn, reps) -> float:
-    fn()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def _overall_ticks(device) -> dict:
@@ -181,71 +163,17 @@ def measure(reps) -> dict:
         n = 5 if args[0].shape[-2] > 10000 else reps
         steps = kw.get("n_bound")
         out[key] = dict(
-            ms=_events_ms(lambda: fn(*args, **kw), n), reps=n,
+            ms=abtime.events_ms(lambda: fn(*args, **kw), n), reps=n,
             steps=int(args[2].sum()) if steps is None else int(steps),
-            inputs=_digest(*(t for t in (*args, *kw.values())
+            inputs=abtime.digest(*(t for t in (*args, *kw.values())
                              if torch.is_tensor(t))),
-            outputs=_digest(placements, avail))
-    return out
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
-
-
-def compare(other, reps) -> dict:
-    """Four processes, ``other``, this tree, this tree, ``other``; returns
-    ``{key: {base_ms, ms, ratio, runs}}`` with every hash agreeing."""
-    here = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    other = os.path.abspath(other)
-    runs = []
-    with tempfile.TemporaryDirectory(dir=here) as tmp:
-        for i, tree in enumerate((other, here, here, other)):
-            path = os.path.join(tmp, f"{i}.json")
-            env = dict(os.environ, PYTHONPATH=tree)
-            subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--reps", str(reps), "--json-out", path],
-                           cwd=tree, env=env, check=True, timeout=1200)
-            with open(path) as f:
-                runs.append(json.load(f))
-    out = {}
-    for key in runs[0]:
-        got = [r.get(key) for r in runs]
-        if any(g is None for g in got) or len(
-                {(g["inputs"], g["outputs"]) for g in got}) != 1:
-            raise AssertionError(f"{key}: the two trees' inputs or outputs "
-                                 "differ")
-        t = [g["ms"] for g in got]
-        base, ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
-        out[key] = dict(base_ms=base, ms=ms, ratio=ms / base, runs=t,
-                        steps=got[0]["steps"])
-        print(f"{key}: {other} {t[0]!r} / {t[3]!r} ms, this tree {t[1]!r} "
-              f"/ {t[2]!r} ms, ratio {ms / base!r} ({got[0]['steps']} "
-              "steps)", flush=True)
+            outputs=abtime.digest(placements, avail))
     return out
 
 
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--against", metavar="DIR", default=None,
-                    help="another checkout of the repo to time against, "
-                         "alternated in four processes")
-    ap.add_argument("--json-out", metavar="FILE", default=None)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("time_carry_free needs a CUDA card")
-    out = (compare(args.against, args.reps) if args.against
-           else measure(args.reps))
-    if args.json_out:
-        with open(args.json_out, "w") as f:
-            json.dump(out, f)
-    print(card_line())
-    print(json.dumps(out))
+    abtime.main(argv, script=__file__, doc=__doc__, measure=measure,
+                reps=20)
 
 
 if __name__ == "__main__":

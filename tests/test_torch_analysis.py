@@ -448,10 +448,19 @@ def _edit(root, rel, old, new):
      "constexpr int kSmemK = 9;", "_SMEM_K = 10"),
     (kernel_budget._CU_FILE, "case 20: return launch<20, false>(p, s);",
      "", "_REG_THREADS covers"),
-    (kernel_budget._CU_FILE, "__launch_bounds__(max_threads(K, kSmem))",
+    (kernel_budget._CU_FILE, "__launch_bounds__(max_threads(K, kSmem), 1)",
      "", "greedy_place_kernel lost __launch_bounds__"),
     (kernel_budget._CU_FILE, "align16(static_cast<size_t>(8) * Z * Z)",
-     "align16(8 * static_cast<size_t>(Z) * Z)", "cannot read"),
+     "align16(sizeof(float2) * Z * Z)", "cannot read"),
+    (kernel_budget._CU_FILE, "return 32 * W < kMaxChunk ? 32 * W",
+     "return 16 * W < kMaxChunk ? 16 * W", "_smem_bytes disagrees"),
+    (kernel_budget._CU_FILE, "C > 1 ? static_cast<size_t>(16) * C : 0",
+     "C > 1 ? static_cast<size_t>(24) * C : 0", "_smem_bytes disagrees"),
+    (kernel_budget._CU_FILE, "constexpr int kMaxCluster = 16;",
+     "constexpr int kMaxCluster = 8;", "MAX_CLUSTER = 16"),
+    (kernel_budget._CU_FILE, "table_bytes(Z) + static_cast<size_t>(16) * 32",
+     "table_bytes(Z) + static_cast<size_t>(16) * 16",
+     "_global_smem_bytes disagrees"),
     (kernel_budget._WRAPPER_FILE, "_SMEM_LIMIT = H100_SMEM_OPTIN_BYTES",
      "_SMEM_LIMIT = 101376", "_SMEM_LIMIT (101376)"),
     (kernel_budget._ROOFLINE_FILE, "H100_SMEM_OPTIN_BYTES = 232448",

@@ -20,6 +20,7 @@ import torch
 
 import jax.numpy as jnp
 
+from pivot_tpu.ops.kernels import cost_aware_kernel
 from pivot_tpu.ops.pallas_kernels import (
     cost_aware_pallas,
     cost_aware_pallas_batched,
@@ -136,9 +137,23 @@ def test_plain_dense_live_risk_batched_matches_pallas(mode):
 
 EDGE_CASES = ["ties", "h1", "h33", "h100", "risk_zeros", "zero_bw",
               "nan_only"]
+#: The edge cases of a replica split over CTAs (past 10,240 hosts).
+CTA_EDGE_CASES = ["cta_ties", "cta_last", "cta_masked", "cta_risk",
+                  "cta_nan"]
+#: Their host count here: a cluster of 4 CTAs of ⌈H / 4⌉ = 5,121 hosts,
+#: the last one 5,118 (``chip_smoke.py`` runs them at every C and in the
+#: global form).
+CTA_EDGE_H = 20481
 
 
-def edge_inputs(name):
+def cta_slice(H):
+    """Hosts a CTA of ``H`` hosts' launch shape holds, ⌈H / C⌉; the global
+    form (no CTA split) takes the 16-CTA cluster's width."""
+    cfg = ck._launch_config(1, H, 31)
+    return -(-H // (cfg.cluster if cfg.cluster > 1 else ck.MAX_CLUSTER))
+
+
+def edge_inputs(name, H=None):
     """A dense 40-task tick on one selection edge case the kernel's
     ordered-key argmin must keep (``chip_smoke.py`` builds the same):
 
@@ -151,11 +166,28 @@ def edge_inputs(name):
     zero_bw     zone 5 has no bandwidth: anchor-5 tasks score hosts of
                 zone 5 0/0 = NaN and the others c/0 = +inf;
     nan_only    every host and anchor in zone 5 with no bandwidth: every
-                sorted score is NaN, so every such step gives −1.
+                sorted score is NaN, so every such step gives −1;
+
+    and at ``H`` hosts (default ``CTA_EDGE_H``), the CTAs of the launch
+    shape holding ``w`` = :func:`cta_slice` hosts each:
+
+    cta_ties    the two hosts on each side of every CTA boundary (w·c − 1
+                and w·c) identical and the roomiest, all in one zone:
+                ties across CTAs go to the lower host;
+    cta_last    every host before the last CTA nearly full: the winners
+                lie in the last CTA;
+    cta_masked  the first CTA's hosts the roomiest and all ``live``-masked;
+    cta_risk    a risk row of −0.0, +0.0 and 0.25: the zeros tie across
+                CTAs;
+    cta_nan     the same with NaN on one small host of the last CTA: a
+                step it fits is poisoned (−1).
 
     Returns the nine numpy operands and the extra keyword arrays."""
     rng = np.random.default_rng(sum(map(ord, name)))
-    H = {"h1": 1, "h33": 33, "h100": 100}.get(name, 65)
+    if name in CTA_EDGE_CASES:
+        H = H or CTA_EDGE_H
+    else:
+        H = {"h1": 1, "h33": 33, "h100": 100}.get(name, 65)
     T, Z = 40, 31
     avail = rng.uniform(0, 16, size=(H, 4)).astype(np.float32)
     demands = np.stack([rng.choice([0.0, 0.5, 1.0, 2.0], size=T),
@@ -187,6 +219,28 @@ def edge_inputs(name):
         bw[5, 5] = 0.0
         host_zone[:] = 5
         anchor[:] = 5
+    elif name in CTA_EDGE_CASES:
+        w = cta_slice(H)
+        starts = list(range(w, H, w))  # the first host of each later CTA
+        if name == "cta_ties":
+            avail[:] = 1.5
+            for b in starts:
+                avail[[b - 1, b]] = 9.0
+            host_zone[:] = 3
+            counts[:] = 2
+        elif name == "cta_last":
+            avail[: starts[-1]] = 0.25
+        elif name == "cta_masked":
+            avail[:w] = 15.5
+            live = np.ones(H, bool)
+            live[:w] = False
+            kw["live"] = live
+        else:
+            risk = rng.choice([-0.0, 0.0, 0.25], size=H).astype(np.float32)
+            if name == "cta_nan":
+                risk[H - 2] = np.nan
+                avail[H - 2] = [0.75, 0.75, 1.0, 1.0]
+            kw["risk"] = risk
     return (avail, demands, valid, new_group, anchor, cost, bw, host_zone,
             counts), kw
 
@@ -209,26 +263,119 @@ def test_plain_matches_pallas_selection_edges(case, mode):
         assert -1 in placed
 
 
+def owned_hosts(cfg, H):
+    """The hosts each thread of ``cfg``'s replica owns, all CTAs of it
+    together, in the kernel's layout: CTA c of C holds [c·w, c·w + w),
+    w = ⌈H / C⌉, and its thread t the hosts c·w + K·t + k, k < K (one
+    CTA: C = 1, w = H); the global form's thread t the hosts t, t + 1024,
+    ...  Returns the sorted array (with repeats, if any)."""
+    if cfg.state == "global":
+        t = np.arange(cfg.threads)
+        return np.sort(np.concatenate(
+            [np.arange(i, H, cfg.threads) for i in t]))
+    C = cfg.cluster
+    w = -(-H // C)
+    K = cfg.hosts_per_thread
+    slots = (np.arange(32 * cfg.warps)[:, None] * K
+             + np.arange(K)[None, :]).ravel()
+    out = []
+    for c in range(C):
+        c0, c1 = min(c * w, H), min(c * w + w, H)
+        h = c0 + slots
+        out.append(h[h < c1])
+    return np.sort(np.concatenate(out))
+
+
 @pytest.mark.parametrize("R", [1, 5, 256])
-@pytest.mark.parametrize("H", [1, 31, 32, 33, 600, 9664])
+@pytest.mark.parametrize("H", [1, 31, 32, 33, 600, 9664, 10240, 10241,
+                               20480, 98304, ck.CLUSTER_MAX_HOSTS,
+                               ck.CLUSTER_MAX_HOSTS + 1, 262144])
 def test_launch_config_owns_every_host_once(H, R):
-    """The kernel's layout — thread t of a W-warp group owns the hosts
-    K·t + k, k < K — covers every host exactly once, within one block's
-    1,024 threads and 227 KB of shared memory."""
+    """The kernel's layout covers every host exactly once, across the
+    CTAs of a cluster: one CTA (thread t of a W-warp group owns the hosts
+    K·t + k, k < K) up to ``MAX_HOSTS``, a cluster of C ∈ {2, 4, 8, 16}
+    CTAs (a power of two) up to ``CLUSTER_MAX_HOSTS``, then the global
+    form; each block within 1,024 threads and 227 KB of shared
+    memory."""
     cfg = ck._launch_config(R, H, 31)
-    W, K = cfg.warps, cfg.hosts_per_thread
-    owned = [K * t + k for t in range(32 * W) for k in range(K)]
-    owned = sorted(h for h in owned if h < H)
-    assert owned == list(range(H))
+    W, K, C = cfg.warps, cfg.hosts_per_thread, cfg.cluster
+    assert np.array_equal(owned_hosts(cfg, H), np.arange(H))
     assert cfg.threads == 32 * W * cfg.groups <= 1024
     assert cfg.smem_bytes <= 232448
-    assert cfg.groups * cfg.blocks >= R > (cfg.blocks - 1) * cfg.groups
+    assert C in (1, 2, 4, 8, 16)
+    if H <= ck.MAX_HOSTS:
+        assert C == 1 and cfg.state != "global"
+        assert cfg.groups * cfg.blocks >= R > (cfg.blocks - 1) * cfg.groups
+    elif H <= ck.CLUSTER_MAX_HOSTS:
+        assert cfg.state == "shared" and C > 1
+        assert -(-H // C) <= ck.MAX_HOSTS < -(-H // (C // 2)) or C == 2
+        assert cfg.blocks == R * C and cfg.groups == 1
+    else:
+        assert cfg.state == "global" and cfg.blocks == R
+        assert cfg.threads == 1024 and cfg.groups == 1
     if cfg.smem_state:
         assert K == ck._SMEM_K and cfg.groups == 1
-    else:
+    elif cfg.state == "registers":
         assert cfg.threads <= ck._REG_THREADS[K]
-    if W > 1:
+    if W > 1 and cfg.state == "registers":
         assert cfg.groups <= 15  # named barriers 1..15, one per group
+
+
+def test_launch_config_takes_every_host_count():
+    """Every H from 1 to 400,000 at R ∈ {1, 5, 256} gets a shape whose
+    CTAs hold at least H hosts between them, each CTA at least its slice
+    and within the opt-in; only tables that outgrow shared memory
+    raise."""
+    launch_config = ck._launch_config.__wrapped__  # no cache churn
+    for R in (1, 5, 256):
+        for H in range(1, 400_001):
+            cfg = launch_config(R, H, 31)
+            if cfg.state == "global":
+                assert H > ck.CLUSTER_MAX_HOSTS and cfg.threads == 1024
+                continue
+            per_cta = 32 * cfg.warps * cfg.hosts_per_thread
+            assert per_cta >= -(-H // cfg.cluster), (R, H, cfg)
+            assert cfg.smem_bytes <= ck._SMEM_LIMIT, (R, H, cfg)
+    with pytest.raises(ValueError, match="227 KB"):
+        launch_config(1, 600, 171)
+    assert launch_config(1, 600, 170).state == "global"
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", CTA_EDGE_CASES)
+def test_plain_matches_pallas_cta_edges(case, mode):
+    """The edge cases of a replica split over a cluster's CTAs, past
+    10,240 hosts: the plain version against ``cost_aware_pallas`` in
+    f32 (interpret mode) and ``cost_aware_kernel`` (x64 configured, f32
+    operands).  ``cta_nan`` is held against the Pallas kernel alone: on
+    a NaN minimum the XLA form places on the last host where the Pallas
+    kernel, which ``greedy_place`` ports, gives −1."""
+    args, kw = edge_inputs(case)
+    jargs = [jnp.asarray(a) for a in args]
+    jkw = {k: jnp.asarray(v) for k, v in kw.items()}
+    new = ck.cost_aware_plain(*map(torch.from_numpy, args), **mode,
+                              **{k: torch.from_numpy(v) for k, v in kw.items()})
+    assert_close(cost_aware_pallas(*jargs, **mode, interpret=True, **jkw),
+                 new, (case, mode, "pallas"))
+    if case != "cta_nan":
+        assert_close(cost_aware_kernel(*jargs, **mode, **jkw), new,
+                     (case, mode, "xla"))
+    H, w = len(args[0]), cta_slice(len(args[0]))
+    placed = new[0][new[0] >= 0].numpy()
+    if case == "cta_ties":
+        order = new[0].tolist()
+        pairs = [b for b in range(w, H, w) if b in order]
+        assert pairs or not mode["sort_hosts"]
+        for b in pairs:  # the tie's lower host (CTA c − 1's) first
+            assert b - 1 in order[:order.index(b)]
+    elif case == "cta_last":
+        assert placed.size and (placed >= (H - 1) // w * w).all()
+    elif case == "cta_masked":
+        assert placed.size and (placed >= w).all()
+        assert torch.equal(new[1][:w], torch.from_numpy(args[0][:w]))
+    elif case == "cta_nan":
+        assert H - 2 not in placed.tolist()
+        assert (new[0][np.asarray(args[2])] == -1).any()
 
 
 def test_plain_empty_tick():
@@ -325,10 +472,8 @@ def test_wrapper_checks_its_arguments():
         ck.cost_aware_cuda(args[0], *args[1:5], args[5].T, *args[6:])
     with pytest.raises(ValueError, match="bin_pack"):
         ck.cost_aware_cuda(*args, bin_pack="worst-fit")
-    big = torch.zeros(ck.MAX_HOSTS + 1, 4)
+    wide = torch.zeros(171, 171)  # 233,928 B of tables: past 227 KB
     with pytest.raises(ValueError, match="227 KB"):
-        ck.cost_aware_cuda(
-            big, *args[1:7], torch.zeros(ck.MAX_HOSTS + 1, dtype=torch.int32),
-            torch.zeros(ck.MAX_HOSTS + 1, dtype=torch.int32))
+        ck.cost_aware_cuda(*args[:5], wide, wide, *args[7:])
     with pytest.raises(ValueError, match="meta"):
         ck.cost_aware_cuda(*(a.to("meta") for a in args))
