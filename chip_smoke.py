@@ -24,9 +24,11 @@
                                        # plain form, timed
     python3 chip_smoke.py --phases 3,19 --cf-sweep
                                        # + its launch-shape sweep
+    python3 chip_smoke.py --phases 6,20 # the ensemble's chain kernel on
+                                       # the main path, then alone
 
-One card.  ``--phases`` takes a comma list; phases 2-5, 10-17 and 19
-bring phase 1's build along, phase 5 the runs of phases 3 and 4, phase 13
+One card.  ``--phases`` takes a comma list; phases 2-5, 10-17, 19 and
+20 bring phase 1's build along, phase 5 the runs of phases 3 and 4, phase 13
 phase 3's run (its python-fabric arms are what the native fabric is held
 against).
 
@@ -106,12 +108,17 @@ Phases, each fatal on failure:
      and, where ``torch.profiler`` sees the card, one device kernel per
      wrapper call; and wrapper / bare-launch times of every gated
      R = 256 launch of phase 4;
-  6. the Monte-Carlo ensemble on the card (no hand kernel: ``greedy_place``
-     must make no launch): the refund's sum order on the trace's demands
+  6. the Monte-Carlo ensemble on the card, each tick's placement chain
+     one launch of ``ensemble_chain`` (``greedy_place`` must make no
+     launch): the refund's sum order on the trace's demands
      against the CPU; at R = 16 the cost-aware and first-fit arms against
      ``pivot_tpu``'s own CPU rollout (``tests/data/ensemble_r16_seed0.npz``)
-     under torch's sync debug mode; the ``ensemble`` CLI at 600 hosts x 50
-     apps, R = 1024, both arms — wall, replica rollouts/s, ticks,
+     under torch's sync debug mode, every ``ensemble_chain`` launch held
+     right after it against ``_chain_plain`` on the same operands
+     (placements, delays and availability bit for bit; the sync debug
+     mode off around the hold), one launch a tick; the ``ensemble`` CLI
+     at 600 hosts x 50 apps, R = 1024, both arms, one R = 1024 launch a
+     tick — wall, replica rollouts/s, ticks,
      placement steps, host reads, CUDA-event ms of the tick loop, peak
      memory, its first 16 replicas equal to the R = 16 run; a
      ``torch.profiler`` window of ticks 100-125 per arm; the cost-aware
@@ -119,7 +126,8 @@ Phases, each fatal on failure:
      opportunistic and lifo at 10 apps, card against CPU.  Placements,
      finish times, makespans, instance-hours and unfinished counts must
      be equal, egress within rtol 1e-5;
-  7. fault ensembles and the what-if sweeps on the card (no hand kernel:
+  7. fault ensembles and the what-if sweeps on the card (the chains on
+     ``ensemble_chain``, launched in this process at least once;
      ``greedy_place`` must make no launch): (a) every entry of
      ``pivot_tpu``'s fixture ``tests/data/ensemble_sweeps_seed0.npz`` —
      fault rollouts at 50 apps, R = 16; ``score_param_sweep``,
@@ -140,8 +148,9 @@ Phases, each fatal on failure:
      ``MarketSchedule.generate`` market's risk term, faults, an active
      mask) per arm, and the float32 pow twin on 2**24 pairs.  The same
      rule as phase 6;
-  8. the policy search on the card (no hand kernel: ``greedy_place``
-     must make no launch): (a) every entry of ``pivot_tpu``'s fixture
+  8. the policy search on the card (the chains on ``ensemble_chain``,
+     launched at least once; ``greedy_place`` must make no launch): (a)
+     every entry of ``pivot_tpu``'s fixture
      ``tests/data/search_seed0.npz`` — ``_fitness_rows``' per-row egress,
      instance-hours, unfinished counts and makespans and the scores of
      six candidates in the tiny and the README worlds (shared and
@@ -165,9 +174,10 @@ Phases, each fatal on failure:
      float32's range).  Unfinished counts, makespans and instance-hours
      equal, egress and scores within rtol 1e-5;
   9. the congestion backlog model, realtime scoring, checkpoints and
-     ``calibrate`` on the card (no hand kernel: ``greedy_place`` must make
-     no launch): (a) ``calibrate --num-apps 50`` and ``... --realtime``
-     through the CLI at its defaults (600 hosts, cost-aware, R = 1,
+     ``calibrate`` on the card (the chains on ``ensemble_chain``, launched
+     at least once; ``greedy_place`` must make no launch): (a)
+     ``calibrate --num-apps 50`` and ``... --realtime`` through the CLI
+     at its defaults (600 hosts, cost-aware, R = 1,
      perturb 0, lifo, float32), each report equal to ``pivot_tpu``'s
      (``tests/data/calibrate_seed0.json``; egress within rtol 1e-5) —
      wall, and each mode's rollout ticks, placement steps and host
@@ -240,7 +250,10 @@ Phases, each fatal on failure:
      through ``cli.main`` at 600 hosts, again with ``--mpc-dry-run``, and
      without ``--mpc``: at least one plan, never referee-disabled, the
      forecaster seeing every arrival, no graph captured after the
-     controller's warm-up, TF32 turned off by the entry, tier 0 never
+     controller's warm-up (a float32 rollout on the card takes its
+     snapshots inside ``ensemble_chain``: none is captured, so this reads
+     0 by construction), the planner's rollouts on ``ensemble_chain``
+     (launched at least once), TF32 turned off by the entry, tier 0 never
      shed, ``audit()`` clean, and the dry run serving the MPC-off
      outcome; (b) a paced soak through the library: one session of 600
      hosts growing to 4, Cost-Aware on the card, the controller at
@@ -450,6 +463,24 @@ Phases, each fatal on failure:
      ``_cf_config`` (register K at H = 600; K by groups a block at R =
      256; warps a CTA at the pod tick for C = 8 and 16; C by W at H =
      4,097 and 20,000), each swept launch held against plain.
+ 20. ``ensemble_chain`` on the card, float32, against
+     ``parallel/ensemble/tick.py::_chain_plain`` on the same operands
+     (placements, delays and availability bit for bit, max |diff| 0.0):
+     each arm with and without a risk row at H = 600, R = 8 (n_ready
+     from 0 to T); H = 1, 33 and 100; score ties across warp boundaries;
+     down hosts (−1); ±0, ±inf and NaN risk; cost-aware with zero
+     bandwidths and costs (inf and NaN scores), with score exponents over
+     zero and tiny norms (powf's special cases), with realtime tables;
+     opportunistic uniforms with u_eff just below 1; one host past the
+     shared-memory form (the global form); then two real R = 1024 ticks
+     of each arm (600 hosts x 50 apps, the tick with the longest replica
+     chain of ticks 100-125 of ``_rollout_segment``, and that of ticks
+     0-100, the rollout's opening burst), held against the plain chain
+     and timed: ``kernel_ms`` (CUDA events around the bare
+     launch), the wrapper's ms, the plain chain's ms (host clock around
+     a synchronised call), ns a step of the longest replica chain and
+     the bound (``chain_bound``: this run's data's bytes and
+     operations).
 
 The CPU sides of the card-vs-CPU checks of phases 6 (b) and (d), 7 (c),
 8 (c) and 9 (c) run in one spawned worker process a phase
@@ -463,7 +494,9 @@ kernel failure: no failure is served by the numpy twin unseen.
 
 Each phase logs its wall.  The line before the last is a JSON
 ``kernels`` record: ``carry_free_place`` with the launches of phases 3
-and 4 (split by arm and R) and phase 19's times, and ``greedy_place``
+and 4 (split by arm and R) and phase 19's times, ``ensemble_chain``
+with the launches of phases 6 (a) (R = 1024, one a tick), 7, 8, 9 and
+12 (the main process's) and phase 20's times, and ``greedy_place``
 (its ``launches`` split into the R = 1 launches of
 phases 3, 4, 10-14, 15 (c), 16 and 17, the R = 256 launches of phase 4,
 the R = 4 launches of phase 14 and the per-row launches of phases 10-14,
@@ -656,6 +689,72 @@ def check_cf_tables(build, ck) -> None:
                         f"carry_free_place smem bytes differ at H={H}, "
                         f"form={form}, W={W}, G={G}, C={C}")
     log("  carry_free_place launch-shape tables: wrapper = library")
+
+
+def chain_ptxas_start(build, tmp):
+    """Start ``nvcc -Xptxas -v`` on ``ensemble_chain.cu`` (a cubin of the
+    build's own flags) and return the process."""
+    flags = [f for f in build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    src = os.path.join("pivot_tpu_torch", "csrc", "ensemble_chain.cu")
+    return subprocess.Popen(
+        [build._nvcc(), *flags, "-cubin", "-Xptxas", "-v", src, "-o",
+         os.path.join(tmp, "ensemble_chain.cubin")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def chain_ptxas_lines(proc):
+    """One row per build of ``ensemble_chain`` (``ensemble_chain_kernel<
+    arm, form>``: four arms, the shared and global forms): registers,
+    stack and spills."""
+    from pivot_tpu_torch.ops.cuda_kernels import _CHAIN_ARMS
+
+    out, _ = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"nvcc -Xptxas -v failed:\n{out}")
+    rows, cur = [], None
+    for raw in out.splitlines():
+        m = re.search(r"ensemble_chain_kernelILi(\d)ELi(\d)E", raw)
+        if "Compiling entry function" in raw and m:
+            cur = dict(build=f"{_CHAIN_ARMS[int(m.group(1))]}/"
+                             f"{('shared', 'global')[int(m.group(2))]}")
+        elif cur is not None and "spill stores" in raw:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", raw)]
+            cur.update(stack=nums[0], spill_stores=nums[1],
+                       spill_loads=nums[2])
+        elif cur is not None and "Used" in raw and "registers" in raw:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             raw).group(1))
+            rows.append(cur)
+            cur = None
+    if len(rows) != 2 * len(_CHAIN_ARMS):
+        raise AssertionError(f"{len(rows)} ensemble_chain builds, not "
+                             f"{2 * len(_CHAIN_ARMS)}, in:\n{out}")
+    return sorted(rows, key=lambda r: r["build"])
+
+
+def check_chain_tables(build, ck) -> None:
+    """``ensemble_chain``'s shared memory and thread limit in the library
+    equal the wrapper's copies (``_chain_smem_bytes``,
+    ``_CHAIN_MAX_WARPS``)."""
+    lib = build.load("ensemble_chain")
+    lib.ensemble_chain_smem_bytes.restype = ctypes.c_size_t
+    if lib.ensemble_chain_max_threads() != 32 * ck._CHAIN_MAX_WARPS:
+        raise AssertionError("ensemble_chain's thread limit differs from "
+                             "the wrapper's")
+    for H in (1, 600, 8856, 13478, 98304):
+        for z in (1, 31, 169):
+            for form in (ck._CHAIN_SHARED, ck._CHAIN_GLOBAL):
+                for arm in range(len(ck._CHAIN_ARMS)):
+                    for risk in (0, 1):
+                        if lib.ensemble_chain_smem_bytes(H, z, form, arm,
+                                                         risk) != \
+                                ck._chain_smem_bytes(H, z, form, arm, risk):
+                            raise AssertionError(
+                                f"ensemble_chain smem bytes differ at H={H}, "
+                                f"Z={z}, form={form}, arm={arm}, "
+                                f"risk={risk}")
+    log("  ensemble_chain launch-shape tables: wrapper = library")
 
 
 def check_shape_tables(build, ck) -> None:
@@ -2526,10 +2625,18 @@ def _phase_ensemble(device, cli, ck, rollout, out, args, on_card, kw, key,
         fixture = {arm: {f: z[f"{arm.replace('-', '_')}__{f}"]
                          for f in ENS_FIELDS} for arm in ENS_ARMS}
     card16 = {}
+    chain_chk = ChainCheck()
     for arm in ENS_ARMS:
         st = {}
-        res, syncs = sync_debug(lambda: rollout(key, *on_card, policy=arm,
-                                                stats=st, **kw))
+        n0 = ck.LAUNCHES["ensemble_chain"]
+        with ChainTap(ck, chk=chain_chk, what=f"(c) {arm}") as tap:
+            res, syncs = sync_debug(lambda: rollout(
+                key, *on_card, policy=arm, stats=st, **kw))
+        launched = ck.LAUNCHES["ensemble_chain"] - n0
+        if not launched == tap.calls == st["ticks"]:
+            raise AssertionError(f"(c) {arm}: {launched} ensemble_chain "
+                                 f"launches, {tap.calls} calls, "
+                                 f"{st['ticks']} ticks")
         card16[arm] = _result(res)
         worst = ensemble_compare(card16[arm], fixture[arm],
                                  f"(c) {arm} card R=16 vs pivot_tpu fixture",
@@ -2537,20 +2644,29 @@ def _phase_ensemble(device, cli, ck, rollout, out, args, on_card, kw, key,
         out["checks"][f"{arm}_fixture"] = dict(
             max_rel=worst, ticks=st["ticks"], place_steps=st["place_steps"],
             host_syncs=st["host_syncs"], sync_debug_warnings=syncs,
-            wall_s=st["wall_s"], event_span_ms=st["event_span_ms"])
+            wall_s=st["wall_s"], event_span_ms=st["event_span_ms"],
+            chain_launches=launched)
         log(f"  (c) {arm} R={ENS_CHECK_REPLICAS} on the card vs pivot_tpu's "
             f"fixture: placements, finish times, makespans, instance-hours, "
             f"unfinished equal; egress largest rel diff {worst!r}; "
             f"{st['ticks']} ticks, {st['place_steps']} placement steps, "
             f"{st['host_syncs']} host reads counted, {syncs} synchronizing "
-            f"calls flagged by torch's sync debug mode")
+            f"calls flagged by torch's sync debug mode; {launched} "
+            f"ensemble_chain launches (one a tick), each equal to the plain "
+            f"chain on its operands")
+    out["chain_holds"] = chain_chk.cases
+    out["chain_max_abs_err"] = chain_chk.max_abs_err
+    log(f"  (c) {chain_chk.cases} ensemble_chain launches held against "
+        f"_chain_plain: placements, delays and availability bit for bit "
+        f"({chain_chk.placed} placements), max |diff| "
+        f"{chain_chk.max_abs_err!r}")
     pool.wait()  # nothing timed before this
 
     # (a) the main path: the CLI on the card at R = 1024.
     with tempfile.TemporaryDirectory(dir=os.getcwd()) as tmp:
         for arm in ENS_ARMS:
             st = {}
-            ck.reset_launches()  # the ensemble runs no hand kernel
+            ck.reset_launches()  # the chain kernel, and no greedy_place
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             # The entry must turn TF32 off itself: hand it on.
@@ -2563,6 +2679,12 @@ def _phase_ensemble(device, cli, ck, rollout, out, args, on_card, kw, key,
                 raise AssertionError("run_ensemble left TF32 matmuls on")
             if ck.LAUNCHES["greedy_place"]:
                 raise AssertionError("the ensemble launched greedy_place")
+            chain = ck.LAUNCHES["ensemble_chain"]
+            if chain != st["ticks"] or ck.LAUNCHES_CHAIN != {
+                    (arm, ENS_REPLICAS): st["ticks"]}:
+                raise AssertionError(
+                    f"(a) {arm}: {chain} ensemble_chain launches "
+                    f"({dict(ck.LAUNCHES_CHAIN)}) for {st['ticks']} ticks")
             with np.load(os.path.join(st["out_dir"], "rollout.npz")) as z:
                 got = {k: z[k] for k in z.files}
             T = on_card[1].n_tasks
@@ -2584,6 +2706,7 @@ def _phase_ensemble(device, cli, ck, rollout, out, args, on_card, kw, key,
                 loop_wall_s=st["wall_s"], event_span_ms=st["event_span_ms"],
                 ticks=st["ticks"], place_steps=st["place_steps"],
                 host_syncs=st["host_syncs"], peak_mem_bytes=peak,
+                chain_launches=chain,
                 makespan_mean=summary["makespan_mean"],
                 egress_mean=summary["egress_mean"],
                 instance_hours_mean=summary["instance_hours_mean"],
@@ -2593,7 +2716,8 @@ def _phase_ensemble(device, cli, ck, rollout, out, args, on_card, kw, key,
             log(f"  (a) {arm} R={ENS_REPLICAS} through the CLI on the card: "
                 f"wall {row['wall_s']!r} s, "
                 f"{row['replica_rollouts_per_sec']!r} replica rollouts/s; "
-                f"{row['ticks']} ticks, "
+                f"{row['ticks']} ticks, {chain} ensemble_chain launches "
+                f"(R={ENS_REPLICAS}, one a tick), "
                 f"{row['place_steps']} placement steps, {row['host_syncs']} "
                 f"host reads; tick loop {row['loop_wall_s']!r} s on the host "
                 f"clock, {row['event_span_ms']!r} ms of stream time between "
@@ -2605,7 +2729,11 @@ def _phase_ensemble(device, cli, ck, rollout, out, args, on_card, kw, key,
                 f"{row['egress_mean']!r} $, instance-hours mean "
                 f"{row['instance_hours_mean']!r}")
 
-    # (e) where the device time of a loaded tick goes.
+    # (e) where the device time of a loaded tick goes.  A first session of
+    # one tick, not reported, pays the profiler's own start-up, which
+    # otherwise lands in the first arm's window (9.04 s of its 25 ticks'
+    # wall on an H100, PERF.md §6).
+    ensemble_profile(on_card, args, key, ENS_ARMS[0], skip=1, window=1)
     for arm in ENS_ARMS:
         prof = ensemble_profile(on_card, args, key, arm)
         out["profile_" + arm] = prof
@@ -2845,10 +2973,24 @@ def sw_pow_check(device, n=1 << 24):
                 f64_rounded_differs=int((f64.cpu() != card).sum()))
 
 
+def chain_launches_in(ck, phase) -> int:
+    """The ``ensemble_chain`` launches of this process since the phase
+    reset the counts (its runs in other processes count there): at
+    least one, or the phase's chains did not run on the kernel."""
+    n = ck.LAUNCHES["ensemble_chain"]
+    log(f"  ensemble_chain launches in phase {phase} (this process): {n} "
+        f"{dict(sorted(ck.LAUNCHES_CHAIN.items()))}")
+    if not n:
+        raise AssertionError(f"phase {phase}'s chains made no "
+                             "ensemble_chain launch")
+    return n
+
+
 def phase_sweeps(device, ens, pool, cpu):
-    """Phase 7: fault ensembles and the what-if sweeps on the card; no
-    hand kernel (``greedy_place`` must make no launch).  (a) every entry
-    of ``pivot_tpu``'s fixture under torch's sync debug mode; (b) the
+    """Phase 7: fault ensembles and the what-if sweeps on the card, the
+    chains on ``ensemble_chain`` (``greedy_place`` must make no launch).
+    (a) every entry of ``pivot_tpu``'s fixture under torch's sync debug
+    mode; (b) the
     README's commands at full width through the CLI; (c) the card against
     the port on the CPU at ``SW_APPS`` apps: best-fit, lifo, and the
     search stack's channels (exponents, a market's risk term, faults,
@@ -2996,6 +3138,7 @@ def _phase_sweeps(device, ens, cli, ck, out, cpu_c, pool):
         f"float32 differs from it on {pw['f64_rounded_differs']} of them")
     if ck.LAUNCHES["greedy_place"]:
         raise AssertionError("phase 7 launched greedy_place")
+    out["chain_launches"] = chain_launches_in(ck, 7)
     return out
 
 
@@ -3358,12 +3501,12 @@ def cpu_sr_check() -> dict:
 
 
 def phase_search(device, cpu):
-    """Phase 8: the policy search on the card; no hand kernel
-    (``greedy_place`` must make no launch).  (a) ``pivot_tpu``'s fixture
-    under torch's sync debug mode; (b) the four runs through the CLI;
-    (c) the card against the port on the CPU at 600 hosts (its CPU side
-    on the ``cpu`` worker: ``side_workers``), and the pow twin over
-    continuous exponents."""
+    """Phase 8: the policy search on the card, the chains on
+    ``ensemble_chain`` (``greedy_place`` must make no launch).  (a)
+    ``pivot_tpu``'s fixture under torch's sync debug mode; (b) the four
+    runs through the CLI; (c) the card against the port on the CPU at
+    600 hosts (its CPU side on the ``cpu`` worker: ``side_workers``), and
+    the pow twin over continuous exponents."""
     return _phase_search(device, cpu[8, "c"])
 
 
@@ -3499,6 +3642,7 @@ def _phase_search(device, cpu_check):
     log(f"  (d) greedy_place launches in phase 8: {n}")
     if n:
         raise AssertionError("phase 8 launched greedy_place")
+    out["chain_launches"] = chain_launches_in(ck, 8)
     return out
 
 
@@ -3785,8 +3929,8 @@ def phase_congestion(device, pool, cpu):
                 f"{per_tick[False][1]!r} placement steps a tick)")
     if ck.LAUNCHES["greedy_place"]:
         raise AssertionError("phase 9 launched greedy_place")
-    log("  greedy_place launches in phase 9: 0 (no hand kernel on this "
-        "path)")
+    log("  greedy_place launches in phase 9: 0")
+    out["chain_launches"] = chain_launches_in(ck, 9)
     return out
 
 
@@ -5008,7 +5152,8 @@ def p12_hold(ck, rec, chk, what) -> None:
 def p12_launches(ck) -> dict:
     return dict(total=ck.LAUNCHES["greedy_place"],
                 rows=dict(ck.LAUNCHES_ROWS),
-                by_replicas=dict(ck.LAUNCHES_BY_REPLICAS))
+                by_replicas=dict(ck.LAUNCHES_BY_REPLICAS),
+                chain=ck.LAUNCHES["ensemble_chain"])
 
 
 def p12_readme(device, chk) -> dict:
@@ -5062,6 +5207,10 @@ def p12_readme(device, chk) -> dict:
                 if rec.driver._mpc.captures_after_warmup():
                     raise AssertionError(f"serve {name}: graphs captured "
                                          "after the warm-up")
+                if not launches["chain"]:
+                    raise AssertionError(f"serve {name}: the planner's "
+                                         "rollouts made no ensemble_chain "
+                                         "launch")
             elif m is not None:
                 raise AssertionError("serve off: an MPC report")
             if report["slo"]["tiers"]["0"]["counters"]["shed"]:
@@ -5074,7 +5223,8 @@ def p12_readme(device, chk) -> dict:
                 pool=report["pool"])
             log(f"  (a) serve {name}: wall {wall!r} s, outcome "
                 f"{out[name]['outcome']}, pool {report['pool']}, launches "
-                f"R=1 {r1} per-row {launches['rows']}"
+                f"R=1 {r1} per-row {launches['rows']}, ensemble_chain "
+                f"{launches['chain']}"
                 + (f", mpc rounds {m['rounds']} plans {m['plans']} actions "
                    f"{out[name]['actions']} tuner {m['tuner']}" if m else ""))
     if out["dry_run"]["outcome"] != out["off"]["outcome"]:
@@ -5236,6 +5386,9 @@ def p12_soak(device, chk, n_hosts=600) -> dict:
     if ctl.captures_after_warmup():
         raise AssertionError(f"mpc soak: {ctl.captures_after_warmup()} "
                              "graph captures after the warm-up")
+    if not launches["chain"]:
+        raise AssertionError("mpc soak: the planner's rollouts made no "
+                             "ensemble_chain launch")
     rows = sum(launches["rows"].values())
     r1 = launches["by_replicas"].get(1, 0)
     if launches["total"] != rows + r1 or rows != len(rec.rows) or \
@@ -5285,7 +5438,8 @@ def p12_soak(device, chk, n_hosts=600) -> dict:
         f"{row['tuner_calls']} evaluator calls); rollout {stages}; graph "
         f"captures after warm-up {row['captures_after_warmup']} (in the "
         f"run {row['captures_in_run']}); outcome {row['outcome']}, pool "
-        f"{report['pool']}; launches R=1 {r1} per-row {launches['rows']}")
+        f"{report['pool']}; launches R=1 {r1} per-row {launches['rows']}, "
+        f"ensemble_chain {launches['chain']}")
     return row
 
 
@@ -5548,6 +5702,7 @@ def phase_mpc_recovery(device) -> dict:
     rec["launches_rows_by_g"] = by_g
     rec["launches_rows"] = sum(by_g.values())
     rec["compare_launches"] = sum(x["total"] for x in compare)
+    rec["chain_launches"] = sum(x["chain"] for x in path[:3])
     rec["held"] = chk.cases
     rec["max_abs_err"] = chk.max_abs_err
     log(f"  {chk.cases} launches held against their plain version "
@@ -5555,7 +5710,8 @@ def phase_mpc_recovery(device) -> dict:
         f"{chk.placed} placements, max |avail diff| {chk.max_abs_err!r}; "
         f"path launches R=1 {rec['launches_r1']} per-row {by_g}; "
         f"comparison sides (the MPC-off and recovery=None runs) "
-        f"{rec['compare_launches']}")
+        f"{rec['compare_launches']}; ensemble_chain launches of the "
+        f"planner's and tuner's rollouts (a), (b) {rec['chain_launches']}")
     return rec
 
 
@@ -8698,6 +8854,492 @@ def phase_carry_free(device, ck, e2e=None, sweep=False) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: ensemble_chain alone.
+# ---------------------------------------------------------------------------
+
+#: The chain's arms, in the kernel's order.
+CHAIN_ARMS = ("cost-aware", "first-fit", "best-fit", "opportunistic")
+#: The synthetic cases' tick: T steps at most a replica over G groups and
+#: Z zones (the CLI's 31), R replicas.
+P20_T = 160
+P20_G = 24
+P20_R = 8
+#: The real ticks: the one with the most steps among ticks
+#: [P20_SKIP, P20_SKIP + P20_WINDOW) of an R = 1024 rollout at the
+#: ``ensemble`` defaults (phase 6 (e)'s window).
+P20_SKIP = ENS_PROFILE_SKIP
+P20_WINDOW = ENS_PROFILE_WINDOW
+P20_REPS = 20
+
+
+def _bits(t):
+    """A tensor's bits, so that NaN payloads and ±0 compare exactly."""
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    return t
+
+
+class ChainCheck:
+    """``ensemble_chain`` against the plain chain: placements, delays and
+    availability bit for bit; tracks the cases, the placements and the
+    largest |difference| of delays and availability (0.0 when equal)."""
+
+    def __init__(self):
+        self.cases = 0
+        self.placed = 0
+        self.max_abs_err = 0.0
+
+    def same(self, got, want, what, min_placed=0) -> None:
+        torch.cuda.synchronize()
+        for name, g, w in zip(("placements", "delays", "availability"),
+                              got, want):
+            if not torch.equal(_bits(g), _bits(w)):
+                bad = (_bits(g) != _bits(w)).nonzero()[:5].tolist()
+                raise AssertionError(f"{what}: {name} differ at {bad}")
+        placed = int((got[0] >= 0).sum())
+        if placed < min_placed:
+            raise AssertionError(f"{what}: {placed} placements, fewer than "
+                                 f"the {min_placed} this case must make")
+        self.placed += placed
+        self.cases += 1
+
+
+class ChainTap:
+    """Wraps ``cuda_kernels.ensemble_chain_cuda`` (the tick loop's route on
+    the card) while active.  With ``chk``, every launch is held right
+    after it against ``_chain_plain`` on the same operands (the
+    availability cloned before the launch), torch's sync debug mode off
+    around the hold.  With ``keep``, the operands of the call with the
+    most steps are kept (the availability cloned) for timing.  ``calls``
+    counts the calls it saw; launches are the wrapper's own count."""
+
+    def __init__(self, ck, chk=None, keep=False, what="chain"):
+        from pivot_tpu_torch.parallel.ensemble import tick
+
+        self.ck, self.tick, self.chk, self.keep = ck, tick, chk, keep
+        self.what = what
+        self.calls = 0
+        self.kept = None  # (steps, policy, avail before, args, kw)
+
+    def __enter__(self):
+        self.fn = self.ck.ensemble_chain_cuda
+        self.ck.ensemble_chain_cuda = self._call
+        return self
+
+    def __exit__(self, *exc):
+        self.ck.ensemble_chain_cuda = self.fn
+
+    def _call(self, policy, avail, *args, **kw):
+        before = avail.clone() if (self.chk or self.keep) else None
+        out = self.fn(policy, avail, *args, **kw)
+        self.calls += 1
+        if self.chk is not None or self.keep:
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                if self.chk is not None:
+                    a = before.clone()
+                    want = self.tick._chain_plain(policy, a, *args, **kw)
+                    self.chk.same((*out, avail), (*want, a),
+                                  (self.what, policy, self.calls))
+                steps = int(args[4].max()) if args[4].numel() else 0
+                if self.keep and (self.kept is None or steps > self.kept[0]):
+                    self.kept = (steps, policy, before, args, kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        return out
+
+
+def p20_inputs(seed, policy, device, case="dense", H=600, R=P20_R,
+               T=P20_T, G=P20_G, Z=Z, risk=False, expo=False,
+               realtime=False):
+    """Seeded f32 operands of one tick's chain: ``(policy, avail, g_p,
+    az_p, bf_p, order, n_ready, dem_group, cd, host_zone)`` and the
+    keyword operands.  ``n_ready`` runs from 0 to T over the replicas;
+    anchor buckets open every few steps.  Cases: "dense" (hosts of 0-16
+    in each lane, demands of 0-2), "ties" (every host and demand equal,
+    uniform score tables, risk ±0: every argmin ties, across warps),
+    "down" (a third of the hosts at the −1 sentinel), "nan_risk" (risk
+    from {0, −0, 0.25, ±inf, NaN}), "zero_bw" (zero bandwidths and
+    costs in the tables: inf and NaN scores), "zero_norm" (with
+    exponents from {0, 0.5, 1, 2, 3}: a quarter of the hosts empty and
+    a quarter at 1e-20 in each lane, zero demands so that the tiny ones
+    fit), "u_near_1" (uniforms just below 1 and rotations of whole
+    turns)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    avail = rng.integers(0, 17, (R, H, 4)).astype(f32)
+    dem = rng.choice([0.0, 0.5, 1.0, 2.0], (G, 4)).astype(f32)
+    if case == "ties":
+        avail[:] = 8.0
+        dem[:] = (1.0, 1.0, 0.5, 0.0)
+    elif case == "down":
+        avail[:, rng.random(H) < 1 / 3] = -1.0
+    elif case == "zero_norm":
+        pick = rng.random((R, H))
+        avail[pick < 0.25] = 0.0
+        avail[(pick >= 0.25) & (pick < 0.5)] = f32(1e-20)
+        dem[:] = 0.0
+    n_ready = rng.integers(0, T + 1, R)
+    n_ready[0], n_ready[-1] = 0, T
+    bf = np.sort(rng.integers(0, T, (R, T)), axis=1)
+    x = dict(
+        avail=avail, g_p=rng.integers(0, G, (R, T)),
+        az_p=rng.integers(0, Z, (R, T)), bf_p=bf,
+        order=np.stack([rng.permutation(T) for _ in range(R)]),
+        n_ready=n_ready, dem_group=dem,
+        cd=rng.random((R, G, Z)).astype(f32),
+        host_zone=rng.integers(0, Z, H))
+    kw = {}
+    if policy == "cost-aware":
+        cost = rng.choice([0.01, 0.02, 0.09, 0.12], (Z, Z))
+        bw = rng.choice([50.0, 100.0, 900.0, 2500.0], (Z, Z))
+        if case == "ties":
+            cost[:], bw[:] = 0.02, 100.0
+        elif case == "zero_bw":
+            bw[rng.random((Z, Z)) < 0.3] = 0.0
+            cost[rng.random((Z, Z)) < 0.3] = 0.0
+        czz = torch.from_numpy((cost + cost.T).astype(f32))
+        bzz = torch.from_numpy((bw + bw.T).astype(f32))
+        if expo:
+            from pivot_tpu_torch.parallel.ensemble.libm import xla_pow
+
+            sp = torch.from_numpy(rng.choice(
+                [0.0, 0.5, 1.0, 2.0, 3.0], (R, 3)).astype(f32))
+            czz = xla_pow(czz[None], sp[:, 0, None, None]).contiguous()
+            bzz = xla_pow(bzz[None], sp[:, 1, None, None]).contiguous()
+            kw["w_norm"] = sp[:, 2:3].contiguous()
+        kw["cost_zz"], kw["bw_zz"] = czz, bzz
+        if realtime:
+            rt = (bw + bw.T).astype(f32)[:, x["host_zone"]]
+            q = rng.choice([0.0, 0.0, 10.0, 400.0], (R, Z, H)).astype(f32)
+            kw["score_bw"] = torch.from_numpy(np.where(
+                q > 0, rt / (q + 1), rt).astype(f32))
+    if policy == "opportunistic":
+        u = rng.random((R, T)).astype(f32)
+        rot = (rng.integers(0, 400, R) * f32(0.618034)).astype(f32)
+        if case == "u_near_1":
+            u[:] = f32(0.99999994)
+            rot = rng.integers(0, 3, R).astype(f32)
+        kw["u_p"], kw["weyl_rot"] = torch.from_numpy(u), torch.from_numpy(rot)
+    if risk:
+        r = rng.choice([0.0, 0.25, 1.0, 2.0], (R, H))
+        if case == "ties":
+            r = rng.choice([0.0, -0.0], (R, H))
+        elif case == "nan_risk":
+            r = rng.choice([0.0, -0.0, 0.25, np.inf, -np.inf, np.nan],
+                           (R, H), p=[0.3, 0.2, 0.3, 0.08, 0.04, 0.08])
+        kw["risk_row"] = torch.from_numpy(r.astype(f32))
+    args = tuple(torch.from_numpy(np.ascontiguousarray(x[k])).to(device)
+                 for k in ("avail", "g_p", "az_p", "bf_p", "order",
+                           "n_ready", "dem_group", "cd", "host_zone"))
+    return (policy, *args), {k: v.to(device) for k, v in kw.items()}
+
+
+def p20_case(ck, chk, call, what, min_placed=0):
+    """The wrapper against the plain chain on ``call``'s operands (each
+    on its own copy of the availability); returns the launch shape."""
+    from pivot_tpu_torch.parallel.ensemble import tick
+
+    (policy, avail, *rest), kw = call
+    a1, a2 = avail.clone(), avail.clone()
+    got = ck.ensemble_chain_cuda(policy, a1, *rest, **kw)
+    want = tick._chain_plain(policy, a2, *rest, **kw)
+    chk.same((*got, a1), (*want, a2), what, min_placed=min_placed)
+    return ck._chain_config(avail.shape[1], rest[6].shape[2], policy,
+                            kw.get("risk_row") is not None)
+
+
+def p20_cases(ck, device, chk) -> dict:
+    """The synthetic cases of phase 20; returns the forms each ran in."""
+    forms = collections.Counter()
+    seed = 2000
+    for policy in CHAIN_ARMS:
+        ca, opp = policy == "cost-aware", policy == "opportunistic"
+        cases = [("dense", 600, False), ("dense", 600, True),
+                 ("dense", 1, True), ("dense", 33, False),
+                 ("dense", 100, True), ("ties", 600, False),
+                 ("ties", 600, True), ("down", 600, True),
+                 ("nan_risk", 600, True)]
+        if ca:
+            cases += [("zero_bw", 600, False), ("zero_bw", 600, True),
+                      ("zero_norm", 600, False), ("zero_norm", 600, True),
+                      ("realtime", 600, False), ("realtime", 600, True),
+                      ("expo", 600, True)]
+        if opp:
+            cases += [("u_near_1", 600, False), ("u_near_1", 600, True)]
+        for risk in (False, True):  # one host past the shared form
+            top = 1
+            while ck._chain_config(top * 2, Z, policy, risk).form == \
+                    ck._CHAIN_SHARED:
+                top *= 2
+            lo, hi = top, top * 2
+            while hi - lo > 1:
+                mid = (lo + hi) // 2
+                if ck._chain_config(mid, Z, policy, risk).form == \
+                        ck._CHAIN_SHARED:
+                    lo = mid
+                else:
+                    hi = mid
+            cases.append(("global", hi, risk))
+        for case, H, risk in cases:
+            seed += 1
+            kind = case if case not in ("realtime", "expo", "global") \
+                else "dense"
+            call = p20_inputs(seed, policy, device, case=kind, H=H,
+                              R=2 if case == "global" else P20_R,
+                              T=48 if case == "global" else P20_T,
+                              risk=risk, expo=case in ("zero_norm", "expo"),
+                              realtime=case == "realtime")
+            n_ready = call[0][6]
+            floor = int(n_ready.sum()) // 4 if case in ("dense", "global") \
+                and H >= 600 else 0
+            cfg = p20_case(ck, chk, call, (policy, case, H, risk),
+                           min_placed=floor)
+            if case == "global" and cfg.form != ck._CHAIN_GLOBAL:
+                raise AssertionError(f"{policy} at H={H}: not the global "
+                                     f"form ({cfg})")
+            forms[cfg.state] += 1
+    return dict(forms)
+
+
+def p20_real_ticks(ck, device, chk) -> dict:
+    """Two R = 1024 ticks of each arm at the ``ensemble`` defaults (600
+    hosts x 50 apps): ``_rollout_segment`` walks ``P20_SKIP`` ticks,
+    keeping the one with the longest replica chain (the rollout's
+    opening burst), then ``P20_WINDOW`` more with every launch held
+    against the plain chain, keeping the one with the longest chain
+    there.  Returns ``({policy: window tick}, {policy: opening tick})``,
+    each tick ``(steps, policy, avail before, args, kw)``."""
+    from pivot_tpu_torch.experiments import cli
+    from pivot_tpu_torch.parallel.ensemble import (
+        _init_state,
+        _opportunistic_uniforms,
+        _perturbations,
+        _rollout_segment,
+        prng,
+    )
+
+    args, (avail0, workload, topo, sz) = ensemble_inputs(cli, device)
+    key = prng.PRNGKey(args.seed)
+    T, Z_ = workload.n_tasks, topo.cost.shape[0]
+    out, opening = {}, {}
+    for policy in CHAIN_ARMS:
+        rt, arr, anchor = _perturbations(key, workload, sz, ENS_REPLICAS,
+                                         args.perturb, avail0.dtype)
+        task_u = _opportunistic_uniforms(
+            key, ENS_REPLICAS, T, avail0.dtype, device) \
+            if policy == "opportunistic" else None
+        state = _init_state(avail0, T, Z_, ENS_REPLICAS)
+        kw = dict(totals=avail0, policy=policy, tick_order=args.tick_order,
+                  task_u=task_u)
+        with ChainTap(ck, keep=True, what="opening tick") as tap:
+            state = _rollout_segment(state, rt, arr, anchor, workload, topo,
+                                     args.tick, P20_SKIP, **kw)
+        opening[policy] = tap.kept
+        with ChainTap(ck, chk=chk, keep=True, what="real tick") as tap:
+            _rollout_segment(state, rt, arr, anchor, workload, topo,
+                             args.tick, P20_WINDOW, **kw)
+        out[policy] = tap.kept
+    return out, opening
+
+
+def chain_bound(policy, avail, args, kw, pl):
+    """Least time for one chain at these operands: the larger of the
+    bytes over HBM bandwidth and the operations over the f32 peak.
+    Bytes: the availability rows of the replicas that walk a step
+    (n_ready > 0; a replica at 0 leaves its rows as they are), read once
+    — first-fit without risk reads each such replica's hosts only up to
+    the last first fit of its chain (all of them when a step found none)
+    — and 16 a distinct placed (replica, host) written back; the streams
+    (group, anchor, bucket, task index, and the uniform for
+    opportunistic) of the steps walked, Σ n_ready; n_ready; the demand
+    table; one delay entry a placement; the zones; the tables (cost-aware,
+    ``[Z, Z]``, or ``[R, Z, Z]`` with exponents), and the risk,
+    exponent and realtime rows when given, a replica's rows only where
+    it walks a step; ``pl`` and ``delay`` ``[R, T]`` written.
+    Operations a step, each on the H hosts of its replica: the fit test
+    (8: 4 compares, 3 ANDs, the selection), then cost-aware's score (a
+    product and a quotient, +1 with risk) and argmin compare (1), plus 8
+    a host (one square, three fused multiply-adds of 2, the root) at
+    each step that opens an anchor bucket; first-fit the hosts up to the
+    first fit (all when none fits; all plus 1 with risk); best-fit 13
+    more (4 subtractions, a square, three fused multiply-adds, the root,
+    the compare; +1 with risk); opportunistic 3 (the count, +2 with
+    risk) and 3 for the rank; 4 a placement (the decrement).  Returns
+    ``(ms, "bytes" or "operations", Σ n_ready, max n_ready)``."""
+    g_p, az_p, bf_p, order, n_ready, dem, cd, hz = args
+    R, H = avail.shape[0], avail.shape[1]
+    T, G = order.shape[1], dem.shape[0]
+    risk = kw.get("risk_row") is not None
+    nr = n_ready.tolist()
+    steps = sum(nr)
+    active = sum(n > 0 for n in nr)
+    walked = torch.arange(T, device=order.device)[None, :] < n_ready[:, None]
+    host = pl.gather(1, order)  # the host each step placed at, or -1
+    # the hosts a step reads up to: first-fit's first fit, else all H
+    reach = torch.where(walked, torch.where(host >= 0, host + 1, H), 0)
+    placed = int((pl >= 0).sum())
+    rows = torch.arange(R, device=pl.device)[:, None] * H
+    touched = int(torch.unique((rows + pl)[pl >= 0]).numel())
+    hosts_read = (int(reach.amax(1).sum()) if T else 0) \
+        if policy == "first-fit" and not risk else active * H
+    nbytes = (hosts_read * 16 + touched * 16
+              + steps * (32 + 4 * (policy == "opportunistic"))
+              + R * 8 + G * 16 + placed * 4 + H * 8 + R * T * 12
+              + active * H * 4 * risk)
+    for name in ("cost_zz", "bw_zz", "w_norm", "score_bw"):
+        t = kw.get(name)
+        if t is None:
+            continue
+        per_row = name in ("w_norm", "score_bw") or t.dim() == 3
+        nbytes += (t.numel() // R * active if per_row else t.numel()) * 4
+    if policy == "cost-aware":
+        prev = torch.cat([bf_p.new_full((R, 1), -1), bf_p[:, :-1]], 1)
+        opens = int(((bf_p != prev) & walked).sum())
+        ops = steps * H * (8 + 3 + risk) + opens * H * 8
+    elif policy == "first-fit" and risk:
+        ops = steps * H * 9
+    elif policy == "first-fit":
+        ops = 8 * int(reach.sum())
+    elif policy == "best-fit":
+        ops = steps * H * (8 + 13 + risk)
+    else:
+        ops = steps * (H * (8 + 3 + 2 * risk) + 3)
+    ops += 4 * placed
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32_OPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", steps, max(nr))
+
+
+def p20_time(ck, kept, reps=P20_REPS) -> dict:
+    """``kernel_ms`` (CUDA events around the bare launch, each on its own
+    copy of the availability), the wrapper's ms (likewise), the plain
+    chain's ms (host clock around one synchronised call), ns a step of
+    the longest replica chain, and the bound."""
+    from pivot_tpu_torch.parallel.ensemble import tick
+
+    steps, policy, avail, args, kw = kept
+    H, Zc = avail.shape[1], args[6].shape[2]
+    cfg = ck._chain_config(H, Zc, policy, kw.get("risk_row") is not None)
+    R, T = args[3].shape
+    pl = torch.empty((R, T), dtype=torch.int64, device=avail.device)
+    delay = torch.empty((R, T), dtype=torch.float32, device=avail.device)
+    copies = [avail.clone() for _ in range(reps + 1)]
+    order = ("cost_zz", "bw_zz", "u_p", "risk_row", "w_norm", "weyl_rot",
+             "score_bw")
+
+    def bare():
+        ck._chain_launch(cfg, policy, copies.pop(), *args,
+                         *(kw.get(k) for k in order), pl, delay)
+    kernel_ms = _events_ms(bare, reps)
+    copies[:] = [avail.clone() for _ in range(reps + 1)]
+    ms = _events_ms(lambda: ck.ensemble_chain_cuda(policy, copies.pop(),
+                                                   *args, **kw), reps)
+    a = avail.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = tick._chain_plain(policy, a, *args, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    b_ms, b_by, total, longest = chain_bound(policy, avail, args, kw,
+                                             want[0])
+    return dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, steps=total,
+                longest_chain=longest,
+                ns_per_step=kernel_ms * 1e6 / max(longest, 1),
+                shape=f"{cfg.state} W={cfg.warps} smem={cfg.smem_bytes}")
+
+
+def phase_chain(device, ck) -> dict:
+    """Phase 20 (module docstring).  Returns its record."""
+    chk = ChainCheck()
+    ck.reset_launches()  # the phase's own launches: comparisons and times
+    forms = p20_cases(ck, device, chk)
+    n_synth = chk.cases
+    kept, opening = p20_real_ticks(ck, device, chk)
+    for what, ticks, span in (
+            ("real tick alone", kept, f"{P20_SKIP}-{P20_SKIP + P20_WINDOW}"),
+            ("opening tick alone", opening, f"0-{P20_SKIP}")):
+        for policy, k in ticks.items():  # each kept tick, held alone
+            if k is None or not k[0]:
+                raise AssertionError(f"{policy}: no placement step in "
+                                     f"ticks {span}")
+            p20_case(ck, chk, ((policy, k[2], *k[3]), k[4]),
+                     (what, policy), min_placed=1)
+    log(f"  {chk.cases} cases ({n_synth} synthetic over the four arms — "
+        f"{forms} — and {chk.cases - n_synth} launches of R={ENS_REPLICAS} "
+        f"ticks {P20_SKIP}-{P20_SKIP + P20_WINDOW} of the four arms at 600 "
+        f"hosts x 50 apps, with the longest-chain tick of ticks "
+        f"0-{P20_SKIP} of each alone), {chk.placed} placements: "
+        f"placements, delays "
+        f"and availability equal to the plain chain bit for bit, max "
+        f"|diff| {chk.max_abs_err!r}")
+    compare = ck.LAUNCHES["ensemble_chain"]
+    times, times_opening = {}, {}
+    for label, ticks, into in (
+            (f"ticks {P20_SKIP}-{P20_SKIP + P20_WINDOW}", kept, times),
+            (f"opening, ticks 0-{P20_SKIP}", opening, times_opening)):
+        for policy, k in ticks.items():
+            t = into[policy] = p20_time(ck, k)
+            log(f"  {policy} R={ENS_REPLICAS} tick ({label}: {t['steps']} "
+                f"steps, the longest replica chain {t['longest_chain']}; "
+                f"{t['shape']}): wrapper {t['ms']!r} ms, kernel_ms "
+                f"{t['kernel_ms']!r}, {t['ns_per_step']!r} ns a step of the "
+                f"longest chain, plain chain {t['plain_ms']!r} ms, bound "
+                f"{t['bound_ms']!r} ms ({t['bound_by']})")
+    return dict(check=chk, cases=chk.cases, max_abs_err=chk.max_abs_err,
+                compare_launches=compare, forms=forms, times=times,
+                times_opening=times_opening)
+
+
+def chain_record(ens, sweeps, search, congestion, p12, p20) -> dict:
+    """``ensemble_chain``'s entry of the ``kernels`` record: the main
+    path's launches (phase 6 (a)'s R = 1024 runs, one a tick, and the
+    main process's launches in phases 7, 8, 9 and 12), the largest error
+    of every comparison (6 (c)'s holds and phase 20's), and phase 20's
+    times — its main-path shape the cost-aware R = 1024 tick.  A number
+    of a phase not run is null."""
+    by_phase = {
+        "phase6 (a)": ens and sum(r["chain_launches"]
+                                  for r in ens["arms"].values()),
+        "phase7": sweeps and sweeps["chain_launches"],
+        "phase8": search and search["chain_launches"],
+        "phase9": congestion and congestion["chain_launches"],
+        "phase12": p12 and p12["chain_launches"],
+    }
+    errs = [x for x in (ens and ens["chain_max_abs_err"],
+                        p20 and p20["max_abs_err"]) if x is not None]
+    main = p20 and p20["times"]["cost-aware"]
+    return {
+        "name": "ensemble_chain",
+        "route": "cuda",
+        "source": "pivot_tpu_torch/csrc/ensemble_chain.cu",
+        "replaces": "pivot_tpu/parallel/ensemble/tick.py:720",
+        "replaces_note": "no pallas_call: the lax.while_loop place_cond / "
+                         "place_body (:720-890) of _rollout_segment, "
+                         "vmapped over replicas",
+        "launches": (None if None in by_phase.values()
+                     else sum(by_phase.values())),
+        "launches_by_phase": by_phase,
+        "phase6_compare_holds": ens and ens["chain_holds"],
+        "phase20_compare_launches": p20 and p20["compare_launches"],
+        "max_abs_err": max(errs) if errs else None,
+        "ms": main and main["ms"],
+        "kernel_ms": main and main["kernel_ms"],
+        "ns_per_step": main and main["ns_per_step"],
+        "plain_ms": main and main["plain_ms"],
+        "bound_ms": main and main["bound_ms"],
+        "bound_by": main and main["bound_by"],
+        "library_ms": None,
+        "times": p20 and p20["times"],
+        "times_opening": p20 and p20["times_opening"],
+    }
+
+
 def cf_record(e2e, sens, p14, p15, p19) -> dict:
     """``carry_free_place``'s entry of the ``kernels`` record: the main
     path's launches (phases 3 and 4, by run, arm and R), the largest
@@ -8839,12 +9481,13 @@ def phase_5_report(ck, e2e, sens, card, device):
 
 
 PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18,
-          19)
+          19, 20)
 
 
 def selected_phases(argv) -> tuple:
     """``--phases 1,6,7`` (default: all), ``--cf-sweep`` and
-    the set of phases and whether phase 19 sweeps.  Phases 2-5, 10-17 and 19 need
+    the set of phases and whether phase 19 sweeps.  Phases 2-5, 10-17, 19
+    and 20 need
     phase 1's build (phase 14 its ``ptxas`` rows too), phase 5 the runs
     of phases 3 and 4, phase 13 the python-fabric run of phase 3: they
     come along."""
@@ -8864,7 +9507,7 @@ def selected_phases(argv) -> tuple:
         want |= {3, 4}
     if 13 in want:
         want.add(3)
-    if want & {2, 3, 4, 5, 10, 11, 12, 13, 14, 15, 16, 17, 19}:
+    if want & {2, 3, 4, 5, 10, 11, 12, 13, 14, 15, 16, 17, 19, 20}:
         want.add(1)
     return want, args.cf_sweep
 
@@ -8968,6 +9611,7 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             ptxas = ptxas_usage_start(build, tmp)  # beside the build
             cf_ptxas = cf_ptxas_start(build, tmp)
+            chain_ptxas = chain_ptxas_start(build, tmp)
             paths = build.build_all()
             log(f"  built {sorted(paths)} in {time.perf_counter() - t0:.2f} "
                 f"s (nvcc {' '.join(build.NVCC_FLAGS)})")
@@ -8982,6 +9626,7 @@ def main(argv=None) -> int:
                     f"{r['spill_stores']}/{r['spill_loads']} B"
                     for r in spilled) or "none"))
             cf_rows = cf_ptxas_lines(cf_ptxas)
+            chain_rows = chain_ptxas_lines(chain_ptxas)
         from pivot_tpu_torch.analysis import kernel_budget as kb
         from pivot_tpu_torch.infra.roofline import H100_REGS_PER_BLOCK
 
@@ -8991,8 +9636,15 @@ def main(argv=None) -> int:
         if bad:
             raise AssertionError(f"carry_free_place registers: "
                                  f"{[str(f) for f in bad]}")
+        for row in chain_rows:
+            log(f"  ptxas ensemble_chain {json.dumps(row)}")
+        bad = kb.chain_register_findings(chain_rows, H100_REGS_PER_BLOCK)
+        if bad:
+            raise AssertionError(f"ensemble_chain registers: "
+                                 f"{[str(f) for f in bad]}")
         check_shape_tables(build, ck)
         check_cf_tables(build, ck)
+        check_chain_tables(build, ck)
         arith_check(build)
         walls[1] = time.perf_counter() - tp
         census_line(census, 1)
@@ -9175,6 +9827,19 @@ def main(argv=None) -> int:
         walls[19] = time.perf_counter() - tp
         census_line(census, 19)
         log(f"  phase 19 wall: {walls[19]!r} s")
+    p20 = None
+    if 20 in phases:
+        tp = time.perf_counter()
+        log(f"== 20. ensemble_chain vs plain on the card (f32): the four arms "
+            f"at H=1-600 and past the shared form, the edge cases, then two "
+            f"R={ENS_REPLICAS} ticks of each arm at 600 hosts x 50 apps "
+            f"(one of ticks {P20_SKIP}-{P20_SKIP + P20_WINDOW} and the "
+            f"opening burst's), timed")
+        log(f"  [{card}]")
+        p20 = phase_chain(device, ck)
+        walls[20] = time.perf_counter() - tp
+        census_line(census, 20)
+        log(f"  phase 20 wall: {walls[20]!r} s")
     if configs is not None:
         configs.uninstall()
     if oneshot is not None:
@@ -9195,7 +9860,9 @@ def main(argv=None) -> int:
                                      if k not in ("check", "cf_check")}
                                  for p, r in sens.items()},
         "carry_free": p19 and {k: v for k, v in p19.items()
-                               if k != "check"}},
+                               if k != "check"},
+        "ensemble_chain": p20 and {k: v for k, v in p20.items()
+                                   if k != "check"}},
         default=str))
 
     # The kernels record; a number of a phase not run is null.
@@ -9309,7 +9976,8 @@ def main(argv=None) -> int:
         "span_rows_bound_ms": st and st["bound_ms"],
         "span_rows_bound_by": st and st["bound_by"],
         "pod_tick": pod,
-    }, cf_record(e2e, sens, p14, p15, p19)]}
+    }, cf_record(e2e, sens, p14, p15, p19),
+        chain_record(ens, sweeps, search, congestion, p12, p20)]}
     log(f"  smoke wall: {time.perf_counter() - t_start!r} s")
     print(card, flush=True)
     print(json.dumps(record), flush=True)

@@ -59,7 +59,11 @@ DISCOVER: Dict[str, Tuple[str, ...]] = {
         # purpose (a fold exports the carry) and stay out of the
         # patterns.
     ),
-    "pivot_tpu_torch/parallel/ensemble/tick.py": ("_rollout_segment",),
+    # The tick body and its plain placement chain (the reference's one
+    # body: ``_chain_plain`` is its step loop, lifted out for the hand
+    # kernel's route).
+    "pivot_tpu_torch/parallel/ensemble/tick.py": ("_rollout_segment",
+                                                  "_chain_plain"),
     # The reference's ``*_impl`` bodies are the port's eager functions.
     "pivot_tpu_torch/search/fitness.py": ("_fitness_rows", "_draw_rows"),
 }

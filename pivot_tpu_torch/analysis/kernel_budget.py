@@ -1,11 +1,14 @@
 """Kernel-budget pass: the hand kernels' shared memory and threads.
 
-Recomputed from their CUDA sources: ``greedy_place`` (below) and
+Recomputed from their CUDA sources: ``greedy_place`` (below),
 ``carry_free_place`` (:func:`collect_carry_free`: its sizing functions
 — ``smem_bytes``, ``max_threads``, ``host_range`` — translated from the
 CUDA text and evaluated, and its named constants, held against the wrapper's
 ``_cf_smem_bytes`` / ``_CF_CHUNK`` / ``_CF_MAX_THREADS`` and against the
-card's opt-in shared memory and threads per block).
+card's opt-in shared memory and threads per block) and
+``ensemble_chain`` (:func:`collect_ensemble_chain`: the same for its
+``smem_bytes`` / ``max_threads`` and constants against the wrapper's
+``_chain_smem_bytes`` / ``_CHAIN_*``).
 Counterpart of ``pivot_tpu/analysis/pallas_budget.py``.  The reference
 recomputes each Pallas kernel's VMEM footprint from its BlockSpecs and
 holds it against the hand formulas the auto-sizer trusts and the
@@ -57,6 +60,7 @@ _CU_FILE = "pivot_tpu_torch/csrc/greedy_place.cu"
 _WRAPPER_FILE = "pivot_tpu_torch/ops/cuda_kernels.py"
 _ROOFLINE_FILE = "pivot_tpu_torch/infra/roofline.py"
 _CF_CU_FILE = "pivot_tpu_torch/csrc/carry_free_place.cu"
+_CHAIN_CU_FILE = "pivot_tpu_torch/csrc/ensemble_chain.cu"
 _BUDGET_CONSTS = ("H100_SMEM_OPTIN_BYTES", "H100_REGS_PER_BLOCK",
                   "H100_MAX_THREADS_PER_BLOCK")
 
@@ -239,8 +243,11 @@ def register_findings(usage, regs_per_block: int) -> List[Finding]:
 
 def collect(cache) -> Tuple[List[Finding], List[str]]:
     out, scanned = _collect_greedy(cache)
-    cf, cf_scanned = collect_carry_free(cache)
-    return out + cf, scanned + [r for r in cf_scanned if r not in scanned]
+    for more in (collect_carry_free, collect_ensemble_chain):
+        found, also = more(cache)
+        out += found
+        scanned += [r for r in also if r not in scanned]
+    return out, scanned
 
 
 def _collect_greedy(cache) -> Tuple[List[Finding], List[str]]:
@@ -755,5 +762,188 @@ def collect_carry_free(cache) -> Tuple[List[Finding], List[str]]:
                 RULE, _CF_CU_FILE, 1,
                 f"the global-state block needs {smallest} B of shared "
                 f"memory, above the {optin} B opt-in",
+            ))
+    return out, [_WRAPPER_FILE]
+
+
+# ---------------------------------------------------------------------------
+# ensemble_chain
+# ---------------------------------------------------------------------------
+
+
+class ChainModel(NamedTuple):
+    """``ensemble_chain.cu``'s sizing: its constants and its sizing
+    functions, evaluated from the source's own text."""
+
+    consts: Dict[str, int]    # _CHAIN_CONSTS' values, by CUDA name
+    launch_bounded: bool      # __launch_bounds__(kMaxThreads)
+    fns: Dict[str, Callable]  # _CHAIN_FUNCTIONS, translated to Python
+
+    def smem_bytes(self, H: int, Z: int, form: int, arm: int,
+                   risk: int) -> int:
+        """``smem_bytes`` of the CUDA source."""
+        return self.fns["smem_bytes"](H, Z, form, arm, risk)
+
+    @property
+    def max_threads(self) -> int:
+        """A CTA's thread limit (``max_threads()``)."""
+        return self.fns["max_threads"]()
+
+
+#: The wrapper's constant for each named constant of the source.
+_CHAIN_CONSTS = {"kChunk": "_CHAIN_CHUNK", "kMaxWarps": "_CHAIN_MAX_WARPS",
+                 "kMaxZones": "_CHAIN_MAX_ZONES",
+                 "kFormShared": "_CHAIN_SHARED",
+                 "kFormGlobal": "_CHAIN_GLOBAL",
+                 "kMaxThreads": None, "kCostAware": None}
+_CHAIN_FUNCTIONS = {"ceil_div": (7, 2), "align16": (17,),
+                    "max_threads": (), "table_bytes": (31,),
+                    "slot_bytes": (), "stage_bytes": (),
+                    "host_bytes": (0, 1), "smem_bytes": (600, 31, 0, 0, 1)}
+_CHAIN_H_PROBES = (1, 7, 600, 8856, 8857, 13477, 13478, 98304)
+_CHAIN_Z_PROBES = (1, 4, 31, 170)
+
+
+def parse_ensemble_chain(text: str) -> Tuple[Optional[ChainModel],
+                                             List[str]]:
+    """The sizing of ``ensemble_chain.cu``: its named constants, and its
+    sizing functions (``_CHAIN_FUNCTIONS``) translated and evaluated; or
+    None and the list of what the pass could not read."""
+    consts, missing = _c_consts(text, _CHAIN_CONSTS)
+    ns = _c_namespace(text, _CHAIN_FUNCTIONS, consts, missing,
+                      _CHAIN_CU_FILE)
+    if missing:
+        return None, missing
+    return ChainModel(
+        consts=consts,
+        launch_bounded=re.search(
+            r"__launch_bounds__\(\s*kMaxThreads\s*\)\s*ensemble_chain_kernel",
+            text) is not None,
+        fns={name: ns[name] for name in _CHAIN_FUNCTIONS},
+    ), []
+
+
+def chain_model(root: Optional[str] = None) -> Optional[ChainModel]:
+    """The parsed model of the tree's ``ensemble_chain.cu``."""
+    from pivot_tpu_torch.analysis import repo_root
+
+    text = _cu_text(root or repo_root(), _CHAIN_CU_FILE)
+    return None if text is None else parse_ensemble_chain(text)[0]
+
+
+def chain_register_findings(usage, regs_per_block: int) -> List[Finding]:
+    """``max_threads() × registers ≤ regs_per_block`` for each
+    instantiation of ``ensemble_chain`` in ``usage`` (rows of ``ptxas
+    -v`` with a ``registers`` count, as ``chip_smoke.py`` prints them)."""
+    model = chain_model()
+    if model is None:
+        return [Finding(RULE, _CHAIN_CU_FILE, 0,
+                        "ensemble_chain.cu unreadable")]
+    return [Finding(
+        RULE, _CHAIN_CU_FILE, 1,
+        f"ensemble_chain {row.get('build', '?')}: {row['registers']} "
+        f"registers x {model.max_threads} threads > {regs_per_block} — "
+        "the launch bound does not fit the register file")
+        for row in usage
+        if row["registers"] * model.max_threads > regs_per_block]
+
+
+def collect_ensemble_chain(cache) -> Tuple[List[Finding], List[str]]:
+    """``ensemble_chain``'s formulas against the wrapper's and the
+    card's: the chunk, warp limit, zone limit and form numbers equal the
+    wrapper's, the wrapper's arm order puts cost-aware at ``kCostAware``,
+    the sizer equals the kernel's formula at every probe, the thread
+    limit fits the card, and the global form's block (the two ``[Z,
+    Z]`` tables at the CLI's 31 zones) fits the opt-in."""
+    out: List[Finding] = []
+    cu = _cu_text(cache.root, _CHAIN_CU_FILE)
+    wrapper = cache.get(_WRAPPER_FILE)
+    if cu is None:
+        return [Finding(
+            RULE, _CHAIN_CU_FILE, 0,
+            f"{_CHAIN_CU_FILE} is missing — renamed/deleted? update "
+            "pivot_tpu_torch/analysis/kernel_budget.py",
+        )], []
+    if wrapper is None:
+        return out, []
+    model, unread = parse_ensemble_chain(cu)
+    for what in unread:
+        out.append(Finding(
+            RULE, _CHAIN_CU_FILE, 1,
+            f"cannot read ensemble_chain.cu's {what!r} formula — "
+            "rewritten? update the patterns of pivot_tpu_torch/analysis/"
+            "kernel_budget.py with it",
+        ))
+    if model is None:
+        return out, [_WRAPPER_FILE]
+    if not model.launch_bounded:
+        out.append(Finding(
+            RULE, _CHAIN_CU_FILE, 1,
+            "ensemble_chain_kernel lost __launch_bounds__(kMaxThreads): "
+            "its register budget per thread is no longer tied to its "
+            "thread limit",
+        ))
+    names = [n for n in _CHAIN_CONSTS.values() if n] + ["_CHAIN_ARMS"]
+    vals = _module_values(wrapper, names)
+    line = {n: v.lineno for n, v in vals.items()}
+    got = {n: _literal(vals.get(n)) for n in names}
+    if any(got[n] is None for n in names):
+        out.append(Finding(
+            RULE, _WRAPPER_FILE, 1,
+            f"{', '.join(n for n in names if got[n] is None)} missing or "
+            "not literals — the pass cannot hold the wrapper's sizer to "
+            "the kernel's",
+        ))
+        return out, [_WRAPPER_FILE]
+    for cname, pname in _CHAIN_CONSTS.items():
+        if pname and got[pname] != model.consts[cname]:
+            out.append(Finding(
+                RULE, _WRAPPER_FILE, line[pname],
+                f"{pname} = {got[pname]} but ensemble_chain.cu has "
+                f"{cname} = {model.consts[cname]}",
+            ))
+    ca = model.consts["kCostAware"]
+    arms = tuple(got["_CHAIN_ARMS"])
+    if ca >= len(arms) or arms[ca] != "cost-aware":
+        out.append(Finding(
+            RULE, _WRAPPER_FILE, line["_CHAIN_ARMS"],
+            f"_CHAIN_ARMS = {arms}: ensemble_chain.cu's kCostAware = {ca} "
+            "names another arm",
+        ))
+    sizer, sizer_line = _python_sizer(
+        wrapper, "_chain_smem_bytes",
+        {p: got[p] for p in _CHAIN_CONSTS.values() if p})
+    forms = (model.consts["kFormShared"], model.consts["kFormGlobal"])
+    if sizer is None:
+        out.append(Finding(RULE, _WRAPPER_FILE, 1,
+                           "_chain_smem_bytes not found in the wrapper"))
+    else:
+        bad = [(H, Z, f, a, r) for H in _CHAIN_H_PROBES
+               for Z in _CHAIN_Z_PROBES for f in forms for a in range(4)
+               for r in (0, 1)
+               if sizer(H, Z, f, a, r) != model.smem_bytes(H, Z, f, a, r)]
+        if bad:
+            out.append(Finding(
+                RULE, _WRAPPER_FILE, sizer_line,
+                f"_chain_smem_bytes disagrees with ensemble_chain.cu's "
+                f"smem_bytes at {len(bad)} probe(s), first (H, Z, form, "
+                f"arm, risk) = {bad[0]}",
+            ))
+    consts, _problems = _roofline_consts(cache)  # reported by greedy's
+    limit = consts.get("H100_MAX_THREADS_PER_BLOCK")
+    if limit is not None and model.max_threads > limit:
+        out.append(Finding(
+            RULE, _CHAIN_CU_FILE, 1,
+            f"ensemble_chain's thread limit {model.max_threads} is above "
+            f"the card's {limit} threads per block",
+        ))
+    optin = consts.get("H100_SMEM_OPTIN_BYTES")
+    if optin is not None:
+        need = model.smem_bytes(1, _CLI_ZONES, forms[1], ca, 1)
+        if need > optin:
+            out.append(Finding(
+                RULE, _CHAIN_CU_FILE, 1,
+                f"the global-form block at {_CLI_ZONES} zones needs {need} "
+                f"B of shared memory, above the {optin} B opt-in",
             ))
     return out, [_WRAPPER_FILE]

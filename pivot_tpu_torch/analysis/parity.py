@@ -132,6 +132,12 @@ MANIFEST: Dict[str, Dict[str, Tuple[str, FrozenSet[str]]]] = {
         "cost_aware_kernel_sharded": (_SHARD, _SHARD_EXEMPT),
         "cost_aware_kernel_sharded_batched": (_SHARD, _SHARD_EXEMPT),
     },
+    # The ensemble rollout's placement chain (every arm in one form: the
+    # reference's ``place_body`` loop, ``parallel/ensemble/tick.py:720``);
+    # its plain version is the rollout's private ``_chain_plain``.
+    "ensemble_chain": {
+        "ensemble_chain_cuda": (_CUDA, frozenset()),
+    },
 }
 
 #: The reference's form each port form stands for, where the names

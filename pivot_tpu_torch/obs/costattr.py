@@ -341,11 +341,17 @@ ENTRY_POINTS: Dict[Tuple[str, str], Tuple[str, str]] = {
         "the Cost-Aware policy's bound call of cost_aware_cuda (its "
         "topology fixed) — see the cost_aware_cuda row"
     ),
+    (_CUDA, "ensemble_chain_cuda"): flag(
+        "the ensemble rollout's placement chain (the hand kernel "
+        "ensemble_chain, one launch a tick for every replica): timed at "
+        "its real shape (R = 1024, 600 hosts) by CUDA events in "
+        "chip_smoke.py phase 20 and inside the rollouts of phases 6-9"
+    ),
     ("pivot_tpu_torch/parallel/ensemble/tick.py",
      "_SnapshotGraphs._capture"): flag(
-        "the ensemble chain's norm-snapshot CUDA graph: its replays are "
-        "part of the rollout, attributed at the real shape by "
-        "chip_smoke.py phase 6; its captures are counted by "
+        "the plain chain's norm-snapshot CUDA graph (float64 rollouts on "
+        "the card; float32 ones snapshot inside ensemble_chain): its "
+        "replays are part of the rollout; its captures are counted by "
         "utils/compile_counter.py (graph_capture)"
     ),
 }

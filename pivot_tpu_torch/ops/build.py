@@ -9,7 +9,7 @@ No PyTorch headers are compiled, so a build takes seconds.
 Contraction is off (``--fmad=false``) and fast math is not enabled, so
 division and square root round to nearest as IEEE specifies — the
 kernels' results depend on it (``csrc/greedy_place.cu``,
-``csrc/carry_free_place.cu``).
+``csrc/carry_free_place.cu``, ``csrc/ensemble_chain.cu``).
 
 ``nvcc`` is ``$CUDA_HOME/bin/nvcc`` (default ``/usr/local/cuda``), else
 the one on ``PATH``.
@@ -39,7 +39,7 @@ _CSRC = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(_PKG, "_build")
 
 #: Every kernel source of the package, by library name.
-SOURCES = ("greedy_place", "carry_free_place")
+SOURCES = ("greedy_place", "carry_free_place", "ensemble_chain")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -55,6 +55,18 @@ hosts in global memory.  Beside each, a ``*_plain`` function is the port's slim 
 form of the same pass (``ops/kernels.py``), which the wrapper takes for
 CPU tensors, and only then.  ``LAUNCHES["carry_free_place"]`` counts its
 launches and ``LAUNCHES_CARRY_FREE`` splits them by (arm, R).
+
+The ensemble rollout's placement chain is the third,
+``ensemble_chain`` (``csrc/ensemble_chain.cu``): it ports the XLA loop
+``pivot_tpu/parallel/ensemble/tick.py:720-890`` (``place_body`` under the
+rollout's ``vmap``), every arm, risk row, score exponent and realtime
+table.  ``ensemble_chain_cuda`` launches it once a tick for all R
+replicas, each walking its own steps, in the shape :func:`_chain_config`
+picks (a replica's state in its CTA's shared memory, or in place in
+global memory); its plain version is the rollout's torch chain
+(``parallel/ensemble/tick.py::_chain_plain``), taken for CPU tensors.
+``LAUNCHES["ensemble_chain"]`` counts its launches and
+``LAUNCHES_CHAIN`` splits them by (policy, R).
 """
 
 from __future__ import annotations
@@ -79,6 +91,7 @@ __all__ = [
     "LAUNCHES",
     "LAUNCHES_BY_REPLICAS",
     "LAUNCHES_CARRY_FREE",
+    "LAUNCHES_CHAIN",
     "LAUNCHES_ROWS",
     "CLUSTER_MAX_HOSTS",
     "MAX_HOSTS",
@@ -95,6 +108,8 @@ __all__ = [
     "cost_aware_plain",
     "cost_aware_plain_batched",
     "cost_aware_plain_rows",
+    "ensemble_chain_cuda",
+    "load_ensemble_chain_library",
     "first_fit_cuda",
     "first_fit_cuda_batched",
     "first_fit_plain",
@@ -104,13 +119,15 @@ __all__ = [
 ]
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel name.
-LAUNCHES = {"greedy_place": 0, "carry_free_place": 0}
+LAUNCHES = {"greedy_place": 0, "carry_free_place": 0, "ensemble_chain": 0}
 #: The shared-stream launches of ``greedy_place``, by replica count R.
 LAUNCHES_BY_REPLICAS: dict = {}
 #: The per-row launches of ``greedy_place``, by row count G.
 LAUNCHES_ROWS: dict = {}
 #: The launches of ``carry_free_place``, by (arm, replica count R).
 LAUNCHES_CARRY_FREE: dict = {}
+#: The launches of ``ensemble_chain``, by (policy, replica count R).
+LAUNCHES_CHAIN: dict = {}
 #: Guards the counts (session threads launch concurrently).
 _COUNT_LOCK = threading.Lock()
 #: Guards the typing of the library's entry points.
@@ -157,6 +174,7 @@ def reset_launches() -> None:
         LAUNCHES_BY_REPLICAS.clear()
         LAUNCHES_ROWS.clear()
         LAUNCHES_CARRY_FREE.clear()
+        LAUNCHES_CHAIN.clear()
 
 
 #: The kernel's ``state`` argument, by where a replica's per-host state
@@ -1085,3 +1103,273 @@ def best_fit_cuda_batched(avail_r, demands, valid, risk=None, n_bound=None):
                                       n_bound=n_bound)
     return _cf_call("best-fit", avail_r, demands, valid, risk=risk,
                     n_bound=n_bound)
+
+
+# ---------------------------------------------------------------------------
+# The ensemble's placement chain: ``ensemble_chain``.
+# ---------------------------------------------------------------------------
+
+#: The kernel's arms, in the order of its ``arm`` argument.
+_CHAIN_ARMS = ("cost-aware", "first-fit", "best-fit", "opportunistic")
+#: Its forms: a replica's rows in its CTA's shared memory
+#: (``kFormShared``) or in place in global memory (``kFormGlobal``).
+_CHAIN_SHARED = 0
+_CHAIN_GLOBAL = 1
+#: Steps a staging buffer holds (``kChunk``), warps a CTA at most
+#: (``kMaxWarps``) and the zones the shared form keeps a byte each
+#: (``kMaxZones``).
+_CHAIN_CHUNK = 64
+_CHAIN_MAX_WARPS = 32
+_CHAIN_MAX_ZONES = 256
+#: Hosts a thread owns in the shared form at most, before the replica
+#: takes another warp: W = ⌈H / 256⌉, so H = 600 runs 3 warps a replica
+#: and R = 1024 replicas of ~23 KB stay resident in one wave on 132 SMs.
+_CHAIN_THREAD_HOSTS = 8
+
+
+def _chain_smem_bytes(H, Z, form, arm, risk) -> int:
+    """``ensemble_chain_smem_bytes``: two buffers of a 16-byte slot a
+    warp, the staged steps (36 B each), the two ``[Z, Z]`` tables
+    (cost-aware, arm 0) and, in the shared form, 17 B a host (+4 the
+    cost-aware snapshot, +4 the risk)."""
+    def align16(n):
+        return -(-n // 16) * 16
+    host = 17 + (4 if arm == 0 else 0) + (4 if risk else 0)
+    return (32 * _CHAIN_MAX_WARPS + 36 * _CHAIN_CHUNK
+            + (align16(8 * Z * Z) if arm == 0 else 0)
+            + (align16(H * host) if form == _CHAIN_SHARED else 0))
+
+
+class _ChainConfig(NamedTuple):
+    """One launch shape of ``ensemble_chain``: one CTA a replica."""
+
+    form: int        # _CHAIN_SHARED or _CHAIN_GLOBAL
+    warps: int       # W: warps of a replica's CTA
+    smem_bytes: int  # dynamic shared memory of one CTA
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.warps
+
+    @property
+    def state(self) -> str:
+        """Where a replica's per-host state lives."""
+        return "shared" if self.form == _CHAIN_SHARED else "global"
+
+
+def _chain_limit(H, Z, policy) -> str:
+    return (f"H={H} hosts at Z={Z} outgrow ensemble_chain ({policy}): its "
+            f"{8 * Z * Z}-byte [Z, Z] tables live in shared memory, and one "
+            f"Hopper CTA may opt into at most {_SMEM_LIMIT} bytes of it")
+
+
+@functools.lru_cache(maxsize=1024)
+def _chain_config(H: int, Z: int, policy: str, risk: bool) -> _ChainConfig:
+    """The launch shape for replicas of ``H`` hosts over ``Z`` zones:
+
+    =====================  =========================================
+    shape                  form, W
+    =====================  =========================================
+    shared bytes ≤ 227 KB  rows in the CTA's shared memory;
+    and Z ≤ 256            W = ⌈H / 256⌉ (at most 32)
+    otherwise              rows in place in global memory; W = 32
+    =====================  =========================================
+
+    At Z = 31 the shared form holds up to 8,856 hosts (cost-aware with
+    risk), 10,544 (cost-aware), 10,910 (the other arms with risk) and
+    13,477 (without).  Only cost-aware tables past the opt-in (Z ≥ 170)
+    raise ValueError."""
+    if policy not in _CHAIN_ARMS:
+        raise ValueError(f"policy must be one of {_CHAIN_ARMS}, got "
+                         f"{policy!r}")
+    arm = _CHAIN_ARMS.index(policy)
+    W = min(_CHAIN_MAX_WARPS, max(1, -(-H // (32 * _CHAIN_THREAD_HOSTS))))
+    smem = _chain_smem_bytes(H, Z, _CHAIN_SHARED, arm, risk)
+    if smem <= _SMEM_LIMIT and Z <= _CHAIN_MAX_ZONES:
+        return _ChainConfig(_CHAIN_SHARED, W, smem)
+    smem = _chain_smem_bytes(H, Z, _CHAIN_GLOBAL, arm, risk)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(_chain_limit(H, Z, policy))
+    return _ChainConfig(_CHAIN_GLOBAL, _CHAIN_MAX_WARPS, smem)
+
+
+_I64 = torch.int64
+
+
+def _chain_check(policy, avail, g_p, az_p, bf_p, order, n_ready, dem_group,
+                 cd, host_zone, cost_zz, bw_zz, u_p, risk_row, w_norm,
+                 weyl_rot, score_bw):
+    """Validate the chain's contract in one pass (``ensemble_chain_cuda``'s
+    docstring); returns ``(R, T, H, G, Z)``."""
+    if policy not in _CHAIN_ARMS:
+        raise ValueError(f"policy must be one of {_CHAIN_ARMS}, got "
+                         f"{policy!r}")
+    if avail.dim() != 3 or avail.shape[2] != 4:
+        raise ValueError(f"avail must be [R, H, 4], got {tuple(avail.shape)}")
+    R, H = avail.shape[0], avail.shape[1]
+    if order.dim() != 2 or cd.dim() != 3 or dem_group.dim() != 2:
+        raise ValueError("the chain takes order [R, T], dem_group [G, 4] and "
+                         "cd [R, G, Z]")
+    T, G, Z = order.shape[1], dem_group.shape[0], cd.shape[2]
+    dtype, dev = avail.dtype, avail.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"avail must be float32 or float64, got {dtype}")
+    _want("avail", avail, dev, dtype, (R, H, 4))
+    for name, t in (("g_p", g_p), ("az_p", az_p), ("bf_p", bf_p),
+                    ("order", order)):
+        _want(name, t, dev, _I64, (R, T))
+    _want("n_ready", n_ready, dev, _I64, (R,))
+    _want("dem_group", dem_group, dev, dtype, (G, 4))
+    _want("cd", cd, dev, dtype, (R, G, Z))
+    _want("host_zone", host_zone, dev, _I64, (H,))
+    cost_aware = policy == "cost-aware"
+    opp = policy == "opportunistic"
+    if cost_aware:
+        if cost_zz is None or bw_zz is None:
+            raise ValueError("the cost-aware chain needs cost_zz and bw_zz")
+        shape = (Z, Z) if cost_zz.dim() == 2 else (R, Z, Z)
+        _want("cost_zz", cost_zz, dev, dtype, shape)
+        _want("bw_zz", bw_zz, dev, dtype, shape)
+        if w_norm is not None:
+            _want("w_norm", w_norm, dev, dtype, (R, 1))
+        if score_bw is not None:
+            _want("score_bw", score_bw, dev, dtype, (R, Z, H))
+    for name, t in (("cost_zz", cost_zz), ("bw_zz", bw_zz),
+                    ("w_norm", w_norm), ("score_bw", score_bw)):
+        if t is not None and not cost_aware:
+            raise ValueError(f"{name} is the cost-aware chain's, not "
+                             f"{policy}'s")
+    if opp:
+        if u_p is None or weyl_rot is None:
+            raise ValueError("the opportunistic chain needs u_p and weyl_rot")
+        _want("u_p", u_p, dev, dtype, (R, T))
+        _want("weyl_rot", weyl_rot, dev, dtype, (R,))
+    elif u_p is not None or weyl_rot is not None:
+        raise ValueError(f"u_p and weyl_rot are the opportunistic chain's, "
+                         f"not {policy}'s")
+    if risk_row is not None:
+        _want("risk_row", risk_row, dev, dtype, (R, H))
+    if H < 1 or G < 1 or Z < 1:
+        raise ValueError("the chain needs at least one host, group and zone")
+    return R, T, H, G, Z
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_entry():
+    """The built library's launch entry point, typed once:
+    ``ensemble_chain_launch`` (nineteen pointers, nine ints, the
+    stream)."""
+    from pivot_tpu_torch.ops.build import load
+
+    fn = load("ensemble_chain").ensemble_chain_launch
+    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def load_ensemble_chain_library():
+    """Build (if needed) and load ``ensemble_chain`` now, on the calling
+    thread; returns its typed entry point."""
+    with _LOAD_LOCK:
+        return _chain_entry()
+
+
+def _chain_launch(cfg, policy, avail, g_p, az_p, bf_p, order, n_ready,
+                  dem_group, cd, host_zone, cost_zz, bw_zz, u_p, risk_row,
+                  w_norm, weyl_rot, score_bw, pl, delay) -> None:
+    """Launch ``ensemble_chain`` once, in shape ``cfg``, on the current
+    stream of ``avail``'s device, on CUDA operands :func:`_chain_check`
+    has passed (float32, ``avail`` and ``dem_group`` 16-byte aligned),
+    ``avail`` updated in place, into ``pl`` / ``delay``; count the launch,
+    and raise if CUDA refused it.  The kernel's one launch site."""
+    dev = avail.device
+    if dev.type != "cuda":
+        raise ValueError(f"ensemble_chain launches on cuda tensors, got "
+                         f"{dev}")
+    R, T, H = order.shape[0], order.shape[1], avail.shape[1]
+    G, Z = dem_group.shape[0], cd.shape[2]
+    snap_rows = (torch.empty((R, H), dtype=_F32, device=dev)
+                 if cfg.form == _CHAIN_GLOBAL and policy == "cost-aware"
+                 else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    args = (ptr(avail), ptr(g_p), ptr(az_p), ptr(bf_p), ptr(order), ptr(u_p),
+            ptr(n_ready), ptr(dem_group), ptr(cd), ptr(host_zone),
+            ptr(cost_zz), ptr(bw_zz), ptr(risk_row), ptr(w_norm),
+            ptr(weyl_rot), ptr(score_bw), ptr(snap_rows), ptr(pl),
+            ptr(delay), R, T, H, G, Z,
+            int(cost_zz is not None and cost_zz.dim() == 3),
+            _CHAIN_ARMS.index(policy), cfg.form, cfg.warps,
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    fn = load_ensemble_chain_library()
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"ensemble_chain launch failed: CUDA error {err}")
+    with _COUNT_LOCK:
+        LAUNCHES["ensemble_chain"] += 1
+        LAUNCHES_CHAIN[policy, R] = LAUNCHES_CHAIN.get((policy, R), 0) + 1
+
+
+def ensemble_chain_cuda(policy, avail, g_p, az_p, bf_p, order, n_ready,
+                        dem_group, cd, host_zone, cost_zz=None, bw_zz=None,
+                        u_p=None, risk_row=None, w_norm=None, weyl_rot=None,
+                        score_bw=None):
+    """One tick's placement chain for ``R`` replicas — the reference's
+    ``place_body`` loop (``pivot_tpu/parallel/ensemble/tick.py:720-890``)
+    under its ``vmap``:
+
+      avail [R, H, 4] (updated in place); the tick's ordered streams
+      g_p / az_p / bf_p / order [R, T] int64 (group, anchor zone, anchor
+      bucket's first rank, task index of step j); n_ready [R] int64 (each
+      replica's steps); dem_group [G, 4]; cd [R, G, Z] (transfer delays);
+      host_zone [H] int64; cost-aware: the round-trip tables cost_zz /
+      bw_zz [Z, Z] (or [R, Z, Z] under score exponents), optional w_norm
+      [R, 1] (the snapshot's exponent) and score_bw [R, Z, H] (realtime
+      scoring's bandwidth); opportunistic: u_p [R, T] and weyl_rot [R];
+      optional risk_row [R, H]; all contiguous, on one device, floats in
+      avail's dtype; groups in [0, G), zones in [0, Z), order a
+      permutation of each row, n_ready in [0, T].
+
+    Returns ``(pl [R, T] int64, delay [R, T])``: each placed task's host
+    and transfer delay, −1 and 0 elsewhere.  CUDA tensors (float32 only)
+    launch ``ensemble_chain`` once on the current stream — outputs from
+    ``torch.empty``, no other device operation, no synchronisation; CPU
+    tensors take the plain chain
+    (``parallel/ensemble/tick.py::_chain_plain``); anything else
+    raises."""
+    R, T, H, G, Z = _chain_check(policy, avail, g_p, az_p, bf_p, order,
+                                 n_ready, dem_group, cd, host_zone, cost_zz,
+                                 bw_zz, u_p, risk_row, w_norm, weyl_rot,
+                                 score_bw)
+    kw = dict(cost_zz=cost_zz, bw_zz=bw_zz, u_p=u_p, risk_row=risk_row,
+              w_norm=w_norm, weyl_rot=weyl_rot, score_bw=score_bw)
+    args = (avail, g_p, az_p, bf_p, order, n_ready, dem_group, cd,
+            host_zone)
+    if avail.device.type == "cpu":
+        from pivot_tpu_torch.parallel.ensemble.tick import _chain_plain
+
+        return _chain_plain(policy, *args, **kw)
+    if avail.device.type != "cuda":
+        raise ValueError(f"ensemble_chain runs on cuda or (plain) cpu "
+                         f"tensors, got {avail.device}")
+    if avail.dtype != _F32:
+        raise TypeError(f"ensemble_chain is float32 only, got {avail.dtype} "
+                        "(float64 runs the plain chain)")
+    for name, t in (("avail", avail), ("dem_group", dem_group)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned: the kernel "
+                             "reads its rows as float4")
+    pl = torch.empty((R, T), dtype=_I64, device=avail.device)
+    delay = torch.empty((R, T), dtype=_F32, device=avail.device)
+    if R:
+        _chain_launch(_chain_config(H, Z, policy, risk_row is not None),
+                      policy, *args, cost_zz, bw_zz, u_p, risk_row, w_norm,
+                      weyl_rot, score_bw, pl, delay)
+    return pl, delay

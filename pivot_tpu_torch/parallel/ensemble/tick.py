@@ -2,16 +2,23 @@
 
 Port of ``pivot_tpu/parallel/ensemble/tick.py::_rollout_segment``.  JAX
 runs one replica's ``lax.while_loop`` over ticks and vmaps it; here every
-tensor carries the replica axis ``R`` in front and the loops run on the
-host:
+tensor carries the replica axis ``R`` in front and the tick loop runs on
+the host:
 
   * the tick loop runs while any replica has a task not done (and at most
     ``n_ticks`` ticks).  A replica whose own loop would have stopped is
     frozen, as under ``vmap``: its clock and busy integral stop, and
     nothing else of it can change (it has no running, ready or waiting
     task left);
-  * the placement chain of a tick walks max-over-replicas ``n_ready``
-    steps; a step past a replica's own ``n_ready`` places nothing there;
+  * the placement chain of a tick (the reference's ``place_body``,
+    ``tick.py:720-890``) is one launch of the hand kernel
+    ``ensemble_chain`` (``csrc/ensemble_chain.cu``, through
+    ``ops/cuda_kernels.py::ensemble_chain_cuda``) on a ``cuda`` device in
+    float32: each replica walks its own ``n_ready`` steps on the card.
+    On the CPU and in float64 (the kernels are float32 only, as
+    ``sched/cuda.py``'s) :func:`_chain_plain` runs it: a host loop of
+    max-over-replicas ``n_ready`` steps, a step past a replica's own
+    ``n_ready`` placing nothing there.  Both give the same bits;
   * each tick reads the device once: ``[max n_ready, any replica alive
     next tick]`` in one copy, after the sort (a task only becomes done in
     the retire step, so the next tick's loop condition is known by then).
@@ -61,6 +68,7 @@ from typing import Optional
 
 import torch
 
+from pivot_tpu_torch.ops import cuda_kernels
 from pivot_tpu_torch.ops.kernels import _first_true, _place_replicas
 from pivot_tpu_torch.ops.tickloop import _inverse, _lexsort
 from pivot_tpu_torch.utils import compile_counter
@@ -253,16 +261,22 @@ SNAPSHOT_GRAPHS = _SnapshotGraphs()
 
 
 def _norm_snapshot(avail, w_norm):
-    """The cost-aware chain's per-step host norm term, ``‖avail‖`` (``**
+    """The plain chain's per-step host norm term, ``‖avail‖`` (``**
     w_norm`` with score exponents).  Returns ``(buffer, snap, graph)``:
     the chain copies its availability into ``buffer``, updates it there
     in place, and ``snap() -> [R, H]`` reads it.  On the card its ~90
-    launches (~390 with the pow twin) are one CUDA graph replay, the
-    graph checked out of :data:`SNAPSHOT_GRAPHS` (``graph``: hand it back
-    with ``SNAPSHOT_GRAPHS.give`` when the rollout ends; None on the
-    CPU): the same kernels on the same buffers, so the same bits, at a
-    fraction of the host's launch time; ``snap()`` returns the graph's
-    own output buffer, rewritten by the next call."""
+    launches are one CUDA graph replay, the graph checked out of
+    :data:`SNAPSHOT_GRAPHS` (``graph``: hand it back with
+    ``SNAPSHOT_GRAPHS.give`` when the rollout ends; None on the CPU): the
+    same kernels on the same buffers, so the same bits, at a fraction of
+    the host's launch time; ``snap()`` returns the graph's own output
+    buffer, rewritten by the next call.  A float32 rollout on the card
+    takes its snapshots inside ``ensemble_chain`` and never calls this,
+    so on the card the graphs serve float64 rollouts (cost-aware without
+    score exponents: ``libm.require_host`` refuses those) and
+    ``analysis.compile_check``'s snapshot shape only; the float32 MPC
+    windows capture none, and ``MpcController.captures_after_warmup``
+    (phase 12 of ``chip_smoke.py``) reads 0 there by construction."""
     if avail.is_cuda:
         return SNAPSHOT_GRAPHS.take(avail, w_norm)
     buf = avail.clone()
@@ -271,6 +285,124 @@ def _norm_snapshot(avail, w_norm):
         live = _fma_norms(buf)
         return live if w_norm is None else xla_pow(live, w_norm)
     return buf, snap, None
+
+
+def _round_trips(topo, score_params, dtype):
+    """The ``[Z, Z]`` round-trip score tables ``(cost, bw)``, ``RT[a, z] =
+    T[a, z] + T[z, a]``: the reference's ``[Z, H]`` tables (``tick.py``'s
+    ``cost_rt[a, h] = cost[a, zone(h)] + cost[zone(h), a]``) read at ``z
+    = zone(h)``, the same two operands added once.  With score exponents
+    ``[R, 3]`` both are raised per row, ``[R, Z, Z]`` (``xla_pow`` is
+    elementwise: the bits of the ``[R, Z, H]`` tables)."""
+    cost_zz = topo.cost + topo.cost.T
+    bw_zz = topo.bw + topo.bw.T
+    if score_params is None:
+        return cost_zz, bw_zz
+    sp = score_params.to(dtype)
+    return (xla_pow(cost_zz[None], sp[:, 0, None, None]).contiguous(),
+            xla_pow(bw_zz[None], sp[:, 1, None, None]).contiguous())
+
+
+def _chain_plain(policy, avail, g_p, az_p, bf_p, order, n_ready, dem_group,
+                 cd, host_zone, cost_zz=None, bw_zz=None, u_p=None,
+                 risk_row=None, w_norm=None, weyl_rot=None, score_bw=None,
+                 n_steps=None, snap=None):
+    """A tick's placement chain (the reference's ``place_body``,
+    ``pivot_tpu/parallel/ensemble/tick.py:724-880``) as a torch loop over
+    steps, vectorized over replicas: the plain version of
+    ``ensemble_chain`` (``ops/cuda_kernels.py::ensemble_chain_cuda``,
+    the same contract), run on the CPU, in float64 on any device, and by
+    ``chip_smoke.py`` as the kernel's referee.
+
+    Step ``j < n_steps`` (default: a host read of ``n_ready.max()``)
+    places each replica's ``j``-th eligible task — ``order [R, T]`` (task
+    index), ``g_p`` (group), ``az_p`` (anchor zone), ``bf_p`` (anchor
+    bucket's first rank), ``u_p`` (opportunistic uniform) — where ``j <
+    n_ready[r]``: the arm's host among those that fit ``dem_group[g]``
+    (strictly for cost-aware and best-fit), ``avail [R, H, 4]`` less the
+    demand there (in place), the host and its transfer delay ``cd[r, g,
+    zone(h)]`` written at the task.  Cost-aware scores ``cost_zz[az,
+    zone(h)] / (snap[h] · bw_zz[az, zone(h)])`` (``[Z, Z]`` tables, or
+    ``[R, Z, Z]`` with score exponents; the bandwidth ``score_bw[r, az,
+    h]`` under realtime scoring) plus ``risk_row [R, H]``; the snapshot
+    ``‖avail‖`` (``** w_norm [R, 1]``) is taken again where a row's
+    ``bf_p`` changes (``snap``, when given, reads ``avail``: the pooled
+    graph of :func:`_norm_snapshot`).  Opportunistic rotates its uniform
+    by ``weyl_rot [R]``.  Returns ``([R, T] int64 placements, −1 where
+    none; [R, T] delays, 0 there)``."""
+    R, T = order.shape
+    dtype, dev = avail.dtype, avail.device
+    if n_steps is None:
+        # graftcheck: ignore[host-sync] -- the referee's own step count; the tick loop passes its one read's
+        n_steps = int(n_ready.max()) if R else 0
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    inf = torch.full((), float("inf"), dtype=dtype, device=dev)
+    rep = torch.arange(R, device=dev)
+    hz = host_zone[None, :]
+    fits = torch.gt if policy in ("cost-aware", "best-fit") else torch.ge
+    pl = torch.full((R, T), -1, dtype=torch.int64, device=dev)
+    delay = torch.zeros((R, T), dtype=dtype, device=dev)
+    if policy == "cost-aware":
+        if snap is None:
+            def snap():
+                live = _fma_norms(avail)
+                return live if w_norm is None else xla_pow(live, w_norm)
+        rows = rep[:, None]
+        norm_snap = zero  # replaced at step 0 (bf_p ≥ 0 > prev_bf)
+        prev_bf = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    place_row = _place_replicas(avail)
+    for j in range(n_steps):
+        g = g_p[:, j]
+        demand = dem_group[g]  # [R, 4]
+        fit = fits(avail, demand[:, None, :]).all(-1)  # [R, H]
+        if policy == "cost-aware":
+            # Host scores frozen per anchor bucket (availability at
+            # bucket start), live fit checks.
+            # A new snapshot where a row opens a bucket.  On the CPU
+            # reading that flag costs nothing, so a step where no row
+            # opens one skips the snapshot (the same values).
+            bf_j = bf_p[:, j]
+            opens = bf_j != prev_bf
+            # graftcheck: ignore[host-sync] -- short-circuits on the card; read on the CPU only, where it is no device sync
+            if dev.type != "cpu" or bool(opens.any()):
+                norm_snap = torch.where(opens[:, None], snap(), norm_snap)
+            prev_bf = bf_j
+            az = az_p[:, j][:, None]
+            if cost_zz.dim() == 2:
+                cost, bw = cost_zz[az, hz], bw_zz[az, hz]
+            else:
+                cost, bw = cost_zz[rows, az, hz], bw_zz[rows, az, hz]
+            if score_bw is not None:
+                bw = score_bw[rep, az_p[:, j]]
+            score = cost / (norm_snap * bw)
+            if risk_row is not None:
+                score = score + risk_row
+            h = torch.where(fit, score, inf).argmin(1)
+        elif policy == "first-fit":
+            h = _first_true(fit) if risk_row is None else \
+                torch.where(fit, risk_row, inf).argmin(1)
+        elif policy == "best-fit":
+            score = _fma_norms(avail - demand[:, None, :])
+            if risk_row is not None:
+                score = score + risk_row
+            h = torch.where(fit, score, inf).argmin(1)
+        else:  # opportunistic: uniform among fits, Weyl-rotated per tick
+            if risk_row is not None:  # the least-risk tier of fits
+                rmin = torch.where(fit, risk_row, inf).amin(1)
+                fit = fit & (risk_row == rmin[:, None])
+            u_eff = torch.fmod(u_p[:, j] + weyl_rot, 1.0)
+            n_fit = fit.sum(1)
+            k = torch.minimum((u_eff * n_fit.to(dtype)).to(torch.int64),
+                              n_fit - 1)
+            rank = torch.cumsum(fit, 1) - 1
+            h = _first_true(fit & (rank == k[:, None]))
+        ok = fit.any(1) & (n_ready > j)
+        place_row(avail, demand, h, ok)
+        at = order[:, j:j + 1]
+        pl.scatter_(1, at, torch.where(ok, h, -1)[:, None])
+        d_j = cd[rep, g, host_zone[h]]
+        delay.scatter_(1, at, torch.where(ok, d_j, zero)[:, None])
+    return pl, delay
 
 
 def _rollout_segment(
@@ -350,9 +482,9 @@ def _rollout_segment(
     iota_r = iota.expand(R, T)
     rep = torch.arange(R, device=dev)
     miss_row = R * H + rep[:, None] * T + iota  # [R, T] dropped refund rows
-    # [Z, H] round-trip score tables (pure topology).
-    cost_rt = topo.cost[:, host_zone] + topo.cost[host_zone, :].T
-    bw_rt = topo.bw[:, host_zone] + topo.bw[host_zone, :].T
+    # The tick's placement chain: the hand kernel on the card in float32
+    # (no other route there), the plain chain elsewhere.
+    on_kernel = dev.type == "cuda" and dtype == torch.float32
     if policy in ("first-fit", "cost-aware"):
         dem_norms = _fma_norms(workload.demands)
         task_order = torch.sort(-dem_norms, stable=True).indices
@@ -378,14 +510,17 @@ def _rollout_segment(
             m.scatter_(1, torch.where(hit, fault_idx, H),
                        torch.ones((R, F), dtype=torch.bool, device=dev))
             return m[:, :H]
+    w_norm = None
     if score_params is not None:
         require_host(dtype, dev, "score exponents")
-        # Per-row pow tables, hoisted (pure topology × exponents); the
-        # norm's pow is taken once per snapshot in the chain.
-        sp = score_params.to(dtype)
-        cost_rt = xla_pow(cost_rt[None], sp[:, 0, None, None])  # [R, Z, H]
-        bw_rt = xla_pow(bw_rt[None], sp[:, 1, None, None])
-        w_norm = sp[:, 2:3]
+        # The norm's pow is taken once per snapshot in the chain.
+        w_norm = score_params.to(dtype)[:, 2:3].contiguous()
+    if policy == "cost-aware":
+        # [Z, Z] round-trip score tables (pure topology; per-row pow
+        # tables [R, Z, Z] with exponents), hoisted.
+        cost_zz, bw_zz = _round_trips(topo, score_params, dtype)
+    else:
+        cost_zz = bw_zz = None
     if congestion:
         # Pipe tables (pure topology, hoisted): the bandwidth of each
         # (source → destination host) pipe, its reciprocal, and the pull
@@ -569,6 +704,7 @@ def _rollout_segment(
             * workload.out_group[None, :, None]  # [R, G, Z]
         gd = torch.cat([gd, gd.new_zeros((R, 1, Z))], 1)
         cd = gd[:, pred_idx].amax(2)  # [R, G, Z]
+        weyl_rot = None
         if policy == "opportunistic" and task_u is not None:
             tick_idx = (t * inv_tick).to(torch.int32)
             weyl_rot = tick_idx.to(dtype) * golden  # [R]
@@ -581,75 +717,35 @@ def _rollout_segment(
         # 5a''. Realtime scoring: the inbound leg of the round trip
         #      discounted by the tick-start backlog (an empty pipe keeps
         #      the static entry's bits).
+        score_bw = None
         if realtime_scoring:
+            bw_rt = bw_zz[:, host_zone]  # [Z, H]
             score_bw = torch.where(q > 0, bw_rt - bw_zh + bw_zh / (q + 1.0),
                                    bw_rt)  # [R, Z, H]
 
         # 5b. The placement chain: step j places each replica's j-th
-        #     eligible task (a no-op past that replica's n_ready).
-        pl = torch.full((R, T), -1, dtype=torch.int64, device=dev)
-        delay = torch.zeros((R, T), dtype=dtype, device=dev)
-        if policy == "cost-aware":
-            # The chain runs on one buffer for the whole call, the
-            # snapshot's input.
-            if snap is None:
-                chain_avail, snap, graph = _norm_snapshot(
-                    avail, w_norm if score_params is not None else None)
-            avail = chain_avail.copy_(avail)
-            norm_snap = zero  # replaced at step 0 (bf_p ≥ 0 > prev_bf)
-            prev_bf = torch.full((R,), -1, dtype=torch.int64, device=dev)
-        place_row = _place_replicas(avail)
-        for j in range(n_steps):
-            g = g_p[:, j]
-            demand = dem_group[g]  # [R, 4]
-            fit = fits(avail, demand[:, None, :]).all(-1)  # [R, H]
+        #     eligible task (none past that replica's n_ready): one
+        #     launch of the hand kernel on the card in float32, else the
+        #     plain chain on one buffer for the whole call, the cost-aware
+        #     snapshot's input.
+        chain = (cuda_kernels.ensemble_chain_cuda if on_kernel
+                 else _chain_plain)
+        plain_kw = {}
+        if not on_kernel:
             if policy == "cost-aware":
-                # Host scores frozen per anchor bucket (availability at
-                # bucket start), live fit checks.
-                # A new snapshot where a row opens a bucket.  On the CPU
-                # reading that flag costs nothing, so a step where no row
-                # opens one skips the snapshot (the same values).
-                bf_j = bf_p[:, j]
-                opens = bf_j != prev_bf
-                # graftcheck: ignore[host-sync] -- short-circuits on the card; read on the CPU only, where it is no device sync
-                if dev.type != "cpu" or bool(opens.any()):
-                    norm_snap = torch.where(opens[:, None], snap(),
-                                            norm_snap)
-                prev_bf = bf_j
-                az = az_p[:, j]
-                if realtime_scoring:
-                    score = cost_rt[az] / (norm_snap * score_bw[rep, az])
-                elif score_params is None:
-                    score = cost_rt[az] / (norm_snap * bw_rt[az])
-                else:
-                    score = cost_rt[rep, az] / (norm_snap * bw_rt[rep, az])
-                if hazard is not None:
-                    score = score + risk_row
-                h = torch.where(fit, score, inf).argmin(1)
-            elif policy == "first-fit":
-                h = _first_true(fit) if hazard is None else \
-                    torch.where(fit, risk_row, inf).argmin(1)
-            elif policy == "best-fit":
-                score = _fma_norms(avail - demand[:, None, :])
-                if hazard is not None:
-                    score = score + risk_row
-                h = torch.where(fit, score, inf).argmin(1)
-            else:  # opportunistic: uniform among fits, Weyl-rotated per tick
-                if hazard is not None:  # the least-risk tier of fits
-                    rmin = torch.where(fit, risk_row, inf).amin(1)
-                    fit = fit & (risk_row == rmin[:, None])
-                u_eff = torch.fmod(u_p[:, j] + weyl_rot, 1.0)
-                n_fit = fit.sum(1)
-                k = torch.minimum((u_eff * n_fit.to(dtype)).to(torch.int64),
-                                  n_fit - 1)
-                rank = torch.cumsum(fit, 1) - 1
-                h = _first_true(fit & (rank == k[:, None]))
-            ok = fit.any(1) & (n_ready > j)
-            place_row(avail, demand, h, ok)
-            at = order[:, j:j + 1]
-            pl.scatter_(1, at, torch.where(ok, h, -1)[:, None])
-            d_j = cd[rep, g, host_zone[h]]
-            delay.scatter_(1, at, torch.where(ok, d_j, zero)[:, None])
+                if snap is None:
+                    chain_avail, snap, graph = _norm_snapshot(avail, w_norm)
+                avail = chain_avail.copy_(avail)
+            plain_kw = dict(n_steps=n_steps, snap=snap)
+        opp = policy == "opportunistic"
+        pl, delay = chain(
+            policy, avail, g_p, az_p, bf_p, order, n_ready, dem_group, cd,
+            host_zone, cost_zz=cost_zz, bw_zz=bw_zz,
+            u_p=u_p if opp else None,
+            risk_row=risk_row if hazard is not None else None,
+            w_norm=w_norm if policy == "cost-aware" else None,
+            weyl_rot=weyl_rot,
+            score_bw=score_bw, **plain_kw)
         placed = pl >= 0
         if lifo:
             # Wait-queue carry: an unplaced ready task re-enters at its

@@ -424,7 +424,8 @@ def test_entry_map_flags_a_graph_outside_its_files(tmp_path):
 def _budget_tree(tmp_path):
     root = str(tmp_path)
     for rel in (kernel_budget._CU_FILE, kernel_budget._CF_CU_FILE,
-                kernel_budget._WRAPPER_FILE, kernel_budget._ROOFLINE_FILE):
+                kernel_budget._CHAIN_CU_FILE, kernel_budget._WRAPPER_FILE,
+                kernel_budget._ROOFLINE_FILE):
         os.makedirs(os.path.dirname(os.path.join(root, rel)), exist_ok=True)
         shutil.copy(os.path.join(ROOT, rel), os.path.join(root, rel))
     return root
@@ -472,6 +473,79 @@ def test_kernel_budget_falsifiers(tmp_path, rel, old, new, expect):
     _edit(root, rel, old, new)
     got = port.run(root=root, rules=["kernel-budget"])
     assert any(expect in f.message for f in got), [str(f) for f in got]
+
+
+@pytest.mark.parametrize("rel,old,new,expect", [
+    (kernel_budget._CHAIN_CU_FILE, "return 17 + snap + rk;",
+     "return 16 + snap + rk;", "_chain_smem_bytes disagrees"),
+    (kernel_budget._CHAIN_CU_FILE, "return 36 * kChunk;",
+     "return 40 * kChunk;", "_chain_smem_bytes disagrees"),
+    (kernel_budget._CHAIN_CU_FILE, "constexpr int kChunk = 64;",
+     "constexpr int kChunk = 32;", "_CHAIN_CHUNK = 64"),
+    (kernel_budget._CHAIN_CU_FILE, "constexpr int kMaxZones = 256;",
+     "constexpr int kMaxZones = 128;", "_CHAIN_MAX_ZONES = 256"),
+    (kernel_budget._CHAIN_CU_FILE, "constexpr int kFormGlobal = 1;",
+     "constexpr int kFormGlobal = 2;", "_CHAIN_GLOBAL = 1"),
+    (kernel_budget._CHAIN_CU_FILE, "__launch_bounds__(kMaxThreads)", "",
+     "ensemble_chain_kernel lost __launch_bounds__"),
+    (kernel_budget._CHAIN_CU_FILE, "constexpr int kMaxThreads = 1024;",
+     "constexpr int kMaxThreads = 2048;", "above the card's 1024"),
+    (kernel_budget._CHAIN_CU_FILE, "constexpr int kCostAware = 0;",
+     "constexpr int kCostAware = 3;", "names another arm"),
+    (kernel_budget._CHAIN_CU_FILE, "return align16(8 * Z * Z);",
+     "return align16(sizeof(float2) * Z * Z);", "cannot read"),
+    (kernel_budget._WRAPPER_FILE, "_CHAIN_MAX_WARPS = 32",
+     "_CHAIN_MAX_WARPS = 16", "_CHAIN_MAX_WARPS = 16"),
+    (kernel_budget._WRAPPER_FILE, "host = 17 + (4 if arm == 0 else 0)",
+     "host = 17 + (8 if arm == 0 else 0)", "_chain_smem_bytes disagrees"),
+])
+def test_kernel_budget_reads_ensemble_chain(tmp_path, rel, old, new, expect):
+    root = _budget_tree(tmp_path)
+    assert port.run(root=root, rules=["kernel-budget"]) == []
+    _edit(root, rel, old, new)
+    got = port.run(root=root, rules=["kernel-budget"])
+    assert any(expect in f.message for f in got), [str(f) for f in got]
+
+
+def test_kernel_budget_ensemble_chain_missing_and_registers(tmp_path):
+    root = _budget_tree(tmp_path)
+    os.remove(os.path.join(root, kernel_budget._CHAIN_CU_FILE))
+    got = port.run(root=root, rules=["kernel-budget"])
+    assert any("ensemble_chain.cu is missing" in f.message for f in got)
+    model = kernel_budget.chain_model()
+    assert model.max_threads == 1024 and model.launch_bounded
+    assert kernel_budget.chain_register_findings(
+        [dict(build="cost-aware/shared", registers=64)], 65536) == []
+    bad = kernel_budget.chain_register_findings(
+        [dict(build="cost-aware/global", registers=72)], 65536)
+    assert len(bad) == 1 and "72 registers x 1024 threads" in bad[0].message
+
+
+def test_every_kernel_source_builds_as_a_kernel_build(tmp_path, monkeypatch):
+    """``build_all()`` compiles every source of ``SOURCES`` (the three
+    hand kernels, each a ``csrc/<name>.cu`` of the package) with one nvcc
+    each, and the compile counter records each library written as one
+    ``kernel_build`` (a stand-in compiler here)."""
+    from pivot_tpu_torch.ops import build
+    from pivot_tpu_torch.utils.compile_counter import count_compiles
+
+    assert build.SOURCES == ("greedy_place", "carry_free_place",
+                             "ensemble_chain")
+    for name in build.SOURCES:
+        assert os.path.isfile(os.path.join(build._CSRC, f"{name}.cu"))
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    'touch "$2"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "_BUILD_DIR", str(tmp_path / "_build"))
+    monkeypatch.setattr(build, "_nvcc", lambda: str(fake))
+    with count_compiles() as first:
+        paths = build.build_all()
+    assert sorted(paths) == sorted(build.SOURCES)
+    assert first.kernel_builds == 3
+    with count_compiles() as again:
+        build.build_all(("ensemble_chain",))
+    assert again.kernel_builds == 0
 
 
 def test_kernel_budget_registers():

@@ -248,7 +248,8 @@ def test_wrapper_on_cpu_is_plain_and_counts_nothing(arm):
                (ck.best_fit_cuda_batched, ck.best_fit_plain_batched))
         got, want = (f(*args, risk=_t(xr["risk"])) for f in fns)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert ck.LAUNCHES == {"greedy_place": 0, "carry_free_place": 0}
+    assert ck.LAUNCHES == {"greedy_place": 0, "carry_free_place": 0,
+                           "ensemble_chain": 0}
     assert ck.LAUNCHES_CARRY_FREE == {}
 
 

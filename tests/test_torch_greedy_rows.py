@@ -92,7 +92,8 @@ def test_plain_rows_equals_plain_row_by_row(mode, G, T, H, extras):
     ck.reset_launches()
     pw, aw = ck.cost_aware_cuda_rows(*args, **mode, **tkw, n_eff_g=tn)
     assert torch.equal(pw, p) and torch.equal(aw, a)
-    assert ck.LAUNCHES == {"greedy_place": 0, "carry_free_place": 0} and \
+    assert ck.LAUNCHES == {"greedy_place": 0, "carry_free_place": 0,
+                           "ensemble_chain": 0} and \
         ck.LAUNCHES_ROWS == {}
 
 
